@@ -1,0 +1,102 @@
+"""Shared inputs of the tests that hold tpuhevc_torch against tpuhevc.
+
+Not a test module: seeded clips and planes (numpy), seeded NN-FME weights
+written with `tpuhevc.models.nnfme.save_npz`, the slice's LD-P config, and
+the `cuda_device` fixture that skips a test where PyTorch sees no GPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from tools.make_test_clip import make_clip
+from tpuhevc.codec.params import EncoderConfig, SeqParams
+from tpuhevc.models import nnfme
+from tpuhevc_torch.models.nnfme import random_params
+
+W, H = 112, 72  # not 16-aligned: JAX takes build_ldp_scan; all 4 CU classes
+GOP_QP_OFFSETS = (3, 2, 3, 1)  # the anchor LD-P cfg's GOP table
+QP = 32
+
+
+def clip_frames(w: int, h: int, n: int) -> list:
+    """n (y, u, v) uint8 frames of tools.make_test_clip's seeded clip."""
+    raw = make_clip(w, h, n)
+    fsz = w * h * 3 // 2
+    out = []
+    for i in range(n):
+        b = np.frombuffer(raw[i * fsz : (i + 1) * fsz], dtype=np.uint8)
+        out.append((b[: w * h].reshape(h, w),
+                    b[w * h : w * h * 5 // 4].reshape(h // 2, w // 2),
+                    b[w * h * 5 // 4 :].reshape(h // 2, w // 2)))
+    return out
+
+
+class Reader:
+    def __init__(self, frames):
+        self.frames = frames
+
+    def read_frame(self, i):
+        return self.frames[i] if i < len(self.frames) else None
+
+
+def write_weights(path, qp: int = QP, seed: int = 0) -> str:
+    """Seeded NN-FME weights for `qp` as an npz; returns the path."""
+    nnfme.save_npz(str(path), {qp: random_params(seed)})
+    return str(path)
+
+
+def ldp_cfg(npz: str | None, w: int = W, h: int = H, backend: str = "jax",
+            **kw) -> EncoderConfig:
+    """The slice: LD-P, NN-FME, RDOQ/SBH/deblocking/SAO off."""
+    args = dict(qp=QP, intra_period=-1, fme_mode="nn", nn_weights_dir=npz,
+                gop_qp_offsets=GOP_QP_OFFSETS, inter_backend=backend)
+    args.update(kw)
+    return EncoderConfig(sps=SeqParams(width=w, height=h), **args)
+
+
+def rng_planes(seed: int, h: int, w: int, n: int = 1) -> np.ndarray:
+    """Smooth-plus-noise 8-bit planes (n, h, w) int32 that give SAD
+    surfaces and residuals of a natural spread."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    out = []
+    for _ in range(n):
+        f = rng.uniform(5, 40, 4)
+        base = (128 + 50 * np.sin(xx / f[0] + yy / f[1])
+                + 40 * np.cos(yy / f[2] - xx / f[3])
+                + rng.normal(0, 6, (h, w)))
+        out.append(np.clip(np.rint(base), 0, 255).astype(np.int32))
+    return np.stack(out)
+
+
+def parse_meta(cfg, row: np.ndarray) -> dict:
+    """{class tag: (mvq, mv_int, sad9, cbf)} of one packed frame row, at the
+    offsets `tpuhevc.codec.inter_batch.collect_frame` reads them."""
+    from tpuhevc.codec.inter_batch import _positions
+
+    w, h = cfg.sps.coded_width, cfg.sps.coded_height
+    off = w * h * 2 + 2 * (w * h // 2) + w * h + 2 * (w * h // 4)
+    out = {}
+    for tag, poss, _ in _positions(cfg)[1]:
+        n = len(poss)
+        parts = []
+        for nbytes, dt, shape in ((n * 4, np.int16, (n, 2)),
+                                  (n * 4, np.int16, (n, 2)),
+                                  (n * 36, np.int32, (n, 9)),
+                                  (n, np.uint8, (n,))):
+            parts.append(np.frombuffer(row[off : off + nbytes].tobytes(),
+                                       dtype=dt).reshape(shape))
+            off += nbytes
+        out[tag] = tuple(parts)
+    return out
+
+
+@pytest.fixture
+def cuda_device():
+    """torch.device('cuda'); skips the test where there is no GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel vs plain on the card)")
+    return torch.device("cuda", torch.cuda.current_device())

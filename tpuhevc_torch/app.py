@@ -1,0 +1,87 @@
+"""CLI of the port: `enc` runs the LD-P slice through the CUDA kernels;
+`dec` is tpuhevc's host decoder (the oracle, not a stage of the port).
+
+Usage:
+  python -m tpuhevc_torch enc -c cfg/encoder_lowdelay_P_main.cfg \
+      -i in.yuv -b out.bin -o rec.yuv -wdt 416 -hgt 240 -f 17 -q 32 \
+      --RDOQ=0 --SignHideFlag=0 --SAO=0 --LoopFilterDisable=1 \
+      --NNWeightsDir=weights.npz [--Device=cuda]
+  python -m tpuhevc_torch dec -b out.bin -o dec.yuv
+
+Options are tpuhevc's (HM syntax); `--Device=` names the torch device
+(default cuda; there is no fallback to the CPU).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+
+
+def main_encode(argv: list[str]) -> int:
+    from tpuhevc.config.options import build_config, parse_args
+    from tpuhevc.utils.yuv import YuvReader, write_yuv
+
+    from .codec.encoder import encode_sequence
+
+    opts = parse_args(argv)
+    device = opts.pop("Device", "cuda")
+    cfg, io = build_config(opts)
+    if not io["InputFile"] or not io["BitstreamFile"]:
+        print("need -i input.yuv and -b out.bin", file=sys.stderr)
+        return 2
+    reader = YuvReader(io["InputFile"], cfg.sps.width, cfg.sps.height,
+                       cfg.sps.bit_depth)
+    t0 = time.time()
+    enc, recons = encode_sequence(reader, cfg, device=device)
+    total_bits = 0
+    psnrs = np.zeros(3)
+    for r in enc.results:
+        stype = "I" if enc._slice_type(r.poc) == 2 else "P"
+        print(
+            f"POC {r.poc:4d} ( {stype}-SLICE, QP {enc.frame_qp(r.poc)} ) "
+            f"{r.bits:10d} bits [Y {r.psnr_y:.4f} dB  U {r.psnr_u:.4f} dB  "
+            f"V {r.psnr_v:.4f} dB] [MD5:{r.md5[0].hex()}]"
+        )
+        total_bits += r.bits
+        psnrs += [r.psnr_y, r.psnr_u, r.psnr_v]
+    n = len(enc.results)
+    kbps = total_bits * cfg.frame_rate / n / 1000 if n else 0
+    print("\nSUMMARY " + "-" * 56)
+    print("\tTotal Frames |   Bitrate     Y-PSNR    U-PSNR    V-PSNR")
+    print(f"\t{n:12d} a {kbps:12.4f} {psnrs[0]/max(n,1):9.4f} "
+          f"{psnrs[1]/max(n,1):9.4f} {psnrs[2]/max(n,1):9.4f}")
+    data = enc.bitstream()
+    with open(io["BitstreamFile"], "wb") as f:
+        f.write(data)
+    print(f"\nBytes written to file: {len(data)}"
+          f" ({len(data) * 8 * cfg.frame_rate / max(n, 1) / 1000:.3f} kbps)")
+    if io["ReconFile"]:
+        crop = [(y[: cfg.sps.height, : cfg.sps.width],
+                 u[: cfg.sps.height // 2, : cfg.sps.width // 2],
+                 v[: cfg.sps.height // 2, : cfg.sps.width // 2])
+                for (y, u, v) in recons]
+        write_yuv(io["ReconFile"], crop, cfg.sps.bit_depth)
+    print(f"\n Total Time: {time.time() - t0:12.3f} sec.")
+    return 0
+
+
+def main_decode(argv: list[str]) -> int:
+    from tpuhevc.app import main_decode as decode
+
+    return decode(argv)
+
+
+def main() -> int:
+    if len(sys.argv) < 2 or sys.argv[1] not in ("enc", "dec"):
+        print(__doc__)
+        return 2
+    if sys.argv[1] == "enc":
+        return main_encode(sys.argv[2:])
+    return main_decode(sys.argv[2:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

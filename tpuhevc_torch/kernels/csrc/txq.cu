@@ -1,0 +1,180 @@
+// K4: fused inter TU coding with the skip/code decision.
+//
+// Replaces: tpuhevc/codec/inter_batch.py:193-211 (`coded_plane`,
+// `bits_est`, `sse`) and the drop rule at 231-236 / 246-252 (closures of
+// build_ldp_scan that XLA compiled for the TPU), over the int32 JAX
+// transforms of tpuhevc/ops/transforms.py:144-198.
+//
+// What it computes, per TU of size S (4..32), 8-bit:
+//   r = cur - pred
+//   h = (r T^T + 2^(s1-1)) >> s1, s1 = log2 - 1;  c = (T h + 2^(s2-1)) >> s2, s2 = log2 + 6
+//   lvl = sign(c) * ((|c| * qscale + qadd) >> qbits), clipped to int16
+//   deq = lvl * dqscale, then a rounded >> dqshift (or << -dqshift), int16
+//   g = clip16((T^T deq + 64) >> 7);  rsd = clip16((g T + 2048) >> 12)
+//   rec = nz ? clip(pred + rsd, 0, 255) : pred, nz = any(lvl != 0)
+//   bits = sum(2 * min(15, bitlen|lvl|) + (lvl != 0))
+//   drop = (sse(cur, pred) - sse(cur, rec)) <= (lam_full * bits) >> 8,
+//          the product wrapping in int32 as under JAX
+//   dropped: lvl = 0, rec = pred, d = sse(cur, pred), bits = 0;
+//   else d = sse(cur, rec).
+// Every sum is int32 exactly as in JAX (stage sums stay below 2^28).
+//
+// What bounds it: integer multiply-adds, 4 S^3 per TU (~131 k at S=32),
+// all on shared memory; device memory sees cur and pred once and lvl/rec
+// once.
+// Design: one block per TU, the whole chain in one launch with no
+// intermediate in device memory. The HEVC 32x32 matrix sits in constant
+// memory; the S x S matrix (rows 32/S apart) is staged into shared memory
+// so that threads of a warp reading different rows do not serialise. Each
+// stage is one pass over the S x S outputs (thread per output), separated
+// by barriers; the four sums (nz, bits, both SSEs) are block reductions.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__constant__ int c_dct32[32 * 32];
+
+__device__ __forceinline__ int clip16(int v) {
+    return min(max(v, -32768), 32767);
+}
+
+// sum of v over the block; every thread gets the total
+__device__ int block_sum(int v, int* scratch) {
+    for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) scratch[warp] = v;
+    __syncthreads();
+    int total = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += scratch[w];
+    __syncthreads();
+    return total;
+}
+
+__global__ void txq_kernel(const int* __restrict__ cur,
+                           const int* __restrict__ pred,
+                           int* __restrict__ lvl_out,
+                           int* __restrict__ rec_out,
+                           int* __restrict__ d_out,
+                           int* __restrict__ bits_out,
+                           int log2, int qscale, int qadd, int qbits,
+                           int dqscale, int dqshift, int lam_full) {
+    extern __shared__ int smem[];
+    __shared__ int scratch[32];
+    const int S = 1 << log2, n2 = S * S, mask = S - 1;
+    int* T = smem;          // S x S matrix
+    int* A = T + n2;        // residual, then dequantised coefficients, then recon
+    int* B = A + n2;        // first-stage outputs
+    int* L = B + n2;        // levels
+    const int n = blockIdx.x;
+    const int* cb = cur + (size_t)n * n2;
+    const int* pb = pred + (size_t)n * n2;
+    const int step = 5 - log2;
+
+    int sse_skip = 0;
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        T[e] = c_dct32[((e >> log2) << step) * 32 + (e & mask)];
+        const int r = cb[e] - pb[e];
+        A[e] = r;
+        sse_skip += r * r;
+    }
+    __syncthreads();
+
+    // forward, horizontal: B[y][k] = (sum_x A[y][x] T[k][x] + rnd1) >> s1
+    const int s1 = log2 - 1;
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        const int y = e >> log2, k = e & mask;
+        int acc = 0;
+        for (int x = 0; x < S; ++x) acc += A[y * S + x] * T[k * S + x];
+        B[e] = (acc + (1 << (s1 - 1))) >> s1;
+    }
+    __syncthreads();
+
+    // forward, vertical: c[k][j] = (sum_y T[k][y] B[y][j] + rnd2) >> s2,
+    // then quantise, count, dequantise
+    const int s2 = log2 + 6;
+    int nz = 0, bits = 0;
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        const int k = e >> log2, j = e & mask;
+        int acc = 0;
+        for (int y = 0; y < S; ++y) acc += T[k * S + y] * B[y * S + j];
+        const int c = (acc + (1 << (s2 - 1))) >> s2;
+        const int level = (abs(c) * qscale + qadd) >> qbits;
+        const int lev = clip16(c < 0 ? -level : level);
+        L[e] = lev;
+        const int a = abs(lev);
+        nz += a != 0;
+        bits += 2 * min(15, 32 - __clz(a)) + (a != 0);
+        const int x = lev * dqscale;
+        const int dq = dqshift > 0 ? (x + (1 << (dqshift - 1))) >> dqshift
+                                   : x * (1 << -dqshift);
+        A[e] = clip16(dq);
+    }
+    nz = block_sum(nz, scratch);
+    bits = block_sum(bits, scratch);
+
+    // inverse, vertical: B[y][j] = clip16((sum_k T[k][y] A[k][j] + 64) >> 7)
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        const int y = e >> log2, j = e & mask;
+        int acc = 0;
+        for (int k = 0; k < S; ++k) acc += T[k * S + y] * A[k * S + j];
+        B[e] = clip16((acc + 64) >> 7);
+    }
+    __syncthreads();
+
+    // inverse, horizontal, and recon: rsd[y][x] = clip16((sum_k B[y][k]
+    // T[k][x] + 2048) >> 12)
+    int sse_coded = 0;
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        const int y = e >> log2, x = e & mask;
+        int acc = 0;
+        for (int k = 0; k < S; ++k) acc += B[y * S + k] * T[k * S + x];
+        const int rsd = clip16((acc + 2048) >> 12);
+        const int p = pb[e];
+        const int rec = nz ? min(max(p + rsd, 0), 255) : p;
+        A[e] = rec;
+        const int dd = cb[e] - rec;
+        sse_coded += dd * dd;
+    }
+    sse_skip = block_sum(sse_skip, scratch);
+    sse_coded = block_sum(sse_coded, scratch);
+
+    const int rate = (int)((unsigned)lam_full * (unsigned)bits) >> 8;
+    const bool drop = (sse_skip - sse_coded) <= rate;
+    int* lo = lvl_out + (size_t)n * n2;
+    int* ro = rec_out + (size_t)n * n2;
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        lo[e] = drop ? 0 : L[e];
+        ro[e] = drop ? pb[e] : A[e];
+    }
+    if (threadIdx.x == 0) {
+        d_out[n] = drop ? sse_skip : sse_coded;
+        bits_out[n] = drop ? 0 : bits;
+    }
+}
+
+}  // namespace
+
+// Copies the 32x32 HEVC DCT matrix (int32, host memory) to constant memory
+// of the current device. Call once per device before tpuhevc_txq.
+extern "C" int tpuhevc_txq_init(const int* host_t32) {
+    cudaMemcpyToSymbol(c_dct32, host_t32, sizeof(int) * 32 * 32);
+    return (int)cudaGetLastError();
+}
+
+// cur, pred (n, S, S) int32 on the device, S = 1 << log2 in 4..32 ->
+// lvl, rec (n, S, S), d, bits (n,). Quantiser constants as
+// tpuhevc_torch/ops/transforms.py quant_params / dequant_params give them.
+extern "C" int tpuhevc_txq(const int* cur, const int* pred, int* lvl,
+                           int* rec, int* d, int* bits, int n, int log2,
+                           int qscale, int qadd, int qbits, int dqscale,
+                           int dqshift, int lam_full, void* stream) {
+    const int n2 = 1 << (2 * log2);
+    const int threads = n2 >= 256 ? 256 : (n2 < 32 ? 32 : n2);
+    const size_t smem = (size_t)4 * n2 * sizeof(int);
+    txq_kernel<<<n, threads, smem, (cudaStream_t)stream>>>(
+        cur, pred, lvl, rec, d, bits, log2, qscale, qadd, qbits, dqscale,
+        dqshift, lam_full);
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,2 @@
+"""Per-block device ops of the port: plain PyTorch versions and the
+wrappers of their CUDA kernels (motion search, MC, transforms, TU coding)."""

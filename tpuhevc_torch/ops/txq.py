@@ -1,0 +1,117 @@
+"""Fused inter TU coding with the skip/code decision (kernel K4).
+
+Twin of `tpuhevc/codec/inter_batch.py:193-211` (`coded_plane`, `bits_est`,
+`sse`) and its drop rule at 231-236 / 246-252, over the transforms of
+`tpuhevc/ops/transforms.py:144-198`: residual -> forward DCT-II -> inter
+quantiser (rounding 85) -> dequantiser -> inverse DCT -> recon clip; the
+nz flag; SSE of the skip (pred) and coded recons; the bit proxy; and the
+lambda drop `(d_skip - d_coded) <= (lam_full * bits) >> 8`, whose product
+wraps in int32 as JAX computes it. Outputs lvl, rec (N, S, S) and d, bits
+(N,) int32 after the drop.
+
+`txq_plain` is the PyTorch version; `txq` launches the CUDA kernel
+(`kernels/csrc/txq.cu`) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from tpuhevc.utils.tables import dct_matrix
+
+from ..device import check_tensor
+from ..kernels import LAUNCHES
+from ..kernels import build as kbuild
+from . import transforms as tx
+
+_INIT_DEVICES: set = set()
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced to int32 two's-complement range (as int64)."""
+    return ((x + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def bits_est(lvl: torch.Tensor) -> torch.Tensor:
+    """(N, S, S) levels -> (N,) bit proxy: per coefficient 2*bitlen(|l|)
+    (bitlen capped at 15) + (l != 0)."""
+    a = lvl.reshape(lvl.shape[0], -1).abs().long()
+    bl = torch.zeros_like(a)
+    for k in range(15):
+        bl = bl + (a > (1 << k) - 1).long()
+    return (2 * bl + (a > 0).long()).sum(dim=1).int()
+
+
+def _sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = (a - b).reshape(a.shape[0], -1).long()
+    return (d * d).sum(dim=1).int()
+
+
+def txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
+    """cur, pred (N, S, S) int32 -> (lvl, rec (N,S,S), d, bits (N,)) int32."""
+    log2 = cur.shape[-1].bit_length() - 1
+    lvl = tx.quantize(tx.forward_transform(cur - pred), qp, log2, 8, False)
+    rsd = tx.inverse_transform(tx.dequantize(lvl, qp, log2))
+    rec = (pred + rsd).clamp(0, 255)
+    nz = (lvl != 0).reshape(lvl.shape[0], -1).any(dim=1)
+    rec = torch.where(nz[:, None, None], rec, pred)
+    d_skip = _sse(cur, pred)
+    d_coded = _sse(cur, rec)
+    bits = bits_est(lvl)
+    drop = (d_skip - d_coded) <= (wrap_int32(lam_full * bits.long()) >> 8)
+    lvl = torch.where(drop[:, None, None], torch.zeros_like(lvl), lvl)
+    rec = torch.where(drop[:, None, None], pred, rec)
+    d = torch.where(drop, d_skip, d_coded)
+    bits = torch.where(drop, torch.zeros_like(bits), bits)
+    return lvl, rec, d, bits
+
+
+def _init_matrix(dev: torch.device) -> None:
+    """Copy the 32x32 HEVC matrix into the kernel's constant memory."""
+    if dev.index in _INIT_DEVICES:
+        return
+    t32 = np.ascontiguousarray(dct_matrix(32), dtype=np.int32)
+    fn = kbuild.function("txq", "tpuhevc_txq_init", [kbuild.P])
+    with torch.cuda.device(dev):
+        kbuild.check(fn(t32.ctypes.data_as(ctypes.c_void_p)), "txq init")
+    _INIT_DEVICES.add(dev.index)
+
+
+def txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
+    """K4. CPU tensors take the plain version; CUDA tensors the kernel."""
+    if cur.device.type == "cpu":
+        return txq_plain(cur, pred, qp, lam_full)
+    if cur.device.type != "cuda":
+        raise ValueError(f"txq: unsupported device {cur.device}")
+    dev = cur.device
+    check_tensor(cur, "cur", torch.int32, 3, dev)
+    check_tensor(pred, "pred", torch.int32, 3, dev)
+    n, size = cur.shape[0], cur.shape[-1]
+    if size not in (4, 8, 16, 32) or cur.shape[1] != size or \
+            pred.shape != cur.shape:
+        raise ValueError(f"txq: unsupported shapes {tuple(cur.shape)}, "
+                         f"{tuple(pred.shape)}")
+    if not 0 <= qp <= 51 or not 0 <= lam_full < (1 << 31):
+        raise ValueError(f"txq: qp {qp} / lambda {lam_full} out of range")
+    log2 = size.bit_length() - 1
+    lvl = torch.empty_like(cur)
+    rec = torch.empty_like(cur)
+    d = torch.empty((n,), dtype=torch.int32, device=dev)
+    bits = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return lvl, rec, d, bits
+    _init_matrix(dev)
+    qscale, qadd, qbits = tx.quant_params(qp, log2, 8, False)
+    dqscale, dqshift = tx.dequant_params(qp, log2, 8)
+    fn = kbuild.function("txq", "tpuhevc_txq",
+                         [kbuild.P] * 6 + [kbuild.I] * 8 + [kbuild.P])
+    err = fn(cur.data_ptr(), pred.data_ptr(), lvl.data_ptr(), rec.data_ptr(),
+             d.data_ptr(), bits.data_ptr(), n, log2, qscale, qadd, qbits,
+             dqscale, dqshift, int(lam_full),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "txq")
+    LAUNCHES["txq"] += 1
+    return lvl, rec, d, bits
