@@ -1,19 +1,20 @@
-"""The ported slice as a whole: tpuhevc_torch's LD-P NN-FME scan against
+"""The LD-P slice as a whole: tpuhevc_torch's LD-P NN-FME scan against
 tpuhevc's (JAX on the CPU) at 112x72, where JAX itself takes
 inter_batch.build_ldp_scan (the size is not 16-aligned).
 
-- one 8-frame chunk from the same host-IDR references gives byte-identical
+- one 8-frame chunk from the same IDR references gives byte-identical
   packed rows (and per class, K1's mv/sad9 and K2's offsets equal the JAX
   stage's);
-- five frames end to end give a byte-identical bitstream that tpuhevc's
-  decoder decodes with every hash OK and the encoder's recon;
+- five frames end to end give a bitstream byte-identical to tpuhevc's
+  default (jax-backend) encode, whose IDR is decided on the device as the
+  port's is, and tpuhevc's decoder decodes it with every hash OK and the
+  encoder's recon;
 - the port imports no jax, never falls back to the CPU, and refuses
   configurations outside the slice.
 """
 
 # jax is imported inside the tests that compare with it, so that the CUDA
 # tests of this file also load where only the GPU stack is installed.
-import dataclasses
 import os
 import subprocess
 import sys
@@ -28,11 +29,11 @@ from torch_port_util import (  # noqa: F401
 from tpuhevc.codec import inter_batch as jib
 from tpuhevc.codec.decoder import decode_stream
 from tpuhevc.codec.encoder import encode_sequence as jax_encode_sequence
-from tpuhevc.codec.intra_qt import encode_frame_intra_qt
 from tpuhevc.codec.params import p_frame_lambda
 from tpuhevc.models import nnfme as ref_nnfme
 from tpuhevc_torch.codec import inter_batch as tib
 from tpuhevc_torch.codec.encoder import encode_sequence
+from tpuhevc_torch.codec.intra_qt import encode_frame_intra_qt
 from tpuhevc_torch.kernels import LAUNCHES, reset_launches
 from tpuhevc_torch.models.nnfme import (
     NNFME, height_category, nn_refine, random_params, width_category)
@@ -42,12 +43,6 @@ from tpuhevc_torch.ops.txq import txq
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = ["c32", "c16", "cf", "c8"]
-
-
-def host_idr(y, u, v, cfg):
-    """tpuhevc's host IDR decision, the one the port uses."""
-    return encode_frame_intra_qt(y, u, v,
-                                 dataclasses.replace(cfg, inter_backend="np"))
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +63,7 @@ def chunk(setup):
     params = ref_nnfme.select_qp_params(ref_nnfme.load_npz(npz), QP)
     qps = sorted({min(max(QP + o, 0), 51) for o in GOP_QP_OFFSETS})
     nn_by_qp = {qp: params for qp in qps}
-    _, refs = host_idr(*frames[0], cfg)
+    _, refs = encode_frame_intra_qt(*frames[0], cfg, device="cpu")
     refs = [np.ascontiguousarray(p, dtype=np.int32) for p in refs]
     u8 = np.stack([np.concatenate([p.ravel() for p in fr])
                    for fr in frames[1:9]]).reshape(2, 4, -1)
@@ -118,8 +113,7 @@ def test_stages_match_jax_per_class(chunk, tag):
 
 def test_e2e_bitstream_matches_jax_and_decodes(setup):
     npz, frames = setup
-    enc_j, _ = jax_encode_sequence(Reader(frames), ldp_cfg(npz), max_frames=5,
-                                   frame_encoder=host_idr)
+    enc_j, _ = jax_encode_sequence(Reader(frames), ldp_cfg(npz), max_frames=5)
     enc_t, recons = encode_sequence(Reader(frames), ldp_cfg(npz),
                                     max_frames=5, device="cpu")
     stream = enc_t.bitstream()
@@ -197,7 +191,7 @@ OUTSIDE = {
     "dctif": dict(fme_mode="dctif"),
     "random_access": dict(gop_structure="ra"),
     "rate_control": dict(target_bitrate=200000),
-    "all_intra": dict(intra_period=1),
+    "fixed_8x8_intra": dict(intra_qt=False),
     "bit_depth_10": dict(bit_depth=10),
     "scaling_list": dict(scaling_list=True),
 }

@@ -39,6 +39,24 @@ def test_transforms_match_jax(size):
         np.testing.assert_array_equal(r_t, r_j)
 
 
+def test_dst_matches_jax():
+    """The 4x4 DST-VII of intra luma, forward and inverse."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(44)
+    resi = rng.integers(-255, 256, (40, 4, 4)).astype(np.int32)
+    resi[0], resi[1] = 255, -255
+    c_j = np.asarray(jtx.forward_transform(jnp.asarray(resi), 8, True))
+    c_t = ttx.forward_transform(torch.from_numpy(resi), 8, True).numpy()
+    np.testing.assert_array_equal(c_t, c_j)
+    d = np.asarray(jtx.dequantize(jtx.quantize(jnp.asarray(c_j), 27, 2), 27, 2))
+    r_j = np.asarray(jtx.inverse_transform(jnp.asarray(d), 8, True))
+    r_t = ttx.inverse_transform(torch.from_numpy(d.copy()), 8, True).numpy()
+    np.testing.assert_array_equal(r_t, r_j)
+    assert not np.array_equal(c_j, np.asarray(
+        jtx.forward_transform(jnp.asarray(resi), 8)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [4, 8, 16, 32])
 def test_transforms_on_cuda_equal_cpu(cuda_device, size):

@@ -1,7 +1,11 @@
-"""CLI of the port: `enc` runs the LD-P slice through the CUDA kernels;
-`dec` is tpuhevc's host decoder (the oracle, not a stage of the port).
+"""CLI of the port: `enc` runs the all-intra or the LD-P slice through the
+CUDA kernels; `dec` is tpuhevc's host decoder (the oracle, not a stage of
+the port).
 
 Usage:
+  python -m tpuhevc_torch enc -c cfg/encoder_intra_main.cfg \
+      -i in.yuv -b out.bin -o rec.yuv -wdt 416 -hgt 240 -f 3 -q 32 \
+      [--Device=cuda]
   python -m tpuhevc_torch enc -c cfg/encoder_lowdelay_P_main.cfg \
       -i in.yuv -b out.bin -o rec.yuv -wdt 416 -hgt 240 -f 17 -q 32 \
       --RDOQ=0 --SignHideFlag=0 --SAO=0 --LoopFilterDisable=1 \

@@ -1,19 +1,25 @@
-"""LD-P encode loop of the port: host IDR, then chunks of P frames through
-the device scan, host serialisation of chunk i-1 overlapped with the
-device work of chunk i.
+"""Encode loops of the port: all-intra Main (IntraPeriod 1) and LD-P.
 
-Twin of the non-grid half of `tpuhevc/codec/encoder.py:737-942`
-(`LdpScanDriver`, `_ldp_scan_pipelined`) and of the LD-P branch of its
-`encode_sequence`. It reuses `tpuhevc.codec.encoder.Encoder` for the IDR
-(the host quadtree intra decision), headers, CABAC and NAL packing, and
-`tpuhevc.codec.inter_batch.collect_frame` plus
-`tpuhevc.codec.inter_enc.assemble_frame_p` for the decision walk. Until the
-grid step is ported, every picture size takes this scan.
+All-intra: every picture through the port's quadtree intra decision on
+the device (`codec/intra_qt.py`), then tpuhevc's coding walk, in-loop
+filters and CABAC (`Encoder.encode_frame`); the twin of the last branch
+of `tpuhevc/codec/encoder.py:encode_sequence` with the JAX decision.
+
+LD-P: the IDR the same way (decided twice, `intra_two_pass`), then chunks
+of P frames through the device scan, host serialisation of chunk i-1
+overlapped with the device work of chunk i. Twin of the non-grid half of
+`tpuhevc/codec/encoder.py:737-942` (`LdpScanDriver`,
+`_ldp_scan_pipelined`) and of the LD-P branch of its `encode_sequence`.
+It reuses `tpuhevc.codec.encoder.Encoder` for headers, CABAC and NAL
+packing, and `tpuhevc.codec.inter_batch.collect_frame` plus
+`tpuhevc.codec.inter_enc.assemble_frame_p` for the decision walk. Until
+the grid step is ported, every picture size takes this scan.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -26,34 +32,41 @@ from tpuhevc.codec.recon import _pad_to
 
 from ..device import resolve
 from .inter_batch import build_ldp_scan
+from .intra_qt import encode_frame_intra_qt
 
-# the value the port sets: anything but "jax" keeps tpuhevc's host IDR path
+# The port passes its own frame encoder for I pictures; anything but "jax"
+# keeps tpuhevc from selecting one of its JAX stages anywhere else.
 INTER_BACKEND = "torch"
 
 
 def check_slice(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for any configuration outside the ported
-    slice (LD-P, NN-FME or integer-pel, tools off, 8 bits, one slice)."""
+    slices: all-intra (IntraPeriod 1) with tpuhevc's host tools after the
+    decision, or LD-P with NN-FME or integer-pel and those tools off; both
+    8-bit, quadtree intra, one slice."""
     sps, pps = cfg.sps, cfg.pps
     off = [
-        (cfg.rdoq, "RDOQ"),
-        (pps.sign_data_hiding, "sign-bit hiding"),
-        (cfg.deblocking, "deblocking"),
-        (sps.sao_enabled, "SAO"),
-        (cfg.fme_mode not in ("nn", "none"), f"FmeMode {cfg.fme_mode}"),
-        (cfg.gop_structure != "ldp" or bool(cfg.gop_table),
-         "random access / B pictures"),
         (cfg.target_bitrate > 0, "rate control"),
-        (cfg.intra_period != -1, f"IntraPeriod {cfg.intra_period}"),
         (sps.bit_depth != 8, f"bit depth {sps.bit_depth}"),
         (sps.scaling_list_enabled, "scaling lists"),
-        (cfg.intra_in_inter, "intra CUs in P pictures"),
         (not cfg.intra_qt, "fixed 8x8 intra"),
         (cfg.adaptive_qp or cfg.ctu_qp_map is not None, "adaptive QP"),
-        (pps.weighted_pred, "weighted prediction"),
         (pps.tiles_enabled or pps.entropy_coding_sync or cfg.slice_ctus > 0,
          "tiles, wavefronts or multiple slices"),
     ]
+    if cfg.intra_period != 1:  # LD-P
+        off += [
+            (cfg.rdoq, "RDOQ"),
+            (pps.sign_data_hiding, "sign-bit hiding"),
+            (cfg.deblocking, "deblocking"),
+            (sps.sao_enabled, "SAO"),
+            (cfg.fme_mode not in ("nn", "none"), f"FmeMode {cfg.fme_mode}"),
+            (cfg.gop_structure != "ldp" or bool(cfg.gop_table),
+             "random access / B pictures"),
+            (cfg.intra_period != -1, f"IntraPeriod {cfg.intra_period}"),
+            (cfg.intra_in_inter, "intra CUs in P pictures"),
+            (pps.weighted_pred, "weighted prediction"),
+        ]
     bad = [name for cond, name in off if cond]
     if bad:
         raise NotImplementedError("not yet ported: " + ", ".join(bad))
@@ -92,7 +105,8 @@ class LdpScanDriver:
         return len(self.starts)
 
     def start(self) -> None:
-        """Encode the leading IDR on the host and stage its recon."""
+        """Encode the leading IDR (decided on the device) and stage its
+        recon."""
         self.finish(0, self.frames[0])
         self.refs = tuple(
             torch.from_numpy(np.ascontiguousarray(p, dtype=np.int32))
@@ -163,13 +177,15 @@ def _ldp_scan_pipelined(enc, cfg, frames, finish, device) -> None:
 def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
                     device="cuda"):
     """Encode frames read from `reader` (read_frame(i) -> (y, u, v) or
-    None) as one IDR followed by P pictures. Returns (Encoder, recons),
-    as `tpuhevc.codec.encoder.encode_sequence` does. `device` is explicit:
-    a CUDA device that is absent raises, it never falls back to the CPU."""
+    None): every picture intra with IntraPeriod 1, else one IDR followed by
+    P pictures. Returns (Encoder, recons), as
+    `tpuhevc.codec.encoder.encode_sequence` does. `device` is explicit: a
+    CUDA device that is absent raises, it never falls back to the CPU."""
     dev = resolve(device)
     check_slice(cfg)
     cfg = dataclasses.replace(cfg, inter_backend=INTER_BACKEND)
-    enc = Encoder(cfg)
+    enc = Encoder(cfg, frame_encoder=functools.partial(encode_frame_intra_qt,
+                                                       device=dev))
     n = max_frames if max_frames is not None else cfg.frames
     frames = []
     for i in range(n):
@@ -183,7 +199,7 @@ def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
         enc.encode_frame(*fr, poc=i, precomputed=pre)
         recons.append(enc._recon)
 
-    if len(frames) > 1:
+    if cfg.intra_period == -1 and len(frames) > 1:
         _ldp_scan_pipelined(enc, cfg, frames, _finish, dev)
     else:
         for i, fr in enumerate(frames):

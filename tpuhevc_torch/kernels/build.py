@@ -2,9 +2,10 @@
 
 One shared library per source file, with a plain C interface (no PyTorch
 headers), so a build takes seconds. Libraries go to `build/tpuhevc_torch/`
-at the repository root, named by a hash of the source and the flags, so a
-changed source is never served a stale build. Nothing is compiled at
-import time; the first call that needs a kernel builds it.
+at the repository root, named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so a changed source is never served a stale
+build. Nothing is compiled at import time; the first call that needs a
+kernel builds it.
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ BUILD_DIR = os.path.join(
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-file extras: the MLP rounds every product on its own, as the CPU does
-EXTRA_FLAGS = {"nnfme_mlp": ["-fmad=false"]}
+# per-file extras: the MLP, the RDOQ trial and the bit estimate round every
+# float product on its own, as their PyTorch versions do
+EXTRA_FLAGS = {k: ["-fmad=false"] for k in ("nnfme_mlp", "intra_txq",
+                                            "tu_bits")}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -57,10 +60,13 @@ def _flags(name: str) -> list[str]:
 
 
 def so_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
+    """The library of `name`, named by a hash of its source, the shared
+    headers of csrc/ and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for src in [name + ".cu"] + sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

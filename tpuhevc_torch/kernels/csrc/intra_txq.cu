@@ -1,0 +1,251 @@
+// intra_txq: the TU rate-distortion trial of the open-loop intra decision.
+//
+// Replaces: tpuhevc/codec/intra_decide_jax.py:86-98 (`txq`) with the
+// candidate gather of :136-137 / :189-190 / :224-225 and the uncoded
+// distortion of :139-140 / :194-195 / :227-228 (closures of `_build` that
+// XLA compiled for the TPU), over tpuhevc/ops/transforms.py:144-198
+// (DCT-II / DST-VII, intra quantiser) and :317-422 (`rdoq_est_xp`).
+//
+// What it computes, per TU (m, k): r = org[rows[m]] - preds[rows[m]]
+// [modes[m][k]]; c = forward transform (DST at 4x4 luma); levels =
+// the intra quantiser (rounding 171) or, with rdoq, the table RDOQ in
+// float32 (per coefficient the cheapest of {ceil, ceil-1, 0} by squared
+// error plus lambda times the table bits, then per 4x4 CG the all-zero
+// trial against the coded-sub-block flag); then dequantise, inverse
+// transform, and dist = sum (r - rec)^2, d0 = sum r^2 (int32, rounded
+// once to float32).
+// Float32 semantics are the PyTorch version's, op by op: the divisions by
+// constants as products with their float32 reciprocals (as XLA takes
+// them), the division by 2^rice an IEEE division, no contraction (built
+// with -fmad=false), the CG sums sequential in raster order inside the
+// CG. The Rice parameter and the escape length are exact integer
+// formulas (no log2f).
+//
+// What bounds it: the transform's 4 S^3 multiply-adds per TU and, with
+// rdoq, ~60 float operations per coefficient, all on shared memory;
+// device memory sees each TU's org and prediction once (the prediction is
+// read by its mode index in place, no gathered copy) and writes its
+// levels once. Launch-bound at the small classes (49,920 4x4 TUs at
+// 416x240 are cheap blocks of 32 threads).
+// Design: one block per (m, k) TU, one launch per class for all its
+// candidates; the transform core of tx_common.cuh; per-CG steps (Rice
+// parameter, zero trial) by one thread per CG between barriers.
+
+#include "tx_common.cuh"
+
+namespace {
+
+struct Rdoq {
+    float scale, qdiv, inv_qdiv, inv_den, lam, lc0, lc1;
+};
+
+// float32 tables of entropy/bitest.py (`_foffsets`)
+__device__ __forceinline__ int f_csbf(int S) { return 8 * S * S; }
+
+__global__ void intra_txq_kernel(const int* __restrict__ org,
+                                 const int* __restrict__ preds,
+                                 const int* __restrict__ rows,
+                                 const int* __restrict__ modes,
+                                 const float* __restrict__ ftab,
+                                 float* __restrict__ dist_out,
+                                 float* __restrict__ d0_out,
+                                 int* __restrict__ lvl_out,
+                                 int K, int log2, int dst, int qscale,
+                                 int qadd, int qbits, int dqscale,
+                                 int dqshift, int rdoq, Rdoq rq) {
+    extern __shared__ int smem[];
+    __shared__ int scratch[32];
+    __shared__ int cg_rice[64];
+    __shared__ int cg_keep[64];
+    const int S = 1 << log2, n2 = S * S, mask = S - 1;
+    const int cgw = S > 4 ? S >> 2 : 1, ncg = cgw * cgw;
+    int* T = smem;             // S x S matrix
+    int* A = T + n2;           // residual -> coefficients -> dequant -> rec
+    int* B = A + n2;           // transform scratch
+    int* R = B + n2;           // the residual, kept for dist
+    int* L = R + n2;           // levels
+    float* F1 = (float*)(L + n2);  // ac
+    float* F2 = F1 + n2;           // lmax, then the chosen level
+    float* F3 = F2 + n2;           // per-coefficient CG-keep cost
+    float* F4 = F3 + n2;           // per-coefficient CG-zero cost
+
+    const int tu = blockIdx.x;
+    const int m = tu / K;
+    const int row = rows[m];
+    const int mode = modes[tu];
+    const int* ob = org + (size_t)row * n2;
+    const int* pb = preds + ((size_t)row * 35 + mode) * n2;
+
+    tx_load_matrix(T, log2, dst != 0);
+    int d0 = 0;
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        const int r = ob[e] - pb[e];
+        A[e] = r;
+        R[e] = r;
+        d0 += r * r;
+    }
+    __syncthreads();
+    tx_forward(A, B, T, log2);
+
+    if (!rdoq) {
+        for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+            const int c = A[e];
+            const int level = (abs(c) * qscale + qadd) >> qbits;
+            L[e] = clip16(c < 0 ? -level : level);
+        }
+    } else {
+        const float* sig = ftab;  // sig_bits[0]: (S, S, 2), prev CSBF 0
+        const float* csb = ftab + f_csbf(S);
+        const float g1[2] = {csb[4], csb[5]}, g10[2] = {csb[6], csb[7]};
+        const float g2[2] = {csb[8], csb[9]}, g20[2] = {csb[10], csb[11]};
+        for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+            const float ac = (float)abs(A[e]) * rq.scale;
+            F1[e] = ac;
+            F2[e] = ceilf(ac * rq.inv_qdiv);
+        }
+        __syncthreads();
+        // per-CG Rice stand-in: largest k <= 4 with 3 * 2^k <= cg_max,
+        // 0 unless cg_max > 6
+        for (int g = threadIdx.x; g < ncg; g += blockDim.x) {
+            const int cy = g / cgw, cx = g - cy * cgw;
+            float mx = F2[(cy * 4) * S + cx * 4];
+            for (int i = 1; i < 16; ++i)
+                mx = fmaxf(mx, F2[(cy * 4 + (i >> 2)) * S + cx * 4 + (i & 3)]);
+            int k = 0;
+            for (int j = 1; j <= 4; ++j) k += mx >= (float)(3 << j);
+            cg_rice[g] = mx > 6.0f ? k : 0;
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+            const int y = e >> log2, x = e & mask;
+            const int g = (y >> 2) * cgw + (x >> 2);
+            const bool cg0 = y < 4 && x < 4;
+            const float s0 = sig[e * 2], s1 = sig[e * 2 + 1];
+            const float gt1_0 = cg0 ? g10[0] : g1[0];
+            const float gt1_1 = cg0 ? g10[1] : g1[1];
+            const float gt2_0 = cg0 ? g20[0] : g2[0];
+            const float gt2_1 = cg0 ? g20[1] : g2[1];
+            const int rice = cg_rice[g];
+            const float ricef = (float)(1 << rice), rice_f = (float)rice;
+            const float ac = F1[e];
+            auto lvl_bits = [&](float level) {
+                const float rem = fmaxf(level - 3.0f, 0.0f);
+                const float three = 3.0f * ricef;
+                float rl;
+                if (rem < three) {
+                    rl = (floorf(rem / ricef) + 1.0f) + rice_f;
+                } else {
+                    const int q = (int)(rem - three);
+                    const int ext = 31 - __clz((q >> rice) + 1);
+                    rl = (4.0f + rice_f) + 2.0f * (float)ext;
+                }
+                const float inner = level > 2.0f ? (gt2_1 - gt2_0) + rl : 0.0f;
+                const float outer =
+                    level > 1.0f ? ((gt1_1 - gt1_0) + gt2_0) + inner : 0.0f;
+                return ((s1 + 1.0f) + gt1_0) + outer;
+            };
+            auto cost = [&](float level) {
+                const float d = (ac - level * rq.qdiv) * rq.inv_den;
+                const float bits = level > 0.0f ? lvl_bits(level) : s0;
+                return d * d + rq.lam * bits;
+            };
+            const float lmax = F2[e];
+            const float l1 = fmaxf(lmax, 0.0f), l2 = fmaxf(lmax - 1.0f, 0.0f);
+            float best = cost(l1) <= cost(l2) ? l1 : l2;
+            best = cost(best) <= cost(0.0f) ? best : 0.0f;
+            F2[e] = best;
+            if (S > 4) {
+                const float dz = (ac - best * rq.qdiv) * rq.inv_den;
+                const float kb = best > 0.0f ? lvl_bits(best) : s0;
+                F3[e] = dz * dz + rq.lam * kb;
+                const float acn = ac * rq.inv_den;
+                F4[e] = acn * acn;
+            }
+        }
+        __syncthreads();
+        if (S > 4) {
+            for (int g = threadIdx.x; g < ncg; g += blockDim.x) {
+                const int cy = g / cgw, cx = g - cy * cgw;
+                const int base = (cy * 4) * S + cx * 4;
+                float ck = F3[base], cz = F4[base];
+                for (int i = 1; i < 16; ++i) {
+                    const int e = base + (i >> 2) * S + (i & 3);
+                    ck = ck + F3[e];
+                    cz = cz + F4[e];
+                }
+                cg_keep[g] = (ck + rq.lc1) <= (cz + rq.lc0);
+            }
+            __syncthreads();
+        }
+        for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+            const int y = e >> log2, x = e & mask;
+            const bool keep = S == 4 || cg_keep[(y >> 2) * cgw + (x >> 2)];
+            const float best = keep ? F2[e] : 0.0f;
+            const int c = A[e];
+            const float sgn = c > 0 ? 1.0f : (c < 0 ? -1.0f : 0.0f);
+            L[e] = (int)fminf(fmaxf(sgn * best, -32767.0f), 32767.0f);
+        }
+    }
+    __syncthreads();
+
+    int* lo = lvl_out + (size_t)tu * n2;
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        const int lev = L[e];
+        lo[e] = lev;
+        const int x = lev * dqscale;
+        const int dq = dqshift > 0 ? (x + (1 << (dqshift - 1))) >> dqshift
+                                   : x * (1 << -dqshift);
+        A[e] = clip16(dq);
+    }
+    __syncthreads();
+    tx_inverse(A, B, T, log2);
+
+    int dist = 0;
+    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
+        const int d = R[e] - A[e];
+        dist += d * d;
+    }
+    dist = block_sum(dist, scratch);
+    d0 = block_sum(d0, scratch);
+    if (threadIdx.x == 0) {
+        dist_out[tu] = (float)dist;
+        d0_out[tu] = (float)d0;
+    }
+}
+
+}  // namespace
+
+// Copies the 32x32 HEVC DCT and the 4x4 DST matrices (int32, host memory)
+// to constant memory of the current device. Call once per device before
+// tpuhevc_intra_txq.
+extern "C" int tpuhevc_intra_txq_init(const int* host_t32,
+                                      const int* host_dst4) {
+    cudaMemcpyToSymbol(c_dct32, host_t32, sizeof(int) * 32 * 32);
+    cudaMemcpyToSymbol(c_dst4, host_dst4, sizeof(int) * 4 * 4);
+    return (int)cudaGetLastError();
+}
+
+// org (R, S, S), preds (R, 35, S, S), rows (m,), modes (m, K) int32 on the
+// device, S = 1 << log2 -> dist, d0 (m, K) float32, lvl (m, K, S, S)
+// int32. ftab: the TU size's float32 bit tables (read only with rdoq).
+// Quantiser constants as tpuhevc_torch/ops/transforms.py quant_params /
+// dequant_params / rdoq_consts give them; lam, lc0 = lam * csbf[0][0],
+// lc1 = lam * csbf[0][1] rounded to float32.
+extern "C" int tpuhevc_intra_txq(const int* org, const int* preds,
+                                 const int* rows, const int* modes,
+                                 const float* ftab, float* dist, float* d0,
+                                 int* lvl, int m, int K, int log2, int dst,
+                                 int qscale, int qadd, int qbits, int dqscale,
+                                 int dqshift, int rdoq, float scale,
+                                 float qdiv, float inv_qdiv, float inv_den,
+                                 float lam, float lc0, float lc1,
+                                 void* stream) {
+    const int n2 = 1 << (2 * log2);
+    const int threads = n2 >= 256 ? 256 : (n2 < 32 ? 32 : n2);
+    const size_t smem = (size_t)9 * n2 * sizeof(int);
+    const Rdoq rq = {scale, qdiv, inv_qdiv, inv_den, lam, lc0, lc1};
+    intra_txq_kernel<<<m * K, threads, smem, (cudaStream_t)stream>>>(
+        org, preds, rows, modes, ftab, dist, d0, lvl, K, log2, dst, qscale,
+        qadd, qbits, dqscale, dqshift, rdoq, rq);
+    return (int)cudaGetLastError();
+}

@@ -23,34 +23,14 @@
 // all on shared memory; device memory sees cur and pred once and lvl/rec
 // once.
 // Design: one block per TU, the whole chain in one launch with no
-// intermediate in device memory. The HEVC 32x32 matrix sits in constant
-// memory; the S x S matrix (rows 32/S apart) is staged into shared memory
-// so that threads of a warp reading different rows do not serialise. Each
-// stage is one pass over the S x S outputs (thread per output), separated
-// by barriers; the four sums (nz, bits, both SSEs) are block reductions.
+// intermediate in device memory. The transform core is the shared one of
+// tx_common.cuh (the HEVC matrix in constant memory, staged per block
+// into shared memory; one pass per stage, thread per output, barriers
+// between); the four sums (nz, bits, both SSEs) are block reductions.
 
-#include <cuda_runtime.h>
+#include "tx_common.cuh"
 
 namespace {
-
-__constant__ int c_dct32[32 * 32];
-
-__device__ __forceinline__ int clip16(int v) {
-    return min(max(v, -32768), 32767);
-}
-
-// sum of v over the block; every thread gets the total
-__device__ int block_sum(int v, int* scratch) {
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) scratch[warp] = v;
-    __syncthreads();
-    int total = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += scratch[w];
-    __syncthreads();
-    return total;
-}
 
 __global__ void txq_kernel(const int* __restrict__ cur,
                            const int* __restrict__ pred,
@@ -62,44 +42,29 @@ __global__ void txq_kernel(const int* __restrict__ cur,
                            int dqscale, int dqshift, int lam_full) {
     extern __shared__ int smem[];
     __shared__ int scratch[32];
-    const int S = 1 << log2, n2 = S * S, mask = S - 1;
+    const int S = 1 << log2, n2 = S * S;
     int* T = smem;          // S x S matrix
-    int* A = T + n2;        // residual, then dequantised coefficients, then recon
-    int* B = A + n2;        // first-stage outputs
+    int* A = T + n2;        // residual, coefficients, dequantised, recon
+    int* B = A + n2;        // transform scratch
     int* L = B + n2;        // levels
     const int n = blockIdx.x;
     const int* cb = cur + (size_t)n * n2;
     const int* pb = pred + (size_t)n * n2;
-    const int step = 5 - log2;
 
+    tx_load_matrix(T, log2, false);
     int sse_skip = 0;
     for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        T[e] = c_dct32[((e >> log2) << step) * 32 + (e & mask)];
         const int r = cb[e] - pb[e];
         A[e] = r;
         sse_skip += r * r;
     }
     __syncthreads();
+    tx_forward(A, B, T, log2);
 
-    // forward, horizontal: B[y][k] = (sum_x A[y][x] T[k][x] + rnd1) >> s1
-    const int s1 = log2 - 1;
-    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int y = e >> log2, k = e & mask;
-        int acc = 0;
-        for (int x = 0; x < S; ++x) acc += A[y * S + x] * T[k * S + x];
-        B[e] = (acc + (1 << (s1 - 1))) >> s1;
-    }
-    __syncthreads();
-
-    // forward, vertical: c[k][j] = (sum_y T[k][y] B[y][j] + rnd2) >> s2,
-    // then quantise, count, dequantise
-    const int s2 = log2 + 6;
+    // quantise, count, dequantise
     int nz = 0, bits = 0;
     for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int k = e >> log2, j = e & mask;
-        int acc = 0;
-        for (int y = 0; y < S; ++y) acc += T[k * S + y] * B[y * S + j];
-        const int c = (acc + (1 << (s2 - 1))) >> s2;
+        const int c = A[e];
         const int level = (abs(c) * qscale + qadd) >> qbits;
         const int lev = clip16(c < 0 ? -level : level);
         L[e] = lev;
@@ -111,28 +76,15 @@ __global__ void txq_kernel(const int* __restrict__ cur,
                                    : x * (1 << -dqshift);
         A[e] = clip16(dq);
     }
-    nz = block_sum(nz, scratch);
+    nz = block_sum(nz, scratch);  // its barriers also complete A
     bits = block_sum(bits, scratch);
+    tx_inverse(A, B, T, log2);
 
-    // inverse, vertical: B[y][j] = clip16((sum_k T[k][y] A[k][j] + 64) >> 7)
-    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int y = e >> log2, j = e & mask;
-        int acc = 0;
-        for (int k = 0; k < S; ++k) acc += T[k * S + y] * A[k * S + j];
-        B[e] = clip16((acc + 64) >> 7);
-    }
-    __syncthreads();
-
-    // inverse, horizontal, and recon: rsd[y][x] = clip16((sum_k B[y][k]
-    // T[k][x] + 2048) >> 12)
+    // recon
     int sse_coded = 0;
     for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int y = e >> log2, x = e & mask;
-        int acc = 0;
-        for (int k = 0; k < S; ++k) acc += B[y * S + k] * T[k * S + x];
-        const int rsd = clip16((acc + 2048) >> 12);
         const int p = pb[e];
-        const int rec = nz ? min(max(p + rsd, 0), 255) : p;
+        const int rec = nz ? min(max(p + A[e], 0), 255) : p;
         A[e] = rec;
         const int dd = cb[e] - rec;
         sse_coded += dd * dd;
