@@ -8,21 +8,34 @@
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it at 416x240: the LD-P scan kernels at the
    CU classes c32/c16/cf plus the 8x8 luma / 4x4 chroma class of sizes
-   that are not 16-aligned; the intra decision kernels at every call of
-   the decision (both passes) of one all-intra picture and of one LD-P
-   IDR, captured from the decision itself. Prints the max difference and
-   median times (CUDA events).
+   that are not 16-aligned, K1 also without row subsampling (the per-frame
+   P stage's search); the intra decision kernels at every call of the
+   decision (both passes) of one all-intra picture and of one LD-P IDR,
+   captured from the decision itself; the B step kernels (b_me, b_pred,
+   b_txq) at every call of one random-access B picture. Prints the max
+   difference, median times (CUDA events), and each kernel's bound: the
+   larger of its bytes (each tensor read or written once per picture; a
+   reference plane that motion compensation reads through block windows,
+   only the samples the windows cover) over 3.35 TB/s and its operations
+   over 67 T/s.
 4. Main path 1, LD-P: encodes a 416x240, 17-frame synthetic clip through
    the port's encode_sequence (anchor LD-P cfg, QP 32, FmeMode nn with
    seeded weights, RDOQ/SBH/SAO/deblocking off) with the launch counters
    reset just before; all eight kernels must have launched (the IDR's
    decision runs the intra kernels). Main path 2, all-intra: 3 pictures
    of the same clip with cfg/encoder_intra_main.cfg (RDOQ, NxN), counters
-   reset just before; the four intra kernels must have launched. Decodes
-   both streams with tpuhevc's host decoder: every picture hash must match
-   and the recon must equal the encoder's. Cross-checks CUDA against the
-   CPU path at 112x72 for both paths (bitstreams byte-identical).
-5. Last line: {"ok": true, "device": {...}}. Any failure raises (exit != 0).
+   reset just before; the four intra kernels must have launched. Main path
+   3, random access: cfg/encoder_randomaccess_main.cfg as shipped at
+   416x240, 18 frames (IDR, four GOPs of hierarchical B pictures, POC 17
+   as the P tail), once to warm up and once with the counters reset just
+   before; b_me, b_pred, b_txq and K1-K4 must have launched. Decodes every
+   stream with the port's host decoder: every picture hash must match and
+   the recon must equal the encoder's. Cross-checks CUDA against the CPU
+   path (bitstreams byte-identical) at 112x72 for LD-P and all-intra and
+   at 64x48 x 6 for random access.
+5. Prints the kernels' JSON line, the card's name and power limit, and as
+   the last line {"ok": true, "device": {...}}. Any failure raises (exit
+   != 0).
 """
 
 import json
@@ -43,29 +56,30 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from tools.make_test_clip import make_clip  # noqa: E402
-from tpuhevc.codec.decoder import decode_stream  # noqa: E402
-from tpuhevc.codec.inter_batch import _blk_idx, _positions, _win_idx  # noqa: E402
-from tpuhevc.codec.params import EncoderConfig, SeqParams, p_frame_lambda  # noqa: E402
-from tpuhevc.config.options import build_config, parse_args  # noqa: E402
-from tpuhevc.models import nnfme as ref_nnfme  # noqa: E402
-from tpuhevc.utils.tables import chroma_qp  # noqa: E402
-from tpuhevc.codec.recon import _pad_to  # noqa: E402
-from tpuhevc_torch.codec import intra_decide  # noqa: E402
+from tpuhevc_torch.codec import inter_b, intra_decide  # noqa: E402
+from tpuhevc_torch.codec.decoder import decode_stream  # noqa: E402
 from tpuhevc_torch.codec.encoder import encode_sequence  # noqa: E402
+from tpuhevc_torch.codec.inter_batch import _blk_idx, _positions, _win_idx  # noqa: E402
 from tpuhevc_torch.codec.intra_decide import decide_intra_qt  # noqa: E402
+from tpuhevc_torch.codec.params import EncoderConfig, SeqParams, p_frame_lambda  # noqa: E402
+from tpuhevc_torch.codec.recon import _pad_to  # noqa: E402
+from tpuhevc_torch.config.options import build_config, parse_args  # noqa: E402
 from tpuhevc_torch.device import require_cuda  # noqa: E402
 from tpuhevc_torch.entropy.bitest import tu_bits, tu_bits_plain  # noqa: E402
 from tpuhevc_torch.kernels import KERNELS, LAUNCHES, reset_launches  # noqa: E402
 from tpuhevc_torch.kernels import build as kbuild  # noqa: E402
 from tpuhevc_torch.models.nnfme import (  # noqa: E402
     NNFME, height_category, nn_refine, nn_refine_plain, random_params,
-    width_category)
+    save_npz, width_category)
 from tpuhevc_torch.ops.cost import satd35_topk, satd35_topk_plain  # noqa: E402
-from tpuhevc_torch.ops.interp import mc_blk, mc_blk_plain  # noqa: E402
+from tpuhevc_torch.ops.interp import (  # noqa: E402
+    b_pred, b_pred_plain, mc_blk, mc_blk_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_txq import intra_txq, intra_txq_plain  # noqa: E402
-from tpuhevc_torch.ops.me import bits_table, sad_search, sad_search_plain  # noqa: E402
-from tpuhevc_torch.ops.txq import txq, txq_plain  # noqa: E402
+from tpuhevc_torch.ops.me import (  # noqa: E402
+    b_me, b_me_plain, bits_table, sad_search, sad_search_plain)
+from tpuhevc_torch.ops.txq import b_txq, b_txq_plain, txq, txq_plain  # noqa: E402
+from tpuhevc_torch.utils.tables import chroma_qp  # noqa: E402
 
 SOURCES = {
     "sad_search": ("tpuhevc_torch/kernels/csrc/sad_search.cu",
@@ -84,12 +98,26 @@ SOURCES = {
                   "tpuhevc/codec/intra_decide_jax.py:86"),
     "tu_bits": ("tpuhevc_torch/kernels/csrc/tu_bits.cu",
                 "tpuhevc/entropy/bitest.py:286"),
+    "b_me": ("tpuhevc_torch/kernels/csrc/b_me.cu",
+             "tpuhevc/codec/inter_b.py:142"),
+    "b_pred": ("tpuhevc_torch/kernels/csrc/b_pred.cu",
+               "tpuhevc/codec/inter_b.py:196"),
+    "b_txq": ("tpuhevc_torch/kernels/csrc/b_txq.cu",
+              "tpuhevc/codec/inter_b.py:181"),
 }
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
+B_KERNELS = ("b_me", "b_pred", "b_txq")
+# the random-access path: the B step, the P tail's stage (K1-K4) and K2
+RA_NEED = B_KERNELS + ("nnfme_mlp", "sad_search", "mc_blk", "txq")
 INTRA_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
+RA_CFG = os.path.join(ROOT, "cfg", "encoder_randomaccess_main.cfg")
 N_INTRA = 3  # all-intra pictures (the host walk dominates their time)
+N_RA = 18  # IDR, four GOPs of B pictures, POC 17 as the P tail
 W, H, NFRAMES, QP, SEED = 416, 240, 17, 32, 0
 SR = 16
+# one H100 SXM (NVIDIA's data sheet): HBM bytes/s; float32 (and int32)
+# operations/s outside the tensor cores
+HBM_BPS, SCALAR_OPS = 3.35e12, 67e12
 
 
 def check(cond, what):
@@ -126,6 +154,142 @@ def median_ms(fn, reps=25):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def tensors(x):
+    """The tensors of a kernel's arguments or results (an estimator's
+    tables and a model's packed weights included)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from tensors(v)
+    elif isinstance(x, NNFME):
+        yield from tensors(x.packed)
+    elif hasattr(x, "itab"):  # EstTables
+        yield from (x.itab, x.ftab)
+
+
+def window_mask(plane, xs, ys, mvq, size, is_luma, sel=None):
+    """The samples of `plane` that the blocks' interpolation needs: per
+    block and axis, S samples at an integer phase, else the S + taps - 1
+    around them, clamped at the picture's edge as the plane is read.
+    sel: the blocks that read this plane (None: all)."""
+    nt, off, fmask, fshift = (8, 3, 3, 2) if is_luma else (4, 1, 7, 3)
+    hh, ww = plane.shape
+    mask = np.zeros((hh, ww), bool)
+    x = xs.cpu().numpy().astype(np.int64)
+    y = ys.cpu().numpy().astype(np.int64)
+    mv = mvq.cpu().numpy().astype(np.int64)
+    pick = np.ones(len(x), bool) if sel is None else sel.cpu().numpy()
+    for i in np.nonzero(pick)[0]:
+        span = []
+        for p, v, n in ((x[i], mv[i, 0], ww), (y[i], mv[i, 1], hh)):
+            frac = v & fmask
+            lo = p + (v >> fshift) - (off if frac else 0)
+            hi = lo + size - 1 + (nt - 1 if frac else 0)
+            span.append((min(max(lo, 0), n - 1), min(max(hi, 0), n - 1) + 1))
+        (x0, x1), (y0, y1) = span
+        mask[y0:y1, x0:x1] = True
+    return mask
+
+
+def windows(name, a, kw):
+    """[(reference plane, samples read)] of one motion-compensation call:
+    K3 reads its plane, b_pred both lists' planes (with a given
+    `inter_dir`, list k only for the blocks that use it)."""
+    if name == "mc_blk":
+        return [(a[0], window_mask(a[0], a[1], a[2], a[3], a[4], a[5]))]
+    if name == "b_pred":
+        idir = kw.get("inter_dir", a[10] if len(a) > 10 else None)
+        return [(ref, window_mask(ref, a[3], a[4], mvq, a[7], a[8],
+                                  None if idir is None else (idir & k) != 0))
+                for ref, mvq, k in ((a[1], a[5], 1), (a[2], a[6], 2))]
+    return []
+
+
+class Work:
+    """Bytes and operations of a kernel's calls over one picture. Each
+    tensor counts once, however many calls read it (each input read once,
+    each output written once); a reference plane read through block
+    windows counts the samples the windows cover, their union over the
+    calls. Holds the tensors, so that no address is reused meanwhile."""
+
+    def __init__(self):
+        self.held = {}  # data_ptr -> tensor
+        self.planes = {}  # data_ptr -> (plane, samples read)
+        self.ops = 0
+
+    def add(self, name, args, out, kw=None):
+        kw = kw or {}
+        self.ops += kernel_ops(name, args, kw)
+        for plane, mask in windows(name, args, kw):
+            prev = self.planes.get(plane.data_ptr())
+            self.planes[plane.data_ptr()] = (
+                plane, mask if prev is None else prev[1] | mask)
+        for t in tensors((args, kw, out)):
+            old = self.held.get(t.data_ptr())
+            if t.numel() and (old is None or t.nbytes > old.nbytes):
+                self.held[t.data_ptr()] = t
+
+    @property
+    def bytes(self):
+        return (sum(t.nbytes for p, t in self.held.items()
+                    if p not in self.planes)
+                + sum(int(m.sum()) * pl.element_size()
+                      for pl, m in self.planes.values()))
+
+
+def kernel_ops(name, a, kw=None) -> int:
+    """Integer or float32 operations of one call, from its shapes: the
+    work the function needs, not what a kernel happens to repeat."""
+    kw = kw or {}
+    if name == "sad_search":
+        cur, sr = a[1], a[4]
+        sub = (a[5] if len(a) > 5 else kw.get("subsample", True))
+        n, S = cur.shape[0], cur.shape[1]
+        rows = S // 2 if sub and S > 8 else S
+        return 3 * n * (2 * sr + 1) ** 2 * rows * S  # sub, abs, add
+    if name == "nnfme_mlp":
+        return a[1].shape[0] * (2 * (17 * 22 + 22 * 20 + 20 * 49)
+                                + 3 * (9 + 22 + 20) + 49)
+    if name == "mc_blk":
+        S, nt = a[4], 8 if a[5] else 4
+        return a[1].shape[0] * 2 * nt * ((S + nt - 1) * S + S * S)
+    if name in ("txq", "b_txq"):
+        n, S = a[0].shape[0], a[0].shape[-1]
+        return n * (8 * S ** 3 + (80 if name == "b_txq" else 20) * S * S)
+    if name == "intra_bank":
+        return a[0].shape[0] * 35 * a[2] ** 2 * 6
+    if name == "satd35_topk":
+        n, S = a[0].shape[0], a[0].shape[-1]
+        t = 8 if S >= 8 else 4
+        return n * 35 * S * S * (2 * (t.bit_length() - 1) + 3)
+    if name == "intra_txq":
+        S, rdoq = a[0].shape[-1], a[6]
+        return a[3].numel() * (8 * S ** 3 + (60 if rdoq else 4) * S * S)
+    if name == "tu_bits":
+        return a[1].numel() * 20
+    if name == "b_me":
+        side = 2 * a[4] + 1
+        return 2 * (a[0].numel() // 256) * side * side * (256 * 3 + 2)
+    if name == "b_pred":
+        S, nt = a[7], 8 if a[8] else 4
+        decide = kw.get("inter_dir", a[10] if len(a) > 10 else None) is None
+        return a[3].shape[0] * (4 * nt * ((S + nt - 1) * S + S * S)
+                                + (12 if decide else 3) * S * S)
+    raise KeyError(name)
+
+
+def bound_of(row):
+    """The least time the card could take for the row's work, and which
+    of bytes or operations bounds it."""
+    t_bytes = row["work"].bytes / HBM_BPS * 1e3
+    t_ops = row["work"].ops / SCALAR_OPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def gpu_line():
@@ -174,15 +338,17 @@ def check_kernels(dev, model):
         EncoderConfig(qp=QP, gop_qp_offsets=(3, 2, 3, 1)), 0, QP + 3) * 256))
     lam_me = int(round(np.sqrt(lam_full / 256.0) * 256))
     bits = bits_table(SR, dev)
-    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-            for k in KERNELS if k not in INTRA}
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
+            for k in ("sad_search", "nnfme_mlp", "mc_blk", "txq")}
 
-    def record(name, tag, err, ms, plain_ms):
+    def record(name, tag, err, ms, plain_ms, calls=()):
         r = rows[name]
         r["max_abs_err"] = max(r["max_abs_err"], float(err))
         if tag != "c8":  # c8 does not occur at 416x240
             r["ms"] += ms
             r["plain_ms"] += plain_ms
+            for args, out in calls:
+                r["work"].add(name, args, out)
         print(f"kernel {name:10s} {tag:4s} max_abs_err {err:.3g} "
               f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f}", flush=True)
 
@@ -202,7 +368,18 @@ def check_kernels(dev, model):
                median_ms(lambda: sad_search(st["wnd"], st["cur"], bits,
                                             lam_me, SR)),
                median_ms(lambda: sad_search_plain(st["wnd"], st["cur"], bits,
-                                                  lam_me, SR)))
+                                                  lam_me, SR)),
+               [((st["wnd"], st["cur"], bits, lam_me, SR), k)])
+        # the per-frame P stage's search: every row (integer_me)
+        if tag != "c8":
+            a = sad_search(st["wnd"], st["cur"], bits, lam_me, SR, False)
+            b = sad_search_plain(st["wnd"], st["cur"], bits, lam_me, SR,
+                                 False)
+            torch.cuda.synchronize()
+            err = exact(a, b)
+            check(err == 0, f"sad_search {tag} without subsampling: {err}")
+            print(f"kernel sad_search {tag:4s} (no subsampling) max_abs_err "
+                  f"{err}", flush=True)
         mv_int, sad9 = k
         # K2: logits within atol 1e-4 / rtol 1e-5; the argmax must agree
         # wherever the plain top-2 gap exceeds 1e-3
@@ -218,7 +395,8 @@ def check_kernels(dev, model):
         check(torch.equal(kq[clear], pq[clear]), f"nnfme offset {tag}")
         record("nnfme_mlp", tag, err,
                median_ms(lambda: nn_refine(model, sad9, hc, wc)),
-               median_ms(lambda: nn_refine_plain(model, sad9, hc, wc)))
+               median_ms(lambda: nn_refine_plain(model, sad9, hc, wc)),
+               [((model, sad9, hc, wc), (kl, kc, kq))])
         mvq = (mv_int * 4 + kq).contiguous()
         # K3: luma and both chroma planes
         calls = [(st["ref"][0], st["xs"], st["ys"], size, True)] + [
@@ -226,32 +404,37 @@ def check_kernels(dev, model):
             for pln in st["ref"][1:]]
         err = 0
         preds = []
+        done = []
         for pln, xs, ys, s, luma in calls:
             a = mc_blk(pln, xs, ys, mvq, s, luma)
             b = mc_blk_plain(pln, xs, ys, mvq, s, luma)
             torch.cuda.synchronize()
             err = max(err, exact([a], [b]))
             preds.append(a)
+            done.append(((pln, xs, ys, mvq, s, luma), a))
         check(err == 0, f"mc_blk {tag}: {err}")
         record("mc_blk", tag, err,
                median_ms(lambda: [mc_blk(*c[:3], mvq, *c[3:]) for c in calls]),
                median_ms(lambda: [mc_blk_plain(*c[:3], mvq, *c[3:])
-                                  for c in calls]))
+                                  for c in calls]), done)
         # K4: luma at QP, chroma at the chroma QP; also a QP-50 luma pass
         # for the int32-wrapping drop product
         tus = [(st["cur"], preds[0], QP)] + [
             (c, pr, chroma_qp(QP)) for c, pr in zip(st["cur_c"], preds[1:])]
         err = 0
+        done = []
         for cur, pred, qp in tus + [(st["cur"], preds[0], 50)]:
             a = txq(cur, pred, qp, lam_full)
             b = txq_plain(cur, pred, qp, lam_full)
             torch.cuda.synchronize()
             err = max(err, exact(a, b))
+            if qp != 50:
+                done.append(((cur, pred, qp, lam_full), a))
         check(err == 0, f"txq {tag}: {err}")
         record("txq", tag, err,
                median_ms(lambda: [txq(c, pr, q, lam_full) for c, pr, q in tus]),
                median_ms(lambda: [txq_plain(c, pr, q, lam_full)
-                                  for c, pr, q in tus]))
+                                  for c, pr, q in tus]), done)
     return rows
 
 
@@ -283,35 +466,51 @@ def ldp_cfg(npz, w=None, h=None, frames=None):
     return cfg
 
 
+def ra_cfg(npz, w=None, h=None, frames=None):
+    """cfg/encoder_randomaccess_main.cfg as shipped at w x h (default: the
+    main path's), QP 32, the seeded NN-FME weights."""
+    cfg, _ = build_config(parse_args([
+        "-c", RA_CFG, "-wdt", str(w or W), "-hgt", str(h or H),
+        "-f", str(frames or N_RA), "-q", str(QP), f"--NNWeightsDir={npz}"]))
+    return cfg
+
+
+def recording(module, names, calls):
+    """Swap module.<name> for a wrapper that records (args, kwargs) of
+    every call into calls[name]; returns the originals."""
+    saved = {k: getattr(module, k) for k in names}
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    for k in names:
+        setattr(module, k, recorder(k, saved[k]))
+    return saved
+
+
 def capture_intra_calls(dev, cfg, frame):
     """Run the decision of one picture on the card, both passes (pass 2
     from a recon-like reference: the picture blurred), recording every
     call of the four intra wrappers -> {name: [args]}."""
     calls = {k: [] for k in INTRA}
-    saved = {k: getattr(intra_decide, k) for k in INTRA}
-
-    def recorder(name, fn):
-        def wrapped(*args):
-            calls[name].append(args)
-            return fn(*args)
-        return wrapped
-
     sps = cfg.sps
     w, h = sps.coded_width, sps.coded_height
     planes = [_pad_to(np.asarray(p), h >> s, w >> s).astype(np.int32)
               for p, s in zip(frame, (0, 1, 1))]
     blurred = [(p + np.roll(p, 1, 0) + np.roll(p, 1, 1) + np.roll(p, 1, (0, 1))
                 + 2) >> 2 for p in planes]
+    saved = recording(intra_decide, INTRA, calls)
     try:
-        for k in INTRA:
-            setattr(intra_decide, k, recorder(k, saved[k]))
         decide_intra_qt(*planes, cfg, cfg.qp, device=dev)
         decide_intra_qt(*planes, cfg, cfg.qp, ref_planes=blurred, device=dev)
         torch.cuda.synchronize()
     finally:
         for k in INTRA:
             setattr(intra_decide, k, saved[k])
-    return calls
+    return {k: [a for a, _ in v] for k, v in calls.items()}
 
 
 def check_intra_kernels(dev, npz):
@@ -321,7 +520,8 @@ def check_intra_kernels(dev, npz):
     d0 and bits within rtol 1e-5, atol 1e-3 (sum order). Returns {name:
     row}; ms/plain_ms are per all-intra picture (both passes)."""
     frame = Reader(W, H, 1).frames[0]
-    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0) for k in INTRA}
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
+            for k in INTRA}
     for tag, cfg in (("all-intra", intra_cfg(W, H, 1)),
                      ("ldp-idr", ldp_cfg(npz))):
         calls = capture_intra_calls(dev, cfg, frame)
@@ -331,6 +531,8 @@ def check_intra_kernels(dev, npz):
             for args in calls[name]:
                 a, b = kern(*args), plain(*args)
                 torch.cuda.synchronize()
+                if tag == "all-intra":
+                    rows[name]["work"].add(name, args, a)
                 a = a if isinstance(a, tuple) else (a,)
                 b = b if isinstance(b, tuple) else (b,)
                 for x, y in zip(a, b):
@@ -361,6 +563,56 @@ def check_intra_kernels(dev, npz):
     return rows
 
 
+B_FUNCS = {  # name: (kernel wrapper, plain version)
+    "b_me": (b_me, b_me_plain),
+    "b_pred": (b_pred, b_pred_plain),
+    "b_txq": (b_txq, b_txq_plain),
+}
+
+
+def check_b_kernels(dev, npz, params):
+    """Kernel vs plain on the card for the B step, at every call of one
+    416x240 B picture of the random-access path (POC 2 at QP 34 between
+    POC 0 and POC 4, the originals standing in for their recons), captured
+    from the port's B step. Every output is an integer: exact. Returns
+    {name: row}; ms/plain_ms are per B picture."""
+    clip = Reader(W, H, 5).frames
+    cfg = ra_cfg(npz)
+    calls = {k: [] for k in B_KERNELS}
+    saved = recording(inter_b, B_KERNELS, calls)
+    try:
+        inter_b.encode_frame_b(clip[2], clip[0], clip[4], cfg, QP + 2, [0],
+                               [4], 2, params, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        for k in B_KERNELS:
+            setattr(inter_b, k, saved[k])
+    rows = {}
+    for name in B_KERNELS:
+        kern, plain = B_FUNCS[name]
+        r = rows[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                              work=Work())
+        for args, kw in calls[name]:
+            a, b = kern(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            r["work"].add(name, args, a, kw)
+            for x, y in zip(a, b):
+                check(x.dtype == y.dtype and x.shape == y.shape,
+                      f"{name}: {x.dtype}{tuple(x.shape)} vs "
+                      f"{y.dtype}{tuple(y.shape)}")
+                d = float((x.double() - y.double()).abs().max())
+                check(d == 0, f"{name}: integer outputs differ by {d}")
+                r["max_abs_err"] = max(r["max_abs_err"], d)
+        r["ms"] = median_ms(lambda: [kern(*a, **k) for a, k in calls[name]],
+                            reps=10)
+        r["plain_ms"] = median_ms(
+            lambda: [plain(*a, **k) for a, k in calls[name]], reps=5)
+        print(f"kernel {name:11s} B picture calls {len(calls[name]):2d} "
+              f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} (per B picture)", flush=True)
+    return rows
+
+
 def run_path(dev, cfg, nframes):
     """One main path through encode_sequence with the launch counters set
     to 0 just before and read just after; returns (enc, recons, seconds,
@@ -376,9 +628,10 @@ def run_path(dev, cfg, nframes):
 
 
 def check_stream(enc, recons, n, launches, need, what):
-    """Every needed kernel launched; n pictures decode hash-OK with the
-    encoder's recon, in decoding order (all-intra pictures are IDRs, each
-    with POC 0)."""
+    """Every needed kernel launched; n pictures decode hash-OK in the port's
+    decoder with the encoder's recon, in decoding order (all-intra
+    pictures are IDRs, each with POC 0; random access codes out of
+    display order)."""
     check(len(enc.results) == n, f"{what}: encoded {len(enc.results)}")
     missing = [k for k in need if launches[k] <= 0]
     check(not missing, f"{what}: kernels not launched: {missing}")
@@ -394,12 +647,14 @@ def check_stream(enc, recons, n, launches, need, what):
 
 
 def cross_check_cpu(npz):
-    """CUDA vs CPU path of the port at 112x72 (all four CU classes), LD-P
-    five pictures and all-intra two; returns the two stream sizes."""
+    """CUDA vs CPU path of the port: at 112x72 (all four CU classes) LD-P
+    five pictures and all-intra two, and random access at 64x48 x 6 (four
+    B pictures and the P tail); returns the three stream sizes."""
     out = []
-    for make, n in ((lambda: ldp_cfg(npz, 112, 72, 5), 5),
-                    (lambda: intra_cfg(112, 72, 2), 2)):
-        r = Reader(112, 72, n)
+    for make, n, w, h in ((lambda: ldp_cfg(npz, 112, 72, 5), 5, 112, 72),
+                          (lambda: intra_cfg(112, 72, 2), 2, 112, 72),
+                          (lambda: ra_cfg(npz, 64, 48, 6), 6, 64, 48)):
+        r = Reader(w, h, n)
         a, _ = encode_sequence(r, make(), device="cuda")
         b, _ = encode_sequence(r, make(), device="cpu")
         check(a.bitstream() == b.bitstream(), "CUDA and CPU streams differ")
@@ -424,15 +679,17 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "nnfme_seeded.npz")
         params = random_params(SEED)
-        ref_nnfme.save_npz(npz, {QP: params})
+        save_npz(npz, {QP: params})
         model = NNFME.from_numpy(params, dev)
 
         rows = check_kernels(dev, model)
         rows.update(check_intra_kernels(dev, npz))
+        rows.update(check_b_kernels(dev, npz, params))
 
         enc, recons, secs, launches = run_path(dev, ldp_cfg(npz), NFRAMES)
-        # all eight: the IDR's decision runs the intra kernels too
-        check_stream(enc, recons, NFRAMES, launches, KERNELS, "LD-P")
+        # the eight of PR 1-2: the IDR's decision runs the intra kernels too
+        check_stream(enc, recons, NFRAMES, launches,
+                     [k for k in KERNELS if k not in B_KERNELS], "LD-P")
         kbits = sum(r.bits for r in enc.results) / 1000
         psnr = np.mean([r.psnr_y for r in enc.results])
         print(f"main path LD-P: {W}x{H} x {NFRAMES} frames in {secs:.3f} s "
@@ -453,14 +710,40 @@ def main():
         for k in KERNELS:
             launches[k] += ai_launches[k]
 
-        nbytes = cross_check_cpu(npz)
-        print(f"cross-check 112x72: CUDA == CPU streams (LD-P {nbytes[0]} "
-              f"bytes, all-intra {nbytes[1]} bytes)", flush=True)
+        # random access: a warm-up encode (builds every B step and the P
+        # tail's stage), then the counted one
+        run_path(dev, ra_cfg(npz, frames=6), 6)
+        enc, recons, secs, ra_launches = run_path(dev, ra_cfg(npz), N_RA)
+        check_stream(enc, recons, N_RA, ra_launches, RA_NEED,
+                     "random access")
+        kbits = sum(r.bits for r in enc.results) / 1000
+        psnr = np.mean([r.psnr_y for r in enc.results])
+        pocs = [r.poc for r in enc.results]
+        print(f"main path random access: {W}x{H} x {N_RA} pictures (decode "
+              f"order {pocs}) in {secs:.3f} s warm = {N_RA / secs:.3f} fps | "
+              f"{kbits:.1f} kbit, Y-PSNR {psnr:.3f} dB | launches "
+              f"{ra_launches} | {gpu}", flush=True)
+        for k in KERNELS:
+            launches[k] += ra_launches[k]
 
-    kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
-                    replaces=SOURCES[k][1], launches=launches[k],
-                    max_abs_err=rows[k]["max_abs_err"], ms=rows[k]["ms"],
-                    plain_ms=rows[k]["plain_ms"]) for k in KERNELS]
+        sizes = cross_check_cpu(npz)
+        print(f"cross-check: CUDA == CPU streams (LD-P 112x72 {sizes[0]} "
+              f"bytes, all-intra 112x72 {sizes[1]} bytes, random access "
+              f"64x48 {sizes[2]} bytes)", flush=True)
+
+    kernels = []
+    for k in KERNELS:
+        r = rows[k]
+        bound_ms, bound_by = bound_of(r)
+        print(f"bound {k}: {r['work'].bytes} bytes, {r['work'].ops} "
+              f"operations -> {bound_ms:.6f} ms ({bound_by})")
+        kernels.append(dict(
+            name=k, route="cuda", source=SOURCES[k][0],
+            replaces=SOURCES[k][1], launches=launches[k],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by,
+            # no single PyTorch call computes any of these functions
+            library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

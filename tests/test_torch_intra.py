@@ -28,6 +28,7 @@ import torch
 from torch_port_util import QP, cuda_device, rng_planes  # noqa: F401
 from tpuhevc.codec.intra_qt import I_ROW
 from tpuhevc.entropy.bitest import FracBits, ResidualBitEst
+from tpuhevc_torch.entropy.bitest import FracBits as PortFracBits
 from tpuhevc.ops import intra as jintra
 from tpuhevc.ops import transforms as jtx
 from tpuhevc.utils.tables import chroma_qp
@@ -181,7 +182,7 @@ def test_intra_txq_and_tu_bits_match_jax(S, luma, rdoq):
     log2 = S.bit_length() - 1
     fb = FracBits(I_ROW, QP)
     est = ResidualBitEst(fb, log2, luma)
-    et = est_tables(fb, log2, luma, "cpu")
+    et = est_tables(PortFracBits(I_ROW, QP), log2, luma, "cpu")
     is_dst = luma and S == 4
     dist, d0, lvl = intra_txq(org, preds, rows, topk, qp, is_dst, rdoq, lam,
                               et)
@@ -206,7 +207,7 @@ def test_intra_txq_reads_banks_through_rows():
     rng = np.random.default_rng(2)
     rows = torch.from_numpy(rng.integers(0, len(org), 50).astype(np.int32))
     modes = torch.from_numpy(rng.integers(0, 35, (50, 1)).astype(np.int32))
-    et = est_tables(FracBits(I_ROW, QP), 3, True, "cpu")
+    et = est_tables(PortFracBits(I_ROW, QP), 3, True, "cpu")
     a = intra_txq(org, preds, rows, modes, QP, False, True, LAM, et)
     r = rows.long()
     b = intra_txq(org[r].contiguous(), preds[r].contiguous(),
@@ -254,7 +255,8 @@ def test_tu_bits_matches_jax(S, luma):
     fb = FracBits(I_ROW, QP)
     want = np.asarray(ResidualBitEst(fb, log2, luma).tu_bits(
         jnp, jnp.asarray(tiles)))
-    got = tu_bits(est_tables(fb, log2, luma, "cpu"), torch.from_numpy(tiles))
+    got = tu_bits(est_tables(PortFracBits(I_ROW, QP), log2, luma, "cpu"),
+                  torch.from_numpy(tiles))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     assert got[20] == 0
@@ -311,7 +313,7 @@ def test_intra_kernels_match_plain(cuda_device, S, luma):
     topk = got[1]
     rows = torch.arange(org.shape[0], dtype=torch.int32, device=cuda_device)
     log2 = S.bit_length() - 1
-    et = est_tables(FracBits(I_ROW, QP), log2, luma, cuda_device)
+    et = est_tables(PortFracBits(I_ROW, QP), log2, luma, cuda_device)
     qp = QP if luma else chroma_qp(QP)
     for rdoq in (False, True):
         args = (org, preds, rows, topk, qp, luma and S == 4, rdoq, LAM, et)

@@ -27,11 +27,13 @@ import pytest
 import torch
 
 from torch_port_util import H, QP, W, Reader, clip_frames, cuda_device  # noqa: F401
+from tpuhevc.codec import params as jax_params
 from tpuhevc.codec.decoder import decode_stream
-from tpuhevc.codec.params import EncoderConfig, SeqParams
 from tpuhevc.codec.recon import _pad_to
-from tpuhevc.config.options import build_config, parse_args
+from tpuhevc.config import options as jax_options
+from tpuhevc_torch.codec import params as port_params
 from tpuhevc_torch.codec.encoder import encode_sequence
+from tpuhevc_torch.config import options as port_options
 from tpuhevc_torch.codec.intra_decide import decide_intra_qt
 from tpuhevc_torch.codec.intra_qt import encode_frame_intra_qt
 from tpuhevc_torch.kernels import LAUNCHES, reset_launches
@@ -41,21 +43,28 @@ INTRA_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
 MAPS = ("cu_log2", "lm8", "cm8", "nxn", "lm4", "tsp8")
 
 
-def intra_cfg(w=W, h=H, frames=2, *extra) -> EncoderConfig:
-    """cfg/encoder_intra_main.cfg (IntraPeriod 1, RDOQ, QP 32) at w x h."""
-    cfg, _ = build_config(parse_args(["-c", INTRA_CFG, "-wdt", str(w),
-                                      "-hgt", str(h), "-f", str(frames),
-                                      "-q", str(QP), *extra]))
+def intra_cfg(w=W, h=H, frames=2, *extra, port=True):
+    """cfg/encoder_intra_main.cfg (IntraPeriod 1, RDOQ, QP 32) at w x h:
+    the port's EncoderConfig through the port's options, or with
+    port=False tpuhevc's through tpuhevc's, from the same options."""
+    opts = port_options if port else jax_options
+    cfg, _ = opts.build_config(opts.parse_args([
+        "-c", INTRA_CFG, "-wdt", str(w), "-hgt", str(h), "-f", str(frames),
+        "-q", str(QP), *extra]))
     return cfg
 
 
-VARIANTS = {
-    "all_intra": intra_cfg,
-    "ldp_idr": lambda: EncoderConfig(sps=SeqParams(width=W, height=H), qp=QP,
-                                     intra_period=-1,
-                                     gop_qp_offsets=(3, 2, 3, 1)),
-    "all_intra_tusplit": lambda: EncoderConfig(
-        sps=SeqParams(width=W, height=H), qp=QP, intra_period=1, rdoq=True),
+VARIANTS = {  # name: cfg(port), the port's or tpuhevc's EncoderConfig
+    "all_intra": lambda port: intra_cfg(port=port),
+    "ldp_idr": lambda port: (port_params if port else jax_params).EncoderConfig(
+        sps=(port_params if port else jax_params).SeqParams(width=W,
+                                                            height=H),
+        qp=QP, intra_period=-1, gop_qp_offsets=(3, 2, 3, 1)),
+    "all_intra_tusplit": lambda port: (
+        port_params if port else jax_params).EncoderConfig(
+        sps=(port_params if port else jax_params).SeqParams(width=W,
+                                                            height=H),
+        qp=QP, intra_period=1, rdoq=True),
 }
 
 
@@ -76,14 +85,15 @@ def padded(cfg, frame):
 def test_decision_maps_equal_jax(frames, variant, pass_):
     from tpuhevc.codec.intra_decide_jax import decide_intra_qt_jax
 
-    cfg = VARIANTS[variant]()
+    cfg = VARIANTS[variant](True)
     planes = padded(cfg, frames[0])
     ref = None
     if pass_ == 2:  # the pass-1 recon, as the two-pass encode passes it
         _, ref = encode_frame_intra_qt(
             *frames[0], dataclasses.replace(cfg, intra_two_pass=False),
             device="cpu")
-    want = decide_intra_qt_jax(*planes, cfg, QP, ref_planes=ref)
+    want = decide_intra_qt_jax(*planes, VARIANTS[variant](False), QP,
+                               ref_planes=ref)
     got = decide_intra_qt(*planes, cfg, QP, ref_planes=ref, device="cpu")
     for name, g, w in zip(MAPS, got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
@@ -110,8 +120,8 @@ def test_all_intra_stream_matches_jax_and_decodes(frames, tools):
     extra = [] if tools == "cfg" else [
         "--SignHideFlag=1", "--LoopFilterDisable=0", "--SAO=1"]
     ref, _ = jax_encode_sequence(
-        Reader(frames), dataclasses.replace(intra_cfg(W, H, 2, *extra),
-                                            inter_backend="jax"))
+        Reader(frames), dataclasses.replace(
+            intra_cfg(W, H, 2, *extra, port=False), inter_backend="jax"))
     enc, recons = encode_sequence(Reader(frames), intra_cfg(W, H, 2, *extra),
                                   device="cpu")
     stream = enc.bitstream()
@@ -153,6 +163,7 @@ OUTSIDE = {  # name: (cfg-file options, EncoderConfig fields)
     "scaling_list": (["--ScalingList=1"], {}),
     "adaptive_qp": (["--AdaptiveQP=1"], {}),
     "wavefronts": (["--WaveFrontSynchro=1"], {}),
+    "hrd": (["--SEIBufferingPeriod=1"], {}),
 }
 
 
@@ -174,7 +185,7 @@ def test_decision_refuses_absent_cuda(monkeypatch, frames):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_cuda_decision_equals_cpu(cuda_device, frames, variant):
-    cfg = VARIANTS[variant]()
+    cfg = VARIANTS[variant](True)
     planes = padded(cfg, frames[0])
     want = decide_intra_qt(*planes, cfg, QP, device="cpu")
     reset_launches()

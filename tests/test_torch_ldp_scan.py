@@ -63,13 +63,14 @@ def chunk(setup):
     params = ref_nnfme.select_qp_params(ref_nnfme.load_npz(npz), QP)
     qps = sorted({min(max(QP + o, 0), 51) for o in GOP_QP_OFFSETS})
     nn_by_qp = {qp: params for qp in qps}
-    _, refs = encode_frame_intra_qt(*frames[0], cfg, device="cpu")
+    tcfg = ldp_cfg(npz, port=True)
+    _, refs = encode_frame_intra_qt(*frames[0], tcfg, device="cpu")
     refs = [np.ascontiguousarray(p, dtype=np.int32) for p in refs]
     u8 = np.stack([np.concatenate([p.ravel() for p in fr])
                    for fr in frames[1:9]]).reshape(2, 4, -1)
     jfn, _, jqps = jib.build_ldp_scan(cfg, nn_by_qp, 2)
     jout = jfn(jnp.asarray(u8), *[jnp.asarray(p) for p in refs])
-    tfn, _, tqps = tib.build_ldp_scan(cfg, nn_by_qp, 2, "cpu")
+    tfn, _, tqps = tib.build_ldp_scan(tcfg, nn_by_qp, 2, "cpu")
     tout = tfn(torch.from_numpy(u8), *[torch.from_numpy(p) for p in refs])
     assert jqps == tqps
     return dict(cfg=cfg, frames=frames, refs=refs, params=params, qps=jqps,
@@ -114,7 +115,7 @@ def test_stages_match_jax_per_class(chunk, tag):
 def test_e2e_bitstream_matches_jax_and_decodes(setup):
     npz, frames = setup
     enc_j, _ = jax_encode_sequence(Reader(frames), ldp_cfg(npz), max_frames=5)
-    enc_t, recons = encode_sequence(Reader(frames), ldp_cfg(npz),
+    enc_t, recons = encode_sequence(Reader(frames), ldp_cfg(npz, port=True),
                                     max_frames=5, device="cpu")
     stream = enc_t.bitstream()
     assert stream == enc_j.bitstream()
@@ -140,8 +141,8 @@ import tpuhevc_torch, tpuhevc_torch.app
 from tpuhevc_torch.codec.encoder import encode_sequence
 from torch_port_util import Reader, clip_frames, ldp_cfg, write_weights
 npz = write_weights({str(tmp_path / 'w.npz')!r})
-enc, _ = encode_sequence(Reader(clip_frames(112, 72, 3)), ldp_cfg(npz),
-                         device="cpu")
+enc, _ = encode_sequence(Reader(clip_frames(112, 72, 3)),
+                         ldp_cfg(npz, port=True), device="cpu")
 assert len(enc.results) == 3
 print("jax loaded:", "jax" in sys.modules)
 """
@@ -155,10 +156,10 @@ def test_no_fallback_without_cuda(monkeypatch, setup):
     npz, frames = setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        encode_sequence(Reader(frames), ldp_cfg(npz), max_frames=3,
-                        device="cuda")
+        encode_sequence(Reader(frames), ldp_cfg(npz, port=True),
+                        max_frames=3, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
-        tib.build_ldp_scan(ldp_cfg(npz), {}, 1, "cuda")
+        tib.build_ldp_scan(ldp_cfg(npz, port=True), {}, 1, "cuda")
 
 
 def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
@@ -209,7 +210,7 @@ def test_outside_slice_raises(setup, name):
     if kw.pop("scaling_list", False):
         sps_kw["scaling_list_enabled"] = True
     sbh = kw.pop("sbh", False)
-    cfg = ldp_cfg(npz, **kw)
+    cfg = ldp_cfg(npz, port=True, **kw)
     cfg.pps.sign_data_hiding = sbh
     for k, v in sps_kw.items():
         setattr(cfg.sps, k, v)
@@ -220,10 +221,12 @@ def test_outside_slice_raises(setup, name):
 @pytest.mark.cuda
 def test_cuda_scan_matches_cpu_and_launches_every_kernel(cuda_device, setup):
     npz, frames = setup
-    cpu, _ = encode_sequence(Reader(frames), ldp_cfg(npz), max_frames=9,
-                             device="cpu")
+    cpu, _ = encode_sequence(Reader(frames), ldp_cfg(npz, port=True),
+                             max_frames=9, device="cpu")
     reset_launches()
-    gpu, _ = encode_sequence(Reader(frames), ldp_cfg(npz), max_frames=9,
-                             device=cuda_device)
-    assert all(v > 0 for v in LAUNCHES.values()), LAUNCHES
+    gpu, _ = encode_sequence(Reader(frames), ldp_cfg(npz, port=True),
+                             max_frames=9, device=cuda_device)
+    ldp_kernels = ("sad_search", "nnfme_mlp", "mc_blk", "txq", "intra_bank",
+                   "satd35_topk", "intra_txq", "tu_bits")
+    assert all(LAUNCHES[k] > 0 for k in ldp_kernels), LAUNCHES
     assert gpu.bitstream() == cpu.bitstream()

@@ -1,8 +1,10 @@
 """Shared inputs of the tests that hold tpuhevc_torch against tpuhevc.
 
 Not a test module: seeded clips and planes (numpy), seeded NN-FME weights
-written with `tpuhevc.models.nnfme.save_npz`, the slice's LD-P config, and
-the `cuda_device` fixture that skips a test where PyTorch sees no GPU.
+written with `tpuhevc.models.nnfme.save_npz`, the slice's LD-P config (as
+tpuhevc's EncoderConfig, or with port=True as the port's own, from the
+same fields), and the `cuda_device` fixture that skips a test where
+PyTorch sees no GPU.
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ import pytest
 import torch
 
 from tools.make_test_clip import make_clip
-from tpuhevc.codec.params import EncoderConfig, SeqParams
+from tpuhevc.codec import params as jax_params
 from tpuhevc.models import nnfme
+from tpuhevc_torch.codec import params as port_params
 from tpuhevc_torch.models.nnfme import random_params
 
 W, H = 112, 72  # not 16-aligned: JAX takes build_ldp_scan; all 4 CU classes
@@ -49,12 +52,17 @@ def write_weights(path, qp: int = QP, seed: int = 0) -> str:
 
 
 def ldp_cfg(npz: str | None, w: int = W, h: int = H, backend: str = "jax",
-            **kw) -> EncoderConfig:
-    """The slice: LD-P, NN-FME, RDOQ/SBH/deblocking/SAO off."""
+            port: bool = False, **kw):
+    """The slice: LD-P, NN-FME, RDOQ/SBH/deblocking/SAO off; tpuhevc's
+    EncoderConfig on `backend`, or the port's with port=True (the port
+    has one backend: the device)."""
+    mod = port_params if port else jax_params
     args = dict(qp=QP, intra_period=-1, fme_mode="nn", nn_weights_dir=npz,
-                gop_qp_offsets=GOP_QP_OFFSETS, inter_backend=backend)
+                gop_qp_offsets=GOP_QP_OFFSETS)
+    if not port:
+        args["inter_backend"] = backend
     args.update(kw)
-    return EncoderConfig(sps=SeqParams(width=w, height=h), **args)
+    return mod.EncoderConfig(sps=mod.SeqParams(width=w, height=h), **args)
 
 
 def rng_planes(seed: int, h: int, w: int, n: int = 1) -> np.ndarray:

@@ -1,6 +1,6 @@
-"""CLI of the port: `enc` runs the all-intra or the LD-P slice through the
-CUDA kernels; `dec` is tpuhevc's host decoder (the oracle, not a stage of
-the port).
+"""CLI of the port: `enc` runs the all-intra, LD-P or random-access slice
+through the CUDA kernels; `dec` is the port's host decoder (a copy of the
+reference's; every picture's MD5 SEI is checked).
 
 Usage:
   python -m tpuhevc_torch enc -c cfg/encoder_intra_main.cfg \
@@ -10,10 +10,13 @@ Usage:
       -i in.yuv -b out.bin -o rec.yuv -wdt 416 -hgt 240 -f 17 -q 32 \
       --RDOQ=0 --SignHideFlag=0 --SAO=0 --LoopFilterDisable=1 \
       --NNWeightsDir=weights.npz [--Device=cuda]
+  python -m tpuhevc_torch enc -c cfg/encoder_randomaccess_main.cfg \
+      -i in.yuv -b out.bin -o rec.yuv -wdt 416 -hgt 240 -f 18 -q 32 \
+      --NNWeightsDir=weights.npz [--Device=cuda]
   python -m tpuhevc_torch dec -b out.bin -o dec.yuv
 
-Options are tpuhevc's (HM syntax); `--Device=` names the torch device
-(default cuda; there is no fallback to the CPU).
+Options are HM's syntax, as the reference's CLI reads them; `--Device=`
+names the torch device (default cuda; there is no fallback to the CPU).
 """
 
 from __future__ import annotations
@@ -25,10 +28,9 @@ import numpy as np
 
 
 def main_encode(argv: list[str]) -> int:
-    from tpuhevc.config.options import build_config, parse_args
-    from tpuhevc.utils.yuv import YuvReader, write_yuv
-
     from .codec.encoder import encode_sequence
+    from .config.options import build_config, parse_args
+    from .utils.yuv import YuvReader, write_yuv
 
     opts = parse_args(argv)
     device = opts.pop("Device", "cuda")
@@ -73,9 +75,34 @@ def main_encode(argv: list[str]) -> int:
 
 
 def main_decode(argv: list[str]) -> int:
-    from tpuhevc.app import main_decode as decode
+    from .codec.decoder import decode_stream
+    from .utils.yuv import write_yuv
 
-    return decode(argv)
+    bit_path = out_path = None
+    i = 0
+    while i < len(argv):
+        if argv[i] == "-b":
+            bit_path = argv[i + 1]
+            i += 2
+        elif argv[i] == "-o":
+            out_path = argv[i + 1]
+            i += 2
+        else:
+            raise SystemExit(f"unknown option {argv[i]}")
+    if not bit_path:
+        print("need -b bitstream", file=sys.stderr)
+        return 2
+    data = open(bit_path, "rb").read()
+    frames = decode_stream(data)
+    ok = True
+    for f in frames:
+        status = "OK" if f.md5_ok else ("unk" if f.md5_ok is None else "***ERROR***")
+        print(f"POC {f.poc:4d} [MD5:({status})]")
+        ok &= f.md5_ok is not False
+    if out_path and frames:
+        disp = sorted(frames, key=lambda f: f.poc)
+        write_yuv(out_path, [(f.y, f.u, f.v) for f in disp])
+    return 0 if ok else 1
 
 
 def main() -> int:

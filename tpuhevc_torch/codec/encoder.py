@@ -1,7 +1,8 @@
-"""Encode loops of the port: all-intra Main (IntraPeriod 1) and LD-P.
+"""Encode loops of the port: all-intra Main (IntraPeriod 1), LD-P and
+random access, and the per-picture `Encoder`.
 
 All-intra: every picture through the port's quadtree intra decision on
-the device (`codec/intra_qt.py`), then tpuhevc's coding walk, in-loop
+the device (`codec/intra_qt.py`), then the host coding walk, in-loop
 filters and CABAC (`Encoder.encode_frame`); the twin of the last branch
 of `tpuhevc/codec/encoder.py:encode_sequence` with the JAX decision.
 
@@ -10,62 +11,304 @@ of P frames through the device scan, host serialisation of chunk i-1
 overlapped with the device work of chunk i. Twin of the non-grid half of
 `tpuhevc/codec/encoder.py:737-942` (`LdpScanDriver`,
 `_ldp_scan_pipelined`) and of the LD-P branch of its `encode_sequence`.
-It reuses `tpuhevc.codec.encoder.Encoder` for headers, CABAC and NAL
-packing, and `tpuhevc.codec.inter_batch.collect_frame` plus
-`tpuhevc.codec.inter_enc.assemble_frame_p` for the decision walk. Until
-the grid step is ported, every picture size takes this scan.
+Until the grid step is ported, every picture size takes this scan.
+
+Random access (a cfg GOP table of B pictures): the IDR the same way,
+every B picture through the device B step (`codec/inter_b.py`), and the
+P pictures after the last whole GOP through the per-frame device stage
+(`codec/inter_enc.py`), driven in decode order by `_gop_table_driven`,
+the twin of `tpuhevc/codec/encoder.py:606-682`.
+
+`Encoder`, `FrameResult` and `_load_nn_params` are the port's copies of
+the reference's host code (`encoder.py:27-490,945-962`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from tpuhevc.codec.encoder import Encoder
-from tpuhevc.codec.inter_batch import collect_frame
-from tpuhevc.codec.inter_enc import assemble_frame_p
-from tpuhevc.codec.params import EncoderConfig
-from tpuhevc.codec.recon import _pad_to
-
 from ..device import resolve
-from .inter_batch import build_ldp_scan
+from ..entropy import bitio, headers, sei
+from ..entropy.cabac import CabacEncoder, ContextSet
+from ..entropy.headers import ShortTermRPS
+from ..entropy.native import encode_slice_data_native
+from ..entropy.syntax import encode_slice_data
+from ..ops.deblock import deblock_frame
+from ..utils.yuv import picture_checksum, picture_crc, picture_md5, psnr
+from .inter_b import encode_frame_b
+from .inter_batch import build_ldp_scan, collect_frame
+from .inter_enc import assemble_frame_p, encode_frame_p
 from .intra_qt import encode_frame_intra_qt
+from .params import (B_SLICE, I_SLICE, P_SLICE, EncoderConfig,
+                     i_frame_lambda, p_frame_lambda)
+from .recon import _pad_to
+from .sao_enc import apply_sao_picture, decide_sao_params
 
-# The port passes its own frame encoder for I pictures; anything but "jax"
-# keeps tpuhevc from selecting one of its JAX stages anywhere else.
-INTER_BACKEND = "torch"
+
+@dataclass
+class FrameResult:
+    poc: int
+    bits: int
+    psnr_y: float
+    psnr_u: float
+    psnr_v: float
+    md5: list = field(default_factory=list)
+    seconds: float = 0.0
+
+
+class Encoder:
+    """Per-picture encoder: headers, the picture's analysis, in-loop
+    filters, CABAC and NAL packing (the reference's `Encoder`,
+    `tpuhevc/codec/encoder.py:38-490`, cut to the configurations
+    `check_slice` admits). I pictures go through the quadtree intra
+    decision on `device`; P pictures without a precomputed result through
+    the per-frame device stage (`inter_enc.encode_frame_p`)."""
+
+    def __init__(self, cfg: EncoderConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = device
+        cfg.pps.init_qp = cfg.qp
+        cfg.pps.deblocking_disabled = not cfg.deblocking
+        self.nals: list[bytes] = []
+        self.first_of_au: list[bool] = []
+        self.results: list[FrameResult] = []
+        self._wrote_ps = False
+        self._frame_encoder = functools.partial(encode_frame_intra_qt,
+                                                device=device)
+        self.dpb_recon = None  # previous frame recon (single-ref LD-P)
+        self._nn_cache: dict = {}
+        self.nn_params = self._nn_for_qp(cfg.qp)
+        # steady-state LD-P RPS published in the SPS; slices reference it
+        # by index (TEncCavlc SPS RPS list) instead of re-coding it
+        if cfg.intra_period == -1 and cfg.gop_structure == "ldp":
+            n = max(1, cfg.num_ref_frames)
+            self._sps_rps = [headers.ShortTermRPS(
+                [-(i + 1) for i in range(n)], [1] * n)]
+        else:
+            self._sps_rps = []
+
+    def _slice_type(self, poc: int) -> int:
+        return I_SLICE if poc == 0 or self.cfg.intra_period == 1 else P_SLICE
+
+    def frame_qp(self, poc: int) -> int:
+        cfg = self.cfg
+        if self._slice_type(poc) == I_SLICE or not cfg.gop_qp_offsets:
+            return cfg.qp
+        off = cfg.gop_qp_offsets[(poc - 1) % len(cfg.gop_qp_offsets)]
+        return min(max(cfg.qp + off, 0), 51)
+
+    def _nn_for_qp(self, qp: int):
+        """NN-FME weights for a frame. The reference selects the weight
+        set ONCE from the base config QP (TEncSearch.cpp:472
+        m_pcEncCfg->getQP()), NOT the per-frame QP — GOP QP offsets must
+        not silently reroute every P frame to the QP22 fallback set."""
+        if self.cfg.fme_mode != "nn":
+            return None
+        qp = self.cfg.qp
+        if qp not in self._nn_cache:
+            self._nn_cache[qp] = _load_nn_params(self.cfg)
+        return self._nn_cache[qp]
+
+    def _emit(self, nal: bytes, first_of_au: bool = False) -> None:
+        self.nals.append(nal)
+        self.first_of_au.append(first_of_au)
+
+    def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                     poc: int, precomputed=None,
+                     slice_info: dict | None = None) -> FrameResult:
+        cfg, sps, pps = self.cfg, self.cfg.sps, self.cfg.pps
+        t0 = time.time()
+        if not self._wrote_ps:
+            self._emit(bitio.make_nal(bitio.NAL_VPS, headers.write_vps(sps)))
+            self._emit(bitio.make_nal(
+                bitio.NAL_SPS, headers.write_sps(sps, self._sps_rps or None)))
+            self._emit(bitio.make_nal(bitio.NAL_PPS, headers.write_pps(pps)))
+            self._emit(bitio.make_nal(bitio.NAL_PREFIX_SEI, sei.write_sei_nal([
+                sei.ActiveParameterSets(sps_ids=[0]),
+                sei.UserDataUnregistered(data=b"tpuhevc"),
+            ])))
+            self._wrote_ps = True
+        aus = []
+        if slice_info is None and self._slice_type(poc) == I_SLICE \
+                and poc > 0:
+            aus.append(sei.RecoveryPoint(recovery_poc_cnt=0))
+        if sps.vui_timing:
+            aus.append(sei.PicTiming())
+        if aus:
+            self._emit(bitio.make_nal(bitio.NAL_PREFIX_SEI,
+                                      sei.write_sei_nal(aus)))
+
+        if slice_info is not None:
+            stype = slice_info["stype"]
+            fqp = slice_info["qp"]
+        else:
+            stype = self._slice_type(poc)
+            fqp = self.frame_qp(poc)
+        if precomputed is not None:
+            fs, (ry, ru, rv) = precomputed
+        elif stype == I_SLICE:
+            fs, (ry, ru, rv) = self._frame_encoder(y, u, v, cfg)
+        else:
+            G = max(1, len(cfg.gop_qp_offsets))
+            lam_f = p_frame_lambda(cfg, (poc - 1) % G, fqp)
+            cfg_f = dataclasses.replace(cfg, qp=fqp, frame_lambda=lam_f)
+            fs, (ry, ru, rv) = encode_frame_p(
+                (y, u, v), self.dpb_recon, cfg_f, self._nn_for_qp(fqp),
+                device=self.device)
+
+        # deblocking and SAO: all-intra only (check_slice)
+        if cfg.deblocking and not getattr(fs, "prefiltered", False):
+            ry, ru, rv = deblock_frame((ry, ru, rv), fs, fqp,
+                                       stype == I_SLICE,
+                                       bd=sps.bit_depth)
+        if sps.sao_enabled and fs.sao is None:
+            w_, h_ = sps.coded_width, sps.coded_height
+            org = (_pad_to(np.asarray(y), h_, w_),
+                   _pad_to(np.asarray(u), h_ // 2, w_ // 2),
+                   _pad_to(np.asarray(v), h_ // 2, w_ // 2))
+            fs.sao = decide_sao_params(org, (ry, ru, rv), sps.ctu_size,
+                                       fqp, sps.bit_depth,
+                                       lam=i_frame_lambda(cfg, fqp))
+            ry, ru, rv = apply_sao_picture((ry, ru, rv), fs.sao,
+                                           sps.ctu_size, sps.bit_depth)
+
+        max_merge = cfg.max_num_merge_cand
+        if slice_info is not None and stype != I_SLICE:
+            hdr = headers.SliceHeader(
+                slice_type=stype, nal_type=bitio.NAL_TRAIL_R, poc=poc,
+                qp=fqp, rps=slice_info["rps"],
+                num_ref_idx_l0=slice_info["num_ref_l0"],
+                num_ref_idx_l1=slice_info.get("num_ref_l1", 0),
+                five_minus_max_num_merge_cand=5 - max_merge,
+            )
+            init_row = stype  # 0 = B, 1 = P (reference init-table layout)
+        elif stype == I_SLICE:
+            hdr = headers.SliceHeader(
+                slice_type=I_SLICE, nal_type=bitio.NAL_IDR_W_RADL, poc=poc,
+                qp=fqp,
+            )
+            init_row = 2
+        else:
+            n_ref = max(1, min(poc, cfg.num_ref_frames))
+            if fs.ref_idx is not None and fs.ref_idx.max() >= n_ref:
+                n_ref = int(fs.ref_idx.max()) + 1
+            hdr = headers.SliceHeader(
+                slice_type=P_SLICE, nal_type=bitio.NAL_TRAIL_R, poc=poc,
+                qp=fqp,
+                rps=headers.ShortTermRPS([-(i + 1) for i in range(n_ref)],
+                                         [1] * n_ref),
+                num_ref_idx_l0=n_ref,
+                five_minus_max_num_merge_cand=5 - max_merge,
+            )
+            init_row = 1
+            hdr.temporal_mvp = sps.temporal_mvp_enabled
+        if fs.sao is not None:
+            hdr.sao_luma = fs.sao.luma_on
+            hdr.sao_chroma = fs.sao.chroma_on
+        if stype != I_SLICE and hdr.rps is not None:
+            for i, r in enumerate(self._sps_rps):
+                if (r.delta_pocs == hdr.rps.delta_pocs
+                        and r.used == hdr.rps.used):
+                    hdr.rps_sps_idx = i
+                    break
+        n_ref_slice = hdr.num_ref_idx_l0 if stype != I_SLICE else 1
+        n_ref_l1 = hdr.num_ref_idx_l1 if stype == B_SLICE else 0
+        l0d = l1d = None
+        if slice_info is not None:
+            l0d = slice_info.get("l0_deltas")
+            l1d = slice_info.get("l1_deltas")
+        w = headers.write_slice_header(hdr, sps, pps,
+                                       num_sps_rps=len(self._sps_rps))
+        # the native coder codes I and P slices; it returns None for
+        # frames whose features exceed it (NxN, TU splits), and B slices
+        # take the Python coder
+        payload = (None if stype == B_SLICE else
+                   encode_slice_data_native(fs, sps, pps, init_row, fqp,
+                                            stype, max_merge, n_ref_slice))
+        if payload is not None:  # native fast path (byte-identical)
+            w.write_bytes(payload)
+        else:
+            cab = CabacEncoder(ContextSet(init_row, fqp))
+            encode_slice_data(cab, fs, sps, pps, stype, max_merge,
+                              num_ref=n_ref_slice, ref_deltas=l0d,
+                              num_ref_l1=n_ref_l1, l1_deltas=l1d,
+                              slice_qp=fqp)
+            cab.finish()
+            w.write_bytes(bytes(cab.out))
+            val, nbits = cab.pending_bits
+            w.write(val, nbits)
+            w.rbsp_trailing_bits()
+        self._emit(bitio.make_nal(hdr.nal_type, w.getvalue()),
+                   first_of_au=True)
+        bits = (len(self.nals[-1]) + 4) * 8
+
+        # decoded-picture-hash SEI (suffix) + per-frame stats
+        if cfg.hash_type == "checksum":
+            hashes, htype = picture_checksum(ry, ru, rv, sps.bit_depth), 2
+        elif cfg.hash_type == "crc":
+            hashes, htype = picture_crc(ry, ru, rv, sps.bit_depth), 1
+        else:
+            hashes, htype = picture_md5(ry, ru, rv, sps.bit_depth), 0
+        psnrs = (psnr(y, ry[: y.shape[0], : y.shape[1]], sps.bit_depth),
+                 psnr(u, ru[: u.shape[0], : u.shape[1]], sps.bit_depth),
+                 psnr(v, rv[: v.shape[0], : v.shape[1]], sps.bit_depth))
+        self.dpb_recon = (ry, ru, rv)
+        self._emit(bitio.make_nal(
+            bitio.NAL_SUFFIX_SEI,
+            headers.write_picture_hash_sei(hashes, htype)))
+
+        res = FrameResult(
+            poc=poc, bits=bits, psnr_y=psnrs[0], psnr_u=psnrs[1],
+            psnr_v=psnrs[2], md5=hashes, seconds=time.time() - t0,
+        )
+        self.results.append(res)
+        self._recon = (ry, ru, rv)
+        return res
+
+    def bitstream(self) -> bytes:
+        return bitio.write_annexb(self.nals, self.first_of_au)
 
 
 def check_slice(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for any configuration outside the ported
-    slices: all-intra (IntraPeriod 1) with tpuhevc's host tools after the
-    decision, or LD-P with NN-FME or integer-pel and those tools off; both
-    8-bit, quadtree intra, one slice."""
+    slices: all-intra (IntraPeriod 1) with the host tools after the
+    decision; LD-P, or random access driven by a GOP table of B pictures,
+    with NN-FME or integer-pel and RDOQ, sign hiding, deblocking and SAO
+    off (random access also needs a coded size in whole 16x16 blocks);
+    all 8-bit, quadtree intra, one slice."""
     sps, pps = cfg.sps, cfg.pps
     off = [
         (cfg.target_bitrate > 0, "rate control"),
         (sps.bit_depth != 8, f"bit depth {sps.bit_depth}"),
         (sps.scaling_list_enabled, "scaling lists"),
         (not cfg.intra_qt, "fixed 8x8 intra"),
-        (cfg.adaptive_qp or cfg.ctu_qp_map is not None, "adaptive QP"),
+        (cfg.adaptive_qp, "adaptive QP"),
         (pps.tiles_enabled or pps.entropy_coding_sync or cfg.slice_ctus > 0,
          "tiles, wavefronts or multiple slices"),
+        (sps.hrd_enabled, "HRD buffering-period SEIs"),
     ]
-    if cfg.intra_period != 1:  # LD-P
+    if cfg.intra_period != 1:  # LD-P or random access
+        ra = cfg.gop_structure == "ra"
         off += [
             (cfg.rdoq, "RDOQ"),
             (pps.sign_data_hiding, "sign-bit hiding"),
             (cfg.deblocking, "deblocking"),
             (sps.sao_enabled, "SAO"),
             (cfg.fme_mode not in ("nn", "none"), f"FmeMode {cfg.fme_mode}"),
-            (cfg.gop_structure != "ldp" or bool(cfg.gop_table),
-             "random access / B pictures"),
+            (ra and not cfg.gop_table, "random access without a GOP table"),
+            (not ra and bool(cfg.gop_table), "a GOP table of P pictures"),
+            (ra and (sps.coded_width % 16 or sps.coded_height % 16),
+             f"random access at {sps.coded_width}x{sps.coded_height} "
+             "(not whole 16x16 blocks)"),
             (cfg.intra_period != -1, f"IntraPeriod {cfg.intra_period}"),
-            (cfg.intra_in_inter, "intra CUs in P pictures"),
-            (pps.weighted_pred, "weighted prediction"),
+            (pps.weighted_pred or pps.weighted_bipred,
+             "weighted prediction"),
         ]
     bad = [name for cond, name in off if cond]
     if bad:
@@ -160,7 +403,7 @@ class LdpScanDriver:
             poc = ps + 1 + j
             cfg_f = dataclasses.replace(self.cfg, qp=self.enc.frame_qp(poc))
             per_cu = collect_frame(cfg_f, rows[j])
-            pre = assemble_frame_p(cfg_f, per_cu, 1, agglomerate=True)
+            pre = assemble_frame_p(cfg_f, per_cu)
             self.finish(poc, self.frames[poc], pre)
 
 
@@ -177,15 +420,15 @@ def _ldp_scan_pipelined(enc, cfg, frames, finish, device) -> None:
 def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
                     device="cuda"):
     """Encode frames read from `reader` (read_frame(i) -> (y, u, v) or
-    None): every picture intra with IntraPeriod 1, else one IDR followed by
-    P pictures. Returns (Encoder, recons), as
+    None): every picture intra with IntraPeriod 1; with a GOP table of B
+    pictures, random access (IDR, hierarchical B pictures in decode order,
+    P pictures after the last whole GOP); else one IDR followed by P
+    pictures. Returns (Encoder, recons), as
     `tpuhevc.codec.encoder.encode_sequence` does. `device` is explicit: a
     CUDA device that is absent raises, it never falls back to the CPU."""
     dev = resolve(device)
     check_slice(cfg)
-    cfg = dataclasses.replace(cfg, inter_backend=INTER_BACKEND)
-    enc = Encoder(cfg, frame_encoder=functools.partial(encode_frame_intra_qt,
-                                                       device=dev))
+    enc = Encoder(cfg, device=dev)
     n = max_frames if max_frames is not None else cfg.frames
     frames = []
     for i in range(n):
@@ -195,13 +438,113 @@ def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
         frames.append(fr)
     recons = []
 
-    def _finish(i, fr, pre=None):
-        enc.encode_frame(*fr, poc=i, precomputed=pre)
+    def _finish(i, fr, pre=None, slice_info=None):
+        enc.encode_frame(*fr, poc=i, precomputed=pre, slice_info=slice_info)
         recons.append(enc._recon)
 
-    if cfg.intra_period == -1 and len(frames) > 1:
+    if cfg.gop_structure == "ra" and len(frames) > 1:
+        _gop_table_driven(enc, cfg, frames, _finish)
+    elif cfg.intra_period == -1 and len(frames) > 1:
         _ldp_scan_pipelined(enc, cfg, frames, _finish, dev)
     else:
         for i, fr in enumerate(frames):
             _finish(i, fr)
     return enc, recons
+
+
+def _gop_table_driven(enc, cfg, frames, finish):
+    """GOP-table-driven hierarchical structure (the reference's
+    `tpuhevc/codec/encoder.py:606-682`): slice types, QP offsets,
+    temporal order, and RPS come straight from the parsed cfg GOP table
+    (config.options.GopEntry rows, Frame1..FrameN = decode order).
+    Counterpart of TEncGOP::compressGOP's table traversal
+    (TEncGOP.cpp:1077-1321) with the ref lists truncated to one active
+    picture per list (legal num_ref_idx override; the RPS keeps every
+    table reference alive in the DPB so HM replays the full hierarchy
+    hash-exact). First-GOP entries whose references precede POC 0 are
+    trimmed like TEncTop's initial-RPS adjustment."""
+    table = list(cfg.gop_table)
+    G = len(table)
+    n = len(frames)
+    cfg.sps.num_reorder_pics = max(cfg.sps.num_reorder_pics,
+                                   max(1, G - 1))
+    max_refs = max((len(e.ref_pics) for e in table), default=1)
+    cfg.sps.max_dec_pic_buffering = max(cfg.sps.max_dec_pic_buffering,
+                                        max_refs + 2)
+    dpb: dict = {}
+
+    finish(0, frames[0])
+    dpb[0] = enc._recon
+    last_coded = 0
+    base = 0
+    while base + G < n:
+        for e in table:
+            poc = base + e.poc_offset
+            if poc >= n:
+                continue
+            qp = min(max(cfg.qp + e.qp_offset, 0), 51)
+            # trim refs that precede the IDR or were never coded (the
+            # first GOPs reference pictures that do not exist yet)
+            deltas = [d for d in e.ref_pics if (poc + d) in dpb]
+            if not deltas:
+                deltas = [last_coded - poc]
+            past = sorted((poc + d for d in deltas if d < 0), reverse=True)
+            fut = sorted(poc + d for d in deltas if d > 0)
+            l0_poc = past[0] if past else fut[0]
+            l1_poc = fut[0] if fut else past[0]
+            rps = ShortTermRPS(deltas, [1] * len(deltas))
+            if e.slice_type == "B":
+                fs, recon = encode_frame_b(
+                    frames[poc], dpb[l0_poc], dpb[l1_poc], cfg, qp,
+                    [l0_poc], [l1_poc], poc, enc._nn_for_qp(qp),
+                    device=enc.device)
+                si = dict(stype=B_SLICE, qp=qp, rps=rps,
+                          num_ref_l0=1, num_ref_l1=1,
+                          l0_deltas=[poc - l0_poc],
+                          l1_deltas=[poc - l1_poc])
+                finish(poc, frames[poc], (fs, recon), si)
+            else:
+                enc.dpb_recon = dpb[l0_poc]
+                si = dict(stype=P_SLICE, qp=qp, rps=rps,
+                          num_ref_l0=1, l0_deltas=[poc - l0_poc])
+                finish(poc, frames[poc], None, si)
+            dpb[poc] = enc._recon
+            last_coded = poc
+            # DPB: exactly the decoder's — keep only pictures the
+            # just-coded RPS names (plus the current picture)
+            keep = {poc} | {poc + d for d in deltas}
+            for p in [p for p in dpb if p not in keep]:
+                dpb.pop(p)
+        base += G
+    # tail: plain LD-P chain from the last coded picture
+    for poc in range(base + 1, n):
+        if poc in dpb:
+            continue
+        qp = min(max(cfg.qp + (table[-1].qp_offset if table else 3), 0), 51)
+        ref = max(p for p in dpb if p < poc)
+        enc.dpb_recon = dpb[ref]
+        si = dict(stype=P_SLICE, qp=qp,
+                  rps=ShortTermRPS([ref - poc], [1]),
+                  num_ref_l0=1, l0_deltas=[poc - ref])
+        finish(poc, frames[poc], None, si)
+        dpb[poc] = enc._recon
+
+
+def _load_nn_params(cfg: EncoderConfig):
+    """Per-QP NN-FME weights from `NNWeightsDir` (an npz, or a CSV tree
+    with one directory per QP); None disables (falls back to integer)."""
+    import os
+
+    from ..models import nnfme
+
+    d = cfg.nn_weights_dir
+    if d and d.endswith(".npz") and os.path.exists(d):
+        return nnfme.select_qp_params(nnfme.load_npz(d), cfg.qp)
+    for root in [d] if d else []:
+        if root and os.path.isdir(root):
+            qp_dir = os.path.join(root, str(cfg.qp))
+            if not os.path.isdir(qp_dir):
+                qp_dir = os.path.join(root, "22")  # reference QP fallback
+            if os.path.isdir(qp_dir):
+                return nnfme.load_csv_weights(qp_dir)
+    return None

@@ -11,12 +11,15 @@ class pipeline runs four kernels:
   K4 `ops.txq.txq`              transform, quantiser, recon, skip/code drop
 
 The glue is plain torch: the block and window gathers use the index tables
-of `inter_batch._blk_idx` / `_win_idx`; the 32-vs-16 choice; the scatter
-into whole-frame planes with a dump slot for masked entries; and the
-packing of each frame into the byte row that
-`tpuhevc.codec.inter_batch.collect_frame` parses. The `lax.scan` over GOPs
-becomes a Python loop; launches are asynchronous, so the loop only
-enqueues work.
+of `_blk_idx` / `_win_idx`; the 32-vs-16 choice; the scatter into
+whole-frame planes with a dump slot for masked entries; and the packing of
+each frame into the byte row that `collect_frame` parses (the host half:
+`_positions`, `_blk_idx`, `_win_idx` and `collect_frame` are the port's
+numpy copies of the reference's, `inter_batch.py:36-71,362-421`). The
+`lax.scan` over GOPs becomes a Python loop; launches are asynchronous, so
+the loop only enqueues work. `class_pipeline`, `choose32` and
+`scatter_planes` serve the per-frame P stage (`inter_enc.build_stage`)
+as well.
 """
 
 from __future__ import annotations
@@ -24,17 +27,54 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuhevc.codec.inter_batch import _blk_idx, _positions, _win_idx
-from tpuhevc.codec.params import EncoderConfig, p_frame_lambda
-from tpuhevc.utils.tables import chroma_qp
-
 from ..device import resolve
 from ..models.nnfme import NNFME, height_category, nn_refine, width_category
 from ..ops.interp import mc_blk
 from ..ops.me import bits_table, sad_search
 from ..ops.txq import txq, wrap_int32
+from ..utils.tables import chroma_qp
+from .inter_enc import _grid_hier
+from .params import EncoderConfig, p_frame_lambda
 
 _OVH = 16  # flat per-CU syntax overhead of the 32-vs-16 choice
+
+
+def _positions(cfg):
+    sps = cfg.sps
+    w, h = sps.coded_width, sps.coded_height
+    pos32, sub16, pos16_free, pos8 = _grid_hier(w, h)
+    classes = []
+    if pos32:
+        classes.append(("c32", pos32, 32))
+        classes.append(("c16", sub16, 16))
+    if pos16_free:
+        classes.append(("cf", pos16_free, 16))
+    if pos8:
+        classes.append(("c8", pos8, 8))
+    return (pos32, sub16, pos16_free, pos8), classes
+
+
+def _blk_idx(poss, size, stride, cdiv=1):
+    """(N, size, size) flat plane indices for each block."""
+    n = len(poss)
+    idx = np.empty((n, size, size), np.int32)
+    ar = np.arange(size)
+    for i, (x, y) in enumerate(poss):
+        idx[i] = ((y // cdiv + ar)[:, None] * stride + (x // cdiv + ar)[None, :])
+    return idx
+
+
+def _win_idx(poss, size, sr, w, h):
+    """(N, win, win) clipped flat indices of each ME search window."""
+    win = size + 2 * sr
+    n = len(poss)
+    idx = np.empty((n, win, win), np.int32)
+    ar = np.arange(win)
+    for i, (x, y) in enumerate(poss):
+        yy = np.clip(y - sr + ar, 0, h - 1)
+        xx = np.clip(x - sr + ar, 0, w - 1)
+        idx[i] = yy[:, None] * w + xx[None, :]
+    return idx
 
 
 def _u8(x: torch.Tensor) -> torch.Tensor:
@@ -64,12 +104,94 @@ def _tables(cfg, classes, sr: int, dev: torch.device) -> dict:
     return tabs
 
 
+def class_pipeline(orig, ref, t: dict, size: int, qp: int, lam_full: int,
+                   lam_me: int, nn_m, bits: torch.Tensor, sr: int,
+                   subsample: bool) -> dict:
+    """ME, FME, MC and TU coding of one CU class (K1-K4): the class
+    pipeline of the LD-P scan (`inter_batch.py:212-254`, subsample on) and
+    of the per-frame P stage (`inter_enc.py:137-276` on the jax backend,
+    subsample off). orig / ref: (y, u, v) int32 planes; t: the class's
+    gather tables (`_tables`). Returns the per-class arrays, d and bits
+    int32 after the drop."""
+    oy, ou, ov = orig
+    ry, ru, rv = ref
+    qpc = chroma_qp(qp)
+    cur = oy.reshape(-1)[t["blk"]]
+    wnd = ry.reshape(-1)[t["win"]]
+    mv_int, sad9 = sad_search(wnd, cur, bits, lam_me, sr, subsample)
+    mvq = mv_int * 4
+    if nn_m is not None:
+        _, _, qoff = nn_refine(nn_m, sad9, height_category(size),
+                               width_category(size))
+        mvq = mvq + qoff
+    pred = mc_blk(ry, t["xs"], t["ys"], mvq, size, True)
+    lvl, rec, d_total, bits_total = txq(cur, pred, qp, lam_full)
+    out = dict(mvq=mvq, sad9=sad9, mv_int=mv_int, lvl=lvl, rec=rec)
+    cs = size // 2
+    # chroma eighth-pel on the chroma grid == the same quarter-pel ints
+    for tag, plane, refp in (("u", ou, ru), ("v", ov, rv)):
+        cur_c = plane.reshape(-1)[t["blk_c"]]
+        pred_c = mc_blk(refp, t["xs_c"], t["ys_c"], mvq, cs, False)
+        clvl, crec, dc, bc = txq(cur_c, pred_c, qpc, lam_full)
+        d_total = d_total + dc
+        bits_total = bits_total + bc
+        out["lvl_" + tag] = clvl
+        out["rec_" + tag] = crec
+    out["d"] = d_total
+    out["bits"] = bits_total
+    return out
+
+
+def rd_cost(d: torch.Tensor, b: torch.Tensor, lam_full: int) -> torch.Tensor:
+    """int32 d + ((lam_full * (b + OVH)) >> 8), wrapping as JAX does."""
+    rate = wrap_int32(lam_full * (b.long() + _OVH)) >> 8
+    return wrap_int32(d.long() + rate)
+
+
+def choose32(arrs: dict, lam_full: int) -> torch.Tensor:
+    """The 32-vs-16 RD choice per aligned 32-region (`_choose32`): the
+    c32 cost against the sum of its four c16 costs, in wrapping int32."""
+    cost16 = wrap_int32(rd_cost(arrs["c16"]["d"].reshape(-1, 4),
+                                arrs["c16"]["bits"].reshape(-1, 4),
+                                lam_full).sum(dim=1))
+    cost32 = rd_cost(arrs["c32"]["d"], arrs["c32"]["bits"], lam_full)
+    return cost32 <= cost16
+
+
+def scatter_planes(arrs: dict, tabs: dict, classes, use32, h: int, w: int,
+                   kinds=("rec",)) -> dict:
+    """The per-class blocks of each kind ("lvl", "rec") scattered into
+    whole (y, u, v) int32 planes: c16 where ~use32, c32 where use32, the
+    other classes everywhere. Masked entries go to a dump slot past the
+    plane's end (index h*w, or h*w/4 for chroma) that is cut off."""
+    dev = tabs[classes[0][0]]["blk"].device
+    flat = {k: [torch.zeros(h * w // d + 1, dtype=torch.int32, device=dev)
+                for d in (1, 4, 4)] for k in kinds}
+    for tag, _, _ in classes:
+        mask = (use32 if tag == "c32" else
+                torch.repeat_interleave(~use32, 4) if tag == "c16" else None)
+        a, t = arrs[tag], tabs[tag]
+        yi = t["blk"].reshape(t["n"], -1)
+        ci = t["blk_c"].reshape(t["n"], -1)
+        if mask is not None:
+            yi = torch.where(mask[:, None], yi, h * w)
+            ci = torch.where(mask[:, None], ci, h * w // 4)
+        yi, ci = yi.reshape(-1), ci.reshape(-1)
+        for k in kinds:
+            flat[k][0][yi] = a[k].reshape(-1)
+            flat[k][1][ci] = a[k + "_u"].reshape(-1)
+            flat[k][2][ci] = a[k + "_v"].reshape(-1)
+    return {k: (p[0][:-1].reshape(h, w), p[1][:-1].reshape(h // 2, w // 2),
+                p[2][:-1].reshape(h // 2, w // 2)) for k, p in flat.items()}
+
+
 def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
     """Returns (fn, grids, qps) where fn(frames_u8 (n_gops, G, fsz) uint8,
     ry, ru, rv int32 planes) -> (packed (n_gops*G, B) uint8, ry, ru, rv),
     all on `device`. qps[g] is the QP of GOP position g (offsets applied).
-    nn_by_qp maps a QP to NN-FME weights in `tpuhevc.models.nnfme`'s numpy
-    layout (or None: integer-pel MVs, as the reference)."""
+    nn_by_qp maps a QP to NN-FME weights (a dict of numpy arrays, as
+    `models.nnfme.load_npz` gives them; or None: integer-pel MVs, as the
+    reference)."""
     dev = resolve(device)
     sps = cfg.sps
     w, h = sps.coded_width, sps.coded_height
@@ -90,41 +212,6 @@ def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
             if p is not None:
                 nn_dev[qp] = NNFME.from_numpy(p, dev)
 
-    def class_pipeline(orig, ref, t, size, qp, lam_full, nn_m):
-        oy, ou, ov = orig
-        ry, ru, rv = ref
-        qpc = chroma_qp(qp)
-        lam_me = int(round(np.sqrt(lam_full / 256.0) * 256))
-        cur = oy.reshape(-1)[t["blk"]]
-        wnd = ry.reshape(-1)[t["win"]]
-        mv_int, sad9 = sad_search(wnd, cur, bits, lam_me, sr)
-        mvq = mv_int * 4
-        if nn_m is not None:
-            _, _, qoff = nn_refine(nn_m, sad9, height_category(size),
-                                   width_category(size))
-            mvq = mvq + qoff
-        pred = mc_blk(ry, t["xs"], t["ys"], mvq, size, True)
-        lvl, rec, d_total, bits_total = txq(cur, pred, qp, lam_full)
-        out = dict(mvq=mvq, sad9=sad9, mv_int=mv_int, lvl=lvl, rec=rec)
-        cs = size // 2
-        # chroma eighth-pel on the chroma grid == the same quarter-pel ints
-        for tag, plane, refp in (("u", ou, ru), ("v", ov, rv)):
-            cur_c = plane.reshape(-1)[t["blk_c"]]
-            pred_c = mc_blk(refp, t["xs_c"], t["ys_c"], mvq, cs, False)
-            clvl, crec, dc, bc = txq(cur_c, pred_c, qpc, lam_full)
-            d_total = d_total + dc
-            bits_total = bits_total + bc
-            out["lvl_" + tag] = clvl
-            out["rec_" + tag] = crec
-        out["d"] = d_total
-        out["bits"] = bits_total
-        return out
-
-    def rd_cost(d, b, lam_full):
-        """int32 d + ((lam_full * (b + OVH)) >> 8), wrapping as JAX does."""
-        rate = wrap_int32(lam_full * (b.long() + _OVH)) >> 8
-        return wrap_int32(d.long() + rate)
-
     def frame_step(ref, fu8, gpos):
         qp = qps[gpos]
         lam_full = int(round(p_frame_lambda(cfg, gpos, qp) * 256))
@@ -133,55 +220,19 @@ def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
         ou = fu8[w * h : w * h * 5 // 4].reshape(h // 2, w // 2).int()
         ov = fu8[w * h * 5 // 4 :].reshape(h // 2, w // 2).int()
         orig = (oy, ou, ov)
+        lam_me = int(round(np.sqrt(lam_full / 256.0) * 256))
         arrs = {tag: class_pipeline(orig, ref, tabs[tag], size, qp, lam_full,
-                                    nn_m)
+                                    lam_me, nn_m, bits, sr, True)
                 for tag, _, size in classes}
-        use32 = None
-        if n32:
-            cost16 = wrap_int32(rd_cost(arrs["c16"]["d"].reshape(-1, 4),
-                                        arrs["c16"]["bits"].reshape(-1, 4),
-                                        lam_full).sum(dim=1))
-            cost32 = rd_cost(arrs["c32"]["d"], arrs["c32"]["bits"], lam_full)
-            use32 = cost32 <= cost16
+        use32 = choose32(arrs, lam_full) if n32 else None
 
-        # scatter into whole-frame planes; masked entries go to the dump
-        # slot (index h*w, or h*w/4 for chroma) that is cut off afterwards
-        planes = {k: torch.zeros(h * w // (1 if k.endswith("y") else 4) + 1,
-                                 dtype=torch.int32, device=dev)
-                  for k in ("lvl_y", "lvl_u", "lvl_v", "rec_y", "rec_u",
-                            "rec_v")}
+        planes = scatter_planes(arrs, tabs, classes, use32, h, w,
+                                ("lvl", "rec"))
 
-        def scat(tag, mask):
-            a = arrs[tag]
-            t = tabs[tag]
-            yi = t["blk"].reshape(t["n"], -1)
-            ci = t["blk_c"].reshape(t["n"], -1)
-            if mask is not None:
-                yi = torch.where(mask[:, None], yi, h * w)
-                ci = torch.where(mask[:, None], ci, h * w // 4)
-            yi = yi.reshape(-1)
-            ci = ci.reshape(-1)
-            planes["lvl_y"][yi] = a["lvl"].reshape(-1)
-            planes["lvl_u"][ci] = a["lvl_u"].reshape(-1)
-            planes["lvl_v"][ci] = a["lvl_v"].reshape(-1)
-            planes["rec_y"][yi] = a["rec"].reshape(-1)
-            planes["rec_u"][ci] = a["rec_u"].reshape(-1)
-            planes["rec_v"][ci] = a["rec_v"].reshape(-1)
-
-        for tag, _, _ in classes:
-            if tag == "c32":
-                continue
-            scat(tag, torch.repeat_interleave(~use32, 4) if tag == "c16"
-                 else None)
-        if n32:
-            scat("c32", use32)
-
-        ry2 = planes["rec_y"][:-1].reshape(h, w)
-        ru2 = planes["rec_u"][:-1].reshape(h // 2, w // 2)
-        rv2 = planes["rec_v"][:-1].reshape(h // 2, w // 2)
-        parts = [_u8(planes["lvl_y"][:-1].to(torch.int16)),
-                 _u8(planes["lvl_u"][:-1].to(torch.int16)),
-                 _u8(planes["lvl_v"][:-1].to(torch.int16)),
+        ry2, ru2, rv2 = planes["rec"]
+        parts = [_u8(planes["lvl"][0].to(torch.int16)),
+                 _u8(planes["lvl"][1].to(torch.int16)),
+                 _u8(planes["lvl"][2].to(torch.int16)),
                  ry2.to(torch.uint8).reshape(-1),
                  ru2.to(torch.uint8).reshape(-1),
                  rv2.to(torch.uint8).reshape(-1)]
@@ -209,3 +260,65 @@ def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
         return (torch.stack(rows), *ref)
 
     return run, grids, qps
+
+
+def collect_frame(cfg, buf: np.ndarray):
+    """One frame's fetched bytes -> per_cu dict (numpy views into the
+    fetched planes; compatible with inter_enc.assemble_frame_p)."""
+    sps = cfg.sps
+    w, h = sps.coded_width, sps.coded_height
+    grids, classes = _positions(cfg)
+    off = 0
+
+    def take(nbytes, dtype, shape):
+        nonlocal off
+        out = np.frombuffer(buf[off : off + nbytes].tobytes(), dtype=dtype)
+        off += nbytes
+        return out.reshape(shape)
+
+    lvl_y = take(w * h * 2, np.int16, (h, w))
+    lvl_u = take(w * h // 2, np.int16, (h // 2, w // 2))
+    lvl_v = take(w * h // 2, np.int16, (h // 2, w // 2))
+    rec_y = take(w * h, np.uint8, (h, w))
+    rec_u = take(w * h // 4, np.uint8, (h // 2, w // 2))
+    rec_v = take(w * h // 4, np.uint8, (h // 2, w // 2))
+    meta = {}
+    for tag, poss, size in classes:
+        n = len(poss)
+        meta[tag] = dict(
+            mvq=take(n * 4, np.int16, (n, 2)),
+            mv_int=take(n * 4, np.int16, (n, 2)),
+            sad9=take(n * 36, np.int32, (n, 9)),
+            cbf=take(n, np.uint8, (n,)).astype(bool),
+        )
+    n32 = len(grids[0])
+    use32 = take(n32, np.uint8, (n32,)).astype(bool) if n32 else None
+
+    per_cu = {}
+
+    def emit(poss, size, md, i, x0, y0):
+        cs = size // 2
+        cx, cy = x0 // 2, y0 // 2
+        per_cu[(x0, y0)] = dict(
+            size=size,
+            mv=md["mvq"][i].astype(np.int32),
+            mv_int=md["mv_int"][i].astype(np.int32),
+            sad9=md["sad9"][i],
+            lvl=lvl_y[y0 : y0 + size, x0 : x0 + size].astype(np.int32),
+            rec=rec_y[y0 : y0 + size, x0 : x0 + size].astype(np.int32),
+            lvl_u=lvl_u[cy : cy + cs, cx : cx + cs].astype(np.int32),
+            rec_u=rec_u[cy : cy + cs, cx : cx + cs].astype(np.int32),
+            lvl_v=lvl_v[cy : cy + cs, cx : cx + cs].astype(np.int32),
+            rec_v=rec_v[cy : cy + cs, cx : cx + cs].astype(np.int32),
+        )
+
+    pos32, sub16, pos16_free, pos8 = grids
+    for tag, poss, size in classes:
+        md = meta[tag]
+        for i, (x0, y0) in enumerate(poss):
+            if tag == "c32" and not use32[i]:
+                continue
+            if tag == "c16" and use32[i // 4]:
+                continue
+            emit(poss, size, md, i, x0, y0)
+    return per_cu

@@ -21,16 +21,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuhevc.codec.intra_qt import I_ROW, _mode_bits_tab
-from tpuhevc.codec.params import i_frame_lambda
-from tpuhevc.entropy.bitest import FracBits
-from tpuhevc.utils.tables import chroma_qp
-
 from ..device import resolve
-from ..entropy.bitest import est_tables, tu_bits
+from ..entropy.bitest import FracBits, est_tables, tu_bits
 from ..ops.cost import satd35_topk
 from ..ops.intra import blocks, intra_bank, refs
 from ..ops.intra_txq import intra_txq
+from ..utils.tables import chroma_qp
+from .intra_qt import I_ROW, _mode_bits_tab
+from .params import i_frame_lambda
 
 _CACHE: dict = {}
 

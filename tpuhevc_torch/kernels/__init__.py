@@ -11,7 +11,8 @@ and adds one to `LAUNCHES[name]` for every launch, and nowhere else.
 from __future__ import annotations
 
 KERNELS = ("sad_search", "nnfme_mlp", "mc_blk", "txq",
-           "intra_bank", "satd35_topk", "intra_txq", "tu_bits")
+           "intra_bank", "satd35_topk", "intra_txq", "tu_bits",
+           "b_me", "b_pred", "b_txq")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 

@@ -28,19 +28,14 @@
 // levels once. Launch-bound at the small classes (49,920 4x4 TUs at
 // 416x240 are cheap blocks of 32 threads).
 // Design: one block per (m, k) TU, one launch per class for all its
-// candidates; the transform core of tx_common.cuh; per-CG steps (Rice
-// parameter, zero trial) by one thread per CG between barriers.
+// candidates; the transform core of tx_common.cuh and the table RDOQ of
+// rdoq_common.cuh (per-CG steps, Rice parameter and zero trial, by one
+// thread per CG between barriers).
 
+#include "rdoq_common.cuh"
 #include "tx_common.cuh"
 
 namespace {
-
-struct Rdoq {
-    float scale, qdiv, inv_qdiv, inv_den, lam, lc0, lc1;
-};
-
-// float32 tables of entropy/bitest.py (`_foffsets`)
-__device__ __forceinline__ int f_csbf(int S) { return 8 * S * S; }
 
 __global__ void intra_txq_kernel(const int* __restrict__ org,
                                  const int* __restrict__ preds,
@@ -57,8 +52,7 @@ __global__ void intra_txq_kernel(const int* __restrict__ org,
     __shared__ int scratch[32];
     __shared__ int cg_rice[64];
     __shared__ int cg_keep[64];
-    const int S = 1 << log2, n2 = S * S, mask = S - 1;
-    const int cgw = S > 4 ? S >> 2 : 1, ncg = cgw * cgw;
+    const int S = 1 << log2, n2 = S * S;
     int* T = smem;             // S x S matrix
     int* A = T + n2;           // residual -> coefficients -> dequant -> rec
     int* B = A + n2;           // transform scratch
@@ -94,97 +88,7 @@ __global__ void intra_txq_kernel(const int* __restrict__ org,
             L[e] = clip16(c < 0 ? -level : level);
         }
     } else {
-        const float* sig = ftab;  // sig_bits[0]: (S, S, 2), prev CSBF 0
-        const float* csb = ftab + f_csbf(S);
-        const float g1[2] = {csb[4], csb[5]}, g10[2] = {csb[6], csb[7]};
-        const float g2[2] = {csb[8], csb[9]}, g20[2] = {csb[10], csb[11]};
-        for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-            const float ac = (float)abs(A[e]) * rq.scale;
-            F1[e] = ac;
-            F2[e] = ceilf(ac * rq.inv_qdiv);
-        }
-        __syncthreads();
-        // per-CG Rice stand-in: largest k <= 4 with 3 * 2^k <= cg_max,
-        // 0 unless cg_max > 6
-        for (int g = threadIdx.x; g < ncg; g += blockDim.x) {
-            const int cy = g / cgw, cx = g - cy * cgw;
-            float mx = F2[(cy * 4) * S + cx * 4];
-            for (int i = 1; i < 16; ++i)
-                mx = fmaxf(mx, F2[(cy * 4 + (i >> 2)) * S + cx * 4 + (i & 3)]);
-            int k = 0;
-            for (int j = 1; j <= 4; ++j) k += mx >= (float)(3 << j);
-            cg_rice[g] = mx > 6.0f ? k : 0;
-        }
-        __syncthreads();
-        for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-            const int y = e >> log2, x = e & mask;
-            const int g = (y >> 2) * cgw + (x >> 2);
-            const bool cg0 = y < 4 && x < 4;
-            const float s0 = sig[e * 2], s1 = sig[e * 2 + 1];
-            const float gt1_0 = cg0 ? g10[0] : g1[0];
-            const float gt1_1 = cg0 ? g10[1] : g1[1];
-            const float gt2_0 = cg0 ? g20[0] : g2[0];
-            const float gt2_1 = cg0 ? g20[1] : g2[1];
-            const int rice = cg_rice[g];
-            const float ricef = (float)(1 << rice), rice_f = (float)rice;
-            const float ac = F1[e];
-            auto lvl_bits = [&](float level) {
-                const float rem = fmaxf(level - 3.0f, 0.0f);
-                const float three = 3.0f * ricef;
-                float rl;
-                if (rem < three) {
-                    rl = (floorf(rem / ricef) + 1.0f) + rice_f;
-                } else {
-                    const int q = (int)(rem - three);
-                    const int ext = 31 - __clz((q >> rice) + 1);
-                    rl = (4.0f + rice_f) + 2.0f * (float)ext;
-                }
-                const float inner = level > 2.0f ? (gt2_1 - gt2_0) + rl : 0.0f;
-                const float outer =
-                    level > 1.0f ? ((gt1_1 - gt1_0) + gt2_0) + inner : 0.0f;
-                return ((s1 + 1.0f) + gt1_0) + outer;
-            };
-            auto cost = [&](float level) {
-                const float d = (ac - level * rq.qdiv) * rq.inv_den;
-                const float bits = level > 0.0f ? lvl_bits(level) : s0;
-                return d * d + rq.lam * bits;
-            };
-            const float lmax = F2[e];
-            const float l1 = fmaxf(lmax, 0.0f), l2 = fmaxf(lmax - 1.0f, 0.0f);
-            float best = cost(l1) <= cost(l2) ? l1 : l2;
-            best = cost(best) <= cost(0.0f) ? best : 0.0f;
-            F2[e] = best;
-            if (S > 4) {
-                const float dz = (ac - best * rq.qdiv) * rq.inv_den;
-                const float kb = best > 0.0f ? lvl_bits(best) : s0;
-                F3[e] = dz * dz + rq.lam * kb;
-                const float acn = ac * rq.inv_den;
-                F4[e] = acn * acn;
-            }
-        }
-        __syncthreads();
-        if (S > 4) {
-            for (int g = threadIdx.x; g < ncg; g += blockDim.x) {
-                const int cy = g / cgw, cx = g - cy * cgw;
-                const int base = (cy * 4) * S + cx * 4;
-                float ck = F3[base], cz = F4[base];
-                for (int i = 1; i < 16; ++i) {
-                    const int e = base + (i >> 2) * S + (i & 3);
-                    ck = ck + F3[e];
-                    cz = cz + F4[e];
-                }
-                cg_keep[g] = (ck + rq.lc1) <= (cz + rq.lc0);
-            }
-            __syncthreads();
-        }
-        for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-            const int y = e >> log2, x = e & mask;
-            const bool keep = S == 4 || cg_keep[(y >> 2) * cgw + (x >> 2)];
-            const float best = keep ? F2[e] : 0.0f;
-            const int c = A[e];
-            const float sgn = c > 0 ? 1.0f : (c < 0 ? -1.0f : 0.0f);
-            L[e] = (int)fminf(fmaxf(sgn * best, -32767.0f), 32767.0f);
-        }
+        rdoq_levels(A, L, F1, F2, F3, F4, cg_rice, cg_keep, log2, ftab, rq);
     }
     __syncthreads();
 

@@ -18,9 +18,10 @@
 // Design: one block per PU. The block gathers its clamped window into
 // shared memory once (neighbouring threads on neighbouring columns), runs
 // the horizontal pass into a second shared array, then the vertical pass
-// to the output, all in int32 (the sums stay below 2^22).
+// to the output, all in int32 (the sums stay below 2^22); the filter is
+// mc_common.cuh's, shared with b_pred.cu.
 
-#include <cuda_runtime.h>
+#include "mc_common.cuh"
 
 namespace {
 
@@ -34,46 +35,14 @@ __global__ void mc_blk_kernel(const int* __restrict__ plane, int H, int W,
                               const int* __restrict__ taps,
                               int* __restrict__ out, int size) {
     extern __shared__ int smem[];
-    const int win = size + NT - 1;
-    int* s_win = smem;               // win * win
-    int* s_h = s_win + win * win;    // win rows x size cols
-
+    int* s_win = smem;                                // win * win
+    int* s_h = s_win + (size + NT - 1) * (size + NT - 1);  // win x size
     const int n = blockIdx.x;
-    const int mvx = mvq[2 * n], mvy = mvq[2 * n + 1];
-    const int ix = xs[n] + (mvx >> FS) - OFF;
-    const int iy = ys[n] + (mvy >> FS) - OFF;
-    const int fx = mvx & FM, fy = mvy & FM;
-    int th[NT], tv[NT];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-        th[i] = taps[fx * NT + i];
-        tv[i] = taps[fy * NT + i];
-    }
-    for (int e = threadIdx.x; e < win * win; e += blockDim.x) {
-        const int r = e / win, c = e - (e / win) * win;
-        const int yy = min(max(iy + r, 0), H - 1);
-        const int xx = min(max(ix + c, 0), W - 1);
-        s_win[e] = plane[(size_t)yy * W + xx];
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < win * size; e += blockDim.x) {
-        const int r = e / size, c = e - (e / size) * size;
-        const int* src = s_win + r * win + c;
-        int acc = 0;
-#pragma unroll
-        for (int i = 0; i < NT; ++i) acc += src[i] * th[i];
-        s_h[e] = acc;
-    }
-    __syncthreads();
     int* dst = out + (size_t)n * size * size;
-    for (int e = threadIdx.x; e < size * size; e += blockDim.x) {
-        const int r = e / size, c = e - (e / size) * size;
-        int acc = 0;
-#pragma unroll
-        for (int i = 0; i < NT; ++i) acc += s_h[(r + i) * size + c] * tv[i];
-        acc >>= 6;
-        dst[e] = min(max((acc + 32) >> 6, 0), 255);
-    }
+    mc_filter<NT, OFF, FS, FM>(
+        plane, H, W, xs[n], ys[n], mvq[2 * n], mvq[2 * n + 1], taps, size,
+        s_win, s_h,
+        [&](int e, int v) { dst[e] = min(max((v + 32) >> 6, 0), 255); });
 }
 
 }  // namespace

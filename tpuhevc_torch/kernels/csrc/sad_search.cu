@@ -1,11 +1,12 @@
 // K1: dense full-pel SAD search with the NN-FME 3x3 SAD surface.
 //
 // Replaces: tpuhevc/codec/inter_batch.py:139, `sad_search` (a closure of
-// build_ldp_scan that XLA compiled for the TPU).
+// build_ldp_scan that XLA compiled for the TPU), and, with subsample 0,
+// tpuhevc/ops/me.py:123 `integer_me` (the per-frame P stage's search).
 //
 // What it computes, per PU n: SAD(dy, dx) over the clipped search window
-// for every (dy, dx) in [0, 2sr]^2, rows 0,2,4,... only and the sum <<1
-// when size > 8; cost = SAD + ((bits[dy][dx] * lam_me) >> 8) in int32; the
+// for every (dy, dx) in [0, 2sr]^2, with subsample rows 0,2,4,... only
+// and the sum <<1 when size > 8; cost = SAD + ((bits[dy][dx] * lam_me) >> 8) in int32; the
 // argmin over the inner (2sr-1)^2 square in row-major order with the first
 // index winning ties; mv = (bx - sr, by - sr) and the 3x3 raw SADs around
 // the winner.
@@ -36,7 +37,8 @@ __global__ void sad_search_kernel(const int* __restrict__ wnd,
                                   const int* __restrict__ bits,
                                   int* __restrict__ mv,
                                   int* __restrict__ sad9,
-                                  int size, int sr, int lam_me) {
+                                  int size, int sr, int lam_me,
+                                  int subsample) {
     extern __shared__ int smem[];
     const int m = 2 * sr + 1;
     const int win = size + 2 * sr;
@@ -53,7 +55,7 @@ __global__ void sad_search_kernel(const int* __restrict__ wnd,
     for (int e = threadIdx.x; e < size * size; e += blockDim.x) s_cur[e] = gc[e];
     __syncthreads();
 
-    const int sub = size > 8 ? 1 : 0;
+    const int sub = subsample && size > 8 ? 1 : 0;
     const int rstep = 1 << sub;
     for (int k = threadIdx.x; k < m * m; k += blockDim.x) {
         const int dy = k / m, dx = k - (k / m) * m;
@@ -100,13 +102,15 @@ __global__ void sad_search_kernel(const int* __restrict__ wnd,
 }  // namespace
 
 // wnd (n, S+2sr, S+2sr), cur (n, S, S), bits (2sr+1, 2sr+1): int32,
-// contiguous, on the device. Writes mv (n, 2) and sad9 (n, 9).
+// contiguous, on the device. Writes mv (n, 2) and sad9 (n, 9). subsample:
+// the 2:1 row rule for size > 8 (0 searches every row).
 extern "C" int tpuhevc_sad_search(const int* wnd, const int* cur,
                                   const int* bits, int* mv, int* sad9, int n,
-                                  int size, int sr, int lam_me, void* stream) {
+                                  int size, int sr, int lam_me, int subsample,
+                                  void* stream) {
     const int m = 2 * sr + 1, win = size + 2 * sr;
     const size_t smem = (size_t)(win * win + size * size + m * m) * sizeof(int);
     sad_search_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
-        wnd, cur, bits, mv, sad9, size, sr, lam_me);
+        wnd, cur, bits, mv, sad9, size, sr, lam_me, subsample);
     return (int)cudaGetLastError();
 }

@@ -2,9 +2,10 @@
 surface into a quarter-pel MV offset (kernel K2).
 
 Twin of `tpuhevc/models/nnfme.py:176` (`forward`) plus the argmax ->
-`CLASS_TO_QMV` step of `tpuhevc/codec/inter_batch.py:222-228`. Weights come
-in the numpy layout of `tpuhevc.models.nnfme` (`load_npz`,
-`select_qp_params`, `load_csv_weights`: the 15 `PARAM_KEYS`), so both
+`CLASS_TO_QMV` step of `tpuhevc/codec/inter_batch.py:222-228`. Weights are
+dicts of numpy arrays (the 15 `PARAM_KEYS`), read and written by the host
+loaders below (`load_npz`, `save_npz`, `select_qp_params`,
+`load_csv_weights`: copies of the reference's, same file layout), so both
 packages read the same files and compute the same thing.
 
 `NNFME.forward` is the plain PyTorch version; `nn_refine` launches the
@@ -13,16 +14,134 @@ CUDA kernel (`kernels/csrc/nnfme_mlp.cu`) for CUDA tensors.
 
 from __future__ import annotations
 
+import os
+import re
+
 import numpy as np
 import torch
 from torch import nn
 
-from tpuhevc.models import nnfme as ref_nnfme
-from tpuhevc.models.nnfme import CLASS_TO_QMV, PARAM_KEYS
-
 from ..device import check_tensor
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
+
+# class index -> quarter-pel offsets: class = (qy+3)*7 + (qx+3)
+# (TEncSearch.cpp:136-193; label construction comment at 4568-4579)
+CLASS_TO_QMV = np.array(
+    [[(c % 7) - 3, (c // 7) - 3] for c in range(49)], dtype=np.int32
+)
+
+
+# category row orders (TEncSearch.cpp:93-113): index = row in emb matrix
+_HEIGHT_ROWS = {4: 1, 8: 2, 16: 3, 12: 4, 24: 5, 32: 6, 64: 7}
+_WIDTH_ROWS = {4: 1, 8: 2, 12: 3, 16: 4, 24: 5, 32: 6, 64: 7}
+
+
+def height_category_np(h) -> np.ndarray:
+    h = np.asarray(h)
+    out = np.zeros(h.shape, dtype=np.int32)
+    for k, v in _HEIGHT_ROWS.items():
+        out = np.where(h == k, v, out)
+    return out
+
+
+def width_category_np(w) -> np.ndarray:
+    w = np.asarray(w)
+    out = np.zeros(w.shape, dtype=np.int32)
+    for k, v in _WIDTH_ROWS.items():
+        out = np.where(w == k, v, out)
+    return out
+
+
+PARAM_KEYS = (
+    "emb0", "emb1", "w1", "b1", "w2", "b2", "wout", "bout",
+    "bn_in", "bn1_w", "bn1_b", "bn2_w", "bn2_b", "mean", "std",
+)
+
+
+def _read_csv_matrix(path: str) -> np.ndarray:
+    rows = []
+    with open(path) as f:
+        for line in f:
+            vals = [x for x in re.split(r"[,;\s]+", line.strip()) if x]
+            if vals:
+                rows.append([float(x) for x in vals])
+    return np.array(rows, dtype=np.float32)
+
+
+def load_csv_weights(qp_dir: str) -> dict[str, np.ndarray]:
+    """Load one QP's weights from a reference-format CSV export directory
+    (files like 1.emb0-weight.csv ... 14.mapper_XX.csv)."""
+    files = {f.split(".", 1)[1]: os.path.join(qp_dir, f)
+             for f in os.listdir(qp_dir) if f.endswith(".csv")}
+
+    def get(tag):
+        for name, path in files.items():
+            if name.startswith(tag):
+                return _read_csv_matrix(path)
+        raise FileNotFoundError(f"{tag} in {qp_dir}")
+
+    mapper = get("mapper")  # rows: mean, std (9 each) in some layout
+    mean, std = mapper[0], mapper[1]
+    p = {
+        "emb0": get("emb0-weight"),
+        "emb1": get("emb1-weight"),
+        "w1": get("lins0-weight"),
+        "b1": get("lins0-bias").reshape(-1),
+        "w2": get("lins1-weight"),
+        "b2": get("lins1-bias").reshape(-1),
+        "wout": get("outp-weight"),
+        "bout": get("outp-bias").reshape(-1),
+        "bn_in": get("bn-weight").reshape(-1),
+        "bn1_w": get("bns0-weight").reshape(-1),
+        "bn1_b": get("bns0-bias").reshape(-1),
+        "bn2_w": get("bns1-weight").reshape(-1),
+        "bn2_b": get("bns1-bias").reshape(-1),
+        "mean": mean.reshape(-1),
+        "std": std.reshape(-1),
+    }
+    _check_shapes(p)
+    return p
+
+
+def _check_shapes(p):
+    assert p["emb0"].shape == (8, 4) and p["emb1"].shape == (8, 4), (
+        p["emb0"].shape, p["emb1"].shape)
+    assert p["w1"].shape == (22, 17) and p["w2"].shape == (20, 22)
+    assert p["wout"].shape == (49, 20)
+    assert p["mean"].shape == (9,) and p["std"].shape == (9,)
+
+
+def save_npz(path: str, per_qp: dict[int, dict[str, np.ndarray]]) -> None:
+    flat = {}
+    for qp, p in per_qp.items():
+        for k, v in p.items():
+            flat[f"qp{qp}/{k}"] = v
+    np.savez(path, **flat)
+
+
+def load_npz(path: str) -> dict[int, dict[str, np.ndarray]]:
+    data = np.load(path)
+    out: dict[int, dict[str, np.ndarray]] = {}
+    for key in data.files:
+        qp_s, k = key.split("/", 1)
+        out.setdefault(int(qp_s[2:]), {})[k] = data[qp_s + "/" + k]
+    return out
+
+
+def select_qp_params(per_qp: dict[int, dict], qp: int) -> dict:
+    """Reference QP fallback: untrained QPs silently use the QP22 set
+    (TEncSearch.cpp:925) — kept, with a loud warning."""
+    if qp in per_qp:
+        return per_qp[qp]
+    import warnings
+
+    base = 22 if 22 in per_qp else sorted(per_qp)[0]
+    warnings.warn(
+        f"NN-FME has no weights for QP {qp}; falling back to QP {base} "
+        "(reference behavior)")
+    return per_qp[base]
+
 
 SHAPES = {
     "emb0": (8, 4), "emb1": (8, 4), "w1": (22, 17), "b1": (22,),
@@ -34,11 +153,11 @@ N_PACKED = sum(int(np.prod(s)) for s in SHAPES.values())  # 2060 floats
 
 
 def height_category(size: int) -> int:
-    return int(ref_nnfme.height_category(size))
+    return int(height_category_np(size))
 
 
 def width_category(size: int) -> int:
-    return int(ref_nnfme.width_category(size))
+    return int(width_category_np(size))
 
 
 class NNFME(nn.Module):
@@ -56,12 +175,12 @@ class NNFME(nn.Module):
 
     @classmethod
     def from_numpy(cls, p: dict, device="cpu") -> "NNFME":
-        """From the dict of numpy arrays that `tpuhevc.models.nnfme`
-        returns (all 15 `PARAM_KEYS`, shapes as `_check_shapes`)."""
+        """From a dict of numpy arrays (all 15 `PARAM_KEYS`, shapes as
+        `_check_shapes`), as the loaders return it."""
         missing = set(PARAM_KEYS) - set(p)
         if missing:
             raise KeyError(f"NN-FME weights lack {sorted(missing)}")
-        ref_nnfme._check_shapes(p)
+        _check_shapes(p)
         m = cls()
         with torch.no_grad():
             for k in PARAM_KEYS:
@@ -124,8 +243,8 @@ def nn_refine(model: NNFME, sad9: torch.Tensor, hcat: int, wcat: int):
 
 
 def random_params(seed: int) -> dict:
-    """Seeded stand-in weights in the numpy layout of
-    `tpuhevc.models.nnfme` (the repository ships no trained set). The
+    """Seeded stand-in weights in the numpy layout of the loaders (the
+    repository ships no trained set). The
     mapper statistics are set to the scale of 8-bit block SADs so that
     the predicted offsets spread over the 49 classes."""
     rng = np.random.default_rng(seed)
@@ -144,5 +263,5 @@ def random_params(seed: int) -> dict:
         "mean": rng.uniform(800, 3000, 9).astype(np.float32),
         "std": rng.uniform(300, 1500, 9).astype(np.float32),
     }
-    ref_nnfme._check_shapes(p)
+    _check_shapes(p)
     return p

@@ -1,3 +1,5 @@
-"""Per-block device ops of the port: plain PyTorch versions and the
-wrappers of their CUDA kernels (motion search, MC, transforms, TU coding,
-the intra prediction bank, SATD and the intra TU trial)."""
+"""Per-block ops of the port: plain PyTorch versions and the wrappers of
+their CUDA kernels (motion search, MC and the B prediction, transforms,
+TU coding, the intra prediction bank, SATD and the intra TU trial), the
+numpy host versions the coding walks and the decoder use, and the
+in-loop filters (deblocking, SAO)."""

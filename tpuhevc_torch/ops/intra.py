@@ -22,12 +22,17 @@ import ctypes
 import numpy as np
 import torch
 
-from tpuhevc.ops.intra import filter_flag, mode_angle, mode_inv_angle
-from tpuhevc.utils.tables import DC_IDX, HOR_IDX, PLANAR_IDX, VER_IDX
-
 from ..device import check_tensor
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
+from ..utils.tables import (
+    DC_IDX,
+    HOR_IDX,
+    INTRA_INV_ANGLE,
+    INTRA_PRED_ANGLE,
+    PLANAR_IDX,
+    VER_IDX,
+)
 
 _INIT_DEVICES: set = set()
 
@@ -231,3 +236,172 @@ def intra_bank(tops: torch.Tensor, lefts: torch.Tensor, S: int,
     kbuild.check(err, "intra_bank")
     LAUNCHES["intra_bank"] += 1
     return out
+
+
+# --- numpy host prediction (the coding walks, the decoder) ------------------
+# Copied from the reference's numpy path; the host side stays numpy.
+
+# smoothing threshold per nTbS (§8.4.4.2.3): index by log2 size
+_FILTER_THRES = {3: 7, 4: 1, 5: 0}
+
+
+def mode_angle(mode: int) -> int:
+    return int(INTRA_PRED_ANGLE[mode - 2])
+
+
+def mode_inv_angle(mode: int) -> int:
+    return int(INTRA_INV_ANGLE[mode - 11])
+
+
+def filter_flag(mode: int, log2_size: int) -> bool:
+    """Whether [1 2 1] reference smoothing applies (luma only)."""
+    if mode == DC_IDX or log2_size == 2:
+        return False
+    min_dist = min(abs(mode - HOR_IDX), abs(mode - VER_IDX))
+    if mode == PLANAR_IDX:
+        min_dist = 10  # |planar-10| per mode-number arithmetic
+    return min_dist > _FILTER_THRES[log2_size]
+
+
+def smooth_refs_np(top: np.ndarray, left: np.ndarray, bit_depth: int = 8,
+                   strong: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """[1 2 1]/4 smoothing of the reference arrays (§8.4.4.2.3).
+    top/left: (..., 2S+1) with corner at index 0 (shared)."""
+    s2 = top.shape[-1] - 1  # 2S
+    if strong:
+        # bi-linear strong smoothing for 32x32 (§8.4.4.2.3 eq. 8-30..8-35)
+        size = s2 // 2
+        tl = top[..., 0]
+        tr = top[..., s2]
+        bl = left[..., s2]
+        i = np.arange(1, s2)
+        ft = top.copy()
+        fl = left.copy()
+        # pF at array index i = ((2N-i)*TL + i*TR + N) >> (log2(2N)); the
+        # reference writes ((uiTuWidth2-i)*topLeft + i*topRight +
+        # uiTuWidth) >> shift (TComPattern.cpp:279)
+        ft[..., 1:s2] = ((s2 - i) * tl[..., None] + i * tr[..., None] + 32) >> 6
+        fl[..., 1:s2] = ((s2 - i) * tl[..., None] + i * bl[..., None] + 32) >> 6
+        return ft, fl
+    ft = top.copy()
+    fl = left.copy()
+    # corner filtered with top[1] and left[1]
+    ft[..., 0] = (left[..., 1] + 2 * top[..., 0] + top[..., 1] + 2) >> 2
+    fl[..., 0] = ft[..., 0]
+    ft[..., 1:s2] = (top[..., :s2 - 1] + 2 * top[..., 1:s2] + top[..., 2:] + 2) >> 2
+    fl[..., 1:s2] = (left[..., :s2 - 1] + 2 * left[..., 1:s2] + left[..., 2:] + 2) >> 2
+    # last samples unfiltered (p[2S-1])
+    return ft, fl
+
+
+def strong_smoothing_ok(top: np.ndarray, left: np.ndarray, bit_depth: int = 8) -> np.ndarray:
+    """Flatness criterion enabling bilinear smoothing for 32x32 luma."""
+    s2 = top.shape[-1] - 1
+    size = s2 // 2
+    thr = 1 << (bit_depth - 5)
+    c1 = np.abs(top[..., 0] + top[..., s2] - 2 * top[..., size]) < thr
+    c2 = np.abs(left[..., 0] + left[..., s2] - 2 * left[..., size]) < thr
+    return c1 & c2
+
+
+def predict_np(top: np.ndarray, left: np.ndarray, mode: int, size: int,
+               bit_depth: int = 8) -> np.ndarray:
+    """Single-block prediction. top/left: (2S+1,) arrays (corner at 0).
+    Returns (S, S) prediction [y][x]. No post-filtering toggles here:
+    DC/H/V boundary filters are applied by the caller for luma < 32."""
+    s = size
+    maxv = (1 << bit_depth) - 1
+    t = top.astype(np.int32)
+    l = left.astype(np.int32)
+    if mode == PLANAR_IDX:
+        x = np.arange(s)[None, :]
+        y = np.arange(s)[:, None]
+        tr = t[s + 1]  # p[nTbS][-1]
+        bl = l[s + 1]  # p[-1][nTbS]
+        pred = (
+            (s - 1 - x) * l[1 + np.arange(s)][:, None]
+            + (x + 1) * tr
+            + (s - 1 - y) * t[1 + np.arange(s)][None, :]
+            + (y + 1) * bl
+            + s
+        ) >> (int(s).bit_length())  # log2(s) + 1
+        return pred.astype(np.int32)
+    if mode == DC_IDX:
+        dc = (t[1 : s + 1].sum() + l[1 : s + 1].sum() + s) >> (int(s).bit_length())
+        return np.full((s, s), dc, dtype=np.int32)
+    angle = mode_angle(mode)
+    if mode >= 18:
+        # vertical-ish: main reference = top row
+        ref = np.zeros(3 * s + 2, dtype=np.int32)  # index i maps x = i - s
+        ref[s : 3 * s + 1] = t[: 2 * s + 1]
+        ref[3 * s + 1] = t[2 * s]
+        if angle < 0:
+            inv = mode_inv_angle(mode)
+            need = (s * angle) >> 5
+            if need < -1:  # extension only when reads reach below ref[0]
+                for x in range(-1, need - 1, -1):
+                    ref[s + x] = l[((x * inv + 128) >> 8)]
+        y = np.arange(1, s + 1)[:, None]
+        pos = y * angle
+        idx = (pos >> 5) + np.arange(s)[None, :]  # x offset
+        frac = pos & 31
+        a = ref[s + idx + 1]   # ref[x + iIdx + 1], corner at ref[s]
+        b = ref[s + idx + 2]
+        pred = ((32 - frac) * a + frac * b + 16) >> 5
+        return pred.astype(np.int32)
+    # horizontal-ish: main reference = left col, then transpose
+    ref = np.zeros(3 * s + 2, dtype=np.int32)
+    ref[s : 3 * s + 1] = l[: 2 * s + 1]
+    ref[3 * s + 1] = l[2 * s]
+    if angle < 0:
+        inv = mode_inv_angle(mode)
+        need = (s * angle) >> 5
+        if need < -1:
+            for x in range(-1, need - 1, -1):
+                ref[s + x] = t[((x * inv + 128) >> 8)]
+    y = np.arange(1, s + 1)[:, None]
+    pos = y * angle
+    idx = (pos >> 5) + np.arange(s)[None, :]
+    frac = pos & 31
+    a = ref[s + idx + 1]
+    b = ref[s + idx + 2]
+    pred = ((32 - frac) * a + frac * b + 16) >> 5
+    return pred.T.astype(np.int32)
+
+
+def post_filter_np(pred: np.ndarray, top: np.ndarray, left: np.ndarray,
+                   mode: int, bit_depth: int = 8) -> np.ndarray:
+    """DC/H/V boundary filtering for luma TBs < 32 (§8.4.4.2.5/2.6)."""
+    s = pred.shape[-1]
+    maxv = (1 << bit_depth) - 1
+    p = pred.copy()
+    t = top.astype(np.int32)
+    l = left.astype(np.int32)
+    if mode == DC_IDX:
+        dc = p[0, 0]
+        p[0, 1:] = (t[2 : s + 1] + 3 * dc + 2) >> 2
+        p[1:, 0] = (l[2 : s + 1] + 3 * dc + 2) >> 2
+        p[0, 0] = (l[1] + 2 * dc + t[1] + 2) >> 2
+    elif mode == VER_IDX:
+        p[:, 0] = np.clip(t[1] + ((l[1 : s + 1] - l[0]) >> 1), 0, maxv)
+    elif mode == HOR_IDX:
+        p[0, :] = np.clip(l[1] + ((t[1 : s + 1] - t[0]) >> 1), 0, maxv)
+    return p
+
+
+def predict_block_np(top: np.ndarray, left: np.ndarray, mode: int, size: int,
+                     is_luma: bool, bit_depth: int = 8,
+                     strong_smoothing: bool = True) -> np.ndarray:
+    """Full per-TB intra prediction incl. smoothing + post filters."""
+    log2 = int(size).bit_length() - 1
+    ft, fl = top, left
+    if is_luma and filter_flag(mode, log2):
+        strong = (
+            log2 == 5 and strong_smoothing
+            and bool(strong_smoothing_ok(top, left, bit_depth))
+        )
+        ft, fl = smooth_refs_np(top, left, bit_depth, strong=strong)
+    pred = predict_np(ft, fl, mode, size, bit_depth)
+    if is_luma and size < 32:
+        pred = post_filter_np(pred, top, left, mode, bit_depth)
+    return pred

@@ -27,7 +27,7 @@ import ctypes
 import numpy as np
 import torch
 
-from tpuhevc.utils.tables import DST4, dct_matrix
+from ..utils.tables import DST4, dct_matrix
 
 from ..device import check_tensor
 from ..kernels import LAUNCHES

@@ -1,45 +1,76 @@
-"""Dense full-pel motion search with the NN-FME SAD surface (kernel K1).
+"""Dense full-pel motion search with the NN-FME SAD surface (kernels K1
+and `b_me`).
 
-Twin of the `sad_search` stage of `tpuhevc/codec/inter_batch.py:139`:
-for each PU, the SAD of every (2sr+1)^2 full-pel offset over its clipped
-search window, rows subsampled 2:1 and the sum shifted <<1 for PUs taller
-than 8 (the reference's FEN setting), plus the rate term
-(mv_bits * lam_me) >> 8; the argmin over the inner (2sr-1)^2 square (first
-index wins, row-major), and the 3x3 raw-SAD surface around it.
+K1, twin of the `sad_search` stage of `tpuhevc/codec/inter_batch.py:139`
+and, with `subsample=False`, of `integer_me` (`tpuhevc/ops/me.py:123-157`,
+the per-frame P stage's search): for each PU, the SAD of every
+(2sr+1)^2 full-pel offset over its clipped search window (with
+`subsample`, rows subsampled 2:1 and the sum shifted <<1 for PUs taller
+than 8, the LD-P scan's FEN setting), plus the rate term
+(mv_bits * lam_me) >> 8; the argmin over the inner (2sr-1)^2 square
+(first index wins, row-major), and the 3x3 raw-SAD surface around it.
 
-`sad_search_plain` is the PyTorch version; `sad_search` launches the CUDA
-kernel (`kernels/csrc/sad_search.cu`) for CUDA tensors.
+`b_me`, twin of `dense_me` in the B step (`tpuhevc/codec/inter_b.py:
+142-163`): for every 16x16 block of a picture and for both reference
+lists, the SAD at every offset of the edge-padded reference, the float32
+cost sad + lam_me * mvb with the B step's MV bit model, the first-index
+argmin over the WHOLE window, and the 3x3 surface read at flat indices
+clipped to the window (at its left or right edge a neighbour wraps into
+the adjacent row, as in the reference).
+
+`*_plain` are the PyTorch versions; `sad_search` and `b_me` launch the
+CUDA kernels (`kernels/csrc/sad_search.cu`, `kernels/csrc/b_me.cu`) for
+CUDA tensors.
 """
 
 from __future__ import annotations
 
-import torch
+import ctypes
 
-from tpuhevc.ops.me import mv_bits_table
+import numpy as np
+import torch
 
 from ..device import check_tensor
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 
 
+def mv_bits_table(sr: int) -> np.ndarray:
+    """(2R+1, 2R+1) Exp-Golomb-ish bit cost of each full-pel offset vs a
+    zero predictor (quarter-pel mvd => |v*4|), mirroring TComRdCost's
+    getCostOfVectorWithPredictor bit model."""
+    d = np.arange(-sr, sr + 1)
+    bits1 = 2 * np.ceil(np.log2(2 * np.abs(4 * d) + 1)).astype(np.int64) + 1
+    return bits1[:, None] + bits1[None, :]
+
+
 def bits_table(sr: int, device) -> torch.Tensor:
-    """(2sr+1, 2sr+1) int32 MV bit cost (`tpuhevc.ops.me.mv_bits_table`)."""
+    """(2sr+1, 2sr+1) int32 MV bit cost (`mv_bits_table`) on `device`."""
     return torch.as_tensor(mv_bits_table(sr), dtype=torch.int32, device=device)
 
 
-def sad_search_plain(wnd: torch.Tensor, cur: torch.Tensor, bits: torch.Tensor,
-                     lam_me: int, sr: int):
-    """wnd (N, S+2sr, S+2sr), cur (N, S, S) int32 -> (mv (N,2), sad9 (N,9))."""
-    n, size = cur.shape[0], cur.shape[1]
-    m = 2 * sr + 1
-    sub = 1 if size > 8 else 0
+def _sad_map(wnd: torch.Tensor, cur: torch.Tensor, sub: int) -> torch.Tensor:
+    """wnd (N, S+2sr, S+2sr), cur (N, S, S) -> (N, 2sr+1, 2sr+1) int32 SADs
+    (rows 0, 2, 4, ... and the sum << 1 when sub is 1)."""
+    size = cur.shape[1]
+    m = wnd.shape[1] - size + 1
     c = cur[:, :: 1 << sub, :].long()
     rows_sad = []
     for dy in range(m):
         rows = wnd[:, dy : dy + size : 1 << sub, :].long()  # (N, r, win)
         sl = rows.unfold(2, size, 1)  # (N, r, m, size)
         rows_sad.append((sl - c[:, :, None, :]).abs().sum(dim=(1, 3)))
-    sad = (torch.stack(rows_sad, dim=1) << sub).int()  # (N, m, m)
+    return (torch.stack(rows_sad, dim=1) << sub).int()
+
+
+def sad_search_plain(wnd: torch.Tensor, cur: torch.Tensor, bits: torch.Tensor,
+                     lam_me: int, sr: int, subsample: bool = True):
+    """wnd (N, S+2sr, S+2sr), cur (N, S, S) int32 -> (mv (N,2), sad9 (N,9)).
+    subsample: the FEN row rule (2:1 rows for S > 8); False searches every
+    row."""
+    n, size = cur.shape[0], cur.shape[1]
+    m = 2 * sr + 1
+    sad = _sad_map(wnd, cur, 1 if subsample and size > 8 else 0)
     cost = sad + ((bits[None] * lam_me) >> 8)
     inner = cost[:, 1 : m - 1, 1 : m - 1].reshape(n, -1)
     bi = torch.argmin(inner, dim=1)
@@ -53,10 +84,10 @@ def sad_search_plain(wnd: torch.Tensor, cur: torch.Tensor, bits: torch.Tensor,
 
 
 def sad_search(wnd: torch.Tensor, cur: torch.Tensor, bits: torch.Tensor,
-               lam_me: int, sr: int):
+               lam_me: int, sr: int, subsample: bool = True):
     """K1. CPU tensors take the plain version; CUDA tensors the kernel."""
     if cur.device.type == "cpu":
-        return sad_search_plain(wnd, cur, bits, lam_me, sr)
+        return sad_search_plain(wnd, cur, bits, lam_me, sr, subsample)
     if cur.device.type != "cuda":
         raise ValueError(f"sad_search: unsupported device {cur.device}")
     dev = cur.device
@@ -76,10 +107,111 @@ def sad_search(wnd: torch.Tensor, cur: torch.Tensor, bits: torch.Tensor,
     if n == 0:
         return mv, sad9
     fn = kbuild.function("sad_search", "tpuhevc_sad_search",
-                         [kbuild.P] * 5 + [kbuild.I] * 4 + [kbuild.P])
+                         [kbuild.P] * 5 + [kbuild.I] * 5 + [kbuild.P])
     err = fn(wnd.data_ptr(), cur.data_ptr(), bits.data_ptr(), mv.data_ptr(),
-             sad9.data_ptr(), n, size, sr, int(lam_me),
+             sad9.data_ptr(), n, size, sr, int(lam_me), int(subsample),
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "sad_search")
     LAUNCHES["sad_search"] += 1
+    return mv, sad9
+
+
+# --- the B step's two-list search ----------------------------------------------
+
+B_BLK = 16  # the B step codes 16x16 CUs
+
+_B_TABLES: dict = {}
+
+
+def b_mv_bits(sr: int) -> np.ndarray:
+    """(side*side,) float32 MV bits per flat offset of the B step's search
+    (`inter_b.py:116-120`): 2 ceil(log2(2 |4 dx| + 1)) + 2 ceil(log2(
+    2 |4 dy| + 1)) + 2, row-major over (dy, dx)."""
+    side = 2 * sr + 1
+    dxs = np.tile(np.arange(side) - sr, side)
+    dys = np.repeat(np.arange(side) - sr, side)
+    return (2 * np.ceil(np.log2(2.0 * np.abs(dxs * 4) + 1))
+            + 2 * np.ceil(np.log2(2.0 * np.abs(dys * 4) + 1))
+            + 2).astype(np.float32)
+
+
+def _b_tables(h: int, w: int, sr: int, device) -> dict:
+    """Gather tables of the 16x16 grid (raster order) of an h x w picture:
+    the blocks, their edge-clamped search windows, the MV bit model."""
+    key = (h, w, sr, str(device))
+    t = _B_TABLES.get(key)
+    if t is None:
+        n_w = w // B_BLK
+        n = (h // B_BLK) * n_w
+        blk = torch.arange(n, device=device)
+        ys = (blk // n_w) * B_BLK
+        xs = (blk % n_w) * B_BLK
+        ar = torch.arange(B_BLK, device=device)
+        aw = torch.arange(B_BLK + 2 * sr, device=device)
+        wy = (ys[:, None] - sr + aw).clamp(0, h - 1)
+        wx = (xs[:, None] - sr + aw).clamp(0, w - 1)
+        t = dict(
+            blk=((ys[:, None] + ar)[:, :, None] * w
+                 + (xs[:, None] + ar)[:, None, :]),
+            win=wy[:, :, None] * w + wx[:, None, :],
+            mvb=torch.as_tensor(b_mv_bits(sr), device=device))
+        _B_TABLES[key] = t
+    return t
+
+
+def b_me_plain(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
+               lam_me: float, sr: int):
+    """org, ref0, ref1 (H, W) int32 planes, H and W multiples of 16 ->
+    (mv (2, N, 2), sad9 (2, N, 9)) int32 for the N 16x16 blocks in raster
+    order, list 0 then list 1. lam_me is a Python float, rounded once to
+    float32 where it meets the bit table (JAX's weak type)."""
+    h, w = org.shape
+    t = _b_tables(h, w, sr, org.device)
+    side = 2 * sr + 1
+    cur = org.reshape(-1)[t["blk"]]
+    rate = torch.tensor(lam_me, dtype=torch.float32,
+                        device=org.device) * t["mvb"]
+    nbr9 = torch.tensor([dy * side + dx for dy in (-1, 0, 1)
+                         for dx in (-1, 0, 1)], device=org.device)
+    mvs, sad9s = [], []
+    for ref in (ref0, ref1):
+        sad = _sad_map(ref.reshape(-1)[t["win"]], cur, 0).reshape(
+            cur.shape[0], -1)
+        bi = torch.argmin(sad.float() + rate[None], dim=1)
+        mvs.append(torch.stack([bi % side - sr, bi // side - sr], -1).int())
+        i9 = (bi[:, None] + nbr9[None]).clamp(0, side * side - 1)
+        sad9s.append(sad.gather(1, i9))
+    return torch.stack(mvs), torch.stack(sad9s)
+
+
+def b_me(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
+         lam_me: float, sr: int):
+    """Kernel `b_me`. CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    if org.device.type == "cpu":
+        return b_me_plain(org, ref0, ref1, lam_me, sr)
+    if org.device.type != "cuda":
+        raise ValueError(f"b_me: unsupported device {org.device}")
+    dev = org.device
+    for t_, name in ((org, "org"), (ref0, "ref0"), (ref1, "ref1")):
+        check_tensor(t_, name, torch.int32, 2, dev)
+    h, w = org.shape
+    if (tuple(ref0.shape) != (h, w) or tuple(ref1.shape) != (h, w)
+            or h % B_BLK or w % B_BLK or not 1 <= sr <= 16):
+        raise ValueError(f"b_me: planes {tuple(org.shape)}, "
+                         f"{tuple(ref0.shape)}, {tuple(ref1.shape)}, sr={sr}")
+    n = (h // B_BLK) * (w // B_BLK)
+    mv = torch.empty((2, n, 2), dtype=torch.int32, device=dev)
+    sad9 = torch.empty((2, n, 9), dtype=torch.int32, device=dev)
+    if n == 0:
+        return mv, sad9
+    mvb = _b_tables(h, w, sr, dev)["mvb"]
+    fn = kbuild.function("b_me", "tpuhevc_b_me",
+                         [kbuild.P] * 6 + [kbuild.I] * 3 + [ctypes.c_float,
+                                                            kbuild.P])
+    err = fn(org.data_ptr(), ref0.data_ptr(), ref1.data_ptr(), mvb.data_ptr(),
+             mv.data_ptr(), sad9.data_ptr(), h, w, sr,
+             float(np.float32(lam_me)), torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "b_me")
+    LAUNCHES["b_me"] += 1
     return mv, sad9

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuhevc.utils.tables import (
+from ..utils.tables import (
     DST4,
     INV_QUANT_SCALES,
     MAX_TR_DYNAMIC_RANGE,
@@ -202,3 +202,292 @@ def rdoq_est(coeff: torch.Tensor, qp: int, log2_size: int, bit_depth: int,
     lvl = torch.sign(coeff).float() * best
     return lvl.clamp(-32767, 32767).int()
 
+
+
+# --- numpy host core (the coding walks, the decoder) -----------------------
+# Copied from the reference's numpy branches; the host side stays numpy.
+
+def _matrix(size: int, is_dst: bool) -> np.ndarray:
+    return DST4 if is_dst else dct_matrix(size)
+
+
+# --- numpy exact core ------------------------------------------------------
+
+def forward_transform_np(resi: np.ndarray, bit_depth: int = 8, is_dst: bool = False) -> np.ndarray:
+    """(N, S, S) residual -> (N, S, S) transform coefficients [y][x]."""
+    n, s, _ = resi.shape
+    log2 = s.bit_length() - 1
+    t = _matrix(s, is_dst).astype(np.int64)
+    s1 = log2 + bit_depth - 9
+    s2 = log2 + 6
+    r = resi.astype(np.int64)
+    h = (r @ t.T + (1 << (s1 - 1))) >> s1          # horizontal stage
+    c = (t @ h + (1 << (s2 - 1))) >> s2            # vertical stage
+    return c.astype(np.int32)
+
+
+def inverse_transform_np(coeff: np.ndarray, bit_depth: int = 8, is_dst: bool = False) -> np.ndarray:
+    """Normative inverse (§8.6.4.2): (N, S, S) coeffs -> residual."""
+    n, s, _ = coeff.shape
+    t = _matrix(s, is_dst).astype(np.int64)
+    c = coeff.astype(np.int64)
+    g = (t.T @ c + 64) >> 7                        # vertical inverse
+    g = np.clip(g, -32768, 32767)
+    s2 = 20 - bit_depth
+    r = (g @ t + (1 << (s2 - 1))) >> s2            # horizontal inverse
+    return np.clip(r, -32768, 32767).astype(np.int32)
+
+
+def quantize_np(
+    coeff: np.ndarray, qp: int, log2_size: int, bit_depth: int = 8,
+    is_intra_slice: bool = True, m: np.ndarray | None = None,
+) -> np.ndarray:
+    """HM's scalar quantizer with its rounding offsets (non-normative side).
+    qp is the display-range QP; Qp' = qp + QpBdOffset is applied here.
+    m: (S, S) scaling-list factors (TComTrQuant::xSetScalingListEnc:
+    quantcoeff = (quantScales << 4) / m; flat m = 16 reduces exactly)."""
+    qp = qp + 6 * (bit_depth - 8)
+    per, rem = qp // 6, qp % 6
+    tshift = MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
+    qbits = 14 + per + tshift
+    add = (171 if is_intra_slice else 85) << (qbits - 9)
+    c = coeff.astype(np.int64)
+    if m is None:
+        scale = int(QUANT_SCALES[rem])
+        level = (np.abs(c) * scale + add) >> qbits
+    else:
+        qc = (int(QUANT_SCALES[rem]) << 4) // m.astype(np.int64)
+        level = (np.abs(c) * qc + add) >> qbits
+    return np.clip(np.sign(c) * level, -32768, 32767).astype(np.int32)
+
+
+def dequantize_np(level: np.ndarray, qp: int, log2_size: int, bit_depth: int = 8,
+                  m: np.ndarray | None = None) -> np.ndarray:
+    """Normative scaling process (§8.6.3). m: (S, S) scaling-list factors
+    (None = flat 16). qp is the display-range QP; Qp' = qp + QpBdOffset
+    is applied here."""
+    qp = qp + 6 * (bit_depth - 8)
+    per, rem = qp // 6, qp % 6
+    bdshift = bit_depth + log2_size - 5
+    if m is None:
+        scale = (16 * int(INV_QUANT_SCALES[rem])) << per
+        d = (level.astype(np.int64) * scale
+             + (1 << (bdshift - 1))) >> bdshift
+    else:
+        scale = (m.astype(np.int64) * int(INV_QUANT_SCALES[rem])) << per
+        d = (level.astype(np.int64) * scale
+             + (1 << (bdshift - 1))) >> bdshift
+    return np.clip(d, -32768, 32767).astype(np.int32)
+
+
+# --- scaling lists (§7.4.5 Table 7-5/7-6; TComScalingList defaults) ---------
+
+_SL_8x8_INTRA = np.array([
+    16, 16, 16, 16, 17, 18, 21, 24,
+    16, 16, 16, 16, 17, 19, 22, 25,
+    16, 16, 17, 18, 20, 22, 25, 29,
+    16, 16, 18, 21, 24, 27, 31, 36,
+    17, 17, 20, 24, 30, 35, 41, 47,
+    18, 19, 22, 27, 35, 44, 54, 65,
+    21, 22, 25, 31, 41, 54, 70, 88,
+    24, 25, 29, 36, 47, 65, 88, 115], np.int32).reshape(8, 8)
+
+_SL_8x8_INTER = np.array([
+    16, 16, 16, 16, 17, 18, 20, 24,
+    16, 16, 16, 17, 18, 20, 24, 25,
+    16, 16, 17, 18, 20, 24, 25, 28,
+    16, 17, 18, 20, 24, 25, 28, 33,
+    17, 18, 20, 24, 25, 28, 33, 41,
+    18, 20, 24, 25, 28, 33, 41, 54,
+    20, 24, 25, 28, 33, 41, 54, 71,
+    24, 25, 28, 33, 41, 54, 71, 91], np.int32).reshape(8, 8)
+
+
+def default_scaling_matrix(log2_size: int, is_intra: bool) -> np.ndarray:
+    """Default scaling-list factors m (S, S) (§7.4.5: 4x4 flat 16; 8x8
+    from Table 7-6; 16/32 by 2x/4x nearest upsampling with the DC
+    coefficient replaced by the default scaling_list_dc = 16)."""
+    if log2_size == 2:
+        return np.full((4, 4), 16, np.int32)
+    base = _SL_8x8_INTRA if is_intra else _SL_8x8_INTER
+    f = 1 << (log2_size - 3)
+    m = np.repeat(np.repeat(base, f, 0), f, 1)
+    if f > 1:
+        m[0, 0] = 16  # scaling_list_dc_coef default
+    return m
+
+
+def ideal_levels_np(coeff: np.ndarray, qp: int, log2_size: int,
+                    bit_depth: int = 8) -> np.ndarray:
+    """Real-valued SIGNED coef*scale/2^qbits (the quantizer's
+    pre-rounding value) — the reference point for SBH's minimal-damage
+    adjustment (magnitude) and the sign of newly created coefficients."""
+    qp = qp + 6 * (bit_depth - 8)
+    per, rem = qp // 6, qp % 6
+    tshift = MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
+    qbits = 14 + per + tshift
+    return coeff.astype(np.float64) * int(QUANT_SCALES[rem]) / (1 << qbits)
+
+
+def rdoq_np(coeff: np.ndarray, qp: int, log2_size: int, bit_depth: int = 8,
+            lam_fp256: int = 256, is_intra_slice: bool = False,
+            scan: np.ndarray | None = None) -> np.ndarray:
+    """Rate-distortion optimized quantization, vectorized approximation of
+    TComTrQuant::xRateDistOptQuant (TComTrQuant.cpp:2129, SURVEY.md §A.1):
+
+    - per-coefficient level choice among {ceil, ceil-1, 0} by
+      distortion + lambda*bits with the quantizer's true error scale
+      (running CABAC context state replaced by a Golomb-ish bit proxy,
+      which keeps the decision vectorizable over whole batches);
+    - per-4x4-CG all-zero trial (the dominant tail-trimming effect of the
+      reference's CG loop + last-position search).
+
+    coeff: (..., S, S). lam_fp256: lambda in 8.8 fixed point.
+    Returns int32 levels.
+    """
+    qpe = qp + 6 * (bit_depth - 8)
+    per, rem = qpe // 6, qpe % 6
+    tshift = MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
+    qbits = 14 + per + tshift
+    scale = float(QUANT_SCALES[rem])
+    # 1.5x: the Golomb-ish proxy underestimates context-coded bits
+    lam = 1.5 * lam_fp256 / 256.0  # FULL lambda (not the sqrt ME one)
+    c = coeff.astype(np.float64)
+    ac = np.abs(c) * scale  # lLevelDouble
+    lmax = np.ceil(ac / (1 << qbits)).astype(np.int64)
+    # residual-domain error of level l: (ac - l*2^qbits) / (scale*2^tshift)
+    err_den = scale * (1 << tshift)
+
+    def cost(l):
+        d = (ac - l * float(1 << qbits)) / err_den
+        bits = np.where(l > 0, 2 * np.floor(np.log2(np.maximum(l, 1)))
+                        + 3 + 1, 0.0)  # golomb-ish + sign
+        return d * d + lam * bits
+
+    l1 = np.maximum(lmax, 0)
+    l2 = np.maximum(lmax - 1, 0)
+    best = np.where(cost(l1) <= cost(l2), l1, l2)
+    best = np.where(cost(best) <= cost(np.zeros_like(best)), best, 0)
+
+    # per-CG zero trial
+    s = 1 << log2_size
+    shp = best.shape
+    b4 = best.reshape(-1, s // 4, 4, s // 4, 4)
+    c4 = (ac / err_den).reshape(-1, s // 4, 4, s // 4, 4)
+    dz = (ac - best * float(1 << qbits)) / err_den
+    dz2 = (dz * dz).reshape(-1, s // 4, 4, s // 4, 4).sum((2, 4))
+    z2 = (c4 * c4).sum((2, 4))  # distortion of all-zero CG
+    bits_cg = np.where(
+        b4 > 0, 2 * np.floor(np.log2(np.maximum(b4, 1))) + 4, 0.0
+    ).sum((2, 4)) + 4.0  # + sig-CG flag-ish overhead
+    keep = dz2 + lam * bits_cg <= z2 + lam * 1.0
+    best = np.where(np.repeat(np.repeat(keep, 4, 1), 4, 2)
+                    .reshape(-1, s, s).reshape(shp), best, 0)
+    lvl = np.sign(c) * best
+    return np.clip(lvl, -32768, 32767).astype(np.int32)
+
+
+def rdoq_est_np(coeff, qp: int, log2_size: int, bit_depth: int,
+                lam: float, est):
+    """Table-cost RDOQ on (N, S, S) coefficient tiles in float64: the
+    numpy branch of the reference's `rdoq_est_xp`, which the native C++
+    walk (native/intra_walk.cpp quantTB) mirrors exactly.
+
+    The per-coefficient level choice among {ceil, ceil-1, 0} uses the
+    quantizer's true error scale plus estBitsSbac-style FRACTIONAL-BIT
+    TABLE costs (TComTrQuant::xGetCodedLevel + getSigCtxInc semantics,
+    reference TComTrQuant.cpp:2129-2510): position-dependent significance
+    contexts, gt1/gt2 with the CG0 vs later context sets, Golomb-Rice
+    remainder with the per-CG Rice stand-in, and the sign bit. Then the
+    per-4x4-CG all-zero trial against the coded-sub-block flag. The
+    running c1/c2 walk is approximated by the c1=1 states and the
+    last-position walk-back is left to the caller's whole-TU compare --
+    the same approximation the device inter path (codec/inter_grid.py
+    rdoq_plane) uses, lifted here so the intra paths share it instead of
+    the Golomb-proxy + 1.5x fudge of rdoq_np.
+
+    est: entropy.bitest.ResidualBitEst for (slice init row, qp', log2).
+    lam: FULL lambda (float). Returns int32 levels shaped like coeff.
+    """
+    qpe = qp + 6 * (bit_depth - 8)
+    per, rem = qpe // 6, qpe % 6
+    tshift = MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
+    qbits = 14 + per + tshift
+    scale = float(QUANT_SCALES[rem])
+    fdt = np.float64
+    ac = np.abs(coeff).astype(fdt) * scale
+    lmax = np.ceil(ac / (1 << qbits)).astype(fdt)
+    err_den = scale * (1 << tshift)
+    S = 1 << log2_size
+    cgw = max(1, S >> 2)
+
+    s_tab = est.sig_bits[0]                      # (S, S, 2), prev csbf 0
+    s0 = s_tab[:, :, 0][None]
+    s1 = s_tab[:, :, 1][None]
+    is_cg0 = np.zeros((1, cgw, cgw), np.float64)
+    is_cg0[0, 0, 0] = 1.0
+    if S <= 4:
+        is_cg0 = np.ones((1, 1, 1), is_cg0.dtype)
+
+    def cg_up(m):                                # (N,cgw,cgw)->(N,S,S)
+        return np.repeat(np.repeat(m, 4, axis=1), 4, axis=2) \
+            if S > 4 else m
+
+    g1, g10 = est.gt1_bits, est.gt1_bits0
+    g2, g20 = est.gt2_bits, est.gt2_bits0
+    cg0p = cg_up(is_cg0)
+    gt1_0 = np.where(cg0p > 0, float(g10[0]), float(g1[0]))
+    gt1_1 = np.where(cg0p > 0, float(g10[1]), float(g1[1]))
+    gt2_0 = np.where(cg0p > 0, float(g20[0]), float(g2[0]))
+    gt2_1 = np.where(cg0p > 0, float(g20[1]), float(g2[1]))
+    # per-CG Rice parameter from the ceiling levels (stand-in for the
+    # running adaptation, identical to the device inter path)
+    if S > 4:
+        cg_max = cg_up(np.max(lmax.reshape(-1, cgw, 4, cgw, 4),
+                              axis=(2, 4)))
+    else:
+        cg_max = np.max(lmax, axis=(1, 2), keepdims=True)
+    rice = np.clip(np.where(cg_max > 6.0,
+                            np.log2(np.maximum(cg_max, 1.0) / 3.0), 0.0),
+                   0, 4).astype(np.int32)
+    ricef = np.exp2(rice.astype(fdt))
+
+    def lvl_bits(level):
+        rem_ = np.maximum(level - 3.0, 0.0)
+        three = (3 * ricef)
+        rl = np.where(rem_ < three, np.floor(rem_ / ricef) + 1.0
+                      + rice.astype(fdt),
+                      4.0 + rice.astype(fdt) + 2.0 * np.floor(
+                          np.log2(np.maximum(rem_ - three, 0.0)
+                                  / ricef + 1.0)))
+        return (s1 + 1.0 + gt1_0
+                + np.where(level > 1.0,
+                           gt1_1 - gt1_0 + gt2_0
+                           + np.where(level > 2.0,
+                                      gt2_1 - gt2_0 + rl, 0.0), 0.0))
+
+    def cost(level):
+        d = (ac - level * float(1 << qbits)) / err_den
+        bits = np.where(level > 0, lvl_bits(level), s0 + 0.0 * level)
+        return d * d + lam * bits
+
+    l1 = np.maximum(lmax, 0.0)
+    l2 = np.maximum(lmax - 1.0, 0.0)
+    best = np.where(cost(l1) <= cost(l2), l1, l2)
+    best = np.where(cost(best) <= cost(np.zeros_like(best)), best, 0.0)
+
+    # per-CG all-zero trial vs the coded-sub-block flag
+    csbf = est.csbf_bits
+    dz = (ac - best * float(1 << qbits)) / err_den
+    keep_bits = np.where(best > 0, lvl_bits(best), s0 + 0.0 * best)
+    if S > 4:
+        ck = (dz * dz + lam * keep_bits).reshape(
+            -1, cgw, 4, cgw, 4).sum((2, 4))
+        acn = ac / err_den
+        cz = (acn * acn).reshape(-1, cgw, 4, cgw, 4).sum((2, 4))
+        keep = (ck + lam * float(csbf[0, 1])
+                <= cz + lam * float(csbf[0, 0]))
+        best = np.where(cg_up(keep), best, 0.0)
+    lim = 32767
+    return np.clip(np.sign(coeff).astype(fdt) * best,
+                   -lim, lim).astype(np.int32)

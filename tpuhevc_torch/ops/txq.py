@@ -1,6 +1,7 @@
-"""Fused inter TU coding with the skip/code decision (kernel K4).
+"""Fused inter TU coding with the skip/code decision (kernels K4 and
+`b_txq`).
 
-Twin of `tpuhevc/codec/inter_batch.py:193-211` (`coded_plane`, `bits_est`,
+K4, twin of `tpuhevc/codec/inter_batch.py:193-211` (`coded_plane`, `bits_est`,
 `sse`) and its drop rule at 231-236 / 246-252, over the transforms of
 `tpuhevc/ops/transforms.py:144-198`: residual -> forward DCT-II -> inter
 quantiser (rounding 85) -> dequantiser -> inverse DCT -> recon clip; the
@@ -9,8 +10,16 @@ lambda drop `(d_skip - d_coded) <= (lam_full * bits) >> 8`, whose product
 wraps in int32 as JAX computes it. Outputs lvl, rec (N, S, S) and d, bits
 (N,) int32 after the drop.
 
-`txq_plain` is the PyTorch version; `txq` launches the CUDA kernel
-(`kernels/csrc/txq.cu`) for CUDA tensors.
+`b_txq`, twin of `code_blocks` in the B step (`tpuhevc/codec/inter_b.py:
+181-194`): residual -> forward DCT-II -> the table RDOQ
+(`transforms.rdoq_est`, float32, with the B-slice estimator) ->
+dequantiser -> inverse DCT -> recon clip; the nz flag; the table bit
+estimate (`entropy.bitest.tu_bits`); the int32 SSEs of the skip and coded
+recons; and the float32 drop `f32(d_skip - d_coded) <= lam_full * bits`.
+Outputs lvl, rec (N, S, S) int32 after the drop.
+
+`*_plain` are the PyTorch versions; `txq` and `b_txq` launch the CUDA
+kernels (`kernels/csrc/txq.cu`, `kernels/csrc/b_txq.cu`) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -20,14 +29,15 @@ import ctypes
 import numpy as np
 import torch
 
-from tpuhevc.utils.tables import dct_matrix
-
 from ..device import check_tensor
+from ..entropy.bitest import tu_bits_plain
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
+from ..utils.tables import dct_matrix
 from . import transforms as tx
 
 _INIT_DEVICES: set = set()
+_B_INIT_DEVICES: set = set()
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -115,3 +125,82 @@ def txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
     kbuild.check(err, "txq")
     LAUNCHES["txq"] += 1
     return lvl, rec, d, bits
+
+
+def b_txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int,
+                lam_full: float, est):
+    """cur, pred (N, S, S) int32 -> (lvl, rec (N, S, S) int32). `est`: the
+    TU size's `EstTables`; lam_full a Python float (rounded to float32
+    where it meets a tensor, as JAX's weak type)."""
+    n = cur.shape[0]
+    log2 = cur.shape[-1].bit_length() - 1
+    lvl = tx.rdoq_est(tx.forward_transform(cur - pred), qp, log2, 8,
+                      lam_full, est)
+    rsd = tx.inverse_transform(tx.dequantize(lvl, qp, log2))
+    rec = (pred + rsd).clamp(0, 255)
+    nz = (lvl != 0).reshape(n, -1).any(dim=1)
+    rec = torch.where(nz[:, None, None], rec, pred)
+    bits = tu_bits_plain(est, lvl)
+    lam = torch.tensor(lam_full, dtype=torch.float32, device=cur.device)
+    drop = (_sse(cur, pred) - _sse(cur, rec)).float() <= lam * bits
+    lvl = torch.where(drop[:, None, None], torch.zeros_like(lvl), lvl)
+    rec = torch.where(drop[:, None, None], pred, rec)
+    return lvl, rec
+
+
+def _init_b_matrix(dev: torch.device) -> None:
+    """Copy the 32x32 HEVC matrix into b_txq's constant memory."""
+    if dev.index in _B_INIT_DEVICES:
+        return
+    t32 = np.ascontiguousarray(dct_matrix(32), dtype=np.int32)
+    fn = kbuild.function("b_txq", "tpuhevc_b_txq_init", [kbuild.P])
+    with torch.cuda.device(dev):
+        kbuild.check(fn(t32.ctypes.data_as(ctypes.c_void_p)),
+                     "b_txq init")
+    _B_INIT_DEVICES.add(dev.index)
+
+
+def b_txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: float,
+          est):
+    """Kernel `b_txq`. CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    if cur.device.type == "cpu":
+        return b_txq_plain(cur, pred, qp, lam_full, est)
+    if cur.device.type != "cuda":
+        raise ValueError(f"b_txq: unsupported device {cur.device}")
+    dev = cur.device
+    check_tensor(cur, "cur", torch.int32, 3, dev)
+    check_tensor(pred, "pred", torch.int32, 3, dev)
+    check_tensor(est.itab, "est.itab", torch.int32, 1, dev)
+    check_tensor(est.ftab, "est.ftab", torch.float32, 1, dev)
+    n, size = cur.shape[0], cur.shape[-1]
+    if (size not in (4, 8, 16) or cur.shape[1] != size
+            or pred.shape != cur.shape or est.S != size):
+        raise ValueError(f"b_txq: shapes {tuple(cur.shape)}, "
+                         f"{tuple(pred.shape)}, a {est.S}x{est.S} estimator")
+    if not 0 <= qp <= 51:
+        raise ValueError(f"b_txq: qp {qp}")
+    lvl = torch.empty_like(cur)
+    rec = torch.empty_like(cur)
+    if n == 0:
+        return lvl, rec
+    _init_b_matrix(dev)
+    log2 = size.bit_length() - 1
+    dqscale, dqshift = tx.dequant_params(qp, log2, 8)
+    rk = tx.rdoq_consts(qp, log2, 8)
+    csbf = est.csbf_host
+    f = ctypes.c_float
+    fn = kbuild.function("b_txq", "tpuhevc_b_txq",
+                         [kbuild.P] * 6 + [kbuild.I] * 4 + [f] * 7
+                         + [kbuild.P])
+    err = fn(cur.data_ptr(), pred.data_ptr(), est.itab.data_ptr(),
+             est.ftab.data_ptr(), lvl.data_ptr(), rec.data_ptr(), n, log2,
+             dqscale, dqshift,
+             *(float(np.float32(x)) for x in (
+                 rk["scale"], rk["qdiv"], rk["inv_qdiv"], rk["inv_den"],
+                 lam_full, lam_full * float(csbf[0, 0]),
+                 lam_full * float(csbf[0, 1]))),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "b_txq")
+    LAUNCHES["b_txq"] += 1
+    return lvl, rec

@@ -1,0 +1,132 @@
+"""Time and profile one encode path of the port on the card.
+
+    python -m tpuhevc_torch.profile_path --path ra [--width 416 --height 240
+        --frames 18 --reps 3 --trace chiprun_out/ra_trace.json]
+
+Encodes the synthetic clip of `tools/make_test_clip.py` (seed 7) through
+`codec.encoder.encode_sequence` with one of the repository's cfgs: `ra`
+(cfg/encoder_randomaccess_main.cfg as shipped), `ldp`
+(cfg/encoder_lowdelay_P_main.cfg cut to the LD-P slice: RDOQ, sign hiding,
+SAO and deblocking off) or `intra` (cfg/encoder_intra_main.cfg), QP 32,
+NN-FME weights random from seed 0. One encode warms up (kernel builds,
+caches), `reps` more are timed on the host clock ended by
+`torch.cuda.synchronize()`, and a last one runs under `torch.profiler`:
+the device's busy time is the sum of the device-side events' time (the
+kernels and copies themselves, not the host operators that launched
+them, which the profiler credits with the same time), its idle share
+1 - busy / wall over the profiled encode. Prints the card's
+name and power limit beside every number. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+CFGS = {
+    "ra": ("encoder_randomaccess_main.cfg", []),
+    "ldp": ("encoder_lowdelay_P_main.cfg",
+            ["--RDOQ=0", "--SignHideFlag=0", "--SAO=0",
+             "--LoopFilterDisable=1"]),
+    "intra": ("encoder_intra_main.cfg", []),
+}
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class _Clip:
+    def __init__(self, w: int, h: int, n: int):
+        from tools.make_test_clip import make_clip
+
+        raw = make_clip(w, h, n)
+        fsz = w * h * 3 // 2
+        self.frames = []
+        for i in range(n):
+            b = np.frombuffer(raw[i * fsz : (i + 1) * fsz], np.uint8)
+            self.frames.append((
+                b[: w * h].reshape(h, w),
+                b[w * h : w * h * 5 // 4].reshape(h // 2, w // 2),
+                b[w * h * 5 // 4 :].reshape(h // 2, w // 2)))
+
+    def read_frame(self, i):
+        return self.frames[i] if i < len(self.frames) else None
+
+
+def gpu_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    from .codec.encoder import encode_sequence
+    from .config.options import build_config, parse_args
+    from .device import require_cuda
+    from .models.nnfme import random_params, save_npz
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=sorted(CFGS), default="ra")
+    ap.add_argument("--width", type=int, default=416)
+    ap.add_argument("--height", type=int, default=240)
+    ap.add_argument("--frames", type=int, default=18)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--trace", default=None,
+                    help="write the profiled encode's chrome trace here")
+    args = ap.parse_args(argv)
+    dev = require_cuda()
+    gpu = gpu_line()
+    clip = _Clip(args.width, args.height, args.frames)
+    cfg_file, extra = CFGS[args.path]
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "nnfme_seeded.npz")
+        save_npz(npz, {32: random_params(0)})
+
+        def encode():
+            cfg, _ = build_config(parse_args([
+                "-c", os.path.join(ROOT, "cfg", cfg_file),
+                "-wdt", str(args.width), "-hgt", str(args.height),
+                "-f", str(args.frames), "-q", "32",
+                f"--NNWeightsDir={npz}"] + extra))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc, _ = encode_sequence(clip, cfg, device=dev)
+            torch.cuda.synchronize()
+            return enc, time.perf_counter() - t0
+
+        encode()
+        secs = [encode()[1] for _ in range(args.reps)]
+        print(f"{args.path} {args.width}x{args.height} x {args.frames}: warm "
+              f"encodes {[round(s, 4) for s in secs]} s, "
+              f"{args.frames / min(secs):.3f} frames/s at best | {gpu}",
+              flush=True)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            enc, wall = encode()
+        stats = prof.key_averages()
+        dev_us = {e.key: e.self_device_time_total for e in stats
+                  if e.self_device_time_total > 0
+                  and e.device_type == torch.autograd.DeviceType.CUDA}
+        busy = sum(dev_us.values()) / 1e6
+        print(f"profiled encode {wall:.4f} s: device busy {busy * 1e3:.3f} "
+              f"ms, idle {100 * (1 - busy / wall):.2f}% | {gpu}", flush=True)
+        pic = [(r.poc, round(r.seconds, 4)) for r in enc.results]
+        print(f"per picture (poc, host seconds in encode_frame): {pic}")
+        for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+            calls = next(e.count for e in stats if e.key == key)
+            print(f"  device {us / 1e3:9.3f} ms  calls {calls:5d}  {key}")
+        if args.trace:
+            os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                        exist_ok=True)
+            prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
