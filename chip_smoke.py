@@ -12,17 +12,22 @@
    P stage's search); the intra decision kernels at every call of the
    decision (both passes) of one all-intra picture and of one LD-P IDR,
    captured from the decision itself; the B step kernels (b_me, b_pred,
-   b_txq) at every call of one random-access B picture. Prints the max
-   difference, median times (CUDA events), and each kernel's bound: the
-   larger of its bytes (each tensor read or written once per picture; a
-   reference plane that motion compensation reads through block windows,
-   only the samples the windows cover) over 3.35 TB/s and its operations
-   over 67 T/s.
+   b_txq) at every call of one random-access B picture; the grid step
+   kernels (grid_coarse, grid_refine, grid_planes, grid_satd, grid_code,
+   grid_intra16) at every call of one 416x240 LD-P P picture (four
+   references, TMVP candidates), captured from the port's grid step.
+   Prints the max difference, median times (CUDA events), and each
+   kernel's bound: the larger of its bytes (each tensor read or written
+   once per picture; a plane that a kernel reads through windows or
+   gathers, only the samples read, their union over the calls) over
+   3.35 TB/s and its operations over 67 T/s.
 4. Main path 1, LD-P: encodes a 416x240, 17-frame synthetic clip through
-   the port's encode_sequence (anchor LD-P cfg, QP 32, FmeMode nn with
-   seeded weights, RDOQ/SBH/SAO/deblocking off) with the launch counters
-   reset just before; all eight kernels must have launched (the IDR's
-   decision runs the intra kernels). Main path 2, all-intra: 3 pictures
+   the port's encode_sequence (anchor LD-P cfg: four references,
+   SearchRange 64, QuadtreeTUMaxDepthInter 3, TMVP; QP 32, FmeMode nn
+   with seeded weights, RDOQ/SBH/SAO/deblocking off), which takes the
+   grid step (416x240 is whole 16x16 blocks), with the launch counters
+   reset just before; the six grid kernels, K2 and the intra kernels (the
+   IDR's decision) must have launched. Main path 2, all-intra: 3 pictures
    of the same clip with cfg/encoder_intra_main.cfg (RDOQ, NxN), counters
    reset just before; the four intra kernels must have launched. Main path
    3, random access: cfg/encoder_randomaccess_main.cfg as shipped at
@@ -31,7 +36,8 @@
    before; b_me, b_pred, b_txq and K1-K4 must have launched. Decodes every
    stream with the port's host decoder: every picture hash must match and
    the recon must equal the encoder's. Cross-checks CUDA against the CPU
-   path (bitstreams byte-identical) at 112x72 for LD-P and all-intra and
+   path (bitstreams byte-identical) at 112x72 for LD-P (the non-grid scan:
+   K1-K4) and all-intra, at 128x64 x 9 for LD-P through the grid step, and
    at 64x48 x 6 for random access.
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
@@ -56,7 +62,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from tools.make_test_clip import make_clip  # noqa: E402
-from tpuhevc_torch.codec import inter_b, intra_decide  # noqa: E402
+from tpuhevc_torch.codec import inter_b, inter_grid, intra_decide  # noqa: E402
 from tpuhevc_torch.codec.decoder import decode_stream  # noqa: E402
 from tpuhevc_torch.codec.encoder import encode_sequence  # noqa: E402
 from tpuhevc_torch.codec.inter_batch import _blk_idx, _positions, _win_idx  # noqa: E402
@@ -72,6 +78,12 @@ from tpuhevc_torch.models.nnfme import (  # noqa: E402
     NNFME, height_category, nn_refine, nn_refine_plain, random_params,
     save_npz, width_category)
 from tpuhevc_torch.ops.cost import satd35_topk, satd35_topk_plain  # noqa: E402
+from tpuhevc_torch.ops.grid_code import grid_code, grid_code_plain  # noqa: E402
+from tpuhevc_torch.ops.grid_intra import grid_intra16, grid_intra16_plain  # noqa: E402
+from tpuhevc_torch.ops.grid_me import (  # noqa: E402
+    grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain)
+from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
+    grid_planes, grid_planes_plain, grid_satd, grid_satd_plain)
 from tpuhevc_torch.ops.interp import (  # noqa: E402
     b_pred, b_pred_plain, mc_blk, mc_blk_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
@@ -104,9 +116,25 @@ SOURCES = {
                "tpuhevc/codec/inter_b.py:196"),
     "b_txq": ("tpuhevc_torch/kernels/csrc/b_txq.cu",
               "tpuhevc/codec/inter_b.py:181"),
+    "grid_coarse": ("tpuhevc_torch/kernels/csrc/grid_me.cu",
+                    "tpuhevc/codec/inter_grid.py:650"),
+    "grid_refine": ("tpuhevc_torch/kernels/csrc/grid_me.cu",
+                    "tpuhevc/codec/inter_grid.py:681"),
+    "grid_planes": ("tpuhevc_torch/kernels/csrc/grid_pred.cu",
+                    "tpuhevc/codec/inter_grid.py:862"),
+    "grid_satd": ("tpuhevc_torch/kernels/csrc/grid_pred.cu",
+                  "tpuhevc/codec/inter_grid.py:951"),
+    "grid_code": ("tpuhevc_torch/kernels/csrc/grid_code.cu",
+                  "tpuhevc/codec/inter_grid.py:1718"),
+    "grid_intra16": ("tpuhevc_torch/kernels/csrc/grid_intra.cu",
+                     "tpuhevc/codec/inter_grid.py:2175"),
 }
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
+G_KERNELS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
+             "grid_code", "grid_intra16")
+# the LD-P path at 416x240: the IDR's decision, the grid step and K2
+LDP_NEED = INTRA + G_KERNELS + ("nnfme_mlp",)
 # the random-access path: the B step, the P tail's stage (K1-K4) and K2
 RA_NEED = B_KERNELS + ("nnfme_mlp", "sad_search", "mc_blk", "txq")
 INTRA_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
@@ -197,10 +225,64 @@ def window_mask(plane, xs, ys, mvq, size, is_luma, sel=None):
     return mask
 
 
+def refine_mask(ry, S, nbh, nbw, starts):
+    """The samples of `ry` that grid_refine's clamped 7x7-search windows
+    (S + 6 square around each start) read."""
+    hh, ww = ry.shape
+    mask = np.zeros((hh, ww), bool)
+    st = starts.cpu().numpy().astype(np.int64)
+    for g in range(st.shape[0]):
+        for b in range(nbh * nbw):
+            y0 = (b // nbw) * S + st[g, b, 1] - 3
+            x0 = (b % nbw) * S + st[g, b, 0] - 3
+            ys = np.clip(np.arange(y0, y0 + S + 6), 0, hh - 1)
+            xs = np.clip(np.arange(x0, x0 + S + 6), 0, ww - 1)
+            mask[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1] = True
+    return mask
+
+
+def gather_mask(planes, mv, ref, cell, look):
+    """The samples of the phase planes that grid_satd gathers (one per
+    predicted pixel), as a mask of the planes' shape (on the card)."""
+    _, P, _, hm, wm = planes.shape
+    fb = P.bit_length() - 1
+    mvp = mv.long().repeat_interleave(cell, 1).repeat_interleave(cell, 2)
+    rp = ref.long().repeat_interleave(cell, 1).repeat_interleave(cell, 2)
+    h, w = rp.shape[1:]
+    yg = torch.arange(h, device=mv.device)[None, :, None]
+    xg = torch.arange(w, device=mv.device)[None, None, :]
+    idx = ((((rp * P * P + (mvp[..., 1] & (P - 1)) * P
+              + (mvp[..., 0] & (P - 1))) * hm)
+            + (mvp[..., 1] >> fb) + yg + look) * wm
+           + (mvp[..., 0] >> fb) + xg + look)
+    mask = torch.zeros(planes.numel(), dtype=torch.bool, device=mv.device)
+    mask[idx.reshape(-1)] = True
+    return mask.reshape(planes.shape)
+
+
+def boundary_mask(plane, S, nh, nw, halves):
+    """The samples of `plane` that grid_intra16 reads around its S x S
+    cells: the row above (with the top-right segment) and the column to
+    the left (with the bottom-left one), clamped, in each half."""
+    hh, ww = plane.shape
+    mask = np.zeros((hh, ww), bool)
+    for ox in halves:
+        for cy in range(nh):
+            for cx in range(nw):
+                by, bx = cy * S, cx * S + ox
+                ys = np.clip(np.arange(by - 1, by + 2 * S), 0, hh - 1)
+                xs = np.clip(np.arange(bx - 1, bx + 2 * S), 0, ww - 1)
+                mask[ys[0], xs] = True
+                mask[ys, xs[0]] = True
+    return mask
+
+
 def windows(name, a, kw):
-    """[(reference plane, samples read)] of one motion-compensation call:
-    K3 reads its plane, b_pred both lists' planes (with a given
-    `inter_dir`, list k only for the blocks that use it)."""
+    """[(plane, samples read)] of one call of a kernel that reads a plane
+    through windows or gathers: K3 reads its plane, b_pred both lists'
+    planes (with a given `inter_dir`, list k only for the blocks that use
+    it), grid_refine its reference around each start, grid_satd the phase
+    planes at its gathers, grid_intra16 the planes around each cell."""
     if name == "mc_blk":
         return [(a[0], window_mask(a[0], a[1], a[2], a[3], a[4], a[5]))]
     if name == "b_pred":
@@ -208,6 +290,15 @@ def windows(name, a, kw):
         return [(ref, window_mask(ref, a[3], a[4], mvq, a[7], a[8],
                                   None if idir is None else (idir & k) != 0))
                 for ref, mvq, k in ((a[1], a[5], 1), (a[2], a[6], 2))]
+    if name == "grid_refine":
+        return [(a[0], refine_mask(a[0], a[2], a[3], a[4], a[5]))]
+    if name == "grid_satd":
+        return [(a[0], gather_mask(a[0], a[1], a[2], a[3], a[4]))]
+    if name == "grid_intra16":
+        nh, nw = a[4], a[5]
+        return [(a[0], boundary_mask(a[0], 16, nh, nw, (0,))),
+                (a[1], boundary_mask(a[1], 8, nh, nw,
+                                     (0, a[1].shape[1] // 2)))]
     return []
 
 
@@ -281,6 +372,27 @@ def kernel_ops(name, a, kw=None) -> int:
         decide = kw.get("inter_dir", a[10] if len(a) > 10 else None) is None
         return a[3].shape[0] * (4 * nt * ((S + nt - 1) * S + S * S)
                                 + (12 if decide else 3) * S * S)
+    if name == "grid_coarse":  # sub, abs, add (+ add for the sum)
+        return a[0].numel() * a[2] ** 2 * (4 if a[5] else 3)
+    if name == "grid_refine":  # sub, abs, add, add per pixel and point
+        S, nb = a[2], a[3] * a[4]
+        return a[5].shape[0] * 49 * nb * S * S * 4
+    if name == "grid_planes":  # the separable filter's products and sums
+        n, P, nt = a[0].shape[0], (4 if a[1] else 8), (8 if a[1] else 4)
+        hm, wm = a[3], a[4]
+        return n * (P * (hm + nt) * wm * nt * 2
+                    + P * P * hm * wm * (nt * 2 + 3))
+    if name == "grid_satd":  # gather; residual, butterflies, abs, sums
+        px = a[2].numel() * a[3] ** 2
+        oy = kw.get("oy", a[5] if len(a) > 5 else None)
+        return px * (12 if oy is not None else 2)
+    if name == "grid_code":
+        T = a[2]
+        return a[0].numel() // (T * T) * (8 * T ** 3 + 40 * T * T)
+    if name == "grid_intra16":
+        decide = kw.get("cur", a[6] if len(a) > 6 else None) is not None
+        return a[4] * a[5] * ((7 * 256 * 14 if decide else 256 * 4)
+                              + 128 * 4)
     raise KeyError(name)
 
 
@@ -613,6 +725,82 @@ def check_b_kernels(dev, npz, params):
     return rows
 
 
+G_FUNCS = {  # name: (kernel wrapper, plain version)
+    "grid_coarse": (grid_coarse, grid_coarse_plain),
+    "grid_refine": (grid_refine, grid_refine_plain),
+    "grid_planes": (grid_planes, grid_planes_plain),
+    "grid_satd": (grid_satd, grid_satd_plain),
+    "grid_code": (grid_code, grid_code_plain),
+    "grid_intra16": (grid_intra16, grid_intra16_plain),
+}
+
+
+def check_grid_kernels(dev, npz, params):
+    """Kernel vs plain on the card for the grid step, at every call of one
+    416x240 LD-P P picture (frame 4 against frames 3..0 as its four
+    references, the originals standing in for their recons, GOP position 0
+    at QP 35, a collocated field of random motion so that the TMVP merge
+    candidates are priced), captured from the port's GridStep. Every
+    output equal: integers and the float32 costs of grid_code (whose sums
+    are exact). Returns {name: row}; ms/plain_ms are per P picture."""
+    clip = Reader(W, H, 5).frames
+    cfg = ldp_cfg(npz)
+    cfg.sps.temporal_mvp_enabled = True
+    qps = {min(max(cfg.qp + o, 0), 51) for o in cfg.gop_qp_offsets}
+    step = inter_grid.GridStep(cfg, {q: params for q in qps}, dev)
+    R = step.R
+
+    def dev_t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    ry = dev_t(np.stack([clip[3 - r][0] for r in range(R)]).astype(np.int32))
+    ruv = dev_t(np.stack([np.concatenate(clip[3 - r][1:], 1)
+                          for r in range(R)]).astype(np.int32))
+    rng = np.random.default_rng(SEED)
+    hc16, wc16 = (H // 8 + 1) // 2, (W // 8 + 1) // 2
+    carry = (ry, ruv, torch.zeros((step.n16, 2), dtype=torch.int32,
+                                  device=dev),
+             dev_t(rng.integers(-24, 25, (hc16, wc16, 2)).astype(np.int32)),
+             dev_t(rng.integers(0, R + 1, (hc16, wc16)).astype(np.int32)))
+    fu8 = dev_t(np.concatenate([p.ravel() for p in clip[4]]))
+    tabs = inter_grid._Tabs(inter_grid.grid_live_tables(cfg, {})[0], dev)
+    calls = {k: [] for k in G_KERNELS}
+    saved = recording(inter_grid, G_KERNELS, calls)
+    try:
+        step.frame_step(carry, fu8, R, 0, tabs)
+        torch.cuda.synchronize()
+    finally:
+        for k in G_KERNELS:
+            setattr(inter_grid, k, saved[k])
+    rows = {}
+    for name in G_KERNELS:
+        kern, plain = G_FUNCS[name]
+        r = rows[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                              work=Work())
+        for args, kw in calls[name]:
+            a, b = kern(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            r["work"].add(name, args, a, kw)
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            for x, y in zip(tensors(a), tensors(b)):
+                check(x.dtype == y.dtype and x.shape == y.shape,
+                      f"{name}: {x.dtype}{tuple(x.shape)} vs "
+                      f"{y.dtype}{tuple(y.shape)}")
+                d = float((x.double() - y.double()).abs().max()) \
+                    if x.numel() else 0.0
+                check(d == 0, f"{name}: outputs differ by {d}")
+                r["max_abs_err"] = max(r["max_abs_err"], d)
+        r["ms"] = median_ms(lambda: [kern(*a, **k) for a, k in calls[name]],
+                            reps=10)
+        r["plain_ms"] = median_ms(
+            lambda: [plain(*a, **k) for a, k in calls[name]], reps=3)
+        print(f"kernel {name:12s} P picture calls {len(calls[name]):3d} "
+              f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} (per P picture)", flush=True)
+    return rows
+
+
 def run_path(dev, cfg, nframes):
     """One main path through encode_sequence with the launch counters set
     to 0 just before and read just after; returns (enc, recons, seconds,
@@ -647,17 +835,27 @@ def check_stream(enc, recons, n, launches, need, what):
 
 
 def cross_check_cpu(npz):
-    """CUDA vs CPU path of the port: at 112x72 (all four CU classes) LD-P
-    five pictures and all-intra two, and random access at 64x48 x 6 (four
-    B pictures and the P tail); returns the three stream sizes."""
+    """CUDA vs CPU path of the port: at 112x72 (all four CU classes; the
+    non-grid LD-P scan) LD-P five pictures and all-intra two, LD-P through
+    the grid step at 128x64 x 9 (every CU class 8-64, four references),
+    and random access at 64x48 x 6 (four B pictures and the P tail);
+    returns the four stream sizes. The 112x72 LD-P encode must launch
+    K1-K4, the 128x64 one every grid kernel."""
     out = []
-    for make, n, w, h in ((lambda: ldp_cfg(npz, 112, 72, 5), 5, 112, 72),
-                          (lambda: intra_cfg(112, 72, 2), 2, 112, 72),
-                          (lambda: ra_cfg(npz, 64, 48, 6), 6, 64, 48)):
+    for make, n, w, h, need in (
+            (lambda: ldp_cfg(npz, 112, 72, 5), 5, 112, 72,
+             ("sad_search", "mc_blk", "txq")),
+            (lambda: intra_cfg(112, 72, 2), 2, 112, 72, ()),
+            (lambda: ldp_cfg(npz, 128, 64, 9), 9, 128, 64, G_KERNELS),
+            (lambda: ra_cfg(npz, 64, 48, 6), 6, 64, 48, ())):
         r = Reader(w, h, n)
+        reset_launches()
         a, _ = encode_sequence(r, make(), device="cuda")
+        missing = [k for k in need if LAUNCHES[k] <= 0]
+        check(not missing, f"{w}x{h}: kernels not launched: {missing}")
         b, _ = encode_sequence(r, make(), device="cpu")
-        check(a.bitstream() == b.bitstream(), "CUDA and CPU streams differ")
+        check(a.bitstream() == b.bitstream(),
+              f"{w}x{h}: CUDA and CPU streams differ")
         out.append(len(a.bitstream()))
     return out
 
@@ -685,11 +883,13 @@ def main():
         rows = check_kernels(dev, model)
         rows.update(check_intra_kernels(dev, npz))
         rows.update(check_b_kernels(dev, npz, params))
+        rows.update(check_grid_kernels(dev, npz, params))
 
+        # LD-P: a warm-up encode (the grid step's first picture pays the
+        # libraries' loads), then the counted one
+        run_path(dev, ldp_cfg(npz, frames=3), 3)
         enc, recons, secs, launches = run_path(dev, ldp_cfg(npz), NFRAMES)
-        # the eight of PR 1-2: the IDR's decision runs the intra kernels too
-        check_stream(enc, recons, NFRAMES, launches,
-                     [k for k in KERNELS if k not in B_KERNELS], "LD-P")
+        check_stream(enc, recons, NFRAMES, launches, LDP_NEED, "LD-P")
         kbits = sum(r.bits for r in enc.results) / 1000
         psnr = np.mean([r.psnr_y for r in enc.results])
         print(f"main path LD-P: {W}x{H} x {NFRAMES} frames in {secs:.3f} s "
@@ -727,9 +927,10 @@ def main():
             launches[k] += ra_launches[k]
 
         sizes = cross_check_cpu(npz)
-        print(f"cross-check: CUDA == CPU streams (LD-P 112x72 {sizes[0]} "
-              f"bytes, all-intra 112x72 {sizes[1]} bytes, random access "
-              f"64x48 {sizes[2]} bytes)", flush=True)
+        print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
+              f"{sizes[0]} bytes, all-intra 112x72 {sizes[1]} bytes, LD-P "
+              f"grid 128x64 {sizes[2]} bytes, random access 64x48 "
+              f"{sizes[3]} bytes)", flush=True)
 
     kernels = []
     for k in KERNELS:

@@ -78,14 +78,15 @@ def bank_inputs(S: int, luma: bool, seed: int = 3):
     (32, True, False), (4, False, False), (8, False, False),
     (16, False, False)])
 def test_intra_bank_matches_jax(S, luma, strong):
+    import jax
     import jax.numpy as jnp
 
     plane, nh, nw, t, l, _ = bank_inputs(S, luma)
     jt, jl = np_refs(plane, S, nh, nw)
     np.testing.assert_array_equal(t.numpy(), jt)
     np.testing.assert_array_equal(l.numpy(), jl)
-    want = np.asarray(jintra.predict_all_modes(jnp.asarray(jt), jnp.asarray(jl),
-                                               S, luma, 8, strong))
+    want = np.asarray(jax.jit(jintra.predict_all_modes, static_argnums=(
+        2, 3, 4, 5))(jnp.asarray(jt), jnp.asarray(jl), S, luma, 8, strong))
     got = intra_bank(t, l, S, luma, 8, strong)
     assert got.dtype == torch.int32 and got.shape == (nh * nw, 35, S, S)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -101,20 +102,23 @@ def jax_satd35_topk(org, preds, nc):
 
     from tpuhevc.ops.cost import hadamard
 
-    org, preds = jnp.asarray(org), jnp.asarray(preds)
-    N, S = preds.shape[0], preds.shape[-1]
-    dd = (org[:, None] - preds).astype(jnp.float32)
-    if S >= 8:
-        Hf = jnp.asarray(hadamard(8).astype(np.float32))
-        t8 = dd.reshape(N, 35, S // 8, 8, S // 8, 8).transpose(
-            0, 1, 2, 4, 3, 5).reshape(-1, 8, 8)
-        m = Hf @ t8 @ Hf.T
-        sat = ((jnp.abs(m).sum((1, 2)) + 2) // 4).reshape(N, 35, -1).sum(-1)
-    else:
-        H4 = jnp.asarray(hadamard(4).astype(np.float32))
-        m = H4 @ dd.reshape(-1, 4, 4) @ H4.T
-        sat = ((jnp.abs(m).sum((1, 2)) + 1) // 2).reshape(N, 35)
-    _, topk = jax.lax.top_k(-sat, nc)
+    def run(org, preds):
+        N, S = preds.shape[0], preds.shape[-1]
+        dd = (org[:, None] - preds).astype(jnp.float32)
+        if S >= 8:
+            Hf = jnp.asarray(hadamard(8).astype(np.float32))
+            t8 = dd.reshape(N, 35, S // 8, 8, S // 8, 8).transpose(
+                0, 1, 2, 4, 3, 5).reshape(-1, 8, 8)
+            m = Hf @ t8 @ Hf.T
+            sat = ((jnp.abs(m).sum((1, 2)) + 2) // 4).reshape(N, 35,
+                                                              -1).sum(-1)
+        else:
+            H4 = jnp.asarray(hadamard(4).astype(np.float32))
+            m = H4 @ dd.reshape(-1, 4, 4) @ H4.T
+            sat = ((jnp.abs(m).sum((1, 2)) + 1) // 2).reshape(N, 35)
+        return sat, jax.lax.top_k(-sat, nc)[1]
+
+    sat, topk = jax.jit(run)(jnp.asarray(org), jnp.asarray(preds))
     return np.asarray(sat), np.asarray(topk)
 
 
@@ -150,20 +154,25 @@ def test_satd35_topk_ties_take_the_lower_mode():
 
 def jax_txq(org, sel, qp, log2, rdoq, lam, est, is_dst):
     """`txq` of intra_decide_jax.py:86-98 plus the levels and d0."""
+    import jax
     import jax.numpy as jnp
 
-    resi = jnp.asarray(org) - jnp.asarray(sel)
-    c = jtx.forward_transform(resi, 8, is_dst)
-    if rdoq:
-        lvl = jtx.rdoq_est_xp(jnp, c, qp, log2, 8, lam, est)
-    else:
-        lvl = jtx.quantize(c, qp, log2, 8, True)
-    r = jtx.inverse_transform(jtx.dequantize(lvl, qp, log2, 8), 8, is_dst)
-    err = (resi - r).astype(jnp.float32)
-    d0f = resi.astype(jnp.float32)
-    return (np.asarray((err * err).sum(axis=(1, 2))),
-            np.asarray((d0f * d0f).sum(axis=(1, 2))), np.asarray(lvl),
-            np.asarray(est.tu_bits(jnp, lvl)))
+    def run(org, sel):
+        resi = org - sel
+        c = jtx.forward_transform(resi, 8, is_dst)
+        if rdoq:
+            lvl = jtx.rdoq_est_xp(jnp, c, qp, log2, 8, lam, est)
+        else:
+            lvl = jtx.quantize(c, qp, log2, 8, True)
+        r = jtx.inverse_transform(jtx.dequantize(lvl, qp, log2, 8), 8,
+                                  is_dst)
+        err = (resi - r).astype(jnp.float32)
+        d0f = resi.astype(jnp.float32)
+        return ((err * err).sum(axis=(1, 2)), (d0f * d0f).sum(axis=(1, 2)),
+                lvl, est.tu_bits(jnp, lvl))
+
+    return tuple(np.asarray(x) for x in jax.jit(run)(jnp.asarray(org),
+                                                     jnp.asarray(sel)))
 
 
 @pytest.mark.parametrize("rdoq", [False, True])
@@ -243,6 +252,7 @@ def rice_sweep_tiles(S: int) -> np.ndarray:
                                     (32, True), (4, False), (8, False),
                                     (16, False)])
 def test_tu_bits_matches_jax(S, luma):
+    import jax
     import jax.numpy as jnp
 
     rng = np.random.default_rng(S + 7 * luma)
@@ -253,8 +263,9 @@ def test_tu_bits_matches_jax(S, luma):
     tiles = np.concatenate([dense.astype(np.int32), rice_sweep_tiles(S)])
     log2 = S.bit_length() - 1
     fb = FracBits(I_ROW, QP)
-    want = np.asarray(ResidualBitEst(fb, log2, luma).tu_bits(
-        jnp, jnp.asarray(tiles)))
+    est = ResidualBitEst(fb, log2, luma)
+    want = np.asarray(jax.jit(lambda x: est.tu_bits(jnp, x))(
+        jnp.asarray(tiles)))
     got = tu_bits(est_tables(PortFracBits(I_ROW, QP), log2, luma, "cpu"),
                   torch.from_numpy(tiles))
     assert got.dtype == torch.float32
@@ -267,20 +278,21 @@ def test_rice_formulas_match_jax_across_boundaries():
     formulas; JAX's float log2 gives the same below 2^13 (XLA rounds
     log2(2^13) and log2(2^15) just below the integer, so the two differ
     there, at levels the decision never meets at its QPs)."""
+    import jax
     import jax.numpy as jnp
 
     from tpuhevc.entropy.bitest import _rice_bits_xp
 
     c = np.arange(0, 20000, dtype=np.int32)
-    want = np.asarray(jnp.clip(jnp.where(
+    want = np.asarray(jax.jit(lambda c: jnp.clip(jnp.where(
         c > 6, jnp.log2(jnp.maximum(c, 1).astype(jnp.float32) / 3.0), 0.0),
-        0, 4).astype(jnp.int32))
+        0, 4).astype(jnp.int32))(c))
     np.testing.assert_array_equal(rice_param(torch.from_numpy(c)).numpy(),
                                   want)
     for k in range(5):
         rem = np.arange(1, 3 * (1 << k) + (8190 << k), dtype=np.int32)
-        want = np.asarray(_rice_bits_xp(jnp, jnp.asarray(rem),
-                                        jnp.full(rem.shape, k, jnp.int32)))
+        want = np.asarray(jax.jit(lambda r, k: _rice_bits_xp(jnp, r, k))(
+            jnp.asarray(rem), jnp.full(rem.shape, k, jnp.int32)))
         got = rice_bits(torch.from_numpy(rem), torch.full(rem.shape, k))
         np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
     # exact where XLA's log2 is not: (rem - 3*2^k) >> k = 2^13 - 1

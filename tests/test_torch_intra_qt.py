@@ -149,7 +149,9 @@ rc = main()
 print("jax loaded:", "jax" in sys.modules, "rc", rc)
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300, cwd=str(tmp_path))
+                         text=True, timeout=300, cwd=str(tmp_path),
+                         # one intra-op thread: faster at these sizes
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "jax loaded: False rc 0"
     decoded = decode_stream((tmp_path / "out.bin").read_bytes())

@@ -124,11 +124,14 @@ from tpuhevc_torch.app import main
 assert main() == 0
 blocked = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpuhevc"))
+# TMVP is granted in the SPS on the LD-P grid path only
+print("tmvp", int(cfg.sps.temporal_mvp_enabled))
 print("pocs", [r.poc for r in enc.results], "loaded", blocked)
 """
 
 PATHS = {  # name: (cfg file, pictures, extra options, decode order)
     "all_intra": ("encoder_intra_main.cfg", 1, [], [0]),
+    # 64x48 is whole 16x16 blocks: the LD-P grid step, 4 references
     "ldp": ("encoder_lowdelay_P_main.cfg", 3,
             ["--RDOQ=0", "--SignHideFlag=0", "--SAO=0",
              "--LoopFilterDisable=1"], [0, 1, 2]),
@@ -144,10 +147,13 @@ def test_port_runs_with_tpuhevc_and_jax_refused(tmp_path, path):
             + RUN.format(cfg=cfg, n=n, extra=extra, tmp=str(tmp_path),
                          root=ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300, cwd=str(tmp_path))
+                         text=True, timeout=300, cwd=str(tmp_path),
+                         # one intra-op thread: faster at these sizes
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-4000:]
     lines = out.stdout.strip().splitlines()
     assert lines[-1] == f"pocs {order} loaded []", lines[-3:]
+    assert lines[-2] == f"tmvp {int(path == 'ldp')}", lines[-3:]
     assert sum("[MD5:(OK)]" in ln for ln in lines) == n
 
 

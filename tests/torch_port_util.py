@@ -19,6 +19,11 @@ from tpuhevc.models import nnfme
 from tpuhevc_torch.codec import params as port_params
 from tpuhevc_torch.models.nnfme import random_params
 
+# One intra-op thread: the port's plain versions work on small tensors,
+# where torch's thread pool costs more than it saves, and the tests run
+# beside other test processes, whose cores those threads would take.
+torch.set_num_threads(1)
+
 W, H = 112, 72  # not 16-aligned: JAX takes build_ldp_scan; all 4 CU classes
 GOP_QP_OFFSETS = (3, 2, 3, 1)  # the anchor LD-P cfg's GOP table
 QP = 32

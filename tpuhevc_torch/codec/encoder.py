@@ -7,11 +7,13 @@ filters and CABAC (`Encoder.encode_frame`); the twin of the last branch
 of `tpuhevc/codec/encoder.py:encode_sequence` with the JAX decision.
 
 LD-P: the IDR the same way (decided twice, `intra_two_pass`), then chunks
-of P frames through the device scan, host serialisation of chunk i-1
-overlapped with the device work of chunk i. Twin of the non-grid half of
+of P frames through a device scan, host serialisation of chunk i-1
+overlapped with the device work of chunk i: the grid step
+(`codec/inter_grid.py`, multi-reference, TMVP granted in the SPS) where
+`inter_grid.supports` holds (a coded size in whole 16x16 blocks), the
+non-grid scan (`codec/inter_batch.py`) elsewhere. Twin of
 `tpuhevc/codec/encoder.py:737-942` (`LdpScanDriver`,
 `_ldp_scan_pipelined`) and of the LD-P branch of its `encode_sequence`.
-Until the grid step is ported, every picture size takes this scan.
 
 Random access (a cfg GOP table of B pictures): the IDR the same way,
 every B picture through the device B step (`codec/inter_b.py`), and the
@@ -41,6 +43,7 @@ from ..entropy.native import encode_slice_data_native
 from ..entropy.syntax import encode_slice_data
 from ..ops.deblock import deblock_frame
 from ..utils.yuv import picture_checksum, picture_crc, picture_md5, psnr
+from . import inter_grid
 from .inter_b import encode_frame_b
 from .inter_batch import build_ldp_scan, collect_frame
 from .inter_enc import assemble_frame_p, encode_frame_p
@@ -83,6 +86,9 @@ class Encoder:
                                                 device=device)
         self.dpb_recon = None  # previous frame recon (single-ref LD-P)
         self._nn_cache: dict = {}
+        # end-of-slice context states of the last P slice per QP: the
+        # grid step's adaptive bit-estimator feedback
+        self.ctx_feedback: dict = {}
         self.nn_params = self._nn_for_qp(cfg.qp)
         # steady-state LD-P RPS published in the SPS; slices reference it
         # by index (TEncCavlc SPS RPS list) instead of re-coding it
@@ -228,13 +234,18 @@ class Encoder:
         # the native coder codes I and P slices; it returns None for
         # frames whose features exceed it (NxN, TU splits), and B slices
         # take the Python coder
+        ctx_snap = np.zeros(256, np.int32)
         payload = (None if stype == B_SLICE else
                    encode_slice_data_native(fs, sps, pps, init_row, fqp,
-                                            stype, max_merge, n_ref_slice))
+                                            stype, max_merge, n_ref_slice,
+                                            ctx_out=ctx_snap))
         if payload is not None:  # native fast path (byte-identical)
             w.write_bytes(payload)
+            if stype == P_SLICE and ctx_snap.any():
+                self.ctx_feedback[fqp] = ctx_snap
         else:
-            cab = CabacEncoder(ContextSet(init_row, fqp))
+            ctx = ContextSet(init_row, fqp)
+            cab = CabacEncoder(ctx)
             encode_slice_data(cab, fs, sps, pps, stype, max_merge,
                               num_ref=n_ref_slice, ref_deltas=l0d,
                               num_ref_l1=n_ref_l1, l1_deltas=l1d,
@@ -244,6 +255,8 @@ class Encoder:
             val, nbits = cab.pending_bits
             w.write(val, nbits)
             w.rbsp_trailing_bits()
+            if stype == P_SLICE:
+                self.ctx_feedback[fqp] = np.asarray(ctx.states, np.int32)
         self._emit(bitio.make_nal(hdr.nal_type, w.getvalue()),
                    first_of_au=True)
         bits = (len(self.nals[-1]) + 4) * 8
@@ -316,7 +329,9 @@ def check_slice(cfg: EncoderConfig) -> None:
 
 
 class LdpScanDriver:
-    """Chunked LD-P scan with explicit dispatch/collect halves.
+    """Chunked LD-P scan with explicit dispatch/collect halves: the grid
+    step (R reference planes, TMVP) where `inter_grid.supports(cfg)`, the
+    non-grid scan (one reference) elsewhere.
 
     Protocol: start(); num_chunks() times { dispatch(ci); collect() } —
     dispatch enqueues the chunk's upload, kernels and the fetch of its
@@ -338,8 +353,15 @@ class LdpScanDriver:
         qps = set(min(max(cfg.qp + o, 0), 51) for o in offs)
         nn_by_qp = {qp: enc._nn_for_qp(qp) for qp in qps}
         self.cfg = cfg
-        self.fn, _, _ = build_ldp_scan(cfg, nn_by_qp, self.n_gops,
-                                       self.device)
+        self.grid = inter_grid.supports(cfg)
+        if self.grid:
+            self.fn, _, _ = inter_grid.build_ldp_grid_scan(
+                cfg, nn_by_qp, self.n_gops, self.device)
+        else:
+            self.fn, _, _ = build_ldp_scan(cfg, nn_by_qp, self.n_gops,
+                                           self.device)
+        self.R = max(1, cfg.num_ref_frames) if self.grid else 1
+        self._col = None  # TMVP collocated motion of the last coded picture
         self.refs = None
         self.pending: list = []
         self.starts = list(range(0, len(frames) - 1, self.K))
@@ -351,9 +373,15 @@ class LdpScanDriver:
         """Encode the leading IDR (decided on the device) and stage its
         recon."""
         self.finish(0, self.frames[0])
-        self.refs = tuple(
+        ry, ru, rv = (
             torch.from_numpy(np.ascontiguousarray(p, dtype=np.int32))
             .to(self.device) for p in self.enc.dpb_recon)
+        if self.grid:  # R copies of the IDR: [Y], [U | V] packed
+            ruv = torch.cat([ru, rv], dim=1)
+            self.refs = (ry[None].repeat(self.R, 1, 1).contiguous(),
+                         ruv[None].repeat(self.R, 1, 1).contiguous())
+        else:
+            self.refs = (ry, ru, rv)
 
     def _chunk_u8(self, blk) -> np.ndarray:
         w, h = self.w, self.h
@@ -379,7 +407,16 @@ class LdpScanDriver:
             frames = staged.to(self.device, non_blocking=True)
         else:
             frames = host
-        buf, *refs = self.fn(frames, *self.refs)
+        if self.grid:
+            nav = [[max(1, min(s + 1 + g * self.G + p, self.R))
+                    for p in range(self.G)] for g in range(self.n_gops)]
+            # adaptive bit-estimator re-freeze: the decision tables of
+            # the last written P slices' end-of-slice context states
+            live = inter_grid.grid_live_tables(self.cfg,
+                                               self.enc.ctx_feedback)
+            buf, *refs = self.fn(frames, nav, *self.refs, live)
+        else:
+            buf, *refs = self.fn(frames, *self.refs)
         self.refs = tuple(refs)
         done = None
         if self.cuda:
@@ -399,11 +436,31 @@ class LdpScanDriver:
         if done is not None:
             done.synchronize()
         rows = rows.numpy()
+        tmvp = self.grid and self.cfg.sps.temporal_mvp_enabled
         for j in range(pnv):
             poc = ps + 1 + j
             cfg_f = dataclasses.replace(self.cfg, qp=self.enc.frame_qp(poc))
-            per_cu = collect_frame(cfg_f, rows[j])
-            pre = assemble_frame_p(cfg_f, per_cu)
+            if not self.grid:
+                pre = assemble_frame_p(cfg_f, collect_frame(cfg_f, rows[j]))
+                self.finish(poc, self.frames[poc], pre)
+                continue
+            col = None
+            if tmvp:
+                # the previous coded picture's final 16x16-compressed
+                # motion (the IDR contributes an all-invalid field)
+                if self._col is None:
+                    h16, w16 = (self.h // 8 + 1) // 2, (self.w // 8 + 1) // 2
+                    self._col = (np.zeros((h16, w16, 2), np.int32),
+                                 np.zeros((h16, w16), np.int32))
+                col = self._col
+            pre = inter_grid.assemble_grid_frame(
+                cfg_f, rows[j], max(1, min(poc, self.R)), col=col)
+            if tmvp:
+                fs = pre[0]
+                self._col = (
+                    np.ascontiguousarray(fs.mv[::2, ::2]).astype(np.int32),
+                    np.where(fs.inter_dir[::2, ::2] != 0,
+                             fs.ref_idx[::2, ::2] + 1, 0).astype(np.int32))
             self.finish(poc, self.frames[poc], pre)
 
 
@@ -445,6 +502,10 @@ def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
     if cfg.gop_structure == "ra" and len(frames) > 1:
         _gop_table_driven(enc, cfg, frames, _finish)
     elif cfg.intra_period == -1 and len(frames) > 1:
+        # TMVP rides the grid's native collocated walk: granted in the
+        # SPS there, as the reference does (its encoder.py:541-550)
+        if cfg.tmvp and inter_grid.supports(cfg):
+            cfg.sps.temporal_mvp_enabled = True
         _ldp_scan_pipelined(enc, cfg, frames, _finish, dev)
     else:
         for i, fr in enumerate(frames):

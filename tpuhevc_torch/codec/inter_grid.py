@@ -1,0 +1,1351 @@
+"""Plane-level LD-P device stage for coded sizes in whole 16x16 blocks.
+
+Twin of `tpuhevc/codec/inter_grid.py` (`build_ldp_grid_scan`, the host
+half `_parse_frame_buf` / `assemble_grid_frame`, and the decision tables
+`_mode_tables` / `grid_live_tables`) at the port's LD-P cut: the flat
+quantiser (no RDOQ, no sign hiding), no deblocking, SAO or weighted
+prediction, FmeMode nn or none, 8-bit, the default branch of every
+experiment knob of the reference (`_TUNE`): 8- and 64-classes on, the
+fused merge sweep, the DC-aware costs, rectangular PUs, the inter RQT to
+depth 2, the measured-RD merge trial with the device TMVP candidate, the
+intra-16 candidate, no MV-rate anchor, merge bias 2.
+
+Per P picture (`GridStep.frame_step`):
+
+1. ME: the dense +-16 coarse SAD on the 2x-pooled level (`grid_coarse`),
+   the per-16 / per-32 picks and the global candidate; the +-64 prestage
+   on the 4x-pooled level (a second `grid_coarse`); the 7x7 full-pel
+   refine around up to five starts per block for the 16 (with the
+   8-class from its quadrants) and 32 classes over every available
+   reference (`grid_refine`), the best reference per block.
+2. MC: the DCT-IF phase planes of every reference (`grid_planes`), the
+   NN-FME quarter-pel offsets (K2 `nn_refine`), the fused merge-candidate
+   sweep whose passes price every class's candidates by DC-aware SATD
+   (`grid_satd`).
+3. Coding: each class's TUs at TU = CU and the RQT split sizes
+   (`grid_code`), the skip trial, the measured-RD merge trial, the
+   rectangular 2NxN / Nx2N trials, the intra-16 candidate (`grid_intra16`
+   decides it and predicts it again from the composed recon), the
+   bottom-up 8/16/32/64 compare and the composition into whole-frame
+   planes and per-8-cell maps.
+4. The packed row that `assemble_grid_frame` parses, and the carry: the
+   reference stacks, the full-pel MV seed and the TMVP collocated maps.
+
+The `lax.scan` over GOPs and the per-reference scan become Python loops;
+the kernels launch asynchronously, so the loops only enqueue work. The
+glue between the kernels (argmins, the sweep's adoption test, the RD
+compares, composition) is plain torch in float32 and int32, in the
+reference's operation order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from ..entropy.bitest import EstTables, FracBits, ResidualBitEst
+from ..models.nnfme import NNFME, height_category, nn_refine, width_category
+from ..ops.grid_code import grid_code, up
+from ..ops.grid_intra import IMODES, grid_intra16
+from ..ops.grid_me import grid_coarse, grid_refine, tile_sum, zcost
+from ..ops.grid_pred import grid_planes, grid_satd
+from ..utils.tables import chroma_qp
+from .params import EncoderConfig, p_frame_lambda
+
+MERGE_BIAS = 2.0  # the reference's default merge adoption bit weight
+
+
+def supports(cfg) -> bool:
+    sps = cfg.sps
+    return (sps.coded_width % 16 == 0 and sps.coded_height % 16 == 0
+            and sps.bit_depth == 8 and not sps.scaling_list_enabled)
+
+
+def _mvd_bits_np(v):
+    """Exp-Golomb-ish bit cost of a quarter-pel mvd component (the ME
+    loop's log2 model)."""
+    return (2 * np.ceil(np.log2(2 * np.abs(v).astype(np.int64) + 1))
+            .astype(np.int32) + 1)
+
+
+def _lvl8(cfg) -> bool:
+    offs = tuple(cfg.gop_qp_offsets) or (0,)
+    return min(min(max(cfg.qp + o, 0), 51) for o in offs) >= 27
+
+
+def _mode_tables(qp: int, num_ref: int, max_merge: int, amp: bool = True,
+                 fb=None):
+    """Host-side per-QP decision tables (P-slice init row); fb: a
+    FracBits of fed-back context states, else the warmed init states."""
+    fb = fb or FracBits(1, qp)
+    b = fb.b
+    amp_b = b("part_mode", 3, 1) if amp else 0.0
+    return dict(
+        fb=fb,
+        mvd_lut=fb.mvd_lut,
+        skip0=b("cu_skip_flag", 1, 0), skip1=b("cu_skip_flag", 1, 1),
+        pred_inter=b("pred_mode_flag", 0, 0),
+        pred_intra=b("pred_mode_flag", 0, 1),
+        prev_mode=[b("prev_intra_luma_pred_flag", 0, v) for v in (0, 1)],
+        chroma_dm=b("intra_chroma_pred_mode", 0, 0),
+        part2n=b("part_mode", 0, 1),
+        part_hv=[b("part_mode", 0, 0) + b("part_mode", 1, 1) + amp_b,
+                 b("part_mode", 0, 0) + b("part_mode", 1, 0) + amp_b],
+        mf1=b("merge_flag", 0, 1), mf0=b("merge_flag", 0, 0),
+        midx=[fb.merge_idx_bits(i, max_merge) for i in range(max_merge)],
+        mvp=0.5 * (b("mvp_flag", 0, 0) + b("mvp_flag", 0, 1)),
+        root1=b("rqt_root_cbf", 0, 1), root0=b("rqt_root_cbf", 0, 0),
+        split=[b("split_cu_flag", 1, v) for v in (0, 1)],
+        tsplit={lg: [b("split_transform_flag", 5 - lg, v) for v in (0, 1)]
+                for lg in (3, 4, 5)},
+        ref_bits=np.asarray([fb.ref_idx_bits(r, num_ref)
+                             for r in range(max(num_ref, 1))], np.float32),
+        cbf_y=[b("qt_cbf", 1, v) for v in (0, 1)],
+        cbf_c=[b("qt_cbf", 5, v) for v in (0, 1)],
+        est_y={lg: ResidualBitEst(fb, lg, True) for lg in (2, 3, 4, 5)},
+        est_c={lg: ResidualBitEst(fb, lg, False) for lg in (2, 3, 4, 5)},
+    )
+
+
+_LIVE_SCALARS = ("skip0", "skip1", "pred_inter", "pred_intra", "part2n",
+                 "mf1", "mf0", "mvp", "root1", "root0", "chroma_dm")
+_LIVE_VECTORS = ("prev_mode", "part_hv", "midx", "split", "cbf_y", "cbf_c")
+
+
+def grid_live_tables(cfg: EncoderConfig, states_by_qp: dict) -> list:
+    """Per-GOP-position decision tables of one chunk: {qp: end-of-slice
+    context states} fed back from the written P slices (the adaptive
+    re-freeze); a QP with no feedback yet takes the warmed init tables.
+    Each entry: float32 scalars and vectors, the MV/ref bit tables, and
+    the residual estimators (ResidualBitEst) per luma/chroma TU size."""
+    offs = tuple(cfg.gop_qp_offsets) or (0,)
+    R = max(1, cfg.num_ref_frames)
+    out, cache = [], {}
+    for o in offs:
+        qp = min(max(cfg.qp + o, 0), 51)
+        if qp not in cache:
+            st = states_by_qp.get(qp)
+            fb = FracBits.from_states(1, qp, st) if st is not None else None
+            t = _mode_tables(qp, R, cfg.max_num_merge_cand,
+                             cfg.sps.amp_enabled, fb=fb)
+            lv = {k: np.float32(t[k]) for k in _LIVE_SCALARS}
+            lv.update({k: np.asarray(t[k], np.float32)
+                       for k in _LIVE_VECTORS})
+            lv["mvd_lut"] = np.asarray(t["mvd_lut"], np.float32)
+            lv["ref_bits"] = np.asarray(t["ref_bits"], np.float32)
+            lv["tsplit"] = {lg: np.asarray(v, np.float32)
+                            for lg, v in t["tsplit"].items()}
+            lv["est_y"] = t["est_y"]
+            lv["est_c"] = t["est_c"]
+            cache[qp] = lv
+        out.append(cache[qp])
+    return out
+
+
+def _intra_static(nh16, nw16, log2_ctu):
+    """z-scan availability of the TR / BL 16-sample segments per 16-cell
+    (min-CU z-addresses are static; §6.4.1)."""
+    ctu_cells = max(1, (1 << log2_ctu) // 16)
+    wctu_ = -(-nw16 // ctu_cells)
+    zz = np.zeros((nh16, nw16), np.int64)
+    for by in range(nh16):
+        for bx in range(nw16):
+            cy, cx = by // ctu_cells, bx // ctu_cells
+            oy_, ox_ = by % ctu_cells, bx % ctu_cells
+            m = 0
+            for b_ in range(6):
+                m |= (((ox_ >> b_) & 1) << (2 * b_)) \
+                    | (((oy_ >> b_) & 1) << (2 * b_ + 1))
+            zz[by, bx] = ((cy * wctu_ + cx) << 16) + m
+    tr = np.zeros((nh16, nw16), bool)
+    bl = np.zeros((nh16, nw16), bool)
+    for by in range(nh16):
+        for bx in range(nw16):
+            if by > 0 and bx + 1 < nw16:
+                tr[by, bx] = zz[by - 1, bx + 1] < zz[by, bx]
+            if by + 1 < nh16 and bx > 0:
+                bl[by, bx] = zz[by + 1, bx - 1] < zz[by, bx]
+    return tr, bl
+
+
+def sum22(x: torch.Tensor) -> torch.Tensor:
+    """(2a, 2b) -> (a, b) sums of 2x2 groups, added in row-major order
+    (((x00 + x01) + x10) + x11), the reduction order of the reference."""
+    return ((x[0::2, 0::2] + x[0::2, 1::2]) + x[1::2, 0::2]) + x[1::2, 1::2]
+
+
+def group_sum(x: torch.Tensor, f: int) -> torch.Tensor:
+    """(f a, f b, ...) -> (a, b, ...) sums of f x f groups (integer or
+    integer-valued float32 data: exact in any order)."""
+    if f == 1:
+        return x
+    h, w = x.shape[:2]
+    return x.reshape(h // f, f, w // f, f, *x.shape[2:]).sum(dim=(1, 3))
+
+
+def _f32(v, dev) -> torch.Tensor:
+    return torch.tensor(np.float32(v), dtype=torch.float32, device=dev)
+
+
+class _Tabs:
+    """One frame's decision tables on the device: float32 0-dim tensors
+    and vectors, and the residual estimators' device tables."""
+
+    def __init__(self, lv: dict, dev):
+        for k in _LIVE_SCALARS:
+            setattr(self, k, _f32(lv[k], dev))
+        for k in _LIVE_VECTORS:
+            setattr(self, k, torch.as_tensor(np.asarray(lv[k], np.float32),
+                                             device=dev))
+        self.mvd_lut = torch.as_tensor(lv["mvd_lut"], device=dev)
+        self.ref_bits = torch.as_tensor(lv["ref_bits"], device=dev)
+        self.tsplit = {lg: torch.as_tensor(v, device=dev)
+                       for lg, v in lv["tsplit"].items()}
+        self.est_y = {lg: EstTables(e, dev) for lg, e in lv["est_y"].items()}
+        self.est_c = {lg: EstTables(e, dev) for lg, e in lv["est_c"].items()}
+
+
+class GridStep:
+    """The per-configuration constants of the grid step on one device and
+    `frame_step`, the decision and coding of one P picture."""
+
+    def __init__(self, cfg: EncoderConfig, nn_by_qp: dict, device):
+        dev = self.dev = resolve(device)
+        sps = cfg.sps
+        self.cfg = cfg
+        W, H = self.W, self.H = sps.coded_width, sps.coded_height
+        self.sr = sr = (16 if cfg.search_range >= 16
+                        else max(4, cfg.search_range // 4 * 4))
+        self.sr_full = max(sr, min(cfg.search_range, 64) // 4 * 4)
+        offs = tuple(cfg.gop_qp_offsets) or (0,)
+        self.G = len(offs)
+        self.qps = tuple(min(max(cfg.qp + o, 0), 51) for o in offs)
+        self.lvl8 = _lvl8(cfg)
+        self.R = max(1, cfg.num_ref_frames)
+        self.MM = cfg.max_num_merge_cand
+        self.nh16, self.nw16 = H // 16, W // 16
+        self.nh32, self.nw32 = H // 32, W // 32
+        self.nh64, self.nw64 = H // 64, W // 64
+        self.h8, self.w8 = H // 8, W // 8
+        self.n16 = self.nh16 * self.nw16
+        self.Hc, self.Wc = H // 2, W // 2
+        self.use_tusplit = sps.max_tu_depth_inter >= 1
+        self.deep = sps.max_tu_depth_inter >= 2
+        self.use_tmvp = sps.temporal_mvp_enabled
+        self.log2_ctu = sps.log2_ctu
+        R2 = self.R2 = sr // 2
+        nc = self.nc = 2 * R2 + 1
+        cb = np.zeros((nc, nc), np.int64)
+        for dy in range(nc):
+            for dx in range(nc):
+                cb[dy, dx] = (_mvd_bits_np(8 * (dx - R2))
+                              + _mvd_bits_np(8 * (dy - R2)))
+        self.coarse_bits = torch.as_tensor(cb.reshape(-1), device=dev)
+        if self.sr_full > sr:
+            P4 = self.sr_full // 4
+            n4 = 2 * P4 + 1
+            d = np.abs(np.arange(n4) - P4) * 16
+            lb = 2 * np.ceil(np.log2(2.0 * d + 1.0)).astype(np.int64)
+            self.pre_bits = torch.as_tensor(
+                (lb[:, None] + lb[None, :] + 2).reshape(-1), device=dev)
+        self.LOOK = self.sr_full + 4
+        self.PADL = self.LOOK + 4
+        self.LOOKC = self.sr_full // 2 + 2
+        self.PADC = self.LOOKC + 2
+        self.HmL, self.WmL = H + 2 * self.LOOK, W + 2 * self.LOOK
+        self.HmC, self.WmC = self.Hc + 2 * self.LOOKC, self.Wc + 2 * self.LOOKC
+        self.ref_bits_me = [min(r + 1, max(1, self.R - 1))
+                            for r in range(self.R)]
+        self.nn = {}
+        if cfg.fme_mode == "nn":
+            for qp in set(self.qps):
+                p = nn_by_qp.get(qp)
+                if p is not None:
+                    self.nn[qp] = NNFME.from_numpy(p, dev)
+        tr, bl = _intra_static(self.nh16, self.nw16, sps.log2_ctu)
+        self.avtr = torch.as_tensor(tr, device=dev)
+        self.avbl = torch.as_tensor(bl, device=dev)
+        self.avtr_flat = self.avtr.reshape(-1).contiguous()
+        self.avbl_flat = self.avbl.reshape(-1).contiguous()
+        self.imodes = torch.as_tensor(IMODES, dtype=torch.int32, device=dev)
+        self._col_geom_cache: dict = {}
+
+    # --- helpers ------------------------------------------------------
+    def _dcc(self, qp, npx, lam_me) -> int:
+        qstep = 2.0 ** ((qp - 4) / 6.0)
+        return int((lam_me * 12) >> 8) + int(npx * qstep / 4.0)
+
+    def _col_geom(self, S, nbh, nbw):
+        hit = self._col_geom_cache.get(S)
+        if hit is None:
+            H, W = self.H, self.W
+            hc16, wc16 = (self.h8 + 1) // 2, (self.w8 + 1) // 2
+            x0 = (np.arange(nbw) * S)[None, :].repeat(nbh, 0)
+            y0 = (np.arange(nbh) * S)[:, None].repeat(nbw, 1)
+            xbr, ybr = x0 + S, y0 + S
+            lc = self.log2_ctu
+            ok0 = (((ybr >> lc) == (y0 >> lc)) & (ybr < H) & (xbr < W))
+            i0 = (np.clip(ybr >> 4, 0, hc16 - 1) * wc16
+                  + np.clip(xbr >> 4, 0, wc16 - 1)).ravel()
+            xc, yc = x0 + S // 2, y0 + S // 2
+            i1 = ((yc >> 4) * wc16 + (xc >> 4)).ravel()
+            hit = tuple(torch.as_tensor(a, device=self.dev)
+                        for a in (ok0.reshape(-1), i0.astype(np.int64),
+                                  i1.astype(np.int64)))
+            self._col_geom_cache[S] = hit
+        return hit
+
+    @staticmethod
+    def _pad_edge(p: torch.Tensor, n: int) -> torch.Tensor:
+        h, w = p.shape
+        ys = (torch.arange(h + 2 * n, device=p.device) - n).clamp(0, h - 1)
+        xs = (torch.arange(w + 2 * n, device=p.device) - n).clamp(0, w - 1)
+        return p[ys][:, xs].contiguous()
+
+    def pick_coarse(self, s16, sum16, qp, lam_me, nbh, nbw, f):
+        """Coarse winner per block; f = aggregation factor in 16-units."""
+        nc = self.nc
+        s, sm = s16, sum16
+        if f > 1:
+            s = s[:, : nbh * f, : nbw * f].reshape(-1, nbh, f, nbw, f).sum(
+                dim=(2, 4))
+            sm = sm[:, : nbh * f, : nbw * f].reshape(-1, nbh, f, nbw, f).sum(
+                dim=(2, 4))
+        s = zcost(s, sm, self._dcc(qp, (16 * f) ** 2, lam_me))
+        cost = s + ((self.coarse_bits[:, None, None] * lam_me) >> 8)
+        ci = torch.argmin(cost.reshape(nc * nc, -1), dim=0)
+        return (ci % nc - self.R2).int(), (ci // nc - self.R2).int()
+
+    def refine(self, ry, oy, starts, S, nbh, nbw, qp, lam_me, quads=False):
+        """grid_refine over the start grids [(x, y) full-pel per block]."""
+        st = torch.stack([torch.stack([x.reshape(-1).int(),
+                                       y.reshape(-1).int()], -1)
+                          for x, y in starts]).contiguous()
+        return grid_refine(ry, oy, S, nbh, nbw, st, quads,
+                           self._dcc(qp, S * S, lam_me),
+                           self._dcc(qp, 64, lam_me), lam_me,
+                           self.sr_full + 3)
+
+    def mc_luma(self, planes_y, mv8, ref8):
+        """Per-8-cell fields (h8', w8', 2) / (h8', w8') -> luma prediction."""
+        pred, _, _ = grid_satd(planes_y, mv8[None].contiguous(),
+                               ref8[None].contiguous(), 8, self.LOOK)
+        return pred[0]
+
+    def mc_chroma(self, planes_c, mv8, ref8):
+        """Per-8-cell fields -> packed [U | V] chroma prediction."""
+        mv = torch.stack([mv8, mv8]).contiguous()
+        ref = torch.stack([ref8, ref8 + self.R]).contiguous()
+        pred, _, _ = grid_satd(planes_c, mv, ref, 4, self.LOOKC)
+        return torch.cat([pred[0], pred[1]], dim=1)
+
+    def satd_z(self, m8, s8, S, nbh, nbw, qp, lam_me_f):
+        """DC-aware per-CU SATD from the 8x8 SATD and residual sums
+        (`pred_satd_z` / `batch_satd`'s float part)."""
+        m8c = m8[: nbh * S // 8, : nbw * S // 8]
+        s8c = s8[: nbh * S // 8, : nbw * S // 8]
+        dc8 = (s8c.abs() + 2) >> 2
+        ac8 = (m8c - dc8).float()
+        qstep = 2.0 ** ((qp - 4) / 6.0)
+        dcc = lam_me_f * 12.0 + _f32((S * S) * qstep / 4.0, self.dev)
+        if S == 8:
+            return ac8 + torch.minimum(dc8.float(), dcc)
+        f = S // 8
+        ac = group_sum(ac8, f)
+        dcsum = group_sum(dc8, f).float()
+        cu_dc = ((group_sum(s8c, f).abs() + 2) >> 2).float()
+        dcvar = torch.clamp(dcsum - cu_dc, min=0.0)
+        return ac + 0.5 * dcvar + torch.minimum(cu_dc, dcc)
+
+    def pred_satd_z(self, planes_y, oy, mv_grid, ref_grid, S, qp, lam_me_f):
+        nbh, nbw = ref_grid.shape
+        f = S // 8
+        _, m8, s8 = grid_satd(planes_y, up(mv_grid.permute(2, 0, 1), f)
+                              .permute(1, 2, 0)[None].contiguous(),
+                              up(ref_grid, f)[None].contiguous(), 8,
+                              self.LOOK, oy, want_pred=False)
+        return self.satd_z(m8[0], s8[0], S, nbh, nbw, qp, lam_me_f)
+
+    # --- the merge-candidate sweep ---------------------------------------
+    def cand_sweep_all(self, tabs, qp, lam_me_f, oy, planes_y, specs):
+        """specs: [(S, nbh, nbw, mv (nbh, nbw, 2), ref (nbh, nbw))], the
+        16 class first (its cover holds every class's) -> per spec
+        (mv, ref, mode_b, merged, midx_b)."""
+        dev = self.dev
+        S0, nbh0, nbw0 = specs[0][:3]
+        h8, w8 = nbh0 * S0 // 8, nbw0 * S0 // 8
+        oy_c = oy[: nbh0 * S0, : nbw0 * S0].contiguous()
+
+        def batch_satd(grids):
+            mvs, refs = [], []
+            for (S, nbh_, nbw_, _, _), (mv_g, ref_g) in zip(specs, grids):
+                f = S // 8
+                m = torch.zeros((h8, w8, 2), dtype=torch.int32, device=dev)
+                r = torch.zeros((h8, w8), dtype=torch.int32, device=dev)
+                m[: nbh_ * f, : nbw_ * f] = up(mv_g.permute(2, 0, 1),
+                                               f).permute(1, 2, 0)
+                r[: nbh_ * f, : nbw_ * f] = up(ref_g, f)
+                mvs.append(m)
+                refs.append(r)
+            _, m8, s8 = grid_satd(planes_y, torch.stack(mvs),
+                                  torch.stack(refs), 8, self.LOOK, oy_c,
+                                  want_pred=False)
+            return [self.satd_z(m8[ci], s8[ci], S, nbh_, nbw_, qp, lam_me_f)
+                    for ci, (S, nbh_, nbw_, _, _) in enumerate(specs)]
+
+        states = []
+        for (S, nbh_, nbw_, mv, ref), s0 in zip(
+                specs, batch_satd([(mv, ref) for (_, _, _, mv, ref)
+                                   in specs])):
+            states.append((mv, ref, s0,
+                           torch.zeros((nbh_, nbw_), dtype=torch.bool,
+                                       device=dev),
+                           torch.zeros((nbh_, nbw_), dtype=torch.float32,
+                                       device=dev)))
+        dmax = max(max(s[1], s[2]) for s in specs)
+        dists = [d for d in (1, 4, 16) if d < dmax] + [1]
+        mvd_lut, ref_lut = tabs.mvd_lut, tabs.ref_bits
+        lam_b = lam_me_f * MERGE_BIAS
+        for dist in dists:
+            for axis, mb in ((1, tabs.midx[0]), (0, tabs.midx[1])):
+                cands = [(torch.roll(st[0], dist, axis),
+                          torch.roll(st[1], dist, axis)) for st in states]
+                satcs = batch_satd(cands)
+                new = []
+                for (S, nbh_, nbw_, _, _), st, (mvc, refc), satc in zip(
+                        specs, states, cands, satcs):
+                    mv_g, ref_g, s0, mrg, mib = st
+                    if axis == 1:
+                        edge = (torch.arange(nbw_, device=dev)[None] < dist
+                                ).expand(nbh_, nbw_)
+                    else:
+                        edge = (torch.arange(nbh_, device=dev)[:, None]
+                                < dist).expand(nbh_, nbw_)
+                    dmv = torch.clamp((mv_g - mvc).abs(), max=4095).long()
+                    keep_b = (mvd_lut[dmv[..., 0]] + mvd_lut[dmv[..., 1]]
+                              + ref_lut[ref_g.long()] + tabs.mf0 + tabs.mvp)
+                    keep_b = torch.where(mrg, tabs.mf1 + mib, keep_b)
+                    adopt = ((satc + lam_b * (tabs.mf1 + mb)
+                              <= s0 + lam_b * keep_b) & ~edge)
+                    new.append((torch.where(adopt[..., None], mvc, mv_g),
+                                torch.where(adopt, refc, ref_g),
+                                torch.where(adopt, satc, s0), mrg | adopt,
+                                torch.where(adopt, mb, mib)))
+                states = new
+        outs = []
+        for (mv_g, ref_g, _, merged, midx_b) in states:
+            left = torch.cat([mv_g[:, :1], mv_g[:, :-1]], 1)
+            top = torch.cat([mv_g[:1], mv_g[:-1]], 0)
+            d1 = torch.clamp((mv_g - left).abs(), max=4095).long()
+            d2 = torch.clamp((mv_g - top).abs(), max=4095).long()
+            mvd_b = torch.minimum(mvd_lut[d1[..., 0]] + mvd_lut[d1[..., 1]],
+                                  mvd_lut[d2[..., 0]] + mvd_lut[d2[..., 1]])
+            amvp_b = tabs.mf0 + ref_lut[ref_g.long()] + tabs.mvp + mvd_b
+            mode_b = (tabs.pred_inter + tabs.part2n
+                      + torch.where(merged, tabs.mf1 + midx_b, amvp_b))
+            outs.append((mv_g, ref_g, mode_b, merged, midx_b))
+        return outs
+
+    # --- class coding ----------------------------------------------------
+    def _txq(self, orig, pred, T, qp, lam, est, cbf):
+        return grid_code(orig, pred, T, qp, float(lam), est, float(cbf[0]),
+                         float(cbf[1]), self.lvl8)
+
+    def class_code(self, qp, tabs, lam, oy, ouv, planes_y, planes_c,
+                   mv_grid, ref_grid, S, nbh, nbw, mv_cells=None,
+                   ref_cells=None, tusplit=False):
+        """Code every S-block under mv_grid/ref_grid (or per-8-cell maps)
+        with TU = min(S, 32) and, with tusplit, the RQT below it."""
+        dev = self.dev
+        qpc = chroma_qp(qp)
+        T = min(S, 32)
+        log2t = T.bit_length() - 1
+        Hp, Wp = nbh * S, nbw * S
+        fT = S // T
+        oy_c = oy[:Hp, :Wp].contiguous()
+        if mv_cells is None:
+            mv_cells = up(mv_grid.permute(2, 0, 1), S // 8).permute(1, 2, 0)
+            ref_cells = up(ref_grid, S // 8)
+        mv_cells = mv_cells.contiguous()
+        ref_cells = ref_cells.contiguous()
+        pred_y = self.mc_luma(planes_y, mv_cells, ref_cells)
+        lvl, rec, d_tu, b_tu, cbf_tu, d0_tu = self._txq(
+            oy_c, pred_y, T, qp, lam, tabs.est_y[log2t], tabs.cbf_y)
+        do_split = tusplit and T >= 16
+        Sc = S // 2
+        Tc = 16 if S == 64 else min(Sc, 32)
+        fTc = Sc // Tc
+        Hpc, Wpc = Hp // 2, Wp // 2
+        pred_uv = self.mc_chroma(planes_c, mv_cells, ref_cells)
+        ouv_c = torch.cat([ouv[:Hpc, :Wpc], ouv[:Hpc, self.Wc : self.Wc + Wpc]],
+                          dim=1).contiguous()
+        wch = _f32(2.0 ** ((qp - qpc) / 3.0), dev)
+        lam_c = lam / wch
+
+        def txq_c(Tc_):
+            return self._txq(ouv_c, pred_uv, Tc_, qpc, lam_c,
+                             tabs.est_c[Tc_.bit_length() - 1], tabs.cbf_c)
+
+        lvl_c, rec_c, duv, buv, nzk, dc0 = txq_c(Tc)
+        split_tu = td8 = None
+        if do_split:
+            T2 = T // 2
+            lvl2, rec2, d_tu2, b_tu2, cbf_tu2, _ = self._txq(
+                oy_c, pred_y, T2, qp, lam, tabs.est_y[log2t - 1], tabs.cbf_y)
+            Tc2 = Tc // 2
+            lvl_c2, rec_c2, duv2, buv2, nzk2, _ = txq_c(Tc2)
+            deep = S == 32 and self.deep
+            split16 = None
+            if deep:
+                T4 = T // 4
+                lvl4, rec4, d_tu4, b_tu4, cbf_tu4, _ = self._txq(
+                    oy_c, pred_y, T4, qp, lam, tabs.est_y[log2t - 2],
+                    tabs.cbf_y)
+                lvl_c4, rec_c4, duv4, buv4, nzk4, _ = txq_c(Tc2 // 2)
+
+                def csum4(x):  # Tc4 chroma (packed) -> T2-tile grid
+                    ntw = x.shape[1] // 2
+                    return sum22(x[:, :ntw]) + sum22(x[:, ntw:])
+
+                def c0sum2(x):
+                    ntw = x.shape[1] // 2
+                    return x[:, :ntw] + x[:, ntw:]
+
+                sd16 = tabs.tsplit[log2t - 1][1] - tabs.tsplit[log2t - 1][0]
+                c16a = (d_tu2 + wch * c0sum2(duv2)
+                        + lam * (b_tu2 + c0sum2(buv2)))
+                c16b = (sum22(d_tu4) + wch * csum4(duv4)
+                        + lam * (sum22(b_tu4) + csum4(buv4) + sd16))
+                split16 = c16b < c16a
+                sp2 = up(split16, T // 2)
+                lvl2 = torch.where(sp2, lvl4, lvl2)
+                rec2 = torch.where(sp2, rec4, rec2)
+                d_tu2 = torch.where(split16, sum22(d_tu4), d_tu2)
+                b_tu2 = torch.where(split16, sum22(b_tu4) + sd16, b_tu2)
+                cbf_tu2 = torch.where(split16, sum22(cbf_tu4), cbf_tu2)
+                spc2 = torch.cat([up(split16, Tc2)] * 2, dim=1)
+                lvl_c2 = torch.where(spc2, lvl_c4, lvl_c2)
+                rec_c2 = torch.where(spc2, rec_c4, rec_c2)
+
+                def csel2(base, fine):
+                    n4 = fine.shape[1] // 2
+                    fpk = torch.cat([sum22(fine[:, :n4]),
+                                     sum22(fine[:, n4:])], dim=1)
+                    sel = torch.cat([split16] * 2, dim=1)
+                    return torch.where(sel, fpk, base)
+
+                duv2 = csel2(duv2, duv4)
+                buv2 = csel2(buv2, buv4)
+                nzk2 = csel2(nzk2, nzk4)
+
+            def csum(x):
+                ntw = x.shape[1] // 2
+                return sum22(x[:, :ntw]) + sum22(x[:, ntw:])
+
+            def c0sum(x):
+                ntw = x.shape[1] // 2
+                return x[:, :ntw] + x[:, ntw:]
+
+            sdelta = tabs.tsplit[log2t][1] - tabs.tsplit[log2t][0]
+            cost_a = d_tu + wch * c0sum(duv) + lam * (b_tu + c0sum(buv))
+            cost_b = (sum22(d_tu2) + wch * csum(duv2)
+                      + lam * (sum22(b_tu2) + csum(buv2) + sdelta))
+            split_tu = cost_b < cost_a
+            spp = up(split_tu, T)
+            lvl = torch.where(spp, lvl2, lvl)
+            rec = torch.where(spp, rec2, rec)
+            d_tu = torch.where(split_tu, sum22(d_tu2), d_tu)
+            b_tu = torch.where(split_tu, sum22(b_tu2) + sdelta, b_tu)
+            cbf_tu = torch.where(split_tu, sum22(cbf_tu2), cbf_tu)
+            spc = torch.cat([up(split_tu, Tc)] * 2, dim=1)
+            lvl_c = torch.where(spc, lvl_c2, lvl_c)
+            rec_c = torch.where(spc, rec_c2, rec_c)
+            sel_cp = torch.cat([split_tu] * 2, dim=1)
+
+            def csel(base, fine):
+                n2 = fine.shape[1] // 2
+                fpk = torch.cat([sum22(fine[:, :n2]), sum22(fine[:, n2:])],
+                                dim=1)
+                return torch.where(sel_cp, fpk, base)
+
+            duv = csel(duv, duv2)
+            buv = csel(buv, buv2)
+            nzk = csel(nzk, nzk2)
+            td8 = up(split_tu.to(torch.int8), T // 8)
+            if split16 is not None:
+                td8 = td8 + (up(split_tu, T // 8)
+                             & up(split16, T // 16)).to(torch.int8)
+
+        def cu_sum(x):
+            return x if fT == 1 else sum22(x)
+
+        def cu_sum_c(x):
+            ntw = x.shape[1] // 2
+            u_, v_ = x[:, :ntw], x[:, ntw:]
+            if fTc > 1:
+                u_, v_ = sum22(u_), sum22(v_)
+            return u_ + v_
+
+        out = dict(lvl=lvl, rec=rec, lvl_c=lvl_c, rec_c=rec_c,
+                   d=cu_sum(d_tu) + wch * cu_sum_c(duv),
+                   bits=cu_sum(b_tu) + cu_sum_c(buv),
+                   cbf=(cu_sum(cbf_tu) + cu_sum_c(nzk)) > 0,
+                   d0=cu_sum(d0_tu) + wch * cu_sum_c(dc0),
+                   pred=pred_y, pred_c=pred_uv)
+        if split_tu is not None:
+            out["tsplit"] = split_tu
+            out["td8"] = td8
+        return out
+
+    def cu_cost(self, tabs, lam, c, mode_b, merged, midx_b, S):
+        cbf = c["cbf"]
+        syn_skip = tabs.skip1 + midx_b
+        syn_code = tabs.skip0 + mode_b + torch.where(
+            merged, torch.zeros_like(mode_b),
+            torch.where(cbf, tabs.root1, tabs.root0))
+        syn = torch.where(~cbf & merged, syn_skip, syn_code)
+        bits = syn + torch.where(cbf, c["bits"], torch.zeros_like(c["bits"]))
+        if S > 8:
+            bits = bits + tabs.split[0]
+        return c["d"] + lam * bits, bits
+
+    # --- intra-16 in P pictures ------------------------------------------
+    def intra16_code(self, qp, tabs, lam, oy, ouv, pred_y, pred_uv):
+        qpc = chroma_qp(qp)
+        Hp, Wp = self.nh16 * 16, self.nw16 * 16
+        lvl, rec, d_cu, b_cu, cbf_cu, _ = self._txq(
+            oy[:Hp, :Wp].contiguous(), pred_y, 16, qp, lam, tabs.est_y[4],
+            tabs.cbf_y)
+        Hpc, Wpc = Hp // 2, Wp // 2
+        ouv_c = torch.cat([ouv[:Hpc, :Wpc], ouv[:Hpc, self.Wc : self.Wc + Wpc]],
+                          dim=1).contiguous()
+        wch = _f32(2.0 ** ((qp - qpc) / 3.0), self.dev)
+        lam_c = lam / wch
+        lvl_c, rec_c, duv, buv, nzk, _ = self._txq(
+            ouv_c, pred_uv, 8, qpc, lam_c, tabs.est_c[3], tabs.cbf_c)
+        ntw = duv.shape[1] // 2
+
+        def cs(x):
+            return x[:, :ntw] + x[:, ntw:]
+
+        return dict(lvl=lvl, rec=rec, lvl_c=lvl_c, rec_c=rec_c,
+                    d=d_cu + wch * cs(duv), bits=b_cu + cs(buv),
+                    cbf=(cbf_cu + cs(nzk)) > 0)
+
+    def intra16_cost(self, tabs, lam, ci):
+        hdr = (tabs.skip0 + tabs.pred_intra + tabs.prev_mode[0] + 5.0
+               + tabs.chroma_dm + 1.0)
+        return ci["d"] + lam * (hdr + ci["bits"] + tabs.split[0])
+
+    def intra_suppress(self, cand):
+        """Deterministic 4-phase keep mask: a kept cell never uses another
+        (potentially) intra cell's reconstruction as reference."""
+        nh, nw = self.nh16, self.nw16
+        avtr, avbl = self.avtr, self.avbl
+        F = torch.nn.functional
+
+        def prov(m):
+            m8 = m.to(torch.uint8)
+            pl = F.pad(m8, (1, 0))[:, :-1]
+            pt = F.pad(m8, (0, 0, 1, 0))[:-1]
+            ptl = F.pad(m8, (1, 0, 1, 0))[:-1, :-1]
+            ptr = F.pad(m8, (0, 1, 1, 0))[:-1, 1:].bool() & avtr
+            pbl = F.pad(m8, (1, 0, 0, 1))[1:, :-1].bool() & avbl
+            return pl.bool() | pt.bool() | ptl.bool() | ptr | pbl
+
+        bxg = torch.arange(nw, device=self.dev)[None].expand(nh, nw)
+        byg = torch.arange(nh, device=self.dev)[:, None].expand(nh, nw)
+        kept = torch.zeros((nh, nw), dtype=torch.bool, device=self.dev)
+        decided = torch.zeros_like(kept)
+        for px_, py_ in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            ph = (bxg % 2 == px_) & (byg % 2 == py_)
+            blocked = prov(kept) | prov(cand & ~decided)
+            kept = kept | (cand & ph & ~blocked)
+            decided = decided | ph
+        return kept
+
+    # --- one P picture ---------------------------------------------------
+    def frame_step(self, carry, fu8, navail: int, gpos: int, tabs: _Tabs):
+        ry_stack, ruv_stack, mv16p, colmv_g, coltd_g = carry
+        dev = self.dev
+        W, H, Hc, Wc = self.W, self.H, self.Hc, self.Wc
+        nh16, nw16, nh32, nw32 = self.nh16, self.nw16, self.nh32, self.nw32
+        nh64, nw64, h8, w8 = self.nh64, self.nw64, self.h8, self.w8
+        n16, R, R2, nc = self.n16, self.R, self.R2, self.nc
+        has32, has64 = nh32 * nw32 > 0, nh64 * nw64 > 0
+        qp = self.qps[gpos]
+        lam_py = p_frame_lambda(self.cfg, gpos, qp)
+        lam = _f32(lam_py, dev)
+        lam_me_f = _f32(np.sqrt(lam_py), dev)
+        lam_me = int(round(np.sqrt(lam_py) * 256))
+        oy = fu8[: W * H].reshape(H, W).int()
+        ou = fu8[W * H : W * H * 5 // 4].reshape(Hc, Wc)
+        ov = fu8[W * H * 5 // 4 :].reshape(Hc, Wc)
+        ouv = torch.cat([ou, ov], dim=1).int()
+
+        # --- ME ------------------------------------------------------------
+        oy2 = tile_sum(oy, 2).int()
+        ry0 = ry_stack[0]
+        ry2p = self._pad_edge(tile_sum(ry0, 2).int(), R2)
+        s16c, sum16c = grid_coarse(oy2, ry2p, nc, 8, 1, True)
+        cx16, cy16 = self.pick_coarse(s16c, sum16c, qp, lam_me, nh16, nw16, 1)
+        if has32:
+            cx32, cy32 = self.pick_coarse(s16c, sum16c, qp, lam_me, nh32,
+                                          nw32, 2)
+        gtot = zcost(s16c, sum16c, self._dcc(qp, 256, lam_me))
+        gi = int(torch.argmin(gtot.sum(dim=(1, 2))))
+        gcx, gcy = gi % nc - R2, gi // nc - R2
+        sf = self.sr_full
+        tx_ = mv16p[:, 0].clamp(-sf, sf).reshape(nh16, nw16)
+        ty_ = mv16p[:, 1].clamp(-sf, sf).reshape(nh16, nw16)
+        pre16 = pre32 = None
+        if sf > self.sr:
+            P4 = sf // 4
+            n4 = 2 * P4 + 1
+            oy4 = tile_sum(oy, 4).int()
+            ry4p = self._pad_edge(tile_sum(ry0, 4).int(), P4)
+            sad4, _ = grid_coarse(oy4, ry4p, n4, 4, 2, False)
+            cost4 = sad4 + ((self.pre_bits[:, None, None] * lam_me) >> 8)
+            barg = torch.argmin(cost4.reshape(n4 * n4, -1), dim=0).reshape(
+                nh16, nw16)
+            lim_ps = sf - 4
+            px_ = ((barg % n4 - P4) * 4).clamp(-lim_ps, lim_ps)
+            py_ = ((barg // n4 - P4) * 4).clamp(-lim_ps, lim_ps)
+            pre16 = (px_, py_)
+            if has32:
+                pre32 = (px_[: nh32 * 2 : 2, : nw32 * 2 : 2],
+                         py_[: nh32 * 2 : 2, : nw32 * 2 : 2])
+
+        def starts0(cxr, cyr, ts, pre):
+            zero = torch.zeros_like(cxr)
+            st = [(cxr * 2, cyr * 2), (zero, zero),
+                  (torch.full_like(cxr, gcx * 2), torch.full_like(cxr, gcy * 2)),
+                  ts]
+            if pre is not None:
+                st.append(pre)
+            return st
+
+        (m16, m8_) = self.refine(ry0, oy, starts0(cx16, cy16, (tx_, ty_),
+                                                  pre16),
+                                 16, nh16, nw16, qp, lam_me, quads=True)
+        if has32:
+            ts32 = (tx_[: nh32 * 2 : 2, : nw32 * 2 : 2],
+                    ty_[: nh32 * 2 : 2, : nw32 * 2 : 2])
+            m32, _ = self.refine(ry0, oy, starts0(cx32, cy32, ts32, pre32),
+                                 32, nh32, nw32, qp, lam_me)
+
+        def acc_init(m, r0_bits):
+            mv, sad9, cost = m
+            return [cost + ((r0_bits * lam_me) >> 8) if R > 1 else cost,
+                    mv, sad9, torch.zeros_like(cost)]
+
+        acc16 = acc_init(m16, self.ref_bits_me[0])
+        acc8 = acc_init(m8_, self.ref_bits_me[0])
+        acc32 = acc_init(m32, self.ref_bits_me[0]) if has32 else None
+
+        def merge_acc(acc, m, rb, ridx):
+            mv, sad9, cost = m
+            cost = cost + ((rb * lam_me) >> 8)
+            take = cost < acc[0]
+            acc[0] = torch.where(take, cost, acc[0])
+            acc[1] = torch.where(take[:, None], mv, acc[1])
+            acc[2] = torch.where(take[:, None], sad9, acc[2])
+            acc[3] = torch.where(take, torch.full_like(acc[3], ridx), acc[3])
+
+        # references past the available ones cost 2^30 in the reference
+        # and are never taken: skip them
+        for r in range(1, min(R, navail)):
+            sc = r + 1
+            cxr = (cx16 * sc).clamp(-R2, R2)
+            cyr = (cy16 * sc).clamp(-R2, R2)
+            mr16, mr8 = self.refine(ry_stack[r], oy, [(cxr * 2, cyr * 2)],
+                                    16, nh16, nw16, qp, lam_me, quads=True)
+            merge_acc(acc16, mr16, self.ref_bits_me[r], r)
+            merge_acc(acc8, mr8, self.ref_bits_me[r], r)
+            if has32:
+                cxr32 = (cx32 * sc).clamp(-R2, R2)
+                cyr32 = (cy32 * sc).clamp(-R2, R2)
+                mr32, _ = self.refine(ry_stack[r], oy,
+                                      [(cxr32 * 2, cyr32 * 2)], 32, nh32,
+                                      nw32, qp, lam_me)
+                merge_acc(acc32, mr32, self.ref_bits_me[r], r)
+
+        # --- MC planes, FME --------------------------------------------------
+        planes_y = grid_planes(ry_stack, True, self.PADL, self.HmL, self.WmL)
+        planes_c = grid_planes(
+            torch.cat([ruv_stack[:, :, :Wc], ruv_stack[:, :, Wc:]], 0)
+            .contiguous(), False, self.PADC, self.HmC, self.WmC)
+        _, mv16, sad9_16, ref16 = acc16
+        _, mv8, sad9_8, ref8 = acc8
+        if has32:
+            _, mv32, sad9_32, ref32 = acc32
+        model = self.nn.get(qp)
+        if model is not None:
+            def fme(mv, sad9, S):
+                _, _, off = nn_refine(model, sad9.contiguous(),
+                                      height_category(S), width_category(S))
+                return mv * 4 + off
+        else:
+            def fme(mv, sad9, S):
+                return mv * 4
+        mvq16 = fme(mv16, sad9_16, 16)
+        mvq8 = fme(mv8, sad9_8, 8)
+        if has32:
+            mvq32 = fme(mv32, sad9_32, 32)
+
+        # --- sweep + coding per class ---------------------------------------
+        use_ts = self.use_tusplit
+
+        def code_candidate(mvg, refg, mode_b, mergeable, midx_b, S, nbh,
+                           nbw):
+            c = self.class_code(qp, tabs, lam, oy, ouv, planes_y, planes_c,
+                                mvg, refg, S, nbh, nbw,
+                                tusplit=use_ts and 16 <= S
+                                and (S < 64 or self.deep))
+            cost, _ = self.cu_cost(tabs, lam, c, mode_b, mergeable, midx_b, S)
+            skip_syn = tabs.skip1 + midx_b
+            if S > 8:
+                skip_syn = skip_syn + tabs.split[0]
+            cost_skip = c["d0"] + lam * skip_syn
+            force = mergeable & (cost_skip < cost)
+            cost = torch.where(force, cost_skip, cost)
+            fp = up(force, S)
+            c["lvl"] = torch.where(fp, 0, c["lvl"])
+            c["rec"] = torch.where(fp, c["pred"], c["rec"])
+            fc = torch.cat([up(force, S // 2)] * 2, dim=1)
+            c["lvl_c"] = torch.where(fc, 0, c["lvl_c"])
+            c["rec_c"] = torch.where(fc, c["pred_c"], c["rec_c"])
+            c["cbf"] = c["cbf"] & ~force
+            if "tsplit" in c:
+                c["tsplit"] = c["tsplit"] & ~up(force, S // min(S, 32))
+                c["td8"] = torch.where(up(force, S // 8), 0, c["td8"])
+            c.update(mv=mvg, ref=refg, cost=cost)
+            return c
+
+        def run_class(S, nbh, nbw, settled):
+            mvg, refg, mode_b, merged, midx_b = settled
+            eqL = torch.cat([torch.zeros((nbh, 1), dtype=torch.bool,
+                                         device=dev),
+                             (mvg[:, 1:] == mvg[:, :-1]).all(-1)
+                             & (refg[:, 1:] == refg[:, :-1])], dim=1)
+            eqT = torch.cat([torch.zeros((1, nbw), dtype=torch.bool,
+                                         device=dev),
+                             (mvg[1:] == mvg[:-1]).all(-1)
+                             & (refg[1:] == refg[:-1])], dim=0)
+            mergeable = merged | eqL | eqT
+            midx_b = torch.where(merged, midx_b, tabs.midx[0])
+            merge_mode_b = tabs.pred_inter + tabs.part2n + tabs.mf1 + midx_b
+            mode_b = torch.where(mergeable,
+                                 torch.minimum(mode_b, merge_mode_b), mode_b)
+            c = code_candidate(mvg, refg, mode_b, mergeable, midx_b, S, nbh,
+                               nbw)
+            # measured-RD merge trial: the best spatial or temporal
+            # neighbour candidate coded as a merge
+            mvL = torch.cat([mvg[:, :1], mvg[:, :-1]], 1)
+            refL = torch.cat([refg[:, :1], refg[:, :-1]], 1)
+            mvT = torch.cat([mvg[:1], mvg[:-1]], 0)
+            refT = torch.cat([refg[:1], refg[:-1]], 0)
+            satL = self.pred_satd_z(planes_y, oy, mvL, refL, S, qp, lam_me_f)
+            satT = self.pred_satd_z(planes_y, oy, mvT, refT, S, qp, lam_me_f)
+            useT = satT < satL
+            mvN = torch.where(useT[..., None], mvT, mvL)
+            refN = torch.where(useT, refT, refL)
+            midxN = torch.where(useT, tabs.midx[min(1, self.MM - 1)],
+                                tabs.midx[0])
+            if self.use_tmvp:
+                ok0m, i0m, i1m = self._col_geom(S, nbh, nbw)
+                tdf = coltd_g.reshape(-1)
+                mvf = colmv_g.reshape(-1, 2)
+                td0 = torch.where(ok0m, tdf[i0m], torch.zeros_like(tdf[i0m]))
+                td1 = tdf[i1m]
+                use0 = td0 > 0
+                td = torch.where(use0, td0, td1)
+                idx = torch.where(use0, i0m, i1m)
+                mvc = mvf[idx]
+                tx2 = torch.div(16384 + (td >> 1), td.clamp(min=1),
+                                rounding_mode="floor")
+                dsf = ((tx2 + 32) >> 6).clamp(-4096, 4095)
+                p = dsf[:, None] * mvc
+                sc = (torch.sign(p) * ((p.abs() + 127) >> 8)).clamp(
+                    -32768, 32767)
+                mvC = torch.where((td == 1)[:, None], mvc, sc).reshape(
+                    nbh, nbw, 2).int()
+                refC = torch.zeros((nbh, nbw), dtype=torch.int32, device=dev)
+                okc = (td > 0).reshape(nbh, nbw)
+                satC = self.pred_satd_z(planes_y, oy, mvC, refC, S, qp,
+                                        lam_me_f)
+                satC = torch.where(okc, satC, _f32(3e38, dev))
+                useC = satC < torch.minimum(satL, satT)
+                mvN = torch.where(useC[..., None], mvC, mvN)
+                refN = torch.where(useC, refC, refN)
+                midxN = torch.where(useC, tabs.midx[min(2, self.MM - 1)],
+                                    midxN)
+            mode_bN = tabs.pred_inter + tabs.part2n + tabs.mf1 + midxN
+            ones = torch.ones((nbh, nbw), dtype=torch.bool, device=dev)
+            cm = code_candidate(mvN, refN, mode_bN, ones, midxN, S, nbh, nbw)
+            take = cm["cost"] < c["cost"]
+            tp = up(take, S)
+            tc = torch.cat([up(take, S // 2)] * 2, dim=1)
+            for k, m in (("lvl", tp), ("rec", tp), ("pred", tp),
+                         ("lvl_c", tc), ("rec_c", tc), ("pred_c", tc)):
+                c[k] = torch.where(m, cm[k], c[k])
+            for k in ("d", "bits", "cbf", "d0", "cost"):
+                c[k] = torch.where(take, cm[k], c[k])
+            c["mv"] = torch.where(take[..., None], cm["mv"], c["mv"])
+            c["ref"] = torch.where(take, cm["ref"], c["ref"])
+            if "tsplit" in c:
+                f = c["tsplit"].shape[0] // nbh
+                c["tsplit"] = torch.where(up(take, f), cm["tsplit"],
+                                          c["tsplit"])
+                c["td8"] = torch.where(up(take, S // 8), cm["td8"], c["td8"])
+            return c
+
+        specs = [(16, nh16, nw16, mvq16.reshape(nh16, nw16, 2),
+                  ref16.reshape(nh16, nw16)),
+                 (8, h8, w8, mvq8.reshape(h8, w8, 2), ref8.reshape(h8, w8))]
+        if has32:
+            specs.append((32, nh32, nw32, mvq32.reshape(nh32, nw32, 2),
+                          ref32.reshape(nh32, nw32)))
+        settled = self.cand_sweep_all(tabs, qp, lam_me_f, oy, planes_y,
+                                      specs)
+        c16 = run_class(16, nh16, nw16, settled[0])
+        if has32:
+            c32 = run_class(32, nh32, nw32, settled[2])
+        c8 = run_class(8, h8, w8, settled[1])
+        cost8q = sum22(c8["cost"]) + lam * tabs.split[1]
+        use8 = cost8q < c16["cost"]
+        best16 = torch.minimum(c16["cost"], cost8q)
+
+        def rect_trial(S, nbh_, nbw_, mv_c, ref_c, sq_mv):
+            C = S // 2
+            f = C // 8
+            HpS, WpS = nbh_ * S, nbw_ * S
+            hc, wc = nbh_ * 2, nbw_ * 2
+            oyS = oy[:HpS, :WpS].contiguous()
+            mv_cg = mv_c[:hc, :wc]
+            ref_cg = ref_c[:hc, :wc]
+
+            def half_pick(pair_axis):
+                if pair_axis == 1:
+                    first = mv_cg[:, 0::2].repeat_interleave(2, 1)
+                    second = mv_cg[:, 1::2].repeat_interleave(2, 1)
+                    rfirst = ref_cg[:, 0::2].repeat_interleave(2, 1)
+                    rsecond = ref_cg[:, 1::2].repeat_interleave(2, 1)
+                else:
+                    first = mv_cg[0::2].repeat_interleave(2, 0)
+                    second = mv_cg[1::2].repeat_interleave(2, 0)
+                    rfirst = ref_cg[0::2].repeat_interleave(2, 0)
+                    rsecond = ref_cg[1::2].repeat_interleave(2, 0)
+                mvs = torch.stack([up(m.permute(2, 0, 1), f).permute(1, 2, 0)
+                                   for m in (first, second)]).contiguous()
+                refs = torch.stack([up(r_, f) for r_ in (rfirst, rsecond)]
+                                   ).contiguous()
+                _, s8, _ = grid_satd(planes_y, mvs, refs, 8, self.LOOK, oyS,
+                                     want_pred=False)
+                sA, sB = (group_sum(s8[i], f) for i in (0, 1))
+                if pair_axis == 1:
+                    hA = sA[:, 0::2] + sA[:, 1::2]
+                    hB = sB[:, 0::2] + sB[:, 1::2]
+                    takeB = hB < hA
+                    tB2 = takeB.repeat_interleave(2, 1)
+                else:
+                    hA = sA[0::2] + sA[1::2]
+                    hB = sB[0::2] + sB[1::2]
+                    takeB = hB < hA
+                    tB2 = takeB.repeat_interleave(2, 0)
+                return (torch.where(tB2[..., None], second, first),
+                        torch.where(tB2, rsecond, rfirst),
+                        torch.where(takeB, hB, hA))
+
+            mv_h, ref_h, sat_h = half_pick(1)
+            mv_v, ref_v, sat_v = half_pick(0)
+            s2nxn = sat_h[0::2] + sat_h[1::2]
+            snx2n = sat_v[:, 0::2] + sat_v[:, 1::2]
+            pick_v = snx2n < s2nxn
+            ptype = torch.where(pick_v, 2, 1).int()
+            pv2 = up(pick_v, 2)
+            mvpc = torch.where(pv2[..., None], mv_v, mv_h)
+            refpc = torch.where(pv2, ref_v, ref_h)
+            mv_cells = up(mvpc.permute(2, 0, 1), f).permute(1, 2, 0)
+            ref_cells = up(refpc, f)
+            cpart = self.class_code(qp, tabs, lam, oy, ouv, planes_y,
+                                    planes_c, None, None, S, nbh_, nbw_,
+                                    mv_cells=mv_cells, ref_cells=ref_cells)
+            sqmv2 = up(sq_mv.permute(2, 0, 1), 2).permute(1, 2, 0)
+            dmv = torch.clamp((mvpc - sqmv2).abs(), max=4095).long()
+            pu_bc = (tabs.mvd_lut[dmv[..., 0]] + tabs.mvd_lut[dmv[..., 1]]
+                     + tabs.ref_bits[refpc.long()] + tabs.mf0 + tabs.mvp)
+            pu_bits = 0.5 * sum22(pu_bc)
+            mode_bp = (tabs.pred_inter + pu_bits
+                       + torch.where(pick_v, tabs.part_hv[1],
+                                     tabs.part_hv[0]))
+            cbf_p = cpart["cbf"]
+            syn_p = (tabs.skip0 + mode_bp
+                     + torch.where(cbf_p, tabs.root1, tabs.root0))
+            bits_p = (syn_p + torch.where(cbf_p, cpart["bits"],
+                                          torch.zeros_like(cpart["bits"]))
+                      + tabs.split[0])
+            return (cpart["d"] + lam * bits_p, ptype, mv_cells, ref_cells,
+                    cpart)
+
+        cost_p, ptype16, mvp8, refp8, cpart = rect_trial(
+            16, nh16, nw16, c8["mv"], c8["ref"], c16["mv"])
+        use_part = cost_p < best16
+        best16 = torch.minimum(best16, cost_p)
+        use8 = use8 & ~use_part
+
+        bm16, ipy, ipuv = grid_intra16(oy, ouv, self.avtr_flat,
+                                       self.avbl_flat, nh16, nw16, cur=oy)
+        ci16 = self.intra16_code(qp, tabs, lam, oy, ouv, ipy, ipuv)
+        icost16 = self.intra16_cost(tabs, lam, ci16)
+        icand = icost16 < best16
+        best16 = torch.minimum(best16, icost16)
+        use32 = use64 = use_part32 = None
+        if has32:
+            b16 = sum22(best16[: nh32 * 2, : nw32 * 2]) + lam * tabs.split[1]
+            cand32 = c32["cost"]
+            cost_p32, ptype32, mvp8_32, refp8_32, cpart32 = rect_trial(
+                32, nh32, nw32, c16["mv"], c16["ref"], c32["mv"])
+            rect32_beats_sq = cost_p32 < cand32
+            cand32 = torch.minimum(cand32, cost_p32)
+            use32any = cand32 < b16
+            use_part32 = use32any & rect32_beats_sq
+            use32 = use32any & ~rect32_beats_sq
+            best32 = torch.minimum(cand32, b16)
+            if has64:
+                # the reference reads the child costs in raster rows of
+                # four (not per 64-CU) while it gathers the child MVs per
+                # 64-CU; kept, as it only steers the 64 candidate
+                flat = c32["cost"][: nh64 * 2, : nw64 * 2].reshape(
+                    nh64 * nw64, 4)
+                bi = torch.argmin(flat, dim=1)
+                sub_mv = c32["mv"][: nh64 * 2, : nw64 * 2].reshape(
+                    nh64, 2, nw64, 2, 2).permute(0, 2, 1, 3, 4).reshape(
+                    nh64 * nw64, 4, 2)
+                sub_ref = c32["ref"][: nh64 * 2, : nw64 * 2].reshape(
+                    nh64, 2, nw64, 2).permute(0, 2, 1, 3).reshape(
+                    nh64 * nw64, 4)
+                mv64 = sub_mv.gather(1, bi[:, None, None].expand(
+                    -1, 1, 2))[:, 0].reshape(nh64, nw64, 2)
+                ref64 = sub_ref.gather(1, bi[:, None])[:, 0].reshape(
+                    nh64, nw64)
+                sw64 = self.cand_sweep_all(
+                    tabs, qp, lam_me_f, oy, planes_y,
+                    [(64, nh64, nw64, mv64, ref64)])[0]
+                c64 = run_class(64, nh64, nw64, sw64)
+                b32 = sum22(best32[: nh64 * 2, : nw64 * 2]) \
+                    + lam * tabs.split[1]
+                use64 = c64["cost"] < b32
+
+        # --- composition -------------------------------------------------
+        def cells(x, S):
+            return up(x, S // 8)
+
+        def up_mv(mvg, S):
+            return up(mvg.permute(2, 0, 1), S // 8).permute(1, 2, 0)
+
+        i8 = torch.int8
+        u8c = cells(use8, 16)
+        log2_map = torch.where(u8c, 3, 4).to(i8)
+        tsp = torch.zeros((h8, w8), dtype=i8, device=dev)
+        if use_ts:
+            tsp[: nh16 * 2, : nw16 * 2] = torch.where(
+                u8c, torch.zeros_like(c16["td8"]), c16["td8"])
+        mv_map = torch.where(u8c[..., None], c8["mv"], up_mv(c16["mv"], 16))
+        ref_map = torch.where(u8c, c8["ref"], cells(c16["ref"], 16))
+        m8pix = up(u8c, 8)
+        m8uv = torch.cat([up(u8c, 4)] * 2, dim=1)
+        lvl_y = torch.where(m8pix, c8["lvl"], c16["lvl"])
+        rec_y = torch.where(m8pix, c8["rec"], c16["rec"])
+        lvl_uv = torch.where(m8uv, c8["lvl_c"], c16["lvl_c"])
+        rec_uv = torch.where(m8uv, c8["rec_c"], c16["rec_c"])
+
+        def paste(dst, src, m_pix):
+            hs, ws = m_pix.shape
+            dst[:hs, :ws] = torch.where(m_pix, src, dst[:hs, :ws])
+
+        def paste_uv(dst, src, m_pix):
+            hs, ws = m_pix.shape
+            for off_d, off_s in ((0, 0), (Wc, src.shape[1] // 2)):
+                dst[:hs, off_d : off_d + ws] = torch.where(
+                    m_pix, src[:, off_s : off_s + ws],
+                    dst[:hs, off_d : off_d + ws])
+
+        def set_cells(dst, src, m):
+            hs, ws = m.shape
+            dst[:hs, :ws] = torch.where(m[..., None] if dst.dim() == 3
+                                        else m, src, dst[:hs, :ws])
+
+        mp2 = up(use_part, 2)
+        mv_map = torch.where(mp2[..., None], mvp8, mv_map)
+        ref_map = torch.where(mp2, refp8, ref_map)
+        log2_map = torch.where(mp2, torch.full_like(log2_map, 4), log2_map)
+        if use_ts:
+            tsp[: nh16 * 2, : nw16 * 2] = tsp[: nh16 * 2, : nw16 * 2] & ~mp2
+        paste(lvl_y, cpart["lvl"], up(use_part, 16))
+        paste(rec_y, cpart["rec"], up(use_part, 16))
+        paste_uv(lvl_uv, cpart["lvl_c"], up(use_part, 8))
+        paste_uv(rec_uv, cpart["rec_c"], up(use_part, 8))
+        part16 = torch.where(use_part, ptype16, 0)
+
+        part32 = None
+        if has32:
+            paste(lvl_y, c32["lvl"], up(use32, 32))
+            paste(rec_y, c32["rec"], up(use32, 32))
+            paste_uv(lvl_uv, c32["lvl_c"], up(use32, 16))
+            paste_uv(rec_uv, c32["rec_c"], up(use32, 16))
+            m32cell = up(use32, 4)
+            set_cells(log2_map, torch.full_like(m32cell, 5, dtype=i8),
+                      m32cell)
+            if use_ts:
+                set_cells(tsp, c32["td8"], m32cell)
+            set_cells(mv_map, up_mv(c32["mv"], 32), m32cell)
+            set_cells(ref_map, cells(c32["ref"], 32), m32cell)
+            paste(lvl_y, cpart32["lvl"], up(use_part32, 32))
+            paste(rec_y, cpart32["rec"], up(use_part32, 32))
+            paste_uv(lvl_uv, cpart32["lvl_c"], up(use_part32, 16))
+            paste_uv(rec_uv, cpart32["rec_c"], up(use_part32, 16))
+            m32cp = up(use_part32, 4)
+            set_cells(log2_map, torch.full_like(m32cp, 5, dtype=i8), m32cp)
+            if use_ts:
+                set_cells(tsp, torch.zeros_like(m32cp, dtype=i8), m32cp)
+            set_cells(mv_map, mvp8_32, m32cp)
+            set_cells(ref_map, refp8_32, m32cp)
+            part32 = torch.where(use_part32, ptype32, 0)
+            cover32 = use32 | use_part32
+            set_cells(part16, torch.zeros_like(part16[: nh32 * 2, : nw32 * 2]),
+                      up(cover32, 2))
+            if has64:
+                paste(lvl_y, c64["lvl"], up(use64, 64))
+                paste(rec_y, c64["rec"], up(use64, 64))
+                paste_uv(lvl_uv, c64["lvl_c"], up(use64, 32))
+                paste_uv(rec_uv, c64["rec_c"], up(use64, 32))
+                m64cell = up(use64, 8)
+                set_cells(log2_map, torch.full_like(m64cell, 6, dtype=i8),
+                          m64cell)
+                if use_ts:
+                    t64 = (c64["td8"] if "td8" in c64 else
+                           torch.zeros(m64cell.shape, dtype=i8, device=dev))
+                    set_cells(tsp, t64, m64cell)
+                set_cells(mv_map, up_mv(c64["mv"], 64), m64cell)
+                set_cells(ref_map, cells(c64["ref"], 64), m64cell)
+                set_cells(part16, torch.zeros_like(
+                    part16[: nh64 * 4, : nw64 * 4]), up(use64, 4))
+                set_cells(part32, torch.zeros_like(
+                    part32[: nh64 * 2, : nw64 * 2]), up(use64, 2))
+
+        # --- intra-16: exact prediction from the composed recon -----------
+        intra_cells = torch.zeros((h8, w8), dtype=torch.bool, device=dev)
+        kept = self.intra_suppress(icand)
+        if has32:
+            cov = torch.zeros((nh16, nw16), dtype=torch.bool, device=dev)
+            cov[: nh32 * 2, : nw32 * 2] = up(use32 | use_part32, 2)
+            if has64:
+                cov[: nh64 * 4, : nw64 * 4] = (cov[: nh64 * 4, : nw64 * 4]
+                                               | up(use64, 4))
+            kept = kept & ~cov
+        _, ipred_y, ipred_uv = grid_intra16(rec_y, rec_uv, self.avtr_flat,
+                                            self.avbl_flat, nh16, nw16,
+                                            modes=bm16)
+        cix = self.intra16_code(qp, tabs, lam, oy, ouv, ipred_y, ipred_uv)
+        paste(lvl_y, cix["lvl"], up(kept, 16))
+        paste(rec_y, cix["rec"], up(kept, 16))
+        paste_uv(lvl_uv, cix["lvl_c"], up(kept, 8))
+        paste_uv(rec_uv, cix["rec_c"], up(kept, 8))
+        kp_cell = up(kept, 2)
+        set_cells(log2_map, torch.full_like(kp_cell, 4, dtype=i8), kp_cell)
+        if use_ts:
+            tsp[: nh16 * 2, : nw16 * 2] = torch.where(
+                kp_cell, 0, tsp[: nh16 * 2, : nw16 * 2])
+        set_cells(mv_map, torch.zeros_like(mv_map[: nh16 * 2, : nw16 * 2]),
+                  kp_cell)
+        intra_cells[: nh16 * 2, : nw16 * 2] = kp_cell
+        imode_map = torch.where(kept, self.imodes[bm16.long()].reshape(
+            nh16, nw16), 0)
+        part16 = torch.where(kept, 0, part16)
+
+        cbf_cells = (tile_sum((lvl_y != 0).int(), 8)
+                     + tile_sum((lvl_uv[:, :Wc] != 0).int(), 4)
+                     + tile_sum((lvl_uv[:, Wc:] != 0).int(), 4)) > 0
+        pb = torch.zeros((h8, w8), dtype=torch.int32, device=dev)
+        pb[: nh16 * 2, : nw16 * 2] = up(part16, 2)
+        yy = torch.arange(h8, device=dev)[:, None]
+        xx = torch.arange(w8, device=dev)[None]
+        part_cells = torch.where((yy % 2 == 0) & (xx % 2 == 0), pb, 0)
+        if part32 is not None:
+            pb32 = torch.zeros((h8, w8), dtype=torch.int32, device=dev)
+            pb32[: nh32 * 4, : nw32 * 4] = up(part32, 4)
+            pc32 = torch.where((yy % 4 == 0) & (xx % 4 == 0), pb32, 0)
+            part_cells = torch.where(pc32 > 0, pc32, part_cells)
+
+        # --- packing -----------------------------------------------------
+        ldt = torch.int8 if self.lvl8 else torch.int16
+        u8 = torch.uint8
+
+        def raw(x):
+            return x.contiguous().view(u8).reshape(-1)
+
+        parts = [raw(lvl_y.to(ldt)), raw(lvl_uv.to(ldt)),
+                 rec_y.to(u8).reshape(-1), rec_uv.to(u8).reshape(-1),
+                 log2_map.to(u8).reshape(-1), raw(mv_map.to(torch.int16)),
+                 ref_map.to(u8).reshape(-1), cbf_cells.to(u8).reshape(-1),
+                 intra_cells.to(u8).reshape(-1),
+                 imode_map.to(u8).reshape(-1), part_cells.to(u8).reshape(-1),
+                 tsp.to(u8).reshape(-1), raw(sad9_16.int()),
+                 raw(mv16.to(torch.int16))]
+        new_ry = torch.cat([rec_y[None], ry_stack[:-1]])
+        new_ruv = torch.cat([rec_uv[None], ruv_stack[:-1]])
+        seed16 = torch.div(mv_map[::2, ::2].reshape(n16, 2), 4,
+                           rounding_mode="floor").int()
+        colmv_n = mv_map[::2, ::2].int()
+        coltd_n = torch.where(intra_cells[::2, ::2], 0,
+                              ref_map[::2, ::2].int() + 1)
+        return (new_ry, new_ruv, seed16, colmv_n, coltd_n), torch.cat(parts)
+
+    def carry0(self, ry_stack, ruv_stack):
+        """Chunk-initial carry: zero MV seed, all-invalid collocated
+        motion (the reference's `_carry0`)."""
+        hc16, wc16 = (self.h8 + 1) // 2, (self.w8 + 1) // 2
+        z = dict(dtype=torch.int32, device=self.dev)
+        return (ry_stack, ruv_stack, torch.zeros((self.n16, 2), **z),
+                torch.zeros((hc16, wc16, 2), **z),
+                torch.zeros((hc16, wc16), **z))
+
+
+def build_ldp_grid_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int,
+                        device):
+    """-> (run, meta, qps). run(frames_u8 (n_gops, G, W*H*3/2) uint8,
+    navail (n_gops, G) ints, ry_stack (R, H, W) int32, ruv_stack
+    (R, H/2, W) int32 packed [U | V], live: per-GOP-position tables of
+    `grid_live_tables`) -> (packed rows (n_gops*G, nbytes) uint8,
+    ry_stack, ruv_stack)."""
+    step = GridStep(cfg, nn_by_qp, device)
+    G = step.G
+
+    def run(frames_u8, navail, ry_stack, ruv_stack, live):
+        tabs = [_Tabs(lv, step.dev) for lv in live]
+        carry = step.carry0(ry_stack, ruv_stack)
+        rows = []
+        for g in range(n_gops):
+            for p in range(G):
+                carry, row = step.frame_step(carry, frames_u8[g, p],
+                                             int(navail[g][p]), p, tabs[p])
+                rows.append(row)
+        return torch.stack(rows), carry[0], carry[1]
+
+    return run, dict(W=step.W, H=step.H, step=step), step.qps
+
+
+# --- host half: the packed row -> FrameSyntax ------------------------------
+
+def _parse_frame_buf(cfg, buf: np.ndarray) -> dict:
+    """Unpack one fetched frame row into named arrays."""
+    sps = cfg.sps
+    W, H = sps.coded_width, sps.coded_height
+    Hc = H // 2
+    h8, w8 = H // 8, W // 8
+    nh16, nw16 = H // 16, W // 16
+    n16 = nh16 * nw16
+    lvl8 = _lvl8(cfg)
+    ldt = np.int8 if lvl8 else np.int16
+    lb = 1 if lvl8 else 2
+    off = 0
+
+    def take(nbytes, dtype, shape):
+        nonlocal off
+        out = np.frombuffer(buf[off : off + nbytes].tobytes(), dtype=dtype)
+        off += nbytes
+        return out.reshape(shape)
+
+    return dict(
+        lvl_y=take(W * H * lb, ldt, (H, W)).astype(np.int32),
+        lvl_uv=take(W * Hc * lb, ldt, (Hc, W)).astype(np.int32),
+        rec_y=take(W * H, np.uint8, (H, W)),
+        rec_uv=take(W * Hc, np.uint8, (Hc, W)),
+        log2_map=take(h8 * w8, np.uint8, (h8, w8)).astype(np.int32),
+        mv_map=take(h8 * w8 * 4, np.int16, (h8, w8, 2)).astype(np.int32),
+        ref_map=take(h8 * w8, np.uint8, (h8, w8)).astype(np.int32),
+        cbf_map=take(h8 * w8, np.uint8, (h8, w8)).astype(np.int32),
+        intra_map=take(h8 * w8, np.uint8, (h8, w8)).astype(np.int32),
+        imode_map=take(n16, np.uint8, (nh16, nw16)).astype(np.int32),
+        part_map=take(h8 * w8, np.uint8, (h8, w8)),
+        tsplit_map=take(h8 * w8, np.uint8, (h8, w8)).astype(np.int32),
+        sad9_16=take(n16 * 36, np.int32, (n16, 9)),
+        mv16=take(n16 * 4, np.int16, (n16, 2)).astype(np.int32),
+    )
+
+
+def frame_bytes(cfg) -> int:
+    """Bytes of one packed row."""
+    sps = cfg.sps
+    W, H = sps.coded_width, sps.coded_height
+    lb = 1 if _lvl8(cfg) else 2
+    n8, n16 = (H // 8) * (W // 8), (H // 16) * (W // 16)
+    return (W * H * 3 // 2) * (lb + 1) + n8 * 10 + n16 * (1 + 36 + 4)
+
+
+def assemble_grid_frame(cfg, buf: np.ndarray, num_ref: int = 1, col=None):
+    """Fetched frame row -> (FrameSyntax, recon) through the native
+    decision walk. col: the TMVP collocated motion (col_mv16, col_td16) of
+    the previous coded picture, required when the SPS grants TMVP. Intra
+    cells ride the walk as reference sentinel 255 and are written as
+    16x16 intra CUs with DM chroma."""
+    from ..entropy.native import decision_walk_map_native
+    from ..entropy.syntax import FrameSyntax
+
+    sps = cfg.sps
+    W, H = sps.coded_width, sps.coded_height
+    Wc = W // 2
+    d = _parse_frame_buf(cfg, buf)
+    ref_in = d["ref_map"]
+    has_intra = bool(d["intra_map"].any())
+    if has_intra:
+        ref_in = np.where(d["intra_map"] > 0, 255, ref_in)
+    part_map = d["part_map"]
+    has_parts = bool(part_map.any())
+    if sps.temporal_mvp_enabled and col is None:
+        raise RuntimeError("temporal_mvp_enabled needs the collocated "
+                           "motion maps at assembly")
+    maps = decision_walk_map_native(
+        d["log2_map"], d["mv_map"], ref_in, d["cbf_map"],
+        W, H, sps.log2_ctu, cfg.max_num_merge_cand, num_ref,
+        part_map=part_map if has_parts else None,
+        col=col if sps.temporal_mvp_enabled else None)
+    fs = FrameSyntax(
+        W, H, cu_log2=maps["cu_log2"], mv=maps["mv"], skip=maps["skip"],
+        merge_flag=maps["merge_flag"], merge_idx=maps["merge_idx"],
+        mvp_flag=maps["mvp_flag"], mvd=maps["mvd"], ref_idx=maps["ref"],
+        coeff_y=np.ascontiguousarray(d["lvl_y"]),
+        coeff_cb=np.ascontiguousarray(d["lvl_uv"][:, :Wc]),
+        coeff_cr=np.ascontiguousarray(d["lvl_uv"][:, Wc:]),
+    )
+    if has_parts:
+        fs.part_mode = part_map.astype(np.int32)
+    tsp = d["tsplit_map"]
+    if bool(tsp.any()):
+        # leaf TU log2 per 4-cell: min(CU, 32) minus the RQT depth chosen
+        # on the device
+        tu8 = np.minimum(d["log2_map"], 5) - tsp
+        fs.tu_log2 = np.repeat(np.repeat(tu8, 2, 0), 2, 1).astype(
+            fs.tu_log2.dtype)
+    if has_intra:
+        im = d["intra_map"] > 0
+        fs.inter_dir = np.where(im, 0, fs.inter_dir)
+        fs.skip = np.where(im, 0, fs.skip)
+        fs.merge_flag = np.where(im, 0, fs.merge_flag)
+        fs.ref_idx = np.where(im, 0, fs.ref_idx)
+        m8 = np.repeat(np.repeat(d["imode_map"], 2, 0), 2, 1)[
+            : im.shape[0], : im.shape[1]]
+        fs.luma_mode = np.where(im, m8, fs.luma_mode)
+        fs.chroma_mode = np.where(im, 4, fs.chroma_mode)  # DM
+        m4 = np.repeat(np.repeat(m8, 2, 0), 2, 1)
+        im4 = np.repeat(np.repeat(im, 2, 0), 2, 1)
+        fs.luma_mode4 = np.where(im4, m4, fs.luma_mode4).astype(
+            fs.luma_mode4.dtype)
+        fs.tu_log2 = np.where(im4, 4, fs.tu_log2).astype(fs.tu_log2.dtype)
+        fs.full_features = True
+    rec = (d["rec_y"].astype(np.int32),
+           np.ascontiguousarray(d["rec_uv"][:, :Wc]).astype(np.int32),
+           np.ascontiguousarray(d["rec_uv"][:, Wc:]).astype(np.int32))
+    return fs, rec

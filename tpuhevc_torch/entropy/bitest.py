@@ -128,6 +128,17 @@ class FracBits:
         cls._cache[key] = self
         return self
 
+    @classmethod
+    def from_states(cls, init_row: int, qp: int, states) -> "FracBits":
+        """Tables at an explicit context-state vector (the end-of-slice
+        snapshot of the written stream) instead of the warmed init
+        states; not cached, as each snapshot is fresh."""
+        self = super().__new__(cls)
+        self.init_row, self.qp = init_row, qp
+        self.adaptive = True
+        self._bind(np.asarray(states, dtype=np.int64))
+        return self
+
     def _build(self, init_row: int, qp: int) -> None:
         self.init_row, self.qp = init_row, qp
         ctx = ContextSet(init_row, qp)

@@ -1,6 +1,7 @@
 """ctypes binding for the native entropy encoder (the byte-identical
-fast path of encode_slice_data for I and P slices; the closed-loop intra
-walk is bound in `codec/native_intra.py`).
+fast path of encode_slice_data for I and P slices, and the decode-order
+merge/skip/AMVP walk of the grid step's decision maps; the closed-loop
+intra walk is bound in `codec/native_intra.py`).
 
 The library is `native/libtpuhevc_entropy.so` at the repository root,
 beside the C++ sources it is built from. Where that file is absent, the
@@ -66,18 +67,87 @@ def get_lib():
         + [ctypes.POINTER(ctypes.c_int32)] + [ctypes.c_int] * 14
         + [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
            ctypes.POINTER(ctypes.c_int32)])
+    u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+    lib.tpuhevc_decision_walk_map.restype = ctypes.c_int
+    lib.tpuhevc_decision_walk_map.argtypes = (
+        [u8p, i32p, u8p, u8p] + [ctypes.c_int] * 5 + [i32p] * 8)
+    lib.tpuhevc_decision_walk_map_part.restype = ctypes.c_int
+    lib.tpuhevc_decision_walk_map_part.argtypes = (
+        [u8p, i32p] + [u8p] * 3 + [ctypes.c_int] * 5 + [i32p] * 8)
+    lib.tpuhevc_decision_walk_map_col.restype = ctypes.c_int
+    lib.tpuhevc_decision_walk_map_col.argtypes = (
+        [u8p, i32p] + [u8p] * 3 + [i32p] * 2 + [ctypes.c_int] * 5
+        + [i32p] * 8)
     _LIB = lib
     return _LIB
 
 
+def decision_walk_map_native(log2_map, mv_map, ref_map, cbf_map, W, H,
+                             log2_ctu, max_merge, num_ref: int = 1,
+                             part_map=None, col=None) -> dict:
+    """The native decode-order walk of the grid step's final per-8x8-cell
+    maps (cu_log2, mv, ref (255: intra), cbf[, part]) -> the FrameSyntax
+    merge/skip/AMVP maps (per PU at the PU-origin cells of rectangular
+    partitions). col: the TMVP collocated motion (col_mv16 (h16, w16, 2)
+    int32, col_td16 (h16, w16) int32: POC distance from the collocated
+    picture to its reference per 16x16 block, 0 = invalid). Raises where
+    the walk fails; the library must export the three walk entry points
+    (`get_lib` binds them and fails without them)."""
+    lib = get_lib()
+    h8, w8 = H // 8, W // 8
+
+    def u8(a):
+        a = np.ascontiguousarray(a, dtype=np.uint8)
+        return a, a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+    def i32(a):
+        a = np.ascontiguousarray(a, dtype=np.int32)
+        return a, a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+    keep = [u8(log2_map), i32(mv_map), u8(ref_map), u8(cbf_map)]
+    outs = [np.zeros((h8, w8), np.int32) for _ in range(6)]
+    mv = np.zeros((h8, w8, 2), np.int32)
+    mvd = np.zeros((h8, w8, 2), np.int32)
+    # order: cu_log2, mv, ref, skip, merge_flag, merge_idx, mvp_flag, mvd
+    arrs = [outs[0], mv, outs[1], outs[2], outs[3], outs[4], outs[5], mvd]
+    outp = [a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)) for a in arrs]
+    ins = [p for _, p in keep]
+    dims = (W, H, log2_ctu, max_merge, num_ref)
+    if col is not None:
+        pm = u8(part_map if part_map is not None else np.zeros((h8, w8)))
+        cm, ct = i32(col[0]), i32(col[1])
+        keep += [pm, cm, ct]
+        rc = lib.tpuhevc_decision_walk_map_col(
+            *ins, pm[1], cm[1], ct[1], *dims, *outp)
+    elif part_map is not None and np.any(part_map):
+        pm = u8(part_map)
+        keep.append(pm)
+        rc = lib.tpuhevc_decision_walk_map_part(*ins, pm[1], *dims, *outp)
+    else:
+        rc = lib.tpuhevc_decision_walk_map(*ins, *dims, *outp)
+    if rc != 0:
+        raise RuntimeError(f"native decision walk failed ({rc})")
+    cu_log2, ref, skipf, merge_flag, merge_idx, mvp_flag = outs
+    return dict(cu_log2=cu_log2, mv=mv, ref=ref, skip=skipf,
+                merge_flag=merge_flag, merge_idx=merge_idx,
+                mvp_flag=mvp_flag, mvd=mvd)
+
+
 def encode_slice_data_native(fs, sps, pps, slice_type_row: int, qp: int,
                              slice_type: int = 2, max_merge: int = 5,
-                             num_ref: int = 1) -> bytes | None:
+                             num_ref: int = 1,
+                             ctx_out: np.ndarray | None = None
+                             ) -> bytes | None:
     """Full slice-data payload (CABAC bytes + rbsp trailing) of an I or P
     slice, or None for a frame whose features the native coder does not
     cover (I-slice NxN PUs or TU splits, 4x4 TU leaves in P, intra CUs of
     a P slice other than whole-CU 2Nx2N): the caller then takes the Python
-    coder. slice_type: 2 = I, 1 = P."""
+    coder. slice_type: 2 = I, 1 = P. ctx_out: an int32 buffer of at
+    least 202 entries that receives the end-of-slice context states (the
+    grid step's adaptive bit-estimator feedback)."""
+    if ctx_out is not None and (ctx_out.dtype != np.int32
+                                or ctx_out.size < 202):
+        raise ValueError("ctx_out: needs an int32 buffer of >= 202 states")
     lib = get_lib()
     has_intra_p = (slice_type != 2 and fs.inter_dir is not None
                    and bool((fs.inter_dir == 0).any()))
@@ -161,7 +231,8 @@ def encode_slice_data_native(fs, sps, pps, slice_type_row: int, qp: int,
         slice_type_row, qp, 1 if pps.sign_data_hiding else 0,
         num_ref,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap,
-        nullp)
+        nullp if ctx_out is None else ctx_out.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int32)))
     if n < 0:
         raise RuntimeError(f"native slice coder failed ({n})")
     return out[:n].tobytes()

@@ -1,18 +1,29 @@
 """Hand-written CUDA kernels (sm_90a) of the port, and their launch counts.
 
-Each kernel lives in `csrc/<name>.cu` with a plain C entry point; `build`
-compiles it with nvcc on first use and binds it with ctypes. The wrapper
-that launches a kernel lives beside the op's plain PyTorch version
+Each kernel lives in `csrc/<source>.cu` with a plain C entry point (the
+grid step's `grid_me.cu` and `grid_pred.cu` hold two each); `build`
+compiles a source with nvcc on first use and binds it with ctypes. The
+wrapper that launches a kernel lives beside the op's plain PyTorch version
 (`ops/me.py`, `models/nnfme.py`, `ops/interp.py`, `ops/txq.py`,
-`ops/intra.py`, `ops/cost.py`, `ops/intra_txq.py`, `entropy/bitest.py`)
-and adds one to `LAUNCHES[name]` for every launch, and nowhere else.
+`ops/intra.py`, `ops/cost.py`, `ops/intra_txq.py`, `entropy/bitest.py`,
+`ops/grid_me.py`, `ops/grid_pred.py`, `ops/grid_code.py`,
+`ops/grid_intra.py`) and adds one to `LAUNCHES[name]` for every launch,
+and nowhere else.
 """
 
 from __future__ import annotations
 
-KERNELS = ("sad_search", "nnfme_mlp", "mc_blk", "txq",
-           "intra_bank", "satd35_topk", "intra_txq", "tu_bits",
-           "b_me", "b_pred", "b_txq")
+# kernel name -> its source file (csrc/<source>.cu)
+SOURCE_OF = {"sad_search": "sad_search", "nnfme_mlp": "nnfme_mlp",
+             "mc_blk": "mc_blk", "txq": "txq", "intra_bank": "intra_bank",
+             "satd35_topk": "satd35_topk", "intra_txq": "intra_txq",
+             "tu_bits": "tu_bits", "b_me": "b_me", "b_pred": "b_pred",
+             "b_txq": "b_txq", "grid_coarse": "grid_me",
+             "grid_refine": "grid_me", "grid_planes": "grid_pred",
+             "grid_satd": "grid_pred", "grid_code": "grid_code",
+             "grid_intra16": "grid_intra"}
+KERNELS = tuple(SOURCE_OF)
+SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 

@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 
-from . import KERNELS
+from . import SOURCES
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -27,15 +27,16 @@ BUILD_DIR = os.path.join(
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-file extras: the MLP, the RDOQ trials, the bit estimate and the B
-# step's float costs round every float product on its own, as their
-# PyTorch versions do
+# per-file extras: the MLP, the RDOQ trials, the bit estimate, the B
+# step's and the grid coding's float costs round every float product on
+# its own, as their PyTorch versions do
 EXTRA_FLAGS = {k: ["-fmad=false"] for k in ("nnfme_mlp", "intra_txq",
                                             "tu_bits", "b_me", "b_pred",
-                                            "b_txq")}
+                                            "b_txq", "grid_code")}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -73,7 +74,7 @@ def so_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(names=KERNELS) -> dict[str, float]:
+def build(names=SOURCES) -> dict[str, float]:
     """Compile the named sources that have no current build, in parallel.
     Returns {name: seconds} for the ones compiled; raises on any failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)

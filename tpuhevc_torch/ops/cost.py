@@ -24,7 +24,7 @@ from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 
 
-def _wht(x: torch.Tensor) -> torch.Tensor:
+def wht(x: torch.Tensor) -> torch.Tensor:
     """Unnormalised Walsh-Hadamard transform over the last dim (power of
     two): the product with the Sylvester Hadamard matrix."""
     n = x.shape[-1]
@@ -44,7 +44,7 @@ def satd35_plain(org: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     t = 8 if S >= 8 else 4
     k = S // t
     tiles = d.reshape(n, m, k, t, k, t).permute(0, 1, 2, 4, 3, 5)
-    c = _wht(_wht(tiles).transpose(-1, -2))
+    c = wht(wht(tiles).transpose(-1, -2))
     s = c.abs().sum(dim=(-1, -2))
     s = (s + 2) >> 2 if t == 8 else (s + 1) >> 1
     return s.reshape(n, m, -1).sum(dim=-1).int()

@@ -1,0 +1,218 @@
+"""The grid step's motion search (kernels `grid_coarse` and `grid_refine`).
+
+`grid_coarse`, twin of `coarse_stack` (`tpuhevc/codec/inter_grid.py:650`)
+and of the SAD half of the long-range prestage (`ps_row`, :2395-2416):
+for every offset (dy, dx) of an n x n window over an edge-padded pooled
+reference, the SAD of the pooled current picture per `tile` x `tile`
+block, shifted left by `shift` (the pooling's weight), and with `sums`
+the signed residual sum per block (the DC term of the DC-aware cost).
+The costs, the first-index argmins and the global candidate that read
+the stack are torch glue in `codec/inter_grid.py`.
+
+`grid_refine`, twin of `_refine_grid` + `_pick_grids` (:681-776) with the
+default knobs (no MV-rate anchor): for each block of size S and each of
+G start points (full-pel centres), the 7x7 raw SADs of the windows read
+at clamped coordinates (`ry` rows and columns clipped to the plane, as
+the reference's gather is), the DC-aware selection cost
+zc(sad, sum, dcc) + ((bits(mv) * lam_me) >> 8) on the inner 5x5 (the
+outer ring costs 2^30), the first-index argmin over the G x 49
+candidates in start order, the winner's MV clipped to +-(sr_full + 3),
+its 3x3 raw-SAD surface and its cost. With `quads` (S = 16) the same
+pick per 8x8 quadrant (the 8-class), from the quadrant partial sums, in
+8-grid order. bits(mv) = 2 ceil(log2(2|4 mvx| + 1)) + 2 ceil(log2(2|4 mvy|
++ 1)) + 2, taken exactly as bit lengths (2a + 1 is odd, so the ceiling
+of its log2 is the bit length of 2a).
+
+`*_plain` are the PyTorch versions; the wrappers launch the CUDA kernels
+(`kernels/csrc/grid_me.cu`) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import check_tensor
+from ..kernels import LAUNCHES
+from ..kernels import build as kbuild
+
+BIG = 1 << 30  # the cost of a refine point outside the inner 5x5
+
+
+def tile_sum(p: torch.Tensor, t: int) -> torch.Tensor:
+    """(..., h, w) -> (..., h/t, w/t) sums of t x t tiles."""
+    *lead, h, w = p.shape
+    return p.reshape(*lead, h // t, t, w // t, t).sum(dim=(-3, -1))
+
+
+def zcost(sad: torch.Tensor, sdc: torch.Tensor, dcc: int) -> torch.Tensor:
+    """DC-aware cost: sad - |sum| + min(|sum|, dcc) (`_zc`)."""
+    a = sdc.abs()
+    return sad - a + torch.clamp(a, max=dcc)
+
+
+def ceil_log2_odd(a: torch.Tensor) -> torch.Tensor:
+    """ceil(log2(2a + 1)) of integers a >= 0 (< 2^15), exactly."""
+    out = torch.zeros_like(a)
+    for j in range(1, 17):
+        out = out + ((2 * a) >= (1 << (j - 1))).to(a.dtype)
+    return out
+
+
+def grid_coarse_plain(cur: torch.Tensor, refp: torch.Tensor, n: int,
+                      tile: int, shift: int, sums: bool):
+    """cur (h, w) int32 pooled picture, refp (h+n-1, w+n-1) int32 padded
+    pooled reference -> (sad (n*n, h/tile, w/tile) int32, sum or None)."""
+    h, w = cur.shape
+    win = refp.unfold(0, h, 1).unfold(1, w, 1)  # (n, n, h, w) view
+    d = win - cur
+    sad = tile_sum(d.abs(), tile).reshape(n * n, h // tile, w // tile)
+    sad = sad.int() << shift
+    sm = (tile_sum(d, tile).reshape(n * n, h // tile, w // tile).int()
+          if sums else None)
+    return sad, sm
+
+
+def grid_coarse(cur: torch.Tensor, refp: torch.Tensor, n: int, tile: int,
+                shift: int, sums: bool):
+    """Kernel `grid_coarse`. CPU tensors take the plain version; CUDA
+    tensors the kernel."""
+    if cur.device.type == "cpu":
+        return grid_coarse_plain(cur, refp, n, tile, shift, sums)
+    if cur.device.type != "cuda":
+        raise ValueError(f"grid_coarse: unsupported device {cur.device}")
+    dev = cur.device
+    check_tensor(cur, "cur", torch.int32, 2, dev)
+    check_tensor(refp, "refp", torch.int32, 2, dev)
+    h, w = cur.shape
+    if refp.shape != (h + n - 1, w + n - 1) or h % tile or w % tile:
+        raise ValueError(f"grid_coarse: cur {tuple(cur.shape)}, refp "
+                         f"{tuple(refp.shape)}, n {n}, tile {tile}")
+    nbh, nbw = h // tile, w // tile
+    sad = torch.empty((n * n, nbh, nbw), dtype=torch.int32, device=dev)
+    sm = (torch.empty((n * n, nbh, nbw), dtype=torch.int32, device=dev)
+          if sums else None)
+    fn = kbuild.function("grid_me", "tpuhevc_grid_coarse",
+                         [kbuild.P] * 4 + [kbuild.I] * 5 + [kbuild.P])
+    err = fn(cur.data_ptr(), refp.data_ptr(), sad.data_ptr(),
+             sm.data_ptr() if sums else None, h, w, n, tile, shift,
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "grid_coarse")
+    LAUNCHES["grid_coarse"] += 1
+    return sad, sm
+
+
+def _pick(sad, cost, mvx, mvy, lim):
+    """First-index argmin over (nb, G*49) candidates -> mv, sad9, cost."""
+    bi = torch.argmin(cost, dim=1)
+    bdy = (bi % 49) // 7
+    bdx = bi % 7
+    mv = torch.stack([mvx.gather(1, bi[:, None])[:, 0],
+                      mvy.gather(1, bi[:, None])[:, 0]], dim=-1)
+    base = (bi // 49) * 49
+    oy = torch.tensor([-1, -1, -1, 0, 0, 0, 1, 1, 1], device=cost.device)
+    ox = torch.tensor([-1, 0, 1] * 3, device=cost.device)
+    idx9 = base[:, None] + (bdy[:, None] + oy[None]) * 7 + bdx[:, None] + ox
+    sad9 = sad.gather(1, idx9)
+    best = cost.gather(1, bi[:, None])[:, 0]
+    return mv.clamp(-lim, lim).int(), sad9.int(), best.int()
+
+
+def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
+                      nbw: int, starts: torch.Tensor, quads: bool, dcc: int,
+                      dcc8: int, lam_me: int, lim: int):
+    """ry, oy (H, W) int32; starts (G, nb, 2) int32 full-pel centres ->
+    (mv (nb, 2), sad9 (nb, 9), cost (nb,)) and, with quads, the same
+    triple per 8x8 quadrant in 8-grid order (4 nb rows), else None."""
+    dev = ry.device
+    hr, wr = ry.shape
+    G, nb = starts.shape[0], nbh * nbw
+    win = S + 6
+    ar = torch.arange(win, device=dev)
+    bx = (torch.arange(nbw, device=dev) * S).repeat(nbh)
+    by = (torch.arange(nbh, device=dev) * S).repeat_interleave(nbw)
+    cx, cy = starts[..., 0].long(), starts[..., 1].long()
+    yy = (by[None, :, None] + cy[..., None] - 3 + ar).clamp(0, hr - 1)
+    xx = (bx[None, :, None] + cx[..., None] - 3 + ar).clamp(0, wr - 1)
+    wnd = ry.reshape(-1)[yy[..., :, None] * wr + xx[..., None, :]]
+    cur = (oy[: nbh * S, : nbw * S].reshape(nbh, S, nbw, S)
+           .permute(0, 2, 1, 3).reshape(nb, S, S))
+    sl = wnd.unfold(2, S, 1).unfold(3, S, 1)  # (G, nb, 7, 7, S, S)
+    d = (sl - cur[None, :, None, None]).reshape(G, nb, 49, S, S)
+    f = S // 8
+    if quads:
+        dq = d.reshape(G, nb, 49, f, 8, f, 8)
+        sadq = dq.abs().sum(dim=(4, 6)).reshape(G, nb, 49, f * f)
+        sumq = dq.sum(dim=(4, 6)).reshape(G, nb, 49, f * f)
+        sad, sm = sadq.sum(-1), sumq.sum(-1)
+    else:
+        sad, sm = d.abs().sum(dim=(3, 4)), d.sum(dim=(3, 4))
+    k = torch.arange(49, device=dev)
+    rdx, rdy = k % 7 - 3, k // 7 - 3
+    mvx = cx[..., None] + rdx  # (G, nb, 49)
+    mvy = cy[..., None] + rdy
+    babs = (2 * ceil_log2_odd((mvx * 4).abs())
+            + 2 * ceil_log2_odd((mvy * 4).abs()) + 2)
+    rate = (babs * lam_me) >> 8
+    inner = ((rdx.abs() <= 2) & (rdy.abs() <= 2))[None, None]
+    cost = torch.where(inner, zcost(sad, sm, dcc) + rate,
+                       torch.full_like(sad, BIG))
+
+    def flat(x):  # (G, nb, 49) -> (nb, G*49), start-major
+        return x.permute(1, 0, 2).reshape(nb, G * 49)
+
+    fx, fy = flat(mvx), flat(mvy)
+    main = _pick(flat(sad), flat(cost), fx, fy, lim)
+    if not quads:
+        return main, None
+    costq = torch.where(inner[..., None], zcost(sadq, sumq, dcc8)
+                        + rate[..., None], torch.full_like(sadq, BIG))
+    picks = [_pick(flat(sadq[..., q]), flat(costq[..., q]), fx, fy, lim)
+             for q in range(4)]
+
+    def to8(xs):
+        x = torch.stack(xs, 1)
+        tail = tuple(x.shape[2:])
+        x = x.reshape((nbh, nbw, 2, 2) + tail).permute(
+            (0, 2, 1, 3) + tuple(4 + i for i in range(len(tail))))
+        return x.reshape((nbh * 2 * nbw * 2,) + tail).contiguous()
+
+    quad = tuple(to8([p[i] for p in picks]) for i in range(3))
+    return main, quad
+
+
+def grid_refine(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
+                nbw: int, starts: torch.Tensor, quads: bool, dcc: int,
+                dcc8: int, lam_me: int, lim: int):
+    """Kernel `grid_refine`. CPU tensors take the plain version; CUDA
+    tensors the kernel."""
+    if ry.device.type == "cpu":
+        return grid_refine_plain(ry, oy, S, nbh, nbw, starts, quads, dcc,
+                                 dcc8, lam_me, lim)
+    if ry.device.type != "cuda":
+        raise ValueError(f"grid_refine: unsupported device {ry.device}")
+    dev = ry.device
+    check_tensor(ry, "ry", torch.int32, 2, dev)
+    check_tensor(oy, "oy", torch.int32, 2, dev)
+    check_tensor(starts, "starts", torch.int32, 3, dev)
+    G, nb = starts.shape[0], nbh * nbw
+    if starts.shape[1:] != (nb, 2) or S not in (8, 16, 32) or G > 8 or (
+            quads and S != 16):
+        raise ValueError(f"grid_refine: S {S}, starts {tuple(starts.shape)}")
+    if oy.shape[0] < nbh * S or oy.shape[1] < nbw * S:
+        raise ValueError(f"grid_refine: oy {tuple(oy.shape)} < blocks")
+    nq = 4 if quads else 0
+    mv = torch.empty((nb * (1 + nq), 2), dtype=torch.int32, device=dev)
+    sad9 = torch.empty((nb * (1 + nq), 9), dtype=torch.int32, device=dev)
+    cost = torch.empty((nb * (1 + nq),), dtype=torch.int32, device=dev)
+    fn = kbuild.function("grid_me", "tpuhevc_grid_refine",
+                         [kbuild.P] * 6 + [kbuild.I] * 12 + [kbuild.P])
+    err = fn(ry.data_ptr(), oy.data_ptr(), starts.data_ptr(), mv.data_ptr(),
+             sad9.data_ptr(), cost.data_ptr(), ry.shape[0], ry.shape[1],
+             oy.shape[1], S, nbh, nbw, G, int(quads), dcc, dcc8, lam_me, lim,
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "grid_refine")
+    LAUNCHES["grid_refine"] += 1
+    main = (mv[:nb], sad9[:nb], cost[:nb])
+    if not quads:
+        return main, None
+    return main, (mv[nb:], sad9[nb:], cost[nb:])

@@ -62,6 +62,13 @@ def blocks(plane: torch.Tensor, S: int, nh: int, nw: int) -> torch.Tensor:
             .permute(0, 2, 1, 3).reshape(nh * nw, S, S).int().contiguous())
 
 
+def unblocks(b: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """(nh*nw, S, S) blocks in raster order -> the (nh S, nw S) plane."""
+    S = b.shape[-1]
+    return b.reshape(nh, nw, S, S).permute(0, 2, 1, 3).reshape(nh * S,
+                                                                 nw * S)
+
+
 def _smooth(t, l):
     s2 = t.shape[-1] - 1
     corner = (l[:, 1] + 2 * t[:, 0] + t[:, 1] + 2) >> 2
