@@ -13,21 +13,24 @@
    decision (both passes) of one all-intra picture and of one LD-P IDR,
    captured from the decision itself; the B step kernels (b_me, b_pred,
    b_txq) at every call of one random-access B picture; the grid step
-   kernels (grid_coarse, grid_refine, grid_planes, grid_satd, grid_code,
-   grid_intra16) at every call of one 416x240 LD-P P picture (four
-   references, TMVP candidates), captured from the port's grid step.
+   kernels (grid_coarse, grid_refine, grid_planes, grid_satd, grid_code
+   with RDOQ and sign hiding, grid_intra16, grid_deblock, grid_sao) at
+   every call of one 416x240 P picture of the anchor LD-P cfg as shipped
+   (four references, TMVP candidates), captured from the port's grid
+   step, and grid_code again at every call of the same picture with the
+   tools cut (the flat quantiser).
    Prints the max difference, median times (CUDA events), and each
    kernel's bound: the larger of its bytes (each tensor read or written
    once per picture; a plane that a kernel reads through windows or
    gathers, only the samples read, their union over the calls) over
    3.35 TB/s and its operations over 67 T/s.
 4. Main path 1, LD-P: encodes a 416x240, 17-frame synthetic clip through
-   the port's encode_sequence (anchor LD-P cfg: four references,
-   SearchRange 64, QuadtreeTUMaxDepthInter 3, TMVP; QP 32, FmeMode nn
-   with seeded weights, RDOQ/SBH/SAO/deblocking off), which takes the
-   grid step (416x240 is whole 16x16 blocks), with the launch counters
-   reset just before; the six grid kernels, K2 and the intra kernels (the
-   IDR's decision) must have launched. Main path 2, all-intra: 3 pictures
+   the port's encode_sequence (the anchor LD-P cfg as shipped: four
+   references, SearchRange 64, QuadtreeTUMaxDepthInter 3, TMVP, RDOQ,
+   sign hiding, deblocking and SAO; QP 32, FmeMode nn with seeded
+   weights), which takes the grid step (416x240 is whole 16x16 blocks),
+   with the launch counters reset just before; the eight grid kernels, K2
+   and the intra kernels (the IDR's decision) must have launched. Main path 2, all-intra: 3 pictures
    of the same clip with cfg/encoder_intra_main.cfg (RDOQ, NxN), counters
    reset just before; the four intra kernels must have launched. Main path
    3, random access: cfg/encoder_randomaccess_main.cfg as shipped at
@@ -37,8 +40,8 @@
    stream with the port's host decoder: every picture hash must match and
    the recon must equal the encoder's. Cross-checks CUDA against the CPU
    path (bitstreams byte-identical) at 112x72 for LD-P (the non-grid scan:
-   K1-K4) and all-intra, at 128x64 x 9 for LD-P through the grid step, and
-   at 64x48 x 6 for random access.
+   K1-K4) and all-intra, at 128x64 x 9 for LD-P through the grid step
+   (the anchor's tools on, and cut), and at 64x48 x 6 for random access.
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -79,11 +82,14 @@ from tpuhevc_torch.models.nnfme import (  # noqa: E402
     save_npz, width_category)
 from tpuhevc_torch.ops.cost import satd35_topk, satd35_topk_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_code import grid_code, grid_code_plain  # noqa: E402
+from tpuhevc_torch.ops.grid_deblock import (  # noqa: E402
+    boundary_strength, grid_deblock, grid_deblock_plain, tu_cells)
 from tpuhevc_torch.ops.grid_intra import grid_intra16, grid_intra16_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_me import (  # noqa: E402
     grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain)
 from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
     grid_planes, grid_planes_plain, grid_satd, grid_satd_plain)
+from tpuhevc_torch.ops.grid_sao import grid_sao, grid_sao_plain  # noqa: E402
 from tpuhevc_torch.ops.interp import (  # noqa: E402
     b_pred, b_pred_plain, mc_blk, mc_blk_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
@@ -128,11 +134,15 @@ SOURCES = {
                   "tpuhevc/codec/inter_grid.py:1718"),
     "grid_intra16": ("tpuhevc_torch/kernels/csrc/grid_intra.cu",
                      "tpuhevc/codec/inter_grid.py:2175"),
+    "grid_deblock": ("tpuhevc_torch/kernels/csrc/grid_deblock.cu",
+                     "tpuhevc/codec/inter_grid.py:1217"),
+    "grid_sao": ("tpuhevc_torch/kernels/csrc/grid_sao.cu",
+                 "tpuhevc/codec/inter_grid.py:1427"),
 }
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
 G_KERNELS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
-             "grid_code", "grid_intra16")
+             "grid_code", "grid_intra16", "grid_deblock", "grid_sao")
 # the LD-P path at 416x240: the IDR's decision, the grid step and K2
 LDP_NEED = INTRA + G_KERNELS + ("nnfme_mlp",)
 # the random-access path: the B step, the P tail's stage (K1-K4) and K2
@@ -386,9 +396,25 @@ def kernel_ops(name, a, kw=None) -> int:
         px = a[2].numel() * a[3] ** 2
         oy = kw.get("oy", a[5] if len(a) > 5 else None)
         return px * (12 if oy is not None else 2)
-    if name == "grid_code":
+    if name == "grid_code":  # transforms, quantiser, bits; RDOQ, SBH
         T = a[2]
-        return a[0].numel() // (T * T) * (8 * T ** 3 + 40 * T * T)
+        rdoq = a[9] if len(a) > 9 else False
+        sbh = a[10] if len(a) > 10 else False
+        per = 40 + (80 if rdoq else 0) + (12 if sbh else 0)
+        return a[0].numel() // (T * T) * (8 * T ** 3 + per * T * T)
+    if name == "grid_deblock":  # the bs per cell, the filters at bs > 0
+        tu = tu_cells(a[2], a[7])
+        mv, ref, cbf, intra = a[3].int(), a[4].int(), a[5].bool(), a[6].bool()
+        ops = 0
+        for axis in (1, 0):
+            bs = boundary_strength(tu, mv, ref, cbf, intra, axis)
+            ops += tu.numel() * 2 * 30  # two edge segments per cell
+            ops += int((bs > 0).sum()) * 2 * (40 + 4 * 60)
+            ops += int((bs[:, ::2] == 2).sum() if axis == 1 else
+                       (bs[::2, :] == 2).sum()) * 2 * 4 * 12
+        return ops
+    if name == "grid_sao":  # 4 EO classes and the band per sample, twice
+        return (a[2].numel() + a[3].numel()) * 50
     if name == "grid_intra16":
         decide = kw.get("cur", a[6] if len(a) > 6 else None) is not None
         return a[4] * a[5] * ((7 * 256 * 14 if decide else 256 * 4)
@@ -566,15 +592,18 @@ def intra_cfg(w, h, frames):
     return cfg
 
 
-def ldp_cfg(npz, w=None, h=None, frames=None):
-    """The anchor LD-P cfg at w x h (default: the main path's), cut to the
-    LD-P slice."""
+# the anchor's four tools off: the grid's flat quantiser, no filters
+CUT = ["--RDOQ=0", "--SignHideFlag=0", "--SAO=0", "--LoopFilterDisable=1"]
+
+
+def ldp_cfg(npz, w=None, h=None, frames=None, cut=False):
+    """The anchor LD-P cfg at w x h (default: the main path's), as shipped
+    or with its four tools cut."""
     cfg, _ = build_config(parse_args([
         "-c", os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg"),
         "-wdt", str(w or W), "-hgt", str(h or H), "-f", str(frames or NFRAMES),
         "-q", str(QP),
-        "--RDOQ=0", "--SignHideFlag=0", "--SAO=0", "--LoopFilterDisable=1",
-        "--FmeMode=nn", f"--NNWeightsDir={npz}"]))
+        "--FmeMode=nn", f"--NNWeightsDir={npz}"] + (CUT if cut else [])))
     return cfg
 
 
@@ -628,7 +657,7 @@ def capture_intra_calls(dev, cfg, frame):
 def check_intra_kernels(dev, npz):
     """Kernel vs plain on the card for the intra decision, at every call
     of the two passes of one 416x240 all-intra picture (RDOQ, NxN) and of
-    one LD-P IDR (no RDOQ, no NxN). Integer outputs exact; float32 dist,
+    one IDR of the anchor LD-P cfg. Integer outputs exact; float32 dist,
     d0 and bits within rtol 1e-5, atol 1e-3 (sum order). Returns {name:
     row}; ms/plain_ms are per all-intra picture (both passes)."""
     frame = Reader(W, H, 1).frames[0]
@@ -732,19 +761,18 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_satd": (grid_satd, grid_satd_plain),
     "grid_code": (grid_code, grid_code_plain),
     "grid_intra16": (grid_intra16, grid_intra16_plain),
+    "grid_deblock": (grid_deblock, grid_deblock_plain),
+    "grid_sao": (grid_sao, grid_sao_plain),
 }
 
 
-def check_grid_kernels(dev, npz, params):
-    """Kernel vs plain on the card for the grid step, at every call of one
-    416x240 LD-P P picture (frame 4 against frames 3..0 as its four
-    references, the originals standing in for their recons, GOP position 0
-    at QP 35, a collocated field of random motion so that the TMVP merge
-    candidates are priced), captured from the port's GridStep. Every
-    output equal: integers and the float32 costs of grid_code (whose sums
-    are exact). Returns {name: row}; ms/plain_ms are per P picture."""
+def capture_grid_calls(dev, cfg, params, names):
+    """Run the port's GridStep on one 416x240 P picture of `cfg` (frame 4
+    against frames 3..0 as its four references, the originals standing in
+    for their recons, GOP position 0 at QP 35, a collocated field of
+    random motion so that the TMVP merge candidates are priced), recording
+    every call of the named grid wrappers -> {name: [(args, kwargs)]}."""
     clip = Reader(W, H, 5).frames
-    cfg = ldp_cfg(npz)
     cfg.sps.temporal_mvp_enabled = True
     qps = {min(max(cfg.qp + o, 0), 51) for o in cfg.gop_qp_offsets}
     step = inter_grid.GridStep(cfg, {q: params for q in qps}, dev)
@@ -764,33 +792,55 @@ def check_grid_kernels(dev, npz, params):
              dev_t(rng.integers(0, R + 1, (hc16, wc16)).astype(np.int32)))
     fu8 = dev_t(np.concatenate([p.ravel() for p in clip[4]]))
     tabs = inter_grid._Tabs(inter_grid.grid_live_tables(cfg, {})[0], dev)
-    calls = {k: [] for k in G_KERNELS}
-    saved = recording(inter_grid, G_KERNELS, calls)
+    calls = {k: [] for k in names}
+    saved = recording(inter_grid, names, calls)
     try:
         step.frame_step(carry, fu8, R, 0, tabs)
         torch.cuda.synchronize()
     finally:
-        for k in G_KERNELS:
+        for k in names:
             setattr(inter_grid, k, saved[k])
+    return calls
+
+
+def compare_calls(name, calls, work=None):
+    """Kernel vs plain at each recorded call: every output equal. Returns
+    the largest difference (0)."""
+    kern, plain = G_FUNCS[name]
+    err = 0.0
+    for args, kw in calls:
+        a, b = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        if work is not None:
+            work.add(name, args, a, kw)
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        for x, y in zip(tensors(a), tensors(b)):
+            check(x.dtype == y.dtype and x.shape == y.shape,
+                  f"{name}: {x.dtype}{tuple(x.shape)} vs "
+                  f"{y.dtype}{tuple(y.shape)}")
+            d = float((x.double() - y.double()).abs().max()) \
+                if x.numel() else 0.0
+            check(d == 0, f"{name}: outputs differ by {d}")
+            err = max(err, d)
+    return err
+
+
+def check_grid_kernels(dev, npz, params):
+    """Kernel vs plain on the card for the grid step, at every call of one
+    416x240 P picture of the anchor LD-P cfg as shipped (RDOQ, sign
+    hiding, deblocking, SAO), captured from the port's GridStep, and
+    grid_code at every call of the same picture with the four tools cut
+    (the flat quantiser). Every output equal: integers and the float32
+    costs of grid_code (whose sums are exact) and of grid_sao's decision.
+    Returns {name: row}; ms/plain_ms are per P picture of the anchor."""
+    calls = capture_grid_calls(dev, ldp_cfg(npz), params, G_KERNELS)
     rows = {}
     for name in G_KERNELS:
         kern, plain = G_FUNCS[name]
         r = rows[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                               work=Work())
-        for args, kw in calls[name]:
-            a, b = kern(*args, **kw), plain(*args, **kw)
-            torch.cuda.synchronize()
-            r["work"].add(name, args, a, kw)
-            a = a if isinstance(a, tuple) else (a,)
-            b = b if isinstance(b, tuple) else (b,)
-            for x, y in zip(tensors(a), tensors(b)):
-                check(x.dtype == y.dtype and x.shape == y.shape,
-                      f"{name}: {x.dtype}{tuple(x.shape)} vs "
-                      f"{y.dtype}{tuple(y.shape)}")
-                d = float((x.double() - y.double()).abs().max()) \
-                    if x.numel() else 0.0
-                check(d == 0, f"{name}: outputs differ by {d}")
-                r["max_abs_err"] = max(r["max_abs_err"], d)
+        r["max_abs_err"] = compare_calls(name, calls[name], r["work"])
         r["ms"] = median_ms(lambda: [kern(*a, **k) for a, k in calls[name]],
                             reps=10)
         r["plain_ms"] = median_ms(
@@ -798,6 +848,13 @@ def check_grid_kernels(dev, npz, params):
         print(f"kernel {name:12s} P picture calls {len(calls[name]):3d} "
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} (per P picture)", flush=True)
+    cut = capture_grid_calls(dev, ldp_cfg(npz, cut=True), params,
+                             ("grid_code",))["grid_code"]
+    err = compare_calls("grid_code", cut)
+    rows["grid_code"]["max_abs_err"] = max(rows["grid_code"]["max_abs_err"],
+                                           err)
+    print(f"kernel grid_code     P picture calls {len(cut):3d} max_abs_err "
+          f"{err:.3g} (the four tools cut: the flat quantiser)", flush=True)
     return rows
 
 
@@ -836,17 +893,21 @@ def check_stream(enc, recons, n, launches, need, what):
 
 def cross_check_cpu(npz):
     """CUDA vs CPU path of the port: at 112x72 (all four CU classes; the
-    non-grid LD-P scan) LD-P five pictures and all-intra two, LD-P through
-    the grid step at 128x64 x 9 (every CU class 8-64, four references),
-    and random access at 64x48 x 6 (four B pictures and the P tail);
-    returns the four stream sizes. The 112x72 LD-P encode must launch
-    K1-K4, the 128x64 one every grid kernel."""
+    non-grid LD-P scan, which runs the anchor with its four tools cut)
+    LD-P five pictures and all-intra two, LD-P through
+    the grid step at 128x64 x 9 (every CU class 8-64, four references)
+    with the anchor's four tools on and cut, and random access at 64x48 x
+    6 (four B pictures and the P tail); returns the five stream sizes. The
+    112x72 LD-P encode must launch K1-K4, the 128x64 ones every grid
+    kernel they run."""
     out = []
     for make, n, w, h, need in (
-            (lambda: ldp_cfg(npz, 112, 72, 5), 5, 112, 72,
+            (lambda: ldp_cfg(npz, 112, 72, 5, cut=True), 5, 112, 72,
              ("sad_search", "mc_blk", "txq")),
             (lambda: intra_cfg(112, 72, 2), 2, 112, 72, ()),
             (lambda: ldp_cfg(npz, 128, 64, 9), 9, 128, 64, G_KERNELS),
+            (lambda: ldp_cfg(npz, 128, 64, 9, cut=True), 9, 128, 64,
+             G_KERNELS[:6]),
             (lambda: ra_cfg(npz, 64, 48, 6), 6, 64, 48, ())):
         r = Reader(w, h, n)
         reset_launches()
@@ -929,8 +990,9 @@ def main():
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
               f"{sizes[0]} bytes, all-intra 112x72 {sizes[1]} bytes, LD-P "
-              f"grid 128x64 {sizes[2]} bytes, random access 64x48 "
-              f"{sizes[3]} bytes)", flush=True)
+              f"grid 128x64 {sizes[2]} bytes, with the tools cut "
+              f"{sizes[3]} bytes, random access 64x48 {sizes[4]} bytes)",
+              flush=True)
 
     kernels = []
     for k in KERNELS:

@@ -581,17 +581,25 @@ def test_e2e_rows_and_stream_match_jax_and_decode(e2e):
     assert ok == [poc < deep[0] for poc in range(E2E_FRAMES)], ok
 
 
-CUT = [("rdoq", True), ("deblocking", True), ("fme_mode", "dctif"),
-       ("sign_data_hiding", True), ("sao_enabled", True),
-       ("weighted_pred", True)]
+CUT = [("fme_mode", "dctif"), ("weighted_pred", True)]
+TOOLS = [("rdoq", True), ("deblocking", True), ("sign_data_hiding", True),
+         ("sao_enabled", True)]
+
+
+def _set(cfg, field, value):
+    obj = (cfg.pps if field in ("sign_data_hiding", "weighted_pred")
+           else cfg.sps if field == "sao_enabled" else cfg)
+    setattr(obj, field, value)
+    return cfg
 
 
 def test_grid_selection_cut_and_native_walk(npz, monkeypatch):
     """The grid where the coded size is whole 16x16 blocks, the non-grid
     scan elsewhere (112x72); the slice's cut refused on the grid path
-    (RDOQ, deblocking, DCT-IF, sign hiding, SAO, weighted prediction); a
-    native library without the decision walks fails to bind (no silent
-    slower path)."""
+    (DCT-IF, weighted prediction); RDOQ, sign hiding, deblocking and SAO
+    admitted on the grid (128x64) and refused on the non-grid scan
+    (112x72); a native library without the decision walks fails to bind
+    (no silent slower path)."""
     assert tig.supports(e2e_cfg(npz, True))
     assert not tig.supports(ldp_cfg(npz, port=True))
 
@@ -606,12 +614,12 @@ def test_grid_selection_cut_and_native_walk(npz, monkeypatch):
         drv = LdpScanDriver(Enc(), cfg, [None, None], None, "cpu")
         assert drv.grid == grid and drv.R == (NREF if grid else 1)
     for field, value in CUT:
-        cfg = e2e_cfg(npz, True)
-        obj = (cfg.pps if field in ("sign_data_hiding", "weighted_pred")
-               else cfg.sps if field == "sao_enabled" else cfg)
-        setattr(obj, field, value)
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            check_slice(cfg)
+            check_slice(_set(e2e_cfg(npz, True), field, value))
+    for field, value in TOOLS:
+        check_slice(_set(e2e_cfg(npz, True), field, value))
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            check_slice(_set(ldp_cfg(npz, port=True), field, value))
     real = ctypes.CDLL(native._lib_path())
 
     class NoWalk:

@@ -29,9 +29,9 @@ GOP_QP_OFFSETS = (3, 2, 3, 1)  # the anchor LD-P cfg's GOP table
 QP = 32
 
 
-def clip_frames(w: int, h: int, n: int) -> list:
+def clip_frames(w: int, h: int, n: int, seed: int = 7) -> list:
     """n (y, u, v) uint8 frames of tools.make_test_clip's seeded clip."""
-    raw = make_clip(w, h, n)
+    raw = make_clip(w, h, n, seed=seed)
     fsz = w * h * 3 // 2
     out = []
     for i in range(n):

@@ -8,7 +8,6 @@ Usage:
       [--Device=cuda]
   python -m tpuhevc_torch enc -c cfg/encoder_lowdelay_P_main.cfg \
       -i in.yuv -b out.bin -o rec.yuv -wdt 416 -hgt 240 -f 17 -q 32 \
-      --RDOQ=0 --SignHideFlag=0 --SAO=0 --LoopFilterDisable=1 \
       --NNWeightsDir=weights.npz [--Device=cuda]
   python -m tpuhevc_torch enc -c cfg/encoder_randomaccess_main.cfg \
       -i in.yuv -b out.bin -o rec.yuv -wdt 416 -hgt 240 -f 18 -q 32 \

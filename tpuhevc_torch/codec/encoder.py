@@ -10,8 +10,10 @@ LD-P: the IDR the same way (decided twice, `intra_two_pass`), then chunks
 of P frames through a device scan, host serialisation of chunk i-1
 overlapped with the device work of chunk i: the grid step
 (`codec/inter_grid.py`, multi-reference, TMVP granted in the SPS) where
-`inter_grid.supports` holds (a coded size in whole 16x16 blocks), the
-non-grid scan (`codec/inter_batch.py`) elsewhere. Twin of
+`inter_grid.supports` holds (a coded size in whole 16x16 blocks; there
+the anchor cfg runs as shipped, with RDOQ, sign hiding, deblocking and
+SAO on the device), the non-grid scan (`codec/inter_batch.py`)
+elsewhere. Twin of
 `tpuhevc/codec/encoder.py:737-942` (`LdpScanDriver`,
 `_ldp_scan_pipelined`) and of the LD-P branch of its `encode_sequence`.
 
@@ -168,12 +170,16 @@ class Encoder:
                 (y, u, v), self.dpb_recon, cfg_f, self._nn_for_qp(fqp),
                 device=self.device)
 
-        # deblocking and SAO: all-intra only (check_slice)
-        if cfg.deblocking and not getattr(fs, "prefiltered", False):
+        # deblocking and SAO on the host, but for the grid's P pictures,
+        # which the device filtered (an all-off SAO decision included:
+        # the reference decides SAO again on the host there, and then its
+        # device references are not the decoder's)
+        pre_f = getattr(fs, "prefiltered", False)
+        if cfg.deblocking and not pre_f:
             ry, ru, rv = deblock_frame((ry, ru, rv), fs, fqp,
                                        stype == I_SLICE,
                                        bd=sps.bit_depth)
-        if sps.sao_enabled and fs.sao is None:
+        if sps.sao_enabled and fs.sao is None and not pre_f:
             w_, h_ = sps.coded_width, sps.coded_height
             org = (_pad_to(np.asarray(y), h_, w_),
                    _pad_to(np.asarray(u), h_ // 2, w_ // 2),
@@ -291,10 +297,13 @@ class Encoder:
 def check_slice(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for any configuration outside the ported
     slices: all-intra (IntraPeriod 1) with the host tools after the
-    decision; LD-P, or random access driven by a GOP table of B pictures,
-    with NN-FME or integer-pel and RDOQ, sign hiding, deblocking and SAO
-    off (random access also needs a coded size in whole 16x16 blocks);
-    all 8-bit, quadtree intra, one slice."""
+    decision; LD-P with NN-FME or integer-pel, where RDOQ, sign hiding,
+    deblocking and SAO may be on at coded sizes in whole 16x16 blocks (the
+    grid step; elsewhere the non-grid scan, which has none of them);
+    random access driven by a GOP table of B pictures, with NN-FME or
+    integer-pel, those four tools off and a coded size in whole 16x16
+    blocks; all 8-bit, quadtree intra, one slice, no weighted
+    prediction."""
     sps, pps = cfg.sps, cfg.pps
     off = [
         (cfg.target_bitrate > 0, "rate control"),
@@ -308,11 +317,15 @@ def check_slice(cfg: EncoderConfig) -> None:
     ]
     if cfg.intra_period != 1:  # LD-P or random access
         ra = cfg.gop_structure == "ra"
+        tools = ra or not inter_grid.supports(cfg)
+        where = (" in random access" if ra else
+                 f" at {sps.coded_width}x{sps.coded_height} (not whole "
+                 "16x16 blocks)")
         off += [
-            (cfg.rdoq, "RDOQ"),
-            (pps.sign_data_hiding, "sign-bit hiding"),
-            (cfg.deblocking, "deblocking"),
-            (sps.sao_enabled, "SAO"),
+            (tools and cfg.rdoq, "RDOQ" + where),
+            (tools and pps.sign_data_hiding, "sign-bit hiding" + where),
+            (tools and cfg.deblocking, "deblocking" + where),
+            (tools and sps.sao_enabled, "SAO" + where),
             (cfg.fme_mode not in ("nn", "none"), f"FmeMode {cfg.fme_mode}"),
             (ra and not cfg.gop_table, "random access without a GOP table"),
             (not ra and bool(cfg.gop_table), "a GOP table of P pictures"),
@@ -455,6 +468,8 @@ class LdpScanDriver:
                 col = self._col
             pre = inter_grid.assemble_grid_frame(
                 cfg_f, rows[j], max(1, min(poc, self.R)), col=col)
+            # the device ran the cfg's in-loop filters already
+            pre[0].prefiltered = True
             if tmvp:
                 fs = pre[0]
                 self._col = (

@@ -1,14 +1,16 @@
 """Plane-level LD-P device stage for coded sizes in whole 16x16 blocks.
 
 Twin of `tpuhevc/codec/inter_grid.py` (`build_ldp_grid_scan`, the host
-half `_parse_frame_buf` / `assemble_grid_frame`, and the decision tables
-`_mode_tables` / `grid_live_tables`) at the port's LD-P cut: the flat
-quantiser (no RDOQ, no sign hiding), no deblocking, SAO or weighted
-prediction, FmeMode nn or none, 8-bit, the default branch of every
-experiment knob of the reference (`_TUNE`): 8- and 64-classes on, the
-fused merge sweep, the DC-aware costs, rectangular PUs, the inter RQT to
-depth 2, the measured-RD merge trial with the device TMVP candidate, the
-intra-16 candidate, no MV-rate anchor, merge bias 2.
+half `_parse_frame_buf` / `assemble_grid_frame` with `_sao_thrift`, and
+the decision tables `_mode_tables` / `grid_live_tables`) for the anchor
+LD-P cfg as shipped: the flat quantiser or RDOQ, with or without sign-bit
+hiding, device deblocking and SAO on or off, no weighted prediction,
+FmeMode nn or none, 8-bit, the default branch of every experiment knob of
+the reference (`_TUNE`): 8- and 64-classes on, the fused merge sweep, the
+DC-aware costs, rectangular PUs, the inter RQT to depth 2, the
+measured-RD merge trial with the device TMVP candidate, the intra-16
+candidate, no MV-rate anchor, merge bias 2, the RDOQ last-position
+walk-back.
 
 Per P picture (`GridStep.frame_step`):
 
@@ -23,13 +25,20 @@ Per P picture (`GridStep.frame_step`):
    sweep whose passes price every class's candidates by DC-aware SATD
    (`grid_satd`).
 3. Coding: each class's TUs at TU = CU and the RQT split sizes
-   (`grid_code`), the skip trial, the measured-RD merge trial, the
+   (`grid_code`, with RDOQ and sign-bit hiding where the cfg has them),
+   the skip trial, the measured-RD merge trial, the
    rectangular 2NxN / Nx2N trials, the intra-16 candidate (`grid_intra16`
    decides it and predicts it again from the composed recon), the
    bottom-up 8/16/32/64 compare and the composition into whole-frame
    planes and per-8-cell maps.
-4. The packed row that `assemble_grid_frame` parses, and the carry: the
-   reference stacks, the full-pel MV seed and the TMVP collocated maps.
+4. In-loop filters on the composed recon: deblocking (`grid_deblock`,
+   the boundary strengths from the composed maps with the real RQT
+   depths) and SAO (`grid_sao`: stats, the per-CTU decision, apply) where
+   the cfg has them; the filtered planes are the next picture's
+   references.
+5. The packed row that `assemble_grid_frame` parses (with the SAO
+   parameters where SAO is on), and the carry: the reference stacks, the
+   full-pel MV seed and the TMVP collocated maps.
 
 The `lax.scan` over GOPs and the per-reference scan become Python loops;
 the kernels launch asynchronously, so the loops only enqueue work. The
@@ -47,9 +56,11 @@ from ..device import resolve
 from ..entropy.bitest import EstTables, FracBits, ResidualBitEst
 from ..models.nnfme import NNFME, height_category, nn_refine, width_category
 from ..ops.grid_code import grid_code, up
+from ..ops.grid_deblock import grid_deblock
 from ..ops.grid_intra import IMODES, grid_intra16
 from ..ops.grid_me import grid_coarse, grid_refine, tile_sum, zcost
 from ..ops.grid_pred import grid_planes, grid_satd
+from ..ops.grid_sao import grid_sao
 from ..utils.tables import chroma_qp
 from .params import EncoderConfig, p_frame_lambda
 
@@ -222,6 +233,8 @@ class GridStep:
         self.G = len(offs)
         self.qps = tuple(min(max(cfg.qp + o, 0), 51) for o in offs)
         self.lvl8 = _lvl8(cfg)
+        self.rdoq, self.sbh = cfg.rdoq, cfg.pps.sign_data_hiding
+        self.deblock, self.sao = cfg.deblocking, sps.sao_enabled
         self.R = max(1, cfg.num_ref_frames)
         self.MM = cfg.max_num_merge_cand
         self.nh16, self.nw16 = H // 16, W // 16
@@ -450,7 +463,7 @@ class GridStep:
     # --- class coding ----------------------------------------------------
     def _txq(self, orig, pred, T, qp, lam, est, cbf):
         return grid_code(orig, pred, T, qp, float(lam), est, float(cbf[0]),
-                         float(cbf[1]), self.lvl8)
+                         float(cbf[1]), self.lvl8, self.rdoq, self.sbh)
 
     def class_code(self, qp, tabs, lam, oy, ouv, planes_y, planes_c,
                    mv_grid, ref_grid, S, nbh, nbw, mv_cells=None,
@@ -1179,6 +1192,16 @@ class GridStep:
             pc32 = torch.where((yy % 4 == 0) & (xx % 4 == 0), pb32, 0)
             part_cells = torch.where(pc32 > 0, pc32, part_cells)
 
+        # --- in-loop filters ---------------------------------------------
+        if self.deblock:  # the luma TB cbf only, for the BS (§8.7.2.4)
+            rec_y, rec_uv = grid_deblock(
+                rec_y, rec_uv, log2_map, mv_map, ref_map,
+                tile_sum((lvl_y != 0).int(), 8) > 0, intra_cells, tsp, qp)
+        sao_params = None
+        if self.sao:
+            rec_y, rec_uv, sao_params = grid_sao(oy, ouv, rec_y, rec_uv, lam,
+                                                 qp, 1 << self.log2_ctu)
+
         # --- packing -----------------------------------------------------
         ldt = torch.int8 if self.lvl8 else torch.int16
         u8 = torch.uint8
@@ -1192,8 +1215,10 @@ class GridStep:
                  ref_map.to(u8).reshape(-1), cbf_cells.to(u8).reshape(-1),
                  intra_cells.to(u8).reshape(-1),
                  imode_map.to(u8).reshape(-1), part_cells.to(u8).reshape(-1),
-                 tsp.to(u8).reshape(-1), raw(sad9_16.int()),
-                 raw(mv16.to(torch.int16))]
+                 tsp.to(u8).reshape(-1)]
+        if sao_params is not None:
+            parts.append(raw(sao_params))
+        parts += [raw(sad9_16.int()), raw(mv16.to(torch.int16))]
         new_ry = torch.cat([rec_y[None], ry_stack[:-1]])
         new_ruv = torch.cat([rec_uv[None], ruv_stack[:-1]])
         seed16 = torch.div(mv_map[::2, ::2].reshape(n16, 2), 4,
@@ -1258,7 +1283,7 @@ def _parse_frame_buf(cfg, buf: np.ndarray) -> dict:
         off += nbytes
         return out.reshape(shape)
 
-    return dict(
+    d = dict(
         lvl_y=take(W * H * lb, ldt, (H, W)).astype(np.int32),
         lvl_uv=take(W * Hc * lb, ldt, (Hc, W)).astype(np.int32),
         rec_y=take(W * H, np.uint8, (H, W)),
@@ -1271,9 +1296,25 @@ def _parse_frame_buf(cfg, buf: np.ndarray) -> dict:
         imode_map=take(n16, np.uint8, (nh16, nw16)).astype(np.int32),
         part_map=take(h8 * w8, np.uint8, (h8, w8)),
         tsplit_map=take(h8 * w8, np.uint8, (h8, w8)).astype(np.int32),
+    )
+    if sps.sao_enabled:
+        ny, nx = _ctu_grid(cfg)
+        n = ny * nx
+        for k, per in (("ty", 1), ("ay", 1), ("oy", 4), ("tc", 1),
+                       ("acb", 1), ("ocb", 4), ("acr", 1), ("ocr", 4)):
+            d["sao_" + k] = take(n * per, np.int8,
+                                 (ny, nx, 4) if per == 4 else (ny, nx)
+                                 ).astype(np.int32)
+    d.update(
         sad9_16=take(n16 * 36, np.int32, (n16, 9)),
         mv16=take(n16 * 4, np.int16, (n16, 2)).astype(np.int32),
     )
+    return d
+
+
+def _ctu_grid(cfg) -> tuple[int, int]:
+    ctu = 1 << cfg.sps.log2_ctu
+    return (-(-cfg.sps.coded_height // ctu), -(-cfg.sps.coded_width // ctu))
 
 
 def frame_bytes(cfg) -> int:
@@ -1282,7 +1323,10 @@ def frame_bytes(cfg) -> int:
     W, H = sps.coded_width, sps.coded_height
     lb = 1 if _lvl8(cfg) else 2
     n8, n16 = (H // 8) * (W // 8), (H // 16) * (W // 16)
-    return (W * H * 3 // 2) * (lb + 1) + n8 * 10 + n16 * (1 + 36 + 4)
+    ny, nx = _ctu_grid(cfg)
+    # SAO: 8 int8 rows, five of one byte a CTU and three of four
+    sao = 17 * ny * nx if sps.sao_enabled else 0
+    return (W * H * 3 // 2) * (lb + 1) + n8 * 10 + n16 * (1 + 36 + 4) + sao
 
 
 def assemble_grid_frame(cfg, buf: np.ndarray, num_ref: int = 1, col=None):
@@ -1345,7 +1389,40 @@ def assemble_grid_frame(cfg, buf: np.ndarray, num_ref: int = 1, col=None):
             fs.luma_mode4.dtype)
         fs.tu_log2 = np.where(im4, 4, fs.tu_log2).astype(fs.tu_log2.dtype)
         fs.full_features = True
+    if sps.sao_enabled:
+        from .sao_enc import SaoPicParams
+
+        ny, nx = d["sao_ty"].shape
+        fs.sao = _sao_thrift(SaoPicParams(
+            ny, nx, type_y=d["sao_ty"], aux_y=d["sao_ay"], off_y=d["sao_oy"],
+            type_c=d["sao_tc"], aux_cb=d["sao_acb"], off_cb=d["sao_ocb"],
+            aux_cr=d["sao_acr"], off_cr=d["sao_ocr"]))
     rec = (d["rec_y"].astype(np.int32),
            np.ascontiguousarray(d["rec_uv"][:, :Wc]).astype(np.int32),
            np.ascontiguousarray(d["rec_uv"][:, Wc:]).astype(np.int32))
     return fs, rec
+
+
+def _sao_thrift(pp):
+    """Bit-only cleanup of the device's SAO decisions (the applied offsets
+    are unchanged): merge-left, else merge-up, where the neighbour CTU's
+    luma and chroma parameters are identical, and None (both slice flags
+    0, no CTU syntax) where every CTU of both components is off."""
+    from .sao_enc import SAO_OFF
+
+    for y in range(pp.ny):
+        for x in range(pp.nx):
+            for k, (sy, sx) in enumerate(((y, x - 1), (y - 1, x))):
+                if sx < 0 or sy < 0:
+                    continue
+                if all(np.array_equal(a[y, x], a[sy, sx])
+                       for a in (pp.type_y, pp.aux_y, pp.off_y, pp.type_c,
+                                 pp.aux_cb, pp.off_cb, pp.aux_cr,
+                                 pp.off_cr)):
+                    pp.merge[y, x] = k + 1
+                    break
+    pp.luma_on = bool((pp.type_y != SAO_OFF).any())
+    pp.chroma_on = bool((pp.type_c != SAO_OFF).any())
+    if not pp.luma_on and not pp.chroma_on:
+        return None
+    return pp

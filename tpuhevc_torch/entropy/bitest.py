@@ -529,8 +529,11 @@ def _xsum(t: torch.Tensor) -> torch.Tensor:
     return t.double().sum(dim=(1, 2)).float()
 
 
-def tu_bits_plain(est: EstTables, tiles: torch.Tensor) -> torch.Tensor:
-    """tiles (N, S, S) int levels -> (N,) float32 bits; all-zero tiles 0."""
+def tu_bits_plain(est: EstTables, tiles: torch.Tensor,
+                  sbh: bool = False) -> torch.Tensor:
+    """tiles (N, S, S) int levels -> (N,) float32 bits; all-zero tiles 0.
+    sbh: one sign bit fewer per CG whose first and last nonzero in-CG scan
+    positions lie 4 or more apart (sign-bit hiding)."""
     S, cgw = est.S, est.cgw
     n = tiles.shape[0]
     dev = tiles.device
@@ -588,7 +591,15 @@ def tu_bits_plain(est: EstTables, tiles: torch.Tensor) -> torch.Tensor:
     rem = (a - 2).clamp(min=0)
     rb = torch.where(rem > 0, rice_bits(rem, rice), torch.zeros_like(rem))
     bits = bits + rb.sum(dim=(1, 2)).float()
-    bits = bits + n_sig.sum(dim=(1, 2)).float()
+    nsign = n_sig.sum(dim=(1, 2))
+    if sbh:
+        inpos = (sp % 16)[None].expand(n, S, S)
+        big = torch.where(nz, inpos, -1).reshape(n, cgw, 4, cgw, 4)
+        small = torch.where(nz, inpos, 99).reshape(n, cgw, 4, cgw, 4)
+        span = (big.amax(dim=4).amax(dim=2)
+                - small.amin(dim=4).amin(dim=2))
+        nsign = nsign - ((span >= 4) & (n_sig > 0)).sum(dim=(1, 2))
+    bits = bits + nsign.float()
     return torch.where(has, bits, zero)
 
 

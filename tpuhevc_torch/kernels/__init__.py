@@ -7,8 +7,10 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 (`ops/me.py`, `models/nnfme.py`, `ops/interp.py`, `ops/txq.py`,
 `ops/intra.py`, `ops/cost.py`, `ops/intra_txq.py`, `entropy/bitest.py`,
 `ops/grid_me.py`, `ops/grid_pred.py`, `ops/grid_code.py`,
-`ops/grid_intra.py`) and adds one to `LAUNCHES[name]` for every launch,
-and nowhere else.
+`ops/grid_intra.py`, `ops/grid_deblock.py`, `ops/grid_sao.py`) and adds
+one to `LAUNCHES[name]` for every launch, and nowhere else
+(`grid_deblock` launches twice a picture, once per edge direction;
+`grid_sao` twice, its stats and its apply).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ SOURCE_OF = {"sad_search": "sad_search", "nnfme_mlp": "nnfme_mlp",
              "b_txq": "b_txq", "grid_coarse": "grid_me",
              "grid_refine": "grid_me", "grid_planes": "grid_pred",
              "grid_satd": "grid_pred", "grid_code": "grid_code",
-             "grid_intra16": "grid_intra"}
+             "grid_intra16": "grid_intra", "grid_deblock": "grid_deblock",
+             "grid_sao": "grid_sao"}
 KERNELS = tuple(SOURCE_OF)
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 

@@ -94,7 +94,7 @@ __global__ void b_txq_kernel(const int* __restrict__ cur,
     d_coded = block_sum(d_coded, scratch);
     if (threadIdx.x < 32) {
         const float bits = tu_bits_warp(L, itab, ftab, log2, t_csbf, t_nsig,
-                                        t_ngt1, t_gt2, t_rice);
+                                        t_ngt1, t_gt2, t_rice, false);
         if (threadIdx.x == 0) s_bits = bits;
     }
     __syncthreads();

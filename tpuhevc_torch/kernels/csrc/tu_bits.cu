@@ -1,7 +1,7 @@
 // tu_bits: the table bit estimate of residual TUs.
 //
 // Replaces: tpuhevc/entropy/bitest.py:286-378 (`ResidualBitEst.tu_bits`,
-// sbh off) and :398-408 (`_rice_bits_xp`), jnp code that XLA compiled
+// sbh off: the intra decision prices no sign-bit hiding) and :398-408 (`_rice_bits_xp`), jnp code that XLA compiled
 // for the TPU inside the intra decision (and, later, the grid step).
 //
 // What it computes, per TU of levels (S x S, S = 1 << log2 in 4..32):
@@ -52,7 +52,7 @@ __global__ void tu_bits_kernel(const int* __restrict__ tiles,
     const int* lv = tiles + ((size_t)t << (2 * log2));
     const float bits = tu_bits_warp(lv, itab, ftab, log2, s_csbf[warp],
                                     s_nsig[warp], s_ngt1[warp], s_gt2[warp],
-                                    s_rice[warp]);
+                                    s_rice[warp], false);
     if (lane == 0) out[t] = bits;
 }
 

@@ -2,9 +2,11 @@
 // kernels that price levels with it (tu_bits.cu, b_txq.cu).
 //
 // What it computes: `tpuhevc/entropy/bitest.py:286-378`
-// (`ResidualBitEst.tu_bits`, sbh off) as tu_bits.cu's header sets out:
-// the last position, the coded-sub-block flags, the significance flags,
-// the gt1/gt2 bins, the Golomb-Rice remainders and the signs. The three
+// (`ResidualBitEst.tu_bits`) as tu_bits.cu's header sets out: the last
+// position, the coded-sub-block flags, the significance flags, the
+// gt1/gt2 bins, the Golomb-Rice remainders and the signs; with `sbh`, one
+// sign bit fewer per CG whose first and last nonzero in-CG scan positions
+// lie 4 or more apart (the reference's sbh branch, :367-376). The three
 // fractional sums are taken in double (exact in any order: every table
 // value is a multiple of 2^-15) and rounded once to float32, then the
 // partial sums are added in float32 in the reference's order.
@@ -40,11 +42,11 @@ __device__ __forceinline__ double warp_sum(double v) {
 
 // lv: the S x S levels; itab / ftab: the estimator's tables
 // (entropy/bitest.py `_ioffsets` / `_foffsets`); csbf .. rice: this
-// warp's kMaxCg ints each of shared scratch.
+// warp's kMaxCg ints each of shared scratch; sbh: price sign-bit hiding.
 __device__ float tu_bits_warp(const int* lv, const int* __restrict__ itab,
                               const float* __restrict__ ftab, int log2,
                               int* csbf, int* nsig, int* ngt1, int* gt2,
-                              int* rice) {
+                              int* rice, bool sbh) {
     const int lane = threadIdx.x & 31;
     const int S = 1 << log2, n2 = S * S, mask = S - 1;
     const int cgw = S > 4 ? S >> 2 : 1, ncg = cgw * cgw;
@@ -64,11 +66,11 @@ __device__ float tu_bits_warp(const int* lv, const int* __restrict__ itab,
     const float* lastx = csbf_bits + 12;
     const float* lasty = csbf_bits + 28;
 
-    // pass 1: per-CG statistics and the last position
-    int last = -1;
+    // pass 1: per-CG statistics, the last position, the hiding CGs
+    int last = -1, nhide = 0;
     for (int g = lane; g < ncg; g += 32) {
         const int cy = g / cgw, cx = g - cy * cgw;
-        int ns = 0, n1 = 0, any2 = 0, mx = 0;
+        int ns = 0, n1 = 0, any2 = 0, mx = 0, lo = 16, hi = -1;
         for (int i = 0; i < 16; ++i) {
             const int e = (cy * 4 + (i >> 2)) * S + cx * 4 + (i & 3);
             const int a = abs(lv[e]);
@@ -76,8 +78,13 @@ __device__ float tu_bits_warp(const int* lv, const int* __restrict__ itab,
             n1 += a > 1;
             any2 |= a > 2;
             mx = max(mx, a);
-            if (a > 0) last = max(last, scan_pos[e]);
+            if (a > 0) {
+                last = max(last, scan_pos[e]);
+                lo = min(lo, scan_pos[e] & 15);
+                hi = max(hi, scan_pos[e] & 15);
+            }
         }
+        nhide += sbh && ns > 0 && hi - lo >= 4;
         csbf[g] = ns > 0;
         nsig[g] = ns;
         ngt1[g] = n1;
@@ -145,7 +152,7 @@ __device__ float tu_bits_warp(const int* lv, const int* __restrict__ itab,
     b12_sum = warp_sum(b12_sum);
     sig_sum = warp_sum(sig_sum);
     rice_sum = warp_sum(rice_sum);
-    nsign = warp_sum(nsign);
+    nsign = warp_sum(nsign) - warp_sum(nhide);
     float bits = lastx[group_idx[scan_x[lastc]]]
                  + lasty[group_idx[scan_y[lastc]]];
     bits = bits + (float)csbf_sum;

@@ -2,17 +2,22 @@
 
 Twin of `_txq_luma` and the `_txq_chroma` closure of `class_code`
 (`tpuhevc/codec/inter_grid.py:1718-1750,1822-1851`), with the plane
-transforms of :342-383 and the flat quantiser (no RDOQ, no sign hiding,
-8-bit): over an (h, w) plane tiled into T x T TUs (T in 4..32),
+transforms of :342-383, the flat quantiser or the grid's RDOQ
+(`rdoq_plane`, :399-559) and, optionally, sign-bit hiding (`ideal_plane`,
+`sbh_plane`, :561-631), 8-bit: over an (h, w) plane tiled into T x T TUs
+(T in 4..32),
 
   r = orig - pred; c = forward DCT (rows then columns, as `fwd_tx`);
   lvl = clip(sign(c) ((|c| scale + (85 << (qbits - 9))) >> qbits), +-lim),
         lim = 127 when the frame's levels are packed as int8, else 32767;
+        with rdoq, lvl = `rdoq_tiles` (per coefficient ceil / ceil-1 / 0,
+        the per-CG all-zero trial, the last-position walk-back);
+        with sbh, lvl = `sbh_tiles(lvl, ideal)` per 4x4 CG;
   rec = nz ? clip(pred + IDCT(dequant(lvl)), 0, 255) : pred;
   d_skip, d_coded = the TU's SSE of orig - pred and orig - rec (int32
         sums, then float32);
   bits = the table bit estimate of lvl (`entropy.bitest.tu_bits` with the
-        estimator's live tables);
+        estimator's live tables; one sign bit fewer per hiding CG with sbh);
   drop = d_skip + lam cbf0 <= d_coded + lam (bits + cbf1), float32 with
         every product rounded on its own;
   dropped TUs: lvl 0, rec = pred, d = d_skip, b = cbf0, cbf count 0;
@@ -21,7 +26,15 @@ transforms of :342-383 and the flat quantiser (no RDOQ, no sign hiding,
 Chroma runs the same function over the packed [U | V] plane at the
 chroma QP with the chroma lambda, estimator and cbf bits. `grid_code_plain`
 is the PyTorch version; `grid_code` launches `kernels/csrc/grid_code.cu`
-for CUDA tensors.
+(RDOQ and SBH in `grid_rdoq.cuh`) for CUDA tensors.
+
+The RDOQ's float32 sums follow the order in which XLA's CPU backend adds
+them (measured against `inter_grid._PROBES["rdoq_plane"]`): a 4x4 CG sum
+in raster order, one after the other; a cumulative sum over scan
+positions in blocks of 16 (each block left to right, the blocks' totals
+scanned the same way, recursively, and added to the later blocks); a
+whole-TU sum in chunks of 32, each left to right, the chunks' sums left to
+right.
 """
 
 from __future__ import annotations
@@ -33,10 +46,15 @@ from ..device import check_tensor
 from ..entropy.bitest import EstTables, tu_bits_plain
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
-from ..utils.tables import dct_matrix
+from ..entropy.bitest import bit_length_minus1, rice_param, up4
+from ..utils.tables import (MAX_TR_DYNAMIC_RANGE, QUANT_SCALES, SCAN_DIAG,
+                            dct_matrix, scan_order)
 from .intra import blocks, unblocks
 from .transforms import (dequant_params, forward_transform, inverse_transform,
                          quant_params)
+
+F32 = np.float32
+SBH_INF = 1e30  # the reference's stand-in for an impossible SBH change
 
 
 def up(p: torch.Tensor, t: int) -> torch.Tensor:
@@ -44,9 +62,217 @@ def up(p: torch.Tensor, t: int) -> torch.Tensor:
     return p.repeat_interleave(t, -2).repeat_interleave(t, -1)
 
 
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, left to right in float32."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def seq_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over the last dim, left to right in
+    float32 (torch.cumsum accumulates float32 in double on the CPU)."""
+    out = torch.empty_like(x)
+    acc = x[..., 0]
+    out[..., 0] = acc
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+        out[..., i] = acc
+    return out
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.cumsum` over the last dim (a multiple of 16, or shorter) in
+    XLA CPU's order: blocks of 16 scanned left to right, the blocks'
+    totals scanned the same way, each block's exclusive prefix added."""
+    L = x.shape[-1]
+    if L <= 16:
+        return seq_cumsum(x)
+    inner = seq_cumsum(x.reshape(*x.shape[:-1], L // 16, 16))
+    outer = xla_cumsum(inner[..., 15].contiguous())
+    excl = torch.zeros_like(outer)
+    excl[..., 1:] = outer[..., :-1]
+    return (inner + excl[..., None]).reshape(x.shape)
+
+
+def xla_rowsum(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.sum` over the last dim (16 or a multiple of 32) in XLA CPU's
+    order: chunks of 32 left to right, then the chunks' sums."""
+    L = x.shape[-1]
+    if L <= 32:
+        return seq_sum(x)
+    return seq_sum(seq_sum(x.reshape(*x.shape[:-1], L // 32, 32)))
+
+
+def cg_sum16(x: torch.Tensor) -> torch.Tensor:
+    """(n, S, S) -> (n, S/4, S/4) 4x4-CG sums in raster order, one after
+    the other (the reference's `tile_sum(., 4)`)."""
+    n, S = x.shape[0], x.shape[-1]
+    g = x.reshape(n, S // 4, 4, S // 4, 4).permute(0, 1, 3, 2, 4)
+    return seq_sum(g.reshape(n, S // 4, S // 4, 16))
+
+
+def _scan_geom(est: EstTables):
+    """Raster index of each diagonal scan position of the TU."""
+    return (est.scan_y * est.S + est.scan_x).long()
+
+
+def rdoq_tiles(c: torch.Tensor, qp: int, log2: int, lam32: torch.Tensor,
+               est: EstTables, lim: int) -> torch.Tensor:
+    """`rdoq_plane` on (n, S, S) coefficient tiles -> levels (int64)."""
+    n, S = c.shape[0], 1 << log2
+    dev = c.device
+    per, rem = qp // 6, qp % 6
+    tshift = MAX_TR_DYNAMIC_RANGE - 8 - log2
+    qbits = 14 + per + tshift
+    scale = F32(QUANT_SCALES[rem])
+    q2 = torch.tensor(F32(1 << qbits), device=dev)
+    err_den = torch.tensor(F32(int(QUANT_SCALES[rem]) * (1 << tshift)),
+                           device=dev)
+    ac = c.abs().float() * torch.tensor(scale, device=dev)
+    lmax = torch.ceil(ac / q2)
+    s0 = est.sig_bits[0, :, :, 0][None]
+    s1 = est.sig_bits[0, :, :, 1][None]
+    is_cg0 = torch.zeros((S, S), dtype=torch.bool, device=dev)
+    is_cg0[:4, :4] = True
+    g1, g10, g2, g20 = (est.gt1_bits, est.gt1_bits0, est.gt2_bits,
+                        est.gt2_bits0)
+    gt1_0 = torch.where(is_cg0, g10[0], g1[0])
+    gt1_1 = torch.where(is_cg0, g10[1], g1[1])
+    gt2_0 = torch.where(is_cg0, g20[0], g2[0])
+    gt2_1 = torch.where(is_cg0, g20[1], g2[1])
+    cgw = S // 4
+    rice = up4(rice_param(lmax.reshape(n, cgw, 4, cgw, 4).amax(dim=4)
+                          .amax(dim=2)))
+    one, zero = torch.ones((), device=dev), torch.zeros((), device=dev)
+
+    def lvl_bits(level):
+        r = (level - 3.0).clamp(min=0.0).long()
+        three = 3 << rice
+        esc = bit_length_minus1(((r - three).clamp(min=0) >> rice) + 1)
+        rl = torch.where(r < three, ((r >> rice) + 1 + rice),
+                         (4 + rice) + 2 * esc).float()
+        w2 = torch.where(level > 2.0, (gt2_1 - gt2_0) + rl, zero)
+        w1 = torch.where(level > 1.0, ((gt1_1 - gt1_0) + gt2_0) + w2, zero)
+        return ((s1 + one) + gt1_0) + w1
+
+    def bits_of(level):
+        return torch.where(level > 0, lvl_bits(level), s0)
+
+    def cost(level):
+        d = (ac - level * q2) / err_den
+        return d * d + lam32 * bits_of(level)
+
+    l1 = lmax.clamp(min=0.0)
+    l2 = (lmax - 1.0).clamp(min=0.0)
+    best = torch.where(cost(l1) <= cost(l2), l1, l2)
+    best = torch.where(cost(best) <= cost(torch.zeros_like(best)), best,
+                       zero)
+    csbf = est.csbf_bits
+    dz = (ac - best * q2) / err_den
+    ck = cg_sum16(dz * dz + lam32 * bits_of(best))
+    acn = ac / err_den
+    czp = acn * acn
+    cz = cg_sum16(czp)
+    keep = up4(ck + lam32 * csbf[0, 1] <= cz + lam32 * csbf[0, 0])
+    best = torch.where(keep, best, zero)
+    # the last-position walk-back over scan positions
+    dzl = (ac - best * q2) / err_den
+    cc = torch.where(keep,
+                     dzl * dzl + lam32 * (bits_of(best) + csbf[0, 1] / 16.0),
+                     czp + lam32 * csbf[0, 0] / 16.0)
+    sr = _scan_geom(est)
+    n2 = S * S
+    ccs = cc.reshape(n, n2)[:, sr]
+    czs = czp.reshape(n, n2)[:, sr]
+    bs = best.reshape(n, n2)[:, sr]
+    s1s = s1.reshape(1, n2)[:, sr]
+    pref = xla_cumsum(ccs) - ccs
+    suf = xla_rowsum(czs)[:, None] - xla_cumsum(czs)
+    gi = est.group_idx
+    lbv = (lam32 * est.lastx_bits[gi[est.scan_x]]
+           + lam32 * est.lasty_bits[gi[est.scan_y]])[None]
+    costp = (((pref + ccs) - lam32 * s1s) + lbv) + suf
+    costp = torch.where(bs > 0, costp, torch.tensor(float("inf"),
+                                                    device=dev))
+    pbest = torch.argmin(costp, dim=1)
+    k = torch.arange(n2, device=dev)[None]
+    bs = torch.where(k <= pbest[:, None], bs, zero)
+    best = torch.zeros_like(bs)
+    best[:, sr] = bs
+    lv = torch.sign(c) * best.reshape(n, S, S).long()
+    return lv.clamp(-lim, lim)
+
+
+def ideal_tiles(c: torch.Tensor, qp: int, log2: int) -> torch.Tensor:
+    """`ideal_plane`: the signed pre-rounding level c scale / 2^qbits."""
+    per, rem = qp // 6, qp % 6
+    qbits = 14 + per + MAX_TR_DYNAMIC_RANGE - 8 - log2
+    scale = torch.tensor(F32(QUANT_SCALES[rem]), device=c.device)
+    return c.float() * scale / torch.tensor(F32(1 << qbits),
+                                            device=c.device)
+
+
+_S4 = np.asarray(scan_order(2, SCAN_DIAG), np.int64)  # scan pos -> raster
+
+
+def _cg_rows(x: torch.Tensor) -> torch.Tensor:
+    """(n, S, S) -> (n * (S/4)^2, 16) rows of 4x4 CGs in diagonal scan."""
+    n, S = x.shape[0], x.shape[-1]
+    g = x.reshape(n, S // 4, 4, S // 4, 4).permute(0, 1, 3, 2, 4)
+    return g.reshape(-1, 16)[:, torch.as_tensor(_S4, device=x.device)]
+
+
+def _from_cg_rows(rows: torch.Tensor, n: int, S: int) -> torch.Tensor:
+    raster = torch.empty_like(rows)
+    raster[:, torch.as_tensor(_S4, device=rows.device)] = rows
+    return raster.reshape(n, S // 4, S // 4, 4, 4).permute(
+        0, 1, 3, 2, 4).reshape(n, S, S)
+
+
+def sbh_tiles(lvl: torch.Tensor, ideal: torch.Tensor,
+              lim: int) -> torch.Tensor:
+    """`sbh_plane` on (n, S, S) levels (int64) with the ideal levels: per
+    4x4 CG whose nonzero scan span is 4 or more, change one level by +-1
+    where the parity of the CG's sum disagrees with the first level's
+    sign, at the first least |change - ideal| of the +1 then the -1
+    candidates."""
+    n, S = lvl.shape[0], lvl.shape[-1]
+    lv = _cg_rows(lvl)
+    iv = _cg_rows(ideal)
+    a = lv.abs()
+    nz = a > 0
+    pos = torch.arange(16, device=lvl.device)[None]
+    first = torch.where(nz, pos, 16).amin(dim=1, keepdim=True)
+    last = torch.where(nz, pos, -1).amax(dim=1, keepdim=True)
+    hide = (last - first) >= 4
+    first_sel = pos == first.clamp(max=15)
+    want = torch.where(first_sel, lv, 0).sum(dim=1, keepdim=True) < 0
+    need = hide & ((a.sum(dim=1, keepdim=True) & 1) != want.long())
+    ia = iv.abs()
+    in_rng = (pos >= first) & (pos <= last)
+    inf = torch.tensor(SBH_INF, dtype=torch.float32, device=lvl.device)
+    err_up = torch.where(in_rng & (a + 1 <= lim),
+                         ((a + 1).float() - ia).abs(), inf)
+    bad_dn = (a == 0) | ((pos == first) & (a == 1))
+    err_dn = torch.where(in_rng & ~bad_dn, ((a - 1).float() - ia).abs(), inf)
+    bi = torch.argmin(torch.cat([err_up, err_dn], dim=1), dim=1,
+                      keepdim=True)
+    sel = pos == bi % 16
+    d_abs = torch.where(bi < 16, 1, -1)
+    sgn = torch.where(sel, lv, 0).sum(dim=1, keepdim=True)
+    isgn = torch.where(sel, iv, torch.zeros_like(iv)).sum(dim=1,
+                                                          keepdim=True)
+    sgn = torch.where(sgn != 0, torch.sign(sgn),
+                      torch.where(isgn >= 0, 1, -1))
+    delta = torch.where(need & sel, sgn * d_abs, 0)
+    return _from_cg_rows(lv + delta, n, S)
+
+
 def grid_code_plain(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
                     lam: float, est: EstTables, cbf0: float, cbf1: float,
-                    lvl8: bool):
+                    lvl8: bool, rdoq: bool = False, sbh: bool = False):
     """orig, pred (h, w) int32 -> (lvl, rec (h, w) int32; d, bits
     (h/T, w/T) float32; cbf (h/T, w/T) int32; d_skip float32)."""
     h, w = orig.shape
@@ -54,9 +280,15 @@ def grid_code_plain(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
     scale, add, qbits = quant_params(qp, log2, 8, False)
     lim = 127 if lvl8 else 32767
     g = (h // T, w // T)
+    lam32 = torch.tensor(lam, dtype=torch.float32, device=orig.device)
     c = forward_transform(blocks(orig - pred, T, *g)).long()
-    lv = (torch.sign(c) * ((c.abs() * scale + add) >> qbits)).clamp(
-        -lim, lim)
+    if rdoq:
+        lv = rdoq_tiles(c, qp, log2, lam32, est, lim)
+    else:
+        lv = (torch.sign(c) * ((c.abs() * scale + add) >> qbits)).clamp(
+            -lim, lim)
+    if sbh:
+        lv = sbh_tiles(lv, ideal_tiles(c, qp, log2), lim)
     dqs, dqsh = dequant_params(qp, log2, 8)
     x = lv * dqs
     dq = ((x + (1 << (dqsh - 1))) >> dqsh if dqsh > 0 else x << -dqsh)
@@ -68,10 +300,9 @@ def grid_code_plain(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
     d_skip = ((ot - pt) ** 2).sum(dim=(1, 2)).int().float()
     d_coded = ((ot - rec) ** 2).sum(dim=(1, 2)).int().float()
     lvt = lv.int()
-    bits = tu_bits_plain(est, lvt)
-    lam32 = torch.tensor(lam, dtype=torch.float32)
-    c0 = torch.tensor(cbf0, dtype=torch.float32)
-    c1 = torch.tensor(cbf1, dtype=torch.float32)
+    bits = tu_bits_plain(est, lvt, sbh)
+    c0 = torch.tensor(cbf0, dtype=torch.float32, device=orig.device)
+    c1 = torch.tensor(cbf1, dtype=torch.float32, device=orig.device)
     drop = d_skip + lam32 * c0 <= d_coded + lam32 * (bits + c1)
     lvt = torch.where(drop[:, None, None], 0, lvt)
     rec = torch.where(drop[:, None, None], pt, rec)
@@ -96,11 +327,12 @@ def _init(dev: torch.device) -> None:
 
 def grid_code(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
               lam: float, est: EstTables, cbf0: float, cbf1: float,
-              lvl8: bool):
+              lvl8: bool, rdoq: bool = False, sbh: bool = False):
     """Kernel `grid_code`. CPU tensors take the plain version; CUDA
     tensors the kernel."""
     if orig.device.type == "cpu":
-        return grid_code_plain(orig, pred, T, qp, lam, est, cbf0, cbf1, lvl8)
+        return grid_code_plain(orig, pred, T, qp, lam, est, cbf0, cbf1, lvl8,
+                               rdoq, sbh)
     if orig.device.type != "cuda":
         raise ValueError(f"grid_code: unsupported device {orig.device}")
     dev = orig.device
@@ -127,12 +359,12 @@ def grid_code(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
     f32 = np.float32
     fn = kbuild.function(
         "grid_code", "tpuhevc_grid_code",
-        [kbuild.P] * 10 + [kbuild.I] * 9 + [kbuild.F] * 3 + [kbuild.P])
+        [kbuild.P] * 10 + [kbuild.I] * 11 + [kbuild.F] * 3 + [kbuild.P])
     err = fn(orig.data_ptr(), pred.data_ptr(), est.itab.data_ptr(),
              est.ftab.data_ptr(), lvl.data_ptr(), rec.data_ptr(),
              d.data_ptr(), b.data_ptr(), cbf.data_ptr(), d0.data_ptr(),
              h, w, log2, scale, add, qbits, dqs, dqsh, 127 if lvl8 else 32767,
-             f32(lam), f32(cbf0), f32(cbf1),
+             int(rdoq), int(sbh), f32(lam), f32(cbf0), f32(cbf1),
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "grid_code")
     LAUNCHES["grid_code"] += 1

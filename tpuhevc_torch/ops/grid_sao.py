@@ -1,0 +1,320 @@
+"""The grid step's sample adaptive offset of a P picture (kernel `grid_sao`).
+
+Twin of `sao_device` (`tpuhevc/codec/inter_grid.py:1427-1494`) with
+`_eo_cat`, `_ctu_sum`, `_cls_hist`, `_sao_stats`, `_best_eo`,
+`_eval_eo_all`, `_eval_bo`, `_sao_decide_plane` and `_sao_apply_plane`
+(:1258-1425), on the deblocked picture:
+
+1. stats (kernel launch 1): per CTU of each component (luma CTUs of
+   `ctu`, chroma of ctu / 2), the count and the sum of org - rec of each
+   edge-offset category 1-4 of each of the four EO classes (categories
+   from the deblocked picture, invalid at the picture's border in the
+   class's direction) and of each of the 32 bands (rec >> 3); int32 sums,
+   which the reference's float32 sums equal (|sum| <= 64 * 64 * 255 <
+   2^24, so they are exact);
+2. the per-CTU rate-distortion decision, torch glue in float32 in the
+   reference's operation order: the best offsets of each EO class and of
+   the band offset, the luma type, the chroma type shared by Cb and Cr
+   (at the chroma lambda lam / 2^((qp - qpc) / 3)), and the picture-level
+   on/off choice of the two components over four configurations;
+3. apply (kernel launch 2): per sample the EO or band offset of its CTU's
+   type, from the unfiltered (deblocked) input, clipped to 8 bits.
+
+The packed parameters are the int8 rows the host half reads (type_y,
+aux_y, off_y, type_c, aux_cb, off_cb, aux_cr, off_cr). `grid_sao_plain`
+takes the plain stats and apply; `grid_sao` launches
+`kernels/csrc/grid_sao.cu` for CUDA tensors. The decision glue is shared.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import check_tensor
+from ..kernels import LAUNCHES
+from ..kernels import build as kbuild
+from ..utils.tables import chroma_qp
+from .sao import EO_NEIGHBORS
+
+SAO_INF = 1e18  # the reference's cost of an offset out of reach
+NSTAT = 48  # per CTU: 16 EO (class-major, categories 1-4), 32 bands
+_CAT = (1, 2, 0, 3, 4)  # EO category of sign(r - n0) + sign(r - n1) + 2
+
+
+def eo_cat(rec: torch.Tensor, klass: int):
+    """(category (h, w) int64 in 0..4, valid (h, w) bool) of EO class
+    `klass` (`_eo_cat`; neighbours read at clamped coordinates)."""
+    hh, ww = rec.shape
+    dev = rec.device
+    yy = torch.arange(hh, device=dev)[:, None]
+    xx = torch.arange(ww, device=dev)[None]
+    et = torch.zeros((hh, ww), dtype=torch.int64, device=dev)
+    valid = torch.ones((hh, ww), dtype=torch.bool, device=dev)
+    for dy, dx in EO_NEIGHBORS[klass]:
+        nb = rec[(yy + dy).clamp(0, hh - 1), (xx + dx).clamp(0, ww - 1)]
+        et = et + torch.sign(rec - nb).long()
+        if dx:
+            valid &= (xx + dx >= 0) & (xx + dx < ww)
+        if dy:
+            valid &= (yy + dy >= 0) & (yy + dy < hh)
+    cat = torch.as_tensor(_CAT, device=dev)[et + 2]
+    return cat, valid
+
+
+def _ctu_index(hh: int, ww: int, ctu: int, dev):
+    ny, nx = -(-hh // ctu), -(-ww // ctu)
+    cy = torch.arange(hh, device=dev) // ctu
+    cx = torch.arange(ww, device=dev) // ctu
+    return (cy[:, None] * nx + cx[None]), ny, nx
+
+
+def sao_stats_plain(org: torch.Tensor, rec: torch.Tensor, ctu: int):
+    """One component -> (count, sum) (ny * nx, 48) int32 per CTU."""
+    hh, ww = rec.shape
+    ci, ny, nx = _ctu_index(hh, ww, ctu, rec.device)
+    diff = (org - rec).long()
+    cls = []
+    for k in range(4):
+        cat, valid = eo_cat(rec, k)
+        cls.append(torch.where(valid & (cat > 0), 4 * k + cat - 1, -1))
+    cls.append(16 + (rec >> 3).long())
+    cnt = torch.zeros((ny * nx * NSTAT,), dtype=torch.int64,
+                      device=rec.device)
+    sm = torch.zeros_like(cnt)
+    for c in cls:
+        on = c >= 0
+        idx = (ci * NSTAT + c)[on]
+        cnt.index_add_(0, idx, torch.ones_like(idx))
+        sm.index_add_(0, idx, diff[on])
+    return (cnt.reshape(ny * nx, NSTAT).int(),
+            sm.reshape(ny * nx, NSTAT).int())
+
+
+def sao_apply_plain(rec: torch.Tensor, types: torch.Tensor,
+                    aux: torch.Tensor, off4: torch.Tensor, ctu: int):
+    """One component: rec + the offset of each sample's CTU type (EO
+    class 0-3 by category, band offset 4 at bands aux..aux+3), clipped."""
+    hh, ww = rec.shape
+    ci, _, _ = _ctu_index(hh, ww, ctu, rec.device)
+    t = types.reshape(-1).long()[ci]
+    o = off4.reshape(-1, 4).long()
+    out = rec.long()
+    zero = torch.zeros_like(o[:, 0])
+    lut = torch.stack([zero, o[:, 0], o[:, 1], -o[:, 2], -o[:, 3]], -1)
+    for k in range(4):
+        cat, valid = eo_cat(rec, k)
+        out = out + torch.where(valid & (t == k), lut[ci, cat], 0)
+    band = (rec >> 3).long()
+    rel = (band - aux.reshape(-1).long()[ci]) % 32
+    addb = o[ci, rel.clamp(max=3)]
+    out = out + torch.where((t == 4) & (rel < 4), addb, 0)
+    return out.clamp(0, 255).int()
+
+
+# --- the per-CTU decision (float32 glue, the reference's order) -------------
+
+def _best_eo(cnt, s, lam, sign: float):
+    start = torch.round(sign * s / cnt.clamp(min=1.0)).clamp(0, 7).long()
+    ob = torch.arange(8, dtype=torch.float32, device=cnt.device)
+    d = cnt[..., None] * ob * ob - 2.0 * ob * (sign * s)[..., None]
+    cost = d + lam * (ob + 1.0)
+    cost = torch.where(torch.arange(8, device=cnt.device) <= start[..., None],
+                       cost, torch.tensor(SAO_INF, device=cnt.device))
+    bi = torch.argmin(cost, -1)
+    return bi.int(), torch.gather(cost, -1, bi[..., None])[..., 0]
+
+
+def _eval_eo_all(eo_cnt, eo_sum, lam):
+    """(n, 4 classes, 4 cats) -> offsets (n, 4, 4), cost (n, 4)."""
+    offs, costs = [], []
+    for cat in range(4):
+        o, c = _best_eo(eo_cnt[..., cat], eo_sum[..., cat], lam,
+                        1.0 if cat < 2 else -1.0)
+        offs.append(o)
+        costs.append(c)
+    total = ((costs[0] + costs[1]) + costs[2]) + costs[3]
+    return torch.stack(offs, -1), total + lam * 2.0
+
+
+def _eval_bo(bo_cnt, bo_sum, lam):
+    """(n, 32) -> (off4 (n, 4), pos (n,), cost (n,))."""
+    dev = bo_cnt.device
+    start = torch.round(bo_sum / bo_cnt.clamp(min=1.0)).clamp(-7, 7)
+    m = torch.arange(8, dtype=torch.float32, device=dev)
+    sgn = torch.where(start >= 0, 1.0, -1.0)[..., None]
+    o = sgn * m
+    d = bo_cnt[..., None] * o * o - 2.0 * o * bo_sum[..., None]
+    cost = d + lam * (m + 2.0)
+    cost = torch.where(m <= start.abs()[..., None], cost,
+                       torch.tensor(SAO_INF, device=dev))
+    cost[..., 0] = lam
+    bi = torch.argmin(cost, -1)
+    bo = (sgn[..., 0] * bi.float()).int()
+    bc = torch.gather(cost, -1, bi[..., None])[..., 0]
+    # the 29 four-band windows, each summed left to right
+    wins = ((bc[..., :29] + bc[..., 1:30]) + bc[..., 2:31]) + bc[..., 3:]
+    pos = torch.argmin(wins, -1)
+    off4 = torch.stack([torch.gather(bo, -1, (pos + i)[..., None])[..., 0]
+                        for i in range(4)], -1)
+    cost = torch.gather(wins, -1, pos[..., None])[..., 0] + lam * 5.0
+    return off4, pos.int(), cost
+
+
+def _decide_plane(cnt, sm, lam, type_bits):
+    """One component's (count, sum) float32 (n, 48) -> (type, aux, off4,
+    cost, the per-class EO offsets and costs, the BO offsets, position,
+    cost)."""
+    eo_cnt, eo_sum = cnt[:, :16].reshape(-1, 4, 4), sm[:, :16].reshape(
+        -1, 4, 4)
+    eo_offs, eo_cost = _eval_eo_all(eo_cnt, eo_sum, lam)
+    bo_off, bo_pos, bo_cost = _eval_bo(cnt[:, 16:], sm[:, 16:], lam)
+    costs = torch.stack([lam.expand(bo_cost.shape)]
+                        + [eo_cost[:, k] + type_bits for k in range(4)]
+                        + [bo_cost + type_bits], -1)
+    bi = torch.argmin(costs, -1)
+    typ, aux, off = _select(bi, eo_offs, bo_off, bo_pos)
+    cost = torch.gather(costs, -1, bi[:, None])[:, 0]
+    return typ, aux, off, cost, eo_offs, eo_cost, bo_off, bo_pos, bo_cost
+
+
+def _select(bi, eo_offs, bo_off, bo_pos):
+    """Candidate index (0 off, 1-4 EO class, 5 BO) -> (type, aux, off4)."""
+    typ = torch.where(bi == 0, -1, torch.where(bi <= 4, bi - 1, 4)).int()
+    aux = torch.where(bi == 5, bo_pos, 0).int()
+    off = torch.zeros_like(eo_offs[:, 0])
+    for k in range(4):
+        off = torch.where((bi == k + 1)[:, None], eo_offs[:, k], off)
+    off = torch.where((bi == 5)[:, None], bo_off, off)
+    return typ, aux, off
+
+
+def xla_sum2d(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.sum` of an (ny, nx) float32 array in XLA CPU's order for the
+    picture grids in use (measured): row sums left to right, then the
+    rows left to right, or ((r0 + r2) + (r1 + r3)) for four rows."""
+    def seq(v):
+        acc = v[0]
+        for i in range(1, v.shape[0]):
+            acc = acc + v[i]
+        return acc
+
+    if x.shape[0] == 4:
+        r = [seq(x[i]) for i in range(4)]
+        return (r[0] + r[2]) + (r[1] + r[3])
+    if x.shape[0] <= 2:
+        return seq(torch.stack([seq(row) for row in x]))
+    return seq(x.reshape(-1))
+
+
+def sao_decide(stats, lam: torch.Tensor, qp: int, ny: int, nx: int):
+    """stats: [(count, sum) int32 (ny nx, 48)] of Y, Cb, Cr -> the int8
+    parameter rows (type_y, aux_y, off_y, type_c, aux_cb, off_cb, aux_cr,
+    off_cr), each (ny * nx[, 4]) int32."""
+    (cy, sy), (ccb, scb), (ccr, scr) = [(c.float(), s.float())
+                                        for c, s in stats]
+    ty, ay, offy, cost_y = _decide_plane(cy, sy, lam, 2.0 * lam)[:4]
+    dev = lam.device
+    wch = torch.tensor(np.float32(2.0 ** ((qp - chroma_qp(qp)) / 3.0)),
+                       device=dev)
+    lam_c = lam / wch
+    zero = torch.zeros((), device=dev)
+    _, _, _, _, eo_cb, ec_cb, bo_cb, bp_cb, bc_cb = _decide_plane(
+        ccb, scb, lam_c, zero)
+    _, _, _, _, eo_cr, ec_cr, bo_cr, bp_cr, bc_cr = _decide_plane(
+        ccr, scr, lam_c, zero)
+    joint = torch.stack(
+        [lam_c.expand(bc_cb.shape)]
+        + [((ec_cb[:, k] + ec_cr[:, k]) - 2.0 * lam_c) + 2.0 * lam_c
+           for k in range(4)]
+        + [(bc_cb + bc_cr) + 2.0 * lam_c], -1)
+    bi = torch.argmin(joint, -1)
+    tc, acb, ocb = _select(bi, eo_cb, bo_cb, bp_cb)
+    _, acr, ocr = _select(bi, eo_cr, bo_cr, bp_cr)
+    n_flags = torch.tensor(np.float32(ny * (nx - 1) + (ny - 1) * nx),
+                           device=dev)
+    cost_c = torch.gather(joint, -1, bi[:, None])[:, 0]
+    sum_y = xla_sum2d(cost_y.reshape(ny, nx))
+    sum_c = xla_sum2d(cost_c.reshape(ny, nx))
+    floor = lam * n_flags
+    cfgs = torch.stack([zero, sum_y + floor, sum_c + floor,
+                        (sum_y + sum_c) + floor])
+    ci = torch.argmin(cfgs)  # stays on the device: no host sync
+    ty = torch.where((ci == 1) | (ci == 3), ty, -1).int()
+    tc = torch.where((ci == 2) | (ci == 3), tc, -1).int()
+    return ty, ay, offy, tc, acb, ocb, acr, ocr
+
+
+def _sao(oy, ouv, rec_y, rec_uv, lam, qp, ctu, stats_fn, apply_fn):
+    wc = ouv.shape[1] // 2
+    comps = ((oy, rec_y, ctu), (ouv[:, :wc], rec_uv[:, :wc], ctu // 2),
+             (ouv[:, wc:], rec_uv[:, wc:], ctu // 2))
+    H, W = rec_y.shape
+    ny, nx = -(-H // ctu), -(-W // ctu)
+    stats = stats_fn(comps)
+    p = sao_decide(stats, lam, qp, ny, nx)
+    ty, ay, offy, tc, acb, ocb, acr, ocr = p
+    new = apply_fn(comps, ((ty, ay, offy), (tc, acb, ocb), (tc, acr, ocr)))
+    params = torch.cat([x.to(torch.int8).reshape(-1) for x in p])
+    return new[0], torch.cat(new[1:], dim=1).contiguous(), params
+
+
+def grid_sao_plain(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int,
+                   ctu: int):
+    """oy, rec_y (H, W), ouv, rec_uv (H/2, W) packed [U | V] int32; lam the
+    frame lambda (float32 0-dim tensor) -> (rec_y, rec_uv) after SAO and
+    the packed int8 parameters."""
+    return _sao(oy, ouv, rec_y, rec_uv, lam, qp, ctu,
+                lambda comps: [sao_stats_plain(o, r, c) for o, r, c in comps],
+                lambda comps, prm: [sao_apply_plain(r, *p, c) for (_, r, c), p
+                                    in zip(comps, prm)])
+
+
+def grid_sao(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int, ctu: int):
+    """Kernel `grid_sao`. CPU tensors take the plain version; CUDA tensors
+    the kernel (two launches: the stats, then the apply)."""
+    if rec_y.device.type == "cpu":
+        return grid_sao_plain(oy, ouv, rec_y, rec_uv, lam, qp, ctu)
+    if rec_y.device.type != "cuda":
+        raise ValueError(f"grid_sao: unsupported device {rec_y.device}")
+    dev = rec_y.device
+    H, W = rec_y.shape
+    for t, name, shape in ((oy, "oy", (H, W)), (ouv, "ouv", (H // 2, W)),
+                           (rec_y, "rec_y", (H, W)),
+                           (rec_uv, "rec_uv", (H // 2, W))):
+        check_tensor(t, name, torch.int32, 2, dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"grid_sao: {name} {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if H % 16 or W % 16 or ctu not in (16, 32, 64):
+        raise ValueError(f"grid_sao: {W}x{H}, CTU {ctu}")
+    ny, nx = -(-H // ctu), -(-W // ctu)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def stats_fn(comps):
+        cnt = torch.empty((3, ny * nx, NSTAT), dtype=torch.int32, device=dev)
+        sm = torch.empty_like(cnt)
+        fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_stats",
+                             [kbuild.P] * 6 + [kbuild.I] * 3 + [kbuild.P])
+        err = fn(oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
+                 rec_uv.data_ptr(), cnt.data_ptr(), sm.data_ptr(), H, W, ctu,
+                 stream)
+        kbuild.check(err, "grid_sao stats")
+        LAUNCHES["grid_sao"] += 1
+        return [(cnt[i], sm[i]) for i in range(3)]
+
+    def apply_fn(comps, prm):
+        par = torch.stack([torch.cat([x.reshape(-1) for x in p])
+                           for p in prm]).int().contiguous()
+        new_y = torch.empty_like(rec_y)
+        new_uv = torch.empty_like(rec_uv)
+        fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_apply",
+                             [kbuild.P] * 5 + [kbuild.I] * 3 + [kbuild.P])
+        err = fn(rec_y.data_ptr(), rec_uv.data_ptr(), par.data_ptr(),
+                 new_y.data_ptr(), new_uv.data_ptr(), H, W, ctu, stream)
+        kbuild.check(err, "grid_sao apply")
+        LAUNCHES["grid_sao"] += 1
+        wc = W // 2
+        return [new_y, new_uv[:, :wc], new_uv[:, wc:]]
+
+    return _sao(oy, ouv, rec_y, rec_uv, lam, qp, ctu, stats_fn, apply_fn)

@@ -6,8 +6,9 @@
 Encodes the synthetic clip of `tools/make_test_clip.py` (seed 7) through
 `codec.encoder.encode_sequence` with one of the repository's cfgs: `ra`
 (cfg/encoder_randomaccess_main.cfg as shipped), `ldp`
-(cfg/encoder_lowdelay_P_main.cfg cut to the LD-P slice: RDOQ, sign hiding,
-SAO and deblocking off) or `intra` (cfg/encoder_intra_main.cfg), QP 32,
+(cfg/encoder_lowdelay_P_main.cfg as shipped: RDOQ, sign hiding, SAO and
+deblocking on, the P pictures through the grid step) or `intra`
+(cfg/encoder_intra_main.cfg), QP 32,
 NN-FME weights random from seed 0. One encode warms up (kernel builds,
 caches), `reps` more are timed on the host clock ended by
 `torch.cuda.synchronize()`, and a last one runs under `torch.profiler`:
@@ -31,9 +32,7 @@ import torch
 
 CFGS = {
     "ra": ("encoder_randomaccess_main.cfg", []),
-    "ldp": ("encoder_lowdelay_P_main.cfg",
-            ["--RDOQ=0", "--SignHideFlag=0", "--SAO=0",
-             "--LoopFilterDisable=1"]),
+    "ldp": ("encoder_lowdelay_P_main.cfg", []),
     "intra": ("encoder_intra_main.cfg", []),
 }
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
