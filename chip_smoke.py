@@ -18,7 +18,10 @@
    every call of one 416x240 P picture of the anchor LD-P cfg as shipped
    (four references, TMVP candidates), captured from the port's grid
    step, and grid_code again at every call of the same picture with the
-   tools cut (the flat quantiser).
+   tools cut (the flat quantiser); grid_subpel, grid_wp_me, grid_stats and
+   the weighted grid_planes at every call of one 416x240 P picture of the
+   anchor cfg with FmeMode dctif, WeightedPredP 1, the checksum hash and
+   no recon fetch, on the fade clip (some weights not the identity).
    Prints the max difference, median times (CUDA events), and each
    kernel's bound: the larger of its bytes (each tensor read or written
    once per picture; a plane that a kernel reads through windows or
@@ -36,12 +39,24 @@
    3, random access: cfg/encoder_randomaccess_main.cfg as shipped at
    416x240, 18 frames (IDR, four GOPs of hierarchical B pictures, POC 17
    as the P tail), once to warm up and once with the counters reset just
-   before; b_me, b_pred, b_txq and K1-K4 must have launched. Decodes every
-   stream with the port's host decoder: every picture hash must match and
-   the recon must equal the encoder's. Cross-checks CUDA against the CPU
-   path (bitstreams byte-identical) at 112x72 for LD-P (the non-grid scan:
-   K1-K4) and all-intra, at 128x64 x 9 for LD-P through the grid step
-   (the anchor's tools on, and cut), and at 64x48 x 6 for random access.
+   before; b_me, b_pred, b_txq and K1-K4 must have launched. Main path 4,
+   LD-P with DCT-IF FME and weighted prediction: the anchor cfg with
+   FmeMode dctif and WeightedPredP 1 on 17 frames of the fade clip
+   (`make_fade_clip`), counters reset just before; the grid kernels with
+   grid_subpel and grid_wp_me must have launched, some MV must be
+   fractional and some slice's weights not the identity. Main path 5,
+   bench.py's configuration (the anchor cfg at QP 32, four references,
+   FmeMode nn without weights, the checksum hash, no recon fetch) on
+   bench.py's clip (`make_clip(416, 240, 32)`) with bench.py's procedure
+   (a 6-frame warm-up, then the best of 4 timed encodes, counters reset
+   before each): grid_stats must have launched, the rows carry no recon.
+   Decodes every stream with the port's host decoder: every picture hash
+   must match and, where the recon was fetched, equal the encoder's.
+   Cross-checks CUDA against the CPU path (bitstreams byte-identical) at
+   112x72 for LD-P (the non-grid scan: K1-K4) and all-intra, at 128x64 x
+   9 for LD-P through the grid step (the anchor's tools on, and cut; with
+   dctif and WP on the fade clip; bench.py's no-fetch configuration), and
+   at 64x48 x 6 for random access.
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -64,7 +79,8 @@ if not torch.cuda.is_available():
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from tools.make_test_clip import make_clip  # noqa: E402
+from tools.make_test_clip import make_clip, make_fade_clip  # noqa: E402
+from tpuhevc_torch.codec import encoder as encoder_mod  # noqa: E402
 from tpuhevc_torch.codec import inter_b, inter_grid, intra_decide  # noqa: E402
 from tpuhevc_torch.codec.decoder import decode_stream  # noqa: E402
 from tpuhevc_torch.codec.encoder import encode_sequence  # noqa: E402
@@ -72,6 +88,7 @@ from tpuhevc_torch.codec.inter_batch import _blk_idx, _positions, _win_idx  # no
 from tpuhevc_torch.codec.intra_decide import decide_intra_qt  # noqa: E402
 from tpuhevc_torch.codec.params import EncoderConfig, SeqParams, p_frame_lambda  # noqa: E402
 from tpuhevc_torch.codec.recon import _pad_to  # noqa: E402
+from tpuhevc_torch.codec.wp import analyse_slice_wp  # noqa: E402
 from tpuhevc_torch.config.options import build_config, parse_args  # noqa: E402
 from tpuhevc_torch.device import require_cuda  # noqa: E402
 from tpuhevc_torch.entropy.bitest import tu_bits, tu_bits_plain  # noqa: E402
@@ -86,10 +103,13 @@ from tpuhevc_torch.ops.grid_deblock import (  # noqa: E402
     boundary_strength, grid_deblock, grid_deblock_plain, tu_cells)
 from tpuhevc_torch.ops.grid_intra import grid_intra16, grid_intra16_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_me import (  # noqa: E402
-    grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain)
+    grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain,
+    grid_wp_me, grid_wp_me_plain)
 from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
-    grid_planes, grid_planes_plain, grid_satd, grid_satd_plain)
+    grid_planes, grid_planes_plain, grid_satd, grid_satd_plain, grid_subpel,
+    grid_subpel_plain, subpel_search)
 from tpuhevc_torch.ops.grid_sao import grid_sao, grid_sao_plain  # noqa: E402
+from tpuhevc_torch.ops.grid_stats import grid_stats, grid_stats_plain  # noqa: E402
 from tpuhevc_torch.ops.interp import (  # noqa: E402
     b_pred, b_pred_plain, mc_blk, mc_blk_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
@@ -138,6 +158,12 @@ SOURCES = {
                      "tpuhevc/codec/inter_grid.py:1217"),
     "grid_sao": ("tpuhevc_torch/kernels/csrc/grid_sao.cu",
                  "tpuhevc/codec/inter_grid.py:1427"),
+    "grid_subpel": ("tpuhevc_torch/kernels/csrc/grid_pred.cu",
+                    "tpuhevc/codec/inter_grid.py:1012"),
+    "grid_wp_me": ("tpuhevc_torch/kernels/csrc/grid_me.cu",
+                   "tpuhevc/codec/inter_grid.py:2352"),
+    "grid_stats": ("tpuhevc_torch/kernels/csrc/grid_stats.cu",
+                   "tpuhevc/codec/inter_grid.py:3170"),
 }
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
@@ -147,6 +173,16 @@ G_KERNELS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
 LDP_NEED = INTRA + G_KERNELS + ("nnfme_mlp",)
 # the random-access path: the B step, the P tail's stage (K1-K4) and K2
 RA_NEED = B_KERNELS + ("nnfme_mlp", "sad_search", "mc_blk", "txq")
+# DCT-IF FME, weighted prediction and the no-fetch tail of the grid step
+F_KERNELS = ("grid_subpel", "grid_wp_me", "grid_stats")
+FME_WP = ["--FmeMode=dctif", "--WeightedPredP=1"]
+NO_FETCH = ["--SEIDecodedPictureHash=3"]
+# LD-P with dctif + WP: the IDR's decision, the grid step, its DCT-IF
+# refinement and weighted ME references (no K2: no NN-FME)
+FWP_NEED = INTRA + G_KERNELS + ("grid_subpel", "grid_wp_me")
+# bench.py's configuration: FmeMode nn without weights runs integer-pel
+BENCH_NEED = INTRA + G_KERNELS + ("grid_stats",)
+BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
 INTRA_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
 RA_CFG = os.path.join(ROOT, "cfg", "encoder_randomaccess_main.cfg")
 N_INTRA = 3  # all-intra pictures (the host walk dominates their time)
@@ -165,8 +201,8 @@ def check(cond, what):
 
 
 class Reader:
-    def __init__(self, w, h, n):
-        raw = make_clip(w, h, n)
+    def __init__(self, w, h, n, fade=False):
+        raw = (make_fade_clip if fade else make_clip)(w, h, n)
         fsz = w * h * 3 // 2
         self.frames = []
         for i in range(n):
@@ -309,6 +345,14 @@ def windows(name, a, kw):
         return [(a[0], boundary_mask(a[0], 16, nh, nw, (0,))),
                 (a[1], boundary_mask(a[1], 8, nh, nw,
                                      (0, a[1].shape[1] // 2)))]
+    if name == "grid_subpel":  # the 18 points' gathers of this run's data
+        planes, _, _, ref, S, nbh, nbw, look = a
+        refc = ref.reshape(1, nbh, nbw).expand(9, -1, -1).contiguous()
+        mask = None
+        for cand in subpel_search(*a)[1]:
+            m = gather_mask(planes, cand, refc, S, look)
+            mask = m if mask is None else mask | m
+        return [(planes, mask)]
     return []
 
 
@@ -419,6 +463,13 @@ def kernel_ops(name, a, kw=None) -> int:
         decide = kw.get("cur", a[6] if len(a) > 6 else None) is not None
         return a[4] * a[5] * ((7 * 256 * 14 if decide else 256 * 4)
                               + 128 * 4)
+    if name == "grid_subpel":  # 18 points: gather, residual, SATD, sums
+        S, nbh, nbw = a[4], a[5], a[6]
+        return 18 * nbh * S * nbw * S * 12 + 2 * nbh * nbw * 9
+    if name == "grid_wp_me":  # multiply, round, shift, offset, clip
+        return a[0].numel() * 5
+    if name == "grid_stats":  # mask, xor, add; difference, square, add
+        return (a[2].numel() + a[3].numel()) * 10
     raise KeyError(name)
 
 
@@ -596,15 +647,26 @@ def intra_cfg(w, h, frames):
 CUT = ["--RDOQ=0", "--SignHideFlag=0", "--SAO=0", "--LoopFilterDisable=1"]
 
 
-def ldp_cfg(npz, w=None, h=None, frames=None, cut=False):
+def ldp_cfg(npz, w=None, h=None, frames=None, cut=False, extra=()):
     """The anchor LD-P cfg at w x h (default: the main path's), as shipped
-    or with its four tools cut."""
+    or with its four tools cut, then the `extra` options (npz None: no
+    NN-FME weights, as bench.py runs it). The recon is fetched unless the
+    hash is the checksum (NO_FETCH: bench.py's cfg, the CLI without
+    `-o`)."""
+    weights = [f"--NNWeightsDir={npz}"] if npz else []
     cfg, _ = build_config(parse_args([
         "-c", os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg"),
         "-wdt", str(w or W), "-hgt", str(h or H), "-f", str(frames or NFRAMES),
         "-q", str(QP),
-        "--FmeMode=nn", f"--NNWeightsDir={npz}"] + (CUT if cut else [])))
+        "--FmeMode=nn"] + weights + (CUT if cut else []) + list(extra)))
+    cfg.fetch_recon = cfg.hash_type != "checksum"
     return cfg
+
+
+def weighted(wp) -> bool:
+    """Whether a slice's WP tables hold a non-identity weight or offset."""
+    return any(wt != [1 << wp.denom_y, 1 << wp.denom_c, 1 << wp.denom_c]
+               or o != [0, 0, 0] for wt, o in zip(wp.weights, wp.offsets))
 
 
 def ra_cfg(npz, w=None, h=None, frames=None):
@@ -763,16 +825,33 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_intra16": (grid_intra16, grid_intra16_plain),
     "grid_deblock": (grid_deblock, grid_deblock_plain),
     "grid_sao": (grid_sao, grid_sao_plain),
+    "grid_subpel": (grid_subpel, grid_subpel_plain),
+    "grid_wp_me": (grid_wp_me, grid_wp_me_plain),
+    "grid_stats": (grid_stats, grid_stats_plain),
 }
 
 
-def capture_grid_calls(dev, cfg, params, names):
+def picture_wp(clip, R, dev):
+    """The explicit-WP tables of frame 4 against frames 3..0
+    (LdpScanDriver's `_wp_arrays` for one picture) -> ((w (R, 3), o (R,
+    3)) on `dev`, d, the WpParams)."""
+    wp = analyse_slice_wp(clip[4], [clip[3 - r] for r in range(R)],
+                          bit_depth=8)
+    w = np.array(wp.weights, np.int32).reshape(R, 3)
+    o = np.array(wp.offsets, np.int32).reshape(R, 3)
+    return ((torch.as_tensor(w, device=dev), torch.as_tensor(o, device=dev),
+             wp.denom_y), wp)
+
+
+def capture_grid_calls(dev, cfg, params, names, fade=False):
     """Run the port's GridStep on one 416x240 P picture of `cfg` (frame 4
     against frames 3..0 as its four references, the originals standing in
     for their recons, GOP position 0 at QP 35, a collocated field of
-    random motion so that the TMVP merge candidates are priced), recording
-    every call of the named grid wrappers -> {name: [(args, kwargs)]}."""
-    clip = Reader(W, H, 5).frames
+    random motion so that the TMVP merge candidates are priced; with
+    weighted prediction, the picture's analysed tables), recording every
+    call of the named grid wrappers -> ({name: [(args, kwargs)]}, the
+    WpParams or None). fade: the fade clip, else the synthetic one."""
+    clip = Reader(W, H, 5, fade).frames
     cfg.sps.temporal_mvp_enabled = True
     qps = {min(max(cfg.qp + o, 0), 51) for o in cfg.gop_qp_offsets}
     step = inter_grid.GridStep(cfg, {q: params for q in qps}, dev)
@@ -792,15 +871,16 @@ def capture_grid_calls(dev, cfg, params, names):
              dev_t(rng.integers(0, R + 1, (hc16, wc16)).astype(np.int32)))
     fu8 = dev_t(np.concatenate([p.ravel() for p in clip[4]]))
     tabs = inter_grid._Tabs(inter_grid.grid_live_tables(cfg, {})[0], dev)
+    wp, wpp = picture_wp(clip, R, dev) if step.use_wp else (None, None)
     calls = {k: [] for k in names}
     saved = recording(inter_grid, names, calls)
     try:
-        step.frame_step(carry, fu8, R, 0, tabs)
+        step.frame_step(carry, fu8, R, 0, tabs, wp)
         torch.cuda.synchronize()
     finally:
         for k in names:
             setattr(inter_grid, k, saved[k])
-    return calls
+    return calls, wpp
 
 
 def compare_calls(name, calls, work=None):
@@ -834,7 +914,7 @@ def check_grid_kernels(dev, npz, params):
     (the flat quantiser). Every output equal: integers and the float32
     costs of grid_code (whose sums are exact) and of grid_sao's decision.
     Returns {name: row}; ms/plain_ms are per P picture of the anchor."""
-    calls = capture_grid_calls(dev, ldp_cfg(npz), params, G_KERNELS)
+    calls, _ = capture_grid_calls(dev, ldp_cfg(npz), params, G_KERNELS)
     rows = {}
     for name in G_KERNELS:
         kern, plain = G_FUNCS[name]
@@ -849,24 +929,53 @@ def check_grid_kernels(dev, npz, params):
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} (per P picture)", flush=True)
     cut = capture_grid_calls(dev, ldp_cfg(npz, cut=True), params,
-                             ("grid_code",))["grid_code"]
+                             ("grid_code",))[0]["grid_code"]
     err = compare_calls("grid_code", cut)
     rows["grid_code"]["max_abs_err"] = max(rows["grid_code"]["max_abs_err"],
                                            err)
     print(f"kernel grid_code     P picture calls {len(cut):3d} max_abs_err "
           f"{err:.3g} (the four tools cut: the flat quantiser)", flush=True)
+    # DCT-IF FME, weighted prediction and the no-fetch tail: one P picture
+    # of the fade clip with the anchor cfg, dctif, WP and no recon fetch
+    calls, wpp = capture_grid_calls(
+        dev, ldp_cfg(npz, extra=FME_WP + NO_FETCH), params,
+        F_KERNELS + ("grid_planes",), fade=True)
+    check(weighted(wpp), f"fade picture: identity weights only {wpp}")
+    for name in F_KERNELS + ("grid_planes",):
+        kern, plain = G_FUNCS[name]
+        r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
+        r["max_abs_err"] = compare_calls(name, calls[name], r["work"])
+        r["ms"] = median_ms(lambda: [kern(*a, **k) for a, k in calls[name]],
+                            reps=10)
+        r["plain_ms"] = median_ms(
+            lambda: [plain(*a, **k) for a, k in calls[name]], reps=3)
+        tag = "P picture"
+        if name == "grid_planes":  # the weighted branch, beside the row
+            tag = "P picture, weighted"
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            r["max_abs_err"])
+            bound_ms, bound_by = bound_of(r)
+            rows[name]["wp"] = dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                    bound_ms=bound_ms, bound_by=bound_by)
+        else:
+            rows[name] = r
+        print(f"kernel {name:12s} {tag} calls {len(calls[name]):3d} "
+              f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} (per P picture, dctif + WP, no "
+              f"fetch)", flush=True)
     return rows
 
 
-def run_path(dev, cfg, nframes):
+def run_path(dev, cfg, nframes, fade=False, reader=None):
     """One main path through encode_sequence with the launch counters set
     to 0 just before and read just after; returns (enc, recons, seconds,
     launches)."""
-    reader = Reader(W, H, nframes)
+    reader = reader or Reader(W, H, nframes, fade)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.time()
-    enc, recons = encode_sequence(reader, cfg, device=dev)
+    enc, recons = encode_sequence(reader, cfg, max_frames=nframes,
+                                  device=dev)
     torch.cuda.synchronize()
     secs = time.time() - t0
     return enc, recons, secs, dict(LAUNCHES)
@@ -896,20 +1005,25 @@ def cross_check_cpu(npz):
     non-grid LD-P scan, which runs the anchor with its four tools cut)
     LD-P five pictures and all-intra two, LD-P through
     the grid step at 128x64 x 9 (every CU class 8-64, four references)
-    with the anchor's four tools on and cut, and random access at 64x48 x
-    6 (four B pictures and the P tail); returns the five stream sizes. The
-    112x72 LD-P encode must launch K1-K4, the 128x64 ones every grid
-    kernel they run."""
+    with the anchor's four tools on and cut, with DCT-IF FME and weighted
+    prediction (the fade clip) and in bench.py's no-fetch configuration,
+    and random access at 64x48 x 6 (four B pictures and the P tail);
+    returns the seven stream sizes. The 112x72 LD-P encode must launch
+    K1-K4, the 128x64 ones every grid kernel they run."""
     out = []
-    for make, n, w, h, need in (
+    for make, n, w, h, need, fade in (
             (lambda: ldp_cfg(npz, 112, 72, 5, cut=True), 5, 112, 72,
-             ("sad_search", "mc_blk", "txq")),
-            (lambda: intra_cfg(112, 72, 2), 2, 112, 72, ()),
-            (lambda: ldp_cfg(npz, 128, 64, 9), 9, 128, 64, G_KERNELS),
+             ("sad_search", "mc_blk", "txq"), False),
+            (lambda: intra_cfg(112, 72, 2), 2, 112, 72, (), False),
+            (lambda: ldp_cfg(npz, 128, 64, 9), 9, 128, 64, G_KERNELS, False),
             (lambda: ldp_cfg(npz, 128, 64, 9, cut=True), 9, 128, 64,
-             G_KERNELS[:6]),
-            (lambda: ra_cfg(npz, 64, 48, 6), 6, 64, 48, ())):
-        r = Reader(w, h, n)
+             G_KERNELS[:6], False),
+            (lambda: ldp_cfg(npz, 128, 64, 9, extra=FME_WP), 9, 128, 64,
+             G_KERNELS + F_KERNELS[:2], True),
+            (lambda: ldp_cfg(None, 128, 64, 9, extra=NO_FETCH), 9, 128, 64,
+             G_KERNELS + F_KERNELS[2:], False),
+            (lambda: ra_cfg(npz, 64, 48, 6), 6, 64, 48, (), False)):
+        r = Reader(w, h, n, fade)
         reset_launches()
         a, _ = encode_sequence(r, make(), device="cuda")
         missing = [k for k in need if LAUNCHES[k] <= 0]
@@ -919,6 +1033,103 @@ def cross_check_cpu(npz):
               f"{w}x{h}: CUDA and CPU streams differ")
         out.append(len(a.bitstream()))
     return out
+
+
+def run_fme_wp(dev, npz, gpu):
+    """LD-P with DCT-IF FME and weighted prediction (the anchor cfg with
+    FmeMode dctif and WeightedPredP 1) on 17 frames of the fade clip: a
+    warm-up encode, then the counted one, which must decode hash-OK with
+    the encoder's recon, launch the grid kernels with grid_subpel and
+    grid_wp_me, and hold fractional MVs and non-identity weights. Returns
+    its launches."""
+    run_path(dev, ldp_cfg(npz, frames=3, extra=FME_WP), 3, fade=True)
+    seen = dict(frac=0, weighted=0)
+    real_asm, real_wp = (inter_grid.assemble_grid_frame,
+                         encoder_mod.analyse_slice_wp)
+
+    def assembled(*a, **kw):
+        out = real_asm(*a, **kw)
+        seen["frac"] += int((out[0].mv & 3).any(-1).sum())
+        return out
+
+    def analysed(*a, **kw):
+        wp = real_wp(*a, **kw)
+        seen["weighted"] += weighted(wp)
+        return wp
+
+    inter_grid.assemble_grid_frame = assembled
+    encoder_mod.analyse_slice_wp = analysed
+    try:
+        enc, recons, secs, launches = run_path(
+            dev, ldp_cfg(npz, extra=FME_WP), NFRAMES, fade=True)
+    finally:
+        inter_grid.assemble_grid_frame = real_asm
+        encoder_mod.analyse_slice_wp = real_wp
+    check_stream(enc, recons, NFRAMES, launches, FWP_NEED, "LD-P dctif + WP")
+    check(seen["frac"] > 0, "LD-P dctif + WP: no fractional MV")
+    check(seen["weighted"] > 0, "LD-P dctif + WP: identity weights only")
+    kbits = sum(r.bits for r in enc.results) / 1000
+    psnr = np.mean([r.psnr_y for r in enc.results])
+    print(f"main path LD-P dctif + WP: {W}x{H} x {NFRAMES} frames of the "
+          f"fade clip in {secs:.3f} s = {NFRAMES / secs:.3f} fps | "
+          f"{kbits:.1f} kbit, Y-PSNR {psnr:.3f} dB | {seen['frac']} "
+          f"fractional-MV cells, {seen['weighted']} weighted pictures | "
+          f"launches {launches} | {gpu}", flush=True)
+    return launches
+
+
+def run_bench(dev, gpu):
+    """bench.py's configuration, clip and procedure through the port (as
+    `profile_path --path bench`): a 6-frame warm-up encode, whose packed
+    rows must carry no recon, then the best of 4 timed encodes of 32
+    frames, the launch counters reset before each; the last stream must
+    decode with every checksum OK. Returns the last encode's launches."""
+    reader = Reader(W, H, BENCH_FRAMES)
+    sizes = []
+    real_asm = inter_grid.assemble_grid_frame
+
+    def assembled(cfg, buf, *a, **kw):
+        sizes.append((buf.size, "rec_y" in inter_grid._parse_frame_buf(cfg,
+                                                                        buf)))
+        return real_asm(cfg, buf, *a, **kw)
+
+    inter_grid.assemble_grid_frame = assembled
+    try:
+        run_path(dev, ldp_cfg(None, frames=BENCH_WARMUP, extra=NO_FETCH),
+                 BENCH_WARMUP, reader=reader)
+    finally:
+        inter_grid.assemble_grid_frame = real_asm
+    cfg = ldp_cfg(None, frames=BENCH_FRAMES, extra=NO_FETCH)
+    nbytes = inter_grid.frame_bytes(cfg)
+    check(nbytes == inter_grid.frame_bytes(
+        ldp_cfg(None, frames=BENCH_FRAMES)) - W * H * 3 // 2 + 24,
+        f"bench: row of {nbytes} bytes")
+    check(len(sizes) == BENCH_WARMUP - 1
+          and all(n == nbytes and not rec for n, rec in sizes),
+          f"bench: packed rows {sizes}, expected {nbytes} bytes, no recon")
+    secs = []
+    for _ in range(BENCH_REPS):
+        enc, recons, s, bl = run_path(
+            dev, ldp_cfg(None, frames=BENCH_FRAMES, extra=NO_FETCH),
+            BENCH_FRAMES, reader=reader)
+        secs.append(s)
+    missing = [k for k in BENCH_NEED if bl[k] <= 0]
+    check(not missing, f"bench: kernels not launched: {missing}")
+    check(len(enc.results) == BENCH_FRAMES and recons[0] is not None
+          and all(r is None for r in recons[1:]),
+          "bench: the P pictures' recon was fetched")
+    frames = decode_stream(enc.bitstream())
+    check(len(frames) == BENCH_FRAMES and all(f.md5_ok for f in frames),
+          f"bench: checksums {[f.md5_ok for f in frames]}")
+    kbits = sum(r.bits for r in enc.results) / 1000
+    psnr = np.mean([r.psnr_y for r in enc.results])
+    print(f"main path bench.py's cfg: {W}x{H} x {BENCH_FRAMES} frames, warm "
+          f"encodes {[round(x, 4) for x in secs]} s, best "
+          f"{BENCH_FRAMES / min(secs):.3f} frames/s | {kbits:.1f} kbit, "
+          f"Y-PSNR {psnr:.3f} dB (from the device's SSEs) | FmeMode nn ran "
+          f"integer-pel for want of NN-FME weights | launches {bl} | {gpu}",
+          flush=True)
+    return bl
 
 
 def main():
@@ -987,12 +1198,21 @@ def main():
         for k in KERNELS:
             launches[k] += ra_launches[k]
 
+        fw_launches = run_fme_wp(dev, npz, gpu)
+        for k in KERNELS:
+            launches[k] += fw_launches[k]
+
+        bench_launches = run_bench(dev, gpu)
+        for k in KERNELS:
+            launches[k] += bench_launches[k]
+
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
               f"{sizes[0]} bytes, all-intra 112x72 {sizes[1]} bytes, LD-P "
               f"grid 128x64 {sizes[2]} bytes, with the tools cut "
-              f"{sizes[3]} bytes, random access 64x48 {sizes[4]} bytes)",
-              flush=True)
+              f"{sizes[3]} bytes, with dctif + WP {sizes[4]} bytes, without "
+              f"the recon fetch {sizes[5]} bytes, random access 64x48 "
+              f"{sizes[6]} bytes)", flush=True)
 
     kernels = []
     for k in KERNELS:
@@ -1000,6 +1220,10 @@ def main():
         bound_ms, bound_by = bound_of(r)
         print(f"bound {k}: {r['work'].bytes} bytes, {r['work'].ops} "
               f"operations -> {bound_ms:.6f} ms ({bound_by})")
+        if "wp" in r:
+            print(f"bound {k} (weighted): {r['wp']['bound_ms']:.6f} ms "
+                  f"({r['wp']['bound_by']}); kernel_ms {r['wp']['ms']:.4f} "
+                  f"plain_ms {r['wp']['plain_ms']:.4f}")
         kernels.append(dict(
             name=k, route="cuda", source=SOURCES[k][0],
             replaces=SOURCES[k][1], launches=launches[k],

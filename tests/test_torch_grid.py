@@ -595,10 +595,9 @@ def _set(cfg, field, value):
 
 def test_grid_selection_cut_and_native_walk(npz, monkeypatch):
     """The grid where the coded size is whole 16x16 blocks, the non-grid
-    scan elsewhere (112x72); the slice's cut refused on the grid path
-    (DCT-IF, weighted prediction); RDOQ, sign hiding, deblocking and SAO
-    admitted on the grid (128x64) and refused on the non-grid scan
-    (112x72); a native library without the decision walks fails to bind
+    scan elsewhere (112x72); DCT-IF, weighted prediction, RDOQ, sign
+    hiding, deblocking and SAO admitted on the grid (128x64) and refused
+    on the non-grid scan (112x72); a native library without the decision walks fails to bind
     (no silent slower path)."""
     assert tig.supports(e2e_cfg(npz, True))
     assert not tig.supports(ldp_cfg(npz, port=True))
@@ -613,10 +612,7 @@ def test_grid_selection_cut_and_native_walk(npz, monkeypatch):
                       (ldp_cfg(npz, port=True), False)):
         drv = LdpScanDriver(Enc(), cfg, [None, None], None, "cpu")
         assert drv.grid == grid and drv.R == (NREF if grid else 1)
-    for field, value in CUT:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            check_slice(_set(e2e_cfg(npz, True), field, value))
-    for field, value in TOOLS:
+    for field, value in CUT + TOOLS:
         check_slice(_set(e2e_cfg(npz, True), field, value))
         with pytest.raises(NotImplementedError, match="not yet ported"):
             check_slice(_set(ldp_cfg(npz, port=True), field, value))

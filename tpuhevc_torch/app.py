@@ -12,10 +12,17 @@ Usage:
   python -m tpuhevc_torch enc -c cfg/encoder_randomaccess_main.cfg \
       -i in.yuv -b out.bin -o rec.yuv -wdt 416 -hgt 240 -f 18 -q 32 \
       --NNWeightsDir=weights.npz [--Device=cuda]
+  python -m tpuhevc_torch enc -c cfg/encoder_lowdelay_P_main.cfg \
+      -i in.yuv -b out.bin -wdt 416 -hgt 240 -f 32 -q 32 \
+      --SEIDecodedPictureHash=3 [--Device=cuda]
   python -m tpuhevc_torch dec -b out.bin -o dec.yuv
 
 Options are HM's syntax, as the reference's CLI reads them; `--Device=`
 names the torch device (default cuda; there is no fallback to the CPU).
+`--FmeMode=dctif` and `--WeightedPredP=1` run on the LD-P grid;
+with `--SEIDecodedPictureHash=3` (the checksum hash) and no `-o`, the
+grid's P recon stays on the card: only `-o` and the MD5/CRC hashes need it
+on the host.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ def main_encode(argv: list[str]) -> int:
     if not io["InputFile"] or not io["BitstreamFile"]:
         print("need -i input.yuv and -b out.bin", file=sys.stderr)
         return 2
+    cfg.fetch_recon = bool(io["ReconFile"])
     reader = YuvReader(io["InputFile"], cfg.sps.width, cfg.sps.height,
                        cfg.sps.bit_depth)
     t0 = time.time()

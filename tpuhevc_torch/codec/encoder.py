@@ -12,8 +12,9 @@ overlapped with the device work of chunk i: the grid step
 (`codec/inter_grid.py`, multi-reference, TMVP granted in the SPS) where
 `inter_grid.supports` holds (a coded size in whole 16x16 blocks; there
 the anchor cfg runs as shipped, with RDOQ, sign hiding, deblocking and
-SAO on the device), the non-grid scan (`codec/inter_batch.py`)
-elsewhere. Twin of
+SAO on the device, and with DCT-IF FME, explicit weighted prediction, or
+the checksum hash without the recon fetch where the cfg asks for them),
+the non-grid scan (`codec/inter_batch.py`) elsewhere. Twin of
 `tpuhevc/codec/encoder.py:737-942` (`LdpScanDriver`,
 `_ldp_scan_pipelined`) and of the LD-P branch of its `encode_sequence`.
 
@@ -41,7 +42,7 @@ from ..device import resolve
 from ..entropy import bitio, headers, sei
 from ..entropy.cabac import CabacEncoder, ContextSet
 from ..entropy.headers import ShortTermRPS
-from ..entropy.native import encode_slice_data_native
+from ..entropy.native import encode_slice_data_native, get_lib
 from ..entropy.syntax import encode_slice_data
 from ..ops.deblock import deblock_frame
 from ..utils.yuv import picture_checksum, picture_crc, picture_md5, psnr
@@ -54,6 +55,7 @@ from .params import (B_SLICE, I_SLICE, P_SLICE, EncoderConfig,
                      i_frame_lambda, p_frame_lambda)
 from .recon import _pad_to
 from .sao_enc import apply_sao_picture, decide_sao_params
+from .wp import WpParams, analyse_slice_wp
 
 
 @dataclass
@@ -158,8 +160,11 @@ class Encoder:
         else:
             stype = self._slice_type(poc)
             fqp = self.frame_qp(poc)
+        stats = None
         if precomputed is not None:
-            fs, (ry, ru, rv) = precomputed
+            fs, rec, stats = precomputed
+            # stats: the recon stayed on the device
+            ry, ru, rv = rec if stats is None else (None, None, None)
         elif stype == I_SLICE:
             fs, (ry, ru, rv) = self._frame_encoder(y, u, v, cfg)
         else:
@@ -223,6 +228,9 @@ class Encoder:
         if fs.sao is not None:
             hdr.sao_luma = fs.sao.luma_on
             hdr.sao_chroma = fs.sao.chroma_on
+        if pps.weighted_pred and stype == P_SLICE:
+            hdr.wp_l0 = getattr(fs, "wp_l0", None) or WpParams().identity(
+                hdr.num_ref_idx_l0)
         if stype != I_SLICE and hdr.rps is not None:
             for i, r in enumerate(self._sps_rps):
                 if (r.delta_pocs == hdr.rps.delta_pocs
@@ -268,16 +276,31 @@ class Encoder:
         bits = (len(self.nals[-1]) + 4) * 8
 
         # decoded-picture-hash SEI (suffix) + per-frame stats
-        if cfg.hash_type == "checksum":
-            hashes, htype = picture_checksum(ry, ru, rv, sps.bit_depth), 2
-        elif cfg.hash_type == "crc":
-            hashes, htype = picture_crc(ry, ru, rv, sps.bit_depth), 1
+        if stats is not None:  # device-computed (checksum hash + SSE)
+            hashes, htype = stats["hashes"], stats["hash_type"]
+            maxv = (1 << sps.bit_depth) - 1
+
+            def _ps(sse, npx):
+                return (999.99 if sse == 0
+                        else 10.0 * np.log10(maxv * maxv * npx / sse))
+
+            npx = sps.coded_width * sps.coded_height
+            psnrs = (_ps(float(stats["sse"][0]), npx),
+                     _ps(float(stats["sse"][1]), npx // 4),
+                     _ps(float(stats["sse"][2]), npx // 4))
+            self.dpb_recon = None
         else:
-            hashes, htype = picture_md5(ry, ru, rv, sps.bit_depth), 0
-        psnrs = (psnr(y, ry[: y.shape[0], : y.shape[1]], sps.bit_depth),
-                 psnr(u, ru[: u.shape[0], : u.shape[1]], sps.bit_depth),
-                 psnr(v, rv[: v.shape[0], : v.shape[1]], sps.bit_depth))
-        self.dpb_recon = (ry, ru, rv)
+            if cfg.hash_type == "checksum":
+                hashes, htype = picture_checksum(ry, ru, rv,
+                                                 sps.bit_depth), 2
+            elif cfg.hash_type == "crc":
+                hashes, htype = picture_crc(ry, ru, rv, sps.bit_depth), 1
+            else:
+                hashes, htype = picture_md5(ry, ru, rv, sps.bit_depth), 0
+            psnrs = (psnr(y, ry[: y.shape[0], : y.shape[1]], sps.bit_depth),
+                     psnr(u, ru[: u.shape[0], : u.shape[1]], sps.bit_depth),
+                     psnr(v, rv[: v.shape[0], : v.shape[1]], sps.bit_depth))
+            self.dpb_recon = (ry, ru, rv)
         self._emit(bitio.make_nal(
             bitio.NAL_SUFFIX_SEI,
             headers.write_picture_hash_sei(hashes, htype)))
@@ -287,7 +310,7 @@ class Encoder:
             psnr_v=psnrs[2], md5=hashes, seconds=time.time() - t0,
         )
         self.results.append(res)
-        self._recon = (ry, ru, rv)
+        self._recon = (ry, ru, rv) if ry is not None else None
         return res
 
     def bitstream(self) -> bytes:
@@ -298,12 +321,12 @@ def check_slice(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for any configuration outside the ported
     slices: all-intra (IntraPeriod 1) with the host tools after the
     decision; LD-P with NN-FME or integer-pel, where RDOQ, sign hiding,
-    deblocking and SAO may be on at coded sizes in whole 16x16 blocks (the
-    grid step; elsewhere the non-grid scan, which has none of them);
-    random access driven by a GOP table of B pictures, with NN-FME or
-    integer-pel, those four tools off and a coded size in whole 16x16
-    blocks; all 8-bit, quadtree intra, one slice, no weighted
-    prediction."""
+    deblocking, SAO, DCT-IF FME and explicit weighted prediction may be on
+    at coded sizes in whole 16x16 blocks (the grid step; elsewhere the
+    non-grid scan, which has none of them); random access driven by a GOP
+    table of B pictures, with NN-FME or integer-pel, those six tools off
+    and a coded size in whole 16x16 blocks; all 8-bit, quadtree intra, one
+    slice, no weighted bi-prediction."""
     sps, pps = cfg.sps, cfg.pps
     off = [
         (cfg.target_bitrate > 0, "rate control"),
@@ -326,15 +349,17 @@ def check_slice(cfg: EncoderConfig) -> None:
             (tools and pps.sign_data_hiding, "sign-bit hiding" + where),
             (tools and cfg.deblocking, "deblocking" + where),
             (tools and sps.sao_enabled, "SAO" + where),
-            (cfg.fme_mode not in ("nn", "none"), f"FmeMode {cfg.fme_mode}"),
+            (tools and cfg.fme_mode == "dctif", "FmeMode dctif" + where),
+            (tools and pps.weighted_pred, "weighted prediction" + where),
+            (cfg.fme_mode not in ("nn", "none", "dctif"),
+             f"FmeMode {cfg.fme_mode}"),
             (ra and not cfg.gop_table, "random access without a GOP table"),
             (not ra and bool(cfg.gop_table), "a GOP table of P pictures"),
             (ra and (sps.coded_width % 16 or sps.coded_height % 16),
              f"random access at {sps.coded_width}x{sps.coded_height} "
              "(not whole 16x16 blocks)"),
             (cfg.intra_period != -1, f"IntraPeriod {cfg.intra_period}"),
-            (pps.weighted_pred or pps.weighted_bipred,
-             "weighted prediction"),
+            (pps.weighted_bipred, "weighted bi-prediction (WeightedPredB)"),
         ]
     bad = [name for cond, name in off if cond]
     if bad:
@@ -367,6 +392,10 @@ class LdpScanDriver:
         nn_by_qp = {qp: enc._nn_for_qp(qp) for qp in qps}
         self.cfg = cfg
         self.grid = inter_grid.supports(cfg)
+        if self.grid and not inter_grid.fetches_recon(cfg):
+            # the no-fetch row is read only by the native decision walk:
+            # without it this raises (the reference fetches instead)
+            get_lib()
         if self.grid:
             self.fn, _, _ = inter_grid.build_ldp_grid_scan(
                 cfg, nn_by_qp, self.n_gops, self.device)
@@ -374,6 +403,8 @@ class LdpScanDriver:
             self.fn, _, _ = build_ldp_scan(cfg, nn_by_qp, self.n_gops,
                                            self.device)
         self.R = max(1, cfg.num_ref_frames) if self.grid else 1
+        self.use_wp = self.grid and cfg.pps.weighted_pred
+        self.wp_by_poc: dict = {}  # the slice headers' WP tables
         self._col = None  # TMVP collocated motion of the last coded picture
         self.refs = None
         self.pending: list = []
@@ -427,7 +458,8 @@ class LdpScanDriver:
             # the last written P slices' end-of-slice context states
             live = inter_grid.grid_live_tables(self.cfg,
                                                self.enc.ctx_feedback)
-            buf, *refs = self.fn(frames, nav, *self.refs, live)
+            wp = self._wp_arrays(s) if self.use_wp else None
+            buf, *refs = self.fn(frames, nav, *self.refs, live, wp, nvalid)
         else:
             buf, *refs = self.fn(frames, *self.refs)
         self.refs = tuple(refs)
@@ -440,6 +472,35 @@ class LdpScanDriver:
         else:
             rows = buf
         self.pending.append((s, nvalid, rows, done))
+
+    def _wp_arrays(self, s: int):
+        """Per-picture explicit-WP parameters of one chunk: the host's DC/AC
+        analysis against the reference *originals* (the reference's
+        `_wp_arrays`, WeightPredAnalysis.cpp:246,398; the SAD select uses
+        the originals as the recon proxy, an encoder choice). Returns
+        (w, o, d) shaped (n_gops, G, R, 3) / (n_gops, G); references past
+        the available ones, and the padding of a short last chunk (not
+        coded), carry the identity."""
+        K, R = self.K, self.R
+        wpw = np.full((K, R, 3), 1 << 6, np.int32)
+        wpo = np.zeros((K, R, 3), np.int32)
+        wpd = np.full(K, 6, np.int32)
+        for j in range(min(K, len(self.frames) - 1 - s)):
+            poc = s + 1 + j
+            nav = max(1, min(poc, R))
+            cur = self.frames[poc]
+            refs = [self.frames[poc - 1 - r] for r in range(nav)]
+            wp = analyse_slice_wp(cur, refs, bit_depth=8)
+            self.wp_by_poc[poc] = wp
+            d = wp.denom_y
+            wpd[j] = d
+            wpw[j, :, :] = 1 << d
+            for r in range(nav):
+                wpw[j, r] = wp.weights[r]
+                wpo[j, r] = wp.offsets[r]
+        return (wpw.reshape(self.n_gops, self.G, R, 3),
+                wpo.reshape(self.n_gops, self.G, R, 3),
+                wpd.reshape(self.n_gops, self.G))
 
     def collect(self) -> None:
         """Serialise the oldest in-flight chunk (waits for its fetch)."""
@@ -455,7 +516,7 @@ class LdpScanDriver:
             cfg_f = dataclasses.replace(self.cfg, qp=self.enc.frame_qp(poc))
             if not self.grid:
                 pre = assemble_frame_p(cfg_f, collect_frame(cfg_f, rows[j]))
-                self.finish(poc, self.frames[poc], pre)
+                self.finish(poc, self.frames[poc], (*pre, None))
                 continue
             col = None
             if tmvp:
@@ -470,6 +531,8 @@ class LdpScanDriver:
                 cfg_f, rows[j], max(1, min(poc, self.R)), col=col)
             # the device ran the cfg's in-loop filters already
             pre[0].prefiltered = True
+            if self.use_wp:
+                pre[0].wp_l0 = self.wp_by_poc.pop(poc, None)
             if tmvp:
                 fs = pre[0]
                 self._col = (
@@ -578,7 +641,7 @@ def _gop_table_driven(enc, cfg, frames, finish):
                           num_ref_l0=1, num_ref_l1=1,
                           l0_deltas=[poc - l0_poc],
                           l1_deltas=[poc - l1_poc])
-                finish(poc, frames[poc], (fs, recon), si)
+                finish(poc, frames[poc], (fs, recon, None), si)
             else:
                 enc.dpb_recon = dpb[l0_poc]
                 si = dict(stype=P_SLICE, qp=qp, rps=rps,

@@ -4,8 +4,9 @@ Twin of `tpuhevc/codec/inter_grid.py` (`build_ldp_grid_scan`, the host
 half `_parse_frame_buf` / `assemble_grid_frame` with `_sao_thrift`, and
 the decision tables `_mode_tables` / `grid_live_tables`) for the anchor
 LD-P cfg as shipped: the flat quantiser or RDOQ, with or without sign-bit
-hiding, device deblocking and SAO on or off, no weighted prediction,
-FmeMode nn or none, 8-bit, the default branch of every experiment knob of
+hiding, device deblocking and SAO on or off, with or without explicit
+weighted prediction, FmeMode nn, dctif or none, with or without the recon
+fetch, 8-bit, the default branch of every experiment knob of
 the reference (`_TUNE`): 8- and 64-classes on, the fused merge sweep, the
 DC-aware costs, rectangular PUs, the inter RQT to depth 2, the
 measured-RD merge trial with the device TMVP candidate, the intra-16
@@ -19,11 +20,14 @@ Per P picture (`GridStep.frame_step`):
    on the 4x-pooled level (a second `grid_coarse`); the 7x7 full-pel
    refine around up to five starts per block for the 16 (with the
    8-class from its quadrants) and 32 classes over every available
-   reference (`grid_refine`), the best reference per block.
-2. MC: the DCT-IF phase planes of every reference (`grid_planes`), the
-   NN-FME quarter-pel offsets (K2 `nn_refine`), the fused merge-candidate
-   sweep whose passes price every class's candidates by DC-aware SATD
-   (`grid_satd`).
+   reference (`grid_refine`), the best reference per block; with
+   weighted prediction against the weighted full-pel references
+   (`grid_wp_me`).
+2. MC: the DCT-IF phase planes of every reference (`grid_planes`, the
+   weighting folded into their rounding), the quarter-pel MVs (NN-FME
+   offsets through K2 `nn_refine`, or the DCT-IF half- and quarter-pel
+   squares of `grid_subpel`), the fused merge-candidate sweep whose
+   passes price every class's candidates by DC-aware SATD (`grid_satd`).
 3. Coding: each class's TUs at TU = CU and the RQT split sizes
    (`grid_code`, with RDOQ and sign-bit hiding where the cfg has them),
    the skip trial, the measured-RD merge trial, the
@@ -37,8 +41,10 @@ Per P picture (`GridStep.frame_step`):
    the cfg has them; the filtered planes are the next picture's
    references.
 5. The packed row that `assemble_grid_frame` parses (with the SAO
-   parameters where SAO is on), and the carry: the reference stacks, the
-   full-pel MV seed and the TMVP collocated maps.
+   parameters where SAO is on; without the recon fetch, the picture
+   checksums and SSEs of `grid_stats` in place of the recon planes), and
+   the carry: the reference stacks, the full-pel MV seed and the TMVP
+   collocated maps.
 
 The `lax.scan` over GOPs and the per-reference scan become Python loops;
 the kernels launch asynchronously, so the loops only enqueue work. The
@@ -58,9 +64,10 @@ from ..models.nnfme import NNFME, height_category, nn_refine, width_category
 from ..ops.grid_code import grid_code, up
 from ..ops.grid_deblock import grid_deblock
 from ..ops.grid_intra import IMODES, grid_intra16
-from ..ops.grid_me import grid_coarse, grid_refine, tile_sum, zcost
-from ..ops.grid_pred import grid_planes, grid_satd
+from ..ops.grid_me import grid_coarse, grid_refine, grid_wp_me, tile_sum, zcost
+from ..ops.grid_pred import grid_planes, grid_satd, grid_subpel
 from ..ops.grid_sao import grid_sao
+from ..ops.grid_stats import grid_stats
 from ..utils.tables import chroma_qp
 from .params import EncoderConfig, p_frame_lambda
 
@@ -78,6 +85,12 @@ def _mvd_bits_np(v):
     loop's log2 model)."""
     return (2 * np.ceil(np.log2(2 * np.abs(v).astype(np.int64) + 1))
             .astype(np.int32) + 1)
+
+
+def fetches_recon(cfg) -> bool:
+    """The packed row carries the recon planes (else, with the checksum
+    hash and no fetch, the device's picture checksums and SSEs)."""
+    return cfg.fetch_recon or cfg.hash_type != "checksum"
 
 
 def _lvl8(cfg) -> bool:
@@ -235,6 +248,8 @@ class GridStep:
         self.lvl8 = _lvl8(cfg)
         self.rdoq, self.sbh = cfg.rdoq, cfg.pps.sign_data_hiding
         self.deblock, self.sao = cfg.deblocking, sps.sao_enabled
+        self.fetch = fetches_recon(cfg)
+        self.use_wp = cfg.pps.weighted_pred
         self.R = max(1, cfg.num_ref_frames)
         self.MM = cfg.max_num_merge_cand
         self.nh16, self.nw16 = H // 16, W // 16
@@ -679,7 +694,11 @@ class GridStep:
         return kept
 
     # --- one P picture ---------------------------------------------------
-    def frame_step(self, carry, fu8, navail: int, gpos: int, tabs: _Tabs):
+    def frame_step(self, carry, fu8, navail: int, gpos: int, tabs: _Tabs,
+                   wp=None):
+        """wp: with weighted prediction, the picture's (w (R, 3), o (R, 3))
+        int32 tensors per reference and component (Y, Cb, Cr) and the
+        denominator d (an int, luma and chroma alike)."""
         ry_stack, ruv_stack, mv16p, colmv_g, coltd_g = carry
         dev = self.dev
         W, H, Hc, Wc = self.W, self.H, self.Hc, self.Wc
@@ -698,8 +717,18 @@ class GridStep:
         ouv = torch.cat([ou, ov], dim=1).int()
 
         # --- ME ------------------------------------------------------------
+        # with WP the search reads the weighted full-pel references; the
+        # phase planes keep the unweighted ones and fold the weights into
+        # their rounding (chroma stack: [U refs | V refs])
+        wpy = wpc = None
+        if self.use_wp:
+            wpw, wpo, wpd = wp
+            wpy = (wpw[:, 0].contiguous(), wpo[:, 0].contiguous(), wpd)
+            wpc = (torch.cat([wpw[:, 1], wpw[:, 2]]),
+                   torch.cat([wpo[:, 1], wpo[:, 2]]), wpd)
+        ry_me = ry_stack if wpy is None else grid_wp_me(ry_stack, *wpy)
         oy2 = tile_sum(oy, 2).int()
-        ry0 = ry_stack[0]
+        ry0 = ry_me[0]
         ry2p = self._pad_edge(tile_sum(ry0, 2).int(), R2)
         s16c, sum16c = grid_coarse(oy2, ry2p, nc, 8, 1, True)
         cx16, cy16 = self.pick_coarse(s16c, sum16c, qp, lam_me, nh16, nw16, 1)
@@ -772,40 +801,46 @@ class GridStep:
             sc = r + 1
             cxr = (cx16 * sc).clamp(-R2, R2)
             cyr = (cy16 * sc).clamp(-R2, R2)
-            mr16, mr8 = self.refine(ry_stack[r], oy, [(cxr * 2, cyr * 2)],
+            mr16, mr8 = self.refine(ry_me[r], oy, [(cxr * 2, cyr * 2)],
                                     16, nh16, nw16, qp, lam_me, quads=True)
             merge_acc(acc16, mr16, self.ref_bits_me[r], r)
             merge_acc(acc8, mr8, self.ref_bits_me[r], r)
             if has32:
                 cxr32 = (cx32 * sc).clamp(-R2, R2)
                 cyr32 = (cy32 * sc).clamp(-R2, R2)
-                mr32, _ = self.refine(ry_stack[r], oy,
+                mr32, _ = self.refine(ry_me[r], oy,
                                       [(cxr32 * 2, cyr32 * 2)], 32, nh32,
                                       nw32, qp, lam_me)
                 merge_acc(acc32, mr32, self.ref_bits_me[r], r)
 
         # --- MC planes, FME --------------------------------------------------
-        planes_y = grid_planes(ry_stack, True, self.PADL, self.HmL, self.WmL)
+        planes_y = grid_planes(ry_stack, True, self.PADL, self.HmL, self.WmL,
+                               wpy)
         planes_c = grid_planes(
             torch.cat([ruv_stack[:, :, :Wc], ruv_stack[:, :, Wc:]], 0)
-            .contiguous(), False, self.PADC, self.HmC, self.WmC)
+            .contiguous(), False, self.PADC, self.HmC, self.WmC, wpc)
         _, mv16, sad9_16, ref16 = acc16
         _, mv8, sad9_8, ref8 = acc8
         if has32:
             _, mv32, sad9_32, ref32 = acc32
         model = self.nn.get(qp)
         if model is not None:
-            def fme(mv, sad9, S):
+            def fme(mv, sad9, ref, S, nbh_, nbw_):
                 _, _, off = nn_refine(model, sad9.contiguous(),
                                       height_category(S), width_category(S))
                 return mv * 4 + off
-        else:
-            def fme(mv, sad9, S):
+        elif self.cfg.fme_mode == "dctif":
+            def fme(mv, sad9, ref, S, nbh_, nbw_):
+                return grid_subpel(planes_y, oy, mv.contiguous(),
+                                   ref.contiguous(), S, nbh_, nbw_,
+                                   self.LOOK)
+        else:  # FmeMode none, or nn without weights: integer-pel
+            def fme(mv, sad9, ref, S, nbh_, nbw_):
                 return mv * 4
-        mvq16 = fme(mv16, sad9_16, 16)
-        mvq8 = fme(mv8, sad9_8, 8)
+        mvq16 = fme(mv16, sad9_16, ref16, 16, nh16, nw16)
+        mvq8 = fme(mv8, sad9_8, ref8, 8, h8, w8)
         if has32:
-            mvq32 = fme(mv32, sad9_32, 32)
+            mvq32 = fme(mv32, sad9_32, ref32, 32, nh32, nw32)
 
         # --- sweep + coding per class ---------------------------------------
         use_ts = self.use_tusplit
@@ -1209,9 +1244,13 @@ class GridStep:
         def raw(x):
             return x.contiguous().view(u8).reshape(-1)
 
-        parts = [raw(lvl_y.to(ldt)), raw(lvl_uv.to(ldt)),
-                 rec_y.to(u8).reshape(-1), rec_uv.to(u8).reshape(-1),
-                 log2_map.to(u8).reshape(-1), raw(mv_map.to(torch.int16)),
+        parts = [raw(lvl_y.to(ldt)), raw(lvl_uv.to(ldt))]
+        if self.fetch:
+            parts += [rec_y.to(u8).reshape(-1), rec_uv.to(u8).reshape(-1)]
+        else:  # the recon stays here: its checksums and SSEs instead
+            parts += [raw(t) for t in grid_stats(
+                oy, ouv, rec_y.contiguous(), rec_uv.contiguous())]
+        parts += [log2_map.to(u8).reshape(-1), raw(mv_map.to(torch.int16)),
                  ref_map.to(u8).reshape(-1), cbf_cells.to(u8).reshape(-1),
                  intra_cells.to(u8).reshape(-1),
                  imode_map.to(u8).reshape(-1), part_cells.to(u8).reshape(-1),
@@ -1243,19 +1282,39 @@ def build_ldp_grid_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int,
     """-> (run, meta, qps). run(frames_u8 (n_gops, G, W*H*3/2) uint8,
     navail (n_gops, G) ints, ry_stack (R, H, W) int32, ruv_stack
     (R, H/2, W) int32 packed [U | V], live: per-GOP-position tables of
-    `grid_live_tables`) -> (packed rows (n_gops*G, nbytes) uint8,
-    ry_stack, ruv_stack)."""
+    `grid_live_tables`, wp: with weighted prediction the per-picture
+    (w (n_gops, G, R, 3), o (n_gops, G, R, 3), d (n_gops, G)) int32
+    arrays, as the reference's `run` takes them, nvalid: the pictures
+    to code, default all) -> (packed rows (nvalid, nbytes) uint8,
+    ry_stack, ruv_stack). The reference's compiled scan also codes the
+    padding of a short last chunk; a picture's row depends only on the
+    pictures before it, so stopping at nvalid leaves every row coded
+    equal."""
     step = GridStep(cfg, nn_by_qp, device)
     G = step.G
 
-    def run(frames_u8, navail, ry_stack, ruv_stack, live):
+    def run(frames_u8, navail, ry_stack, ruv_stack, live, wp=None,
+            nvalid=None):
+        if step.use_wp != (wp is not None):
+            raise ValueError("weighted prediction needs its tables, and "
+                             "only it")
         tabs = [_Tabs(lv, step.dev) for lv in live]
+        if wp is not None:
+            wpw, wpo = (torch.as_tensor(np.asarray(a, np.int32),
+                                        device=step.dev) for a in wp[:2])
+            wpd = np.asarray(wp[2], np.int64)
         carry = step.carry0(ry_stack, ruv_stack)
         rows = []
+        nvalid = n_gops * G if nvalid is None else nvalid
         for g in range(n_gops):
             for p in range(G):
+                if len(rows) == nvalid:
+                    break
+                wp_f = (None if wp is None else
+                        (wpw[g, p], wpo[g, p], int(wpd[g, p])))
                 carry, row = step.frame_step(carry, frames_u8[g, p],
-                                             int(navail[g][p]), p, tabs[p])
+                                             int(navail[g][p]), p, tabs[p],
+                                             wp_f)
                 rows.append(row)
         return torch.stack(rows), carry[0], carry[1]
 
@@ -1286,8 +1345,14 @@ def _parse_frame_buf(cfg, buf: np.ndarray) -> dict:
     d = dict(
         lvl_y=take(W * H * lb, ldt, (H, W)).astype(np.int32),
         lvl_uv=take(W * Hc * lb, ldt, (Hc, W)).astype(np.int32),
-        rec_y=take(W * H, np.uint8, (H, W)),
-        rec_uv=take(W * Hc, np.uint8, (Hc, W)),
+    )
+    if fetches_recon(cfg):
+        d.update(rec_y=take(W * H, np.uint8, (H, W)),
+                 rec_uv=take(W * Hc, np.uint8, (Hc, W)))
+    else:
+        d.update(cks=take(12, np.int32, (3,)),
+                 sse=take(12, np.float32, (3,)))
+    d.update(
         log2_map=take(h8 * w8, np.uint8, (h8, w8)).astype(np.int32),
         mv_map=take(h8 * w8 * 4, np.int16, (h8, w8, 2)).astype(np.int32),
         ref_map=take(h8 * w8, np.uint8, (h8, w8)).astype(np.int32),
@@ -1326,15 +1391,20 @@ def frame_bytes(cfg) -> int:
     ny, nx = _ctu_grid(cfg)
     # SAO: 8 int8 rows, five of one byte a CTU and three of four
     sao = 17 * ny * nx if sps.sao_enabled else 0
-    return (W * H * 3 // 2) * (lb + 1) + n8 * 10 + n16 * (1 + 36 + 4) + sao
+    # the recon planes, or three int32 checksums and three float32 SSEs
+    rec = W * H * 3 // 2 if fetches_recon(cfg) else 24
+    return (W * H * 3 // 2) * lb + rec + n8 * 10 + n16 * (1 + 36 + 4) + sao
 
 
 def assemble_grid_frame(cfg, buf: np.ndarray, num_ref: int = 1, col=None):
-    """Fetched frame row -> (FrameSyntax, recon) through the native
-    decision walk. col: the TMVP collocated motion (col_mv16, col_td16) of
-    the previous coded picture, required when the SPS grants TMVP. Intra
-    cells ride the walk as reference sentinel 255 and are written as
-    16x16 intra CUs with DM chroma."""
+    """Fetched frame row -> (FrameSyntax, recon, stats) through the native
+    decision walk: with the recon fetch stats is None; without it recon is
+    None and stats holds the device's checksum hashes (hash_type 2) and
+    SSEs.
+    col: the TMVP collocated motion (col_mv16, col_td16) of the previous
+    coded picture, required when the SPS grants TMVP. Intra cells ride the
+    walk as reference sentinel 255 and are written as 16x16 intra CUs with
+    DM chroma."""
     from ..entropy.native import decision_walk_map_native
     from ..entropy.syntax import FrameSyntax
 
@@ -1397,10 +1467,13 @@ def assemble_grid_frame(cfg, buf: np.ndarray, num_ref: int = 1, col=None):
             ny, nx, type_y=d["sao_ty"], aux_y=d["sao_ay"], off_y=d["sao_oy"],
             type_c=d["sao_tc"], aux_cb=d["sao_acb"], off_cb=d["sao_ocb"],
             aux_cr=d["sao_acr"], off_cr=d["sao_ocr"]))
+    if "cks" in d:
+        hashes = [int(np.uint32(c)).to_bytes(4, "big") for c in d["cks"]]
+        return fs, None, dict(hashes=hashes, hash_type=2, sse=d["sse"])
     rec = (d["rec_y"].astype(np.int32),
            np.ascontiguousarray(d["rec_uv"][:, :Wc]).astype(np.int32),
            np.ascontiguousarray(d["rec_uv"][:, Wc:]).astype(np.int32))
-    return fs, rec
+    return fs, rec, None
 
 
 def _sao_thrift(pp):

@@ -170,6 +170,9 @@ class EncoderConfig:
     rdoq: bool = False           # RD-optimized quantization (host paths)
 
     hash_type: str = "md5"       # decoded-picture-hash SEI: md5|crc|checksum
+    fetch_recon: bool = True     # False: leave the grid's P recon on the
+                                 # device (checksum hash + PSNR computed
+                                 # there; no ReconFile)
     gop_qp_offsets: tuple = ()   # per-GOP-position P-frame QP offsets (HM
                                  # GOP table QPoffset column; () = flat QP)
     gop_qp_factors: tuple = ()   # per-GOP-position QPfactor column; when

@@ -123,6 +123,10 @@ def _b(v: str) -> bool:
     return v.strip().lower() in _TRUE
 
 
+# SEIDecodedPictureHash (HM) -> EncoderConfig.hash_type
+_HASH_TYPES = {1: "md5", 2: "crc", 3: "checksum"}
+
+
 # Keys accepted ONLY at their HM default: any other value would require
 # a feature this encoder does not implement (silently ignoring it would
 # change conformance or the coded toolset). Value = the accepted string.
@@ -276,6 +280,12 @@ def build_config(opts: dict) -> tuple[EncoderConfig, dict]:
             cfg.fme_mode = v.strip()
         elif k == "NNWeightsDir":
             cfg.nn_weights_dir = v.strip()
+        elif k == "SEIDecodedPictureHash":  # HM: 1 MD5, 2 CRC, 3 checksum
+            if int(v) not in _HASH_TYPES:
+                raise NotImplementedError(
+                    f"SEIDecodedPictureHash {v}: only 1 (MD5), 2 (CRC) "
+                    "or 3 (checksum)")
+            cfg.hash_type = _HASH_TYPES[int(v)]
         elif k == "Level":
             cfg.sps.level_idc = int(float(v) * 30)
         elif k == "LoopFilterBetaOffset_div2":

@@ -1,13 +1,14 @@
 """Hand-written CUDA kernels (sm_90a) of the port, and their launch counts.
 
 Each kernel lives in `csrc/<source>.cu` with a plain C entry point (the
-grid step's `grid_me.cu` and `grid_pred.cu` hold two each); `build`
+grid step's `grid_me.cu` and `grid_pred.cu` hold three each); `build`
 compiles a source with nvcc on first use and binds it with ctypes. The
 wrapper that launches a kernel lives beside the op's plain PyTorch version
 (`ops/me.py`, `models/nnfme.py`, `ops/interp.py`, `ops/txq.py`,
 `ops/intra.py`, `ops/cost.py`, `ops/intra_txq.py`, `entropy/bitest.py`,
 `ops/grid_me.py`, `ops/grid_pred.py`, `ops/grid_code.py`,
-`ops/grid_intra.py`, `ops/grid_deblock.py`, `ops/grid_sao.py`) and adds
+`ops/grid_intra.py`, `ops/grid_deblock.py`, `ops/grid_sao.py`,
+`ops/grid_stats.py`) and adds
 one to `LAUNCHES[name]` for every launch, and nowhere else
 (`grid_deblock` launches twice a picture, once per edge direction;
 `grid_sao` twice, its stats and its apply).
@@ -24,7 +25,8 @@ SOURCE_OF = {"sad_search": "sad_search", "nnfme_mlp": "nnfme_mlp",
              "grid_refine": "grid_me", "grid_planes": "grid_pred",
              "grid_satd": "grid_pred", "grid_code": "grid_code",
              "grid_intra16": "grid_intra", "grid_deblock": "grid_deblock",
-             "grid_sao": "grid_sao"}
+             "grid_sao": "grid_sao", "grid_subpel": "grid_pred",
+             "grid_wp_me": "grid_me", "grid_stats": "grid_stats"}
 KERNELS = tuple(SOURCE_OF)
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 

@@ -1,4 +1,4 @@
-// grid_me: the grid step's motion search, two entry points.
+// grid_me: the grid step's motion search, three entry points.
 //
 // tpuhevc_grid_coarse replaces tpuhevc/codec/inter_grid.py:650
 // `coarse_stack` (the +-16 SAD stack on the 2x-pooled level) and the SAD
@@ -20,6 +20,14 @@
 // dcc8), written after the nb main rows in 8-grid order.
 // bits(mv) = 2 bl(2|4 mvx|) + 2 bl(2|4 mvy|) + 2, bl = bit length, which
 // equals the reference's 2 ceil(log2(2a + 1)) on integers.
+//
+// tpuhevc_grid_wp_me replaces :2352-2362, the weighted full-pel search
+// references of explicit weighted prediction (luma): per reference r,
+//   out[r][y][x] = clip(((ref[r][y][x] * w[r] + rnd) >> d) + o[r], 0, 255)
+// with rnd = (1 << d) >> 1 exactly as the reference rounds it (the
+// full-pel special case of weightUnidir, xCalcSADvalueWPOptionalClip).
+// One thread per sample, int32 as in JAX; bound by its bytes (a plane
+// stack read and written once).
 //
 // What bounds it: the coarse stack is (2R + 1)^2 tile sums per block, a
 // few hundred thousand threads of 16-64 pixels each; the refine reads
@@ -189,5 +197,32 @@ extern "C" int tpuhevc_grid_refine(const int* ry, const int* oy,
     refine_kernel<<<nbh * nbw, 256, smem, (cudaStream_t)stream>>>(
         ry, oy, starts, mv, sad9, cost, hr, wr, wo, S, nbh, nbw, G, quads,
         dcc, dcc8, lam, lim);
+    return (int)cudaGetLastError();
+}
+
+namespace {
+
+__global__ void wp_me_kernel(const int* __restrict__ ref,
+                             const int* __restrict__ w,
+                             const int* __restrict__ o, int* __restrict__ out,
+                             int n, int hw, int d) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= (long long)n * hw) return;
+    const int r = (int)(t / hw);
+    const int rnd = (1 << d) >> 1;
+    out[t] = min(max(((ref[t] * w[r] + rnd) >> d) + o[r], 0), 255);
+}
+
+}  // namespace
+
+// ref (n, h, w) int32, w and o (n,) int32, 0 <= d < 31 -> out (n, h, w)
+// int32.
+extern "C" int tpuhevc_grid_wp_me(const int* ref, const int* w, const int* o,
+                                  int* out, int n, int h, int wd, int d,
+                                  void* stream) {
+    const long long total = (long long)n * h * wd;
+    const int threads = 256;
+    wp_me_kernel<<<(int)((total + threads - 1) / threads), threads, 0,
+                   (cudaStream_t)stream>>>(ref, w, o, out, n, h * wd, d);
     return (int)cudaGetLastError();
 }

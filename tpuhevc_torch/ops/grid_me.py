@@ -23,6 +23,12 @@ pick per 8x8 quadrant (the 8-class), from the quadrant partial sums, in
 + 1)) + 2, taken exactly as bit lengths (2a + 1 is odd, so the ceiling
 of its log2 is the bit length of 2a).
 
+`grid_wp_me`, twin of the weighted full-pel search references of
+explicit weighted prediction (:2352-2362, luma): per reference r,
+clip(((ref * w[r] + rnd) >> d) + o[r], 0, 255) with rnd = (1 << d) >> 1.
+The motion search reads these; the phase planes keep the unweighted
+references and fold the weighting into their rounding (`grid_planes`).
+
 `*_plain` are the PyTorch versions; the wrappers launch the CUDA kernels
 (`kernels/csrc/grid_me.cu`) for CUDA tensors.
 """
@@ -216,3 +222,37 @@ def grid_refine(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
     if not quads:
         return main, None
     return main, (mv[nb:], sad9[nb:], cost[nb:])
+
+
+def grid_wp_me_plain(ref: torch.Tensor, w: torch.Tensor, o: torch.Tensor,
+                     d: int) -> torch.Tensor:
+    """ref (n, h, w) int32, w and o (n,) int32 -> (n, h, w) int32."""
+    rnd = (1 << d) >> 1
+    return (((ref * w[:, None, None] + rnd) >> d)
+            + o[:, None, None]).clamp(0, 255)
+
+
+def grid_wp_me(ref: torch.Tensor, w: torch.Tensor, o: torch.Tensor,
+               d: int) -> torch.Tensor:
+    """Kernel `grid_wp_me`. CPU tensors take the plain version; CUDA
+    tensors the kernel."""
+    if ref.device.type == "cpu":
+        return grid_wp_me_plain(ref, w, o, d)
+    if ref.device.type != "cuda":
+        raise ValueError(f"grid_wp_me: unsupported device {ref.device}")
+    dev = ref.device
+    check_tensor(ref, "ref", torch.int32, 3, dev)
+    check_tensor(w, "w", torch.int32, 1, dev)
+    check_tensor(o, "o", torch.int32, 1, dev)
+    n, h, wd = ref.shape
+    if w.shape[0] != n or o.shape[0] != n or not 0 <= d < 31:
+        raise ValueError(f"grid_wp_me: ref {tuple(ref.shape)}, w "
+                         f"{tuple(w.shape)}, o {tuple(o.shape)}, d {d}")
+    out = torch.empty_like(ref)
+    fn = kbuild.function("grid_me", "tpuhevc_grid_wp_me",
+                         [kbuild.P] * 4 + [kbuild.I] * 4 + [kbuild.P])
+    err = fn(ref.data_ptr(), w.data_ptr(), o.data_ptr(), out.data_ptr(), n,
+             h, wd, int(d), torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "grid_wp_me")
+    LAUNCHES["grid_wp_me"] += 1
+    return out

@@ -1,0 +1,82 @@
+"""The grid step's picture statistics without a recon fetch (kernel
+`grid_stats`).
+
+Twin of the `fetch_recon` off branch of the packing tail
+(`tpuhevc/codec/inter_grid.py:3170-3185`, `_xor_mask` :86-91): with the
+checksum hash and no recon fetch, a P picture's row carries, instead of
+its recon planes, per plane (Y, U, V) of the composed, filtered recon
+
+- the int32 picture checksum sum((rec & 0xFF) ^ mask(x, y)) of the
+  decoded-picture-hash SEI (D.3.19), mask(x, y) = (x & 0xFF) ^ (y & 0xFF)
+  ^ (x >> 8) ^ (y >> 8) in the plane's own coordinates;
+- the float32 SSE sum((orig - rec)^2), which only PSNR reads.
+
+The SSE is the exact integer sum rounded once to float32. The reference
+adds float32 squares in XLA's order; the two agree wherever the total is
+below 2^24 (ROADMAP queue 3 logs this divergence).
+
+`grid_stats_plain` is the PyTorch version; the wrapper launches the CUDA
+kernel (`kernels/csrc/grid_stats.cu`) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import check_tensor
+from ..kernels import LAUNCHES
+from ..kernels import build as kbuild
+
+
+def xor_mask(h: int, w: int, dev) -> torch.Tensor:
+    """(h, w) int64 per-sample mask of the checksum hash (D.3.19)."""
+    x = torch.arange(w, device=dev)[None]
+    y = torch.arange(h, device=dev)[:, None]
+    return (x & 0xFF) ^ (y & 0xFF) ^ (x >> 8) ^ (y >> 8)
+
+
+def grid_stats_plain(oy: torch.Tensor, ouv: torch.Tensor, rec_y: torch.Tensor,
+                     rec_uv: torch.Tensor):
+    """oy, rec_y (H, W) int32; ouv, rec_uv (H/2, W) int32 packed [U | V]
+    -> (cks (3,) int32, sse (3,) float32), in the order Y, U, V."""
+    wc = rec_uv.shape[1] // 2
+    planes = ((oy, rec_y), (ouv[:, :wc], rec_uv[:, :wc]),
+              (ouv[:, wc:], rec_uv[:, wc:]))
+    cks, sse = [], []
+    for o, r in planes:
+        m = xor_mask(*r.shape, r.device)
+        cks.append(((r.long() & 0xFF) ^ m).sum())
+        sse.append(((o.long() - r.long()) ** 2).sum())
+    # the checksum wraps as an int32 sum; the exact SSE is rounded once
+    cks = (torch.stack(cks) + (1 << 31)) % (1 << 32) - (1 << 31)
+    return cks.int(), torch.stack(sse).double().float()
+
+
+def grid_stats(oy: torch.Tensor, ouv: torch.Tensor, rec_y: torch.Tensor,
+               rec_uv: torch.Tensor):
+    """Kernel `grid_stats`. CPU tensors take the plain version; CUDA
+    tensors the kernel."""
+    if rec_y.device.type == "cpu":
+        return grid_stats_plain(oy, ouv, rec_y, rec_uv)
+    if rec_y.device.type != "cuda":
+        raise ValueError(f"grid_stats: unsupported device {rec_y.device}")
+    dev = rec_y.device
+    for t, name in ((oy, "oy"), (ouv, "ouv"), (rec_y, "rec_y"),
+                    (rec_uv, "rec_uv")):
+        check_tensor(t, name, torch.int32, 2, dev)
+    h, w = rec_y.shape
+    if (tuple(oy.shape) != (h, w) or tuple(ouv.shape) != (h // 2, w)
+            or tuple(rec_uv.shape) != (h // 2, w) or h % 2 or w % 2):
+        raise ValueError(f"grid_stats: oy {tuple(oy.shape)}, ouv "
+                         f"{tuple(ouv.shape)}, rec_y {(h, w)}, rec_uv "
+                         f"{tuple(rec_uv.shape)}")
+    cks = torch.empty(3, dtype=torch.int32, device=dev)
+    sse = torch.empty(3, dtype=torch.float32, device=dev)
+    fn = kbuild.function("grid_stats", "tpuhevc_grid_stats",
+                         [kbuild.P] * 4 + [kbuild.I] * 2 + [kbuild.P] * 3)
+    err = fn(oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
+             rec_uv.data_ptr(), h, w, cks.data_ptr(), sse.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "grid_stats")
+    LAUNCHES["grid_stats"] += 1
+    return cks, sse

@@ -2,6 +2,7 @@
 
     python -m tpuhevc_torch.profile_path --path ra [--width 416 --height 240
         --frames 18 --reps 3 --trace chiprun_out/ra_trace.json]
+    python -m tpuhevc_torch.profile_path --path bench
 
 Encodes the synthetic clip of `tools/make_test_clip.py` (seed 7) through
 `codec.encoder.encode_sequence` with one of the repository's cfgs: `ra`
@@ -17,6 +18,15 @@ kernels and copies themselves, not the host operators that launched
 them, which the profiler credits with the same time), its idle share
 1 - busy / wall over the profiled encode. Prints the card's
 name and power limit beside every number. Needs a CUDA device.
+
+`bench` runs bench.py's clip, cfg and procedure on the port: 32 frames of
+`make_clip(416, 240, 32)`, the anchor LD-P cfg at QP 32 with four
+references, IntraPeriod -1, FmeMode nn, the checksum hash and no recon
+fetch (the P pictures' recon stays on the card); a 6-frame warm-up
+encode, then the best of 4 timed encodes, printed as frames/s. The repo
+ships no NN-FME weights, so FmeMode nn runs integer-pel there, as it
+does in bench.py. This is not a benchmark and prints no comparison with
+bench.py's target, which was set for a TPU.
 """
 
 from __future__ import annotations
@@ -34,7 +44,10 @@ CFGS = {
     "ra": ("encoder_randomaccess_main.cfg", []),
     "ldp": ("encoder_lowdelay_P_main.cfg", []),
     "intra": ("encoder_intra_main.cfg", []),
+    # bench.py: the checksum hash without the recon fetch, no NN weights
+    "bench": ("encoder_lowdelay_P_main.cfg", ["--SEIDecodedPictureHash=3"]),
 }
+BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -73,37 +86,50 @@ def main(argv=None) -> int:
     ap.add_argument("--path", choices=sorted(CFGS), default="ra")
     ap.add_argument("--width", type=int, default=416)
     ap.add_argument("--height", type=int, default=240)
-    ap.add_argument("--frames", type=int, default=18)
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="default 18; bench: 32")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="default 3; bench: 4, the best of them")
     ap.add_argument("--trace", default=None,
                     help="write the profiled encode's chrome trace here")
     args = ap.parse_args(argv)
+    bench = args.path == "bench"
+    frames = args.frames or (BENCH_FRAMES if bench else 18)
+    reps = args.reps or (BENCH_REPS if bench else 3)
     dev = require_cuda()
     gpu = gpu_line()
-    clip = _Clip(args.width, args.height, args.frames)
+    clip = _Clip(args.width, args.height, frames)
     cfg_file, extra = CFGS[args.path]
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "nnfme_seeded.npz")
         save_npz(npz, {32: random_params(0)})
+        # bench.py names no weights: FmeMode nn runs integer-pel
+        weights = [] if bench else [f"--NNWeightsDir={npz}"]
 
-        def encode():
+        def encode(n=frames):
             cfg, _ = build_config(parse_args([
                 "-c", os.path.join(ROOT, "cfg", cfg_file),
                 "-wdt", str(args.width), "-hgt", str(args.height),
-                "-f", str(args.frames), "-q", "32",
-                f"--NNWeightsDir={npz}"] + extra))
+                "-f", str(n), "-q", "32"] + weights + extra))
+            cfg.fetch_recon = not bench
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            enc, _ = encode_sequence(clip, cfg, device=dev)
+            enc, _ = encode_sequence(clip, cfg, max_frames=n, device=dev)
             torch.cuda.synchronize()
             return enc, time.perf_counter() - t0
 
-        encode()
-        secs = [encode()[1] for _ in range(args.reps)]
-        print(f"{args.path} {args.width}x{args.height} x {args.frames}: warm "
+        encode(BENCH_WARMUP if bench else frames)
+        secs = [encode()[1] for _ in range(reps)]
+        print(f"{args.path} {args.width}x{args.height} x {frames}: warm "
               f"encodes {[round(s, 4) for s in secs]} s, "
-              f"{args.frames / min(secs):.3f} frames/s at best | {gpu}",
+              f"{frames / min(secs):.3f} frames/s at best | {gpu}",
               flush=True)
+        if bench:
+            print("bench: bench.py's clip, cfg and procedure (the anchor LD-P "
+                  "cfg, QP 32, 4 references, the checksum hash, no recon "
+                  "fetch; a 6-frame warm-up, the best of 4); FmeMode nn ran "
+                  "integer-pel for want of NN-FME weights, as in bench.py",
+                  flush=True)
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
