@@ -21,7 +21,10 @@
    tools cut (the flat quantiser); grid_subpel, grid_wp_me, grid_stats and
    the weighted grid_planes at every call of one 416x240 P picture of the
    anchor cfg with FmeMode dctif, WeightedPredP 1, the checksum hash and
-   no recon fetch, on the fade clip (some weights not the identity).
+   no recon fetch, on the fade clip (some weights not the identity);
+   intra_wave (fixed-8x8 intra of whole pictures) on 3 frames of the
+   416x240 clip at QP 32 and at the graft entry's shape (192x128, QP 32,
+   planes from np.random.default_rng(0)), all seven outputs.
    Prints the max difference, median times (CUDA events), and each
    kernel's bound: the larger of its bytes (each tensor read or written
    once per picture; a plane that a kernel reads through windows or
@@ -50,18 +53,25 @@
    bench.py's clip (`make_clip(416, 240, 32)`) with bench.py's procedure
    (a 6-frame warm-up, then the best of 4 timed encodes, counters reset
    before each): grid_stats must have launched, the rows carry no recon.
+   Main path 6, all-intra with fixed 8x8 intra: cfg/encoder_intra_main.cfg
+   with intra_qt off, 8 pictures through encode_sequence(...,
+   device_batch=4), counters reset just before: intra_wave must have
+   launched twice (one launch a batch) and no other kernel. Paths 1-5 must
+   not launch intra_wave.
    Decodes every stream with the port's host decoder: every picture hash
    must match and, where the recon was fetched, equal the encoder's.
    Cross-checks CUDA against the CPU path (bitstreams byte-identical) at
    112x72 for LD-P (the non-grid scan: K1-K4) and all-intra, at 128x64 x
    9 for LD-P through the grid step (the anchor's tools on, and cut; with
-   dctif and WP on the fade clip; bench.py's no-fetch configuration), and
-   at 64x48 x 6 for random access.
+   dctif and WP on the fade clip; bench.py's no-fetch configuration), at
+   64x48 x 6 for random access, and with fixed 8x8 intra at 104x72 x 3
+   all-intra with device_batch=2 and at 112x72 x 3 LD-P (its IDR).
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -85,6 +95,7 @@ from tpuhevc_torch.codec import inter_b, inter_grid, intra_decide  # noqa: E402
 from tpuhevc_torch.codec.decoder import decode_stream  # noqa: E402
 from tpuhevc_torch.codec.encoder import encode_sequence  # noqa: E402
 from tpuhevc_torch.codec.inter_batch import _blk_idx, _positions, _win_idx  # noqa: E402
+from tpuhevc_torch.codec.intra_frame import _sqlam_fp, wave_tables  # noqa: E402
 from tpuhevc_torch.codec.intra_decide import decide_intra_qt  # noqa: E402
 from tpuhevc_torch.codec.params import EncoderConfig, SeqParams, p_frame_lambda  # noqa: E402
 from tpuhevc_torch.codec.recon import _pad_to  # noqa: E402
@@ -114,6 +125,7 @@ from tpuhevc_torch.ops.interp import (  # noqa: E402
     b_pred, b_pred_plain, mc_blk, mc_blk_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_txq import intra_txq, intra_txq_plain  # noqa: E402
+from tpuhevc_torch.ops.intra_wave import WaveTables, intra_wave, intra_wave_plain  # noqa: E402
 from tpuhevc_torch.ops.me import (  # noqa: E402
     b_me, b_me_plain, bits_table, sad_search, sad_search_plain)
 from tpuhevc_torch.ops.txq import b_txq, b_txq_plain, txq, txq_plain  # noqa: E402
@@ -164,6 +176,8 @@ SOURCES = {
                    "tpuhevc/codec/inter_grid.py:2352"),
     "grid_stats": ("tpuhevc_torch/kernels/csrc/grid_stats.cu",
                    "tpuhevc/codec/inter_grid.py:3170"),
+    "intra_wave": ("tpuhevc_torch/kernels/csrc/intra_wave.cu",
+                   "tpuhevc/codec/intra_jax.py:182"),
 }
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
@@ -183,6 +197,8 @@ FWP_NEED = INTRA + G_KERNELS + ("grid_subpel", "grid_wp_me")
 # bench.py's configuration: FmeMode nn without weights runs integer-pel
 BENCH_NEED = INTRA + G_KERNELS + ("grid_stats",)
 BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
+# fixed-8x8 all-intra: pictures, and pictures per launch
+N_INTRA8, INTRA8_BATCH = 8, 4
 INTRA_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
 RA_CFG = os.path.join(ROOT, "cfg", "encoder_randomaccess_main.cfg")
 N_INTRA = 3  # all-intra pictures (the host walk dominates their time)
@@ -245,6 +261,8 @@ def tensors(x):
         yield from tensors(x.packed)
     elif hasattr(x, "itab"):  # EstTables
         yield from (x.itab, x.ftab)
+    elif isinstance(x, WaveTables):  # what the kernel reads of the schedule
+        yield from (x.cells, x.flags)
 
 
 def window_mask(plane, xs, ys, mvq, size, is_luma, sel=None):
@@ -470,6 +488,14 @@ def kernel_ops(name, a, kw=None) -> int:
         return a[0].numel() * 5
     if name == "grid_stats":  # mask, xor, add; difference, square, add
         return (a[2].numel() + a[3].numel()) * 10
+    if name == "intra_wave":  # per 8x8 cell: 35 predictions (6 ops a
+        # sample), differences and Hadamards (8 ops a sample), the mode
+        # costs, the chosen luma block's 4 transform stages (2 S ops an
+        # output) and quantisers; chroma one prediction and the same at 4x4
+        cells = a[0].numel() // 64
+        luma = 35 * 64 * (6 + 8) + 35 * 4 + 4 * 64 * 16 + 64 * 12
+        chroma = 2 * (16 * 6 + 4 * 16 * 8 + 16 * 12)
+        return cells * (luma + chroma)
     raise KeyError(name)
 
 
@@ -966,7 +992,76 @@ def check_grid_kernels(dev, npz, params):
     return rows
 
 
-def run_path(dev, cfg, nframes, fade=False, reader=None):
+def intra8_cfg(w, h, frames):
+    """cfg/encoder_intra_main.cfg at w x h with fixed 8x8 intra (intra_qt
+    off; sign hiding off, as the cfg ships)."""
+    cfg = intra_cfg(w, h, frames)
+    cfg.intra_qt = False
+    return cfg
+
+
+def graft_planes(dev):
+    """The inputs of the graft entry's flagship step (copied from
+    `__graft_entry__.entry()`, not imported): 192x128 planes from
+    np.random.default_rng(0), as (1, H, W) / (1, H/2, W/2) int32."""
+    rng = np.random.default_rng(0)
+    oy = rng.integers(0, 256, (128, 192))
+    ou = rng.integers(0, 256, (64, 96))
+    ov = rng.integers(0, 256, (64, 96))
+    return [torch.as_tensor(p, dtype=torch.int32, device=dev)[None]
+            .contiguous() for p in (oy, ou, ov)]
+
+
+def check_intra_wave(dev):
+    """Kernel vs plain on the card for intra_wave, all seven outputs exact:
+    (a) 3 frames of the 416x240 clip at QP 32 in one launch (the main
+    path's batches), (b) the graft entry's step, 192x128 at QP 32 with
+    max_tu_depth_intra 0. Returns {name: row}; ms/plain_ms per launch of
+    (a); `steps` its dependency depth."""
+    clip = Reader(W, H, 3).frames
+    graft = EncoderConfig(sps=SeqParams(width=192, height=128,
+                                        max_tu_depth_intra=0), qp=32,
+                          intra_period=1, intra_qt=False)
+    cases = [("416x240 x 3", intra8_cfg(W, H, 3),
+              [torch.as_tensor(np.stack([f[i] for f in clip]).astype(
+                  np.int32), device=dev) for i in range(3)]),
+             ("192x128 graft", graft, graft_planes(dev))]
+    row = None
+    for tag, cfg, planes in cases:
+        sps = cfg.sps
+        geo = wave_tables(sps.coded_width, sps.coded_height, sps.log2_ctu,
+                          dev)
+        args = (*planes, geo, cfg.qp, _sqlam_fp(cfg),
+                sps.strong_intra_smoothing)
+        a, b = intra_wave(*args), intra_wave_plain(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for x, y in zip(a, b):
+            check(x.dtype == y.dtype == torch.int32 and x.shape == y.shape,
+                  f"intra_wave {tag}: {x.dtype}{tuple(x.shape)} vs "
+                  f"{y.dtype}{tuple(y.shape)}")
+            err = max(err, float((x.double() - y.double()).abs().max()))
+        check(err == 0, f"intra_wave {tag}: outputs differ by {err}")
+        ms = median_ms(lambda: intra_wave(*args), reps=10)
+        plain_ms = median_ms(lambda: intra_wave_plain(*args), reps=1)
+        work = Work()
+        work.add("intra_wave", args, a)
+        bound_ms, bound_by = bound_of(dict(work=work))
+        nf, steps = planes[0].shape[0], geo.cells.shape[0]
+        print(f"kernel intra_wave   {tag}: max_abs_err {err:.3g} kernel_ms "
+              f"{ms:.4f} ({ms / nf:.4f} a picture) plain_ms {plain_ms:.4f} "
+              f"bound {bound_ms:.6f} ms ({bound_by}; {work.bytes} bytes, "
+              f"{work.ops} operations) dependency depth {steps} waves of "
+              f"up to {geo.cells.shape[1]} cells ({ms / steps * 1e3:.2f} us "
+              f"a wave)", flush=True)
+        if row is None:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, work=work,
+                       steps=steps)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    return {"intra_wave": row}
+
+
+def run_path(dev, cfg, nframes, fade=False, reader=None, device_batch=0):
     """One main path through encode_sequence with the launch counters set
     to 0 just before and read just after; returns (enc, recons, seconds,
     launches)."""
@@ -975,7 +1070,7 @@ def run_path(dev, cfg, nframes, fade=False, reader=None):
     reset_launches()
     t0 = time.time()
     enc, recons = encode_sequence(reader, cfg, max_frames=nframes,
-                                  device=dev)
+                                  device=dev, device_batch=device_batch)
     torch.cuda.synchronize()
     secs = time.time() - t0
     return enc, recons, secs, dict(LAUNCHES)
@@ -1033,6 +1128,59 @@ def cross_check_cpu(npz):
               f"{w}x{h}: CUDA and CPU streams differ")
         out.append(len(a.bitstream()))
     return out
+
+
+def cross_check_intra8(npz):
+    """CUDA vs CPU of fixed-8x8 intra: all-intra at 104x72 x 3 (partial
+    CTUs on both axes) with device_batch=2, two launches; the IDR of LD-P
+    at 112x72 x 3 (the anchor with its four tools cut: the non-grid scan,
+    SBH off), one launch. The streams byte-identical; returns their
+    sizes."""
+    out = []
+    for make, w, h, db, want in (
+            (lambda: intra8_cfg(104, 72, 3), 104, 72, 2, 2),
+            (lambda: dataclasses.replace(ldp_cfg(npz, 112, 72, 3, cut=True),
+                                         intra_qt=False), 112, 72, 0, 1)):
+        r = Reader(w, h, 3)
+        reset_launches()
+        a, _ = encode_sequence(r, make(), device="cuda", device_batch=db)
+        check(LAUNCHES["intra_wave"] == want,
+              f"{w}x{h} fixed 8x8: intra_wave launched "
+              f"{LAUNCHES['intra_wave']}, want {want}")
+        b, _ = encode_sequence(r, make(), device="cpu", device_batch=db)
+        check(a.bitstream() == b.bitstream(),
+              f"{w}x{h} fixed 8x8: CUDA and CPU streams differ")
+        out.append(len(a.bitstream()))
+    return out
+
+
+def run_intra8(dev, gpu):
+    """Main path 6: fixed-8x8 all-intra, 8 pictures of the 416x240 clip
+    through encode_sequence(..., device_batch=4), after a warm-up encode of
+    one batch; intra_wave launches once a batch, nothing else launches,
+    every picture decodes hash-OK with the encoder's recon. Returns its
+    launches."""
+    run_path(dev, intra8_cfg(W, H, INTRA8_BATCH), INTRA8_BATCH,
+             device_batch=INTRA8_BATCH)
+    enc, recons, secs, launches = run_path(
+        dev, intra8_cfg(W, H, N_INTRA8), N_INTRA8,
+        device_batch=INTRA8_BATCH)
+    check_stream(enc, recons, N_INTRA8, launches, ("intra_wave",),
+                 "fixed-8x8 all-intra")
+    want = -(-N_INTRA8 // INTRA8_BATCH)
+    others = {k: v for k, v in launches.items() if v and k != "intra_wave"}
+    check(launches["intra_wave"] == want and not others,
+          f"fixed-8x8 all-intra: launches {launches}, want intra_wave "
+          f"{want} and nothing else")
+    kbits = sum(r.bits for r in enc.results) / 1000
+    psnr = np.mean([r.psnr_y for r in enc.results])
+    pic = [round(r.seconds, 3) for r in enc.results]
+    print(f"main path fixed-8x8 all-intra: {W}x{H} x {N_INTRA8} pictures, "
+          f"device_batch {INTRA8_BATCH}, in {secs:.3f} s = "
+          f"{N_INTRA8 / secs:.3f} frames/s (host encode_frame per picture "
+          f"{pic} s) | {kbits:.1f} kbit, Y-PSNR {psnr:.3f} dB | launches "
+          f"{launches} | {gpu}", flush=True)
+    return launches
 
 
 def run_fme_wp(dev, npz, gpu):
@@ -1156,6 +1304,7 @@ def main():
         rows.update(check_intra_kernels(dev, npz))
         rows.update(check_b_kernels(dev, npz, params))
         rows.update(check_grid_kernels(dev, npz, params))
+        rows.update(check_intra_wave(dev))
 
         # LD-P: a warm-up encode (the grid step's first picture pays the
         # libraries' loads), then the counted one
@@ -1205,6 +1354,13 @@ def main():
         bench_launches = run_bench(dev, gpu)
         for k in KERNELS:
             launches[k] += bench_launches[k]
+        # paths 1-5 run quadtree intra: the fixed-8x8 kernel stays idle
+        check(launches["intra_wave"] == 0,
+              f"paths 1-5 launched intra_wave {launches['intra_wave']} times")
+
+        i8_launches = run_intra8(dev, gpu)
+        for k in KERNELS:
+            launches[k] += i8_launches[k]
 
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
@@ -1212,14 +1368,17 @@ def main():
               f"grid 128x64 {sizes[2]} bytes, with the tools cut "
               f"{sizes[3]} bytes, with dctif + WP {sizes[4]} bytes, without "
               f"the recon fetch {sizes[5]} bytes, random access 64x48 "
-              f"{sizes[6]} bytes)", flush=True)
+              f"{sizes[6]} bytes; fixed 8x8: all-intra 104x72, LD-P "
+              f"112x72 {cross_check_intra8(npz)} bytes)", flush=True)
 
     kernels = []
     for k in KERNELS:
         r = rows[k]
         bound_ms, bound_by = bound_of(r)
         print(f"bound {k}: {r['work'].bytes} bytes, {r['work'].ops} "
-              f"operations -> {bound_ms:.6f} ms ({bound_by})")
+              f"operations -> {bound_ms:.6f} ms ({bound_by})"
+              + (f"; dependency depth {r['steps']} waves" if "steps" in r
+                 else ""))
         if "wp" in r:
             print(f"bound {k} (weighted): {r['wp']['bound_ms']:.6f} ms "
                   f"({r['wp']['bound_by']}); kernel_ms {r['wp']['ms']:.4f} "

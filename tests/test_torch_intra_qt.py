@@ -159,7 +159,7 @@ print("jax loaded:", "jax" in sys.modules, "rc", rc)
 
 
 OUTSIDE = {  # name: (cfg-file options, EncoderConfig fields)
-    "fixed_8x8_intra": ([], dict(intra_qt=False)),
+    "multiple_slices": ([], dict(slice_ctus=2)),
     "bit_depth_10": (["--InputBitDepth=10", "--InternalBitDepth=10"], {}),
     "rate_control": (["--RateControl=1", "--TargetBitrate=200000"], {}),
     "scaling_list": (["--ScalingList=1"], {}),

@@ -194,7 +194,7 @@ OUTSIDE = {
     "dctif": dict(fme_mode="dctif"),
     "random_access": dict(gop_structure="ra"),
     "rate_control": dict(target_bitrate=200000),
-    "fixed_8x8_intra": dict(intra_qt=False),
+    "intra_period_8": dict(intra_period=8),
     "bit_depth_10": dict(bit_depth=10),
     "scaling_list": dict(scaling_list=True),
 }

@@ -12,7 +12,9 @@ for sm_90a (`kernels/csrc`).
 Ported so far, driven by `codec/encoder.py:encode_sequence`: the
 open-loop quadtree intra decision (`codec/intra_decide.py`, the twin of
 `tpuhevc.codec.intra_decide_jax`), which decides every all-intra picture
-and every IDR; the LD-P NN-FME chunked scan (`codec/inter_batch.py`, the
+and every IDR; fixed-8x8 intra pictures coded whole on the device over
+dependency wavefronts (`codec/intra_frame.py`, the twin of
+`tpuhevc.codec.intra_jax`); the LD-P NN-FME chunked scan (`codec/inter_batch.py`, the
 twin of `tpuhevc.codec.inter_batch.build_ldp_scan`); and random access:
 the B step (`codec/inter_b.py`, twin of `inter_b._b_step`) and the
 per-frame P stage (`codec/inter_enc.py`, twin of `inter_enc._stage_fn`)

@@ -4,7 +4,12 @@ random access, and the per-picture `Encoder`.
 All-intra: every picture through the port's quadtree intra decision on
 the device (`codec/intra_qt.py`), then the host coding walk, in-loop
 filters and CABAC (`Encoder.encode_frame`); the twin of the last branch
-of `tpuhevc/codec/encoder.py:encode_sequence` with the JAX decision.
+of `tpuhevc/codec/encoder.py:encode_sequence` with the JAX decision. With
+fixed 8x8 intra (`intra_qt` off) each picture is coded whole on the device
+(`codec/intra_frame.py`, kernel `intra_wave`), or with sign hiding on by
+the host's closed loop (`recon.encode_frame_intra`); `device_batch` codes
+batches of pictures in one launch each (the reference's branch at its
+`encoder.py:518-527`), with sign hiding off only.
 
 LD-P: the IDR the same way (decided twice, `intra_two_pass`), then chunks
 of P frames through a device scan, host serialisation of chunk i-1
@@ -50,10 +55,11 @@ from . import inter_grid
 from .inter_b import encode_frame_b
 from .inter_batch import build_ldp_scan, collect_frame
 from .inter_enc import assemble_frame_p, encode_frame_p
+from .intra_frame import encode_frame_intra_device, encode_frames_intra_batch
 from .intra_qt import encode_frame_intra_qt
 from .params import (B_SLICE, I_SLICE, P_SLICE, EncoderConfig,
                      i_frame_lambda, p_frame_lambda)
-from .recon import _pad_to
+from .recon import _pad_to, encode_frame_intra
 from .sao_enc import apply_sao_picture, decide_sao_params
 from .wp import WpParams, analyse_slice_wp
 
@@ -74,8 +80,12 @@ class Encoder:
     filters, CABAC and NAL packing (the reference's `Encoder`,
     `tpuhevc/codec/encoder.py:38-490`, cut to the configurations
     `check_slice` admits). I pictures go through the quadtree intra
-    decision on `device`; P pictures without a precomputed result through
-    the per-frame device stage (`inter_enc.encode_frame_p`)."""
+    decision on `device`, or with fixed 8x8 intra through the wavefront
+    kernel on `device` (the reference's `encode_frame_intra_jax`) where
+    sign hiding is off and the host's closed loop where it is on (the
+    reference's choice at its `encoder.py:62-71`); P pictures without a
+    precomputed result through the per-frame device stage
+    (`inter_enc.encode_frame_p`)."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         self.cfg = cfg
@@ -86,8 +96,14 @@ class Encoder:
         self.first_of_au: list[bool] = []
         self.results: list[FrameResult] = []
         self._wrote_ps = False
-        self._frame_encoder = functools.partial(encode_frame_intra_qt,
-                                                device=device)
+        if cfg.intra_qt:
+            self._frame_encoder = functools.partial(encode_frame_intra_qt,
+                                                    device=device)
+        elif not cfg.pps.sign_data_hiding:
+            self._frame_encoder = functools.partial(
+                encode_frame_intra_device, device=device)
+        else:
+            self._frame_encoder = encode_frame_intra
         self.dpb_recon = None  # previous frame recon (single-ref LD-P)
         self._nn_cache: dict = {}
         # end-of-slice context states of the last P slice per QP: the
@@ -325,14 +341,14 @@ def check_slice(cfg: EncoderConfig) -> None:
     at coded sizes in whole 16x16 blocks (the grid step; elsewhere the
     non-grid scan, which has none of them); random access driven by a GOP
     table of B pictures, with NN-FME or integer-pel, those six tools off
-    and a coded size in whole 16x16 blocks; all 8-bit, quadtree intra, one
-    slice, no weighted bi-prediction."""
+    and a coded size in whole 16x16 blocks; all 8-bit, quadtree or fixed
+    8x8 intra (all-intra pictures and the IDR alike), one slice, no
+    weighted bi-prediction."""
     sps, pps = cfg.sps, cfg.pps
     off = [
         (cfg.target_bitrate > 0, "rate control"),
         (sps.bit_depth != 8, f"bit depth {sps.bit_depth}"),
         (sps.scaling_list_enabled, "scaling lists"),
-        (not cfg.intra_qt, "fixed 8x8 intra"),
         (cfg.adaptive_qp, "adaptive QP"),
         (pps.tiles_enabled or pps.entropy_coding_sync or cfg.slice_ctus > 0,
          "tiles, wavefronts or multiple slices"),
@@ -553,14 +569,21 @@ def _ldp_scan_pipelined(enc, cfg, frames, finish, device) -> None:
 
 
 def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
-                    device="cuda"):
+                    device="cuda", device_batch: int = 0):
     """Encode frames read from `reader` (read_frame(i) -> (y, u, v) or
     None): every picture intra with IntraPeriod 1; with a GOP table of B
     pictures, random access (IDR, hierarchical B pictures in decode order,
     P pictures after the last whole GOP); else one IDR followed by P
     pictures. Returns (Encoder, recons), as
     `tpuhevc.codec.encoder.encode_sequence` does. `device` is explicit: a
-    CUDA device that is absent raises, it never falls back to the CPU."""
+    CUDA device that is absent raises, it never falls back to the CPU.
+
+    device_batch > 0, with IntraPeriod 1 and fixed 8x8 intra: batches of
+    that many pictures, each coded in one kernel launch and fetched in one
+    copy (a short last batch as it is). With sign hiding on, the pictures
+    go one by one through the host's closed loop instead, which hides
+    signs (the reference's batch path ignores SignHideFlag, and its
+    streams then fail their hashes)."""
     dev = resolve(device)
     check_slice(cfg)
     enc = Encoder(cfg, device=dev)
@@ -577,7 +600,14 @@ def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
         enc.encode_frame(*fr, poc=i, precomputed=pre, slice_info=slice_info)
         recons.append(enc._recon)
 
-    if cfg.gop_structure == "ra" and len(frames) > 1:
+    if (device_batch > 0 and cfg.intra_period == 1 and not cfg.intra_qt
+            and not cfg.pps.sign_data_hiding):
+        for s in range(0, len(frames), device_batch):
+            chunk = frames[s : s + device_batch]
+            for j, (fs, rec) in enumerate(
+                    encode_frames_intra_batch(chunk, cfg, dev)):
+                _finish(s + j, chunk[j], (fs, rec, None))
+    elif cfg.gop_structure == "ra" and len(frames) > 1:
         _gop_table_driven(enc, cfg, frames, _finish)
     elif cfg.intra_period == -1 and len(frames) > 1:
         # TMVP rides the grid's native collocated walk: granted in the

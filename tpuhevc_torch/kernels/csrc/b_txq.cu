@@ -75,10 +75,7 @@ __global__ void b_txq_kernel(const int* __restrict__ cur,
 
     int nz = 0;
     for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int x = L[e] * dqscale;
-        const int dq = dqshift > 0 ? (x + (1 << (dqshift - 1))) >> dqshift
-                                   : x * (1 << -dqshift);
-        A[e] = clip16(dq);
+        A[e] = tx_dequant(L[e], dqscale, dqshift);
         nz |= L[e] != 0;
     }
     nz = block_sum(nz, scratch);  // barrier: A complete

@@ -110,11 +110,7 @@ __global__ void grid_code_kernel(const int* __restrict__ orig,
     for (int e = threadIdx.x; e < n2; e += blockDim.x) {
         const int l = L[e];
         nz += l != 0;
-        const int x = l * q.dqscale;
-        const int dq = q.dqshift > 0
-                           ? (x + (1 << (q.dqshift - 1))) >> q.dqshift
-                           : x * (1 << -q.dqshift);
-        A[e] = clip16(dq);
+        A[e] = tx_dequant(l, q.dqscale, q.dqshift);
     }
     nz = block_sum(nz, scratch);  // barrier: A, L complete
     tx_inverse(A, B, T, log2);

@@ -83,9 +83,7 @@ __global__ void intra_txq_kernel(const int* __restrict__ org,
 
     if (!rdoq) {
         for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-            const int c = A[e];
-            const int level = (abs(c) * qscale + qadd) >> qbits;
-            L[e] = clip16(c < 0 ? -level : level);
+            L[e] = tx_quant(A[e], qscale, qadd, qbits);
         }
     } else {
         rdoq_levels(A, L, F1, F2, F3, F4, cg_rice, cg_keep, log2, ftab, rq);
@@ -96,10 +94,7 @@ __global__ void intra_txq_kernel(const int* __restrict__ org,
     for (int e = threadIdx.x; e < n2; e += blockDim.x) {
         const int lev = L[e];
         lo[e] = lev;
-        const int x = lev * dqscale;
-        const int dq = dqshift > 0 ? (x + (1 << (dqshift - 1))) >> dqshift
-                                   : x * (1 << -dqshift);
-        A[e] = clip16(dq);
+        A[e] = tx_dequant(lev, dqscale, dqshift);
     }
     __syncthreads();
     tx_inverse(A, B, T, log2);

@@ -21,46 +21,13 @@
 // same sum of magnitudes as any Hadamard ordering) and adds its rounded
 // tile sum to the mode's total with an integer shared atomic (order
 // free). One thread then selects the top-nc by repeated first-minimum.
+// The butterfly is hadamard.cuh's.
 
-#include <cuda_runtime.h>
+#include "hadamard.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-template <int T>
-__device__ __forceinline__ int hadamard_abs_sum(int (&v)[T * T]) {
-#pragma unroll
-    for (int r = 0; r < T; ++r) {
-#pragma unroll
-        for (int h = 1; h < T; h <<= 1) {
-#pragma unroll
-            for (int i = 0; i < T; ++i) {
-                if (i & h) continue;
-                const int a = v[r * T + i], b = v[r * T + i + h];
-                v[r * T + i] = a + b;
-                v[r * T + i + h] = a - b;
-            }
-        }
-    }
-#pragma unroll
-    for (int c = 0; c < T; ++c) {
-#pragma unroll
-        for (int h = 1; h < T; h <<= 1) {
-#pragma unroll
-            for (int i = 0; i < T; ++i) {
-                if (i & h) continue;
-                const int a = v[i * T + c], b = v[(i + h) * T + c];
-                v[i * T + c] = a + b;
-                v[(i + h) * T + c] = a - b;
-            }
-        }
-    }
-    int s = 0;
-#pragma unroll
-    for (int i = 0; i < T * T; ++i) s += abs(v[i]);
-    return s;
-}
 
 template <int T>
 __device__ __forceinline__ int tile_satd(const int* org, const int* pred,

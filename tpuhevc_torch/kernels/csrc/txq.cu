@@ -64,17 +64,12 @@ __global__ void txq_kernel(const int* __restrict__ cur,
     // quantise, count, dequantise
     int nz = 0, bits = 0;
     for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int c = A[e];
-        const int level = (abs(c) * qscale + qadd) >> qbits;
-        const int lev = clip16(c < 0 ? -level : level);
+        const int lev = tx_quant(A[e], qscale, qadd, qbits);
         L[e] = lev;
         const int a = abs(lev);
         nz += a != 0;
         bits += 2 * min(15, 32 - __clz(a)) + (a != 0);
-        const int x = lev * dqscale;
-        const int dq = dqshift > 0 ? (x + (1 << (dqshift - 1))) >> dqshift
-                                   : x * (1 << -dqshift);
-        A[e] = clip16(dq);
+        A[e] = tx_dequant(lev, dqscale, dqshift);
     }
     nz = block_sum(nz, scratch);  // its barriers also complete A
     bits = block_sum(bits, scratch);

@@ -1,5 +1,5 @@
 """Hadamard SATD of the 35-mode bank and the per-block top-k (kernel
-`satd35_topk`).
+`satd35_topk`), and the host SATD of the 8x8 intra path.
 
 Twin of `satd35` (`tpuhevc/codec/intra_decide_jax.py:75-84`) and of the
 `lax.top_k(-sat, nc)` at `:130`: for every block and mode the SATD of
@@ -13,10 +13,16 @@ equal.
 `satd35_topk_plain` is the PyTorch version (stable ascending sort, not
 `torch.topk`, whose tie order is unspecified); `satd35_topk` launches the
 CUDA kernel (`kernels/csrc/satd35_topk.cu`) for CUDA tensors.
+
+`hadamard` and `satd_np` are numpy copies of `tpuhevc/ops/cost.py:18-45`
+for the host closed-loop intra encode (`codec/recon.py`).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from ..device import check_tensor
@@ -86,3 +92,28 @@ def satd35_topk(org: torch.Tensor, preds: torch.Tensor, nc: int):
     kbuild.check(err, "satd35_topk")
     LAUNCHES["satd35_topk"] += 1
     return sat, topk
+
+
+# --- numpy host SATD (the host closed-loop intra encode) ---------------------
+
+
+@lru_cache(maxsize=None)
+def hadamard(n: int) -> np.ndarray:
+    if n == 1:
+        return np.array([[1]], dtype=np.int32)
+    h = hadamard(n // 2)
+    return np.block([[h, h], [h, -h]]).astype(np.int32)
+
+
+def satd_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """HM-style Hadamard SATD for 4x4 or 8x8 blocks (batched: (..., S, S))."""
+    s = a.shape[-1]
+    h = hadamard(s)
+    d = a.astype(np.int32) - b.astype(np.int32)
+    m = h @ d @ h.T
+    tot = np.abs(m).sum(axis=(-1, -2))
+    if s == 8:
+        return (tot + 2) >> 2
+    if s == 4:
+        return (tot + 1) >> 1
+    return tot >> (s.bit_length() - 1)

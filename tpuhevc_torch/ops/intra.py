@@ -187,11 +187,10 @@ def predict_all_modes_plain(tops: torch.Tensor, lefts: torch.Tensor, S: int,
     return torch.stack(preds, dim=1).int()
 
 
-def _init_tables(dev: torch.device) -> None:
-    """Copy each mode's angle, inverse angle and filter flags by log2 size
-    into the kernel's constant memory."""
-    if dev.index in _INIT_DEVICES:
-        return
+def intra_tables():
+    """Each mode's angle, inverse angle (modes 11..25, else 0) and filter
+    flags by log2 size [log2 - 2][mode], int32 host arrays: the constant
+    tables of intra_pred.cuh."""
     ang = np.zeros(35, np.int32)
     inv = np.zeros(35, np.int32)
     flt = np.zeros(4 * 35, np.int32)
@@ -202,12 +201,19 @@ def _init_tables(dev: torch.device) -> None:
     for log2 in range(2, 6):
         for m in range(35):
             flt[(log2 - 2) * 35 + m] = int(filter_flag(m, log2))
+    return ang, inv, flt
+
+
+def _init_tables(dev: torch.device) -> None:
+    """Copy each mode's angle, inverse angle and filter flags by log2 size
+    into the kernel's constant memory."""
+    if dev.index in _INIT_DEVICES:
+        return
     fn = kbuild.function("intra_bank", "tpuhevc_intra_bank_init",
                          [kbuild.P] * 3)
     with torch.cuda.device(dev):
-        kbuild.check(fn(ang.ctypes.data_as(ctypes.c_void_p),
-                        inv.ctypes.data_as(ctypes.c_void_p),
-                        flt.ctypes.data_as(ctypes.c_void_p)),
+        kbuild.check(fn(*(a.ctypes.data_as(ctypes.c_void_p)
+                          for a in intra_tables())),
                      "intra_bank init")
     _INIT_DEVICES.add(dev.index)
 

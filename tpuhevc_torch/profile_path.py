@@ -3,13 +3,17 @@
     python -m tpuhevc_torch.profile_path --path ra [--width 416 --height 240
         --frames 18 --reps 3 --trace chiprun_out/ra_trace.json]
     python -m tpuhevc_torch.profile_path --path bench
+    python -m tpuhevc_torch.profile_path --path intra8 --frames 8
 
 Encodes the synthetic clip of `tools/make_test_clip.py` (seed 7) through
 `codec.encoder.encode_sequence` with one of the repository's cfgs: `ra`
 (cfg/encoder_randomaccess_main.cfg as shipped), `ldp`
 (cfg/encoder_lowdelay_P_main.cfg as shipped: RDOQ, sign hiding, SAO and
-deblocking on, the P pictures through the grid step) or `intra`
-(cfg/encoder_intra_main.cfg), QP 32,
+deblocking on, the P pictures through the grid step), `intra`
+(cfg/encoder_intra_main.cfg) or `intra8` (the same cfg with fixed 8x8
+intra, `intra_qt` off: every picture coded whole by kernel `intra_wave`, four
+pictures a launch through `encode_sequence(..., device_batch=4)`), QP
+32,
 NN-FME weights random from seed 0. One encode warms up (kernel builds,
 caches), `reps` more are timed on the host clock ended by
 `torch.cuda.synchronize()`, and a last one runs under `torch.profiler`:
@@ -44,10 +48,12 @@ CFGS = {
     "ra": ("encoder_randomaccess_main.cfg", []),
     "ldp": ("encoder_lowdelay_P_main.cfg", []),
     "intra": ("encoder_intra_main.cfg", []),
+    "intra8": ("encoder_intra_main.cfg", []),  # with intra_qt off
     # bench.py: the checksum hash without the recon fetch, no NN weights
     "bench": ("encoder_lowdelay_P_main.cfg", ["--SEIDecodedPictureHash=3"]),
 }
 BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
+INTRA8_BATCH = 4  # intra8: pictures a launch, as chip_smoke.py runs it
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -112,9 +118,14 @@ def main(argv=None) -> int:
                 "-wdt", str(args.width), "-hgt", str(args.height),
                 "-f", str(n), "-q", "32"] + weights + extra))
             cfg.fetch_recon = not bench
+            intra8 = args.path == "intra8"
+            if intra8:
+                cfg.intra_qt = False
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            enc, _ = encode_sequence(clip, cfg, max_frames=n, device=dev)
+            enc, _ = encode_sequence(clip, cfg, max_frames=n, device=dev,
+                                     device_batch=INTRA8_BATCH if intra8
+                                     else 0)
             torch.cuda.synchronize()
             return enc, time.perf_counter() - t0
 

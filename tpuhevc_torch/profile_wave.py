@@ -1,0 +1,135 @@
+"""Where a wave of kernel `intra_wave` spends its time, on the card.
+
+    python -m tpuhevc_torch.profile_wave [--width 416 --height 240
+        --frames 3]
+
+Builds `kernels/csrc/intra_wave.cu` as it is and three variants with
+steps cut out of each wave (`no_cost`: no 35-mode costs, so every cell
+takes mode 0; `refs_only`: the slots, reference gathers, filtered
+references and argmin; `empty`: the slots and argmin alone) into
+`build/tpuhevc_torch/variants/`, runs each on the same frames of the
+synthetic clip of `tools/make_test_clip.py` (seed 7) at QP 32, and
+prints the median CUDA-event time of 7 launches, and per wave (the
+dependency depth), with the card's name and power limit. The full
+kernel must equal its plain version; the variants compute something else
+and are only timed. The differences between rows are the steps' shares
+of a wave. Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+# (variant, [(first line of a cut, first line after it)]) of intra_wave.cu
+CUTS = {
+    "no_cost": [("        // 4. the cost", "        // 5. the first mode")],
+    "refs_only": [("        // 4. the cost", "        // 5. the first mode"),
+                  ("        // 6. the chosen", "    }\n}\n\n}  // namespace")],
+    "empty": [("        // 2. references", "        // 5. the first mode"),
+              ("        // 6. the chosen", "    }\n}\n\n}  // namespace")],
+}
+
+
+def _cut(src: str, cuts) -> str:
+    for start, end in cuts:
+        a = src.index(start)
+        src = src[:a] + src[src.index(end, a):]
+    return src
+
+
+def _build_variants() -> dict:
+    """{name: ctypes library} of the kernel as it is and its variants."""
+    from .kernels import build as kbuild
+
+    with open(os.path.join(kbuild.CSRC, "intra_wave.cu")) as f:
+        src = f.read()
+    out_dir = os.path.join(kbuild.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, cuts in CUTS.items():
+        cu = os.path.join(out_dir, f"intra_wave_{name}.cu")
+        with open(cu, "w") as f:
+            f.write(_cut(src, cuts))
+        so = cu[:-3] + ".so"
+        procs[name] = (subprocess.Popen(
+            [kbuild.nvcc()] + kbuild.FLAGS + ["-I", kbuild.CSRC, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {"full": kbuild.library("intra_wave")}
+    for name, (p, so) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def main(argv=None) -> int:
+    from .codec.intra_frame import _sqlam_fp, wave_tables
+    from .codec.params import EncoderConfig, SeqParams
+    from .device import require_cuda
+    from .kernels import build as kbuild
+    from .ops import intra_wave as iw
+    from .profile_path import _Clip, gpu_line
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--width", type=int, default=416)
+    ap.add_argument("--height", type=int, default=240)
+    ap.add_argument("--frames", type=int, default=3)
+    args = ap.parse_args(argv)
+    dev = require_cuda()
+    gpu = gpu_line()
+    w, h, n = args.width, args.height, args.frames
+    cfg = EncoderConfig(sps=SeqParams(width=w, height=h), qp=32,
+                        intra_period=1, intra_qt=False)
+    clip = _Clip(w, h, n).frames
+    planes = [torch.as_tensor(np.stack([f[i] for f in clip]).astype(np.int32),
+                              device=dev) for i in range(3)]
+    geo = wave_tables(w, h, cfg.sps.log2_ctu, dev)
+    steps = geo.cells.shape[0]
+    ref = iw.intra_wave_plain(*planes, geo, cfg.qp, _sqlam_fp(cfg))
+    libs = _build_variants()
+    init_args = iw.table_arrays()
+    for name, lib in libs.items():
+        init = lib.tpuhevc_intra_wave_init
+        init.argtypes = [kbuild.P] * 4
+        kbuild.check(init(*(a.ctypes.data_as(ctypes.c_void_p)
+                            for a in init_args)), f"{name} init")
+        fn = lib.tpuhevc_intra_wave
+        fn.argtypes = [kbuild.P] * 12 + [kbuild.I] * 18 + [kbuild.P]
+        outs = [torch.zeros_like(r) for r in ref]
+
+        def run():
+            kbuild.check(iw.launch(fn, planes, geo, outs, cfg.qp,
+                                   _sqlam_fp(cfg), True, 8), name)
+
+        run()
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(outs, ref))
+        if name == "full" and not exact:
+            raise RuntimeError("intra_wave differs from its plain version")
+        times = []
+        for _ in range(7):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = statistics.median(times)
+        print(f"intra_wave {name:9s} {w}x{h} x {n}: {ms:.4f} ms a launch, "
+              f"{ms / steps * 1e3:.2f} us a wave ({steps} waves)"
+              f"{' (equal to the plain version)' if exact else ''} | {gpu}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
