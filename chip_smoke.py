@@ -25,6 +25,12 @@
    intra_wave (fixed-8x8 intra of whole pictures) on 3 frames of the
    416x240 clip at QP 32 and at the graft entry's shape (192x128, QP 32,
    planes from np.random.default_rng(0)), all seven outputs.
+   grid_sao_decide (the SAO decision, the launch between grid_sao's two)
+   at every call of the same anchor P picture, its rows and the SAO'd
+   planes exact; stripe_prescreen (the multi-device path's intra
+   prescreen, one launch a stripe) at 416x240 in 1 and 3 stripes and at
+   the graft entry's dryrun shape (128x128 in 2); grid_refine with
+   ry_y0 at every call of the 3-stripe refine at 416x240.
    Prints the max difference, median times (CUDA events), and each
    kernel's bound: the larger of its bytes (each tensor read or written
    once per picture; a plane that a kernel reads through windows or
@@ -57,7 +63,19 @@
    with intra_qt off, 8 pictures through encode_sequence(...,
    device_batch=4), counters reset just before: intra_wave must have
    launched twice (one launch a batch) and no other kernel. Paths 1-5 must
-   not launch intra_wave.
+   not launch intra_wave. Paths 1, 4 and 5 must decide SAO on the card:
+   the plain `ops.grid_sao.sao_decide` is called 0 times, grid_sao
+   launches twice (stats, apply) and grid_sao_decide once a P picture.
+   Main path 7, the multi-device path on a mesh of n x cuda:0 (one card
+   runs the stripes in turn; no scaling figure), counters reset just
+   before: tile_prescreen at 416x240 over 3 stripes equals it over 1
+   off the last block rows of stripes 0 and 1; stripe_refine at 416x240
+   over 3 stripes (80 rows, over the 40-row halo; the coarse winners of
+   frame 1 against frame 0) equals the single refine; encode_segments_
+   overlapped on 16 frames of the anchor LD-P cfg in 2 segments decodes
+   hash-OK and equals the segments' own encode_sequence streams with the
+   repeated parameter sets dropped; dryrun_multichip(2, "cuda");
+   stripe_prescreen, grid_refine and the grid kernels must have launched.
    Decodes every stream with the port's host decoder: every picture hash
    must match and, where the recon was fetched, equal the encoder's.
    Cross-checks CUDA against the CPU path (bitstreams byte-identical) at
@@ -102,6 +120,7 @@ from tpuhevc_torch.codec.recon import _pad_to  # noqa: E402
 from tpuhevc_torch.codec.wp import analyse_slice_wp  # noqa: E402
 from tpuhevc_torch.config.options import build_config, parse_args  # noqa: E402
 from tpuhevc_torch.device import require_cuda  # noqa: E402
+from tpuhevc_torch.entropy import bitio  # noqa: E402
 from tpuhevc_torch.entropy.bitest import tu_bits, tu_bits_plain  # noqa: E402
 from tpuhevc_torch.kernels import KERNELS, LAUNCHES, reset_launches  # noqa: E402
 from tpuhevc_torch.kernels import build as kbuild  # noqa: E402
@@ -115,11 +134,18 @@ from tpuhevc_torch.ops.grid_deblock import (  # noqa: E402
 from tpuhevc_torch.ops.grid_intra import grid_intra16, grid_intra16_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_me import (  # noqa: E402
     grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain,
-    grid_wp_me, grid_wp_me_plain)
+    grid_wp_me, grid_wp_me_plain, tile_sum)
 from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
     grid_planes, grid_planes_plain, grid_satd, grid_satd_plain, grid_subpel,
     grid_subpel_plain, subpel_search)
-from tpuhevc_torch.ops.grid_sao import grid_sao, grid_sao_plain  # noqa: E402
+from tpuhevc_torch.ops import grid_sao as grid_sao_mod  # noqa: E402
+from tpuhevc_torch.ops.grid_sao import (  # noqa: E402
+    grid_sao, grid_sao_decide, grid_sao_decide_plain, grid_sao_plain)
+from tpuhevc_torch.ops.stripe_prescreen import (  # noqa: E402
+    stripe_prescreen, stripe_prescreen_plain)
+from tpuhevc_torch.parallel import mesh as mesh_mod  # noqa: E402
+from tpuhevc_torch.parallel import segments  # noqa: E402
+from tpuhevc_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from tpuhevc_torch.ops.grid_stats import grid_stats, grid_stats_plain  # noqa: E402
 from tpuhevc_torch.ops.interp import (  # noqa: E402
     b_pred, b_pred_plain, mc_blk, mc_blk_plain)
@@ -170,6 +196,8 @@ SOURCES = {
                      "tpuhevc/codec/inter_grid.py:1217"),
     "grid_sao": ("tpuhevc_torch/kernels/csrc/grid_sao.cu",
                  "tpuhevc/codec/inter_grid.py:1427"),
+    "grid_sao_decide": ("tpuhevc_torch/kernels/csrc/grid_sao.cu",
+                        "tpuhevc/codec/inter_grid.py:1377"),
     "grid_subpel": ("tpuhevc_torch/kernels/csrc/grid_pred.cu",
                     "tpuhevc/codec/inter_grid.py:1012"),
     "grid_wp_me": ("tpuhevc_torch/kernels/csrc/grid_me.cu",
@@ -178,13 +206,15 @@ SOURCES = {
                    "tpuhevc/codec/inter_grid.py:3170"),
     "intra_wave": ("tpuhevc_torch/kernels/csrc/intra_wave.cu",
                    "tpuhevc/codec/intra_jax.py:182"),
+    "stripe_prescreen": ("tpuhevc_torch/kernels/csrc/stripe_prescreen.cu",
+                         "tpuhevc/parallel/mesh.py:32"),
 }
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
 G_KERNELS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
              "grid_code", "grid_intra16", "grid_deblock", "grid_sao")
 # the LD-P path at 416x240: the IDR's decision, the grid step and K2
-LDP_NEED = INTRA + G_KERNELS + ("nnfme_mlp",)
+LDP_NEED = INTRA + G_KERNELS + ("grid_sao_decide", "nnfme_mlp")
 # the random-access path: the B step, the P tail's stage (K1-K4) and K2
 RA_NEED = B_KERNELS + ("nnfme_mlp", "sad_search", "mc_blk", "txq")
 # DCT-IF FME, weighted prediction and the no-fetch tail of the grid step
@@ -193,9 +223,10 @@ FME_WP = ["--FmeMode=dctif", "--WeightedPredP=1"]
 NO_FETCH = ["--SEIDecodedPictureHash=3"]
 # LD-P with dctif + WP: the IDR's decision, the grid step, its DCT-IF
 # refinement and weighted ME references (no K2: no NN-FME)
-FWP_NEED = INTRA + G_KERNELS + ("grid_subpel", "grid_wp_me")
+FWP_NEED = INTRA + G_KERNELS + ("grid_sao_decide", "grid_subpel",
+                                 "grid_wp_me")
 # bench.py's configuration: FmeMode nn without weights runs integer-pel
-BENCH_NEED = INTRA + G_KERNELS + ("grid_stats",)
+BENCH_NEED = INTRA + G_KERNELS + ("grid_sao_decide", "grid_stats")
 BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
 # fixed-8x8 all-intra: pictures, and pictures per launch
 N_INTRA8, INTRA8_BATCH = 8, 4
@@ -477,6 +508,15 @@ def kernel_ops(name, a, kw=None) -> int:
         return ops
     if name == "grid_sao":  # 4 EO classes and the band per sample, twice
         return (a[2].numel() + a[3].numel()) * 50
+    if name == "grid_sao_decide":  # per CTU and component: 16 EO
+        # categories and 32 bands of 8 candidates (~9 operations each),
+        # the 29 band windows, the types; the picture sums
+        n = a[0].shape[1]
+        return n * 3 * (16 * 8 * 9 + 32 * 8 * 9 + 29 * 4 + 40) + 2 * n
+    if name == "stripe_prescreen":  # per sample and mode: the prediction
+        # (~6), the residual and the Hadamard stages (~8); the argmin
+        return (a[0].numel() * 35 * (6 + 8)
+                + a[0].numel() // 64 * 35 * 2)
     if name == "grid_intra16":
         decide = kw.get("cur", a[6] if len(a) > 6 else None) is not None
         return a[4] * a[5] * ((7 * 256 * 14 if decide else 256 * 4)
@@ -854,6 +894,8 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_subpel": (grid_subpel, grid_subpel_plain),
     "grid_wp_me": (grid_wp_me, grid_wp_me_plain),
     "grid_stats": (grid_stats, grid_stats_plain),
+    "grid_sao_decide": (grid_sao_decide, grid_sao_decide_plain),
+    "stripe_prescreen": (stripe_prescreen, stripe_prescreen_plain),
 }
 
 
@@ -954,6 +996,7 @@ def check_grid_kernels(dev, npz, params):
         print(f"kernel {name:12s} P picture calls {len(calls[name]):3d} "
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} (per P picture)", flush=True)
+    rows.update(check_sao_decide(calls["grid_sao"]))
     cut = capture_grid_calls(dev, ldp_cfg(npz, cut=True), params,
                              ("grid_code",))[0]["grid_code"]
     err = compare_calls("grid_code", cut)
@@ -990,6 +1033,138 @@ def check_grid_kernels(dev, npz, params):
               f"plain_ms {r['plain_ms']:.4f} (per P picture, dctif + WP, no "
               f"fetch)", flush=True)
     return rows
+
+
+def host_ms(fn, reps=10):
+    """Median host time of fn (what the caller waits before it can issue
+    more work; no synchronisation inside), ms."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def check_sao_decide(sao_calls):
+    """grid_sao_decide against its plain version at every call of the
+    anchor P picture (the statistics that grid_sao's kernel gives for each
+    recorded grid_sao call; grid_sao's own phase holds the SAO'd planes
+    and rows against grid_sao_plain): par and the parameter rows exact.
+    Also times
+    grid_sao whole, with the decision as the kernel and, as before it was
+    one, as the plain torch glue between the two kernels: CUDA-event and
+    host time per P picture. Returns {"grid_sao_decide": row}."""
+    calls = {"grid_sao_decide": []}
+    saved = recording(grid_sao_mod, ("grid_sao_decide",), calls)
+    try:
+        for a, k in sao_calls:
+            grid_sao(*a, **k)
+        torch.cuda.synchronize()
+    finally:
+        grid_sao_mod.grid_sao_decide = saved["grid_sao_decide"]
+    dc = calls["grid_sao_decide"]
+    check(len(dc) == len(sao_calls), f"grid_sao_decide: {len(dc)} calls for "
+          f"{len(sao_calls)} of grid_sao")
+    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
+    r["max_abs_err"] = compare_calls("grid_sao_decide", dc, r["work"])
+    r["ms"] = median_ms(lambda: [grid_sao_decide(*a, **k) for a, k in dc],
+                        reps=20)
+    r["plain_ms"] = median_ms(
+        lambda: [grid_sao_decide_plain(*a, **k) for a, k in dc], reps=5)
+
+    def whole():
+        return [grid_sao(*a, **k) for a, k in sao_calls]
+
+    after = (median_ms(whole, reps=20), host_ms(whole))
+    grid_sao_mod.grid_sao_decide = grid_sao_decide_plain
+    try:
+        before = (median_ms(whole, reps=10), host_ms(whole))
+    finally:
+        grid_sao_mod.grid_sao_decide = saved["grid_sao_decide"]
+    r["sao"] = dict(event_ms=after[0], host_ms=after[1],
+                    glue_event_ms=before[0], glue_host_ms=before[1])
+    print(f"kernel grid_sao_decide P picture calls {len(dc):3d} max_abs_err "
+          f"{r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} plain_ms "
+          f"{r['plain_ms']:.4f} (per P picture) | grid_sao whole per P "
+          f"picture: event {after[0]:.4f} ms, host {after[1]:.4f} ms; with "
+          f"the decision as torch glue: event {before[0]:.4f} ms, host "
+          f"{before[1]:.4f} ms", flush=True)
+    return {"grid_sao_decide": r}
+
+
+def multi_calls(dev):
+    """The stripe kernels' calls of main path 7 at 416x240: the prescreen
+    of frame 1's luma over 1 and 3 stripes and of the dryrun's 128x128
+    plane over 2, and the refine of frame 1 against frame 0 over 3
+    stripes (the coarse winners of the grid's coarse search), recorded ->
+    ({name: [(args, kwargs)]}, prescreen args, refine args, the refine
+    functions)."""
+    clip = Reader(W, H, 2).frames
+    oy = torch.as_tensor(clip[1][0].astype(np.int32), device=dev)
+    ry = torch.as_tensor(clip[0][0].astype(np.int32), device=dev)
+    cfg = ldp_cfg(None)
+    step = inter_grid.GridStep(cfg, {}, dev)
+    qp = step.qps[0]
+    lam_me = int(round(np.sqrt(p_frame_lambda(cfg, 0, qp)) * 256))
+    s16, sum16 = grid_coarse(tile_sum(oy, 2).int(), step._pad_edge(
+        tile_sum(ry, 2).int(), step.R2), step.nc, 8, 1, True)
+    cx4, cy4 = step.pick_coarse(s16, sum16, qp, lam_me, H // 16, W // 16, 1)
+    graft = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, 256, (128, 128)), dtype=torch.int32, device=dev)
+    calls = {"stripe_prescreen": [], "grid_refine": []}
+    saved = recording(mesh_mod, ("stripe_prescreen",), calls)
+    saved_g = recording(inter_grid, ("grid_refine",), calls)
+    try:
+        for n, plane in ((1, oy), (3, oy), (2, graft)):
+            mesh_mod.tile_prescreen(mesh_mod.make_mesh(n), *plane.shape)(
+                plane)
+        refine = mesh_mod.stripe_refine(cfg, {}, mesh_mod.make_mesh(3))
+        refine[0](oy, ry, cx4.contiguous(), cy4.contiguous())
+        torch.cuda.synchronize()
+    finally:
+        mesh_mod.stripe_prescreen = saved["stripe_prescreen"]
+        inter_grid.grid_refine = saved_g["grid_refine"]
+    return calls, oy, (oy, ry, cx4.contiguous(), cy4.contiguous()), refine
+
+
+def check_multi_kernels(calls, rows):
+    """stripe_prescreen at every call of 416x240 in 1 and 3 stripes and of
+    the dryrun's 128x128 in 2, and grid_refine with ry_y0 at every call of
+    the 3-stripe refine at 416x240 (multi_calls), against their plain
+    versions: exact. Returns {"stripe_prescreen": row}; ms/plain_ms per
+    prescreen of 416x240 in 3 stripes; grid_refine's row gains the
+    stripes' max difference."""
+    pre = calls["stripe_prescreen"]
+    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
+    r["max_abs_err"] = compare_calls("stripe_prescreen", pre)
+    three = pre[1:4]  # the 3-stripe calls at 416x240
+    check(len(pre) == 6 and all(a[0].shape == (H // 3, W) for a, _ in three),
+          f"stripe_prescreen calls {[tuple(a[0].shape) for a, _ in pre]}")
+    for a, k in three:
+        r["work"].add("stripe_prescreen", a, stripe_prescreen(*a, **k), k)
+    r["ms"] = median_ms(lambda: [stripe_prescreen(*a, **k) for a, k in three],
+                        reps=20)
+    r["plain_ms"] = median_ms(
+        lambda: [stripe_prescreen_plain(*a, **k) for a, k in three], reps=3)
+    print(f"kernel stripe_prescreen calls {len(pre)} (416x240 in 1 and 3 "
+          f"stripes, 128x128 in 2) max_abs_err {r['max_abs_err']:.3g} "
+          f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} (416x240 "
+          f"in 3 stripes)", flush=True)
+    ref = calls["grid_refine"]
+    check(len(ref) == 3 and all(a[-1] == 40 for a, _ in ref),
+          f"grid_refine stripe calls: ry_y0 {[a[-1] for a, _ in ref]}")
+    err = compare_calls("grid_refine", ref)
+    ms = median_ms(lambda: [grid_refine(*a, **k) for a, k in ref], reps=20)
+    rows["grid_refine"]["max_abs_err"] = max(
+        rows["grid_refine"]["max_abs_err"], err)
+    rows["grid_refine"]["stripes_ms"] = ms
+    print(f"kernel grid_refine   3 stripes of 416x240 with ry_y0 40: "
+          f"max_abs_err {err:.3g} kernel_ms {ms:.4f}", flush=True)
+    return {"stripe_prescreen": r}
 
 
 def intra8_cfg(w, h, frames):
@@ -1061,19 +1236,47 @@ def check_intra_wave(dev):
     return {"intra_wave": row}
 
 
+PLAIN_DECIDE = [0]  # calls of the plain SAO decision since the last reset
+
+
+def count_plain_decide():
+    """Wrap ops.grid_sao.sao_decide (the plain SAO decision) with a
+    counter, for the paths' check that the card decides SAO itself."""
+    real = grid_sao_mod.sao_decide
+
+    def counted(*a, **kw):
+        PLAIN_DECIDE[0] += 1
+        return real(*a, **kw)
+
+    grid_sao_mod.sao_decide = counted
+
+
 def run_path(dev, cfg, nframes, fade=False, reader=None, device_batch=0):
-    """One main path through encode_sequence with the launch counters set
-    to 0 just before and read just after; returns (enc, recons, seconds,
-    launches)."""
+    """One main path through encode_sequence with the launch counters (and
+    the plain SAO decision's count) set to 0 just before and read just
+    after; returns (enc, recons, seconds, launches)."""
     reader = reader or Reader(W, H, nframes, fade)
     torch.cuda.synchronize()
     reset_launches()
+    PLAIN_DECIDE[0] = 0
     t0 = time.time()
     enc, recons = encode_sequence(reader, cfg, max_frames=nframes,
                                   device=dev, device_batch=device_batch)
     torch.cuda.synchronize()
     secs = time.time() - t0
-    return enc, recons, secs, dict(LAUNCHES)
+    return enc, recons, secs, dict(LAUNCHES, plain_sao_decide=PLAIN_DECIDE[0])
+
+
+def check_sao_on_card(launches, n_p, what):
+    """SAO decided on the card: the plain decision never called, grid_sao
+    launched twice (stats, apply) and grid_sao_decide once a P picture."""
+    check(launches["plain_sao_decide"] == 0,
+          f"{what}: the plain sao_decide ran {launches['plain_sao_decide']} "
+          "times on the card")
+    check(launches["grid_sao"] == 2 * n_p
+          and launches["grid_sao_decide"] == n_p,
+          f"{what}: grid_sao {launches['grid_sao']}, grid_sao_decide "
+          f"{launches['grid_sao_decide']} for {n_p} P pictures")
 
 
 def check_stream(enc, recons, n, launches, need, what):
@@ -1214,6 +1417,7 @@ def run_fme_wp(dev, npz, gpu):
         inter_grid.assemble_grid_frame = real_asm
         encoder_mod.analyse_slice_wp = real_wp
     check_stream(enc, recons, NFRAMES, launches, FWP_NEED, "LD-P dctif + WP")
+    check_sao_on_card(launches, NFRAMES - 1, "LD-P dctif + WP")
     check(seen["frac"] > 0, "LD-P dctif + WP: no fractional MV")
     check(seen["weighted"] > 0, "LD-P dctif + WP: identity weights only")
     kbits = sum(r.bits for r in enc.results) / 1000
@@ -1263,6 +1467,7 @@ def run_bench(dev, gpu):
         secs.append(s)
     missing = [k for k in BENCH_NEED if bl[k] <= 0]
     check(not missing, f"bench: kernels not launched: {missing}")
+    check_sao_on_card(bl, BENCH_FRAMES - 1, "bench")
     check(len(enc.results) == BENCH_FRAMES and recons[0] is not None
           and all(r is None for r in recons[1:]),
           "bench: the P pictures' recon was fetched")
@@ -1278,6 +1483,76 @@ def run_bench(dev, gpu):
           f"integer-pel for want of NN-FME weights | launches {bl} | {gpu}",
           flush=True)
     return bl
+
+
+N_SEG_FRAMES, N_SEGS = 16, 2  # path 7's segment encode
+MULTI_NEED = ("stripe_prescreen", "grid_refine") + LDP_NEED
+
+
+def run_multi(dev, npz, gpu, plane, rargs, refine):
+    """Main path 7, multi-device on a mesh of n x cuda:0 (one card runs
+    the stripes in turn): the prescreen of `plane` and the stripe refine
+    (`refine` on `rargs`, from multi_calls) at 416x240 over 3 stripes
+    against 1, the overlapped segment encode of 16 anchor LD-P frames in 2
+    segments against the segments' own streams, and dryrun_multichip(2,
+    "cuda"), with the counters reset just before and read just after.
+    Returns its launches."""
+    sharded, single, halo = refine
+    reader = Reader(W, H, N_SEG_FRAMES)
+    segs = segments.split_segments(N_SEG_FRAMES, N_SEGS)
+    own = [encode_sequence(segments.ListReader(reader.frames[s : s + n]),
+                           ldp_cfg(npz, frames=n), device=dev)[0]
+           for s, n in segs]
+    want = bitio.write_annexb(own[0].nals + own[1].nals[3:],
+                              own[0].first_of_au + own[1].first_of_au[3:])
+    torch.cuda.synchronize()
+    reset_launches()
+    PLAIN_DECIDE[0] = 0
+    t0 = time.time()
+    m1 = mesh_mod.tile_prescreen(mesh_mod.make_mesh(1), H, W)(plane)
+    m3 = mesh_mod.tile_prescreen(mesh_mod.make_mesh(3), H, W)(plane)
+    r3, r1 = sharded(*rargs), single(*rargs)
+    t1 = time.time()
+    mesh2 = mesh_mod.make_mesh(N_SEGS)
+    stream, results = segments.encode_segments_overlapped(
+        reader.frames, ldp_cfg(npz, frames=N_SEG_FRAMES), N_SEGS,
+        mesh2.devices)
+    t2 = time.time()
+    dry = dryrun_multichip(2, "cuda")
+    torch.cuda.synchronize()
+    t3 = time.time()
+    launches = dict(LAUNCHES, plain_sao_decide=PLAIN_DECIDE[0])
+    missing = [k for k in MULTI_NEED if launches[k] <= 0]
+    check(not missing, f"multi-device: kernels not launched: {missing}")
+    check(launches["plain_sao_decide"] == 0,
+          "multi-device: the plain sao_decide ran on the card")
+    inner = torch.ones(H // 8, dtype=torch.bool)
+    inner[[H // 24 - 1, 2 * H // 24 - 1]] = False  # stripes 0, 1: last rows
+    for a, b, k in zip(m1, m3, ("mode", "cost")):
+        check(a.shape == (H // 8, W // 8) and torch.equal(a[inner], b[inner]),
+              f"prescreen {k}: 3 stripes differ from 1 off the stripes' "
+              "last block rows")
+    edge = int((m1[0][~inner] != m3[0][~inner]).sum())
+    for a, b, k in zip(r3, r1, ("mv", "sad9", "cost")):
+        check(torch.equal(a, b), f"stripe refine {k}: 3 stripes differ from "
+              "the single refine")
+    check(stream == want, "segments: the overlapped stream differs from the "
+          "segments' own streams")
+    frames = decode_stream(stream)
+    check(len(frames) == N_SEG_FRAMES and len(results) == N_SEG_FRAMES
+          and all(f.md5_ok for f in frames),
+          f"segments: hashes {[f.md5_ok for f in frames]}")
+    print(f"main path multi-device (mesh of n x {dev}): prescreen 416x240 in "
+          f"3 stripes == 1 off the stripes' last block rows ({edge} of "
+          f"{int((~inner).sum()) * (W // 8)} boundary modes differ, as the "
+          f"reference's stripes clamp there); stripe refine in 3 stripes "
+          f"(halo {halo}) == single; both in {t1 - t0:.3f} s | overlapped "
+          f"segments {W}x{H} x {N_SEG_FRAMES} in {N_SEGS}: {len(stream)} "
+          f"bytes == the segments' own streams, hash OK, {t2 - t1:.3f} s "
+          f"= {N_SEG_FRAMES / (t2 - t1):.3f} fps | dryrun_multichip(2): "
+          f"{dry} in {t3 - t2:.3f} s | launches {launches} | {gpu}",
+          flush=True)
+    return launches
 
 
 def main():
@@ -1305,12 +1580,16 @@ def main():
         rows.update(check_b_kernels(dev, npz, params))
         rows.update(check_grid_kernels(dev, npz, params))
         rows.update(check_intra_wave(dev))
+        multi = multi_calls(dev)
+        rows.update(check_multi_kernels(multi[0], rows))
+        count_plain_decide()
 
         # LD-P: a warm-up encode (the grid step's first picture pays the
         # libraries' loads), then the counted one
         run_path(dev, ldp_cfg(npz, frames=3), 3)
         enc, recons, secs, launches = run_path(dev, ldp_cfg(npz), NFRAMES)
         check_stream(enc, recons, NFRAMES, launches, LDP_NEED, "LD-P")
+        check_sao_on_card(launches, NFRAMES - 1, "LD-P")
         kbits = sum(r.bits for r in enc.results) / 1000
         psnr = np.mean([r.psnr_y for r in enc.results])
         print(f"main path LD-P: {W}x{H} x {NFRAMES} frames in {secs:.3f} s "
@@ -1361,6 +1640,13 @@ def main():
         i8_launches = run_intra8(dev, gpu)
         for k in KERNELS:
             launches[k] += i8_launches[k]
+        # paths 1-6 run no stripe
+        check(launches["stripe_prescreen"] == 0,
+              "paths 1-6 launched stripe_prescreen")
+
+        mp_launches = run_multi(dev, npz, gpu, *multi[1:])
+        for k in KERNELS:
+            launches[k] += mp_launches[k]
 
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "

@@ -8,6 +8,8 @@
   paths on the CPU at 64x48 (all-intra 1 picture, LD-P 3, random access
   6) from the port's own options, and its own decoder (also through
   `python -m tpuhevc_torch dec`) decodes every picture with the hash OK;
+  and the multi-device path (`tpuhevc_torch.parallel.dryrun`) runs on a
+  mesh of 2 x cpu;
 - the port binds the repository's native entropy library itself, and
   raises where it can be neither built nor loaded (no silent slower
   path).
@@ -155,6 +157,32 @@ def test_port_runs_with_tpuhevc_and_jax_refused(tmp_path, path):
     assert lines[-1] == f"pocs {order} loaded []", lines[-3:]
     assert lines[-2] == f"tmvp {int(path == 'ldp')}", lines[-3:]
     assert sum("[MD5:(OK)]" in ln for ln in lines) == n
+
+
+def test_parallel_path_runs_with_tpuhevc_and_jax_refused(tmp_path):
+    """The multi-device path (tpuhevc_torch.parallel) on a mesh of 2 x cpu:
+    dryrun_multichip's prescreen, stripe refine and segments, with `jax`
+    and `tpuhevc` refused; its unported steps raise."""
+    code = (f"import sys\nsys.path.insert(0, {ROOT!r})\n" + BLOCKER + """
+from tpuhevc_torch.parallel.dryrun import dryrun_multichip, main
+assert main(["--devices", "2", "--device", "cpu"]) == 0
+for step in ("1", "2c"):  # the DP train step, sharded_frame_step
+    try:
+        dryrun_multichip(2, "cpu", (step,))
+        raise SystemExit(f"step {step} ran")
+    except NotImplementedError:
+        pass
+print("loaded", sorted(m for m in sys.modules
+                       if m.split(".")[0] in ("jax", "jaxlib", "tpuhevc")))
+""")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path),
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "loaded []", lines
+    assert [ln.split(":")[0] for ln in lines[:-1]] == [
+        "step 2", "step 2b", "step 3"], lines
 
 
 def test_native_library_binds_the_committed_file():

@@ -345,15 +345,18 @@ class GridStep:
         ci = torch.argmin(cost.reshape(nc * nc, -1), dim=0)
         return (ci % nc - self.R2).int(), (ci // nc - self.R2).int()
 
-    def refine(self, ry, oy, starts, S, nbh, nbw, qp, lam_me, quads=False):
-        """grid_refine over the start grids [(x, y) full-pel per block]."""
+    def refine(self, ry, oy, starts, S, nbh, nbw, qp, lam_me, quads=False,
+               ry_y0=0):
+        """grid_refine over the start grids [(x, y) full-pel per block];
+        ry_y0: the row of `ry` level with `oy`'s row 0 (a row stripe with
+        halo rows above it)."""
         st = torch.stack([torch.stack([x.reshape(-1).int(),
                                        y.reshape(-1).int()], -1)
                           for x, y in starts]).contiguous()
         return grid_refine(ry, oy, S, nbh, nbw, st, quads,
                            self._dcc(qp, S * S, lam_me),
                            self._dcc(qp, 64, lam_me), lam_me,
-                           self.sr_full + 3)
+                           self.sr_full + 3, ry_y0)
 
     def mc_luma(self, planes_y, mv8, ref8):
         """Per-8-cell fields (h8', w8', 2) / (h8', w8') -> luma prediction."""

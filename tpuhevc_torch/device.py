@@ -6,6 +6,8 @@ never a silent switch to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 # Decision costs (the NN-FME logits) must be plain fp32: TF32 keeps ~10
@@ -33,6 +35,15 @@ def resolve(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_device(dev: torch.device):
+    """Context in which `dev` is the current CUDA device (nothing for the
+    CPU): the wrappers launch on `dev`'s current stream, which the runtime
+    takes only while `dev` is current."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int | None = None,

@@ -8,11 +8,12 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 `ops/intra.py`, `ops/cost.py`, `ops/intra_txq.py`, `entropy/bitest.py`,
 `ops/grid_me.py`, `ops/grid_pred.py`, `ops/grid_code.py`,
 `ops/grid_intra.py`, `ops/grid_deblock.py`, `ops/grid_sao.py`,
-`ops/grid_stats.py`, `ops/intra_wave.py`) and adds
-one to `LAUNCHES[name]` for every launch, and nowhere else
+`ops/grid_stats.py`, `ops/intra_wave.py`, `ops/stripe_prescreen.py`) and
+adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`grid_deblock` launches twice a picture, once per edge direction;
-`grid_sao` twice, its stats and its apply; `intra_wave` once for a whole
-batch of pictures). Shared device code sits in `csrc/*.cuh`.
+`grid_sao` twice, its stats and its apply, with `grid_sao_decide` between
+them; `intra_wave` once for a whole batch of pictures; `stripe_prescreen`
+once a row stripe). Shared device code sits in `csrc/*.cuh`.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ SOURCE_OF = {"sad_search": "sad_search", "nnfme_mlp": "nnfme_mlp",
              "grid_refine": "grid_me", "grid_planes": "grid_pred",
              "grid_satd": "grid_pred", "grid_code": "grid_code",
              "grid_intra16": "grid_intra", "grid_deblock": "grid_deblock",
-             "grid_sao": "grid_sao", "grid_subpel": "grid_pred",
+             "grid_sao": "grid_sao", "grid_sao_decide": "grid_sao",
+             "grid_subpel": "grid_pred",
              "grid_wp_me": "grid_me", "grid_stats": "grid_stats",
-             "intra_wave": "intra_wave"}
+             "intra_wave": "intra_wave",
+             "stripe_prescreen": "stripe_prescreen"}
 KERNELS = tuple(SOURCE_OF)
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 

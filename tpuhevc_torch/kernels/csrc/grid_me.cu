@@ -12,10 +12,12 @@
 // tpuhevc_grid_refine replaces :681-776 `_refine_grid` + `_pick_grids`
 // (no MV-rate anchor): per block of size S and each of G start points,
 // the 7x7 raw SADs and residual sums of the windows read at clamped
-// coordinates, the DC-aware cost zc(sad, sum, dcc) + ((bits * lam) >> 8)
-// on the inner 5x5 (the outer ring costs 2^30), the first-index argmin
-// over the G x 49 candidates in start order, the winner's MV clipped to
-// +-lim, its 3x3 raw-SAD surface and its cost; with quads (S = 16) the
+// coordinates (reference row = block row + ry_y0, where `ry` carries
+// ry_y0 halo rows above the blocks' first row: a row stripe; stripe_refine
+// of tpuhevc/parallel/mesh.py:158-223 reads its halos so, :681-693), the
+// DC-aware cost zc(sad, sum, dcc) + ((bits * lam) >> 8) on the inner 5x5
+// (the outer ring costs 2^30), the first-index argmin over the G x 49
+// candidates in start order, the winner's MV clipped to +-lim, its 3x3 raw-SAD surface and its cost; with quads (S = 16) the
 // same pick per 8x8 quadrant from the quadrant partial sums (cost with
 // dcc8), written after the nb main rows in 8-grid order.
 // bits(mv) = 2 bl(2|4 mvx|) + 2 bl(2|4 mvy|) + 2, bl = bit length, which
@@ -104,7 +106,8 @@ __global__ void refine_kernel(const int* __restrict__ ry,
                               int* __restrict__ sad9_out,
                               int* __restrict__ cost_out, int hr, int wr,
                               int wo, int S, int nbh, int nbw, int G,
-                              int quads, int dcc, int dcc8, int lam, int lim) {
+                              int quads, int dcc, int dcc8, int lam, int lim,
+                              int ry_y0) {
     extern __shared__ int sm[];
     const int nb = nbh * nbw, nc = G * 49, nq = quads ? 4 : 0;
     int* cur = sm;                  // S x S
@@ -127,7 +130,8 @@ __global__ void refine_kernel(const int* __restrict__ ry,
         const int cy = starts[((size_t)g * nb + b) * 2 + 1];
         int qs[4] = {0, 0, 0, 0}, qd[4] = {0, 0, 0, 0};
         for (int i = 0; i < S; ++i) {
-            const int yy = min(max(y0 + cy - 3 + dy + i, 0), hr - 1);
+            const int yy = min(max(y0 + cy - 3 + dy + i + ry_y0, 0),
+                               hr - 1);
             const int* row = ry + (size_t)yy * wr;
             const int qy = (i >> 3) & 1;
             for (int j = 0; j < S; ++j) {
@@ -182,21 +186,22 @@ extern "C" int tpuhevc_grid_coarse(const int* cur, const int* refp, int* sad,
 }
 
 // ry (hr, wr), oy (>= nbh S, row stride wo) int32; starts (G, nb, 2)
-// int32 full-pel centres -> mv (nb (+4 nb), 2), sad9 (nb (+4 nb), 9),
-// cost (nb (+4 nb)) int32; the quadrant rows (quads, S = 16) follow the
-// nb main rows in 8-grid order.
+// int32 full-pel centres; ry_y0 the row of ry that lies level with oy's
+// row 0 -> mv (nb (+4 nb), 2), sad9 (nb (+4 nb), 9), cost (nb (+4 nb))
+// int32; the quadrant rows (quads, S = 16) follow the nb main rows in
+// 8-grid order.
 extern "C" int tpuhevc_grid_refine(const int* ry, const int* oy,
                                    const int* starts, int* mv, int* sad9,
                                    int* cost, int hr, int wr, int wo, int S,
                                    int nbh, int nbw, int G, int quads,
                                    int dcc, int dcc8, int lam, int lim,
-                                   void* stream) {
+                                   int ry_y0, void* stream) {
     if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
     const int nc = G * 49;
     const size_t smem = sizeof(int) * ((size_t)S * S + 12 * nc);
     refine_kernel<<<nbh * nbw, 256, smem, (cudaStream_t)stream>>>(
         ry, oy, starts, mv, sad9, cost, hr, wr, wo, S, nbh, nbw, G, quads,
-        dcc, dcc8, lam, lim);
+        dcc, dcc8, lam, lim, ry_y0);
     return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,9 @@ the stack are torch glue in `codec/inter_grid.py`.
 default knobs (no MV-rate anchor): for each block of size S and each of
 G start points (full-pel centres), the 7x7 raw SADs of the windows read
 at clamped coordinates (`ry` rows and columns clipped to the plane, as
-the reference's gather is), the DC-aware selection cost
+the reference's gather is; with `ry_y0` the reference row of a block row
+y is y + ry_y0, where `ry` is a row stripe with ry_y0 halo rows above
+its blocks, as `stripe_refine` gives it), the DC-aware selection cost
 zc(sad, sum, dcc) + ((bits(mv) * lam_me) >> 8) on the inner 5x5 (the
 outer ring costs 2^30), the first-index argmin over the G x 49
 candidates in start order, the winner's MV clipped to +-(sr_full + 3),
@@ -125,8 +127,9 @@ def _pick(sad, cost, mvx, mvy, lim):
 
 def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
                       nbw: int, starts: torch.Tensor, quads: bool, dcc: int,
-                      dcc8: int, lam_me: int, lim: int):
-    """ry, oy (H, W) int32; starts (G, nb, 2) int32 full-pel centres ->
+                      dcc8: int, lam_me: int, lim: int, ry_y0: int = 0):
+    """ry (hr, W), oy (H, W) int32; starts (G, nb, 2) int32 full-pel
+    centres; ry_y0 the row of ry level with oy's row 0 ->
     (mv (nb, 2), sad9 (nb, 9), cost (nb,)) and, with quads, the same
     triple per 8x8 quadrant in 8-grid order (4 nb rows), else None."""
     dev = ry.device
@@ -137,7 +140,7 @@ def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
     bx = (torch.arange(nbw, device=dev) * S).repeat(nbh)
     by = (torch.arange(nbh, device=dev) * S).repeat_interleave(nbw)
     cx, cy = starts[..., 0].long(), starts[..., 1].long()
-    yy = (by[None, :, None] + cy[..., None] - 3 + ar).clamp(0, hr - 1)
+    yy = (by[None, :, None] + cy[..., None] - 3 + ry_y0 + ar).clamp(0, hr - 1)
     xx = (bx[None, :, None] + cx[..., None] - 3 + ar).clamp(0, wr - 1)
     wnd = ry.reshape(-1)[yy[..., :, None] * wr + xx[..., None, :]]
     cur = (oy[: nbh * S, : nbw * S].reshape(nbh, S, nbw, S)
@@ -188,12 +191,12 @@ def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
 
 def grid_refine(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
                 nbw: int, starts: torch.Tensor, quads: bool, dcc: int,
-                dcc8: int, lam_me: int, lim: int):
+                dcc8: int, lam_me: int, lim: int, ry_y0: int = 0):
     """Kernel `grid_refine`. CPU tensors take the plain version; CUDA
     tensors the kernel."""
     if ry.device.type == "cpu":
         return grid_refine_plain(ry, oy, S, nbh, nbw, starts, quads, dcc,
-                                 dcc8, lam_me, lim)
+                                 dcc8, lam_me, lim, ry_y0)
     if ry.device.type != "cuda":
         raise ValueError(f"grid_refine: unsupported device {ry.device}")
     dev = ry.device
@@ -206,16 +209,19 @@ def grid_refine(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
         raise ValueError(f"grid_refine: S {S}, starts {tuple(starts.shape)}")
     if oy.shape[0] < nbh * S or oy.shape[1] < nbw * S:
         raise ValueError(f"grid_refine: oy {tuple(oy.shape)} < blocks")
+    if not 0 <= ry_y0 < ry.shape[0]:
+        raise ValueError(f"grid_refine: ry_y0 {ry_y0}, ry "
+                         f"{tuple(ry.shape)}")
     nq = 4 if quads else 0
     mv = torch.empty((nb * (1 + nq), 2), dtype=torch.int32, device=dev)
     sad9 = torch.empty((nb * (1 + nq), 9), dtype=torch.int32, device=dev)
     cost = torch.empty((nb * (1 + nq),), dtype=torch.int32, device=dev)
     fn = kbuild.function("grid_me", "tpuhevc_grid_refine",
-                         [kbuild.P] * 6 + [kbuild.I] * 12 + [kbuild.P])
+                         [kbuild.P] * 6 + [kbuild.I] * 13 + [kbuild.P])
     err = fn(ry.data_ptr(), oy.data_ptr(), starts.data_ptr(), mv.data_ptr(),
              sad9.data_ptr(), cost.data_ptr(), ry.shape[0], ry.shape[1],
              oy.shape[1], S, nbh, nbw, G, int(quads), dcc, dcc8, lam_me, lim,
-             torch.cuda.current_stream(dev).cuda_stream)
+             ry_y0, torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "grid_refine")
     LAUNCHES["grid_refine"] += 1
     main = (mv[:nb], sad9[:nb], cost[:nb])

@@ -1,29 +1,33 @@
-"""The grid step's sample adaptive offset of a P picture (kernel `grid_sao`).
+"""The grid step's sample adaptive offset of a P picture (kernels
+`grid_sao` and `grid_sao_decide`).
 
 Twin of `sao_device` (`tpuhevc/codec/inter_grid.py:1427-1494`) with
 `_eo_cat`, `_ctu_sum`, `_cls_hist`, `_sao_stats`, `_best_eo`,
 `_eval_eo_all`, `_eval_bo`, `_sao_decide_plane` and `_sao_apply_plane`
 (:1258-1425), on the deblocked picture:
 
-1. stats (kernel launch 1): per CTU of each component (luma CTUs of
+1. stats (`grid_sao`, launch 1): per CTU of each component (luma CTUs of
    `ctu`, chroma of ctu / 2), the count and the sum of org - rec of each
    edge-offset category 1-4 of each of the four EO classes (categories
    from the deblocked picture, invalid at the picture's border in the
    class's direction) and of each of the 32 bands (rec >> 3); int32 sums,
    which the reference's float32 sums equal (|sum| <= 64 * 64 * 255 <
    2^24, so they are exact);
-2. the per-CTU rate-distortion decision, torch glue in float32 in the
-   reference's operation order: the best offsets of each EO class and of
-   the band offset, the luma type, the chroma type shared by Cb and Cr
-   (at the chroma lambda lam / 2^((qp - qpc) / 3)), and the picture-level
-   on/off choice of the two components over four configurations;
-3. apply (kernel launch 2): per sample the EO or band offset of its CTU's
-   type, from the unfiltered (deblocked) input, clipped to 8 bits.
+2. the per-CTU rate-distortion decision (`grid_sao_decide`, launch 2),
+   float32 in the reference's operation order: the best offsets of each
+   EO class and of the band offset, the luma type, the chroma type shared
+   by Cb and Cr (at the chroma lambda lam / 2^((qp - qpc) / 3)), and the
+   picture-level on/off choice of the two components over four
+   configurations; lambda stays on the device;
+3. apply (`grid_sao`, launch 3): per sample the EO or band offset of its
+   CTU's type, from the unfiltered (deblocked) input, clipped to 8 bits.
 
-The packed parameters are the int8 rows the host half reads (type_y,
-aux_y, off_y, type_c, aux_cb, off_cb, aux_cr, off_cr). `grid_sao_plain`
-takes the plain stats and apply; `grid_sao` launches
-`kernels/csrc/grid_sao.cu` for CUDA tensors. The decision glue is shared.
+The decision writes the rows the apply reads, `par` (3, 6 n) int32 (per
+component: types, aux, offsets), and the int8 parameter rows the host
+half reads (type_y, aux_y, off_y, type_c, aux_cb, off_cb, aux_cr,
+off_cr). `grid_sao_plain` takes the plain stats, `sao_decide` and the
+plain apply; `grid_sao` launches `kernels/csrc/grid_sao.cu` for CUDA
+tensors, and never calls `sao_decide` there.
 """
 
 from __future__ import annotations
@@ -245,18 +249,48 @@ def sao_decide(stats, lam: torch.Tensor, qp: int, ny: int, nx: int):
     return ty, ay, offy, tc, acb, ocb, acr, ocr
 
 
-def _sao(oy, ouv, rec_y, rec_uv, lam, qp, ctu, stats_fn, apply_fn):
-    wc = ouv.shape[1] // 2
-    comps = ((oy, rec_y, ctu), (ouv[:, :wc], rec_uv[:, :wc], ctu // 2),
-             (ouv[:, wc:], rec_uv[:, wc:], ctu // 2))
-    H, W = rec_y.shape
-    ny, nx = -(-H // ctu), -(-W // ctu)
-    stats = stats_fn(comps)
-    p = sao_decide(stats, lam, qp, ny, nx)
+def grid_sao_decide_plain(cnt, sm, lam: torch.Tensor, qp: int, ny: int,
+                          nx: int):
+    """cnt, sm (3, ny nx, 48) int32 statistics of Y, Cb, Cr; lam the frame
+    lambda (float32 0-dim tensor) -> (par (3, 6 ny nx) int32: per
+    component the types, aux and offsets, as the apply reads them; params
+    (17 ny nx,) int8)."""
+    p = sao_decide([(cnt[i], sm[i]) for i in range(3)], lam, qp, ny, nx)
     ty, ay, offy, tc, acb, ocb, acr, ocr = p
-    new = apply_fn(comps, ((ty, ay, offy), (tc, acb, ocb), (tc, acr, ocr)))
+    par = torch.stack([torch.cat([x.reshape(-1) for x in q]) for q in
+                       ((ty, ay, offy), (tc, acb, ocb), (tc, acr, ocr))])
     params = torch.cat([x.to(torch.int8).reshape(-1) for x in p])
-    return new[0], torch.cat(new[1:], dim=1).contiguous(), params
+    return par.int().contiguous(), params
+
+
+def grid_sao_decide(cnt, sm, lam: torch.Tensor, qp: int, ny: int, nx: int):
+    """Kernel `grid_sao_decide`. CPU tensors take the plain version; CUDA
+    tensors the kernel (one launch, one block, its costs in shared memory:
+    at most 29054 CTUs; lambda read on the device)."""
+    if cnt.device.type == "cpu":
+        return grid_sao_decide_plain(cnt, sm, lam, qp, ny, nx)
+    if cnt.device.type != "cuda":
+        raise ValueError(f"grid_sao_decide: unsupported device {cnt.device}")
+    dev = cnt.device
+    n = ny * nx
+    for t, name in ((cnt, "cnt"), (sm, "sm")):
+        check_tensor(t, name, torch.int32, 3, dev)
+        if tuple(t.shape) != (3, n, NSTAT):
+            raise ValueError(f"grid_sao_decide: {name} {tuple(t.shape)}, "
+                             f"expected {(3, n, NSTAT)}")
+    check_tensor(lam, "lam", torch.float32, 0, dev)
+    par = torch.empty((3, 6 * n), dtype=torch.int32, device=dev)
+    params = torch.empty((17 * n,), dtype=torch.int8, device=dev)
+    wch = np.float32(2.0 ** ((qp - chroma_qp(qp)) / 3.0))
+    fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_decide",
+                         [kbuild.P] * 5 + [kbuild.F] + [kbuild.I] * 2
+                         + [kbuild.P])
+    err = fn(cnt.data_ptr(), sm.data_ptr(), lam.data_ptr(), par.data_ptr(),
+             params.data_ptr(), float(wch), ny, nx,
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "grid_sao_decide")
+    LAUNCHES["grid_sao_decide"] += 1
+    return par, params
 
 
 def grid_sao_plain(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int,
@@ -264,15 +298,26 @@ def grid_sao_plain(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int,
     """oy, rec_y (H, W), ouv, rec_uv (H/2, W) packed [U | V] int32; lam the
     frame lambda (float32 0-dim tensor) -> (rec_y, rec_uv) after SAO and
     the packed int8 parameters."""
-    return _sao(oy, ouv, rec_y, rec_uv, lam, qp, ctu,
-                lambda comps: [sao_stats_plain(o, r, c) for o, r, c in comps],
-                lambda comps, prm: [sao_apply_plain(r, *p, c) for (_, r, c), p
-                                    in zip(comps, prm)])
+    wc = ouv.shape[1] // 2
+    comps = ((oy, rec_y, ctu), (ouv[:, :wc], rec_uv[:, :wc], ctu // 2),
+             (ouv[:, wc:], rec_uv[:, wc:], ctu // 2))
+    H, W = rec_y.shape
+    st = [sao_stats_plain(o, r, c) for o, r, c in comps]
+    cnt = torch.stack([c for c, _ in st])
+    sm = torch.stack([s for _, s in st])
+    par, params = grid_sao_decide_plain(cnt, sm, lam, qp, -(-H // ctu),
+                                        -(-W // ctu))
+    n = par.shape[1] // 6
+    new = [sao_apply_plain(r, par[i, :n], par[i, n : 2 * n],
+                           par[i, 2 * n :].reshape(n, 4), c)
+           for i, (_, r, c) in enumerate(comps)]
+    return new[0], torch.cat(new[1:], dim=1).contiguous(), params
 
 
 def grid_sao(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int, ctu: int):
     """Kernel `grid_sao`. CPU tensors take the plain version; CUDA tensors
-    the kernel (two launches: the stats, then the apply)."""
+    the kernels (three launches: the stats, `grid_sao_decide`, the
+    apply)."""
     if rec_y.device.type == "cpu":
         return grid_sao_plain(oy, ouv, rec_y, rec_uv, lam, qp, ctu)
     if rec_y.device.type != "cuda":
@@ -290,31 +335,22 @@ def grid_sao(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int, ctu: int):
         raise ValueError(f"grid_sao: {W}x{H}, CTU {ctu}")
     ny, nx = -(-H // ctu), -(-W // ctu)
     stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def stats_fn(comps):
-        cnt = torch.empty((3, ny * nx, NSTAT), dtype=torch.int32, device=dev)
-        sm = torch.empty_like(cnt)
-        fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_stats",
-                             [kbuild.P] * 6 + [kbuild.I] * 3 + [kbuild.P])
-        err = fn(oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
-                 rec_uv.data_ptr(), cnt.data_ptr(), sm.data_ptr(), H, W, ctu,
-                 stream)
-        kbuild.check(err, "grid_sao stats")
-        LAUNCHES["grid_sao"] += 1
-        return [(cnt[i], sm[i]) for i in range(3)]
-
-    def apply_fn(comps, prm):
-        par = torch.stack([torch.cat([x.reshape(-1) for x in p])
-                           for p in prm]).int().contiguous()
-        new_y = torch.empty_like(rec_y)
-        new_uv = torch.empty_like(rec_uv)
-        fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_apply",
-                             [kbuild.P] * 5 + [kbuild.I] * 3 + [kbuild.P])
-        err = fn(rec_y.data_ptr(), rec_uv.data_ptr(), par.data_ptr(),
-                 new_y.data_ptr(), new_uv.data_ptr(), H, W, ctu, stream)
-        kbuild.check(err, "grid_sao apply")
-        LAUNCHES["grid_sao"] += 1
-        wc = W // 2
-        return [new_y, new_uv[:, :wc], new_uv[:, wc:]]
-
-    return _sao(oy, ouv, rec_y, rec_uv, lam, qp, ctu, stats_fn, apply_fn)
+    cnt = torch.empty((3, ny * nx, NSTAT), dtype=torch.int32, device=dev)
+    sm = torch.empty_like(cnt)
+    fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_stats",
+                         [kbuild.P] * 6 + [kbuild.I] * 3 + [kbuild.P])
+    err = fn(oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
+             rec_uv.data_ptr(), cnt.data_ptr(), sm.data_ptr(), H, W, ctu,
+             stream)
+    kbuild.check(err, "grid_sao stats")
+    LAUNCHES["grid_sao"] += 1
+    par, params = grid_sao_decide(cnt, sm, lam, qp, ny, nx)
+    new_y = torch.empty_like(rec_y)
+    new_uv = torch.empty_like(rec_uv)
+    fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_apply",
+                         [kbuild.P] * 5 + [kbuild.I] * 3 + [kbuild.P])
+    err = fn(rec_y.data_ptr(), rec_uv.data_ptr(), par.data_ptr(),
+             new_y.data_ptr(), new_uv.data_ptr(), H, W, ctu, stream)
+    kbuild.check(err, "grid_sao apply")
+    LAUNCHES["grid_sao"] += 1
+    return new_y, new_uv, params

@@ -1,0 +1,11 @@
+"""Scale-out of the port: a mesh of devices driven by one process, row
+stripes with explicit halo copies, and IDR-led segments encoded on their
+own devices (the counterpart of `tpuhevc/parallel/`).
+
+- `mesh.py`: `make_mesh` / `Mesh`, `tile_prescreen` (kernel
+  `stripe_prescreen` per stripe) and `stripe_refine` (kernel
+  `grid_refine` per stripe, reading its halos through `ry_y0`);
+- `segments.py`: `split_segments`, `encode_segments_parallel`,
+  `encode_segments_overlapped`;
+- `dryrun.py`: `dryrun_multichip`, the graft entry's multi-device steps.
+"""
