@@ -84,6 +84,23 @@
    dctif and WP on the fade clip; bench.py's no-fetch configuration), at
    64x48 x 6 for random access, and with fixed 8x8 intra at 104x72 x 3
    all-intra with device_batch=2 and at 112x72 x 3 LD-P (its IDR).
+   Main path 8, NN-FME training: the dataset extraction from
+   make_clip(416, 240, 17) at QP 32, SearchRange 16 (host numpy; 6,240
+   samples), train_fme at the full TrainConfig on the card (200 epochs of
+   5 batches of 1,024: 1,000 steps, counters reset just before; each of
+   fme_train_fwd, fme_train_bwd and fme_adam must launch once a step and
+   the last epoch's mean loss must be below the first's), the export to
+   an npz, and the anchor LD-P cfg at 416x240 x 17 encoded with it (K2
+   must launch, every picture hash OK); its kbit and Y-PSNR printed
+   beside path 1's (seeded weights) and an FmeMode dctif encode of the
+   same clip. Before it, the three train-step kernels are held against
+   their plain versions on the extracted data at B = 1,024 (the first
+   batch of the first epoch, the initial weights of train_fme): the
+   forward (logits, loss, batch and running statistics), the backward
+   (autograd of the plain forward, the same dropout masks), Adam (the
+   same gradient), 20 whole steps kernel against plain from the same
+   start, and two kernel runs of 20 steps bit for bit, and equal to 20
+   steps through the autograd Function FmeTrainLoss.
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -124,9 +141,15 @@ from tpuhevc_torch.entropy import bitio  # noqa: E402
 from tpuhevc_torch.entropy.bitest import tu_bits, tu_bits_plain  # noqa: E402
 from tpuhevc_torch.kernels import KERNELS, LAUNCHES, reset_launches  # noqa: E402
 from tpuhevc_torch.kernels import build as kbuild  # noqa: E402
+from tpuhevc_torch.models.fme_data import extract as fme_extract  # noqa: E402
+from tpuhevc_torch.models.fme_train import (  # noqa: E402
+    epoch_batches, prepare, train_fme)
 from tpuhevc_torch.models.nnfme import (  # noqa: E402
-    NNFME, height_category, nn_refine, nn_refine_plain, random_params,
-    save_npz, width_category)
+    N_TRAIN, NNFME, STATE_SHAPES, TRAIN_SHAPES, TrainConfig, flatten_np,
+    height_category, height_category_np, init_bn_state, nn_refine,
+    nn_refine_plain, random_params, save_npz, width_category,
+    width_category_np)
+from tpuhevc_torch.ops import fme_train as ft  # noqa: E402
 from tpuhevc_torch.ops.cost import satd35_topk, satd35_topk_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_code import grid_code, grid_code_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_deblock import (  # noqa: E402
@@ -208,7 +231,16 @@ SOURCES = {
                    "tpuhevc/codec/intra_jax.py:182"),
     "stripe_prescreen": ("tpuhevc_torch/kernels/csrc/stripe_prescreen.cu",
                          "tpuhevc/parallel/mesh.py:32"),
+    "fme_train_fwd": ("tpuhevc_torch/kernels/csrc/fme_train.cu",
+                      "tpuhevc/models/nnfme.py:355"),
+    "fme_train_bwd": ("tpuhevc_torch/kernels/csrc/fme_train.cu",
+                      "tpuhevc/models/nnfme.py:363"),
+    "fme_adam": ("tpuhevc_torch/kernels/csrc/fme_train.cu",
+                 "tpuhevc/models/nnfme.py:367"),
 }
+# the NN-FME train step, once each a step
+TRAIN_KERNELS = ("fme_train_fwd", "fme_train_bwd", "fme_adam")
+FME_SR, TRAIN_STEPS_CHECKED = 16, 20
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
 G_KERNELS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
@@ -320,15 +352,16 @@ def window_mask(plane, xs, ys, mvq, size, is_luma, sel=None):
     return mask
 
 
-def refine_mask(ry, S, nbh, nbw, starts):
+def refine_mask(ry, S, nbh, nbw, starts, ry_y0=0):
     """The samples of `ry` that grid_refine's clamped 7x7-search windows
-    (S + 6 square around each start) read."""
+    (S + 6 square around each start) read; ry_y0: ry's row level with the
+    block rows' row 0 (a stripe's halo)."""
     hh, ww = ry.shape
     mask = np.zeros((hh, ww), bool)
     st = starts.cpu().numpy().astype(np.int64)
     for g in range(st.shape[0]):
         for b in range(nbh * nbw):
-            y0 = (b // nbw) * S + st[g, b, 1] - 3
+            y0 = ry_y0 + (b // nbw) * S + st[g, b, 1] - 3
             x0 = (b % nbw) * S + st[g, b, 0] - 3
             ys = np.clip(np.arange(y0, y0 + S + 6), 0, hh - 1)
             xs = np.clip(np.arange(x0, x0 + S + 6), 0, ww - 1)
@@ -386,7 +419,9 @@ def windows(name, a, kw):
                                   None if idir is None else (idir & k) != 0))
                 for ref, mvq, k in ((a[1], a[5], 1), (a[2], a[6], 2))]
     if name == "grid_refine":
-        return [(a[0], refine_mask(a[0], a[2], a[3], a[4], a[5]))]
+        return [(a[0], refine_mask(a[0], a[2], a[3], a[4], a[5],
+                                   a[11] if len(a) > 11
+                                   else kw.get("ry_y0", 0)))]
     if name == "grid_satd":
         return [(a[0], gather_mask(a[0], a[1], a[2], a[3], a[4]))]
     if name == "grid_intra16":
@@ -1159,11 +1194,19 @@ def check_multi_kernels(calls, rows):
           f"grid_refine stripe calls: ry_y0 {[a[-1] for a, _ in ref]}")
     err = compare_calls("grid_refine", ref)
     ms = median_ms(lambda: [grid_refine(*a, **k) for a, k in ref], reps=20)
+    plain_ms = median_ms(lambda: [grid_refine_plain(*a, **k)
+                                  for a, k in ref], reps=3)
+    work = Work()
+    for a, k in ref:
+        work.add("grid_refine", a, grid_refine(*a, **k), k)
+    bound_ms, bound_by = bound_of(dict(work=work))
     rows["grid_refine"]["max_abs_err"] = max(
         rows["grid_refine"]["max_abs_err"], err)
     rows["grid_refine"]["stripes_ms"] = ms
     print(f"kernel grid_refine   3 stripes of 416x240 with ry_y0 40: "
-          f"max_abs_err {err:.3g} kernel_ms {ms:.4f}", flush=True)
+          f"max_abs_err {err:.3g} kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} bound {bound_ms:.6f} ms ({bound_by}; "
+          f"{work.bytes} bytes, {work.ops} operations)", flush=True)
     return {"stripe_prescreen": r}
 
 
@@ -1555,6 +1598,273 @@ def run_multi(dev, npz, gpu, plane, rargs, refine):
     return launches
 
 
+class Counted:
+    """Bytes and operations of a call, counted from its shapes."""
+
+    def __init__(self, nbytes, ops):
+        self.bytes, self.ops = nbytes, ops
+
+
+def train_work(name, b) -> Counted:
+    """What one call of a train-step kernel must move and compute for a
+    batch of b (4-byte values): what a train step needs read once and
+    written once -- parameters, state, the batch's rows and uniforms in;
+    loss, statistics, new state and the gradient out. The logits (no train
+    step reads them) and the activations the forward saves for the
+    backward (the backward could recompute them) are the kernels' choice
+    and not counted. Operations: a multiply-add counts two."""
+    mm = 2 * (17 * 22 + 22 * 20 + 20 * 49)  # the three layers' products
+    per = 1 + 9 + 2 + 1 + 42  # a sample's index, x, categories, label, u
+    if name == "fme_train_fwd":
+        # + BN (mean, variance, normalise: ~8 a feature), ReLU, dropout
+        # (compare, multiply, divide), the loss (max, sub, exp, add)
+        ops = b * (mm + 8 * (9 + 22 + 20) + 42 + 3 * 42 + 4 * 49 + 3)
+        return Counted(4 * (N_TRAIN + 102 + b * per + 1 + 2 * 102), ops)
+    if name == "fme_train_bwd":
+        # softmax and dlogits, the transposed products, the weight
+        # products, biases, BN backward (~10 a feature), dropout, ReLU
+        ops = b * (4 * 49 + 2 * mm + 91 + 10 * 42 + 2 * 9 + 2 * 42 + 42 + 8)
+        return Counted(4 * (N_TRAIN + b * per + 1 + N_TRAIN), ops)
+    # Adam: the two moments, the corrections, the update (~14 an element)
+    return Counted(4 * (7 * N_TRAIN + 2), 14 * N_TRAIN)
+
+
+def fme_dataset():
+    """Path 8's extraction: make_clip(416, 240, 17) at QP 32, SearchRange
+    16, on the host. Returns (sads, heights, widths, labels, seconds)."""
+    frames = Reader(W, H, NFRAMES).frames
+    t0 = time.time()
+    sads, dims, labels = fme_extract(frames, QP, FME_SR)
+    secs = time.time() - t0
+    return (sads.astype(np.float32), dims[:, 1], dims[:, 0], labels, secs)
+
+
+def train_inputs(dev, ds):
+    """train_fme's start on the card: the data (normalised as train_fme
+    does), the initial weights and state, TRAIN_STEPS_CHECKED batches
+    (the first epochs' order) and their dropout uniforms."""
+    sads, heights, widths, labels, _ = ds
+    cfg = TrainConfig()
+    rng, tr, _, _, _, xs, params = prepare(sads, cfg)
+    flat = torch.as_tensor(flatten_np(params, TRAIN_SHAPES), device=dev)
+    state = torch.as_tensor(flatten_np(init_bn_state(), STATE_SHAPES),
+                            device=dev)
+    rows = []
+    while len(rows) < TRAIN_STEPS_CHECKED:
+        rows += list(epoch_batches(tr, rng.permutation(len(tr)),
+                                   cfg.batch_size))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    return dict(
+        cfg=cfg, flat=flat, state=state,
+        data=ft.FmeData.from_numpy(xs, height_category_np(heights),
+                                   width_category_np(widths), labels, dev),
+        rows=torch.as_tensor(np.stack(rows[:TRAIN_STEPS_CHECKED]),
+                             device=dev),
+        unif=torch.rand((TRAIN_STEPS_CHECKED, cfg.batch_size, ft.UNIF_COLS),
+                        generator=gen, device=dev))
+
+
+def train_steps(t, mode, steps=TRAIN_STEPS_CHECKED):
+    """`steps` whole train steps from t's start: mode "direct" calls the
+    kernels as train_fme does, "function" goes through FmeTrainLoss and
+    torch.autograd.grad, "plain" runs the plain versions. Returns (flat,
+    state, losses, seconds)."""
+    cfg = t["cfg"]
+    flat, state = t["flat"].clone(), t["state"].clone()
+    opt = ft.AdamState.zeros(N_TRAIN, flat.device)
+    leaf = flat.detach().requires_grad_()
+    one = torch.ones((), device=flat.device)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(steps):
+        args = (t["data"], t["rows"][s], t["unif"][s])
+        if mode == "function":
+            loss, state = ft.FmeTrainLoss.apply(leaf, state, *args,
+                                                cfg.dropouts, cfg.bn_momentum)
+            (g,) = torch.autograd.grad(loss, leaf, grad_outputs=one)
+            ft.fme_adam(flat, g, opt, cfg.lr)
+        else:
+            fwd, bwd, adam = ((ft.fme_train_fwd, ft.fme_train_bwd, ft.fme_adam)
+                              if mode == "direct" else
+                              (ft.fme_train_fwd_plain, ft.fme_train_bwd_plain,
+                               ft.fme_adam_plain))
+            out = fwd(flat, state, *args, cfg.dropouts, cfg.bn_momentum)
+            saved = (out.saved, out.stats) if mode == "direct" else ()
+            g = bwd(flat, *args, cfg.dropouts, *saved, one)
+            adam(flat, g, opt, cfg.lr)
+            loss, state = out.loss, out.state
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    return flat, state, torch.stack(losses), time.perf_counter() - t0
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def check_train_kernels(dev, ds):
+    """The train step's kernels against their plain versions on the
+    extracted data at B = 1,024, with the stated tolerances: the forward
+    (logits atol 1e-4; loss, batch and running statistics rtol 1e-5 +
+    atol 1e-5: float sums in another order), the backward against
+    autograd of the plain forward with the same masks (rtol 1e-4 + atol
+    1e-6), Adam on the same gradient twice (atol 1e-7), 20 steps from the
+    same start (parameters and state rtol 1e-4 + atol 1e-5), two kernel
+    runs of 20 steps bit for bit. Returns {name: row}."""
+    t = train_inputs(dev, ds)
+    cfg, data = t["cfg"], t["data"]
+    b = cfg.batch_size
+    fwd_args = (t["flat"], t["state"], data, t["rows"][0], t["unif"][0],
+                cfg.dropouts, cfg.bn_momentum)
+    got = ft.fme_train_fwd(*fwd_args)
+    want = ft.fme_train_fwd_plain(*fwd_args)
+    torch.cuda.synchronize()
+    errs = {k: max_err(getattr(got, k), getattr(want, k))
+            for k in ("logits", "loss", "stats", "state")}
+    check(errs["logits"] <= 1e-4, f"fme_train_fwd: logits differ by "
+          f"{errs['logits']}")
+    for k in ("loss", "stats", "state"):
+        check(torch.allclose(getattr(got, k), getattr(want, k), rtol=1e-5,
+                             atol=1e-5), f"fme_train_fwd: {k} differ by "
+              f"{errs[k]}")
+    rows = {}
+
+    def record(name, err, ms, plain_ms, extra=""):
+        work = train_work(name, b)
+        bound_ms, bound_by = bound_of(dict(work=work))
+        print(f"kernel {name:13s} B {b}: max_abs_err {err:.3g} kernel_ms "
+              f"{ms:.4f} plain_ms {plain_ms:.4f} bound {bound_ms:.6f} ms "
+              f"({bound_by}; {work.bytes} bytes, {work.ops} operations)"
+              f"{extra}", flush=True)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          work=work)
+
+    record("fme_train_fwd", max(errs.values()),
+           median_ms(lambda: ft.fme_train_fwd(*fwd_args)),
+           median_ms(lambda: ft.fme_train_fwd_plain(*fwd_args)),
+           f" | logits {errs['logits']:.3g}, loss {errs['loss']:.3g}, stats "
+           f"{errs['stats']:.3g}, state {errs['state']:.3g}")
+
+    one = torch.ones((), device=dev)
+    bwd_args = (t["flat"], data, t["rows"][0], t["unif"][0], cfg.dropouts)
+    g = ft.fme_train_bwd(*bwd_args, got.saved, got.stats, one)
+    g_plain = ft.fme_train_bwd_plain(*bwd_args, one)
+    torch.cuda.synchronize()
+    check(torch.allclose(g, g_plain, rtol=1e-4, atol=1e-6),
+          f"fme_train_bwd: gradients differ by {max_err(g, g_plain)}")
+    record("fme_train_bwd", max_err(g, g_plain),
+           median_ms(lambda: ft.fme_train_bwd(*bwd_args, got.saved,
+                                              got.stats, one)),
+           median_ms(lambda: ft.fme_train_bwd_plain(*bwd_args, one)))
+
+    outs = []
+    for adam in (ft.fme_adam, ft.fme_adam_plain):
+        flat, opt = t["flat"].clone(), ft.AdamState.zeros(N_TRAIN, dev)
+        for _ in range(2):
+            adam(flat, g_plain, opt, cfg.lr)
+        outs.append((flat, opt))
+    torch.cuda.synchronize()
+    a_err = max(max_err(outs[0][0], outs[1][0]),
+                max_err(outs[0][1].m, outs[1][1].m))
+    check(a_err <= 1e-7 and int(outs[0][1].count) == 2,
+          f"fme_adam: differs by {a_err}, count {int(outs[0][1].count)}")
+    flat, opt = t["flat"].clone(), ft.AdamState.zeros(N_TRAIN, dev)
+    lib = [flat.clone()], [g_plain], [opt.m.clone()], [opt.v.clone()]
+    step_t = [torch.ones((), device=dev)]
+
+    def fused():
+        torch._fused_adam_(*lib, [], step_t, lr=cfg.lr, beta1=0.9,
+                           beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           amsgrad=False, maximize=False)
+
+    record("fme_adam", a_err,
+           median_ms(lambda: ft.fme_adam(flat, g_plain, opt, cfg.lr)),
+           median_ms(lambda: ft.fme_adam_plain(flat, g_plain, opt, cfg.lr)))
+    rows["fme_adam"]["library_ms"] = median_ms(fused)
+    print(f"library fme_adam: torch._fused_adam_ "
+          f"{rows['fme_adam']['library_ms']:.4f} ms", flush=True)
+
+    k1, fn, k2, plain = (train_steps(t, m) for m in
+                         ("direct", "function", "direct", "plain"))
+    same = all(torch.equal(x, y) for x, y in zip(k1[:3], k2[:3]))
+    check(same, "fme_train: two kernel runs of 20 steps differ")
+    check(all(torch.equal(x, y) for x, y in zip(k1[:3], fn[:3])),
+          "fme_train: the steps through FmeTrainLoss differ from the direct "
+          "calls")
+    for x, y, what in zip(k1, plain, ("parameters", "state", "losses")):
+        check(torch.allclose(x, y, rtol=1e-4, atol=1e-5),
+              f"fme_train: 20 steps' {what} differ by {max_err(x, y)}")
+    print(f"train steps: {TRAIN_STEPS_CHECKED} kernel steps == "
+          f"{TRAIN_STEPS_CHECKED} plain within rtol 1e-4 + atol 1e-5 "
+          f"(parameters {max_err(k1[0], plain[0]):.3g}, state "
+          f"{max_err(k1[1], plain[1]):.3g}, losses {max_err(k1[2], plain[2]):.3g}"
+          f"; loss {float(k1[2][0]):.4f} -> {float(k1[2][-1]):.4f}); two "
+          f"kernel runs bit-identical: {same}, and through FmeTrainLoss; "
+          f"{TRAIN_STEPS_CHECKED} steps in {k1[3]:.4f} / {k2[3]:.4f} s direct, "
+          f"{fn[3]:.4f} s through FmeTrainLoss, {plain[3]:.4f} s plain",
+          flush=True)
+    return rows
+
+
+def run_training(dev, ds, npz, gpu, seeded):
+    """Main path 8: train_fme at the full TrainConfig on the card (the
+    counters reset just before), the export, and the anchor LD-P cfg
+    encoded with the weights it made; beside it an FmeMode dctif encode
+    of the same clip and path 1's (seeded weights) numbers. Returns the
+    launches."""
+    sads, heights, widths, labels, ext_secs = ds
+    cfg = TrainConfig()
+    n_tr = len(sads) - max(1, len(sads) // 5)
+    steps = cfg.epochs * -(-n_tr // min(cfg.batch_size, n_tr))
+    hist = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    inf, acc = train_fme(sads, labels, heights, widths, cfg, device=dev,
+                         history=hist)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(LAUNCHES)
+    for k in TRAIN_KERNELS:
+        check(launches[k] == steps, f"training: {k} launched {launches[k]} "
+              f"times for {steps} steps")
+    check(hist[-1] < hist[0], f"training: loss {hist[0]} -> {hist[-1]}")
+    check(all(np.isfinite(v).all() for v in inf.values()),
+          "training: exported weights not finite")
+    print(f"main path NN-FME training: extract {len(labels)} samples "
+          f"({W}x{H} x {NFRAMES}, QP {QP}, SR {FME_SR}) in {ext_secs:.3f} s "
+          f"of host | train_fme {cfg.epochs} epochs, {steps} steps of "
+          f"{cfg.batch_size} in {secs:.3f} s = {steps / secs:.1f} steps/s, "
+          f"{secs / steps * 1e3:.3f} ms a step | epoch loss {hist[0]:.4f} -> "
+          f"{hist[-1]:.4f} | val accuracy {acc:.4f} | launches "
+          f"{ {k: launches[k] for k in TRAIN_KERNELS} } | {gpu}", flush=True)
+    trained = os.path.join(os.path.dirname(npz), "nnfme_trained.npz")
+    save_npz(trained, {QP: inf})
+    enc, recons, e_secs, e_launches = run_path(dev, ldp_cfg(trained), NFRAMES)
+    check_stream(enc, recons, NFRAMES, e_launches, LDP_NEED,
+                 "LD-P with the trained weights")
+    res = {"trained": enc.results, "seeded": seeded}
+    for k in KERNELS:
+        launches[k] += e_launches[k]
+    enc, recons, _, d_launches = run_path(
+        dev, ldp_cfg(npz, extra=["--FmeMode=dctif"]), NFRAMES)
+    check_stream(enc, recons, NFRAMES, d_launches, INTRA + G_KERNELS
+                 + ("grid_subpel",), "LD-P dctif")
+    res["dctif"] = enc.results
+    for k in KERNELS:
+        launches[k] += d_launches[k]
+    summary = ", ".join(
+        f"{tag} {sum(r.bits for r in rs) / 1000:.1f} kbit Y-PSNR "
+        f"{np.mean([r.psnr_y for r in rs]):.3f} dB" for tag, rs in res.items())
+    print(f"main path NN-FME training, encode: the anchor LD-P cfg {W}x{H} x "
+          f"{NFRAMES} at QP {QP} with the trained weights in {e_secs:.3f} s, "
+          f"hash OK, nnfme_mlp {e_launches['nnfme_mlp']} launches | "
+          f"{summary} | {gpu}", flush=True)
+    return launches
+
+
 def main():
     dev = require_cuda()
     gpu = gpu_line()
@@ -1582,6 +1892,8 @@ def main():
         rows.update(check_intra_wave(dev))
         multi = multi_calls(dev)
         rows.update(check_multi_kernels(multi[0], rows))
+        fme_ds = fme_dataset()
+        rows.update(check_train_kernels(dev, fme_ds))
         count_plain_decide()
 
         # LD-P: a warm-up encode (the grid step's first picture pays the
@@ -1590,6 +1902,7 @@ def main():
         enc, recons, secs, launches = run_path(dev, ldp_cfg(npz), NFRAMES)
         check_stream(enc, recons, NFRAMES, launches, LDP_NEED, "LD-P")
         check_sao_on_card(launches, NFRAMES - 1, "LD-P")
+        seeded = enc.results
         kbits = sum(r.bits for r in enc.results) / 1000
         psnr = np.mean([r.psnr_y for r in enc.results])
         print(f"main path LD-P: {W}x{H} x {NFRAMES} frames in {secs:.3f} s "
@@ -1647,6 +1960,13 @@ def main():
         mp_launches = run_multi(dev, npz, gpu, *multi[1:])
         for k in KERNELS:
             launches[k] += mp_launches[k]
+        # paths 1-7 train nothing
+        check(all(launches[k] == 0 for k in TRAIN_KERNELS),
+              "paths 1-7 launched a train-step kernel")
+
+        tr_launches = run_training(dev, fme_ds, npz, gpu, seeded)
+        for k in KERNELS:
+            launches[k] += tr_launches[k]
 
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
@@ -1674,8 +1994,9 @@ def main():
             replaces=SOURCES[k][1], launches=launches[k],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by,
-            # no single PyTorch call computes any of these functions
-            library_ms=None))
+            # torch._fused_adam_ computes fme_adam's update; no single
+            # PyTorch call computes any of the other functions
+            library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

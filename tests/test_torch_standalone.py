@@ -9,7 +9,9 @@
   6) from the port's own options, and its own decoder (also through
   `python -m tpuhevc_torch dec`) decodes every picture with the hash OK;
   and the multi-device path (`tpuhevc_torch.parallel.dryrun`) runs on a
-  mesh of 2 x cpu;
+  mesh of 2 x cpu; and the NN-FME dataset extraction and training
+  (`python -m tpuhevc_torch extract`, then `train --Device=cpu`) write a
+  CSV and an npz, with `optax` refused too;
 - the port binds the repository's native entropy library itself, and
   raises where it can be neither built nor loaded (no silent slower
   path).
@@ -73,7 +75,7 @@ import sys
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "tpuhevc"):
+        if top in ("jax", "jaxlib", "optax", "tpuhevc"):
             raise ImportError(f"{name} is refused: the port stands alone")
         return None
 
@@ -183,6 +185,33 @@ print("loaded", sorted(m for m in sys.modules
     assert lines[-1] == "loaded []", lines
     assert [ln.split(":")[0] for ln in lines[:-1]] == [
         "step 2", "step 2b", "step 3"], lines
+
+
+def test_training_runs_with_tpuhevc_jax_and_optax_refused(tmp_path):
+    """`extract` then `train` through the port's CLI on the CPU (64x48 x
+    3, 2 epochs): the CSV and the npz are written, and nothing of jax,
+    optax or tpuhevc is loaded."""
+    code = (f"import sys\nsys.path.insert(0, {ROOT!r})\n" + BLOCKER + """
+import numpy as np
+from tpuhevc_torch.app import main_extract, main_train
+from tpuhevc_torch.models.nnfme import PARAM_KEYS, load_npz
+assert main_extract(["d.csv", "--width", "64", "--height", "48",
+                     "--frames", "3"]) == 0
+assert main_train(["w.npz", "--data", "d.csv:32", "--epochs", "2",
+                   "--Device=cpu"]) == 0
+w = load_npz("w.npz")
+assert sorted(w) == [32] and sorted(w[32]) == sorted(PARAM_KEYS), w
+assert all(np.isfinite(v).all() for v in w[32].values())
+print("loaded", sorted(m for m in sys.modules if m.split(".")[0] in
+                       ("jax", "jaxlib", "optax", "tpuhevc")))
+""")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path),
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "loaded []", lines
+    assert lines[0].startswith("d.csv: 24 samples"), lines
 
 
 def test_native_library_binds_the_committed_file():

@@ -1,6 +1,7 @@
 """CLI of the port: `enc` runs the all-intra, LD-P or random-access slice
 through the CUDA kernels; `dec` is the port's host decoder (a copy of the
-reference's; every picture's MD5 SEI is checked).
+reference's; every picture's MD5 SEI is checked); `extract` and `train`
+make NN-FME weights.
 
 Usage:
   python -m tpuhevc_torch enc -c cfg/encoder_intra_main.cfg \
@@ -16,6 +17,16 @@ Usage:
       -i in.yuv -b out.bin -wdt 416 -hgt 240 -f 32 -q 32 \
       --SEIDecodedPictureHash=3 [--Device=cuda]
   python -m tpuhevc_torch dec -b out.bin -o dec.yuv
+  python -m tpuhevc_torch extract data_q32.csv [--input clip.yuv] \
+      [--width 416] [--height 240] [--frames 16] [--qp 32]
+  python -m tpuhevc_torch train weights.npz --data data_q32.csv:32 \
+      [--data data_q22.csv:22 ...] [--epochs 200] [--lr 3e-3] [--Device=cuda]
+
+`extract` and `train` are the counterparts of tools/extract_fme_dataset.py
+and tools/train_fme.py: the NN-FME dataset (host numpy; with no --input,
+tools/make_test_clip.py's seeded clip) as the same CSV, then one MLP per
+QP trained on the card (the train step's kernels) into the same npz
+layout, which `--NNWeightsDir=` reads.
 
 Options are HM's syntax, as the reference's CLI reads them; `--Device=`
 names the torch device (default cuda; there is no fallback to the CPU).
@@ -112,13 +123,74 @@ def main_decode(argv: list[str]) -> int:
     return 0 if ok else 1
 
 
+def main_extract(argv: list[str]) -> int:
+    import argparse
+
+    from .models.fme_data import extract, split_frames, write_csv
+
+    ap = argparse.ArgumentParser(prog="python -m tpuhevc_torch extract")
+    ap.add_argument("out")
+    ap.add_argument("--input")
+    ap.add_argument("--width", type=int, default=416)
+    ap.add_argument("--height", type=int, default=240)
+    ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--qp", type=int, default=32)
+    a = ap.parse_args(argv)
+    w, h = a.width, a.height
+    if a.input:
+        with open(a.input, "rb") as f:
+            raw = f.read(a.frames * w * h * 3 // 2)
+    else:
+        from tools.make_test_clip import make_clip
+
+        raw = make_clip(w, h, a.frames)
+    sads, dims, labels = extract(split_frames(raw, w, h), a.qp)
+    write_csv(a.out, sads, dims, labels)
+    print(f"{a.out}: {len(labels)} samples, "
+          f"{len(np.unique(labels))} distinct classes")
+    return 0
+
+
+def main_train(argv: list[str]) -> int:
+    import argparse
+
+    from .models.fme_data import load_csv
+    from .models.fme_train import train_fme
+    from .models.nnfme import TrainConfig, save_npz
+
+    ap = argparse.ArgumentParser(prog="python -m tpuhevc_torch train")
+    ap.add_argument("out")
+    ap.add_argument("--data", action="append", required=True,
+                    help="csv_path:qp (repeatable)")
+    ap.add_argument("--epochs", type=int, default=200)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--Device", default="cuda")
+    a = ap.parse_args(argv)
+    per_qp = {}
+    for spec in a.data:
+        path, qp = spec.rsplit(":", 1)
+        sads, heights, widths, labels = load_csv(path)
+        t0 = time.time()
+        params, acc = train_fme(sads, labels, heights, widths,
+                                TrainConfig(epochs=a.epochs, lr=a.lr),
+                                device=a.Device)
+        per_qp[int(qp)] = params
+        print(f"QP {qp}: {len(labels)} samples, val acc {acc:.2%} "
+              f"({time.time() - t0:.2f} s on {a.Device})")
+    save_npz(a.out, per_qp)
+    print(f"wrote {a.out} ({sorted(per_qp)} QPs)")
+    return 0
+
+
+COMMANDS = {"enc": main_encode, "dec": main_decode, "extract": main_extract,
+            "train": main_train}
+
+
 def main() -> int:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("enc", "dec"):
+    if len(sys.argv) < 2 or sys.argv[1] not in COMMANDS:
         print(__doc__)
         return 2
-    if sys.argv[1] == "enc":
-        return main_encode(sys.argv[2:])
-    return main_decode(sys.argv[2:])
+    return COMMANDS[sys.argv[1]](sys.argv[2:])
 
 
 if __name__ == "__main__":

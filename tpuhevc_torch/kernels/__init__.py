@@ -8,12 +8,14 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 `ops/intra.py`, `ops/cost.py`, `ops/intra_txq.py`, `entropy/bitest.py`,
 `ops/grid_me.py`, `ops/grid_pred.py`, `ops/grid_code.py`,
 `ops/grid_intra.py`, `ops/grid_deblock.py`, `ops/grid_sao.py`,
-`ops/grid_stats.py`, `ops/intra_wave.py`, `ops/stripe_prescreen.py`) and
+`ops/grid_stats.py`, `ops/intra_wave.py`, `ops/stripe_prescreen.py`,
+`ops/fme_train.py`) and
 adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`grid_deblock` launches twice a picture, once per edge direction;
 `grid_sao` twice, its stats and its apply, with `grid_sao_decide` between
 them; `intra_wave` once for a whole batch of pictures; `stripe_prescreen`
-once a row stripe). Shared device code sits in `csrc/*.cuh`.
+once a row stripe; `fme_train_fwd`, `fme_train_bwd` and `fme_adam` once
+a training step each). Shared device code sits in `csrc/*.cuh`.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ SOURCE_OF = {"sad_search": "sad_search", "nnfme_mlp": "nnfme_mlp",
              "grid_subpel": "grid_pred",
              "grid_wp_me": "grid_me", "grid_stats": "grid_stats",
              "intra_wave": "intra_wave",
-             "stripe_prescreen": "stripe_prescreen"}
+             "stripe_prescreen": "stripe_prescreen",
+             "fme_train_fwd": "fme_train", "fme_train_bwd": "fme_train",
+             "fme_adam": "fme_train"}
 KERNELS = tuple(SOURCE_OF)
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 

@@ -28,12 +28,13 @@ BUILD_DIR = os.path.join(
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # per-file extras: the MLP, the RDOQ trials, the bit estimate, the B
-# step's, the grid coding's and the SAO decision's float costs round every
-# float product on its own, as their PyTorch versions do
+# step's, the grid coding's, the SAO decision's and the train step's float
+# arithmetic round every float product on its own, as their PyTorch
+# versions do
 EXTRA_FLAGS = {k: ["-fmad=false"] for k in ("nnfme_mlp", "intra_txq",
                                             "tu_bits", "b_me", "b_pred",
                                             "b_txq", "grid_code",
-                                            "grid_sao")}
+                                            "grid_sao", "fme_train")}
 
 P = ctypes.c_void_p
 I = ctypes.c_int

@@ -10,12 +10,24 @@ packages read the same files and compute the same thing.
 
 `NNFME.forward` is the plain PyTorch version; `nn_refine` launches the
 CUDA kernel (`kernels/csrc/nnfme_mlp.cu`) for CUDA tensors.
+
+The training half copies `tpuhevc/models/nnfme.py:207-324`: `TrainConfig`
+(the FastAI tabular learner of the reference's NN_training.ipynb),
+`init_train_params`, `init_bn_state`, `export_inference_params` (numpy)
+and `train_forward` (on tensors, the plain live-BatchNorm forward);
+`NNFMETrain` holds the 13 trained arrays as parameters and the six
+BatchNorm running statistics as buffers, all views of two flat tensors
+(`TRAIN_KEYS`, `STATE_KEYS` order), the layout the training kernels read
+(`ops/fme_train.py`); `from_numpy`/`to_numpy` carry the JAX package's
+parameter and state dicts across both ways. `forward_np` is the host
+inference forward the validation accuracy uses.
 """
 
 from __future__ import annotations
 
 import os
 import re
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -242,6 +254,21 @@ def nn_refine(model: NNFME, sad9: torch.Tensor, hcat: int, wcat: int):
     return logits, cls, qoff
 
 
+def forward_np(p: dict, sads: np.ndarray, heights, widths) -> np.ndarray:
+    """Reference-exact forward: (N, 9) SAD surfaces [TL,T,TR,L,C,R,BL,B,BR]
+    -> (N, 49) logits (float32)."""
+    x = (sads.astype(np.float32) - p["mean"]) / p["std"]
+    x = x * p["bn_in"]
+    e0 = p["emb0"][height_category_np(heights)]
+    e1 = p["emb1"][width_category_np(widths)]
+    inp = np.concatenate([e0, e1, x], axis=-1)  # (N, 17)
+    h1 = inp @ p["w1"].T + p["b1"]
+    h1 = np.maximum(h1, 0) * p["bn1_w"] + p["bn1_b"]
+    h2 = h1 @ p["w2"].T + p["b2"]
+    h2 = np.maximum(h2, 0) * p["bn2_w"] + p["bn2_b"]
+    return h2 @ p["wout"].T + p["bout"]
+
+
 def random_params(seed: int) -> dict:
     """Seeded stand-in weights in the numpy layout of the loaders (the
     repository ships no trained set). The
@@ -265,3 +292,192 @@ def random_params(seed: int) -> dict:
     }
     _check_shapes(p)
     return p
+
+
+# --- training (FastAI tabular learner parity) ----------------------------------
+
+@dataclass
+class TrainConfig:
+    """The learner's training settings (the widths are fixed: TRAIN_SHAPES,
+    the layers 17 -> 22 -> 20 -> 49 with 8x4 embeddings, as the kernels
+    are)."""
+    dropouts: tuple = (0.001, 0.01)
+    lr: float = 3e-3
+    epochs: int = 200
+    batch_size: int = 1024
+    bn_momentum: float = 0.1
+    seed: int = 0
+
+
+# the trained arrays and the running statistics, in their flat order (the
+# trained arrays' offsets equal `nnfme_mlp.cu`'s for the same weights)
+TRAIN_SHAPES = {
+    "emb0": (8, 4), "emb1": (8, 4), "w1": (22, 17), "b1": (22,),
+    "w2": (20, 22), "b2": (20,), "wout": (49, 20), "bout": (49,),
+    "bn_in_w": (9,), "bn1_w": (22,), "bn1_b": (22,), "bn2_w": (20,),
+    "bn2_b": (20,),
+}
+STATE_SHAPES = {"in_mu": (9,), "in_var": (9,), "bn1_mu": (22,),
+                "bn1_var": (22,), "bn2_mu": (20,), "bn2_var": (20,)}
+TRAIN_KEYS = tuple(TRAIN_SHAPES)
+STATE_KEYS = tuple(STATE_SHAPES)
+N_TRAIN = sum(int(np.prod(s)) for s in TRAIN_SHAPES.values())  # 2042
+N_STATE = sum(int(np.prod(s)) for s in STATE_SHAPES.values())  # 102
+
+
+def init_train_params(rng: np.random.Generator) -> dict:
+    """The initial trained arrays, drawn from `rng` in the reference's
+    order: the three layers (weight, then bias), then emb0, then emb1."""
+    def lin(key):
+        n_out, n_in = TRAIN_SHAPES[key]
+        bound = np.sqrt(1.0 / n_in)
+        return (
+            rng.uniform(-bound, bound, (n_out, n_in)).astype(np.float32),
+            rng.uniform(-bound, bound, (n_out,)).astype(np.float32),
+        )
+
+    w1, b1 = lin("w1")
+    w2, b2 = lin("w2")
+    wo, bo = lin("wout")
+    return {
+        "emb0": (rng.standard_normal(TRAIN_SHAPES["emb0"]) * 0.01
+                 ).astype(np.float32),
+        "emb1": (rng.standard_normal(TRAIN_SHAPES["emb1"]) * 0.01
+                 ).astype(np.float32),
+        "w1": w1, "b1": b1, "w2": w2, "b2": b2, "wout": wo, "bout": bo,
+        "bn_in_w": np.ones(9, np.float32),
+        "bn1_w": np.ones(22, np.float32), "bn1_b": np.zeros(22, np.float32),
+        "bn2_w": np.ones(20, np.float32), "bn2_b": np.zeros(20, np.float32),
+    }
+
+
+def init_bn_state() -> dict:
+    return {k: (np.ones if k.endswith("_var") else np.zeros)(shp, np.float32)
+            for k, shp in STATE_SHAPES.items()}
+
+
+def export_inference_params(p: dict, state: dict, mean: np.ndarray,
+                            std: np.ndarray) -> dict:
+    """Fold the BN running statistics into the reference inference formula
+    (no input-BN bias; scale and shift after the ReLU)."""
+    eps = 1e-5
+    in_sigma = np.sqrt(np.asarray(state["in_var"]) + eps)
+    s1 = np.asarray(p["bn1_w"]) / np.sqrt(np.asarray(state["bn1_var"]) + eps)
+    s2 = np.asarray(p["bn2_w"]) / np.sqrt(np.asarray(state["bn2_var"]) + eps)
+    return {
+        "emb0": np.asarray(p["emb0"]),
+        "emb1": np.asarray(p["emb1"]),
+        "w1": np.asarray(p["w1"]), "b1": np.asarray(p["b1"]),
+        "w2": np.asarray(p["w2"]), "b2": np.asarray(p["b2"]),
+        "wout": np.asarray(p["wout"]), "bout": np.asarray(p["bout"]),
+        # (x - mean')/std' * bn_in == BN_nobias((x-mean)/std)
+        "mean": mean + np.asarray(state["in_mu"]) * std,
+        "std": std * in_sigma,
+        "bn_in": np.asarray(p["bn_in_w"]),
+        "bn1_w": s1,
+        "bn1_b": np.asarray(p["bn1_b"]) - np.asarray(state["bn1_mu"]) * s1,
+        "bn2_w": s2,
+        "bn2_b": np.asarray(p["bn2_b"]) - np.asarray(state["bn2_mu"]) * s2,
+    }
+
+
+def split_flat(flat: torch.Tensor, shapes: dict) -> dict:
+    """Views of `flat` (1-D), one per entry of `shapes`, in order."""
+    out, o = {}, 0
+    for k, shp in shapes.items():
+        n = int(np.prod(shp))
+        out[k] = flat[o : o + n].view(shp)
+        o += n
+    return out
+
+
+def flatten_np(d: dict, shapes: dict) -> np.ndarray:
+    for k, shp in shapes.items():
+        if np.shape(d[k]) != shp:
+            raise ValueError(f"{k}: shape {np.shape(d[k])}, expected {shp}")
+    return np.concatenate([np.asarray(d[k], np.float32).reshape(-1)
+                           for k in shapes])
+
+
+class NNFMETrain(nn.Module):
+    """The NN-FME MLP in training form: the 13 trained arrays as
+    parameters (views of `flat`, 2042 floats) and the six BatchNorm
+    running statistics as buffers (views of `state`, 102 floats). Built on
+    its device by `from_numpy`; the training kernels update `flat` and
+    `state` in place."""
+
+    def __init__(self, flat: torch.Tensor, state: torch.Tensor):
+        super().__init__()
+        if flat.shape != (N_TRAIN,) or state.shape != (N_STATE,):
+            raise ValueError(f"NNFMETrain: flat {tuple(flat.shape)}, state "
+                             f"{tuple(state.shape)}")
+        self.register_buffer("flat", flat, persistent=False)
+        self.register_buffer("state", state, persistent=False)
+        for k, v in split_flat(flat, TRAIN_SHAPES).items():
+            self.register_parameter(k, nn.Parameter(v))
+        for k, v in split_flat(state, STATE_SHAPES).items():
+            self.register_buffer(k, v)
+
+    @classmethod
+    def from_numpy(cls, params: dict, state: dict, device="cpu"
+                   ) -> "NNFMETrain":
+        """From the JAX package's dicts (`init_train_params`'s 13 keys and
+        `init_bn_state`'s 6), as numpy arrays."""
+        flat = torch.as_tensor(flatten_np(params, TRAIN_SHAPES), device=device)
+        st = torch.as_tensor(flatten_np(state, STATE_SHAPES), device=device)
+        return cls(flat, st)
+
+    def to_numpy(self) -> tuple[dict, dict]:
+        """-> (params, state): the JAX package's dicts of numpy arrays."""
+        flat = self.flat.detach().cpu().numpy()
+        st = self.state.detach().cpu().numpy()
+        return ({k: v.numpy().copy() for k, v in split_flat(
+                    torch.from_numpy(flat), TRAIN_SHAPES).items()},
+                {k: v.numpy().copy() for k, v in split_flat(
+                    torch.from_numpy(st), STATE_SHAPES).items()})
+
+
+def train_forward(p: dict, state: dict | None, x: torch.Tensor,
+                  hcat: torch.Tensor, wcat: torch.Tensor, train: bool,
+                  masks=None, dropouts=(0.001, 0.01), momentum=0.1,
+                  stats: dict | None = None):
+    """Plain training forward with live BatchNorm (twin of
+    `tpuhevc/models/nnfme.py:245-287`). p: the 13 trained arrays as
+    tensors; state: the six running statistics (or None in training mode:
+    no running update); x (B, 9) mapper-normalised SADs; hcat, wcat (B,)
+    embedding rows; masks: None or the two dropout keep masks (B, 22),
+    (B, 20) as 0/1 floats, applied in training mode and scaled by
+    1/(1 - p); stats: a dict that receives the batch statistics (the
+    `STATE_KEYS`). Returns (logits (B, 49), new_state)."""
+    eps = 1e-5
+    new = {} if state is None else dict(state)
+
+    def bn(h, key, w, b):
+        if train:
+            mu = h.mean(0)
+            d = h - mu
+            var = (d * d).mean(0)  # biased (ddof 0), as jnp.var
+            if stats is not None:
+                stats[key + "_mu"], stats[key + "_var"] = (mu.detach(),
+                                                           var.detach())
+            if state is not None:
+                new[key + "_mu"] = ((1 - momentum) * state[key + "_mu"]
+                                    + momentum * mu.detach())
+                new[key + "_var"] = ((1 - momentum) * state[key + "_var"]
+                                     + momentum * var.detach())
+        else:
+            mu, var = state[key + "_mu"], state[key + "_var"]
+        y = (h - mu) / torch.sqrt(var + eps) * w
+        return y if b is None else y + b
+
+    xn = bn(x, "in", p["bn_in_w"], None)  # the input BN has no bias
+    inp = torch.cat([p["emb0"][hcat], p["emb1"][wcat], xn], dim=-1)
+    h = torch.relu(inp @ p["w1"].T + p["b1"])
+    h = bn(h, "bn1", p["bn1_w"], p["bn1_b"])
+    if train and masks is not None:
+        h = h * masks[0] / (1 - dropouts[0])
+    h = torch.relu(h @ p["w2"].T + p["b2"])
+    h = bn(h, "bn2", p["bn2_w"], p["bn2_b"])
+    if train and masks is not None:
+        h = h * masks[1] / (1 - dropouts[1])
+    return h @ p["wout"].T + p["bout"], new

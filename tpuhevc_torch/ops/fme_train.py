@@ -1,0 +1,304 @@
+"""The NN-FME train step: the live-BatchNorm forward with its loss, the
+backward and the Adam update (kernels `fme_train_fwd`, `fme_train_bwd`,
+`fme_adam`).
+
+Twin of the jitted `step` of `tpuhevc/models/nnfme.py:361-368`:
+`jax.value_and_grad` of `loss_fn` (355-359: `train_forward` 245-287 in
+training mode, then the mean of optax's per-sample softmax cross-entropy)
+and the `optax.adam(lr)` update (352, 366-368).
+
+- `fme_train_fwd_plain`: the forward on tensors (`models/nnfme.py:
+  train_forward`) and the loss; `fme_train_bwd_plain`: the gradient of the
+  mean loss as torch autograd of that forward; `fme_adam_plain`: optax
+  0.2.6's adam written out (b1 0.9, b2 0.999, eps 1e-8, eps_root 0, the
+  bias correction 1 - b**count with the count starting at 1).
+- `fme_train_fwd`, `fme_train_bwd`, `fme_adam`: the wrappers. CPU tensors
+  take the plain versions; CUDA tensors launch the kernels of
+  `kernels/csrc/fme_train.cu`, each adding one to its count in
+  `kernels.LAUNCHES`.
+- `FmeTrainLoss`: a `torch.autograd.Function` whose forward is
+  `fme_train_fwd` and whose backward is `fme_train_bwd`.
+
+Layouts: the trained arrays flat (`models.nnfme.TRAIN_KEYS`, 2042 floats),
+the running statistics flat (`STATE_KEYS`, 102), a batch as int32 row
+indices into the dataset on the device (`FmeData`), and the dropout
+uniforms as (B, 42) float32 in [0, 1): 22 for the mask after BN1, 20 for
+the one after BN2, kept where u >= p (as JAX's `uniform >= p`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import check_tensor
+from ..kernels import LAUNCHES
+from ..kernels import build as kbuild
+from ..models.nnfme import (N_STATE, N_TRAIN, STATE_SHAPES, TRAIN_SHAPES,
+                            split_flat, train_forward)
+
+UNIF_COLS = 42  # dropout uniforms a sample: 22 after BN1, 20 after BN2
+SAVED_ROWS = 202  # the forward's saved rows a sample (fme_train.cu kSaved)
+WORK_ROWS = 150  # the backward's scratch rows a sample (kWork)
+MAX_BATCH = 1024  # one thread a sample, one block
+
+
+@dataclass
+class FmeData:
+    """The training set on its device: x (N, 9) float32 mapper-normalised
+    SADs, cat (N, 2) int32 (height, width embedding rows), y (N,) int32
+    class labels."""
+    x: torch.Tensor
+    cat: torch.Tensor
+    y: torch.Tensor
+
+    @classmethod
+    def from_numpy(cls, xs, hcat, wcat, labels, device) -> "FmeData":
+        return cls(
+            torch.as_tensor(np.asarray(xs, np.float32), device=device),
+            torch.as_tensor(np.stack([hcat, wcat], -1).astype(np.int32),
+                            device=device),
+            torch.as_tensor(np.asarray(labels, np.int32), device=device))
+
+
+@dataclass
+class FwdOut:
+    logits: torch.Tensor  # (B, 49)
+    loss: torch.Tensor  # () the mean loss
+    stats: torch.Tensor  # (102,) the batch mean and variance of each BN
+    state: torch.Tensor  # (102,) the updated running statistics
+    saved: torch.Tensor | None  # what the backward kernel reads (CUDA)
+
+
+@dataclass
+class AdamState:
+    """optax's ScaleByAdamState over the flat parameters; the step count
+    lives on the device (no host sync a step)."""
+    m: torch.Tensor
+    v: torch.Tensor
+    count: torch.Tensor  # () int32
+
+    @classmethod
+    def zeros(cls, n: int, device) -> "AdamState":
+        return cls(torch.zeros(n, device=device),
+                   torch.zeros(n, device=device),
+                   torch.zeros((), dtype=torch.int32, device=device))
+
+
+def keep_masks(unif: torch.Tensor, dropouts) -> tuple:
+    """The two dropout keep masks (0/1 float32) from the uniforms."""
+    return ((unif[:, :22] >= dropouts[0]).float(),
+            (unif[:, 22:] >= dropouts[1]).float())
+
+
+def _batch(data: FmeData, idx: torch.Tensor):
+    ii = idx.long()
+    cat = data.cat[ii].long()
+    return data.x[ii], cat[:, 0], cat[:, 1], data.y[ii].long()
+
+
+def _ce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """optax's softmax_cross_entropy_with_integer_labels, per sample."""
+    return torch.logsumexp(logits, -1) - logits.gather(1, y[:, None])[:, 0]
+
+
+def fme_train_fwd_plain(flat, state, data, idx, unif, dropouts, momentum):
+    x, hc, wc, y = _batch(data, idx)
+    stats = {}
+    with torch.no_grad():
+        logits, new = train_forward(
+            split_flat(flat, TRAIN_SHAPES), split_flat(state, STATE_SHAPES),
+            x, hc, wc, True, keep_masks(unif, dropouts), dropouts, momentum,
+            stats)
+        loss = _ce(logits, y).mean()
+    return FwdOut(logits, loss,
+                  torch.cat([stats[k].reshape(-1) for k in STATE_SHAPES]),
+                  torch.cat([new[k].reshape(-1) for k in STATE_SHAPES]), None)
+
+
+def fme_train_bwd_plain(flat, data, idx, unif, dropouts, gloss):
+    """The gradient (2042,) of gloss * the mean loss: torch autograd of
+    the plain forward."""
+    x, hc, wc, y = _batch(data, idx)
+    with torch.enable_grad():
+        leaf = flat.detach().requires_grad_()
+        logits, _ = train_forward(split_flat(leaf, TRAIN_SHAPES), None, x, hc,
+                                  wc, True, keep_masks(unif, dropouts),
+                                  dropouts)
+        (g,) = torch.autograd.grad(_ce(logits, y).mean(), leaf,
+                                   grad_outputs=gloss.reshape(()))
+    return g
+
+
+def _adam_consts(lr):
+    """optax.adam's python floats (b1 0.9, b2 0.999, eps 1e-8), each
+    rounded once to float32 where it meets the float32 moments (JAX's weak
+    types); fme_train.cu's kAdamB1 ... kAdamEps are the same values."""
+    def f(v):
+        return float(np.float32(v))
+
+    return dict(neg_lr=f(-lr), b1=f(0.9), omb1=f(1 - 0.9), b2=f(0.999),
+                omb2=f(1 - 0.999), eps=f(1e-8))
+
+
+def fme_adam_plain(flat, grad, opt: AdamState, lr) -> None:
+    """optax.adam(lr) in place on flat and opt (scale_by_adam, then
+    scale_by_learning_rate, then apply_updates)."""
+    c = _adam_consts(lr)
+    with torch.no_grad():
+        opt.count += 1
+        t = opt.count.float()
+        m = c["omb1"] * grad + c["b1"] * opt.m
+        v = c["omb2"] * (grad * grad) + c["b2"] * opt.v
+        bc1 = 1 - torch.pow(torch.tensor(c["b1"], device=flat.device), t)
+        bc2 = 1 - torch.pow(torch.tensor(c["b2"], device=flat.device), t)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + c["eps"])
+        flat.add_(u * c["neg_lr"])
+        opt.m.copy_(m)
+        opt.v.copy_(v)
+
+
+def _check_step(flat, data: FmeData, idx, unif, dev):
+    check_tensor(flat, "flat", torch.float32, 1, dev)
+    check_tensor(data.x, "data.x", torch.float32, 2, dev)
+    check_tensor(data.cat, "data.cat", torch.int32, 2, dev)
+    check_tensor(data.y, "data.y", torch.int32, 1, dev)
+    check_tensor(idx, "idx", torch.int32, 1, dev)
+    check_tensor(unif, "unif", torch.float32, 2, dev)
+    n, b = data.x.shape[0], idx.shape[0]
+    if (flat.shape[0] != N_TRAIN or data.x.shape[1] != 9
+            or tuple(data.cat.shape) != (n, 2) or data.y.shape[0] != n
+            or tuple(unif.shape) != (b, UNIF_COLS)
+            or not 1 <= b <= MAX_BATCH):
+        raise ValueError(f"fme_train: flat {tuple(flat.shape)}, data "
+                         f"{tuple(data.x.shape)}, idx {b}, unif "
+                         f"{tuple(unif.shape)}")
+
+
+def _drop_args(dropouts):
+    p1, p2 = (float(np.float32(p)) for p in dropouts)
+    return [p1, float(np.float32(1 - dropouts[0])), p2,
+            float(np.float32(1 - dropouts[1]))]
+
+
+def fme_train_fwd(flat, state, data: FmeData, idx, unif, dropouts=(0.001, 0.01),
+                  momentum=0.1) -> FwdOut:
+    """Kernel `fme_train_fwd`: gathers the batch idx (B,) from data, runs
+    the training forward with batch statistics and the dropout masks of
+    unif (B, 42), and returns the logits, the mean loss, the batch
+    statistics, the updated running statistics and (CUDA) the saved
+    activations. CPU tensors take the plain version."""
+    if flat.device.type == "cpu":
+        return fme_train_fwd_plain(flat, state, data, idx, unif, dropouts,
+                                   momentum)
+    if flat.device.type != "cuda":
+        raise ValueError(f"fme_train_fwd: unsupported device {flat.device}")
+    dev = flat.device
+    _check_step(flat, data, idx, unif, dev)
+    check_tensor(state, "state", torch.float32, 1, dev)
+    if state.shape[0] != N_STATE:
+        raise ValueError(f"fme_train_fwd: state {tuple(state.shape)}")
+    b = idx.shape[0]
+    logits = torch.empty((b, 49), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    stats = torch.empty(N_STATE, dtype=torch.float32, device=dev)
+    new = torch.empty(N_STATE, dtype=torch.float32, device=dev)
+    saved = torch.empty(SAVED_ROWS * b, dtype=torch.float32, device=dev)
+    fn = kbuild.function("fme_train", "tpuhevc_fme_train_fwd",
+                         [kbuild.P] * 6 + [kbuild.P, kbuild.I] + [kbuild.F] * 6
+                         + [kbuild.P] * 6)
+    err = fn(flat.data_ptr(), state.data_ptr(), data.x.data_ptr(),
+             data.cat.data_ptr(), data.y.data_ptr(), idx.data_ptr(),
+             unif.data_ptr(), b, *_drop_args(dropouts),
+             float(np.float32(momentum)), float(np.float32(1 - momentum)),
+             logits.data_ptr(), loss.data_ptr(), stats.data_ptr(),
+             new.data_ptr(), saved.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "fme_train_fwd")
+    LAUNCHES["fme_train_fwd"] += 1
+    return FwdOut(logits, loss, stats, new, saved)
+
+
+def fme_train_bwd(flat, data: FmeData, idx, unif, dropouts, saved, stats,
+                  gloss) -> torch.Tensor:
+    """Kernel `fme_train_bwd`: the gradient (2042,) of gloss (a 0-dim
+    tensor) times the mean loss, from the forward's saved activations and
+    batch statistics; every sum over the batch in a fixed order, no
+    atomics (two runs give the same bits). CPU tensors take the plain
+    version (autograd of the plain forward)."""
+    if flat.device.type == "cpu":
+        return fme_train_bwd_plain(flat, data, idx, unif, dropouts, gloss)
+    if flat.device.type != "cuda":
+        raise ValueError(f"fme_train_bwd: unsupported device {flat.device}")
+    dev = flat.device
+    _check_step(flat, data, idx, unif, dev)
+    b = idx.shape[0]
+    check_tensor(saved, "saved", torch.float32, 1, dev)
+    check_tensor(stats, "stats", torch.float32, 1, dev)
+    gloss = gloss.reshape(()).contiguous()
+    check_tensor(gloss, "gloss", torch.float32, 0, dev)
+    if saved.shape[0] != SAVED_ROWS * b or stats.shape[0] != N_STATE:
+        raise ValueError(f"fme_train_bwd: saved {tuple(saved.shape)}, stats "
+                         f"{tuple(stats.shape)} for a batch of {b}")
+    grad = torch.empty(N_TRAIN, dtype=torch.float32, device=dev)
+    work = torch.empty(WORK_ROWS * b, dtype=torch.float32, device=dev)
+    fn = kbuild.function("fme_train", "tpuhevc_fme_train_bwd",
+                         [kbuild.P] * 5 + [kbuild.P, kbuild.I] + [kbuild.F] * 4
+                         + [kbuild.P] * 5)
+    err = fn(flat.data_ptr(), data.cat.data_ptr(), data.y.data_ptr(),
+             idx.data_ptr(), unif.data_ptr(), saved.data_ptr(), b,
+             *_drop_args(dropouts), stats.data_ptr(), gloss.data_ptr(),
+             grad.data_ptr(), work.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "fme_train_bwd")
+    LAUNCHES["fme_train_bwd"] += 1
+    return grad
+
+
+def fme_adam(flat, grad, opt: AdamState, lr) -> None:
+    """Kernel `fme_adam`: optax.adam(lr) in place on flat, opt.m, opt.v
+    and opt.count. CPU tensors take the plain version."""
+    if flat.device.type == "cpu":
+        return fme_adam_plain(flat, grad, opt, lr)
+    if flat.device.type != "cuda":
+        raise ValueError(f"fme_adam: unsupported device {flat.device}")
+    dev = flat.device
+    n = flat.shape[0]
+    for t, name in ((flat, "flat"), (grad, "grad"), (opt.m, "m"),
+                    (opt.v, "v")):
+        check_tensor(t, name, torch.float32, 1, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"fme_adam: {name} {tuple(t.shape)}, expected "
+                             f"({n},)")
+    check_tensor(opt.count, "count", torch.int32, 0, dev)
+    fn = kbuild.function("fme_train", "tpuhevc_fme_adam",
+                         [kbuild.P] * 5 + [kbuild.I, kbuild.F, kbuild.P])
+    err = fn(flat.data_ptr(), grad.data_ptr(), opt.m.data_ptr(),
+             opt.v.data_ptr(), opt.count.data_ptr(), n,
+             _adam_consts(lr)["neg_lr"],
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "fme_adam")
+    LAUNCHES["fme_adam"] += 1
+
+
+class FmeTrainLoss(torch.autograd.Function):
+    """loss, new_state = FmeTrainLoss.apply(flat, state, data, idx, unif,
+    dropouts, momentum): the mean loss of one batch, differentiable in
+    flat, through `fme_train_fwd`; its backward is `fme_train_bwd`."""
+
+    @staticmethod
+    def forward(ctx, flat, state, data, idx, unif, dropouts, momentum):
+        out = fme_train_fwd(flat, state, data, idx, unif, dropouts, momentum)
+        ctx.data, ctx.dropouts = data, dropouts
+        ctx.save_for_backward(flat, idx, unif, out.saved, out.stats)
+        ctx.mark_non_differentiable(out.state)
+        return out.loss, out.state
+
+    @staticmethod
+    def backward(ctx, gloss, _gstate):
+        flat, idx, unif, saved, stats = ctx.saved_tensors
+        g = fme_train_bwd(flat, ctx.data, idx, unif, ctx.dropouts, saved,
+                          stats, gloss)
+        return g, None, None, None, None, None, None

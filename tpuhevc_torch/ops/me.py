@@ -21,6 +21,10 @@ the adjacent row, as in the reference).
 `*_plain` are the PyTorch versions; `sad_search` and `b_me` launch the
 CUDA kernels (`kernels/csrc/sad_search.cu`, `kernels/csrc/b_me.cu`) for
 CUDA tensors.
+
+The host numpy search at the end (`integer_me_np`, `sad_surface_np`,
+`fracdif_refine_np`; copies of `tpuhevc/ops/me.py:31-121`) labels the
+NN-FME training set (`models/fme_data.py:extract`).
 """
 
 from __future__ import annotations
@@ -215,3 +219,95 @@ def b_me(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
     kbuild.check(err, "b_me")
     LAUNCHES["b_me"] += 1
     return mv, sad9
+
+
+# --- the host search of the NN-FME dataset extraction --------------------------
+
+
+def _windows_np(plane, xs, ys, size, sr):
+    h, w = plane.shape
+    win = size + 2 * sr
+    n = len(xs)
+    out = np.empty((n, win, win), dtype=np.int32)
+    for i in range(n):
+        yy = np.clip(ys[i] - sr + np.arange(win), 0, h - 1)
+        xx = np.clip(xs[i] - sr + np.arange(win), 0, w - 1)
+        out[i] = plane[np.ix_(yy, xx)]
+    return out
+
+
+def integer_me_np(ref, cur, xs, ys, sr, lambda_fp256: int):
+    """ref (H,W), cur (N,S,S), positions (N,). Returns
+    (mv_full (N,2), sad_map (N, 2R+1, 2R+1), best_idx (N,2)); the argmin
+    over the map's interior (first index wins), so the 3x3 surface exists."""
+    n, s, _ = cur.shape
+    wnd = _windows_np(ref, xs, ys, s, sr)
+    m = 2 * sr + 1
+    sad = np.empty((n, m, m), dtype=np.int64)
+    c = cur.astype(np.int32)
+    for dy in range(m):
+        for dx in range(m):
+            sad[:, dy, dx] = (
+                np.abs(wnd[:, dy : dy + s, dx : dx + s] - c).sum(axis=(1, 2))
+            )
+    cost = sad + (mv_bits_table(sr)[None] * lambda_fp256 >> 8)
+    inner = cost[:, 1 : m - 1, 1 : m - 1].reshape(n, -1)
+    bi = np.argmin(inner, axis=1)
+    by = bi // (m - 2) + 1
+    bx = bi % (m - 2) + 1
+    mv = np.stack([bx - sr, by - sr], axis=-1).astype(np.int32)
+    return mv, sad, np.stack([bx, by], axis=-1)
+
+
+def sad_surface_np(sad_map, best_idx):
+    """(N, 9) [TL,T,TR,L,C,R,BL,B,BR] raw SADs around the winner."""
+    n = sad_map.shape[0]
+    out = np.empty((n, 9), dtype=np.int64)
+    k = 0
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            out[:, k] = sad_map[np.arange(n), best_idx[:, 1] + dy,
+                                best_idx[:, 0] + dx]
+            k += 1
+    return out
+
+
+def fracdif_refine_np(ref, cur, xs, ys, mv_int, lambda_fp256: int = 0,
+                      bit_depth: int = 8):
+    """DCT-IF fractional refinement (xPatternSearchFracDIF,
+    TEncSearch.cpp:5232): the 9-point half-pel SATD search around the
+    integer MV, then the 9-point quarter-pel one around the best half-pel;
+    the ground-truth labeller of the NN-FME training set.
+
+    cur: (N, S, S); mv_int: (N, 2) full-pel. Returns (N, 2) quarter-pel.
+    """
+    from .cost import satd_np
+    from .interp import mc_np
+
+    n, s, _ = cur.shape
+    # HM s_acMvRefineH/Q visit order (ties resolve to earlier entries)
+    offs = np.array([(0, 0), (0, -1), (0, 1), (-1, 0), (1, 0),
+                     (-1, -1), (1, -1), (-1, 1), (1, 1)], np.int32)
+    bs = 8 if s >= 8 else 4  # SATD over 8x8 subblocks (4x4 for tiny PUs)
+
+    def satd_pu(pred):
+        a = cur.reshape(n, s // bs, bs, s // bs, bs).transpose(0, 1, 3, 2, 4)
+        b = pred.reshape(n, s // bs, bs, s // bs, bs).transpose(0, 1, 3, 2, 4)
+        return satd_np(a, b).reshape(n, -1).sum(axis=1)
+
+    mvq = mv_int.astype(np.int32) * 4
+    for step in (2, 1):
+        costs = np.empty((9, n), np.int64)
+        for k, (dx, dy) in enumerate(offs):
+            cand = mvq + np.array([dx * step, dy * step], np.int32)
+            pred = mc_np(ref, xs, ys, cand, s, True, bit_depth)
+            bits = (_mv_bits(cand[:, 0]) + _mv_bits(cand[:, 1]))
+            costs[k] = satd_pu(pred) + ((bits * lambda_fp256) >> 8)
+        best = np.argmin(costs, axis=0)
+        mvq = mvq + offs[best] * step
+    return mvq
+
+
+def _mv_bits(v):
+    return (2 * np.ceil(np.log2(2 * np.abs(v).astype(np.int64) + 1))
+            .astype(np.int64) + 1)

@@ -10,9 +10,13 @@
 - step "3": `encode_segments_parallel` of 2 min(n, 2) random 64x32
   pictures in min(n, 2) segments, whose stream decodes hash-OK.
 
-Step "1" (the data-parallel NN-FME training step) and step "2c"
-(`sharded_frame_step`) are not ported: asking for them raises
-NotImplementedError (ROADMAP queue 1, items 4 and 7).
+Step "1" and step "2c" (`sharded_frame_step`) are not ported: asking for
+them raises NotImplementedError (ROADMAP queue 1, items 4 and 7). Step "1"
+is the data-parallel NN-FME train step: the one-device step runs on the
+card (`models/fme_train.py`, kernels `fme_train_fwd`/`fme_train_bwd`/
+`fme_adam`); what is left is a batch split across devices whose three
+BatchNorm layers take global batch statistics, a cross-device reduction
+in each forward and backward, equal to the one-device step.
 """
 
 from __future__ import annotations
@@ -28,8 +32,10 @@ from .mesh import make_mesh, stripe_refine, tile_prescreen
 from .segments import encode_segments_parallel
 
 STEPS = ("2", "2b", "3")
-NOT_PORTED = {"1": "the data-parallel NN-FME training step (ROADMAP queue 1, "
-                   "item 4)",
+NOT_PORTED = {"1": "the data-parallel NN-FME train step (global BatchNorm "
+                   "statistics by a cross-device reduction in each BN layer, "
+                   "forward and backward; the one-device step is "
+                   "models.fme_train; ROADMAP queue 1, item 4)",
               "2c": "sharded_frame_step (ROADMAP queue 1, item 7)"}
 
 
