@@ -30,7 +30,14 @@
    planes exact; stripe_prescreen (the multi-device path's intra
    prescreen, one launch a stripe) at 416x240 in 1 and 3 stripes and at
    the graft entry's dryrun shape (128x128 in 2); grid_refine with
-   ry_y0 at every call of the 3-stripe refine at 416x240.
+   ry_y0 at every call of the 3-stripe refine at 416x240; the launches
+   that take a row origin at every call of one 416x240 anchor P picture
+   through the sharded grid step in 3 stripes (grid_intra16 with y0,
+   grid_planes from each stripe's row in its carried reference rows,
+   grid_sao's stats and apply with their halo rows, grid_stats' partial
+   sums without the recon fetch), and the bound of that sharded step and
+   of the single one (each kernel's bound summed, plus the exchanged
+   bytes).
    Prints the max difference, median times (CUDA events), and each
    kernel's bound: the larger of its bytes (each tensor read or written
    once per picture; a plane that a kernel reads through windows or
@@ -74,7 +81,13 @@
    frame 1 against frame 0) equals the single refine; encode_segments_
    overlapped on 16 frames of the anchor LD-P cfg in 2 segments decodes
    hash-OK and equals the segments' own encode_sequence streams with the
-   repeated parameter sets dropped; dryrun_multichip(2, "cuda");
+   repeated parameter sets dropped; dryrun_multichip(2, "cuda") (steps
+   2, 2b, 2c, 3); the grid step on row stripes: the anchor cfg uncut at
+   416x240 in 3 stripes (64, 64, 112 rows), 16 P pictures chained from
+   the IDR's recon through sharded_frame_step and, on the same carry,
+   the single step: every packed row and carry equal, the sharded step
+   launching each grid kernel 3 times as often (grid_sao_decide as
+   often); the halo bytes and both times a picture printed;
    stripe_prescreen, grid_refine and the grid kernels must have launched.
    Decodes every stream with the port's host decoder: every picture hash
    must match and, where the recon was fetched, equal the encoder's.
@@ -163,13 +176,17 @@ from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
     grid_subpel_plain, subpel_search)
 from tpuhevc_torch.ops import grid_sao as grid_sao_mod  # noqa: E402
 from tpuhevc_torch.ops.grid_sao import (  # noqa: E402
-    grid_sao, grid_sao_decide, grid_sao_decide_plain, grid_sao_plain)
+    grid_sao, grid_sao_apply, grid_sao_apply_plain, grid_sao_decide,
+    grid_sao_decide_plain, grid_sao_plain, grid_sao_stats,
+    grid_sao_stats_plain)
 from tpuhevc_torch.ops.stripe_prescreen import (  # noqa: E402
     stripe_prescreen, stripe_prescreen_plain)
 from tpuhevc_torch.parallel import mesh as mesh_mod  # noqa: E402
 from tpuhevc_torch.parallel import segments  # noqa: E402
 from tpuhevc_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
-from tpuhevc_torch.ops.grid_stats import grid_stats, grid_stats_plain  # noqa: E402
+from tpuhevc_torch.ops.grid_stats import (  # noqa: E402
+    grid_stats, grid_stats_partial, grid_stats_partial_plain,
+    grid_stats_plain)
 from tpuhevc_torch.ops.interp import (  # noqa: E402
     b_pred, b_pred_plain, mc_blk, mc_blk_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
@@ -388,16 +405,17 @@ def gather_mask(planes, mv, ref, cell, look):
     return mask.reshape(planes.shape)
 
 
-def boundary_mask(plane, S, nh, nw, halves):
+def boundary_mask(plane, S, nh, nw, halves, y0=0):
     """The samples of `plane` that grid_intra16 reads around its S x S
-    cells: the row above (with the top-right segment) and the column to
-    the left (with the bottom-left one), clamped, in each half."""
+    cells (from row y0): the row above (with the top-right segment) and
+    the column to the left (with the bottom-left one), clamped, in each
+    half."""
     hh, ww = plane.shape
     mask = np.zeros((hh, ww), bool)
     for ox in halves:
         for cy in range(nh):
             for cx in range(nw):
-                by, bx = cy * S, cx * S + ox
+                by, bx = cy * S + y0, cx * S + ox
                 ys = np.clip(np.arange(by - 1, by + 2 * S), 0, hh - 1)
                 xs = np.clip(np.arange(bx - 1, bx + 2 * S), 0, ww - 1)
                 mask[ys[0], xs] = True
@@ -425,10 +443,10 @@ def windows(name, a, kw):
     if name == "grid_satd":
         return [(a[0], gather_mask(a[0], a[1], a[2], a[3], a[4]))]
     if name == "grid_intra16":
-        nh, nw = a[4], a[5]
-        return [(a[0], boundary_mask(a[0], 16, nh, nw, (0,))),
+        nh, nw, y0 = a[4], a[5], kw.get("y0", 0)
+        return [(a[0], boundary_mask(a[0], 16, nh, nw, (0,), y0)),
                 (a[1], boundary_mask(a[1], 8, nh, nw,
-                                     (0, a[1].shape[1] // 2)))]
+                                     (0, a[1].shape[1] // 2), y0))]
     if name == "grid_subpel":  # the 18 points' gathers of this run's data
         planes, _, _, ref, S, nbh, nbw, look = a
         refc = ref.reshape(1, nbh, nbw).expand(9, -1, -1).contiguous()
@@ -543,6 +561,10 @@ def kernel_ops(name, a, kw=None) -> int:
         return ops
     if name == "grid_sao":  # 4 EO classes and the band per sample, twice
         return (a[2].numel() + a[3].numel()) * 50
+    if name == "grid_sao_stats":  # one of grid_sao's two passes
+        return (a[0].numel() + a[1].numel()) * 25
+    if name == "grid_sao_apply":
+        return (a[0].numel() + a[1].numel()) * 25
     if name == "grid_sao_decide":  # per CTU and component: 16 EO
         # categories and 32 bands of 8 candidates (~9 operations each),
         # the 29 band windows, the types; the picture sums
@@ -561,7 +583,8 @@ def kernel_ops(name, a, kw=None) -> int:
         return 18 * nbh * S * nbw * S * 12 + 2 * nbh * nbw * 9
     if name == "grid_wp_me":  # multiply, round, shift, offset, clip
         return a[0].numel() * 5
-    if name == "grid_stats":  # mask, xor, add; difference, square, add
+    if name in ("grid_stats", "grid_stats_partial"):  # mask, xor, add;
+        # difference, square, add
         return (a[2].numel() + a[3].numel()) * 10
     if name == "intra_wave":  # per 8x8 cell: 35 predictions (6 ops a
         # sample), differences and Hadamards (8 ops a sample), the mode
@@ -931,6 +954,10 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_stats": (grid_stats, grid_stats_plain),
     "grid_sao_decide": (grid_sao_decide, grid_sao_decide_plain),
     "stripe_prescreen": (stripe_prescreen, stripe_prescreen_plain),
+    # the row-stripe launches of grid_sao and grid_stats
+    "grid_sao_stats": (grid_sao_stats, grid_sao_stats_plain),
+    "grid_sao_apply": (grid_sao_apply, grid_sao_apply_plain),
+    "grid_stats_partial": (grid_stats_partial, grid_stats_partial_plain),
 }
 
 
@@ -944,6 +971,12 @@ def picture_wp(clip, R, dev):
     o = np.array(wp.offsets, np.int32).reshape(R, 3)
     return ((torch.as_tensor(w, device=dev), torch.as_tensor(o, device=dev),
              wp.denom_y), wp)
+
+
+# the grid step's launches of the whole-picture functions grid_sao
+# (statistics, decision, apply) and grid_stats (the int64 sums)
+WHOLE = {"grid_sao": ("grid_sao_stats", "grid_sao_decide"),
+         "grid_stats": ("grid_stats_partial",)}
 
 
 def capture_grid_calls(dev, cfg, params, names, fade=False):
@@ -975,14 +1008,26 @@ def capture_grid_calls(dev, cfg, params, names, fade=False):
     fu8 = dev_t(np.concatenate([p.ravel() for p in clip[4]]))
     tabs = inter_grid._Tabs(inter_grid.grid_live_tables(cfg, {})[0], dev)
     wp, wpp = picture_wp(clip, R, dev) if step.use_wp else (None, None)
-    calls = {k: [] for k in names}
-    saved = recording(inter_grid, names, calls)
+    # grid_sao and grid_stats run as their row-stripe launches (here one
+    # stripe, the whole picture): each picture's call is rebuilt from them
+    rec = [k for k in names if k not in WHOLE] + [
+        k for w in names if w in WHOLE for k in WHOLE[w]]
+    calls = {k: [] for k in rec}
+    saved = recording(inter_grid, rec, calls)
     try:
         step.frame_step(carry, fu8, R, 0, tabs, wp)
         torch.cuda.synchronize()
     finally:
-        for k in names:
+        for k in rec:
             setattr(inter_grid, k, saved[k])
+    if "grid_sao" in names:
+        calls["grid_sao"] = [((*st[:4], dc[2], dc[3], st[4]), {})
+                             for (st, _), (dc, _) in zip(
+                                 calls["grid_sao_stats"],
+                                 calls["grid_sao_decide"])]
+    if "grid_stats" in names:
+        calls["grid_stats"] = [(a[:4], {})
+                               for a, _ in calls["grid_stats_partial"]]
     return calls, wpp
 
 
@@ -1208,6 +1253,257 @@ def check_multi_kernels(calls, rows):
           f"{plain_ms:.4f} bound {bound_ms:.6f} ms ({bound_by}; "
           f"{work.bytes} bytes, {work.ops} operations)", flush=True)
     return {"stripe_prescreen": r}
+
+
+# path 7's grid step on row stripes: the anchor cfg uncut at 416x240 in 3
+# stripes of n x cuda:0 (64, 64 and 112 rows), 16 chained P pictures
+N_STRIPES, N_SHARD = 3, 16
+# every kernel call of one grid P picture (in the grid step's
+# namespace), for its bound
+STEP_CALLS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
+              "grid_code", "grid_intra16", "grid_deblock", "grid_sao_stats",
+              "grid_sao_apply", "grid_sao_decide", "grid_stats_partial",
+              "nn_refine")
+# the launches a stripe's row origin reaches: their calls held vs plain
+STRIPE_KERNELS = ("grid_intra16", "grid_planes", "grid_sao_stats",
+                  "grid_sao_apply", "grid_stats_partial")
+
+
+def shard_cfg(npz, extra=()):
+    """The anchor cfg with TMVP granted, as encode_sequence grants it."""
+    cfg = ldp_cfg(npz, extra=extra)
+    cfg.sps.temporal_mvp_enabled = cfg.tmvp
+    return cfg
+
+
+def sharded_step(cfg, params):
+    qps = {min(max(cfg.qp + o, 0), 51) for o in cfg.gop_qp_offsets}
+    return mesh_mod.sharded_frame_step(cfg, {q: params for q in qps},
+                                       mesh_mod.make_mesh(N_STRIPES))
+
+
+def stripe_calls(dev, npz, params):
+    """One 416x240 P picture (frame 4 against frames 3..0, a random
+    collocated field, GOP position 0) through the sharded step in 3
+    stripes and through the single one, of the anchor cfg and of it
+    without the recon fetch, recording every kernel call ->
+    ({"sharded" | "single" | "sharded_nofetch": {name: [(args, kw)]}},
+    the sharded step's exchange bytes of the anchor picture, {"sharded" |
+    "single": a function that runs the anchor picture again})."""
+    clip = Reader(W, H, 5).frames
+    out, xbytes, runs = {}, 0, {}
+    for tag, extra in (("", ()), ("_nofetch", NO_FETCH)):
+        cfg = shard_cfg(npz, extra)
+        sharded, single, meta = sharded_step(cfg, params)
+        R = meta["R"]
+        rng = np.random.default_rng(SEED)
+        hc16, wc16 = H // 16, W // 16
+        carry = meta["step"].carry0(
+            torch.as_tensor(np.stack([clip[3 - r][0] for r in range(R)])
+                            .astype(np.int32), device=dev),
+            torch.as_tensor(np.stack([np.concatenate(clip[3 - r][1:], 1)
+                                      for r in range(R)]).astype(np.int32),
+                            device=dev))
+        carry = carry[:3] + (
+            torch.as_tensor(rng.integers(-24, 25, (hc16, wc16, 2)),
+                            dtype=torch.int32, device=dev),
+            torch.as_tensor(rng.integers(0, R + 1, (hc16, wc16)),
+                            dtype=torch.int32, device=dev))
+        fu8 = torch.as_tensor(np.concatenate([p.ravel() for p in clip[4]]),
+                              device=dev)
+        if not tag:
+            runs = {"sharded": lambda s=sharded, m=meta, c=carry, f=fu8, R=R:
+                    s(m["split"](c), f, R, 0),
+                    "single": lambda s=single, c=carry, f=fu8, R=R:
+                    s(c, f, R, 0)}
+        for kind in ("sharded", "single"):
+            calls = {k: [] for k in STEP_CALLS}
+            saved = recording(inter_grid, STEP_CALLS, calls)
+            try:
+                if kind == "sharded":
+                    x0 = (meta["exchange"].halo_bytes
+                          + meta["exchange"].field_bytes)
+                    sharded(meta["split"](carry), fu8, R, 0)
+                    if not tag:
+                        xbytes = (meta["exchange"].halo_bytes
+                                  + meta["exchange"].field_bytes - x0)
+                else:
+                    single(carry, fu8, R, 0)
+                torch.cuda.synchronize()
+            finally:
+                for k in STEP_CALLS:
+                    setattr(inter_grid, k, saved[k])
+            out[kind + tag] = calls
+    return out, xbytes, runs
+
+
+def step_bound(calls):
+    """(bound ms, bytes, operations) of one grid P picture's kernel calls:
+    each kernel's bound (the larger of its bytes and operations terms),
+    summed."""
+    total, nbytes, ops = 0.0, 0, 0
+    for name, cs in calls.items():
+        if not cs:
+            continue
+        work = Work()
+        kname = "nnfme_mlp" if name == "nn_refine" else name
+        for a, k in cs:
+            fn = (nn_refine if name == "nn_refine"
+                  else G_FUNCS[name][0] if name in G_FUNCS else None)
+            work.add(kname, a, fn(*a, **k), k)
+        total += bound_of(dict(work=work))[0]
+        nbytes += work.bytes
+        ops += work.ops
+    torch.cuda.synchronize()
+    return total, nbytes, ops
+
+
+def check_stripe_kernels(calls, xbytes, runs, rows):
+    """The row-origin launches of one sharded picture (grid_intra16 with
+    y0 1 in stripes 1 and 2, grid_planes from each stripe's row origin in
+    its carried reference rows, grid_sao's stats and apply with their halo
+    rows, grid_stats' partial sums without the fetch) against their plain
+    versions: exact; their rows gain the stripes' max difference. Also
+    the bound of the sharded and of the single step a picture (the
+    kernels' bounds summed; the sharded one plus its exchange bytes over
+    HBM), and both steps' times on that picture, with the kernels and
+    with every kernel's plain version in its place. Returns {"sharded" |
+    "single": {bound, ms, plain_ms}}."""
+    sh = dict(calls["sharded"])
+    sh["grid_stats_partial"] = calls["sharded_nofetch"]["grid_stats_partial"]
+    origin = {"grid_intra16": "grid_intra16", "grid_planes": "grid_planes",
+              "grid_sao_stats": "grid_sao", "grid_sao_apply": "grid_sao",
+              "grid_stats_partial": "grid_stats"}
+    ys = sorted({k.get("y0", 0) for _, k in sh["grid_intra16"]})
+    check(len(sh["grid_intra16"]) == 2 * N_STRIPES and ys == [0, 1],
+          f"grid_intra16 stripe calls: y0 {ys}")
+    for name in STRIPE_KERNELS:
+        cs = sh[name]
+        n_calls = N_STRIPES * (2 if name in ("grid_intra16", "grid_planes")
+                               else 1)
+        check(len(cs) == n_calls, f"{name}: {len(cs)} calls in "
+              f"{N_STRIPES} stripes")
+        err = compare_calls(name, cs)
+        kern, plain = G_FUNCS[name]
+        ms = median_ms(lambda: [kern(*a, **k) for a, k in cs], reps=10)
+        plain_ms = median_ms(lambda: [plain(*a, **k) for a, k in cs],
+                             reps=3)
+        r = rows[origin[name]]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.setdefault("stripes", {})[name] = dict(ms=ms, plain_ms=plain_ms)
+        print(f"kernel {name:18s} {N_STRIPES} stripes of {W}x{H} (row "
+              f"origins): calls {len(cs)} max_abs_err {err:.3g} kernel_ms "
+              f"{ms:.4f} plain_ms {plain_ms:.4f}", flush=True)
+    out = {}
+    plain = {k: (nn_refine_plain if k == "nn_refine" else G_FUNCS[k][1])
+             for k in STEP_CALLS}
+    for kind in ("sharded", "single"):
+        cs = {k: v for k, v in calls[kind].items() if v}
+        b, nb, ops = step_bound(cs)
+        if kind == "sharded":
+            b += xbytes / HBM_BPS * 1e3
+        ms = median_ms(runs[kind], reps=5)
+        saved = {k: getattr(inter_grid, k) for k in plain}
+        try:
+            for k, fn in plain.items():
+                setattr(inter_grid, k, fn)
+            plain_ms = median_ms(runs[kind], reps=2)
+        finally:
+            for k, fn in saved.items():
+                setattr(inter_grid, k, fn)
+        out[kind] = dict(bound=b, ms=ms, plain_ms=plain_ms)
+        print(f"{kind} grid step, one {W}x{H} anchor P picture: event ms "
+              f"{ms:.3f} with the kernels, {plain_ms:.3f} with their plain "
+              f"versions | {gpu_line()}", flush=True)
+        print(f"bound of the {kind} grid step, one {W}x{H} P picture: "
+              f"{b:.6f} ms (kernels' bounds summed: {nb} bytes, {ops} "
+              f"operations" + (f"; + {xbytes} bytes exchanged"
+                               if kind == "sharded" else "") + ")",
+              flush=True)
+    return out
+
+
+def run_sharded(dev, npz, params, gpu, bounds):
+    """Path 7's grid step on row stripes: the anchor cfg uncut at 416x240,
+    16 P pictures chained from the IDR's state (its recon as every
+    reference, GOP positions 0-3 in turn) through the sharded step in 3
+    stripes and, on the same carry, the single one: every packed row
+    and carry equal; per picture the sharded step launches each grid
+    kernel 3 times as often as the single one (grid_sao_decide as
+    often). Prints the halo bytes and both times a picture."""
+    cfg = shard_cfg(npz)
+    sharded, single, meta = sharded_step(cfg, params)
+    R, G, ex = meta["R"], meta["G"], meta["exchange"]
+    reader = Reader(W, H, N_SHARD + 1)
+    idr, _ = encode_sequence(segments.ListReader(reader.frames[:1]),
+                             ldp_cfg(npz, frames=1), device=dev)
+    ry, ru, rv = (torch.as_tensor(np.asarray(p, np.int32), device=dev)
+                  for p in idr.dpb_recon)
+    carry = meta["step"].carry0(ry[None].repeat(R, 1, 1).contiguous(),
+                                torch.cat([ru, rv], 1)[None]
+                                .repeat(R, 1, 1).contiguous())
+    parts = meta["split"](carry)
+    fu8s = [torch.as_tensor(np.concatenate([p.ravel() for p in f]),
+                            device=dev) for f in reader.frames[1:]]
+    launches = {"single": dict.fromkeys(KERNELS, 0),
+                "sharded": dict.fromkeys(KERNELS, 0)}
+    ms = {"single": [], "sharded": []}
+    halo, fields = [], []
+    for k, fu8 in enumerate(fu8s):
+        gpos, navail = k % G, max(1, min(k + 1, R))
+        for kind in ("single", "sharded"):
+            before = dict(LAUNCHES)
+            x0 = (ex.halo_bytes, ex.field_bytes)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            if kind == "single":
+                carry, row1 = single(carry, fu8, navail, gpos)
+            else:
+                parts, row3 = sharded(parts, fu8, navail, gpos)
+            b.record()
+            b.synchronize()
+            ms[kind].append(a.elapsed_time(b))
+            for n in KERNELS:
+                launches[kind][n] += LAUNCHES[n] - before[n]
+        halo.append(ex.halo_bytes - x0[0])
+        fields.append(ex.field_bytes - x0[1])
+        check(torch.equal(row1, row3), f"sharded step picture {k + 1}: the "
+              "packed row differs from the single step's")
+        check(all(torch.equal(x, y) for x, y in zip(meta["join"](parts),
+                                                     carry)),
+              f"sharded step picture {k + 1}: the carry differs")
+    grid = [n for n in KERNELS if launches["single"][n]]
+    missing = [n for n in G_KERNELS + ("grid_sao_decide", "nnfme_mlp")
+               if n not in grid]
+    check(not missing, f"sharded chain: the single step launched no "
+          f"{missing}")
+    for n in grid:
+        want = launches["single"][n] * (1 if n == "grid_sao_decide"
+                                         else N_STRIPES)
+        check(launches["sharded"][n] == want,
+              f"sharded chain: {n} launched {launches['sharded'][n]} times "
+              f"in stripes, {launches['single'][n]} whole")
+    check(not any(launches["sharded"][n] for n in KERNELS if n not in grid),
+          "sharded chain: a kernel the single step does not launch")
+    per = {n: launches["sharded"][n] / N_SHARD for n in grid}
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"main path sharded grid step ({N_STRIPES} stripes "
+          f"{[(r.y0, r.y1) for r in meta['rows']]} of n x {dev}): the "
+          f"anchor cfg uncut at {W}x{H}, {N_SHARD} P pictures chained from "
+          f"the IDR, every packed row and carry == the single step's | "
+          f"halo {statistics.median(halo):.0f} bytes a picture (median; "
+          f"{sum(halo)} in all), fields {statistics.median(fields):.0f} | "
+          f"event ms a picture: sharded median {med['sharded']:.3f} (all "
+          f"{[round(x, 3) for x in ms['sharded']]}), single median "
+          f"{med['single']:.3f} (all {[round(x, 3) for x in ms['single']]})"
+          f" | bound a picture: sharded {bounds['sharded']['bound']:.6f} ms, "
+          f"single {bounds['single']['bound']:.6f} ms | sharded launches a "
+          f"picture {per} "
+          f"(single x {N_STRIPES}; grid_sao_decide x 1) | {gpu}",
+          flush=True)
+    return dict(ms=med, halo=statistics.median(halo), per=per)
 
 
 def intra8_cfg(w, h, frames):
@@ -1532,14 +1828,15 @@ N_SEG_FRAMES, N_SEGS = 16, 2  # path 7's segment encode
 MULTI_NEED = ("stripe_prescreen", "grid_refine") + LDP_NEED
 
 
-def run_multi(dev, npz, gpu, plane, rargs, refine):
+def run_multi(dev, npz, gpu, plane, rargs, refine, params, bounds):
     """Main path 7, multi-device on a mesh of n x cuda:0 (one card runs
     the stripes in turn): the prescreen of `plane` and the stripe refine
     (`refine` on `rargs`, from multi_calls) at 416x240 over 3 stripes
     against 1, the overlapped segment encode of 16 anchor LD-P frames in 2
-    segments against the segments' own streams, and dryrun_multichip(2,
-    "cuda"), with the counters reset just before and read just after.
-    Returns its launches."""
+    segments against the segments' own streams, dryrun_multichip(2,
+    "cuda") (steps 2, 2b, 2c, 3), and the grid step on row stripes
+    (run_sharded), with the counters reset just before and read just
+    after. Returns its launches."""
     sharded, single, halo = refine
     reader = Reader(W, H, N_SEG_FRAMES)
     segs = segments.split_segments(N_SEG_FRAMES, N_SEGS)
@@ -1564,6 +1861,8 @@ def run_multi(dev, npz, gpu, plane, rargs, refine):
     dry = dryrun_multichip(2, "cuda")
     torch.cuda.synchronize()
     t3 = time.time()
+    shard = run_sharded(dev, npz, params, gpu, bounds)
+    t4 = time.time()
     launches = dict(LAUNCHES, plain_sao_decide=PLAIN_DECIDE[0])
     missing = [k for k in MULTI_NEED if launches[k] <= 0]
     check(not missing, f"multi-device: kernels not launched: {missing}")
@@ -1593,8 +1892,9 @@ def run_multi(dev, npz, gpu, plane, rargs, refine):
           f"segments {W}x{H} x {N_SEG_FRAMES} in {N_SEGS}: {len(stream)} "
           f"bytes == the segments' own streams, hash OK, {t2 - t1:.3f} s "
           f"= {N_SEG_FRAMES / (t2 - t1):.3f} fps | dryrun_multichip(2): "
-          f"{dry} in {t3 - t2:.3f} s | launches {launches} | {gpu}",
-          flush=True)
+          f"{dry} in {t3 - t2:.3f} s | sharded grid step x {N_SHARD} "
+          f"(with the single one and the IDR) in {t4 - t3:.3f} s | "
+          f"launches {launches} | {gpu}", flush=True)
     return launches
 
 
@@ -1892,6 +2192,8 @@ def main():
         rows.update(check_intra_wave(dev))
         multi = multi_calls(dev)
         rows.update(check_multi_kernels(multi[0], rows))
+        step_bounds = check_stripe_kernels(*stripe_calls(dev, npz, params),
+                                           rows)
         fme_ds = fme_dataset()
         rows.update(check_train_kernels(dev, fme_ds))
         count_plain_decide()
@@ -1957,7 +2259,8 @@ def main():
         check(launches["stripe_prescreen"] == 0,
               "paths 1-6 launched stripe_prescreen")
 
-        mp_launches = run_multi(dev, npz, gpu, *multi[1:])
+        mp_launches = run_multi(dev, npz, gpu, *multi[1:], params,
+                                step_bounds)
         for k in KERNELS:
             launches[k] += mp_launches[k]
         # paths 1-7 train nothing

@@ -55,7 +55,8 @@ from tpuhevc_torch.kernels import LAUNCHES, reset_launches
 from tpuhevc_torch.ops.grid_me import grid_wp_me, grid_wp_me_plain
 from tpuhevc_torch.ops.grid_pred import (
     grid_planes, grid_planes_plain, grid_subpel, grid_subpel_plain)
-from tpuhevc_torch.ops.grid_stats import grid_stats, grid_stats_plain
+from tpuhevc_torch.ops.grid_stats import (grid_stats_partial,
+                                          grid_stats_partial_plain)
 
 W, H = 128, 64
 NREF = 2
@@ -417,12 +418,13 @@ def test_cuda_fme_wp_kernels_match_plain(cuda_device):
                           "grid_stats"), 0)
     reset_launches()
     with pytest.MonkeyPatch.context() as mp:
-        for name, kern, plain in (
-                ("grid_subpel", grid_subpel, grid_subpel_plain),
-                ("grid_planes", grid_planes, grid_planes_plain),
-                ("grid_wp_me", grid_wp_me, grid_wp_me_plain),
-                ("grid_stats", grid_stats, grid_stats_plain)):
-            mp.setattr(tig, name, _checked(name, kern, plain, seen))
+        for name, fn, kern, plain in (
+                ("grid_subpel", "grid_subpel", grid_subpel, grid_subpel_plain),
+                ("grid_planes", "grid_planes", grid_planes, grid_planes_plain),
+                ("grid_wp_me", "grid_wp_me", grid_wp_me, grid_wp_me_plain),
+                ("grid_stats", "grid_stats_partial", grid_stats_partial,
+                 grid_stats_partial_plain)):
+            mp.setattr(tig, fn, _checked(name, kern, plain, seen))
         encode_sequence(Reader(fade_frames(FRAMES)), fme_wp_cfg(),
                         device=cuda_device)
         encode_sequence(Reader(clip_frames(W, H, FRAMES)), bench_cfg(),

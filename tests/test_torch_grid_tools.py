@@ -53,7 +53,8 @@ from tpuhevc_torch.ops.grid_code import (
     grid_code, grid_code_plain, ideal_tiles, rdoq_tiles, sbh_tiles)
 from tpuhevc_torch.ops.grid_deblock import grid_deblock, grid_deblock_plain
 from tpuhevc_torch.ops.grid_sao import (
-    grid_sao, grid_sao_plain, sao_stats_plain)
+    grid_sao_apply, grid_sao_apply_plain, grid_sao_plain, grid_sao_stats,
+    grid_sao_stats_plain, sao_stats_plain)
 from tpuhevc_torch.ops.intra import blocks, unblocks
 from tpuhevc_torch.ops.transforms import forward_transform
 
@@ -260,12 +261,22 @@ def e2e(npz):
         mp.setattr(jg, "assemble_grid_frame", recorder(jg, "jax"))
         mp.setattr(tig, "assemble_grid_frame", recorder(tig, "port"))
         mp.setattr(tig, "grid_deblock", calls("deblock", tig.grid_deblock))
-        mp.setattr(tig, "grid_sao", calls("sao", tig.grid_sao))
+        # SAO's three steps: the statistics, the decision, the apply
+        for name in ("stats", "decide", "apply"):
+            fn = "grid_sao_" + name
+            rec[fn] = []
+            mp.setattr(tig, fn, calls(fn, getattr(tig, fn)))
         enc_j, _ = jax_encode(Reader(frames), tools_cfg(npz, False, gop=False),
                               max_frames=JAX_FRAMES)
         enc_t, recons = encode_sequence(
             Reader(frames), tools_cfg(npz, True, gop=False),
             max_frames=FRAMES, device="cpu")
+    # each picture's SAO as one call: (oy, ouv, rec_y, rec_uv, lam, qp,
+    # ctu) -> (rec_y, rec_uv, params)
+    rec["sao"] = [((*st[:4], dc[2], dc[3], st[4]), (*ap_out, dc_out[1]))
+                  for (st, _), (dc, dc_out), (_, ap_out) in zip(
+                      rec["grid_sao_stats"], rec["grid_sao_decide"],
+                      rec["grid_sao_apply"])]
     return dict(rec, cfg=tools_cfg(npz, True, gop=False), enc_j=enc_j,
                 enc_t=enc_t, recons=recons,
                 fed_back=sorted(enc_t.ctx_feedback))
@@ -429,8 +440,11 @@ def test_cuda_grid_tools_match_plain_and_cpu_stream(cuda_device, npz):
                    checked("grid_code", grid_code, grid_code_plain))
         mp.setattr(tig, "grid_deblock",
                    checked("grid_deblock", grid_deblock, grid_deblock_plain))
-        mp.setattr(tig, "grid_sao",
-                   checked("grid_sao", grid_sao, grid_sao_plain))
+        # grid_sao's two launches: the statistics and the apply
+        mp.setattr(tig, "grid_sao_stats",
+                   checked("grid_sao", grid_sao_stats, grid_sao_stats_plain))
+        mp.setattr(tig, "grid_sao_apply",
+                   checked("grid_sao", grid_sao_apply, grid_sao_apply_plain))
         a, _ = encode_sequence(Reader(frames), tools_cfg(npz, True),
                                max_frames=9, device=cuda_device)
     assert all(LAUNCHES[k] > 0 for k in seen), LAUNCHES

@@ -163,12 +163,12 @@ def test_port_runs_with_tpuhevc_and_jax_refused(tmp_path, path):
 
 def test_parallel_path_runs_with_tpuhevc_and_jax_refused(tmp_path):
     """The multi-device path (tpuhevc_torch.parallel) on a mesh of 2 x cpu:
-    dryrun_multichip's prescreen, stripe refine and segments, with `jax`
-    and `tpuhevc` refused; its unported steps raise."""
+    dryrun_multichip's prescreen, stripe refine, sharded frame step and
+    segments, with `jax` and `tpuhevc` refused; its unported step raises."""
     code = (f"import sys\nsys.path.insert(0, {ROOT!r})\n" + BLOCKER + """
 from tpuhevc_torch.parallel.dryrun import dryrun_multichip, main
 assert main(["--devices", "2", "--device", "cpu"]) == 0
-for step in ("1", "2c"):  # the DP train step, sharded_frame_step
+for step in ("1",):  # the DP train step
     try:
         dryrun_multichip(2, "cpu", (step,))
         raise SystemExit(f"step {step} ran")
@@ -184,7 +184,7 @@ print("loaded", sorted(m for m in sys.modules
     lines = out.stdout.strip().splitlines()
     assert lines[-1] == "loaded []", lines
     assert [ln.split(":")[0] for ln in lines[:-1]] == [
-        "step 2", "step 2b", "step 3"], lines
+        "step 2", "step 2b", "step 2c", "step 3"], lines
 
 
 def test_training_runs_with_tpuhevc_jax_and_optax_refused(tmp_path):

@@ -47,7 +47,14 @@ Per P picture (`GridStep.frame_step`):
    collocated maps.
 
 The `lax.scan` over GOPs and the per-reference scan become Python loops;
-the kernels launch asynchronously, so the loops only enqueue work. The
+the kernels launch asynchronously, so the loops only enqueue work.
+
+`GridStep.frame_steps` is the step of one row stripe of the picture, a
+generator that yields where it needs what other stripes hold (the
+reference rows of its reads, the block row above, the picture's sums,
+the SAO decision: `codec/stripes.py`); `frame_step` runs it alone over
+the whole picture, and `parallel/mesh.py:sharded_frame_step` runs one a
+stripe in lockstep, equal to it byte for byte. The
 glue between the kernels (argmins, the sweep's adoption test, the RD
 compares, composition) is plain torch in float32 and int32, in the
 reference's operation order.
@@ -66,10 +73,11 @@ from ..ops.grid_deblock import grid_deblock
 from ..ops.grid_intra import IMODES, grid_intra16
 from ..ops.grid_me import grid_coarse, grid_refine, grid_wp_me, tile_sum, zcost
 from ..ops.grid_pred import grid_planes, grid_satd, grid_subpel
-from ..ops.grid_sao import grid_sao
-from ..ops.grid_stats import grid_stats
+from ..ops.grid_sao import grid_sao_apply, grid_sao_decide, grid_sao_stats
+from ..ops.grid_stats import grid_stats_partial, stats_finish
 from ..utils.tables import chroma_qp
 from .params import EncoderConfig, p_frame_lambda
+from .stripes import Gather, Halo, HaloItem, Once, Rows, run_one
 
 MERGE_BIAS = 2.0  # the reference's default merge adoption bit weight
 
@@ -283,6 +291,14 @@ class GridStep:
         self.PADC = self.LOOKC + 2
         self.HmL, self.WmL = H + 2 * self.LOOK, W + 2 * self.LOOK
         self.HmC, self.WmC = self.Hc + 2 * self.LOOKC, self.Wc + 2 * self.LOOKC
+        # the reference rows a row stripe reads beyond its own, luma and
+        # chroma: the phase planes' padding, which covers the refine's
+        # reach (starts within +-sr_full, the 7x7 window: sr_full + 3), the
+        # coarse search's (2 R2) and the prestage's (4 P4); a multiple of
+        # 4, so the pooled levels of a stripe line up with the picture's
+        self.KY, self.KC = self.PADL, self.PADC
+        assert (self.KY >= max(self.sr_full + 3, 2 * R2, self.sr_full)
+                and self.KY % 4 == 0)
         self.ref_bits_me = [min(r + 1, max(1, self.R - 1))
                             for r in range(self.R)]
         self.nn = {}
@@ -304,24 +320,32 @@ class GridStep:
         qstep = 2.0 ** ((qp - 4) / 6.0)
         return int((lam_me * 12) >> 8) + int(npx * qstep / 4.0)
 
-    def _col_geom(self, S, nbh, nbw):
-        hit = self._col_geom_cache.get(S)
+    def _col_geom(self, S, nbh, nbw, rows: Rows):
+        """TMVP's collocated indices of the S-blocks of the stripe `rows`
+        into its rows of the collocated maps: the bottom-right block where
+        it is usable (ok0; in the block's CTU row, so in the stripe), else
+        the centre."""
+        key = (S, rows.y0, rows.y1)
+        hit = self._col_geom_cache.get(key)
         if hit is None:
             H, W = self.H, self.W
             hc16, wc16 = (self.h8 + 1) // 2, (self.w8 + 1) // 2
+            r16, nh = rows.y0 // 16, (rows.y1 - rows.y0) // 16
             x0 = (np.arange(nbw) * S)[None, :].repeat(nbh, 0)
-            y0 = (np.arange(nbh) * S)[:, None].repeat(nbw, 1)
+            y0 = (rows.y0 + np.arange(nbh) * S)[:, None].repeat(nbw, 1)
             xbr, ybr = x0 + S, y0 + S
             lc = self.log2_ctu
             ok0 = (((ybr >> lc) == (y0 >> lc)) & (ybr < H) & (xbr < W))
-            i0 = (np.clip(ybr >> 4, 0, hc16 - 1) * wc16
+            i0r = np.clip(ybr >> 4, 0, hc16 - 1) - r16
+            assert ((i0r >= 0) & (i0r < nh))[ok0].all()
+            i0 = (np.clip(i0r, 0, nh - 1) * wc16
                   + np.clip(xbr >> 4, 0, wc16 - 1)).ravel()
             xc, yc = x0 + S // 2, y0 + S // 2
-            i1 = ((yc >> 4) * wc16 + (xc >> 4)).ravel()
+            i1 = (((yc >> 4) - r16) * wc16 + (xc >> 4)).ravel()
             hit = tuple(torch.as_tensor(a, device=self.dev)
                         for a in (ok0.reshape(-1), i0.astype(np.int64),
                                   i1.astype(np.int64)))
-            self._col_geom_cache[S] = hit
+            self._col_geom_cache[key] = hit
         return hit
 
     @staticmethod
@@ -330,6 +354,19 @@ class GridStep:
         ys = (torch.arange(h + 2 * n, device=p.device) - n).clamp(0, h - 1)
         xs = (torch.arange(w + 2 * n, device=p.device) - n).clamp(0, w - 1)
         return p[ys][:, xs].contiguous()
+
+    def _pooled(self, ry: torch.Tensor, f: int, n: int,
+                rows: Rows) -> torch.Tensor:
+        """The f x f tile sums of the stripe `rows` of a luma reference
+        read with its carried halo rows (ry), padded by n pooled rows and
+        columns as `_pad_edge` pads the whole picture's: pooled rows past
+        the picture repeat its edge rows."""
+        t = tile_sum(ry, f).int()
+        g = (torch.arange(rows.y0 // f - n, rows.y1 // f + n, device=ry.device)
+             .clamp(0, rows.H // f - 1) - (rows.y0 - rows.above(self.KY)) // f)
+        w = t.shape[1]
+        xs = (torch.arange(w + 2 * n, device=ry.device) - n).clamp(0, w - 1)
+        return t[g][:, xs].contiguous()
 
     def pick_coarse(self, s16, sum16, qp, lam_me, nbh, nbw, f):
         """Coarse winner per block; f = aggregation factor in 16-units."""
@@ -403,6 +440,14 @@ class GridStep:
         """specs: [(S, nbh, nbw, mv (nbh, nbw, 2), ref (nbh, nbw))], the
         16 class first (its cover holds every class's) -> per spec
         (mv, ref, mode_b, merged, midx_b)."""
+        return run_one(self._sweep(tabs, qp, lam_me_f, oy, planes_y, specs,
+                                   Rows(0, self.H, self.H)), self.dev)
+
+    def _sweep(self, tabs, qp, lam_me_f, oy, planes_y, specs, rows: Rows):
+        """`cand_sweep_all` over the row stripe `rows`: before each
+        vertical pass the classes' (mv, ref) fields of every stripe are
+        gathered, and the candidates `dist` block rows up taken from them
+        (wrapping as the whole picture's roll does, masked at its top)."""
         dev = self.dev
         S0, nbh0, nbw0 = specs[0][:3]
         h8, w8 = nbh0 * S0 // 8, nbw0 * S0 // 8
@@ -434,14 +479,24 @@ class GridStep:
                                        device=dev),
                            torch.zeros((nbh_, nbw_), dtype=torch.float32,
                                        device=dev)))
-        dmax = max(max(s[1], s[2]) for s in specs)
+        # the passes' distances from the picture's block grid
+        dmax = max(max(rows.H // s[0], s[2]) for s in specs)
         dists = [d for d in (1, 4, 16) if d < dmax] + [1]
         mvd_lut, ref_lut = tabs.mvd_lut, tabs.ref_bits
         lam_b = lam_me_f * MERGE_BIAS
         for dist in dists:
             for axis, mb in ((1, tabs.midx[0]), (0, tabs.midx[1])):
-                cands = [(torch.roll(st[0], dist, axis),
-                          torch.roll(st[1], dist, axis)) for st in states]
+                if axis == 1:
+                    cands = [(torch.roll(st[0], dist, 1),
+                              torch.roll(st[1], dist, 1)) for st in states]
+                else:
+                    full = yield Gather([t for st in states for t in st[:2]])
+                    cands = []
+                    for k, (S, nbh_, _, _, _) in enumerate(specs):
+                        r0 = rows.y0 // S
+                        cands.append(tuple(
+                            torch.roll(f, dist, 0)[r0 : r0 + nbh_]
+                            for f in full[2 * k : 2 * k + 2]))
                 satcs = batch_satd(cands)
                 new = []
                 for (S, nbh_, nbw_, _, _), st, (mvc, refc), satc in zip(
@@ -451,7 +506,8 @@ class GridStep:
                         edge = (torch.arange(nbw_, device=dev)[None] < dist
                                 ).expand(nbh_, nbw_)
                     else:
-                        edge = (torch.arange(nbh_, device=dev)[:, None]
+                        edge = (torch.arange(rows.y0 // S, rows.y0 // S + nbh_,
+                                             device=dev)[:, None]
                                 < dist).expand(nbh_, nbw_)
                     dmv = torch.clamp((mv_g - mvc).abs(), max=4095).long()
                     keep_b = (mvd_lut[dmv[..., 0]] + mvd_lut[dmv[..., 1]]
@@ -465,9 +521,12 @@ class GridStep:
                                 torch.where(adopt, mb, mib)))
                 states = new
         outs = []
-        for (mv_g, ref_g, _, merged, midx_b) in states:
+        # the top neighbours: the block row above the stripe (row 0
+        # repeated at the picture's top)
+        above = yield Halo([HaloItem(st[0], 1, 0) for st in states])
+        for (mv_g, ref_g, _, merged, midx_b), ab in zip(states, above):
             left = torch.cat([mv_g[:, :1], mv_g[:, :-1]], 1)
-            top = torch.cat([mv_g[:1], mv_g[:-1]], 0)
+            top = ab[: mv_g.shape[0]]
             d1 = torch.clamp((mv_g - left).abs(), max=4095).long()
             d2 = torch.clamp((mv_g - top).abs(), max=4095).long()
             mvd_b = torch.minimum(mvd_lut[d1[..., 0]] + mvd_lut[d1[..., 1]],
@@ -644,7 +703,7 @@ class GridStep:
     # --- intra-16 in P pictures ------------------------------------------
     def intra16_code(self, qp, tabs, lam, oy, ouv, pred_y, pred_uv):
         qpc = chroma_qp(qp)
-        Hp, Wp = self.nh16 * 16, self.nw16 * 16
+        Hp, Wp = pred_y.shape
         lvl, rec, d_cu, b_cu, cbf_cu, _ = self._txq(
             oy[:Hp, :Wp].contiguous(), pred_y, 16, qp, lam, tabs.est_y[4],
             tabs.cbf_y)
@@ -697,27 +756,53 @@ class GridStep:
         return kept
 
     # --- one P picture ---------------------------------------------------
+    def source(self, fu8: torch.Tensor):
+        """A picture's (W*H*3/2,) uint8 planes -> (oy (H, W), ouv (H/2, W)
+        packed [U | V]) int32."""
+        W, H, Hc, Wc = self.W, self.H, self.Hc, self.Wc
+        oy = fu8[: W * H].reshape(H, W).int()
+        ou = fu8[W * H : W * H * 5 // 4].reshape(Hc, Wc)
+        ov = fu8[W * H * 5 // 4 :].reshape(Hc, Wc)
+        return oy, torch.cat([ou, ov], dim=1).int()
+
     def frame_step(self, carry, fu8, navail: int, gpos: int, tabs: _Tabs,
                    wp=None):
-        """wp: with weighted prediction, the picture's (w (R, 3), o (R, 3))
-        int32 tensors per reference and component (Y, Cb, Cr) and the
+        """One P picture -> (the next carry, the packed row). wp: with
+        weighted prediction, the picture's (w (R, 3), o (R, 3)) int32
+        tensors per reference and component (Y, Cb, Cr) and the
         denominator d (an int, luma and chroma alike)."""
+        carry, parts = run_one(self.frame_steps(
+            carry, self.source(fu8), navail, gpos, tabs, wp), self.dev)
+        return carry, torch.cat([p for p, _ in parts])
+
+    def frame_steps(self, carry, src, navail: int, gpos: int, tabs: _Tabs,
+                    wp=None, rows: Rows | None = None):
+        """`frame_step` of the row stripe `rows` (default the whole
+        picture), a generator of the requests of `codec.stripes` ->
+        (the stripe's next carry, the packed row's parts [(uint8 bytes,
+        per_rows)]: per_rows parts hold the stripe's rows of a picture
+        field, the others the picture's values, equal in every stripe).
+        carry: the stripe's rows of the carry; src: its (oy, ouv) rows.
+        Stripes start on 64-row boundaries, so that every 32- and 64-class
+        block and every CTU lies inside one."""
         ry_stack, ruv_stack, mv16p, colmv_g, coltd_g = carry
+        oy, ouv = src
+        rows = rows or Rows(0, self.H, self.H)
         dev = self.dev
-        W, H, Hc, Wc = self.W, self.H, self.Hc, self.Wc
-        nh16, nw16, nh32, nw32 = self.nh16, self.nw16, self.nh32, self.nw32
-        nh64, nw64, h8, w8 = self.nh64, self.nw64, self.h8, self.w8
-        n16, R, R2, nc = self.n16, self.R, self.R2, self.nc
+        W, Wc = self.W, self.Wc
+        hs = rows.y1 - rows.y0
+        r16 = rows.y0 // 16
+        nh16, nw16, nh32, nw32 = hs // 16, self.nw16, hs // 32, self.nw32
+        nh64, nw64, h8, w8 = hs // 64, self.nw64, hs // 8, self.w8
+        n16, R, R2, nc = nh16 * nw16, self.R, self.R2, self.nc
         has32, has64 = nh32 * nw32 > 0, nh64 * nw64 > 0
+        KY, KC = self.KY, self.KC
+        u8 = torch.uint8
         qp = self.qps[gpos]
         lam_py = p_frame_lambda(self.cfg, gpos, qp)
         lam = _f32(lam_py, dev)
         lam_me_f = _f32(np.sqrt(lam_py), dev)
         lam_me = int(round(np.sqrt(lam_py) * 256))
-        oy = fu8[: W * H].reshape(H, W).int()
-        ou = fu8[W * H : W * H * 5 // 4].reshape(Hc, Wc)
-        ov = fu8[W * H * 5 // 4 :].reshape(Hc, Wc)
-        ouv = torch.cat([ou, ov], dim=1).int()
 
         # --- ME ------------------------------------------------------------
         # with WP the search reads the weighted full-pel references; the
@@ -729,17 +814,27 @@ class GridStep:
             wpy = (wpw[:, 0].contiguous(), wpo[:, 0].contiguous(), wpd)
             wpc = (torch.cat([wpw[:, 1], wpw[:, 2]]),
                    torch.cat([wpo[:, 1], wpo[:, 2]]), wpd)
+        # the carried reference stacks hold the stripe's rows with up to
+        # KY (KC) halo rows of the picture's above and below: ya of them
+        # above (none for the whole picture)
+        ya = rows.above(KY)
+        if ry_stack.shape[1] != ya + hs + rows.below(KY):
+            raise ValueError(f"frame_steps: reference rows "
+                             f"{ry_stack.shape[1]} for the stripe {rows}")
         ry_me = ry_stack if wpy is None else grid_wp_me(ry_stack, *wpy)
         oy2 = tile_sum(oy, 2).int()
         ry0 = ry_me[0]
-        ry2p = self._pad_edge(tile_sum(ry0, 2).int(), R2)
+        ry2p = self._pooled(ry0, 2, R2, rows)
         s16c, sum16c = grid_coarse(oy2, ry2p, nc, 8, 1, True)
         cx16, cy16 = self.pick_coarse(s16c, sum16c, qp, lam_me, nh16, nw16, 1)
         if has32:
             cx32, cy32 = self.pick_coarse(s16c, sum16c, qp, lam_me, nh32,
                                           nw32, 2)
         gtot = zcost(s16c, sum16c, self._dcc(qp, 256, lam_me))
-        gi = int(torch.argmin(gtot.sum(dim=(1, 2))))
+        # the global candidate: the picture's sums (integers: exact in any
+        # order), the first-index argmin
+        (gsum,) = yield Once(_sum_once, [gtot.sum(dim=(1, 2))])
+        gi = int(torch.argmin(gsum))
         gcx, gcy = gi % nc - R2, gi // nc - R2
         sf = self.sr_full
         tx_ = mv16p[:, 0].clamp(-sf, sf).reshape(nh16, nw16)
@@ -749,7 +844,7 @@ class GridStep:
             P4 = sf // 4
             n4 = 2 * P4 + 1
             oy4 = tile_sum(oy, 4).int()
-            ry4p = self._pad_edge(tile_sum(ry0, 4).int(), P4)
+            ry4p = self._pooled(ry0, 4, P4, rows)
             sad4, _ = grid_coarse(oy4, ry4p, n4, 4, 2, False)
             cost4 = sad4 + ((self.pre_bits[:, None, None] * lam_me) >> 8)
             barg = torch.argmin(cost4.reshape(n4 * n4, -1), dim=0).reshape(
@@ -773,12 +868,13 @@ class GridStep:
 
         (m16, m8_) = self.refine(ry0, oy, starts0(cx16, cy16, (tx_, ty_),
                                                   pre16),
-                                 16, nh16, nw16, qp, lam_me, quads=True)
+                                 16, nh16, nw16, qp, lam_me, quads=True,
+                                 ry_y0=ya)
         if has32:
             ts32 = (tx_[: nh32 * 2 : 2, : nw32 * 2 : 2],
                     ty_[: nh32 * 2 : 2, : nw32 * 2 : 2])
             m32, _ = self.refine(ry0, oy, starts0(cx32, cy32, ts32, pre32),
-                                 32, nh32, nw32, qp, lam_me)
+                                 32, nh32, nw32, qp, lam_me, ry_y0=ya)
 
         def acc_init(m, r0_bits):
             mv, sad9, cost = m
@@ -805,7 +901,8 @@ class GridStep:
             cxr = (cx16 * sc).clamp(-R2, R2)
             cyr = (cy16 * sc).clamp(-R2, R2)
             mr16, mr8 = self.refine(ry_me[r], oy, [(cxr * 2, cyr * 2)],
-                                    16, nh16, nw16, qp, lam_me, quads=True)
+                                    16, nh16, nw16, qp, lam_me, quads=True,
+                                    ry_y0=ya)
             merge_acc(acc16, mr16, self.ref_bits_me[r], r)
             merge_acc(acc8, mr8, self.ref_bits_me[r], r)
             if has32:
@@ -813,15 +910,19 @@ class GridStep:
                 cyr32 = (cy32 * sc).clamp(-R2, R2)
                 mr32, _ = self.refine(ry_me[r], oy,
                                       [(cxr32 * 2, cyr32 * 2)], 32, nh32,
-                                      nw32, qp, lam_me)
+                                      nw32, qp, lam_me, ry_y0=ya)
                 merge_acc(acc32, mr32, self.ref_bits_me[r], r)
 
         # --- MC planes, FME --------------------------------------------------
-        planes_y = grid_planes(ry_stack, True, self.PADL, self.HmL, self.WmL,
-                               wpy)
+        # the stripe's phase planes: the rows of the picture's that its
+        # reads reach (rows [-LOOK, hs + LOOK) of the stripe), read from
+        # row ya of the padded stacks
+        planes_y = grid_planes(ry_stack, True, self.PADL, hs + 2 * self.LOOK,
+                               self.WmL, wpy, ya)
         planes_c = grid_planes(
             torch.cat([ruv_stack[:, :, :Wc], ruv_stack[:, :, Wc:]], 0)
-            .contiguous(), False, self.PADC, self.HmC, self.WmC, wpc)
+            .contiguous(), False, self.PADC, hs // 2 + 2 * self.LOOKC,
+            self.WmC, wpc, ya // 2)
         _, mv16, sad9_16, ref16 = acc16
         _, mv8, sad9_8, ref8 = acc8
         if has32:
@@ -876,14 +977,17 @@ class GridStep:
 
         def run_class(S, nbh, nbw, settled):
             mvg, refg, mode_b, merged, midx_b = settled
+            # the top neighbours: the block row above the stripe from the
+            # stripe above (row 0 repeated at the picture's top)
+            above = yield Halo([HaloItem(mvg, 1, 0), HaloItem(refg, 1, 0)])
+            mvT, refT = above[0][:nbh], above[1][:nbh]
             eqL = torch.cat([torch.zeros((nbh, 1), dtype=torch.bool,
                                          device=dev),
                              (mvg[:, 1:] == mvg[:, :-1]).all(-1)
                              & (refg[:, 1:] == refg[:, :-1])], dim=1)
-            eqT = torch.cat([torch.zeros((1, nbw), dtype=torch.bool,
-                                         device=dev),
-                             (mvg[1:] == mvg[:-1]).all(-1)
-                             & (refg[1:] == refg[:-1])], dim=0)
+            below_top = (torch.arange(rows.y0 // S, rows.y0 // S + nbh,
+                                      device=dev) > 0)[:, None]
+            eqT = (mvg == mvT).all(-1) & (refg == refT) & below_top
             mergeable = merged | eqL | eqT
             midx_b = torch.where(merged, midx_b, tabs.midx[0])
             merge_mode_b = tabs.pred_inter + tabs.part2n + tabs.mf1 + midx_b
@@ -895,8 +999,6 @@ class GridStep:
             # neighbour candidate coded as a merge
             mvL = torch.cat([mvg[:, :1], mvg[:, :-1]], 1)
             refL = torch.cat([refg[:, :1], refg[:, :-1]], 1)
-            mvT = torch.cat([mvg[:1], mvg[:-1]], 0)
-            refT = torch.cat([refg[:1], refg[:-1]], 0)
             satL = self.pred_satd_z(planes_y, oy, mvL, refL, S, qp, lam_me_f)
             satT = self.pred_satd_z(planes_y, oy, mvT, refT, S, qp, lam_me_f)
             useT = satT < satL
@@ -905,7 +1007,7 @@ class GridStep:
             midxN = torch.where(useT, tabs.midx[min(1, self.MM - 1)],
                                 tabs.midx[0])
             if self.use_tmvp:
-                ok0m, i0m, i1m = self._col_geom(S, nbh, nbw)
+                ok0m, i0m, i1m = self._col_geom(S, nbh, nbw, rows)
                 tdf = coltd_g.reshape(-1)
                 mvf = colmv_g.reshape(-1, 2)
                 td0 = torch.where(ok0m, tdf[i0m], torch.zeros_like(tdf[i0m]))
@@ -958,12 +1060,12 @@ class GridStep:
         if has32:
             specs.append((32, nh32, nw32, mvq32.reshape(nh32, nw32, 2),
                           ref32.reshape(nh32, nw32)))
-        settled = self.cand_sweep_all(tabs, qp, lam_me_f, oy, planes_y,
-                                      specs)
-        c16 = run_class(16, nh16, nw16, settled[0])
+        settled = yield from self._sweep(tabs, qp, lam_me_f, oy, planes_y,
+                                         specs, rows)
+        c16 = yield from run_class(16, nh16, nw16, settled[0])
         if has32:
-            c32 = run_class(32, nh32, nw32, settled[2])
-        c8 = run_class(8, h8, w8, settled[1])
+            c32 = yield from run_class(32, nh32, nw32, settled[2])
+        c8 = yield from run_class(8, h8, w8, settled[1])
         cost8q = sum22(c8["cost"]) + lam * tabs.split[1]
         use8 = cost8q < c16["cost"]
         best16 = torch.minimum(c16["cost"], cost8q)
@@ -1046,8 +1148,15 @@ class GridStep:
         best16 = torch.minimum(best16, cost_p)
         use8 = use8 & ~use_part
 
-        bm16, ipy, ipuv = grid_intra16(oy, ouv, self.avtr_flat,
-                                       self.avbl_flat, nh16, nw16, cur=oy)
+        # the intra-16 candidate reads the row above the stripe: the
+        # stripe above's last source row (none at the picture's top)
+        top1 = rows.above(1)
+        avtr = self.avtr[r16 : r16 + nh16].reshape(-1)
+        avbl = self.avbl[r16 : r16 + nh16].reshape(-1)
+        oy_b, ouv_b = yield Halo([HaloItem(oy, 1, 0, edge="cut", dtype=u8),
+                                  HaloItem(ouv, 1, 0, edge="cut", dtype=u8)])
+        bm16, ipy, ipuv = grid_intra16(oy_b, ouv_b, avtr, avbl, nh16, nw16,
+                                       cur=oy, y0=top1)
         ci16 = self.intra16_code(qp, tabs, lam, oy, ouv, ipy, ipuv)
         icost16 = self.intra16_cost(tabs, lam, ci16)
         icand = icost16 < best16
@@ -1081,10 +1190,10 @@ class GridStep:
                     -1, 1, 2))[:, 0].reshape(nh64, nw64, 2)
                 ref64 = sub_ref.gather(1, bi[:, None])[:, 0].reshape(
                     nh64, nw64)
-                sw64 = self.cand_sweep_all(
+                sw64 = (yield from self._sweep(
                     tabs, qp, lam_me_f, oy, planes_y,
-                    [(64, nh64, nw64, mv64, ref64)])[0]
-                c64 = run_class(64, nh64, nw64, sw64)
+                    [(64, nh64, nw64, mv64, ref64)], rows))[0]
+                c64 = yield from run_class(64, nh64, nw64, sw64)
                 b32 = sum22(best32[: nh64 * 2, : nw64 * 2]) \
                     + lam * tabs.split[1]
                 use64 = c64["cost"] < b32
@@ -1188,7 +1297,10 @@ class GridStep:
 
         # --- intra-16: exact prediction from the composed recon -----------
         intra_cells = torch.zeros((h8, w8), dtype=torch.bool, device=dev)
-        kept = self.intra_suppress(icand)
+        # the 4-phase keep mask reads its neighbours' candidates across
+        # stripes: it runs on every stripe's (one bool a 16-block)
+        (icand_all,) = yield Gather([icand])
+        kept = self.intra_suppress(icand_all)[r16 : r16 + nh16]
         if has32:
             cov = torch.zeros((nh16, nw16), dtype=torch.bool, device=dev)
             cov[: nh32 * 2, : nw32 * 2] = up(use32 | use_part32, 2)
@@ -1196,9 +1308,11 @@ class GridStep:
                 cov[: nh64 * 4, : nw64 * 4] = (cov[: nh64 * 4, : nw64 * 4]
                                                | up(use64, 4))
             kept = kept & ~cov
-        _, ipred_y, ipred_uv = grid_intra16(rec_y, rec_uv, self.avtr_flat,
-                                            self.avbl_flat, nh16, nw16,
-                                            modes=bm16)
+        rec_yb, rec_uvb = yield Halo([
+            HaloItem(rec_y, 1, 0, edge="cut", dtype=u8),
+            HaloItem(rec_uv, 1, 0, edge="cut", dtype=u8)])
+        _, ipred_y, ipred_uv = grid_intra16(rec_yb, rec_uvb, avtr, avbl,
+                                            nh16, nw16, modes=bm16, y0=top1)
         cix = self.intra16_code(qp, tabs, lam, oy, ouv, ipred_y, ipred_uv)
         paste(lvl_y, cix["lvl"], up(kept, 16))
         paste(rec_y, cix["rec"], up(kept, 16))
@@ -1232,17 +1346,35 @@ class GridStep:
 
         # --- in-loop filters ---------------------------------------------
         if self.deblock:  # the luma TB cbf only, for the BS (§8.7.2.4)
-            rec_y, rec_uv = grid_deblock(
-                rec_y, rec_uv, log2_map, mv_map, ref_map,
-                tile_sum((lvl_y != 0).int(), 8) > 0, intra_cells, tsp, qp)
+            # 32 rows of the neighbours' recon and 4 of their cell maps:
+            # both sides of the boundary edges, the vertical edges of those
+            # rows first, the TU groups of 32 rows aligned
+            top = rows.above(32)
+            cells_ = (log2_map, mv_map, ref_map,
+                      tile_sum((lvl_y != 0).int(), 8) > 0, intra_cells, tsp)
+            bufs = yield Halo(
+                [HaloItem(rec_y, 32, 32, edge="cut", dtype=u8),
+                 HaloItem(rec_uv, 16, 16, edge="cut", dtype=u8)]
+                + [HaloItem(m, 4, 4, edge="cut") for m in cells_])
+            rec_y, rec_uv = grid_deblock(*bufs, qp)
+            rec_y = rec_y[top : top + hs]
+            rec_uv = rec_uv[top // 2 : top // 2 + hs // 2]
         sao_params = None
         if self.sao:
-            rec_y, rec_uv, sao_params = grid_sao(oy, ouv, rec_y, rec_uv, lam,
-                                                 qp, 1 << self.log2_ctu)
+            # the stripe's CTUs' statistics, the picture's decision once
+            ctu = 1 << self.log2_ctu
+            top = rows.above(1)
+            rec_yb, rec_uvb = yield Halo([
+                HaloItem(rec_y, 1, 1, edge="cut", dtype=u8),
+                HaloItem(rec_uv, 1, 1, edge="cut", dtype=u8)])
+            st = grid_sao_stats(oy, ouv, rec_yb, rec_uvb, ctu, top)
+            par, sao_params = yield Once(
+                _SaoDecide(lam, qp, -(-self.H // ctu), -(-W // ctu)),
+                list(st))
+            rec_y, rec_uv = grid_sao_apply(rec_yb, rec_uvb, par, ctu, top, hs)
 
         # --- packing -----------------------------------------------------
         ldt = torch.int8 if self.lvl8 else torch.int16
-        u8 = torch.uint8
 
         def raw(x):
             return x.contiguous().view(u8).reshape(-1)
@@ -1250,25 +1382,33 @@ class GridStep:
         parts = [raw(lvl_y.to(ldt)), raw(lvl_uv.to(ldt))]
         if self.fetch:
             parts += [rec_y.to(u8).reshape(-1), rec_uv.to(u8).reshape(-1)]
-        else:  # the recon stays here: its checksums and SSEs instead
-            parts += [raw(t) for t in grid_stats(
-                oy, ouv, rec_y.contiguous(), rec_uv.contiguous())]
-        parts += [log2_map.to(u8).reshape(-1), raw(mv_map.to(torch.int16)),
-                 ref_map.to(u8).reshape(-1), cbf_cells.to(u8).reshape(-1),
-                 intra_cells.to(u8).reshape(-1),
-                 imode_map.to(u8).reshape(-1), part_cells.to(u8).reshape(-1),
-                 tsp.to(u8).reshape(-1)]
+        parts = [(p, True) for p in parts]
+        if not self.fetch:  # the recon stays here: its checksums and SSEs,
+            # the stripes' exact sums added, then one finish
+            stats = yield Once(_stats_once, list(grid_stats_partial(
+                oy, ouv, rec_y.contiguous(), rec_uv.contiguous(), rows.y0)))
+            parts += [(raw(t), False) for t in stats]
+        parts += [(p, True) for p in (
+            log2_map.to(u8).reshape(-1), raw(mv_map.to(torch.int16)),
+            ref_map.to(u8).reshape(-1), cbf_cells.to(u8).reshape(-1),
+            intra_cells.to(u8).reshape(-1), imode_map.to(u8).reshape(-1),
+            part_cells.to(u8).reshape(-1), tsp.to(u8).reshape(-1))]
         if sao_params is not None:
-            parts.append(raw(sao_params))
-        parts += [raw(sad9_16.int()), raw(mv16.to(torch.int16))]
-        new_ry = torch.cat([rec_y[None], ry_stack[:-1]])
-        new_ruv = torch.cat([rec_uv[None], ruv_stack[:-1]])
+            parts.append((raw(sao_params), False))
+        parts += [(raw(sad9_16.int()), True), (raw(mv16.to(torch.int16)), True)]
+        # the recon's halo rows join it in the carried stacks: the older
+        # references keep theirs
+        rec_yh, rec_uvh = yield Halo([
+            HaloItem(rec_y, KY, KY, edge="cut", dtype=u8),
+            HaloItem(rec_uv, KC, KC, edge="cut", dtype=u8)])
+        new_ry = torch.cat([rec_yh[None], ry_stack[:-1]])
+        new_ruv = torch.cat([rec_uvh[None], ruv_stack[:-1]])
         seed16 = torch.div(mv_map[::2, ::2].reshape(n16, 2), 4,
                            rounding_mode="floor").int()
         colmv_n = mv_map[::2, ::2].int()
         coltd_n = torch.where(intra_cells[::2, ::2], 0,
                               ref_map[::2, ::2].int() + 1)
-        return (new_ry, new_ruv, seed16, colmv_n, coltd_n), torch.cat(parts)
+        return (new_ry, new_ruv, seed16, colmv_n, coltd_n), parts
 
     def carry0(self, ry_stack, ruv_stack):
         """Chunk-initial carry: zero MV seed, all-invalid collocated
@@ -1278,6 +1418,63 @@ class GridStep:
         return (ry_stack, ruv_stack, torch.zeros((self.n16, 2), **z),
                 torch.zeros((hc16, wc16, 2), **z),
                 torch.zeros((hc16, wc16), **z))
+
+
+def _sum_once(parts: list) -> list:
+    """`Once`: the stripes' integer partial sums, added."""
+    total = parts[0][0]
+    for p in parts[1:]:
+        total = total + p[0]
+    return [(total,)] * len(parts)
+
+
+def _stats_once(parts: list) -> list:
+    """`Once`: the stripes' exact grid_stats sums, added, then wrapped and
+    rounded once."""
+    ck, se = parts[0]
+    for c, e in parts[1:]:
+        ck, se = ck + c, se + e
+    return [stats_finish(ck, se)] * len(parts)
+
+
+class _SaoDecide:
+    """`Once`: the picture's SAO decision (kernel `grid_sao_decide`) over
+    the stripes' per-CTU statistics, gathered in CTU raster order -> per
+    stripe (its CTUs' rows of par, the picture's parameter rows)."""
+
+    def __init__(self, lam, qp, ny, nx):
+        self.lam, self.qp, self.ny, self.nx = lam, qp, ny, nx
+
+    def __call__(self, parts: list) -> list:
+        if len(parts) == 1:
+            return [grid_sao_decide(*parts[0], self.lam, self.qp, self.ny,
+                                    self.nx)]
+        cnt = torch.cat([c for c, _ in parts], dim=1).contiguous()
+        sm = torch.cat([s for _, s in parts], dim=1).contiguous()
+        par, params = grid_sao_decide(cnt, sm, self.lam, self.qp, self.ny,
+                                      self.nx)
+        n = self.ny * self.nx
+        out, a = [], 0
+        for c, _ in parts:
+            b = a + c.shape[1]
+            out.append((torch.cat([par[:, a:b], par[:, n + a : n + b],
+                                   par[:, 2 * n + 4 * a : 2 * n + 4 * b]],
+                                  dim=1).contiguous(), params))
+            a = b
+        return out
+
+
+def pack_stripes(outs: list, dev) -> torch.Tensor:
+    """The stripes' `frame_steps` results -> the picture's packed row on
+    `dev`: each per-rows part the stripes' pieces in order, each picture
+    part the first stripe's."""
+    pieces = []
+    for k, (part, per_rows) in enumerate(outs[0][1]):
+        if per_rows:
+            pieces += [o[1][k][0].to(dev) for o in outs]
+        else:
+            pieces.append(part.to(dev))
+    return torch.cat(pieces)
 
 
 def build_ldp_grid_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int,

@@ -24,6 +24,11 @@
 //     [U | V] plane (8x8, each half's own references, no smoothing, no
 //     edge filters).
 // Integer throughout, as the reference.
+// Row origin y0: the reference planes hold y0 rows above the cells' row
+// 0 (a row stripe with the last row of the stripe above it: y0 = 1; the
+// whole picture or its first stripe: y0 = 0). The top and top-right
+// samples of a cell row are available where a row lies above it in the
+// planes; `cur` and the predictions hold the cells' rows only.
 //
 // What bounds it: 7 x 256 predicted samples and 7 x 4 Hadamards per
 // cell, all in shared memory; the planes are read once around each cell.
@@ -125,8 +130,8 @@ __global__ void intra16_kernel(const int* __restrict__ ref_y,
                                const int* __restrict__ modes_in,
                                int* __restrict__ modes_out,
                                int* __restrict__ pred_y,
-                               int* __restrict__ pred_uv, int H, int W,
-                               int nw) {
+                               int* __restrict__ pred_uv, int H, int Hc,
+                               int W, int nw, int y0) {
     __shared__ int v[3 * 65];
     __shared__ int t[33], l[33], ft[33], fl[33];
     __shared__ int tc[2][17], lc[2][17];
@@ -136,9 +141,10 @@ __global__ void intra16_kernel(const int* __restrict__ ref_y,
     const int cell = blockIdx.x;
     const int cy = cell / nw, cx = cell - cy * nw;
     const bool tr = avtr[cell], bl = avbl[cell];
-    const int Wc = W / 2, Hc = H / 2;
+    const int Wc = W / 2;
     if (threadIdx.x == 0) {
-        cell_refs(ref_y, H, W, 16, 0, W, cx * 16, cy * 16, tr, bl, v, t, l);
+        cell_refs(ref_y, H, W, 16, 0, W, cx * 16, cy * 16 + y0, tr, bl, v, t,
+                  l);
         const int c = (l[1] + 2 * t[0] + t[1] + 2) >> 2;
         ft[0] = fl[0] = c;
         for (int k = 1; k < 32; ++k) {
@@ -148,8 +154,8 @@ __global__ void intra16_kernel(const int* __restrict__ ref_y,
         ft[32] = t[32];
         fl[32] = l[32];
         for (int h = 0; h < 2; ++h)
-            cell_refs(ref_uv, Hc, W, 8, h * Wc, W, cx * 8 + h * Wc, cy * 8,
-                      tr, bl, v, tc[h], lc[h]);
+            cell_refs(ref_uv, Hc, W, 8, h * Wc, W, cx * 8 + h * Wc,
+                      cy * 8 + y0, tr, bl, v, tc[h], lc[h]);
     }
     if (threadIdx.x < 28) sat[threadIdx.x] = 0;
     __syncthreads();
@@ -222,20 +228,22 @@ extern "C" int tpuhevc_grid_intra_init(const int* had8) {
     return (int)cudaGetLastError();
 }
 
-// ref_y (H, W), ref_uv (H/2, W) packed [U | V] int32; avtr, avbl (nh nw)
-// bool; cur (H, W) int32 to decide (modes_in null), or modes_in (nh nw)
-// int32 (cur null) -> modes_out (when deciding), pred_y (16 nh, 16 nw),
-// pred_uv (8 nh, 16 nw) int32, the row strides W.
+// ref_y (H, W), ref_uv ((H - y0) / 2 + y0, W) packed [U | V] int32, each
+// with y0 rows above the cells; avtr, avbl (nh nw) bool; cur (16 nh, W)
+// int32 to decide (modes_in null), or modes_in (nh nw) int32 (cur null)
+// -> modes_out (when deciding), pred_y (16 nh, 16 nw), pred_uv (8 nh,
+// 16 nw) int32, the row strides W.
 extern "C" int tpuhevc_grid_intra16(const int* ref_y, const int* ref_uv,
                                     const bool* avtr, const bool* avbl,
                                     const int* cur, const int* modes_in,
                                     int* modes_out, int* pred_y, int* pred_uv,
-                                    int H, int W, int nh, int nw,
+                                    int H, int W, int nh, int nw, int y0,
                                     void* stream) {
     if (nh * nw == 0) return 0;
-    if (nw * 16 != W) return (int)cudaErrorInvalidValue;
+    if (nw * 16 != W || y0 < 0 || nh * 16 + y0 > H)
+        return (int)cudaErrorInvalidValue;
     intra16_kernel<<<nh * nw, 256, 0, (cudaStream_t)stream>>>(
         ref_y, ref_uv, avtr, avbl, cur, modes_in, modes_out, pred_y, pred_uv,
-        H, W, nw);
+        H, (H - y0) / 2 + y0, W, nw, y0);
     return (int)cudaGetLastError();
 }

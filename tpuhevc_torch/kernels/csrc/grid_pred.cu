@@ -10,7 +10,9 @@
 //   h(yy, x) = sum_i taps[fx][i] rp[yy][x + i + 1]     (8-bit: no shift)
 //   v(y, x)  = sum_j taps[fy][j] h(y + j + 1, x)
 //   out[r][fy][fx][y][x] = clip(((v >> 6) + 32) >> 6, 0, 255)   (int16)
-// with rp[yy][xx] = ref[clamp(yy - pad)][clamp(xx - pad)]; with weights
+// with rp[yy][xx] = ref[clamp(y0 + yy - pad)][clamp(xx - pad)] (y0 the
+// window's first row in the padded plane: a row stripe's origin in its
+// halo'd reference, 0 for the whole picture); with weights
 // w[r], o[r] and the denominator d, the weighting folded into the
 // rounding of the 14-bit intermediate p14 = v >> 6 (weightUnidir):
 //   out = clip(((p14 * w[r] + (1 << (d + 6) >> 1)) >> (d + 6)) + o[r])
@@ -61,7 +63,8 @@ __global__ void planes_kernel(const int* __restrict__ ref,
                               const int* __restrict__ wpw,
                               const int* __restrict__ wpo,
                               int16_t* __restrict__ out, int n, int h, int w,
-                              int luma, int pad, int hm, int wm, int wpd) {
+                              int luma, int pad, int y0, int hm, int wm,
+                              int wpd) {
     const int P = luma ? 4 : 8, nt = luma ? 8 : 4;
     const long long total = (long long)n * P * P * hm * wm;
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -79,7 +82,7 @@ __global__ void planes_kernel(const int* __restrict__ ref,
     const int* base = ref + (size_t)r * h * w;
     int v = 0;
     for (int j = 0; j < nt; ++j) {
-        const int yy = min(max(y + j + 1 - pad, 0), h - 1);
+        const int yy = min(max(y0 + y + j + 1 - pad, 0), h - 1);
         const int* row = base + (size_t)yy * w;
         int hs = 0;
         for (int i = 0; i < nt; ++i) {
@@ -247,18 +250,19 @@ extern "C" int tpuhevc_grid_pred_init(const int* luma_taps,
     return (int)cudaGetLastError();
 }
 
-// ref (n, h, w) int32 -> out (n, P, P, hm, wm) int16; wpw, wpo (n,) int32
-// and the denominator wpd, or null for the default rounding.
+// ref (n, h, w) int32 -> out (n, P, P, hm, wm) int16, the window from row
+// y0 of the padded plane; wpw, wpo (n,) int32 and the denominator wpd, or
+// null for the default rounding.
 extern "C" int tpuhevc_grid_planes(const int* ref, const int* wpw,
                                    const int* wpo, int16_t* out, int n,
-                                   int h, int w, int luma, int pad, int hm,
-                                   int wm, int wpd, void* stream) {
+                                   int h, int w, int luma, int pad, int y0,
+                                   int hm, int wm, int wpd, void* stream) {
     const int P = luma ? 4 : 8;
     const long long total = (long long)n * P * P * hm * wm;
     const int threads = 256;
     planes_kernel<<<(int)((total + threads - 1) / threads), threads, 0,
                     (cudaStream_t)stream>>>(ref, wpw, wpo, out, n, h, w, luma,
-                                            pad, hm, wm, wpd);
+                                            pad, y0, hm, wm, wpd);
     return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,11 @@
 // that class where the category is valid, type 4 adds o[i] at band
 // aux + i (i < 4), type -1 nothing; the category and band from the
 // unfiltered input; the result clipped to 0..255.
+// Row stripes: stats and apply take the deblocked planes of a stripe
+// with `top` rows above it and `bot` rows below (0 or 1 each, per plane:
+// the neighbouring stripes' edge rows, none at the picture's edges); the
+// EO neighbours are valid inside those rows, the CTUs and the outputs are
+// the stripe's own rows. top = bot = 0 is the whole picture.
 //
 // What bounds it: one read of org and rec per sample (stats), one read and
 // one write per sample (apply); the decision reads 2 x 3 x 48 ints a CTU;
@@ -51,9 +56,10 @@ __constant__ int c_eo_nb[4][4] = {{0, -1, 0, 1},     // (dy0, dx0, dy1, dx1)
                                   {-1, 1, 1, -1}};
 __constant__ int c_cat[5] = {1, 2, 0, 3, 4};
 
+// h own rows; rows lo..hi - 1 readable (lo <= 0, hi >= h: halo rows)
 struct Plane {
     const int* p;
-    int stride, h, w;
+    int stride, h, w, lo, hi;
     __device__ int at(int y, int x) const { return p[y * stride + x]; }
 };
 
@@ -61,8 +67,8 @@ struct Plane {
 __device__ __forceinline__ int eo_cat(const Plane& r, int y, int x, int k) {
     const int y0 = y + c_eo_nb[k][0], x0 = x + c_eo_nb[k][1];
     const int y1 = y + c_eo_nb[k][2], x1 = x + c_eo_nb[k][3];
-    if (y0 < 0 || y0 >= r.h || x0 < 0 || x0 >= r.w || y1 < 0 || y1 >= r.h
-        || x1 < 0 || x1 >= r.w)
+    if (y0 < r.lo || y0 >= r.hi || x0 < 0 || x0 >= r.w || y1 < r.lo
+        || y1 >= r.hi || x1 < 0 || x1 >= r.w)
         return -1;
     const int v = r.at(y, x);
     const int a = r.at(y0, x0), b = r.at(y1, x1);
@@ -70,12 +76,15 @@ __device__ __forceinline__ int eo_cat(const Plane& r, int y, int x, int k) {
     return c_cat[et + 2];
 }
 
-// component c of the picture: 0 luma, 1 / 2 the halves of the packed plane
+// component c of the stripe (H own luma rows, `top` / `bot` halo rows of
+// each plane): 0 luma, 1 / 2 the halves of the packed plane
 __device__ __forceinline__ Plane comp(const int* y, const int* uv, int c,
-                                      int H, int W) {
-    const int wc = W >> 1;
-    return c == 0 ? Plane{y, W, H, W}
-                  : Plane{uv + (c - 1) * wc, W, H >> 1, wc};
+                                      int H, int W, int top = 0,
+                                      int bot = 0) {
+    const int wc = W >> 1, hc = H >> 1;
+    return c == 0 ? Plane{y + top * W, W, H, W, -top, H + bot}
+                  : Plane{uv + top * W + (c - 1) * wc, W, hc, wc, -top,
+                          hc + bot};
 }
 
 __global__ void sao_stats_kernel(const int* __restrict__ oy,
@@ -84,10 +93,11 @@ __global__ void sao_stats_kernel(const int* __restrict__ oy,
                                  const int* __restrict__ ruv,
                                  int* __restrict__ cnt_out,
                                  int* __restrict__ sum_out, int H, int W,
-                                 int ctu, int nx) {
+                                 int ctu, int nx, int top, int bot) {
     __shared__ int cnt[kStat], sm[kStat];
     const int c = blockIdx.y, n = blockIdx.x;
-    const Plane o = comp(oy, ouv, c, H, W), r = comp(ry, ruv, c, H, W);
+    const Plane o = comp(oy, ouv, c, H, W);
+    const Plane r = comp(ry, ruv, c, H, W, top, bot);
     const int cs = c == 0 ? ctu : ctu >> 1;
     const int y0 = (n / nx) * cs, x0 = (n % nx) * cs;
     const int hh = min(cs, r.h - y0), ww = min(cs, r.w - x0);
@@ -122,13 +132,13 @@ __global__ void sao_apply_kernel(const int* __restrict__ ry,
                                  const int* __restrict__ par,
                                  int* __restrict__ out_y,
                                  int* __restrict__ out_uv, int H, int W,
-                                 int ctu, int ny, int nx) {
+                                 int ctu, int ny, int nx, int top, int bot) {
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
     const int nl = H * W, nc = (H >> 1) * (W >> 1);
     if (t >= nl + 2 * nc) return;
     const int c = t < nl ? 0 : 1 + (t - nl) / nc;
     const int i = c == 0 ? t : (t - nl) % nc;
-    const Plane r = comp(ry, ruv, c, H, W);
+    const Plane r = comp(ry, ruv, c, H, W, top, bot);
     const int y = i / r.w, x = i % r.w;
     const int cs = c == 0 ? ctu : ctu >> 1;
     const int nctu = ny * nx;
@@ -352,31 +362,34 @@ __global__ void sao_decide_kernel(const int* __restrict__ cnt,
 
 }  // namespace
 
-// oy, ry (H, W), ouv, ruv (H/2, W) packed [U | V] int32 on the device ->
-// cnt, sum (3, ny * nx, 48) int32: per component and CTU (raster) the EO
-// category (4 k + c - 1) and band (16 + band) counts and org - rec sums.
+// oy (H, W), ouv (H/2, W) packed [U | V] int32 on the device; ry
+// (top + H + bot, W), ruv (top + H/2 + bot, W): the deblocked stripe with
+// its halo rows -> cnt, sum (3, ny * nx, 48) int32: per component and
+// CTU (raster) of the stripe the EO category (4 k + c - 1) and band
+// (16 + band) counts and org - rec sums.
 extern "C" int tpuhevc_grid_sao_stats(const int* oy, const int* ouv,
                                       const int* ry, const int* ruv, int* cnt,
                                       int* sum, int H, int W, int ctu,
-                                      void* stream) {
+                                      int top, int bot, void* stream) {
     const int ny = (H + ctu - 1) / ctu, nx = (W + ctu - 1) / ctu;
     if (ny * nx == 0) return 0;
     sao_stats_kernel<<<dim3(ny * nx, 3), 256, 0, (cudaStream_t)stream>>>(
-        oy, ouv, ry, ruv, cnt, sum, H, W, ctu, nx);
+        oy, ouv, ry, ruv, cnt, sum, H, W, ctu, nx, top, bot);
     return (int)cudaGetLastError();
 }
 
-// ry (H, W), ruv (H/2, W) int32; par (3, 6 ny nx) int32: per component the
-// CTUs' types (ny nx), aux (ny nx) and offsets (ny nx, 4) -> out_y, out_uv
-// of the same shapes as ry, ruv.
+// ry (top + H + bot, W), ruv (top + H/2 + bot, W) int32; par (3, 6 ny nx)
+// int32: per component the stripe's CTUs' types (ny nx), aux (ny nx) and
+// offsets (ny nx, 4) -> out_y (H, W), out_uv (H/2, W): the stripe's rows.
 extern "C" int tpuhevc_grid_sao_apply(const int* ry, const int* ruv,
                                       const int* par, int* out_y, int* out_uv,
-                                      int H, int W, int ctu, void* stream) {
+                                      int H, int W, int ctu, int top, int bot,
+                                      void* stream) {
     const int ny = (H + ctu - 1) / ctu, nx = (W + ctu - 1) / ctu;
     const int n = H * W + 2 * (H >> 1) * (W >> 1);
     if (n == 0) return 0;
     sao_apply_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        ry, ruv, par, out_y, out_uv, H, W, ctu, ny, nx);
+        ry, ruv, par, out_y, out_uv, H, W, ctu, ny, nx, top, bot);
     return (int)cudaGetLastError();
 }
 

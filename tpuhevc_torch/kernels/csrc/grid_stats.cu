@@ -17,8 +17,15 @@
 // which equals this wherever the total is below 2^24 (every test clip);
 // above it the two may differ in the last place. Only PSNR reads it.
 //
-// One launch a picture: one block per plane, each thread striding over the
-// plane, a block reduction. What bounds it: the bytes, two int32 planes
+// Row stripes: the kernel writes the exact int64 sums (the checksum before
+// its int32 wrap, the SSE before its rounding) of the rows it is given,
+// with y0 the first row's row in the picture (y0 / 2 in chroma) for the
+// mask; the caller adds the stripes' sums and then wraps and rounds once
+// (ops/grid_stats.py stats_finish), so the stripes give the picture's
+// values bit for bit.
+//
+// One launch a picture (a stripe): one block per plane, each thread
+// striding over the plane, a block reduction. What bounds it: the bytes, two int32 planes
 // read once (orig and recon), 8 bytes a sample; 3 x 4 + 3 x 4 bytes out.
 
 #include <cuda_runtime.h>
@@ -32,7 +39,8 @@ __global__ void stats_kernel(const int* __restrict__ oy,
                              const int* __restrict__ ouv,
                              const int* __restrict__ ry,
                              const int* __restrict__ ruv, int h, int w,
-                             int* __restrict__ cks, float* __restrict__ sse) {
+                             int y0, long long* __restrict__ cks,
+                             long long* __restrict__ sse) {
     __shared__ long long s_ck[kThreads / 32];
     __shared__ long long s_se[kThreads / 32];
     const int p = blockIdx.x;  // 0: Y, 1: U, 2: V
@@ -41,13 +49,14 @@ __global__ void stats_kernel(const int* __restrict__ oy,
     const int x0 = p == 2 ? w / 2 : 0;
     const int* o = p == 0 ? oy : ouv;
     const int* r = p == 0 ? ry : ruv;
+    const int py0 = p == 0 ? y0 : y0 / 2;
     long long ck = 0, se = 0;
     const int n = ph * pw;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int y = i / pw, x = i - y * pw;
+        const int y = i / pw, x = i - y * pw, gy = py0 + y;
         const size_t at = (size_t)y * w + x0 + x;  // both planes: rows of w
         const int v = r[at];
-        const int m = (x & 0xFF) ^ (y & 0xFF) ^ (x >> 8) ^ (y >> 8);
+        const int m = (x & 0xFF) ^ (gy & 0xFF) ^ (x >> 8) ^ (gy >> 8);
         ck += (v & 0xFF) ^ m;
         const long long d = (long long)(o[at] - v);
         se += d * d;
@@ -67,19 +76,21 @@ __global__ void stats_kernel(const int* __restrict__ oy,
             a += s_ck[k];
             b += s_se[k];
         }
-        cks[p] = (int)(unsigned int)(unsigned long long)a;  // int32 wrap
-        sse[p] = (float)b;  // one rounding of the exact sum
+        cks[p] = a;
+        sse[p] = b;
     }
 }
 
 }  // namespace
 
-// oy, ry (h, w) int32; ouv, ruv (h / 2, w) int32 packed [U | V] ->
-// cks (3,) int32, sse (3,) float32, in the order Y, U, V.
+// oy, ry (h, w) int32; ouv, ruv (h / 2, w) int32 packed [U | V], the rows
+// from picture row y0 (even) -> cks (3,), sse (3,) int64 exact sums, in
+// the order Y, U, V.
 extern "C" int tpuhevc_grid_stats(const int* oy, const int* ouv,
                                   const int* ry, const int* ruv, int h, int w,
-                                  int* cks, float* sse, void* stream) {
-    stats_kernel<<<3, kThreads, 0, (cudaStream_t)stream>>>(oy, ouv, ry, ruv,
-                                                          h, w, cks, sse);
+                                  int y0, long long* cks, long long* sse,
+                                  void* stream) {
+    stats_kernel<<<3, kThreads, 0, (cudaStream_t)stream>>>(
+        oy, ouv, ry, ruv, h, w, y0, cks, sse);
     return (int)cudaGetLastError();
 }

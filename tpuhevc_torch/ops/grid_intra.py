@@ -23,7 +23,10 @@ per 16x16 cell of the picture,
   availability.
 
 Out: (mode index (n16,) int32 into IMODES, pred_y (16 nh, 16 nw) int32,
-pred_uv (8 nh, 16 nw) int32 packed [U | V]). `grid_intra16_plain` is the
+pred_uv (8 nh, 16 nw) int32 packed [U | V]). With the row origin `y0`
+the reference planes hold y0 rows above the cells' row 0 (a row stripe
+with the last row of the stripe above it): the cells' top samples are
+read there and are available, as in the whole picture. `grid_intra16_plain` is the
 PyTorch version; `grid_intra16` launches `kernels/csrc/grid_intra.cu` for
 CUDA tensors.
 """
@@ -42,14 +45,15 @@ IMODES = (0, 1, 10, 26, 2, 18, 34)  # planar, DC, H, V, diagonals
 
 
 def cell_refs(plane: torch.Tensor, S: int, ox: int, nh: int, nw: int,
-              avtr: torch.Tensor, avbl: torch.Tensor):
+              avtr: torch.Tensor, avbl: torch.Tensor, y0: int = 0):
     """(nh*nw, 2S+1) top / left reference arrays (corner at 0) of the S x S
-    cells of `plane` whose grid starts at column ox (`cell_refs`)."""
+    cells of `plane` whose grid starts at column ox and row y0
+    (`cell_refs`)."""
     dev = plane.device
     hp, wp = plane.shape
     n4 = 4 * S + 1
     bx = (torch.arange(nw, device=dev).repeat(nh) * S + ox)[:, None]
-    by = (torch.arange(nh, device=dev).repeat_interleave(nw) * S)[:, None]
+    by = (torch.arange(nh, device=dev).repeat_interleave(nw) * S + y0)[:, None]
     kk = torch.arange(n4, device=dev)
     is_left = kk < 2 * S
     ky = torch.where(is_left, (2 * S - 1) - kk, torch.full_like(kk, -1))
@@ -143,12 +147,13 @@ def intra_preds(t, lft, S, is_luma):
 def grid_intra16_plain(ref_y: torch.Tensor, ref_uv: torch.Tensor,
                        avtr: torch.Tensor, avbl: torch.Tensor, nh: int,
                        nw: int, cur: torch.Tensor | None = None,
-                       modes: torch.Tensor | None = None):
-    """ref_y (H, W), ref_uv (H/2, W) packed int32; avtr / avbl (nh*nw,)
-    bool; cur (H, W) int32 to decide, or modes (nh*nw,) int32 given."""
+                       modes: torch.Tensor | None = None, y0: int = 0):
+    """ref_y (H, W), ref_uv ((H - y0)/2 + y0, W) packed int32, y0 rows
+    above the cells; avtr / avbl (nh*nw,) bool; cur (16 nh, W) int32 to
+    decide, or modes (nh*nw,) int32 given."""
     H, W = ref_y.shape
     n = nh * nw
-    t, lft = cell_refs(ref_y, 16, 0, nh, nw, avtr, avbl)
+    t, lft = cell_refs(ref_y, 16, 0, nh, nw, avtr, avbl, y0)
     preds = intra_preds(t, lft, 16, True)
     if modes is None:
         c = (cur[: nh * 16, : nw * 16].reshape(nh, 16, nw, 16)
@@ -160,7 +165,7 @@ def grid_intra16_plain(ref_y: torch.Tensor, ref_uv: torch.Tensor,
     sel8 = modes.long()[:, None, None, None].expand(n, 1, 8, 8)
     halves = []
     for ox in (0, W // 2):
-        tc, lc = cell_refs(ref_uv, 8, ox, nh, nw, avtr, avbl)
+        tc, lc = cell_refs(ref_uv, 8, ox, nh, nw, avtr, avbl, y0)
         pc = intra_preds(tc, lc, 8, False).gather(1, sel8)[:, 0]
         halves.append(unblocks(pc, nh, nw))
     return modes, pred_y, torch.cat(halves, dim=1)
@@ -169,12 +174,12 @@ def grid_intra16_plain(ref_y: torch.Tensor, ref_uv: torch.Tensor,
 def grid_intra16(ref_y: torch.Tensor, ref_uv: torch.Tensor,
                  avtr: torch.Tensor, avbl: torch.Tensor, nh: int, nw: int,
                  cur: torch.Tensor | None = None,
-                 modes: torch.Tensor | None = None):
+                 modes: torch.Tensor | None = None, y0: int = 0):
     """Kernel `grid_intra16`. CPU tensors take the plain version; CUDA
     tensors the kernel."""
     if ref_y.device.type == "cpu":
         return grid_intra16_plain(ref_y, ref_uv, avtr, avbl, nh, nw, cur,
-                                  modes)
+                                  modes, y0)
     if ref_y.device.type != "cuda":
         raise ValueError(f"grid_intra16: unsupported device {ref_y.device}")
     dev = ref_y.device
@@ -189,20 +194,21 @@ def grid_intra16(ref_y: torch.Tensor, ref_uv: torch.Tensor,
         check_tensor(cur, "cur", torch.int32, 2, dev)
     else:
         check_tensor(modes, "modes", torch.int32, 1, dev)
-    if (tuple(ref_uv.shape) != (H // 2, W) or avtr.numel() != n
-            or avbl.numel() != n or nh * 16 > H or nw * 16 > W):
+    if (tuple(ref_uv.shape) != ((H - y0) // 2 + y0, W) or avtr.numel() != n
+            or avbl.numel() != n or nh * 16 + y0 > H or nw * 16 > W
+            or y0 < 0):
         raise ValueError(f"grid_intra16: planes {tuple(ref_y.shape)}, "
-                         f"{tuple(ref_uv.shape)}, cells {nh}x{nw}")
+                         f"{tuple(ref_uv.shape)}, cells {nh}x{nw}, y0 {y0}")
     init_consts(dev, "grid_intra")
     out_m = torch.empty((n,), dtype=torch.int32, device=dev)
     pred_y = torch.empty((nh * 16, nw * 16), dtype=torch.int32, device=dev)
     pred_uv = torch.empty((nh * 8, nw * 16), dtype=torch.int32, device=dev)
     fn = kbuild.function("grid_intra", "tpuhevc_grid_intra16",
-                         [kbuild.P] * 9 + [kbuild.I] * 4 + [kbuild.P])
+                         [kbuild.P] * 9 + [kbuild.I] * 5 + [kbuild.P])
     err = fn(ref_y.data_ptr(), ref_uv.data_ptr(), avtr.data_ptr(),
              avbl.data_ptr(), cur.data_ptr() if decide else None,
              None if decide else modes.data_ptr(), out_m.data_ptr(),
-             pred_y.data_ptr(), pred_uv.data_ptr(), H, W, nh, nw,
+             pred_y.data_ptr(), pred_uv.data_ptr(), H, W, nh, nw, y0,
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "grid_intra16")
     LAUNCHES["grid_intra16"] += 1

@@ -66,15 +66,19 @@ def satd8(res: torch.Tensor) -> torch.Tensor:
 
 
 def grid_planes_plain(stack: torch.Tensor, is_luma: bool, pad: int,
-                      hm: int, wm: int, wp=None) -> torch.Tensor:
-    """stack (n, h, w) int32 -> (n, P, P, hm, wm) int16 phase planes; wp:
-    (w (n,) int32, o (n,) int32, d) or None."""
+                      hm: int, wm: int, wp=None, y0: int = 0) -> torch.Tensor:
+    """stack (n, h, w) int32 -> (n, P, P, hm, wm) int16 phase planes of the
+    window from row y0 of the padded plane; wp: (w (n,) int32, o (n,)
+    int32, d) or None."""
     n, h, w = stack.shape
     dev = stack.device
     taps = torch.as_tensor(LUMA_TAPS if is_luma else CHROMA_TAPS,
                            dtype=torch.int32, device=dev)
     P, nt = taps.shape
-    ys = (torch.arange(h + 2 * pad, device=dev) - pad).clamp(0, h - 1)
+    if not 0 <= y0 <= h + 2 * pad - hm - nt:
+        raise ValueError(f"grid_planes: window rows [{y0}, {y0 + hm + nt}) "
+                         f"outside the padded plane {h} + 2 x {pad}")
+    ys = (torch.arange(y0, h + 2 * pad, device=dev) - pad).clamp(0, h - 1)
     xs = (torch.arange(w + 2 * pad, device=dev) - pad).clamp(0, w - 1)
     rp = stack[:, ys][:, :, xs]
     # int32 sums: |h| < 2^15, |v| < 2^22
@@ -118,20 +122,20 @@ def init_consts(dev: torch.device, lib: str = "grid_pred") -> None:
 
 
 def grid_planes(stack: torch.Tensor, is_luma: bool, pad: int, hm: int,
-                wm: int, wp=None) -> torch.Tensor:
+                wm: int, wp=None, y0: int = 0) -> torch.Tensor:
     """Kernel `grid_planes`. CPU tensors take the plain version; CUDA
     tensors the kernel."""
     if stack.device.type == "cpu":
-        return grid_planes_plain(stack, is_luma, pad, hm, wm, wp)
+        return grid_planes_plain(stack, is_luma, pad, hm, wm, wp, y0)
     if stack.device.type != "cuda":
         raise ValueError(f"grid_planes: unsupported device {stack.device}")
     dev = stack.device
     check_tensor(stack, "stack", torch.int32, 3, dev)
     n, h, w = stack.shape
     P, nt = (4, 8) if is_luma else (8, 4)
-    if hm + nt > h + 2 * pad or wm + nt > w + 2 * pad:
-        raise ValueError(f"grid_planes: window {hm}x{wm} exceeds the padded "
-                         f"plane {h}x{w} + {pad}")
+    if (y0 < 0 or y0 + hm + nt > h + 2 * pad or wm + nt > w + 2 * pad):
+        raise ValueError(f"grid_planes: window {hm}x{wm} from row {y0} "
+                         f"exceeds the padded plane {h}x{w} + {pad}")
     wpw = wpo = None
     d = 0
     if wp is not None:
@@ -144,10 +148,10 @@ def grid_planes(stack: torch.Tensor, is_luma: bool, pad: int, hm: int,
     init_consts(dev)
     out = torch.empty((n, P, P, hm, wm), dtype=torch.int16, device=dev)
     fn = kbuild.function("grid_pred", "tpuhevc_grid_planes",
-                         [kbuild.P] * 4 + [kbuild.I] * 8 + [kbuild.P])
+                         [kbuild.P] * 4 + [kbuild.I] * 9 + [kbuild.P])
     err = fn(stack.data_ptr(), None if wp is None else wpw.data_ptr(),
              None if wp is None else wpo.data_ptr(), out.data_ptr(), n, h, w,
-             int(is_luma), pad, hm, wm, int(d),
+             int(is_luma), pad, y0, hm, wm, int(d),
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "grid_planes")
     LAUNCHES["grid_planes"] += 1
@@ -172,6 +176,13 @@ def grid_satd_plain(planes: torch.Tensor, mv: torch.Tensor, ref: torch.Tensor,
     fx, fy = mvp[..., 0] & (P - 1), mvp[..., 1] & (P - 1)
     ix = (mvp[..., 0] >> fb) + xg + look
     iy = (mvp[..., 1] >> fb) + yg + look
+    # every read inside the planes: a row stripe's planes end at its halo,
+    # and a flat index past a row's end would read the next row
+    assert not ix.numel() or (
+        int(iy.min()) >= 0 and int(iy.max()) < hm and int(ix.min()) >= 0
+        and int(ix.max()) < wm), (
+        f"grid_satd: reads rows [{int(iy.min())}, {int(iy.max())}], columns "
+        f"[{int(ix.min())}, {int(ix.max())}] of {hm}x{wm} planes")
     idx = (((rp * P * P + fy * P + fx) * hm) + iy) * wm + ix
     pred = planes.reshape(-1)[idx].int()
     if oy is None:

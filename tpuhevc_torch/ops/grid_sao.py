@@ -28,6 +28,15 @@ half reads (type_y, aux_y, off_y, type_c, aux_cb, off_cb, aux_cr,
 off_cr). `grid_sao_plain` takes the plain stats, `sao_decide` and the
 plain apply; `grid_sao` launches `kernels/csrc/grid_sao.cu` for CUDA
 tensors, and never calls `sao_decide` there.
+
+Row stripes: `grid_sao_stats` and `grid_sao_apply` (each counted as a
+launch of `grid_sao`) take a stripe's deblocked planes with `top` rows
+above it and `bot` rows below (the neighbouring stripes' edge rows; 0 at
+the picture's edges), so that the EO categories of its edge rows see
+their neighbours as the whole picture does; the statistics and the
+output are the stripe's own CTUs and rows. The decision between them
+needs every CTU's statistics: the sharded grid step gathers them and
+decides once.
 """
 
 from __future__ import annotations
@@ -73,16 +82,19 @@ def _ctu_index(hh: int, ww: int, ctu: int, dev):
     return (cy[:, None] * nx + cx[None]), ny, nx
 
 
-def sao_stats_plain(org: torch.Tensor, rec: torch.Tensor, ctu: int):
-    """One component -> (count, sum) (ny * nx, 48) int32 per CTU."""
-    hh, ww = rec.shape
+def sao_stats_plain(org: torch.Tensor, rec: torch.Tensor, ctu: int,
+                    top: int = 0):
+    """One component -> (count, sum) (ny * nx, 48) int32 per CTU of org's
+    rows; rec holds them from its row `top`, between its halo rows."""
+    hh, ww = org.shape
     ci, ny, nx = _ctu_index(hh, ww, ctu, rec.device)
-    diff = (org - rec).long()
+    own = rec[top : top + hh]
+    diff = (org - own).long()
     cls = []
     for k in range(4):
-        cat, valid = eo_cat(rec, k)
+        cat, valid = (x[top : top + hh] for x in eo_cat(rec, k))
         cls.append(torch.where(valid & (cat > 0), 4 * k + cat - 1, -1))
-    cls.append(16 + (rec >> 3).long())
+    cls.append(16 + (own >> 3).long())
     cnt = torch.zeros((ny * nx * NSTAT,), dtype=torch.int64,
                       device=rec.device)
     sm = torch.zeros_like(cnt)
@@ -96,20 +108,24 @@ def sao_stats_plain(org: torch.Tensor, rec: torch.Tensor, ctu: int):
 
 
 def sao_apply_plain(rec: torch.Tensor, types: torch.Tensor,
-                    aux: torch.Tensor, off4: torch.Tensor, ctu: int):
+                    aux: torch.Tensor, off4: torch.Tensor, ctu: int,
+                    top: int = 0, hh: int | None = None):
     """One component: rec + the offset of each sample's CTU type (EO
-    class 0-3 by category, band offset 4 at bands aux..aux+3), clipped."""
-    hh, ww = rec.shape
+    class 0-3 by category, band offset 4 at bands aux..aux+3), clipped;
+    the hh rows of rec from its row `top` (default: all of rec)."""
+    hh = rec.shape[0] - top if hh is None else hh
+    ww = rec.shape[1]
     ci, _, _ = _ctu_index(hh, ww, ctu, rec.device)
     t = types.reshape(-1).long()[ci]
     o = off4.reshape(-1, 4).long()
-    out = rec.long()
+    own = rec[top : top + hh]
+    out = own.long()
     zero = torch.zeros_like(o[:, 0])
     lut = torch.stack([zero, o[:, 0], o[:, 1], -o[:, 2], -o[:, 3]], -1)
     for k in range(4):
-        cat, valid = eo_cat(rec, k)
+        cat, valid = (x[top : top + hh] for x in eo_cat(rec, k))
         out = out + torch.where(valid & (t == k), lut[ci, cat], 0)
-    band = (rec >> 3).long()
+    band = (own >> 3).long()
     rel = (band - aux.reshape(-1).long()[ci]) % 32
     addb = o[ci, rel.clamp(max=3)]
     out = out + torch.where((t == 4) & (rel < 4), addb, 0)
@@ -293,64 +309,133 @@ def grid_sao_decide(cnt, sm, lam: torch.Tensor, qp: int, ny: int, nx: int):
     return par, params
 
 
+def _comps(oy, ouv, rec_y, rec_uv, ctu):
+    wc = ouv.shape[1] // 2
+    return ((oy, rec_y, ctu), (ouv[:, :wc], rec_uv[:, :wc], ctu // 2),
+            (ouv[:, wc:], rec_uv[:, wc:], ctu // 2))
+
+
+def grid_sao_stats_plain(oy, ouv, rec_y, rec_uv, ctu: int, top: int = 0):
+    """oy (h, W), ouv (h/2, W) packed [U | V] int32: a stripe's original;
+    rec_y, rec_uv: its deblocked planes with `top` rows above them (and 0
+    or 1 below) -> cnt, sm (3, ny nx, 48) int32 of its CTUs."""
+    st = [sao_stats_plain(o, r, c, top)
+          for o, r, c in _comps(oy, ouv, rec_y, rec_uv, ctu)]
+    return (torch.stack([c for c, _ in st]),
+            torch.stack([s for _, s in st]))
+
+
+def grid_sao_apply_plain(rec_y, rec_uv, par, ctu: int, top: int = 0,
+                         h: int | None = None):
+    """rec_y, rec_uv: a stripe's deblocked planes with `top` rows above its
+    h luma rows (default: all but the top rows); par (3, 6 n) int32 of its
+    n CTUs -> (rec_y (h, W), rec_uv (h/2, W)) after SAO."""
+    h = rec_y.shape[0] - top if h is None else h
+    n = par.shape[1] // 6
+    out = [sao_apply_plain(r, par[i, :n], par[i, n : 2 * n],
+                           par[i, 2 * n :].reshape(n, 4), c, top, hh)
+           for i, ((_, r, c), hh) in enumerate(zip(
+               _comps(rec_y, rec_uv, rec_y, rec_uv, ctu),
+               (h, h // 2, h // 2)))]
+    return out[0], torch.cat(out[1:], dim=1).contiguous()
+
+
 def grid_sao_plain(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int,
                    ctu: int):
     """oy, rec_y (H, W), ouv, rec_uv (H/2, W) packed [U | V] int32; lam the
     frame lambda (float32 0-dim tensor) -> (rec_y, rec_uv) after SAO and
     the packed int8 parameters."""
-    wc = ouv.shape[1] // 2
-    comps = ((oy, rec_y, ctu), (ouv[:, :wc], rec_uv[:, :wc], ctu // 2),
-             (ouv[:, wc:], rec_uv[:, wc:], ctu // 2))
     H, W = rec_y.shape
-    st = [sao_stats_plain(o, r, c) for o, r, c in comps]
-    cnt = torch.stack([c for c, _ in st])
-    sm = torch.stack([s for _, s in st])
+    cnt, sm = grid_sao_stats_plain(oy, ouv, rec_y, rec_uv, ctu)
     par, params = grid_sao_decide_plain(cnt, sm, lam, qp, -(-H // ctu),
                                         -(-W // ctu))
-    n = par.shape[1] // 6
-    new = [sao_apply_plain(r, par[i, :n], par[i, n : 2 * n],
-                           par[i, 2 * n :].reshape(n, 4), c)
-           for i, (_, r, c) in enumerate(comps)]
-    return new[0], torch.cat(new[1:], dim=1).contiguous(), params
+    return (*grid_sao_apply_plain(rec_y, rec_uv, par, ctu), params)
 
 
-def grid_sao(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int, ctu: int):
-    """Kernel `grid_sao`. CPU tensors take the plain version; CUDA tensors
-    the kernels (three launches: the stats, `grid_sao_decide`, the
-    apply)."""
+def _halo_rows(rec_y, rec_uv, h: int, top: int, W: int, what: str) -> int:
+    """The bottom halo rows (0 or 1) of a stripe's deblocked planes."""
+    bot = rec_y.shape[0] - top - h
+    if (h % 16 or W % 16 or top not in (0, 1) or bot not in (0, 1)
+            or tuple(rec_uv.shape) != (top + h // 2 + bot, W)):
+        raise ValueError(f"{what}: planes {tuple(rec_y.shape)}, "
+                         f"{tuple(rec_uv.shape)} for {h} rows, top {top}")
+    return bot
+
+
+def grid_sao_stats(oy, ouv, rec_y, rec_uv, ctu: int, top: int = 0):
+    """The stats launch of kernel `grid_sao`. CPU tensors take the plain
+    version; CUDA tensors the kernel."""
     if rec_y.device.type == "cpu":
-        return grid_sao_plain(oy, ouv, rec_y, rec_uv, lam, qp, ctu)
+        return grid_sao_stats_plain(oy, ouv, rec_y, rec_uv, ctu, top)
     if rec_y.device.type != "cuda":
         raise ValueError(f"grid_sao: unsupported device {rec_y.device}")
     dev = rec_y.device
-    H, W = rec_y.shape
-    for t, name, shape in ((oy, "oy", (H, W)), (ouv, "ouv", (H // 2, W)),
-                           (rec_y, "rec_y", (H, W)),
-                           (rec_uv, "rec_uv", (H // 2, W))):
+    h, W = oy.shape
+    for t, name in ((oy, "oy"), (ouv, "ouv"), (rec_y, "rec_y"),
+                    (rec_uv, "rec_uv")):
         check_tensor(t, name, torch.int32, 2, dev)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"grid_sao: {name} {tuple(t.shape)}, "
-                             f"expected {shape}")
-    if H % 16 or W % 16 or ctu not in (16, 32, 64):
-        raise ValueError(f"grid_sao: {W}x{H}, CTU {ctu}")
-    ny, nx = -(-H // ctu), -(-W // ctu)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    bot = _halo_rows(rec_y, rec_uv, h, top, W, "grid_sao stats")
+    if tuple(ouv.shape) != (h // 2, W) or rec_y.shape[1] != W or \
+            ctu not in (16, 32, 64):
+        raise ValueError(f"grid_sao stats: oy {tuple(oy.shape)}, ouv "
+                         f"{tuple(ouv.shape)}, CTU {ctu}")
+    ny, nx = -(-h // ctu), -(-W // ctu)
     cnt = torch.empty((3, ny * nx, NSTAT), dtype=torch.int32, device=dev)
     sm = torch.empty_like(cnt)
     fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_stats",
-                         [kbuild.P] * 6 + [kbuild.I] * 3 + [kbuild.P])
+                         [kbuild.P] * 6 + [kbuild.I] * 5 + [kbuild.P])
     err = fn(oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
-             rec_uv.data_ptr(), cnt.data_ptr(), sm.data_ptr(), H, W, ctu,
-             stream)
+             rec_uv.data_ptr(), cnt.data_ptr(), sm.data_ptr(), h, W, ctu,
+             top, bot, torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "grid_sao stats")
     LAUNCHES["grid_sao"] += 1
-    par, params = grid_sao_decide(cnt, sm, lam, qp, ny, nx)
-    new_y = torch.empty_like(rec_y)
-    new_uv = torch.empty_like(rec_uv)
+    return cnt, sm
+
+
+def grid_sao_apply(rec_y, rec_uv, par, ctu: int, top: int = 0,
+                   h: int | None = None):
+    """The apply launch of kernel `grid_sao`. CPU tensors take the plain
+    version; CUDA tensors the kernel."""
+    if rec_y.device.type == "cpu":
+        return grid_sao_apply_plain(rec_y, rec_uv, par, ctu, top, h)
+    if rec_y.device.type != "cuda":
+        raise ValueError(f"grid_sao: unsupported device {rec_y.device}")
+    dev = rec_y.device
+    h = rec_y.shape[0] - top if h is None else h
+    W = rec_y.shape[1]
+    check_tensor(rec_y, "rec_y", torch.int32, 2, dev)
+    check_tensor(rec_uv, "rec_uv", torch.int32, 2, dev)
+    check_tensor(par, "par", torch.int32, 2, dev)
+    bot = _halo_rows(rec_y, rec_uv, h, top, W, "grid_sao apply")
+    n = (-(-h // ctu)) * (-(-W // ctu))
+    if tuple(par.shape) != (3, 6 * n) or ctu not in (16, 32, 64):
+        raise ValueError(f"grid_sao apply: par {tuple(par.shape)} for {n} "
+                         f"CTUs of {ctu}")
+    new_y = torch.empty((h, W), dtype=torch.int32, device=dev)
+    new_uv = torch.empty((h // 2, W), dtype=torch.int32, device=dev)
     fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_apply",
-                         [kbuild.P] * 5 + [kbuild.I] * 3 + [kbuild.P])
+                         [kbuild.P] * 5 + [kbuild.I] * 5 + [kbuild.P])
     err = fn(rec_y.data_ptr(), rec_uv.data_ptr(), par.data_ptr(),
-             new_y.data_ptr(), new_uv.data_ptr(), H, W, ctu, stream)
+             new_y.data_ptr(), new_uv.data_ptr(), h, W, ctu, top, bot,
+             torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "grid_sao apply")
     LAUNCHES["grid_sao"] += 1
-    return new_y, new_uv, params
+    return new_y, new_uv
+
+
+def grid_sao(oy, ouv, rec_y, rec_uv, lam: torch.Tensor, qp: int, ctu: int):
+    """Kernel `grid_sao` on the whole picture. CPU tensors take the plain
+    version; CUDA tensors the kernels (three launches: the stats,
+    `grid_sao_decide`, the apply)."""
+    if rec_y.device.type == "cpu":
+        return grid_sao_plain(oy, ouv, rec_y, rec_uv, lam, qp, ctu)
+    H, W = rec_y.shape
+    for t, name, shape in ((oy, "oy", (H, W)), (ouv, "ouv", (H // 2, W)),
+                           (rec_uv, "rec_uv", (H // 2, W))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"grid_sao: {name} {tuple(t.shape)}, "
+                             f"expected {shape}")
+    cnt, sm = grid_sao_stats(oy, ouv, rec_y, rec_uv, ctu)
+    par, params = grid_sao_decide(cnt, sm, lam, qp, -(-H // ctu),
+                                  -(-W // ctu))
+    return (*grid_sao_apply(rec_y, rec_uv, par, ctu), params)

@@ -15,8 +15,13 @@ The SSE is the exact integer sum rounded once to float32. The reference
 adds float32 squares in XLA's order; the two agree wherever the total is
 below 2^24 (ROADMAP queue 3 logs this divergence).
 
-`grid_stats_plain` is the PyTorch version; the wrapper launches the CUDA
-kernel (`kernels/csrc/grid_stats.cu`) for CUDA tensors.
+The kernel computes the exact int64 sums of the rows it is given, from
+picture row `y0` (`grid_stats_partial`); `stats_finish` wraps the
+checksum to int32 and rounds the SSE once. Row stripes add their sums
+before that one finish, which keeps the picture's values bit for bit.
+
+`*_plain` are the PyTorch versions; the wrapper launches the CUDA kernel
+(`kernels/csrc/grid_stats.cu`) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -28,36 +33,52 @@ from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 
 
-def xor_mask(h: int, w: int, dev) -> torch.Tensor:
-    """(h, w) int64 per-sample mask of the checksum hash (D.3.19)."""
+def xor_mask(h: int, w: int, dev, y0: int = 0) -> torch.Tensor:
+    """(h, w) int64 per-sample mask of the checksum hash (D.3.19) of the
+    rows from y0."""
     x = torch.arange(w, device=dev)[None]
-    y = torch.arange(h, device=dev)[:, None]
+    y = torch.arange(y0, y0 + h, device=dev)[:, None]
     return (x & 0xFF) ^ (y & 0xFF) ^ (x >> 8) ^ (y >> 8)
+
+
+def grid_stats_partial_plain(oy: torch.Tensor, ouv: torch.Tensor,
+                             rec_y: torch.Tensor, rec_uv: torch.Tensor,
+                             y0: int = 0):
+    """oy, rec_y (h, W) int32; ouv, rec_uv (h/2, W) int32 packed [U | V],
+    the rows from picture row y0 (even) -> (cks (3,), sse (3,)) int64
+    exact sums, in the order Y, U, V."""
+    wc = rec_uv.shape[1] // 2
+    planes = ((oy, rec_y, y0), (ouv[:, :wc], rec_uv[:, :wc], y0 // 2),
+              (ouv[:, wc:], rec_uv[:, wc:], y0 // 2))
+    cks, sse = [], []
+    for o, r, py0 in planes:
+        m = xor_mask(*r.shape, r.device, py0)
+        cks.append(((r.long() & 0xFF) ^ m).sum())
+        sse.append(((o.long() - r.long()) ** 2).sum())
+    return torch.stack(cks), torch.stack(sse)
+
+
+def stats_finish(cks: torch.Tensor, sse: torch.Tensor):
+    """Exact int64 sums -> (cks (3,) int32, sse (3,) float32): the checksum
+    wraps as an int32 sum; the exact SSE is rounded once."""
+    cks = (cks + (1 << 31)) % (1 << 32) - (1 << 31)
+    return cks.int(), sse.double().float()
 
 
 def grid_stats_plain(oy: torch.Tensor, ouv: torch.Tensor, rec_y: torch.Tensor,
                      rec_uv: torch.Tensor):
     """oy, rec_y (H, W) int32; ouv, rec_uv (H/2, W) int32 packed [U | V]
     -> (cks (3,) int32, sse (3,) float32), in the order Y, U, V."""
-    wc = rec_uv.shape[1] // 2
-    planes = ((oy, rec_y), (ouv[:, :wc], rec_uv[:, :wc]),
-              (ouv[:, wc:], rec_uv[:, wc:]))
-    cks, sse = [], []
-    for o, r in planes:
-        m = xor_mask(*r.shape, r.device)
-        cks.append(((r.long() & 0xFF) ^ m).sum())
-        sse.append(((o.long() - r.long()) ** 2).sum())
-    # the checksum wraps as an int32 sum; the exact SSE is rounded once
-    cks = (torch.stack(cks) + (1 << 31)) % (1 << 32) - (1 << 31)
-    return cks.int(), torch.stack(sse).double().float()
+    return stats_finish(*grid_stats_partial_plain(oy, ouv, rec_y, rec_uv))
 
 
-def grid_stats(oy: torch.Tensor, ouv: torch.Tensor, rec_y: torch.Tensor,
-               rec_uv: torch.Tensor):
+def grid_stats_partial(oy: torch.Tensor, ouv: torch.Tensor,
+                       rec_y: torch.Tensor, rec_uv: torch.Tensor,
+                       y0: int = 0):
     """Kernel `grid_stats`. CPU tensors take the plain version; CUDA
     tensors the kernel."""
     if rec_y.device.type == "cpu":
-        return grid_stats_plain(oy, ouv, rec_y, rec_uv)
+        return grid_stats_partial_plain(oy, ouv, rec_y, rec_uv, y0)
     if rec_y.device.type != "cuda":
         raise ValueError(f"grid_stats: unsupported device {rec_y.device}")
     dev = rec_y.device
@@ -66,17 +87,25 @@ def grid_stats(oy: torch.Tensor, ouv: torch.Tensor, rec_y: torch.Tensor,
         check_tensor(t, name, torch.int32, 2, dev)
     h, w = rec_y.shape
     if (tuple(oy.shape) != (h, w) or tuple(ouv.shape) != (h // 2, w)
-            or tuple(rec_uv.shape) != (h // 2, w) or h % 2 or w % 2):
+            or tuple(rec_uv.shape) != (h // 2, w) or h % 2 or w % 2
+            or y0 % 2 or y0 < 0):
         raise ValueError(f"grid_stats: oy {tuple(oy.shape)}, ouv "
                          f"{tuple(ouv.shape)}, rec_y {(h, w)}, rec_uv "
-                         f"{tuple(rec_uv.shape)}")
-    cks = torch.empty(3, dtype=torch.int32, device=dev)
-    sse = torch.empty(3, dtype=torch.float32, device=dev)
+                         f"{tuple(rec_uv.shape)}, y0 {y0}")
+    cks = torch.empty(3, dtype=torch.int64, device=dev)
+    sse = torch.empty(3, dtype=torch.int64, device=dev)
     fn = kbuild.function("grid_stats", "tpuhevc_grid_stats",
-                         [kbuild.P] * 4 + [kbuild.I] * 2 + [kbuild.P] * 3)
+                         [kbuild.P] * 4 + [kbuild.I] * 3 + [kbuild.P] * 3)
     err = fn(oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
-             rec_uv.data_ptr(), h, w, cks.data_ptr(), sse.data_ptr(),
+             rec_uv.data_ptr(), h, w, y0, cks.data_ptr(), sse.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "grid_stats")
     LAUNCHES["grid_stats"] += 1
     return cks, sse
+
+
+def grid_stats(oy: torch.Tensor, ouv: torch.Tensor, rec_y: torch.Tensor,
+               rec_uv: torch.Tensor):
+    """The picture's (cks (3,) int32, sse (3,) float32): kernel
+    `grid_stats` (`grid_stats_partial`), then `stats_finish`."""
+    return stats_finish(*grid_stats_partial(oy, ouv, rec_y, rec_uv))

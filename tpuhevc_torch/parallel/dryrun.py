@@ -7,12 +7,17 @@
   equal to the one-device prescreen off the stripes' last block rows;
 - step "2b": `stripe_refine` at 64 x 48n (48-row stripes over the 40-row
   halo of SearchRange 16), the sharded result equal to the single one;
+- step "2c": `sharded_frame_step` at the graft entry's shapes (128x128,
+  two references, SearchRange 16, deblocking, FmeMode none; random
+  planes) in min(n, 2) stripes (128 rows hold two 64-row CTU rows): the
+  sharded packed row and carry equal the single ones; prints the halo
+  bytes of the step and both wall times on the mesh (on one card the
+  stripes run in turn: no scaling figure);
 - step "3": `encode_segments_parallel` of 2 min(n, 2) random 64x32
   pictures in min(n, 2) segments, whose stream decodes hash-OK.
 
-Step "1" and step "2c" (`sharded_frame_step`) are not ported: asking for
-them raises NotImplementedError (ROADMAP queue 1, items 4 and 7). Step "1"
-is the data-parallel NN-FME train step: the one-device step runs on the
+Step "1" is not ported: asking for it raises NotImplementedError (ROADMAP
+queue 1, item 4). It is the data-parallel NN-FME train step: the one-device step runs on the
 card (`models/fme_train.py`, kernels `fme_train_fwd`/`fme_train_bwd`/
 `fme_adam`); what is left is a batch split across devices whose three
 BatchNorm layers take global batch statistics, a cross-device reduction
@@ -22,21 +27,23 @@ in each forward and backward, equal to the one-device step.
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
 
 from ..codec.decoder import decode_stream
 from ..codec.params import EncoderConfig, SeqParams
-from .mesh import make_mesh, stripe_refine, tile_prescreen
+from ..device import on_device
+from .mesh import (Mesh, make_mesh, sharded_frame_step, stripe_refine,
+                   tile_prescreen)
 from .segments import encode_segments_parallel
 
-STEPS = ("2", "2b", "3")
+STEPS = ("2", "2b", "2c", "3")
 NOT_PORTED = {"1": "the data-parallel NN-FME train step (global BatchNorm "
                    "statistics by a cross-device reduction in each BN layer, "
                    "forward and backward; the one-device step is "
-                   "models.fme_train; ROADMAP queue 1, item 4)",
-              "2c": "sharded_frame_step (ROADMAP queue 1, item 7)"}
+                   "models.fme_train; ROADMAP queue 1, item 4)"}
 
 
 def dryrun_multichip(n_devices: int, device="cuda", steps=STEPS) -> dict:
@@ -91,6 +98,47 @@ def dryrun_multichip(n_devices: int, device="cuda", steps=STEPS) -> dict:
             raise RuntimeError("dryrun step 2b: sharded refine differs from "
                                "the single one")
         out["2b"] = f"stripe refine {w2}x{h2}, halo {halo}: equal"
+    if "2c" in steps:
+        wf = hf = 128
+        cfg = EncoderConfig(sps=SeqParams(width=wf, height=hf,
+                                          max_tu_depth_intra=0),
+                            qp=32, intra_period=-1, fme_mode="none",
+                            num_ref_frames=2, search_range=16,
+                            deblocking=True)
+        mesh_c = Mesh(mesh.devices[: min(n_devices, hf // 64)])
+        sharded, single, meta = sharded_frame_step(cfg, {32: None}, mesh_c)
+        R, hc = meta["R"], meta["Hc"]
+        ry = torch.stack([plane(hf, wf) for _ in range(R)])
+        ruv = torch.stack([plane(hc, wf) for _ in range(R)])
+        carry = meta["step"].carry0(ry, ruv)
+        fu8 = plane(hf * wf * 3 // 2, 1).reshape(-1).to(torch.uint8)
+        parts = meta["split"](carry)
+        ex = meta["exchange"]
+        times = []
+        for fn, c in ((single, carry), (sharded, parts)):
+            with on_device(dev):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(c, fu8, R, 0)
+                if dev.type == "cuda":
+                    for d in set(mesh_c.devices):
+                        torch.cuda.synchronize(d)
+                times.append(time.perf_counter() - t0)
+            if fn is single:
+                want = got
+        if not (torch.equal(got[1], want[1]) and all(
+                torch.equal(a, b) for a, b in zip(meta["join"](got[0]),
+                                                  want[0]))):
+            raise RuntimeError("dryrun step 2c: the sharded frame step "
+                               "differs from the single one")
+        out["2c"] = (f"sharded frame step {wf}x{hf} in {mesh_c.size} "
+                     f"stripes == single ({got[1].numel()} bytes); halo "
+                     f"{ex.halo_bytes} bytes, fields "
+                     f"{ex.field_bytes} bytes a step; wall single "
+                     f"{times[0] * 1e3:.1f} ms, sharded {times[1] * 1e3:.1f}"
+                     f" ms (first calls; stripes that share a device run in "
+                     f"turn)")
     if "3" in steps:
         wf, hf = 64, 32
         nseg = min(n_devices, 2)

@@ -18,9 +18,15 @@ of more than one rank on one card, and one process needs none.
 - `stripe_refine`: the grid step's full-pel refine (kernel `grid_refine`)
   per stripe, with `sr + 24` halo rows above and below read through
   `ry_y0`, equal to the refine of the whole picture;
-- not ported: `sharded_frame_step` (the whole grid step on stripes;
-  ROADMAP queue 1, item 7) and `dp_shard` (data-parallel NN-FME
-  training, item 4).
+- `sharded_frame_step`: the whole grid step (`GridStep.frame_steps`) on
+  64-row stripes, the picture state (reference stacks with their halo
+  rows, MV seed, collocated maps) kept in stripes, so that a picture
+  sends only its new reference's halo, every cross-stripe reach an explicit
+  exchange (`codec/stripes.py`: halo rows, gathered per-block fields,
+  the picture's sums and SAO decision once), equal to the one-device
+  step byte for byte;
+- not ported: `dp_shard` (data-parallel NN-FME training, ROADMAP queue 1,
+  item 4).
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..codec.inter_grid import GridStep
+from ..codec.inter_grid import (GridStep, _Tabs, grid_live_tables,
+                                pack_stripes, supports)
 from ..codec.params import p_frame_lambda
+from ..codec.stripes import Exchange, Rows
 from ..device import on_device, resolve
 from ..ops.stripe_prescreen import stripe_prescreen
 
@@ -174,3 +182,115 @@ def stripe_refine(cfg, nn_by_qp: dict, mesh: Mesh):
 
     return sharded, single, halo
 
+
+
+BAND = 64  # stripes start on 64-row boundaries: whole CTUs, 32 and 64 blocks
+
+
+def stripe_rows(H: int, n: int) -> list:
+    """n row stripes of an H-row picture: the full 64-row bands split as
+    evenly as they go (the first stripes take the extra), the last stripe
+    also the partial band. One stripe is the whole picture; more stripes
+    than full bands raise ValueError."""
+    if n == 1:
+        return [Rows(0, H, H)]
+    full = H // BAND
+    if not 1 <= n <= full:
+        raise ValueError(f"{n} stripes of a {H}-row picture: it has "
+                         f"{full} full {BAND}-row CTU rows")
+    base, extra = divmod(full, n)
+    out, y = [], 0
+    for k in range(n):
+        y1 = H if k == n - 1 else y + BAND * (base + (k < extra))
+        out.append(Rows(y, y1, H))
+        y = y1
+    return out
+
+
+def sharded_frame_step(cfg, nn_by_qp: dict, mesh: Mesh):
+    """The grid step's whole P picture on row stripes, stripe k on
+    mesh.devices[k] (`stripe_rows`). Returns (sharded, single, meta):
+
+    - single(carry, fu8, navail, gpos, wp=None) -> (carry, packed):
+      `GridStep.frame_step` on the mesh's first device;
+    - sharded(carries, fu8, navail, gpos, wp=None) -> (carries, packed):
+      the stripes' carries (meta["split"] of a whole carry: each its rows
+      of the reference stacks with up to KY (luma) / KY / 2 (chroma) halo
+      rows each side, the MV seed and the collocated maps, on its device;
+      meta["join"] takes them back) -> the next ones, still in stripes,
+      and the packed row on the first device, equal to single's byte
+      for byte. Each stripe's
+      pixel work runs on its device with that device current; only halo
+      rows, per-block fields, the per-CTU SAO statistics and partial sums
+      cross between stripes (meta["exchange"] counts their bytes).
+
+    fu8: the picture's (W*H*3/2,) uint8 planes (each stripe takes its
+    rows). The decision tables are the warmed init tables of each GOP
+    position (`grid_live_tables` without feedback), as tpuhevc's step
+    bakes them in."""
+    if not supports(cfg):
+        raise ValueError("sharded_frame_step: the grid step needs a coded "
+                         "size of whole 16x16 blocks at 8 bits")
+    steps = {}
+    for dev in mesh.devices:
+        if dev not in steps:
+            with on_device(dev):
+                steps[dev] = GridStep(cfg, nn_by_qp, dev)
+    dev0 = mesh.devices[0]
+    step0 = steps[dev0]
+    H, W, Hc, Wc = step0.H, step0.W, step0.Hc, step0.Wc
+    rows = stripe_rows(H, mesh.size)
+    live = grid_live_tables(cfg, {})
+    tabs = {dev: [_Tabs(lv, dev) for lv in live] for dev in steps}
+    ex = Exchange(mesh.devices)
+
+    def split(carry):
+        """A whole carry -> the stripes' carries on their devices: the
+        reference stacks with the halo rows that frame_steps carries."""
+        ry, ruv, mv16p, colmv, coltd = carry
+        out = []
+        for r, dev in zip(rows, mesh.devices):
+            a, b = r.y0 - r.above(step0.KY), r.y1 + r.below(step0.KY)
+            b0, b1 = r.y0 // 16, r.y1 // 16
+            out.append(tuple(t.to(dev).contiguous() for t in (
+                ry[:, a:b], ruv[:, a // 2 : b // 2],
+                mv16p[b0 * step0.nw16 : b1 * step0.nw16], colmv[b0:b1],
+                coltd[b0:b1])))
+        return out
+
+    def join(carries):
+        """The stripes' carries -> the whole carry on the first device."""
+        own = [(c[0][:, r.above(step0.KY) :][:, : r.y1 - r.y0],
+                c[1][:, r.above(step0.KY) // 2 :][:, : (r.y1 - r.y0) // 2],
+                *c[2:]) for r, c in zip(rows, carries)]
+        return tuple(torch.cat([c[i].to(dev0) for c in own],
+                               dim=1 if i < 2 else 0)
+                     for i in range(5))
+
+    def source(fu8, r, dev):
+        """The stripe's rows of the picture's planes: (oy, ouv) int32."""
+        u0, n = W * H, Wc * Hc
+        oy = fu8[r.y0 * W : r.y1 * W].to(dev).reshape(-1, W)
+        uv = [fu8[u0 + k * n + r.y0 // 2 * Wc : u0 + k * n + r.y1 // 2 * Wc]
+              .to(dev).reshape(-1, Wc) for k in (0, 1)]
+        return oy.int(), torch.cat(uv, dim=1).int()
+
+    def sharded(carries, fu8, navail: int, gpos: int, wp=None):
+        gens = []
+        for r, dev, c in zip(rows, mesh.devices, carries):
+            wp_d = None if wp is None else (wp[0].to(dev), wp[1].to(dev),
+                                            wp[2])
+            gens.append(steps[dev].frame_steps(
+                c, source(fu8, r, dev), navail, gpos, tabs[dev][gpos], wp_d,
+                r))
+        outs = ex.run(gens)
+        return [o[0] for o in outs], pack_stripes(outs, dev0)
+
+    def single(carry, fu8, navail: int, gpos: int, wp=None):
+        with on_device(dev0):
+            return step0.frame_step(carry, fu8.to(dev0), navail, gpos,
+                                    tabs[dev0][gpos], wp)
+
+    meta = dict(R=step0.R, Hc=Hc, Wc=Wc, G=step0.G, rows=rows, step=step0,
+                exchange=ex, split=split, join=join)
+    return sharded, single, meta

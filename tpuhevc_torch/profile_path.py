@@ -4,6 +4,7 @@
         --frames 18 --reps 3 --trace chiprun_out/ra_trace.json]
     python -m tpuhevc_torch.profile_path --path bench
     python -m tpuhevc_torch.profile_path --path intra8 --frames 8
+    python -m tpuhevc_torch.profile_path --path step --reps 20
 
 Encodes the synthetic clip of `tools/make_test_clip.py` (seed 7) through
 `codec.encoder.encode_sequence` with one of the repository's cfgs: `ra`
@@ -31,6 +32,14 @@ encode, then the best of 4 timed encodes, printed as frames/s. The repo
 ships no NN-FME weights, so FmeMode nn runs integer-pel there, as it
 does in bench.py. This is not a benchmark and prints no comparison with
 bench.py's target, which was set for a TPU.
+
+`step` times the grid step alone (`GridStep.frame_step`, the LD-P
+path's P picture) on one picture of the anchor cfg as shipped, TMVP
+granted: frame 4 of the clip against frames 3..0 as its four references
+(the originals standing in for their recons), GOP position 0, the MV
+seed and collocated field of the step's first picture. One call warms
+up, then `reps` calls (default 20) are timed with CUDA events; prints
+their median and the median host time of a call.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ CFGS = {
     "intra8": ("encoder_intra_main.cfg", []),  # with intra_qt off
     # bench.py: the checksum hash without the recon fetch, no NN weights
     "bench": ("encoder_lowdelay_P_main.cfg", ["--SEIDecodedPictureHash=3"]),
+    "step": ("encoder_lowdelay_P_main.cfg", []),
 }
 BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
 INTRA8_BATCH = 4  # intra8: pictures a launch, as chip_smoke.py runs it
@@ -82,6 +92,44 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
+    """`step`: the grid step's median event and host ms a picture."""
+    from .codec import inter_grid
+
+    cfg.sps.temporal_mvp_enabled = cfg.tmvp
+    step = inter_grid.GridStep(cfg, nn_by_qp, dev)
+    R, W, H = step.R, step.W, step.H
+
+    def dev_t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    f = clip.frames
+    carry = step.carry0(
+        dev_t(np.stack([f[3 - r][0] for r in range(R)]).astype(np.int32)),
+        dev_t(np.stack([np.concatenate(f[3 - r][1:], 1)
+                        for r in range(R)]).astype(np.int32)))
+    fu8 = dev_t(np.concatenate([p.ravel() for p in f[4]]))
+    tabs = inter_grid._Tabs(inter_grid.grid_live_tables(cfg, {})[0], dev)
+    step.frame_step(carry, fu8, R, 0, tabs)
+    torch.cuda.synchronize()
+    ev, host = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        step.frame_step(carry, fu8, R, 0, tabs)
+        b.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.synchronize()
+        ev.append(a.elapsed_time(b))
+    print(f"step {W}x{H}: grid step (GridStep.frame_step), the anchor cfg, "
+          f"one P picture, {reps} calls: event ms median "
+          f"{float(np.median(ev)):.3f} (all {[round(x, 3) for x in ev]}), "
+          f"host ms median {float(np.median(host)):.3f} | {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     from .codec.encoder import encode_sequence
     from .config.options import build_config, parse_args
@@ -106,9 +154,22 @@ def main(argv=None) -> int:
     gpu = gpu_line()
     clip = _Clip(args.width, args.height, frames)
     cfg_file, extra = CFGS[args.path]
+    if args.path == "step":
+        frames = max(frames, 5)
+        reps = args.reps or 20
+        clip = _Clip(args.width, args.height, frames)
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "nnfme_seeded.npz")
         save_npz(npz, {32: random_params(0)})
+        if args.path == "step":
+            cfg, _ = build_config(parse_args([
+                "-c", os.path.join(ROOT, "cfg", cfg_file),
+                "-wdt", str(args.width), "-hgt", str(args.height),
+                "-f", str(frames), "-q", "32", f"--NNWeightsDir={npz}"]))
+            qps = {min(max(cfg.qp + o, 0), 51) for o in cfg.gop_qp_offsets}
+            time_step(cfg, {q: random_params(0) for q in qps}, clip, dev,
+                      reps, gpu)
+            return 0
         # bench.py names no weights: FmeMode nn runs integer-pel
         weights = [] if bench else [f"--NNWeightsDir={npz}"]
 
