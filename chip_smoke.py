@@ -111,9 +111,16 @@
    batch of the first epoch, the initial weights of train_fme): the
    forward (logits, loss, batch and running statistics), the backward
    (autograd of the plain forward, the same dropout masks), Adam (the
-   same gradient), 20 whole steps kernel against plain from the same
-   start, and two kernel runs of 20 steps bit for bit, and equal to 20
-   steps through the autograd Function FmeTrainLoss.
+   same gradient), 20 whole steps of train_fme's own step
+   (`models.fme_train.train_step`) against plain from the same start,
+   two such runs of 20 steps bit for bit, and equal to 20 steps through
+   the autograd Function FmeTrainLoss (the data and sizes of
+   `tpuhevc_torch/profile_path.py`'s `fme_dataset`, `train_inputs`); each train-step
+   kernel (and torch._fused_adam_ beside fme_adam) also timed by its
+   device_ms (events around 200 launches queued behind a device sleep,
+   over 200) and the backward's launch geometry printed (and, after the
+   build, every source's ptxas report: entry function, registers,
+   spills).
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -154,14 +161,10 @@ from tpuhevc_torch.entropy import bitio  # noqa: E402
 from tpuhevc_torch.entropy.bitest import tu_bits, tu_bits_plain  # noqa: E402
 from tpuhevc_torch.kernels import KERNELS, LAUNCHES, reset_launches  # noqa: E402
 from tpuhevc_torch.kernels import build as kbuild  # noqa: E402
-from tpuhevc_torch.models.fme_data import extract as fme_extract  # noqa: E402
-from tpuhevc_torch.models.fme_train import (  # noqa: E402
-    epoch_batches, prepare, train_fme)
+from tpuhevc_torch.models.fme_train import train_fme, train_step  # noqa: E402
 from tpuhevc_torch.models.nnfme import (  # noqa: E402
-    N_TRAIN, NNFME, STATE_SHAPES, TRAIN_SHAPES, TrainConfig, flatten_np,
-    height_category, height_category_np, init_bn_state, nn_refine,
-    nn_refine_plain, random_params, save_npz, width_category,
-    width_category_np)
+    N_TRAIN, NNFME, TrainConfig, height_category, nn_refine, nn_refine_plain,
+    random_params, save_npz, width_category)
 from tpuhevc_torch.ops import fme_train as ft  # noqa: E402
 from tpuhevc_torch.ops.cost import satd35_topk, satd35_topk_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_code import grid_code, grid_code_plain  # noqa: E402
@@ -184,6 +187,9 @@ from tpuhevc_torch.ops.stripe_prescreen import (  # noqa: E402
 from tpuhevc_torch.parallel import mesh as mesh_mod  # noqa: E402
 from tpuhevc_torch.parallel import segments  # noqa: E402
 from tpuhevc_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from tpuhevc_torch.profile_path import (  # noqa: E402
+    TRAIN_FRAMES, TRAIN_H, TRAIN_QP, TRAIN_SR, TRAIN_STEPS_CHECKED, TRAIN_W,
+    device_ms, fme_dataset, train_inputs)
 from tpuhevc_torch.ops.grid_stats import (  # noqa: E402
     grid_stats, grid_stats_partial, grid_stats_partial_plain,
     grid_stats_plain)
@@ -257,7 +263,6 @@ SOURCES = {
 }
 # the NN-FME train step, once each a step
 TRAIN_KERNELS = ("fme_train_fwd", "fme_train_bwd", "fme_adam")
-FME_SR, TRAIN_STEPS_CHECKED = 16, 20
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
 G_KERNELS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
@@ -1929,47 +1934,12 @@ def train_work(name, b) -> Counted:
     return Counted(4 * (7 * N_TRAIN + 2), 14 * N_TRAIN)
 
 
-def fme_dataset():
-    """Path 8's extraction: make_clip(416, 240, 17) at QP 32, SearchRange
-    16, on the host. Returns (sads, heights, widths, labels, seconds)."""
-    frames = Reader(W, H, NFRAMES).frames
-    t0 = time.time()
-    sads, dims, labels = fme_extract(frames, QP, FME_SR)
-    secs = time.time() - t0
-    return (sads.astype(np.float32), dims[:, 1], dims[:, 0], labels, secs)
-
-
-def train_inputs(dev, ds):
-    """train_fme's start on the card: the data (normalised as train_fme
-    does), the initial weights and state, TRAIN_STEPS_CHECKED batches
-    (the first epochs' order) and their dropout uniforms."""
-    sads, heights, widths, labels, _ = ds
-    cfg = TrainConfig()
-    rng, tr, _, _, _, xs, params = prepare(sads, cfg)
-    flat = torch.as_tensor(flatten_np(params, TRAIN_SHAPES), device=dev)
-    state = torch.as_tensor(flatten_np(init_bn_state(), STATE_SHAPES),
-                            device=dev)
-    rows = []
-    while len(rows) < TRAIN_STEPS_CHECKED:
-        rows += list(epoch_batches(tr, rng.permutation(len(tr)),
-                                   cfg.batch_size))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    return dict(
-        cfg=cfg, flat=flat, state=state,
-        data=ft.FmeData.from_numpy(xs, height_category_np(heights),
-                                   width_category_np(widths), labels, dev),
-        rows=torch.as_tensor(np.stack(rows[:TRAIN_STEPS_CHECKED]),
-                             device=dev),
-        unif=torch.rand((TRAIN_STEPS_CHECKED, cfg.batch_size, ft.UNIF_COLS),
-                        generator=gen, device=dev))
-
-
 def train_steps(t, mode, steps=TRAIN_STEPS_CHECKED):
-    """`steps` whole train steps from t's start: mode "direct" calls the
-    kernels as train_fme does, "function" goes through FmeTrainLoss and
-    torch.autograd.grad, "plain" runs the plain versions. Returns (flat,
-    state, losses, seconds)."""
+    """`steps` whole train steps from t's start: mode "direct" is
+    train_fme's own step (`models.fme_train.train_step`: the wrappers,
+    their bindings kept in the data and the Adam state), "function" goes
+    through FmeTrainLoss and torch.autograd.grad, "plain" runs the plain
+    versions. Returns (flat, state, losses, seconds)."""
     cfg = t["cfg"]
     flat, state = t["flat"].clone(), t["state"].clone()
     opt = ft.AdamState.zeros(N_TRAIN, flat.device)
@@ -1980,20 +1950,19 @@ def train_steps(t, mode, steps=TRAIN_STEPS_CHECKED):
     t0 = time.perf_counter()
     for s in range(steps):
         args = (t["data"], t["rows"][s], t["unif"][s])
-        if mode == "function":
+        if mode == "direct":
+            out = train_step(flat, state, *args, opt, cfg, one)
+            loss, state = out.loss, out.state
+        elif mode == "function":
             loss, state = ft.FmeTrainLoss.apply(leaf, state, *args,
                                                 cfg.dropouts, cfg.bn_momentum)
             (g,) = torch.autograd.grad(loss, leaf, grad_outputs=one)
             ft.fme_adam(flat, g, opt, cfg.lr)
         else:
-            fwd, bwd, adam = ((ft.fme_train_fwd, ft.fme_train_bwd, ft.fme_adam)
-                              if mode == "direct" else
-                              (ft.fme_train_fwd_plain, ft.fme_train_bwd_plain,
-                               ft.fme_adam_plain))
-            out = fwd(flat, state, *args, cfg.dropouts, cfg.bn_momentum)
-            saved = (out.saved, out.stats) if mode == "direct" else ()
-            g = bwd(flat, *args, cfg.dropouts, *saved, one)
-            adam(flat, g, opt, cfg.lr)
+            out = ft.fme_train_fwd_plain(flat, state, *args, cfg.dropouts,
+                                         cfg.bn_momentum)
+            g = ft.fme_train_bwd_plain(flat, *args, cfg.dropouts, one)
+            ft.fme_adam_plain(flat, g, opt, cfg.lr)
             loss, state = out.loss, out.state
         losses.append(loss.detach())
     torch.cuda.synchronize()
@@ -2012,7 +1981,13 @@ def check_train_kernels(dev, ds):
     autograd of the plain forward with the same masks (rtol 1e-4 + atol
     1e-6), Adam on the same gradient twice (atol 1e-7), 20 steps from the
     same start (parameters and state rtol 1e-4 + atol 1e-5), two kernel
-    runs of 20 steps bit for bit. Returns {name: row}."""
+    runs of 20 steps bit for bit, Adam's count 1,000 after 1,000
+    launches. Each kernel's time two ways: the median
+    event time of one wrapper call (`ms`, launch included, as the
+    earlier rows of PERF.md took it) and `device_ms` (events around 200 launches queued behind a
+    device sleep, over 200), `torch._fused_adam_` beside Adam both ways.
+    Prints the backward's launch geometry (main() prints every source's
+    ptxas report, fme_train's with it). Returns {name: row}."""
     t = train_inputs(dev, ds)
     cfg, data = t["cfg"], t["data"]
     b = cfg.batch_size
@@ -2031,19 +2006,21 @@ def check_train_kernels(dev, ds):
               f"{errs[k]}")
     rows = {}
 
-    def record(name, err, ms, plain_ms, extra=""):
+    def record(name, err, call, plain, extra=""):
         work = train_work(name, b)
         bound_ms, bound_by = bound_of(dict(work=work))
+        ms, plain_ms = median_ms(call), median_ms(plain)
+        dev_ms = device_ms(call)
         print(f"kernel {name:13s} B {b}: max_abs_err {err:.3g} kernel_ms "
-              f"{ms:.4f} plain_ms {plain_ms:.4f} bound {bound_ms:.6f} ms "
-              f"({bound_by}; {work.bytes} bytes, {work.ops} operations)"
-              f"{extra}", flush=True)
+              f"{ms:.4f} device_ms {dev_ms:.5f} plain_ms {plain_ms:.4f} "
+              f"bound {bound_ms:.6f} ms ({bound_by}; {work.bytes} bytes, "
+              f"{work.ops} operations){extra}", flush=True)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          work=work)
+                          device_ms=dev_ms, work=work)
 
     record("fme_train_fwd", max(errs.values()),
-           median_ms(lambda: ft.fme_train_fwd(*fwd_args)),
-           median_ms(lambda: ft.fme_train_fwd_plain(*fwd_args)),
+           lambda: ft.fme_train_fwd(*fwd_args),
+           lambda: ft.fme_train_fwd_plain(*fwd_args),
            f" | logits {errs['logits']:.3g}, loss {errs['loss']:.3g}, stats "
            f"{errs['stats']:.3g}, state {errs['state']:.3g}")
 
@@ -2055,9 +2032,9 @@ def check_train_kernels(dev, ds):
     check(torch.allclose(g, g_plain, rtol=1e-4, atol=1e-6),
           f"fme_train_bwd: gradients differ by {max_err(g, g_plain)}")
     record("fme_train_bwd", max_err(g, g_plain),
-           median_ms(lambda: ft.fme_train_bwd(*bwd_args, got.saved,
-                                              got.stats, one)),
-           median_ms(lambda: ft.fme_train_bwd_plain(*bwd_args, one)))
+           lambda: ft.fme_train_bwd(*bwd_args, got.saved, got.stats, one),
+           lambda: ft.fme_train_bwd_plain(*bwd_args, one),
+           f" | launch {ft.bwd_geometry(dev)}")
 
     outs = []
     for adam in (ft.fme_adam, ft.fme_adam_plain):
@@ -2080,11 +2057,23 @@ def check_train_kernels(dev, ds):
                            amsgrad=False, maximize=False)
 
     record("fme_adam", a_err,
-           median_ms(lambda: ft.fme_adam(flat, g_plain, opt, cfg.lr)),
-           median_ms(lambda: ft.fme_adam_plain(flat, g_plain, opt, cfg.lr)))
-    rows["fme_adam"]["library_ms"] = median_ms(fused)
-    print(f"library fme_adam: torch._fused_adam_ "
-          f"{rows['fme_adam']['library_ms']:.4f} ms", flush=True)
+           lambda: ft.fme_adam(flat, g_plain, opt, cfg.lr),
+           lambda: ft.fme_adam_plain(flat, g_plain, opt, cfg.lr),
+           f" | {-(-N_TRAIN // 256)} blocks")
+    lib_ms, lib_dev = median_ms(fused), device_ms(fused)
+    rows["fme_adam"]["library_ms"] = lib_ms
+    r = rows["fme_adam"]
+    print(f"library fme_adam: torch._fused_adam_ {lib_ms:.4f} ms, device_ms "
+          f"{lib_dev:.5f}; fme_adam at or below it: per call "
+          f"{r['ms'] <= lib_ms}, device {r['device_ms'] <= lib_dev}",
+          flush=True)
+    # the count over many blocks: one a launch, the ticket back at 0
+    opt = ft.AdamState.zeros(N_TRAIN, dev)
+    for _ in range(1000):
+        ft.fme_adam(flat, g_plain, opt, cfg.lr)
+    check(int(opt.count) == 1000 and int(opt.ticket) == 0,
+          f"fme_adam: count {int(opt.count)}, ticket {int(opt.ticket)} "
+          f"after 1,000 launches")
 
     k1, fn, k2, plain = (train_steps(t, m) for m in
                          ("direct", "function", "direct", "plain"))
@@ -2134,14 +2123,15 @@ def run_training(dev, ds, npz, gpu, seeded):
     check(all(np.isfinite(v).all() for v in inf.values()),
           "training: exported weights not finite")
     print(f"main path NN-FME training: extract {len(labels)} samples "
-          f"({W}x{H} x {NFRAMES}, QP {QP}, SR {FME_SR}) in {ext_secs:.3f} s "
+          f"({TRAIN_W}x{TRAIN_H} x {TRAIN_FRAMES}, QP {TRAIN_QP}, SR "
+          f"{TRAIN_SR}) in {ext_secs:.3f} s "
           f"of host | train_fme {cfg.epochs} epochs, {steps} steps of "
           f"{cfg.batch_size} in {secs:.3f} s = {steps / secs:.1f} steps/s, "
           f"{secs / steps * 1e3:.3f} ms a step | epoch loss {hist[0]:.4f} -> "
           f"{hist[-1]:.4f} | val accuracy {acc:.4f} | launches "
           f"{ {k: launches[k] for k in TRAIN_KERNELS} } | {gpu}", flush=True)
     trained = os.path.join(os.path.dirname(npz), "nnfme_trained.npz")
-    save_npz(trained, {QP: inf})
+    save_npz(trained, {TRAIN_QP: inf})
     enc, recons, e_secs, e_launches = run_path(dev, ldp_cfg(trained), NFRAMES)
     check_stream(enc, recons, NFRAMES, e_launches, LDP_NEED,
                  "LD-P with the trained weights")
@@ -2176,7 +2166,8 @@ def main():
     print(f"build: {time.time() - t0:.2f} s for {sorted(built)}", flush=True)
     for name, log in kbuild.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"ptxas {name}: {line.strip()}")
 
     with tempfile.TemporaryDirectory() as tmp:

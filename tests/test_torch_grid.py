@@ -39,8 +39,8 @@ import pytest
 import torch
 
 from torch_port_util import (  # noqa: F401
-    GOP_QP_OFFSETS, QP, Reader, clip_frames, cuda_device, ldp_cfg,
-    rng_planes, write_weights)
+    GOP_QP_OFFSETS, QP, Reader, clip_frames, cuda_device, fresh_grid,
+    ldp_cfg, rng_planes, write_weights)
 from tpuhevc_torch.codec import inter_grid as tig
 from tpuhevc_torch.codec.decoder import decode_stream
 from tpuhevc_torch.codec.encoder import LdpScanDriver, check_slice
@@ -154,9 +154,8 @@ def st(base, npz):
     from tpuhevc.codec import inter_grid as jg
 
     jcfg = stage_cfg(npz, False)
-    jg.build_ldp_grid_scan(jcfg, base["nn_by_qp"], 1)
-    probes = {k: jitted(v) if k in JITTED else v
-              for k, v in jg._PROBES.items()}
+    _, built = fresh_grid(jg.build_ldp_grid_scan, jcfg, base["nn_by_qp"], 1)
+    probes = {k: jitted(v) if k in JITTED else v for k, v in built.items()}
     qp = base["qp"]
     jlive = jg.grid_live_tables(jcfg, {})
     jtabs = jg._tabs_with_live(probes["meta"]["tabs_by_qp"][qp],
@@ -525,8 +524,8 @@ def e2e(npz):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jg, "assemble_grid_frame", recorder(jg, "jax"))
         mp.setattr(tig, "assemble_grid_frame", recorder(tig, "port"))
-        enc_j, _ = jax_encode(Reader(frames), e2e_cfg(npz, False),
-                              max_frames=E2E_FRAMES)
+        (enc_j, _), _ = fresh_grid(jax_encode, Reader(frames),
+                                   e2e_cfg(npz, False), max_frames=E2E_FRAMES)
         tcfg = e2e_cfg(npz, True)
         enc_t, recons = encode_sequence(Reader(frames), tcfg,
                                         max_frames=E2E_FRAMES, device="cpu")

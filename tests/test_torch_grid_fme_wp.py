@@ -42,7 +42,8 @@ import pytest
 import torch
 
 from tools.make_test_clip import make_fade_clip
-from torch_port_util import Reader, clip_frames, cuda_device  # noqa: F401
+from torch_port_util import (  # noqa: F401
+    Reader, clip_frames, cuda_device, fresh_grid)
 from tpuhevc_torch.codec import encoder as tenc
 from tpuhevc_torch.codec import inter_grid as tig
 from tpuhevc_torch.codec import params as tparams
@@ -121,12 +122,13 @@ def probes():
     and 2 (originals standing in for their recons)."""
     from tpuhevc.codec import inter_grid as jg
 
-    jg.build_ldp_grid_scan(fme_wp_cfg(port=False), {}, 1)
+    _, built = fresh_grid(jg.build_ldp_grid_scan, fme_wp_cfg(port=False), {},
+                          1)
     frames = fade_frames(5)
     ry = np.stack([f[0] for f in frames[3:1:-1]]).astype(np.int32)
     ruv = np.stack([np.concatenate(f[1:], 1)
                     for f in frames[3:1:-1]]).astype(np.int32)
-    return dict(P=dict(jg._PROBES), step=tig.GridStep(fme_wp_cfg(), {}, "cpu"),
+    return dict(P=built, step=tig.GridStep(fme_wp_cfg(), {}, "cpu"),
                 oy=frames[4][0].astype(np.int32), ry=ry, ruv=ruv)
 
 
@@ -318,8 +320,8 @@ def test_e2e_dctif_wp_matches_jax_and_decodes():
         mp.setattr(jg, "assemble_grid_frame", recorder(jg, "jax"))
         mp.setattr(tig, "assemble_grid_frame", recorder(tig, "port"))
         mp.setattr(tenc, "analyse_slice_wp", analysed)
-        enc_j, _ = jax_encode(Reader(frames), fme_wp_cfg(port=False),
-                              max_frames=FRAMES)
+        (enc_j, _), _ = fresh_grid(jax_encode, Reader(frames),
+                                   fme_wp_cfg(port=False), max_frames=FRAMES)
         enc_t, recons = encode_sequence(Reader(frames), fme_wp_cfg(),
                                         max_frames=FRAMES, device="cpu")
     cfg = fme_wp_cfg()

@@ -42,8 +42,8 @@ import pytest
 import torch
 
 from torch_port_util import (  # noqa: F401
-    GOP_QP_OFFSETS, QP, Reader, clip_frames, cuda_device, ldp_cfg,
-    rng_planes, write_weights)
+    GOP_QP_OFFSETS, QP, Reader, clip_frames, cuda_device, fresh_grid,
+    ldp_cfg, rng_planes, write_weights)
 from tpuhevc_torch.codec import inter_grid as tig
 from tpuhevc_torch.codec.decoder import decode_stream
 from tpuhevc_torch.codec.encoder import encode_sequence
@@ -93,17 +93,17 @@ _GRIDS: dict = {}
 
 def jax_grid(npz, qp):
     """tpuhevc's grid of the tools configuration at `qp` (built, not
-    compiled), its probes and the port's GridStep of the same. tpuhevc
-    caches its builds and registers the probes only when it builds, so
-    each build's probes are kept here."""
+    compiled), its probes and the port's GridStep of the same, each
+    build's probes kept here."""
     from tpuhevc.codec import inter_grid as jg
     from tpuhevc.models.nnfme import load_npz, select_qp_params
 
     if qp not in _GRIDS:
         params = select_qp_params(load_npz(npz[qp]), qp)
         nn = {min(max(qp + o, 0), 51): params for o in GOP_QP_OFFSETS}
-        jg.build_ldp_grid_scan(tools_cfg(npz, False, qp), nn, 1)
-        _GRIDS[qp] = (jg, dict(jg._PROBES),
+        _, built = fresh_grid(jg.build_ldp_grid_scan,
+                              tools_cfg(npz, False, qp), nn, 1)
+        _GRIDS[qp] = (jg, built,
                       tig.GridStep(tools_cfg(npz, True, qp), nn, "cpu"))
     return _GRIDS[qp]
 
@@ -231,8 +231,9 @@ def e2e(npz):
     and the first chunk through tpuhevc (its scan's compile and run
     dominate this file's time; its RQT-depth fault comes later); the
     packed rows recorded where the host half parses them, the syntax the
-    port assembled, and the inputs and outputs of the port's deblocking
-    and SAO (as the grid step called them)."""
+    port assembled, the inputs and outputs of the port's deblocking and
+    SAO (as the grid step called them), and the probes of tpuhevc's build
+    ("P")."""
     from tpuhevc.codec import inter_grid as jg
     from tpuhevc.codec.encoder import encode_sequence as jax_encode
 
@@ -266,8 +267,9 @@ def e2e(npz):
             fn = "grid_sao_" + name
             rec[fn] = []
             mp.setattr(tig, fn, calls(fn, getattr(tig, fn)))
-        enc_j, _ = jax_encode(Reader(frames), tools_cfg(npz, False, gop=False),
-                              max_frames=JAX_FRAMES)
+        (enc_j, _), probes = fresh_grid(
+            jax_encode, Reader(frames), tools_cfg(npz, False, gop=False),
+            max_frames=JAX_FRAMES)
         enc_t, recons = encode_sequence(
             Reader(frames), tools_cfg(npz, True, gop=False),
             max_frames=FRAMES, device="cpu")
@@ -278,7 +280,7 @@ def e2e(npz):
                       rec["grid_sao_stats"], rec["grid_sao_decide"],
                       rec["grid_sao_apply"])]
     return dict(rec, cfg=tools_cfg(npz, True, gop=False), enc_j=enc_j,
-                enc_t=enc_t, recons=recons,
+                P=probes, enc_t=enc_t, recons=recons,
                 fed_back=sorted(enc_t.ctx_feedback))
 
 
@@ -290,10 +292,9 @@ def test_deblock_matches_jax_and_host_filter(e2e):
     import jax
     import jax.numpy as jnp
 
-    from tpuhevc.codec import inter_grid as jg
     from tpuhevc_torch.ops import deblock as host
 
-    P = jg._PROBES
+    P = e2e["P"]
     dec = []
     real = host.deblock_frame
 
@@ -340,10 +341,9 @@ def test_sao_matches_jax(e2e):
     import jax
     import jax.numpy as jnp
 
-    from tpuhevc.codec import inter_grid as jg
     from tpuhevc.ops.sao import collect_stats
 
-    P = jg._PROBES
+    P = e2e["P"]
     ctu = 1 << e2e["cfg"].sps.log2_ctu
     on = [False, False]
     ref = {}  # one compiled program per QP

@@ -22,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import Reader, clip_frames, cuda_device, ldp_cfg, \
-    rng_planes, write_weights  # noqa: F401 (a fixture)
+from torch_port_util import Reader, clip_frames, cuda_device, fresh_grid, \
+    ldp_cfg, rng_planes, write_weights  # noqa: F401 (a fixture)
 from tpuhevc.codec.decoder import decode_stream as jax_decode
 from tpuhevc.codec.params import EncoderConfig as JaxConfig
 from tpuhevc.codec.params import SeqParams as JaxSeq
@@ -67,8 +67,8 @@ def test_stripe_refine_matches_jax():
                      **kw)
     pcfg = EncoderConfig(sps=SeqParams(width=REF_W, height=REF_H,
                                        max_tu_depth_intra=0), **kw)
-    j_sh, j_one, j_halo = jax_mesh.stripe_refine(jcfg, {32: None},
-                                                 jax_mesh.make_mesh(8))
+    (j_sh, j_one, j_halo), _ = fresh_grid(jax_mesh.stripe_refine, jcfg,
+                                          {32: None}, jax_mesh.make_mesh(8))
     p_sh, p_one, p_halo = mesh.stripe_refine(
         pcfg, {32: None}, mesh.make_mesh(8, device="cpu"))
     assert p_halo == j_halo == 40

@@ -36,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import cuda_device, rng_planes  # noqa: F401 (a fixture)
+from torch_port_util import (  # noqa: F401 (a fixture)
+    cuda_device, fresh_grid, rng_planes)
 from tpuhevc.codec.params import EncoderConfig as JaxConfig
 from tpuhevc.codec.params import SeqParams as JaxSeq
 from tpuhevc.parallel import mesh as jax_mesh
@@ -69,8 +70,8 @@ def test_sharded_frame_step_matches_jax():
                      inter_backend="jax", **kw)
     pcfg = EncoderConfig(sps=SeqParams(width=w, height=h,
                                        max_tu_depth_intra=0), **kw)
-    _, j_single, jmeta = jax_mesh.sharded_frame_step(
-        jcfg, {32: None}, jax_mesh.make_mesh(1))
+    (_, j_single, jmeta), _ = fresh_grid(jax_mesh.sharded_frame_step, jcfg,
+                                         {32: None}, jax_mesh.make_mesh(1))
     sharded, _, meta = mesh.sharded_frame_step(
         pcfg, {32: None}, mesh.make_mesh(2, device="cpu"))
     R, Hc, Wc = jmeta["R"], jmeta["Hc"], jmeta["Wc"]

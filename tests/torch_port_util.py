@@ -3,8 +3,9 @@
 Not a test module: seeded clips and planes (numpy), seeded NN-FME weights
 written with `tpuhevc.models.nnfme.save_npz`, the slice's LD-P config (as
 tpuhevc's EncoderConfig, or with port=True as the port's own, from the
-same fields), and the `cuda_device` fixture that skips a test where
-PyTorch sees no GPU.
+same fields), `fresh_grid` (tpuhevc's grid builders with its build
+cache emptied around them), and the `cuda_device` fixture that skips a
+test where PyTorch sees no GPU.
 """
 
 from __future__ import annotations
@@ -105,6 +106,29 @@ def parse_meta(cfg, row: np.ndarray) -> dict:
             off += nbytes
         out[tag] = tuple(parts)
     return out
+
+
+def fresh_grid(fn, *args, **kw):
+    """fn(*args, **kw) -- tpuhevc's `inter_grid.build_ldp_grid_scan`,
+    `parallel.mesh.stripe_refine` or `sharded_frame_step`, or an encode
+    that builds a grid -- with `inter_grid._BUILD_CACHE` emptied before
+    and after. Returns (fn's result, a copy of `inter_grid._PROBES` as
+    the call left them).
+
+    tpuhevc registers the probes only when it builds, not on a cache hit,
+    and its mesh functions read them after a build. Emptied before, the
+    call builds and registers its own probes; emptied after, no later
+    caller in the process hits an entry whose probes another build has
+    replaced."""
+    from tpuhevc.codec import inter_grid as jg
+
+    jg._BUILD_CACHE.clear()
+    try:
+        out = fn(*args, **kw)
+        probes = dict(jg._PROBES)
+    finally:
+        jg._BUILD_CACHE.clear()
+    return out, probes
 
 
 @pytest.fixture

@@ -24,20 +24,23 @@
 // correction 1 - b^count, the count starting at 1), then -lr, then p + u.
 //
 // What bounds it: nothing on this card at the slice's sizes. A step is
-// ~25 MFLOP and ~1 MB (B = 1,024); launch latency and one block's serial
-// depth (three barriers' worth of batch reductions each way) dominate.
-// Design: one block of up to 1,024 threads, one thread a sample (B <=
-// 1,024); the 2,042 weights staged in shared memory (a broadcast: a warp
-// reads one weight at a time). Activations go to global scratch laid out
-// feature by feature (row r of sample b at r * B + b: coalesced per
-// thread and contiguous per reduction). Every sum over the batch (the BN
-// statistics, the BN and weight gradients, the loss) is one warp's: lane
-// l sums samples l, l + 32, ... in order, then a fixed shuffle tree whose
-// lane-0 result is used. No float atomics, so two runs give the same
-// bits. Built with -fmad=false, so each product rounds on its own as in
-// the plain version; the remaining differences to it are sum orders
-// (and expf/logf/powf's last bits).
+// ~25 MFLOP and ~1 MB (B = 1,024); launch latency and serial depth
+// dominate. Design: the forward is one block of up to 1,024 threads, one
+// thread a sample (B <= 1,024). The backward is one cooperative launch
+// over the card (see fme_train_bwd_kernel): a warp a sample, then a warp
+// a batch sum, joined by grid syncs. Adam is one thread an element over
+// as many blocks as it takes. The 2,042 weights are staged in each
+// block's shared memory (a broadcast: a warp reads one weight at a time).
+// Activations go to global scratch laid out feature by feature (row r of
+// sample b at r * B + b: contiguous per reduction). Every sum over the
+// batch (the BN statistics, the BN and weight gradients, the loss) is one
+// warp's: lane l sums samples l, l + 32, ... in order, then a fixed
+// shuffle tree whose lane-0 result is used. No float atomics, so two runs
+// give the same bits. Built with -fmad=false, so each product rounds on
+// its own as in the plain version; the remaining differences to it are
+// sum orders (and expf/logf/powf's last bits).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -125,30 +128,6 @@ __device__ void bn_stats(const float* rows, int F, int B, int warp,
             stats[off + F + f] = var;
             state_out[off + f] = omm * state_in[off + f] + mom * mu;
             state_out[off + F + f] = omm * state_in[off + F + f] + mom * var;
-        }
-    }
-}
-
-// A BN layer's backward reductions (one warp a row): s1 = sum dy (the
-// shift's gradient), s2 = sum dy xh (the scale's).
-__device__ void bn_grad(const float* dy, const float* xh, int F, int B,
-                        int warp, int nwarps, int lane, float* s1, float* s2,
-                        float* g_shift, float* g_scale) {
-    for (int f = warp; f < F; f += nwarps) {
-        const float* d = dy + (size_t)f * B;
-        const float* x = xh + (size_t)f * B;
-        float a = 0.0f, c = 0.0f;
-        for (int b = lane; b < B; b += 32) {
-            a += d[b];
-            c += d[b] * x[b];
-        }
-        a = warp_sum(a);
-        c = warp_sum(c);
-        if (lane == 0) {
-            s1[f] = a;
-            s2[f] = c;
-            g_shift[f] = a;
-            g_scale[f] = c;
         }
     }
 }
@@ -255,140 +234,249 @@ __global__ void __launch_bounds__(kMaxThreads) fme_train_fwd_kernel(
     }
 }
 
-__global__ void __launch_bounds__(kMaxThreads) fme_train_bwd_kernel(
+// The backward spreads over the card: a cooperative grid of blocks of
+// kBwdThreads, every warp of the grid a sample in the per-sample phases
+// (lanes over output features, each feature's product summed in the
+// order of the one-thread-a-sample kernel that came before) and a batch
+// sum in the reduction phases, the phases joined by grid syncs. Every
+// batch sum stays one warp's, lane l taking samples l, l + 32, ... in
+// order, then warp_sum's tree; only which warp of which block owns a row
+// or an entry depends on the grid. So the gradient does not depend on the
+// launch geometry, and equals the one-block kernel's bit for bit. Data written by another block in this
+// launch (the work rows, the BN sums in grad) is read through L2
+// (__ldcg), after a grid sync.
+constexpr int kBwdThreads = 256, kBwdWarps = kBwdThreads / 32;
+// one warp an entry of the gradient pass: more blocks would idle there
+constexpr int kBwdGridMax = (kEntries + kBwdWarps - 1) / kBwdWarps;
+
+// A warp's sum of a[t] * c[t] (c null: of a[t]) over t = lane, lane + 32,
+// ... < B, in that order; eight products loaded ahead of their adds.
+__device__ __forceinline__ float dot_rows(const float* a, const float* c,
+                                          int B, int lane) {
+    float s = 0.0f;
+    int t = lane;
+    for (; t + 32 * 7 < B; t += 32 * 8) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+            v[u] = c ? __ldcg(a + t + 32 * u) * c[t + 32 * u]
+                     : __ldcg(a + t + 32 * u);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) s += v[u];
+    }
+    for (; t < B; t += 32) s += c ? __ldcg(a + t) * c[t] : __ldcg(a + t);
+    return warp_sum(s);
+}
+
+// A BN layer's backward reductions, a warp a row: the shift's gradient
+// s1 = sum dy and the scale's s2 = sum dy xh, into grad.
+__device__ void bn_grad_rows(const float* dy, const float* xh, int F, int B,
+                             int gw, int ngw, int lane, float* g_shift,
+                             float* g_scale) {
+    for (int f = gw; f < F; f += ngw) {
+        const float* d = dy + (size_t)f * B;
+        const float* x = xh + (size_t)f * B;
+        float a = 0.0f, c = 0.0f;
+        int t = lane;
+        for (; t + 32 * 7 < B; t += 32 * 8) {
+            float dv[8], xv[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                dv[u] = __ldcg(d + t + 32 * u);
+                xv[u] = x[t + 32 * u];
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                a += dv[u];
+                c += dv[u] * xv[u];
+            }
+        }
+        for (; t < B; t += 32) {
+            const float dv = __ldcg(d + t);
+            a += dv;
+            c += dv * x[t];
+        }
+        a = warp_sum(a);
+        c = warp_sum(c);
+        if (lane == 0) {
+            g_shift[f] = a;
+            g_scale[f] = c;
+        }
+    }
+}
+
+// A block's copy of one BN layer's sums (from grad, written by other
+// blocks before the last grid sync) and sqrt(var + eps).
+__device__ __forceinline__ void load_bn(const float* grad, int shift,
+                                        int scale, const float* var, int F,
+                                        float* s1, float* s2, float* sd_s) {
+    for (int f = threadIdx.x; f < F; f += blockDim.x) {
+        s1[f] = __ldcg(grad + shift + f);
+        s2[f] = __ldcg(grad + scale + f);
+        sd_s[f] = sqrtf(var[f] + kEps);
+    }
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(kBwdThreads) fme_train_bwd_kernel(
         const float* __restrict__ flat, const int* __restrict__ cat_all,
         const int* __restrict__ y_all, const int* __restrict__ idx,
         const float* __restrict__ unif, const float* __restrict__ S, int B,
         float p1, float keep1, float p2, float keep2,
         const float* __restrict__ stats, const float* __restrict__ gscale,
-        float* __restrict__ grad, float* __restrict__ Wk) {
+        float* grad, float* Wk) {
+    namespace cg = cooperative_groups;
+    cg::grid_group grid = cg::this_grid();
     __shared__ float w[kFlat];
     __shared__ float s1[kH1], s2[kH1], sd_s[kH1];
+    __shared__ float row[kBwdWarps][kOut + 1];  // a warp's sample row
     for (int e = threadIdx.x; e < kFlat; e += blockDim.x) w[e] = flat[e];
-    const int b = threadIdx.x, lane = b & 31, warp = b >> 5;
-    const int nwarps = blockDim.x >> 5;
-    const bool live = b < B;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int gw = blockIdx.x * kBwdWarps + warp;  // the grid's warp
+    const int ngw = gridDim.x * kBwdWarps;
     const float fB = (float)B;
-    if (b < kH2) sd_s[b] = sqrtf(stats[kSt2 + kH2 + b] + kEps);
+    float* r = row[warp];
+    const bool hi = lane + 32 < kOut;  // lane holds logits lane, lane + 32
     __syncthreads();
-    if (live) {
-        // the mean's transpose, then logsumexp's and the label's
+
+    // 1. per sample: the mean's transpose, then logsumexp's and the
+    // label's (dlogits); d(BN2 out) through Wout^T and the dropout
+    const float c = *gscale / fB;
+    for (int b = gw; b < B; b += ngw) {
         const int y = y_all[idx[b]];
-        const float c = *gscale / fB;
-        float mx = neg_inf();
-        for (int j = 0; j < kOut; ++j) mx = fmaxf(mx, S[(kLogit + j) * B + b]);
+        const float l0 = S[(kLogit + lane) * B + b];
+        const float l1 = hi ? S[(kLogit + lane + 32) * B + b] : neg_inf();
+        float mx = fmaxf(l0, l1);  // max is exact: any order gives it
+        for (int o = 16; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float e0 = expf(l0 - mx);
+        const float e1 = hi ? expf(l1 - mx) : 0.0f;
+        r[lane] = e0;
+        if (hi) r[lane + 32] = e1;
+        __syncwarp();
         float se = 0.0f;
-        for (int j = 0; j < kOut; ++j) se = se + expf(S[(kLogit + j) * B + b] - mx);
+        for (int j = 0; j < kOut; ++j) se = se + r[j];
         const float cs = c / se;
-        float dd2[kH2];
-        for (int k = 0; k < kH2; ++k) dd2[k] = 0.0f;
-        for (int j = 0; j < kOut; ++j) {
-            float dl = cs * expf(S[(kLogit + j) * B + b] - mx);
-            if (j == y) dl = dl - c;
-            Wk[(kDl + j) * B + b] = dl;
-            for (int k = 0; k < kH2; ++k) dd2[k] = dd2[k] + dl * w[kWout + j * kH2 + k];
+        float dl0 = cs * e0, dl1 = cs * e1;
+        if (lane == y) dl0 = dl0 - c;
+        if (lane + 32 == y) dl1 = dl1 - c;
+        Wk[(kDl + lane) * B + b] = dl0;
+        if (hi) Wk[(kDl + lane + 32) * B + b] = dl1;
+        __syncwarp();
+        r[lane] = dl0;
+        if (hi) r[lane + 32] = dl1;
+        __syncwarp();
+        if (lane < kH2) {
+            float dd = 0.0f;
+            for (int j = 0; j < kOut; ++j) dd = dd + r[j] * w[kWout + j * kH2 + lane];
+            const float keep = unif[kUnif * b + kH1 + lane] >= p2 ? 1.0f : 0.0f;
+            Wk[(kDy2 + lane) * B + b] = (dd / keep2) * keep;
         }
-        for (int k = 0; k < kH2; ++k) {
-            const float keep = unif[kUnif * b + kH1 + k] >= p2 ? 1.0f : 0.0f;
-            Wk[(kDy2 + k) * B + b] = (dd2[k] / keep2) * keep;
-        }
+        __syncwarp();
     }
-    __syncthreads();
-    bn_grad(Wk + kDy2 * B, S + kXh2 * B, kH2, B, warp, nwarps, lane, s1, s2,
-            grad + kBn2B, grad + kBn2W);
-    __syncthreads();
-    if (live) {
-        float dz2[kH2];
-        for (int k = 0; k < kH2; ++k) {
+    grid.sync();
+    bn_grad_rows(Wk + kDy2 * B, S + kXh2 * B, kH2, B, gw, ngw, lane,
+                 grad + kBn2B, grad + kBn2W);
+    grid.sync();
+
+    // 2. per sample: BN2's backward with batch statistics, ReLU; d(BN1
+    // out) through W2^T and the dropout
+    load_bn(grad, kBn2B, kBn2W, stats + kSt2 + kH2, kH2, s1, s2, sd_s);
+    for (int b = gw; b < B; b += ngw) {
+        if (lane < kH2) {
+            const int k = lane;
             const float g = w[kBn2W + k];
-            const float dxh = Wk[(kDy2 + k) * B + b] * g;
+            const float dxh = __ldcg(Wk + (kDy2 + k) * B + b) * g;
             const float da = (dxh - (g * s1[k]) / fB
                               - S[(kXh2 + k) * B + b] * ((g * s2[k]) / fB))
                              / sd_s[k];
-            dz2[k] = S[(kA2 + k) * B + b] > 0.0f ? da : 0.0f;
-            Wk[(kDz2 + k) * B + b] = dz2[k];
+            const float dz = S[(kA2 + k) * B + b] > 0.0f ? da : 0.0f;
+            Wk[(kDz2 + k) * B + b] = dz;
+            r[k] = dz;
         }
-        float dd1[kH1];
-        for (int j = 0; j < kH1; ++j) dd1[j] = 0.0f;
-        for (int k = 0; k < kH2; ++k)
-            for (int j = 0; j < kH1; ++j) dd1[j] = dd1[j] + dz2[k] * w[kW2 + k * kH1 + j];
-        for (int j = 0; j < kH1; ++j) {
-            const float keep = unif[kUnif * b + j] >= p1 ? 1.0f : 0.0f;
-            Wk[(kDy1 + j) * B + b] = (dd1[j] / keep1) * keep;
+        __syncwarp();
+        if (lane < kH1) {
+            float dd = 0.0f;
+            for (int k = 0; k < kH2; ++k) dd = dd + r[k] * w[kW2 + k * kH1 + lane];
+            const float keep = unif[kUnif * b + lane] >= p1 ? 1.0f : 0.0f;
+            Wk[(kDy1 + lane) * B + b] = (dd / keep1) * keep;
         }
+        __syncwarp();
     }
-    __syncthreads();
-    if (b < kH1) sd_s[b] = sqrtf(stats[kSt1 + kH1 + b] + kEps);
-    bn_grad(Wk + kDy1 * B, S + kXh1 * B, kH1, B, warp, nwarps, lane, s1, s2,
-            grad + kBn1B, grad + kBn1W);
-    __syncthreads();
-    if (live) {
-        float dz1[kH1];
-        for (int j = 0; j < kH1; ++j) {
+    grid.sync();
+    bn_grad_rows(Wk + kDy1 * B, S + kXh1 * B, kH1, B, gw, ngw, lane,
+                 grad + kBn1B, grad + kBn1W);
+    grid.sync();
+
+    // 3. per sample: BN1's backward, ReLU; d(input row) through W1^T
+    load_bn(grad, kBn1B, kBn1W, stats + kSt1 + kH1, kH1, s1, s2, sd_s);
+    for (int b = gw; b < B; b += ngw) {
+        if (lane < kH1) {
+            const int j = lane;
             const float g = w[kBn1W + j];
-            const float dxh = Wk[(kDy1 + j) * B + b] * g;
+            const float dxh = __ldcg(Wk + (kDy1 + j) * B + b) * g;
             const float da = (dxh - (g * s1[j]) / fB
                               - S[(kXh1 + j) * B + b] * ((g * s2[j]) / fB))
                              / sd_s[j];
-            dz1[j] = S[(kA1 + j) * B + b] > 0.0f ? da : 0.0f;
-            Wk[(kDz1 + j) * B + b] = dz1[j];
+            const float dz = S[(kA1 + j) * B + b] > 0.0f ? da : 0.0f;
+            Wk[(kDz1 + j) * B + b] = dz;
+            r[j] = dz;
         }
-        for (int k = 0; k < kIn; ++k) {
+        __syncwarp();
+        if (lane < kIn) {
             float acc = 0.0f;
-            for (int j = 0; j < kH1; ++j) acc = acc + dz1[j] * w[kW1 + j * kIn + k];
-            Wk[(kDinp + k) * B + b] = acc;
+            for (int j = 0; j < kH1; ++j) acc = acc + r[j] * w[kW1 + j * kIn + lane];
+            Wk[(kDinp + lane) * B + b] = acc;
         }
+        __syncwarp();
     }
-    __syncthreads();
-    // every other gradient: one warp an entry, the batch in a fixed order
-    for (int e = warp; e < kEntries; e += nwarps) {
-        float s = 0.0f;
+    grid.sync();
+
+    // 4. every other gradient: a warp of the grid an entry, the batch in
+    // a fixed order
+    for (int e = gw; e < kEntries; e += ngw) {
+        float s;
         int dst;
         if (e < kEBout) {
-            const float* a = Wk + (kDl + e / kH2) * B;
-            const float* c = S + (kD2 + e % kH2) * B;
-            for (int t = lane; t < B; t += 32) s += a[t] * c[t];
+            s = dot_rows(Wk + (kDl + e / kH2) * B, S + (kD2 + e % kH2) * B, B,
+                         lane);
             dst = kWout + e;
         } else if (e < kEW2) {
-            const float* a = Wk + (kDl + e - kEBout) * B;
-            for (int t = lane; t < B; t += 32) s += a[t];
+            s = dot_rows(Wk + (kDl + e - kEBout) * B, nullptr, B, lane);
             dst = kBout + e - kEBout;
         } else if (e < kEB2) {
             const int q = e - kEW2;
-            const float* a = Wk + (kDz2 + q / kH1) * B;
-            const float* c = S + (kD1 + q % kH1) * B;
-            for (int t = lane; t < B; t += 32) s += a[t] * c[t];
+            s = dot_rows(Wk + (kDz2 + q / kH1) * B, S + (kD1 + q % kH1) * B,
+                         B, lane);
             dst = kW2 + q;
         } else if (e < kEW1) {
-            const float* a = Wk + (kDz2 + e - kEB2) * B;
-            for (int t = lane; t < B; t += 32) s += a[t];
+            s = dot_rows(Wk + (kDz2 + e - kEB2) * B, nullptr, B, lane);
             dst = kB2 + e - kEB2;
         } else if (e < kEB1) {
             const int q = e - kEW1;
-            const float* a = Wk + (kDz1 + q / kIn) * B;
-            const float* c = S + (kInp + q % kIn) * B;
-            for (int t = lane; t < B; t += 32) s += a[t] * c[t];
+            s = dot_rows(Wk + (kDz1 + q / kIn) * B, S + (kInp + q % kIn) * B,
+                         B, lane);
             dst = kW1 + q;
         } else if (e < kEBnIn) {
-            const float* a = Wk + (kDz1 + e - kEB1) * B;
-            for (int t = lane; t < B; t += 32) s += a[t];
+            s = dot_rows(Wk + (kDz1 + e - kEB1) * B, nullptr, B, lane);
             dst = kB1 + e - kEB1;
         } else if (e < kEEmb) {
             const int k = e - kEBnIn;
-            const float* a = Wk + (kDinp + 8 + k) * B;
-            const float* c = S + (kXin + k) * B;
-            for (int t = lane; t < B; t += 32) s += a[t] * c[t];
+            s = dot_rows(Wk + (kDinp + 8 + k) * B, S + (kXin + k) * B, B,
+                         lane);
             dst = kBnIn + k;
         } else {
             // emb0 rows 0-7 then emb1 rows 0-7, 4 columns each: the rows
             // of the samples whose category is that row
-            const int q = e - kEEmb, tab = q / 32, r = (q % 32) / 4, col = q % 4;
+            const int q = e - kEEmb, tab = q / 32, rr = (q % 32) / 4,
+                      col = q % 4;
             const float* a = Wk + (kDinp + 4 * tab + col) * B;
+            s = 0.0f;
             for (int t = lane; t < B; t += 32)
-                if (cat_all[2 * idx[t] + tab] == r) s += a[t];
+                if (cat_all[2 * idx[t] + tab] == rr) s += __ldcg(a + t);
+            s = warp_sum(s);
             dst = kEmb0 + q;  // emb1 follows emb0 in the flat layout
         }
-        s = warp_sum(s);
         if (lane == 0) grad[dst] = s;
     }
 }
@@ -398,18 +486,24 @@ __global__ void __launch_bounds__(kMaxThreads) fme_train_bwd_kernel(
 constexpr float kAdamB1 = (float)0.9, kAdamOmB1 = (float)(1.0 - 0.9),
                 kAdamB2 = (float)0.999, kAdamOmB2 = (float)(1.0 - 0.999),
                 kAdamEps = (float)1e-8;
+constexpr int kAdamThreads = 256;
 
-__global__ void __launch_bounds__(kMaxThreads) fme_adam_kernel(
+// One element a thread over ceil(n / 256) blocks. Every block reads the
+// count before it takes a ticket; the block that takes the last ticket
+// (so every block has read the count) writes count + 1 and resets the
+// ticket for the next launch.
+__global__ void __launch_bounds__(kAdamThreads) fme_adam_kernel(
         float* __restrict__ p, const float* __restrict__ g,
-        float* __restrict__ m, float* __restrict__ v, int* __restrict__ count,
-        int n, float neg_lr) {
+        float* __restrict__ m, float* __restrict__ v, int* count,
+        unsigned* ticket, int n, float neg_lr) {
     __shared__ int c_s;
     if (threadIdx.x == 0) c_s = *count + 1;
     __syncthreads();
     const int c = c_s;
-    const float bc1 = 1.0f - powf(kAdamB1, (float)c);
-    const float bc2 = 1.0f - powf(kAdamB2, (float)c);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int i = blockIdx.x * kAdamThreads + threadIdx.x;
+    if (i < n) {
+        const float bc1 = 1.0f - powf(kAdamB1, (float)c);
+        const float bc2 = 1.0f - powf(kAdamB2, (float)c);
         const float gi = g[i];
         const float mi = kAdamOmB1 * gi + kAdamB1 * m[i];
         const float vi = kAdamOmB2 * (gi * gi) + kAdamB2 * v[i];
@@ -418,7 +512,39 @@ __global__ void __launch_bounds__(kMaxThreads) fme_adam_kernel(
         m[i] = mi;
         v[i] = vi;
     }
-    if (threadIdx.x == 0) *count = c;
+    if (threadIdx.x == 0) {
+        __threadfence();
+        if (atomicAdd(ticket, 1u) == gridDim.x - 1) {
+            *count = c;
+            *ticket = 0u;
+        }
+    }
+}
+
+// The backward's grid on the current device: as many blocks as the
+// gradient pass has warps' work for, at most what can be resident at
+// once (a cooperative launch's limit). Cached per device.
+cudaError_t bwd_grid(int* grid) {
+    static int cached[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 64 && cached[dev] > 0) {
+        *grid = cached[dev];
+        return cudaSuccess;
+    }
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fme_train_bwd_kernel, kBwdThreads, 0);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return err;
+    const int g = per_sm * sms < kBwdGridMax ? per_sm * sms : kBwdGridMax;
+    if (g < 1) return cudaErrorCooperativeLaunchTooLarge;
+    if (dev < 64) cached[dev] = g;
+    *grid = g;
+    return cudaSuccess;
 }
 
 int block_for(int B) { return ((B + 31) / 32) * 32; }
@@ -445,7 +571,8 @@ extern "C" int tpuhevc_fme_train_fwd(const float* flat, const float* state,
 }
 
 // The forward's saved (202 B,) and stats (102,), the upstream gradient
-// gscale (1,) -> grad (2042,); work (150 B,) is scratch.
+// gscale (1,) -> grad (2042,); work (150 B,) is scratch. One cooperative
+// launch on bwd_grid's grid.
 extern "C" int tpuhevc_fme_train_bwd(const float* flat, const int* cat,
                                      const int* y, const int* idx,
                                      const float* unif, const float* saved,
@@ -454,18 +581,37 @@ extern "C" int tpuhevc_fme_train_bwd(const float* flat, const int* cat,
                                      const float* gscale, float* grad,
                                      float* work, void* stream) {
     if (B < 1 || B > kMaxThreads) return (int)cudaErrorInvalidValue;
-    fme_train_bwd_kernel<<<1, block_for(B), 0, (cudaStream_t)stream>>>(
-        flat, cat, y, idx, unif, saved, B, p1, keep1, p2, keep2, stats,
-        gscale, grad, work);
+    int grid = 0;
+    cudaError_t err = bwd_grid(&grid);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {(void*)&flat, (void*)&cat, (void*)&y, (void*)&idx,
+                    (void*)&unif, (void*)&saved, (void*)&B, (void*)&p1,
+                    (void*)&keep1, (void*)&p2, (void*)&keep2, (void*)&stats,
+                    (void*)&gscale, (void*)&grad, (void*)&work};
+    err = cudaLaunchCooperativeKernel((const void*)fme_train_bwd_kernel,
+                                      dim3(grid), dim3(kBwdThreads), args, 0,
+                                      (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
-// In place on p, m, v (n,) and count (1,) int32, with g (n,); neg_lr is
-// float32(-lr).
+// The backward's launch geometry on the current device: blocks, threads
+// a block, and 1 (a cooperative launch).
+extern "C" int tpuhevc_fme_train_bwd_geometry(int* grid, int* block,
+                                              int* cooperative) {
+    *block = kBwdThreads;
+    *cooperative = 1;
+    return (int)bwd_grid(grid);
+}
+
+// In place on p, m, v (n,) and count (1,) int32, with g (n,); ticket (1,)
+// is zero between launches; neg_lr is float32(-lr).
 extern "C" int tpuhevc_fme_adam(float* p, const float* g, float* m, float* v,
-                                int* count, int n, float neg_lr,
-                                void* stream) {
-    fme_adam_kernel<<<1, kMaxThreads, 0, (cudaStream_t)stream>>>(
-        p, g, m, v, count, n, neg_lr);
+                                int* count, unsigned* ticket, int n,
+                                float neg_lr, void* stream) {
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    fme_adam_kernel<<<(n + kAdamThreads - 1) / kAdamThreads, kAdamThreads, 0,
+                      (cudaStream_t)stream>>>(p, g, m, v, count, ticket, n,
+                                              neg_lr);
     return (int)cudaGetLastError();
 }

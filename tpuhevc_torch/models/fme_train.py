@@ -6,11 +6,11 @@ It consumes numpy's `default_rng(cfg.seed)` exactly as the reference does
 weights, one permutation an epoch, a short last batch padded from the
 epoch's order), so the initial weights and the batch order equal JAX's.
 The dataset is uploaded once; each epoch's batch indices go up in one
-copy; each step calls kernels `fme_train_fwd`, `fme_train_bwd` and
-`fme_adam` directly (the pair that `ops.fme_train.FmeTrainLoss` ties
-together for autograd, without the autograd engine's host work a step),
-the Adam step count on the device; the losses stay there (fetched once,
-at the end, for `history`).
+copy; each step (`train_step`) calls kernels `fme_train_fwd`,
+`fme_train_bwd` and `fme_adam` directly (the pair that
+`ops.fme_train.FmeTrainLoss` ties together for autograd, without the
+autograd engine's host work a step), the Adam step count on the device;
+the losses stay there (fetched once, at the end, for `history`).
 
 Divergence: the dropout masks come from a `torch.Generator` on the
 device seeded from cfg.seed, not JAX's threefry keys, so the two runs
@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from ..device import on_device, resolve
-from ..ops.fme_train import (UNIF_COLS, AdamState, FmeData, fme_adam,
-                             fme_train_bwd, fme_train_fwd)
+from ..ops.fme_train import (UNIF_COLS, AdamState, FmeData, FwdOut,
+                             fme_adam, fme_train_bwd, fme_train_fwd)
 from .nnfme import (NNFMETrain, TrainConfig, export_inference_params,
                     forward_np, height_category_np, init_bn_state,
                     init_train_params, width_category_np)
@@ -60,6 +60,20 @@ def prepare(samples: np.ndarray, cfg: TrainConfig):
     return rng_np, tr, va, mean, std, xs, init_train_params(rng_np)
 
 
+def train_step(flat, state, data: FmeData, idx, unif, opt: AdamState,
+               cfg: TrainConfig, one) -> FwdOut:
+    """One step of train_fme in place on flat and opt: the forward on the
+    batch rows idx with the dropout uniforms unif, the gradient of the
+    mean loss (one: a 0-dim 1.0 on flat's device), the Adam update.
+    Returns the forward's out (loss, new running statistics)."""
+    out = fme_train_fwd(flat, state, data, idx, unif, cfg.dropouts,
+                        cfg.bn_momentum)
+    g = fme_train_bwd(flat, data, idx, unif, cfg.dropouts, out.saved,
+                      out.stats, one)
+    fme_adam(flat, g, opt, cfg.lr)
+    return out
+
+
 def train_fme(samples: np.ndarray, labels: np.ndarray, heights: np.ndarray,
               widths: np.ndarray, cfg: TrainConfig | None = None,
               device="cuda", history: list | None = None):
@@ -87,12 +101,8 @@ def train_fme(samples: np.ndarray, labels: np.ndarray, heights: np.ndarray,
             unif = torch.rand((len(rows), bs, UNIF_COLS), generator=gen,
                               device=dev)
             for s in range(len(rows)):
-                batch = (data, rows_d[s], unif[s], cfg.dropouts)
-                out = fme_train_fwd(model.flat, state, *batch,
-                                    cfg.bn_momentum)
-                g = fme_train_bwd(model.flat, *batch, out.saved, out.stats,
-                                  one)
-                fme_adam(model.flat, g, opt, cfg.lr)
+                out = train_step(model.flat, state, data, rows_d[s], unif[s],
+                                 opt, cfg, one)
                 state = out.state
                 losses.append(out.loss)
         model.state.copy_(state)

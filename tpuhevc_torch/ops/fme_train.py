@@ -18,6 +18,9 @@ and the `optax.adam(lr)` update (352, 366-368).
   `kernels.LAUNCHES`.
 - `FmeTrainLoss`: a `torch.autograd.Function` whose forward is
   `fme_train_fwd` and whose backward is `fme_train_bwd`.
+- On the card `fme_train_bwd` and `fme_adam` check and bind the tensors
+  that stay from step to step once (kept in the `FmeData` and the
+  `AdamState`) and check only a step's own tensors on each call.
 
 Layouts: the trained arrays flat (`models.nnfme.TRAIN_KEYS`, 2042 floats),
 the running statistics flat (`STATE_KEYS`, 102), a batch as int32 row
@@ -28,12 +31,13 @@ the one after BN2, kept where u >= p (as JAX's `uniform >= p`).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import ctypes
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_tensor, on_device
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 from ..models.nnfme import (N_STATE, N_TRAIN, STATE_SHAPES, TRAIN_SHAPES,
@@ -42,7 +46,7 @@ from ..models.nnfme import (N_STATE, N_TRAIN, STATE_SHAPES, TRAIN_SHAPES,
 UNIF_COLS = 42  # dropout uniforms a sample: 22 after BN1, 20 after BN2
 SAVED_ROWS = 202  # the forward's saved rows a sample (fme_train.cu kSaved)
 WORK_ROWS = 150  # the backward's scratch rows a sample (kWork)
-MAX_BATCH = 1024  # one thread a sample, one block
+MAX_BATCH = 1024  # the forward: one thread a sample, one block
 
 
 @dataclass
@@ -53,6 +57,8 @@ class FmeData:
     x: torch.Tensor
     cat: torch.Tensor
     y: torch.Tensor
+    launch: "_BwdLaunch | None" = field(default=None, repr=False,
+                                        compare=False)
 
     @classmethod
     def from_numpy(cls, xs, hcat, wcat, labels, device) -> "FmeData":
@@ -75,15 +81,20 @@ class FwdOut:
 @dataclass
 class AdamState:
     """optax's ScaleByAdamState over the flat parameters; the step count
-    lives on the device (no host sync a step)."""
+    lives on the device (no host sync a step). `ticket` is the kernel's
+    count of its blocks done, zero between launches."""
     m: torch.Tensor
     v: torch.Tensor
     count: torch.Tensor  # () int32
+    ticket: torch.Tensor  # () int32
+    launch: "_AdamLaunch | None" = field(default=None, repr=False,
+                                         compare=False)
 
     @classmethod
     def zeros(cls, n: int, device) -> "AdamState":
         return cls(torch.zeros(n, device=device),
                    torch.zeros(n, device=device),
+                   torch.zeros((), dtype=torch.int32, device=device),
                    torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -160,27 +171,43 @@ def fme_adam_plain(flat, grad, opt: AdamState, lr) -> None:
         opt.v.copy_(v)
 
 
-def _check_step(flat, data: FmeData, idx, unif, dev):
+def _check_model(flat, data: FmeData, dev):
+    """The tensors that stay from step to step."""
     check_tensor(flat, "flat", torch.float32, 1, dev)
     check_tensor(data.x, "data.x", torch.float32, 2, dev)
     check_tensor(data.cat, "data.cat", torch.int32, 2, dev)
     check_tensor(data.y, "data.y", torch.int32, 1, dev)
+    n = data.x.shape[0]
+    if (flat.shape[0] != N_TRAIN or data.x.shape[1] != 9
+            or tuple(data.cat.shape) != (n, 2) or data.y.shape[0] != n):
+        raise ValueError(f"fme_train: flat {tuple(flat.shape)}, data "
+                         f"{tuple(data.x.shape)}")
+
+
+def _check_batch(idx, unif, dev) -> int:
+    """A step's batch rows and dropout uniforms; returns the batch size."""
     check_tensor(idx, "idx", torch.int32, 1, dev)
     check_tensor(unif, "unif", torch.float32, 2, dev)
-    n, b = data.x.shape[0], idx.shape[0]
-    if (flat.shape[0] != N_TRAIN or data.x.shape[1] != 9
-            or tuple(data.cat.shape) != (n, 2) or data.y.shape[0] != n
-            or tuple(unif.shape) != (b, UNIF_COLS)
-            or not 1 <= b <= MAX_BATCH):
-        raise ValueError(f"fme_train: flat {tuple(flat.shape)}, data "
-                         f"{tuple(data.x.shape)}, idx {b}, unif "
-                         f"{tuple(unif.shape)}")
+    b = idx.shape[0]
+    if tuple(unif.shape) != (b, UNIF_COLS) or not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"fme_train: idx {b}, unif {tuple(unif.shape)}")
+    return b
 
 
-def _drop_args(dropouts):
+def _drop_args(dropouts) -> tuple:
     p1, p2 = (float(np.float32(p)) for p in dropouts)
-    return [p1, float(np.float32(1 - dropouts[0])), p2,
-            float(np.float32(1 - dropouts[1]))]
+    return (p1, float(np.float32(1 - dropouts[0])), p2,
+            float(np.float32(1 - dropouts[1])))
+
+
+def _stream(dev: torch.device) -> int:
+    """The current CUDA stream of dev, as the handle the kernels take."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+_BWD_ARGS = ([kbuild.P] * 5 + [kbuild.P, kbuild.I] + [kbuild.F] * 4
+             + [kbuild.P] * 5)
+_ADAM_ARGS = [kbuild.P] * 6 + [kbuild.I, kbuild.F, kbuild.P]
 
 
 def fme_train_fwd(flat, state, data: FmeData, idx, unif, dropouts=(0.001, 0.01),
@@ -196,11 +223,11 @@ def fme_train_fwd(flat, state, data: FmeData, idx, unif, dropouts=(0.001, 0.01),
     if flat.device.type != "cuda":
         raise ValueError(f"fme_train_fwd: unsupported device {flat.device}")
     dev = flat.device
-    _check_step(flat, data, idx, unif, dev)
+    _check_model(flat, data, dev)
+    b = _check_batch(idx, unif, dev)
     check_tensor(state, "state", torch.float32, 1, dev)
     if state.shape[0] != N_STATE:
         raise ValueError(f"fme_train_fwd: state {tuple(state.shape)}")
-    b = idx.shape[0]
     logits = torch.empty((b, 49), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     stats = torch.empty(N_STATE, dtype=torch.float32, device=dev)
@@ -221,66 +248,127 @@ def fme_train_fwd(flat, state, data: FmeData, idx, unif, dropouts=(0.001, 0.01),
     return FwdOut(logits, loss, stats, new, saved)
 
 
+class _BwdLaunch:
+    """fme_train_bwd bound to (flat, data, dropouts): those tensors checked,
+    the function, the dropout constants and their pointers taken once;
+    kept in data while the same flat and data tensors (by identity) and
+    dropouts come back."""
+
+    def __init__(self, flat, data: FmeData, dropouts):
+        dev = flat.device
+        _check_model(flat, data, dev)
+        self.key = (flat, data.x, data.cat, data.y, tuple(dropouts))
+        self.dev = dev
+        self.fn = kbuild.function("fme_train", "tpuhevc_fme_train_bwd",
+                                  _BWD_ARGS)
+        self.head = (flat.data_ptr(), data.cat.data_ptr(), data.y.data_ptr())
+        self.drop = _drop_args(dropouts)
+
+    def serves(self, flat, data: FmeData, dropouts) -> bool:
+        return (all(a is b for a, b in zip(self.key, (
+            flat, data.x, data.cat, data.y)))
+            and self.key[-1] == tuple(dropouts))
+
+    def __call__(self, idx, unif, saved, stats, gloss) -> torch.Tensor:
+        dev = self.dev
+        b = _check_batch(idx, unif, dev)
+        check_tensor(saved, "saved", torch.float32, 1, dev)
+        check_tensor(stats, "stats", torch.float32, 1, dev)
+        check_tensor(gloss, "gloss", torch.float32, 0, dev)
+        if saved.shape[0] != SAVED_ROWS * b or stats.shape[0] != N_STATE:
+            raise ValueError(f"fme_train_bwd: saved {tuple(saved.shape)}, "
+                             f"stats {tuple(stats.shape)} for a batch of {b}")
+        grad = torch.empty(N_TRAIN, dtype=torch.float32, device=dev)
+        work = torch.empty(WORK_ROWS * b, dtype=torch.float32, device=dev)
+        err = self.fn(*self.head, idx.data_ptr(), unif.data_ptr(),
+                      saved.data_ptr(), b, *self.drop, stats.data_ptr(),
+                      gloss.data_ptr(), grad.data_ptr(), work.data_ptr(),
+                      _stream(dev))
+        kbuild.check(err, "fme_train_bwd")
+        LAUNCHES["fme_train_bwd"] += 1
+        return grad
+
+
 def fme_train_bwd(flat, data: FmeData, idx, unif, dropouts, saved, stats,
                   gloss) -> torch.Tensor:
     """Kernel `fme_train_bwd`: the gradient (2042,) of gloss (a 0-dim
     tensor) times the mean loss, from the forward's saved activations and
-    batch statistics; every sum over the batch in a fixed order, no
-    atomics (two runs give the same bits). CPU tensors take the plain
-    version (autograd of the plain forward)."""
+    batch statistics; one cooperative launch over the card, every sum over
+    the batch one warp's in a fixed order, no atomics (two runs give the
+    same bits). flat and data are checked and bound on the first call for
+    these tensors and dropouts, and kept in data. CPU tensors take the
+    plain version (autograd of the plain forward)."""
     if flat.device.type == "cpu":
         return fme_train_bwd_plain(flat, data, idx, unif, dropouts, gloss)
     if flat.device.type != "cuda":
         raise ValueError(f"fme_train_bwd: unsupported device {flat.device}")
-    dev = flat.device
-    _check_step(flat, data, idx, unif, dev)
-    b = idx.shape[0]
-    check_tensor(saved, "saved", torch.float32, 1, dev)
-    check_tensor(stats, "stats", torch.float32, 1, dev)
-    gloss = gloss.reshape(()).contiguous()
-    check_tensor(gloss, "gloss", torch.float32, 0, dev)
-    if saved.shape[0] != SAVED_ROWS * b or stats.shape[0] != N_STATE:
-        raise ValueError(f"fme_train_bwd: saved {tuple(saved.shape)}, stats "
-                         f"{tuple(stats.shape)} for a batch of {b}")
-    grad = torch.empty(N_TRAIN, dtype=torch.float32, device=dev)
-    work = torch.empty(WORK_ROWS * b, dtype=torch.float32, device=dev)
-    fn = kbuild.function("fme_train", "tpuhevc_fme_train_bwd",
-                         [kbuild.P] * 5 + [kbuild.P, kbuild.I] + [kbuild.F] * 4
-                         + [kbuild.P] * 5)
-    err = fn(flat.data_ptr(), data.cat.data_ptr(), data.y.data_ptr(),
-             idx.data_ptr(), unif.data_ptr(), saved.data_ptr(), b,
-             *_drop_args(dropouts), stats.data_ptr(), gloss.data_ptr(),
-             grad.data_ptr(), work.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(err, "fme_train_bwd")
-    LAUNCHES["fme_train_bwd"] += 1
-    return grad
+    if data.launch is None or not data.launch.serves(flat, data, dropouts):
+        data.launch = _BwdLaunch(flat, data, dropouts)
+    return data.launch(idx, unif, saved, stats,
+                       gloss.reshape(()).contiguous())
+
+
+def bwd_geometry(dev) -> dict:
+    """The backward's launch on dev: {grid, block, cooperative}."""
+    fn = kbuild.function("fme_train", "tpuhevc_fme_train_bwd_geometry",
+                         [kbuild.P] * 3)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with on_device(dev):
+        kbuild.check(fn(*(ctypes.byref(o) for o in out)), "fme_train_bwd")
+    return dict(zip(("grid", "block", "cooperative"), (o.value for o in out)))
+
+
+def _check_vec(t, name, n, dev) -> None:
+    check_tensor(t, name, torch.float32, 1, dev)
+    if t.shape[0] != n:
+        raise ValueError(f"fme_adam: {name} {tuple(t.shape)}, expected ({n},)")
+
+
+class _AdamLaunch:
+    """fme_adam bound to (flat, opt, lr): those tensors checked, the
+    function, float32(-lr) and the pointers taken once; kept in opt while
+    the same tensors (by identity) and lr come back. The gradient is a
+    step's own, checked on each call."""
+
+    def __init__(self, flat, opt: AdamState, lr):
+        dev = flat.device
+        self.n = n = flat.shape[0]
+        for t, name in ((flat, "flat"), (opt.m, "m"), (opt.v, "v")):
+            _check_vec(t, name, n, dev)
+        check_tensor(opt.count, "count", torch.int32, 0, dev)
+        check_tensor(opt.ticket, "ticket", torch.int32, 0, dev)
+        self.key = (flat, opt.m, opt.v, opt.count, opt.ticket, lr)
+        self.dev = dev
+        self.fn = kbuild.function("fme_train", "tpuhevc_fme_adam", _ADAM_ARGS)
+        self.head = (flat.data_ptr(),)
+        self.tail = (opt.m.data_ptr(), opt.v.data_ptr(),
+                     opt.count.data_ptr(), opt.ticket.data_ptr(), n,
+                     float(np.float32(-lr)))
+
+    def serves(self, flat, opt: AdamState, lr) -> bool:
+        return (all(a is b for a, b in zip(self.key, (
+            flat, opt.m, opt.v, opt.count, opt.ticket)))
+            and self.key[-1] == lr)
+
+    def __call__(self, grad) -> None:
+        _check_vec(grad, "grad", self.n, self.dev)
+        kbuild.check(self.fn(*self.head, grad.data_ptr(), *self.tail,
+                             _stream(self.dev)), "fme_adam")
+        LAUNCHES["fme_adam"] += 1
 
 
 def fme_adam(flat, grad, opt: AdamState, lr) -> None:
     """Kernel `fme_adam`: optax.adam(lr) in place on flat, opt.m, opt.v
-    and opt.count. CPU tensors take the plain version."""
+    and opt.count. flat and opt are checked and bound on the first call
+    for these tensors and lr, and kept in opt; grad is checked on every
+    call. CPU tensors take the plain version."""
     if flat.device.type == "cpu":
         return fme_adam_plain(flat, grad, opt, lr)
     if flat.device.type != "cuda":
         raise ValueError(f"fme_adam: unsupported device {flat.device}")
-    dev = flat.device
-    n = flat.shape[0]
-    for t, name in ((flat, "flat"), (grad, "grad"), (opt.m, "m"),
-                    (opt.v, "v")):
-        check_tensor(t, name, torch.float32, 1, dev)
-        if t.shape[0] != n:
-            raise ValueError(f"fme_adam: {name} {tuple(t.shape)}, expected "
-                             f"({n},)")
-    check_tensor(opt.count, "count", torch.int32, 0, dev)
-    fn = kbuild.function("fme_train", "tpuhevc_fme_adam",
-                         [kbuild.P] * 5 + [kbuild.I, kbuild.F, kbuild.P])
-    err = fn(flat.data_ptr(), grad.data_ptr(), opt.m.data_ptr(),
-             opt.v.data_ptr(), opt.count.data_ptr(), n,
-             _adam_consts(lr)["neg_lr"],
-             torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(err, "fme_adam")
-    LAUNCHES["fme_adam"] += 1
+    if opt.launch is None or not opt.launch.serves(flat, opt, lr):
+        opt.launch = _AdamLaunch(flat, opt, lr)
+    opt.launch(grad)
 
 
 class FmeTrainLoss(torch.autograd.Function):

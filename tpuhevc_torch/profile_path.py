@@ -5,6 +5,7 @@
     python -m tpuhevc_torch.profile_path --path bench
     python -m tpuhevc_torch.profile_path --path intra8 --frames 8
     python -m tpuhevc_torch.profile_path --path step --reps 20
+    python -m tpuhevc_torch.profile_path --path train
 
 Encodes the synthetic clip of `tools/make_test_clip.py` (seed 7) through
 `codec.encoder.encode_sequence` with one of the repository's cfgs: `ra`
@@ -40,6 +41,17 @@ granted: frame 4 of the clip against frames 3..0 as its four references
 seed and collocated field of the step's first picture. One call warms
 up, then `reps` calls (default 20) are timed with CUDA events; prints
 their median and the median host time of a call.
+
+`train` is NN-FME training as `chip_smoke.py`'s path 8 runs it: the
+dataset extracted from `make_clip(416, 240, 17)` at QP 32, SearchRange
+16, then `models.fme_train.train_fme` at the full `TrainConfig` (1,000
+steps of 1,024). One run warms up, `reps` more are timed on the host
+clock, and one runs under `torch.profiler`: the device's busy and idle
+share over the run and each kernel's device time summed over it. Then
+each train-step kernel's `device_ms` (`device_ms`: CUDA events around
+200 back-to-back launches queued behind a device sleep, over 200) at
+B = 1,024 on the run's first batch. `chip_smoke.py` takes its path 8
+data from `fme_dataset` and `train_inputs` here.
 """
 
 from __future__ import annotations
@@ -65,6 +77,12 @@ CFGS = {
 BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
 INTRA8_BATCH = 4  # intra8: pictures a launch, as chip_smoke.py runs it
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# train: path 8's extraction (416x240 x 17 at QP 32, SearchRange 16), the
+# steps chip_smoke.py holds against the plain versions, the launches a
+# device_ms
+TRAIN_W, TRAIN_H, TRAIN_FRAMES, TRAIN_QP, TRAIN_SR = 416, 240, 17, 32, 16
+TRAIN_STEPS_CHECKED, DEVICE_LAUNCHES = 20, 200
+SLEEP_CYCLES = 100_000_000  # ~50-60 ms at the H100's clocks
 
 
 class _Clip:
@@ -130,6 +148,136 @@ def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
           f"host ms median {float(np.median(host)):.3f} | {gpu}", flush=True)
 
 
+def device_ms(fn, n: int = DEVICE_LAUNCHES, warmup: int = 5) -> float:
+    """A launch's device time: CUDA events around n back-to-back calls of
+    fn, over n, after a warm-up. The calls queue behind a device sleep, so
+    the host's time to issue them is hidden and the events time the
+    device; raises if issuing them took longer than the sleep."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    b.record()
+    b.synchronize()
+    if host >= s0.elapsed_time(a):
+        raise RuntimeError(f"device_ms: issuing {n} calls took {host:.1f} ms, "
+                           f"longer than the {s0.elapsed_time(a):.1f} ms sleep")
+    return a.elapsed_time(b) / n
+
+
+def fme_dataset():
+    """Path 8's extraction, on the host: (sads, heights, widths, labels,
+    seconds)."""
+    from .models.fme_data import extract
+
+    frames = _Clip(TRAIN_W, TRAIN_H, TRAIN_FRAMES).frames
+    t0 = time.time()
+    sads, dims, labels = extract(frames, TRAIN_QP, TRAIN_SR)
+    secs = time.time() - t0
+    return (sads.astype(np.float32), dims[:, 1], dims[:, 0], labels, secs)
+
+
+def train_inputs(dev, ds, steps: int = TRAIN_STEPS_CHECKED) -> dict:
+    """train_fme's start on dev: the data (normalised as train_fme does),
+    the initial weights and state, `steps` batches (the first epochs'
+    order) and their dropout uniforms."""
+    from .models.fme_train import epoch_batches, prepare
+    from .models.nnfme import (STATE_SHAPES, TRAIN_SHAPES, TrainConfig,
+                               flatten_np, height_category_np, init_bn_state,
+                               width_category_np)
+    from .ops import fme_train as ft
+
+    sads, heights, widths, labels, _ = ds
+    cfg = TrainConfig()
+    rng, tr, _, _, _, xs, params = prepare(sads, cfg)
+    rows = []
+    while len(rows) < steps:
+        rows += list(epoch_batches(tr, rng.permutation(len(tr)),
+                                   cfg.batch_size))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    return dict(
+        cfg=cfg,
+        flat=torch.as_tensor(flatten_np(params, TRAIN_SHAPES), device=dev),
+        state=torch.as_tensor(flatten_np(init_bn_state(), STATE_SHAPES),
+                              device=dev),
+        data=ft.FmeData.from_numpy(xs, height_category_np(heights),
+                                   width_category_np(widths), labels, dev),
+        rows=torch.as_tensor(np.stack(rows[:steps]), device=dev),
+        unif=torch.rand((steps, cfg.batch_size, ft.UNIF_COLS), generator=gen,
+                        device=dev))
+
+
+def profile_train(args, dev, gpu: str) -> None:
+    """`train`: train_fme timed and profiled, and the kernels' device_ms."""
+    from .models.fme_train import train_fme
+    from .models.nnfme import TrainConfig
+    from .ops import fme_train as ft
+
+    ds = fme_dataset()
+    sads, heights, widths, labels, ext = ds
+    print(f"train: extracted {len(labels)} samples ({TRAIN_W}x{TRAIN_H} x "
+          f"{TRAIN_FRAMES}, QP {TRAIN_QP}, SR {TRAIN_SR}) in {ext:.3f} s of "
+          f"host", flush=True)
+    cfg = TrainConfig()
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = []
+        train_fme(sads, labels, heights, widths, cfg, device=dev,
+                  history=hist)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, hist
+
+    run()
+    secs = [run()[0] for _ in range(args.reps or 3)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall, hist = run()
+    stats = prof.key_averages()
+    dev_us = {e.key: (e.self_device_time_total, e.count) for e in stats
+              if e.self_device_time_total > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA}
+    busy = sum(us for us, _ in dev_us.values()) / 1e6
+    print(f"train: train_fme {cfg.epochs} epochs of batch {cfg.batch_size}, "
+          f"warm runs {[round(x, 4) for x in secs]} s; profiled run "
+          f"{wall:.4f} s: device busy {busy * 1e3:.3f} ms, idle "
+          f"{100 * (1 - busy / wall):.2f}% | epoch loss {hist[0]:.4f} -> "
+          f"{hist[-1]:.4f} | {gpu}", flush=True)
+    for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  device {us / 1e3:9.3f} ms  calls {n:5d}  "
+              f"{us / max(n, 1):8.3f} us a call  {key[:90]}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+
+    t = train_inputs(dev, ds)
+    one = torch.ones((), device=dev)
+    a = (t["data"], t["rows"][0], t["unif"][0], cfg.dropouts)
+    out = ft.fme_train_fwd(t["flat"], t["state"], *a, cfg.bn_momentum)
+    g = ft.fme_train_bwd(t["flat"], *a, out.saved, out.stats, one)
+    flat, opt = t["flat"].clone(), ft.AdamState.zeros(g.shape[0], dev)
+    ms = {"fme_train_fwd": device_ms(lambda: ft.fme_train_fwd(
+              t["flat"], t["state"], *a, cfg.bn_momentum)),
+          "fme_train_bwd": device_ms(lambda: ft.fme_train_bwd(
+              t["flat"], *a, out.saved, out.stats, one)),
+          "fme_adam": device_ms(lambda: ft.fme_adam(flat, g, opt, cfg.lr))}
+    print(f"train: device_ms at B {cfg.batch_size} (events around "
+          f"{DEVICE_LAUNCHES} launches): "
+          f"{ {k: round(v, 5) for k, v in ms.items()} }; the backward's "
+          f"launch {ft.bwd_geometry(dev)} | {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     from .codec.encoder import encode_sequence
     from .config.options import build_config, parse_args
@@ -137,7 +285,7 @@ def main(argv=None) -> int:
     from .models.nnfme import random_params, save_npz
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=sorted(CFGS), default="ra")
+    ap.add_argument("--path", choices=sorted(CFGS) + ["train"], default="ra")
     ap.add_argument("--width", type=int, default=416)
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--frames", type=int, default=None,
@@ -152,6 +300,9 @@ def main(argv=None) -> int:
     reps = args.reps or (BENCH_REPS if bench else 3)
     dev = require_cuda()
     gpu = gpu_line()
+    if args.path == "train":
+        profile_train(args, dev, gpu)
+        return 0
     clip = _Clip(args.width, args.height, frames)
     cfg_file, extra = CFGS[args.path]
     if args.path == "step":
