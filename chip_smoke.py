@@ -17,11 +17,16 @@
    with RDOQ and sign hiding, grid_intra16, grid_deblock, grid_sao) at
    every call of one 416x240 P picture of the anchor LD-P cfg as shipped
    (four references, TMVP candidates), captured from the port's grid
-   step, and grid_code again at every call of the same picture with the
-   tools cut (the flat quantiser); grid_subpel, grid_wp_me, grid_stats and
-   the weighted grid_planes at every call of one 416x240 P picture of the
-   anchor cfg with FmeMode dctif, WeightedPredP 1, the checksum hash and
-   no recon fetch, on the fade clip (some weights not the identity);
+   step (grid_code's calls under sync debug mode "error": lambda and the
+   cbf bits are read on the card, so no call syncs the stream; their
+   device time a picture by events around 20 pictures' calls queued
+   behind a device sleep; a grid_code call codes a class coding's planes
+   in one launch), and grid_code again at every call of the same picture
+   with the tools cut (the flat quantiser); grid_subpel, grid_wp_me,
+   grid_stats and the weighted grid_planes at every call of one 416x240 P
+   picture of the anchor cfg with FmeMode dctif, WeightedPredP 1, the
+   checksum hash and no recon fetch, on the fade clip (some weights not
+   the identity);
    intra_wave (fixed-8x8 intra of whole pictures) on 3 frames of the
    416x240 clip at QP 32 and at the graft entry's shape (192x128, QP 32,
    planes from np.random.default_rng(0)), all seven outputs.
@@ -118,9 +123,10 @@
    `tpuhevc_torch/profile_path.py`'s `fme_dataset`, `train_inputs`); each train-step
    kernel (and torch._fused_adam_ beside fme_adam) also timed by its
    device_ms (events around 200 launches queued behind a device sleep,
-   over 200) and the backward's launch geometry printed (and, after the
-   build, every source's ptxas report: entry function, registers,
-   spills).
+   over 200; the forward and the backward as train_step calls them,
+   into their bindings' buffers) and the forward's and the backward's
+   launch geometry printed (and, after the build, every source's ptxas
+   report: entry function, registers, spills).
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -167,7 +173,8 @@ from tpuhevc_torch.models.nnfme import (  # noqa: E402
     random_params, save_npz, width_category)
 from tpuhevc_torch.ops import fme_train as ft  # noqa: E402
 from tpuhevc_torch.ops.cost import satd35_topk, satd35_topk_plain  # noqa: E402
-from tpuhevc_torch.ops.grid_code import grid_code, grid_code_plain  # noqa: E402
+from tpuhevc_torch.ops.grid_code import (  # noqa: E402
+    grid_code_batch, grid_code_batch_plain)
 from tpuhevc_torch.ops.grid_deblock import (  # noqa: E402
     boundary_strength, grid_deblock, grid_deblock_plain, tu_cells)
 from tpuhevc_torch.ops.grid_intra import grid_intra16, grid_intra16_plain  # noqa: E402
@@ -188,8 +195,8 @@ from tpuhevc_torch.parallel import mesh as mesh_mod  # noqa: E402
 from tpuhevc_torch.parallel import segments  # noqa: E402
 from tpuhevc_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from tpuhevc_torch.profile_path import (  # noqa: E402
-    TRAIN_FRAMES, TRAIN_H, TRAIN_QP, TRAIN_SR, TRAIN_STEPS_CHECKED, TRAIN_W,
-    device_ms, fme_dataset, train_inputs)
+    STEP_CUT, TRAIN_FRAMES, TRAIN_H, TRAIN_QP, TRAIN_SR, TRAIN_STEPS_CHECKED,
+    TRAIN_W, device_ms, fme_dataset, train_inputs)
 from tpuhevc_torch.ops.grid_stats import (  # noqa: E402
     grid_stats, grid_stats_partial, grid_stats_partial_plain,
     grid_stats_plain)
@@ -548,11 +555,13 @@ def kernel_ops(name, a, kw=None) -> int:
         oy = kw.get("oy", a[5] if len(a) > 5 else None)
         return px * (12 if oy is not None else 2)
     if name == "grid_code":  # transforms, quantiser, bits; RDOQ, SBH
-        T = a[2]
-        rdoq = a[9] if len(a) > 9 else False
-        sbh = a[10] if len(a) > 10 else False
+        jobs = a[0]
+        rdoq = a[2] if len(a) > 2 else False
+        sbh = a[3] if len(a) > 3 else False
         per = 40 + (80 if rdoq else 0) + (12 if sbh else 0)
-        return a[0].numel() // (T * T) * (8 * T ** 3 + per * T * T)
+        return sum(j[0].numel() // (j[2] ** 2) * (8 * j[2] ** 3
+                                                   + per * j[2] ** 2)
+                   for j in jobs)
     if name == "grid_deblock":  # the bs per cell, the filters at bs > 0
         tu = tu_cells(a[2], a[7])
         mv, ref, cbf, intra = a[3].int(), a[4].int(), a[5].bool(), a[6].bool()
@@ -773,7 +782,7 @@ def intra_cfg(w, h, frames):
 
 
 # the anchor's four tools off: the grid's flat quantiser, no filters
-CUT = ["--RDOQ=0", "--SignHideFlag=0", "--SAO=0", "--LoopFilterDisable=1"]
+CUT = STEP_CUT  # the anchor's four tools cut
 
 
 def ldp_cfg(npz, w=None, h=None, frames=None, cut=False, extra=()):
@@ -807,20 +816,39 @@ def ra_cfg(npz, w=None, h=None, frames=None):
     return cfg
 
 
-def recording(module, names, calls):
-    """Swap module.<name> for a wrapper that records (args, kwargs) of
-    every call into calls[name]; returns the originals."""
-    saved = {k: getattr(module, k) for k in names}
+# kernel name -> the wrapper the grid step calls, where they differ
+CALLED_AS = {"grid_code": "grid_code_batch"}
+
+
+def recording(module, names, calls, no_sync=()):
+    """Swap module.<name> (or CALLED_AS[name]) for a wrapper that records
+    (args, kwargs) of every call into calls[name]; returns the originals.
+    The calls of the names in no_sync run under
+    torch.cuda.set_sync_debug_mode("error"): a sync of the stream inside
+    them (a device-to-host read, an upload from pageable memory) raises."""
+    saved = {k: getattr(module, CALLED_AS.get(k, k)) for k in names}
 
     def recorder(name, fn):
         def wrapped(*args, **kw):
             calls[name].append((args, kw))
-            return fn(*args, **kw)
+            if name not in no_sync:
+                return fn(*args, **kw)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
         return wrapped
 
     for k in names:
-        setattr(module, k, recorder(k, saved[k]))
+        setattr(module, CALLED_AS.get(k, k), recorder(k, saved[k]))
     return saved
+
+
+def restore(module, saved):
+    """Undo `recording`."""
+    for k, fn in saved.items():
+        setattr(module, CALLED_AS.get(k, k), fn)
 
 
 def capture_intra_calls(dev, cfg, frame):
@@ -950,7 +978,7 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_refine": (grid_refine, grid_refine_plain),
     "grid_planes": (grid_planes, grid_planes_plain),
     "grid_satd": (grid_satd, grid_satd_plain),
-    "grid_code": (grid_code, grid_code_plain),
+    "grid_code": (grid_code_batch, grid_code_batch_plain),
     "grid_intra16": (grid_intra16, grid_intra16_plain),
     "grid_deblock": (grid_deblock, grid_deblock_plain),
     "grid_sao": (grid_sao, grid_sao_plain),
@@ -991,7 +1019,8 @@ def capture_grid_calls(dev, cfg, params, names, fade=False):
     random motion so that the TMVP merge candidates are priced; with
     weighted prediction, the picture's analysed tables), recording every
     call of the named grid wrappers -> ({name: [(args, kwargs)]}, the
-    WpParams or None). fade: the fade clip, else the synthetic one."""
+    WpParams or None). fade: the fade clip, else the synthetic one.
+    grid_code's calls run under sync debug mode "error" (`recording`)."""
     clip = Reader(W, H, 5, fade).frames
     cfg.sps.temporal_mvp_enabled = True
     qps = {min(max(cfg.qp + o, 0), 51) for o in cfg.gop_qp_offsets}
@@ -1018,13 +1047,13 @@ def capture_grid_calls(dev, cfg, params, names, fade=False):
     rec = [k for k in names if k not in WHOLE] + [
         k for w in names if w in WHOLE for k in WHOLE[w]]
     calls = {k: [] for k in rec}
-    saved = recording(inter_grid, rec, calls)
+    # grid_code reads lambda and the cbf bits on the card: no sync a call
+    saved = recording(inter_grid, rec, calls, no_sync=("grid_code",))
     try:
         step.frame_step(carry, fu8, R, 0, tabs, wp)
         torch.cuda.synchronize()
     finally:
-        for k in rec:
-            setattr(inter_grid, k, saved[k])
+        restore(inter_grid, saved)
     if "grid_sao" in names:
         calls["grid_sao"] = [((*st[:4], dc[2], dc[3], st[4]), {})
                              for (st, _), (dc, _) in zip(
@@ -1064,9 +1093,11 @@ def check_grid_kernels(dev, npz, params):
     416x240 P picture of the anchor LD-P cfg as shipped (RDOQ, sign
     hiding, deblocking, SAO), captured from the port's GridStep, and
     grid_code at every call of the same picture with the four tools cut
-    (the flat quantiser). Every output equal: integers and the float32
-    costs of grid_code (whose sums are exact) and of grid_sao's decision.
-    Returns {name: row}; ms/plain_ms are per P picture of the anchor."""
+    (the flat quantiser); a grid_code call is a launch of the class
+    coding's planes (`grid_code_batch`). Every output equal: integers and
+    the float32 costs of grid_code (whose sums are exact) and of
+    grid_sao's decision. Returns {name: row}; ms/plain_ms are per P
+    picture of the anchor."""
     calls, _ = capture_grid_calls(dev, ldp_cfg(npz), params, G_KERNELS)
     rows = {}
     for name in G_KERNELS:
@@ -1078,9 +1109,18 @@ def check_grid_kernels(dev, npz, params):
                             reps=10)
         r["plain_ms"] = median_ms(
             lambda: [plain(*a, **k) for a, k in calls[name]], reps=3)
+        extra = ""
+        if name == "grid_code":  # the picture's launches' device time
+            r["device_ms"] = device_ms(
+                lambda: [kern(*a, **k) for a, k in calls[name]], n=20)
+            extra = (f" device_ms {r['device_ms']:.4f} (events around 20 "
+                     f"pictures' calls queued behind a device sleep; no "
+                     f"sync inside a call); "
+                     f"{sum(len(a[0]) for a, _ in calls[name])} planes")
         print(f"kernel {name:12s} P picture calls {len(calls[name]):3d} "
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
-              f"plain_ms {r['plain_ms']:.4f} (per P picture)", flush=True)
+              f"plain_ms {r['plain_ms']:.4f} (per P picture){extra}",
+              flush=True)
     rows.update(check_sao_decide(calls["grid_sao"]))
     cut = capture_grid_calls(dev, ldp_cfg(npz, cut=True), params,
                              ("grid_code",))[0]["grid_code"]
@@ -1336,8 +1376,7 @@ def stripe_calls(dev, npz, params):
                     single(carry, fu8, R, 0)
                 torch.cuda.synchronize()
             finally:
-                for k in STEP_CALLS:
-                    setattr(inter_grid, k, saved[k])
+                restore(inter_grid, saved)
             out[kind + tag] = calls
     return out, xbytes, runs
 
@@ -1408,14 +1447,13 @@ def check_stripe_kernels(calls, xbytes, runs, rows):
         if kind == "sharded":
             b += xbytes / HBM_BPS * 1e3
         ms = median_ms(runs[kind], reps=5)
-        saved = {k: getattr(inter_grid, k) for k in plain}
+        saved = {k: getattr(inter_grid, CALLED_AS.get(k, k)) for k in plain}
         try:
             for k, fn in plain.items():
-                setattr(inter_grid, k, fn)
+                setattr(inter_grid, CALLED_AS.get(k, k), fn)
             plain_ms = median_ms(runs[kind], reps=2)
         finally:
-            for k, fn in saved.items():
-                setattr(inter_grid, k, fn)
+            restore(inter_grid, saved)
         out[kind] = dict(bound=b, ms=ms, plain_ms=plain_ms)
         print(f"{kind} grid step, one {W}x{H} anchor P picture: event ms "
               f"{ms:.3f} with the kernels, {plain_ms:.3f} with their plain "
@@ -1966,7 +2004,10 @@ def train_steps(t, mode, steps=TRAIN_STEPS_CHECKED):
             loss, state = out.loss, out.state
         losses.append(loss.detach())
     torch.cuda.synchronize()
-    return flat, state, torch.stack(losses), time.perf_counter() - t0
+    # (state.clone(): "direct"'s state is a buffer of the forward's
+    # binding, which the next run's steps write again)
+    return (flat, state.clone(), torch.stack(losses),
+            time.perf_counter() - t0)
 
 
 def max_err(a, b) -> float:
@@ -1982,12 +2023,14 @@ def check_train_kernels(dev, ds):
     1e-6), Adam on the same gradient twice (atol 1e-7), 20 steps from the
     same start (parameters and state rtol 1e-4 + atol 1e-5), two kernel
     runs of 20 steps bit for bit, Adam's count 1,000 after 1,000
-    launches. Each kernel's time two ways: the median
-    event time of one wrapper call (`ms`, launch included, as the
-    earlier rows of PERF.md took it) and `device_ms` (events around 200 launches queued behind a
-    device sleep, over 200), `torch._fused_adam_` beside Adam both ways.
-    Prints the backward's launch geometry (main() prints every source's
-    ptxas report, fme_train's with it). Returns {name: row}."""
+    launches. Each kernel's time two ways: the median event time of one
+    wrapper call (`ms`, launch included; the outputs are the bindings'
+    buffers, so no allocation is in it) and `device_ms` (events around
+    200 launches queued behind a device sleep, over 200),
+    `torch._fused_adam_` beside Adam both ways. Prints the forward's and
+    the backward's launch geometry (main() prints every source's ptxas
+    report, fme_train's with it).
+    Returns {name: row}."""
     t = train_inputs(dev, ds)
     cfg, data = t["cfg"], t["data"]
     b = cfg.batch_size
@@ -2022,7 +2065,8 @@ def check_train_kernels(dev, ds):
            lambda: ft.fme_train_fwd(*fwd_args),
            lambda: ft.fme_train_fwd_plain(*fwd_args),
            f" | logits {errs['logits']:.3g}, loss {errs['loss']:.3g}, stats "
-           f"{errs['stats']:.3g}, state {errs['state']:.3g}")
+           f"{errs['stats']:.3g}, state {errs['state']:.3g} | launch "
+           f"{ft.fwd_geometry(dev, b)}")
 
     one = torch.ones((), device=dev)
     bwd_args = (t["flat"], data, t["rows"][0], t["unif"][0], cfg.dropouts)

@@ -1,17 +1,18 @@
 """The train step's multi-block kernels on a card (`cuda`; skipped here).
 
-`fme_train_bwd` is one cooperative launch over the card and `fme_adam`
-one thread an element over ceil(n / 256) blocks
+`fme_train_fwd` and `fme_train_bwd` are each one cooperative launch over
+the card and `fme_adam` one thread an element over ceil(n / 256) blocks
 (`tpuhevc_torch/kernels/csrc/fme_train.cu`). Inputs are made with numpy
 from seeds: 2,048 samples of mapper-normalised SADs, categories and
 labels, the initial weights of `init_train_params`, the dropout
 uniforms from a seeded CPU generator; the default dropouts.
 
-- the backward against autograd of the plain forward (the same masks) at
-  B = 1, 31, 33, 256 and 1,024: rtol 1e-4, atol 1e-6 (float sums in
-  another order);
-- two launches of the backward give the same bits, on a grid of at least
-  64 blocks;
+- the forward against the plain forward at B = 1, 31, 33, 256 and 1,024
+  (logits atol 1e-4; loss, batch and running statistics rtol 1e-5 +
+  atol 1e-5: float sums in another order), and the backward against
+  autograd of the plain forward (the same masks): rtol 1e-4, atol 1e-6;
+- two launches of the forward and of the backward give the same bits,
+  on grids of at least 64 blocks (the forward's at B = 1,024);
 - Adam against the plain version at n = 2,042 and n = 1,000 (not a
   multiple of the block): parameters atol 1e-7 after three steps on the
   same gradient, and the count 3;
@@ -50,13 +51,21 @@ def start(dev, b, seed=3):
     return data, flat, state, idx, unif
 
 
+FWD_KEYS = ("logits", "loss", "stats", "state", "saved")
+
+
 def backward(dev, b):
+    """(forward out, the forward again, the plain forward, gradient, the
+    backward again, the plain gradient) for a batch of b."""
     cfg = pn.TrainConfig()
     data, flat, state, idx, unif = start(dev, b)
-    out = ft.fme_train_fwd(flat, state, data, idx, unif, cfg.dropouts, 0.1)
+    fwd_args = (flat, state, data, idx, unif, cfg.dropouts, 0.1)
+    out = ft.fme_train_fwd(*fwd_args)
     one = torch.ones((), device=dev)
     args = (flat, data, idx, unif, cfg.dropouts)
-    return (ft.fme_train_bwd(*args, out.saved, out.stats, one),
+    return (out, lambda: ft.fme_train_fwd(*fwd_args),
+            ft.fme_train_fwd_plain(*fwd_args),
+            ft.fme_train_bwd(*args, out.saved, out.stats, one),
             lambda: ft.fme_train_bwd(*args, out.saved, out.stats, one),
             ft.fme_train_bwd_plain(*args, one))
 
@@ -64,16 +73,30 @@ def backward(dev, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 31, 33, 256, 1024])
 def test_cuda_bwd_matches_plain(cuda_device, b):  # noqa: F811
-    got, _, want = backward(cuda_device, b)
+    """The forward against the plain forward, then the backward against
+    autograd of it."""
+    out, _, plain, got, _, want = backward(cuda_device, b)
+    torch.testing.assert_close(out.logits, plain.logits, rtol=0, atol=1e-4)
+    for k in ("loss", "stats", "state"):
+        torch.testing.assert_close(getattr(out, k), getattr(plain, k),
+                                   rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.cuda
 def test_cuda_bwd_same_bits_on_the_whole_card(cuda_device):  # noqa: F811
-    got, again, _ = backward(cuda_device, 1024)
+    """Two launches of the forward, and of the backward, bit for bit, each
+    one cooperative launch of at least 64 blocks."""
+    out, fwd_again, _, got, again, _ = backward(cuda_device, 1024)
+    # the outputs are the bindings' buffers, which the next calls write
+    first = {k: getattr(out, k).clone() for k in FWD_KEYS}
+    got = got.clone()
+    out2 = fwd_again()
+    assert all(torch.equal(first[k], getattr(out2, k)) for k in FWD_KEYS)
     assert torch.equal(got, again())
-    geo = ft.bwd_geometry(cuda_device)
-    assert geo["grid"] >= 64 and geo["cooperative"] == 1, geo
+    for geo in (ft.fwd_geometry(cuda_device, 1024),
+                ft.bwd_geometry(cuda_device)):
+        assert geo["grid"] >= 64 and geo["cooperative"] == 1, geo
 
 
 @pytest.mark.cuda
@@ -117,11 +140,13 @@ def test_cuda_five_steps_same_bits(cuda_device):  # noqa: F811
         opt = ft.AdamState.zeros(pn.N_TRAIN, dev)
         for s in range(5):
             if not kept:  # bind the wrappers afresh each step
-                data.launch = opt.launch = None
+                data.launch = data.fwd_launch = opt.launch = None
             out = train_step(flat, state, data, rows[s], unif[s], opt, cfg,
                              one)
             state = out.state
-        return flat, state, opt.m, opt.v, opt.count
+        # out.state is a buffer of the forward's binding, which the next
+        # run's steps write again
+        return flat, state.clone(), opt.m, opt.v, opt.count
 
     a, b, c = run(True), run(True), run(False)
     assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -50,7 +50,7 @@ from tpuhevc_torch.entropy import native
 from tpuhevc_torch.kernels import LAUNCHES, reset_launches
 from tpuhevc_torch.models.nnfme import (
     NNFME, height_category, nn_refine, width_category)
-from tpuhevc_torch.ops.grid_code import grid_code, grid_code_plain, up
+from tpuhevc_torch.ops.grid_code import grid_code_batch, grid_code_plain, up
 from tpuhevc_torch.ops.grid_intra import (
     IMODES, cell_refs, grid_intra16, grid_intra16_plain, intra_preds)
 from tpuhevc_torch.ops.grid_me import (
@@ -334,7 +334,7 @@ def check_nn_refine(st, S):
     rng = np.random.default_rng(S)
     nb = (H // S) * (W // S)
     sad9 = rng.integers(0, 4000, (nb, 9)).astype(np.int32)
-    _, _, off = nn_refine(NNFME.from_numpy(st["params"]), t(sad9),
+    _, _, off = nn_refine(NNFME.from_numpy(st["params"], "cpu"), t(sad9),
                           height_category(S), width_category(S))
     np.testing.assert_array_equal(
         off.numpy(), j2n(P["nn_refine"](st["qp"], jnp.asarray(sad9), S, nb)))
@@ -686,12 +686,13 @@ def test_grid_kernels_match_plain(cuda_device, base, planes):
     tabs = tig._Tabs(tig.grid_live_tables(st["cfg"], {})[0], dev)
     pred = grid_satd(py, mv8[:1].contiguous(), ref8[:1].contiguous(), 8,
                      step.LOOK)[0][0]
+    lam = torch.tensor(st["lam"], dtype=torch.float32, device=dev)
     for T in (4, 8, 16, 32):
         for lvl8 in (True, False):
-            args = (c(oy), pred, T, st["qp"], float(st["lam"]),
-                    tabs.est_y[T.bit_length() - 1], float(tabs.cbf_y[0]),
-                    float(tabs.cbf_y[1]), lvl8)
-            for x, y in zip(grid_code(*args), grid_code_plain(*args)):
+            job = (c(oy), pred, T, st["qp"], lam,
+                   tabs.est_y[T.bit_length() - 1], tabs.cbf_y)
+            for x, y in zip(grid_code_batch([job], lvl8)[0],
+                            grid_code_plain(*job, lvl8)):
                 assert torch.equal(x, y), (T, lvl8)
     nh, nw = H // 16, W // 16
     ouv = c(t(st["ouv"]))

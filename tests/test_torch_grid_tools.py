@@ -47,10 +47,12 @@ from torch_port_util import (  # noqa: F401
 from tpuhevc_torch.codec import inter_grid as tig
 from tpuhevc_torch.codec.decoder import decode_stream
 from tpuhevc_torch.codec.encoder import encode_sequence
+from tpuhevc_torch.device import on_device
 from tpuhevc_torch.entropy.bitest import tu_bits_plain
 from tpuhevc_torch.kernels import LAUNCHES, reset_launches
 from tpuhevc_torch.ops.grid_code import (
-    grid_code, grid_code_plain, ideal_tiles, rdoq_tiles, sbh_tiles)
+    grid_code_batch, grid_code_batch_plain, grid_code_plain, ideal_tiles,
+    rdoq_tiles, sbh_tiles)
 from tpuhevc_torch.ops.grid_deblock import grid_deblock, grid_deblock_plain
 from tpuhevc_torch.ops.grid_sao import (
     grid_sao_apply, grid_sao_apply_plain, grid_sao_plain, grid_sao_stats,
@@ -178,6 +180,48 @@ def test_rdoq_sbh_and_bits_match_jax(npz, qp):
                 np.testing.assert_allclose(
                     tu_bits_plain(est_t, sb.int(), sbh=True).numpy(), jb,
                     rtol=1e-5, atol=1e-3, err_msg="tu_bits " + what)
+
+
+def code_inputs(npz, dev):
+    """grid_code's inputs for luma and chroma at QP 32 on dev: (side,
+    orig, pred, lam (np.float32), {log2: estimator}, the cbf bits (2,)),
+    the warmed tables; residuals and lambdas from a seeded numpy
+    generator, half of each plane near its prediction (so that both coded
+    and dropped TUs occur)."""
+    tabs = tig._Tabs(tig.grid_live_tables(tools_cfg(npz, True), {})[0], dev)
+    rng = np.random.default_rng(12)
+    for side, cbf in (("est_y", tabs.cbf_y), ("est_c", tabs.cbf_c)):
+        h, w = (H, W) if side == "est_y" else (H // 2, W)
+        lam = np.float32(rng.uniform(20.0, 80.0))
+        orig = rng.integers(0, 256, (h, w))
+        amp = np.where(np.arange(w) < w // 2, 2, 40)[None]
+        pred = np.clip(orig + rng.integers(-64, 65, (h, w)) * amp // 64, 0,
+                       255)
+        yield (side, t(orig.astype(np.int32)).to(dev),
+               t(pred.astype(np.int32)).to(dev), lam, getattr(tabs, side),
+               cbf)
+
+
+def test_grid_code_plain_takes_device_form_scalars(npz):
+    """grid_code_plain with lam a 0-dim float32 tensor and the cbf bits a
+    (2,) tensor (the form GridStep passes and the kernel reads on the
+    card) equals its float form (lam and cbf0, cbf1 as Python floats) bit
+    for bit, RDOQ and sign hiding on, at T = 4, 8, 16 and 32, luma and
+    chroma (`code_inputs`)."""
+    for side, orig, pred, lam, ests, cbf in code_inputs(npz, "cpu"):
+        coded = dropped = 0
+        for lg in (2, 3, 4, 5):
+            T = 1 << lg
+            a = grid_code_plain(orig, pred, T, QP, torch.tensor(lam),
+                                ests[lg], cbf, True, True, True)
+            b = grid_code_plain(orig, pred, T, QP, float(lam), ests[lg],
+                                (float(cbf[0]), float(cbf[1])), True, True,
+                                True)
+            for x, y in zip(a, b):
+                assert x.dtype == y.dtype and torch.equal(x, y), (side, T)
+            coded += int((a[4] > 0).sum())
+            dropped += int((a[4] == 0).sum())
+        assert coded > 0 and dropped > 0, (side, coded, dropped)
 
 
 def test_class_code_with_rdoq_and_sbh_matches_jax(npz):
@@ -418,9 +462,43 @@ def test_e2e_tools_rows_and_stream_match_jax_and_decode(e2e):
 
 @pytest.mark.cuda
 def test_cuda_grid_tools_match_plain_and_cpu_stream(cuda_device, npz):
-    """grid_code (RDOQ and SBH), grid_deblock and grid_sao equal their
-    plain versions at every call of a CUDA encode with the tools on, and
-    the CUDA stream equals the CPU stream."""
+    """grid_code's kernel equals its plain version at T = 4, 8, 16 and 32
+    with RDOQ and SBH on and off, lam and the cbf bits device tensors
+    (`code_inputs`), each plane alone and all eight in one launch, and no
+    launch syncs the stream (sync debug mode "error"); with a second card,
+    a T = 32 RDOQ plane on cuda:1 after the launches on the first card;
+    grid_code (RDOQ and SBH), grid_deblock and grid_sao equal their plain
+    versions at every call of a CUDA encode with the tools on, and the
+    CUDA stream equals the CPU stream."""
+    jobs = []
+    for side, orig, pred, lam, ests, cbf in code_inputs(npz, cuda_device):
+        lam = torch.tensor(lam, device=cuda_device)
+        jobs += [(orig, pred, 1 << lg, QP, lam, ests[lg], cbf)
+                 for lg in (2, 3, 4, 5)]
+    for tools in (True, False):
+        for batch in [[j] for j in jobs] + [jobs]:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = grid_code_batch(batch, True, tools, tools)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = grid_code_batch_plain(batch, True, tools, tools)
+            for o, w, j in zip(out, want, batch):
+                assert all(torch.equal(x, y) for x, y in zip(o, w)), (
+                    j[0].shape, j[2], tools, len(batch))
+    if torch.cuda.device_count() > 1:
+        # a T = 32 block with RDOQ needs more than 48 KB of shared memory,
+        # an opt-in each card needs: a second card after the first
+        d1 = torch.device("cuda", 1)
+        with on_device(d1):
+            for side, orig, pred, lam, ests, cbf in code_inputs(npz, d1):
+                job = [(orig, pred, 32, QP, torch.tensor(lam, device=d1),
+                        ests[5], cbf)]
+                out = grid_code_batch(job, True, True, True)
+                want = grid_code_batch_plain(job, True, True, True)
+                assert all(torch.equal(x, y)
+                           for x, y in zip(out[0], want[0])), (d1, side)
     frames = clip_frames(W, H, 9, CLIP_SEED)
     seen = {"grid_code": 0, "grid_deblock": 0, "grid_sao": 0}
 
@@ -428,7 +506,12 @@ def test_cuda_grid_tools_match_plain_and_cpu_stream(cuda_device, npz):
         def wrapped(*a):
             out = kern(*a)
             want = plain(*a)
-            for x, y in zip(out, want):
+            if name == "grid_code":  # a launch of several planes
+                out_t = [x for o in out for x in o]
+                want = [x for o in want for x in o]
+            else:
+                out_t = out
+            for x, y in zip(out_t, want):
                 assert torch.equal(x, y), name
             seen[name] += 1
             return out
@@ -436,8 +519,9 @@ def test_cuda_grid_tools_match_plain_and_cpu_stream(cuda_device, npz):
 
     reset_launches()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tig, "grid_code",
-                   checked("grid_code", grid_code, grid_code_plain))
+        mp.setattr(tig, "grid_code_batch",
+                   checked("grid_code", grid_code_batch,
+                           grid_code_batch_plain))
         mp.setattr(tig, "grid_deblock",
                    checked("grid_deblock", grid_deblock, grid_deblock_plain))
         # grid_sao's two launches: the statistics and the apply

@@ -104,7 +104,7 @@ def test_stages_match_jax_per_class(chunk, tag):
     wnd = chunk["refs"][0].reshape(-1)[jib._win_idx(poss, size, sr, W, H)]
     mv, sad9 = sad_search(torch.from_numpy(wnd), torch.from_numpy(cur),
                           bits_table(sr, "cpu"), lam_me, sr)
-    _, _, qoff = nn_refine(NNFME.from_numpy(chunk["params"]), sad9,
+    _, _, qoff = nn_refine(NNFME.from_numpy(chunk["params"], "cpu"), sad9,
                            height_category(size), width_category(size))
     mvq_j, mv_j, sad9_j, _ = parse_meta(cfg, chunk["jax"][0][0])[tag]
     np.testing.assert_array_equal(mv.numpy(), mv_j)
@@ -169,7 +169,7 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
     launches its kernel or raises."""
     meta = torch.device("meta")
     i32 = dict(dtype=torch.int32, device=meta)
-    model = NNFME.from_numpy(random_params(0)).to(meta)
+    model = NNFME.from_numpy(random_params(0), "cpu").to(meta)
     calls = [
         lambda: sad_search(torch.empty(2, 40, 40, **i32),
                            torch.empty(2, 8, 8, **i32),

@@ -33,7 +33,7 @@ def test_nnfme_matches_jax(tmp_path, size):
 
     p = ref_nnfme.select_qp_params(
         ref_nnfme.load_npz(write_weights(tmp_path / "w.npz")), 32)
-    model = NNFME.from_numpy(p)
+    model = NNFME.from_numpy(p, "cpu")
     sads = sad_surfaces(size)
     hc, wc = height_category(size), width_category(size)
     want = np.asarray(ref_nnfme.forward(
@@ -53,7 +53,7 @@ def test_nnfme_matches_jax(tmp_path, size):
 
 def test_from_numpy_carries_all_keys():
     p = random_params(3)
-    model = NNFME.from_numpy(p)
+    model = NNFME.from_numpy(p, "cpu")
     for k in ref_nnfme.PARAM_KEYS:
         np.testing.assert_array_equal(getattr(model, k).numpy(), p[k])
         assert getattr(model, k).dtype == torch.float32
@@ -62,7 +62,7 @@ def test_from_numpy_carries_all_keys():
     bad = dict(p)
     del bad["std"]
     with pytest.raises(KeyError):
-        NNFME.from_numpy(bad)
+        NNFME.from_numpy(bad, "cpu")
 
 
 @pytest.mark.cuda

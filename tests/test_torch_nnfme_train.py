@@ -125,7 +125,7 @@ def test_train_forward_matches_jax():
     x, hc, wc, _ = batch_inputs(256)
     lj, sj = jax.jit(lambda p, s, x, h, w: jn.train_forward(
         p, s, x, h, w, True, None))(p, s, x, hc, wc)
-    m = pn.NNFMETrain.from_numpy(p, s)
+    m = pn.NNFMETrain.from_numpy(p, s, "cpu")
     back_p, back_s = m.to_numpy()
     assert all(np.array_equal(back_p[k], p[k]) for k in p)
     assert all(np.array_equal(back_s[k], s[k]) for k in s)
@@ -178,7 +178,7 @@ def test_ten_steps_match_jax():
     p = jn.init_train_params(rng, cfg)
     s = jn.init_bn_state(cfg)
     o = opt.init(p)
-    m = pn.NNFMETrain.from_numpy(p, s)
+    m = pn.NNFMETrain.from_numpy(p, s, "cpu")
     data = ft.FmeData.from_numpy(xs, hc, wc, labels, "cpu")
     adam = ft.AdamState.zeros(pn.N_TRAIN, "cpu")
     leaf = m.flat.detach().requires_grad_()

@@ -68,7 +68,7 @@ import torch
 from ..device import resolve
 from ..entropy.bitest import EstTables, FracBits, ResidualBitEst
 from ..models.nnfme import NNFME, height_category, nn_refine, width_category
-from ..ops.grid_code import grid_code, up
+from ..ops.grid_code import grid_code_batch, up
 from ..ops.grid_deblock import grid_deblock
 from ..ops.grid_intra import IMODES, grid_intra16
 from ..ops.grid_me import grid_coarse, grid_refine, grid_wp_me, tile_sum, zcost
@@ -538,9 +538,11 @@ class GridStep:
         return outs
 
     # --- class coding ----------------------------------------------------
-    def _txq(self, orig, pred, T, qp, lam, est, cbf):
-        return grid_code(orig, pred, T, qp, float(lam), est, float(cbf[0]),
-                         float(cbf[1]), self.lvl8, self.rdoq, self.sbh)
+    def _txq(self, jobs):
+        """grid_code of each job (orig, pred, T, qp, lam, est, cbf), in one
+        launch on the card; lam and cbf stay device tensors, which the
+        kernel reads there."""
+        return grid_code_batch(jobs, self.lvl8, self.rdoq, self.sbh)
 
     def class_code(self, qp, tabs, lam, oy, ouv, planes_y, planes_c,
                    mv_grid, ref_grid, S, nbh, nbw, mv_cells=None,
@@ -560,9 +562,8 @@ class GridStep:
         mv_cells = mv_cells.contiguous()
         ref_cells = ref_cells.contiguous()
         pred_y = self.mc_luma(planes_y, mv_cells, ref_cells)
-        lvl, rec, d_tu, b_tu, cbf_tu, d0_tu = self._txq(
-            oy_c, pred_y, T, qp, lam, tabs.est_y[log2t], tabs.cbf_y)
         do_split = tusplit and T >= 16
+        deep = do_split and S == 32 and self.deep
         Sc = S // 2
         Tc = 16 if S == 64 else min(Sc, 32)
         fTc = Sc // Tc
@@ -572,27 +573,26 @@ class GridStep:
                           dim=1).contiguous()
         wch = _f32(2.0 ** ((qp - qpc) / 3.0), dev)
         lam_c = lam / wch
-
-        def txq_c(Tc_):
-            return self._txq(ouv_c, pred_uv, Tc_, qpc, lam_c,
-                             tabs.est_c[Tc_.bit_length() - 1], tabs.cbf_c)
-
-        lvl_c, rec_c, duv, buv, nzk, dc0 = txq_c(Tc)
+        # the luma and chroma planes at each RQT depth: one launch
+        jobs = []
+        for f in (1, 2, 4)[:1 + do_split + deep]:
+            jobs += [(oy_c, pred_y, T // f, qp, lam,
+                      tabs.est_y[log2t - f.bit_length() + 1], tabs.cbf_y),
+                     (ouv_c, pred_uv, Tc // f, qpc, lam_c,
+                      tabs.est_c[(Tc // f).bit_length() - 1], tabs.cbf_c)]
+        coded = self._txq(jobs)
+        lvl, rec, d_tu, b_tu, cbf_tu, d0_tu = coded[0]
+        lvl_c, rec_c, duv, buv, nzk, dc0 = coded[1]
         split_tu = td8 = None
         if do_split:
             T2 = T // 2
-            lvl2, rec2, d_tu2, b_tu2, cbf_tu2, _ = self._txq(
-                oy_c, pred_y, T2, qp, lam, tabs.est_y[log2t - 1], tabs.cbf_y)
+            lvl2, rec2, d_tu2, b_tu2, cbf_tu2, _ = coded[2]
             Tc2 = Tc // 2
-            lvl_c2, rec_c2, duv2, buv2, nzk2, _ = txq_c(Tc2)
-            deep = S == 32 and self.deep
+            lvl_c2, rec_c2, duv2, buv2, nzk2, _ = coded[3]
             split16 = None
             if deep:
-                T4 = T // 4
-                lvl4, rec4, d_tu4, b_tu4, cbf_tu4, _ = self._txq(
-                    oy_c, pred_y, T4, qp, lam, tabs.est_y[log2t - 2],
-                    tabs.cbf_y)
-                lvl_c4, rec_c4, duv4, buv4, nzk4, _ = txq_c(Tc2 // 2)
+                lvl4, rec4, d_tu4, b_tu4, cbf_tu4, _ = coded[4]
+                lvl_c4, rec_c4, duv4, buv4, nzk4, _ = coded[5]
 
                 def csum4(x):  # Tc4 chroma (packed) -> T2-tile grid
                     ntw = x.shape[1] // 2
@@ -704,16 +704,16 @@ class GridStep:
     def intra16_code(self, qp, tabs, lam, oy, ouv, pred_y, pred_uv):
         qpc = chroma_qp(qp)
         Hp, Wp = pred_y.shape
-        lvl, rec, d_cu, b_cu, cbf_cu, _ = self._txq(
-            oy[:Hp, :Wp].contiguous(), pred_y, 16, qp, lam, tabs.est_y[4],
-            tabs.cbf_y)
         Hpc, Wpc = Hp // 2, Wp // 2
         ouv_c = torch.cat([ouv[:Hpc, :Wpc], ouv[:Hpc, self.Wc : self.Wc + Wpc]],
                           dim=1).contiguous()
         wch = _f32(2.0 ** ((qp - qpc) / 3.0), self.dev)
         lam_c = lam / wch
-        lvl_c, rec_c, duv, buv, nzk, _ = self._txq(
-            ouv_c, pred_uv, 8, qpc, lam_c, tabs.est_c[3], tabs.cbf_c)
+        (lvl, rec, d_cu, b_cu, cbf_cu, _), (lvl_c, rec_c, duv, buv, nzk, _) = \
+            self._txq([(oy[:Hp, :Wp].contiguous(), pred_y, 16, qp, lam,
+                        tabs.est_y[4], tabs.cbf_y),
+                       (ouv_c, pred_uv, 8, qpc, lam_c, tabs.est_c[3],
+                        tabs.cbf_c)])
         ntw = duv.shape[1] // 2
 
         def cs(x):

@@ -12,6 +12,7 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 `ops/fme_train.py`) and
 adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`grid_deblock` launches twice a picture, once per edge direction;
+`grid_code` once for the planes of one class coding;
 `grid_sao` twice, its stats and its apply, with `grid_sao_decide` between
 them (on row stripes: stats and apply a stripe, the decision once); `intra_wave` once for a whole batch of pictures; `stripe_prescreen`
 once a row stripe; `fme_train_fwd`, `fme_train_bwd` and `fme_adam` once

@@ -25,12 +25,11 @@
 //
 // What bounds it: nothing on this card at the slice's sizes. A step is
 // ~25 MFLOP and ~1 MB (B = 1,024); launch latency and serial depth
-// dominate. Design: the forward is one block of up to 1,024 threads, one
-// thread a sample (B <= 1,024). The backward is one cooperative launch
-// over the card (see fme_train_bwd_kernel): a warp a sample, then a warp
-// a batch sum, joined by grid syncs. Adam is one thread an element over
-// as many blocks as it takes. The 2,042 weights are staged in each
-// block's shared memory (a broadcast: a warp reads one weight at a time).
+// dominate. Design: the forward and the backward are each one cooperative
+// launch over the card (B <= 1,024; see the comment above
+// fme_train_fwd_kernel): a warp a sample, then a warp a batch sum, joined
+// by grid syncs. Adam is one thread an element over as many blocks as it
+// takes. The 2,042 weights are staged in each block's shared memory.
 // Activations go to global scratch laid out feature by feature (row r of
 // sample b at r * B + b: contiguous per reduction). Every sum over the
 // batch (the BN statistics, the BN and weight gradients, the loss) is one
@@ -58,7 +57,7 @@ constexpr int kUnif = 42;  // dropout uniforms a sample: 22 for BN1, 20 for BN2
 constexpr float kEps = 1e-5f;
 
 // saved rows (the forward's scratch), each B long
-constexpr int kXin = 0;                 // raw x, then its input-BN xhat
+constexpr int kXin = 0;                 // the input BN's xhat
 constexpr int kInp = kXin + kX;         // the input row (17)
 constexpr int kA1 = kInp + kIn;         // relu(W1 in + b1)
 constexpr int kXh1 = kA1 + kH1;         // BN1's xhat
@@ -85,7 +84,7 @@ constexpr int kEWout = 0, kEBout = kEWout + kOut * kH2,
               kEBnIn = kEB1 + kH1, kEEmb = kEBnIn + kX,
               kEntries = kEEmb + 64;  // 1958
 
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxBatch = 1024;
 static_assert(kSaved == 202 && kWork == 150 && kEntries == 1958,
               "ops/fme_train.py's SAVED_ROWS and WORK_ROWS");
 
@@ -97,154 +96,233 @@ __device__ __forceinline__ float warp_sum(float v) {
     return __shfl_sync(0xffffffffu, v, 0);
 }
 
-// A warp's sum of row[0..B), lane l taking l, l + 32, ... in order.
-__device__ __forceinline__ float row_sum(const float* row, int B, int lane) {
-    float s = 0.0f;
-    for (int b = lane; b < B; b += 32) s += row[b];
-    return warp_sum(s);
-}
+// The forward and the backward spread over the card: a cooperative grid
+// of blocks of kFwdThreads / kBwdThreads, every warp of the grid a sample
+// in the per-sample phases (lanes over output features, each feature's
+// product summed in the order of the one-thread-a-sample kernels that
+// came before) and a batch sum in the reduction phases, the phases joined
+// by grid syncs. Every batch sum stays one warp's, lane l taking samples
+// l, l + 32, ... in order, then warp_sum's tree; only which warp of which
+// block owns a row or an entry depends on the grid. So the outputs do not
+// depend on the launch geometry, and equal the one-block kernels' bit for
+// bit. Data written by another block in this launch (the saved rows, the
+// statistics, the BN sums in grad) is read through L2 (__ldcg), after a
+// grid sync.
+constexpr int kFwdThreads = 256, kFwdWarps = kFwdThreads / 32;
+constexpr int kMaxPerLane = kMaxBatch / 32;  // samples a lane of a row
 
-// The batch statistics of F rows (one warp a row): the mean, the biased
-// variance (two passes, as jnp.var), sqrt(var + eps) into sd_s, the
-// statistics and the running update at offset `off` (mu at off, var at
-// off + F).
-__device__ void bn_stats(const float* rows, int F, int B, int warp,
-                         int nwarps, int lane, float* mu_s, float* sd_s,
+// The batch statistics of F rows, a warp of the grid a row (gw of ngw):
+// the mean, the biased variance (two passes, as jnp.var), the statistics
+// and the running update at offset `off` (mu at off, var at off + F).
+// Row f's value of sample b is at(f, b); lane l holds its samples l,
+// l + 32, ... in registers between the passes.
+template <class At>
+__device__ void bn_stats(At at, int F, int B, int gw, int ngw, int lane,
                          const float* state_in, float* stats,
                          float* state_out, int off, float mom, float omm) {
-    for (int f = warp; f < F; f += nwarps) {
-        const float* r = rows + (size_t)f * B;
-        const float mu = row_sum(r, B, lane) / (float)B;
+    for (int f = gw; f < F; f += ngw) {
+        float v[kMaxPerLane];
+#pragma unroll
+        for (int i = 0; i < kMaxPerLane; ++i) {
+            const int b = lane + 32 * i;
+            v[i] = b < B ? at(f, b) : 0.0f;
+        }
+        float s = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kMaxPerLane; ++i)
+            if (lane + 32 * i < B) s += v[i];
+        const float mu = warp_sum(s) / (float)B;
         float q = 0.0f;
-        for (int b = lane; b < B; b += 32) {
-            const float d = r[b] - mu;
-            q += d * d;
+#pragma unroll
+        for (int i = 0; i < kMaxPerLane; ++i) {
+            if (lane + 32 * i < B) {
+                const float d = v[i] - mu;
+                q += d * d;
+            }
         }
         const float var = warp_sum(q) / (float)B;
         if (lane == 0) {
-            mu_s[f] = mu;
-            sd_s[f] = sqrtf(var + kEps);
             stats[off + f] = mu;
             stats[off + F + f] = var;
+            // state_out may alias state_in: read, then write, one thread
             state_out[off + f] = omm * state_in[off + f] + mom * mu;
             state_out[off + F + f] = omm * state_in[off + F + f] + mom * var;
         }
     }
 }
 
-__global__ void __launch_bounds__(kMaxThreads) fme_train_fwd_kernel(
+// A block's copy of F features' batch mean and sqrt(var + eps) from
+// stats (written by other blocks before the last grid sync).
+__device__ __forceinline__ void load_stats(const float* stats, int off,
+                                           int F, float* mu_s, float* sd_s) {
+    for (int f = threadIdx.x; f < F; f += blockDim.x) {
+        mu_s[f] = __ldcg(stats + off + f);
+        sd_s[f] = sqrtf(__ldcg(stats + off + F + f) + kEps);
+    }
+    __syncthreads();
+}
+
+// Phases: (1) the input BN's statistics, a warp a row, x gathered through
+// idx; (2) a warp a sample: the input row, a1 = relu(W1 in + b1); (3)
+// BN1's statistics; (4) a warp a sample: BN1, dropout, a2 = relu(W2 d1 +
+// b2); (5) BN2's statistics; (6) a warp a sample: BN2, dropout, the
+// logits, logsumexp (the max in a tree: exact in any order; the 49
+// exponentials added in order by each lane), the loss; (7) the mean loss,
+// one warp. The weight matrices sit transposed in shared memory (lane j
+// reads column j: no bank conflicts); the products are the same.
+__global__ void __launch_bounds__(kFwdThreads) fme_train_fwd_kernel(
         const float* __restrict__ flat, const float* state_in,
         const float* __restrict__ x_all, const int* __restrict__ cat_all,
         const int* __restrict__ y_all, const int* __restrict__ idx,
         const float* __restrict__ unif, int B, float p1, float keep1,
         float p2, float keep2, float mom, float omm,
         float* __restrict__ logits, float* __restrict__ loss,
-        float* __restrict__ stats, float* state_out,
-        float* __restrict__ S) {
+        float* stats, float* state_out, float* S) {
+    namespace cg = cooperative_groups;
+    cg::grid_group grid = cg::this_grid();
     __shared__ float w[kFlat];
+    __shared__ float w1t[kIn * kH1], w2t[kH1 * kH2], wot[kH2 * kOut];
     __shared__ float mu_s[kH1], sd_s[kH1];
+    __shared__ float row[kFwdWarps][kOut + 1];  // a warp's sample row
     for (int e = threadIdx.x; e < kFlat; e += blockDim.x) w[e] = flat[e];
-    const int b = threadIdx.x, lane = b & 31, warp = b >> 5;
-    const int nwarps = blockDim.x >> 5;
-    const bool live = b < B;
-    int hc = 0, wc = 0, y = 0;
-    if (live) {
-        const int row = idx[b];
-        hc = cat_all[2 * row];
-        wc = cat_all[2 * row + 1];
-        y = y_all[row];
-        for (int k = 0; k < kX; ++k)
-            S[(kXin + k) * B + b] = x_all[kX * row + k];
-    }
-    __syncthreads();
-    bn_stats(S + kXin * B, kX, B, warp, nwarps, lane, mu_s, sd_s, state_in,
-             stats, state_out, kStIn, mom, omm);
-    __syncthreads();
-    if (live) {
-        float in[kIn];
-        for (int k = 0; k < 4; ++k) {
-            in[k] = w[kEmb0 + 4 * hc + k];
-            in[4 + k] = w[kEmb1 + 4 * wc + k];
-        }
-        for (int k = 0; k < kX; ++k) {
-            const float xh = (S[(kXin + k) * B + b] - mu_s[k]) / sd_s[k];
+    for (int e = threadIdx.x; e < kH1 * kIn; e += blockDim.x)
+        w1t[(e % kIn) * kH1 + e / kIn] = flat[kW1 + e];
+    for (int e = threadIdx.x; e < kH2 * kH1; e += blockDim.x)
+        w2t[(e % kH1) * kH2 + e / kH1] = flat[kW2 + e];
+    for (int e = threadIdx.x; e < kOut * kH2; e += blockDim.x)
+        wot[(e % kH2) * kOut + e / kH2] = flat[kWout + e];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int gw = blockIdx.x * kFwdWarps + warp;  // the grid's warp
+    const int ngw = gridDim.x * kFwdWarps;
+    float* r = row[warp];
+    const bool hi = lane + 32 < kOut;  // lane holds logits lane, lane + 32
+
+    // 1. the input BN's statistics
+    bn_stats([&](int f, int b) { return x_all[kX * idx[b] + f]; }, kX, B,
+             gw, ngw, lane, state_in, stats, state_out, kStIn, mom, omm);
+    grid.sync();
+
+    // 2. per sample: the input row, relu(W1 in + b1)
+    load_stats(stats, kStIn, kX, mu_s, sd_s);
+    for (int b = gw; b < B; b += ngw) {
+        const int rw = idx[b];
+        if (lane < 8) {
+            r[lane] = lane < 4 ? w[kEmb0 + 4 * cat_all[2 * rw] + lane]
+                               : w[kEmb1 + 4 * cat_all[2 * rw + 1] + lane - 4];
+        } else if (lane < kIn) {
+            const int k = lane - 8;
+            const float xh = (x_all[kX * rw + k] - mu_s[k]) / sd_s[k];
             S[(kXin + k) * B + b] = xh;
-            in[8 + k] = xh * w[kBnIn + k];
+            r[lane] = xh * w[kBnIn + k];
         }
-        for (int k = 0; k < kIn; ++k) S[(kInp + k) * B + b] = in[k];
-        for (int j = 0; j < kH1; ++j) {
+        if (lane < kIn) S[(kInp + lane) * B + b] = r[lane];
+        __syncwarp();
+        if (lane < kH1) {
             float acc = 0.0f;
-            for (int k = 0; k < kIn; ++k) acc = acc + in[k] * w[kW1 + j * kIn + k];
-            acc = acc + w[kB1 + j];
-            S[(kA1 + j) * B + b] = fmaxf(acc, 0.0f);
+            for (int k = 0; k < kIn; ++k) acc = acc + r[k] * w1t[k * kH1 + lane];
+            acc = acc + w[kB1 + lane];
+            S[(kA1 + lane) * B + b] = fmaxf(acc, 0.0f);
         }
+        __syncwarp();
     }
-    __syncthreads();
-    bn_stats(S + kA1 * B, kH1, B, warp, nwarps, lane, mu_s, sd_s, state_in,
-             stats, state_out, kSt1, mom, omm);
-    __syncthreads();
-    if (live) {
-        float d1[kH1];
-        for (int j = 0; j < kH1; ++j) {
-            const float xh = (S[(kA1 + j) * B + b] - mu_s[j]) / sd_s[j];
+    grid.sync();
+
+    // 3. BN1's statistics
+    bn_stats([&](int f, int b) { return __ldcg(S + (kA1 + f) * B + b); },
+             kH1, B, gw, ngw, lane, state_in, stats, state_out, kSt1, mom,
+             omm);
+    grid.sync();
+
+    // 4. per sample: BN1, the dropout, relu(W2 d1 + b2)
+    load_stats(stats, kSt1, kH1, mu_s, sd_s);
+    for (int b = gw; b < B; b += ngw) {
+        if (lane < kH1) {
+            const int j = lane;
+            const float xh = (__ldcg(S + (kA1 + j) * B + b) - mu_s[j]) / sd_s[j];
             S[(kXh1 + j) * B + b] = xh;
             const float yv = xh * w[kBn1W + j] + w[kBn1B + j];
             const float keep = unif[kUnif * b + j] >= p1 ? 1.0f : 0.0f;
-            d1[j] = (yv * keep) / keep1;
-            S[(kD1 + j) * B + b] = d1[j];
+            const float d1 = (yv * keep) / keep1;
+            S[(kD1 + j) * B + b] = d1;
+            r[j] = d1;
         }
-        for (int j = 0; j < kH2; ++j) {
+        __syncwarp();
+        if (lane < kH2) {
             float acc = 0.0f;
-            for (int k = 0; k < kH1; ++k) acc = acc + d1[k] * w[kW2 + j * kH1 + k];
-            acc = acc + w[kB2 + j];
-            S[(kA2 + j) * B + b] = fmaxf(acc, 0.0f);
+            for (int k = 0; k < kH1; ++k) acc = acc + r[k] * w2t[k * kH2 + lane];
+            acc = acc + w[kB2 + lane];
+            S[(kA2 + lane) * B + b] = fmaxf(acc, 0.0f);
         }
+        __syncwarp();
     }
-    __syncthreads();
-    bn_stats(S + kA2 * B, kH2, B, warp, nwarps, lane, mu_s, sd_s, state_in,
-             stats, state_out, kSt2, mom, omm);
-    __syncthreads();
-    if (live) {
-        float d2[kH2];
-        for (int j = 0; j < kH2; ++j) {
-            const float xh = (S[(kA2 + j) * B + b] - mu_s[j]) / sd_s[j];
+    grid.sync();
+
+    // 5. BN2's statistics
+    bn_stats([&](int f, int b) { return __ldcg(S + (kA2 + f) * B + b); },
+             kH2, B, gw, ngw, lane, state_in, stats, state_out, kSt2, mom,
+             omm);
+    grid.sync();
+
+    // 6. per sample: BN2, the dropout, the logits and the loss
+    load_stats(stats, kSt2, kH2, mu_s, sd_s);
+    for (int b = gw; b < B; b += ngw) {
+        const int y = y_all[idx[b]];
+        if (lane < kH2) {
+            const int j = lane;
+            const float xh = (__ldcg(S + (kA2 + j) * B + b) - mu_s[j]) / sd_s[j];
             S[(kXh2 + j) * B + b] = xh;
             const float yv = xh * w[kBn2W + j] + w[kBn2B + j];
             const float keep = unif[kUnif * b + kH1 + j] >= p2 ? 1.0f : 0.0f;
-            d2[j] = (yv * keep) / keep2;
-            S[(kD2 + j) * B + b] = d2[j];
+            const float d2 = (yv * keep) / keep2;
+            S[(kD2 + j) * B + b] = d2;
+            r[j] = d2;
         }
-        float mx = neg_inf();
-        for (int j = 0; j < kOut; ++j) {
-            float acc = 0.0f;
-            for (int k = 0; k < kH2; ++k) acc = acc + d2[k] * w[kWout + j * kH2 + k];
-            acc = acc + w[kBout + j];
-            logits[(size_t)kOut * b + j] = acc;
-            S[(kLogit + j) * B + b] = acc;
-            mx = fmaxf(mx, acc);
+        __syncwarp();
+        float l0 = 0.0f, l1 = neg_inf();
+        for (int k = 0; k < kH2; ++k) l0 = l0 + r[k] * wot[k * kOut + lane];
+        l0 = l0 + w[kBout + lane];
+        if (hi) {
+            const int j = lane + 32;
+            l1 = 0.0f;
+            for (int k = 0; k < kH2; ++k) l1 = l1 + r[k] * wot[k * kOut + j];
+            l1 = l1 + w[kBout + j];
         }
-        float se = 0.0f;
-        for (int j = 0; j < kOut; ++j) se = se + expf(S[(kLogit + j) * B + b] - mx);
-        S[kLoss * B + b] = (logf(se) + mx) - S[(kLogit + y) * B + b];
+        logits[(size_t)kOut * b + lane] = l0;
+        S[(kLogit + lane) * B + b] = l0;
+        if (hi) {
+            logits[(size_t)kOut * b + lane + 32] = l1;
+            S[(kLogit + lane + 32) * B + b] = l1;
+        }
+        // the max is exact: any order gives it (-inf first, as the chain
+        // of fmaxf the one-thread kernel took)
+        float mx = fmaxf(fmaxf(neg_inf(), l0), l1);
+        for (int o = 16; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float ly = __shfl_sync(0xffffffffu, y < 32 ? l0 : l1, y & 31);
+        __syncwarp();
+        r[lane] = expf(l0 - mx);
+        if (hi) r[lane + 32] = expf(l1 - mx);
+        __syncwarp();
+        if (lane == 0) {
+            float se = 0.0f;
+            for (int j = 0; j < kOut; ++j) se = se + r[j];
+            S[kLoss * B + b] = (logf(se) + mx) - ly;
+        }
+        __syncwarp();
     }
-    __syncthreads();
-    if (warp == 0) {
-        const float s = row_sum(S + kLoss * B, B, lane);
+    grid.sync();
+
+    // 7. the mean loss
+    if (gw == 0) {
+        float s = 0.0f;
+        for (int b = lane; b < B; b += 32) s += __ldcg(S + kLoss * B + b);
+        s = warp_sum(s);
         if (lane == 0) *loss = s / (float)B;
     }
 }
 
-// The backward spreads over the card: a cooperative grid of blocks of
-// kBwdThreads, every warp of the grid a sample in the per-sample phases
-// (lanes over output features, each feature's product summed in the
-// order of the one-thread-a-sample kernel that came before) and a batch
-// sum in the reduction phases, the phases joined by grid syncs. Every
-// batch sum stays one warp's, lane l taking samples l, l + 32, ... in
-// order, then warp_sum's tree; only which warp of which block owns a row
-// or an entry depends on the grid. So the gradient does not depend on the
-// launch geometry, and equals the one-block kernel's bit for bit. Data written by another block in this
-// launch (the work rows, the BN sums in grad) is read through L2
-// (__ldcg), after a grid sync.
+// The backward: a grid as the forward's (see the comment above
+// fme_train_fwd_kernel), with blocks of kBwdThreads.
 constexpr int kBwdThreads = 256, kBwdWarps = kBwdThreads / 32;
 // one warp an entry of the gradient pass: more blocks would idle there
 constexpr int kBwdGridMax = (kEntries + kBwdWarps - 1) / kBwdWarps;
@@ -521,39 +599,62 @@ __global__ void __launch_bounds__(kAdamThreads) fme_adam_kernel(
     }
 }
 
-// The backward's grid on the current device: as many blocks as the
-// gradient pass has warps' work for, at most what can be resident at
-// once (a cooperative launch's limit). Cached per device.
-cudaError_t bwd_grid(int* grid) {
-    static int cached[64];
+// The largest grid of `kernel` (blocks of `threads`) that can be resident
+// at once on the current device (a cooperative launch's limit), cached
+// per device in `cached`.
+cudaError_t resident_blocks(const void* kernel, int threads, int* cached,
+                            int* out) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (dev < 64 && cached[dev] > 0) {
-        *grid = cached[dev];
+        *out = cached[dev];
         return cudaSuccess;
     }
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fme_train_bwd_kernel, kBwdThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
     if (err != cudaSuccess) return err;
-    const int g = per_sm * sms < kBwdGridMax ? per_sm * sms : kBwdGridMax;
-    if (g < 1) return cudaErrorCooperativeLaunchTooLarge;
-    if (dev < 64) cached[dev] = g;
-    *grid = g;
+    if (per_sm * sms < 1) return cudaErrorCooperativeLaunchTooLarge;
+    if (dev < 64) cached[dev] = per_sm * sms;
+    *out = per_sm * sms;
     return cudaSuccess;
 }
 
-int block_for(int B) { return ((B + 31) / 32) * 32; }
+// The backward's grid: as many blocks as the gradient pass has warps'
+// work for, at most what can be resident at once.
+cudaError_t bwd_grid(int* grid) {
+    static int cached[64];
+    int g = 0;
+    const cudaError_t err = resident_blocks(
+        (const void*)fme_train_bwd_kernel, kBwdThreads, cached, &g);
+    if (err != cudaSuccess) return err;
+    *grid = g < kBwdGridMax ? g : kBwdGridMax;
+    return cudaSuccess;
+}
+
+// The forward's grid for a batch of B: a warp a sample, at most what can
+// be resident at once.
+cudaError_t fwd_grid(int B, int* grid) {
+    static int cached[64];
+    int g = 0;
+    const cudaError_t err = resident_blocks(
+        (const void*)fme_train_fwd_kernel, kFwdThreads, cached, &g);
+    if (err != cudaSuccess) return err;
+    const int want = (B + kFwdWarps - 1) / kFwdWarps;
+    *grid = want < g ? want : g;
+    return cudaSuccess;
+}
 
 }  // namespace
 
 // flat (2042,), state (102,) fp32; x (N, 9) fp32, cat (N, 2) int32, y (N,)
 // int32, idx (B,) int32 rows, unif (B, 42) fp32 -> logits (B, 49), loss
 // (1,), stats (102,), state_out (102,; may alias state), saved (202 B,).
+// One cooperative launch on fwd_grid's grid.
 extern "C" int tpuhevc_fme_train_fwd(const float* flat, const float* state,
                                      const float* x, const int* cat,
                                      const int* y, const int* idx,
@@ -563,11 +664,30 @@ extern "C" int tpuhevc_fme_train_fwd(const float* flat, const float* state,
                                      float* loss, float* stats,
                                      float* state_out, float* saved,
                                      void* stream) {
-    if (B < 1 || B > kMaxThreads) return (int)cudaErrorInvalidValue;
-    fme_train_fwd_kernel<<<1, block_for(B), 0, (cudaStream_t)stream>>>(
-        flat, state, x, cat, y, idx, unif, B, p1, keep1, p2, keep2, mom, omm,
-        logits, loss, stats, state_out, saved);
+    if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
+    int grid = 0;
+    cudaError_t err = fwd_grid(B, &grid);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {(void*)&flat, (void*)&state, (void*)&x, (void*)&cat,
+                    (void*)&y, (void*)&idx, (void*)&unif, (void*)&B,
+                    (void*)&p1, (void*)&keep1, (void*)&p2, (void*)&keep2,
+                    (void*)&mom, (void*)&omm, (void*)&logits, (void*)&loss,
+                    (void*)&stats, (void*)&state_out, (void*)&saved};
+    err = cudaLaunchCooperativeKernel((const void*)fme_train_fwd_kernel,
+                                      dim3(grid), dim3(kFwdThreads), args, 0,
+                                      (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+// The forward's launch geometry for a batch of B on the current device:
+// blocks, threads a block, and 1 (a cooperative launch).
+extern "C" int tpuhevc_fme_train_fwd_geometry(int B, int* grid, int* block,
+                                              int* cooperative) {
+    if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
+    *block = kFwdThreads;
+    *cooperative = 1;
+    return (int)fwd_grid(B, grid);
 }
 
 // The forward's saved (202 B,) and stats (102,), the upstream gradient
@@ -580,7 +700,7 @@ extern "C" int tpuhevc_fme_train_bwd(const float* flat, const int* cat,
                                      float keep2, const float* stats,
                                      const float* gscale, float* grad,
                                      float* work, void* stream) {
-    if (B < 1 || B > kMaxThreads) return (int)cudaErrorInvalidValue;
+    if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
     int grid = 0;
     cudaError_t err = bwd_grid(&grid);
     if (err != cudaSuccess) return (int)err;

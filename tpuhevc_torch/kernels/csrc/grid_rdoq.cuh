@@ -1,12 +1,12 @@
-// The grid step's RDOQ and sign-bit hiding of one TU by one block, for
-// grid_code.cu.
+// The grid step's RDOQ and sign-bit hiding of one TU by one group of
+// threads (a warp or the block: grid_code.cu's Group), for grid_code.cu.
 //
 // Replaces: tpuhevc/codec/inter_grid.py:399-559 (`_rdoq_tiles`,
 // `_lastpos_geom`, `rdoq_plane`) and :561-631 (`ideal_plane`,
 // `_to_cg_scan`, `_from_cg_scan`, `sbh_plane`), jnp code that XLA compiled
 // for the TPU inside the grid step.
 //
-// grid_rdoq_block, per coefficient c of the S x S TU (S = 1 << log2):
+// grid_rdoq_group, per coefficient c of the S x S TU (S = 1 << log2):
 //   ac = |c| scale, lmax = ceil(ac / 2^qbits) (float32);
 //   rice per 4x4 CG from the CG's max lmax (largest k <= 4 with
 //     3 2^k <= max, 0 unless max > 6);
@@ -40,9 +40,13 @@
 // at a zero, nor at the first level when it is 1), ideal = c scale /
 // 2^qbits in float32; the sign of a level that is 0 is the ideal's.
 //
-// What bounds it: a few hundred float operations per coefficient and the
-// scans' dependent adds (16 a block, at most 64 blocks); latency-bound at
-// these sizes. All state is in shared memory.
+// What bounds it: the latency of its dependent steps (measured per launch
+// on the H100: a launch's time does not grow with the TUs it codes), not
+// its few hundred float operations a coefficient. So the order-bound
+// serial sums that do not depend on each other run side by side on
+// different threads (the two cumulative sums and the zero-distortion
+// chunks), and SBH divides each coefficient once. All state is in the
+// group's shared memory.
 
 #pragma once
 
@@ -50,18 +54,21 @@
 
 namespace {
 
-constexpr int kRdoqMaxCg = 64;
 constexpr float kSbhInf = 1e30f;
 // scan position -> raster index in a 4x4 diagonal scan
 __constant__ int c_diag4[16] = {0, 4, 1, 8, 5, 2, 12, 9, 6, 3, 13, 10,
                                 7, 14, 11, 15};
 
-struct RdoqShared {
-    int rice[kRdoqMaxCg];
-    int keep[kRdoqMaxCg];
-    float tot[64], otot[64], o2[4], chunk[32];
-    float best_c[32];
-    int best_k[32];
+// A group's RDOQ scratch: MaxCg CGs (= 16-blocks of the cumulative sums),
+// Warps warps.
+template <int MaxCg, int Warps>
+struct RdoqSh {
+    int rice[MaxCg];
+    int keep[MaxCg];
+    float tot[2][MaxCg], otot[2][MaxCg], o2[2][4];
+    float chunk[MaxCg > 2 ? MaxCg / 2 : 1];
+    float best_c[Warps];
+    int best_k[Warps];
     float totcz;
     int pbest;
 };
@@ -113,87 +120,84 @@ __device__ __forceinline__ float rdoq_cost(float ac, float level, float s0,
     return d * d + q.lam * bits;
 }
 
-// XLA CPU's cumulative sum of x[0..n) (n = 16, 64, 256 or 1024) into out,
-// by the whole block; tot / otot / o2 are shared scratch.
-__device__ void xla_cumsum(const float* x, float* out, int n, RdoqShared* sh) {
-    const int nb = n >> 4;
-    for (int b = threadIdx.x; b < (n > 16 ? nb : 1); b += blockDim.x) {
-        float acc = x[b * 16];
-        out[b * 16] = acc;
-        for (int i = 1; i < 16; ++i) {
-            acc = acc + x[b * 16 + i];
-            out[b * 16 + i] = acc;
-        }
-        sh->tot[b] = acc;
+// Step 1 of XLA CPU's cumulative sum of x[0..n) into out (n = 16, 64, 256
+// or 1024) for block b (< n / 16, or 0 when n = 16): the block scanned
+// left to right, its total into tot[b].
+__device__ __forceinline__ void cumsum_block(const float* x, float* out,
+                                             int b, float* tot) {
+    float acc = x[b * 16];
+    out[b * 16] = acc;
+    for (int i = 1; i < 16; ++i) {
+        acc = acc + x[b * 16 + i];
+        out[b * 16 + i] = acc;
     }
-    __syncthreads();
-    if (n <= 16) return;
-    // the blocks' totals, scanned the same way (nb = 4, 16 or 64)
-    const int nb1 = nb > 16 ? nb >> 4 : 1;
-    for (int b = threadIdx.x; b < nb1; b += blockDim.x) {
-        const int len = nb > 16 ? 16 : nb;
-        float acc = sh->tot[b * len];
-        sh->otot[b * len] = acc;
-        for (int i = 1; i < len; ++i) {
-            acc = acc + sh->tot[b * len + i];
-            sh->otot[b * len + i] = acc;
-        }
-        sh->o2[b] = acc;
-    }
-    __syncthreads();
-    if (nb > 16) {  // nb = 64: four blocks of totals
-        if (threadIdx.x == 0) {
-            float acc = sh->o2[0];
-            for (int i = 1; i < nb1; ++i) {
-                acc = acc + sh->o2[i];
-                sh->o2[i] = acc;
-            }
-        }
-        __syncthreads();
-        for (int b = threadIdx.x; b < nb; b += blockDim.x)
-            if (b >= 16) sh->otot[b] = sh->otot[b] + sh->o2[(b >> 4) - 1];
-        __syncthreads();
-    }
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-        if (e >= 16) out[e] = out[e] + sh->otot[(e >> 4) - 1];
-    __syncthreads();
+    tot[b] = acc;
 }
 
-// RDOQ of the TU's coefficients A (raster) into levels L (raster). AC,
-// BEST (raster) and CCS, CZS, ICC, ICZ (scan order) are n2 floats of
-// shared memory each; the whole block calls.
-__device__ void grid_rdoq_block(const int* A, int* L, float* AC, float* BEST,
-                                float* CCS, float* CZS, float* ICC,
-                                float* ICZ, int log2,
+// Step 2: the totals of nb = n / 16 blocks (4, 16 or 64), scanned in
+// blocks of 16 (or of nb), the j-th's running sums into otot, its total
+// into o2[j].
+__device__ __forceinline__ void cumsum_totals(const float* tot, float* otot,
+                                              float* o2, int nb, int j) {
+    const int len = nb > 16 ? 16 : nb;
+    float acc = tot[j * len];
+    otot[j * len] = acc;
+    for (int i = 1; i < len; ++i) {
+        acc = acc + tot[j * len + i];
+        otot[j * len + i] = acc;
+    }
+    o2[j] = acc;
+}
+
+// The whole-TU zero distortion of CZS (scan order, n2 entries): chunk c
+// of Len (32, or the whole n2 <= 32) left to right.
+template <int Len>
+__device__ __forceinline__ float chunk_sum(const float* czs, int c) {
+    float v[Len];
+#pragma unroll
+    for (int i = 0; i < Len; ++i) v[i] = czs[c * Len + i];
+    float acc = v[0];
+#pragma unroll
+    for (int i = 1; i < Len; ++i) acc = acc + v[i];
+    return acc;
+}
+
+// RDOQ of the TU's coefficients A (raster) into levels L (raster), T =
+// 1 << LOG2. AC, BEST (raster) and CCS, CZS, ICC, ICZ (scan order) are n2
+// floats of the group's shared memory each; the whole group calls.
+template <int LOG2, class G, class Sh>
+__device__ void grid_rdoq_group(const G& g, const int* A, int* L, float* AC,
+                                float* BEST, float* CCS, float* CZS,
+                                float* ICC, float* ICZ,
                                 const int* __restrict__ itab,
                                 const float* __restrict__ ftab,
-                                const RdoqQ& q, RdoqShared* sh) {
-    const int S = 1 << log2, n2 = S * S, mask = S - 1;
-    const int cgw = S >> 2, ncg = cgw * cgw;
+                                const RdoqQ& q, Sh* sh) {
+    constexpr int log2 = LOG2, S = 1 << log2, n2 = S * S, mask = S - 1;
+    constexpr int cgw = S >> 2, ncg = cgw * cgw;
     const int* scan_pos = itab;
     const int* scan_x = itab + n2;
     const int* scan_y = itab + 2 * n2;
     const int* group_idx = itab + 3 * n2 + ncg;
     const EstF e{ftab, n2};
-    // ceiling levels
-    for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    // the ceiling levels, then each CG's rice parameter from their max
+    for (int i = g.rank; i < n2; i += G::kSize) {
         const float ac = (float)abs(A[i]) * q.scale;
         AC[i] = ac;
         BEST[i] = ceilf(ac / q.q2);
     }
-    __syncthreads();
-    for (int g = threadIdx.x; g < ncg; g += blockDim.x) {
-        const int cy = g / cgw, cx = g - cy * cgw;
+    g.sync();
+    for (int c = g.rank; c < ncg; c += G::kSize) {
+        const int cy = c / cgw, cx = c - cy * cgw;
         float mx = 0.0f;
         for (int i = 0; i < 16; ++i)
             mx = fmaxf(mx, BEST[(cy * 4 + (i >> 2)) * S + cx * 4 + (i & 3)]);
         int k = 0;
         for (int j = 1; j <= 4; ++j) k += mx >= (float)(3 << j);
-        sh->rice[g] = mx > 6.0f ? k : 0;
+        sh->rice[c] = mx > 6.0f ? k : 0;
     }
-    __syncthreads();
+    g.sync();
     // per coefficient: ceil, ceil - 1 or 0; the CG trial's coded cost
-    for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    for (int i = g.rank; i < n2; i += G::kSize) {
         const int y = i >> log2, x = i & mask;
         const bool cg0 = y < 4 && x < 4;
         const int rice = sh->rice[(y >> 2) * cgw + (x >> 2)];
@@ -212,33 +216,33 @@ __device__ void grid_rdoq_block(const int* A, int* L, float* AC, float* BEST,
         const float acn = ac / q.err_den;
         CZS[i] = acn * acn;
     }
-    __syncthreads();
+    g.sync();
     const float lc1 = q.lam * e.csbf(1), lc0 = q.lam * e.csbf(0);
-    for (int g = threadIdx.x; g < ncg; g += blockDim.x) {
-        const int cy = g / cgw, cx = g - cy * cgw;
+    for (int c = g.rank; c < ncg; c += G::kSize) {
+        const int cy = c / cgw, cx = c - cy * cgw;
         const int o = cy * 4 * S + cx * 4;
         float ck = CCS[o], cz = CZS[o];
         for (int i = 1; i < 16; ++i) {
             ck = ck + CCS[o + (i >> 2) * S + (i & 3)];
             cz = cz + CZS[o + (i >> 2) * S + (i & 3)];
         }
-        sh->keep[g] = ck + lc1 <= cz + lc0;
+        sh->keep[c] = ck + lc1 <= cz + lc0;
     }
-    __syncthreads();
+    g.sync();
     // the walk-back's per-position costs, in scan order
     const float c16_1 = e.csbf(1) / 16.0f, lc16_0 = lc0 / 16.0f;
-    for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    for (int i = g.rank; i < n2; i += G::kSize) {
         const int y = i >> log2, x = i & mask;
-        const int g = (y >> 2) * cgw + (x >> 2);
+        const int c = (y >> 2) * cgw + (x >> 2);
         const float ac = AC[i];
         const float acn = ac / q.err_den;
         const float czp = acn * acn;
         float cc;
-        if (sh->keep[g]) {
+        if (sh->keep[c]) {
             const float best = BEST[i];
             const float d = (ac - best * q.q2) / q.err_den;
             const float bits = best > 0.0f
-                ? rdoq_lvl_bits(best, sh->rice[g], e.sig(y, x, S, 1),
+                ? rdoq_lvl_bits(best, sh->rice[c], e.sig(y, x, S, 1),
                                 y < 4 && x < 4, e)
                 : e.sig(y, x, S, 0);
             cc = d * d + q.lam * (bits + c16_1);
@@ -250,26 +254,63 @@ __device__ void grid_rdoq_block(const int* A, int* L, float* AC, float* BEST,
         CCS[k] = cc;
         CZS[k] = czp;
     }
-    __syncthreads();
-    // the whole-TU zero distortion: chunks of 32, then the chunks
-    const int nch = n2 > 32 ? n2 >> 5 : 1, clen = n2 > 32 ? 32 : n2;
-    for (int c = threadIdx.x; c < nch; c += blockDim.x) {
-        float acc = CZS[c * clen];
-        for (int i = 1; i < clen; ++i) acc = acc + CZS[c * clen + i];
-        sh->chunk[c] = acc;
+    g.sync();
+    // side by side: the blocks of both cumulative sums (CCS -> ICC, CZS ->
+    // ICZ) and the whole-TU zero distortion's chunks
+    constexpr int nb = n2 >> 4;  // 16-blocks (1, 4, 16, 64)
+    constexpr int nch = n2 > 32 ? n2 >> 5 : 1, clen = n2 > 32 ? 32 : n2;
+    for (int t = g.rank; t < 2 * nb + nch; t += G::kSize) {
+        if (t < nb)
+            cumsum_block(CCS, ICC, t, sh->tot[0]);
+        else if (t < 2 * nb)
+            cumsum_block(CZS, ICZ, t - nb, sh->tot[1]);
+        else
+            sh->chunk[t - 2 * nb] = chunk_sum<clen>(CZS, t - 2 * nb);
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        float acc = sh->chunk[0];
-        for (int c = 1; c < nch; ++c) acc = acc + sh->chunk[c];
-        sh->totcz = acc;
+    g.sync();
+    // the blocks' totals scanned (n2 > 16), and the chunks added
+    constexpr int nb1 = nb > 16 ? nb >> 4 : 1;
+    for (int t = g.rank; t < 2 * nb1 + 1; t += G::kSize) {
+        if (t < 2 * nb1) {
+            const int a = t < nb1 ? 0 : 1;
+            if (n2 > 16)
+                cumsum_totals(sh->tot[a], sh->otot[a], sh->o2[a], nb,
+                              t - a * nb1);
+        } else {
+            float acc = sh->chunk[0];
+            for (int c = 1; c < nch; ++c) acc = acc + sh->chunk[c];
+            sh->totcz = acc;
+        }
     }
-    xla_cumsum(CCS, ICC, n2, sh);  // (its first barrier publishes totcz)
-    xla_cumsum(CZS, ICZ, n2, sh);
+    g.sync();
+    if (nb > 16) {  // nb = 64: four blocks of totals a sum
+        if (g.rank < 2) {
+            float* o2 = sh->o2[g.rank];
+            float acc = o2[0];
+            for (int i = 1; i < nb1; ++i) {
+                acc = acc + o2[i];
+                o2[i] = acc;
+            }
+        }
+        g.sync();
+        for (int t = g.rank; t < 2 * nb; t += G::kSize) {
+            const int a = t < nb ? 0 : 1, b = t - a * nb;
+            if (b >= 16) sh->otot[a][b] = sh->otot[a][b] + sh->o2[a][(b >> 4) - 1];
+        }
+        g.sync();
+    }
+    if (n2 > 16) {
+        for (int t = g.rank; t < 2 * n2; t += G::kSize) {
+            const int a = t < n2 ? 0 : 1, i = t - a * n2;
+            float* out = a ? ICZ : ICC;
+            if (i >= 16) out[i] = out[i] + sh->otot[a][(i >> 4) - 1];
+        }
+        g.sync();
+    }
     // first least cost over scan positions with a nonzero level
     float bc = __int_as_float(0x7f800000);  // +inf
     int bk = n2;
-    for (int k = threadIdx.x; k < n2; k += blockDim.x) {
+    for (int k = g.rank; k < n2; k += G::kSize) {
         const int sx = scan_x[k], sy = scan_y[k];
         if (BEST[sy * S + sx] <= 0.0f) continue;
         const float ccs = CCS[k];
@@ -292,16 +333,16 @@ __device__ void grid_rdoq_block(const int* A, int* L, float* AC, float* BEST,
             bk = ok;
         }
     }
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int lane = g.rank & 31, warp = g.rank >> 5;
     if (lane == 0) {
         sh->best_c[warp] = bc;
         sh->best_k[warp] = bk;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
+    g.sync();
+    if (g.rank == 0) {
         float c = sh->best_c[0];
         int k = sh->best_k[0];
-        for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+        for (int w = 1; w < G::kWarps; ++w)
             if (sh->best_c[w] < c
                 || (sh->best_c[w] == c && sh->best_k[w] < k)) {
                 c = sh->best_c[w];
@@ -310,22 +351,24 @@ __device__ void grid_rdoq_block(const int* A, int* L, float* AC, float* BEST,
         // no nonzero level: the reference's argmin of all-inf is 0
         sh->pbest = k < n2 ? k : 0;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    g.sync();
+    for (int i = g.rank; i < n2; i += G::kSize) {
         const int best = scan_pos[i] <= sh->pbest ? (int)BEST[i] : 0;
         const int c = A[i];
         const int l = c < 0 ? -best : (c > 0 ? best : 0);
         L[i] = min(max(l, -q.lim), q.lim);
     }
-    __syncthreads();
+    g.sync();
 }
 
-// Sign-bit hiding of CG g (raster index in the TU) of the levels L, with
-// the coefficients A; one thread.
-__device__ void grid_sbh_cg(int* L, const int* A, int g, int log2,
-                            float scale, float q2, int lim) {
-    const int S = 1 << log2, cgw = S >> 2;
-    const int cy = g / cgw, cx = g - cy * cgw;
+// Sign-bit hiding of CG c (raster index in the T x T TU, T = 1 << LOG2)
+// of the levels L, with the coefficients A; one thread. Each
+// coefficient's ideal level is divided once.
+template <int LOG2>
+__device__ void grid_sbh_cg(int* L, const int* A, int c, float scale,
+                            float q2, int lim) {
+    constexpr int S = 1 << LOG2, cgw = S >> 2;
+    const int cy = c / cgw, cx = c - cy * cgw;
     int idx[16], lv[16];
     int first = 16, last = -1, asum = 0;
     for (int p = 0; p < 16; ++p) {
@@ -341,12 +384,15 @@ __device__ void grid_sbh_cg(int* L, const int* A, int g, int log2,
     if (last - first < 4) return;
     const bool want = lv[min(first, 15)] < 0;
     if (((asum & 1) != 0) == want) return;
+    float iv[16];
+#pragma unroll
+    for (int p = 0; p < 16; ++p) iv[p] = ((float)A[idx[p]] * scale) / q2;
     float bc = kSbhInf;
     int bi = 0;
     for (int j = 0; j < 32; ++j) {
         const int p = j & 15;
         const int a = abs(lv[p]);
-        const float ia = fabsf(((float)A[idx[p]] * scale) / q2);
+        const float ia = fabsf(iv[p]);
         float err = kSbhInf;
         if (p >= first && p <= last) {
             if (j < 16) {
@@ -363,12 +409,10 @@ __device__ void grid_sbh_cg(int* L, const int* A, int g, int log2,
     const int p = bi & 15;
     const int dabs = bi < 16 ? 1 : -1;
     int sgn;
-    if (lv[p] != 0) {
+    if (lv[p] != 0)
         sgn = lv[p] > 0 ? 1 : -1;
-    } else {
-        const float iv = ((float)A[idx[p]] * scale) / q2;
-        sgn = iv >= 0.0f ? 1 : -1;
-    }
+    else
+        sgn = iv[p] >= 0.0f ? 1 : -1;
     L[idx[p]] = lv[p] + sgn * dabs;
 }
 

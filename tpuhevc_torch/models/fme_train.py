@@ -65,7 +65,11 @@ def train_step(flat, state, data: FmeData, idx, unif, opt: AdamState,
     """One step of train_fme in place on flat and opt: the forward on the
     batch rows idx with the dropout uniforms unif, the gradient of the
     mean loss (one: a 0-dim 1.0 on flat's device), the Adam update.
-    Returns the forward's out (loss, new running statistics)."""
+    Returns the forward's out (loss, new running statistics). On the card
+    the forward and the backward write into their bindings' buffers:
+    out.loss is the step's own, out.state one of two buffers that
+    alternate from step to step, the rest is overwritten by the next
+    step."""
     out = fme_train_fwd(flat, state, data, idx, unif, cfg.dropouts,
                         cfg.bn_momentum)
     g = fme_train_bwd(flat, data, idx, unif, cfg.dropouts, out.saved,

@@ -186,9 +186,10 @@ class NNFME(nn.Module):
                              persistent=False)
 
     @classmethod
-    def from_numpy(cls, p: dict, device="cpu") -> "NNFME":
+    def from_numpy(cls, p: dict, device) -> "NNFME":
         """From a dict of numpy arrays (all 15 `PARAM_KEYS`, shapes as
-        `_check_shapes`), as the loaders return it."""
+        `_check_shapes`), as the loaders return it, on `device` (named by
+        the caller: no default)."""
         missing = set(PARAM_KEYS) - set(p)
         if missing:
             raise KeyError(f"NN-FME weights lack {sorted(missing)}")
@@ -419,10 +420,11 @@ class NNFMETrain(nn.Module):
             self.register_buffer(k, v)
 
     @classmethod
-    def from_numpy(cls, params: dict, state: dict, device="cpu"
+    def from_numpy(cls, params: dict, state: dict, device
                    ) -> "NNFMETrain":
         """From the JAX package's dicts (`init_train_params`'s 13 keys and
-        `init_bn_state`'s 6), as numpy arrays."""
+        `init_bn_state`'s 6), as numpy arrays, on `device` (named by the
+        caller: no default)."""
         flat = torch.as_tensor(flatten_np(params, TRAIN_SHAPES), device=device)
         st = torch.as_tensor(flatten_np(state, STATE_SHAPES), device=device)
         return cls(flat, st)

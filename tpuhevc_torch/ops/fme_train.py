@@ -18,9 +18,16 @@ and the `optax.adam(lr)` update (352, 366-368).
   `kernels.LAUNCHES`.
 - `FmeTrainLoss`: a `torch.autograd.Function` whose forward is
   `fme_train_fwd` and whose backward is `fme_train_bwd`.
-- On the card `fme_train_bwd` and `fme_adam` check and bind the tensors
-  that stay from step to step once (kept in the `FmeData` and the
-  `AdamState`) and check only a step's own tensors on each call.
+- On the card the three wrappers check and bind the tensors that stay
+  from step to step once (kept in the `FmeData` and the `AdamState`) and
+  check only a step's own tensors on each call. The forward and the
+  backward write into buffers kept in the binding: the next call
+  overwrites the logits, statistics, saved activations, gradient and
+  scratch, the new running statistics alternate between two buffers (so
+  one step's `state` is the next step's input), and each call's loss is a
+  slot of its own. The buffers are reused in stream order, so calls that
+  share a binding run on one stream; a caller that keeps an output past
+  the next call clones it (as `FmeTrainLoss` does).
 
 Layouts: the trained arrays flat (`models.nnfme.TRAIN_KEYS`, 2042 floats),
 the running statistics flat (`STATE_KEYS`, 102), a batch as int32 row
@@ -46,7 +53,8 @@ from ..models.nnfme import (N_STATE, N_TRAIN, STATE_SHAPES, TRAIN_SHAPES,
 UNIF_COLS = 42  # dropout uniforms a sample: 22 after BN1, 20 after BN2
 SAVED_ROWS = 202  # the forward's saved rows a sample (fme_train.cu kSaved)
 WORK_ROWS = 150  # the backward's scratch rows a sample (kWork)
-MAX_BATCH = 1024  # the forward: one thread a sample, one block
+MAX_BATCH = 1024  # the forward's batch sums: at most 32 samples a lane
+LOSS_SLOTS = 1024  # the forward's losses: slots allocated at once
 
 
 @dataclass
@@ -59,6 +67,8 @@ class FmeData:
     y: torch.Tensor
     launch: "_BwdLaunch | None" = field(default=None, repr=False,
                                         compare=False)
+    fwd_launch: "_FwdLaunch | None" = field(default=None, repr=False,
+                                            compare=False)
 
     @classmethod
     def from_numpy(cls, xs, hcat, wcat, labels, device) -> "FmeData":
@@ -194,10 +204,14 @@ def _check_batch(idx, unif, dev) -> int:
     return b
 
 
+def _f32(v) -> float:
+    """v rounded once to float32 (as the kernels take their constants)."""
+    return float(np.float32(v))
+
+
 def _drop_args(dropouts) -> tuple:
-    p1, p2 = (float(np.float32(p)) for p in dropouts)
-    return (p1, float(np.float32(1 - dropouts[0])), p2,
-            float(np.float32(1 - dropouts[1])))
+    p1, p2 = dropouts
+    return _f32(p1), _f32(1 - p1), _f32(p2), _f32(1 - p2)
 
 
 def _stream(dev: torch.device) -> int:
@@ -205,9 +219,75 @@ def _stream(dev: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
+_FWD_ARGS = [kbuild.P] * 7 + [kbuild.I] + [kbuild.F] * 6 + [kbuild.P] * 6
 _BWD_ARGS = ([kbuild.P] * 5 + [kbuild.P, kbuild.I] + [kbuild.F] * 4
              + [kbuild.P] * 5)
 _ADAM_ARGS = [kbuild.P] * 6 + [kbuild.I, kbuild.F, kbuild.P]
+
+
+class _FwdLaunch:
+    """fme_train_fwd bound to (flat, data, dropouts, momentum): those
+    tensors checked, the function, the float constants and the pointers
+    taken once; kept in data while the same flat and data tensors (by
+    identity), dropouts and momentum come back. Holds the output buffers
+    of a batch size: logits, statistics, saved rows, two running-state
+    buffers and the loss slots."""
+
+    def __init__(self, flat, data: FmeData, dropouts, momentum):
+        dev = flat.device
+        _check_model(flat, data, dev)
+        self.key = (flat, data.x, data.cat, data.y, tuple(dropouts),
+                    momentum)
+        self.dev = dev
+        self.fn = kbuild.function("fme_train", "tpuhevc_fme_train_fwd",
+                                  _FWD_ARGS)
+        self.head = (flat.data_ptr(),)
+        self.data = (data.x.data_ptr(), data.cat.data_ptr(),
+                     data.y.data_ptr())
+        self.consts = (*_drop_args(dropouts), _f32(momentum),
+                       _f32(1 - momentum))
+        self.b = 0  # the batch size of the buffers
+        self.states: tuple = ()
+        self.slots: list = []
+
+    def serves(self, flat, data: FmeData, dropouts, momentum) -> bool:
+        return (all(a is b for a, b in zip(self.key, (
+            flat, data.x, data.cat, data.y)))
+            and self.key[4:] == (tuple(dropouts), momentum))
+
+    def _outputs(self, b: int, state):
+        """(logits, loss, stats, new state, saved) to write."""
+        dev = self.dev
+        if b != self.b:
+            self.b = b
+            self.logits = torch.empty((b, 49), dtype=torch.float32,
+                                      device=dev)
+            self.stats = torch.empty(N_STATE, dtype=torch.float32, device=dev)
+            self.saved = torch.empty(SAVED_ROWS * b, dtype=torch.float32,
+                                     device=dev)
+            self.states = tuple(torch.empty(N_STATE, dtype=torch.float32,
+                                            device=dev) for _ in range(2))
+        if not self.slots:
+            log = torch.empty(LOSS_SLOTS, dtype=torch.float32, device=dev)
+            self.slots = list(reversed(log.unbind()))
+        loss = self.slots.pop()
+        new = self.states[1] if state is self.states[0] else self.states[0]
+        return self.logits, loss, self.stats, new, self.saved
+
+    def __call__(self, state, idx, unif) -> FwdOut:
+        dev = self.dev
+        b = _check_batch(idx, unif, dev)
+        if not any(state is s for s in self.states):
+            check_tensor(state, "state", torch.float32, 1, dev)
+            if state.shape[0] != N_STATE:
+                raise ValueError(f"fme_train_fwd: state {tuple(state.shape)}")
+        outs = self._outputs(b, state)
+        err = self.fn(*self.head, state.data_ptr(), *self.data,
+                      idx.data_ptr(), unif.data_ptr(), b, *self.consts,
+                      *(o.data_ptr() for o in outs), _stream(dev))
+        kbuild.check(err, "fme_train_fwd")
+        LAUNCHES["fme_train_fwd"] += 1
+        return FwdOut(*outs)
 
 
 def fme_train_fwd(flat, state, data: FmeData, idx, unif, dropouts=(0.001, 0.01),
@@ -216,43 +296,29 @@ def fme_train_fwd(flat, state, data: FmeData, idx, unif, dropouts=(0.001, 0.01),
     the training forward with batch statistics and the dropout masks of
     unif (B, 42), and returns the logits, the mean loss, the batch
     statistics, the updated running statistics and (CUDA) the saved
-    activations. CPU tensors take the plain version."""
+    activations. One cooperative launch over the card, every sum over the
+    batch one warp's in a fixed order. flat and data are checked and bound
+    on the first call for these tensors, dropouts and momentum, and kept
+    in data; state is checked unless it is one of the binding's state
+    buffers. On the card the outputs are the binding's buffers (the
+    module's docstring). CPU tensors take the plain version."""
     if flat.device.type == "cpu":
         return fme_train_fwd_plain(flat, state, data, idx, unif, dropouts,
                                    momentum)
     if flat.device.type != "cuda":
         raise ValueError(f"fme_train_fwd: unsupported device {flat.device}")
-    dev = flat.device
-    _check_model(flat, data, dev)
-    b = _check_batch(idx, unif, dev)
-    check_tensor(state, "state", torch.float32, 1, dev)
-    if state.shape[0] != N_STATE:
-        raise ValueError(f"fme_train_fwd: state {tuple(state.shape)}")
-    logits = torch.empty((b, 49), dtype=torch.float32, device=dev)
-    loss = torch.empty((), dtype=torch.float32, device=dev)
-    stats = torch.empty(N_STATE, dtype=torch.float32, device=dev)
-    new = torch.empty(N_STATE, dtype=torch.float32, device=dev)
-    saved = torch.empty(SAVED_ROWS * b, dtype=torch.float32, device=dev)
-    fn = kbuild.function("fme_train", "tpuhevc_fme_train_fwd",
-                         [kbuild.P] * 6 + [kbuild.P, kbuild.I] + [kbuild.F] * 6
-                         + [kbuild.P] * 6)
-    err = fn(flat.data_ptr(), state.data_ptr(), data.x.data_ptr(),
-             data.cat.data_ptr(), data.y.data_ptr(), idx.data_ptr(),
-             unif.data_ptr(), b, *_drop_args(dropouts),
-             float(np.float32(momentum)), float(np.float32(1 - momentum)),
-             logits.data_ptr(), loss.data_ptr(), stats.data_ptr(),
-             new.data_ptr(), saved.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(err, "fme_train_fwd")
-    LAUNCHES["fme_train_fwd"] += 1
-    return FwdOut(logits, loss, stats, new, saved)
+    lf = data.fwd_launch
+    if lf is None or not lf.serves(flat, data, dropouts, momentum):
+        lf = data.fwd_launch = _FwdLaunch(flat, data, dropouts, momentum)
+    return lf(state, idx, unif)
 
 
 class _BwdLaunch:
     """fme_train_bwd bound to (flat, data, dropouts): those tensors checked,
     the function, the dropout constants and their pointers taken once;
     kept in data while the same flat and data tensors (by identity) and
-    dropouts come back."""
+    dropouts come back. Holds the gradient and scratch rows of a batch
+    size."""
 
     def __init__(self, flat, data: FmeData, dropouts):
         dev = flat.device
@@ -263,11 +329,22 @@ class _BwdLaunch:
                                   _BWD_ARGS)
         self.head = (flat.data_ptr(), data.cat.data_ptr(), data.y.data_ptr())
         self.drop = _drop_args(dropouts)
+        self.b = 0  # the batch size of the buffers
 
     def serves(self, flat, data: FmeData, dropouts) -> bool:
         return (all(a is b for a, b in zip(self.key, (
             flat, data.x, data.cat, data.y)))
             and self.key[-1] == tuple(dropouts))
+
+    def _outputs(self, b: int):
+        """(grad, work) to write."""
+        dev = self.dev
+        if b != self.b:
+            self.b = b
+            self.grad = torch.empty(N_TRAIN, dtype=torch.float32, device=dev)
+            self.work = torch.empty(WORK_ROWS * b, dtype=torch.float32,
+                                    device=dev)
+        return self.grad, self.work
 
     def __call__(self, idx, unif, saved, stats, gloss) -> torch.Tensor:
         dev = self.dev
@@ -278,8 +355,7 @@ class _BwdLaunch:
         if saved.shape[0] != SAVED_ROWS * b or stats.shape[0] != N_STATE:
             raise ValueError(f"fme_train_bwd: saved {tuple(saved.shape)}, "
                              f"stats {tuple(stats.shape)} for a batch of {b}")
-        grad = torch.empty(N_TRAIN, dtype=torch.float32, device=dev)
-        work = torch.empty(WORK_ROWS * b, dtype=torch.float32, device=dev)
+        grad, work = self._outputs(b)
         err = self.fn(*self.head, idx.data_ptr(), unif.data_ptr(),
                       saved.data_ptr(), b, *self.drop, stats.data_ptr(),
                       gloss.data_ptr(), grad.data_ptr(), work.data_ptr(),
@@ -296,8 +372,9 @@ def fme_train_bwd(flat, data: FmeData, idx, unif, dropouts, saved, stats,
     batch statistics; one cooperative launch over the card, every sum over
     the batch one warp's in a fixed order, no atomics (two runs give the
     same bits). flat and data are checked and bound on the first call for
-    these tensors and dropouts, and kept in data. CPU tensors take the
-    plain version (autograd of the plain forward)."""
+    these tensors and dropouts, and kept in data; on the card the gradient
+    and the scratch rows are the binding's (the module's docstring). CPU
+    tensors take the plain version (autograd of the plain forward)."""
     if flat.device.type == "cpu":
         return fme_train_bwd_plain(flat, data, idx, unif, dropouts, gloss)
     if flat.device.type != "cuda":
@@ -308,14 +385,25 @@ def fme_train_bwd(flat, data: FmeData, idx, unif, dropouts, saved, stats,
                        gloss.reshape(()).contiguous())
 
 
-def bwd_geometry(dev) -> dict:
-    """The backward's launch on dev: {grid, block, cooperative}."""
-    fn = kbuild.function("fme_train", "tpuhevc_fme_train_bwd_geometry",
-                         [kbuild.P] * 3)
+def _geometry(dev, symbol, what, *head) -> dict:
+    fn = kbuild.function("fme_train", symbol,
+                         [kbuild.I] * len(head) + [kbuild.P] * 3)
     out = [ctypes.c_int(0) for _ in range(3)]
     with on_device(dev):
-        kbuild.check(fn(*(ctypes.byref(o) for o in out)), "fme_train_bwd")
+        kbuild.check(fn(*head, *(ctypes.byref(o) for o in out)), what)
     return dict(zip(("grid", "block", "cooperative"), (o.value for o in out)))
+
+
+def fwd_geometry(dev, b: int) -> dict:
+    """The forward's launch on dev for a batch of b: {grid, block,
+    cooperative}."""
+    return _geometry(dev, "tpuhevc_fme_train_fwd_geometry", "fme_train_fwd",
+                     b)
+
+
+def bwd_geometry(dev) -> dict:
+    """The backward's launch on dev: {grid, block, cooperative}."""
+    return _geometry(dev, "tpuhevc_fme_train_bwd_geometry", "fme_train_bwd")
 
 
 def _check_vec(t, name, n, dev) -> None:
@@ -343,7 +431,7 @@ class _AdamLaunch:
         self.head = (flat.data_ptr(),)
         self.tail = (opt.m.data_ptr(), opt.v.data_ptr(),
                      opt.count.data_ptr(), opt.ticket.data_ptr(), n,
-                     float(np.float32(-lr)))
+                     _f32(-lr))
 
     def serves(self, flat, opt: AdamState, lr) -> bool:
         return (all(a is b for a, b in zip(self.key, (
@@ -374,19 +462,23 @@ def fme_adam(flat, grad, opt: AdamState, lr) -> None:
 class FmeTrainLoss(torch.autograd.Function):
     """loss, new_state = FmeTrainLoss.apply(flat, state, data, idx, unif,
     dropouts, momentum): the mean loss of one batch, differentiable in
-    flat, through `fme_train_fwd`; its backward is `fme_train_bwd`."""
+    flat, through `fme_train_fwd`; its backward is `fme_train_bwd`. What
+    it saves, returns or hands to autograd is cloned out of the wrappers'
+    buffers, which their next calls overwrite."""
 
     @staticmethod
     def forward(ctx, flat, state, data, idx, unif, dropouts, momentum):
         out = fme_train_fwd(flat, state, data, idx, unif, dropouts, momentum)
         ctx.data, ctx.dropouts = data, dropouts
-        ctx.save_for_backward(flat, idx, unif, out.saved, out.stats)
-        ctx.mark_non_differentiable(out.state)
-        return out.loss, out.state
+        saved = None if out.saved is None else out.saved.clone()
+        ctx.save_for_backward(flat, idx, unif, saved, out.stats.clone())
+        new_state = out.state.clone()
+        ctx.mark_non_differentiable(new_state)
+        return out.loss, new_state
 
     @staticmethod
     def backward(ctx, gloss, _gstate):
         flat, idx, unif, saved, stats = ctx.saved_tensors
         g = fme_train_bwd(flat, ctx.data, idx, unif, ctx.dropouts, saved,
                           stats, gloss)
-        return g, None, None, None, None, None, None
+        return g.clone(), None, None, None, None, None, None

@@ -25,8 +25,16 @@ transforms of :342-383, the flat quantiser or the grid's RDOQ
 
 Chroma runs the same function over the packed [U | V] plane at the
 chroma QP with the chroma lambda, estimator and cbf bits. `grid_code_plain`
-is the PyTorch version; `grid_code` launches `kernels/csrc/grid_code.cu`
-(RDOQ and SBH in `grid_rdoq.cuh`) for CUDA tensors.
+is the PyTorch version; `grid_code_batch` launches
+`kernels/csrc/grid_code.cu` (RDOQ and SBH in `grid_rdoq.cuh`) for CUDA
+tensors, up to eight planes (the class coding's luma and chroma at each
+RQT depth) in one launch.
+
+lam and the cbf bits (cbf0, cbf1) are float32 values: the plain version
+takes them as Python floats or as tensors (a 0-dim lam, a (2,) cbf), the
+kernel only as tensors on its device, which it reads on the card. So a
+call on the card copies nothing between the host and the device and never
+waits for the stream (a float there would need an upload, which syncs).
 
 The RDOQ's float32 sums follow the order in which XLA's CPU backend adds
 them (measured against `inter_grid._PROBES["rdoq_plane"]`): a 4x4 CG sum
@@ -39,10 +47,12 @@ right.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_tensor, on_device
 from ..entropy.bitest import EstTables, tu_bits_plain
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
@@ -54,6 +64,7 @@ from .transforms import (dequant_params, forward_transform, inverse_transform,
                          quant_params)
 
 F32 = np.float32
+_CODE_ARGS = [kbuild.P, kbuild.P] + [kbuild.I] * 4 + [kbuild.P]
 SBH_INF = 1e30  # the reference's stand-in for an impossible SBH change
 
 
@@ -270,17 +281,26 @@ def sbh_tiles(lvl: torch.Tensor, ideal: torch.Tensor,
     return _from_cg_rows(lv + delta, n, S)
 
 
+def _f32_on(v, dev) -> torch.Tensor:
+    """v (a Python float or a tensor) as a float32 tensor on dev."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dev, torch.float32)
+    return torch.tensor(v, dtype=torch.float32, device=dev)
+
+
 def grid_code_plain(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
-                    lam: float, est: EstTables, cbf0: float, cbf1: float,
-                    lvl8: bool, rdoq: bool = False, sbh: bool = False):
-    """orig, pred (h, w) int32 -> (lvl, rec (h, w) int32; d, bits
-    (h/T, w/T) float32; cbf (h/T, w/T) int32; d_skip float32)."""
+                    lam, est: EstTables, cbf, lvl8: bool, rdoq: bool = False,
+                    sbh: bool = False):
+    """orig, pred (h, w) int32, lam (a float or a 0-dim tensor), cbf (the
+    cbf bits cbf0, cbf1: two floats or a (2,) tensor) -> (lvl, rec (h, w)
+    int32; d, bits (h/T, w/T) float32; cbf (h/T, w/T) int32; d_skip
+    float32)."""
     h, w = orig.shape
     log2 = T.bit_length() - 1
     scale, add, qbits = quant_params(qp, log2, 8, False)
     lim = 127 if lvl8 else 32767
     g = (h // T, w // T)
-    lam32 = torch.tensor(lam, dtype=torch.float32, device=orig.device)
+    lam32 = _f32_on(lam, orig.device)
     c = forward_transform(blocks(orig - pred, T, *g)).long()
     if rdoq:
         lv = rdoq_tiles(c, qp, log2, lam32, est, lim)
@@ -301,8 +321,7 @@ def grid_code_plain(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
     d_coded = ((ot - rec) ** 2).sum(dim=(1, 2)).int().float()
     lvt = lv.int()
     bits = tu_bits_plain(est, lvt, sbh)
-    c0 = torch.tensor(cbf0, dtype=torch.float32, device=orig.device)
-    c1 = torch.tensor(cbf1, dtype=torch.float32, device=orig.device)
+    c0, c1 = _f32_on(cbf[0], orig.device), _f32_on(cbf[1], orig.device)
     drop = d_skip + lam32 * c0 <= d_coded + lam32 * (bits + c1)
     lvt = torch.where(drop[:, None, None], 0, lvt)
     rec = torch.where(drop[:, None, None], pt, rec)
@@ -314,6 +333,9 @@ def grid_code_plain(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
 
 
 _DCT32: dict = {}
+MAX_JOBS = 8  # planes a launch (grid_code.cu kMaxSeg)
+_QUANT: dict = {}  # (T, qp) -> (log2, scale, add, qbits, dqscale, dqshift)
+_CHECKED = weakref.WeakKeyDictionary()  # EstTables -> the device checked
 
 
 def _init(dev: torch.device) -> None:
@@ -321,51 +343,93 @@ def _init(dev: torch.device) -> None:
         return
     t = np.ascontiguousarray(dct_matrix(32), dtype=np.int32)
     fn = kbuild.function("grid_code", "tpuhevc_grid_code_init", [kbuild.P])
-    kbuild.check(fn(t.ctypes.data), "grid_code init")
+    with on_device(dev):
+        kbuild.check(fn(t.ctypes.data), "grid_code init")
     _DCT32[dev.index] = True
 
 
-def grid_code(orig: torch.Tensor, pred: torch.Tensor, T: int, qp: int,
-              lam: float, est: EstTables, cbf0: float, cbf1: float,
-              lvl8: bool, rdoq: bool = False, sbh: bool = False):
-    """Kernel `grid_code`. CPU tensors take the plain version; CUDA
-    tensors the kernel."""
-    if orig.device.type == "cpu":
-        return grid_code_plain(orig, pred, T, qp, lam, est, cbf0, cbf1, lvl8,
-                               rdoq, sbh)
-    if orig.device.type != "cuda":
-        raise ValueError(f"grid_code: unsupported device {orig.device}")
-    dev = orig.device
-    check_tensor(orig, "orig", torch.int32, 2, dev)
-    check_tensor(pred, "pred", torch.int32, 2, dev)
-    check_tensor(est.itab, "est.itab", torch.int32, 1, dev)
-    check_tensor(est.ftab, "est.ftab", torch.float32, 1, dev)
+def _quant(T: int, qp: int) -> tuple:
+    v = _QUANT.get((T, qp))
+    if v is None:
+        log2 = T.bit_length() - 1
+        v = _QUANT[(T, qp)] = (log2, *quant_params(qp, log2, 8, False),
+                               *dequant_params(qp, log2, 8))
+    return v
+
+
+def _ok(t, dtype, ndim: int, dev) -> bool:
+    return (isinstance(t, torch.Tensor) and t.dtype == dtype
+            and t.dim() == ndim and t.device == dev and t.is_contiguous())
+
+
+def _check_job(orig, pred, T, lam, est, cbf, dev) -> None:
+    """Raise unless the job is one the kernel takes (the estimator's
+    tables checked once per EstTables and device)."""
+    if not (_ok(orig, torch.int32, 2, dev) and _ok(pred, torch.int32, 2, dev)
+            and _ok(lam, torch.float32, 0, dev)
+            and _ok(cbf, torch.float32, 1, dev)):
+        check_tensor(orig, "orig", torch.int32, 2, dev)
+        check_tensor(pred, "pred", torch.int32, 2, dev)
+        check_tensor(lam, "lam", torch.float32, 0, dev)
+        check_tensor(cbf, "cbf", torch.float32, 1, dev)
+    if _CHECKED.get(est) != dev:
+        check_tensor(est.itab, "est.itab", torch.int32, 1, dev)
+        check_tensor(est.ftab, "est.ftab", torch.float32, 1, dev)
+        _CHECKED[est] = dev
     h, w = orig.shape
-    log2 = T.bit_length() - 1
-    if pred.shape != orig.shape or h % T or w % T or est.S != T or not (
-            2 <= log2 <= 5):
+    if (pred.shape != orig.shape or h % T or w % T or est.S != T
+            or not 4 <= T <= 32 or T & (T - 1) or cbf.shape[0] != 2):
         raise ValueError(f"grid_code: planes {tuple(orig.shape)}, "
-                         f"{tuple(pred.shape)}, T {T}, estimator {est.S}")
+                         f"{tuple(pred.shape)}, T {T}, estimator {est.S}, "
+                         f"cbf {tuple(cbf.shape)}")
+
+
+def grid_code_batch_plain(jobs, lvl8: bool, rdoq: bool = False,
+                          sbh: bool = False) -> list:
+    """`grid_code_plain` of each job (orig, pred, T, qp, lam, est, cbf)."""
+    return [grid_code_plain(*j, lvl8, rdoq, sbh) for j in jobs]
+
+
+def grid_code_batch(jobs, lvl8: bool, rdoq: bool = False,
+                    sbh: bool = False) -> list:
+    """Kernel `grid_code`: up to MAX_JOBS planes, each job (orig, pred, T,
+    qp, lam, est, cbf) as `grid_code_plain` takes it, in one launch (their
+    TUs side by side on the card); returns each job's outputs, in order.
+    CPU tensors take the plain version, job by job; on CUDA lam is a 0-dim
+    and cbf a (2,) float32 tensor on the same device, read on the card
+    (no copy, no sync)."""
+    if not jobs:
+        return []
+    dev = jobs[0][0].device
+    if dev.type == "cpu":
+        return grid_code_batch_plain(jobs, lvl8, rdoq, sbh)
+    if dev.type != "cuda":
+        raise ValueError(f"grid_code: unsupported device {dev}")
+    if len(jobs) > MAX_JOBS:
+        raise ValueError(f"grid_code: {len(jobs)} jobs, at most {MAX_JOBS}")
     _init(dev)
-    scale, add, qbits = quant_params(qp, log2, 8, False)
-    dqs, dqsh = dequant_params(qp, log2, 8)
-    g = (h // T, w // T)
-    lvl = torch.empty_like(orig)
-    rec = torch.empty_like(orig)
-    d = torch.empty(g, dtype=torch.float32, device=dev)
-    b = torch.empty_like(d)
-    cbf = torch.empty(g, dtype=torch.int32, device=dev)
-    d0 = torch.empty_like(d)
-    f32 = np.float32
-    fn = kbuild.function(
-        "grid_code", "tpuhevc_grid_code",
-        [kbuild.P] * 10 + [kbuild.I] * 11 + [kbuild.F] * 3 + [kbuild.P])
-    err = fn(orig.data_ptr(), pred.data_ptr(), est.itab.data_ptr(),
-             est.ftab.data_ptr(), lvl.data_ptr(), rec.data_ptr(),
-             d.data_ptr(), b.data_ptr(), cbf.data_ptr(), d0.data_ptr(),
-             h, w, log2, scale, add, qbits, dqs, dqsh, 127 if lvl8 else 32767,
-             int(rdoq), int(sbh), f32(lam), f32(cbf0), f32(cbf1),
-             torch.cuda.current_stream(dev).cuda_stream)
+    ptrs, ints, outs = [], [], []
+    for orig, pred, T, qp, lam, est, cbf in jobs:
+        _check_job(orig, pred, T, lam, est, cbf, dev)
+        h, w = orig.shape
+        g = (h // T, w // T)
+        out = (torch.empty_like(orig), torch.empty_like(orig),
+               torch.empty(g, dtype=torch.float32, device=dev),
+               torch.empty(g, dtype=torch.float32, device=dev),
+               torch.empty(g, dtype=torch.int32, device=dev),
+               torch.empty(g, dtype=torch.float32, device=dev))
+        ptrs += (orig.data_ptr(), pred.data_ptr(), est.itab.data_ptr(),
+                 est.ftab.data_ptr(), lam.data_ptr(), cbf.data_ptr(),
+                 *(o.data_ptr() for o in out))
+        ints += (h, w, *_quant(T, qp))
+        outs.append(out)
+    p = np.array(ptrs, np.uint64)
+    q = np.array(ints, np.int32)
+    fn = kbuild.function("grid_code", "tpuhevc_grid_code", _CODE_ARGS)
+    err = fn(p.ctypes.data, q.ctypes.data, len(jobs), 127 if lvl8 else 32767,
+             int(rdoq), int(sbh),
+             torch._C._cuda_getCurrentRawStream(dev.index))
     kbuild.check(err, "grid_code")
     LAUNCHES["grid_code"] += 1
-    return lvl, rec, d, b, cbf, d0
+    return outs
+

@@ -40,7 +40,14 @@ granted: frame 4 of the clip against frames 3..0 as its four references
 (the originals standing in for their recons), GOP position 0, the MV
 seed and collocated field of the step's first picture. One call warms
 up, then `reps` calls (default 20) are timed with CUDA events; prints
-their median and the median host time of a call.
+their median and the median host time of a call. Then kernel
+`grid_code`'s share: its launches in one such picture (recorded from the
+step, as the step makes them: each class coding's planes in one launch),
+replayed 5 times under `torch.profiler`, the device time of its kernel a
+picture (`kernel_ms`: the kernel's own time, whatever the wrapper's host
+work), and the same planes one a launch, in all and by TU size and plane,
+with the anchor's tools (RDOQ, sign hiding) and with them cut (the flat
+quantiser: `--RDOQ=0 --SignHideFlag=0`, deblocking and SAO off too).
 
 `train` is NN-FME training as `chip_smoke.py`'s path 8 runs it: the
 dataset extracted from `make_clip(416, 240, 17)` at QP 32, SearchRange
@@ -75,6 +82,8 @@ CFGS = {
     "step": ("encoder_lowdelay_P_main.cfg", []),
 }
 BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
+# step: the anchor's four tools cut (grid_code's flat quantiser)
+STEP_CUT = ["--RDOQ=0", "--SignHideFlag=0", "--SAO=0", "--LoopFilterDisable=1"]
 INTRA8_BATCH = 4  # intra8: pictures a launch, as chip_smoke.py runs it
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # train: path 8's extraction (416x240 x 17 at QP 32, SearchRange 16), the
@@ -110,13 +119,14 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
-    """`step`: the grid step's median event and host ms a picture."""
+def step_inputs(cfg, nn_by_qp, clip, dev):
+    """The grid step of cfg (TMVP as cfg asks) on frame 4 of clip against
+    frames 3..0: (step, carry, the picture's planes, the tables)."""
     from .codec import inter_grid
 
     cfg.sps.temporal_mvp_enabled = cfg.tmvp
     step = inter_grid.GridStep(cfg, nn_by_qp, dev)
-    R, W, H = step.R, step.W, step.H
+    R = step.R
 
     def dev_t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -128,6 +138,52 @@ def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
                         for r in range(R)]).astype(np.int32)))
     fu8 = dev_t(np.concatenate([p.ravel() for p in f[4]]))
     tabs = inter_grid._Tabs(inter_grid.grid_live_tables(cfg, {})[0], dev)
+    return step, carry, fu8, tabs
+
+
+def code_split(cfg, nn_by_qp, clip, dev, gpu: str, tag: str) -> None:
+    """`step`: kernel grid_code's device time in one P picture of cfg: its
+    launches recorded from the step and replayed; then each plane alone,
+    in all and by (TU size, plane shape)."""
+    from .codec import inter_grid
+
+    step, carry, fu8, tabs = step_inputs(cfg, nn_by_qp, clip, dev)
+    calls = []
+    code = inter_grid.grid_code_batch
+
+    def recorded(jobs, *a):
+        calls.append((jobs, a))
+        return code(jobs, *a)
+
+    inter_grid.grid_code_batch = recorded
+    try:
+        step.frame_step(carry, fu8, step.R, 0, tabs)
+        torch.cuda.synchronize()
+    finally:
+        inter_grid.grid_code_batch = code
+    singles = [([j], a) for jobs, a in calls for j in jobs]
+    groups: dict = {}
+    for jobs, a in singles:
+        groups.setdefault((jobs[0][2], tuple(jobs[0][0].shape)), []).append(
+            (jobs, a))
+
+    def replay(cs):
+        return kernel_ms(lambda: [code(j, *a) for j, a in cs], "grid_code")
+
+    total, alone = replay(calls), replay(singles)
+    split = {f"T{t} {h}x{w}": (len(cs), round(replay(cs), 5))
+             for (t, (h, w)), cs in sorted(groups.items())}
+    print(f"step {step.W}x{step.H}: grid_code, {tag}: {len(singles)} planes "
+          f"in {len(calls)} launches, kernel_ms {total:.5f} a picture; the "
+          f"planes one a launch {alone:.5f}, by (TU size, plane): "
+          f"{ {k: v for k, v in split.items()} } (planes, kernel_ms) | {gpu}",
+          flush=True)
+
+
+def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
+    """`step`: the grid step's median event and host ms a picture."""
+    step, carry, fu8, tabs = step_inputs(cfg, nn_by_qp, clip, dev)
+    R, W, H = step.R, step.W, step.H
     step.frame_step(carry, fu8, R, 0, tabs)
     torch.cuda.synchronize()
     ev, host = [], []
@@ -148,28 +204,55 @@ def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
           f"host ms median {float(np.median(host)):.3f} | {gpu}", flush=True)
 
 
-def device_ms(fn, n: int = DEVICE_LAUNCHES, warmup: int = 5) -> float:
+def device_ms(fn, n: int = DEVICE_LAUNCHES, warmup: int = 5,
+              tries: int = 3) -> float:
     """A launch's device time: CUDA events around n back-to-back calls of
     fn, over n, after a warm-up. The calls queue behind a device sleep, so
     the host's time to issue them is hidden and the events time the
-    device; raises if issuing them took longer than the sleep."""
+    device. Where issuing them took longer than the sleep, the sleep
+    grows past twice the issue time and the calls are timed again; raises
+    if that fails `tries` times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    s0.record()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    a.record()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    host = (time.perf_counter() - t0) * 1e3
-    b.record()
-    b.synchronize()
-    if host >= s0.elapsed_time(a):
-        raise RuntimeError(f"device_ms: issuing {n} calls took {host:.1f} ms, "
-                           f"longer than the {s0.elapsed_time(a):.1f} ms sleep")
-    return a.elapsed_time(b) / n
+    cycles = SLEEP_CYCLES
+    for _ in range(tries):
+        s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        slept = s0.elapsed_time(a)
+        if host < slept:
+            return a.elapsed_time(b) / n
+        cycles = int(cycles * (2 * host / slept + 1))
+    raise RuntimeError(f"device_ms: issuing {n} calls took {host:.1f} ms, "
+                       f"longer than the {slept:.1f} ms sleep, {tries} times")
+
+
+def kernel_ms(fn, name: str, reps: int = 5) -> float:
+    """The device time of the kernels whose name holds `name` in one call
+    of fn: the sum of their durations under torch.profiler over reps
+    calls, over reps, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if name in e.key
+             and e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError(f"kernel_ms: no device time for {name!r}")
+    return us / reps / 1e3
 
 
 def fme_dataset():
@@ -313,13 +396,20 @@ def main(argv=None) -> int:
         npz = os.path.join(tmp, "nnfme_seeded.npz")
         save_npz(npz, {32: random_params(0)})
         if args.path == "step":
-            cfg, _ = build_config(parse_args([
-                "-c", os.path.join(ROOT, "cfg", cfg_file),
-                "-wdt", str(args.width), "-hgt", str(args.height),
-                "-f", str(frames), "-q", "32", f"--NNWeightsDir={npz}"]))
-            qps = {min(max(cfg.qp + o, 0), 51) for o in cfg.gop_qp_offsets}
-            time_step(cfg, {q: random_params(0) for q in qps}, clip, dev,
-                      reps, gpu)
+            def step_cfg(extra=()):
+                cfg, _ = build_config(parse_args([
+                    "-c", os.path.join(ROOT, "cfg", cfg_file),
+                    "-wdt", str(args.width), "-hgt", str(args.height),
+                    "-f", str(frames), "-q", "32", f"--NNWeightsDir={npz}"]
+                    + list(extra)))
+                qps = {min(max(cfg.qp + o, 0), 51)
+                       for o in cfg.gop_qp_offsets}
+                return cfg, {q: random_params(0) for q in qps}
+
+            time_step(*step_cfg(), clip, dev, reps, gpu)
+            code_split(*step_cfg(), clip, dev, gpu, "the anchor's tools")
+            code_split(*step_cfg(STEP_CUT), clip, dev, gpu,
+                       "RDOQ, sign hiding, deblocking and SAO cut")
             return 0
         # bench.py names no weights: FmeMode nn runs integer-pel
         weights = [] if bench else [f"--NNWeightsDir={npz}"]
