@@ -13,12 +13,18 @@
    decision (both passes) of one all-intra picture and of one LD-P IDR,
    captured from the decision itself; the B step kernels (b_me, b_pred,
    b_txq) at every call of one random-access B picture; the grid step
-   kernels (grid_coarse, grid_refine, grid_planes, grid_satd, grid_code
-   with RDOQ and sign hiding, grid_intra16, grid_deblock, grid_sao) at
-   every call of one 416x240 P picture of the anchor LD-P cfg as shipped
-   (four references, TMVP candidates), captured from the port's grid
-   step (grid_code's calls under sync debug mode "error": lambda and the
-   cbf bits are read on the card, so no call syncs the stream; their
+   kernels (grid_coarse, grid_refine, grid_planes (also beside
+   torch.nn.functional.conv2d of its sums, the library time),
+   grid_satd's gathers, grid_satd_cost (the DC-aware CU costs and the
+   rect trial's sums: every CU class, both modes, the merge trial's three
+   candidates in one launch; torch.equal), grid_code with RDOQ and sign
+   hiding, grid_intra16, grid_deblock, grid_sao) at every call of one
+   416x240 P picture of the anchor LD-P cfg as shipped (four references,
+   TMVP candidates), captured from the port's grid step (grid_code's,
+   grid_satd's and grid_satd_cost's calls under sync debug mode "error":
+   lambda and the cbf bits are read on the card, so no call syncs the
+   stream; the event time a picture of grid_satd's and grid_satd_cost's
+   calls together; grid_code's
    device time a picture by events around 20 pictures' calls queued
    behind a device sleep; a grid_code call codes a class coding's planes
    in one launch), and grid_code again at every call of the same picture
@@ -53,7 +59,7 @@
    references, SearchRange 64, QuadtreeTUMaxDepthInter 3, TMVP, RDOQ,
    sign hiding, deblocking and SAO; QP 32, FmeMode nn with seeded
    weights), which takes the grid step (416x240 is whole 16x16 blocks),
-   with the launch counters reset just before; the eight grid kernels, K2
+   with the launch counters reset just before; the nine grid kernels, K2
    and the intra kernels (the IDR's decision) must have launched. Main path 2, all-intra: 3 pictures
    of the same clip with cfg/encoder_intra_main.cfg (RDOQ, NxN), counters
    reset just before; the four intra kernels must have launched. Main path
@@ -182,8 +188,10 @@ from tpuhevc_torch.ops.grid_me import (  # noqa: E402
     grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain,
     grid_wp_me, grid_wp_me_plain, tile_sum)
 from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
-    grid_planes, grid_planes_plain, grid_satd, grid_satd_plain, grid_subpel,
-    grid_subpel_plain, subpel_search)
+    field_cells, grid_mc, grid_mc_plain, grid_planes, grid_planes_plain,
+    grid_satd_cost, grid_satd_cost_plain, grid_subpel, grid_subpel_plain,
+    subpel_search)
+from tpuhevc_torch.ops.interp import CHROMA_TAPS, LUMA_TAPS  # noqa: E402
 from tpuhevc_torch.ops import grid_sao as grid_sao_mod  # noqa: E402
 from tpuhevc_torch.ops.grid_sao import (  # noqa: E402
     grid_sao, grid_sao_apply, grid_sao_apply_plain, grid_sao_decide,
@@ -240,7 +248,9 @@ SOURCES = {
     "grid_planes": ("tpuhevc_torch/kernels/csrc/grid_pred.cu",
                     "tpuhevc/codec/inter_grid.py:862"),
     "grid_satd": ("tpuhevc_torch/kernels/csrc/grid_pred.cu",
-                  "tpuhevc/codec/inter_grid.py:951"),
+                  "tpuhevc/codec/inter_grid.py:912"),
+    "grid_satd_cost": ("tpuhevc_torch/kernels/csrc/grid_pred.cu",
+                       "tpuhevc/codec/inter_grid.py:983"),
     "grid_code": ("tpuhevc_torch/kernels/csrc/grid_code.cu",
                   "tpuhevc/codec/inter_grid.py:1718"),
     "grid_intra16": ("tpuhevc_torch/kernels/csrc/grid_intra.cu",
@@ -273,7 +283,8 @@ TRAIN_KERNELS = ("fme_train_fwd", "fme_train_bwd", "fme_adam")
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
 G_KERNELS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
-             "grid_code", "grid_intra16", "grid_deblock", "grid_sao")
+             "grid_satd_cost", "grid_code", "grid_intra16", "grid_deblock",
+             "grid_sao")
 # the LD-P path at 416x240: the IDR's decision, the grid step and K2
 LDP_NEED = INTRA + G_KERNELS + ("grid_sao_decide", "nnfme_mlp")
 # the random-access path: the B step, the P tail's stage (K1-K4) and K2
@@ -452,8 +463,23 @@ def windows(name, a, kw):
         return [(a[0], refine_mask(a[0], a[2], a[3], a[4], a[5],
                                    a[11] if len(a) > 11
                                    else kw.get("ry_y0", 0)))]
-    if name == "grid_satd":
-        return [(a[0], gather_mask(a[0], a[1], a[2], a[3], a[4]))]
+    if name == "grid_satd":  # a class coding's luma, then U and V
+        planes_y, planes_c, mv8, ref8, look, look_c = a[:6]
+        R = planes_y.shape[0]
+        return [(planes_y, gather_mask(planes_y, mv8[None], ref8[None], 8,
+                                       look)),
+                (planes_c, gather_mask(planes_c, torch.stack([mv8, mv8]),
+                                       torch.stack([ref8, ref8 + R]), 4,
+                                       look_c))]
+    if name == "grid_satd_cost":  # each field's CUs at their MVs
+        planes, _, fields, look = a[:4]
+        mask = None
+        for fl in fields:
+            mv, ref = field_cells(fl)
+            m = gather_mask(planes, mv[None].contiguous(),
+                            ref[None].contiguous(), fl.size, look)
+            mask = m if mask is None else mask | m
+        return [(planes, mask)]
     if name == "grid_intra16":
         nh, nw, y0 = a[4], a[5], kw.get("y0", 0)
         return [(a[0], boundary_mask(a[0], 16, nh, nw, (0,), y0)),
@@ -481,10 +507,15 @@ class Work:
         self.held = {}  # data_ptr -> tensor
         self.planes = {}  # data_ptr -> (plane, samples read)
         self.ops = 0
+        self.written = 0  # outputs written into a kept buffer, per call
 
     def add(self, name, args, out, kw=None):
         kw = kw or {}
         self.ops += kernel_ops(name, args, kw)
+        if name == "grid_satd_cost":  # views of the caller's buffer
+            self.written += sum(t.nbytes for t in out)
+            kw = {k: v for k, v in kw.items() if k != "out"}
+            args, out = args[:6], ()
         for plane, mask in windows(name, args, kw):
             prev = self.planes.get(plane.data_ptr())
             self.planes[plane.data_ptr()] = (
@@ -496,8 +527,8 @@ class Work:
 
     @property
     def bytes(self):
-        return (sum(t.nbytes for p, t in self.held.items()
-                    if p not in self.planes)
+        return (self.written + sum(t.nbytes for p, t in self.held.items()
+                                   if p not in self.planes)
                 + sum(int(m.sum()) * pl.element_size()
                       for pl, m in self.planes.values()))
 
@@ -550,10 +581,12 @@ def kernel_ops(name, a, kw=None) -> int:
         hm, wm = a[3], a[4]
         return n * (P * (hm + nt) * wm * nt * 2
                     + P * P * hm * wm * (nt * 2 + 3))
-    if name == "grid_satd":  # gather; residual, butterflies, abs, sums
-        px = a[2].numel() * a[3] ** 2
-        oy = kw.get("oy", a[5] if len(a) > 5 else None)
-        return px * (12 if oy is not None else 2)
+    if name == "grid_satd":  # gather: index and load, luma and chroma
+        return a[3].numel() * (64 + 2 * 16) * 2
+    if name == "grid_satd_cost":  # gather; residual, butterflies, abs,
+        # sums a pixel; the DC-aware epilogue a CU
+        return sum(fl.rows * fl.cols * (fl.size ** 2 * 12 + 12)
+                   for fl in a[2])
     if name == "grid_code":  # transforms, quantiser, bits; RDOQ, SBH
         jobs = a[0]
         rdoq = a[2] if len(a) > 2 else False
@@ -817,7 +850,7 @@ def ra_cfg(npz, w=None, h=None, frames=None):
 
 
 # kernel name -> the wrapper the grid step calls, where they differ
-CALLED_AS = {"grid_code": "grid_code_batch"}
+CALLED_AS = {"grid_code": "grid_code_batch", "grid_satd": "grid_mc"}
 
 
 def recording(module, names, calls, no_sync=()):
@@ -977,7 +1010,8 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_coarse": (grid_coarse, grid_coarse_plain),
     "grid_refine": (grid_refine, grid_refine_plain),
     "grid_planes": (grid_planes, grid_planes_plain),
-    "grid_satd": (grid_satd, grid_satd_plain),
+    "grid_satd": (grid_mc, grid_mc_plain),
+    "grid_satd_cost": (grid_satd_cost, grid_satd_cost_plain),
     "grid_code": (grid_code_batch, grid_code_batch_plain),
     "grid_intra16": (grid_intra16, grid_intra16_plain),
     "grid_deblock": (grid_deblock, grid_deblock_plain),
@@ -1006,6 +1040,8 @@ def picture_wp(clip, R, dev):
              wp.denom_y), wp)
 
 
+# the grid step's wrappers that must not sync the stream
+NO_SYNC = ("grid_code", "grid_satd", "grid_satd_cost")
 # the grid step's launches of the whole-picture functions grid_sao
 # (statistics, decision, apply) and grid_stats (the int64 sums)
 WHOLE = {"grid_sao": ("grid_sao_stats", "grid_sao_decide"),
@@ -1047,8 +1083,9 @@ def capture_grid_calls(dev, cfg, params, names, fade=False):
     rec = [k for k in names if k not in WHOLE] + [
         k for w in names if w in WHOLE for k in WHOLE[w]]
     calls = {k: [] for k in rec}
-    # grid_code reads lambda and the cbf bits on the card: no sync a call
-    saved = recording(inter_grid, rec, calls, no_sync=("grid_code",))
+    # grid_code and grid_satd_cost read lambda (and the cbf bits) on the
+    # card: no sync a call, nor in the gathers
+    saved = recording(inter_grid, rec, calls, no_sync=NO_SYNC)
     try:
         step.frame_step(carry, fu8, R, 0, tabs, wp)
         torch.cuda.synchronize()
@@ -1083,7 +1120,8 @@ def compare_calls(name, calls, work=None):
                   f"{y.dtype}{tuple(y.shape)}")
             d = float((x.double() - y.double()).abs().max()) \
                 if x.numel() else 0.0
-            check(d == 0, f"{name}: outputs differ by {d}")
+            check(d == 0 and torch.equal(x, y),
+                  f"{name}: outputs differ by {d}")
             err = max(err, d)
     return err
 
@@ -1099,6 +1137,7 @@ def check_grid_kernels(dev, npz, params):
     grid_sao's decision. Returns {name: row}; ms/plain_ms are per P
     picture of the anchor."""
     calls, _ = capture_grid_calls(dev, ldp_cfg(npz), params, G_KERNELS)
+    check_cost_calls(calls["grid_satd_cost"])
     rows = {}
     for name in G_KERNELS:
         kern, plain = G_FUNCS[name]
@@ -1117,10 +1156,28 @@ def check_grid_kernels(dev, npz, params):
                      f"pictures' calls queued behind a device sleep; no "
                      f"sync inside a call); "
                      f"{sum(len(a[0]) for a, _ in calls[name])} planes")
+        if name == "grid_planes":
+            r["library_ms"] = planes_library_ms(calls[name])
+            extra = (f" library_ms {r['library_ms']:.4f} (conv2d of the "
+                     f"padded stacks by the phase filters, float32, TF32 "
+                     f"off: the sums without the rounding and the int16 "
+                     f"cast)")
         print(f"kernel {name:12s} P picture calls {len(calls[name]):3d} "
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} (per P picture){extra}",
               flush=True)
+    both = calls["grid_satd"] + calls["grid_satd_cost"]
+    fns = [grid_mc] * len(calls["grid_satd"]) + [grid_satd_cost] * len(
+        calls["grid_satd_cost"])
+    def sat_calls():
+        return [f(*a, **k) for f, (a, k) in zip(fns, both)]
+
+    sat_ms, sat_host = median_ms(sat_calls, reps=20), host_ms(sat_calls)
+    print(f"kernel grid_satd + grid_satd_cost P picture calls {len(both)} "
+          f"({len(calls['grid_satd'])} gathers, "
+          f"{len(calls['grid_satd_cost'])} cost launches) event ms "
+          f"{sat_ms:.4f}, host ms {sat_host:.4f} a P picture | "
+          f"{gpu_line()}", flush=True)
     rows.update(check_sao_decide(calls["grid_sao"]))
     cut = capture_grid_calls(dev, ldp_cfg(npz, cut=True), params,
                              ("grid_code",))[0]["grid_code"]
@@ -1158,6 +1215,66 @@ def check_grid_kernels(dev, npz, params):
               f"plain_ms {r['plain_ms']:.4f} (per P picture, dctif + WP, no "
               f"fetch)", flush=True)
     return rows
+
+
+def check_cost_calls(cost):
+    """The anchor picture's grid_satd_cost calls price every CU class (8
+    to 64) in both modes (the DC-aware cost; the rect trial's sums), the
+    merge trial's three candidates (TMVP) in one launch."""
+    modes = {a[4] if len(a) > 4 else k.get("mode", "z") for a, k in cost}
+    sizes = {fl.size for a, _ in cost for fl in a[2]}
+    merge3 = any(len(a[2]) == 3 and len({fl.size for fl in a[2]}) == 1
+                 and (a[4] if len(a) > 4 else "z") == "z" for a, _ in cost)
+    check(modes == {"z", "plain"} and sizes >= {8, 16, 32, 64} and merge3,
+          f"grid_satd_cost calls: modes {modes}, CU sizes {sizes}, a merge "
+          f"call of three fields {merge3}")
+
+
+def planes_library_ms(calls):
+    """Event ms of torch.nn.functional.conv2d over one picture's
+    grid_planes calls: each call's padded stack (n, 1, hm + nt - 1, wm +
+    nt - 1) against the P x P phase filters (outer products of the taps)
+    as weights, in float32 with TF32 off (|v| < 2^22: the sums are exact
+    where the algorithm multiplies and adds in float32). The call leaves
+    out the rounding and the int16 cast. Each call's sums, rounded as the
+    kernel rounds, should give its planes (printed); where cuDNN's choice
+    is not exact, cuDNN is switched off and the call timed again."""
+    F = torch.nn.functional
+    prep = []
+    for a, k in calls:
+        stack, luma, pad, hm, wm = a[:5]
+        y0 = a[6] if len(a) > 6 else k.get("y0", 0)
+        n, h, w = stack.shape
+        taps = torch.tensor(LUMA_TAPS if luma else CHROMA_TAPS,
+                            dtype=torch.float32, device=stack.device)
+        P, nt = taps.shape
+        ys = (torch.arange(y0 + 1, y0 + hm + nt, device=stack.device)
+              - pad).clamp(0, h - 1)
+        xs = (torch.arange(1, wm + nt, device=stack.device) - pad).clamp(
+            0, w - 1)
+        x = stack[:, ys][:, :, xs].float()[:, None].contiguous()
+        wgt = (taps[:, None, :, None] * taps[None, :, None, :]).reshape(
+            P * P, 1, nt, nt).contiguous()
+        planes = grid_planes(*a, **k).reshape(n, P * P, hm, wm)
+        prep.append((x, wgt, planes))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for cudnn in (True, False):
+            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+                exact = all(torch.equal(
+                    (((F.conv2d(x, wgt).int() >> 6) + 32) >> 6).clamp(
+                        0, 255).short(), pl) for x, wgt, pl in prep)
+                ms = median_ms(lambda: [F.conv2d(x, wgt)
+                                        for x, wgt, _ in prep], reps=20)
+            print(f"library grid_planes: conv2d (cuDNN {cudnn}) "
+                  f"{ms:.4f} ms a P picture ({len(prep)} calls), rounded "
+                  f"sums equal to the planes: {exact}", flush=True)
+            if exact:
+                break
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return ms
 
 
 def host_ms(fn, reps=10):
@@ -1306,9 +1423,9 @@ N_STRIPES, N_SHARD = 3, 16
 # every kernel call of one grid P picture (in the grid step's
 # namespace), for its bound
 STEP_CALLS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
-              "grid_code", "grid_intra16", "grid_deblock", "grid_sao_stats",
-              "grid_sao_apply", "grid_sao_decide", "grid_stats_partial",
-              "nn_refine")
+              "grid_satd_cost", "grid_code", "grid_intra16", "grid_deblock",
+              "grid_sao_stats", "grid_sao_apply", "grid_sao_decide",
+              "grid_stats_partial", "nn_refine")
 # the launches a stripe's row origin reaches: their calls held vs plain
 STRIPE_KERNELS = ("grid_intra16", "grid_planes", "grid_sao_stats",
                   "grid_sao_apply", "grid_stats_partial")
@@ -1697,7 +1814,7 @@ def cross_check_cpu(npz):
             (lambda: intra_cfg(112, 72, 2), 2, 112, 72, (), False),
             (lambda: ldp_cfg(npz, 128, 64, 9), 9, 128, 64, G_KERNELS, False),
             (lambda: ldp_cfg(npz, 128, 64, 9, cut=True), 9, 128, 64,
-             G_KERNELS[:6], False),
+             G_KERNELS[:7], False),
             (lambda: ldp_cfg(npz, 128, 64, 9, extra=FME_WP), 9, 128, 64,
              G_KERNELS + F_KERNELS[:2], True),
             (lambda: ldp_cfg(None, 128, 64, 9, extra=NO_FETCH), 9, 128, 64,

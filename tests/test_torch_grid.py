@@ -56,7 +56,9 @@ from tpuhevc_torch.ops.grid_intra import (
 from tpuhevc_torch.ops.grid_me import (
     grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain, tile_sum)
 from tpuhevc_torch.ops.grid_pred import (
-    grid_planes, grid_planes_plain, grid_satd, grid_satd_plain, satd8)
+    SatdField, grid_mc, grid_mc_plain, grid_planes, grid_planes_plain,
+    grid_satd_cost, grid_satd_cost_plain, grid_satd_plain, group_sum, satd8,
+    satd_z)
 
 W, H = 128, 64
 NREF = 4
@@ -324,6 +326,31 @@ def check_satd(st, planes, S):
                          jnp.asarray(ref), S, H, W, st["qp"],
                          jnp.float32(st["lam_me_f"]))
     close(a.numpy(), j2n(b), f"pred_satd_z S={S}")
+    # the cost entry's plain version, two fields in one call (mode z) and
+    # the half-size cells' pairs (mode plain), against the composition
+    oy, lam = t(st["oy"]), torch.tensor(np.float32(st["lam_me_f"]))
+    fl = step.cu_field(t(mv), t(ref), S, st["qp"])
+    f = S // 8
+    _, m8, s8 = grid_satd_plain(
+        py, up(t(mv).permute(2, 0, 1), f).permute(1, 2, 0)[None].contiguous(),
+        up(t(ref), f)[None].contiguous(), 8, step.LOOK, oy, want_pred=False)
+    want = satd_z(m8[0], s8[0], S, H // S, W // S, fl.dc, lam)
+    for got in grid_satd_cost_plain(py, oy, [fl, fl], step.LOOK, "z", lam):
+        assert torch.equal(got, want), S
+    C = max(S // 2, 8)
+    hmv, href = (t(x) for x in fields(C, C + 1))
+    sat = grid_satd_cost_plain(py, oy, [SatdField(
+        hmv, href, C, H // C, W // C, k) for k in (1, 4)], step.LOOK, "plain")
+    for k, first in ((0, hmv[:, 0::2].repeat_interleave(2, 1)),
+                     (1, hmv[1::2].repeat_interleave(2, 0))):
+        rf = (href[:, 0::2].repeat_interleave(2, 1) if k == 0
+              else href[1::2].repeat_interleave(2, 0))
+        g = C // 8
+        _, m8h, _ = grid_satd_plain(
+            py, up(first.permute(2, 0, 1), g).permute(1, 2, 0)[None]
+            .contiguous(), up(rf, g)[None].contiguous(), 8, step.LOOK, oy,
+            want_pred=False)
+        assert torch.equal(sat[k], group_sum(m8h[0], g).float()), (S, k)
     res = rng_planes(S, H, W)[0] - 128
     np.testing.assert_array_equal(satd8(t(res)).numpy(),
                                   j2n(P["satd8_plane"](jnp.asarray(res))))
@@ -674,18 +701,20 @@ def test_grid_kernels_match_plain(cuda_device, base, planes):
         assert torch.equal(grid_planes(*args), grid_planes_plain(*args))
     py, pc = (c(p) for p in planes)
     mv, ref = fields(8, 5)
-    mv8 = c(t(np.stack([mv, mv[::-1]])))
-    ref8 = c(t(np.stack([ref, ref[::-1]])))
-    for args in ((py, mv8, ref8, 8, step.LOOK, c(oy), False),
-                 (py, mv8, ref8, 8, step.LOOK, c(oy), True),
-                 (pc, mv8, ref8 + torch.tensor([[[0]], [[NREF]]], device=dev,
-                                         dtype=torch.int32),
-                  4, step.LOOKC)):
-        for x, y in zip(grid_satd(*args), grid_satd_plain(*args)):
-            assert (x is None and y is None) or torch.equal(x, y)
+    for m, r in ((mv, ref), (mv[::-1], ref[::-1])):
+        args = (py, pc, c(t(m)), c(t(r)), step.LOOK, step.LOOKC)
+        for x, y in zip(grid_mc(*args), grid_mc_plain(*args)):
+            assert torch.equal(x, y)
+    lam = torch.tensor(np.float32(st["lam_me_f"]), device=dev)
+    for S in (8, 16, 32, 64):
+        mvS, refS = fields(S, S)
+        fl = [step.cu_field(c(t(mvS)), c(t(refS)), S, st["qp"])] * 2
+        for x, y in zip(grid_satd_cost(py, c(oy), fl, step.LOOK, "z", lam),
+                        grid_satd_cost_plain(py, c(oy), fl, step.LOOK, "z",
+                                             lam)):
+            assert torch.equal(x, y), S
     tabs = tig._Tabs(tig.grid_live_tables(st["cfg"], {})[0], dev)
-    pred = grid_satd(py, mv8[:1].contiguous(), ref8[:1].contiguous(), 8,
-                     step.LOOK)[0][0]
+    pred = grid_mc(py, pc, c(t(mv)), c(t(ref)), step.LOOK, step.LOOKC)[0]
     lam = torch.tensor(st["lam"], dtype=torch.float32, device=dev)
     for T in (4, 8, 16, 32):
         for lvl8 in (True, False):
@@ -722,5 +751,5 @@ def test_cuda_grid_stream_equals_cpu(cuda_device, npz):
                            max_frames=E2E_FRAMES, device="cpu")
     assert a.bitstream() == b.bitstream()
     for k in ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
-              "grid_code", "grid_intra16", "nnfme_mlp"):
+              "grid_satd_cost", "grid_code", "grid_intra16", "nnfme_mlp"):
         assert used[k] > 0, k

@@ -27,7 +27,10 @@ Per P picture (`GridStep.frame_step`):
    weighting folded into their rounding), the quarter-pel MVs (NN-FME
    offsets through K2 `nn_refine`, or the DCT-IF half- and quarter-pel
    squares of `grid_subpel`), the fused merge-candidate sweep whose
-   passes price every class's candidates by DC-aware SATD (`grid_satd`).
+   passes price every class's candidates by DC-aware SATD
+   (`grid_satd_cost`, one launch a pass; the merge and rectangular
+   trials' costs the same way), each class coding's predictions gathered
+   from the planes (`grid_satd`, luma and chroma in one launch).
 3. Coding: each class's TUs at TU = CU and the RQT split sizes
    (`grid_code`, with RDOQ and sign-bit hiding where the cfg has them),
    the skip trial, the measured-RD merge trial, the
@@ -72,7 +75,8 @@ from ..ops.grid_code import grid_code_batch, up
 from ..ops.grid_deblock import grid_deblock
 from ..ops.grid_intra import IMODES, grid_intra16
 from ..ops.grid_me import grid_coarse, grid_refine, grid_wp_me, tile_sum, zcost
-from ..ops.grid_pred import grid_planes, grid_satd, grid_subpel
+from ..ops.grid_pred import (SatdField, grid_mc, grid_planes,
+                              grid_satd_cost, grid_subpel)
 from ..ops.grid_sao import grid_sao_apply, grid_sao_decide, grid_sao_stats
 from ..ops.grid_stats import grid_stats_partial, stats_finish
 from ..utils.tables import chroma_qp
@@ -207,15 +211,6 @@ def sum22(x: torch.Tensor) -> torch.Tensor:
     return ((x[0::2, 0::2] + x[0::2, 1::2]) + x[1::2, 0::2]) + x[1::2, 1::2]
 
 
-def group_sum(x: torch.Tensor, f: int) -> torch.Tensor:
-    """(f a, f b, ...) -> (a, b, ...) sums of f x f groups (integer or
-    integer-valued float32 data: exact in any order)."""
-    if f == 1:
-        return x
-    h, w = x.shape[:2]
-    return x.reshape(h // f, f, w // f, f, *x.shape[2:]).sum(dim=(1, 3))
-
-
 def _f32(v, dev) -> torch.Tensor:
     return torch.tensor(np.float32(v), dtype=torch.float32, device=dev)
 
@@ -314,6 +309,13 @@ class GridStep:
         self.avbl_flat = self.avbl.reshape(-1).contiguous()
         self.imodes = torch.as_tensor(IMODES, dtype=torch.int32, device=dev)
         self._col_geom_cache: dict = {}
+        # grid_satd_cost's outputs on the card, by call site and size: each
+        # call site's costs are consumed on the card before the step's next
+        # request to codec.stripes, and never fetched, so the next call of
+        # the site (in this picture, another stripe's or the next
+        # picture's) may write the same buffer in stream order
+        self._cost_out: dict = {}
+        self._c_s_of: dict = {}
 
     # --- helpers ------------------------------------------------------
     def _dcc(self, qp, npx, lam_me) -> int:
@@ -395,45 +397,46 @@ class GridStep:
                            self._dcc(qp, 64, lam_me), lam_me,
                            self.sr_full + 3, ry_y0)
 
-    def mc_luma(self, planes_y, mv8, ref8):
-        """Per-8-cell fields (h8', w8', 2) / (h8', w8') -> luma prediction."""
-        pred, _, _ = grid_satd(planes_y, mv8[None].contiguous(),
-                               ref8[None].contiguous(), 8, self.LOOK)
-        return pred[0]
+    def mc(self, planes_y, planes_c, mv8, ref8):
+        """Per-8-cell fields (h8', w8', 2) / (h8', w8') -> the luma and the
+        packed [U | V] chroma prediction, one launch on the card."""
+        return grid_mc(planes_y, planes_c, mv8, ref8, self.LOOK, self.LOOKC)
 
-    def mc_chroma(self, planes_c, mv8, ref8):
-        """Per-8-cell fields -> packed [U | V] chroma prediction."""
-        mv = torch.stack([mv8, mv8]).contiguous()
-        ref = torch.stack([ref8, ref8 + self.R]).contiguous()
-        pred, _, _ = grid_satd(planes_c, mv, ref, 4, self.LOOKC)
-        return torch.cat([pred[0], pred[1]], dim=1)
+    def _c_s(self, S, qp) -> float:
+        """satd_z's DC clamp term of S-CUs, (S S) qstep / 4 (float32)."""
+        c = self._c_s_of.get((S, qp))
+        if c is None:
+            c = self._c_s_of[(S, qp)] = float(np.float32(
+                (S * S) * 2.0 ** ((qp - 4) / 6.0) / 4.0))
+        return c
 
-    def satd_z(self, m8, s8, S, nbh, nbw, qp, lam_me_f):
-        """DC-aware per-CU SATD from the 8x8 SATD and residual sums
-        (`pred_satd_z` / `batch_satd`'s float part)."""
-        m8c = m8[: nbh * S // 8, : nbw * S // 8]
-        s8c = s8[: nbh * S // 8, : nbw * S // 8]
-        dc8 = (s8c.abs() + 2) >> 2
-        ac8 = (m8c - dc8).float()
-        qstep = 2.0 ** ((qp - 4) / 6.0)
-        dcc = lam_me_f * 12.0 + _f32((S * S) * qstep / 4.0, self.dev)
-        if S == 8:
-            return ac8 + torch.minimum(dc8.float(), dcc)
-        f = S // 8
-        ac = group_sum(ac8, f)
-        dcsum = group_sum(dc8, f).float()
-        cu_dc = ((group_sum(s8c, f).abs() + 2) >> 2).float()
-        dcvar = torch.clamp(dcsum - cu_dc, min=0.0)
-        return ac + 0.5 * dcvar + torch.minimum(cu_dc, dcc)
+    def satd_costs(self, site, planes_y, oy, fields, mode="z",
+                   lam_me_f=None):
+        """grid_satd_cost of the fields (one launch on the card), into the
+        call site's kept outputs on the card (`_cost_out`)."""
+        out = None
+        if self.dev.type == "cuda":
+            shapes = tuple((fl.rows, fl.cols) for fl in fields)
+            out = self._cost_out.get((site, shapes))
+            if out is None:
+                buf = torch.empty(sum(r * c for r, c in shapes),
+                                  dtype=torch.float32, device=self.dev)
+                out = self._cost_out[(site, shapes)] = [
+                    v.view(r, c) for v, (r, c) in zip(
+                        buf.split([r * c for r, c in shapes]), shapes)]
+        return grid_satd_cost(planes_y, oy, fields, self.LOOK, mode, lam_me_f,
+                              out)
+
+    def cu_field(self, mv_grid, ref_grid, S, qp):
+        """The DC-aware cost field of S-CUs at (nbh, nbw, 2) / (nbh, nbw)."""
+        nbh, nbw = ref_grid.shape
+        return SatdField(mv_grid.contiguous(), ref_grid.contiguous(), S, nbh,
+                         nbw, 0, self._c_s(S, qp))
 
     def pred_satd_z(self, planes_y, oy, mv_grid, ref_grid, S, qp, lam_me_f):
-        nbh, nbw = ref_grid.shape
-        f = S // 8
-        _, m8, s8 = grid_satd(planes_y, up(mv_grid.permute(2, 0, 1), f)
-                              .permute(1, 2, 0)[None].contiguous(),
-                              up(ref_grid, f)[None].contiguous(), 8,
-                              self.LOOK, oy, want_pred=False)
-        return self.satd_z(m8[0], s8[0], S, nbh, nbw, qp, lam_me_f)
+        """The DC-aware SATD per S-CU of the prediction at its MV."""
+        return grid_satd_cost(planes_y, oy, [self.cu_field(
+            mv_grid, ref_grid, S, qp)], self.LOOK, "z", lam_me_f)[0]
 
     # --- the merge-candidate sweep ---------------------------------------
     def cand_sweep_all(self, tabs, qp, lam_me_f, oy, planes_y, specs):
@@ -449,31 +452,21 @@ class GridStep:
         gathered, and the candidates `dist` block rows up taken from them
         (wrapping as the whole picture's roll does, masked at its top)."""
         dev = self.dev
-        S0, nbh0, nbw0 = specs[0][:3]
-        h8, w8 = nbh0 * S0 // 8, nbw0 * S0 // 8
-        oy_c = oy[: nbh0 * S0, : nbw0 * S0].contiguous()
+        site = ("sweep", specs[0][0])
 
-        def batch_satd(grids):
-            mvs, refs = [], []
-            for (S, nbh_, nbw_, _, _), (mv_g, ref_g) in zip(specs, grids):
-                f = S // 8
-                m = torch.zeros((h8, w8, 2), dtype=torch.int32, device=dev)
-                r = torch.zeros((h8, w8), dtype=torch.int32, device=dev)
-                m[: nbh_ * f, : nbw_ * f] = up(mv_g.permute(2, 0, 1),
-                                               f).permute(1, 2, 0)
-                r[: nbh_ * f, : nbw_ * f] = up(ref_g, f)
-                mvs.append(m)
-                refs.append(r)
-            _, m8, s8 = grid_satd(planes_y, torch.stack(mvs),
-                                  torch.stack(refs), 8, self.LOOK, oy_c,
-                                  want_pred=False)
-            return [self.satd_z(m8[ci], s8[ci], S, nbh_, nbw_, qp, lam_me_f)
-                    for ci, (S, nbh_, nbw_, _, _) in enumerate(specs)]
+        def batch_satd(grids, first=False):
+            # every class's candidates in one launch; the first call's
+            # costs outlive the first pass: a buffer of their own
+            return self.satd_costs(
+                site + (first,), planes_y, oy,
+                [self.cu_field(mv_g, ref_g, S, qp)
+                 for (S, _, _, _, _), (mv_g, ref_g) in zip(specs, grids)],
+                "z", lam_me_f)
 
         states = []
         for (S, nbh_, nbw_, mv, ref), s0 in zip(
                 specs, batch_satd([(mv, ref) for (_, _, _, mv, ref)
-                                   in specs])):
+                                   in specs], True)):
             states.append((mv, ref, s0,
                            torch.zeros((nbh_, nbw_), dtype=torch.bool,
                                        device=dev),
@@ -561,14 +554,13 @@ class GridStep:
             ref_cells = up(ref_grid, S // 8)
         mv_cells = mv_cells.contiguous()
         ref_cells = ref_cells.contiguous()
-        pred_y = self.mc_luma(planes_y, mv_cells, ref_cells)
+        pred_y, pred_uv = self.mc(planes_y, planes_c, mv_cells, ref_cells)
         do_split = tusplit and T >= 16
         deep = do_split and S == 32 and self.deep
         Sc = S // 2
         Tc = 16 if S == 64 else min(Sc, 32)
         fTc = Sc // Tc
         Hpc, Wpc = Hp // 2, Wp // 2
-        pred_uv = self.mc_chroma(planes_c, mv_cells, ref_cells)
         ouv_c = torch.cat([ouv[:Hpc, :Wpc], ouv[:Hpc, self.Wc : self.Wc + Wpc]],
                           dim=1).contiguous()
         wch = _f32(2.0 ** ((qp - qpc) / 3.0), dev)
@@ -999,13 +991,9 @@ class GridStep:
             # neighbour candidate coded as a merge
             mvL = torch.cat([mvg[:, :1], mvg[:, :-1]], 1)
             refL = torch.cat([refg[:, :1], refg[:, :-1]], 1)
-            satL = self.pred_satd_z(planes_y, oy, mvL, refL, S, qp, lam_me_f)
-            satT = self.pred_satd_z(planes_y, oy, mvT, refT, S, qp, lam_me_f)
-            useT = satT < satL
-            mvN = torch.where(useT[..., None], mvT, mvL)
-            refN = torch.where(useT, refT, refL)
-            midxN = torch.where(useT, tabs.midx[min(1, self.MM - 1)],
-                                tabs.midx[0])
+            # the left, top and (with TMVP) collocated candidates' costs in
+            # one launch
+            cands = [(mvL, refL), (mvT, refT)]
             if self.use_tmvp:
                 ok0m, i0m, i1m = self._col_geom(S, nbh, nbw, rows)
                 tdf = coltd_g.reshape(-1)
@@ -1026,9 +1014,19 @@ class GridStep:
                     nbh, nbw, 2).int()
                 refC = torch.zeros((nbh, nbw), dtype=torch.int32, device=dev)
                 okc = (td > 0).reshape(nbh, nbw)
-                satC = self.pred_satd_z(planes_y, oy, mvC, refC, S, qp,
-                                        lam_me_f)
-                satC = torch.where(okc, satC, _f32(3e38, dev))
+                cands.append((mvC, refC))
+            sats = self.satd_costs(
+                ("merge", S), planes_y, oy,
+                [self.cu_field(m, r_, S, qp) for m, r_ in cands], "z",
+                lam_me_f)
+            satL, satT = sats[0], sats[1]
+            useT = satT < satL
+            mvN = torch.where(useT[..., None], mvT, mvL)
+            refN = torch.where(useT, refT, refL)
+            midxN = torch.where(useT, tabs.midx[min(1, self.MM - 1)],
+                                tabs.midx[0])
+            if self.use_tmvp:
+                satC = torch.where(okc, sats[2], _f32(3e38, dev))
                 useC = satC < torch.minimum(satL, satT)
                 mvN = torch.where(useC[..., None], mvC, mvN)
                 refN = torch.where(useC, refC, refN)
@@ -1073,11 +1071,16 @@ class GridStep:
         def rect_trial(S, nbh_, nbw_, mv_c, ref_c, sq_mv):
             C = S // 2
             f = C // 8
-            HpS, WpS = nbh_ * S, nbw_ * S
             hc, wc = nbh_ * 2, nbw_ * 2
-            oyS = oy[:HpS, :WpS].contiguous()
             mv_cg = mv_c[:hc, :wc]
             ref_cg = ref_c[:hc, :wc]
+            # the half-CU cells' SATDs at the first and the second MV of
+            # their horizontal, then vertical pairs: one launch
+            mv_c, ref_c = mv_c.contiguous(), ref_c.contiguous()
+            sats = self.satd_costs(
+                ("rect", S), planes_y, oy,
+                [SatdField(mv_c, ref_c, C, hc, wc, k) for k in (1, 2, 3, 4)],
+                "plain")
 
             def half_pick(pair_axis):
                 if pair_axis == 1:
@@ -1090,13 +1093,7 @@ class GridStep:
                     second = mv_cg[1::2].repeat_interleave(2, 0)
                     rfirst = ref_cg[0::2].repeat_interleave(2, 0)
                     rsecond = ref_cg[1::2].repeat_interleave(2, 0)
-                mvs = torch.stack([up(m.permute(2, 0, 1), f).permute(1, 2, 0)
-                                   for m in (first, second)]).contiguous()
-                refs = torch.stack([up(r_, f) for r_ in (rfirst, rsecond)]
-                                   ).contiguous()
-                _, s8, _ = grid_satd(planes_y, mvs, refs, 8, self.LOOK, oyS,
-                                     want_pred=False)
-                sA, sB = (group_sum(s8[i], f) for i in (0, 1))
+                sA, sB = sats[0:2] if pair_axis == 1 else sats[2:4]
                 if pair_axis == 1:
                     hA = sA[:, 0::2] + sA[:, 1::2]
                     hB = sB[:, 0::2] + sB[:, 1::2]

@@ -1,4 +1,4 @@
-// grid_pred: the grid step's motion compensation, three entry points.
+// grid_pred: the grid step's motion compensation, four entry points.
 //
 // tpuhevc_grid_planes replaces tpuhevc/codec/inter_grid.py:862-910
 // `luma_planes_all` / `chroma_planes_all`, with and without explicit
@@ -17,17 +17,46 @@
 // rounding of the 14-bit intermediate p14 = v >> 6 (weightUnidir):
 //   out = clip(((p14 * w[r] + (1 << (d + 6) >> 1)) >> (d + 6)) + o[r])
 // which identity weights (w = 1 << d, o = 0) reduce to the line above bit
-// for bit; p14 * w stays below 2^23 in int32. One thread per output
-// sample, the nt x nt products in int32 as in JAX.
+// for bit; p14 * w stays below 2^23 in int32.
+// What bounds it: the output, ~80 MB a 416x240 picture (luma and chroma)
+// written once, against ~14 MB of int32 reference read. The design is a
+// tiled separable filter: one block per (plane, 32 x 64 output tile)
+// stages the tile's clamped source rows once in shared memory as int16,
+// runs the horizontal pass once per fx phase into shared memory (|h| <
+// 2^15 for both tap sets, so int16 holds it exactly), and shares it
+// between the P vertical phases; each thread then forms 8 (or 4)
+// adjacent outputs of one (fy, fx, row) from nt 16-byte (8-byte) shared
+// loads and writes them with one vector store. Index math is 32-bit: the
+// tile's origin comes from blockIdx, the loops divide by constants.
 //
 // tpuhevc_grid_satd replaces the gathers of :912-930 `pred_luma` /
-// `pred_chroma` (`batch_satd` :1597) and the Hadamard of :951
-// `satd8_plane`: for C fields given per cell x cell block (mv in 1/P pel,
-// reference index), pred[c][y][x] = planes[ref][fy][fx][iy][ix] with
-// f = mv & (P - 1), i = (mv >> log2 P) + position + look; with `oy`, per
-// 8x8 block of r = oy - pred the Hadamard SATD (sum |H r H^T| + 2) >> 2
-// and the residual sum, int32. Gather-only calls (chroma) take one thread
-// per sample; SATD calls one 64-thread block per 8x8 block.
+// `pred_chroma` for one class coding, in one launch: with the MV (1/4
+// pel) and reference of each 8x8 luma cell, pred_y[y][x] =
+// planes_y[ref][fy][fx][iy][ix] with f = mv & 3, i = (mv >> 2) +
+// position + look, and the 4x4 chroma cells' U and V from the chroma
+// planes at the same MV in 1/8 pel (V's planes R on), packed [U | V].
+// One thread per sample, its row and plane from blockIdx (no division).
+//
+// tpuhevc_grid_satd_cost replaces :951 `satd8_plane` with :983
+// `pred_satd_z` and `batch_satd`'s (:1597) float part: up to kMaxFields
+// fields of CUs, each CU of size S (8..64) at one MV and reference; per
+// 8x8 block of r = oy - pred (pred gathered from the luma phase planes
+// at the CU's MV) the Hadamard SATD m8 = (sum |H r H^T| + 2) >> 2 and the
+// residual sum s8; then one float32 per CU, the DC-aware cost (mode z):
+//   dc8 = (|s8| + 2) >> 2, ac8 = m8 - dc8, dcc = lam * 12 + c_S,
+//   S = 8: ac8 + min(dc8, dcc)
+//   S > 8: (sum ac8 + 0.5 max(sum dc8 - cu_dc, 0)) + min(cu_dc, dcc),
+//          cu_dc = (|sum s8| + 2) >> 2
+// or the sum of m8 over the CU (mode plain: the rectangular trial's
+// half-CU cells, whose MV may be the first or second cell of its pair).
+// The integer sums are below 2^24 (exact in float32, in any order); the
+// float operations run in the order above, each rounded on its own
+// (__fmul_rn / __fadd_rn, no FMA), as the PyTorch composition does. lam
+// is read on the card. One block of 128 threads: 16 groups of 8 lanes,
+// an 8x8 block a group with a row in each lane's registers, the Hadamard
+// by butterflies (the columns across the lanes by shuffles,
+// hadamard.cuh); a block holds 16 CUs of 8, 4 of 16, one of 32 or one of
+// 64 (four rounds); a CU's sums through shared memory.
 //
 // tpuhevc_grid_subpel replaces :1012-1035 `subpel_refine` (FmeMode
 // dctif): per CU of size S, from the full-pel MV (times 4), a 9-point
@@ -42,16 +71,16 @@
 // sr_full + 3 with look = sr_full + 4), so every read lies inside the
 // planes (asserted in the plain version). One CUDA block per CU, one
 // 64-thread group per point: 2 rounds x (S / 8)^2 sub-blocks of the
-// same gather and Hadamard as the SATD calls.
+// same gather and Hadamard.
 //
-// What bounds it: the planes are ~R x 16 x (H + 2 look) x (W + 2 look)
-// int16 samples written once (64 MACs each); a SATD call reads the
-// current picture and one gathered sample per pixel and field; the
-// subpel refinement does 18 SATD evaluations per pixel, ~40 integer
-// operations each.
+// What bounds the others: a SATD cost call reads the current picture and
+// one gathered sample per pixel and field; the subpel refinement does 18
+// SATD evaluations per pixel, ~40 integer operations each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hadamard.cuh"
 
 namespace {
 
@@ -59,74 +88,233 @@ __constant__ int c_luma_taps[32];    // (4 phases, 8 taps)
 __constant__ int c_chroma_taps[32];  // (8 phases, 4 taps)
 __constant__ int c_had8[64];
 
-__global__ void planes_kernel(const int* __restrict__ ref,
-                              const int* __restrict__ wpw,
-                              const int* __restrict__ wpo,
-                              int16_t* __restrict__ out, int n, int h, int w,
-                              int luma, int pad, int y0, int hm, int wm,
-                              int wpd) {
-    const int P = luma ? 4 : 8, nt = luma ? 8 : 4;
-    const long long total = (long long)n * P * P * hm * wm;
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= total) return;
-    const int x = (int)(t % wm);
-    long long q = t / wm;
-    const int y = (int)(q % hm);
-    q /= hm;
-    const int fx = (int)(q % P);
-    q /= P;
-    const int fy = (int)(q % P);
-    const int r = (int)(q / P);
-    const int* tx = luma ? &c_luma_taps[fx * 8] : &c_chroma_taps[fx * 4];
-    const int* ty = luma ? &c_luma_taps[fy * 8] : &c_chroma_taps[fy * 4];
+// the planes kernel's output tile and block
+constexpr int kTileH = 32, kTileW = 64, kPlanesThreads = 256;
+
+// VEC int16 moved as one load or store
+template <int VEC>
+union Pack;
+template <>
+union Pack<8> {
+    int4 v;
+    int16_t s[8];
+};
+template <>
+union Pack<4> {
+    int2 v;
+    int16_t s[4];
+};
+template <>
+union Pack<1> {
+    int16_t v;
+    int16_t s[1];
+};
+
+// one block per (plane r = blockIdx.z, tile of kTileH x kTileW outputs of
+// the (hm, wm) window); P phases a axis, NT taps, VEC outputs a store
+template <int P, int NT, int VEC>
+__global__ void __launch_bounds__(kPlanesThreads)
+planes_kernel(const int* __restrict__ ref, const int* __restrict__ wpw,
+              const int* __restrict__ wpo, int16_t* __restrict__ out, int h,
+              int w, int pad, int y0, int hm, int wm, int wpd) {
+    constexpr int SR = kTileH + NT - 1;  // source rows of a tile
+    constexpr int SC = kTileW + NT - 1;  // source columns
+    constexpr int G = kTileW / VEC;      // stores a tile row
+    __shared__ int16_t src[SR][SC];
+    __shared__ __align__(16) int16_t hs[P][SR][kTileW];
+    const int* taps = NT == 8 ? c_luma_taps : c_chroma_taps;
+    const int r = blockIdx.z;
+    const int ty0 = blockIdx.y * kTileH, tx0 = blockIdx.x * kTileW;
     const int* base = ref + (size_t)r * h * w;
-    int v = 0;
-    for (int j = 0; j < nt; ++j) {
-        const int yy = min(max(y0 + y + j + 1 - pad, 0), h - 1);
-        const int* row = base + (size_t)yy * w;
-        int hs = 0;
-        for (int i = 0; i < nt; ++i) {
-            const int xx = min(max(x + i + 1 - pad, 0), w - 1);
-            hs += tx[i] * row[xx];
-        }
-        v += ty[j] * hs;
+    // src[yy][xx] = rp[ty0 + yy + 1][tx0 + xx + 1], clamped as padded
+    for (int k = threadIdx.x; k < SR * SC; k += kPlanesThreads) {
+        const int yy = k / SC, xx = k - yy * SC;
+        const int sy = min(max(y0 + ty0 + yy + 1 - pad, 0), h - 1);
+        const int sx = min(max(tx0 + xx + 1 - pad, 0), w - 1);
+        src[yy][xx] = (int16_t)__ldg(base + sy * w + sx);
     }
-    const int p14 = v >> 6;
-    int s;
+    __syncthreads();
+    // hs[fx][yy][x] = h(ty0 + yy + 1, tx0 + x): once for all fy
+    for (int k = threadIdx.x; k < P * SR * kTileW; k += kPlanesThreads) {
+        const int x = k % kTileW, q = k / kTileW;
+        const int yy = q % SR, fx = q / SR;
+        const int* t = taps + fx * NT;
+        int acc = 0;
+#pragma unroll
+        for (int i = 0; i < NT; ++i) acc += t[i] * src[yy][x + i];
+        hs[fx][yy][x] = (int16_t)acc;
+    }
+    __syncthreads();
+    int wr = 0, orr = 0, sh = 0, rnd = 0;
     if (wpw) {
-        const int sh = wpd + 6;
-        s = ((p14 * wpw[r] + ((1 << sh) >> 1)) >> sh) + wpo[r];
-    } else {
-        s = (p14 + 32) >> 6;
+        wr = wpw[r];
+        orr = wpo[r];
+        sh = wpd + 6;
+        rnd = (1 << sh) >> 1;
     }
-    out[t] = (int16_t)min(max(s, 0), 255);
+    for (int k = threadIdx.x; k < P * P * kTileH * G; k += kPlanesThreads) {
+        const int g = k % G;
+        int q = k / G;
+        const int y = q % kTileH;
+        q /= kTileH;
+        const int fx = q % P, fy = q / P;
+        const int oy = ty0 + y, ox = tx0 + g * VEC;
+        if (oy >= hm || ox >= wm) continue;
+        const int* t = taps + fy * NT;
+        int v[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[e] = 0;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+            Pack<VEC> hv;
+            hv.v = *reinterpret_cast<const decltype(hv.v)*>(
+                &hs[fx][y + j][g * VEC]);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) v[e] += t[j] * hv.s[e];
+        }
+        Pack<VEC> o;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+            const int p14 = v[e] >> 6;
+            const int s = wpw ? ((p14 * wr + rnd) >> sh) + orr
+                              : (p14 + 32) >> 6;
+            o.s[e] = (int16_t)min(max(s, 0), 255);
+        }
+        *reinterpret_cast<decltype(o.v)*>(
+            out + ((size_t)(r * P + fy) * P + fx) * hm * wm + (size_t)oy * wm
+            + ox) = o.v;
+    }
 }
 
-__device__ __forceinline__ int gather(const int16_t* __restrict__ planes,
-                                      const int* __restrict__ mv,
-                                      const int* __restrict__ ref, int c,
-                                      int y, int x, int P, int hm, int wm,
-                                      int hc, int wc, int cell, int look) {
-    const int fb = P == 4 ? 2 : 3;
-    const size_t ci = ((size_t)c * hc + y / cell) * wc + x / cell;
-    const int mx = mv[2 * ci], my = mv[2 * ci + 1], r = ref[ci];
-    const int ix = (mx >> fb) + x + look, iy = (my >> fb) + y + look;
-    const size_t plane = (size_t)r * P * P + (my & (P - 1)) * P + (mx & (P - 1));
-    return planes[(plane * hm + iy) * wm + ix];
-}
-
-__global__ void gather_kernel(const int16_t* __restrict__ planes,
+// one thread per sample: x from blockIdx.x, row y = blockIdx.y; plane
+// blockIdx.z: 0 luma (8x8 cells of hc x wc), 1 U, 2 V (4x4 cells)
+__global__ void gather_kernel(const int16_t* __restrict__ planes_y,
+                              const int16_t* __restrict__ planes_c,
                               const int* __restrict__ mv,
                               const int* __restrict__ ref,
-                              int* __restrict__ pred, int P, int hm, int wm,
-                              int C, int hc, int wc, int cell, int look) {
-    const int h = hc * cell, w = wc * cell;
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)C * h * w) return;
-    const int x = (int)(t % w);
-    const int y = (int)((t / w) % h);
-    const int c = (int)(t / ((long long)w * h));
-    pred[t] = gather(planes, mv, ref, c, y, x, P, hm, wm, hc, wc, cell, look);
+                              int* __restrict__ pred_y,
+                              int* __restrict__ pred_uv, int R, int hmy,
+                              int wmy, int hmc, int wmc, int hc, int wc,
+                              int look, int lookc) {
+    const int x = blockIdx.x * blockDim.x + threadIdx.x, y = blockIdx.y;
+    const int z = blockIdx.z;
+    if (z == 0) {
+        if (x >= wc * 8) return;
+        const int ci = (y >> 3) * wc + (x >> 3);
+        const int mx = mv[2 * ci], my = mv[2 * ci + 1], r = ref[ci];
+        const int plane = (r * 4 + (my & 3)) * 4 + (mx & 3);
+        pred_y[y * wc * 8 + x] =
+            planes_y[(plane * hmy + (my >> 2) + y + look) * wmy + (mx >> 2)
+                     + x + look];
+        return;
+    }
+    if (x >= wc * 4 || y >= hc * 4) return;
+    const int ci = (y >> 2) * wc + (x >> 2);
+    const int mx = mv[2 * ci], my = mv[2 * ci + 1];
+    const int r = ref[ci] + (z - 1) * R;
+    const int plane = (r * 8 + (my & 7)) * 8 + (mx & 7);
+    pred_uv[y * wc * 8 + (z - 1) * wc * 4 + x] =
+        planes_c[(plane * hmc + (my >> 3) + y + lookc) * wmc + (mx >> 3) + x
+                 + lookc];
+}
+
+constexpr int kMaxFields = 8;
+constexpr int kCostThreads = 128;  // 16 groups of 8 lanes
+
+struct CostField {
+    const int* mv;   // (>= rows', ld, 2) per source cell
+    const int* ref;  // (>= rows', ld)
+    float* out;      // (rows, cols)
+    int ld, rows, cols;
+    int lf;    // log2(S / 8)
+    int pair;  // 0; 1 / 2 the first / second cell of x pairs; 3 / 4 of y
+    int cta0;  // the field's first block
+    float dc;  // c_S (mode z)
+};
+
+struct CostArgs {
+    CostField f[kMaxFields];
+    const int16_t* planes;  // (R, 4, 4, hm, wm) luma phase planes
+    const int* oy;          // stride wo
+    const float* lam;       // lambda_me (mode z)
+    int nf, plain, hm, wm, wo, look;
+};
+
+__global__ void __launch_bounds__(kCostThreads)
+satd_cost_kernel(const CostArgs a) {
+    __shared__ int part[3][16];
+    int k = 0;
+    while (k + 1 < a.nf && (int)blockIdx.x >= a.f[k + 1].cta0) ++k;
+    const CostField& F = a.f[k];
+    const int lane = threadIdx.x & 7, g = threadIdx.x >> 3;
+    const int lf = F.lf, nb = 1 << (2 * lf), S = 8 << lf;
+    const int per = nb >= 16 ? 1 : 16 >> (2 * lf);  // CUs a block
+    const int rounds = nb > 16 ? nb >> 4 : 1;
+    const int cu0 = ((int)blockIdx.x - F.cta0) * per;
+    const int cu = cu0 + (nb >= 16 ? 0 : g >> (2 * lf));
+    const bool live = cu < F.rows * F.cols;
+    const int cy = live ? cu / F.cols : 0, cx = live ? cu - cy * F.cols : 0;
+    int sy = cy, sx = cx;
+    if (F.pair == 1 || F.pair == 2) sx = (cx & ~1) | (F.pair - 1);
+    if (F.pair == 3 || F.pair == 4) sy = (cy & ~1) | (F.pair - 3);
+    const int si = sy * F.ld + sx;
+    const int mx = live ? F.mv[2 * si] : 0, my = live ? F.mv[2 * si + 1] : 0;
+    const int rf = live ? F.ref[si] : 0;
+    const int16_t* pl = a.planes
+                        + (size_t)((rf * 4 + (my & 3)) * 4 + (mx & 3))
+                              * a.hm * a.wm
+                        + (size_t)((my >> 2) + a.look) * a.wm + (mx >> 2)
+                        + a.look;
+    int am = 0, adc = 0, as = 0;  // the group's m8 (plain) or ac8, dc8, s8
+    for (int rd = 0; rd < rounds; ++rd) {
+        const int blk = nb >= 16 ? rd * 16 + g : g & (nb - 1);
+        const int y = cy * S + (blk >> lf) * 8 + lane;
+        const int x = cx * S + (blk & ((1 << lf) - 1)) * 8;
+        int v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            v[e] = live ? a.oy[y * a.wo + x + e] - pl[y * a.wm + x + e] : 0;
+        const int sa = hadamard8_lanes_abs_sum(v, lane);
+        // the DC coefficient, lane 0's first: the residual sum
+        const int s8 = __shfl_sync(0xffffffffu, v[0], threadIdx.x & 24);
+        const int m8 = (sa + 2) >> 2, dc8 = (abs(s8) + 2) >> 2;
+        am += a.plain ? m8 : m8 - dc8;
+        adc += dc8;
+        as += s8;
+    }
+    const float dcc = a.plain ? 0.f
+                              : __fadd_rn(__fmul_rn(__ldg(a.lam), 12.0f), F.dc);
+    if (nb == 1) {
+        if (live && lane == 0)
+            F.out[cu] = a.plain ? (float)am
+                                : __fadd_rn((float)am, fminf((float)adc, dcc));
+        return;
+    }
+    if (lane == 0) {
+        part[0][g] = am;
+        part[1][g] = adc;
+        part[2][g] = as;
+    }
+    __syncthreads();
+    const int ng = nb >= 16 ? 16 : nb;  // groups a CU
+    const int t = threadIdx.x;
+    if (t >= per || cu0 + t >= F.rows * F.cols) return;
+    int sm = 0, sd = 0, ss = 0;
+    for (int i = t * ng; i < (t + 1) * ng; ++i) {
+        sm += part[0][i];
+        sd += part[1][i];
+        ss += part[2][i];
+    }
+    float c;
+    if (a.plain) {
+        c = (float)sm;
+    } else {
+        const float cu_dc = (float)((abs(ss) + 2) >> 2);
+        const float dcvar = fmaxf(__fsub_rn((float)sd, cu_dc), 0.0f);
+        c = __fadd_rn(__fadd_rn((float)sm, __fmul_rn(0.5f, dcvar)),
+                      fminf(cu_dc, dcc));
+    }
+    F.out[cu0 + t] = c;
 }
 
 // |(H r H^T)[i][j]| for the 8x8 block r (row-major), thread (i, j)
@@ -138,46 +326,6 @@ __device__ __forceinline__ int had_abs(const int* r, int i, int j) {
         acc += c_had8[i * 8 + a] * row;
     }
     return abs(acc);
-}
-
-// one 64-thread block per (field, 8x8 block)
-__global__ void satd_kernel(const int16_t* __restrict__ planes,
-                            const int* __restrict__ mv,
-                            const int* __restrict__ ref,
-                            const int* __restrict__ oy,
-                            int* __restrict__ pred, int* __restrict__ m8,
-                            int* __restrict__ s8, int P, int hm, int wm,
-                            int hc, int wc, int cell, int look, int wo) {
-    __shared__ int r[64];
-    __shared__ int part[2][2];
-    const int h = hc * cell, w = wc * cell;
-    const int nbw = w >> 3, nbh = h >> 3;
-    const int b = blockIdx.x;
-    const int c = b / (nbh * nbw);
-    const int rem = b - c * nbh * nbw;
-    const int by = rem / nbw, bx = rem - by * nbw;
-    const int i = threadIdx.x >> 3, j = threadIdx.x & 7;
-    const int y = by * 8 + i, x = bx * 8 + j;
-    const int p = gather(planes, mv, ref, c, y, x, P, hm, wm, hc, wc, cell,
-                         look);
-    if (pred) pred[((size_t)c * h + y) * w + x] = p;
-    const int e = oy[(size_t)y * wo + x] - p;
-    r[threadIdx.x] = e;
-    __syncthreads();
-    int sa = had_abs(r, i, j), se = e;
-    for (int off = 16; off > 0; off >>= 1) {
-        sa += __shfl_down_sync(0xffffffffu, sa, off);
-        se += __shfl_down_sync(0xffffffffu, se, off);
-    }
-    if ((threadIdx.x & 31) == 0) {
-        part[threadIdx.x >> 5][0] = sa;
-        part[threadIdx.x >> 5][1] = se;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        m8[b] = (part[0][0] + part[1][0] + 2) >> 2;
-        s8[b] = part[0][1] + part[1][1];
-    }
 }
 
 // one block per CU, nine 64-thread groups (one per point of the square)
@@ -250,6 +398,37 @@ extern "C" int tpuhevc_grid_pred_init(const int* luma_taps,
     return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <int P, int NT, int VEC>
+int launch_planes(const int* ref, const int* wpw, const int* wpo,
+                  int16_t* out, int n, int h, int w, int pad, int y0, int hm,
+                  int wm, int wpd, cudaStream_t stream) {
+    const dim3 grid((wm + kTileW - 1) / kTileW, (hm + kTileH - 1) / kTileH,
+                    n);
+    planes_kernel<P, NT, VEC><<<grid, kPlanesThreads, 0, stream>>>(
+        ref, wpw, wpo, out, h, w, pad, y0, hm, wm, wpd);
+    return (int)cudaGetLastError();
+}
+
+template <int P, int NT>
+int planes_by_width(const int* ref, const int* wpw, const int* wpo,
+                    int16_t* out, int n, int h, int w, int pad, int y0,
+                    int hm, int wm, int wpd, cudaStream_t stream) {
+    // the widest store that the rows' alignment allows
+    const bool al16 = ((uintptr_t)out & 15) == 0;
+    if (al16 && wm % 8 == 0)
+        return launch_planes<P, NT, 8>(ref, wpw, wpo, out, n, h, w, pad, y0,
+                                       hm, wm, wpd, stream);
+    if (al16 && wm % 4 == 0)
+        return launch_planes<P, NT, 4>(ref, wpw, wpo, out, n, h, w, pad, y0,
+                                       hm, wm, wpd, stream);
+    return launch_planes<P, NT, 1>(ref, wpw, wpo, out, n, h, w, pad, y0, hm,
+                                   wm, wpd, stream);
+}
+
+}  // namespace
+
 // ref (n, h, w) int32 -> out (n, P, P, hm, wm) int16, the window from row
 // y0 of the padded plane; wpw, wpo (n,) int32 and the denominator wpd, or
 // null for the default rounding.
@@ -258,37 +437,88 @@ extern "C" int tpuhevc_grid_planes(const int* ref, const int* wpw,
                                    int h, int w, int luma, int pad, int y0,
                                    int hm, int wm, int wpd, void* stream) {
     const int P = luma ? 4 : 8;
-    const long long total = (long long)n * P * P * hm * wm;
-    const int threads = 256;
-    planes_kernel<<<(int)((total + threads - 1) / threads), threads, 0,
-                    (cudaStream_t)stream>>>(ref, wpw, wpo, out, n, h, w, luma,
-                                            pad, y0, hm, wm, wpd);
+    if (n < 1 || n > 65535 || (long long)n * h * w >= (1LL << 31)
+        || (long long)n * P * P * hm * wm >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    return luma ? planes_by_width<4, 8>(ref, wpw, wpo, out, n, h, w, pad, y0,
+                                        hm, wm, wpd, st)
+                : planes_by_width<8, 4>(ref, wpw, wpo, out, n, h, w, pad, y0,
+                                        hm, wm, wpd, st);
+}
+
+// One class coding's predictions. ptrs: planes_y (R, 4, 4, hmy, wmy) and
+// planes_c (2R, 8, 8, hmc, wmc) int16 (U's references, then V's); mv
+// (hc, wc, 2), ref (hc, wc) int32 per 8x8 luma cell -> pred_y (8 hc, 8
+// wc), pred_uv (4 hc, 8 wc) int32, [U | V]. ints: R, hmy, wmy, hmc, wmc,
+// hc, wc, look, lookc. Both arrays are host memory, read before the
+// launch returns.
+extern "C" int tpuhevc_grid_satd(const void* const* ptrs, const int* ints,
+                                 void* stream) {
+    const int R = ints[0], hmy = ints[1], wmy = ints[2], hmc = ints[3];
+    const int wmc = ints[4], hc = ints[5], wc = ints[6];
+    if (hc < 1 || wc < 1 || hc > 8191
+        || (long long)R * 16 * hmy * wmy >= (1LL << 31)
+        || (long long)R * 128 * hmc * wmc >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    const dim3 grid((wc * 8 + threads - 1) / threads, hc * 8, 3);
+    gather_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)ptrs[0], (const int16_t*)ptrs[1],
+        (const int*)ptrs[2], (const int*)ptrs[3], (int*)ptrs[4],
+        (int*)ptrs[5], R, hmy, wmy, hmc, wmc, hc, wc, ints[7], ints[8]);
     return (int)cudaGetLastError();
 }
 
-// planes (R, P, P, hm, wm) int16; mv (C, hc, wc, 2), ref (C, hc, wc)
-// int32 per cell; oy (>= h rows, stride wo) int32 or null -> pred
-// (C, hc cell, wc cell) int32 (may be null when oy is given); m8, s8
-// (C, h / 8, w / 8) int32 when oy is given.
-extern "C" int tpuhevc_grid_satd(const int16_t* planes, const int* mv,
-                                 const int* ref, const int* oy, int* pred,
-                                 int* m8, int* s8, int R, int P, int hm,
-                                 int wm, int C, int hc, int wc, int cell,
-                                 int look, int wo, void* stream) {
-    (void)R;
-    const int h = hc * cell, w = wc * cell;
-    if (oy == nullptr) {
-        const long long total = (long long)C * h * w;
-        const int threads = 256;
-        gather_kernel<<<(int)((total + threads - 1) / threads), threads, 0,
-                        (cudaStream_t)stream>>>(planes, mv, ref, pred, P, hm,
-                                                wm, C, hc, wc, cell, look);
-    } else {
-        satd_kernel<<<C * (h >> 3) * (w >> 3), 64, 0,
-                      (cudaStream_t)stream>>>(planes, mv, ref, oy, pred, m8,
-                                              s8, P, hm, wm, hc, wc, cell,
-                                              look, wo);
+// The SATD costs of nf (1..kMaxFields) fields in one launch. ptrs:
+// planes (R, 4, 4, hm, wm) int16 luma phase planes, oy (stride wo)
+// int32, lam (1,) float32 on the card (null with plain), then 3 a field:
+// mv (rows' x ld x 2), ref (rows' x ld) int32 per source cell and out
+// (rows, cols) float32. ints: nf, plain (1: the sum of m8 a CU; 0: the
+// DC-aware cost), R, hm, wm, wo, look, then 5 a field: ld, rows, cols,
+// log2(S / 8) (0..3), pair (0..4). dcs: c_S a field (mode z). The three
+// arrays are host memory, read before the launch returns.
+extern "C" int tpuhevc_grid_satd_cost(const void* const* ptrs,
+                                      const int* ints, const float* dcs,
+                                      void* stream) {
+    const int nf = ints[0], plain = ints[1], R = ints[2];
+    CostArgs a;
+    a.nf = nf;
+    a.planes = (const int16_t*)ptrs[0];
+    a.oy = (const int*)ptrs[1];
+    a.lam = (const float*)ptrs[2];
+    a.plain = plain;
+    a.hm = ints[3];
+    a.wm = ints[4];
+    a.wo = ints[5];
+    a.look = ints[6];
+    if (nf < 1 || nf > kMaxFields || (!plain && a.lam == nullptr)
+        || (long long)R * 16 * a.hm * a.wm >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    int blocks = 0;
+    for (int k = 0; k < nf; ++k) {
+        const int* v = ints + 7 + 5 * k;
+        const void* const* p = ptrs + 3 + 3 * k;
+        CostField& f = a.f[k];
+        f.mv = (const int*)p[0];
+        f.ref = (const int*)p[1];
+        f.out = (float*)p[2];
+        f.ld = v[0];
+        f.rows = v[1];
+        f.cols = v[2];
+        f.lf = v[3];
+        f.pair = v[4];
+        f.dc = dcs[k];
+        f.cta0 = blocks;
+        if (f.lf < 0 || f.lf > 3 || f.pair < 0 || f.pair > 4 || f.rows < 0
+            || f.cols < 0 || f.cols > f.ld)
+            return (int)cudaErrorInvalidValue;
+        const int ncu = f.rows * f.cols, nb = 1 << (2 * f.lf);
+        const int per = nb >= 16 ? 1 : 16 / nb;
+        blocks += (ncu + per - 1) / per;
     }
+    if (blocks == 0) return 0;
+    satd_cost_kernel<<<blocks, kCostThreads, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 

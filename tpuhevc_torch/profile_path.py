@@ -40,7 +40,11 @@ granted: frame 4 of the clip against frames 3..0 as its four references
 (the originals standing in for their recons), GOP position 0, the MV
 seed and collocated field of the step's first picture. One call warms
 up, then `reps` calls (default 20) are timed with CUDA events; prints
-their median and the median host time of a call. Then kernel
+their median and the median host time of a call. Then five such
+pictures under `torch.profiler`: the device time and launches a picture
+of grid_planes' kernel and of grid_satd's (the gathers and the SATD
+costs), and the count of every device operation of the step a picture
+(kernels, copies and fills). Then kernel
 `grid_code`'s share: its launches in one such picture (recorded from the
 step, as the step makes them: each class coding's planes in one launch),
 replayed 5 times under `torch.profiler`, the device time of its kernel a
@@ -180,6 +184,50 @@ def code_split(cfg, nn_by_qp, clip, dev, gpu: str, tag: str) -> None:
           flush=True)
 
 
+# step: the kernels of grid_planes and grid_satd by the names the
+# profiler gives them (on this tree and on its parents)
+PRED_KERNELS = {"grid_planes": ("planes_kernel",),
+                "grid_satd": ("gather_kernel", "satd_kernel",
+                              "satd_cost_kernel")}
+
+
+def pred_split(cfg, nn_by_qp, clip, dev, gpu: str, reps: int = 5) -> None:
+    """`step`: grid_planes' and grid_satd's (gathers and SATD costs)
+    device time and launches a picture, and every launch of the step, from
+    `reps` pictures under torch.profiler."""
+    step, carry, fu8, tabs = step_inputs(cfg, nn_by_qp, clip, dev)
+    step.frame_step(carry, fu8, step.R, 0, tabs)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            step.frame_step(carry, fu8, step.R, 0, tabs)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    total = sum(e.count for e in ev) / reps
+    busy = sum(e.self_device_time_total for e in ev) / reps / 1e3
+    for name, keys in PRED_KERNELS.items():
+        each = {}  # kernel -> (launches, kernel_ms) a picture
+        for e in ev:
+            for k in keys:
+                if f"::{k}<" in e.key or f"::{k}(" in e.key:
+                    n0, t0 = each.get(k, (0, 0.0))
+                    each[k] = (n0 + e.count / reps,
+                               t0 + e.self_device_time_total / reps / 1e3)
+        ms = sum(t for _, t in each.values())
+        n = sum(c for c, _ in each.values())
+        each = {k: (c, round(t, 5)) for k, (c, t) in each.items()}
+        print(f"step {step.W}x{step.H}: {name} kernel_ms {ms:.5f} a picture "
+              f"in {n:g} launches {each} (launches, kernel_ms) | {gpu}",
+              flush=True)
+    print(f"step {step.W}x{step.H}: every device operation of the step: "
+          f"{total:g} a picture (kernels, copies, fills), device busy "
+          f"{busy:.4f} ms a picture | {gpu}", flush=True)
+
+
 def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
     """`step`: the grid step's median event and host ms a picture."""
     step, carry, fu8, tabs = step_inputs(cfg, nn_by_qp, clip, dev)
@@ -235,24 +283,27 @@ def device_ms(fn, n: int = DEVICE_LAUNCHES, warmup: int = 5,
                        f"longer than the {slept:.1f} ms sleep, {tries} times")
 
 
-def kernel_ms(fn, name: str, reps: int = 5) -> float:
+def kernel_ms(fn, name: str, reps: int = 5, tries: int = 3) -> float:
     """The device time of the kernels whose name holds `name` in one call
     of fn: the sum of their durations under torch.profiler over reps
-    calls, over reps, after a warm-up call."""
+    calls, over reps, after a warm-up call. A trace that holds no device
+    event of them (seen now and then in a process that has traced
+    before) is taken again, at most `tries` times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if name in e.key
-             and e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError(f"kernel_ms: no device time for {name!r}")
-    return us / reps / 1e3
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if name in e.key
+                 and e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError(f"kernel_ms: no device time for {name!r}")
 
 
 def fme_dataset():
@@ -407,6 +458,7 @@ def main(argv=None) -> int:
                 return cfg, {q: random_params(0) for q in qps}
 
             time_step(*step_cfg(), clip, dev, reps, gpu)
+            pred_split(*step_cfg(), clip, dev, gpu)
             code_split(*step_cfg(), clip, dev, gpu, "the anchor's tools")
             code_split(*step_cfg(STEP_CUT), clip, dev, gpu,
                        "RDOQ, sign hiding, deblocking and SAO cut")
