@@ -13,7 +13,9 @@
    decision (both passes) of one all-intra picture and of one LD-P IDR,
    captured from the decision itself; the B step kernels (b_me, b_pred,
    b_txq) at every call of one random-access B picture; the grid step
-   kernels (grid_coarse, grid_refine, grid_planes (also beside
+   kernels (grid_coarse, grid_refine (one launch a block size over every
+   reference: the starts reference-major, the reference merge on the
+   card), grid_planes (also beside
    torch.nn.functional.conv2d of its sums, the library time),
    grid_satd's gathers, grid_satd_cost (the DC-aware CU costs and the
    rect trial's sums: every CU class, both modes, the merge trial's three
@@ -21,16 +23,20 @@
    hiding, grid_intra16, grid_deblock, grid_sao) at every call of one
    416x240 P picture of the anchor LD-P cfg as shipped (four references,
    TMVP candidates), captured from the port's grid step (grid_code's,
-   grid_satd's and grid_satd_cost's calls under sync debug mode "error":
-   lambda and the cbf bits are read on the card, so no call syncs the
-   stream; the event time a picture of grid_satd's and grid_satd_cost's
+   grid_satd's, grid_satd_cost's, grid_refine's and grid_intra16's calls
+   under sync debug mode "error": lambda and the cbf bits are read on the
+   card, so no call syncs the stream; so is the motion search from its
+   first grid_coarse launch to its first grid_planes launch, the global
+   start and every reference's starts kept on the card; the event time
+   a picture of grid_satd's and grid_satd_cost's
    calls together; grid_code's
    device time a picture by events around 20 pictures' calls queued
    behind a device sleep; a grid_code call codes a class coding's planes
    in one launch), and grid_code again at every call of the same picture
    with the tools cut (the flat quantiser); grid_subpel, grid_wp_me,
-   grid_stats and the weighted grid_planes at every call of one 416x240 P
-   picture of the anchor cfg with FmeMode dctif, WeightedPredP 1, the
+   grid_stats and the weighted grid_planes, grid_refine and grid_intra16
+   at every call of one 416x240 P picture of the anchor cfg with FmeMode
+   dctif, WeightedPredP 1, the
    checksum hash and no recon fetch, on the fade clip (some weights not
    the identity);
    intra_wave (fixed-8x8 intra of whole pictures) on 3 frames of the
@@ -43,7 +49,8 @@
    the graft entry's dryrun shape (128x128 in 2); grid_refine with
    ry_y0 at every call of the 3-stripe refine at 416x240; the launches
    that take a row origin at every call of one 416x240 anchor P picture
-   through the sharded grid step in 3 stripes (grid_intra16 with y0,
+   through the sharded grid step in 3 stripes (grid_refine with each
+   stripe's ry_y0, grid_intra16 with y0,
    grid_planes from each stripe's row in its carried reference rows,
    grid_sao's stats and apply with their halo rows, grid_stats' partial
    sums without the recon fetch), and the bound of that sharded step and
@@ -186,7 +193,8 @@ from tpuhevc_torch.ops.grid_deblock import (  # noqa: E402
 from tpuhevc_torch.ops.grid_intra import grid_intra16, grid_intra16_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_me import (  # noqa: E402
     grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain,
-    grid_wp_me, grid_wp_me_plain, tile_sum)
+    grid_refine_refs, grid_refine_refs_plain, grid_wp_me, grid_wp_me_plain,
+    tile_sum)
 from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
     field_cells, grid_mc, grid_mc_plain, grid_planes, grid_planes_plain,
     grid_satd_cost, grid_satd_cost_plain, grid_subpel, grid_subpel_plain,
@@ -392,21 +400,26 @@ def window_mask(plane, xs, ys, mvq, size, is_luma, sel=None):
     return mask
 
 
-def refine_mask(ry, S, nbh, nbw, starts, ry_y0=0):
-    """The samples of `ry` that grid_refine's clamped 7x7-search windows
-    (S + 6 square around each start) read; ry_y0: ry's row level with the
-    block rows' row 0 (a stripe's halo)."""
-    hh, ww = ry.shape
-    mask = np.zeros((hh, ww), bool)
+def refine_mask(ry, S, nbh, nbw, starts, ry_y0=0, sref=None):
+    """The samples of `ry` (a plane, or a stack whose plane sref[g] start g
+    reads) that grid_refine's clamped 7x7-search windows (S + 6 square
+    around each start) read; ry_y0: ry's row level with the block rows'
+    row 0 (a stripe's halo)."""
+    stack = ry.dim() == 3
+    hh, ww = ry.shape[-2:]
+    mask = np.zeros((ry.shape[0] if stack else 1, hh, ww), bool)
     st = starts.cpu().numpy().astype(np.int64)
+    pl = (np.zeros(st.shape[0], np.int64) if sref is None
+          else sref.cpu().numpy().astype(np.int64))
     for g in range(st.shape[0]):
         for b in range(nbh * nbw):
             y0 = ry_y0 + (b // nbw) * S + st[g, b, 1] - 3
             x0 = (b % nbw) * S + st[g, b, 0] - 3
             ys = np.clip(np.arange(y0, y0 + S + 6), 0, hh - 1)
             xs = np.clip(np.arange(x0, x0 + S + 6), 0, ww - 1)
-            mask[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1] = True
-    return mask
+            mask[pl[g], ys.min() : ys.max() + 1,
+                 xs.min() : xs.max() + 1] = True
+    return mask if stack else mask[0]
 
 
 def gather_mask(planes, mv, ref, cell, look):
@@ -459,10 +472,12 @@ def windows(name, a, kw):
         return [(ref, window_mask(ref, a[3], a[4], mvq, a[7], a[8],
                                   None if idir is None else (idir & k) != 0))
                 for ref, mvq, k in ((a[1], a[5], 1), (a[2], a[6], 2))]
-    if name == "grid_refine":
+    if name in ("grid_refine", "grid_refine_one"):
         return [(a[0], refine_mask(a[0], a[2], a[3], a[4], a[5],
                                    a[11] if len(a) > 11
-                                   else kw.get("ry_y0", 0)))]
+                                   else kw.get("ry_y0", 0),
+                                   a[12] if len(a) > 12
+                                   else kw.get("sref")))]
     if name == "grid_satd":  # a class coding's luma, then U and V
         planes_y, planes_c, mv8, ref8, look, look_c = a[:6]
         R = planes_y.shape[0]
@@ -573,7 +588,8 @@ def kernel_ops(name, a, kw=None) -> int:
                                 + (12 if decide else 3) * S * S)
     if name == "grid_coarse":  # sub, abs, add (+ add for the sum)
         return a[0].numel() * a[2] ** 2 * (4 if a[5] else 3)
-    if name == "grid_refine":  # sub, abs, add, add per pixel and point
+    if name in ("grid_refine", "grid_refine_one"):  # sub, abs, add, add
+        # per pixel and candidate
         S, nb = a[2], a[3] * a[4]
         return a[5].shape[0] * 49 * nb * S * S * 4
     if name == "grid_planes":  # the separable filter's products and sums
@@ -850,27 +866,38 @@ def ra_cfg(npz, w=None, h=None, frames=None):
 
 
 # kernel name -> the wrapper the grid step calls, where they differ
-CALLED_AS = {"grid_code": "grid_code_batch", "grid_satd": "grid_mc"}
+# ("grid_refine_one": grid_refine's one-reference wrapper, which
+# stripe_refine calls)
+CALLED_AS = {"grid_code": "grid_code_batch", "grid_satd": "grid_mc",
+             "grid_refine": "grid_refine_refs",
+             "grid_refine_one": "grid_refine"}
 
 
-def recording(module, names, calls, no_sync=()):
+def recording(module, names, calls, no_sync=(), span=None):
     """Swap module.<name> (or CALLED_AS[name]) for a wrapper that records
     (args, kwargs) of every call into calls[name]; returns the originals.
     The calls of the names in no_sync run under
     torch.cuda.set_sync_debug_mode("error"): a sync of the stream inside
-    them (a device-to-host read, an upload from pageable memory) raises."""
+    them (a device-to-host read, an upload from pageable memory) raises.
+    span (first, end): from the entry of `first`'s call to the entry of
+    `end`'s, everything the caller does runs under that mode too."""
     saved = {k: getattr(module, CALLED_AS.get(k, k)) for k in names}
 
     def recorder(name, fn):
         def wrapped(*args, **kw):
             calls[name].append((args, kw))
+            if span is not None and name == span[0]:
+                torch.cuda.set_sync_debug_mode("error")
+            elif span is not None and name == span[1]:
+                torch.cuda.set_sync_debug_mode("default")
             if name not in no_sync:
                 return fn(*args, **kw)
+            mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 return fn(*args, **kw)
             finally:
-                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.set_sync_debug_mode(mode)
         return wrapped
 
     for k in names:
@@ -1008,7 +1035,7 @@ def check_b_kernels(dev, npz, params):
 
 G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_coarse": (grid_coarse, grid_coarse_plain),
-    "grid_refine": (grid_refine, grid_refine_plain),
+    "grid_refine": (grid_refine_refs, grid_refine_refs_plain),
     "grid_planes": (grid_planes, grid_planes_plain),
     "grid_satd": (grid_mc, grid_mc_plain),
     "grid_satd_cost": (grid_satd_cost, grid_satd_cost_plain),
@@ -1021,6 +1048,8 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_stats": (grid_stats, grid_stats_plain),
     "grid_sao_decide": (grid_sao_decide, grid_sao_decide_plain),
     "stripe_prescreen": (stripe_prescreen, stripe_prescreen_plain),
+    # grid_refine's one-reference wrapper (stripe_refine's)
+    "grid_refine_one": (grid_refine, grid_refine_plain),
     # the row-stripe launches of grid_sao and grid_stats
     "grid_sao_stats": (grid_sao_stats, grid_sao_stats_plain),
     "grid_sao_apply": (grid_sao_apply, grid_sao_apply_plain),
@@ -1041,7 +1070,12 @@ def picture_wp(clip, R, dev):
 
 
 # the grid step's wrappers that must not sync the stream
-NO_SYNC = ("grid_code", "grid_satd", "grid_satd_cost")
+NO_SYNC = ("grid_code", "grid_satd", "grid_satd_cost", "grid_refine",
+           "grid_intra16")
+# the grid step's motion search, from its first grid_coarse launch to its
+# first grid_planes launch (the coarse picks, the global start, the
+# starts of every reference and both refine launches between): no sync
+ME_SPAN = ("grid_coarse", "grid_planes")
 # the grid step's launches of the whole-picture functions grid_sao
 # (statistics, decision, apply) and grid_stats (the int64 sums)
 WHOLE = {"grid_sao": ("grid_sao_stats", "grid_sao_decide"),
@@ -1056,7 +1090,9 @@ def capture_grid_calls(dev, cfg, params, names, fade=False):
     weighted prediction, the picture's analysed tables), recording every
     call of the named grid wrappers -> ({name: [(args, kwargs)]}, the
     WpParams or None). fade: the fade clip, else the synthetic one.
-    grid_code's calls run under sync debug mode "error" (`recording`)."""
+    The calls of NO_SYNC, and the motion search from its first grid_coarse
+    launch to its first grid_planes launch (ME_SPAN; where both are
+    recorded), run under sync debug mode "error" (`recording`)."""
     clip = Reader(W, H, 5, fade).frames
     cfg.sps.temporal_mvp_enabled = True
     qps = {min(max(cfg.qp + o, 0), 51) for o in cfg.gop_qp_offsets}
@@ -1085,11 +1121,13 @@ def capture_grid_calls(dev, cfg, params, names, fade=False):
     calls = {k: [] for k in rec}
     # grid_code and grid_satd_cost read lambda (and the cbf bits) on the
     # card: no sync a call, nor in the gathers
-    saved = recording(inter_grid, rec, calls, no_sync=NO_SYNC)
+    span = ME_SPAN if all(k in rec for k in ME_SPAN) else None
+    saved = recording(inter_grid, rec, calls, no_sync=NO_SYNC, span=span)
     try:
         step.frame_step(carry, fu8, R, 0, tabs, wp)
         torch.cuda.synchronize()
     finally:
+        torch.cuda.set_sync_debug_mode("default")
         restore(inter_grid, saved)
     if "grid_sao" in names:
         calls["grid_sao"] = [((*st[:4], dc[2], dc[3], st[4]), {})
@@ -1188,11 +1226,13 @@ def check_grid_kernels(dev, npz, params):
           f"{err:.3g} (the four tools cut: the flat quantiser)", flush=True)
     # DCT-IF FME, weighted prediction and the no-fetch tail: one P picture
     # of the fade clip with the anchor cfg, dctif, WP and no recon fetch
+    # (grid_refine, grid_intra16 and grid_planes held beside their rows;
+    # grid_coarse recorded for the motion search's sync-free span)
     calls, wpp = capture_grid_calls(
         dev, ldp_cfg(npz, extra=FME_WP + NO_FETCH), params,
-        F_KERNELS + ("grid_planes",), fade=True)
+        F_KERNELS + WP_TOO + ("grid_coarse",), fade=True)
     check(weighted(wpp), f"fade picture: identity weights only {wpp}")
-    for name in F_KERNELS + ("grid_planes",):
+    for name in F_KERNELS + WP_TOO:
         kern, plain = G_FUNCS[name]
         r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
         r["max_abs_err"] = compare_calls(name, calls[name], r["work"])
@@ -1201,7 +1241,7 @@ def check_grid_kernels(dev, npz, params):
         r["plain_ms"] = median_ms(
             lambda: [plain(*a, **k) for a, k in calls[name]], reps=3)
         tag = "P picture"
-        if name == "grid_planes":  # the weighted branch, beside the row
+        if name in WP_TOO:  # the weighted picture, beside the row
             tag = "P picture, weighted"
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                             r["max_abs_err"])
@@ -1215,6 +1255,11 @@ def check_grid_kernels(dev, npz, params):
               f"plain_ms {r['plain_ms']:.4f} (per P picture, dctif + WP, no "
               f"fetch)", flush=True)
     return rows
+
+
+# the anchor picture's kernels held again at every call of the weighted
+# picture
+WP_TOO = ("grid_planes", "grid_refine", "grid_intra16")
 
 
 def check_cost_calls(cost):
@@ -1357,9 +1402,9 @@ def multi_calls(dev):
     cx4, cy4 = step.pick_coarse(s16, sum16, qp, lam_me, H // 16, W // 16, 1)
     graft = torch.as_tensor(np.random.default_rng(SEED).integers(
         0, 256, (128, 128)), dtype=torch.int32, device=dev)
-    calls = {"stripe_prescreen": [], "grid_refine": []}
+    calls = {"stripe_prescreen": [], "grid_refine_one": []}
     saved = recording(mesh_mod, ("stripe_prescreen",), calls)
-    saved_g = recording(inter_grid, ("grid_refine",), calls)
+    saved_g = recording(inter_grid, ("grid_refine_one",), calls)
     try:
         for n, plane in ((1, oy), (3, oy), (2, graft)):
             mesh_mod.tile_prescreen(mesh_mod.make_mesh(n), *plane.shape)(
@@ -1368,8 +1413,8 @@ def multi_calls(dev):
         refine[0](oy, ry, cx4.contiguous(), cy4.contiguous())
         torch.cuda.synchronize()
     finally:
-        mesh_mod.stripe_prescreen = saved["stripe_prescreen"]
-        inter_grid.grid_refine = saved_g["grid_refine"]
+        restore(mesh_mod, saved)
+        restore(inter_grid, saved_g)
     return calls, oy, (oy, ry, cx4.contiguous(), cy4.contiguous()), refine
 
 
@@ -1396,16 +1441,16 @@ def check_multi_kernels(calls, rows):
           f"stripes, 128x128 in 2) max_abs_err {r['max_abs_err']:.3g} "
           f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} (416x240 "
           f"in 3 stripes)", flush=True)
-    ref = calls["grid_refine"]
+    ref = calls["grid_refine_one"]
     check(len(ref) == 3 and all(a[-1] == 40 for a, _ in ref),
           f"grid_refine stripe calls: ry_y0 {[a[-1] for a, _ in ref]}")
-    err = compare_calls("grid_refine", ref)
+    err = compare_calls("grid_refine_one", ref)
     ms = median_ms(lambda: [grid_refine(*a, **k) for a, k in ref], reps=20)
     plain_ms = median_ms(lambda: [grid_refine_plain(*a, **k)
                                   for a, k in ref], reps=3)
     work = Work()
     for a, k in ref:
-        work.add("grid_refine", a, grid_refine(*a, **k), k)
+        work.add("grid_refine_one", a, grid_refine(*a, **k), k)
     bound_ms, bound_by = bound_of(dict(work=work))
     rows["grid_refine"]["max_abs_err"] = max(
         rows["grid_refine"]["max_abs_err"], err)
@@ -1427,8 +1472,8 @@ STEP_CALLS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
               "grid_sao_stats", "grid_sao_apply", "grid_sao_decide",
               "grid_stats_partial", "nn_refine")
 # the launches a stripe's row origin reaches: their calls held vs plain
-STRIPE_KERNELS = ("grid_intra16", "grid_planes", "grid_sao_stats",
-                  "grid_sao_apply", "grid_stats_partial")
+STRIPE_KERNELS = ("grid_refine", "grid_intra16", "grid_planes",
+                  "grid_sao_stats", "grid_sao_apply", "grid_stats_partial")
 
 
 def shard_cfg(npz, extra=()):
@@ -1520,7 +1565,8 @@ def step_bound(calls):
 
 
 def check_stripe_kernels(calls, xbytes, runs, rows):
-    """The row-origin launches of one sharded picture (grid_intra16 with
+    """The row-origin launches of one sharded picture (grid_refine over
+    every reference with its stripe's ry_y0, grid_intra16 with
     y0 1 in stripes 1 and 2, grid_planes from each stripe's row origin in
     its carried reference rows, grid_sao's stats and apply with their halo
     rows, grid_stats' partial sums without the fetch) against their plain
@@ -1532,7 +1578,8 @@ def check_stripe_kernels(calls, xbytes, runs, rows):
     "single": {bound, ms, plain_ms}}."""
     sh = dict(calls["sharded"])
     sh["grid_stats_partial"] = calls["sharded_nofetch"]["grid_stats_partial"]
-    origin = {"grid_intra16": "grid_intra16", "grid_planes": "grid_planes",
+    origin = {"grid_refine": "grid_refine", "grid_intra16": "grid_intra16",
+              "grid_planes": "grid_planes",
               "grid_sao_stats": "grid_sao", "grid_sao_apply": "grid_sao",
               "grid_stats_partial": "grid_stats"}
     ys = sorted({k.get("y0", 0) for _, k in sh["grid_intra16"]})
@@ -1540,8 +1587,8 @@ def check_stripe_kernels(calls, xbytes, runs, rows):
           f"grid_intra16 stripe calls: y0 {ys}")
     for name in STRIPE_KERNELS:
         cs = sh[name]
-        n_calls = N_STRIPES * (2 if name in ("grid_intra16", "grid_planes")
-                               else 1)
+        n_calls = N_STRIPES * (2 if name in ("grid_refine", "grid_intra16",
+                                             "grid_planes") else 1)
         check(len(cs) == n_calls, f"{name}: {len(cs)} calls in "
               f"{N_STRIPES} stripes")
         err = compare_calls(name, cs)

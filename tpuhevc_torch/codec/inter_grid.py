@@ -20,7 +20,9 @@ Per P picture (`GridStep.frame_step`):
    on the 4x-pooled level (a second `grid_coarse`); the 7x7 full-pel
    refine around up to five starts per block for the 16 (with the
    8-class from its quadrants) and 32 classes over every available
-   reference (`grid_refine`), the best reference per block; with
+   reference, one launch a class (`grid_refine`, the starts
+   reference-major, the best reference per block picked on the card);
+   the global candidate stays on the card; with
    weighted prediction against the weighted full-pel references
    (`grid_wp_me`).
 2. MC: the DCT-IF phase planes of every reference (`grid_planes`, the
@@ -73,8 +75,9 @@ from ..entropy.bitest import EstTables, FracBits, ResidualBitEst
 from ..models.nnfme import NNFME, height_category, nn_refine, width_category
 from ..ops.grid_code import grid_code_batch, up
 from ..ops.grid_deblock import grid_deblock
-from ..ops.grid_intra import IMODES, grid_intra16
-from ..ops.grid_me import grid_coarse, grid_refine, grid_wp_me, tile_sum, zcost
+from ..ops.grid_intra import IMODES, grid_intra16, intra16_out
+from ..ops.grid_me import (grid_coarse, grid_refine, grid_refine_refs,
+                           grid_wp_me, tile_sum, zcost)
 from ..ops.grid_pred import (SatdField, grid_mc, grid_planes,
                               grid_satd_cost, grid_subpel)
 from ..ops.grid_sao import grid_sao_apply, grid_sao_decide, grid_sao_stats
@@ -296,6 +299,16 @@ class GridStep:
                 and self.KY % 4 == 0)
         self.ref_bits_me = [min(r + 1, max(1, self.R - 1))
                             for r in range(self.R)]
+        # grid_refine's reference bits on the card (none with one
+        # reference, as the reference's acc_init adds none), the coarse
+        # start's scale of each further reference, and the reference of
+        # each start (by the count of reference 0's starts and of the
+        # references searched)
+        z32 = dict(dtype=torch.int32, device=dev)
+        self.rbits_me = (torch.as_tensor(self.ref_bits_me, **z32)
+                         if self.R > 1 else None)
+        self.ref_scales = torch.arange(2, self.R + 1, **z32)[:, None]
+        self._sref: dict = {}
         self.nn = {}
         if cfg.fme_mode == "nn":
             for qp in set(self.qps):
@@ -315,6 +328,12 @@ class GridStep:
         # the site (in this picture, another stripe's or the next
         # picture's) may write the same buffer in stream order
         self._cost_out: dict = {}
+        # grid_intra16's outputs on the card, by call site, stripe and
+        # size: the decision's modes are read by the second call of the
+        # same stripe and picture, later requests of codec.stripes, so each
+        # stripe (row origin) has its own; the next picture's call of the
+        # site writes them in stream order after this picture's reads
+        self._intra_out: dict = {}
         self._c_s_of: dict = {}
 
     # --- helpers ------------------------------------------------------
@@ -396,6 +415,45 @@ class GridStep:
                            self._dcc(qp, S * S, lam_me),
                            self._dcc(qp, 64, lam_me), lam_me,
                            self.sr_full + 3, ry_y0)
+
+    def refine_refs(self, ry_me, oy, st0, cxy, nref, S, nbh, nbw, qp,
+                    lam_me, quads=False, ry_y0=0):
+        """grid_refine over every searched reference in one launch: st0
+        reference 0's start grids [(x, y) full-pel per block], then for
+        each reference r in 1..nref-1 the coarse winner cxy (2-sample
+        units) scaled by r + 1 and clipped to +-R2 -> ((mv, sad9, cost,
+        ref), the quadrants' or None), each the winner over the
+        references."""
+        R2 = self.R2
+        sc = (torch.stack(cxy)[:, None] * self.ref_scales[: nref - 1]
+              ).clamp_(-R2, R2).mul_(2)  # (2, nref - 1, nb)
+        st = torch.stack([torch.cat([torch.stack([x.reshape(-1)
+                                                  for x, _ in st0]), sc[0]]),
+                          torch.cat([torch.stack([y.reshape(-1)
+                                                  for _, y in st0]), sc[1]])],
+                         -1)
+        key = (len(st0), nref)
+        sref = self._sref.get(key)
+        if sref is None:
+            sref = self._sref[key] = torch.cat([
+                torch.zeros(len(st0), dtype=torch.int32, device=self.dev),
+                torch.arange(1, nref, dtype=torch.int32, device=self.dev)])
+        return grid_refine_refs(ry_me, oy, S, nbh, nbw, st, quads,
+                                self._dcc(qp, S * S, lam_me),
+                                self._dcc(qp, 64, lam_me), lam_me,
+                                self.sr_full + 3, ry_y0, sref, self.rbits_me)
+
+    def intra_out(self, site, rows: Rows, nh16):
+        """grid_intra16's kept outputs of call site `site` in the stripe
+        `rows` (`_intra_out`), on the card; None on the CPU."""
+        if self.dev.type != "cuda":
+            return None
+        key = (site, rows.y0, nh16)
+        out = self._intra_out.get(key)
+        if out is None:
+            out = self._intra_out[key] = intra16_out(nh16, self.nw16,
+                                                     self.dev)
+        return out
 
     def mc(self, planes_y, planes_c, mv8, ref8):
         """Per-8-cell fields (h8', w8', 2) / (h8', w8') -> the luma and the
@@ -826,8 +884,9 @@ class GridStep:
         # the global candidate: the picture's sums (integers: exact in any
         # order), the first-index argmin
         (gsum,) = yield Once(_sum_once, [gtot.sum(dim=(1, 2))])
-        gi = int(torch.argmin(gsum))
-        gcx, gcy = gi % nc - R2, gi // nc - R2
+        # on the card: the start stays a tensor, so nothing waits on it
+        gi = torch.argmin(gsum)
+        g2 = torch.stack([gi % nc, gi // nc]).sub_(R2).mul_(2).int()
         sf = self.sr_full
         tx_ = mv16p[:, 0].clamp(-sf, sf).reshape(nh16, nw16)
         ty_ = mv16p[:, 1].clamp(-sf, sf).reshape(nh16, nw16)
@@ -842,8 +901,8 @@ class GridStep:
             barg = torch.argmin(cost4.reshape(n4 * n4, -1), dim=0).reshape(
                 nh16, nw16)
             lim_ps = sf - 4
-            px_ = ((barg % n4 - P4) * 4).clamp(-lim_ps, lim_ps)
-            py_ = ((barg // n4 - P4) * 4).clamp(-lim_ps, lim_ps)
+            px_ = ((barg % n4 - P4) * 4).clamp(-lim_ps, lim_ps).int()
+            py_ = ((barg // n4 - P4) * 4).clamp(-lim_ps, lim_ps).int()
             pre16 = (px_, py_)
             if has32:
                 pre32 = (px_[: nh32 * 2 : 2, : nw32 * 2 : 2],
@@ -852,58 +911,24 @@ class GridStep:
         def starts0(cxr, cyr, ts, pre):
             zero = torch.zeros_like(cxr)
             st = [(cxr * 2, cyr * 2), (zero, zero),
-                  (torch.full_like(cxr, gcx * 2), torch.full_like(cxr, gcy * 2)),
-                  ts]
+                  (g2[0].expand_as(cxr), g2[1].expand_as(cxr)), ts]
             if pre is not None:
                 st.append(pre)
             return st
 
-        (m16, m8_) = self.refine(ry0, oy, starts0(cx16, cy16, (tx_, ty_),
-                                                  pre16),
-                                 16, nh16, nw16, qp, lam_me, quads=True,
-                                 ry_y0=ya)
+        # one launch a block size over every searched reference: the
+        # references past the available ones cost 2^30 in the reference
+        # and are never taken, so they are not searched
+        nref = min(R, navail)
+        (mv16, sad9_16, _, ref16), (mv8, sad9_8, _, ref8) = self.refine_refs(
+            ry_me, oy, starts0(cx16, cy16, (tx_, ty_), pre16), (cx16, cy16),
+            nref, 16, nh16, nw16, qp, lam_me, quads=True, ry_y0=ya)
         if has32:
             ts32 = (tx_[: nh32 * 2 : 2, : nw32 * 2 : 2],
                     ty_[: nh32 * 2 : 2, : nw32 * 2 : 2])
-            m32, _ = self.refine(ry0, oy, starts0(cx32, cy32, ts32, pre32),
-                                 32, nh32, nw32, qp, lam_me, ry_y0=ya)
-
-        def acc_init(m, r0_bits):
-            mv, sad9, cost = m
-            return [cost + ((r0_bits * lam_me) >> 8) if R > 1 else cost,
-                    mv, sad9, torch.zeros_like(cost)]
-
-        acc16 = acc_init(m16, self.ref_bits_me[0])
-        acc8 = acc_init(m8_, self.ref_bits_me[0])
-        acc32 = acc_init(m32, self.ref_bits_me[0]) if has32 else None
-
-        def merge_acc(acc, m, rb, ridx):
-            mv, sad9, cost = m
-            cost = cost + ((rb * lam_me) >> 8)
-            take = cost < acc[0]
-            acc[0] = torch.where(take, cost, acc[0])
-            acc[1] = torch.where(take[:, None], mv, acc[1])
-            acc[2] = torch.where(take[:, None], sad9, acc[2])
-            acc[3] = torch.where(take, torch.full_like(acc[3], ridx), acc[3])
-
-        # references past the available ones cost 2^30 in the reference
-        # and are never taken: skip them
-        for r in range(1, min(R, navail)):
-            sc = r + 1
-            cxr = (cx16 * sc).clamp(-R2, R2)
-            cyr = (cy16 * sc).clamp(-R2, R2)
-            mr16, mr8 = self.refine(ry_me[r], oy, [(cxr * 2, cyr * 2)],
-                                    16, nh16, nw16, qp, lam_me, quads=True,
-                                    ry_y0=ya)
-            merge_acc(acc16, mr16, self.ref_bits_me[r], r)
-            merge_acc(acc8, mr8, self.ref_bits_me[r], r)
-            if has32:
-                cxr32 = (cx32 * sc).clamp(-R2, R2)
-                cyr32 = (cy32 * sc).clamp(-R2, R2)
-                mr32, _ = self.refine(ry_me[r], oy,
-                                      [(cxr32 * 2, cyr32 * 2)], 32, nh32,
-                                      nw32, qp, lam_me, ry_y0=ya)
-                merge_acc(acc32, mr32, self.ref_bits_me[r], r)
+            (mv32, sad9_32, _, ref32), _ = self.refine_refs(
+                ry_me, oy, starts0(cx32, cy32, ts32, pre32), (cx32, cy32),
+                nref, 32, nh32, nw32, qp, lam_me, ry_y0=ya)
 
         # --- MC planes, FME --------------------------------------------------
         # the stripe's phase planes: the rows of the picture's that its
@@ -915,10 +940,6 @@ class GridStep:
             torch.cat([ruv_stack[:, :, :Wc], ruv_stack[:, :, Wc:]], 0)
             .contiguous(), False, self.PADC, hs // 2 + 2 * self.LOOKC,
             self.WmC, wpc, ya // 2)
-        _, mv16, sad9_16, ref16 = acc16
-        _, mv8, sad9_8, ref8 = acc8
-        if has32:
-            _, mv32, sad9_32, ref32 = acc32
         model = self.nn.get(qp)
         if model is not None:
             def fme(mv, sad9, ref, S, nbh_, nbw_):
@@ -1153,7 +1174,8 @@ class GridStep:
         oy_b, ouv_b = yield Halo([HaloItem(oy, 1, 0, edge="cut", dtype=u8),
                                   HaloItem(ouv, 1, 0, edge="cut", dtype=u8)])
         bm16, ipy, ipuv = grid_intra16(oy_b, ouv_b, avtr, avbl, nh16, nw16,
-                                       cur=oy, y0=top1)
+                                       cur=oy, y0=top1,
+                                       out=self.intra_out(0, rows, nh16))
         ci16 = self.intra16_code(qp, tabs, lam, oy, ouv, ipy, ipuv)
         icost16 = self.intra16_cost(tabs, lam, ci16)
         icand = icost16 < best16
@@ -1309,7 +1331,8 @@ class GridStep:
             HaloItem(rec_y, 1, 0, edge="cut", dtype=u8),
             HaloItem(rec_uv, 1, 0, edge="cut", dtype=u8)])
         _, ipred_y, ipred_uv = grid_intra16(rec_yb, rec_uvb, avtr, avbl,
-                                            nh16, nw16, modes=bm16, y0=top1)
+                                            nh16, nw16, modes=bm16, y0=top1,
+                                            out=self.intra_out(1, rows, nh16))
         cix = self.intra16_code(qp, tabs, lam, oy, ouv, ipred_y, ipred_uv)
         paste(lvl_y, cix["lvl"], up(kept, 16))
         paste(rec_y, cix["rec"], up(kept, 16))

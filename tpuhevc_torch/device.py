@@ -46,6 +46,15 @@ def on_device(dev: torch.device):
     return contextlib.nullcontext()
 
 
+def contiguous_on(t: torch.Tensor, dtype, di: int,
+                  ndim: int | None = None) -> bool:
+    """Whether `t` is a contiguous `dtype` tensor (of ndim dimensions) on
+    cuda:di: the lean check of the wrappers whose host time a call counts
+    (`check_tensor` says which argument is wrong)."""
+    return (t.dtype == dtype and t.get_device() == di and t.is_contiguous()
+            and (ndim is None or t.dim() == ndim))
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int | None = None,
                  device: torch.device | None = None) -> None:
     """Raise unless `t` is a contiguous `dtype` tensor (on `device`)."""

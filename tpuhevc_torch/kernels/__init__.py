@@ -13,7 +13,8 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`grid_deblock` launches twice a picture, once per edge direction;
 `grid_code` once for the planes of one class coding; `grid_satd_cost`
-once for up to eight fields of CU costs;
+once for up to eight fields of CU costs; `grid_refine` once a block size
+a P picture, over every reference searched;
 `grid_sao` twice, its stats and its apply, with `grid_sao_decide` between
 them (on row stripes: stats and apply a stripe, the decision once); `intra_wave` once for a whole batch of pictures; `stripe_prescreen`
 once a row stripe; `fme_train_fwd`, `fme_train_bwd` and `fme_adam` once

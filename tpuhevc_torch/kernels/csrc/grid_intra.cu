@@ -31,82 +31,125 @@
 // planes; `cur` and the predictions hold the cells' rows only.
 //
 // What bounds it: 7 x 256 predicted samples and 7 x 4 Hadamards per
-// cell, all in shared memory; the planes are read once around each cell.
+// cell, a few thousand integer operations, and the planes read once
+// around each cell: latency, not bytes or operations (0.0004 ms of bound
+// a picture). Its design keeps every step parallel: warps 0-2 fetch the
+// luma, U and V boundaries one lane a sample, find the available ones by
+// __ballot_sync and substitute by bit scans of the ballots (the last set
+// bit at or below k, else the first set bit, else 128); warp 0 smooths,
+// a lane a sample; then warp m (of 7) predicts mode m a row of 8 samples a
+// lane and takes its four 8x8 SATDs by the butterflies of hadamard.cuh
+// across 8 lanes (integer: exact in any order), the four tiles' rounded
+// sums added by shuffles; one thread picks the first-index minimum; the
+// chosen mode is written a sample a thread.
 
 #include <cuda_runtime.h>
 
+#include "hadamard.cuh"
+
 namespace {
 
-__constant__ int c_had[64];
+constexpr unsigned kFull = 0xffffffffu;
 __constant__ int kModes[7] = {0, 1, 10, 26, 2, 18, 34};
 
-// boundary of the S x S cell at (bx, by) of `plane` (hp x wp, row
-// stride wp) with the cell grid starting at column ox; xmax bounds the
-// columns of this half. Writes t[0..2S], l[0..2S] (corner at 0).
+// The boundary of the S x S cell at (bx, by) of `plane` (hp x wp, row
+// stride wp) with the cell grid starting at column ox, xmax bounding the
+// reads and the top-right segment, by one warp: lane k's sample, its
+// availability by ballot, the substitution by bit scans -> t[0..2S],
+// l[0..2S] (corner at 0); raw: 4S + 1 ints of scratch. Every lane of the
+// warp must call it.
 __device__ void cell_refs(const int* __restrict__ plane, int hp, int wp,
                           int S, int ox, int xmax, int bx, int by, bool tr,
-                          bool bl, int* v, int* t, int* l) {
-    const int n = 4 * S + 1;
+                          bool bl, int* raw, int* t, int* l) {
+    const int n = 4 * S + 1, lane = threadIdx.x & 31;
     const bool left_ok = bx - ox > 0, top_ok = by > 0;
-    int first = -1, last = -1;
-    // one thread walks the boundary (4S + 1 <= 65 samples)
-    for (int k = 0; k < n; ++k) {
-        int y, x;
-        bool av;
-        if (k < 2 * S) {
-            y = by + 2 * S - 1 - k;
-            x = bx - 1;
-            av = k < S ? (bl && left_ok && y < hp) : left_ok;
-        } else if (k == 2 * S) {
-            y = by - 1;
-            x = bx - 1;
-            av = left_ok && top_ok;
+    unsigned m[3] = {0u, 0u, 0u};
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+        const int k = lane + 32 * r;
+        bool av = false;
+        if (k < n) {
+            int y, x;
+            if (k < 2 * S) {
+                y = by + 2 * S - 1 - k;
+                x = bx - 1;
+                av = k < S ? (bl && left_ok && y < hp) : left_ok;
+            } else if (k == 2 * S) {
+                y = by - 1;
+                x = bx - 1;
+                av = left_ok && top_ok;
+            } else {
+                y = by - 1;
+                x = bx + k - (2 * S + 1);
+                av = k <= 3 * S ? top_ok : (tr && top_ok && x < xmax);
+            }
+            const int yc = min(max(y, 0), hp - 1);
+            const int xc = min(max(x, 0), xmax - 1);
+            raw[k] = plane[(size_t)yc * wp + xc];
+        }
+        m[r] = __ballot_sync(kFull, av);
+    }
+    __syncwarp();
+    const bool any = (m[0] | m[1] | m[2]) != 0u;
+    const int first = m[0] ? __ffs(m[0]) - 1
+                      : m[1] ? 31 + __ffs(m[1]) : 63 + __ffs(m[2]);
+    int vals[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+        const int k = lane + 32 * r;
+        // the last available sample at or before k
+        int f = -1;
+#pragma unroll
+        for (int rr = r; rr >= 0 && f < 0; --rr) {
+            const unsigned mm = rr == r ? m[rr] & ((2u << lane) - 1u) : m[rr];
+            if (mm) f = 32 * rr + 31 - __clz(mm);
+        }
+        vals[r] = (k < n) ? (!any ? 128 : raw[f >= 0 ? f : first]) : 0;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+        const int k = lane + 32 * r;
+        if (k >= n) continue;
+        if (k == 2 * S) {
+            t[0] = l[0] = vals[r];
+        } else if (k > 2 * S) {
+            t[k - 2 * S] = vals[r];
         } else {
-            y = by - 1;
-            x = bx + k - (2 * S + 1);
-            av = k <= 3 * S ? top_ok : (tr && top_ok && x < xmax);
+            l[2 * S - k] = vals[r];
         }
-        const int yc = min(max(y, 0), hp - 1), xc = min(max(x, 0), xmax - 1);
-        v[k] = plane[(size_t)yc * wp + xc];
-        if (av) {
-            if (first < 0) first = k;
-            last = k;
-        }
-        v[n + k] = av ? k : last;  // forward fill index
     }
-    for (int k = 0; k < n; ++k) {
-        const int f = v[n + k];
-        v[2 * n + k] = first < 0 ? 128 : (f >= 0 ? v[f] : v[first]);
-    }
-    const int* filled = v + 2 * n;
-    t[0] = l[0] = filled[2 * S];
-    for (int i = 1; i <= 2 * S; ++i) {
-        t[i] = filled[2 * S + i];
-        l[i] = filled[2 * S - i];
-    }
+    __syncwarp();
+}
+
+// (sum of t[1..S] and l[1..S] + S) >> (log2 + 1), by one warp
+__device__ __forceinline__ int dc_of(const int* t, const int* l, int S,
+                                     int log2) {
+    const int lane = threadIdx.x & 31;
+    int s = lane < S ? t[1 + lane] + l[1 + lane] : 0;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+    return (s + S) >> (log2 + 1);
 }
 
 __device__ __forceinline__ int clip8(int v) { return min(max(v, 0), 255); }
 
-// sample (y, x) of mode m on refs t, l (S = 1 << log2); fil: whether the
-// DC / V / H edge filters apply (luma below 32)
-__device__ int predict(int m, const int* t, const int* l, int S, int log2,
-                       int y, int x, bool fil) {
+// sample (y, x) of mode m on refs t, l (S = 1 << log2), dc the refs' DC;
+// fil: whether the DC / V / H edge filters apply (luma below 32)
+__device__ __forceinline__ int predict(int m, const int* t, const int* l,
+                                       int S, int log2, int dc, int y, int x,
+                                       bool fil) {
     switch (m) {
         case 0:
             return ((S - 1 - x) * l[1 + y] + (x + 1) * t[S + 1]
                     + (S - 1 - y) * t[1 + x] + (y + 1) * l[S + 1] + S)
                    >> (log2 + 1);
-        case 1: {
-            int s = S;
-            for (int i = 1; i <= S; ++i) s += t[i] + l[i];
-            const int dc = s >> (log2 + 1);
+        case 1:
             if (!fil) return dc;
             if (y == 0 && x == 0) return (l[1] + 2 * dc + t[1] + 2) >> 2;
             if (y == 0) return (t[x + 1] + 3 * dc + 2) >> 2;
             if (x == 0) return (l[y + 1] + 3 * dc + 2) >> 2;
             return dc;
-        }
         case 26:
             if (fil && x == 0) return clip8(t[1] + ((l[1 + y] - l[0]) >> 1));
             return t[1 + x];
@@ -122,81 +165,79 @@ __device__ int predict(int m, const int* t, const int* l, int S, int log2,
     }
 }
 
-__global__ void intra16_kernel(const int* __restrict__ ref_y,
-                               const int* __restrict__ ref_uv,
-                               const bool* __restrict__ avtr,
-                               const bool* __restrict__ avbl,
-                               const int* __restrict__ cur,
-                               const int* __restrict__ modes_in,
-                               int* __restrict__ modes_out,
-                               int* __restrict__ pred_y,
-                               int* __restrict__ pred_uv, int H, int Hc,
-                               int W, int nw, int y0) {
-    __shared__ int v[3 * 65];
+__device__ __forceinline__ bool smoothed(int m) {
+    return m == 0 || m == 2 || m == 18 || m == 34;
+}
+
+__global__ void __launch_bounds__(256)
+intra16_kernel(const int* __restrict__ ref_y, const int* __restrict__ ref_uv,
+               const bool* __restrict__ avtr, const bool* __restrict__ avbl,
+               const int* __restrict__ cur, const int* __restrict__ modes_in,
+               int* __restrict__ modes_out, int* __restrict__ pred_y,
+               int* __restrict__ pred_uv, int H, int Hc, int W, int nw,
+               int y0) {
+    __shared__ int raw[3][68];
     __shared__ int t[33], l[33], ft[33], fl[33];
     __shared__ int tc[2][17], lc[2][17];
-    __shared__ int res[7 * 256];
-    __shared__ int sat[7 * 4];
+    __shared__ int dc[3];
+    __shared__ int sat[7];
     __shared__ int s_mode;
     const int cell = blockIdx.x;
     const int cy = cell / nw, cx = cell - cy * nw;
     const bool tr = avtr[cell], bl = avbl[cell];
-    const int Wc = W / 2;
-    if (threadIdx.x == 0) {
-        cell_refs(ref_y, H, W, 16, 0, W, cx * 16, cy * 16 + y0, tr, bl, v, t,
-                  l);
+    const int Wc = W / 2, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0) {
+        cell_refs(ref_y, H, W, 16, 0, W, cx * 16, cy * 16 + y0, tr, bl,
+                  raw[0], t, l);
+        // the [1 2 1] smoothing, a lane a sample (corner at 0)
         const int c = (l[1] + 2 * t[0] + t[1] + 2) >> 2;
-        ft[0] = fl[0] = c;
-        for (int k = 1; k < 32; ++k) {
-            ft[k] = (t[k - 1] + 2 * t[k] + t[k + 1] + 2) >> 2;
-            fl[k] = (l[k - 1] + 2 * l[k] + l[k + 1] + 2) >> 2;
+        if (lane == 0) {
+            ft[0] = fl[0] = c;
+            ft[32] = t[32];
+            fl[32] = l[32];
+        } else {
+            ft[lane] = (t[lane - 1] + 2 * t[lane] + t[lane + 1] + 2) >> 2;
+            fl[lane] = (l[lane - 1] + 2 * l[lane] + l[lane + 1] + 2) >> 2;
         }
-        ft[32] = t[32];
-        fl[32] = l[32];
-        for (int h = 0; h < 2; ++h)
-            cell_refs(ref_uv, Hc, W, 8, h * Wc, W, cx * 8 + h * Wc,
-                      cy * 8 + y0, tr, bl, v, tc[h], lc[h]);
+        const int d = dc_of(t, l, 16, 4);
+        if (lane == 0) dc[0] = d;
+    } else if (warp <= 2) {
+        const int h = warp - 1;
+        cell_refs(ref_uv, Hc, W, 8, h * Wc, W, cx * 8 + h * Wc, cy * 8 + y0,
+                  tr, bl, raw[warp], tc[h], lc[h]);
+        const int d = dc_of(tc[h], lc[h], 8, 3);
+        if (lane == 0) dc[warp] = d;
     }
-    if (threadIdx.x < 28) sat[threadIdx.x] = 0;
     __syncthreads();
     if (cur != nullptr) {
-        for (int e = threadIdx.x; e < 7 * 256; e += blockDim.x) {
-            const int mi = e >> 8, p = e & 255, y = p >> 4, x = p & 15;
-            const int m = kModes[mi];
-            const bool sm = m == 0 || m == 2 || m == 18 || m == 34;
-            res[e] = cur[(size_t)(cy * 16 + y) * W + cx * 16 + x]
-                     - predict(m, sm ? ft : t, sm ? fl : l, 16, 4, y, x, true);
-        }
-        __syncthreads();
-        // (mode, 8x8 block) pairs x 64 coefficients; a warp holds half a
-        // pair, its lane 0 adds the partial |.| sum into the pair's total
-        for (int e = threadIdx.x; e < 28 * 64; e += blockDim.x) {
-            const int pair = e >> 6, k = (e >> 3) & 7, j = e & 7;
-            const int mi = pair >> 2, q = pair & 3;
-            const int* r = res + mi * 256 + (q >> 1) * 128 + (q & 1) * 8;
-            int acc = 0;
-            for (int a = 0; a < 8; ++a) {
-                int row = 0;
-                for (int bb = 0; bb < 8; ++bb)
-                    row += r[a * 16 + bb] * c_had[j * 8 + bb];
-                acc += c_had[k * 8 + a] * row;
-            }
-            int s = abs(acc);
-            for (int off = 16; off > 0; off >>= 1)
-                s += __shfl_down_sync(0xffffffffu, s, off);
-            if ((threadIdx.x & 31) == 0) atomicAdd(&sat[pair], s);
+        if (warp < 7) {
+            // warp = mode; lanes 8q..8q+7 the rows of 8x8 block q
+            const int m = kModes[warp], q = lane >> 3, r = lane & 7;
+            const int y = (q >> 1) * 8 + r, x0 = (q & 1) * 8;
+            const int* tt = smoothed(m) ? ft : t;
+            const int* ll = smoothed(m) ? fl : l;
+            const int4* cp = reinterpret_cast<const int4*>(
+                cur + (size_t)(cy * 16 + y) * W + cx * 16 + x0);
+            const int4 a = cp[0], b = cp[1];
+            const int cv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+            int v[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                v[j] = cv[j] - predict(m, tt, ll, 16, 4, dc[0], y, x0 + j,
+                                       true);
+            int s = (hadamard8_lanes_abs_sum(v, r) + 2) >> 2;
+            s += __shfl_xor_sync(kFull, s, 8);
+            s += __shfl_xor_sync(kFull, s, 16);
+            if (lane == 0) sat[warp] = s;
         }
         __syncthreads();
         if (threadIdx.x == 0) {
-            int best = 0, bm = 0;
-            for (int mi = 0; mi < 7; ++mi) {
-                int s = 0;
-                for (int q = 0; q < 4; ++q) s += (sat[mi * 4 + q] + 2) >> 2;
-                if (mi == 0 || s < best) {
-                    best = s;
+            int best = sat[0], bm = 0;
+            for (int mi = 1; mi < 7; ++mi)
+                if (sat[mi] < best) {
+                    best = sat[mi];
                     bm = mi;
                 }
-            }
             s_mode = bm;
             modes_out[cell] = bm;
         }
@@ -204,29 +245,22 @@ __global__ void intra16_kernel(const int* __restrict__ ref_y,
         s_mode = modes_in[cell];
     }
     __syncthreads();
-    const int mi = s_mode, m = kModes[mi];
-    const bool sm = m == 0 || m == 2 || m == 18 || m == 34;
+    const int m = kModes[s_mode];
+    const bool sm = smoothed(m);
     {
         const int y = threadIdx.x >> 4, x = threadIdx.x & 15;
         pred_y[(size_t)(cy * 16 + y) * W + cx * 16 + x] =
-            predict(m, sm ? ft : t, sm ? fl : l, 16, 4, y, x, true);
+            predict(m, sm ? ft : t, sm ? fl : l, 16, 4, dc[0], y, x, true);
     }
     if (threadIdx.x < 128) {
         const int h = threadIdx.x >> 6, p = threadIdx.x & 63;
         const int y = p >> 3, x = p & 7;
         pred_uv[(size_t)(cy * 8 + y) * W + h * Wc + cx * 8 + x] =
-            predict(m, tc[h], lc[h], 8, 3, y, x, false);
+            predict(m, tc[h], lc[h], 8, 3, dc[1 + h], y, x, false);
     }
 }
 
 }  // namespace
-
-// Copies the 8x8 Hadamard matrix to this file's constant memory on the
-// current device. Call once per device first.
-extern "C" int tpuhevc_grid_intra_init(const int* had8) {
-    cudaMemcpyToSymbol(c_had, had8, sizeof(int) * 64);
-    return (int)cudaGetLastError();
-}
 
 // ref_y (H, W), ref_uv ((H - y0) / 2 + y0, W) packed [U | V] int32, each
 // with y0 rows above the cells; avtr, avbl (nh nw) bool; cur (16 nh, W)

@@ -10,16 +10,31 @@
 // One thread per (offset, block), int32 sums as in JAX.
 //
 // tpuhevc_grid_refine replaces :681-776 `_refine_grid` + `_pick_grids`
-// (no MV-rate anchor): per block of size S and each of G start points,
-// the 7x7 raw SADs and residual sums of the windows read at clamped
-// coordinates (reference row = block row + ry_y0, where `ry` carries
-// ry_y0 halo rows above the blocks' first row: a row stripe; stripe_refine
-// of tpuhevc/parallel/mesh.py:158-223 reads its halos so, :681-693), the
+// (no MV-rate anchor) together with the reference loop `ref_body` and its
+// `merge_acc` (:2468-2512) and `acc_init` (:2453-2456): per block of size
+// S and each of G start points, each start with its reference index
+// sref[g] into the stack `ry` (reference-major: reference 0's starts,
+// then one scaled coarse start for each further reference), the 7x7 raw
+// SADs and residual sums of the windows read at clamped coordinates
+// (reference row = block row + ry_y0, where `ry` carries ry_y0 halo rows
+// above the blocks' first row: a row stripe; stripe_refine of
+// tpuhevc/parallel/mesh.py:158-223 reads its halos so, :681-693), the
 // DC-aware cost zc(sad, sum, dcc) + ((bits * lam) >> 8) on the inner 5x5
-// (the outer ring costs 2^30), the first-index argmin over the G x 49
-// candidates in start order, the winner's MV clipped to +-lim, its 3x3 raw-SAD surface and its cost; with quads (S = 16) the
-// same pick per 8x8 quadrant from the quadrant partial sums (cost with
-// dcc8), written after the nb main rows in 8-grid order.
+// (the outer ring costs 2^30), and the winner: the first index over the
+// G x 49 candidates in start order of cost + ((rbits[sref[g]] * lam) >> 8)
+// (no reference bits where rbits is null: one reference), its MV clipped
+// to +-lim, its 3x3 raw-SAD surface, its cost and its reference index;
+// with quads (S = 16) the same pick per 8x8 quadrant from the quadrant
+// partial sums (cost with dcc8), written after the nb main rows in 8-grid
+// order.
+// That pick equals the reference's: `_pick_grids` takes the first index
+// over one reference's starts, and `merge_acc` replaces the running winner
+// only where the next reference's cost plus its bits is strictly less.
+// Within a reference the bits are one constant, so its first-index winner
+// is the same with them added; across references strict-less keeps the
+// earlier reference on a tie, which is the first index over the
+// reference-major order. `acc_init` adds reference 0's bits where the cfg
+// has more than one reference: the caller passes rbits null otherwise.
 // bits(mv) = 2 bl(2|4 mvx|) + 2 bl(2|4 mvy|) + 2, bl = bit length, which
 // equals the reference's 2 ceil(log2(2a + 1)) on integers.
 //
@@ -32,17 +47,34 @@
 // stack read and written once).
 //
 // What bounds it: the coarse stack is (2R + 1)^2 tile sums per block, a
-// few hundred thousand threads of 16-64 pixels each; the refine reads
-// each block's windows from L1/L2 once per candidate. One CUDA block per
-// picture block, one thread per (start, point) candidate over the S x S
-// pixels, the picks by one thread from shared memory.
+// few hundred thousand threads of 16-64 pixels each. The refine is
+// operations: G x 49 x S^2 absolute differences a block (302,661,632
+// operations an anchor P picture at 416x240, counting sub, abs and two
+// adds a pixel and candidate), on data that fits in shared memory. Its
+// design: one CUDA block a (picture block, chunk of starts), chunks sized
+// so that at least two blocks an SM are in flight (the S = 32 launch has
+// 91 picture blocks at 416x240); each (start) window of (S + 6)^2 samples
+// and the current block staged once as int16 in shared memory, clamped
+// while staging (ry_y0 enters only there), rows padded to 16 bytes so a
+// lane reads 8 samples a load; one warp a window row offset dy, a lane an
+// 8-sample row segment of the block (its 14 reference samples in
+// registers across the 7 dx), the SADs by __sad, the residual sums from a
+// sliding sum of the reference segment less the block segment's sum; the
+// 7 dx values of 8 lanes summed by a halving butterfly (7 shuffles for 8
+// values; at S <= 16 the SAD and the signed sum packed in one word, both
+// below 2^15 over 64 samples), then across the quadrants; the candidates'
+// SADs and costs in shared memory (one chunk) or in a global scratch, the
+// last chunk's block of each picture block (a ticket) doing the 1 + 4
+// picks, a warp each, by a warp minimum over (cost, index) packed in 64
+// bits, so the first-index rule holds exactly. Every sum is an integer:
+// exact in any order.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBig = 1 << 30;
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 16;
 
 __global__ void coarse_kernel(const int* __restrict__ cur,
                               const int* __restrict__ refp,
@@ -79,95 +111,229 @@ __device__ __forceinline__ int zc(int sad, int sdc, int dcc) {
     return sad - a + min(a, dcc);
 }
 
-// sel: per-candidate selection costs, cand: per-candidate raw SADs
-// (stride 1), both over G*49 entries -> out rows
-__device__ void pick(const int* cost, const int* sad, const int* mvx,
-                     const int* mvy, int n, int lim, int* mv_out,
-                     int* sad9_out, int* cost_out) {
-    int bi = 0, best = cost[0];
-    for (int i = 1; i < n; ++i)
-        if (cost[i] < best) {
-            best = cost[i];
-            bi = i;
-        }
-    const int base = (bi / 49) * 49, k = bi - base;
-    const int bdy = k / 7, bdx = k - bdy * 7;
-    for (int q = 0; q < 9; ++q)
-        sad9_out[q] = sad[base + (bdy + q / 3 - 1) * 7 + bdx + q % 3 - 1];
-    mv_out[0] = min(max(mvx[bi], -lim), lim);
-    mv_out[1] = min(max(mvy[bi], -lim), lim);
-    *cost_out = best;
+constexpr int kWarps = 7;  // one warp a window row offset dy
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int rate_of(int mvx, int mvy, int lam) {
+    return ((2 * bitlen(8 * abs(mvx)) + 2 * bitlen(8 * abs(mvy)) + 2) * lam)
+           >> 8;
 }
 
-__global__ void refine_kernel(const int* __restrict__ ry,
-                              const int* __restrict__ oy,
-                              const int* __restrict__ starts,
-                              int* __restrict__ mv_out,
-                              int* __restrict__ sad9_out,
-                              int* __restrict__ cost_out, int hr, int wr,
-                              int wo, int S, int nbh, int nbw, int G,
-                              int quads, int dcc, int dcc8, int lam, int lim,
-                              int ry_y0) {
-    extern __shared__ int sm[];
-    const int nb = nbh * nbw, nc = G * 49, nq = quads ? 4 : 0;
-    int* cur = sm;                  // S x S
-    int* s_sad = cur + S * S;       // nc
-    int* s_cost = s_sad + nc;       // nc
-    int* s_mvx = s_cost + nc;       // nc
-    int* s_mvy = s_mvx + nc;        // nc
-    int* q_sad = s_mvy + nc;        // 4 x nc
-    int* q_cost = q_sad + 4 * nc;   // 4 x nc
-    const int b = blockIdx.x;
+// v[d] (d < 8) of the 8 lanes that share lane bits 3-4, summed over them
+// by a halving butterfly: lane l returns the sum of v[l & 7] (7 shuffles).
+template <typename T>
+__device__ __forceinline__ T halve8(T (&v)[8], int lane) {
+#pragma unroll
+    for (int h = 4; h; h >>= 1) {
+        const bool up = lane & h;
+#pragma unroll
+        for (int j = 0; j < h; ++j) {
+            const T send = up ? v[j] : v[j + h];
+            const T keep = up ? v[j + h] : v[j];
+            v[j] = keep + __shfl_xor_sync(kFull, send, h);
+        }
+    }
+    return v[0];
+}
+
+// 8 int16 samples at p (16-byte aligned) -> v[0..7]
+__device__ __forceinline__ void load8(const short* p, int* v) {
+    const int4 w = *reinterpret_cast<const int4*>(p);
+    const int ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        v[2 * q] = (int)(short)ws[q];
+        v[2 * q + 1] = ws[q] >> 16;
+    }
+}
+
+// One CUDA block a (picture block b = blockIdx.x, chunk of gpb starts
+// blockIdx.y). Candidate fields (G x 49 each, start-major): 0 the raw SAD,
+// 1 the cost, 2-5 the quadrants' raw SADs, 6-9 their costs.
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+refine_kernel(const int* __restrict__ ry, const int* __restrict__ oy,
+              const int* __restrict__ starts, const int* __restrict__ sref,
+              const int* __restrict__ rbits, int* __restrict__ mv_out,
+              int* __restrict__ sad9_out, int* __restrict__ cost_out,
+              int* __restrict__ ref_out, int* __restrict__ cand_g,
+              int* __restrict__ tickets, int hr, int wr, int wo, int nbh,
+              int nbw, int G, int gpb, int quads, int dcc, int dcc8, int lam,
+              int lim, int ry_y0) {
+    constexpr int WIN = S + 6;        // a window's side
+    constexpr int PITCH = S + 8;      // int16 row pitch: 16-byte rows
+    constexpr int WSZ = WIN * PITCH;  // int16 a window
+    constexpr int SEG = S / 8;        // 8-sample segments a row
+    constexpr int UNITS = S * SEG;    // (row, segment) units a candidate
+    constexpr int K = (UNITS + 31) / 32;
+    extern __shared__ int4 smem4[];
+    short* s_cur = reinterpret_cast<short*>(smem4);  // S x PITCH
+    short* s_win = s_cur + S * PITCH;                // gpb x WSZ
+    int* s_cand = reinterpret_cast<int*>(s_win + gpb * WSZ);
+    __shared__ int s_radd[kMaxG];
+    __shared__ int s_last;
+    const int nb = nbh * nbw, NC = G * 49;
+    const int b = blockIdx.x, nchunk = gridDim.y;
+    const int g0 = blockIdx.y * gpb, ng = min(G - g0, gpb);
     const int by = b / nbw, bx = b - by * nbw;
     const int y0 = by * S, x0 = bx * S;
-    for (int e = threadIdx.x; e < S * S; e += blockDim.x)
-        cur[e] = oy[(size_t)(y0 + e / S) * wo + x0 + e % S];
-    __syncthreads();
-    for (int c = threadIdx.x; c < nc; c += blockDim.x) {
-        const int g = c / 49, k = c - g * 49;
-        const int dy = k / 7, dx = k - dy * 7;
+    const int tid = threadIdx.x;
+    for (int e = tid; e < S * S; e += kThreads) {
+        const int i = e / S, j = e - i * S;
+        s_cur[i * PITCH + j] = (short)oy[(size_t)(y0 + i) * wo + x0 + j];
+    }
+    // each window clamped once, here
+    for (int e = tid; e < ng * WIN * WIN; e += kThreads) {
+        const int gl = e / (WIN * WIN), r = e - gl * (WIN * WIN);
+        const int i = r / WIN, j = r - i * WIN, g = g0 + gl;
         const int cx = starts[((size_t)g * nb + b) * 2];
         const int cy = starts[((size_t)g * nb + b) * 2 + 1];
-        int qs[4] = {0, 0, 0, 0}, qd[4] = {0, 0, 0, 0};
-        for (int i = 0; i < S; ++i) {
-            const int yy = min(max(y0 + cy - 3 + dy + i + ry_y0, 0),
-                               hr - 1);
-            const int* row = ry + (size_t)yy * wr;
-            const int qy = (i >> 3) & 1;
-            for (int j = 0; j < S; ++j) {
-                const int xx = min(max(x0 + cx - 3 + dx + j, 0), wr - 1);
-                const int e = row[xx] - cur[i * S + j];
-                const int q = quads ? qy * 2 + ((j >> 3) & 1) : 0;
-                qs[q] += abs(e);
-                qd[q] += e;
-            }
-        }
-        const int sad = qs[0] + qs[1] + qs[2] + qs[3];
-        const int sdc = qd[0] + qd[1] + qd[2] + qd[3];
-        const int mvx = cx + dx - 3, mvy = cy + dy - 3;
-        const int rate = ((2 * bitlen(2 * abs(4 * mvx))
-                           + 2 * bitlen(2 * abs(4 * mvy)) + 2) * lam) >> 8;
-        const bool inner = abs(dx - 3) <= 2 && abs(dy - 3) <= 2;
-        s_sad[c] = sad;
-        s_cost[c] = inner ? zc(sad, sdc, dcc) + rate : kBig;
-        s_mvx[c] = mvx;
-        s_mvy[c] = mvy;
-        for (int q = 0; q < nq; ++q) {
-            q_sad[q * nc + c] = qs[q];
-            q_cost[q * nc + c] = inner ? zc(qs[q], qd[q], dcc8) + rate : kBig;
-        }
+        const int* plane = ry + (size_t)(sref ? sref[g] : 0) * hr * wr;
+        const int yy = min(max(y0 + cy - 3 + ry_y0 + i, 0), hr - 1);
+        const int xx = min(max(x0 + cx - 3 + j, 0), wr - 1);
+        s_win[gl * WSZ + i * PITCH + j] = (short)plane[(size_t)yy * wr + xx];
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-        pick(s_cost, s_sad, s_mvx, s_mvy, nc, lim, mv_out + 2 * b,
-             sad9_out + 9 * b, cost_out + b);
-    } else if (threadIdx.x <= nq) {
-        const int q = threadIdx.x - 1;
-        const int row = nb + (2 * by + (q >> 1)) * (2 * nbw) + 2 * bx
-                        + (q & 1);
-        pick(q_cost + q * nc, q_sad + q * nc, s_mvx, s_mvy, nc, lim,
-             mv_out + 2 * row, sad9_out + 9 * row, cost_out + row);
+    int* base;  // field f of candidate c at base[f * fs + c]
+    size_t fs;
+    if (nchunk == 1) {
+        base = s_cand;
+        fs = NC;
+    } else {
+        base = cand_g + (size_t)b * NC;
+        fs = (size_t)nb * NC;
     }
+    const int warp = tid >> 5, lane = tid & 31, dy = warp;
+    for (int gl = 0; gl < ng; ++gl) {
+        const int g = g0 + gl;
+        const short* wnd = s_win + gl * WSZ;
+        int sad[8], sdc[8];
+#pragma unroll
+        for (int d = 0; d < 8; ++d) sad[d] = sdc[d] = 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int u = lane + 32 * k;
+            if (UNITS % 32 == 0 || u < UNITS) {
+                // unit u: row i, segment c; at S = 16 lane bits 0-2 are
+                // the row within the quadrant, bits 3-4 the quadrant
+                const int c = (u >> 3) % SEG;
+                const int i = (u & 7) + 8 * ((u >> 3) / SEG);
+                int cv[8], rv[16];
+                load8(s_cur + i * PITCH + 8 * c, cv);
+                load8(wnd + (i + dy) * PITCH + 8 * c, rv);
+                load8(wnd + (i + dy) * PITCH + 8 * c + 8, rv + 8);
+                int csum = 0, rs = 0;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    csum += cv[j];
+                    rs += rv[j];
+                }
+#pragma unroll
+                for (int dx = 0; dx < 7; ++dx) {
+                    unsigned s = 0;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        s = __sad(rv[j + dx], cv[j], s);
+                    sad[dx] += (int)s;
+                    sdc[dx] += rs - csum;
+                    if (dx < 6) rs += rv[dx + 8] - rv[dx];
+                }
+            }
+        }
+        // lane l: dx = l & 7 (7 is no candidate); q the quadrant's sums,
+        // t the block's
+        int qs, qd, ts, td;
+        if (S <= 16) {  // |sad|, |sum| < 2^15 over a quadrant: packed
+            unsigned pk[8];
+#pragma unroll
+            for (int d = 0; d < 8; ++d)
+                pk[d] = (unsigned)sad[d] + ((unsigned)sdc[d] << 16);
+            const unsigned v = halve8(pk, lane);
+            qs = (int)(v & 0xffffu);
+            qd = (int)(v - (unsigned)qs) >> 16;
+            ts = qs;
+            td = qd;
+            if (S == 16) {
+                ts += __shfl_xor_sync(kFull, ts, 8);
+                td += __shfl_xor_sync(kFull, td, 8);
+                ts += __shfl_xor_sync(kFull, ts, 16);
+                td += __shfl_xor_sync(kFull, td, 16);
+            }
+        } else {
+            ts = halve8(sad, lane);
+            td = halve8(sdc, lane);
+            ts += __shfl_xor_sync(kFull, ts, 8);
+            td += __shfl_xor_sync(kFull, td, 8);
+            ts += __shfl_xor_sync(kFull, ts, 16);
+            td += __shfl_xor_sync(kFull, td, 16);
+            qs = qd = 0;
+        }
+        const int dx = lane & 7;
+        if (dx < 7) {
+            const int c = g * 49 + dy * 7 + dx;
+            const int mvx = starts[((size_t)g * nb + b) * 2] + dx - 3;
+            const int mvy = starts[((size_t)g * nb + b) * 2 + 1] + dy - 3;
+            const int rate = rate_of(mvx, mvy, lam);
+            const bool inner = dx >= 1 && dx <= 5 && dy >= 1 && dy <= 5;
+            if (quads) {
+                const int q = lane >> 3;
+                base[(2 + q) * fs + c] = qs;
+                base[(6 + q) * fs + c] = inner ? zc(qs, qd, dcc8) + rate
+                                               : kBig;
+            }
+            if (lane < 8) {
+                base[c] = ts;
+                base[fs + c] = inner ? zc(ts, td, dcc) + rate : kBig;
+            }
+        }
+    }
+    // the picks: in the last block of the picture block's chunks
+    if (nchunk > 1) {
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) {
+            s_last = atomicAdd(&tickets[b], 1) == nchunk - 1;
+            if (s_last) tickets[b] = 0;  // ready for the next launch
+        }
+        __syncthreads();
+        if (!s_last) return;
+        __threadfence();
+    }
+    if (tid < G)
+        s_radd[tid] = rbits ? (rbits[sref ? sref[tid] : 0] * lam) >> 8 : 0;
+    __syncthreads();
+    if (warp >= (quads ? 5 : 1)) return;
+    const volatile int* vsad = base + (warp ? 1 + warp : 0) * fs;
+    const volatile int* vcost = base + (warp ? 5 + warp : 1) * fs;
+    unsigned long long best = ~0ull;
+    for (int c = lane; c < NC; c += 32) {
+        const unsigned long long key =
+            ((unsigned long long)(unsigned)(vcost[c] + s_radd[c / 49]) << 32)
+            | (unsigned)c;
+        best = key < best ? key : best;
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(kFull, best, off);
+        best = o < best ? o : best;
+    }
+    if (lane) return;
+    const int bi = (int)(best & 0xffffffffu);
+    const int g = bi / 49, k = bi - g * 49, bdy = k / 7, bdx = k - bdy * 7;
+    const int q = warp - 1;
+    const int row = warp ? nb + (2 * by + (q >> 1)) * (2 * nbw) + 2 * bx
+                               + (q & 1)
+                         : b;
+    for (int n = 0; n < 9; ++n)
+        sad9_out[9 * row + n] =
+            vsad[g * 49 + (bdy + n / 3 - 1) * 7 + bdx + n % 3 - 1];
+    const int cx = starts[((size_t)g * nb + b) * 2];
+    const int cy = starts[((size_t)g * nb + b) * 2 + 1];
+    mv_out[2 * row] = min(max(cx + bdx - 3, -lim), lim);
+    mv_out[2 * row + 1] = min(max(cy + bdy - 3, -lim), lim);
+    cost_out[row] = (int)(best >> 32);
+    if (ref_out) ref_out[row] = sref ? sref[g] : 0;
 }
 
 }  // namespace
@@ -185,23 +351,45 @@ extern "C" int tpuhevc_grid_coarse(const int* cur, const int* refp, int* sad,
     return (int)cudaGetLastError();
 }
 
-// ry (hr, wr), oy (>= nbh S, row stride wo) int32; starts (G, nb, 2)
-// int32 full-pel centres; ry_y0 the row of ry that lies level with oy's
-// row 0 -> mv (nb (+4 nb), 2), sad9 (nb (+4 nb), 9), cost (nb (+4 nb))
-// int32; the quadrant rows (quads, S = 16) follow the nb main rows in
-// 8-grid order.
+// ry (R', hr, wr) a reference stack, oy (>= nbh S, row stride wo) int32;
+// starts (G, nb, 2) int32 full-pel centres, reference-major; sref (G,)
+// int32 each start's plane of ry (null: plane 0 for all); rbits (R,)
+// int32 the reference bits (null: none added); ry_y0 the row of ry that
+// lies level with oy's row 0; gpb starts a CUDA block: with G > gpb the
+// picture block's chunks meet in cand (10 nb G 49 int32 with quads, else
+// 2 nb G 49) and tickets (nb int32, zero; left zero) -> mv (nb (+4 nb),
+// 2), sad9 (nb (+4 nb), 9), cost (nb (+4 nb)) and ref (the same rows;
+// may be null) int32; the quadrant rows (quads, S = 16) follow the nb
+// main rows in 8-grid order.
 extern "C" int tpuhevc_grid_refine(const int* ry, const int* oy,
-                                   const int* starts, int* mv, int* sad9,
-                                   int* cost, int hr, int wr, int wo, int S,
-                                   int nbh, int nbw, int G, int quads,
-                                   int dcc, int dcc8, int lam, int lim,
-                                   int ry_y0, void* stream) {
-    if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
-    const int nc = G * 49;
-    const size_t smem = sizeof(int) * ((size_t)S * S + 12 * nc);
-    refine_kernel<<<nbh * nbw, 256, smem, (cudaStream_t)stream>>>(
-        ry, oy, starts, mv, sad9, cost, hr, wr, wo, S, nbh, nbw, G, quads,
-        dcc, dcc8, lam, lim, ry_y0);
+                                   const int* starts, const int* sref,
+                                   const int* rbits, int* mv, int* sad9,
+                                   int* cost, int* ref, int* cand,
+                                   int* tickets, int hr, int wr, int wo,
+                                   int S, int nbh, int nbw, int G, int gpb,
+                                   int quads, int dcc, int dcc8, int lam,
+                                   int lim, int ry_y0, void* stream) {
+    if (G < 1 || G > kMaxG || gpb < 1 || gpb > G || (quads && S != 16))
+        return (int)cudaErrorInvalidValue;
+    if (nbh * nbw == 0) return 0;
+    const int nchunk = (G + gpb - 1) / gpb;
+    size_t smem = 2 * ((size_t)S * (S + 8) + (size_t)gpb * (S + 6) * (S + 8));
+    if (nchunk == 1) smem += sizeof(int) * (quads ? 10 : 2) * (size_t)G * 49;
+    if (smem > 48 * 1024 || (nchunk > 1 && (!cand || !tickets)))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(nbh * nbw, nchunk);
+    cudaStream_t st = (cudaStream_t)stream;
+#define TPUHEVC_REFINE(SS)                                                  \
+    refine_kernel<SS><<<grid, kThreads, smem, st>>>(                        \
+        ry, oy, starts, sref, rbits, mv, sad9, cost, ref, cand, tickets, hr, \
+        wr, wo, nbh, nbw, G, gpb, quads, dcc, dcc8, lam, lim, ry_y0)
+    switch (S) {
+        case 8: TPUHEVC_REFINE(8); break;
+        case 16: TPUHEVC_REFINE(16); break;
+        case 32: TPUHEVC_REFINE(32); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef TPUHEVC_REFINE
     return (int)cudaGetLastError();
 }
 

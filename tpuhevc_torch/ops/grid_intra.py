@@ -35,13 +35,14 @@ from __future__ import annotations
 
 import torch
 
-from ..device import check_tensor
+from ..device import contiguous_on as _on
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
-from .grid_pred import init_consts, satd8
+from .grid_pred import satd8
 from .intra import filter_flag, unblocks
 
 IMODES = (0, 1, 10, 26, 2, 18, 34)  # planar, DC, H, V, diagonals
+_INTRA_ARGS = [kbuild.P] * 9 + [kbuild.I] * 5 + [kbuild.P]
 
 
 def cell_refs(plane: torch.Tensor, S: int, ox: int, nh: int, nw: int,
@@ -147,10 +148,12 @@ def intra_preds(t, lft, S, is_luma):
 def grid_intra16_plain(ref_y: torch.Tensor, ref_uv: torch.Tensor,
                        avtr: torch.Tensor, avbl: torch.Tensor, nh: int,
                        nw: int, cur: torch.Tensor | None = None,
-                       modes: torch.Tensor | None = None, y0: int = 0):
+                       modes: torch.Tensor | None = None, y0: int = 0,
+                       out=None):
     """ref_y (H, W), ref_uv ((H - y0)/2 + y0, W) packed int32, y0 rows
     above the cells; avtr / avbl (nh*nw,) bool; cur (16 nh, W) int32 to
-    decide, or modes (nh*nw,) int32 given."""
+    decide, or modes (nh*nw,) int32 given. out is the kernel's and
+    unused."""
     H, W = ref_y.shape
     n = nh * nw
     t, lft = cell_refs(ref_y, 16, 0, nh, nw, avtr, avbl, y0)
@@ -171,45 +174,58 @@ def grid_intra16_plain(ref_y: torch.Tensor, ref_uv: torch.Tensor,
     return modes, pred_y, torch.cat(halves, dim=1)
 
 
+def intra16_out(nh: int, nw: int, dev: torch.device):
+    """grid_intra16's outputs for nh x nw cells on `dev`, in one
+    allocation: (modes (nh nw,), pred_y (16 nh, 16 nw), pred_uv (8 nh,
+    16 nw)) int32."""
+    n = nh * nw
+    buf = torch.empty(n * (1 + 256 + 128), dtype=torch.int32, device=dev)
+    return (buf[:n], buf[n : 257 * n].view(nh * 16, nw * 16),
+            buf[257 * n :].view(nh * 8, nw * 16))
+
+
 def grid_intra16(ref_y: torch.Tensor, ref_uv: torch.Tensor,
                  avtr: torch.Tensor, avbl: torch.Tensor, nh: int, nw: int,
                  cur: torch.Tensor | None = None,
-                 modes: torch.Tensor | None = None, y0: int = 0):
+                 modes: torch.Tensor | None = None, y0: int = 0, out=None):
     """Kernel `grid_intra16`. CPU tensors take the plain version; CUDA
-    tensors the kernel."""
+    tensors the kernel. out: the outputs to write (`intra16_out`; the
+    modes' part written only when deciding), or None to allocate them."""
     if ref_y.device.type == "cpu":
         return grid_intra16_plain(ref_y, ref_uv, avtr, avbl, nh, nw, cur,
                                   modes, y0)
     if ref_y.device.type != "cuda":
         raise ValueError(f"grid_intra16: unsupported device {ref_y.device}")
     dev = ref_y.device
-    check_tensor(ref_y, "ref_y", torch.int32, 2, dev)
-    check_tensor(ref_uv, "ref_uv", torch.int32, 2, dev)
-    check_tensor(avtr, "avtr", torch.bool, 1, dev)
-    check_tensor(avbl, "avbl", torch.bool, 1, dev)
+    di = dev.index
+    decide = modes is None
+    i32 = torch.int32
+    if not (_on(ref_y, i32, di, 2) and _on(ref_uv, i32, di, 2)
+            and _on(avtr, torch.bool, di, 1) and _on(avbl, torch.bool, di, 1)
+            and (_on(cur, i32, di, 2) if decide
+                 else _on(modes, i32, di, 1))):
+        raise ValueError("grid_intra16: ref_y, ref_uv, avtr, avbl and cur "
+                         f"or modes must be contiguous on {dev} (int32, "
+                         "int32, bool, bool, int32)")
     H, W = ref_y.shape
     n = nh * nw
-    decide = modes is None
-    if decide:
-        check_tensor(cur, "cur", torch.int32, 2, dev)
-    else:
-        check_tensor(modes, "modes", torch.int32, 1, dev)
+    if decide and (cur.shape[0] < nh * 16 or cur.shape[1] != W
+                   or cur.data_ptr() % 16):
+        raise ValueError(f"grid_intra16: cur {tuple(cur.shape)} for "
+                         f"{nh}x{nw} cells, 16-byte aligned")
     if (tuple(ref_uv.shape) != ((H - y0) // 2 + y0, W) or avtr.numel() != n
-            or avbl.numel() != n or nh * 16 + y0 > H or nw * 16 > W
+            or avbl.numel() != n or nh * 16 + y0 > H or nw * 16 != W
             or y0 < 0):
         raise ValueError(f"grid_intra16: planes {tuple(ref_y.shape)}, "
                          f"{tuple(ref_uv.shape)}, cells {nh}x{nw}, y0 {y0}")
-    init_consts(dev, "grid_intra")
-    out_m = torch.empty((n,), dtype=torch.int32, device=dev)
-    pred_y = torch.empty((nh * 16, nw * 16), dtype=torch.int32, device=dev)
-    pred_uv = torch.empty((nh * 8, nw * 16), dtype=torch.int32, device=dev)
-    fn = kbuild.function("grid_intra", "tpuhevc_grid_intra16",
-                         [kbuild.P] * 9 + [kbuild.I] * 5 + [kbuild.P])
+    out_m, pred_y, pred_uv = out if out is not None else intra16_out(nh, nw,
+                                                                     dev)
+    fn = kbuild.function("grid_intra", "tpuhevc_grid_intra16", _INTRA_ARGS)
     err = fn(ref_y.data_ptr(), ref_uv.data_ptr(), avtr.data_ptr(),
              avbl.data_ptr(), cur.data_ptr() if decide else None,
              None if decide else modes.data_ptr(), out_m.data_ptr(),
              pred_y.data_ptr(), pred_uv.data_ptr(), H, W, nh, nw, y0,
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch._C._cuda_getCurrentRawStream(di))
     kbuild.check(err, "grid_intra16")
     LAUNCHES["grid_intra16"] += 1
     return (out_m if decide else modes), pred_y, pred_uv

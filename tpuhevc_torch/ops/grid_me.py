@@ -10,20 +10,28 @@ The costs, the first-index argmins and the global candidate that read
 the stack are torch glue in `codec/inter_grid.py`.
 
 `grid_refine`, twin of `_refine_grid` + `_pick_grids` (:681-776) with the
-default knobs (no MV-rate anchor): for each block of size S and each of
-G start points (full-pel centres), the 7x7 raw SADs of the windows read
-at clamped coordinates (`ry` rows and columns clipped to the plane, as
-the reference's gather is; with `ry_y0` the reference row of a block row
-y is y + ry_y0, where `ry` is a row stripe with ry_y0 halo rows above
-its blocks, as `stripe_refine` gives it), the DC-aware selection cost
-zc(sad, sum, dcc) + ((bits(mv) * lam_me) >> 8) on the inner 5x5 (the
-outer ring costs 2^30), the first-index argmin over the G x 49
-candidates in start order, the winner's MV clipped to +-(sr_full + 3),
-its 3x3 raw-SAD surface and its cost. With `quads` (S = 16) the same
-pick per 8x8 quadrant (the 8-class), from the quadrant partial sums, in
-8-grid order. bits(mv) = 2 ceil(log2(2|4 mvx| + 1)) + 2 ceil(log2(2|4 mvy|
-+ 1)) + 2, taken exactly as bit lengths (2a + 1 is odd, so the ceiling
-of its log2 is the bit length of 2a).
+default knobs (no MV-rate anchor) and of the reference loop around them
+(`ref_body` with `merge_acc`, :2468-2512, and `acc_init`, :2453-2456):
+for each block of size S and each of G start points (full-pel centres,
+reference-major: reference 0's, then one for each further reference),
+each read from its plane `sref[g]` of the reference stack, the 7x7 raw
+SADs of the windows read at clamped coordinates (`ry` rows and columns
+clipped to the plane, as the reference's gather is; with `ry_y0` the
+reference row of a block row y is y + ry_y0, where `ry` is a row stripe
+with ry_y0 halo rows above its blocks, as `stripe_refine` gives it), the
+DC-aware selection cost zc(sad, sum, dcc) + ((bits(mv) * lam_me) >> 8)
+on the inner 5x5 (the outer ring costs 2^30), and the winner: the first
+index over the G x 49 candidates of that cost plus the start's reference
+bits ((rbits[ref] * lam_me) >> 8; none without rbits, as `acc_init` adds
+none with one reference), which equals each reference's first-index pick
+merged in reference order on a strict less; its MV clipped to +-(sr_full
++ 3), its 3x3 raw-SAD surface, its cost and its reference. With `quads`
+(S = 16) the same pick per 8x8 quadrant (the 8-class), from the quadrant
+partial sums, in 8-grid order. bits(mv) = 2 ceil(log2(2|4 mvx| + 1)) + 2
+ceil(log2(2|4 mvy| + 1)) + 2, taken exactly as bit lengths (2a + 1 is
+odd, so the ceiling of its log2 is the bit length of 2a).
+`grid_refine_refs` takes the stack; `grid_refine` is its one-reference
+case on a plane (no reference bits, no reference output).
 
 `grid_wp_me`, twin of the weighted full-pel search references of
 explicit weighted prediction (:2352-2362, luma): per reference r,
@@ -40,10 +48,12 @@ from __future__ import annotations
 import torch
 
 from ..device import check_tensor
+from ..device import contiguous_on as _on
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 
 BIG = 1 << 30  # the cost of a refine point outside the inner 5x5
+MAX_STARTS = 16  # start grids a grid_refine launch takes
 
 
 def tile_sum(p: torch.Tensor, t: int) -> torch.Tensor:
@@ -110,7 +120,8 @@ def grid_coarse(cur: torch.Tensor, refp: torch.Tensor, n: int, tile: int,
 
 
 def _pick(sad, cost, mvx, mvy, lim):
-    """First-index argmin over (nb, G*49) candidates -> mv, sad9, cost."""
+    """First-index argmin over (nb, G*49) candidates -> mv, sad9, cost,
+    the winner's index."""
     bi = torch.argmin(cost, dim=1)
     bdy = (bi % 49) // 7
     bdx = bi % 7
@@ -122,18 +133,16 @@ def _pick(sad, cost, mvx, mvy, lim):
     idx9 = base[:, None] + (bdy[:, None] + oy[None]) * 7 + bdx[:, None] + ox
     sad9 = sad.gather(1, idx9)
     best = cost.gather(1, bi[:, None])[:, 0]
-    return mv.clamp(-lim, lim).int(), sad9.int(), best.int()
+    return mv.clamp(-lim, lim).int(), sad9.int(), best.int(), bi
 
 
-def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
-                      nbw: int, starts: torch.Tensor, quads: bool, dcc: int,
-                      dcc8: int, lam_me: int, lim: int, ry_y0: int = 0):
-    """ry (hr, W), oy (H, W) int32; starts (G, nb, 2) int32 full-pel
-    centres; ry_y0 the row of ry level with oy's row 0 ->
-    (mv (nb, 2), sad9 (nb, 9), cost (nb,)) and, with quads, the same
-    triple per 8x8 quadrant in 8-grid order (4 nb rows), else None."""
+def _refine_plain(ry, oy, S, nbh, nbw, starts, sref, radd, quads, dcc,
+                  dcc8, lam_me, lim, ry_y0):
+    """ry (R', hr, W) int32; sref (G,) int64 each start's plane; radd (G,)
+    the cost added to each start's candidates -> ((mv, sad9, cost, ref),
+    quads' or None)."""
     dev = ry.device
-    hr, wr = ry.shape
+    _, hr, wr = ry.shape
     G, nb = starts.shape[0], nbh * nbw
     win = S + 6
     ar = torch.arange(win, device=dev)
@@ -142,7 +151,8 @@ def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
     cx, cy = starts[..., 0].long(), starts[..., 1].long()
     yy = (by[None, :, None] + cy[..., None] - 3 + ry_y0 + ar).clamp(0, hr - 1)
     xx = (bx[None, :, None] + cx[..., None] - 3 + ar).clamp(0, wr - 1)
-    wnd = ry.reshape(-1)[yy[..., :, None] * wr + xx[..., None, :]]
+    wnd = ry.reshape(-1)[(sref[:, None, None, None] * hr + yy[..., :, None])
+                         * wr + xx[..., None, :]]
     cur = (oy[: nbh * S, : nbw * S].reshape(nbh, S, nbw, S)
            .permute(0, 2, 1, 3).reshape(nb, S, S))
     sl = wnd.unfold(2, S, 1).unfold(3, S, 1)  # (G, nb, 7, 7, S, S)
@@ -163,20 +173,24 @@ def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
             + 2 * ceil_log2_odd((mvy * 4).abs()) + 2)
     rate = (babs * lam_me) >> 8
     inner = ((rdx.abs() <= 2) & (rdy.abs() <= 2))[None, None]
+    radd = radd.long()[:, None, None]
     cost = torch.where(inner, zcost(sad, sm, dcc) + rate,
-                       torch.full_like(sad, BIG))
+                       torch.full_like(sad, BIG)) + radd
 
     def flat(x):  # (G, nb, 49) -> (nb, G*49), start-major
         return x.permute(1, 0, 2).reshape(nb, G * 49)
 
+    def pick(sad_, cost_):
+        mv, sad9, best, bi = _pick(flat(sad_), flat(cost_), fx, fy, lim)
+        return mv, sad9, best, sref[bi // 49].int()
+
     fx, fy = flat(mvx), flat(mvy)
-    main = _pick(flat(sad), flat(cost), fx, fy, lim)
+    main = pick(sad, cost)
     if not quads:
         return main, None
     costq = torch.where(inner[..., None], zcost(sadq, sumq, dcc8)
                         + rate[..., None], torch.full_like(sadq, BIG))
-    picks = [_pick(flat(sadq[..., q]), flat(costq[..., q]), fx, fy, lim)
-             for q in range(4)]
+    picks = [pick(sadq[..., q], costq[..., q] + radd) for q in range(4)]
 
     def to8(xs):
         x = torch.stack(xs, 1)
@@ -185,49 +199,150 @@ def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
             (0, 2, 1, 3) + tuple(4 + i for i in range(len(tail))))
         return x.reshape((nbh * 2 * nbw * 2,) + tail).contiguous()
 
-    quad = tuple(to8([p[i] for p in picks]) for i in range(3))
+    quad = tuple(to8([p[i] for p in picks]) for i in range(4))
     return main, quad
+
+
+def grid_refine_refs_plain(ry: torch.Tensor, oy: torch.Tensor, S: int,
+                           nbh: int, nbw: int, starts: torch.Tensor,
+                           quads: bool, dcc: int, dcc8: int, lam_me: int,
+                           lim: int, ry_y0: int = 0, sref=None, rbits=None):
+    """ry (R', hr, W) int32 a reference stack, oy (H, W) int32; starts (G,
+    nb, 2) int32 full-pel centres in reference-major order; sref (G,)
+    int32 each start's plane of ry (None: plane 0); rbits (R,) int32 the
+    reference bits, or None (one reference: none added) -> ((mv (nb, 2),
+    sad9 (nb, 9), cost (nb,), ref (nb,)), the same per 8x8 quadrant in
+    8-grid order (4 nb rows) with quads, else None): the first index over
+    the G x 49 candidates of cost + ((rbits[ref] * lam_me) >> 8)."""
+    G = starts.shape[0]
+    sref = (torch.zeros(G, dtype=torch.long, device=ry.device)
+            if sref is None else sref.long())
+    radd = (torch.zeros_like(sref) if rbits is None
+            else (rbits.long()[sref] * lam_me) >> 8)
+    return _refine_plain(ry, oy, S, nbh, nbw, starts, sref, radd, quads, dcc,
+                         dcc8, lam_me, lim, ry_y0)
+
+
+def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
+                      nbw: int, starts: torch.Tensor, quads: bool, dcc: int,
+                      dcc8: int, lam_me: int, lim: int, ry_y0: int = 0):
+    """ry (hr, W), oy (H, W) int32; starts (G, nb, 2) int32 full-pel
+    centres; ry_y0 the row of ry level with oy's row 0 ->
+    (mv (nb, 2), sad9 (nb, 9), cost (nb,)) and, with quads, the same
+    triple per 8x8 quadrant in 8-grid order (4 nb rows), else None."""
+    main, quad = grid_refine_refs_plain(ry[None], oy, S, nbh, nbw, starts,
+                                        quads, dcc, dcc8, lam_me, lim, ry_y0)
+    return main[:3], None if quad is None else quad[:3]
+
+
+# per device: the candidates' scratch and the tickets of a launch whose
+# picture blocks are split over several CUDA blocks
+_SCRATCH: dict = {}
+# (device index, S, nb, G, quads) -> starts a CUDA block
+_GPB: dict = {}
+_REFINE_ARGS = [kbuild.P] * 11 + [kbuild.I] * 14 + [kbuild.P]
+
+
+def _starts_a_block(di: int, S: int, nb: int, G: int, quads: bool) -> int:
+    """Starts a CUDA block: split until two blocks an SM are in flight,
+    and within the 48 KB of shared memory a launch may take."""
+    key = (di, S, nb, G, quads)
+    gpb = _GPB.get(key)
+    if gpb is not None:
+        return gpb
+    sms = torch.cuda.get_device_properties(di).multi_processor_count
+    gpb = G
+    while gpb > 1 and nb * -(-G // gpb) < 2 * sms:
+        gpb = -(-gpb // 2)
+    while True:
+        smem = 2 * (S * (S + 8) + gpb * (S + 6) * (S + 8))
+        if gpb == G:
+            smem += 4 * (10 if quads else 2) * G * 49
+        if smem <= 48 * 1024 or gpb == 1:
+            _GPB[key] = gpb
+            return gpb
+        gpb = -(-gpb // 2)
+
+
+def grid_refine_refs(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
+                     nbw: int, starts: torch.Tensor, quads: bool, dcc: int,
+                     dcc8: int, lam_me: int, lim: int, ry_y0: int = 0,
+                     sref=None, rbits=None):
+    """Kernel `grid_refine` over every reference in one launch (see
+    `grid_refine_refs_plain`). CPU tensors take the plain version; CUDA
+    tensors the kernel. sref's values must index ry's planes."""
+    if ry.device.type == "cpu":
+        return grid_refine_refs_plain(ry, oy, S, nbh, nbw, starts, quads,
+                                      dcc, dcc8, lam_me, lim, ry_y0, sref,
+                                      rbits)
+    if ry.device.type != "cuda":
+        raise ValueError(f"grid_refine: unsupported device {ry.device}")
+    dev = ry.device
+    di = dev.index
+    i32 = torch.int32
+    if not (_on(ry, i32, di, 3) and _on(oy, i32, di, 2)
+            and _on(starts, i32, di, 3)
+            and (sref is None or _on(sref, i32, di, 1))
+            and (rbits is None or _on(rbits, i32, di, 1))):
+        raise ValueError("grid_refine: ry, oy, starts, sref and rbits must "
+                         f"be contiguous int32 on {dev} (3, 2, 3, 1, 1 "
+                         "dimensions)")
+    G, nb = starts.shape[0], nbh * nbw
+    if (starts.shape[1:] != (nb, 2) or S not in (8, 16, 32)
+            or not 0 < G <= MAX_STARTS or (quads and S != 16)
+            or (sref is not None and sref.shape[0] != G)):
+        raise ValueError(f"grid_refine: S {S}, starts {tuple(starts.shape)}, "
+                         f"sref {None if sref is None else tuple(sref.shape)}")
+    if oy.shape[0] < nbh * S or oy.shape[1] < nbw * S:
+        raise ValueError(f"grid_refine: oy {tuple(oy.shape)} < blocks")
+    if not 0 <= ry_y0 < ry.shape[1]:
+        raise ValueError(f"grid_refine: ry_y0 {ry_y0}, ry "
+                         f"{tuple(ry.shape)}")
+    nq = 4 if quads else 0
+    n = nb * (1 + nq)
+    mv, sad9, cost, ref = torch.empty(n * 13, dtype=i32, device=dev).split(
+        [2 * n, 9 * n, n, n])
+    mv, sad9 = mv.view(n, 2), sad9.view(n, 9)
+    gpb = _starts_a_block(di, S, nb, G, quads)
+    cand = tickets = None
+    if gpb < G:
+        need = (10 if quads else 2) * nb * G * 49
+        cand, tickets = _SCRATCH.get(di, (None, None))
+        if cand is None or cand.numel() < need or tickets.numel() < nb:
+            cand = torch.empty(need, dtype=i32, device=dev)
+            tickets = torch.zeros(nb, dtype=i32, device=dev)
+            _SCRATCH[di] = (cand, tickets)
+    fn = kbuild.function("grid_me", "tpuhevc_grid_refine", _REFINE_ARGS)
+    err = fn(ry.data_ptr(), oy.data_ptr(), starts.data_ptr(),
+             None if sref is None else sref.data_ptr(),
+             None if rbits is None else rbits.data_ptr(), mv.data_ptr(),
+             sad9.data_ptr(), cost.data_ptr(), ref.data_ptr(),
+             None if cand is None else cand.data_ptr(),
+             None if tickets is None else tickets.data_ptr(), ry.shape[1],
+             ry.shape[2], oy.shape[1], S, nbh, nbw, G, gpb, int(quads), dcc,
+             dcc8, lam_me, lim, ry_y0, torch._C._cuda_getCurrentRawStream(di))
+    kbuild.check(err, "grid_refine")
+    LAUNCHES["grid_refine"] += 1
+    main = (mv[:nb], sad9[:nb], cost[:nb], ref[:nb])
+    if not quads:
+        return main, None
+    return main, (mv[nb:], sad9[nb:], cost[nb:], ref[nb:])
 
 
 def grid_refine(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
                 nbw: int, starts: torch.Tensor, quads: bool, dcc: int,
                 dcc8: int, lam_me: int, lim: int, ry_y0: int = 0):
-    """Kernel `grid_refine`. CPU tensors take the plain version; CUDA
-    tensors the kernel."""
+    """Kernel `grid_refine` on one reference plane ry (hr, W): the
+    one-reference case of `grid_refine_refs` (no reference bits). CPU
+    tensors take the plain version; CUDA tensors the kernel."""
     if ry.device.type == "cpu":
         return grid_refine_plain(ry, oy, S, nbh, nbw, starts, quads, dcc,
                                  dcc8, lam_me, lim, ry_y0)
-    if ry.device.type != "cuda":
-        raise ValueError(f"grid_refine: unsupported device {ry.device}")
-    dev = ry.device
-    check_tensor(ry, "ry", torch.int32, 2, dev)
-    check_tensor(oy, "oy", torch.int32, 2, dev)
-    check_tensor(starts, "starts", torch.int32, 3, dev)
-    G, nb = starts.shape[0], nbh * nbw
-    if starts.shape[1:] != (nb, 2) or S not in (8, 16, 32) or G > 8 or (
-            quads and S != 16):
-        raise ValueError(f"grid_refine: S {S}, starts {tuple(starts.shape)}")
-    if oy.shape[0] < nbh * S or oy.shape[1] < nbw * S:
-        raise ValueError(f"grid_refine: oy {tuple(oy.shape)} < blocks")
-    if not 0 <= ry_y0 < ry.shape[0]:
-        raise ValueError(f"grid_refine: ry_y0 {ry_y0}, ry "
-                         f"{tuple(ry.shape)}")
-    nq = 4 if quads else 0
-    mv = torch.empty((nb * (1 + nq), 2), dtype=torch.int32, device=dev)
-    sad9 = torch.empty((nb * (1 + nq), 9), dtype=torch.int32, device=dev)
-    cost = torch.empty((nb * (1 + nq),), dtype=torch.int32, device=dev)
-    fn = kbuild.function("grid_me", "tpuhevc_grid_refine",
-                         [kbuild.P] * 6 + [kbuild.I] * 13 + [kbuild.P])
-    err = fn(ry.data_ptr(), oy.data_ptr(), starts.data_ptr(), mv.data_ptr(),
-             sad9.data_ptr(), cost.data_ptr(), ry.shape[0], ry.shape[1],
-             oy.shape[1], S, nbh, nbw, G, int(quads), dcc, dcc8, lam_me, lim,
-             ry_y0, torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(err, "grid_refine")
-    LAUNCHES["grid_refine"] += 1
-    main = (mv[:nb], sad9[:nb], cost[:nb])
-    if not quads:
-        return main, None
-    return main, (mv[nb:], sad9[nb:], cost[nb:])
+    if ry.dim() != 2:
+        raise ValueError(f"grid_refine: ry {tuple(ry.shape)} is no plane")
+    main, quad = grid_refine_refs(ry[None], oy, S, nbh, nbw, starts, quads,
+                                  dcc, dcc8, lam_me, lim, ry_y0)
+    return main[:3], None if quad is None else quad[:3]
 
 
 def grid_wp_me_plain(ref: torch.Tensor, w: torch.Tensor, o: torch.Tensor,

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import check_tensor
+from ..device import contiguous_on as _on
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 from .cost import wht
@@ -116,22 +117,18 @@ _READY: set = set()
 MAX_FIELDS = 8  # grid_satd_cost's fields a launch (kMaxFields)
 
 
-def init_consts(dev: torch.device, lib: str = "grid_pred") -> None:
-    """Copy the taps and the Hadamard matrix to `lib`'s constant memory on
-    `dev` (once per device)."""
-    if (lib, dev.index) in _READY:
+def init_consts(dev: torch.device) -> None:
+    """Copy the taps and the Hadamard matrix to grid_pred's constant memory
+    on `dev` (once per device)."""
+    if dev.index in _READY:
         return
     had = np.ascontiguousarray(HAD8, dtype=np.int32)
-    if lib == "grid_pred":
-        lt = np.ascontiguousarray(LUMA_TAPS, dtype=np.int32)
-        ct = np.ascontiguousarray(CHROMA_TAPS, dtype=np.int32)
-        fn = kbuild.function(lib, "tpuhevc_grid_pred_init", [kbuild.P] * 3)
-        kbuild.check(fn(lt.ctypes.data, ct.ctypes.data, had.ctypes.data),
-                     "grid_pred init")
-    else:
-        fn = kbuild.function(lib, "tpuhevc_grid_intra_init", [kbuild.P])
-        kbuild.check(fn(had.ctypes.data), "grid_intra init")
-    _READY.add((lib, dev.index))
+    lt = np.ascontiguousarray(LUMA_TAPS, dtype=np.int32)
+    ct = np.ascontiguousarray(CHROMA_TAPS, dtype=np.int32)
+    fn = kbuild.function("grid_pred", "tpuhevc_grid_pred_init", [kbuild.P] * 3)
+    kbuild.check(fn(lt.ctypes.data, ct.ctypes.data, had.ctypes.data),
+                 "grid_pred init")
+    _READY.add(dev.index)
 
 
 def grid_planes(stack: torch.Tensor, is_luma: bool, pad: int, hm: int,
@@ -249,11 +246,6 @@ def grid_mc(planes_y: torch.Tensor, planes_c: torch.Tensor,
     kbuild.check(la(), "grid_satd")
     LAUNCHES["grid_satd"] += 1
     return pred_y, pred_uv
-
-
-def _on(t, dtype, di: int) -> bool:
-    """t is a contiguous `dtype` tensor on cuda:di (di >= 0)."""
-    return (t.dtype == dtype and t.get_device() == di and t.is_contiguous())
 
 
 class _Launch:

@@ -22,7 +22,8 @@ caches), `reps` more are timed on the host clock ended by
 the device's busy time is the sum of the device-side events' time (the
 kernels and copies themselves, not the host operators that launched
 them, which the profiler credits with the same time), its idle share
-1 - busy / wall over the profiled encode. Prints the card's
+1 - busy / wall over the profiled encode; the largest device items and
+the grid step's kernels (STEP_KERNELS) over it. Prints the card's
 name and power limit beside every number. Needs a CUDA device.
 
 `bench` runs bench.py's clip, cfg and procedure on the port: 32 frames of
@@ -42,9 +43,12 @@ seed and collocated field of the step's first picture. One call warms
 up, then `reps` calls (default 20) are timed with CUDA events; prints
 their median and the median host time of a call. Then five such
 pictures under `torch.profiler`: the device time and launches a picture
-of grid_planes' kernel and of grid_satd's (the gathers and the SATD
-costs), and the count of every device operation of the step a picture
-(kernels, copies and fills). Then kernel
+of the kernels of grid_coarse, grid_refine, grid_planes, grid_satd (the
+gathers and the SATD costs), K2, grid_intra16, grid_deblock and grid_sao
+(its statistics, decision and apply), and the count of every device
+operation of the step a picture (kernels, copies and fills); K2's device
+time at each of its calls of a picture (one a class: 16x16, 8x8, 32x32
+PUs). Then kernel
 `grid_code`'s share: its launches in one such picture (recorded from the
 step, as the step makes them: each class coding's planes in one launch),
 replayed 5 times under `torch.profiler`, the device time of its kernel a
@@ -184,17 +188,28 @@ def code_split(cfg, nn_by_qp, clip, dev, gpu: str, tag: str) -> None:
           flush=True)
 
 
-# step: the kernels of grid_planes and grid_satd by the names the
-# profiler gives them (on this tree and on its parents)
-PRED_KERNELS = {"grid_planes": ("planes_kernel",),
+# step: the grid step's kernels by the names the profiler gives them (on
+# this tree and on its parents: a template's name ends in "<", a plain
+# function's in "(")
+STEP_KERNELS = {"grid_coarse": ("coarse_kernel",),
+                "grid_refine": ("refine_kernel",),
+                "grid_planes": ("planes_kernel",),
                 "grid_satd": ("gather_kernel", "satd_kernel",
-                              "satd_cost_kernel")}
+                              "satd_cost_kernel"),
+                "nnfme_mlp": ("nnfme_mlp_kernel",),
+                "grid_intra16": ("intra16_kernel",),
+                "grid_deblock": ("grid_deblock_kernel",),
+                "grid_sao": ("sao_stats_kernel", "sao_decide_kernel",
+                             "sao_apply_kernel")}
 
 
 def pred_split(cfg, nn_by_qp, clip, dev, gpu: str, reps: int = 5) -> None:
-    """`step`: grid_planes' and grid_satd's (gathers and SATD costs)
-    device time and launches a picture, and every launch of the step, from
-    `reps` pictures under torch.profiler."""
+    """`step`: the device time and launches a picture of each kernel of
+    STEP_KERNELS and the count of every launch of the step, from `reps`
+    pictures under torch.profiler; then K2's device time at each of its
+    calls (the classes' PU counts), replayed under torch.profiler."""
+    from .codec import inter_grid
+
     step, carry, fu8, tabs = step_inputs(cfg, nn_by_qp, clip, dev)
     step.frame_step(carry, fu8, step.R, 0, tabs)
     torch.cuda.synchronize()
@@ -209,7 +224,7 @@ def pred_split(cfg, nn_by_qp, clip, dev, gpu: str, reps: int = 5) -> None:
           and e.self_device_time_total > 0]
     total = sum(e.count for e in ev) / reps
     busy = sum(e.self_device_time_total for e in ev) / reps / 1e3
-    for name, keys in PRED_KERNELS.items():
+    for name, keys in STEP_KERNELS.items():
         each = {}  # kernel -> (launches, kernel_ms) a picture
         for e in ev:
             for k in keys:
@@ -226,6 +241,23 @@ def pred_split(cfg, nn_by_qp, clip, dev, gpu: str, reps: int = 5) -> None:
     print(f"step {step.W}x{step.H}: every device operation of the step: "
           f"{total:g} a picture (kernels, copies, fills), device busy "
           f"{busy:.4f} ms a picture | {gpu}", flush=True)
+    calls, nn = [], inter_grid.nn_refine
+
+    def recorded(*a):
+        calls.append(a)
+        return nn(*a)
+
+    inter_grid.nn_refine = recorded
+    try:
+        step.frame_step(carry, fu8, step.R, 0, tabs)
+        torch.cuda.synchronize()
+    finally:
+        inter_grid.nn_refine = nn
+    each = [(a[1].shape[0], round(kernel_ms(lambda a=a: nn(*a),
+                                            "nnfme_mlp_kernel"), 5))
+            for a in calls]
+    print(f"step {step.W}x{step.H}: K2 (nnfme_mlp_kernel) at each call of "
+          f"a picture: {each} (PUs, kernel_ms) | {gpu}", flush=True)
 
 
 def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
@@ -511,6 +543,13 @@ def main(argv=None) -> int:
         for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
             calls = next(e.count for e in stats if e.key == key)
             print(f"  device {us / 1e3:9.3f} ms  calls {calls:5d}  {key}")
+        for name, keys in STEP_KERNELS.items():
+            hit = [e for e in stats if e.key in dev_us and any(
+                f"::{k}<" in e.key or f"::{k}(" in e.key for k in keys)]
+            ms = sum(dev_us[e.key] for e in hit) / 1e3
+            print(f"  {name}: device {ms:.3f} ms in "
+                  f"{sum(e.count for e in hit)} launches over the profiled "
+                  f"encode")
         if args.trace:
             os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                         exist_ok=True)
