@@ -42,9 +42,16 @@
    intra_wave (fixed-8x8 intra of whole pictures) on 3 frames of the
    416x240 clip at QP 32 and at the graft entry's shape (192x128, QP 32,
    planes from np.random.default_rng(0)), all seven outputs.
-   grid_sao_decide (the SAO decision, the launch between grid_sao's two)
-   at every call of the same anchor P picture, its rows and the SAO'd
-   planes exact; stripe_prescreen (the multi-device path's intra
+   grid_sao_decide (the SAO decision, the launch between grid_sao's two:
+   a warp a CTU component, the picture's choice in the last block) at
+   every call of the same anchor P picture, its rows and the SAO'd
+   planes exact, and its device time (events around 100 calls queued
+   behind a device sleep); K2 over the grid's three classes of that
+   picture in one launch (nn_refine_classes: the offsets equal to plain
+   wherever the plain top-2 gap exceeds 1e-3; its event and device time);
+   both again at every call of a weighted fade-clip picture with NN-FME
+   (WeightedPredP 1) and of the 3-stripe step below, grid_sao_decide also
+   at the dctif + WP picture's; stripe_prescreen (the multi-device path's intra
    prescreen, one launch a stripe) at 416x240 in 1 and 3 stripes and at
    the graft entry's dryrun shape (128x128 in 2); grid_refine with
    ry_y0 at every call of the 3-stripe refine at 416x240; the launches
@@ -67,7 +74,8 @@
    sign hiding, deblocking and SAO; QP 32, FmeMode nn with seeded
    weights), which takes the grid step (416x240 is whole 16x16 blocks),
    with the launch counters reset just before; the nine grid kernels, K2
-   and the intra kernels (the IDR's decision) must have launched. Main path 2, all-intra: 3 pictures
+   (once a P picture: 16 launches) and the intra kernels (the IDR's
+   decision) must have launched. Main path 2, all-intra: 3 pictures
    of the same clip with cfg/encoder_intra_main.cfg (RDOQ, NxN), counters
    reset just before; the four intra kernels must have launched. Main path
    3, random access: cfg/encoder_randomaccess_main.cfg as shipped at
@@ -182,7 +190,8 @@ from tpuhevc_torch.kernels import KERNELS, LAUNCHES, reset_launches  # noqa: E40
 from tpuhevc_torch.kernels import build as kbuild  # noqa: E402
 from tpuhevc_torch.models.fme_train import train_fme, train_step  # noqa: E402
 from tpuhevc_torch.models.nnfme import (  # noqa: E402
-    N_TRAIN, NNFME, TrainConfig, height_category, nn_refine, nn_refine_plain,
+    N_TRAIN, NNFME, TrainConfig, height_category, nn_refine,
+    nn_refine_classes, nn_refine_classes_plain, nn_refine_plain,
     random_params, save_npz, width_category)
 from tpuhevc_torch.ops import fme_train as ft  # noqa: E402
 from tpuhevc_torch.ops.cost import satd35_topk, satd35_topk_plain  # noqa: E402
@@ -558,9 +567,11 @@ def kernel_ops(name, a, kw=None) -> int:
         n, S = cur.shape[0], cur.shape[1]
         rows = S // 2 if sub and S > 8 else S
         return 3 * n * (2 * sr + 1) ** 2 * rows * S  # sub, abs, add
-    if name == "nnfme_mlp":
-        return a[1].shape[0] * (2 * (17 * 22 + 22 * 20 + 20 * 49)
-                                + 3 * (9 + 22 + 20) + 49)
+    if name in ("nnfme_mlp", "nn_refine_classes"):  # one class, or several
+        n = (a[1].shape[0] if name == "nnfme_mlp"
+             else sum(p[0].shape[0] for p in a[1]))
+        return n * (2 * (17 * 22 + 22 * 20 + 20 * 49) + 3 * (9 + 22 + 20)
+                    + 49)
     if name == "mc_blk":
         S, nt = a[4], 8 if a[5] else 4
         return a[1].shape[0] * 2 * nt * ((S + nt - 1) * S + S * S)
@@ -1047,6 +1058,8 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_wp_me": (grid_wp_me, grid_wp_me_plain),
     "grid_stats": (grid_stats, grid_stats_plain),
     "grid_sao_decide": (grid_sao_decide, grid_sao_decide_plain),
+    # K2 over the grid's classes of a picture, one launch
+    "nn_refine_classes": (nn_refine_classes, nn_refine_classes_plain),
     "stripe_prescreen": (stripe_prescreen, stripe_prescreen_plain),
     # grid_refine's one-reference wrapper (stripe_refine's)
     "grid_refine_one": (grid_refine, grid_refine_plain),
@@ -1071,7 +1084,7 @@ def picture_wp(clip, R, dev):
 
 # the grid step's wrappers that must not sync the stream
 NO_SYNC = ("grid_code", "grid_satd", "grid_satd_cost", "grid_refine",
-           "grid_intra16")
+           "grid_intra16", "nn_refine_classes", "grid_sao_decide")
 # the grid step's motion search, from its first grid_coarse launch to its
 # first grid_planes launch (the coarse picks, the global start, the
 # starts of every reference and both refine launches between): no sync
@@ -1164,6 +1177,39 @@ def compare_calls(name, calls, work=None):
     return err
 
 
+def compare_k2(calls, what):
+    """nn_refine_classes (K2 over a picture's classes, one launch) against
+    its plain version at each recorded call: per class the offsets equal
+    wherever the plain logits' top-2 gap exceeds 1e-3 (the plain version
+    sums its products in another order; the logits themselves are held by
+    check_kernels), one launch a call. Returns (PUs, PUs at a near
+    tie)."""
+    pus = near = 0
+    for args, kw in calls:
+        model, parts = args[:2]
+        before = LAUNCHES["nnfme_mlp"]
+        got = nn_refine_classes(model, parts)
+        check(LAUNCHES["nnfme_mlp"] - before == 1,
+              f"nn_refine_classes {what}: "
+              f"{LAUNCHES['nnfme_mlp'] - before} launches for "
+              f"{len(parts)} classes")
+        want = nn_refine_classes_plain(model, parts)
+        torch.cuda.synchronize()
+        for (sad9, hc, wc), g, w in zip(parts, got, want):
+            top2 = torch.topk(model(sad9, hc, wc), 2, dim=1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and torch.equal(g[clear], w[clear]),
+                  f"nn_refine_classes {what}: offsets differ (S category "
+                  f"{hc}, {wc})")
+            pus += sad9.shape[0]
+            near += int((~clear).sum())
+    print(f"kernel nn_refine_classes {what}: calls {len(calls)}, "
+          f"{pus} PUs, offsets equal to plain ({near} at a near tie)",
+          flush=True)
+    return pus, near
+
+
 def check_grid_kernels(dev, npz, params):
     """Kernel vs plain on the card for the grid step, at every call of one
     416x240 P picture of the anchor LD-P cfg as shipped (RDOQ, sign
@@ -1174,8 +1220,25 @@ def check_grid_kernels(dev, npz, params):
     the float32 costs of grid_code (whose sums are exact) and of
     grid_sao's decision. Returns {name: row}; ms/plain_ms are per P
     picture of the anchor."""
-    calls, _ = capture_grid_calls(dev, ldp_cfg(npz), params, G_KERNELS)
+    calls, _ = capture_grid_calls(dev, ldp_cfg(npz), params,
+                                  G_KERNELS + ("nn_refine_classes",))
     check_cost_calls(calls["grid_satd_cost"])
+    k2 = calls["nn_refine_classes"]
+    check(len(k2) == 1 and len(k2[0][0][1]) == 3,
+          f"K2 at the anchor picture: {len(k2)} calls")
+    compare_k2(k2, "anchor P picture")
+    k2_ms = median_ms(lambda: [nn_refine_classes(*a, **k) for a, k in k2],
+                      reps=20)
+    k2_plain = median_ms(
+        lambda: [nn_refine_classes_plain(*a, **k) for a, k in k2], reps=5)
+    k2_dev = device_ms(
+        lambda: [nn_refine_classes(*a, **k) for a, k in k2], n=100)
+    grid_k2 = dict(ms=k2_ms, plain_ms=k2_plain, device_ms=k2_dev,
+                   pus=[p[0].shape[0] for p in k2[0][0][1]])
+    print(f"kernel nn_refine_classes P picture: one launch of "
+          f"{grid_k2['pus']} PUs, event ms {k2_ms:.4f}, device_ms "
+          f"{k2_dev:.5f} (events around 100 calls queued behind a device "
+          f"sleep), plain_ms {k2_plain:.4f} | {gpu_line()}", flush=True)
     rows = {}
     for name in G_KERNELS:
         kern, plain = G_FUNCS[name]
@@ -1217,6 +1280,12 @@ def check_grid_kernels(dev, npz, params):
           f"{sat_ms:.4f}, host ms {sat_host:.4f} a P picture | "
           f"{gpu_line()}", flush=True)
     rows.update(check_sao_decide(calls["grid_sao"]))
+    rows["grid_sao_decide"]["device_ms"] = device_ms(
+        lambda: [grid_sao_decide(*a, **k)
+                 for a, k in calls["grid_sao_decide"]], n=100)
+    print(f"kernel grid_sao_decide P picture: device_ms "
+          f"{rows['grid_sao_decide']['device_ms']:.5f} (events around 100 "
+          f"calls queued behind a device sleep) | {gpu_line()}", flush=True)
     cut = capture_grid_calls(dev, ldp_cfg(npz, cut=True), params,
                              ("grid_code",))[0]["grid_code"]
     err = compare_calls("grid_code", cut)
@@ -1230,8 +1299,24 @@ def check_grid_kernels(dev, npz, params):
     # grid_coarse recorded for the motion search's sync-free span)
     calls, wpp = capture_grid_calls(
         dev, ldp_cfg(npz, extra=FME_WP + NO_FETCH), params,
-        F_KERNELS + WP_TOO + ("grid_coarse",), fade=True)
+        F_KERNELS + WP_TOO + ("grid_coarse", "grid_sao_decide"), fade=True)
     check(weighted(wpp), f"fade picture: identity weights only {wpp}")
+    err = compare_calls("grid_sao_decide", calls["grid_sao_decide"])
+    print(f"kernel grid_sao_decide P picture, dctif + WP: calls "
+          f"{len(calls['grid_sao_decide'])} max_abs_err {err:.3g}",
+          flush=True)
+    # the weighted picture with NN-FME: K2 and the SAO decision
+    wcalls, wpp_nn = capture_grid_calls(
+        dev, ldp_cfg(npz, extra=["--WeightedPredP=1"]), params,
+        ("nn_refine_classes", "grid_sao_decide"), fade=True)
+    check(weighted(wpp_nn), f"fade picture: identity weights only {wpp_nn}")
+    check(len(wcalls["nn_refine_classes"]) == 1,
+          f"K2 at the weighted picture: {len(wcalls['nn_refine_classes'])}")
+    compare_k2(wcalls["nn_refine_classes"], "P picture, WP + NN-FME")
+    err = compare_calls("grid_sao_decide", wcalls["grid_sao_decide"])
+    print(f"kernel grid_sao_decide P picture, WP + NN-FME: calls "
+          f"{len(wcalls['grid_sao_decide'])} max_abs_err {err:.3g}",
+          flush=True)
     for name in F_KERNELS + WP_TOO:
         kern, plain = G_FUNCS[name]
         r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
@@ -1254,6 +1339,7 @@ def check_grid_kernels(dev, npz, params):
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} (per P picture, dctif + WP, no "
               f"fetch)", flush=True)
+    rows["nnfme_mlp_grid"] = grid_k2  # beside the kernels' rows
     return rows
 
 
@@ -1470,7 +1556,7 @@ N_STRIPES, N_SHARD = 3, 16
 STEP_CALLS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
               "grid_satd_cost", "grid_code", "grid_intra16", "grid_deblock",
               "grid_sao_stats", "grid_sao_apply", "grid_sao_decide",
-              "grid_stats_partial", "nn_refine")
+              "grid_stats_partial", "nn_refine_classes")
 # the launches a stripe's row origin reaches: their calls held vs plain
 STRIPE_KERNELS = ("grid_refine", "grid_intra16", "grid_planes",
                   "grid_sao_stats", "grid_sao_apply", "grid_stats_partial")
@@ -1552,11 +1638,8 @@ def step_bound(calls):
         if not cs:
             continue
         work = Work()
-        kname = "nnfme_mlp" if name == "nn_refine" else name
         for a, k in cs:
-            fn = (nn_refine if name == "nn_refine"
-                  else G_FUNCS[name][0] if name in G_FUNCS else None)
-            work.add(kname, a, fn(*a, **k), k)
+            work.add(name, a, G_FUNCS[name][0](*a, **k), k)
         total += bound_of(dict(work=work))[0]
         nbytes += work.bytes
         ops += work.ops
@@ -1602,9 +1685,20 @@ def check_stripe_kernels(calls, xbytes, runs, rows):
         print(f"kernel {name:18s} {N_STRIPES} stripes of {W}x{H} (row "
               f"origins): calls {len(cs)} max_abs_err {err:.3g} kernel_ms "
               f"{ms:.4f} plain_ms {plain_ms:.4f}", flush=True)
+    # K2 (a launch a stripe, each over its stripe's classes) and the
+    # picture's one SAO decision over the gathered statistics
+    check(len(sh["nn_refine_classes"]) == N_STRIPES
+          and len(sh["grid_sao_decide"]) == 1,
+          f"stripes: K2 {len(sh['nn_refine_classes'])} calls, "
+          f"grid_sao_decide {len(sh['grid_sao_decide'])}")
+    compare_k2(sh["nn_refine_classes"], f"{N_STRIPES} stripes")
+    err = compare_calls("grid_sao_decide", sh["grid_sao_decide"])
+    rows["grid_sao_decide"]["max_abs_err"] = max(
+        rows["grid_sao_decide"]["max_abs_err"], err)
+    print(f"kernel grid_sao_decide {N_STRIPES} stripes of {W}x{H} (the "
+          f"gathered statistics): calls 1 max_abs_err {err:.3g}", flush=True)
     out = {}
-    plain = {k: (nn_refine_plain if k == "nn_refine" else G_FUNCS[k][1])
-             for k in STEP_CALLS}
+    plain = {k: G_FUNCS[k][1] for k in STEP_CALLS}
     for kind in ("sharded", "single"):
         cs = {k: v for k, v in calls[kind].items() if v}
         b, nb, ops = step_bound(cs)
@@ -2403,6 +2497,10 @@ def main():
         enc, recons, secs, launches = run_path(dev, ldp_cfg(npz), NFRAMES)
         check_stream(enc, recons, NFRAMES, launches, LDP_NEED, "LD-P")
         check_sao_on_card(launches, NFRAMES - 1, "LD-P")
+        # K2: the grid's classes of a P picture in one launch
+        check(launches["nnfme_mlp"] == NFRAMES - 1,
+              f"LD-P: nnfme_mlp launched {launches['nnfme_mlp']} times for "
+              f"{NFRAMES - 1} P pictures")
         seeded = enc.results
         kbits = sum(r.bits for r in enc.results) / 1000
         psnr = np.mean([r.psnr_y for r in enc.results])

@@ -27,7 +27,8 @@ Per P picture (`GridStep.frame_step`):
    (`grid_wp_me`).
 2. MC: the DCT-IF phase planes of every reference (`grid_planes`, the
    weighting folded into their rounding), the quarter-pel MVs (NN-FME
-   offsets through K2 `nn_refine`, or the DCT-IF half- and quarter-pel
+   offsets of every class through one launch of K2, `nn_refine_classes`,
+   or the DCT-IF half- and quarter-pel
    squares of `grid_subpel`), the fused merge-candidate sweep whose
    passes price every class's candidates by DC-aware SATD
    (`grid_satd_cost`, one launch a pass; the merge and rectangular
@@ -72,7 +73,8 @@ import torch
 
 from ..device import resolve
 from ..entropy.bitest import EstTables, FracBits, ResidualBitEst
-from ..models.nnfme import NNFME, height_category, nn_refine, width_category
+from ..models.nnfme import (NNFME, height_category, nn_refine_classes,
+                            width_category)
 from ..ops.grid_code import grid_code_batch, up
 from ..ops.grid_deblock import grid_deblock
 from ..ops.grid_intra import IMODES, grid_intra16, intra16_out
@@ -941,23 +943,27 @@ class GridStep:
             .contiguous(), False, self.PADC, hs // 2 + 2 * self.LOOKC,
             self.WmC, wpc, ya // 2)
         model = self.nn.get(qp)
-        if model is not None:
-            def fme(mv, sad9, ref, S, nbh_, nbw_):
-                _, _, off = nn_refine(model, sad9.contiguous(),
-                                      height_category(S), width_category(S))
-                return mv * 4 + off
-        elif self.cfg.fme_mode == "dctif":
-            def fme(mv, sad9, ref, S, nbh_, nbw_):
-                return grid_subpel(planes_y, oy, mv.contiguous(),
-                                   ref.contiguous(), S, nbh_, nbw_,
-                                   self.LOOK)
-        else:  # FmeMode none, or nn without weights: integer-pel
-            def fme(mv, sad9, ref, S, nbh_, nbw_):
-                return mv * 4
-        mvq16 = fme(mv16, sad9_16, ref16, 16, nh16, nw16)
-        mvq8 = fme(mv8, sad9_8, ref8, 8, h8, w8)
-        if has32:
-            mvq32 = fme(mv32, sad9_32, ref32, 32, nh32, nw32)
+        if model is not None:  # K2: every class in one launch
+            offs = nn_refine_classes(model, [
+                (sad9.contiguous(), height_category(S), width_category(S))
+                for sad9, S in ((sad9_16, 16), (sad9_8, 8))
+                + (((sad9_32, 32),) if has32 else ())])
+            mvq16, mvq8 = mv16 * 4 + offs[0], mv8 * 4 + offs[1]
+            if has32:
+                mvq32 = mv32 * 4 + offs[2]
+        else:
+            if self.cfg.fme_mode == "dctif":
+                def fme(mv, ref, S, nbh_, nbw_):
+                    return grid_subpel(planes_y, oy, mv.contiguous(),
+                                       ref.contiguous(), S, nbh_, nbw_,
+                                       self.LOOK)
+            else:  # FmeMode none, or nn without weights: integer-pel
+                def fme(mv, ref, S, nbh_, nbw_):
+                    return mv * 4
+            mvq16 = fme(mv16, ref16, 16, nh16, nw16)
+            mvq8 = fme(mv8, ref8, 8, h8, w8)
+            if has32:
+                mvq32 = fme(mv32, ref32, 32, nh32, nw32)
 
         # --- sweep + coding per class ---------------------------------------
         use_ts = self.use_tusplit

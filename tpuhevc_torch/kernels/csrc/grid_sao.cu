@@ -41,9 +41,16 @@
 // one write per sample (apply); the decision reads 2 x 3 x 48 ints a CTU;
 // launch-bound at these sizes. Design: stats one block per CTU and
 // component, the 48 histograms in shared memory (integer atomics: the sums
-// do not depend on the order); decide one block, one thread per CTU (the
-// picture-level sums by one thread, in order); apply one thread per sample
-// of the three components.
+// do not depend on the order); apply one thread per sample of the three
+// components. Decide: a warp a (CTU, component), a few CTUs a block (so
+// that a picture's CTUs spread over the SMs): lanes 0-15 the 16 EO (class,
+// category) pairs, lane b band b, lane p < 29 window p from shuffles in
+// the serial sum's order, the first-index argmins as warp reductions of
+// (cost, index); a CTU's three warps meet in shared memory for the joint
+// chroma cost and its type; the chosen costs go to a global scratch, and
+// the last block to finish (a ticket, left at zero) takes the picture's
+// sums (rows in parallel where XLA's order allows) and its choice, and
+// turns the types of the components it leaves off to -1: one launch.
 
 #include <cuda_runtime.h>
 
@@ -162,10 +169,11 @@ __global__ void sao_apply_kernel(const int* __restrict__ ry,
         out_uv[y * W + (c - 1) * (W >> 1) + x] = o;
 }
 
-constexpr float kSaoInf = 1e18f;
-// the most CTUs one decide launch takes: 2 float costs a CTU in the 227
-// KiB of shared memory a Hopper block may opt into, less the static s_cfg
-constexpr int kSaoDecideMaxCtus = (227 * 1024 - 16) / 8;  // the cost of an offset out of reach
+constexpr float kSaoInf = 1e18f;  // the cost of an offset out of reach
+constexpr unsigned kFull = 0xffffffffu;
+// the most CTUs a decide block takes (three warps each); the costs the
+// last block stages in shared memory at a time (Y and chroma, half each)
+constexpr int kDecideCtus = 8, kStage = 2048;
 
 // one EO category: offset 0..start (start = round(sign s / max(c, 1))
 // clipped to 0..7) of least c o^2 - 2 o (sign s) + lam (o + 1)
@@ -188,58 +196,40 @@ __device__ void best_eo(float c, float s, float lam, float sign, int* off,
     *cost = best;
 }
 
-struct PlaneEval {
-    int eo_off[4][4];
-    float eo_cost[4];
-    int bo_off[4];
-    int bo_pos;
-    float bo_cost;
-};
+// one band of 32: offset sign m, m = 0..|start| (start = round(s / max(c,
+// 1)) clipped to -7..7), of least c o^2 - 2 o s + lam (m + 2); lam at 0
+__device__ void best_bo(float c, float s, float lam, int* off, float* cost) {
+    const float start = fminf(fmaxf(rintf(s / fmaxf(c, 1.0f)), -7.0f),
+                              7.0f);
+    const float sgn = start >= 0.0f ? 1.0f : -1.0f;
+    int bi = 0;
+    float best = 0.0f;
+    for (int m = 0; m < 8; ++m) {
+        const float mf = (float)m, o = sgn * mf;
+        const float d = c * o * o - 2.0f * o * s;
+        float v = mf <= fabsf(start) ? d + lam * (mf + 2.0f) : kSaoInf;
+        if (m == 0) v = lam;
+        if (m == 0 || v < best) {
+            best = v;
+            bi = m;
+        }
+    }
+    *off = (int)(sgn * (float)bi);
+    *cost = best;
+}
 
-// one component of one CTU: cnt, sm its 48 statistics
-__device__ void eval_plane(const int* cnt, const int* sm, float lam,
-                           PlaneEval* e) {
-    for (int k = 0; k < 4; ++k) {
-        float cs[4];
-        for (int cat = 0; cat < 4; ++cat)
-            best_eo((float)cnt[4 * k + cat], (float)sm[4 * k + cat], lam,
-                    cat < 2 ? 1.0f : -1.0f, &e->eo_off[k][cat], &cs[cat]);
-        e->eo_cost[k] = (((cs[0] + cs[1]) + cs[2]) + cs[3]) + lam * 2.0f;
-    }
-    int bo[32];
-    float bc[32];
-    for (int b = 0; b < 32; ++b) {
-        const float c = (float)cnt[16 + b], s = (float)sm[16 + b];
-        const float start = fminf(fmaxf(rintf(s / fmaxf(c, 1.0f)), -7.0f),
-                                  7.0f);
-        const float sgn = start >= 0.0f ? 1.0f : -1.0f;
-        int bi = 0;
-        float best = 0.0f;
-        for (int m = 0; m < 8; ++m) {
-            const float mf = (float)m, o = sgn * mf;
-            const float d = c * o * o - 2.0f * o * s;
-            float v = mf <= fabsf(start) ? d + lam * (mf + 2.0f) : kSaoInf;
-            if (m == 0) v = lam;
-            if (m == 0 || v < best) {
-                best = v;
-                bi = m;
-            }
-        }
-        bo[b] = (int)(sgn * (float)bi);
-        bc[b] = best;
-    }
-    int pos = 0;
-    float wbest = 0.0f;
-    for (int p = 0; p < 29; ++p) {
-        const float w = ((bc[p] + bc[p + 1]) + bc[p + 2]) + bc[p + 3];
-        if (p == 0 || w < wbest) {
-            wbest = w;
-            pos = p;
+// the first index of the least of (v, i) over the warp (every lane gets it)
+__device__ __forceinline__ int warp_argmin(float v, int i) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, v, o);
+        const int oi = __shfl_xor_sync(kFull, i, o);
+        if (ov < v || (ov == v && oi < i)) {
+            v = ov;
+            i = oi;
         }
     }
-    for (int i = 0; i < 4; ++i) e->bo_off[i] = bo[pos + i];
-    e->bo_pos = pos;
-    e->bo_cost = wbest + lam * 5.0f;
+    return i;
 }
 
 // first index of the least of n costs
@@ -250,113 +240,200 @@ __device__ __forceinline__ int argmin_first(const float* v, int n) {
     return bi;
 }
 
-// candidate bi (0 off, 1-4 EO class, 5 BO) -> type, aux, offsets
-__device__ void select_cand(int bi, const PlaneEval& e, int* type, int* aux,
-                            int* off) {
-    *type = bi == 0 ? -1 : (bi <= 4 ? bi - 1 : 4);
-    *aux = bi == 5 ? e.bo_pos : 0;
-    for (int i = 0; i < 4; ++i)
-        off[i] = bi == 0 ? 0 : (bi <= 4 ? e.eo_off[bi - 1][i] : e.bo_off[i]);
-}
+// one component of one CTU, by one warp (every lane must call it): cnt,
+// sm its 48 statistics -> every lane holds its EO class costs eo[4] and
+// the band cost; lane l < 16 its EO offset (class l / 4, category l % 4),
+// lane b its band's offset; pos the least four-band window
+struct WarpEval {
+    float eo[4], bo_cost;
+    int eo_off, bo_off, pos;
+};
 
-// jnp.sum of the (ny, nx) costs in XLA CPU's order (ops/grid_sao.py
-// xla_sum2d): four rows as ((r0 + r2) + (r1 + r3)), one or two rows as
-// the row sums in order, else every element in raster order
-__device__ float xla_sum2d(const float* v, int ny, int nx) {
-    if (ny == 4 || ny <= 2) {
-        float r[4];
-        for (int y = 0; y < ny; ++y) {
-            float acc = v[y * nx];
-            for (int x = 1; x < nx; ++x) acc = acc + v[y * nx + x];
-            r[y] = acc;
-        }
-        if (ny == 4) return (r[0] + r[2]) + (r[1] + r[3]);
-        return ny == 1 ? r[0] : r[0] + r[1];
+__device__ WarpEval eval_warp(const int* cnt, const int* sm, float lam,
+                              int lane) {
+    WarpEval e;
+    float ec = 0.0f;
+    e.eo_off = 0;
+    if (lane < 16)
+        best_eo((float)cnt[lane], (float)sm[lane], lam,
+                (lane & 3) < 2 ? 1.0f : -1.0f, &e.eo_off, &ec);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const float c0 = __shfl_sync(kFull, ec, 4 * k),
+                    c1 = __shfl_sync(kFull, ec, 4 * k + 1),
+                    c2 = __shfl_sync(kFull, ec, 4 * k + 2),
+                    c3 = __shfl_sync(kFull, ec, 4 * k + 3);
+        e.eo[k] = (((c0 + c1) + c2) + c3) + lam * 2.0f;
     }
-    float acc = v[0];
-    for (int i = 1; i < ny * nx; ++i) acc = acc + v[i];
-    return acc;
+    float bc;
+    best_bo((float)cnt[16 + lane], (float)sm[16 + lane], lam, &e.bo_off,
+            &bc);
+    // window p: bands p..p + 3, summed left to right
+    const float b1 = __shfl_down_sync(kFull, bc, 1),
+                b2 = __shfl_down_sync(kFull, bc, 2),
+                b3 = __shfl_down_sync(kFull, bc, 3);
+    const float win = lane < 29 ? ((bc + b1) + b2) + b3 : INFINITY;
+    e.pos = warp_argmin(win, lane);
+    e.bo_cost = __shfl_sync(kFull, win, e.pos) + lam * 5.0f;
+    return e;
 }
 
-// write one CTU's row entries: par (3, 6 n) [type | aux | off4] per
-// component, prm (17 n) int8 (type_y, aux_y, off_y, type_c, aux_cb,
-// off_cb, aux_cr, off_cr)
+// lane j < 4's offset j of candidate bi (0 off, 1-4 EO class, 5 BO)
+__device__ __forceinline__ int cand_off(const WarpEval& e, int bi,
+                                        int lane) {
+    const int j = lane & 3;
+    const int eo = __shfl_sync(kFull, e.eo_off, (4 * (bi - 1) + j) & 31);
+    const int bo = __shfl_sync(kFull, e.bo_off, (e.pos + j) & 31);
+    return bi == 0 ? 0 : (bi <= 4 ? eo : bo);
+}
+
+// Per CTU (cpb a block, three warps each: Y, Cb, Cr) the component's best
+// EO and BO offsets and costs; the luma type by the luma warp, the chroma
+// type by both chroma warps from the joint cost; par (3, 6 n) [type | aux
+// | off4] per component and prm (17 n) int8 (type_y, aux_y, off_y,
+// type_c, aux_cb, off_cb, aux_cr, off_cr) written, the chosen costs into
+// cost (2 n). The last block (a ticket, left at zero) sums the costs in
+// xla_sum2d's order, picks among {off, Y, C, Y + C} and turns the types
+// of the components it leaves off to -1.
 __global__ void sao_decide_kernel(const int* __restrict__ cnt,
                                   const int* __restrict__ sm,
                                   const float* __restrict__ lam_p, float wch,
-                                  int ny, int nx, int* __restrict__ par,
-                                  signed char* __restrict__ prm) {
-    // the per-CTU costs of the chosen luma and chroma candidates (2 n)
-    extern __shared__ float cost[];
-    __shared__ int s_cfg;
+                                  int ny, int nx, int cpb,
+                                  int* __restrict__ par,
+                                  signed char* __restrict__ prm,
+                                  float* __restrict__ cost,
+                                  int* __restrict__ ticket) {
+    // the chroma warps' EO class and band costs, per CTU of the block
+    __shared__ float s_c[kDecideCtus][2][5];
+    __shared__ float s_cost[kStage];
+    __shared__ float s_rows[2][4];
+    __shared__ int s_cfg, s_last;
     const int n = ny * nx;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int slot = warp / 3, comp = warp % 3;
+    const int i = blockIdx.x * cpb + slot;
+    const bool live = i < n;
     const float lam = *lam_p;
     const float lam_c = lam / wch;
     const float lam_c2 = 2.0f * lam_c;
-    int* py = par;
-    int* pcb = par + 6 * n;
-    int* pcr = par + 12 * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        PlaneEval e;
-        eval_plane(cnt + (size_t)i * 48, sm + (size_t)i * 48, lam, &e);
-        const float tb = 2.0f * lam;
-        float cy[6] = {lam, e.eo_cost[0] + tb, e.eo_cost[1] + tb,
-                       e.eo_cost[2] + tb, e.eo_cost[3] + tb, e.bo_cost + tb};
-        const int by = argmin_first(cy, 6);
-        int ty, ay, oy[4];
-        select_cand(by, e, &ty, &ay, oy);
-        PlaneEval cb, cr;
-        eval_plane(cnt + ((size_t)n + i) * 48, sm + ((size_t)n + i) * 48,
-                   lam_c, &cb);
-        eval_plane(cnt + ((size_t)2 * n + i) * 48,
-                   sm + ((size_t)2 * n + i) * 48, lam_c, &cr);
-        float cj[6];
-        cj[0] = lam_c;
-        for (int k = 0; k < 4; ++k)
-            cj[1 + k] = ((cb.eo_cost[k] + cr.eo_cost[k]) - lam_c2) + lam_c2;
-        cj[5] = (cb.bo_cost + cr.bo_cost) + lam_c2;
-        const int bc = argmin_first(cj, 6);
-        int tc, acb, ocb[4], acr, ocr[4];
-        select_cand(bc, cb, &tc, &acb, ocb);
-        select_cand(bc, cr, &tc, &acr, ocr);
-        cost[i] = cy[by];
-        cost[n + i] = cj[bc];
-        py[i] = ty;
-        py[n + i] = ay;
-        pcb[i] = pcr[i] = tc;
-        pcb[n + i] = acb;
-        pcr[n + i] = acr;
-        for (int j = 0; j < 4; ++j) {
-            py[2 * n + 4 * i + j] = oy[j];
-            pcb[2 * n + 4 * i + j] = ocb[j];
-            pcr[2 * n + 4 * i + j] = ocr[j];
-            prm[2 * n + 4 * i + j] = (signed char)oy[j];
-            prm[8 * n + 4 * i + j] = (signed char)ocb[j];
-            prm[13 * n + 4 * i + j] = (signed char)ocr[j];
+    WarpEval e;
+    if (live) {
+        const size_t base = ((size_t)comp * n + i) * 48;
+        e = eval_warp(cnt + base, sm + base, comp ? lam_c : lam, lane);
+        if (comp && lane == 0) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) s_c[slot][comp - 1][k] = e.eo[k];
+            s_c[slot][comp - 1][4] = e.bo_cost;
         }
-        prm[n + i] = (signed char)ay;
-        prm[7 * n + i] = (signed char)acb;
-        prm[12 * n + i] = (signed char)acr;
     }
     __syncthreads();
+    if (live) {
+        int* p = par + (size_t)comp * 6 * n;
+        int bi;
+        if (comp == 0) {
+            const float tb = 2.0f * lam;
+            const float cy[6] = {lam, e.eo[0] + tb, e.eo[1] + tb,
+                                 e.eo[2] + tb, e.eo[3] + tb,
+                                 e.bo_cost + tb};
+            bi = argmin_first(cy, 6);
+            if (lane == 0) cost[i] = cy[bi];
+        } else {
+            const float* cb = s_c[slot][0];
+            const float* cr = s_c[slot][1];
+            float cj[6];
+            cj[0] = lam_c;
+            for (int k = 0; k < 4; ++k)
+                cj[1 + k] = ((cb[k] + cr[k]) - lam_c2) + lam_c2;
+            cj[5] = (cb[4] + cr[4]) + lam_c2;
+            bi = argmin_first(cj, 6);
+            if (lane == 0 && comp == 1) cost[n + i] = cj[bi];
+        }
+        const int type = bi == 0 ? -1 : (bi <= 4 ? bi - 1 : 4);
+        const int aux = bi == 5 ? e.pos : 0;
+        const int off = cand_off(e, bi, lane);
+        // prm rows of this component: type, aux, offsets (Cr: no type)
+        const int r_type = comp == 0 ? 0 : 6, r_aux = comp == 0 ? 1
+                                              : (comp == 1 ? 7 : 12);
+        const int r_off = comp == 0 ? 2 : (comp == 1 ? 8 : 13);
+        if (lane < 4) {
+            p[2 * n + 4 * i + lane] = off;
+            prm[(size_t)r_off * n + 4 * i + lane] = (signed char)off;
+        }
+        if (lane == 0) {
+            p[i] = type;
+            p[n + i] = aux;
+            prm[(size_t)r_aux * n + i] = (signed char)aux;
+            if (comp < 2) prm[(size_t)r_type * n + i] = (signed char)type;
+        }
+    }
+    // the picture's choice: in the last block to finish
+    __threadfence();
+    __syncthreads();
     if (threadIdx.x == 0) {
-        const float sum_y = xla_sum2d(cost, ny, nx);
-        const float sum_c = xla_sum2d(cost + n, ny, nx);
+        s_last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+        if (s_last) *ticket = 0;  // ready for the next launch
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    // the chosen costs, staged through shared memory a chunk at a time,
+    // summed as jnp.sum sums an (ny, nx) array on XLA's CPU (ops/grid_sao.py
+    // xla_sum2d): ny = 4 as ((r0 + r2) + (r1 + r3)), ny <= 2 as the row
+    // sums in order (a thread a row), else in raster order (a thread each
+    // for Y and chroma); each summing thread adds its range in index order
+    const bool by_rows = ny == 4 || ny <= 2;
+    const int t = threadIdx.x;
+    int c = 0, lo = 0, hi = 0;
+    if (by_rows && t < 2 * ny) {
+        c = t / ny;
+        lo = (t % ny) * nx;
+        hi = lo + nx;
+    } else if (!by_rows && (t == 0 || t == 32)) {
+        c = t >> 5;
+        hi = n;
+    }
+    float acc = 0.0f;
+    for (int base = 0; base < n; base += kStage / 2) {
+        const int len = min(kStage / 2, n - base);
+        for (int j = t; j < 2 * len; j += blockDim.x) {
+            const int cc = j >= len;
+            s_cost[cc * (kStage / 2) + j - cc * len] =
+                __ldcg(&cost[cc * n + base + j - cc * len]);
+        }
+        __syncthreads();
+        for (int k = max(lo, base); k < min(hi, base + len); ++k) {
+            const float v = s_cost[c * (kStage / 2) + k - base];
+            acc = k == lo ? v : acc + v;
+        }
+        __syncthreads();
+    }
+    if (hi > lo) s_rows[c][by_rows ? t % ny : 0] = acc;
+    __syncthreads();
+    if (t == 0) {
+        float sum[2];
+        for (int q = 0; q < 2; ++q) {
+            const float* r = s_rows[q];
+            sum[q] = ny == 4 ? (r[0] + r[2]) + (r[1] + r[3])
+                             : (ny == 2 ? r[0] + r[1] : r[0]);
+        }
         const float floor = lam * (float)(ny * (nx - 1) + (ny - 1) * nx);
-        const float cfgs[4] = {0.0f, sum_y + floor, sum_c + floor,
-                               (sum_y + sum_c) + floor};
+        const float cfgs[4] = {0.0f, sum[0] + floor, sum[1] + floor,
+                               (sum[0] + sum[1]) + floor};
         s_cfg = argmin_first(cfgs, 4);
     }
     __syncthreads();
     const bool luma_on = s_cfg == 1 || s_cfg == 3;
     const bool chroma_on = s_cfg == 2 || s_cfg == 3;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ty = luma_on ? py[i] : -1;
-        const int tc = chroma_on ? pcb[i] : -1;
-        py[i] = ty;
-        pcb[i] = pcr[i] = tc;
-        prm[i] = (signed char)ty;
-        prm[6 * n + i] = (signed char)tc;
+    if (luma_on && chroma_on) return;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        if (!luma_on) {
+            par[j] = -1;
+            prm[j] = -1;
+        }
+        if (!chroma_on) {
+            par[6 * n + j] = par[12 * n + j] = -1;
+            prm[6 * n + j] = -1;
+        }
     }
 }
 
@@ -395,26 +472,22 @@ extern "C" int tpuhevc_grid_sao_apply(const int* ry, const int* ruv,
 
 // cnt, sum (3, ny nx, 48) int32 from tpuhevc_grid_sao_stats; lam the frame
 // lambda (one float32 on the device); wch the chroma weight
-// 2^((qp - qpc) / 3) (float32) -> par (3, 6 ny nx) int32 as tpuhevc_grid_sao_apply reads it, prm (17 ny nx)
-// int8 parameter rows (type_y, aux_y, off_y, type_c, aux_cb, off_cb,
-// aux_cr, off_cr), types -1 where the picture-level choice turned a
-// component off. One block; its 2 ny nx float costs live in shared
-// memory, so ny nx is at most kSaoDecideMaxCtus.
+// 2^((qp - qpc) / 3) (float32) -> par (3, 6 ny nx) int32 as
+// tpuhevc_grid_sao_apply reads it, prm (17 ny nx) int8 parameter rows
+// (type_y, aux_y, off_y, type_c, aux_cb, off_cb, aux_cr, off_cr), types -1
+// where the picture-level choice turned a component off. cost: scratch
+// of 2 ny nx float32; ticket: one int32, zero (left zero); cpb: CTUs a
+// block (1..kDecideCtus).
 extern "C" int tpuhevc_grid_sao_decide(const int* cnt, const int* sum,
                                        const float* lam, int* par,
-                                       signed char* prm, float wch, int ny,
-                                       int nx, void* stream) {
+                                       signed char* prm, float* cost,
+                                       int* ticket, float wch, int ny,
+                                       int nx, int cpb, void* stream) {
     const int n = ny * nx;
     if (n == 0) return 0;
-    if (n > kSaoDecideMaxCtus) return (int)cudaErrorInvalidValue;
-    const size_t shm = 2 * (size_t)n * sizeof(float);
-    if (shm > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            sao_decide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)shm);
-        if (err != cudaSuccess) return (int)err;
-    }
-    sao_decide_kernel<<<1, 256, shm, (cudaStream_t)stream>>>(
-        cnt, sum, lam, wch, ny, nx, par, prm);
+    if (cpb < 1 || cpb > kDecideCtus) return (int)cudaErrorInvalidValue;
+    sao_decide_kernel<<<(n + cpb - 1) / cpb, 96 * cpb, 0,
+                        (cudaStream_t)stream>>>(cnt, sum, lam, wch, ny, nx,
+                                                cpb, par, prm, cost, ticket);
     return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@ loaders below (`load_npz`, `save_npz`, `select_qp_params`,
 `load_csv_weights`: copies of the reference's, same file layout), so both
 packages read the same files and compute the same thing.
 
-`NNFME.forward` is the plain PyTorch version; `nn_refine` launches the
+`NNFME.forward` is the plain PyTorch version; `nn_refine` (one class,
+with its logits and classes) and `nn_refine_classes` (the offsets of up
+to three classes a launch, as the grid step asks for them) launch the
 CUDA kernel (`kernels/csrc/nnfme_mlp.cu`) for CUDA tensors.
 
 The training half copies `tpuhevc/models/nnfme.py:207-324`: `TrainConfig`
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import check_tensor
+from ..device import contiguous_on
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 
@@ -226,32 +228,105 @@ def nn_refine_plain(model: NNFME, sad9: torch.Tensor, hcat: int, wcat: int):
     return logits, cls.int(), model.cls_to_qmv[cls]
 
 
+def nn_refine_classes_plain(model: NNFME, parts):
+    """parts: [(sad9 (n, 9) int32, hcat, wcat)] -> [quarter-pel offset
+    (n, 2) int32] per part."""
+    return [nn_refine_plain(model, sad9, hc, wc)[2] for sad9, hc, wc in parts]
+
+
+# the classes one launch takes (the grid's 16, 8 and 32); the most
+# blocks a launch, per device
+K2_SEGS = 3
+_BLOCKS: dict = {}
+_K2_ARGS = ([kbuild.P] + ([kbuild.P] * 4 + [kbuild.I] * 3) * K2_SEGS
+            + [kbuild.I] * 2 + [kbuild.P])
+
+
+def _k2_launch(model: NNFME, segs: list, what: str) -> None:
+    """One launch of K2 over up to K2_SEGS segments (sad9, qoff, logits or
+    None, cls or None, hcat, wcat) on sad9's card."""
+    dev = segs[0][0].device
+    di = dev.index
+    if not contiguous_on(model.packed, torch.float32, di, 1) or \
+            model.packed.numel() != N_PACKED:
+        raise ValueError(f"{what}: the packed weights must be {N_PACKED} "
+                         f"contiguous float32 on {dev}")
+    blocks = _BLOCKS.get(di)
+    if blocks is None:  # as many as the card holds at once
+        with torch.cuda.device(dev):
+            blocks = kbuild.function("nnfme_mlp", "tpuhevc_nnfme_mlp_blocks",
+                                     [])()
+        if blocks <= 0:
+            raise RuntimeError(f"{what}: occupancy query failed ({blocks})")
+        _BLOCKS[di] = blocks
+    args = [model.packed.data_ptr()]
+    for k in range(K2_SEGS):
+        if k < len(segs):
+            sad9, qoff, logits, cls, hc, wc = segs[k]
+            args += [sad9.data_ptr(), qoff.data_ptr(),
+                     None if logits is None else logits.data_ptr(),
+                     None if cls is None else cls.data_ptr(),
+                     sad9.shape[0], hc, wc]
+        else:
+            args += [None] * 4 + [0] * 3
+    fn = kbuild.function("nnfme_mlp", "tpuhevc_nnfme_mlp", _K2_ARGS)
+    err = fn(*args, len(segs), blocks, torch._C._cuda_getCurrentRawStream(di))
+    kbuild.check(err, what)
+    LAUNCHES["nnfme_mlp"] += 1
+
+
+def _check_part(sad9: torch.Tensor, hcat: int, wcat: int, dev, what: str):
+    if not contiguous_on(sad9, torch.int32, dev.index, 2) or \
+            sad9.shape[1] != 9:
+        raise ValueError(f"{what}: sad9 must be (n, 9) contiguous int32 on "
+                         f"{dev}, got {sad9.dtype} {tuple(sad9.shape)} on "
+                         f"{sad9.device}")
+    if not (0 <= hcat < 8 and 0 <= wcat < 8):
+        raise ValueError(f"{what}: categories {hcat}, {wcat} out of range")
+
+
+def nn_refine_classes(model: NNFME, parts):
+    """K2 over up to K2_SEGS classes of PUs: parts [(sad9 (n, 9) int32,
+    hcat, wcat)] -> [quarter-pel offset (n, 2) int32] per part, what the
+    JAX stage `nn_refine` returns per class. CPU tensors take the plain
+    version; CUDA tensors the kernel, one launch (no logits or classes
+    written)."""
+    if not 0 < len(parts) <= K2_SEGS:
+        raise ValueError(f"nn_refine_classes: {len(parts)} classes, "
+                         f"expected 1 to {K2_SEGS}")
+    dev = parts[0][0].device
+    if dev.type == "cpu":
+        return nn_refine_classes_plain(model, parts)
+    if dev.type != "cuda":
+        raise ValueError(f"nn_refine_classes: unsupported device {dev}")
+    for sad9, hc, wc in parts:
+        _check_part(sad9, hc, wc, dev, "nn_refine_classes")
+    sizes = [p[0].shape[0] for p in parts]
+    offs = list(torch.empty((sum(sizes), 2), dtype=torch.int32,
+                            device=dev).split(sizes))
+    segs = [(sad9, off, None, None, hc, wc)
+            for (sad9, hc, wc), off in zip(parts, offs) if sad9.shape[0]]
+    if segs:
+        _k2_launch(model, segs, "nn_refine_classes")
+    return offs
+
+
 def nn_refine(model: NNFME, sad9: torch.Tensor, hcat: int, wcat: int):
-    """K2. CPU tensors take the plain version; CUDA tensors the kernel."""
+    """K2 on one class. CPU tensors take the plain version; CUDA tensors
+    the kernel (one launch of one segment, logits and classes written)."""
     if sad9.device.type == "cpu":
         return nn_refine_plain(model, sad9, hcat, wcat)
     if sad9.device.type != "cuda":
         raise ValueError(f"nn_refine: unsupported device {sad9.device}")
     dev = sad9.device
-    check_tensor(sad9, "sad9", torch.int32, 2, dev)
-    check_tensor(model.packed, "packed weights", torch.float32, 1, dev)
-    if sad9.shape[1] != 9 or model.packed.numel() != N_PACKED:
-        raise ValueError(f"nn_refine: sad9 {tuple(sad9.shape)}")
-    if not (0 <= hcat < 8 and 0 <= wcat < 8):
-        raise ValueError(f"nn_refine: categories {hcat}, {wcat} out of range")
+    _check_part(sad9, hcat, wcat, dev, "nn_refine")
     n = sad9.shape[0]
     logits = torch.empty((n, 49), dtype=torch.float32, device=dev)
     cls = torch.empty((n,), dtype=torch.int32, device=dev)
     qoff = torch.empty((n, 2), dtype=torch.int32, device=dev)
-    if n == 0:
-        return logits, cls, qoff
-    fn = kbuild.function("nnfme_mlp", "tpuhevc_nnfme_mlp",
-                         [kbuild.P] * 5 + [kbuild.I] * 3 + [kbuild.P])
-    err = fn(sad9.data_ptr(), model.packed.data_ptr(), logits.data_ptr(),
-             cls.data_ptr(), qoff.data_ptr(), n, hcat, wcat,
-             torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(err, "nnfme_mlp")
-    LAUNCHES["nnfme_mlp"] += 1
+    if n:
+        _k2_launch(model, [(sad9, qoff, logits, cls, hcat, wcat)],
+                   "nnfme_mlp")
     return logits, cls, qoff
 
 

@@ -18,7 +18,9 @@ Twin of `sao_device` (`tpuhevc/codec/inter_grid.py:1427-1494`) with
    EO class and of the band offset, the luma type, the chroma type shared
    by Cb and Cr (at the chroma lambda lam / 2^((qp - qpc) / 3)), and the
    picture-level on/off choice of the two components over four
-   configurations; lambda stays on the device;
+   configurations; lambda stays on the device; on the card a warp a
+   (CTU, component) over many blocks, the picture's choice in the last
+   block to finish (a ticket in a per-device scratch, left at zero);
 3. apply (`grid_sao`, launch 3): per sample the EO or band offset of its
    CTU's type, from the unfiltered (deblocked) input, clipped to 8 bits.
 
@@ -279,15 +281,22 @@ def grid_sao_decide_plain(cnt, sm, lam: torch.Tensor, qp: int, ny: int,
     return par.int().contiguous(), params
 
 
+# per device: the decision's cost scratch (2 n float32) and its ticket
+_DECIDE_SCRATCH: dict = {}
+_DECIDE_ARGS = [kbuild.P] * 7 + [kbuild.F] + [kbuild.I] * 3 + [kbuild.P]
+DECIDE_CTUS = 8  # the most CTUs a block of the decision (three warps each)
+
+
 def grid_sao_decide(cnt, sm, lam: torch.Tensor, qp: int, ny: int, nx: int):
     """Kernel `grid_sao_decide`. CPU tensors take the plain version; CUDA
-    tensors the kernel (one launch, one block, its costs in shared memory:
-    at most 29054 CTUs; lambda read on the device)."""
+    tensors the kernel: one launch, a warp a (CTU, component), the
+    picture's choice in its last block; lambda read on the device."""
     if cnt.device.type == "cpu":
         return grid_sao_decide_plain(cnt, sm, lam, qp, ny, nx)
     if cnt.device.type != "cuda":
         raise ValueError(f"grid_sao_decide: unsupported device {cnt.device}")
     dev = cnt.device
+    di = dev.index
     n = ny * nx
     for t, name in ((cnt, "cnt"), (sm, "sm")):
         check_tensor(t, name, torch.int32, 3, dev)
@@ -297,13 +306,21 @@ def grid_sao_decide(cnt, sm, lam: torch.Tensor, qp: int, ny: int, nx: int):
     check_tensor(lam, "lam", torch.float32, 0, dev)
     par = torch.empty((3, 6 * n), dtype=torch.int32, device=dev)
     params = torch.empty((17 * n,), dtype=torch.int8, device=dev)
+    cost, ticket, sms = _DECIDE_SCRATCH.get(di, (None, None, None))
+    if cost is None or cost.numel() < 2 * n:
+        if ticket is None:
+            ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+            sms = torch.cuda.get_device_properties(di).multi_processor_count
+        cost = torch.empty(max(2 * n, 1), dtype=torch.float32, device=dev)
+        _DECIDE_SCRATCH[di] = (cost, ticket, sms)
+    # CTUs a block: one where the picture has no more CTUs than SMs, else
+    # enough that the blocks fit in one wave
+    cpb = min(max(-(-n // sms), 1), DECIDE_CTUS)
     wch = np.float32(2.0 ** ((qp - chroma_qp(qp)) / 3.0))
-    fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_decide",
-                         [kbuild.P] * 5 + [kbuild.F] + [kbuild.I] * 2
-                         + [kbuild.P])
+    fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_decide", _DECIDE_ARGS)
     err = fn(cnt.data_ptr(), sm.data_ptr(), lam.data_ptr(), par.data_ptr(),
-             params.data_ptr(), float(wch), ny, nx,
-             torch.cuda.current_stream(dev).cuda_stream)
+             params.data_ptr(), cost.data_ptr(), ticket.data_ptr(),
+             float(wch), ny, nx, cpb, torch._C._cuda_getCurrentRawStream(di))
     kbuild.check(err, "grid_sao_decide")
     LAUNCHES["grid_sao_decide"] += 1
     return par, params

@@ -24,7 +24,12 @@ kernels and copies themselves, not the host operators that launched
 them, which the profiler credits with the same time), its idle share
 1 - busy / wall over the profiled encode; the largest device items and
 the grid step's kernels (STEP_KERNELS) over it. Prints the card's
-name and power limit beside every number. Needs a CUDA device.
+name and power limit beside every number. The encode paths also print
+the device time and launches over the profiled encode of the grid
+step's kernels and of the intra decision's (IDR_KERNELS: intra_bank,
+satd35_topk, intra_txq, tu_bits; in `ldp` only the IDR launches them,
+and `--path intra --frames 1` is one all-intra picture). Needs a CUDA
+device.
 
 `bench` runs bench.py's clip, cfg and procedure on the port: 32 frames of
 `make_clip(416, 240, 32)`, the anchor LD-P cfg at QP 32 with four
@@ -47,8 +52,8 @@ of the kernels of grid_coarse, grid_refine, grid_planes, grid_satd (the
 gathers and the SATD costs), K2, grid_intra16, grid_deblock and grid_sao
 (its statistics, decision and apply), and the count of every device
 operation of the step a picture (kernels, copies and fills); K2's device
-time at each of its calls of a picture (one a class: 16x16, 8x8, 32x32
-PUs). Then kernel
+time at each of its calls of a picture (one: the 16x16, 8x8 and 32x32
+classes' PUs in one launch). Then kernel
 `grid_code`'s share: its launches in one such picture (recorded from the
 step, as the step makes them: each class coding's planes in one launch),
 replayed 5 times under `torch.profiler`, the device time of its kernel a
@@ -203,6 +208,14 @@ STEP_KERNELS = {"grid_coarse": ("coarse_kernel",),
                              "sao_apply_kernel")}
 
 
+# the intra decision's kernels (every picture of `intra`; only the IDR
+# of `ldp`, whose P pictures take the grid step)
+IDR_KERNELS = {"intra_bank": ("intra_bank_kernel",),
+               "satd35_topk": ("satd35_topk_kernel",),
+               "intra_txq": ("intra_txq_kernel",),
+               "tu_bits": ("tu_bits_kernel",)}
+
+
 def pred_split(cfg, nn_by_qp, clip, dev, gpu: str, reps: int = 5) -> None:
     """`step`: the device time and launches a picture of each kernel of
     STEP_KERNELS and the count of every launch of the step, from `reps`
@@ -241,23 +254,29 @@ def pred_split(cfg, nn_by_qp, clip, dev, gpu: str, reps: int = 5) -> None:
     print(f"step {step.W}x{step.H}: every device operation of the step: "
           f"{total:g} a picture (kernels, copies, fills), device busy "
           f"{busy:.4f} ms a picture | {gpu}", flush=True)
-    calls, nn = [], inter_grid.nn_refine
+    # K2's entry in the grid step: the classes in one call (a call a class
+    # on the parents of this tree)
+    k2 = ("nn_refine_classes" if hasattr(inter_grid, "nn_refine_classes")
+          else "nn_refine")
+    calls, nn = [], getattr(inter_grid, k2)
 
     def recorded(*a):
         calls.append(a)
         return nn(*a)
 
-    inter_grid.nn_refine = recorded
+    setattr(inter_grid, k2, recorded)
     try:
         step.frame_step(carry, fu8, step.R, 0, tabs)
         torch.cuda.synchronize()
     finally:
-        inter_grid.nn_refine = nn
-    each = [(a[1].shape[0], round(kernel_ms(lambda a=a: nn(*a),
-                                            "nnfme_mlp_kernel"), 5))
+        setattr(inter_grid, k2, nn)
+    each = [([p[0].shape[0] for p in a[1]] if k2 == "nn_refine_classes"
+             else a[1].shape[0],
+             round(kernel_ms(lambda a=a: nn(*a), "nnfme_mlp_kernel"), 5))
             for a in calls]
     print(f"step {step.W}x{step.H}: K2 (nnfme_mlp_kernel) at each call of "
-          f"a picture: {each} (PUs, kernel_ms) | {gpu}", flush=True)
+          f"a picture: {each} (PUs of each class, kernel_ms) | {gpu}",
+          flush=True)
 
 
 def time_step(cfg, nn_by_qp, clip, dev, reps: int, gpu: str) -> None:
@@ -543,11 +562,11 @@ def main(argv=None) -> int:
         for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
             calls = next(e.count for e in stats if e.key == key)
             print(f"  device {us / 1e3:9.3f} ms  calls {calls:5d}  {key}")
-        for name, keys in STEP_KERNELS.items():
+        for name, keys in {**STEP_KERNELS, **IDR_KERNELS}.items():
             hit = [e for e in stats if e.key in dev_us and any(
                 f"::{k}<" in e.key or f"::{k}(" in e.key for k in keys)]
             ms = sum(dev_us[e.key] for e in hit) / 1e3
-            print(f"  {name}: device {ms:.3f} ms in "
+            print(f"  {name}: device {ms:.5f} ms in "
                   f"{sum(e.count for e in hit)} launches over the profiled "
                   f"encode")
         if args.trace:
