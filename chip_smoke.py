@@ -11,9 +11,12 @@
    that are not 16-aligned, K1 also without row subsampling (the per-frame
    P stage's search); the intra decision kernels at every call of the
    decision (both passes) of one all-intra picture and of one LD-P IDR,
-   captured from the decision itself; the B step kernels (b_me, b_pred,
+   captured from the decision itself (intra_txq's outputs torch.equal);
+   the B step kernels (b_me, b_pred,
    b_txq) at every call of one random-access B picture; the grid step
-   kernels (grid_coarse, grid_refine (one launch a block size over every
+   kernels (grid_coarse, grid_prestage (the +-64 prestage's pick on the
+   card; both also at every call of the dctif + WP picture, of bench.py's
+   cfg and of the 3 stripes), grid_refine (one launch a block size over every
    reference: the starts reference-major, the reference merge on the
    card), grid_planes (also beside
    torch.nn.functional.conv2d of its sums, the library time),
@@ -42,6 +45,9 @@
    intra_wave (fixed-8x8 intra of whole pictures) on 3 frames of the
    416x240 clip at QP 32 and at the graft entry's shape (192x128, QP 32,
    planes from np.random.default_rng(0)), all seven outputs.
+   grid_refine's split S = 32 launch and grid_sao_decide of the anchor
+   and the fade picture on two streams of one card without a sync between
+   (each stream's own ticket scratch), each equal to plain.
    grid_sao_decide (the SAO decision, the launch between grid_sao's two:
    a warp a CTU component, the picture's choice in the last block) at
    every call of the same anchor P picture, its rows and the SAO'd
@@ -201,9 +207,9 @@ from tpuhevc_torch.ops.grid_deblock import (  # noqa: E402
     boundary_strength, grid_deblock, grid_deblock_plain, tu_cells)
 from tpuhevc_torch.ops.grid_intra import grid_intra16, grid_intra16_plain  # noqa: E402
 from tpuhevc_torch.ops.grid_me import (  # noqa: E402
-    grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain,
-    grid_refine_refs, grid_refine_refs_plain, grid_wp_me, grid_wp_me_plain,
-    tile_sum)
+    grid_coarse, grid_coarse_plain, grid_prestage, grid_prestage_plain,
+    grid_refine, grid_refine_plain, grid_refine_refs, grid_refine_refs_plain,
+    grid_wp_me, grid_wp_me_plain, tile_sum)
 from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
     field_cells, grid_mc, grid_mc_plain, grid_planes, grid_planes_plain,
     grid_satd_cost, grid_satd_cost_plain, grid_subpel, grid_subpel_plain,
@@ -260,6 +266,8 @@ SOURCES = {
               "tpuhevc/codec/inter_b.py:181"),
     "grid_coarse": ("tpuhevc_torch/kernels/csrc/grid_me.cu",
                     "tpuhevc/codec/inter_grid.py:650"),
+    "grid_prestage": ("tpuhevc_torch/kernels/csrc/grid_me.cu",
+                      "tpuhevc/codec/inter_grid.py:2395"),
     "grid_refine": ("tpuhevc_torch/kernels/csrc/grid_me.cu",
                     "tpuhevc/codec/inter_grid.py:681"),
     "grid_planes": ("tpuhevc_torch/kernels/csrc/grid_pred.cu",
@@ -299,9 +307,9 @@ SOURCES = {
 TRAIN_KERNELS = ("fme_train_fwd", "fme_train_bwd", "fme_adam")
 INTRA = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 B_KERNELS = ("b_me", "b_pred", "b_txq")
-G_KERNELS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
-             "grid_satd_cost", "grid_code", "grid_intra16", "grid_deblock",
-             "grid_sao")
+G_KERNELS = ("grid_coarse", "grid_prestage", "grid_refine", "grid_planes",
+             "grid_satd", "grid_satd_cost", "grid_code", "grid_intra16",
+             "grid_deblock", "grid_sao")
 # the LD-P path at 416x240: the IDR's decision, the grid step and K2
 LDP_NEED = INTRA + G_KERNELS + ("grid_sao_decide", "nnfme_mlp")
 # the random-access path: the B step, the P tail's stage (K1-K4) and K2
@@ -599,6 +607,10 @@ def kernel_ops(name, a, kw=None) -> int:
                                 + (12 if decide else 3) * S * S)
     if name == "grid_coarse":  # sub, abs, add (+ add for the sum)
         return a[0].numel() * a[2] ** 2 * (4 if a[5] else 3)
+    if name == "grid_prestage":  # sub, abs, add a sample and offset; the
+        # shift, the rate's add and the compare a block and offset
+        blocks = a[0].numel() // a[3] ** 2
+        return (a[0].numel() + blocks) * a[2] ** 2 * 3
     if name in ("grid_refine", "grid_refine_one"):  # sub, abs, add, add
         # per pixel and candidate
         S, nb = a[2], a[3] * a[4]
@@ -947,8 +959,9 @@ def capture_intra_calls(dev, cfg, frame):
 def check_intra_kernels(dev, npz):
     """Kernel vs plain on the card for the intra decision, at every call
     of the two passes of one 416x240 all-intra picture (RDOQ, NxN) and of
-    one IDR of the anchor LD-P cfg. Integer outputs exact; float32 dist,
-    d0 and bits within rtol 1e-5, atol 1e-3 (sum order). Returns {name:
+    one IDR of the anchor LD-P cfg. Integer outputs exact, intra_txq's
+    float32 dist and d0 too (integer sums rounded once); tu_bits' float32
+    bits within rtol 1e-5, atol 1e-3 (sum order). Returns {name:
     row}; ms/plain_ms are per all-intra picture (both passes)."""
     frame = Reader(W, H, 1).frames[0]
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
@@ -974,7 +987,10 @@ def check_intra_kernels(dev, npz):
                         continue
                     d = float((x.double() - y.double()).abs().max())
                     err = max(err, d)
-                    if x.dtype.is_floating_point:
+                    if name == "intra_txq":  # exact integer SSEs
+                        check(torch.equal(x, y), f"intra_txq {tag}: "
+                              f"outputs differ by {d}")
+                    elif x.dtype.is_floating_point:
                         torch.testing.assert_close(x, y, rtol=1e-5,
                                                    atol=1e-3)
                     else:
@@ -1046,6 +1062,7 @@ def check_b_kernels(dev, npz, params):
 
 G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_coarse": (grid_coarse, grid_coarse_plain),
+    "grid_prestage": (grid_prestage, grid_prestage_plain),
     "grid_refine": (grid_refine_refs, grid_refine_refs_plain),
     "grid_planes": (grid_planes, grid_planes_plain),
     "grid_satd": (grid_mc, grid_mc_plain),
@@ -1296,15 +1313,30 @@ def check_grid_kernels(dev, npz, params):
     # DCT-IF FME, weighted prediction and the no-fetch tail: one P picture
     # of the fade clip with the anchor cfg, dctif, WP and no recon fetch
     # (grid_refine, grid_intra16 and grid_planes held beside their rows;
-    # grid_coarse recorded for the motion search's sync-free span)
+    # grid_coarse and grid_prestage on the weighted references, and
+    # recorded for the motion search's sync-free span)
+    anchor = calls
     calls, wpp = capture_grid_calls(
         dev, ldp_cfg(npz, extra=FME_WP + NO_FETCH), params,
-        F_KERNELS + WP_TOO + ("grid_coarse", "grid_sao_decide"), fade=True)
+        F_KERNELS + WP_TOO + ME_FIRST + ("grid_sao_decide",), fade=True)
     check(weighted(wpp), f"fade picture: identity weights only {wpp}")
     err = compare_calls("grid_sao_decide", calls["grid_sao_decide"])
     print(f"kernel grid_sao_decide P picture, dctif + WP: calls "
           f"{len(calls['grid_sao_decide'])} max_abs_err {err:.3g}",
           flush=True)
+    # the coarse search and the prestage's pick also at bench.py's cfg
+    # (no NN-FME weights, the checksum hash, no recon fetch)
+    bench = capture_grid_calls(dev, ldp_cfg(None, extra=NO_FETCH), params,
+                               ME_FIRST)[0]
+    for name in ME_FIRST:
+        for tag, cs in (("dctif + WP", calls[name]), ("bench.py's cfg",
+                                                      bench[name])):
+            check(len(cs) == 1, f"{name} {tag}: {len(cs)} calls")
+            err = compare_calls(name, cs)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            print(f"kernel {name:12s} P picture, {tag}: calls {len(cs)} "
+                  f"max_abs_err {err:.3g}", flush=True)
+    check_two_streams(anchor, calls)
     # the weighted picture with NN-FME: K2 and the SAO decision
     wcalls, wpp_nn = capture_grid_calls(
         dev, ldp_cfg(npz, extra=["--WeightedPredP=1"]), params,
@@ -1346,6 +1378,39 @@ def check_grid_kernels(dev, npz, params):
 # the anchor picture's kernels held again at every call of the weighted
 # picture
 WP_TOO = ("grid_planes", "grid_refine", "grid_intra16")
+# the motion search's first launches: the coarse stack, the prestage's pick
+ME_FIRST = ("grid_coarse", "grid_prestage")
+
+
+def check_two_streams(anchor, fade):
+    """The ticket scratches on two streams of one card: the split S = 32
+    launch of grid_refine (chunks of starts meeting through a candidate
+    scratch, the last by a ticket) of the anchor picture and of the fade
+    picture, and grid_sao_decide of both, each pair launched on two
+    streams without a sync between (three times), each launch equal to
+    plain: a launch finds the scratch and ticket of its own stream."""
+    refine = [next((a, k) for a, k in c["grid_refine"] if a[2] == 32)
+              for c in (anchor, fade)]
+    pairs = {"grid_refine": refine,
+             "grid_sao_decide": [c["grid_sao_decide"][0]
+                                 for c in (anchor, fade)]}
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for name, cs in pairs.items():
+        kern, plain = G_FUNCS[name]
+        want = [plain(*a, **k) for a, k in cs]
+        torch.cuda.synchronize()
+        for _ in range(3):
+            got = []
+            for (a, k), st in zip(cs, streams):
+                with torch.cuda.stream(st):
+                    got.append(kern(*a, **k))
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                for x, y in zip(tensors(g), tensors(w)):
+                    check(torch.equal(x, y), f"{name} on two streams: "
+                          "outputs differ from plain")
+        print(f"kernel {name:12s} two streams of one card, no sync "
+              f"between, 3 times: equal to plain", flush=True)
 
 
 def check_cost_calls(cost):
@@ -1553,13 +1618,15 @@ def check_multi_kernels(calls, rows):
 N_STRIPES, N_SHARD = 3, 16
 # every kernel call of one grid P picture (in the grid step's
 # namespace), for its bound
-STEP_CALLS = ("grid_coarse", "grid_refine", "grid_planes", "grid_satd",
-              "grid_satd_cost", "grid_code", "grid_intra16", "grid_deblock",
-              "grid_sao_stats", "grid_sao_apply", "grid_sao_decide",
-              "grid_stats_partial", "nn_refine_classes")
+STEP_CALLS = ("grid_coarse", "grid_prestage", "grid_refine", "grid_planes",
+              "grid_satd", "grid_satd_cost", "grid_code", "grid_intra16",
+              "grid_deblock", "grid_sao_stats", "grid_sao_apply",
+              "grid_sao_decide", "grid_stats_partial", "nn_refine_classes")
 # the launches a stripe's row origin reaches: their calls held vs plain
-STRIPE_KERNELS = ("grid_refine", "grid_intra16", "grid_planes",
-                  "grid_sao_stats", "grid_sao_apply", "grid_stats_partial")
+# (the coarse entries at the stripes' pooled shapes)
+STRIPE_KERNELS = ("grid_coarse", "grid_prestage", "grid_refine",
+                  "grid_intra16", "grid_planes", "grid_sao_stats",
+                  "grid_sao_apply", "grid_stats_partial")
 
 
 def shard_cfg(npz, extra=()):
@@ -1648,7 +1715,8 @@ def step_bound(calls):
 
 
 def check_stripe_kernels(calls, xbytes, runs, rows):
-    """The row-origin launches of one sharded picture (grid_refine over
+    """The row-origin launches of one sharded picture (grid_coarse and
+    grid_prestage at each stripe's pooled rows, grid_refine over
     every reference with its stripe's ry_y0, grid_intra16 with
     y0 1 in stripes 1 and 2, grid_planes from each stripe's row origin in
     its carried reference rows, grid_sao's stats and apply with their halo
@@ -1661,7 +1729,8 @@ def check_stripe_kernels(calls, xbytes, runs, rows):
     "single": {bound, ms, plain_ms}}."""
     sh = dict(calls["sharded"])
     sh["grid_stats_partial"] = calls["sharded_nofetch"]["grid_stats_partial"]
-    origin = {"grid_refine": "grid_refine", "grid_intra16": "grid_intra16",
+    origin = {"grid_coarse": "grid_coarse", "grid_prestage": "grid_prestage",
+              "grid_refine": "grid_refine", "grid_intra16": "grid_intra16",
               "grid_planes": "grid_planes",
               "grid_sao_stats": "grid_sao", "grid_sao_apply": "grid_sao",
               "grid_stats_partial": "grid_stats"}

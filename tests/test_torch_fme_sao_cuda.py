@@ -29,7 +29,9 @@ On a card (`cuda`; skipped here):
   and the parameter rows) on CTU grids 1x1, 2x3, 4x7, 5x7, 17x30 and
   34x60 at three lambdas (the picture's choice on and off);
 - all-zero statistics (every candidate ties), and two launches back to
-  back without a sync between, each equal to plain, the ticket left at 0.
+  back without a sync between, each equal to plain, the ticket left at 0;
+- two launches on two streams of one card, not synchronised between:
+  each has its own cost scratch and ticket, each equals plain.
 """
 
 import numpy as np
@@ -263,5 +265,28 @@ def test_cuda_sao_decide_ties_and_back_to_back(cuda_device):
     rb = decide(cuda_device, *sao_stats(4, 7, 2), 30.0, 37, 4, 7)
     for r in (ra, rb):
         assert_equal_plain(*r)
-    ticket = gs._DECIDE_SCRATCH[cuda_device.index][1]
-    assert int(ticket.item()) == 0
+    key = (cuda_device.index, torch.cuda.current_stream(cuda_device)
+           .cuda_stream)
+    assert int(gs._DECIDE_SCRATCH[key][1].item()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sao_decide_two_streams(cuda_device):
+    """Two launches on two streams of one card, not synchronised between:
+    each stream has its own cost scratch and ticket, each launch equals
+    plain, each ticket is left at 0."""
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    stats = [sao_stats(34, 60, 7), sao_stats(34, 60, 8)]
+    for rep in range(3):
+        outs = []
+        for (cnt, sm), stream, lam in zip(stats, streams, (30.0, 57.0)):
+            with torch.cuda.stream(stream):
+                outs.append(decide(cuda_device, cnt, sm, lam + rep, 37, 34,
+                                   60))
+        torch.cuda.synchronize()
+        for r in outs:
+            assert_equal_plain(*r)
+    scratch = [gs._DECIDE_SCRATCH[cuda_device.index, s.cuda_stream]
+               for s in streams]
+    assert scratch[0][0].data_ptr() != scratch[1][0].data_ptr()
+    assert all(int(x[1].item()) == 0 for x in scratch)

@@ -54,7 +54,8 @@ from tpuhevc_torch.ops.grid_code import grid_code_batch, grid_code_plain, up
 from tpuhevc_torch.ops.grid_intra import (
     IMODES, cell_refs, grid_intra16, grid_intra16_plain, intra_preds)
 from tpuhevc_torch.ops.grid_me import (
-    grid_coarse, grid_coarse_plain, grid_refine, grid_refine_plain, tile_sum)
+    grid_coarse, grid_coarse_plain, grid_prestage, grid_prestage_plain,
+    grid_refine, grid_refine_plain, tile_sum)
 from tpuhevc_torch.ops.grid_pred import (
     SatdField, grid_mc, grid_mc_plain, grid_planes, grid_planes_plain,
     grid_satd_cost, grid_satd_cost_plain, grid_satd_plain, group_sum, satd8,
@@ -213,9 +214,8 @@ def check_coarse_pick_and_prestage(st):
     n4 = 2 * P4 + 1
     oy4 = tile_sum(t(oy), 4).int()
     ry4p = step._pad_edge(tile_sum(t(ry0), 4).int(), P4)
-    s4, _ = grid_coarse_plain(oy4, ry4p, n4, 4, 2, False)
-    cost = s4 + ((step.pre_bits[:, None, None] * lam_me) >> 8)
-    barg = torch.argmin(cost.reshape(n4 * n4, -1), dim=0)
+    barg = grid_prestage_plain(oy4, ry4p, n4, 4, 2, step.pre_bits,
+                               lam_me).reshape(-1)
     o4, r4 = jnp.asarray(oy4.numpy()), jnp.asarray(ry4p.numpy())
     best = np.full(o4.shape[0] // 4 * (o4.shape[1] // 4), 1 << 30)
     jarg = np.zeros_like(best)
@@ -674,14 +674,16 @@ def test_grid_kernels_match_plain(cuda_device, base, planes):
     oy, ry = t(st["oy"]), t(st["ry"])
     oy2 = tile_sum(oy, 2).int()
     ry2p = step._pad_edge(tile_sum(ry[0], 2).int(), step.R2)
-    for args in ((oy2, ry2p, step.nc, 8, 1, True),
-                 (tile_sum(oy, 4).int(),
-                  step._pad_edge(tile_sum(ry[0], 4).int(), 16), 33, 4, 2,
-                  False)):
-        a = grid_coarse(c(args[0]), c(args[1]), *args[2:])
-        b = grid_coarse_plain(c(args[0]), c(args[1]), *args[2:])
-        for x, y in zip(a, b):
-            assert (x is None and y is None) or torch.equal(x, y)
+    args = (oy2, ry2p, step.nc, 8, 1, True)
+    a = grid_coarse(c(args[0]), c(args[1]), *args[2:])
+    b = grid_coarse_plain(c(args[0]), c(args[1]), *args[2:])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    # the +-64 prestage's level: the pick, as the step takes it
+    args = (c(tile_sum(oy, 4).int()),
+            c(step._pad_edge(tile_sum(ry[0], 4).int(), 16)), 33, 4, 2,
+            c(step.pre_bits).int(), 1800)
+    assert torch.equal(grid_prestage(*args), grid_prestage_plain(*args))
     for S, quads in ((16, True), (32, False)):
         starts = torch.stack([torch.stack([c(torch.randint(-30, 30, (
             (H // S) * (W // S),))).int() for _ in range(2)], -1)

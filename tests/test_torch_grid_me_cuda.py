@@ -1,5 +1,5 @@
-"""The grid step's refine over every reference (kernel `grid_refine`,
-`ops/grid_me.py:grid_refine_refs`) and its intra-16 candidate (kernel
+"""The grid step's motion search (kernels `grid_coarse`, `grid_prestage`
+and `grid_refine`, `ops/grid_me.py`) and its intra-16 candidate (kernel
 `grid_intra16`) against their plain versions. Imports no JAX.
 
 On the CPU:
@@ -9,13 +9,25 @@ On the CPU:
   then `merge_acc` on a strict less in reference order, as
   `tpuhevc/codec/inter_grid.py:2453-2512` merges): with the reference
   bits, with one reference (no bits), and with two equal reference
-  planes, where the earlier reference wins every tie.
+  planes, where the earlier reference wins every tie;
+- `grid_prestage` (its plain version) equals the strict-less running
+  best over k in order of `ps_row` (:2395-2416), in numpy, on a picture
+  and on a flat one where every offset ties.
 
 On a card (`cuda`; skipped here), every output `torch.equal`:
+- `grid_coarse` (the stack, with and without the sums) and
+  `grid_prestage` (the pick) against their plain versions at the
+  anchor's two shapes (416x240: n = 17 on the 2x-pooled level, tile 8;
+  n = 33 on the 4x-pooled level, tile 4), at the 3-stripe shapes (64,
+  64 and 112 rows), at tile counts that are no multiple of a block's
+  strip, and on flat planes with equal costs, where the first index wins;
 - `grid_refine_refs` against its plain version at the anchor picture's
   shapes (416x240: S = 16 with the quadrants, S = 32, 5 + 3 starts),
   with a row origin ry_y0 > 0 and starts that reach the plane's edges,
   and `grid_refine` (one reference) split and unsplit over blocks;
+- two split S = 32 launches on two streams of one card, not
+  synchronised between: each has its own candidate scratch and tickets,
+  each equals plain, the tickets are left at 0;
 - `grid_intra16` against its plain version on cells with every
   availability pattern (none available: all 128; edge cells; `avtr` /
   `avbl` false), from row 0 and from y0 = 1, deciding (`cur`) and with the
@@ -28,8 +40,11 @@ import torch
 
 from torch_port_util import cuda_device  # noqa: F401
 from tpuhevc_torch.ops.grid_intra import grid_intra16, grid_intra16_plain
+from tpuhevc_torch.ops import grid_me as gm
 from tpuhevc_torch.ops.grid_me import (
-    grid_refine, grid_refine_plain, grid_refine_refs, grid_refine_refs_plain)
+    grid_coarse, grid_coarse_plain, grid_prestage, grid_prestage_plain,
+    grid_refine, grid_refine_plain, grid_refine_refs, grid_refine_refs_plain,
+    tile_sum)
 
 REF_BITS = (1, 2, 3, 3)  # GridStep.ref_bits_me with four references
 LAM, DCC, DCC8, LIM = 380, 900, 250, 67
@@ -145,6 +160,126 @@ def test_cuda_refine_refs_matches_plain(cuda_device):
             for part in (0, 1) if quads else (0,):
                 for g, x in zip(got[part], want[part]):
                     assert torch.equal(g, x)
+
+
+def prestage_bits(n):
+    """The prestage's MV bits of each offset (`GridStep.pre_bits`), int32."""
+    d = np.abs(np.arange(n) - n // 2) * 16
+    lb = 2 * np.ceil(np.log2(2.0 * d + 1.0)).astype(np.int64)
+    return torch.as_tensor((lb[:, None] + lb[None, :] + 2).reshape(-1),
+                           dtype=torch.int32)
+
+
+def pooled_pair(h, w, f, n, seed, flat=False):
+    """A picture and a moved, noisy reference of h x w, f x f pooled, the
+    reference edge-padded by n // 2 pooled samples -> (cur, refp) int32."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 256, (h, w))
+    cur = np.clip(np.roll(ref, (5, -9), (0, 1))
+                  + rng.integers(-5, 6, (h, w)), 0, 255)
+    if flat:
+        ref[:] = cur[:] = 77
+    r = n // 2
+    cur = tile_sum(torch.as_tensor(cur, dtype=torch.int32), f).int()
+    refp = np.pad(tile_sum(torch.as_tensor(ref, dtype=torch.int32),
+                           f).int().numpy(), r, mode="edge")
+    return cur, torch.as_tensor(refp)
+
+
+def scan_first_index(cur, refp, n, tile, shift, bits, lam):
+    """`ps_row`'s scan in numpy: over k = dy n + dx in order, a strict-less
+    running best of (sad << shift) + ((bits[k] lam) >> 8)."""
+    c, r = cur.numpy().astype(np.int64), refp.numpy().astype(np.int64)
+    h, w = c.shape
+    best = np.full((h // tile, w // tile), 1 << 40)
+    arg = np.zeros_like(best)
+    for k in range(n * n):
+        dy, dx = divmod(k, n)
+        d = np.abs(r[dy : dy + h, dx : dx + w] - c)
+        sad = d.reshape(h // tile, tile, w // tile, tile).sum((1, 3))
+        cost = (sad << shift) + ((int(bits[k]) * lam) >> 8)
+        take = cost < best
+        best = np.where(take, cost, best)
+        arg = np.where(take, k, arg)
+    return arg
+
+
+def test_prestage_plain_is_the_first_index_scan():
+    n = 9
+    for flat in (False, True):
+        cur, refp = pooled_pair(48, 64, 4, n, seed=4, flat=flat)
+        for bits, lam in ((prestage_bits(n), 1800),
+                          (torch.zeros(n * n, dtype=torch.int32), 0)):
+            got = grid_prestage(cur, refp, n, 4, 2, bits, lam)
+            assert got.dtype == torch.int32
+            want = scan_first_index(cur, refp, n, 4, 2, bits, lam)
+            assert np.array_equal(got.numpy(), want)
+            if flat and lam == 0:  # every offset ties: the first wins
+                assert not bool(got.any())
+
+
+@pytest.mark.cuda
+def test_cuda_coarse_and_prestage_match_plain(cuda_device):
+    """The anchor's shapes, its 3 stripes' (64, 64, 112 rows), tile
+    counts that are no multiple of a block's strip (13 and 11 tiles a
+    row), and flat planes where every cost ties."""
+    bits33 = prestage_bits(33).to(cuda_device)
+    cases = [(240, 416, 0, False), (64, 416, 1, False), (112, 416, 2, False),
+             (48, 208, 3, False), (48, 176, 4, False), (64, 416, 5, True)]
+    for h, w, seed, flat in cases:
+        cur2, ref2 = (x.to(cuda_device) for x in pooled_pair(
+            h, w, 2, 17, seed, flat))
+        for sums in (True, False):
+            args = (cur2, ref2, 17, 8, 1, sums)
+            got, want = grid_coarse(*args), grid_coarse_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            assert (got[1] is None) == (not sums)
+            assert not sums or torch.equal(got[1], want[1])
+        cur4, ref4 = (x.to(cuda_device) for x in pooled_pair(
+            h, w, 4, 33, seed, flat))
+        zero = torch.zeros_like(bits33)
+        for bits, lam in ((bits33, 1800), (bits33, 23000), (zero, 0)):
+            args = (cur4, ref4, 33, 4, 2, bits, lam)
+            got, want = grid_prestage(*args), grid_prestage_plain(*args)
+            torch.cuda.synchronize()
+            assert got.shape == (h // 16, w // 16) and torch.equal(got, want)
+            if flat and lam == 0:
+                assert not bool(got.any())
+
+
+@pytest.mark.cuda
+def test_cuda_refine_two_streams(cuda_device):
+    """Two split S = 32 launches (8 starts over 91 blocks: chunks of
+    starts meet through the candidate scratch, the last by a ticket) on
+    two streams of one card, not synchronised between."""
+    H, W = 240, 416
+    bits = torch.as_tensor(REF_BITS, dtype=torch.int32, device=cuda_device)
+    ins = [[t.to(cuda_device) for t in refine_inputs(H, W, 4, 32, 5, seed=s,
+                                                      reach=40)]
+           for s in (21, 22)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in ins]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        outs = []
+        for (ry, oy, st, sref), stream in zip(ins, streams):
+            with torch.cuda.stream(stream):
+                outs.append(grid_refine_refs(ry, oy, 32, H // 32, W // 32, st,
+                                             False, DCC, DCC8, LAM, LIM, 0,
+                                             sref, bits))
+        torch.cuda.synchronize()
+        for (ry, oy, st, sref), (got, _) in zip(ins, outs):
+            want, _ = grid_refine_refs_plain(ry, oy, 32, H // 32, W // 32, st,
+                                             False, DCC, DCC8, LAM, LIM, 0,
+                                             sref, bits)
+            for g, x in zip(got, want):
+                assert torch.equal(g, x)
+    keys = [(cuda_device.index, s.cuda_stream) for s in streams]
+    assert all(k in gm._SCRATCH for k in keys)
+    assert gm._SCRATCH[keys[0]][0].data_ptr() != gm._SCRATCH[keys[1]][0]\
+        .data_ptr()
+    for k in keys:
+        assert not bool(gm._SCRATCH[k][1].any())  # the tickets back at 0
 
 
 def intra_cells(seed, nh, nw, y0, dev):

@@ -307,7 +307,8 @@ def test_rice_formulas_match_jax_across_boundaries():
 def test_intra_kernels_match_plain(cuda_device, S, luma):
     """intra_bank, satd35_topk, intra_txq (quantiser and RDOQ) and
     tu_bits on the card against their plain versions on the same card:
-    integers equal, float32 within rtol 1e-5 / atol 1e-3."""
+    integers and intra_txq's SSEs equal, tu_bits' float32 bits within
+    rtol 1e-5 / atol 1e-3."""
     _, _, _, t, l, org = bank_inputs(S, luma, seed=S + 1)
     t, l, org = t.to(cuda_device), l.to(cuda_device), org.to(cuda_device)
     for strong in (False, True):
@@ -332,9 +333,8 @@ def test_intra_kernels_match_plain(cuda_device, S, luma):
         got = intra_txq(*args)
         want = intra_txq_plain(*args)
         torch.cuda.synchronize()
-        assert torch.equal(got[2], want[2])
-        for g, w in zip(got[:2], want[:2]):
-            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+        for g, w in zip(got, want):  # the SSEs are exact integer sums
+            assert torch.equal(g, w)
         tiles = got[2].reshape(-1, S, S)
         torch.testing.assert_close(tu_bits(et, tiles),
                                    tu_bits_plain(et, tiles), rtol=RTOL,
@@ -342,3 +342,38 @@ def test_intra_kernels_match_plain(cuda_device, S, luma):
     sweep = torch.from_numpy(rice_sweep_tiles(S)).to(cuda_device)
     torch.testing.assert_close(tu_bits(et, sweep), tu_bits_plain(et, sweep),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_intra_txq_equals_plain(cuda_device):
+    """intra_txq (a team of lanes a TU, many TUs a block) against its
+    plain version with torch.equal at S 4-32, luma and chroma, the DST at
+    4x4 luma, RDOQ on and off, K 1, 3 and 5 candidates, TU counts that do
+    not fill the last block, and rows that read children's banks in
+    place (repeated and out of order, as the TU-split trial reads
+    them)."""
+    rng = np.random.default_rng(11)
+    for S, luma in ((4, True), (8, True), (16, True), (32, True),
+                    (4, False), (8, False), (16, False)):
+        _, _, _, t, l, org = bank_inputs(S, luma, seed=S + 5)
+        preds = predict_all_modes_plain(t, l, S, luma).to(cuda_device)
+        org = org.to(cuda_device)
+        et = est_tables(PortFracBits(I_ROW, QP), S.bit_length() - 1, luma,
+                        cuda_device)
+        qp = QP if luma else chroma_qp(QP)
+        lam = LAM if luma else LAM / 2.0 ** ((QP - qp) / 3.0)
+        n = org.shape[0]
+        for m, K in ((n, 1), (13, 3), (n - 1, 5)):
+            rows = torch.as_tensor(rng.permutation(n)[:m] if K != 3 else
+                                   rng.integers(0, n, m),
+                                   dtype=torch.int32, device=cuda_device)
+            modes = torch.as_tensor(rng.integers(0, 35, (m, K)),
+                                    dtype=torch.int32, device=cuda_device)
+            for rdoq in (False, True):
+                args = (org, preds, rows, modes, qp, luma and S == 4, rdoq,
+                        lam, et)
+                got, want = intra_txq(*args), intra_txq_plain(*args)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w), (S, K)
+                assert bool((got[2] != 0).any())

@@ -17,7 +17,7 @@ Per P picture (`GridStep.frame_step`):
 
 1. ME: the dense +-16 coarse SAD on the 2x-pooled level (`grid_coarse`),
    the per-16 / per-32 picks and the global candidate; the +-64 prestage
-   on the 4x-pooled level (a second `grid_coarse`); the 7x7 full-pel
+   on the 4x-pooled level with its pick (`grid_prestage`); the 7x7 full-pel
    refine around up to five starts per block for the 16 (with the
    8-class from its quadrants) and 32 classes over every available
    reference, one launch a class (`grid_refine`, the starts
@@ -78,8 +78,8 @@ from ..models.nnfme import (NNFME, height_category, nn_refine_classes,
 from ..ops.grid_code import grid_code_batch, up
 from ..ops.grid_deblock import grid_deblock
 from ..ops.grid_intra import IMODES, grid_intra16, intra16_out
-from ..ops.grid_me import (grid_coarse, grid_refine, grid_refine_refs,
-                           grid_wp_me, tile_sum, zcost)
+from ..ops.grid_me import (grid_coarse, grid_prestage, grid_refine,
+                           grid_refine_refs, grid_wp_me, tile_sum, zcost)
 from ..ops.grid_pred import (SatdField, grid_mc, grid_planes,
                               grid_satd_cost, grid_subpel)
 from ..ops.grid_sao import grid_sao_apply, grid_sao_decide, grid_sao_stats
@@ -284,7 +284,8 @@ class GridStep:
             d = np.abs(np.arange(n4) - P4) * 16
             lb = 2 * np.ceil(np.log2(2.0 * d + 1.0)).astype(np.int64)
             self.pre_bits = torch.as_tensor(
-                (lb[:, None] + lb[None, :] + 2).reshape(-1), device=dev)
+                (lb[:, None] + lb[None, :] + 2).reshape(-1),
+                dtype=torch.int32, device=dev)
         self.LOOK = self.sr_full + 4
         self.PADL = self.LOOK + 4
         self.LOOKC = self.sr_full // 2 + 2
@@ -898,10 +899,7 @@ class GridStep:
             n4 = 2 * P4 + 1
             oy4 = tile_sum(oy, 4).int()
             ry4p = self._pooled(ry0, 4, P4, rows)
-            sad4, _ = grid_coarse(oy4, ry4p, n4, 4, 2, False)
-            cost4 = sad4 + ((self.pre_bits[:, None, None] * lam_me) >> 8)
-            barg = torch.argmin(cost4.reshape(n4 * n4, -1), dim=0).reshape(
-                nh16, nw16)
+            barg = grid_prestage(oy4, ry4p, n4, 4, 2, self.pre_bits, lam_me)
             lim_ps = sf - 4
             px_ = ((barg % n4 - P4) * 4).clamp(-lim_ps, lim_ps).int()
             py_ = ((barg // n4 - P4) * 4).clamp(-lim_ps, lim_ps).int()

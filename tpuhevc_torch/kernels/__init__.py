@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels (sm_90a) of the port, and their launch counts.
 
 Each kernel lives in `csrc/<source>.cu` with a plain C entry point (the
-grid step's `grid_me.cu` holds three, `grid_pred.cu` four); `build`
+grid step's `grid_me.cu` holds four, `grid_pred.cu` four); `build`
 compiles a source with nvcc on first use and binds it with ctypes. The
 wrapper that launches a kernel lives beside the op's plain PyTorch version
 (`ops/me.py`, `models/nnfme.py`, `ops/interp.py`, `ops/txq.py`,
@@ -13,8 +13,10 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`grid_deblock` launches twice a picture, once per edge direction;
 `grid_code` once for the planes of one class coding; `grid_satd_cost`
-once for up to eight fields of CU costs; `grid_refine` once a block size
-a P picture, over every reference searched;
+once for up to eight fields of CU costs; `grid_coarse` and
+`grid_prestage` once each a P picture (a stripe); `grid_refine` once a
+block size a P picture, over every reference searched; `intra_txq` once a
+class of TUs, all its candidates;
 `grid_sao` twice, its stats and its apply, with `grid_sao_decide` between
 them (on row stripes: stats and apply a stripe, the decision once); `intra_wave` once for a whole batch of pictures; `stripe_prescreen`
 once a row stripe; `fme_train_fwd`, `fme_train_bwd` and `fme_adam` once
@@ -29,7 +31,7 @@ SOURCE_OF = {"sad_search": "sad_search", "nnfme_mlp": "nnfme_mlp",
              "satd35_topk": "satd35_topk", "intra_txq": "intra_txq",
              "tu_bits": "tu_bits", "b_me": "b_me", "b_pred": "b_pred",
              "b_txq": "b_txq", "grid_coarse": "grid_me",
-             "grid_refine": "grid_me", "grid_planes": "grid_pred",
+             "grid_prestage": "grid_me", "grid_refine": "grid_me", "grid_planes": "grid_pred",
              "grid_satd": "grid_pred", "grid_satd_cost": "grid_pred",
              "grid_code": "grid_code",
              "grid_intra16": "grid_intra", "grid_deblock": "grid_deblock",

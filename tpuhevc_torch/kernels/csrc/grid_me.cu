@@ -1,13 +1,28 @@
-// grid_me: the grid step's motion search, three entry points.
+// grid_me: the grid step's motion search, four entry points.
 //
 // tpuhevc_grid_coarse replaces tpuhevc/codec/inter_grid.py:650
-// `coarse_stack` (the +-16 SAD stack on the 2x-pooled level) and the SAD
-// half of :2395-2416 `ps_row` (the +-64 prestage on the 4x-pooled level):
-// for every offset k = dy * n + dx of the padded pooled reference and
-// every tile x tile block of the pooled picture,
+// `coarse_stack` (the +-16 SAD stack on the 2x-pooled level): for every
+// offset k = dy * n + dx of the padded pooled reference and every tile x
+// tile block of the pooled picture,
 //   sad[k][b] = (sum |refp[y + dy][x + dx] - cur[y][x]|) << shift,
 //   sum[k][b] =  sum (refp[y + dy][x + dx] - cur[y][x])      (optional).
-// One thread per (offset, block), int32 sums as in JAX.
+// tpuhevc_grid_prestage replaces :2395-2416 `ps_row` (the +-64 prestage
+// on the 4x-pooled level) with its pick: per block the first index over k
+// of (sad[k][b] << shift) + ((bits[k] * lam) >> 8), the stack never
+// written. `ps_row` keeps a strict-less running best over k in order,
+// which is that first index.
+// Both stage what a CUDA block reads in shared memory once, as int32: the
+// stack a strip of 8 tiles of one tile row and a band of offset rows dy,
+// the prestage one tile and every dy (its pick needs them all); that is
+// the block's current tiles and the reference window their offsets reach.
+// A thread takes one tile and a run of DXG offsets dx of one dy, so that
+// one reference row segment of tile + DXG - 1 samples, in registers,
+// serves all of them (__sad, and the signed sum as a sliding sum of the
+// segment less the tile row's). The stack's stores are coalesced over the
+// strip's tiles. In the prestage each thread keeps the least (cost << 32
+// | k) over its offsets and the block's threads meet by shuffles and in
+// shared memory, so the first index wins a tie exactly. Integer sums:
+// exact in any order.
 //
 // tpuhevc_grid_refine replaces :681-776 `_refine_grid` + `_pick_grids`
 // (no MV-rate anchor) together with the reference loop `ref_body` and its
@@ -46,11 +61,14 @@
 // One thread per sample, int32 as in JAX; bound by its bytes (a plane
 // stack read and written once).
 //
-// What bounds it: the coarse stack is (2R + 1)^2 tile sums per block, a
-// few hundred thousand threads of 16-64 pixels each. The refine is
-// operations: G x 49 x S^2 absolute differences a block (302,661,632
-// operations an anchor P picture at 416x240, counting sub, abs and two
-// adds a pixel and candidate), on data that fits in shared memory. Its
+// What bounds it: the coarse stack and the prestage are operations (sub,
+// abs and add a sample and offset, an add more for the sum: 28.9 M and
+// 21.7 M an anchor P picture at 416x240), the stack's 0.9 MB of stores
+// close behind; the prestage's stack, which it no longer writes, was 1.7
+// MB. The refine is operations: G x 49 x S^2 absolute differences a
+// block (302,661,632 operations an anchor P picture at 416x240, counting
+// sub, abs and two adds a pixel and candidate), on data that fits in
+// shared memory. Its
 // design: one CUDA block a (picture block, chunk of starts), chunks sized
 // so that at least two blocks an SM are in flight (the S = 32 launch has
 // 91 picture blocks at 416x240); each (start) window of (S + 6)^2 samples
@@ -76,31 +94,159 @@ namespace {
 constexpr int kBig = 1 << 30;
 constexpr int kMaxG = 16;
 
-__global__ void coarse_kernel(const int* __restrict__ cur,
-                              const int* __restrict__ refp,
-                              int* __restrict__ sad, int* __restrict__ sum,
-                              int h, int w, int n, int tile, int shift) {
-    const int nbh = h / tile, nbw = w / tile, nb = nbh * nbw;
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)nb * n * n) return;
-    const int k = (int)(t / nb), b = (int)(t - (long long)k * nb);
-    const int dy = k / n, dx = k - dy * n;
-    const int by = b / nbw, bx = b - by * nbw;
-    const int wp = w + n - 1;
-    int s = 0, d = 0;
-    for (int i = 0; i < tile; ++i) {
-        const int y = by * tile + i;
-        const int* c = cur + (size_t)y * w + bx * tile;
-        const int* r = refp + (size_t)(y + dy) * wp + bx * tile + dx;
-        for (int j = 0; j < tile; ++j) {
-            const int e = r[j] - c[j];
-            s += abs(e);
-            d += e;
+// offsets dx a thread of the coarse entries (T = 8 the stack's, 4 the
+// prestage's): one reference row segment of T + DXG - 1 samples serves
+// them (n = 17 at T = 8 is three runs, n = 33 at T = 4 three)
+template <int T>
+struct CoarseRun {
+    static constexpr int DXG = T == 4 ? 11 : 6;
+    static constexpr int SEG = T + DXG - 1;
+};
+
+// One CUDA block a (strip blockIdx.x of STRIP tiles, tile row blockIdx.y,
+// band blockIdx.z of bdy offset rows). PICK: the prestage (bdy = n, bits
+// and barg), else the stack (sad, sum).
+template <int T, bool PICK, int THREADS, int STRIP,
+          int UNROLL = PICK ? 8 : 1>
+__global__ void __launch_bounds__(THREADS)
+coarse_stage_kernel(const int* __restrict__ cur, const int* __restrict__ refp,
+                    int* __restrict__ sad, int* __restrict__ sum,
+                    const int* __restrict__ bits, int* __restrict__ barg,
+                    int h, int w, int n, int bdy, int shift, int lam) {
+    constexpr int DXG = CoarseRun<T>::DXG, SEG = CoarseRun<T>::SEG;
+    constexpr int SW = STRIP * T;         // the strip's width in samples
+    constexpr int PER = THREADS / STRIP;  // items a pass
+    extern __shared__ int s_coarse[];
+    const int nbw = w / T, nb = (h / T) * nbw;
+    const int ng = (n + DXG - 1) / DXG;  // runs of dx a row dy
+    const int wr = SW + ng * DXG - 1;    // staged reference row width
+    const int by = blockIdx.y, t0 = blockIdx.x * STRIP;
+    const int ns = min(STRIP, nbw - t0);
+    const int dy0 = blockIdx.z * bdy, ndy = min(bdy, n - dy0);
+    const int hr = T + ndy - 1;
+    int* s_cur = s_coarse;         // T x SW
+    int* s_ref = s_cur + T * SW;   // hr x wr
+    const int x0 = t0 * T, y0 = by * T, wp = w + n - 1;
+    const int wv = ns * T + n - 1;  // reference columns the strip reads
+    const int tid = threadIdx.x;
+    // the prestage unrolled, so that a thread's loads are in flight
+    // together (the stack, with more blocks an SM, does better without)
+#pragma unroll UNROLL
+    for (int e = tid; e < T * SW; e += THREADS) {
+        const int i = e / SW, j = e - i * SW;
+        s_cur[e] = j < ns * T ? cur[(size_t)(y0 + i) * w + x0 + j] : 0;
+    }
+#pragma unroll UNROLL
+    for (int e = tid; e < hr * wr; e += THREADS) {
+        const int i = e / wr, j = e - i * wr;
+        s_ref[e] = j < wv ? refp[(size_t)(y0 + dy0 + i) * wp + x0 + j] : 0;
+    }
+    __syncthreads();
+    const int ti = tid % STRIP;
+    unsigned long long best = ~0ull;
+    for (int c = tid / STRIP; c < ndy * ng; c += PER) {
+        const int dyl = c / ng, dx0 = (c - dyl * ng) * DXG;
+        int sa[DXG], sm[DXG];
+#pragma unroll
+        for (int d = 0; d < DXG; ++d) sa[d] = sm[d] = 0;
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+            int cv[T], rv[SEG];
+            const int* cp = s_cur + i * SW + ti * T;
+            const int* rp = s_ref + (i + dyl) * wr + ti * T + dx0;
+            int csum = 0, rs = 0;
+#pragma unroll
+            for (int j = 0; j < T; ++j) {
+                cv[j] = cp[j];
+                csum += cv[j];
+            }
+#pragma unroll
+            for (int j = 0; j < SEG; ++j) rv[j] = rp[j];
+#pragma unroll
+            for (int j = 0; j < T; ++j) rs += rv[j];
+#pragma unroll
+            for (int d = 0; d < DXG; ++d) {
+                unsigned s = 0;
+#pragma unroll
+                for (int j = 0; j < T; ++j) s = __sad(rv[j + d], cv[j], s);
+                sa[d] += (int)s;
+                if (!PICK) {
+                    sm[d] += rs - csum;
+                    if (d + 1 < DXG) rs += rv[d + T] - rv[d];
+                }
+            }
+        }
+        if (ti >= ns) continue;
+        const int dy = dy0 + dyl;
+#pragma unroll
+        for (int d = 0; d < DXG; ++d) {
+            const int dx = dx0 + d;
+            if (dx >= n) break;
+            const int k = dy * n + dx;
+            if (PICK) {
+                const int rate =
+                    (int)(((long long)__ldg(bits + k) * lam) >> 8);
+                const unsigned long long key =
+                    ((unsigned long long)(unsigned)((sa[d] << shift) + rate)
+                     << 32) | (unsigned)k;
+                best = key < best ? key : best;
+            } else {
+                const size_t o = (size_t)k * nb + (size_t)by * nbw + t0 + ti;
+                sad[o] = sa[d] << shift;
+                if (sum) sum[o] = sm[d];
+            }
         }
     }
-    sad[t] = s << shift;
-    if (sum) sum[t] = d;
+    if (!PICK) return;
+    // the strip's tile ti: lanes ti, ti + STRIP, ... of each warp
+    __shared__ unsigned long long s_best[THREADS / 32][STRIP];
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int off = STRIP; off < 32; off <<= 1) {
+        const unsigned long long o = __shfl_xor_sync(0xffffffffu, best, off);
+        best = o < best ? o : best;
+    }
+    if (lane < STRIP) s_best[warp][lane] = best;
+    __syncthreads();
+    if (tid < ns) {
+        unsigned long long b = s_best[0][tid];
+        for (int q = 1; q < THREADS / 32; ++q)
+            b = s_best[q][tid] < b ? s_best[q][tid] : b;
+        barg[(size_t)by * nbw + t0 + tid] = (int)(b & 0xffffffffu);
+    }
 }
+
+// The launch: the prestage's blocks take every dy; the stack's a band of
+// about THREADS / (runs x STRIP) rows dy, so that a thread has about one
+// (tile, run) item.
+template <int T, bool PICK, int THREADS, int STRIP>
+int coarse_launch(const int* cur, const int* refp, int* sad, int* sum,
+                  const int* bits, int* barg, int h, int w, int n, int shift,
+                  int lam, cudaStream_t st) {
+    constexpr int DXG = CoarseRun<T>::DXG;
+    const int ng = (n + DXG - 1) / DXG;
+    int bdy = n;
+    if (!PICK) {
+        const int per = THREADS / (ng * STRIP) > 1 ? THREADS / (ng * STRIP)
+                                                   : 1;
+        const int bands = (n + per - 1) / per;
+        bdy = (n + bands - 1) / bands;
+    }
+    const size_t smem =
+        sizeof(int) * ((size_t)T * STRIP * T
+                       + (size_t)(T + bdy - 1) * (STRIP * T + ng * DXG - 1));
+    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    const dim3 grid((w / T + STRIP - 1) / STRIP, h / T,
+                    (n + bdy - 1) / bdy);
+    coarse_stage_kernel<T, PICK, THREADS, STRIP><<<grid, THREADS, smem, st>>>(
+        cur, refp, sad, sum, bits, barg, h, w, n, bdy, shift, lam);
+    return (int)cudaGetLastError();
+}
+
+// the stack: 128 threads a strip of 8 tiles; the prestage: 128 threads a
+// tile (its n x ng items in about one pass)
+constexpr int kStackThreads = 128, kStackStrip = 8;
+constexpr int kPickThreads = 128, kPickStrip = 1;
 
 __device__ __forceinline__ int bitlen(int v) {
     return v ? 32 - __clz(v) : 0;
@@ -338,17 +484,38 @@ refine_kernel(const int* __restrict__ ry, const int* __restrict__ oy,
 
 }  // namespace
 
-// cur (h, w), refp (h + n - 1, w + n - 1) int32 on the device -> sad,
-// sum (optional, may be null) (n * n, h / tile, w / tile) int32.
+// cur (h, w), refp (h + n - 1, w + n - 1) int32 on the device, tile 8
+// dividing h and w -> sad, sum (optional, may be null) (n * n, h / tile,
+// w / tile) int32.
 extern "C" int tpuhevc_grid_coarse(const int* cur, const int* refp, int* sad,
                                    int* sum, int h, int w, int n, int tile,
                                    int shift, void* stream) {
-    const long long total = (long long)n * n * (h / tile) * (w / tile);
-    const int threads = 256;
-    const int blocks = (int)((total + threads - 1) / threads);
-    coarse_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        cur, refp, sad, sum, h, w, n, tile, shift);
-    return (int)cudaGetLastError();
+    if (n < 1 || h % tile || w % tile) return (int)cudaErrorInvalidValue;
+    if (h == 0 || w == 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (tile) {
+        case 8: return coarse_launch<8, false, kStackThreads, kStackStrip>(
+            cur, refp, sad, sum, nullptr, nullptr, h, w, n, shift, 0, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// cur, refp as tpuhevc_grid_coarse but tile 4; bits (n * n) int32,
+// lam >= 0 -> barg
+// (h / tile, w / tile) int32: per block the first k minimising
+// (sad[k] << shift) + ((bits[k] * lam) >> 8) (each below 2^31).
+extern "C" int tpuhevc_grid_prestage(const int* cur, const int* refp,
+                                     const int* bits, int* barg, int h,
+                                     int w, int n, int tile, int shift,
+                                     int lam, void* stream) {
+    if (n < 1 || h % tile || w % tile) return (int)cudaErrorInvalidValue;
+    if (h == 0 || w == 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (tile) {
+        case 4: return coarse_launch<4, true, kPickThreads, kPickStrip>(
+            cur, refp, nullptr, nullptr, bits, barg, h, w, n, shift, lam, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // ry (R', hr, wr) a reference stack, oy (>= nbh S, row stride wo) int32;

@@ -16,100 +16,233 @@
 // once to float32).
 // Float32 semantics are the PyTorch version's, op by op: the divisions by
 // constants as products with their float32 reciprocals (as XLA takes
-// them), the division by 2^rice an IEEE division, no contraction (built
-// with -fmad=false), the CG sums sequential in raster order inside the
-// CG. The Rice parameter and the escape length are exact integer
-// formulas (no log2f).
+// them), the division by 2^rice a product with 2^-rice (exact), no
+// contraction (built with -fmad=false), the CG sums sequential in raster
+// order inside the CG. The Rice parameter and the escape length are
+// exact integer formulas (no log2f).
 //
 // What bounds it: the transform's 4 S^3 multiply-adds per TU and, with
-// rdoq, ~60 float operations per coefficient, all on shared memory;
-// device memory sees each TU's org and prediction once (the prediction is
-// read by its mode index in place, no gathered copy) and writes its
-// levels once. Launch-bound at the small classes (49,920 4x4 TUs at
-// 416x240 are cheap blocks of 32 threads).
-// Design: one block per (m, k) TU, one launch per class for all its
-// candidates; the transform core of tx_common.cuh and the table RDOQ of
-// rdoq_common.cuh (per-CG steps, Rice parameter and zero trial, by one
-// thread per CG between barriers).
+// rdoq, ~60 float operations per coefficient; device memory sees each
+// TU's org and prediction once (the prediction is read by its mode index
+// in place, no gathered copy) and writes its levels once. At 416x240 the
+// decision of one picture is ~100,000 TUs, 49,920 of them 4x4.
+// Design: the TU size compiled in (a template on log2), a team of lanes a
+// TU and blocks of 256 threads that hold as many TUs as fit: 4x4 16 lanes
+// a TU (two a warp, 16 a block), 8x8 a warp (2 coefficients a lane),
+// 16x16 two warps (4 a lane), 32x32 the block (8 warps, 4 a thread). A
+// team inside one warp meets by __syncwarp, a larger one by barriers. The
+// matrix is staged once a block, its rows padded so that lanes reading
+// down a column hit distinct banks; a lane's outputs of the row stages
+// share one matrix row (forward) or column (inverse), and of the column
+// stages one data column, which it keeps in registers, and reads the
+// rows it shares with other lanes 16 bytes a load. The RDOQ takes a
+// CG a 16-lane group (`rdoq_level_lanes`): the Rice stand-in and the
+// keep / zero sums by shuffles, the sums in the serial order; the SSEs by
+// shuffles (integers: exact in any order). One launch a class for all
+// its candidates.
 
 #include "rdoq_common.cuh"
 #include "tx_common.cuh"
 
 namespace {
 
-__global__ void intra_txq_kernel(const int* __restrict__ org,
-                                 const int* __restrict__ preds,
-                                 const int* __restrict__ rows,
-                                 const int* __restrict__ modes,
-                                 const float* __restrict__ ftab,
-                                 float* __restrict__ dist_out,
-                                 float* __restrict__ d0_out,
-                                 int* __restrict__ lvl_out,
-                                 int K, int log2, int dst, int qscale,
-                                 int qadd, int qbits, int dqscale,
-                                 int dqshift, int rdoq, Rdoq rq) {
-    extern __shared__ int smem[];
-    __shared__ int scratch[32];
-    __shared__ int cg_rice[64];
-    __shared__ int cg_keep[64];
-    const int S = 1 << log2, n2 = S * S;
-    int* T = smem;             // S x S matrix
-    int* A = T + n2;           // residual -> coefficients -> dequant -> rec
-    int* B = A + n2;           // transform scratch
-    int* R = B + n2;           // the residual, kept for dist
-    int* L = R + n2;           // levels
-    float* F1 = (float*)(L + n2);  // ac
-    float* F2 = F1 + n2;           // lmax, then the chosen level
-    float* F3 = F2 + n2;           // per-coefficient CG-keep cost
-    float* F4 = F3 + n2;           // per-coefficient CG-zero cost
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-    const int tu = blockIdx.x;
-    const int m = tu / K;
-    const int row = rows[m];
-    const int mode = modes[tu];
-    const int* ob = org + (size_t)row * n2;
-    const int* pb = preds + ((size_t)row * 35 + mode) * n2;
+// A TU of S x S = 1 << LOG2: TEAM lanes, CPL coefficients a lane, TUS TUs
+// a block of kThreads.
+template <int LOG2>
+struct TuTeam {
+    static constexpr int S = 1 << LOG2, N2 = S * S;
+    static constexpr int TEAM =
+        LOG2 == 5 ? kThreads : (LOG2 == 4 ? 64 : (N2 < 32 ? N2 : 32));
+    static constexpr int CPL = N2 / TEAM, TUS = kThreads / TEAM;
+};
 
-    tx_load_matrix(T, log2, dst != 0);
-    int d0 = 0;
-    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int r = ob[e] - pb[e];
-        A[e] = r;
-        R[e] = r;
-        d0 += r * r;
+template <int TEAM>
+__device__ __forceinline__ void team_sync() {
+    if (TEAM > 32)
+        __syncthreads();
+    else
+        __syncwarp();
+}
+
+// v summed over the team (every lane of the team gets it); red: one int
+// a warp of the block
+template <int TEAM>
+__device__ __forceinline__ int team_sum(int v, int* red) {
+#pragma unroll
+    for (int off = (TEAM < 32 ? TEAM : 32) / 2; off; off >>= 1)
+        v += __shfl_xor_sync(kFull, v, off);
+    if (TEAM > 32) {
+        constexpr int W = TEAM / 32;  // the team's warps
+        if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+        __syncthreads();
+        const int w0 = threadIdx.x / TEAM * W;
+        v = 0;
+#pragma unroll
+        for (int w = 0; w < W; ++w) v += red[w0 + w];
+    }
+    return v;
+}
+
+// sum over x < S of p[x] * r[x], p 16-byte aligned in shared memory and
+// shared by the lanes that read it (16 bytes a load); integer products
+// below 2^31, their sum exact in any order
+template <int S>
+__device__ __forceinline__ int dot_row(const int* p, const int (&r)[S]) {
+    int acc = 0;
+#pragma unroll
+    for (int x = 0; x < S; x += 4) {
+        const int4 v = *reinterpret_cast<const int4*>(p + x);
+        acc += v.x * r[x] + v.y * r[x + 1] + v.z * r[x + 2] + v.w * r[x + 3];
+    }
+    return acc;
+}
+
+template <int LOG2>
+__global__ void __launch_bounds__(kThreads)
+intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
+              const int* __restrict__ rows, const int* __restrict__ modes,
+              const float* __restrict__ ftab, float* __restrict__ dist_out,
+              float* __restrict__ d0_out, int* __restrict__ lvl_out, int ntu,
+              int K, int dst, int qscale, int qadd, int qbits, int dqscale,
+              int dqshift, int rdoq, Rdoq rq) {
+    using L = TuTeam<LOG2>;
+    constexpr int S = L::S, N2 = L::N2, TEAM = L::TEAM, CPL = L::CPL;
+    constexpr int MASK = S - 1, CGW = S > 4 ? S / 4 : 1;
+    constexpr int TP = S + 1;  // the padded copy's row pitch
+    // the matrix, once a block: T padded (a lane's own row or column, read
+    // down a column by distinct lanes, hits distinct banks), T and its
+    // transpose aligned (rows that lanes share, read 16 bytes a load)
+    __shared__ int s_Tp[S * TP];
+    __shared__ __align__(16) int s_Ta[N2];
+    __shared__ __align__(16) int s_Tt[N2];
+    __shared__ __align__(16) int s_X[L::TUS][N2];  // residual, coefficients,
+                                                   // levels, dequantised
+    __shared__ __align__(16) int s_Y[L::TUS][N2];  // the first stages
+    __shared__ int s_red[2][kThreads / 32];
+    const int slot = threadIdx.x / TEAM, t = threadIdx.x % TEAM;
+    const int tu0 = blockIdx.x * L::TUS + slot;
+    const bool live = tu0 < ntu;
+    const int tu = live ? tu0 : ntu - 1;  // a spare team repeats the last
+    int* X = s_X[slot];
+    int* Y = s_Y[slot];
+    const int row = rows[tu / K];
+    const int* ob = org + (size_t)row * N2;
+    const int* pb = preds + ((size_t)row * 35 + modes[tu]) * N2;
+
+    for (int e = threadIdx.x; e < N2; e += kThreads) {
+        const int k = e >> LOG2, x = e & MASK;
+        const int v = dst ? c_dst4[e] : c_dct32[(k << (5 - LOG2)) * 32 + x];
+        s_Tp[k * TP + x] = v;
+        s_Ta[e] = v;
+        s_Tt[x * S + k] = v;
+    }
+    int r[CPL], d0 = 0;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+        const int e = t + TEAM * j;
+        r[j] = ob[e] - pb[e];
+        X[e] = r[j];
+        d0 += r[j] * r[j];
     }
     __syncthreads();
-    tx_forward(A, B, T, log2);
-
-    if (!rdoq) {
-        for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-            L[e] = tx_quant(A[e], qscale, qadd, qbits);
+    // a lane's outputs e = t + TEAM j share the column e & MASK
+    const int col = t & MASK;
+    {  // forward rows: Y[y][k] = (sum_x X[y][x] T[k][x] + r1) >> s1
+        constexpr int s1 = LOG2 - 1;
+        int tk[S];
+#pragma unroll
+        for (int x = 0; x < S; ++x) tk[x] = s_Tp[col * TP + x];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+            const int y = (t + TEAM * j) >> LOG2;
+            Y[t + TEAM * j] = (dot_row<S>(X + y * S, tk) + (1 << (s1 - 1)))
+                              >> s1;
+        }
+    }
+    team_sync<TEAM>();
+    {  // forward columns: X[k][j] = (sum_y T[k][y] Y[y][j] + r2) >> s2
+        constexpr int s2 = LOG2 + 6;
+        int yc[S];
+#pragma unroll
+        for (int y = 0; y < S; ++y) yc[y] = Y[y * S + col];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+            const int k = (t + TEAM * j) >> LOG2;
+            X[t + TEAM * j] = (dot_row<S>(s_Ta + k * S, yc) + (1 << (s2 - 1)))
+                              >> s2;
+        }
+    }
+    team_sync<TEAM>();
+    if (rdoq) {  // a CG a 16-lane group: coefficient i of CG g at c
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+            const int c = t + TEAM * j, g = c >> 4, i = c & 15;
+            const int e = ((g / CGW) * 4 + (i >> 2)) * S + (g % CGW) * 4
+                          + (i & 3);
+            X[e] = rdoq_level_lanes(X[e], e, LOG2, ftab, rq);
         }
     } else {
-        rdoq_levels(A, L, F1, F2, F3, F4, cg_rice, cg_keep, log2, ftab, rq);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j)
+            X[t + TEAM * j] = tx_quant(X[t + TEAM * j], qscale, qadd, qbits);
     }
-    __syncthreads();
-
-    int* lo = lvl_out + (size_t)tu * n2;
-    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int lev = L[e];
-        lo[e] = lev;
-        A[e] = tx_dequant(lev, dqscale, dqshift);
+    team_sync<TEAM>();
+    int* lo = lvl_out + (size_t)tu * N2;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+        const int e = t + TEAM * j;
+        const int lev = X[e];
+        if (live) lo[e] = lev;
+        X[e] = tx_dequant(lev, dqscale, dqshift);
     }
-    __syncthreads();
-    tx_inverse(A, B, T, log2);
-
+    team_sync<TEAM>();
+    {  // inverse columns: Y[y][j] = clip16((sum_k T[k][y] X[k][j] + 64) >> 7)
+        int xc[S];
+#pragma unroll
+        for (int k = 0; k < S; ++k) xc[k] = X[k * S + col];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+            const int y = (t + TEAM * j) >> LOG2;
+            Y[t + TEAM * j] = clip16((dot_row<S>(s_Tt + y * S, xc) + 64) >> 7);
+        }
+    }
+    team_sync<TEAM>();
     int dist = 0;
-    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int d = R[e] - A[e];
-        dist += d * d;
+    {  // inverse rows: rec[y][x] = clip16((sum_k Y[y][k] T[k][x] + 2^11)
+       // >> 12)
+        int tc[S];
+#pragma unroll
+        for (int k = 0; k < S; ++k) tc[k] = s_Tp[k * TP + col];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+            const int y = (t + TEAM * j) >> LOG2;
+            const int d = r[j] - clip16((dot_row<S>(Y + y * S, tc) + 2048)
+                                        >> 12);
+            dist += d * d;
+        }
     }
-    dist = block_sum(dist, scratch);
-    d0 = block_sum(d0, scratch);
-    if (threadIdx.x == 0) {
+    dist = team_sum<TEAM>(dist, s_red[0]);
+    d0 = team_sum<TEAM>(d0, s_red[1]);
+    if (t == 0 && live) {
         dist_out[tu] = (float)dist;
         d0_out[tu] = (float)d0;
     }
+}
+
+template <int LOG2>
+int launch_tus(const int* org, const int* preds, const int* rows,
+               const int* modes, const float* ftab, float* dist, float* d0,
+               int* lvl, int ntu, int K, int dst, int qscale, int qadd,
+               int qbits, int dqscale, int dqshift, int rdoq, Rdoq rq,
+               cudaStream_t st) {
+    constexpr int TUS = TuTeam<LOG2>::TUS;
+    intra_txq_tus<LOG2><<<(ntu + TUS - 1) / TUS, kThreads, 0, st>>>(
+        org, preds, rows, modes, ftab, dist, d0, lvl, ntu, K, dst, qscale,
+        qadd, qbits, dqscale, dqshift, rdoq, rq);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -139,12 +272,19 @@ extern "C" int tpuhevc_intra_txq(const int* org, const int* preds,
                                  float qdiv, float inv_qdiv, float inv_den,
                                  float lam, float lc0, float lc1,
                                  void* stream) {
-    const int n2 = 1 << (2 * log2);
-    const int threads = n2 >= 256 ? 256 : (n2 < 32 ? 32 : n2);
-    const size_t smem = (size_t)9 * n2 * sizeof(int);
     const Rdoq rq = {scale, qdiv, inv_qdiv, inv_den, lam, lc0, lc1};
-    intra_txq_kernel<<<m * K, threads, smem, (cudaStream_t)stream>>>(
-        org, preds, rows, modes, ftab, dist, d0, lvl, K, log2, dst, qscale,
-        qadd, qbits, dqscale, dqshift, rdoq, rq);
-    return (int)cudaGetLastError();
+    const int ntu = m * K;
+    if (ntu == 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+#define TPUHEVC_TUS(LG)                                                     \
+    launch_tus<LG>(org, preds, rows, modes, ftab, dist, d0, lvl, ntu, K,   \
+                   dst, qscale, qadd, qbits, dqscale, dqshift, rdoq, rq, st)
+    switch (log2) {
+        case 2: return TPUHEVC_TUS(2);
+        case 3: return TPUHEVC_TUS(3);
+        case 4: return TPUHEVC_TUS(4);
+        case 5: return TPUHEVC_TUS(5);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef TPUHEVC_TUS
 }

@@ -1,13 +1,19 @@
-"""The grid step's motion search (kernels `grid_coarse` and `grid_refine`).
+"""The grid step's motion search (kernels `grid_coarse`, `grid_prestage`
+and `grid_refine`).
 
-`grid_coarse`, twin of `coarse_stack` (`tpuhevc/codec/inter_grid.py:650`)
-and of the SAD half of the long-range prestage (`ps_row`, :2395-2416):
+`grid_coarse`, twin of `coarse_stack` (`tpuhevc/codec/inter_grid.py:650`):
 for every offset (dy, dx) of an n x n window over an edge-padded pooled
 reference, the SAD of the pooled current picture per `tile` x `tile`
 block, shifted left by `shift` (the pooling's weight), and with `sums`
 the signed residual sum per block (the DC term of the DC-aware cost).
 The costs, the first-index argmins and the global candidate that read
 the stack are torch glue in `codec/inter_grid.py`.
+
+`grid_prestage`, twin of the long-range prestage `ps_row` (:2395-2416)
+with its pick: per block the first index k = dy * n + dx of the least
+(sad << shift) + ((bits[k] * lam_me) >> 8), where `ps_row` keeps a
+strict-less running best over k in order; the SAD stack is never
+written.
 
 `grid_refine`, twin of `_refine_grid` + `_pick_grids` (:681-776) with the
 default knobs (no MV-rate anchor) and of the reference loop around them
@@ -90,21 +96,29 @@ def grid_coarse_plain(cur: torch.Tensor, refp: torch.Tensor, n: int,
     return sad, sm
 
 
+def _coarse_shapes(name, cur, refp, n, tile, tiles):
+    """Check the coarse entries' inputs on the card -> (h, w)."""
+    dev = cur.device
+    check_tensor(cur, "cur", torch.int32, 2, dev)
+    check_tensor(refp, "refp", torch.int32, 2, dev)
+    h, w = cur.shape
+    if (refp.shape != (h + n - 1, w + n - 1) or tile not in tiles
+            or h % tile or w % tile or n < 1):
+        raise ValueError(f"{name}: cur {tuple(cur.shape)}, refp "
+                         f"{tuple(refp.shape)}, n {n}, tile {tile}")
+    return h, w
+
+
 def grid_coarse(cur: torch.Tensor, refp: torch.Tensor, n: int, tile: int,
                 shift: int, sums: bool):
     """Kernel `grid_coarse`. CPU tensors take the plain version; CUDA
-    tensors the kernel."""
+    tensors the kernel (tile 8, the 2x-pooled level's)."""
     if cur.device.type == "cpu":
         return grid_coarse_plain(cur, refp, n, tile, shift, sums)
     if cur.device.type != "cuda":
         raise ValueError(f"grid_coarse: unsupported device {cur.device}")
     dev = cur.device
-    check_tensor(cur, "cur", torch.int32, 2, dev)
-    check_tensor(refp, "refp", torch.int32, 2, dev)
-    h, w = cur.shape
-    if refp.shape != (h + n - 1, w + n - 1) or h % tile or w % tile:
-        raise ValueError(f"grid_coarse: cur {tuple(cur.shape)}, refp "
-                         f"{tuple(refp.shape)}, n {n}, tile {tile}")
+    h, w = _coarse_shapes("grid_coarse", cur, refp, n, tile, (8,))
     nbh, nbw = h // tile, w // tile
     sad = torch.empty((n * n, nbh, nbw), dtype=torch.int32, device=dev)
     sm = (torch.empty((n * n, nbh, nbw), dtype=torch.int32, device=dev)
@@ -117,6 +131,47 @@ def grid_coarse(cur: torch.Tensor, refp: torch.Tensor, n: int, tile: int,
     kbuild.check(err, "grid_coarse")
     LAUNCHES["grid_coarse"] += 1
     return sad, sm
+
+
+def grid_prestage_plain(cur: torch.Tensor, refp: torch.Tensor, n: int,
+                        tile: int, shift: int, bits: torch.Tensor,
+                        lam_me: int) -> torch.Tensor:
+    """cur (h, w), refp (h+n-1, w+n-1) int32 as `grid_coarse_plain`, bits
+    (n*n,) the offsets' MV bits -> (h/tile, w/tile) int32: per block the
+    first index k of the least (sad << shift) + ((bits[k] * lam_me) >> 8)
+    (the stack, the bits, then `torch.argmin`)."""
+    h, w = cur.shape
+    sad, _ = grid_coarse_plain(cur, refp, n, tile, shift, False)
+    cost = sad + ((bits.long()[:, None, None] * lam_me) >> 8)
+    return torch.argmin(cost.reshape(n * n, -1), dim=0).reshape(
+        h // tile, w // tile).int()
+
+
+def grid_prestage(cur: torch.Tensor, refp: torch.Tensor, n: int, tile: int,
+                  shift: int, bits: torch.Tensor,
+                  lam_me: int) -> torch.Tensor:
+    """Kernel `grid_prestage` (see `grid_prestage_plain`). CPU tensors take
+    the plain version; CUDA tensors the kernel (tile 4, the 4x-pooled
+    level's; bits int32 on the card, every cost below 2^31)."""
+    if cur.device.type == "cpu":
+        return grid_prestage_plain(cur, refp, n, tile, shift, bits, lam_me)
+    if cur.device.type != "cuda":
+        raise ValueError(f"grid_prestage: unsupported device {cur.device}")
+    dev = cur.device
+    h, w = _coarse_shapes("grid_prestage", cur, refp, n, tile, (4,))
+    check_tensor(bits, "bits", torch.int32, 1, dev)
+    if bits.shape[0] != n * n or lam_me < 0:
+        raise ValueError(f"grid_prestage: bits {tuple(bits.shape)}, n {n}, "
+                         f"lam_me {lam_me}")
+    barg = torch.empty((h // tile, w // tile), dtype=torch.int32, device=dev)
+    fn = kbuild.function("grid_me", "tpuhevc_grid_prestage",
+                         [kbuild.P] * 4 + [kbuild.I] * 6 + [kbuild.P])
+    err = fn(cur.data_ptr(), refp.data_ptr(), bits.data_ptr(),
+             barg.data_ptr(), h, w, n, tile, shift, int(lam_me),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "grid_prestage")
+    LAUNCHES["grid_prestage"] += 1
+    return barg
 
 
 def _pick(sad, cost, mvx, mvy, lim):
@@ -235,8 +290,10 @@ def grid_refine_plain(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
     return main[:3], None if quad is None else quad[:3]
 
 
-# per device: the candidates' scratch and the tickets of a launch whose
-# picture blocks are split over several CUDA blocks
+# per (device, stream): the candidates' scratch and the tickets of a
+# launch whose picture blocks are split over several CUDA blocks; a
+# launch on another stream of the device has its own, so that two launches
+# in flight at once never share them
 _SCRATCH: dict = {}
 # (device index, S, nb, G, quads) -> starts a CUDA block
 _GPB: dict = {}
@@ -304,14 +361,15 @@ def grid_refine_refs(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
         [2 * n, 9 * n, n, n])
     mv, sad9 = mv.view(n, 2), sad9.view(n, 9)
     gpb = _starts_a_block(di, S, nb, G, quads)
+    stream = torch._C._cuda_getCurrentRawStream(di)
     cand = tickets = None
     if gpb < G:
         need = (10 if quads else 2) * nb * G * 49
-        cand, tickets = _SCRATCH.get(di, (None, None))
+        cand, tickets = _SCRATCH.get((di, stream), (None, None))
         if cand is None or cand.numel() < need or tickets.numel() < nb:
             cand = torch.empty(need, dtype=i32, device=dev)
             tickets = torch.zeros(nb, dtype=i32, device=dev)
-            _SCRATCH[di] = (cand, tickets)
+            _SCRATCH[di, stream] = (cand, tickets)
     fn = kbuild.function("grid_me", "tpuhevc_grid_refine", _REFINE_ARGS)
     err = fn(ry.data_ptr(), oy.data_ptr(), starts.data_ptr(),
              None if sref is None else sref.data_ptr(),
@@ -320,7 +378,7 @@ def grid_refine_refs(ry: torch.Tensor, oy: torch.Tensor, S: int, nbh: int,
              None if cand is None else cand.data_ptr(),
              None if tickets is None else tickets.data_ptr(), ry.shape[1],
              ry.shape[2], oy.shape[1], S, nbh, nbw, G, gpb, int(quads), dcc,
-             dcc8, lam_me, lim, ry_y0, torch._C._cuda_getCurrentRawStream(di))
+             dcc8, lam_me, lim, ry_y0, stream)
     kbuild.check(err, "grid_refine")
     LAUNCHES["grid_refine"] += 1
     main = (mv[:nb], sad9[:nb], cost[:nb], ref[:nb])

@@ -281,7 +281,9 @@ def grid_sao_decide_plain(cnt, sm, lam: torch.Tensor, qp: int, ny: int,
     return par.int().contiguous(), params
 
 
-# per device: the decision's cost scratch (2 n float32) and its ticket
+# per (device, stream): the decision's cost scratch (2 n float32) and its
+# ticket; a launch on another stream of the device has its own, so that
+# two launches in flight at once never share them
 _DECIDE_SCRATCH: dict = {}
 _DECIDE_ARGS = [kbuild.P] * 7 + [kbuild.F] + [kbuild.I] * 3 + [kbuild.P]
 DECIDE_CTUS = 8  # the most CTUs a block of the decision (three warps each)
@@ -306,13 +308,14 @@ def grid_sao_decide(cnt, sm, lam: torch.Tensor, qp: int, ny: int, nx: int):
     check_tensor(lam, "lam", torch.float32, 0, dev)
     par = torch.empty((3, 6 * n), dtype=torch.int32, device=dev)
     params = torch.empty((17 * n,), dtype=torch.int8, device=dev)
-    cost, ticket, sms = _DECIDE_SCRATCH.get(di, (None, None, None))
+    stream = torch._C._cuda_getCurrentRawStream(di)
+    cost, ticket, sms = _DECIDE_SCRATCH.get((di, stream), (None, None, None))
     if cost is None or cost.numel() < 2 * n:
         if ticket is None:
             ticket = torch.zeros(1, dtype=torch.int32, device=dev)
             sms = torch.cuda.get_device_properties(di).multi_processor_count
         cost = torch.empty(max(2 * n, 1), dtype=torch.float32, device=dev)
-        _DECIDE_SCRATCH[di] = (cost, ticket, sms)
+        _DECIDE_SCRATCH[di, stream] = (cost, ticket, sms)
     # CTUs a block: one where the picture has no more CTUs than SMs, else
     # enough that the blocks fit in one wave
     cpb = min(max(-(-n // sms), 1), DECIDE_CTUS)
@@ -320,7 +323,7 @@ def grid_sao_decide(cnt, sm, lam: torch.Tensor, qp: int, ny: int, nx: int):
     fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_decide", _DECIDE_ARGS)
     err = fn(cnt.data_ptr(), sm.data_ptr(), lam.data_ptr(), par.data_ptr(),
              params.data_ptr(), cost.data_ptr(), ticket.data_ptr(),
-             float(wch), ny, nx, cpb, torch._C._cuda_getCurrentRawStream(di))
+             float(wch), ny, nx, cpb, stream)
     kbuild.check(err, "grid_sao_decide")
     LAUNCHES["grid_sao_decide"] += 1
     return par, params

@@ -6,6 +6,8 @@
     python -m tpuhevc_torch.profile_path --path intra8 --frames 8
     python -m tpuhevc_torch.profile_path --path step --reps 20
     python -m tpuhevc_torch.profile_path --path train
+    python -m tpuhevc_torch.profile_path --path fwp --frames 17
+    python -m tpuhevc_torch.profile_path --path stripes
 
 Encodes the synthetic clip of `tools/make_test_clip.py` (seed 7) through
 `codec.encoder.encode_sequence` with one of the repository's cfgs: `ra`
@@ -14,7 +16,9 @@ Encodes the synthetic clip of `tools/make_test_clip.py` (seed 7) through
 deblocking on, the P pictures through the grid step), `intra`
 (cfg/encoder_intra_main.cfg) or `intra8` (the same cfg with fixed 8x8
 intra, `intra_qt` off: every picture coded whole by kernel `intra_wave`, four
-pictures a launch through `encode_sequence(..., device_batch=4)`), QP
+pictures a launch through `encode_sequence(..., device_batch=4)`) or
+`fwp` (the `ldp` cfg with FmeMode dctif and WeightedPredP 1 on the fade
+clip, `make_fade_clip`: grid_subpel and grid_wp_me), QP
 32,
 NN-FME weights random from seed 0. One encode warms up (kernel builds,
 caches), `reps` more are timed on the host clock ended by
@@ -28,8 +32,18 @@ name and power limit beside every number. The encode paths also print
 the device time and launches over the profiled encode of the grid
 step's kernels and of the intra decision's (IDR_KERNELS: intra_bank,
 satd35_topk, intra_txq, tu_bits; in `ldp` only the IDR launches them,
-and `--path intra --frames 1` is one all-intra picture). Needs a CUDA
-device.
+and `--path intra --frames 1` is one all-intra picture), and of every
+other kernel of KERNEL_SYMBOLS the encode launched (K1, K3, K4 and the B
+step's in `ra`, grid_stats in `bench`, grid_wp_me and grid_subpel in
+`fwp`). Needs a CUDA device.
+
+`stripes` is the multi-device path's stripe kernels as `chip_smoke.py`'s
+path 7 runs them on one card (a mesh of 3 x the card): `tile_prescreen`
+of the clip's frame 1 at 416x240 in 3 stripes (kernel
+`stripe_prescreen`, one launch a stripe) and `stripe_refine` of frame 1
+against frame 0 in 3 stripes (grid_refine with each stripe's ry_y0),
+`reps` calls (default 20) of each under `torch.profiler`: the device
+time and launches of their kernels a call.
 
 `bench` runs bench.py's clip, cfg and procedure on the port: 32 frames of
 `make_clip(416, 240, 32)`, the anchor LD-P cfg at QP 32 with four
@@ -48,7 +62,8 @@ seed and collocated field of the step's first picture. One call warms
 up, then `reps` calls (default 20) are timed with CUDA events; prints
 their median and the median host time of a call. Then five such
 pictures under `torch.profiler`: the device time and launches a picture
-of the kernels of grid_coarse, grid_refine, grid_planes, grid_satd (the
+of the kernels of grid_coarse (both launches; the prestage's also
+alone, grid_prestage), grid_refine, grid_planes, grid_satd (the
 gathers and the SATD costs), K2, grid_intra16, grid_deblock and grid_sao
 (its statistics, decision and apply), and the count of every device
 operation of the step a picture (kernels, copies and fills); K2's device
@@ -93,6 +108,9 @@ CFGS = {
     # bench.py: the checksum hash without the recon fetch, no NN weights
     "bench": ("encoder_lowdelay_P_main.cfg", ["--SEIDecodedPictureHash=3"]),
     "step": ("encoder_lowdelay_P_main.cfg", []),
+    # LD-P with DCT-IF FME and weighted prediction, on the fade clip
+    "fwp": ("encoder_lowdelay_P_main.cfg",
+            ["--FmeMode=dctif", "--WeightedPredP=1"]),
 }
 BENCH_FRAMES, BENCH_WARMUP, BENCH_REPS = 32, 6, 4  # bench.py's procedure
 # step: the anchor's four tools cut (grid_code's flat quantiser)
@@ -108,10 +126,10 @@ SLEEP_CYCLES = 100_000_000  # ~50-60 ms at the H100's clocks
 
 
 class _Clip:
-    def __init__(self, w: int, h: int, n: int):
-        from tools.make_test_clip import make_clip
+    def __init__(self, w: int, h: int, n: int, fade: bool = False):
+        from tools.make_test_clip import make_clip, make_fade_clip
 
-        raw = make_clip(w, h, n)
+        raw = (make_fade_clip if fade else make_clip)(w, h, n)
         fsz = w * h * 3 // 2
         self.frames = []
         for i in range(n):
@@ -193,27 +211,43 @@ def code_split(cfg, nn_by_qp, clip, dev, gpu: str, tag: str) -> None:
           flush=True)
 
 
-# step: the grid step's kernels by the names the profiler gives them (on
-# this tree and on its parents: a template's name ends in "<", a plain
-# function's in "(")
-STEP_KERNELS = {"grid_coarse": ("coarse_kernel",),
-                "grid_refine": ("refine_kernel",),
-                "grid_planes": ("planes_kernel",),
-                "grid_satd": ("gather_kernel", "satd_kernel",
-                              "satd_cost_kernel"),
-                "nnfme_mlp": ("nnfme_mlp_kernel",),
-                "grid_intra16": ("intra16_kernel",),
-                "grid_deblock": ("grid_deblock_kernel",),
-                "grid_sao": ("sao_stats_kernel", "sao_decide_kernel",
-                             "sao_apply_kernel")}
+# every kernel of the port by the names the profiler gives it (on this
+# tree and on its parents: a template's name ends in "<", a plain
+# function's in "("; a name given with "<" matches those template
+# arguments: the prestage is `grid_coarse`'s tile-4 pick, so it is also
+# inside the `grid_coarse` row, which takes both of the step's launches)
+KERNEL_SYMBOLS = {
+    "grid_coarse": ("coarse_kernel", "coarse_stage_kernel"),
+    "grid_prestage": ("coarse_stage_kernel<4, true",),
+    "grid_refine": ("refine_kernel",), "grid_planes": ("planes_kernel",),
+    "grid_satd": ("gather_kernel", "satd_kernel", "satd_cost_kernel"),
+    "nnfme_mlp": ("nnfme_mlp_kernel",), "grid_intra16": ("intra16_kernel",),
+    "grid_deblock": ("grid_deblock_kernel",),
+    "grid_sao": ("sao_stats_kernel", "sao_decide_kernel",
+                 "sao_apply_kernel"),
+    "intra_bank": ("intra_bank_kernel",),
+    "satd35_topk": ("satd35_topk_kernel",),
+    "intra_txq": ("intra_txq_kernel", "intra_txq_tus"),
+    "tu_bits": ("tu_bits_kernel",),
+    "sad_search": ("sad_search_kernel",), "mc_blk": ("mc_blk_kernel",),
+    "txq": ("txq_kernel",), "b_me": ("b_me_kernel",),
+    "b_pred": ("b_pred_kernel",), "b_txq": ("b_txq_kernel",),
+    "grid_wp_me": ("wp_me_kernel",), "grid_subpel": ("subpel_kernel",),
+    "grid_stats": ("stats_kernel",), "intra_wave": ("intra_wave_kernel",),
+    "stripe_prescreen": ("stripe_prescreen_kernel",)}
+# the grid step's kernels, and the intra decision's (every picture of
+# `intra`; only the IDR of `ldp`, whose P pictures take the grid step):
+# printed even where an encode launched none
+STEP_KERNELS = ("grid_coarse", "grid_prestage", "grid_refine",
+                "grid_planes", "grid_satd", "nnfme_mlp", "grid_intra16",
+                "grid_deblock", "grid_sao")
+IDR_KERNELS = ("intra_bank", "satd35_topk", "intra_txq", "tu_bits")
 
 
-# the intra decision's kernels (every picture of `intra`; only the IDR
-# of `ldp`, whose P pictures take the grid step)
-IDR_KERNELS = {"intra_bank": ("intra_bank_kernel",),
-               "satd35_topk": ("satd35_topk_kernel",),
-               "intra_txq": ("intra_txq_kernel",),
-               "tu_bits": ("tu_bits_kernel",)}
+def _is_kernel(key: str, keys) -> bool:
+    """Whether the profiler's name `key` is one of the kernels `keys`."""
+    return any((f"::{k}" in key) if "<" in k
+               else (f"::{k}<" in key or f"::{k}(" in key) for k in keys)
 
 
 def pred_split(cfg, nn_by_qp, clip, dev, gpu: str, reps: int = 5) -> None:
@@ -237,11 +271,12 @@ def pred_split(cfg, nn_by_qp, clip, dev, gpu: str, reps: int = 5) -> None:
           and e.self_device_time_total > 0]
     total = sum(e.count for e in ev) / reps
     busy = sum(e.self_device_time_total for e in ev) / reps / 1e3
-    for name, keys in STEP_KERNELS.items():
+    for name in STEP_KERNELS:
+        keys = KERNEL_SYMBOLS[name]
         each = {}  # kernel -> (launches, kernel_ms) a picture
         for e in ev:
             for k in keys:
-                if f"::{k}<" in e.key or f"::{k}(" in e.key:
+                if _is_kernel(e.key, (k,)):
                     n0, t0 = each.get(k, (0, 0.0))
                     each[k] = (n0 + e.count / reps,
                                t0 + e.self_device_time_total / reps / 1e3)
@@ -463,6 +498,55 @@ def profile_train(args, dev, gpu: str) -> None:
           f"launch {ft.bwd_geometry(dev)} | {gpu}", flush=True)
 
 
+def profile_stripes(args, dev, gpu: str) -> None:
+    """`stripes`: the multi-device path's stripe kernels on a mesh of 3 x
+    the card, their device time and launches a call."""
+    from .codec.inter_grid import GridStep
+    from .codec.params import p_frame_lambda
+    from .config.options import build_config, parse_args
+    from .ops.grid_me import grid_coarse, tile_sum
+    from .parallel import mesh
+
+    frames = _Clip(args.width, args.height, 2).frames
+    oy = torch.as_tensor(frames[1][0].astype(np.int32), device=dev)
+    ry = torch.as_tensor(frames[0][0].astype(np.int32), device=dev)
+    cfg, _ = build_config(parse_args([
+        "-c", os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg"),
+        "-wdt", str(args.width), "-hgt", str(args.height), "-f", "2",
+        "-q", "32"]))
+    step = GridStep(cfg, {}, dev)
+    qp = step.qps[0]
+    lam_me = int(round(np.sqrt(p_frame_lambda(cfg, 0, qp)) * 256))
+    s16, sum16 = grid_coarse(tile_sum(oy, 2).int(), step._pad_edge(
+        tile_sum(ry, 2).int(), step.R2), step.nc, 8, 1, True)
+    cx, cy = step.pick_coarse(s16, sum16, qp, lam_me, args.height // 16,
+                              args.width // 16, 1)
+    pre = mesh.tile_prescreen(mesh.make_mesh(3, device=dev), *oy.shape)
+    refine = mesh.stripe_refine(cfg, {}, mesh.make_mesh(3, device=dev))[0]
+    reps = args.reps or 20
+    for what, fn, keys in (
+            ("tile_prescreen", lambda: pre(oy), ("stripe_prescreen_kernel",)),
+            ("stripe_refine", lambda: refine(oy, ry, cx.contiguous(),
+                                             cy.contiguous()),
+             ("refine_kernel",))):
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hit = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and _is_kernel(e.key, keys)]
+        ms = sum(e.self_device_time_total for e in hit) / reps / 1e3
+        n = sum(e.count for e in hit) / reps
+        print(f"stripes {args.width}x{args.height} in 3: {what} "
+              f"({keys[0]}) device {ms:.5f} ms a call in {n:g} launches "
+              f"({reps} calls) | {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     from .codec.encoder import encode_sequence
     from .config.options import build_config, parse_args
@@ -470,7 +554,8 @@ def main(argv=None) -> int:
     from .models.nnfme import random_params, save_npz
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=sorted(CFGS) + ["train"], default="ra")
+    ap.add_argument("--path", choices=sorted(CFGS) + ["stripes", "train"],
+                    default="ra")
     ap.add_argument("--width", type=int, default=416)
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--frames", type=int, default=None,
@@ -488,7 +573,10 @@ def main(argv=None) -> int:
     if args.path == "train":
         profile_train(args, dev, gpu)
         return 0
-    clip = _Clip(args.width, args.height, frames)
+    if args.path == "stripes":
+        profile_stripes(args, dev, gpu)
+        return 0
+    clip = _Clip(args.width, args.height, frames, args.path == "fwp")
     cfg_file, extra = CFGS[args.path]
     if args.path == "step":
         frames = max(frames, 5)
@@ -562,9 +650,11 @@ def main(argv=None) -> int:
         for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
             calls = next(e.count for e in stats if e.key == key)
             print(f"  device {us / 1e3:9.3f} ms  calls {calls:5d}  {key}")
-        for name, keys in {**STEP_KERNELS, **IDR_KERNELS}.items():
-            hit = [e for e in stats if e.key in dev_us and any(
-                f"::{k}<" in e.key or f"::{k}(" in e.key for k in keys)]
+        for name, keys in KERNEL_SYMBOLS.items():
+            hit = [e for e in stats if e.key in dev_us
+                   and _is_kernel(e.key, keys)]
+            if not hit and name not in STEP_KERNELS + IDR_KERNELS:
+                continue
             ms = sum(dev_us[e.key] for e in hit) / 1e3
             print(f"  {name}: device {ms:.5f} ms in "
                   f"{sum(e.count for e in hit)} launches over the profiled "
