@@ -57,7 +57,15 @@
    wherever the plain top-2 gap exceeds 1e-3; its event and device time);
    both again at every call of a weighted fade-clip picture with NN-FME
    (WeightedPredP 1) and of the 3-stripe step below, grid_sao_decide also
-   at the dctif + WP picture's; stripe_prescreen (the multi-device path's intra
+   at the dctif + WP picture's; grid_sao's stats launch and grid_sao whole
+   at every call of the anchor, the dctif + WP and bench.py's cfg's P
+   picture and grid_stats at the latter two's (each stats launch's
+   device time a picture printed), then both stats kernels on noise,
+   flat and one-band planes at 416x240 (grid_sao at CTU 64, 32 and 16,
+   both on the 3 stripes' rows), grid_stats on a 1920x1088 picture (its
+   luma SSE above 2^31), two launches of each back to back and grid_stats
+   on two streams without a sync between (its scratch and ticket are
+   kept per stream); stripe_prescreen (the multi-device path's intra
    prescreen, one launch a stripe) at 416x240 in 1 and 3 stripes and at
    the graft entry's dryrun shape (128x128 in 2); grid_refine with
    ry_y0 at every call of the 3-stripe refine at 416x240; the launches
@@ -1146,8 +1154,8 @@ def capture_grid_calls(dev, cfg, params, names, fade=False):
     wp, wpp = picture_wp(clip, R, dev) if step.use_wp else (None, None)
     # grid_sao and grid_stats run as their row-stripe launches (here one
     # stripe, the whole picture): each picture's call is rebuilt from them
-    rec = [k for k in names if k not in WHOLE] + [
-        k for w in names if w in WHOLE for k in WHOLE[w]]
+    rec = list(dict.fromkeys([k for k in names if k not in WHOLE] + [
+        k for w in names if w in WHOLE for k in WHOLE[w]]))
     calls = {k: [] for k in rec}
     # grid_code and grid_satd_cost read lambda (and the cbf bits) on the
     # card: no sync a call, nor in the gathers
@@ -1296,6 +1304,7 @@ def check_grid_kernels(dev, npz, params):
           f"{len(calls['grid_satd_cost'])} cost launches) event ms "
           f"{sat_ms:.4f}, host ms {sat_host:.4f} a P picture | "
           f"{gpu_line()}", flush=True)
+    check_stats_calls(calls, rows, "anchor P picture")
     rows.update(check_sao_decide(calls["grid_sao"]))
     rows["grid_sao_decide"]["device_ms"] = device_ms(
         lambda: [grid_sao_decide(*a, **k)
@@ -1318,16 +1327,19 @@ def check_grid_kernels(dev, npz, params):
     anchor = calls
     calls, wpp = capture_grid_calls(
         dev, ldp_cfg(npz, extra=FME_WP + NO_FETCH), params,
-        F_KERNELS + WP_TOO + ME_FIRST + ("grid_sao_decide",), fade=True)
+        F_KERNELS + WP_TOO + ME_FIRST + ("grid_sao",), fade=True)
     check(weighted(wpp), f"fade picture: identity weights only {wpp}")
+    check_stats_calls(calls, rows, "P picture, dctif + WP")
     err = compare_calls("grid_sao_decide", calls["grid_sao_decide"])
     print(f"kernel grid_sao_decide P picture, dctif + WP: calls "
           f"{len(calls['grid_sao_decide'])} max_abs_err {err:.3g}",
           flush=True)
-    # the coarse search and the prestage's pick also at bench.py's cfg
-    # (no NN-FME weights, the checksum hash, no recon fetch)
+    # the coarse search, the prestage's pick and the two statistics
+    # launches also at bench.py's cfg (no NN-FME weights, the checksum
+    # hash, no recon fetch)
     bench = capture_grid_calls(dev, ldp_cfg(None, extra=NO_FETCH), params,
-                               ME_FIRST)[0]
+                               ME_FIRST + ("grid_sao", "grid_stats"))[0]
+    check_stats_calls(bench, rows, "P picture, bench.py's cfg")
     for name in ME_FIRST:
         for tag, cs in (("dctif + WP", calls[name]), ("bench.py's cfg",
                                                       bench[name])):
@@ -1373,6 +1385,108 @@ def check_grid_kernels(dev, npz, params):
               f"fetch)", flush=True)
     rows["nnfme_mlp_grid"] = grid_k2  # beside the kernels' rows
     return rows
+
+
+def check_stats_calls(calls, rows, what):
+    """grid_sao's stats launch, grid_sao whole and grid_stats (where the
+    picture has them: no recon fetch) against their plain versions at
+    every recorded call of one P picture: torch.equal; the rows of
+    grid_sao and grid_stats gain the difference (0). Prints each stats
+    launch's device time a picture (events around 100 pictures' calls
+    queued behind a device sleep)."""
+    for name, row in (("grid_sao_stats", "grid_sao"), ("grid_sao", "grid_sao"),
+                      ("grid_stats_partial", "grid_stats"),
+                      ("grid_stats", "grid_stats")):
+        cs = calls.get(name, [])
+        if not cs:
+            continue
+        err = compare_calls(name, cs)
+        if row in rows:
+            rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], err)
+        extra = ""
+        if name in ("grid_sao_stats", "grid_stats_partial"):
+            kern = G_FUNCS[name][0]
+            dms = device_ms(lambda: [kern(*a, **k) for a, k in cs], n=100)
+            extra = f", device_ms {dms:.5f} a picture"
+        print(f"kernel {name:18s} {what}: calls {len(cs)} max_abs_err "
+              f"{err:.3g}{extra} | {gpu_line()}", flush=True)
+
+
+def stats_planes(kind, h, w, seed, dev):
+    """(oy, ouv, ry, ruv) int32 8-bit planes on dev, chroma packed [U | V]:
+    `noise` uniform; `flat` org = rec, one value; `band` rec one value (one
+    band, every EO category 0), org noise around it."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for ph, pw in ((h, w), (h // 2, w)):
+        if kind == "noise":
+            o, r = rng.integers(0, 256, (2, ph, pw))
+        elif kind == "flat":
+            o = r = np.full((ph, pw), 77)
+        else:
+            r = np.full((ph, pw), 100)
+            o = r + rng.integers(-40, 41, (ph, pw))
+        out.append((o, r))
+    return tuple(torch.as_tensor(np.clip(x, 0, 255).astype(np.int32),
+                                 device=dev)
+                 for x in (out[0][0], out[1][0], out[0][1], out[1][1]))
+
+
+def check_stats_adversarial(dev):
+    """grid_stats and grid_sao's stats launch against their plain versions
+    (torch.equal) on noise, flat and one-band planes at 416x240 (grid_sao
+    at CTU 64, 32 and 16; both on the 3 stripes' rows, grid_sao with their
+    halo rows), grid_stats on a 1920x1088 noise picture (its luma SSE
+    above 2^31), two launches of each back to back, and grid_stats (whose
+    scratch and ticket are kept per stream) on two streams of one card
+    without a sync between, three times."""
+    stripes = ((0, 64), (64, 128), (128, H))
+    for seed, kind in enumerate(("noise", "flat", "band")):
+        pic = stats_planes(kind, H, W, seed, dev)
+        compare_calls("grid_stats_partial", [(pic, {})])
+        for ctu in (64, 32, 16):
+            compare_calls("grid_sao_stats", [((*pic, ctu), {})])
+        for a, b in stripes:
+            top, bot = int(a > 0), int(b < H)
+            oy, ouv, ry, ruv = pic
+            compare_calls("grid_sao_stats", [(
+                (oy[a:b], ouv[a // 2 : b // 2], ry[a - top : b + bot],
+                 ruv[a // 2 - top : b // 2 + bot], 64, top), {})])
+            compare_calls("grid_stats_partial", [(
+                (oy[a:b], ouv[a // 2 : b // 2], ry[a:b],
+                 ruv[a // 2 : b // 2], a), {})])
+    big = stats_planes("noise", 1088, 1920, 7, dev)
+    want = grid_stats_partial_plain(*big)
+    check(int(want[1][0]) > 2 ** 31, f"1920x1088: luma SSE {int(want[1][0])}")
+    compare_calls("grid_stats_partial", [(big, {})])
+    pics = [stats_planes("noise", H, W, 8, dev),
+            stats_planes("band", H, W, 9, dev)]
+    for name, args in (("grid_stats_partial", (big, pics[1])),
+                       ("grid_sao_stats", [(*p, 64) for p in pics])):
+        kern, plain = G_FUNCS[name]
+        got = [kern(*a) for a in args]  # back to back, no sync between
+        torch.cuda.synchronize()
+        for g, a in zip(got, args):
+            for x, y in zip(g, plain(*a)):
+                check(torch.equal(x, y), f"{name} back to back: differs")
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    args = (big, pics[1])
+    want = [grid_stats_partial_plain(*a) for a in args]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        got = []
+        for a, st in zip(args, streams):
+            with torch.cuda.stream(st):
+                got.append(grid_stats_partial(*a))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                check(torch.equal(x, y), "grid_stats on two streams: differs")
+    print("kernel grid_stats, grid_sao stats on noise, flat and one-band "
+          f"planes at {W}x{H} (grid_sao at CTU 64, 32, 16; the 3 stripes' "
+          "rows), grid_stats at 1920x1088 (luma SSE above 2^31), back to "
+          "back, grid_stats on two streams (3 times): equal to plain",
+          flush=True)
 
 
 # the anchor picture's kernels held again at every call of the weighted
@@ -2551,6 +2665,7 @@ def main():
         rows.update(check_intra_kernels(dev, npz))
         rows.update(check_b_kernels(dev, npz, params))
         rows.update(check_grid_kernels(dev, npz, params))
+        check_stats_adversarial(dev)
         rows.update(check_intra_wave(dev))
         multi = multi_calls(dev)
         rows.update(check_multi_kernels(multi[0], rows))

@@ -12,7 +12,9 @@ Twin of `sao_device` (`tpuhevc/codec/inter_grid.py:1427-1494`) with
    from the deblocked picture, invalid at the picture's border in the
    class's direction) and of each of the 32 bands (rec >> 3); int32 sums,
    which the reference's float32 sums equal (|sum| <= 64 * 64 * 255 <
-   2^24, so they are exact);
+   2^24, so they are exact); on the card a cluster of blocks a CTU (at
+   CTU 64 four of luma rows, one for Cb, one for Cr), each over a staged
+   tile, packed counts and sums a thread's own, no atomics;
 2. the per-CTU rate-distortion decision (`grid_sao_decide`, launch 2),
    float32 in the reference's operation order: the best offsets of each
    EO class and of the band offset, the luma type, the chroma type shared
@@ -399,14 +401,18 @@ def grid_sao_stats(oy, ouv, rec_y, rec_uv, ctu: int, top: int = 0):
             ctu not in (16, 32, 64):
         raise ValueError(f"grid_sao stats: oy {tuple(oy.shape)}, ouv "
                          f"{tuple(ouv.shape)}, CTU {ctu}")
+    ptrs = (oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
+            rec_uv.data_ptr())
+    if any(p % 16 for p in ptrs):  # the kernel reads runs of 16 bytes
+        raise ValueError("grid_sao stats: a plane's data is not 16-byte "
+                         "aligned")
     ny, nx = -(-h // ctu), -(-W // ctu)
     cnt = torch.empty((3, ny * nx, NSTAT), dtype=torch.int32, device=dev)
     sm = torch.empty_like(cnt)
     fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_stats",
                          [kbuild.P] * 6 + [kbuild.I] * 5 + [kbuild.P])
-    err = fn(oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
-             rec_uv.data_ptr(), cnt.data_ptr(), sm.data_ptr(), h, W, ctu,
-             top, bot, torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*ptrs, cnt.data_ptr(), sm.data_ptr(), h, W, ctu, top, bot,
+             torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "grid_sao stats")
     LAUNCHES["grid_sao"] += 1
     return cnt, sm

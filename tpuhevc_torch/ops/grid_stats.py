@@ -21,7 +21,9 @@ checksum to int32 and rounds the SSE once. Row stripes add their sums
 before that one finish, which keeps the picture's values bit for bit.
 
 `*_plain` are the PyTorch versions; the wrapper launches the CUDA kernel
-(`kernels/csrc/grid_stats.cu`) for CUDA tensors.
+(`kernels/csrc/grid_stats.cu`) for CUDA tensors: one launch of many
+blocks, which meet through a scratch of accumulators and a ticket, kept
+per (device, stream) and left at zero by every launch.
 """
 
 from __future__ import annotations
@@ -72,6 +74,14 @@ def grid_stats_plain(oy: torch.Tensor, ouv: torch.Tensor, rec_y: torch.Tensor,
     return stats_finish(*grid_stats_partial_plain(oy, ouv, rec_y, rec_uv))
 
 
+# per (device, stream): the kernel's accumulators and ticket (7 int64,
+# left at zero by every launch); a launch on another stream of the device
+# has its own, so that two launches in flight at once never share them
+_SCRATCH: dict = {}
+_ARGS = [kbuild.P] * 4 + [kbuild.I] * 3 + [kbuild.P] * 3 + [kbuild.I,
+                                                            kbuild.P]
+
+
 def grid_stats_partial(oy: torch.Tensor, ouv: torch.Tensor,
                        rec_y: torch.Tensor, rec_uv: torch.Tensor,
                        y0: int = 0):
@@ -92,13 +102,19 @@ def grid_stats_partial(oy: torch.Tensor, ouv: torch.Tensor,
         raise ValueError(f"grid_stats: oy {tuple(oy.shape)}, ouv "
                          f"{tuple(ouv.shape)}, rec_y {(h, w)}, rec_uv "
                          f"{tuple(rec_uv.shape)}, y0 {y0}")
-    cks = torch.empty(3, dtype=torch.int64, device=dev)
-    sse = torch.empty(3, dtype=torch.int64, device=dev)
-    fn = kbuild.function("grid_stats", "tpuhevc_grid_stats",
-                         [kbuild.P] * 4 + [kbuild.I] * 3 + [kbuild.P] * 3)
-    err = fn(oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
-             rec_uv.data_ptr(), h, w, y0, cks.data_ptr(), sse.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    sums = torch.empty(6, dtype=torch.int64, device=dev)
+    cks, sse = sums[:3], sums[3:]
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    acc = _SCRATCH.get((dev.index, stream))
+    if acc is None:
+        acc = _SCRATCH[dev.index, stream] = torch.zeros(
+            7, dtype=torch.int64, device=dev)
+    ptrs = (oy.data_ptr(), ouv.data_ptr(), rec_y.data_ptr(),
+            rec_uv.data_ptr())
+    vec = int(w % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+    fn = kbuild.function("grid_stats", "tpuhevc_grid_stats", _ARGS)
+    err = fn(*ptrs, h, w, y0, cks.data_ptr(), sse.data_ptr(),
+             acc.data_ptr(), vec, stream)
     kbuild.check(err, "grid_stats")
     LAUNCHES["grid_stats"] += 1
     return cks, sse

@@ -656,9 +656,15 @@ def main(argv=None) -> int:
             if not hit and name not in STEP_KERNELS + IDR_KERNELS:
                 continue
             ms = sum(dev_us[e.key] for e in hit) / 1e3
+            # a row of several kernels (grid_sao: stats, decision, apply)
+            # also by kernel
+            each = {k: (sum(e.count for e in hit if _is_kernel(e.key, (k,))),
+                        round(sum(dev_us[e.key] for e in hit
+                                  if _is_kernel(e.key, (k,))) / 1e3, 5))
+                    for k in keys} if len(keys) > 1 else ""
             print(f"  {name}: device {ms:.5f} ms in "
                   f"{sum(e.count for e in hit)} launches over the profiled "
-                  f"encode")
+                  f"encode {each}")
         if args.trace:
             os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                         exist_ok=True)
