@@ -65,7 +65,18 @@
    both on the 3 stripes' rows), grid_stats on a 1920x1088 picture (its
    luma SSE above 2^31), two launches of each back to back and grid_stats
    on two streams without a sync between (its scratch and ticket are
-   kept per stream); stripe_prescreen (the multi-device path's intra
+   kept per stream); grid_deblock (one launch a picture over owned tiles)
+   at every call of the anchor, the dctif + WP and bench.py's cfg's P
+   picture and of the 3 stripes' halo buffers, one launch a call, its
+   device time a picture and bound printed, then on adversarial inputs
+   (flat 8x8 blocks with steps: the strong filter; noise; every cell
+   intra; RQT depth 2 at CU 32; far motion at every edge) at QP 22, 37
+   and 51 at 416x240 and on a 128-row stripe-shaped buffer, at
+   1920x1088, two launches back to back; satd35_topk (Hadamard teams, a
+   warp's top-nc) on flat references (ties) and noise at S = 4..32 with
+   nc 1, 8 and 35, and at S = 4 over 1920x1088 (130,560 blocks), its
+   device time a decision picture and bound printed;
+   stripe_prescreen (the multi-device path's intra
    prescreen, one launch a stripe) at 416x240 in 1 and 3 stripes and at
    the graft entry's dryrun shape (128x128 in 2); grid_refine with
    ry_y0 at every call of the 3-stripe refine at 416x240; the launches
@@ -88,8 +99,9 @@
    sign hiding, deblocking and SAO; QP 32, FmeMode nn with seeded
    weights), which takes the grid step (416x240 is whole 16x16 blocks),
    with the launch counters reset just before; the nine grid kernels, K2
-   (once a P picture: 16 launches) and the intra kernels (the IDR's
-   decision) must have launched. Main path 2, all-intra: 3 pictures
+   and grid_deblock (each once a P picture: 16 launches) and the intra
+   kernels (the IDR's decision) must have launched (grid_deblock once a
+   P picture on paths 4 and 5 too). Main path 2, all-intra: 3 pictures
    of the same clip with cfg/encoder_intra_main.cfg (RDOQ, NxN), counters
    reset just before; the four intra kernels must have launched. Main path
    3, random access: cfg/encoder_randomaccess_main.cfg as shipped at
@@ -1011,6 +1023,18 @@ def check_intra_kernels(dev, npz):
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if tag == "all-intra":
                 r["ms"], r["plain_ms"] = ms, plain_ms
+            if name == "satd35_topk":  # device time and bound a picture
+                work = Work()
+                for args in calls[name]:
+                    work.add(name, args, kern(*args))
+                b, by = bound_of(dict(work=work))
+                dms = device_ms(lambda: [kern(*c) for c in calls[name]],
+                                n=20)
+                print(f"kernel satd35_topk {tag:9s} {len(calls[name])} "
+                      f"launches: device_ms {dms:.5f} a picture (both "
+                      f"passes; events around 20 pictures' calls queued "
+                      f"behind a device sleep), bound {b:.6f} ms ({by}) | "
+                      f"{gpu_line()}", flush=True)
             print(f"kernel {name:11s} {tag:9s} calls {len(calls[name]):3d} "
                   f"max_abs_err {err:.3g} kernel_ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} (per picture, both passes)",
@@ -1304,6 +1328,18 @@ def check_grid_kernels(dev, npz, params):
           f"{len(calls['grid_satd_cost'])} cost launches) event ms "
           f"{sat_ms:.4f}, host ms {sat_host:.4f} a P picture | "
           f"{gpu_line()}", flush=True)
+    check(len(calls["grid_deblock"]) == 1,
+          f"grid_deblock at the anchor picture: {len(calls['grid_deblock'])}"
+          f" calls")
+    check_deblock_calls(calls["grid_deblock"], rows, "anchor P picture")
+    rows["grid_deblock"]["device_ms"] = device_ms(
+        lambda: [grid_deblock(*a, **k) for a, k in calls["grid_deblock"]],
+        n=100)
+    b, by = bound_of(rows["grid_deblock"])
+    print(f"kernel grid_deblock P picture: device_ms "
+          f"{rows['grid_deblock']['device_ms']:.5f} (events around 100 "
+          f"calls queued behind a device sleep), bound {b:.6f} ms ({by}) | "
+          f"{gpu_line()}", flush=True)
     check_stats_calls(calls, rows, "anchor P picture")
     rows.update(check_sao_decide(calls["grid_sao"]))
     rows["grid_sao_decide"]["device_ms"] = device_ms(
@@ -1327,9 +1363,11 @@ def check_grid_kernels(dev, npz, params):
     anchor = calls
     calls, wpp = capture_grid_calls(
         dev, ldp_cfg(npz, extra=FME_WP + NO_FETCH), params,
-        F_KERNELS + WP_TOO + ME_FIRST + ("grid_sao",), fade=True)
+        F_KERNELS + WP_TOO + ME_FIRST + ("grid_sao", "grid_deblock"),
+        fade=True)
     check(weighted(wpp), f"fade picture: identity weights only {wpp}")
     check_stats_calls(calls, rows, "P picture, dctif + WP")
+    check_deblock_calls(calls["grid_deblock"], rows, "P picture, dctif + WP")
     err = compare_calls("grid_sao_decide", calls["grid_sao_decide"])
     print(f"kernel grid_sao_decide P picture, dctif + WP: calls "
           f"{len(calls['grid_sao_decide'])} max_abs_err {err:.3g}",
@@ -1338,8 +1376,11 @@ def check_grid_kernels(dev, npz, params):
     # launches also at bench.py's cfg (no NN-FME weights, the checksum
     # hash, no recon fetch)
     bench = capture_grid_calls(dev, ldp_cfg(None, extra=NO_FETCH), params,
-                               ME_FIRST + ("grid_sao", "grid_stats"))[0]
+                               ME_FIRST + ("grid_sao", "grid_stats",
+                                           "grid_deblock"))[0]
     check_stats_calls(bench, rows, "P picture, bench.py's cfg")
+    check_deblock_calls(bench["grid_deblock"], rows,
+                        "P picture, bench.py's cfg")
     for name in ME_FIRST:
         for tag, cs in (("dctif + WP", calls[name]), ("bench.py's cfg",
                                                       bench[name])):
@@ -1487,6 +1528,183 @@ def check_stats_adversarial(dev):
           "rows), grid_stats at 1920x1088 (luma SSE above 2^31), back to "
           "back, grid_stats on two streams (3 times): equal to plain",
           flush=True)
+
+
+def check_deblock_calls(calls, rows, what):
+    """grid_deblock at every recorded call of a P picture (or stripe):
+    one launch a call, both planes torch.equal to plain; the row gains the
+    difference (0)."""
+    before = LAUNCHES["grid_deblock"]
+    err = compare_calls("grid_deblock", calls)
+    n = LAUNCHES["grid_deblock"] - before
+    check(n == len(calls), f"grid_deblock {what}: {n} launches for "
+          f"{len(calls)} calls")
+    rows["grid_deblock"]["max_abs_err"] = max(
+        rows["grid_deblock"]["max_abs_err"], err)
+    print(f"kernel grid_deblock {what}: calls {len(calls)}, one launch "
+          f"each, max_abs_err {err:.3g}", flush=True)
+
+
+DEBLOCK_KINDS = ("steps", "noise", "intra", "rqt2", "farmv")
+
+
+def deblock_inputs(kind, h, w, seed, dev):
+    """Seeded inputs of grid_deblock at h x w in the grid step's dtypes and
+    layout (the motion field as (2, h8, w8) planes): a CU quadtree from
+    64x64 split at random, an RQT depth, motion, reference and intra flag
+    a CU, a PU's own motion in some cells, a cbf a cell. `steps`: flat
+    8x8 blocks 0-2 apart, every cbf set (the strong filter at every edge
+    with bs > 0); `noise`: block offsets with sample noise; `intra`: every
+    cell intra; `rqt2`: every CU 32x32 at RQT depth 2; `farmv`: motion
+    and reference a cell (bs 1 at nearly every edge). The kinds of
+    tests/torch_port_util.py `deblock_inputs`."""
+    rng = np.random.default_rng(seed)
+    h8, w8 = h // 8, w // 8
+    log2 = np.zeros((h8, w8), np.int8)
+    tsplit = np.zeros((h8, w8), np.int8)
+    mv = np.zeros((h8, w8, 2), np.int32)
+    ref = np.zeros((h8, w8), np.int32)
+    intra = np.zeros((h8, w8), bool)
+
+    def cu(y, x, lg):
+        n = 1 << (lg - 3)
+        fits = y + n <= h8 and x + n <= w8
+        want = 5 if kind == "rqt2" else 3
+        if lg > 3 and (not fits or lg > want and (
+                kind == "rqt2" or rng.random() < 0.5)):
+            for dy in (0, n // 2):
+                for dx in (0, n // 2):
+                    if y + dy < h8 and x + dx < w8:
+                        cu(y + dy, x + dx, lg - 1)
+            return
+        sl = np.s_[y : y + n, x : x + n]
+        log2[sl] = lg
+        tsplit[sl] = (2 if kind == "rqt2" and lg == 5
+                      else rng.integers(0, min(lg, 5) - 2))
+        mv[sl] = rng.integers(-12, 13, 2)
+        ref[sl] = rng.integers(0, 4)
+        intra[sl] = kind == "intra" or rng.random() < 0.15
+
+    for y in range(0, h8, 8):
+        for x in range(0, w8, 8):
+            cu(y, x, 6)
+    pu = rng.random((h8, w8)) < 0.2
+    mv[pu] = rng.integers(-12, 13, (int(pu.sum()), 2))
+    if kind == "farmv":
+        mv = rng.integers(-256, 257, (h8, w8, 2)).astype(np.int32)
+        ref = rng.integers(0, 4, (h8, w8)).astype(np.int32)
+    cbf = rng.random((h8, w8)) < 0.5
+    if kind == "steps":
+        cbf[:] = True
+
+    def plane(ph, pw):
+        blk = rng.integers(0, 3, (ph // 8 + 1, pw // 8 + 1))
+        if kind == "steps":
+            return 120 + np.kron(blk, np.ones((8, 8), np.int64))[:ph, :pw]
+        if kind == "noise":
+            blk = rng.integers(-10, 11, (ph // 8 + 1, pw // 8 + 1))
+            off = np.kron(blk, np.ones((8, 8), np.int64))[:ph, :pw]
+            return 128 + off + rng.integers(-3, 4, (ph, pw))
+        yy, xx = np.mgrid[0:ph, 0:pw].astype(np.float64)
+        f = rng.uniform(5, 40, 4)
+        return np.rint(128 + 50 * np.sin(xx / f[0] + yy / f[1])
+                       + 40 * np.cos(yy / f[2] - xx / f[3])
+                       + rng.normal(0, 6, (ph, pw)))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    planes = [t(np.clip(plane(ph, w), 0, 255).astype(np.int32))
+              for ph in (h, h // 2)]
+    return (*planes, t(log2), t(mv.transpose(2, 0, 1)).permute(1, 2, 0),
+            t(ref), t(cbf), t(intra), t(tsplit))
+
+
+def check_deblock_adversarial(dev):
+    """grid_deblock against plain (torch.equal, one launch a call, inputs
+    left as they were) on adversarial inputs (flat steps: the strong
+    filter; noise; every cell intra; RQT depth 2 at CU 32; far motion at
+    every edge) at QP 22, 37 and 51 on a 416x240 picture and a 128-row
+    stripe-shaped buffer, on a 1920x1088 picture, and two launches back
+    to back without a sync between."""
+    cases = 0
+    for seed, kind in enumerate(DEBLOCK_KINDS):
+        for h in (H, 128):
+            args = deblock_inputs(kind, h, W, 10 * seed + h, dev)
+            keep = [a.clone() for a in args]
+            for qp in (22, 37, 51):
+                before = LAUNCHES["grid_deblock"]
+                compare_calls("grid_deblock", [((*args, qp), {})])
+                check(LAUNCHES["grid_deblock"] - before == 1,
+                      f"grid_deblock {kind} {h} rows: "
+                      f"{LAUNCHES['grid_deblock'] - before} launches")
+                cases += 1
+            check(all(torch.equal(a, b) for a, b in zip(args, keep)),
+                  f"grid_deblock {kind}: an input changed")
+    big = deblock_inputs("noise", 1088, 1920, 99, dev)
+    compare_calls("grid_deblock", [((*big, 37), {})])
+    pics = [big, deblock_inputs("steps", H, W, 98, dev)]
+    got = [grid_deblock(*p, 32) for p in pics]  # back to back, no sync
+    torch.cuda.synchronize()
+    for g, p in zip(got, pics):
+        for x, y in zip(g, grid_deblock_plain(*p, 32)):
+            check(torch.equal(x, y), "grid_deblock back to back: differs")
+    print(f"kernel grid_deblock adversarial: {cases} cases ({DEBLOCK_KINDS} "
+          f"x QP 22, 37, 51 at {W}x{H} and a {W}x128 stripe-shaped "
+          f"buffer), 1920x1088, two launches back to back: equal to plain, "
+          f"one launch a call", flush=True)
+
+
+def satd_inputs(n, S, seed, dev, flat=False):
+    """(org (n, S, S), preds (n, 35, S, S)) int32 on dev: noise with the
+    predictions near the original, or (flat) each block's predictions a
+    few flat values, half the originals equal to one of them (ties)."""
+    rng = np.random.default_rng(seed)
+    org = rng.integers(0, 256, (n, S, S))
+    if flat:
+        preds = np.repeat(rng.integers(0, 256, (n, 1, 1, 1)), 35, 1)
+        preds = preds + (rng.integers(0, 35, (n, 35, 1, 1)) % 3)
+        preds = np.broadcast_to(preds, (n, 35, S, S))
+        org[: n // 2] = preds[: n // 2, 0]
+    else:
+        preds = np.clip(org[:, None] + rng.integers(-40, 41, (n, 35, S, S)),
+                        0, 255)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                 device=dev) for a in (org, preds))
+
+
+def check_satd_adversarial(dev, gpu):
+    """satd35_topk against plain (torch.equal) on flat references (ties:
+    the lower mode first) and noise at S = 4..32 with nc 1, 8 and 35, and
+    at S = 4 over a 1920x1088 picture (130,560 blocks); that launch's
+    device time and bound printed."""
+    for S in (4, 8, 16, 32):
+        for flat in (True, False):
+            org, preds = satd_inputs(390, S, S + flat, dev, flat)
+            for nc in (1, 8, 35):
+                got = satd35_topk(org, preds, nc)
+                want = satd35_topk_plain(org, preds, nc)
+                torch.cuda.synchronize()
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"satd35_topk S={S} flat={flat} nc={nc}: differs")
+            if flat:
+                sat = want[0]
+                check(bool((sat[:, :, None] == sat[:, None]).sum()
+                           > 35 * sat.shape[0]), f"S={S}: no ties")
+    org, preds = satd_inputs(130560, 4, 4, dev)
+    got = satd35_topk(org, preds, 8)
+    want = satd35_topk_plain(org, preds, 8)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "satd35_topk S=4 at 1920x1088: differs")
+    work = Work()
+    work.add("satd35_topk", (org, preds, 8), got)
+    b, by = bound_of(dict(work=work))
+    dms = device_ms(lambda: satd35_topk(org, preds, 8), n=20)
+    print(f"kernel satd35_topk adversarial: flat references (ties) and "
+          f"noise at S = 4..32, nc 1, 8, 35; S = 4 at 1920x1088 (130,560 "
+          f"blocks, nc 8): equal to plain; that launch device_ms {dms:.5f}, "
+          f"bound {b:.6f} ms ({by}) | {gpu}", flush=True)
 
 
 # the anchor picture's kernels held again at every call of the weighted
@@ -1739,8 +1957,8 @@ STEP_CALLS = ("grid_coarse", "grid_prestage", "grid_refine", "grid_planes",
 # the launches a stripe's row origin reaches: their calls held vs plain
 # (the coarse entries at the stripes' pooled shapes)
 STRIPE_KERNELS = ("grid_coarse", "grid_prestage", "grid_refine",
-                  "grid_intra16", "grid_planes", "grid_sao_stats",
-                  "grid_sao_apply", "grid_stats_partial")
+                  "grid_intra16", "grid_planes", "grid_deblock",
+                  "grid_sao_stats", "grid_sao_apply", "grid_stats_partial")
 
 
 def shard_cfg(npz, extra=()):
@@ -1845,7 +2063,7 @@ def check_stripe_kernels(calls, xbytes, runs, rows):
     sh["grid_stats_partial"] = calls["sharded_nofetch"]["grid_stats_partial"]
     origin = {"grid_coarse": "grid_coarse", "grid_prestage": "grid_prestage",
               "grid_refine": "grid_refine", "grid_intra16": "grid_intra16",
-              "grid_planes": "grid_planes",
+              "grid_planes": "grid_planes", "grid_deblock": "grid_deblock",
               "grid_sao_stats": "grid_sao", "grid_sao_apply": "grid_sao",
               "grid_stats_partial": "grid_stats"}
     ys = sorted({k.get("y0", 0) for _, k in sh["grid_intra16"]})
@@ -2102,6 +2320,14 @@ def check_sao_on_card(launches, n_p, what):
           f"{launches['grid_sao_decide']} for {n_p} P pictures")
 
 
+def check_deblock_once(launches, n_p, what):
+    """grid_deblock launched once a P picture (both edge directions in one
+    launch)."""
+    check(launches["grid_deblock"] == n_p,
+          f"{what}: grid_deblock {launches['grid_deblock']} launches for "
+          f"{n_p} P pictures")
+
+
 def check_stream(enc, recons, n, launches, need, what):
     """Every needed kernel launched; n pictures decode hash-OK in the port's
     decoder with the encoder's recon, in decoding order (all-intra
@@ -2241,6 +2467,7 @@ def run_fme_wp(dev, npz, gpu):
         encoder_mod.analyse_slice_wp = real_wp
     check_stream(enc, recons, NFRAMES, launches, FWP_NEED, "LD-P dctif + WP")
     check_sao_on_card(launches, NFRAMES - 1, "LD-P dctif + WP")
+    check_deblock_once(launches, NFRAMES - 1, "LD-P dctif + WP")
     check(seen["frac"] > 0, "LD-P dctif + WP: no fractional MV")
     check(seen["weighted"] > 0, "LD-P dctif + WP: identity weights only")
     kbits = sum(r.bits for r in enc.results) / 1000
@@ -2291,6 +2518,7 @@ def run_bench(dev, gpu):
     missing = [k for k in BENCH_NEED if bl[k] <= 0]
     check(not missing, f"bench: kernels not launched: {missing}")
     check_sao_on_card(bl, BENCH_FRAMES - 1, "bench")
+    check_deblock_once(bl, BENCH_FRAMES - 1, "bench")
     check(len(enc.results) == BENCH_FRAMES and recons[0] is not None
           and all(r is None for r in recons[1:]),
           "bench: the P pictures' recon was fetched")
@@ -2666,6 +2894,8 @@ def main():
         rows.update(check_b_kernels(dev, npz, params))
         rows.update(check_grid_kernels(dev, npz, params))
         check_stats_adversarial(dev)
+        check_deblock_adversarial(dev)
+        check_satd_adversarial(dev, gpu)
         rows.update(check_intra_wave(dev))
         multi = multi_calls(dev)
         rows.update(check_multi_kernels(multi[0], rows))
@@ -2681,6 +2911,7 @@ def main():
         enc, recons, secs, launches = run_path(dev, ldp_cfg(npz), NFRAMES)
         check_stream(enc, recons, NFRAMES, launches, LDP_NEED, "LD-P")
         check_sao_on_card(launches, NFRAMES - 1, "LD-P")
+        check_deblock_once(launches, NFRAMES - 1, "LD-P")
         # K2: the grid's classes of a P picture in one launch
         check(launches["nnfme_mlp"] == NFRAMES - 1,
               f"LD-P: nnfme_mlp launched {launches['nnfme_mlp']} times for "

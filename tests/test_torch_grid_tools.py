@@ -42,8 +42,8 @@ import pytest
 import torch
 
 from torch_port_util import (  # noqa: F401
-    GOP_QP_OFFSETS, QP, Reader, clip_frames, cuda_device, fresh_grid,
-    ldp_cfg, rng_planes, write_weights)
+    DEBLOCK_KINDS, GOP_QP_OFFSETS, QP, Reader, clip_frames, cuda_device,
+    deblock_inputs, fresh_grid, ldp_cfg, rng_planes, write_weights)
 from tpuhevc_torch.codec import inter_grid as tig
 from tpuhevc_torch.codec.decoder import decode_stream
 from tpuhevc_torch.codec.encoder import encode_sequence
@@ -332,10 +332,16 @@ def test_deblock_matches_jax_and_host_filter(e2e):
     """Every P picture's deblocking (the composed maps with intra cells
     and the RQT depths) equals deblock_device, and equals the host filter
     `deblock_frame` as the port's decoder runs it on the parsed picture
-    (the same input planes, the same output)."""
+    (the same input planes, the same output). So do synthetic adversarial
+    inputs (`deblock_inputs`: flat 8x8 blocks with steps, noise, every
+    cell intra, RQT depth 2 at CU 32, far motion at every edge) at QP 22,
+    37 and 51, at the picture's size and as a 128-row stripe-shaped
+    buffer (a picture of its own to the filter, its first row a border;
+    against deblock_device of a build of that size)."""
     import jax
     import jax.numpy as jnp
 
+    from tpuhevc.codec import inter_grid as jg
     from tpuhevc_torch.ops import deblock as host
 
     P = e2e["P"]
@@ -375,6 +381,28 @@ def test_deblock_matches_jax_and_host_filter(e2e):
         seen["split"] |= bool(args[7].any())
         seen["filtered"] |= bool((a[0] != args[0]).any())
     assert all(seen.values()), seen
+    # the synthetic cases: deblock_device of the e2e build, and of a build
+    # 128 rows high (built, not compiled: only the filter is jitted)
+    _, p128 = fresh_grid(jg.build_ldp_grid_scan, ldp_cfg(
+        None, W, 128, fme_mode="none", deblocking=True, num_ref_frames=1,
+        search_range=16, gop_qp_offsets=()), {QP: None}, 1)
+    syn = {}
+    for seed, kind in enumerate(DEBLOCK_KINDS):
+        for h, probes in ((H, P), (128, p128)):
+            args = deblock_inputs(kind, h, W, seed + h)
+            for qp in (22, 37, 51):
+                if (h, qp) not in syn:
+                    syn[h, qp] = jax.jit(
+                        lambda *a, qp=qp, pr=probes: pr["deblock_device"](
+                            *a[:6], qp, a[6], a[7]))
+                jy, juv = syn[h, qp](*(jnp.asarray(a.numpy()) for a in args))
+                y, uv = grid_deblock_plain(*args, qp)
+                for x, z, k in ((y, jy, "y"), (uv, juv, "uv")):
+                    np.testing.assert_array_equal(
+                        x.numpy(), np.asarray(z), f"{kind} {h} rows QP {qp} "
+                        f"{k}")
+                if qp == 51:  # every kind filters at the highest QP
+                    assert (y != args[0]).any(), (kind, h)
 
 
 def test_sao_matches_jax(e2e):

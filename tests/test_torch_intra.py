@@ -5,7 +5,9 @@
   exact, luma 4..32 with and without strong smoothing, chroma 4..16;
 - `ops.cost.satd35_topk` against `satd35` + `lax.top_k` of
   `tpuhevc/codec/intra_decide_jax.py:75-84,130` (composed here from the
-  same jnp operations): SATD and top-k exact, ties to the lower mode;
+  same jnp operations): SATD and top-k exact, ties to the lower mode
+  (flat references at S = 4, 8 and 32), the whole ranking (nc = 35) at
+  S = 4..32;
 - `ops.intra_txq` against `txq` of `intra_decide_jax.py:86-98` (composed
   from `tpuhevc.ops.transforms`): levels exact, dist / d0 within rtol
   1e-5, atol 1e-3 (sum order), quantiser and table RDOQ, DCT and DST;
@@ -150,6 +152,38 @@ def test_satd35_topk_ties_take_the_lower_mode():
         assert (np.diff(np.sort(want_sat, 1), axis=1) == 0).any()
     np.testing.assert_array_equal(topk[:10].numpy(),
                                   np.tile(np.arange(35), (10, 1)))
+
+
+@pytest.mark.parametrize("S", [4, 8, 16, 32])
+def test_satd35_topk_whole_ranking_matches_jax(S):
+    """nc = 35: the whole ranking of the 35 modes equals top_k's."""
+    _, _, _, t, l, org = bank_inputs(S, True, seed=S + 7)
+    preds = predict_all_modes_plain(t, l, S)
+    want_sat, want_topk = jax_satd35_topk(org.numpy(), preds.numpy(), 35)
+    sat, topk = satd35_topk(org, preds, 35)
+    np.testing.assert_array_equal(sat.numpy(), want_sat.astype(np.int32))
+    np.testing.assert_array_equal(topk.numpy(), want_topk)
+
+
+@pytest.mark.parametrize("S", [4, 32])
+def test_satd35_topk_ties_match_jax(S):
+    """Flat references at S = 4 and 32: equal SATDs rank by mode index as
+    top_k of the negated costs does, at nc 1, 8 and 35."""
+    rng = np.random.default_rng(S)
+    n = 24
+    t = torch.from_numpy(np.repeat(rng.integers(0, 256, (n, 1)), 2 * S + 1,
+                                   1).astype(np.int32))
+    org = torch.from_numpy(rng.integers(0, 256, (n, S, S)).astype(np.int32))
+    org[: n // 2] = t[: n // 2, :1, None]  # every mode costs 0
+    preds = predict_all_modes_plain(t, t.clone(), S)
+    for nc in (1, 8, 35):
+        want_sat, want_topk = jax_satd35_topk(org.numpy(), preds.numpy(), nc)
+        sat, topk = satd35_topk(org, preds, nc)
+        np.testing.assert_array_equal(sat.numpy(), want_sat.astype(np.int32))
+        np.testing.assert_array_equal(topk.numpy(), want_topk)
+        assert (np.diff(np.sort(want_sat, 1), axis=1) == 0).any()
+    np.testing.assert_array_equal(topk[: n // 2].numpy(),
+                                  np.tile(np.arange(35), (n // 2, 1)))
 
 
 def jax_txq(org, sel, qp, log2, rdoq, lam, est, is_dst):

@@ -131,6 +131,82 @@ def fresh_grid(fn, *args, **kw):
     return out, probes
 
 
+# the adversarial inputs of grid_deblock (`deblock_inputs`)
+DEBLOCK_KINDS = ("steps", "noise", "intra", "rqt2", "farmv")
+
+
+def deblock_inputs(kind: str, h: int, w: int, seed: int = 0):
+    """Seeded inputs of `grid_deblock` at h x w, as the grid step gives
+    them: (rec_y (h, w), rec_uv (h/2, w) [U | V] int32 8-bit planes; per
+    8x8 cell log2 (CU) int8, mv (h8, w8, 2) int32 stored as (2, h8, w8)
+    planes, ref int32, cbf bool, intra bool, tsplit (RQT depth) int8).
+
+    A CU quadtree from 64x64 split at random (forced where a CU would
+    cross the edge), an RQT depth, motion, reference and intra flag a CU
+    with a PU's own motion in some cells, a cbf a cell. `kind`: `steps`
+    flat 8x8 blocks 0-2 apart with every cbf set (the strong filter at
+    every edge with bs > 0 from QP 18); `noise` 8x8 block offsets with
+    sample noise (weak filters, one-sided and none); `intra` every cell
+    intra; `rqt2` every CU 32x32 at RQT depth 2 (8x8 TUs); `farmv`
+    motion and reference drawn a cell (bs 1 at nearly every edge)."""
+    rng = np.random.default_rng(seed)
+    h8, w8 = h // 8, w // 8
+    log2 = np.zeros((h8, w8), np.int8)
+    tsplit = np.zeros((h8, w8), np.int8)
+    mv = np.zeros((h8, w8, 2), np.int32)
+    ref = np.zeros((h8, w8), np.int32)
+    intra = np.zeros((h8, w8), bool)
+
+    def cu(y, x, lg):
+        n = 1 << (lg - 3)
+        fits = y + n <= h8 and x + n <= w8
+        want = 5 if kind == "rqt2" else 3
+        if lg > 3 and (not fits or lg > want and (
+                kind == "rqt2" or rng.random() < 0.5)):
+            for dy in (0, n // 2):
+                for dx in (0, n // 2):
+                    if y + dy < h8 and x + dx < w8:
+                        cu(y + dy, x + dx, lg - 1)
+            return
+        sl = np.s_[y : y + n, x : x + n]
+        log2[sl] = lg
+        tsplit[sl] = (2 if kind == "rqt2" and lg == 5
+                      else rng.integers(0, min(lg, 5) - 2))
+        mv[sl] = rng.integers(-12, 13, 2)
+        ref[sl] = rng.integers(0, 4)
+        intra[sl] = kind == "intra" or rng.random() < 0.15
+
+    for y in range(0, h8, 8):
+        for x in range(0, w8, 8):
+            cu(y, x, 6)
+    pu = rng.random((h8, w8)) < 0.2  # a PU's own motion
+    mv[pu] = rng.integers(-12, 13, (int(pu.sum()), 2))
+    if kind == "farmv":
+        mv = rng.integers(-256, 257, (h8, w8, 2)).astype(np.int32)
+        ref = rng.integers(0, 4, (h8, w8)).astype(np.int32)
+    cbf = rng.random((h8, w8)) < 0.5
+    if kind == "steps":
+        cbf[:] = True
+
+    def plane(ph, pw):
+        if kind == "steps":
+            blk = 120 + rng.integers(0, 3, (ph // 8 + 1, pw // 8 + 1))
+            return np.kron(blk, np.ones((8, 8), np.int64))[:ph, :pw]
+        if kind == "noise":
+            blk = rng.integers(-10, 11, (ph // 8 + 1, pw // 8 + 1))
+            off = np.kron(blk, np.ones((8, 8), np.int64))[:ph, :pw]
+            return 128 + off + rng.integers(-3, 4, (ph, pw))
+        return rng_planes(int(rng.integers(1 << 30)), ph, pw)[0]
+
+    planes = [np.clip(plane(ph, w), 0, 255).astype(np.int32)
+              for ph in (h, h // 2)]
+    mv_t = torch.from_numpy(np.ascontiguousarray(mv.transpose(2, 0, 1)))
+    return (torch.from_numpy(planes[0]), torch.from_numpy(planes[1]),
+            torch.from_numpy(log2), mv_t.permute(1, 2, 0),
+            torch.from_numpy(ref), torch.from_numpy(cbf),
+            torch.from_numpy(intra), torch.from_numpy(tsplit))
+
+
 @pytest.fixture
 def cuda_device():
     """torch.device('cuda'); skips the test where there is no GPU."""

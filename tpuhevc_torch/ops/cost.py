@@ -12,7 +12,9 @@ equal.
 
 `satd35_topk_plain` is the PyTorch version (stable ascending sort, not
 `torch.topk`, whose tie order is unspecified); `satd35_topk` launches the
-CUDA kernel (`kernels/csrc/satd35_topk.cu`) for CUDA tensors.
+CUDA kernel (`kernels/csrc/satd35_topk.cu`: the TU size compiled in, a
+team of lanes a Hadamard tile, a warp's top-nc a block) for CUDA
+tensors.
 
 `hadamard` and `satd_np` are numpy copies of `tpuhevc/ops/cost.py:18-45`
 for the host closed-loop intra encode (`codec/recon.py`).
@@ -80,6 +82,9 @@ def satd35_topk(org: torch.Tensor, preds: torch.Tensor, nc: int):
         raise ValueError(f"satd35_topk: unsupported shapes org "
                          f"{tuple(org.shape)} preds {tuple(preds.shape)} "
                          f"nc={nc}")
+    if org.data_ptr() % 16 or preds.data_ptr() % 16:
+        raise ValueError("satd35_topk: org and preds must be 16-byte "
+                         "aligned")
     sat = torch.empty((n, 35), dtype=torch.int32, device=dev)
     topk = torch.empty((n, nc), dtype=torch.int32, device=dev)
     if n == 0:

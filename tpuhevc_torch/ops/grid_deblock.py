@@ -19,8 +19,12 @@ filter `ops/deblock.deblock_frame` for the grid's P slices:
   the chroma QP).
 
 `grid_deblock_plain` is the PyTorch version; `grid_deblock` launches
-`kernels/csrc/grid_deblock.cu` for CUDA tensors (one launch per edge
-direction).
+`kernels/csrc/grid_deblock.cu` for CUDA tensors: one launch a picture,
+each CTA a tile of the planes whose output window it owns (both edge
+directions in shared memory), into new output planes; the maps are read
+in the dtypes the grid step gives them (CU log2 and RQT depth int8, cbf
+and intra bool, motion and reference int32), the motion field at its
+strides.
 """
 
 from __future__ import annotations
@@ -197,10 +201,15 @@ def grid_deblock_plain(rec_y, rec_uv, log2_map, mv_map, ref_map, cbf_cells,
     return y.int(), torch.cat(halves, dim=1).int().contiguous()
 
 
+# the byte maps' dtypes: read by the kernel as bytes
+_BYTE_MAPS = (torch.int8, torch.uint8, torch.bool)
+
+
 def grid_deblock(rec_y, rec_uv, log2_map, mv_map, ref_map, cbf_cells,
                  intra_cells, tsplit_cells, qp: int):
     """Kernel `grid_deblock`. CPU tensors take the plain version; CUDA
-    tensors the kernel (two launches: vertical, then horizontal edges)."""
+    tensors the kernel (one launch a picture; the inputs are left as they
+    are, the outputs are new tensors)."""
     if rec_y.device.type == "cpu":
         return grid_deblock_plain(rec_y, rec_uv, log2_map, mv_map, ref_map,
                                   cbf_cells, intra_cells, tsplit_cells, qp)
@@ -214,27 +223,33 @@ def grid_deblock(rec_y, rec_uv, log2_map, mv_map, ref_map, cbf_cells,
     if H % 16 or W % 16 or tuple(rec_uv.shape) != (H // 2, W):
         raise ValueError(f"grid_deblock: planes {tuple(rec_y.shape)}, "
                          f"{tuple(rec_uv.shape)}")
-    maps = []
-    for t, name, shape in ((log2_map, "log2_map", (h8, w8)),
-                           (mv_map, "mv_map", (h8, w8, 2)),
-                           (ref_map, "ref_map", (h8, w8)),
-                           (cbf_cells, "cbf_cells", (h8, w8)),
-                           (intra_cells, "intra_cells", (h8, w8)),
-                           (tsplit_cells, "tsplit_cells", (h8, w8))):
-        if tuple(t.shape) != shape or t.device != dev:
-            raise ValueError(f"grid_deblock: {name} {tuple(t.shape)} on "
-                             f"{t.device}, expected {shape} on {dev}")
-        maps.append(t.to(torch.int32).contiguous())
-    y = rec_y.clone()
-    uv = rec_uv.clone()
+    if rec_y.data_ptr() % 16 or rec_uv.data_ptr() % 16:
+        raise ValueError("grid_deblock: planes must be 16-byte aligned")
+    for t, name, shape, dtypes in (
+            (log2_map, "log2_map", (h8, w8), _BYTE_MAPS),
+            (mv_map, "mv_map", (h8, w8, 2), (torch.int32,)),
+            (ref_map, "ref_map", (h8, w8), (torch.int32,)),
+            (cbf_cells, "cbf_cells", (h8, w8), _BYTE_MAPS),
+            (intra_cells, "intra_cells", (h8, w8), _BYTE_MAPS),
+            (tsplit_cells, "tsplit_cells", (h8, w8), _BYTE_MAPS)):
+        if tuple(t.shape) != shape or t.device != dev or \
+                t.dtype not in dtypes:
+            raise ValueError(f"grid_deblock: {name} {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{shape} of {dtypes} on {dev}")
+        if t is not mv_map and not t.is_contiguous():
+            raise ValueError(f"grid_deblock: {name} must be contiguous")
+    y = torch.empty_like(rec_y)
+    uv = torch.empty_like(rec_uv)
     beta, tc1, tc2, tcc = _tables(qp)
     fn = kbuild.function("grid_deblock", "tpuhevc_grid_deblock",
-                         [kbuild.P] * 8 + [kbuild.I] * 7 + [kbuild.P])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for vertical in (1, 0):
-        err = fn(y.data_ptr(), uv.data_ptr(),
-                 *(m.data_ptr() for m in maps), H, W, beta, tc1, tc2, tcc,
-                 vertical, stream)
-        kbuild.check(err, "grid_deblock")
-        LAUNCHES["grid_deblock"] += 1
+                         [kbuild.P] * 10 + [kbuild.I] * 9 + [kbuild.P])
+    err = fn(rec_y.data_ptr(), rec_uv.data_ptr(), y.data_ptr(),
+             uv.data_ptr(), log2_map.data_ptr(), mv_map.data_ptr(),
+             ref_map.data_ptr(), cbf_cells.data_ptr(),
+             intra_cells.data_ptr(), tsplit_cells.data_ptr(),
+             *mv_map.stride(), H, W, beta, tc1, tc2, tcc,
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "grid_deblock")
+    LAUNCHES["grid_deblock"] += 1
     return y, uv
