@@ -11,7 +11,14 @@
    that are not 16-aligned, K1 also without row subsampling (the per-frame
    P stage's search); the intra decision kernels at every call of the
    decision (both passes) of one all-intra picture and of one LD-P IDR,
-   captured from the decision itself (intra_txq's outputs torch.equal);
+   captured from the decision itself (every output torch.equal, tu_bits'
+   exact sums too; intra_bank's, satd35_topk's and tu_bits' device time
+   a picture and bound printed,
+   intra_bank's beside torch's fill_ of its outputs), then intra_bank and
+   tu_bits on adversarial inputs at every S at 1920x1088 (flat
+   references at the strong-smoothing threshold's edges, references at 0
+   and the maximum at bit depths 8 and 10; all-zero, DC-only,
+   last-position and 2^15-escape TUs), two launches of each back to back;
    the B step kernels (b_me, b_pred,
    b_txq) at every call of one random-access B picture; the grid step
    kernels (grid_coarse, grid_prestage (the +-64 prestage's pick on the
@@ -211,7 +218,9 @@ from tpuhevc_torch.codec.wp import analyse_slice_wp  # noqa: E402
 from tpuhevc_torch.config.options import build_config, parse_args  # noqa: E402
 from tpuhevc_torch.device import require_cuda  # noqa: E402
 from tpuhevc_torch.entropy import bitio  # noqa: E402
-from tpuhevc_torch.entropy.bitest import tu_bits, tu_bits_plain  # noqa: E402
+from tpuhevc_torch.codec.intra_qt import I_ROW  # noqa: E402
+from tpuhevc_torch.entropy.bitest import (  # noqa: E402
+    FracBits, est_tables, tu_bits, tu_bits_plain)
 from tpuhevc_torch.kernels import KERNELS, LAUNCHES, reset_launches  # noqa: E402
 from tpuhevc_torch.kernels import build as kbuild  # noqa: E402
 from tpuhevc_torch.models.fme_train import train_fme, train_step  # noqa: E402
@@ -979,10 +988,12 @@ def capture_intra_calls(dev, cfg, frame):
 def check_intra_kernels(dev, npz):
     """Kernel vs plain on the card for the intra decision, at every call
     of the two passes of one 416x240 all-intra picture (RDOQ, NxN) and of
-    one IDR of the anchor LD-P cfg. Integer outputs exact, intra_txq's
-    float32 dist and d0 too (integer sums rounded once); tu_bits' float32
-    bits within rtol 1e-5, atol 1e-3 (sum order). Returns {name:
-    row}; ms/plain_ms are per all-intra picture (both passes)."""
+    one IDR of the anchor LD-P cfg. Every output torch.equal: integers,
+    intra_txq's float32 dist and d0 and tu_bits' float32 bits (exact sums
+    rounded once). intra_bank's, satd35_topk's and tu_bits' device time a
+    picture and bound printed, and beside intra_bank's the device time
+    of torch's fill_ writing the same outputs. Returns {name: row};
+    ms/plain_ms are per all-intra picture (both passes)."""
     frame = Reader(W, H, 1).frames[0]
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
             for k in INTRA}
@@ -1007,15 +1018,8 @@ def check_intra_kernels(dev, npz):
                         continue
                     d = float((x.double() - y.double()).abs().max())
                     err = max(err, d)
-                    if name == "intra_txq":  # exact integer SSEs
-                        check(torch.equal(x, y), f"intra_txq {tag}: "
-                              f"outputs differ by {d}")
-                    elif x.dtype.is_floating_point:
-                        torch.testing.assert_close(x, y, rtol=1e-5,
-                                                   atol=1e-3)
-                    else:
-                        check(d == 0, f"{name} {tag}: integer outputs "
-                              f"differ by {d}")
+                    check(torch.equal(x, y), f"{name} {tag}: outputs "
+                          f"differ by {d}")
             ms = median_ms(lambda: [kern(*c) for c in calls[name]], reps=5)
             plain_ms = median_ms(lambda: [plain(*c) for c in calls[name]],
                                  reps=5)
@@ -1023,18 +1027,25 @@ def check_intra_kernels(dev, npz):
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if tag == "all-intra":
                 r["ms"], r["plain_ms"] = ms, plain_ms
-            if name == "satd35_topk":  # device time and bound a picture
+            if name != "intra_txq":  # device time and bound a picture
                 work = Work()
                 for args in calls[name]:
                     work.add(name, args, kern(*args))
                 b, by = bound_of(dict(work=work))
                 dms = device_ms(lambda: [kern(*c) for c in calls[name]],
                                 n=20)
-                print(f"kernel satd35_topk {tag:9s} {len(calls[name])} "
+                print(f"kernel {name} {tag:9s} {len(calls[name])} "
                       f"launches: device_ms {dms:.5f} a picture (both "
                       f"passes; events around 20 pictures' calls queued "
                       f"behind a device sleep), bound {b:.6f} ms ({by}) | "
                       f"{gpu_line()}", flush=True)
+            if name == "intra_bank":  # the bytes alone: fill the outputs
+                outs = [kern(*c) for c in calls[name]]
+                fms = device_ms(lambda: [o.fill_(7) for o in outs], n=20)
+                print(f"kernel intra_bank {tag:9s}: torch's fill_ of the "
+                      f"same {len(outs)} outputs device_ms {fms:.5f} a "
+                      f"picture (the stores alone) | {gpu_line()}",
+                      flush=True)
             print(f"kernel {name:11s} {tag:9s} calls {len(calls[name]):3d} "
                   f"max_abs_err {err:.3g} kernel_ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} (per picture, both passes)",
@@ -1705,6 +1716,103 @@ def check_satd_adversarial(dev, gpu):
           f"noise at S = 4..32, nc 1, 8, 35; S = 4 at 1920x1088 (130,560 "
           f"blocks, nc 8): equal to plain; that launch device_ms {dms:.5f}, "
           f"bound {b:.6f} ms ({by}) | {gpu}", flush=True)
+
+
+def bank_refs(S, bd, n, seed, dev):
+    """(tops, lefts) (m, 2S+1) int32 on dev: n noise blocks, then flat
+    blocks whose top and left deviations (t0 + t2S - 2 tS) take each of
+    +-(2^(bd-5) - 1) and +-2^(bd-5), then blocks at 0, at (1 << bd) - 1
+    and alternating between the two."""
+    rng = np.random.default_rng(seed)
+    hi, mid, thr = (1 << bd) - 1, 1 << (bd - 1), 1 << (bd - 5)
+    t = [rng.integers(0, hi + 1, (n, 2 * S + 1))]
+    l = [rng.integers(0, hi + 1, (n, 2 * S + 1))]
+    for dt in (thr - 1, thr, 1 - thr, -thr):
+        for dl in (thr - 1, thr, 1 - thr, -thr):
+            a, b = np.full((1, 2 * S + 1), mid), np.full((1, 2 * S + 1), mid)
+            a[0, 2 * S] += dt
+            b[0, 2 * S] += dl
+            t.append(a)
+            l.append(b)
+    alt = np.where(np.arange(2 * S + 1) % 2, hi, 0)
+    for a, b in ((0, 0), (hi, hi), (0, hi), (alt, hi - alt)):
+        t.append(np.broadcast_to(a, (1, 2 * S + 1)))
+        l.append(np.broadcast_to(b, (1, 2 * S + 1)))
+    return tuple(torch.as_tensor(np.concatenate(x), dtype=torch.int32,
+                                 device=dev) for x in (t, l))
+
+
+def bits_tiles(S, n, seed, dev):
+    """(m, S, S) int32 levels on dev: all-zero, DC-only, the last position
+    at the last scan position, levels up to 2^15 with alternating signs
+    (every escape length), then n sparse noise TUs."""
+    rng = np.random.default_rng(seed)
+    edge = np.zeros((8, S, S), np.int64)
+    edge[2:5, 0, 0] = (1, -7, 1 << 15)
+    edge[5, S - 1, S - 1] = -1
+    big = (rng.integers(0, 1 << 15, (2, S, S)) + 1) * np.where(
+        np.arange(S * S).reshape(S, S) % 2, -1, 1)
+    big[1] //= 1 << rng.integers(0, 15, (S, S))
+    noise = np.round(rng.normal(0, rng.choice((0.4, 1.5, 6, 50), (n, 1, 1)),
+                                (n, S, S)))
+    noise[rng.random((n, S, S)) < rng.random((n, 1, 1))] = 0
+    return torch.as_tensor(np.concatenate([edge, big, noise]),
+                           dtype=torch.int32, device=dev)
+
+
+def check_bank_bits_adversarial(dev, gpu):
+    """intra_bank and tu_bits against plain (torch.equal) at 1920x1088: the
+    bank at every S over the picture's blocks (luma with and without
+    strong smoothing, chroma) with the flat threshold-edge and extreme
+    reference blocks appended, at bit depths 8 and 10; tu_bits at every S
+    on as many TUs as the picture holds, after the edge-case TUs; two launches of each back to back; the S = 4
+    launches' device time and bound printed."""
+    fb = FracBits(I_ROW, QP)
+    for S in (4, 8, 16, 32):
+        n = 1920 * 1088 // (S * S)
+        for bd in (8, 10):
+            t, l = bank_refs(S, bd, n, S + bd, dev)
+            for luma, strong in ((True, True), (True, False), (False, False)):
+                got = intra_bank(t, l, S, luma, bd, strong)
+                want = predict_all_modes_plain(t, l, S, luma, bd, strong)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"intra_bank S={S} bd={bd} "
+                      f"luma={luma} strong={strong} at 1920x1088: differs")
+                del got, want
+        for luma in (True, False) if S < 32 else (True,):
+            est = est_tables(fb, S.bit_length() - 1, luma, dev)
+            tiles = bits_tiles(S, n, S + luma, dev)
+            got, want = tu_bits(est, tiles), tu_bits_plain(est, tiles)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"tu_bits S={S} luma={luma} "
+                  f"at 1920x1088: differs")
+    ins = [bank_refs(4, 8, 130560, s, dev) for s in (1, 2)]
+    est = est_tables(fb, 2, True, dev)
+    tiles = [bits_tiles(4, 130560, s, dev) for s in (3, 4)]
+    banks = [intra_bank(t, l, 4, True, 8, True) for t, l in ins]
+    bits = [tu_bits(est, x) for x in tiles]  # back to back, no sync
+    torch.cuda.synchronize()
+    for g, (t, l) in zip(banks, ins):
+        check(torch.equal(g, predict_all_modes_plain(t, l, 4, True, 8, True)),
+              "intra_bank back to back: differs")
+    for g, x in zip(bits, tiles):
+        check(torch.equal(g, tu_bits_plain(est, x)),
+              "tu_bits back to back: differs")
+    for name, fn, args, out in (
+            ("intra_bank", intra_bank, (*ins[0], 4, True, 8, True), banks[0]),
+            ("tu_bits", tu_bits, (est, tiles[0]), bits[0])):
+        work = Work()
+        work.add(name, args, out)
+        b, by = bound_of(dict(work=work))
+        dms = device_ms(lambda: fn(*args), n=20)
+        print(f"kernel {name} adversarial at 1920x1088: S = 4 ({args[1].shape[0]} "
+              f"{'blocks' if name == 'intra_bank' else 'TUs'}) device_ms "
+              f"{dms:.5f}, bound {b:.6f} ms ({by}) | {gpu}", flush=True)
+    print("kernel intra_bank, tu_bits adversarial: every S at 1920x1088 "
+          "(the bank with flat threshold-edge and extreme references at bit "
+          "depths 8 and 10, luma with and without strong smoothing, chroma; "
+          "tu_bits on all-zero, DC-only, last-position and 2^15 escape TUs), two launches back to back: equal to "
+          f"plain | {gpu}", flush=True)
 
 
 # the anchor picture's kernels held again at every call of the weighted
@@ -2896,6 +3004,7 @@ def main():
         check_stats_adversarial(dev)
         check_deblock_adversarial(dev)
         check_satd_adversarial(dev, gpu)
+        check_bank_bits_adversarial(dev, gpu)
         rows.update(check_intra_wave(dev))
         multi = multi_calls(dev)
         rows.update(check_multi_kernels(multi[0], rows))

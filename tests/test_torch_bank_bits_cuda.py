@@ -1,0 +1,154 @@
+"""`intra_bank` and `tu_bits` on the card against their plain versions on
+the same card, `torch.equal` (no JAX):
+
+- `intra_bank` (16-byte stores, a warp's lanes on one mode, the extended
+  references tabulated once a CTA) at every S, luma and chroma, with and
+  without strong smoothing; flat references at the edges of the strong
+  smoothing threshold (2^(bd-5) - 1 and 2^(bd-5), each sign, top and
+  left apart); references at 0 and (1 << bd) - 1 at bit depths 8 and 10;
+  block counts that leave a CTA's last blocks empty; S = 4 over a
+  1920x1088 picture (130,560 blocks);
+- `tu_bits` (lane teams of 16-byte vectors, exact fixed-point sums) at
+  every S, luma and chroma:
+  all-zero TUs, DC-only TUs, the last position at the last scan
+  position, levels up to 2^15 with alternating signs (escape lengths),
+  TU counts that leave a warp's or a block's last TUs empty;
+- both kernels, two launches back to back without a sync between.
+
+On a machine without a card every item skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import cuda_device  # noqa: F401
+from tpuhevc_torch.codec.intra_qt import I_ROW
+from tpuhevc_torch.entropy.bitest import (
+    FracBits, est_tables, tu_bits, tu_bits_plain)
+from tpuhevc_torch.kernels import LAUNCHES
+from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain, refs
+
+pytestmark = pytest.mark.cuda
+
+SIZES = (4, 8, 16, 32)
+
+
+def bank_refs(S, bd, n, seed):
+    """(tops, lefts) (m, 2S+1) int32: n noise blocks, then flat blocks
+    whose top and left deviations t0 + t2S - 2 tS (l0 + l2S - 2 lS) take
+    each of +-(2^(bd-5) - 1) and +-2^(bd-5), then blocks at 0, at
+    (1 << bd) - 1 and alternating between the two."""
+    rng = np.random.default_rng(seed)
+    hi, mid, thr = (1 << bd) - 1, 1 << (bd - 1), 1 << (bd - 5)
+    t = [rng.integers(0, hi + 1, (n, 2 * S + 1))]
+    l = [rng.integers(0, hi + 1, (n, 2 * S + 1))]
+    devs = (thr - 1, thr, 1 - thr, -thr)
+    for dt in devs:
+        for dl in devs:
+            a, b = np.full(2 * S + 1, mid), np.full(2 * S + 1, mid)
+            a[2 * S] += dt
+            b[2 * S] += dl
+            t.append(a[None])
+            l.append(b[None])
+    alt = np.where(np.arange(2 * S + 1) % 2, hi, 0)
+    for a, b in ((0, 0), (hi, hi), (0, hi), (alt, hi - alt)):
+        t.append(np.broadcast_to(a, (1, 2 * S + 1)))
+        l.append(np.broadcast_to(b, (1, 2 * S + 1)))
+    return tuple(torch.as_tensor(np.concatenate(x), dtype=torch.int32)
+                 for x in (t, l))
+
+
+def check_bank(tops, lefts, S, luma, bd, strong):
+    n0 = LAUNCHES["intra_bank"]
+    got = intra_bank(tops, lefts, S, luma, bd, strong)
+    want = predict_all_modes_plain(tops, lefts, S, luma, bd, strong)
+    torch.cuda.synchronize()
+    assert LAUNCHES["intra_bank"] == n0 + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want), (S, luma, bd)
+
+
+@pytest.mark.parametrize("S", SIZES)
+def test_intra_bank_matches_plain(cuda_device, S):
+    """Luma (strong smoothing on and off) and chroma at bit depths 8 and
+    10; 1, 3, 8k + 3 and 2k + 1 noise blocks before the flat and extreme
+    ones."""
+    for bd in (8, 10):
+        for n in (1, 3, 27, 53):
+            t, l = (x.to(cuda_device) for x in bank_refs(S, bd, n, S + n + bd))
+            for luma, strong in ((True, True), (True, False), (False, False)):
+                check_bank(t, l, S, luma, bd, strong)
+
+
+def test_intra_bank_s4_1080p(cuda_device):
+    """S = 4 over a 1920x1088 picture: 130,560 blocks, luma."""
+    plane = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 256, (1088, 1920)), dtype=torch.int32, device=cuda_device)
+    t, l = refs(plane, 4, 1088 // 4, 1920 // 4)
+    assert t.shape[0] == 130560
+    check_bank(t, l, 4, True, 8, True)
+
+
+def bits_tiles(S, n, seed):
+    """(m, S, S) int32 levels: all-zero, DC-only, the last position at the
+    last scan position (alone and under noise), levels up to 2^15 with
+    alternating signs, then n sparse noise TUs."""
+    rng = np.random.default_rng(seed)
+    tiles = [np.zeros((2, S, S), np.int64)]
+    dc = np.zeros((3, S, S), np.int64)
+    dc[:, 0, 0] = (1, -7, 1 << 15)
+    tiles.append(dc)
+    corner = np.round(rng.normal(0, 2, (2, S, S)))
+    corner[0] = 0
+    corner[:, S - 1, S - 1] = (-1, 40)
+    tiles.append(corner)
+    big = rng.integers(0, 1 << 15, (3, S, S)) + 1
+    big = big * np.where(np.arange(S * S).reshape(S, S) % 2, -1, 1)
+    big[1] //= 1 << rng.integers(0, 15, (S, S))  # every escape length
+    big[2, :, S // 2:] = 0
+    tiles.append(big)
+    noise = np.round(rng.normal(0, rng.choice((0.4, 1.5, 6, 50), (n, 1, 1)),
+                                (n, S, S)))
+    noise[rng.random((n, S, S)) < rng.random((n, 1, 1))] = 0
+    tiles.append(noise)
+    return torch.as_tensor(np.concatenate(tiles), dtype=torch.int32)
+
+
+def check_bits(est, tiles):
+    n0 = LAUNCHES["tu_bits"]
+    got = tu_bits(est, tiles)
+    want = tu_bits_plain(est, tiles)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tu_bits"] == n0 + 1
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_tu_bits_matches_plain(cuda_device):
+    """Every S, luma and chroma, at QP 22 and 37; TU counts of 1, 8k + 5
+    and 64k + 37 noise TUs after the edge cases."""
+    for qp in (22, 37):
+        fb = FracBits(I_ROW, qp)
+        for S in SIZES:
+            for luma in (True, False) if S < 32 else (True,):
+                est = est_tables(fb, S.bit_length() - 1, luma, cuda_device)
+                for n in (1, 29, 101):
+                    check_bits(est, bits_tiles(S, n, S + n + qp).to(cuda_device))
+
+
+def test_bank_and_bits_back_to_back(cuda_device):
+    """Two launches of each kernel back to back on different inputs, no
+    sync between; then each against plain."""
+    fb = FracBits(I_ROW, 32)
+    for S in SIZES:
+        ins = [tuple(x.to(cuda_device) for x in bank_refs(S, 8, 61, s))
+               for s in (1, 2)]
+        got = [intra_bank(t, l, S, True, 8, True) for t, l in ins]
+        est = est_tables(fb, S.bit_length() - 1, True, cuda_device)
+        tiles = [bits_tiles(S, 77, s).to(cuda_device) for s in (3, 4)]
+        bits = [tu_bits(est, x) for x in tiles]
+        torch.cuda.synchronize()
+        for g, (t, l) in zip(got, ins):
+            assert torch.equal(g, predict_all_modes_plain(t, l, S, True, 8,
+                                                          True))
+        for g, x in zip(bits, tiles):
+            assert torch.equal(g, tu_bits_plain(est, x))

@@ -13,7 +13,9 @@
   1e-5, atol 1e-3 (sum order), quantiser and table RDOQ, DCT and DST;
 - `entropy.bitest.tu_bits` against `ResidualBitEst.tu_bits`: bits within
   rtol 1e-5, atol 1e-3 (the port sums exactly, JAX in float32 order), with
-  a Rice-boundary sweep of the CG max and of the remainders.
+  a Rice-boundary sweep of the CG max and of the remainders; and the
+  premise of the kernel's exact integer sums (every table value a
+  multiple of 2^-15, the worst-case sums below 2^31 units) at QP 0-51.
 
 Tolerances: integer outputs must be equal; float32 sums of squares and
 of fractional table bits may differ by the rounding of their sum order,
@@ -31,11 +33,12 @@ from torch_port_util import QP, cuda_device, rng_planes  # noqa: F401
 from tpuhevc.codec.intra_qt import I_ROW
 from tpuhevc.entropy.bitest import FracBits, ResidualBitEst
 from tpuhevc_torch.entropy.bitest import FracBits as PortFracBits
+from tpuhevc_torch.entropy.bitest import ResidualBitEst as PortResidualBitEst
 from tpuhevc.ops import intra as jintra
 from tpuhevc.ops import transforms as jtx
 from tpuhevc.utils.tables import chroma_qp
 from tpuhevc_torch.entropy.bitest import (
-    est_tables, rice_bits, rice_param, tu_bits, tu_bits_plain)
+    EstTables, est_tables, rice_bits, rice_param, tu_bits, tu_bits_plain)
 from tpuhevc_torch.ops.cost import satd35_topk, satd35_topk_plain
 from tpuhevc_torch.ops.intra import (
     blocks, intra_bank, predict_all_modes_plain, refs)
@@ -334,6 +337,34 @@ def test_rice_formulas_match_jax_across_boundaries():
     assert int(got[0]) == 4 + 2 * 13
 
 
+@pytest.mark.parametrize("log2,luma", [(g, c) for c in (True, False)
+                                        for g in (2, 3, 4, 5)])
+def test_tu_bits_fixed_point_premise(log2, luma):
+    """The premise of the kernel's exact integer sums, for QP 0-51 over
+    each init row the port builds tables for (B 0, P 1, I 2): every cost
+    table value times 2^15 is an integer, and the worst-case csbf, sig
+    and gt1/gt2 sums stay below 2^31 units of 2^-15 (so the kernel sums
+    in int32)."""
+    ncg = max(1, (1 << log2) >> 2) ** 2
+    for row in (0, 1, 2):
+        for qp in range(52):
+            est = PortResidualBitEst(PortFracBits(row, qp), log2, luma)
+            q = EstTables(est, "cpu").ftab.double() * 32768
+            assert torch.equal(q, q.round()), (row, qp)
+            u = {k: np.asarray(getattr(est, k), np.float64) * 32768
+                 for k in PortResidualBitEst.COST_FIELDS}
+            # a CG's gt1/gt2 bits: 8 gt1 bins and the gt2 bin at their
+            # dearest, below 2^24 (exact in float32, as the plain version
+            # takes them)
+            cg_b12 = max(8 * u[g1].max() + u[g2].max()
+                         for g1, g2 in (("gt1_bits", "gt2_bits"),
+                                        ("gt1_bits0", "gt2_bits0")))
+            worst = (ncg * u["csbf_bits"].max(),  # every CG's flag
+                     u["sig_bits"].max(axis=(0, 3)).sum(),  # every position
+                     ncg * cg_b12)
+            assert cg_b12 < 1 << 24 and max(worst) < 1 << 31, (row, qp)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,luma", [(4, True), (8, True), (16, True),
                                     (32, True), (4, False), (8, False),
@@ -341,8 +372,8 @@ def test_rice_formulas_match_jax_across_boundaries():
 def test_intra_kernels_match_plain(cuda_device, S, luma):
     """intra_bank, satd35_topk, intra_txq (quantiser and RDOQ) and
     tu_bits on the card against their plain versions on the same card:
-    integers and intra_txq's SSEs equal, tu_bits' float32 bits within
-    rtol 1e-5 / atol 1e-3."""
+    integers, intra_txq's SSEs and tu_bits' float32 bits (exact sums
+    rounded once) equal."""
     _, _, _, t, l, org = bank_inputs(S, luma, seed=S + 1)
     t, l, org = t.to(cuda_device), l.to(cuda_device), org.to(cuda_device)
     for strong in (False, True):
@@ -370,12 +401,9 @@ def test_intra_kernels_match_plain(cuda_device, S, luma):
         for g, w in zip(got, want):  # the SSEs are exact integer sums
             assert torch.equal(g, w)
         tiles = got[2].reshape(-1, S, S)
-        torch.testing.assert_close(tu_bits(et, tiles),
-                                   tu_bits_plain(et, tiles), rtol=RTOL,
-                                   atol=ATOL)
+        assert torch.equal(tu_bits(et, tiles), tu_bits_plain(et, tiles))
     sweep = torch.from_numpy(rice_sweep_tiles(S)).to(cuda_device)
-    torch.testing.assert_close(tu_bits(et, sweep), tu_bits_plain(et, sweep),
-                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(tu_bits(et, sweep), tu_bits_plain(et, sweep))
 
 
 @pytest.mark.cuda

@@ -9,18 +9,20 @@ stand-in, and one sign bit per nonzero level.
 
 The estimator's tables come in as tensors (`EstTables`), built from the
 fields of a `ResidualBitEst` (the host estimator, a copy of the
-reference's, in the first half of this module); the kernel reads
-them from device memory, so live tables (an `EstView`) can take the same
-entry point.
+reference's, in the first half of this module); the kernel reads them
+from device memory, so tables built from live context states take the
+same entry point.
 
-Numbers: each of the five partial sums is taken exactly (float64; every
-table value is a multiple of 2^-15, so the sums are exact in any order)
-and rounded to float32 once, then added in float32 in the reference's
-order. JAX sums in float32, which is exact too while a partial sum stays
-below 2^9 bits; above that the two differ by a few ulps. The Rice
-parameter and the escape length are exact integer formulas (XLA's float
-log2 rounds below 13 and 15 at 2^13 and 2^15, where JAX and the port
-differ; levels that large do not occur at the QPs the decision runs at).
+Numbers: each of the five partial sums is taken exactly and rounded to
+float32 once, then added in float32 in the reference's order. Every
+table value the sums take is one ENTROPY_BITS entry, a multiple of
+2^-15, so the sums are exact in any order: float64 here, int32 in units
+of 2^-15 in the kernel (checked at import below). JAX sums in float32,
+which is exact too while a partial sum stays below 2^9 bits; above that
+the two differ by a few ulps. The Rice parameter and the escape length
+are exact integer formulas (XLA's float log2 rounds below 13 and 15 at
+2^13 and 2^15, where JAX and the port differ; levels that large do not
+occur at the QPs the decision runs at).
 
 `tu_bits_plain` is the PyTorch version; `tu_bits` launches the CUDA
 kernel (`kernels/csrc/tu_bits.cu`) for CUDA tensors.
@@ -41,6 +43,12 @@ from .ctx_tables import ENTROPY_BITS
 # --- host estimator tables (numpy; copied from the reference) ---------------
 
 _B = ENTROPY_BITS.astype(np.float64) / 32768.0  # bits per (state ^ bin)
+
+# The kernel sums a TU's csbf, sig and gt1/gt2 costs, each one entry of
+# _B, as int32 in units of 2^-15: exact while 32 x 32 of the largest stay
+# below 2^31 (the worst case is one sig bin a position of a 32x32 TU).
+if 1024 * int(ENTROPY_BITS.max()) >= 1 << 31:
+    raise ImportError("ENTROPY_BITS: tu_bits' int32 sums could overflow")
 
 _SIG_IDX_CACHE: dict = {}  # (log2, is_luma) -> sig ctx index map
 
@@ -618,13 +626,16 @@ def tu_bits(est: EstTables, tiles: torch.Tensor) -> torch.Tensor:
     if tuple(tiles.shape[1:]) != (S, S):
         raise ValueError(f"tu_bits: tiles {tuple(tiles.shape)} for a "
                          f"{S}x{S} estimator")
+    if any(t.data_ptr() % 16 for t in (tiles, est.itab, est.ftab)):
+        raise ValueError("tu_bits: tiles and tables must be 16-byte aligned")
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     fn = kbuild.function("tu_bits", "tpuhevc_tu_bits",
-                         [kbuild.P] * 4 + [kbuild.I] * 2 + [kbuild.P])
+                         [kbuild.P] * 4 + [kbuild.I] * 3 + [kbuild.P])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = fn(tiles.data_ptr(), est.itab.data_ptr(), est.ftab.data_ptr(),
-             out.data_ptr(), n, est.log2,
+             out.data_ptr(), n, est.log2, sms,
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "tu_bits")
     LAUNCHES["tu_bits"] += 1

@@ -211,24 +211,23 @@ def code_split(cfg, nn_by_qp, clip, dev, gpu: str, tag: str) -> None:
           flush=True)
 
 
-# every kernel of the port by the names the profiler gives it (on this
-# tree and on its parents: a template's name ends in "<", a plain
-# function's in "("; a name given with "<" matches those template
-# arguments: the prestage is `grid_coarse`'s tile-4 pick, so it is also
+# every kernel of the port by the names the profiler gives it (a
+# template's name ends in "<", a plain function's in "("; a name given
+# with "<" matches those template arguments: the prestage is `grid_coarse`'s tile-4 pick, so it is also
 # inside the `grid_coarse` row, which takes both of the step's launches)
 KERNEL_SYMBOLS = {
-    "grid_coarse": ("coarse_kernel", "coarse_stage_kernel"),
+    "grid_coarse": ("coarse_stage_kernel",),
     "grid_prestage": ("coarse_stage_kernel<4, true",),
     "grid_refine": ("refine_kernel",), "grid_planes": ("planes_kernel",),
-    "grid_satd": ("gather_kernel", "satd_kernel", "satd_cost_kernel"),
+    "grid_satd": ("gather_kernel", "satd_cost_kernel"),
     "nnfme_mlp": ("nnfme_mlp_kernel",), "grid_intra16": ("intra16_kernel",),
     "grid_deblock": ("grid_deblock_kernel",),
     "grid_sao": ("sao_stats_kernel", "sao_decide_kernel",
                  "sao_apply_kernel"),
-    "intra_bank": ("intra_bank_kernel",),
+    "intra_bank": ("intra_bank_rows",),
     "satd35_topk": ("satd35_topk_kernel",),
-    "intra_txq": ("intra_txq_kernel", "intra_txq_tus"),
-    "tu_bits": ("tu_bits_kernel",),
+    "intra_txq": ("intra_txq_tus",),
+    "tu_bits": ("tu_bits_teams",),
     "sad_search": ("sad_search_kernel",), "mc_blk": ("mc_blk_kernel",),
     "txq": ("txq_kernel",), "b_me": ("b_me_kernel",),
     "b_pred": ("b_pred_kernel",), "b_txq": ("b_txq_kernel",),
