@@ -51,7 +51,13 @@
    the identity);
    intra_wave (fixed-8x8 intra of whole pictures) on 3 frames of the
    416x240 clip at QP 32 and at the graft entry's shape (192x128, QP 32,
-   planes from np.random.default_rng(0)), all seven outputs.
+   planes from np.random.default_rng(0)), both with the recon planes on
+   chip (416x240 in a cluster of 4 blocks a frame, 192x128 one block),
+   and on 1 frame of an 832x480 clip,
+   whose planes do not fit on chip (the variant that keeps them in device
+   memory), all seven outputs; its shared-memory bytes as the C entry
+   gives them against the wrapper's at 104x72, 416x240, 832x480 and
+   1920x1088.
    grid_refine's split S = 32 launch and grid_sao_decide of the anchor
    and the fade picture on two streams of one card without a sync between
    (each stream's own ticket scratch), each equal to plain.
@@ -264,7 +270,8 @@ from tpuhevc_torch.ops.interp import (  # noqa: E402
     b_pred, b_pred_plain, mc_blk, mc_blk_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_txq import intra_txq, intra_txq_plain  # noqa: E402
-from tpuhevc_torch.ops.intra_wave import WaveTables, intra_wave, intra_wave_plain  # noqa: E402
+from tpuhevc_torch.ops.intra_wave import (  # noqa: E402
+    WaveTables, intra_wave, intra_wave_plain, wave_smem, wave_variant)
 from tpuhevc_torch.ops.me import (  # noqa: E402
     b_me, b_me_plain, bits_table, sad_search, sad_search_plain)
 from tpuhevc_torch.ops.txq import b_txq, b_txq_plain, txq, txq_plain  # noqa: E402
@@ -419,7 +426,7 @@ def tensors(x):
     elif hasattr(x, "itab"):  # EstTables
         yield from (x.itab, x.ftab)
     elif isinstance(x, WaveTables):  # what the kernel reads of the schedule
-        yield from (x.cells, x.flags)
+        yield x.slots
 
 
 def window_mask(plane, xs, ys, mvq, size, is_luma, sel=None):
@@ -2340,21 +2347,39 @@ def check_intra_wave(dev):
     """Kernel vs plain on the card for intra_wave, all seven outputs exact:
     (a) 3 frames of the 416x240 clip at QP 32 in one launch (the main
     path's batches), (b) the graft entry's step, 192x128 at QP 32 with
-    max_tu_depth_intra 0. Returns {name: row}; ms/plain_ms per launch of
-    (a); `steps` its dependency depth."""
+    max_tu_depth_intra 0, both with the recon on chip, (c) 1 frame of an
+    832x480 clip (its 8-bit planes, 599,040 bytes, do not fit on chip:
+    the recon in device memory; compared, not timed against plain).
+    Returns {name: row}; ms/plain_ms per launch of (a); `steps` its
+    dependency depth."""
+    smem_c = kbuild.function("intra_wave", "tpuhevc_intra_wave_smem",
+                             [kbuild.I] * 4)
+    for w, h in ((104, 72), (416, 240), (832, 480), (1920, 1088)):
+        bmax = wave_tables(w, h, 6, "cpu").slots.shape[1]
+        for on_chip in (True, False):
+            check(smem_c(w, h, bmax, int(on_chip))
+                  == wave_smem(w, h, bmax, on_chip),
+                  f"intra_wave smem at {w}x{h}: C and Python differ")
     clip = Reader(W, H, 3).frames
+    big = Reader(832, 480, 1).frames
     graft = EncoderConfig(sps=SeqParams(width=192, height=128,
                                         max_tu_depth_intra=0), qp=32,
                           intra_period=1, intra_qt=False)
-    cases = [("416x240 x 3", intra8_cfg(W, H, 3),
-              [torch.as_tensor(np.stack([f[i] for f in clip]).astype(
-                  np.int32), device=dev) for i in range(3)]),
-             ("192x128 graft", graft, graft_planes(dev))]
+
+    def stack(frames):
+        return [torch.as_tensor(np.stack([f[i] for f in frames]).astype(
+            np.int32), device=dev) for i in range(3)]
+
+    cases = [("416x240 x 3", intra8_cfg(W, H, 3), stack(clip), True),
+             ("192x128 graft", graft, graft_planes(dev), True),
+             ("832x480 x 1", intra8_cfg(832, 480, 1), stack(big), False)]
     row = None
-    for tag, cfg, planes in cases:
+    for tag, cfg, planes, timed in cases:
         sps = cfg.sps
         geo = wave_tables(sps.coded_width, sps.coded_height, sps.log2_ctu,
                           dev)
+        on_chip, cluster, smem = wave_variant(
+            sps.coded_width, sps.coded_height, *geo.slots.shape)
         args = (*planes, geo, cfg.qp, _sqlam_fp(cfg),
                 sps.strong_intra_smoothing)
         a, b = intra_wave(*args), intra_wave_plain(*args)
@@ -2367,16 +2392,20 @@ def check_intra_wave(dev):
             err = max(err, float((x.double() - y.double()).abs().max()))
         check(err == 0, f"intra_wave {tag}: outputs differ by {err}")
         ms = median_ms(lambda: intra_wave(*args), reps=10)
-        plain_ms = median_ms(lambda: intra_wave_plain(*args), reps=1)
+        plain_ms = (median_ms(lambda: intra_wave_plain(*args), reps=1)
+                    if timed else float("nan"))
         work = Work()
         work.add("intra_wave", args, a)
         bound_ms, bound_by = bound_of(dict(work=work))
-        nf, steps = planes[0].shape[0], geo.cells.shape[0]
-        print(f"kernel intra_wave   {tag}: max_abs_err {err:.3g} kernel_ms "
+        nf, steps = planes[0].shape[0], geo.slots.shape[0]
+        print(f"kernel intra_wave   {tag}: recon "
+              f"{'on chip' if on_chip else 'in device memory'} ({smem} "
+              f"bytes of shared memory, {cluster} blocks a frame) "
+              f"max_abs_err {err:.3g} kernel_ms "
               f"{ms:.4f} ({ms / nf:.4f} a picture) plain_ms {plain_ms:.4f} "
               f"bound {bound_ms:.6f} ms ({bound_by}; {work.bytes} bytes, "
               f"{work.ops} operations) dependency depth {steps} waves of "
-              f"up to {geo.cells.shape[1]} cells ({ms / steps * 1e3:.2f} us "
+              f"up to {geo.slots.shape[1]} cells ({ms / steps * 1e3:.2f} us "
               f"a wave)", flush=True)
         if row is None:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, work=work,

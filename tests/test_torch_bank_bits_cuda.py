@@ -15,7 +15,11 @@ the same card, `torch.equal` (no JAX):
   TU counts that leave a warp's or a block's last TUs empty;
 - both kernels, two launches back to back without a sync between.
 
-On a machine without a card every item skips.
+On the CPU, the host side of `intra_wave`: the variant that keeps the
+recon planes on chip where they fit (104x72, 416x240) and in device
+memory where they do not (832x480, 1920x1088), its shared-memory bytes
+and the packed slot words of the wave schedule. Without a card every
+other item skips.
 """
 
 import numpy as np
@@ -26,10 +30,10 @@ from torch_port_util import cuda_device  # noqa: F401
 from tpuhevc_torch.codec.intra_qt import I_ROW
 from tpuhevc_torch.entropy.bitest import (
     FracBits, est_tables, tu_bits, tu_bits_plain)
+from tpuhevc_torch.codec.intra_frame import wave_tables
 from tpuhevc_torch.kernels import LAUNCHES
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain, refs
-
-pytestmark = pytest.mark.cuda
+from tpuhevc_torch.ops.intra_wave import SMEM_LIMIT, wave_smem, wave_variant
 
 SIZES = (4, 8, 16, 32)
 
@@ -68,6 +72,7 @@ def check_bank(tops, lefts, S, luma, bd, strong):
     assert got.dtype == torch.int32 and torch.equal(got, want), (S, luma, bd)
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", SIZES)
 def test_intra_bank_matches_plain(cuda_device, S):
     """Luma (strong smoothing on and off) and chroma at bit depths 8 and
@@ -80,6 +85,7 @@ def test_intra_bank_matches_plain(cuda_device, S):
                 check_bank(t, l, S, luma, bd, strong)
 
 
+@pytest.mark.cuda
 def test_intra_bank_s4_1080p(cuda_device):
     """S = 4 over a 1920x1088 picture: 130,560 blocks, luma."""
     plane = torch.as_tensor(np.random.default_rng(5).integers(
@@ -123,6 +129,7 @@ def check_bits(est, tiles):
     assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
+@pytest.mark.cuda
 def test_tu_bits_matches_plain(cuda_device):
     """Every S, luma and chroma, at QP 22 and 37; TU counts of 1, 8k + 5
     and 64k + 37 noise TUs after the edge cases."""
@@ -135,6 +142,7 @@ def test_tu_bits_matches_plain(cuda_device):
                     check_bits(est, bits_tiles(S, n, S + n + qp).to(cuda_device))
 
 
+@pytest.mark.cuda
 def test_bank_and_bits_back_to_back(cuda_device):
     """Two launches of each kernel back to back on different inputs, no
     sync between; then each against plain."""
@@ -152,3 +160,36 @@ def test_bank_and_bits_back_to_back(cuda_device):
                                                           True))
         for g, x in zip(bits, tiles):
             assert torch.equal(g, tu_bits_plain(est, x))
+
+
+def test_intra_wave_variant_and_smem():
+    """The recon on chip where 1.5 w h + w h / 64 bytes of 8-bit planes fit
+    beside the per-slot words (499 a slot, 560 fixed: intra_wave.cu's
+    layout), else in device memory; a cluster of 4 blocks a frame where
+    the waves hold 5 cells or more on average; a size that fits neither
+    raises. The slot words decode to the schedule's cells and flags."""
+    expect = {(104, 72): (5, True, 1), (192, 128): (8, True, 1),
+              (416, 240): (14, True, 4), (832, 480): (25, False, 1),
+              (1920, 1088): (52, False, 1)}
+    for (w, h), (bmax, on_chip, cluster) in expect.items():
+        geo = wave_tables(w, h, 6, "cpu")
+        steps = geo.slots.shape[0]
+        assert geo.slots.shape[1] == bmax
+        assert (on_chip and (w // 8) * (h // 8) >= 5 * steps) == (
+            cluster == 4)
+        work = 4 * (560 + 499 * bmax)
+        planes = 3 * w * h // 2 + (w // 8) * (h // 8)
+        assert wave_smem(w, h, bmax, False) == work
+        assert wave_smem(w, h, bmax, True) == work + planes
+        assert (work + planes <= SMEM_LIMIT) == on_chip
+        assert wave_variant(w, h, steps, bmax) == (
+            on_chip, cluster, work + planes * on_chip)
+        v, cells, w8 = geo.slots, geo.cells, w // 8
+        ok = cells >= 0
+        assert torch.equal(v >= 0, ok)
+        assert torch.equal((((v >> 12) & 0xFFF) * w8 + (v & 0xFFF))[ok],
+                           cells[ok])
+        assert torch.equal((v >> 24)[ok], geo.flags[ok])
+    assert wave_smem(416, 240, 14, True) == 181504
+    with pytest.raises(ValueError):
+        wave_variant(1920, 1088, 1156, 466)

@@ -15,8 +15,9 @@
 - the IDR of LD-P with fixed 8x8 intra equals tpuhevc's, and a short LD-P
   stream behind it decodes hash-OK in both decoders.
 
-Eight items at most, so that `--dist loadfile` runs this file after the
-larger ones; no tpuhevc grid scan is built.
+Nine items, two of them the `cuda` test's cases (the recon on chip and
+in device memory), which skip without a card; no tpuhevc grid scan is
+built.
 """
 
 # jax is imported inside the tests that compare with it, so that the CUDA
@@ -32,7 +33,8 @@ from tpuhevc_torch.codec.encoder import Encoder, encode_sequence
 from tpuhevc_torch.codec.intra_frame import _sqlam_fp, build_frame_encoder, wave_tables
 from tpuhevc_torch.codec.recon import encode_frame_intra
 from tpuhevc_torch.kernels import LAUNCHES, reset_launches
-from tpuhevc_torch.ops.intra_wave import intra_wave, intra_wave_plain
+from tpuhevc_torch.ops.intra_wave import (intra_wave, intra_wave_plain,
+                                          wave_variant)
 
 SYNTAX = ("luma_mode", "chroma_mode", "coeff_y", "coeff_cb", "coeff_cr")
 
@@ -169,15 +171,20 @@ def test_ldp_idr_matches_jax():
 
 
 @pytest.mark.cuda
-def test_cuda_intra_wave_matches_plain(cuda_device):
-    w, h = 104, 72
+@pytest.mark.parametrize("w,h,nf,on_chip", [(104, 72, 2, True),
+                                           (832, 480, 1, False)])
+def test_cuda_intra_wave_matches_plain(cuda_device, w, h, nf, on_chip):
+    """The kernel against its plain version, the recon planes kept on chip
+    (104x72) and in device memory (832x480: 599,040 bytes of 8-bit
+    planes do not fit)."""
     pcfg = port_params.EncoderConfig(
         sps=port_params.SeqParams(width=w, height=h), qp=QP, intra_period=1,
         intra_qt=False)
-    ps = [planes(w, h, seed) for seed in (3, 9)]
+    ps = [planes(w, h, seed) for seed in (3, 9)[:nf]]
     args = [torch.as_tensor(np.stack([p[i] for p in ps]), dtype=torch.int32)
             for i in range(3)]
     geo_cpu = wave_tables(w, h, pcfg.sps.log2_ctu, "cpu")
+    assert wave_variant(w, h, *geo_cpu.slots.shape)[0] == on_chip
     ref = intra_wave_plain(*args, geo_cpu, QP, _sqlam_fp(pcfg))
     geo = wave_tables(w, h, pcfg.sps.log2_ctu, cuda_device)
     reset_launches()

@@ -27,7 +27,12 @@ On a card (`cuda`; skipped here), `torch.equal` to the plain versions:
   stream's own scratch and ticket, left at zero);
 - `grid_sao_stats` on the same kinds of planes at 416x240 with CTU 64, 32
   and 16, on the 3 stripes with their halo rows, and two launches back
-  to back.
+  to back;
+- `grid_sao_apply` (a thread a run of 4 samples, one 16-byte store) on
+  the same kinds of planes with seeded parameters (every type -1..4 among
+  the CTUs of each component, every band position, offsets -7..7) at CTU
+  64, 32 and 16, the whole picture and the middle stripe with
+  top = bot = 1.
 """
 
 import numpy as np
@@ -36,7 +41,9 @@ import torch
 
 from torch_port_util import cuda_device  # noqa: F401
 from tpuhevc_torch.kernels import LAUNCHES
-from tpuhevc_torch.ops.grid_sao import (grid_sao_stats,
+from tpuhevc_torch.ops.grid_sao import (grid_sao_apply,
+                                        grid_sao_apply_plain,
+                                        grid_sao_stats,
                                         grid_sao_stats_plain)
 from tpuhevc_torch.ops.grid_stats import (grid_stats_partial,
                                           grid_stats_partial_plain,
@@ -252,4 +259,41 @@ def test_cuda_sao_stats_matches_plain(cuda_device):
     torch.cuda.synchronize()
     for g, p in zip(got, pics):
         same(g, grid_sao_stats_plain(*p, 64), "back to back")
+    assert LAUNCHES["grid_sao"] - before == calls
+
+
+def sao_par(n, seed, dev):
+    """par (3, 6 n) int32 of n CTUs: types cycling through -1..4 from a
+    seeded start, aux 0..31 and offsets -7..7 from a seeded generator."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for c in range(3):
+        typ = (np.arange(n) + rng.integers(0, 6)) % 6 - 1
+        rows.append(np.concatenate([typ, rng.integers(0, 32, n),
+                                    rng.integers(-7, 8, 4 * n)]))
+    return torch.as_tensor(np.stack(rows).astype(np.int32), device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_sao_apply_matches_plain(cuda_device):
+    dev = cuda_device
+    before = LAUNCHES["grid_sao"]
+    calls = 0
+    a, b = STRIPES[1]
+    for seed, kind in enumerate(("noise", "flat", "band", "smooth")):
+        pic = picture(kind, H, W, 50 + seed, dev)
+        for ctu in (64, 32, 16):
+            n = -(-H // ctu) * -(-W // ctu)
+            par = sao_par(n, 60 + seed, dev)
+            same(grid_sao_apply(pic[2], pic[3], par, ctu),
+                 grid_sao_apply_plain(pic[2], pic[3], par, ctu),
+                 f"{kind} CTU {ctu}")
+            sa = stripe_args(pic, a, b, H)
+            assert sa[4] == 1 and sa[2].shape[0] == b - a + 2
+            n = -(-(b - a) // ctu) * -(-W // ctu)
+            par = sao_par(n, 70 + seed, dev)
+            same(grid_sao_apply(sa[2], sa[3], par, ctu, 1, b - a),
+                 grid_sao_apply_plain(sa[2], sa[3], par, ctu, 1, b - a),
+                 f"{kind} CTU {ctu} rows {a}..{b}")
+            calls += 2
     assert LAUNCHES["grid_sao"] - before == calls

@@ -191,6 +191,11 @@ def wave_tables(w: int, h: int, log2_ctu: int, device) -> WaveTables:
         flags = (g.avail.astype(np.int32)
                  << np.arange(5, dtype=np.int32)).sum(-1)
         flags = flags | (g.mpm_left_ok << 5) | (g.mpm_above_ok << 6)
+        w8 = w // 8
+        if w8 > 0xfff or h // 8 > 0xfff:
+            raise ValueError(f"wave_tables: {w}x{h} is too large")
+        slots = np.where(g.mask, (g.cell_idx % w8)
+                         | (g.cell_idx // w8) << 12 | flags << 24, -1)
 
         def up(a, dt=torch.int64):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
@@ -200,6 +205,7 @@ def wave_tables(w: int, h: int, log2_ctu: int, device) -> WaveTables:
             counts=tuple(int(c) for c in g.mask.sum(1)),
             cells=up(np.where(g.mask, g.cell_idx, -1), torch.int32),
             flags=up(np.where(g.mask, flags, 0), torch.int32),
+            slots=up(slots, torch.int32),
             avail=up(g.avail, torch.bool), ml_i=up(g.mpm_left_idx),
             ma_i=up(g.mpm_above_idx), y_seg=up(g.y_seg), y_blk=up(g.y_blk),
             c_seg=up(g.c_seg), c_blk=up(g.c_blk))

@@ -58,7 +58,11 @@
 // luma bands of a CTU meet through distributed shared memory (each writes
 // its 96 values into the first block's, one cluster barrier, the first
 // block adds them), so that every bin of every CTU is written once, by one
-// launch. Apply: one thread per sample of the three components. Decide: a
+// launch. Apply: a thread a run of 4 samples of a row (a 2-D grid over
+// the W-wide luma rows, then the packed [U | V] rows), its run, the runs
+// above and below and the six edge samples loaded with its CTU's type,
+// aux and offsets in one round (the CTU by shifts), one 16-byte store; no
+// division a sample. Decide: a
 // warp a (CTU, component), a few CTUs a block (so that a picture's CTUs
 // spread over the SMs): lanes 0-15 the 16 EO (class,
 // category) pairs, lane b band b, lane p < 29 window p from shuffles in
@@ -78,31 +82,12 @@ namespace {
 
 constexpr int kStat = 48;
 constexpr unsigned kFull = 0xffffffffu;
-__constant__ int c_eo_nb[4][4] = {{0, -1, 0, 1},     // (dy0, dx0, dy1, dx1)
-                                  {-1, 0, 1, 0},
-                                  {-1, -1, 1, 1},
-                                  {-1, 1, 1, -1}};
-__constant__ int c_cat[5] = {1, 2, 0, 3, 4};
-
 // h own rows; rows lo..hi - 1 readable (lo <= 0, hi >= h: halo rows)
 struct Plane {
     const int* p;
     int stride, h, w, lo, hi;
     __device__ int at(int y, int x) const { return p[y * stride + x]; }
 };
-
-// EO category of (y, x) for class k, or -1 where a neighbour is outside.
-__device__ __forceinline__ int eo_cat(const Plane& r, int y, int x, int k) {
-    const int y0 = y + c_eo_nb[k][0], x0 = x + c_eo_nb[k][1];
-    const int y1 = y + c_eo_nb[k][2], x1 = x + c_eo_nb[k][3];
-    if (y0 < r.lo || y0 >= r.hi || x0 < 0 || x0 >= r.w || y1 < r.lo
-        || y1 >= r.hi || x1 < 0 || x1 >= r.w)
-        return -1;
-    const int v = r.at(y, x);
-    const int a = r.at(y0, x0), b = r.at(y1, x1);
-    const int et = (v > a) - (v < a) + (v > b) - (v < b);
-    return c_cat[et + 2];
-}
 
 // component c of the stripe (H own luma rows, `top` / `bot` halo rows of
 // each plane): 0 luma, 1 / 2 the halves of the packed plane
@@ -284,39 +269,81 @@ __global__ void __launch_bounds__(kStatThreads)
     }
 }
 
-__global__ void sao_apply_kernel(const int* __restrict__ ry,
-                                 const int* __restrict__ ruv,
-                                 const int* __restrict__ par,
-                                 int* __restrict__ out_y,
-                                 int* __restrict__ out_uv, int H, int W,
-                                 int ctu, int ny, int nx, int top, int bot) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    const int nl = H * W, nc = (H >> 1) * (W >> 1);
-    if (t >= nl + 2 * nc) return;
-    const int c = t < nl ? 0 : 1 + (t - nl) / nc;
-    const int i = c == 0 ? t : (t - nl) % nc;
-    const Plane r = comp(ry, ruv, c, H, W, top, bot);
-    const int y = i / r.w, x = i % r.w;
-    const int cs = c == 0 ? ctu : ctu >> 1;
-    const int nctu = ny * nx;
-    const int ci = min(y / cs, ny - 1) * nx + min(x / cs, nx - 1);
-    const int* p = par + (size_t)c * 6 * nctu;  // type, aux, off4 rows
-    const int type = p[ci], aux = p[nctu + ci];
-    const int* off = p + 2 * nctu + 4 * ci;
-    const int v = r.at(y, x);
-    int add = 0;
-    if (type >= 0 && type < 4) {
-        const int cat = eo_cat(r, y, x, type);
-        if (cat > 0) add = cat <= 2 ? off[cat - 1] : -off[cat - 1];
-    } else if (type == 4) {
-        const int rel = ((v >> 3) - aux) & 31;
-        if (rel < 4) add = off[rel];
+constexpr int kApplyX = 16, kApplyY = 8;  // an apply block: runs x rows
+
+// the offset of a sample v between neighbours a and b (EO) where ok
+__device__ __forceinline__ int eo_add(int v, int a, int b, bool ok,
+                                      int4 off) {
+    const int et = (v > a) - (v < a) + (v > b) - (v < b);
+    const int add = et == -2 ? off.x : et == -1 ? off.y
+                  : et == 1 ? -off.z : et == 2 ? -off.w : 0;
+    return ok ? add : 0;
+}
+
+// A thread a run of 4 samples of one row: luma rows 0..H-1, then the
+// packed chroma rows (a run never straddles U and V: W / 2 is a multiple
+// of 8); the run, the runs above and below and the six edge samples are
+// loaded with the CTU's type, aux and offsets in one round, one 16-byte
+// store.
+__global__ void __launch_bounds__(kApplyX* kApplyY)
+    sao_apply_kernel(const int* __restrict__ ry, const int* __restrict__ ruv,
+                     const int* __restrict__ par, int* __restrict__ out_y,
+                     int* __restrict__ out_uv, int H, int W, int lc, int nx,
+                     int nctu, int top, int bot) {
+    const int X = 4 * (blockIdx.x * kApplyX + threadIdx.x);
+    const int yy = blockIdx.y * kApplyY + threadIdx.y;
+    const int hc = H >> 1, wc = W >> 1;
+    if (X >= W || yy >= H + hc) return;
+    const bool luma = yy < H;
+    const int y = luma ? yy : yy - H;
+    const int c = luma ? 0 : X < wc ? 1 : 2;
+    const int x = c == 2 ? X - wc : X;  // the column in the component
+    const int cw = luma ? W : wc, lo = -top, hi = (luma ? H : hc) + bot;
+    const int* row = (luma ? ry : ruv) + (top + y) * W + X;
+    const int* ra = row - (y > lo ? W : 0);
+    const int* rb = row + (y < hi - 1 ? W : 0);
+    const int dl = x > 0 ? -1 : 0, dr = x + 4 < cw ? 4 : 3;
+    const int l = luma ? lc : lc - 1;
+    const int* p = par + c * 6 * nctu;
+    const int ci = (y >> l) * nx + (x >> l);
+    const int4 v = __ldg(reinterpret_cast<const int4*>(row));
+    const int4 va = __ldg(reinterpret_cast<const int4*>(ra));
+    const int4 vb = __ldg(reinterpret_cast<const int4*>(rb));
+    const int cl = __ldg(row + dl), cr = __ldg(row + dr);
+    const int al = __ldg(ra + dl), ar = __ldg(ra + dr);
+    const int bl = __ldg(rb + dl), br = __ldg(rb + dr);
+    const int type = __ldg(p + ci), aux = __ldg(p + nctu + ci);
+    const int* po = p + 2 * nctu + 4 * ci;
+    const int4 off = make_int4(__ldg(po), __ldg(po + 1), __ldg(po + 2),
+                               __ldg(po + 3));
+    // rows y - 1, y, y + 1 at columns x - 1 .. x + 4
+    const int C[6] = {cl, v.x, v.y, v.z, v.w, cr};
+    const int A[6] = {al, va.x, va.y, va.z, va.w, ar};
+    const int Bw[6] = {bl, vb.x, vb.y, vb.z, vb.w, br};
+    const bool vv = y > lo && y < hi - 1;
+    int o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int s = C[j + 1];
+        const bool hv = x + j > 0 && x + j < cw - 1;
+        int add = 0;
+        if (type == 0)
+            add = eo_add(s, C[j], C[j + 2], hv, off);
+        else if (type == 1)
+            add = eo_add(s, A[j + 1], Bw[j + 1], vv, off);
+        else if (type == 2)
+            add = eo_add(s, A[j], Bw[j + 2], hv && vv, off);
+        else if (type == 3)
+            add = eo_add(s, A[j + 2], Bw[j], hv && vv, off);
+        else if (type == 4) {
+            const int rel = ((s >> 3) - aux) & 31;
+            add = rel == 0 ? off.x : rel == 1 ? off.y : rel == 2 ? off.z
+                : rel == 3 ? off.w : 0;
+        }
+        o[j] = min(max(s + add, 0), 255);
     }
-    const int o = min(max(v + add, 0), 255);
-    if (c == 0)
-        out_y[y * W + x] = o;
-    else
-        out_uv[y * W + (c - 1) * (W >> 1) + x] = o;
+    *reinterpret_cast<int4*>((luma ? out_y : out_uv) + y * W + X) =
+        make_int4(o[0], o[1], o[2], o[3]);
 }
 
 constexpr float kSaoInf = 1e18f;  // the cost of an offset out of reach
@@ -618,18 +645,25 @@ extern "C" int tpuhevc_grid_sao_stats(const int* oy, const int* ouv,
     return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// ry (top + H + bot, W), ruv (top + H/2 + bot, W) int32; par (3, 6 ny nx)
-// int32: per component the stripe's CTUs' types (ny nx), aux (ny nx) and
-// offsets (ny nx, 4) -> out_y (H, W), out_uv (H/2, W): the stripe's rows.
+// ry (top + H + bot, W), ruv (top + H/2 + bot, W) int32, 16-byte aligned,
+// H and W multiples of 16; par (3, 6 ny nx) int32: per component the
+// stripe's CTUs' types (ny nx), aux (ny nx) and offsets (ny nx, 4) ->
+// out_y (H, W), out_uv (H/2, W) (16-byte aligned): the stripe's rows.
 extern "C" int tpuhevc_grid_sao_apply(const int* ry, const int* ruv,
                                       const int* par, int* out_y, int* out_uv,
                                       int H, int W, int ctu, int top, int bot,
                                       void* stream) {
+    if (H * W == 0) return 0;
+    if ((ctu != 16 && ctu != 32 && ctu != 64) || H % 16 || W % 16)
+        return (int)cudaErrorInvalidValue;
     const int ny = (H + ctu - 1) / ctu, nx = (W + ctu - 1) / ctu;
-    const int n = H * W + 2 * (H >> 1) * (W >> 1);
-    if (n == 0) return 0;
-    sao_apply_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        ry, ruv, par, out_y, out_uv, H, W, ctu, ny, nx, top, bot);
+    const int lc = ctu == 16 ? 4 : ctu == 32 ? 5 : 6;
+    const dim3 grid((W / 4 + kApplyX - 1) / kApplyX,
+                    (H + H / 2 + kApplyY - 1) / kApplyY);
+    sao_apply_kernel<<<grid, dim3(kApplyX, kApplyY), 0,
+                       (cudaStream_t)stream>>>(ry, ruv, par, out_y, out_uv,
+                                               H, W, lc, nx, ny * nx, top,
+                                               bot);
     return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // The T x T Hadamard magnitude sum of a tile spread over T lanes, a row
 // each, shared by the SATD kernels (satd35_topk.cu at T = 4 and 8;
-// grid_pred.cu, grid_intra.cu, intra_wave.cu and stripe_prescreen.cu at
-// T = 8).
+// grid_pred.cu, grid_intra.cu and stripe_prescreen.cu at T = 8;
+// intra_wave.cu keeps a copy whose column stages multiply by the lane's
+// sign).
 //
 // What it computes: sum |H d H^T| over the tile d (T = 4 or 8), H the
 // Sylvester Hadamard matrix: an in-place butterfly over each lane's row in

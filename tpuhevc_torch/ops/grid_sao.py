@@ -24,7 +24,9 @@ Twin of `sao_device` (`tpuhevc/codec/inter_grid.py:1427-1494`) with
    (CTU, component) over many blocks, the picture's choice in the last
    block to finish (a ticket in a per-device scratch, left at zero);
 3. apply (`grid_sao`, launch 3): per sample the EO or band offset of its
-   CTU's type, from the unfiltered (deblocked) input, clipped to 8 bits.
+   CTU's type, from the unfiltered (deblocked) input, clipped to 8 bits;
+   on the card a thread a run of 4 samples of a row, its loads in one
+   round, one 16-byte store.
 
 The decision writes the rows the apply reads, `par` (3, 6 n) int32 (per
 component: types, aux, offsets), and the int8 parameter rows the host
@@ -437,6 +439,9 @@ def grid_sao_apply(rec_y, rec_uv, par, ctu: int, top: int = 0,
     if tuple(par.shape) != (3, 6 * n) or ctu not in (16, 32, 64):
         raise ValueError(f"grid_sao apply: par {tuple(par.shape)} for {n} "
                          f"CTUs of {ctu}")
+    if rec_y.data_ptr() % 16 or rec_uv.data_ptr() % 16:  # 16-byte runs
+        raise ValueError("grid_sao apply: a plane's data is not 16-byte "
+                         "aligned")
     new_y = torch.empty((h, W), dtype=torch.int32, device=dev)
     new_uv = torch.empty((h // 2, W), dtype=torch.int32, device=dev)
     fn = kbuild.function("grid_sao", "tpuhevc_grid_sao_apply",

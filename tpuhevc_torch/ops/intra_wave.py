@@ -18,8 +18,11 @@ CUDA computes exactly too.
 
 `intra_wave_plain` is the PyTorch version, wave by wave; `intra_wave`
 launches the CUDA kernel (`kernels/csrc/intra_wave.cu`, one launch for
-all frames) for CUDA tensors. `WaveTables` is the geometry both read,
-built by `codec/intra_frame.py` from the reference's schedule.
+all frames) for CUDA tensors, in one of two variants that `wave_variant`
+picks from the shared memory each needs: the recon planes and mode map
+kept on chip where they fit (416x240, in a cluster of 4 blocks a frame;
+192x128, one block), else in device memory (832x480, 1920x1088). `WaveTables` is the geometry both read, built by
+`codec/intra_frame.py` from the reference's schedule.
 """
 
 from __future__ import annotations
@@ -39,6 +42,42 @@ from .cost import satd35_plain
 from .intra import intra_tables, predict_all_modes_plain
 
 _INIT_DEVICES: set = set()
+SMEM_LIMIT = 232448  # the shared memory a block can opt into (bytes)
+# blocks a frame (a thread block cluster) where the recon is on chip and
+# a wave holds at least CLUSTER_CELLS cells on average: each block runs
+# every cell's references and coding and a share of the 35-mode costs; the
+# cluster's barrier costs more than the share saves on fewer cells
+CLUSTER, CLUSTER_CELLS = 4, 5
+# the kernel's shared words: fixed (the DCT matrices and their
+# transposes, the reference substitution tables) and per slot of
+# a wave (org double buffer, references, DC and MPM, transform scratch,
+# slot ring), as `kernels/csrc/intra_wave.cu` lays them out
+_FIXED_WORDS = 560
+_CELL_WORDS = 2 * 96 + 68 + 36 + 8 + 192 + 3
+
+
+def wave_smem(w: int, h: int, bmax: int, on_chip: bool) -> int:
+    """Shared memory (bytes) of one block of kernel `intra_wave` for w x h
+    pictures and waves of bmax cells; on_chip adds the 8-bit recon planes
+    and mode map (`tpuhevc_intra_wave_smem`)."""
+    planes = 3 * w * h // 2 + (w // 8) * (h // 8) if on_chip else 0
+    return 4 * (_FIXED_WORDS + _CELL_WORDS * bmax) + planes
+
+
+def wave_variant(w: int, h: int, steps: int,
+                 bmax: int) -> tuple[bool, int, int]:
+    """(on_chip, cluster, shared bytes) of the kernel that runs w x h
+    pictures of `steps` waves of at most bmax cells: the recon on chip
+    where it fits, in clusters of CLUSTER blocks a frame where the waves
+    hold CLUSTER_CELLS cells or more on average, else in device memory;
+    raises where neither fits."""
+    for on_chip in (True, False):
+        smem = wave_smem(w, h, bmax, on_chip)
+        if smem <= SMEM_LIMIT:
+            many = (w // 8) * (h // 8) >= CLUSTER_CELLS * steps
+            return on_chip, CLUSTER if on_chip and many else 1, smem
+    raise ValueError(f"intra_wave: waves of {bmax} cells need "
+                     f"{wave_smem(w, h, bmax, False)} bytes of shared memory")
 
 
 @dataclass(frozen=True)
@@ -47,15 +86,17 @@ class WaveTables:
     the cells of each wave, which fill its first slots; `cells` (S, B) the
     flat cell index y8 * W8 + x8, -1 in an empty slot; `flags` (S, B) bits
     0-4 the availability of the [lb, l, c, t, tr] reference segments, bit
-    5 the left MPM neighbour, bit 6 the above one (the kernel reads these
-    two); and the reference's gather indices (the plain version reads
-    them): `avail` (S, B, 5) bool, `ml_i`/`ma_i` (S, B) the MPM
+    5 the left MPM neighbour, bit 6 the above one; `slots` (S, B) what
+    the kernel reads, x8 | y8 << 12 | flags << 24, -1 in an empty slot;
+    and the reference's gather indices (the plain version reads them):
+    `avail` (S, B, 5) bool, `ml_i`/`ma_i` (S, B) the MPM
     neighbours' flat cells, `y_seg` (S, B, 33), `y_blk` (S, B, 64),
     `c_seg` (S, B, 17), `c_blk` (S, B, 16) flat plane indices."""
 
     counts: tuple
     cells: torch.Tensor
     flags: torch.Tensor
+    slots: torch.Tensor
     avail: torch.Tensor
     ml_i: torch.Tensor
     ma_i: torch.Tensor
@@ -165,20 +206,22 @@ def _init_tables(dev: torch.device) -> None:
 
 
 def launch(fn, planes, geo: WaveTables, outs, qp: int, sqlam_fp: int,
-           strong_smoothing: bool, bit_depth: int) -> int:
+           on_chip: bool, cluster: int = 1) -> int:
     """Call the entry point `fn` (`tpuhevc_intra_wave`) on the planes
-    (oy, ou, ov) into the seven outputs; returns its CUDA error."""
+    (oy, ou, ov) into the seven outputs, the recon on chip or not, in
+    clusters of `cluster` blocks a frame; returns its CUDA error."""
     F, h, w = planes[0].shape
-    steps, bmax = geo.cells.shape
+    steps, bmax = geo.slots.shape
     qpc = chroma_qp(qp)
-    q = (*tx.quant_params(qp, 3, bit_depth),
-         *tx.dequant_params(qp, 3, bit_depth),
-         *tx.quant_params(qpc, 2, bit_depth),
-         *tx.dequant_params(qpc, 2, bit_depth))
-    return fn(*(p.data_ptr() for p in planes), geo.cells.data_ptr(),
-              geo.flags.data_ptr(), *(o.data_ptr() for o in outs), F, w, h,
-              steps, bmax, *q, sqlam_fp, bit_depth, int(strong_smoothing),
+    q = (*tx.quant_params(qp, 3, 8), *tx.dequant_params(qp, 3, 8),
+         *tx.quant_params(qpc, 2, 8), *tx.dequant_params(qpc, 2, 8))
+    return fn(*(p.data_ptr() for p in planes), geo.slots.data_ptr(),
+              *(o.data_ptr() for o in outs), F, w, h, steps, bmax,
+              int(on_chip), cluster, *q, sqlam_fp,
               torch.cuda.current_stream(planes[0].device).cuda_stream)
+
+
+ARGS = [kbuild.P] * 11 + [kbuild.I] * 17 + [kbuild.P]
 
 
 def intra_wave(oy, ou, ov, geo: WaveTables, qp: int, sqlam_fp: int,
@@ -194,17 +237,16 @@ def intra_wave(oy, ou, ov, geo: WaveTables, qp: int, sqlam_fp: int,
     check_tensor(oy, "oy", torch.int32, 3, dev)
     check_tensor(ou, "ou", torch.int32, 3, dev)
     check_tensor(ov, "ov", torch.int32, 3, dev)
-    check_tensor(geo.cells, "cells", torch.int32, 2, dev)
-    check_tensor(geo.flags, "flags", torch.int32, 2, dev)
+    check_tensor(geo.slots, "slots", torch.int32, 2, dev)
     F, h, w = oy.shape
-    bmax = geo.cells.shape[1]
+    steps, bmax = geo.slots.shape
     if (w % 8 or h % 8 or tuple(ou.shape) != (F, h // 2, w // 2)
-            or ov.shape != ou.shape or geo.flags.shape != geo.cells.shape
-            or bit_depth != 8):
+            or ov.shape != ou.shape or bit_depth != 8):
         raise ValueError(f"intra_wave: unsupported shapes oy {tuple(oy.shape)}"
                          f" ou {tuple(ou.shape)} ov {tuple(ov.shape)} "
-                         f"cells {tuple(geo.cells.shape)} bit depth "
-                         f"{bit_depth}")
+                         f"bit depth {bit_depth}")
+    if any(p.data_ptr() % 16 for p in (oy, ou, ov)):
+        raise ValueError("intra_wave: a plane's data is not 16-byte aligned")
     outs = [torch.empty((F, h >> s, w >> s), dtype=torch.int32, device=dev)
             for s in (0, 1, 1)]
     outs.append(torch.empty((F, h // 8, w // 8), dtype=torch.int32,
@@ -212,15 +254,10 @@ def intra_wave(oy, ou, ov, geo: WaveTables, qp: int, sqlam_fp: int,
     outs += [torch.empty_like(o) for o in outs[:3]]
     if F == 0:
         return tuple(outs)
-    smem = kbuild.function("intra_wave", "tpuhevc_intra_wave_smem",
-                           [kbuild.I])(bmax)
-    if smem > 227 * 1024:
-        raise ValueError(f"intra_wave: waves of {bmax} cells need {smem} "
-                         "bytes of shared memory")
+    on_chip, cluster, _ = wave_variant(w, h, steps, bmax)
     _init_tables(dev)
-    fn = kbuild.function("intra_wave", "tpuhevc_intra_wave",
-                         [kbuild.P] * 12 + [kbuild.I] * 18 + [kbuild.P])
-    kbuild.check(launch(fn, (oy, ou, ov), geo, outs, qp, sqlam_fp,
-                        strong_smoothing, bit_depth), "intra_wave")
+    fn = kbuild.function("intra_wave", "tpuhevc_intra_wave", ARGS)
+    kbuild.check(launch(fn, (oy, ou, ov), geo, outs, qp, sqlam_fp, on_chip,
+                        cluster), "intra_wave")
     LAUNCHES["intra_wave"] += 1
     return tuple(outs)

@@ -4,15 +4,17 @@
         --frames 3]
 
 Builds `kernels/csrc/intra_wave.cu` as it is and three variants with
-steps cut out of each wave (`no_cost`: no 35-mode costs, so every cell
-takes mode 0; `refs_only`: the slots, reference gathers, filtered
-references and argmin; `empty`: the slots and argmin alone) into
+phases cut out of each wave (`no_cost`: no 35-mode costs, phase 2, so
+every cell takes mode 0; `refs_only`: the slots, prefetches and phase 1,
+the references, filtered references, DC values and MPM list; `empty`: the
+slots, prefetches and barriers alone) into
 `build/tpuhevc_torch/variants/`, runs each on the same frames of the
 synthetic clip of `tools/make_test_clip.py` (seed 7) at QP 32, and
-prints the median CUDA-event time of 7 launches, and per wave (the
+prints the variant of the kernel that ran (recon on chip or in device
+memory), the median CUDA-event time of 7 launches, and per wave (the
 dependency depth), with the card's name and power limit. The full
 kernel must equal its plain version; the variants compute something else
-and are only timed. The differences between rows are the steps' shares
+and are only timed. The differences between rows are the phases' shares
 of a wave. Needs a CUDA device and nvcc.
 """
 
@@ -28,13 +30,10 @@ import numpy as np
 import torch
 
 # (variant, [(first line of a cut, first line after it)]) of intra_wave.cu
-CUTS = {
-    "no_cost": [("        // 4. the cost", "        // 5. the first mode")],
-    "refs_only": [("        // 4. the cost", "        // 5. the first mode"),
-                  ("        // 6. the chosen", "    }\n}\n\n}  // namespace")],
-    "empty": [("        // 2. references", "        // 5. the first mode"),
-              ("        // 6. the chosen", "    }\n}\n\n}  // namespace")],
-}
+P1 = ("        // phase 1:", "        // end of phase 1")
+P2 = ("        // phase 2:", "        // end of phase 2")
+P3 = ("        // phase 3:", "        // end of phase 3")
+CUTS = {"no_cost": [P2], "refs_only": [P2, P3], "empty": [P1, P2, P3]}
 
 
 def _cut(src: str, cuts) -> str:
@@ -82,6 +81,9 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=416)
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--cluster", type=int, choices=(1, 4), default=None,
+                    help="blocks a frame where the recon is on chip "
+                         "(default the wrapper's choice)")
     args = ap.parse_args(argv)
     dev = require_cuda()
     gpu = gpu_line()
@@ -92,7 +94,10 @@ def main(argv=None) -> int:
     planes = [torch.as_tensor(np.stack([f[i] for f in clip]).astype(np.int32),
                               device=dev) for i in range(3)]
     geo = wave_tables(w, h, cfg.sps.log2_ctu, dev)
-    steps = geo.cells.shape[0]
+    steps, bmax = geo.slots.shape
+    on_chip, cluster, smem = iw.wave_variant(w, h, steps, bmax)
+    if on_chip and args.cluster:
+        cluster = args.cluster
     ref = iw.intra_wave_plain(*planes, geo, cfg.qp, _sqlam_fp(cfg))
     libs = _build_variants()
     init_args = iw.table_arrays()
@@ -102,12 +107,12 @@ def main(argv=None) -> int:
         kbuild.check(init(*(a.ctypes.data_as(ctypes.c_void_p)
                             for a in init_args)), f"{name} init")
         fn = lib.tpuhevc_intra_wave
-        fn.argtypes = [kbuild.P] * 12 + [kbuild.I] * 18 + [kbuild.P]
+        fn.argtypes = iw.ARGS
         outs = [torch.zeros_like(r) for r in ref]
 
         def run():
             kbuild.check(iw.launch(fn, planes, geo, outs, cfg.qp,
-                                   _sqlam_fp(cfg), True, 8), name)
+                                   _sqlam_fp(cfg), on_chip, cluster), name)
 
         run()
         torch.cuda.synchronize()
@@ -124,7 +129,10 @@ def main(argv=None) -> int:
             b.synchronize()
             times.append(a.elapsed_time(b))
         ms = statistics.median(times)
-        print(f"intra_wave {name:9s} {w}x{h} x {n}: {ms:.4f} ms a launch, "
+        print(f"intra_wave {name:9s} {w}x{h} x {n} (recon "
+              f"{'on chip' if on_chip else 'in device memory'}, {smem} bytes "
+              f"of shared memory, {cluster} blocks a frame): {ms:.4f} ms a "
+              f"launch, "
               f"{ms / steps * 1e3:.2f} us a wave ({steps} waves)"
               f"{' (equal to the plain version)' if exact else ''} | {gpu}",
               flush=True)
