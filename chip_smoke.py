@@ -20,7 +20,11 @@
    and the maximum at bit depths 8 and 10; all-zero, DC-only,
    last-position and 2^15-escape TUs), two launches of each back to back;
    the B step kernels (b_me, b_pred,
-   b_txq) at every call of one random-access B picture; the grid step
+   b_txq) at every call of one random-access B picture, b_me also alone on
+   that picture's planes at sr 4 and 16 (each launch's device time) and
+   on flat planes at lambda 0 (every cost ties), and torch.cdist (p=1) of
+   its blocks against their unfolded windows (the SAD surface only, the
+   library time); the grid step
    kernels (grid_coarse, grid_prestage (the +-64 prestage's pick on the
    card; both also at every call of the dctif + WP picture, of bench.py's
    cfg and of the 3 stripes), grid_refine (one launch a block size over every
@@ -43,12 +47,14 @@
    device time a picture by events around 20 pictures' calls queued
    behind a device sleep; a grid_code call codes a class coding's planes
    in one launch), and grid_code again at every call of the same picture
-   with the tools cut (the flat quantiser); grid_subpel, grid_wp_me,
+   with the tools cut (the flat quantiser); grid_subpel (the picture's
+   three classes in one launch, `grid_subpel_classes`), grid_wp_me,
    grid_stats and the weighted grid_planes, grid_refine and grid_intra16
    at every call of one 416x240 P picture of the anchor cfg with FmeMode
    dctif, WeightedPredP 1, the
    checksum hash and no recon fetch, on the fade clip (some weights not
-   the identity);
+   the identity), grid_subpel also at every call of that picture through
+   the sharded step in 3 stripes (a launch a stripe) and the single one;
    intra_wave (fixed-8x8 intra of whole pictures) on 3 frames of the
    416x240 clip at QP 32 and at the graft entry's shape (192x128, QP 32,
    planes from np.random.default_rng(0)), both with the recon planes on
@@ -124,7 +130,8 @@
    LD-P with DCT-IF FME and weighted prediction: the anchor cfg with
    FmeMode dctif and WeightedPredP 1 on 17 frames of the fade clip
    (`make_fade_clip`), counters reset just before; the grid kernels with
-   grid_subpel and grid_wp_me must have launched, some MV must be
+   grid_subpel (once a P picture, and on no path without dctif) and
+   grid_wp_me must have launched, some MV must be
    fractional and some slice's weights not the identity. Main path 5,
    bench.py's configuration (the anchor cfg at QP 32, four references,
    FmeMode nn without weights, the checksum hash, no recon fetch) on
@@ -247,8 +254,8 @@ from tpuhevc_torch.ops.grid_me import (  # noqa: E402
     grid_wp_me, grid_wp_me_plain, tile_sum)
 from tpuhevc_torch.ops.grid_pred import (  # noqa: E402
     field_cells, grid_mc, grid_mc_plain, grid_planes, grid_planes_plain,
-    grid_satd_cost, grid_satd_cost_plain, grid_subpel, grid_subpel_plain,
-    subpel_search)
+    grid_satd_cost, grid_satd_cost_plain, grid_subpel_classes,
+    grid_subpel_classes_plain, subpel_search)
 from tpuhevc_torch.ops.interp import CHROMA_TAPS, LUMA_TAPS  # noqa: E402
 from tpuhevc_torch.ops import grid_sao as grid_sao_mod  # noqa: E402
 from tpuhevc_torch.ops.grid_sao import (  # noqa: E402
@@ -273,7 +280,7 @@ from tpuhevc_torch.ops.intra_txq import intra_txq, intra_txq_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_wave import (  # noqa: E402
     WaveTables, intra_wave, intra_wave_plain, wave_smem, wave_variant)
 from tpuhevc_torch.ops.me import (  # noqa: E402
-    b_me, b_me_plain, bits_table, sad_search, sad_search_plain)
+    _b_tables, b_me, b_me_plain, bits_table, sad_search, sad_search_plain)
 from tpuhevc_torch.ops.txq import b_txq, b_txq_plain, txq, txq_plain  # noqa: E402
 from tpuhevc_torch.utils.tables import chroma_qp  # noqa: E402
 
@@ -553,13 +560,16 @@ def windows(name, a, kw):
         return [(a[0], boundary_mask(a[0], 16, nh, nw, (0,), y0)),
                 (a[1], boundary_mask(a[1], 8, nh, nw,
                                      (0, a[1].shape[1] // 2), y0))]
-    if name == "grid_subpel":  # the 18 points' gathers of this run's data
-        planes, _, _, ref, S, nbh, nbw, look = a
-        refc = ref.reshape(1, nbh, nbw).expand(9, -1, -1).contiguous()
+    if name == "grid_subpel":  # each class's 18 points' gathers of this
+        # run's data
+        planes, oy, classes, look = a
         mask = None
-        for cand in subpel_search(*a)[1]:
-            m = gather_mask(planes, cand, refc, S, look)
-            mask = m if mask is None else mask | m
+        for mv, ref, S, nbh, nbw in classes:
+            refc = ref.reshape(1, nbh, nbw).expand(9, -1, -1).contiguous()
+            for cand in subpel_search(planes, oy, mv, ref, S, nbh, nbw,
+                                      look)[1]:
+                m = gather_mask(planes, cand, refc, S, look)
+                mask = m if mask is None else mask | m
         return [(planes, mask)]
     return []
 
@@ -700,9 +710,10 @@ def kernel_ops(name, a, kw=None) -> int:
         decide = kw.get("cur", a[6] if len(a) > 6 else None) is not None
         return a[4] * a[5] * ((7 * 256 * 14 if decide else 256 * 4)
                               + 128 * 4)
-    if name == "grid_subpel":  # 18 points: gather, residual, SATD, sums
-        S, nbh, nbw = a[4], a[5], a[6]
-        return 18 * nbh * S * nbw * S * 12 + 2 * nbh * nbw * 9
+    if name == "grid_subpel":  # each class, 18 points: gather, residual,
+        # SATD, sums
+        return sum(18 * nbh * S * nbw * S * 12 + 2 * nbh * nbw * 9
+                   for _, _, S, nbh, nbw in a[2])
     if name == "grid_wp_me":  # multiply, round, shift, offset, clip
         return a[0].numel() * 5
     if name in ("grid_stats", "grid_stats_partial"):  # mask, xor, add;
@@ -929,7 +940,8 @@ def ra_cfg(npz, w=None, h=None, frames=None):
 # stripe_refine calls)
 CALLED_AS = {"grid_code": "grid_code_batch", "grid_satd": "grid_mc",
              "grid_refine": "grid_refine_refs",
-             "grid_refine_one": "grid_refine"}
+             "grid_refine_one": "grid_refine",
+             "grid_subpel": "grid_subpel_classes"}
 
 
 def recording(module, names, calls, no_sync=(), span=None):
@@ -1107,7 +1119,61 @@ def check_b_kernels(dev, npz, params):
         print(f"kernel {name:11s} B picture calls {len(calls[name]):2d} "
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} (per B picture)", flush=True)
+    check(len(calls["b_me"]) == 1, f"b_me: {len(calls['b_me'])} calls a B "
+          "picture")
+    rows["b_me"]["library_ms"] = check_b_me_direct(*calls["b_me"][0][0])
     return rows
+
+
+def check_b_me_direct(org, r0, r1, lam_me, sr_step):
+    """b_me on the B picture's planes at the B step's least and largest
+    search range (sr 4 and 16) and on flat planes at lambda 0 (every cost
+    ties: the first offset wins), against plain, each launch's device
+    time printed; then the library yardstick: torch.cdist (p=1) of the
+    16x16 blocks against their unfolded windows in float32 (both lists,
+    sr 16), which computes the SAD surface only (no cost, argmin or
+    sad9), its values at the kernel's picks checked. Returns its event
+    ms."""
+    flat = (torch.full_like(org, 100), torch.full_like(org, 97))
+    for sr in (4, 16):
+        for tag, (o, a, b, lam) in (("B picture", (org, r0, r1, lam_me)),
+                                    ("flat, lambda 0",
+                                     (flat[0], flat[1], flat[1], 0.0))):
+            got, want = b_me(o, a, b, lam, sr), b_me_plain(o, a, b, lam, sr)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"b_me sr {sr} {tag}: differs from plain")
+            if tag == "flat, lambda 0":
+                check(bool((got[0] == -sr).all()),
+                      f"b_me sr {sr} flat: not the first offset")
+                continue
+            dms = device_ms(lambda: b_me(o, a, b, lam, sr), n=100)
+            print(f"kernel b_me direct sr {sr} (B step's sr {sr_step}), "
+                  f"{W}x{H}, both lists: equal to plain (also flat planes "
+                  f"at lambda 0), device_ms {dms:.5f} a launch (events "
+                  f"around 100 launches queued behind a device sleep) | "
+                  f"{gpu_line()}", flush=True)
+    h, w = org.shape
+    sr = 16
+    side, n = 2 * sr + 1, (h // 16) * (w // 16)
+    t = _b_tables(h, w, sr, org.device)
+    cur = org.reshape(-1)[t["blk"]].reshape(n, 1, 256).float()
+    x1 = torch.cat([cur, cur]).contiguous()
+    x2 = torch.cat([ref.reshape(-1)[t["win"]].unfold(1, 16, 1)
+                    .unfold(2, 16, 1).reshape(n, side * side, 256)
+                    for ref in (r0, r1)]).float().contiguous()
+    d = torch.cdist(x1, x2, p=1)[:, 0]
+    mv, sad9 = b_me(org, r0, r1, lam_me, sr)
+    bi = ((mv[..., 1] + sr) * side + mv[..., 0] + sr).reshape(-1)
+    check(torch.equal(d.gather(1, bi[:, None].long())[:, 0].int(),
+                      sad9[..., 4].reshape(-1)),
+          "torch.cdist's SAD at the kernel's picks differs from sad9")
+    ms = median_ms(lambda: torch.cdist(x1, x2, p=1))
+    print(f"library b_me: torch.cdist(p=1) of {2 * n} blocks against "
+          f"{side * side} unfolded window blocks of 256 float32 (sr 16), "
+          f"the SAD surface only: event ms {ms:.4f} | {gpu_line()}",
+          flush=True)
+    return ms
 
 
 G_FUNCS = {  # name: (kernel wrapper, plain version)
@@ -1121,7 +1187,8 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_intra16": (grid_intra16, grid_intra16_plain),
     "grid_deblock": (grid_deblock, grid_deblock_plain),
     "grid_sao": (grid_sao, grid_sao_plain),
-    "grid_subpel": (grid_subpel, grid_subpel_plain),
+    # the picture's classes in one launch
+    "grid_subpel": (grid_subpel_classes, grid_subpel_classes_plain),
     "grid_wp_me": (grid_wp_me, grid_wp_me_plain),
     "grid_stats": (grid_stats, grid_stats_plain),
     "grid_sao_decide": (grid_sao_decide, grid_sao_decide_plain),
@@ -2240,6 +2307,49 @@ def check_stripe_kernels(calls, xbytes, runs, rows):
     return out
 
 
+def check_stripe_subpel(dev, npz, params, rows):
+    """grid_subpel at every call of one 416x240 P picture of the fade clip
+    (frame 4 against frames 3..0, its analysed WP tables) with the anchor
+    cfg, dctif, WP and no fetch, through the sharded step in 3 stripes
+    (one launch a stripe over its classes) and through the single step
+    (one launch): kernel vs plain, exact."""
+    clip = Reader(W, H, 5, fade=True).frames
+    sharded, single, meta = sharded_step(
+        shard_cfg(npz, FME_WP + NO_FETCH), params)
+    R = meta["R"]
+    carry = meta["step"].carry0(
+        torch.as_tensor(np.stack([clip[3 - r][0] for r in range(R)])
+                        .astype(np.int32), device=dev),
+        torch.as_tensor(np.stack([np.concatenate(clip[3 - r][1:], 1)
+                                  for r in range(R)]).astype(np.int32),
+                        device=dev))
+    fu8 = torch.as_tensor(np.concatenate([p.ravel() for p in clip[4]]),
+                          device=dev)
+    wp = picture_wp(clip, R, dev)[0]
+    for kind, n_calls in (("sharded", N_STRIPES), ("single", 1)):
+        calls = {"grid_subpel": []}
+        saved = recording(inter_grid, ("grid_subpel",), calls)
+        try:
+            if kind == "sharded":
+                sharded(meta["split"](carry), fu8, R, 0, wp)
+            else:
+                single(carry, fu8, R, 0, wp)
+            torch.cuda.synchronize()
+        finally:
+            restore(inter_grid, saved)
+        cs = calls["grid_subpel"]
+        check(len(cs) == n_calls, f"grid_subpel {kind}: {len(cs)} calls")
+        err = compare_calls("grid_subpel", cs)
+        rows["grid_subpel"]["max_abs_err"] = max(
+            rows["grid_subpel"]["max_abs_err"], err)
+        ms = median_ms(lambda: [grid_subpel_classes(*a, **k)
+                                for a, k in cs], reps=10)
+        print(f"kernel grid_subpel {kind} step, {W}x{H} dctif + WP P "
+              f"picture{f' in {N_STRIPES} stripes' if n_calls > 1 else ''}: "
+              f"calls {len(cs)} (classes {[len(a[2]) for a, _ in cs]}) "
+              f"max_abs_err {err:.3g} kernel_ms {ms:.4f}", flush=True)
+
+
 def run_sharded(dev, npz, params, gpu, bounds):
     """Path 7's grid step on row stripes: the anchor cfg uncut at 416x240,
     16 P pictures chained from the IDR's state (its recon as every
@@ -2992,6 +3102,9 @@ def run_training(dev, ds, npz, gpu, seeded):
         dev, ldp_cfg(npz, extra=["--FmeMode=dctif"]), NFRAMES)
     check_stream(enc, recons, NFRAMES, d_launches, INTRA + G_KERNELS
                  + ("grid_subpel",), "LD-P dctif")
+    check(d_launches["grid_subpel"] == NFRAMES - 1,
+          f"LD-P dctif: grid_subpel launched {d_launches['grid_subpel']} "
+          f"times for {NFRAMES - 1} P pictures")
     res["dctif"] = enc.results
     for k in KERNELS:
         launches[k] += d_launches[k]
@@ -3039,6 +3152,7 @@ def main():
         rows.update(check_multi_kernels(multi[0], rows))
         step_bounds = check_stripe_kernels(*stripe_calls(dev, npz, params),
                                            rows)
+        check_stripe_subpel(dev, npz, params, rows)
         fme_ds = fme_dataset()
         rows.update(check_train_kernels(dev, fme_ds))
         count_plain_decide()
@@ -3091,11 +3205,21 @@ def main():
         for k in KERNELS:
             launches[k] += ra_launches[k]
 
+        # grid_subpel runs on the DCT-IF paths only, once a P picture
+        check(launches["grid_subpel"] == 0,
+              f"paths 1-3 launched grid_subpel {launches['grid_subpel']} "
+              "times")
         fw_launches = run_fme_wp(dev, npz, gpu)
+        check(fw_launches["grid_subpel"] == NFRAMES - 1,
+              f"LD-P dctif + WP: grid_subpel launched "
+              f"{fw_launches['grid_subpel']} times for {NFRAMES - 1} P "
+              f"pictures")
         for k in KERNELS:
             launches[k] += fw_launches[k]
 
         bench_launches = run_bench(dev, gpu)
+        check(bench_launches["grid_subpel"] == 0,
+              "bench.py's cfg launched grid_subpel")
         for k in KERNELS:
             launches[k] += bench_launches[k]
         # paths 1-5 run quadtree intra: the fixed-8x8 kernel stays idle
@@ -3103,6 +3227,7 @@ def main():
               f"paths 1-5 launched intra_wave {launches['intra_wave']} times")
 
         i8_launches = run_intra8(dev, gpu)
+        check(i8_launches["grid_subpel"] == 0, "path 6 launched grid_subpel")
         for k in KERNELS:
             launches[k] += i8_launches[k]
         # paths 1-6 run no stripe

@@ -55,7 +55,8 @@ from tpuhevc_torch.entropy import native
 from tpuhevc_torch.kernels import LAUNCHES, reset_launches
 from tpuhevc_torch.ops.grid_me import grid_wp_me, grid_wp_me_plain
 from tpuhevc_torch.ops.grid_pred import (
-    grid_planes, grid_planes_plain, grid_subpel, grid_subpel_plain)
+    grid_planes, grid_planes_plain, grid_subpel_classes,
+    grid_subpel_classes_plain, grid_subpel_plain)
 from tpuhevc_torch.ops.grid_stats import (grid_stats_partial,
                                           grid_stats_partial_plain)
 
@@ -403,8 +404,8 @@ def _checked(name, kern, plain, seen):
     def wrapped(*a):
         out = kern(*a)
         want = plain(*a)
-        for x, y in zip(out if isinstance(out, tuple) else (out,),
-                        want if isinstance(want, tuple) else (want,)):
+        for x, y in zip(out if isinstance(out, (tuple, list)) else (out,),
+                        want if isinstance(want, (tuple, list)) else (want,)):
             assert x.dtype == y.dtype and torch.equal(x, y), name
         seen[name] += 1
         return out
@@ -421,7 +422,8 @@ def test_cuda_fme_wp_kernels_match_plain(cuda_device):
     reset_launches()
     with pytest.MonkeyPatch.context() as mp:
         for name, fn, kern, plain in (
-                ("grid_subpel", "grid_subpel", grid_subpel, grid_subpel_plain),
+                ("grid_subpel", "grid_subpel_classes", grid_subpel_classes,
+                 grid_subpel_classes_plain),
                 ("grid_planes", "grid_planes", grid_planes, grid_planes_plain),
                 ("grid_wp_me", "grid_wp_me", grid_wp_me, grid_wp_me_plain),
                 ("grid_stats", "grid_stats_partial", grid_stats_partial,

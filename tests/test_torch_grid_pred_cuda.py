@@ -9,7 +9,13 @@ On the CPU:
   S = 8..64), and the rectangular trial's sums of the 8x8 SATDs over the
   half-CU cells at the first and the second MV of their pairs, the pairs'
   MVs gathered as `GridStep.frame_steps`' rect trial gathers them
-  (`repeat_interleave` of every other column or row; mode plain).
+  (`repeat_interleave` of every other column or row; mode plain);
+- `grid_subpel_classes` (the DCT-IF half- and quarter-pel search of up
+  to three classes of CUs in one launch) and its one-class case
+  `grid_subpel` on the CPU equal `grid_subpel_plain` of each class at
+  S = 8, 16 and 32, MVs at +-(look - 1); on flat planes, where all nine
+  points of both rounds tie, the first point of `OFFS9`, (-1, -1), wins
+  each round.
 
 On a card (`cuda`; skipped here), every output `torch.equal`:
 - `grid_planes` (the tiled separable filter) against `grid_planes_plain`:
@@ -20,7 +26,11 @@ On a card (`cuda`; skipped here), every output `torch.equal`:
   modes, every CU size, pairs along x and y, MVs reaching each edge of
   the planes, lambda read on the card under sync debug mode "error";
 - the gathers of a class coding (`grid_mc`: luma, U and V in one
-  launch) at whole and cut fields.
+  launch) at whole and cut fields;
+- `grid_subpel` (lane-team butterflies, the classes in one launch) at
+  S = 8, 16 and 32 alone and the three classes in one launch, at whole
+  and cut CU grids, oy in 16-byte and in single loads, MVs at
+  +-(look - 1), flat planes (every point ties), one launch a call.
 """
 
 import numpy as np
@@ -28,10 +38,13 @@ import pytest
 import torch
 
 from torch_port_util import cuda_device  # noqa: F401
+from tpuhevc_torch.kernels import LAUNCHES
 from tpuhevc_torch.ops.grid_code import up
 from tpuhevc_torch.ops.grid_pred import (
     SatdField, grid_mc, grid_mc_plain, grid_planes, grid_planes_plain,
-    grid_satd_cost, grid_satd_cost_plain, grid_satd_plain, group_sum, satd_z)
+    grid_satd_cost, grid_satd_cost_plain, grid_satd_plain, grid_subpel,
+    grid_subpel_classes, grid_subpel_classes_plain, grid_subpel_plain,
+    group_sum, satd_z)
 
 LOOK = 12  # the planes' margin around the picture
 H, W, NREF = 64, 128, 3
@@ -58,6 +71,30 @@ def cu_grid(S, seed, rows=None, cols=None, reach=LOOK - 1, dev="cpu"):
     ref = rng.integers(0, NREF, (rows, cols))
     return (torch.as_tensor(mv, dtype=torch.int32, device=dev),
             torch.as_tensor(ref, dtype=torch.int32, device=dev))
+
+
+def subpel_class(S, seed, rows=None, cols=None, dev="cpu"):
+    """(mv (rows cols, 2) full-pel, ref, S, rows, cols) of an S-class for
+    grid_subpel: MVs in +-(LOOK - 1), the first and last CU's at the
+    extremes (the refine's clamp)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = rows or H // S, cols or W // S
+    mv = rng.integers(-(LOOK - 1), LOOK, (rows * cols, 2))
+    mv[0], mv[-1] = -(LOOK - 1), LOOK - 1
+    ref = rng.integers(0, NREF, rows * cols)
+    return (torch.as_tensor(mv, dtype=torch.int32, device=dev),
+            torch.as_tensor(ref, dtype=torch.int32, device=dev), S, rows,
+            cols)
+
+
+def flat_planes(dev="cpu"):
+    """Phase planes of constant references and a constant picture: every
+    point of both rounds costs the same."""
+    ref = torch.full((NREF, H, W), 97, dtype=torch.int32)
+    planes = grid_planes_plain(ref, True, LOOK + 4, H + 2 * LOOK,
+                               W + 2 * LOOK)
+    return planes.to(dev), torch.full((H, W), 100, dtype=torch.int32,
+                                      device=dev)
 
 
 def composed_z(planes, oy, mv, ref, S, dc, lam):
@@ -95,6 +132,26 @@ def test_satd_cost_plain_fields_and_pairs_match_composition():
                 .contiguous(), up(r, f)[None].contiguous(), 8, LOOK, oy,
                 want_pred=False)
             assert torch.equal(got[k], group_sum(m8[0], f).float()), (C, k)
+
+
+def test_subpel_classes_plain_matches_each_class():
+    planes, oy = planes_and_picture(seed=3)
+    classes = [subpel_class(S, 20 + S) for S in (16, 8, 32)]
+    got = grid_subpel_classes_plain(planes, oy, classes, LOOK)
+    for cl, g in zip(classes, got):
+        want = grid_subpel_plain(planes, oy, *cl[:2], *cl[2:], LOOK)
+        assert g.dtype == torch.int32 and torch.equal(g, want), cl[2]
+        # the CPU wrappers take the plain version
+        assert torch.equal(grid_subpel(planes, oy, *cl, LOOK), want)
+    assert all(torch.equal(a, b) for a, b in zip(
+        grid_subpel_classes(planes, oy, classes, LOOK), got))
+    # flat planes: all nine points tie in both rounds, so (-1, -1) of
+    # OFFS9 wins each: the half-pel (-2, -2), then the quarter-pel (-1, -1)
+    planes, oy = flat_planes()
+    classes = [subpel_class(S, 30 + S) for S in (8, 16, 32)]
+    for cl, g in zip(classes, grid_subpel_classes_plain(planes, oy, classes,
+                                                        LOOK)):
+        assert torch.equal(g, cl[0] * 4 - 3), cl[2]
 
 
 @pytest.mark.cuda
@@ -167,3 +224,33 @@ def test_cuda_grid_satd_gather_matches_plain(cuda_device):
         args = (planes, planes_c, mv, r, LOOK, LOOK // 2)
         for x, y in zip(grid_mc(*args), grid_mc_plain(*args)):
             assert torch.equal(x, y), (rows, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["S8", "S16", "S32", "fused"])
+def test_cuda_grid_subpel_matches_plain(cuda_device, case):
+    dev = cuda_device
+    sizes = (8, 16, 32) if case == "fused" else (int(case[1:]),)
+    for flat in (False, True):
+        planes, oy = flat_planes(dev) if flat else planes_and_picture(dev, 7)
+        # whole CU grids, oy in 16-byte loads (wo % 4 == 0); cut grids
+        # (dead teams), then also oy in single loads (wo 127)
+        for oyc, cut in ((oy, False), (oy, True),
+                         (oy[:, : W - 1].contiguous(), True)):
+            classes = [subpel_class(
+                S, 50 + S + cut, (H // S - 1 if cut and S < 32 else None),
+                (W // S - 1 if cut else None), dev) for S in sizes]
+            before = LAUNCHES["grid_subpel"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = grid_subpel_classes(planes, oyc, classes, LOOK)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert LAUNCHES["grid_subpel"] - before == 1
+            want = grid_subpel_classes_plain(planes, oyc, classes, LOOK)
+            for cl, g, w_ in zip(classes, got, want):
+                assert g.dtype == w_.dtype and torch.equal(g, w_), (
+                    case, flat, oyc.shape, cut, cl[2])
+            if len(classes) == 1:
+                assert torch.equal(grid_subpel(planes, oyc, *classes[0],
+                                               LOOK), want[0])

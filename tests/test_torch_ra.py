@@ -13,9 +13,11 @@ shipped, seeded NN-FME weights:
   hiding, deblocking, SAO, DCT-IF) raise;
 - the B search keeps the first index among equal costs and reads the 3x3
   surface at clipped flat indices, wrapping at the window's edge, as an
-  independent numpy twin of `dense_me` does;
+  independent numpy twin of `dense_me` does, also on seeded planes at sr
+  4;
 - on a GPU, the three B kernels and K1 without row subsampling equal their
-  plain versions, and the CUDA stream equals the CPU stream.
+  plain versions (b_me at sr 4, 7 and 16, with its ties and edge
+  planes), and the CUDA stream equals the CPU stream.
 
 The JAX reference is encoded once per module; the stage tests reuse its
 compiled B step and P stage (same weights object, same configuration).
@@ -234,19 +236,27 @@ def edge_planes(shift):
     return org, np.roll(org, -shift, axis=1)
 
 
-@pytest.mark.parametrize("case", ["all_equal", "left_edge", "right_edge"])
+@pytest.mark.parametrize("case", ["all_equal", "left_edge", "right_edge",
+                                  "seeded_sr4"])
 def test_b_me_ties_and_wrapped_surface(case):
+    sr, lam, ref1 = SR, 0.0, None
     if case == "all_equal":
         org = np.full((H, W), 100, np.int32)
         ref = np.full((H, W), 97, np.int32)
+    elif case == "seeded_sr4":  # two seeded lists at the least sr
+        sr, lam = 4, 5.7
+        org, ref, ref1 = rng_planes(21, H, W, 3)
     else:
         org, ref = edge_planes(SR if case == "left_edge" else -SR)
-    mv, sad9 = b_me_plain(torch.from_numpy(org), torch.from_numpy(ref),
-                          torch.from_numpy(ref), 0.0, SR)
-    want_mv, want_sad9, bi, sad = dense_me_np(org, ref, 0.0, SR)
+    refs = (ref, ref if ref1 is None else ref1)
+    mv, sad9 = b_me_plain(torch.from_numpy(org), torch.from_numpy(refs[0]),
+                          torch.from_numpy(refs[1]), lam, sr)
     for lst in (0, 1):
+        want_mv, want_sad9, bi, sad = dense_me_np(org, refs[lst], lam, sr)
         np.testing.assert_array_equal(mv[lst].numpy(), want_mv)
         np.testing.assert_array_equal(sad9[lst].numpy(), want_sad9)
+    if case == "seeded_sr4":
+        return
     side = 2 * SR + 1
     if case == "all_equal":  # every cost ties: the first offset wins
         assert (bi == 0).all()
@@ -272,22 +282,32 @@ def b_inputs(dev, w=416, h=240, seed=11):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sr", [4, 7, 16])
+def test_cuda_b_me_matches_plain(cuda_device, sr):
+    """b_me (packed bytes, the block in registers) against plain at the
+    B step's least, an odd and its largest search range: seeded planes at
+    three lambdas, then the ties (flat planes, lambda 0: every cost
+    equal) and the matches at the window's left and right edge."""
+    org, r0, r1, _ = b_inputs(cuda_device)
+    for lam_me in (0.0, 5.7, 40.3):
+        got = b_me(org, r0, r1, lam_me, sr)
+        want = b_me_plain(org, r0, r1, lam_me, sr)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), lam_me
+    for case in ("all_equal", "left_edge", "right_edge"):
+        o, r = (np.full((H, W), 100, np.int32), np.full((H, W), 97, np.int32)) \
+            if case == "all_equal" else edge_planes(sr if case == "left_edge"
+                                                    else -sr)
+        o, r = (torch.from_numpy(p).to(cuda_device) for p in (o, r))
+        got, want = b_me(o, r, r, 0.0, sr), b_me_plain(o, r, r, 0.0, sr)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), case
+
+
+@pytest.mark.cuda
 def test_b_kernels_match_plain(cuda_device):
     org, r0, r1, mvq = b_inputs(cuda_device)
     h, w = org.shape
-    for lam_me in (0.0, 5.7, 40.3):
-        got = b_me(org, r0, r1, lam_me, SR)
-        want = b_me_plain(org, r0, r1, lam_me, SR)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-    for case in ("all_equal", "left_edge", "right_edge"):
-        o, r = (np.full((H, W), 100, np.int32), np.full((H, W), 97, np.int32)) \
-            if case == "all_equal" else edge_planes(SR if case == "left_edge"
-                                                    else -SR)
-        o, r = (torch.from_numpy(p).to(cuda_device) for p in (o, r))
-        got, want = b_me(o, r, r, 0.0, SR), b_me_plain(o, r, r, 0.0, SR)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), case
     n_w = w // 16
     blk = torch.arange(mvq.shape[1], device=cuda_device, dtype=torch.int32)
     xs, ys = (blk % n_w) * 16, (blk // n_w) * 16

@@ -29,7 +29,8 @@ Per P picture (`GridStep.frame_step`):
    weighting folded into their rounding), the quarter-pel MVs (NN-FME
    offsets of every class through one launch of K2, `nn_refine_classes`,
    or the DCT-IF half- and quarter-pel
-   squares of `grid_subpel`), the fused merge-candidate sweep whose
+   squares of every class through one launch of `grid_subpel`,
+   `grid_subpel_classes`), the fused merge-candidate sweep whose
    passes price every class's candidates by DC-aware SATD
    (`grid_satd_cost`, one launch a pass; the merge and rectangular
    trials' costs the same way), each class coding's predictions gathered
@@ -81,7 +82,7 @@ from ..ops.grid_intra import IMODES, grid_intra16, intra16_out
 from ..ops.grid_me import (grid_coarse, grid_prestage, grid_refine,
                            grid_refine_refs, grid_wp_me, tile_sum, zcost)
 from ..ops.grid_pred import (SatdField, grid_mc, grid_planes,
-                              grid_satd_cost, grid_subpel)
+                              grid_satd_cost, grid_subpel_classes)
 from ..ops.grid_sao import grid_sao_apply, grid_sao_decide, grid_sao_stats
 from ..ops.grid_stats import grid_stats_partial, stats_finish
 from ..utils.tables import chroma_qp
@@ -949,19 +950,20 @@ class GridStep:
             mvq16, mvq8 = mv16 * 4 + offs[0], mv8 * 4 + offs[1]
             if has32:
                 mvq32 = mv32 * 4 + offs[2]
-        else:
-            if self.cfg.fme_mode == "dctif":
-                def fme(mv, ref, S, nbh_, nbw_):
-                    return grid_subpel(planes_y, oy, mv.contiguous(),
-                                       ref.contiguous(), S, nbh_, nbw_,
-                                       self.LOOK)
-            else:  # FmeMode none, or nn without weights: integer-pel
-                def fme(mv, ref, S, nbh_, nbw_):
-                    return mv * 4
-            mvq16 = fme(mv16, ref16, 16, nh16, nw16)
-            mvq8 = fme(mv8, ref8, 8, h8, w8)
+        elif self.cfg.fme_mode == "dctif":  # every class in one launch
+            mvqs = grid_subpel_classes(planes_y, oy, [
+                (mv.contiguous(), ref.contiguous(), S, nbh_, nbw_)
+                for mv, ref, S, nbh_, nbw_ in (
+                    (mv16, ref16, 16, nh16, nw16), (mv8, ref8, 8, h8, w8))
+                + (((mv32, ref32, 32, nh32, nw32),) if has32 else ())],
+                self.LOOK)
+            mvq16, mvq8 = mvqs[:2]
             if has32:
-                mvq32 = fme(mv32, ref32, 32, nh32, nw32)
+                mvq32 = mvqs[2]
+        else:  # FmeMode none, or nn without weights: integer-pel
+            mvq16, mvq8 = mv16 * 4, mv8 * 4
+            if has32:
+                mvq32 = mv32 * 4
 
         # --- sweep + coding per class ---------------------------------------
         use_ts = self.use_tusplit

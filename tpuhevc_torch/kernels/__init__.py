@@ -14,7 +14,8 @@ adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`grid_deblock` launches once a picture, both edge directions;
 `grid_code` once for the planes of one class coding; `grid_satd_cost`
 once for up to eight fields of CU costs; `grid_coarse` and
-`grid_prestage` once each a P picture (a stripe); `grid_refine` once a
+`grid_prestage` once each a P picture (a stripe); `grid_subpel` once a
+P picture (a stripe) for all its classes; `grid_refine` once a
 block size a P picture, over every reference searched; `intra_txq` once a
 class of TUs, all its candidates;
 `grid_sao` twice, its stats and its apply, with `grid_sao_decide` between

@@ -59,23 +59,36 @@
 // 64 (four rounds); a CU's sums through shared memory.
 //
 // tpuhevc_grid_subpel replaces :1012-1035 `subpel_refine` (FmeMode
-// dctif): per CU of size S, from the full-pel MV (times 4), a 9-point
-// half-pel square (offsets +-2 quarter-pel), then a 9-point quarter-pel
-// square (+-1) around the winner; each point scored as `pred_satd`
-// (:969-981) scores it: the prediction gathered from the phase planes as
-// above, per 8x8 block of oy - pred the Hadamard SATD (sum |H r H^T| + 2)
-// >> 2, summed over the CU; the first index among equal minima, as
-// jnp.argmin. The costs are exact integers (the reference casts to
-// float32 after the integer sum, far below 2^24), so no float order is
-// involved. The caller keeps |mv| <= look - 1 (the refine's clamp to
-// sr_full + 3 with look = sr_full + 4), so every read lies inside the
-// planes (asserted in the plain version). One CUDA block per CU, one
-// 64-thread group per point: 2 rounds x (S / 8)^2 sub-blocks of the
-// same gather and Hadamard.
-//
+// dctif) for up to three classes of CUs (the grid's 16x16, 8x8 and 32x32)
+// in one launch: per CU of size S, from the full-pel MV (times 4), a
+// 9-point half-pel square (offsets +-2 quarter-pel), then a 9-point
+// quarter-pel square (+-1) around the winner; each point scored as
+// `pred_satd` (:969-981) scores it: the prediction gathered from the
+// phase planes as above, per 8x8 block of oy - pred the Hadamard SATD
+// (sum |H r H^T| + 2) >> 2, summed over the CU; the first index among
+// equal minima, as jnp.argmin. The costs are exact integers (the
+// reference casts to float32 after the integer sum, far below 2^24), so
+// no float order is involved. The caller keeps |mv| <= look - 1 (the
+// refine's clamp to sr_full + 3 with look = sr_full + 4), so every read
+// lies inside the planes (asserted in the plain version).
+// What bounds it: 18 SATD evaluations per pixel and class, ~12 integer
+// operations a sample (operations; the planes' gathered samples and oy
+// read once are less). The design: a team of 8 lanes an 8x8 block of a
+// CU (lane r its row r), oy's row loaded once into registers (two 16-byte
+// loads) and scored against the nine points of a round, each point's
+// prediction row gathered from its phase plane and its SATD by the
+// butterflies of hadamard.cuh; S compiled in: a block of 128 threads
+// holds 16 CUs of 8 (a team a CU: no reduction), 4 of 16 (a warp a CU:
+// the nine sums by two xor-shuffles) or one of 32 (the warps' sums
+// through shared memory, one barrier a round); every lane of a CU then
+// holds its nine costs and takes the least key (cost << 4) | point, so
+// the first point among equal costs wins. The quarter-pel round starts
+// from the winner at once and reuses its cost as its centre's (the same
+// integer). The CU's row and column come from a multiply-high (no
+// division on the path); the 32x32 class's blocks come first in the grid.
+
 // What bounds the others: a SATD cost call reads the current picture and
-// one gathered sample per pixel and field; the subpel refinement does 18
-// SATD evaluations per pixel, ~40 integer operations each.
+// one gathered sample per pixel and field.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,7 +99,6 @@ namespace {
 
 __constant__ int c_luma_taps[32];    // (4 phases, 8 taps)
 __constant__ int c_chroma_taps[32];  // (8 phases, 4 taps)
-__constant__ int c_had8[64];
 
 // the planes kernel's output tile and block
 constexpr int kTileH = 32, kTileW = 64, kPlanesThreads = 256;
@@ -317,84 +329,159 @@ satd_cost_kernel(const CostArgs a) {
     F.out[cu0 + t] = c;
 }
 
-// |(H r H^T)[i][j]| for the 8x8 block r (row-major), thread (i, j)
-__device__ __forceinline__ int had_abs(const int* r, int i, int j) {
-    int acc = 0;
-    for (int a = 0; a < 8; ++a) {
-        int row = 0;
-        for (int bb = 0; bb < 8; ++bb) row += r[a * 8 + bb] * c_had8[j * 8 + bb];
-        acc += c_had8[i * 8 + a] * row;
-    }
-    return abs(acc);
+constexpr int kSubpelClasses = 3;
+constexpr int kSubpelThreads = 128;  // 16 teams of 8 lanes
+
+struct SubpelClass {
+    const int* mv;   // (ncu, 2) full-pel
+    const int* ref;  // (ncu,)
+    int* out;        // (ncu, 2) quarter-pel
+    unsigned long long mag;  // ceil(2^32 / nbw): cu / nbw by a multiply
+    int ncu, nbw, lf;        // CUs, CUs a row, log2(S / 8)
+    int cta0;                // the class's first block
+};
+
+struct SubpelArgs {
+    SubpelClass c[kSubpelClasses];
+    const int16_t* planes;  // (R, 4, 4, hm, wm) luma phase planes
+    const int* oy;          // stride wo
+    int nc, hw, wm, wo, look, vec;  // vec: oy's rows in 16-byte loads
+};
+
+// the SATD (sum |H r H^T| + 2) >> 2 of the team's 8x8 block against the
+// prediction at quarter-pel (qx, qy) of the reference's phase planes
+// pl; lane r holds oy's row r in o, (y, x0) its first sample
+__device__ __forceinline__ int point_satd(const int (&o)[8],
+                                          const int16_t* pl, int hw, int wm,
+                                          int look, int qx, int qy, int y,
+                                          int x0, int lane) {
+    const int16_t* p = pl + ((qy & 3) * 4 + (qx & 3)) * hw
+                       + ((qy >> 2) + y + look) * wm + (qx >> 2) + x0 + look;
+    int v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = o[e] - __ldg(p + e);
+    return (hadamard8_lanes_abs_sum(v, lane) + 2) >> 2;
 }
 
-// one block per CU, nine 64-thread groups (one per point of the square)
-constexpr int kSubpelThreads = 9 * 64;
+// the CU's nine costs in every lane of its team(s): S = 8 a team's own;
+// S = 16 the warp's four teams by xor-shuffles; S = 32 the four warps'
+// sums through part (one barrier)
+template <int LF>
+__device__ __forceinline__ void cu_costs(int (&c)[9], int (*part)[9]) {
+    if constexpr (LF > 0) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+            c[k] += __shfl_xor_sync(0xffffffffu, c[k], 8);
+            c[k] += __shfl_xor_sync(0xffffffffu, c[k], 16);
+        }
+    }
+    if constexpr (LF == 2) {
+        if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+            for (int k = 0; k < 9; ++k) part[threadIdx.x >> 5][k] = c[k];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < 9; ++k)
+            c[k] = part[0][k] + part[1][k] + part[2][k] + part[3][k];
+    }
+}
 
-__global__ void subpel_kernel(const int16_t* __restrict__ planes,
-                              const int* __restrict__ oy,
-                              const int* __restrict__ mv,
-                              const int* __restrict__ ref,
-                              int* __restrict__ out, int hm, int wm, int nbw,
-                              int S, int look, int wo) {
-    __shared__ int r[9][64];
-    __shared__ int part[18];
-    __shared__ int cost[9];
-    __shared__ int best[2];
-    const int cu = blockIdx.x;
-    const int by = cu / nbw, bx = cu - by * nbw;
-    const int g = threadIdx.x >> 6, lt = threadIdx.x & 63;
-    const int i = lt >> 3, j = lt & 7;
-    const int nsb = S >> 3;
-    const int rf = ref[cu];
-    int mx = mv[2 * cu] * 4, my = mv[2 * cu + 1] * 4;
-    for (int step = 2; step >= 1; step >>= 1) {
-        const int qx = mx + (g % 3 - 1) * step, qy = my + (g / 3 - 1) * step;
-        const size_t plane = (size_t)rf * 16 + (qy & 3) * 4 + (qx & 3);
-        const int16_t* pl = planes + plane * hm * wm;
-        int total = 0;  // meaningful in thread lt == 0 of each group
-        for (int sb = 0; sb < nsb * nsb; ++sb) {
-            const int y = by * S + (sb / nsb) * 8 + i;
-            const int x = bx * S + (sb % nsb) * 8 + j;
-            const int iy = (qy >> 2) + y + look, ix = (qx >> 2) + x + look;
-            r[g][lt] = oy[(size_t)y * wo + x] - pl[(size_t)iy * wm + ix];
-            __syncthreads();
-            int sa = had_abs(r[g], i, j);
-            for (int off = 16; off > 0; off >>= 1)
-                sa += __shfl_down_sync(0xffffffffu, sa, off);
-            if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = sa;
-            __syncthreads();
-            if (lt == 0) total += (part[2 * g] + part[2 * g + 1] + 2) >> 2;
-        }
-        if (lt == 0) cost[g] = total;
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            int bi = 0;
-            for (int k = 1; k < 9; ++k)
-                if (cost[k] < cost[bi]) bi = k;  // first index among equals
-            best[0] = mx + (bi % 3 - 1) * step;
-            best[1] = my + (bi / 3 - 1) * step;
-        }
-        __syncthreads();
-        mx = best[0];
-        my = best[1];
+// the least key (cost << 4) | point: the first point among equal costs
+// (costs < 2^27: 16 blocks of at most 261,120 at S = 32)
+__device__ __forceinline__ int least_key(const int (&c)[9]) {
+    int key = c[0] << 4;
+#pragma unroll
+    for (int k = 1; k < 9; ++k) key = min(key, (c[k] << 4) | k);
+    return key;
+}
+
+// point k of a square: (k % 3 - 1, k / 3 - 1) without a division
+__device__ __forceinline__ void point_offset(int k, int& dx, int& dy) {
+    dy = (k >= 3) + (k >= 6) - 1;
+    dx = k - 3 * (dy + 1) - 1;
+}
+
+// block b of a class of CUs of size 8 << LF
+template <int LF>
+__device__ __forceinline__ void subpel_class(const SubpelArgs& a,
+                                             const SubpelClass& C, int b,
+                                             int (*part)[4][9]) {
+    constexpr int S = 8 << LF;
+    const int lane = threadIdx.x & 7, team = threadIdx.x >> 3;
+    // S = 8: a team a CU; 16: a warp a CU, a team a quadrant; 32: the
+    // block a CU, a team one of its 16 blocks
+    const int cu = LF == 0 ? b * 16 + team : LF == 1 ? b * 4 + (team >> 2)
+                                                     : b;
+    const int sb = LF == 0 ? 0 : LF == 1 ? (team & 3) : team;
+    const bool live = cu < C.ncu;
+    const int cuc = live ? cu : 0;  // a dead team scores CU 0, unwritten
+    const int cy = (int)(((unsigned long long)cuc * C.mag) >> 32);
+    const int cx = cuc - cy * C.nbw;
+    const int y = cy * S + (sb >> LF) * 8 + lane;
+    const int x0 = cx * S + (sb & ((1 << LF) - 1)) * 8;
+    int o[8];
+    const int* orow = a.oy + y * a.wo + x0;
+    if (a.vec) {
+        const int4 p = __ldg(reinterpret_cast<const int4*>(orow));
+        const int4 q = __ldg(reinterpret_cast<const int4*>(orow) + 1);
+        o[0] = p.x; o[1] = p.y; o[2] = p.z; o[3] = p.w;
+        o[4] = q.x; o[5] = q.y; o[6] = q.z; o[7] = q.w;
+    } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = __ldg(orow + e);
     }
-    if (threadIdx.x == 0) {
-        out[2 * cu] = mx;
-        out[2 * cu + 1] = my;
-    }
+    int mx = __ldg(C.mv + 2 * cuc) * 4, my = __ldg(C.mv + 2 * cuc + 1) * 4;
+    const int16_t* pl = a.planes + __ldg(C.ref + cuc) * 16 * a.hw;
+    int c[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k)  // the half-pel square
+        c[k] = point_satd(o, pl, a.hw, a.wm, a.look, mx + (k % 3 - 1) * 2,
+                          my + (k / 3 - 1) * 2, y, x0, lane);
+    cu_costs<LF>(c, part[0]);
+    const int k1 = least_key(c);
+    int dx, dy;
+    point_offset(k1 & 15, dx, dy);
+    mx += 2 * dx;
+    my += 2 * dy;
+#pragma unroll
+    for (int k = 0; k < 9; ++k)  // the quarter-pel square, its centre known
+        c[k] = k == 4 ? 0
+                      : point_satd(o, pl, a.hw, a.wm, a.look,
+                                   mx + (k % 3 - 1), my + (k / 3 - 1), y, x0,
+                                   lane);
+    cu_costs<LF>(c, part[1]);
+    c[4] = k1 >> 4;
+    point_offset(least_key(c) & 15, dx, dy);
+    const bool first = LF == 0 ? lane == 0 : LF == 1 ? (threadIdx.x & 31) == 0
+                                                     : threadIdx.x == 0;
+    if (live && first)
+        reinterpret_cast<int2*>(C.out)[cu] = make_int2(mx + dx, my + dy);
+}
+
+__global__ void __launch_bounds__(kSubpelThreads)
+subpel_kernel(const SubpelArgs a) {
+    __shared__ int part[2][4][9];
+    int k = 0;
+    while (k + 1 < a.nc && (int)blockIdx.x >= a.c[k + 1].cta0) ++k;
+    const SubpelClass& C = a.c[k];
+    const int b = (int)blockIdx.x - C.cta0;
+    if (C.lf == 0)
+        subpel_class<0>(a, C, b, part);
+    else if (C.lf == 1)
+        subpel_class<1>(a, C, b, part);
+    else
+        subpel_class<2>(a, C, b, part);
 }
 
 }  // namespace
 
-// Copies the DCT-IF taps and the 8x8 Hadamard matrix to this file's
-// constant memory on the current device. Call once per device first.
+// Copies the DCT-IF taps to this file's constant memory on the current
+// device. Call once per device first.
 extern "C" int tpuhevc_grid_pred_init(const int* luma_taps,
-                                      const int* chroma_taps,
-                                      const int* had8) {
+                                      const int* chroma_taps) {
     cudaMemcpyToSymbol(c_luma_taps, luma_taps, sizeof(int) * 32);
     cudaMemcpyToSymbol(c_chroma_taps, chroma_taps, sizeof(int) * 32);
-    cudaMemcpyToSymbol(c_had8, had8, sizeof(int) * 64);
     return (int)cudaGetLastError();
 }
 
@@ -522,15 +609,56 @@ extern "C" int tpuhevc_grid_satd_cost(const void* const* ptrs,
     return (int)cudaGetLastError();
 }
 
-// planes (R, 4, 4, hm, wm) int16 luma phase planes; oy (>= nbh S rows,
-// stride wo) int32; mv (nbh nbw, 2) full-pel, ref (nbh nbw,) int32 ->
-// out (nbh nbw, 2) quarter-pel int32.
-extern "C" int tpuhevc_grid_subpel(const int16_t* planes, const int* oy,
-                                   const int* mv, const int* ref, int* out,
-                                   int hm, int wm, int nbh, int nbw, int S,
-                                   int look, int wo, void* stream) {
-    if (S != 8 && S != 16 && S != 32) return (int)cudaErrorInvalidValue;
-    subpel_kernel<<<nbh * nbw, kSubpelThreads, 0, (cudaStream_t)stream>>>(
-        planes, oy, mv, ref, out, hm, wm, nbw, S, look, wo);
+// The subpel search of nc (1..3) classes of CUs in one launch. ptrs:
+// planes (R, 4, 4, hm, wm) int16 luma phase planes, oy (stride wo)
+// int32, then 3 a class: mv (ncu, 2) full-pel and ref (ncu,) int32 ->
+// out (ncu, 2) quarter-pel int32. ints: nc, R, hm, wm, wo, look, then 4 a
+// class: ncu, nbh, nbw, log2(S / 8) (0..2), the CUs on an nbh x nbw grid
+// of S x S blocks of oy. Both arrays are host memory, read before the
+// launch returns.
+extern "C" int tpuhevc_grid_subpel(const void* const* ptrs, const int* ints,
+                                   void* stream) {
+    const int nc = ints[0], R = ints[1], hm = ints[2], wm = ints[3];
+    SubpelArgs a;
+    a.planes = (const int16_t*)ptrs[0];
+    a.oy = (const int*)ptrs[1];
+    a.hw = hm * wm;
+    a.wm = wm;
+    a.wo = ints[4];
+    a.look = ints[5];
+    a.vec = ((uintptr_t)a.oy & 15) == 0 && a.wo % 4 == 0;
+    if (nc < 1 || nc > kSubpelClasses
+        || (long long)R * 16 * hm * wm >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    // the 32x32 class's blocks first: they take the longest
+    int order[kSubpelClasses], n = 0;
+    for (int lf = 2; lf >= 0; --lf)
+        for (int k = 0; k < nc; ++k)
+            if (ints[6 + 4 * k + 3] == lf) order[n++] = k;
+    if (n != nc) return (int)cudaErrorInvalidValue;
+    int blocks = 0;
+    a.nc = 0;
+    for (int i = 0; i < nc; ++i) {
+        const int k = order[i];
+        const int* v = ints + 6 + 4 * k;
+        const int ncu = v[0], nbh = v[1], nbw = v[2], lf = v[3];
+        if (ncu != nbh * nbw || ncu < 0 || nbw < 1 || ncu >= (1 << 20)
+            || (long long)ncu * nbw >= (1LL << 32))
+            return (int)cudaErrorInvalidValue;
+        if (ncu == 0) continue;
+        SubpelClass& C = a.c[a.nc++];
+        C.mv = (const int*)ptrs[2 + 3 * k];
+        C.ref = (const int*)ptrs[3 + 3 * k];
+        C.out = (int*)ptrs[4 + 3 * k];
+        C.mag = ((1ULL << 32) + nbw - 1) / nbw;
+        C.ncu = ncu;
+        C.nbw = nbw;
+        C.lf = lf;
+        C.cta0 = blocks;
+        const int per = lf == 0 ? 16 : lf == 1 ? 4 : 1;  // CUs a block
+        blocks += (ncu + per - 1) / per;
+    }
+    if (blocks == 0) return 0;
+    subpel_kernel<<<blocks, kSubpelThreads, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -37,7 +37,9 @@ CU of size S a 9-point half-pel square around its full-pel MV, then a
 9-point quarter-pel square around the winner, each point scored by
 `pred_satd` (:969-981: the 8x8 Hadamard SATDs of the gathered prediction
 summed over the CU, exact integers) with the first index among equal
-minima. Out: the quarter-pel MVs.
+minima. Out: the quarter-pel MVs. `grid_subpel_classes` runs up to three
+classes of CUs (the grid's 16x16, 8x8 and 32x32) in one launch;
+`grid_subpel` is its one-class case.
 
 `*_plain` are the PyTorch versions; the wrappers launch the CUDA kernels
 (`kernels/csrc/grid_pred.cu`) for CUDA tensors.
@@ -58,16 +60,6 @@ from .cost import wht
 from .grid_code import up
 from .grid_me import tile_sum
 from .interp import CHROMA_TAPS, LUMA_TAPS
-
-HAD8 = [[1, 1, 1, 1, 1, 1, 1, 1],
-        [1, -1, 1, -1, 1, -1, 1, -1],
-        [1, 1, -1, -1, 1, 1, -1, -1],
-        [1, -1, -1, 1, 1, -1, -1, 1],
-        [1, 1, 1, 1, -1, -1, -1, -1],
-        [1, -1, 1, -1, -1, 1, -1, 1],
-        [1, 1, -1, -1, -1, -1, 1, 1],
-        [1, -1, -1, 1, -1, 1, 1, -1]]
-
 
 def satd8(res: torch.Tensor) -> torch.Tensor:
     """(..., h, w) int32 residual -> (..., h/8, w/8) int32 8x8 Hadamard
@@ -115,19 +107,18 @@ def grid_planes_plain(stack: torch.Tensor, is_luma: bool, pad: int,
 
 _READY: set = set()
 MAX_FIELDS = 8  # grid_satd_cost's fields a launch (kMaxFields)
+MAX_CLASSES = 3  # grid_subpel's classes a launch (kSubpelClasses)
 
 
 def init_consts(dev: torch.device) -> None:
-    """Copy the taps and the Hadamard matrix to grid_pred's constant memory
-    on `dev` (once per device)."""
+    """Copy the taps to grid_pred's constant memory on `dev` (once per
+    device)."""
     if dev.index in _READY:
         return
-    had = np.ascontiguousarray(HAD8, dtype=np.int32)
     lt = np.ascontiguousarray(LUMA_TAPS, dtype=np.int32)
     ct = np.ascontiguousarray(CHROMA_TAPS, dtype=np.int32)
-    fn = kbuild.function("grid_pred", "tpuhevc_grid_pred_init", [kbuild.P] * 3)
-    kbuild.check(fn(lt.ctypes.data, ct.ctypes.data, had.ctypes.data),
-                 "grid_pred init")
+    fn = kbuild.function("grid_pred", "tpuhevc_grid_pred_init", [kbuild.P] * 2)
+    kbuild.check(fn(lt.ctypes.data, ct.ctypes.data), "grid_pred init")
     _READY.add(dev.index)
 
 
@@ -478,35 +469,63 @@ def grid_subpel_plain(planes: torch.Tensor, oy: torch.Tensor,
     return subpel_search(planes, oy, mv, ref, S, nbh, nbw, look)[0]
 
 
-def grid_subpel(planes: torch.Tensor, oy: torch.Tensor, mv: torch.Tensor,
-                ref: torch.Tensor, S: int, nbh: int, nbw: int,
-                look: int) -> torch.Tensor:
-    """Kernel `grid_subpel`. CPU tensors take the plain version; CUDA
-    tensors the kernel."""
+def grid_subpel_classes_plain(planes: torch.Tensor, oy: torch.Tensor,
+                              classes, look: int) -> list:
+    """`grid_subpel_plain` of each class (mv, ref, S, nbh, nbw)."""
+    return [grid_subpel_plain(planes, oy, mv, ref, S, nbh, nbw, look)
+            for mv, ref, S, nbh, nbw in classes]
+
+
+def grid_subpel_classes(planes: torch.Tensor, oy: torch.Tensor, classes,
+                        look: int) -> list:
+    """Kernel `grid_subpel` over up to three classes of CUs in one launch:
+    classes [(mv (nbh nbw, 2) full-pel, ref (nbh nbw,) int32, S (8, 16,
+    32), nbh, nbw)] -> [(nbh nbw, 2) int32 quarter-pel MVs a class]. CPU
+    tensors take the plain version; CUDA tensors the kernel. The caller
+    keeps |mv| <= look - 1, so that every read lies inside the planes
+    (the plain version asserts it; the kernel does not sync to check)."""
     if planes.device.type == "cpu":
-        return grid_subpel_plain(planes, oy, mv, ref, S, nbh, nbw, look)
+        return grid_subpel_classes_plain(planes, oy, classes, look)
     if planes.device.type != "cuda":
         raise ValueError(f"grid_subpel: unsupported device {planes.device}")
     dev = planes.device
-    check_tensor(planes, "planes", torch.int16, 5, dev)
-    check_tensor(oy, "oy", torch.int32, 2, dev)
-    check_tensor(mv, "mv", torch.int32, 2, dev)
-    check_tensor(ref, "ref", torch.int32, 1, dev)
+    di = dev.index
     R, P, _, hm, wm = planes.shape
-    nb = nbh * nbw
-    if (P != 4 or S not in (8, 16, 32) or tuple(mv.shape) != (nb, 2)
-            or ref.shape[0] != nb or oy.shape[0] < nbh * S
-            or oy.shape[1] < nbw * S):
-        raise ValueError(f"grid_subpel: planes {tuple(planes.shape)}, oy "
-                         f"{tuple(oy.shape)}, mv {tuple(mv.shape)}, S {S}, "
-                         f"{nbh}x{nbw} CUs")
-    init_consts(dev)
-    out = torch.empty((nb, 2), dtype=torch.int32, device=dev)
-    fn = kbuild.function("grid_pred", "tpuhevc_grid_subpel",
-                         [kbuild.P] * 5 + [kbuild.I] * 7 + [kbuild.P])
-    err = fn(planes.data_ptr(), oy.data_ptr(), mv.data_ptr(), ref.data_ptr(),
-             out.data_ptr(), hm, wm, nbh, nbw, S, look, oy.shape[1],
-             torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(err, "grid_subpel")
+    ho, wo = oy.shape
+    if (not (_on(planes, torch.int16, di) and _on(oy, torch.int32, di))
+            or P != 4 or not 0 < len(classes) <= MAX_CLASSES):
+        raise ValueError(f"grid_subpel: planes {planes.dtype}"
+                         f"{tuple(planes.shape)}, oy {oy.dtype}"
+                         f"{tuple(oy.shape)}, {len(classes)} classes")
+    sizes = [nbh * nbw for _, _, _, nbh, nbw in classes]
+    buf = torch.empty((sum(sizes), 2), dtype=torch.int32, device=dev)
+    out = list(buf.split(sizes))
+    ptrs = [planes.data_ptr(), oy.data_ptr()]
+    ints = [len(classes), R, hm, wm, wo, look]
+    for (mv, ref, S, nbh, nbw), o in zip(classes, out):
+        nb = nbh * nbw
+        if (not (_on(mv, torch.int32, di) and _on(ref, torch.int32, di))
+                or tuple(mv.shape) != (nb, 2) or tuple(ref.shape) != (nb,)
+                or S not in (8, 16, 32) or nbh * S > ho or nbw * S > wo):
+            raise ValueError(f"grid_subpel: class mv {tuple(mv.shape)}, ref "
+                             f"{tuple(ref.shape)}, {nbh}x{nbw} CUs of {S}, "
+                             f"oy {tuple(oy.shape)}")
+        ptrs += (mv.data_ptr(), ref.data_ptr(), o.data_ptr())
+        ints += (nb, nbh, nbw, S.bit_length() - 4)
+    if not sum(sizes):
+        return out
+    la = _launch(di, "tpuhevc_grid_subpel")
+    la.p[: len(ptrs)] = ptrs
+    la.q[: len(ints)] = ints
+    kbuild.check(la(), "grid_subpel")
     LAUNCHES["grid_subpel"] += 1
     return out
+
+
+def grid_subpel(planes: torch.Tensor, oy: torch.Tensor, mv: torch.Tensor,
+                ref: torch.Tensor, S: int, nbh: int, nbw: int,
+                look: int) -> torch.Tensor:
+    """Kernel `grid_subpel` of one class: `grid_subpel_classes`' one-class
+    case. CPU tensors take the plain version; CUDA tensors the kernel."""
+    return grid_subpel_classes(planes, oy, [(mv, ref, S, nbh, nbw)],
+                               look)[0]

@@ -191,7 +191,9 @@ def b_me_plain(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
 def b_me(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
          lam_me: float, sr: int):
     """Kernel `b_me`. CPU tensors take the plain version; CUDA tensors the
-    kernel."""
+    kernel, which takes 8-bit video only (samples 0..255 in the int32
+    planes, packed four to a word on the card), as the B step does; a
+    10-bit variant waits for Main10 in the B step."""
     if org.device.type == "cpu":
         return b_me_plain(org, ref0, ref1, lam_me, sr)
     if org.device.type != "cuda":
