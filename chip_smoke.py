@@ -20,7 +20,10 @@
    and the maximum at bit depths 8 and 10; all-zero, DC-only,
    last-position and 2^15-escape TUs), two launches of each back to back;
    the B step kernels (b_me, b_pred,
-   b_txq) at every call of one random-access B picture, b_me also alone on
+   b_txq) at every call of one random-access B picture (b_pred and b_txq
+   a picture's three planes in one launch each, their device time and
+   bound printed; then their one-plane entries at that picture's luma and
+   U, each launch's device time printed), b_me also alone on
    that picture's planes at sr 4 and 16 (each launch's device time) and
    on flat planes at lambda 0 (every cost ties), and torch.cdist (p=1) of
    its blocks against their unfolded windows (the SAD surface only, the
@@ -126,7 +129,8 @@
    3, random access: cfg/encoder_randomaccess_main.cfg as shipped at
    416x240, 18 frames (IDR, four GOPs of hierarchical B pictures, POC 17
    as the P tail), once to warm up and once with the counters reset just
-   before; b_me, b_pred, b_txq and K1-K4 must have launched. Main path 4,
+   before; b_me, b_pred, b_txq and K1-K4 must have launched, the first
+   three once a B picture each, and on no other path. Main path 4,
    LD-P with DCT-IF FME and weighted prediction: the anchor cfg with
    FmeMode dctif and WeightedPredP 1 on 17 frames of the fade clip
    (`make_fade_clip`), counters reset just before; the grid kernels with
@@ -274,14 +278,16 @@ from tpuhevc_torch.ops.grid_stats import (  # noqa: E402
     grid_stats, grid_stats_partial, grid_stats_partial_plain,
     grid_stats_plain)
 from tpuhevc_torch.ops.interp import (  # noqa: E402
-    b_pred, b_pred_plain, mc_blk, mc_blk_plain)
+    b_pred, b_pred_plain, b_pred_yuv, b_pred_yuv_plain, mc_blk,
+    mc_blk_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_txq import intra_txq, intra_txq_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_wave import (  # noqa: E402
     WaveTables, intra_wave, intra_wave_plain, wave_smem, wave_variant)
 from tpuhevc_torch.ops.me import (  # noqa: E402
     _b_tables, b_me, b_me_plain, bits_table, sad_search, sad_search_plain)
-from tpuhevc_torch.ops.txq import b_txq, b_txq_plain, txq, txq_plain  # noqa: E402
+from tpuhevc_torch.ops.txq import (  # noqa: E402
+    b_txq, b_txq_plain, b_txq_planes, b_txq_planes_plain, txq, txq_plain)
 from tpuhevc_torch.utils.tables import chroma_qp  # noqa: E402
 
 SOURCES = {
@@ -519,14 +525,26 @@ def boundary_mask(plane, S, nh, nw, halves, y0=0):
     return mask
 
 
-def windows(name, a, kw):
-    """[(plane, samples read)] of one call of a kernel that reads a plane
-    through windows or gathers: K3 reads its plane, b_pred both lists'
-    planes (with a given `inter_dir`, list k only for the blocks that use
-    it), grid_refine its reference around each start, grid_satd the phase
-    planes at its gathers, grid_intra16 the planes around each cell."""
+def windows(name, a, kw, out=None):
+    """[(plane, samples read)] of one call (its results `out`) of a kernel
+    that reads a plane through windows or gathers: K3 reads its plane,
+    b_pred both lists' planes (with a given `inter_dir`, list k only for
+    the blocks that use it; `b_pred_yuv` luma both lists, U and V as its
+    inter_dir says), grid_refine its reference around each start,
+    grid_satd the phase planes at its gathers, grid_intra16 the planes
+    around each cell."""
     if name == "mc_blk":
         return [(a[0], window_mask(a[0], a[1], a[2], a[3], a[4], a[5]))]
+    if name == "b_pred" and isinstance(a[1], tuple):  # b_pred_yuv: luma
+        # both lists, U and V the lists inter_dir (out[1]) uses
+        xs, ys, m0, m1 = a[4:8]
+        return [(ref, window_mask(ref, bx, by, mvq, size, size == 16,
+                                  None if size == 16
+                                  else (out[1] & k) != 0))
+                for refs, bx, by, size in ((a[1], xs, ys, 16),
+                                           (a[2], xs // 2, ys // 2, 8),
+                                           (a[3], xs // 2, ys // 2, 8))
+                for ref, mvq, k in zip(refs, (m0, m1), (1, 2))]
     if name == "b_pred":
         idir = kw.get("inter_dir", a[10] if len(a) > 10 else None)
         return [(ref, window_mask(ref, a[3], a[4], mvq, a[7], a[8],
@@ -589,12 +607,12 @@ class Work:
 
     def add(self, name, args, out, kw=None):
         kw = kw or {}
-        self.ops += kernel_ops(name, args, kw)
+        self.ops += kernel_ops(name, args, kw, out)
         if name == "grid_satd_cost":  # views of the caller's buffer
             self.written += sum(t.nbytes for t in out)
             kw = {k: v for k, v in kw.items() if k != "out"}
             args, out = args[:6], ()
-        for plane, mask in windows(name, args, kw):
+        for plane, mask in windows(name, args, kw, out):
             prev = self.planes.get(plane.data_ptr())
             self.planes[plane.data_ptr()] = (
                 plane, mask if prev is None else prev[1] | mask)
@@ -611,9 +629,10 @@ class Work:
                       for pl, m in self.planes.values()))
 
 
-def kernel_ops(name, a, kw=None) -> int:
-    """Integer or float32 operations of one call, from its shapes: the
-    work the function needs, not what a kernel happens to repeat."""
+def kernel_ops(name, a, kw=None, out=None) -> int:
+    """Integer or float32 operations of one call (its results `out`), from
+    its shapes: the work the function needs, not what a kernel happens to
+    repeat. A call of several classes (planes) counts their sum."""
     kw = kw or {}
     if name == "sad_search":
         cur, sr = a[1], a[4]
@@ -629,6 +648,8 @@ def kernel_ops(name, a, kw=None) -> int:
     if name == "mc_blk":
         S, nt = a[4], 8 if a[5] else 4
         return a[1].shape[0] * 2 * nt * ((S + nt - 1) * S + S * S)
+    if name == "b_txq" and isinstance(a[0], list):  # b_txq_planes
+        return sum(kernel_ops("b_txq", p) for p in a[0])
     if name in ("txq", "b_txq"):
         n, S = a[0].shape[0], a[0].shape[-1]
         return n * (8 * S ** 3 + (80 if name == "b_txq" else 20) * S * S)
@@ -646,11 +667,20 @@ def kernel_ops(name, a, kw=None) -> int:
     if name == "b_me":
         side = 2 * a[4] + 1
         return 2 * (a[0].numel() // 256) * side * side * (256 * 3 + 2)
-    if name == "b_pred":
+    if name == "b_pred" and isinstance(a[1], tuple):  # b_pred_yuv
+        cur, refs_y, refs_u, refs_v, xs, ys, m0, m1 = a[:8]
+        return (kernel_ops("b_pred", (cur, *refs_y, xs, ys, m0, m1, 16,
+                                      True))
+                + 2 * kernel_ops("b_pred", (None, *refs_u, xs, ys, m0, m1, 8,
+                                            False), {"inter_dir": out[1]}))
+    if name == "b_pred":  # the MACs of each list a block uses; the
+        # averages, and the decision's SSEs and costs
         S, nt = a[7], 8 if a[8] else 4
-        decide = kw.get("inter_dir", a[10] if len(a) > 10 else None) is None
-        return a[3].shape[0] * (4 * nt * ((S + nt - 1) * S + S * S)
-                                + (12 if decide else 3) * S * S)
+        idir = kw.get("inter_dir", a[10] if len(a) > 10 else None)
+        n = a[3].shape[0]
+        lists = 2 * n if idir is None else n + int((idir == 3).sum())
+        return (lists * 2 * nt * ((S + nt - 1) * S + S * S)
+                + n * (12 if idir is None else 3) * S * S)
     if name == "grid_coarse":  # sub, abs, add (+ add for the sum)
         return a[0].numel() * a[2] ** 2 * (4 if a[5] else 3)
     if name == "grid_prestage":  # sub, abs, add a sample and offset; the
@@ -935,13 +965,15 @@ def ra_cfg(npz, w=None, h=None, frames=None):
     return cfg
 
 
-# kernel name -> the wrapper the grid step calls, where they differ
+# kernel name -> the wrapper the grid step (the B step) calls, where they
+# differ
 # ("grid_refine_one": grid_refine's one-reference wrapper, which
 # stripe_refine calls)
 CALLED_AS = {"grid_code": "grid_code_batch", "grid_satd": "grid_mc",
              "grid_refine": "grid_refine_refs",
              "grid_refine_one": "grid_refine",
-             "grid_subpel": "grid_subpel_classes"}
+             "grid_subpel": "grid_subpel_classes",
+             "b_pred": "b_pred_yuv", "b_txq": "b_txq_planes"}
 
 
 def recording(module, names, calls, no_sync=(), span=None):
@@ -1074,8 +1106,9 @@ def check_intra_kernels(dev, npz):
 
 B_FUNCS = {  # name: (kernel wrapper, plain version)
     "b_me": (b_me, b_me_plain),
-    "b_pred": (b_pred, b_pred_plain),
-    "b_txq": (b_txq, b_txq_plain),
+    # a B picture's three planes in one launch
+    "b_pred": (b_pred_yuv, b_pred_yuv_plain),
+    "b_txq": (b_txq_planes, b_txq_planes_plain),
 }
 
 
@@ -1083,8 +1116,11 @@ def check_b_kernels(dev, npz, params):
     """Kernel vs plain on the card for the B step, at every call of one
     416x240 B picture of the random-access path (POC 2 at QP 34 between
     POC 0 and POC 4, the originals standing in for their recons), captured
-    from the port's B step. Every output is an integer: exact. Returns
-    {name: row}; ms/plain_ms are per B picture."""
+    from the port's B step: b_me, and b_pred and b_txq as the step calls
+    them, a B picture's three planes in one launch each (their device
+    time a picture and bound printed); then the one-plane entries at the
+    same shapes (`check_b_one_plane`). Every output is an integer: exact.
+    Returns {name: row}; ms/plain_ms are per B picture."""
     clip = Reader(W, H, 5).frames
     cfg = ra_cfg(npz)
     calls = {k: [] for k in B_KERNELS}
@@ -1094,10 +1130,11 @@ def check_b_kernels(dev, npz, params):
                                [4], 2, params, device=dev)
         torch.cuda.synchronize()
     finally:
-        for k in B_KERNELS:
-            setattr(inter_b, k, saved[k])
+        restore(inter_b, saved)
     rows = {}
     for name in B_KERNELS:
+        check(len(calls[name]) == 1, f"{name}: {len(calls[name])} calls a "
+              "B picture")
         kern, plain = B_FUNCS[name]
         r = rows[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                               work=Work())
@@ -1105,12 +1142,13 @@ def check_b_kernels(dev, npz, params):
             a, b = kern(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             r["work"].add(name, args, a, kw)
-            for x, y in zip(a, b):
+            for x, y in zip(tensors(a), tensors(b), strict=True):
                 check(x.dtype == y.dtype and x.shape == y.shape,
                       f"{name}: {x.dtype}{tuple(x.shape)} vs "
                       f"{y.dtype}{tuple(y.shape)}")
                 d = float((x.double() - y.double()).abs().max())
-                check(d == 0, f"{name}: integer outputs differ by {d}")
+                check(d == 0 and torch.equal(x, y),
+                      f"{name}: integer outputs differ by {d}")
                 r["max_abs_err"] = max(r["max_abs_err"], d)
         r["ms"] = median_ms(lambda: [kern(*a, **k) for a, k in calls[name]],
                             reps=10)
@@ -1119,10 +1157,48 @@ def check_b_kernels(dev, npz, params):
         print(f"kernel {name:11s} B picture calls {len(calls[name]):2d} "
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} (per B picture)", flush=True)
-    check(len(calls["b_me"]) == 1, f"b_me: {len(calls['b_me'])} calls a B "
-          "picture")
+        if name != "b_me":
+            bound, by = bound_of(r)
+            dms = device_ms(lambda: [kern(*a, **k) for a, k in calls[name]],
+                            n=100)
+            print(f"kernel {name} B picture, Y, U and V in one launch: "
+                  f"device_ms {dms:.5f} (events around 100 launches queued "
+                  f"behind a device sleep), bound {bound:.6f} ms ({by}; "
+                  f"{r['work'].bytes} bytes, {r['work'].ops} operations) | "
+                  f"{gpu_line()}", flush=True)
+    check_b_one_plane(calls["b_pred"][0][0], calls["b_txq"][0][0])
     rows["b_me"]["library_ms"] = check_b_me_direct(*calls["b_me"][0][0])
     return rows
+
+
+def check_b_one_plane(pred_args, txq_args):
+    """The one-plane entries of b_pred and b_txq (the fused kernels with
+    one class) at the B picture's shapes, against plain: b_pred on luma
+    (deciding inter_dir) and on U (with that inter_dir), b_txq on luma (S =
+    16) and on U (S = 8); each launch's device time printed (a class
+    alone)."""
+    cur, refs_y, refs_u, _, xs, ys, m0, m1, lam = pred_args
+    planes, lam_t = txq_args
+    dirs = b_pred_yuv(*pred_args)[1]
+    cases = (
+        ("b_pred", "luma, deciding", b_pred, b_pred_plain,
+         (cur, *refs_y, xs, ys, m0, m1, 16, True, lam), {}),
+        ("b_pred", "U, inter_dir given", b_pred, b_pred_plain,
+         (None, *refs_u, xs // 2, ys // 2, m0, m1, 8, False),
+         {"inter_dir": dirs}),
+        ("b_txq", "luma, S = 16", b_txq, b_txq_plain,
+         (*planes[0][:3], lam_t, planes[0][3]), {}),
+        ("b_txq", "U, S = 8", b_txq, b_txq_plain,
+         (*planes[1][:3], lam_t, planes[1][3]), {}))
+    for name, tag, kern, plain, args, kw in cases:
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want, strict=True)),
+              f"{name} one plane ({tag}): differs from plain")
+        dms = device_ms(lambda: kern(*args, **kw), n=100)
+        print(f"kernel {name} one plane ({tag}): equal to plain, device_ms "
+              f"{dms:.5f} a launch (the class alone) | {gpu_line()}",
+              flush=True)
 
 
 def check_b_me_direct(org, r0, r1, lam_me, sr_step):
@@ -3188,6 +3264,8 @@ def main():
               f"{ai_launches} | {gpu}", flush=True)
         for k in KERNELS:
             launches[k] += ai_launches[k]
+        check(all(launches[k] == 0 for k in B_KERNELS),
+              "LD-P or all-intra launched a B step kernel")
 
         # random access: a warm-up encode (builds every B step and the P
         # tail's stage), then the counted one
@@ -3202,6 +3280,12 @@ def main():
               f"order {pocs}) in {secs:.3f} s warm = {N_RA / secs:.3f} fps | "
               f"{kbits:.1f} kbit, Y-PSNR {psnr:.3f} dB | launches "
               f"{ra_launches} | {gpu}", flush=True)
+        # the B step (a call a B picture: N_RA - 2 of them) launches b_me,
+        # b_pred and b_txq once each
+        check(all(ra_launches[k] == N_RA - 2 for k in B_KERNELS),
+              f"random access: B step launches "
+              f"{ {k: ra_launches[k] for k in B_KERNELS} } for {N_RA - 2} "
+              "B pictures")
         for k in KERNELS:
             launches[k] += ra_launches[k]
 
@@ -3230,6 +3314,10 @@ def main():
         check(i8_launches["grid_subpel"] == 0, "path 6 launched grid_subpel")
         for k in KERNELS:
             launches[k] += i8_launches[k]
+        # paths 4-6 code no B picture
+        check(all(x[k] == 0 for x in (fw_launches, bench_launches,
+                                      i8_launches) for k in B_KERNELS),
+              "paths 4-6 launched a B step kernel")
         # paths 1-6 run no stripe
         check(launches["stripe_prescreen"] == 0,
               "paths 1-6 launched stripe_prescreen")

@@ -4,9 +4,10 @@ Twin of `tpuhevc/codec/inter_b.py`: the jitted B step `_b_step` (83-241)
 and the jax branch of `encode_frame_b` (244-274). For every 16x16 block of
 the picture at once, per reference list: the dense +-sr search (`b_me`),
 NN-FME (K2, both lists in one launch), then the two lists' predictions,
-their bi-average and the uni/bi arbitration (`b_pred`: luma decides
-`inter_dir`, chroma follows it), and the table-RDOQ coding with the
-skip/code drop (`b_txq`), luma and both chroma planes.
+their bi-average and the uni/bi arbitration (`b_pred_yuv`: luma decides
+`inter_dir`, chroma follows it; the three planes in one launch), and the
+table-RDOQ coding with the skip/code drop (`b_txq_planes`: luma and both
+chroma planes in one launch).
 
 The host half is the port's numpy copy of the reference's (`_grid16`,
 the decode-order merge/skip/AMVP walk `assemble_frame_b`, and the
@@ -22,9 +23,9 @@ from ..device import resolve
 from ..entropy.bitest import FracBits, est_tables
 from ..models.nnfme import NNFME, height_category, nn_refine, width_category
 from ..ops import transforms as tx
-from ..ops.interp import b_pred, bi_average_np, mc_np, mc_np14
+from ..ops.interp import b_pred_yuv, bi_average_np, mc_np, mc_np14
 from ..ops.me import b_me
-from ..ops.txq import b_txq
+from ..ops.txq import b_txq_planes
 from ..utils.tables import chroma_qp
 from .inter_enc import _full_lambda_fp
 from .mv_b import MvFieldB, amvp_candidates_b, merge_candidates_b
@@ -77,7 +78,6 @@ def build_b_step(cfg: EncoderConfig, qp: int, nn_params, device):
     hc, wc = height_category(16), width_category(16)
     xs = torch.as_tensor(xs_np, dtype=torch.int32, device=dev)
     ys = torch.as_tensor(ys_np, dtype=torch.int32, device=dev)
-    cxs, cys = xs // 2, ys // 2
 
     def tile(p, s):
         return (p.reshape(nh, s, nw, s).permute(0, 2, 1, 3)
@@ -91,16 +91,14 @@ def build_b_step(cfg: EncoderConfig, qp: int, nn_params, device):
             mvq = mvq + qoff.reshape(2, n, 2)
         mvq0, mvq1 = mvq[0].contiguous(), mvq[1].contiguous()
         cur = tile(oy, 16)
-        pred_y, inter_dir = b_pred(cur, r0y, r1y, xs, ys, mvq0, mvq1, 16,
-                                   True, lam_full)
-        lvl_y, rec_y = b_txq(cur, pred_y, qp, lam_full, est_y)
-        outs = [mvq0, mvq1, inter_dir, lvl_y, rec_y]
-        for plane, rp0, rp1 in ((ou, r0u, r1u), (ov, r0v, r1v)):
-            pred_c, _ = b_pred(None, rp0, rp1, cxs, cys, mvq0, mvq1, 8,
-                               False, inter_dir=inter_dir)
-            outs += list(b_txq(tile(plane, 8), pred_c, qpc, lam_full,
-                               est_c))
-        return tuple(outs)
+        pred_y, inter_dir, pred_u, pred_v = b_pred_yuv(
+            cur, (r0y, r1y), (r0u, r1u), (r0v, r1v), xs, ys, mvq0, mvq1,
+            lam_full)
+        (lvl_y, rec_y), (lvl_u, rec_u), (lvl_v, rec_v) = b_txq_planes(
+            [(cur, pred_y, qp, est_y), (tile(ou, 8), pred_u, qpc, est_c),
+             (tile(ov, 8), pred_v, qpc, est_c)], lam_full)
+        return (mvq0, mvq1, inter_dir, lvl_y, rec_y, lvl_u, rec_u, lvl_v,
+                rec_v)
 
     _B_STEP_CACHE[key] = (step, nn_params)
     return step

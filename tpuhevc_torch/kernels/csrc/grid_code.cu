@@ -19,8 +19,8 @@
 //   rsd = inverse DCT of clip16(dequant(lvl));
 //   rec = nz ? clip(pred + rsd, 0, 255) : pred, nz = #(lvl != 0);
 //   d_skip, d_coded = int32 SSE of orig - pred and orig - rec, as float;
-//   bits = the table bit estimate (tu_bits_group below, tu_bits_common.cuh's
-//          sums; one sign fewer per hiding CG with sbh);
+//   bits = the table bit estimate (tu_bits_group below: its fractional
+//          sums in double; one sign fewer per hiding CG with sbh);
 //   drop = d_skip + lam cbf0 <= d_coded + lam (bits + cbf1), float32,
 //          every product rounded on its own (-fmad=false), as XLA; lam
 //          and cbf0, cbf1 read from the device (no host sync a call);
@@ -48,7 +48,6 @@
 // step was measured on the H100 against the last (PERF.md, Findings).
 
 #include "grid_rdoq.cuh"
-#include "tu_bits_common.cuh"
 #include "tx_common.cuh"
 
 namespace {
@@ -154,13 +153,19 @@ __device__ __forceinline__ int2 group_sum2(const G& g, int a, int b,
     return t;
 }
 
-// tu_bits_warp (tu_bits_common.cuh) over a group (a warp or the block):
-// the per-CG passes a thread a CG, the per-coefficient pass over every
-// thread; the last position and the counts by shared atomics (integers:
-// exact in any order), the three fractional sums in double (exact in any
-// order: every table value is a multiple of 2^-15) reduced over the
-// group, then added in float32 in the reference's order as tu_bits_warp
-// does. The result is valid on every thread.
+__device__ __forceinline__ double warp_sum(double v) {
+    for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+    return v;  // lane 0
+}
+
+// The table bit estimate (entropy/bitest.py's) over a group (a warp or
+// the block): the per-CG passes a thread a CG, the per-coefficient pass
+// over every thread; the last position and the counts by shared atomics
+// (integers: exact in any order), the three fractional sums in double
+// (exact in any order: every table value is a multiple of 2^-15) reduced
+// over the group, each rounded once to float32, then added in float32 in
+// the reference's order. The result is valid on every thread.
 template <int LOG2, class G>
 __device__ float tu_bits_group(const G& g, const int* lv,
                                const int* __restrict__ itab,

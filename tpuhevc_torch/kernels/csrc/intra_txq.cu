@@ -31,77 +31,23 @@
 // a TU (two a warp, 16 a block), 8x8 a warp (2 coefficients a lane),
 // 16x16 two warps (4 a lane), 32x32 the block (8 warps, 4 a thread). A
 // team inside one warp meets by __syncwarp, a larger one by barriers. The
-// matrix is staged once a block, its rows padded so that lanes reading
-// down a column hit distinct banks; a lane's outputs of the row stages
-// share one matrix row (forward) or column (inverse), and of the column
-// stages one data column, which it keeps in registers, and reads the
-// rows it shares with other lanes 16 bytes a load. The RDOQ takes a
+// matrix is staged once a block, and the transform stages are the team's
+// of tu_team.cuh (shared with b_txq.cu): a lane's outputs of the row
+// stages share one matrix row (forward) or column (inverse), and of the
+// column stages one data column, which it keeps in registers, and reads
+// the rows it shares with other lanes 16 bytes a load. The RDOQ takes a
 // CG a 16-lane group (`rdoq_level_lanes`): the Rice stand-in and the
 // keep / zero sums by shuffles, the sums in the serial order; the SSEs by
 // shuffles (integers: exact in any order). One launch a class for all
 // its candidates.
 
 #include "rdoq_common.cuh"
-#include "tx_common.cuh"
+#include "tu_team.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-// A TU of S x S = 1 << LOG2: TEAM lanes, CPL coefficients a lane, TUS TUs
-// a block of kThreads.
 template <int LOG2>
-struct TuTeam {
-    static constexpr int S = 1 << LOG2, N2 = S * S;
-    static constexpr int TEAM =
-        LOG2 == 5 ? kThreads : (LOG2 == 4 ? 64 : (N2 < 32 ? N2 : 32));
-    static constexpr int CPL = N2 / TEAM, TUS = kThreads / TEAM;
-};
-
-template <int TEAM>
-__device__ __forceinline__ void team_sync() {
-    if (TEAM > 32)
-        __syncthreads();
-    else
-        __syncwarp();
-}
-
-// v summed over the team (every lane of the team gets it); red: one int
-// a warp of the block
-template <int TEAM>
-__device__ __forceinline__ int team_sum(int v, int* red) {
-#pragma unroll
-    for (int off = (TEAM < 32 ? TEAM : 32) / 2; off; off >>= 1)
-        v += __shfl_xor_sync(kFull, v, off);
-    if (TEAM > 32) {
-        constexpr int W = TEAM / 32;  // the team's warps
-        if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-        __syncthreads();
-        const int w0 = threadIdx.x / TEAM * W;
-        v = 0;
-#pragma unroll
-        for (int w = 0; w < W; ++w) v += red[w0 + w];
-    }
-    return v;
-}
-
-// sum over x < S of p[x] * r[x], p 16-byte aligned in shared memory and
-// shared by the lanes that read it (16 bytes a load); integer products
-// below 2^31, their sum exact in any order
-template <int S>
-__device__ __forceinline__ int dot_row(const int* p, const int (&r)[S]) {
-    int acc = 0;
-#pragma unroll
-    for (int x = 0; x < S; x += 4) {
-        const int4 v = *reinterpret_cast<const int4*>(p + x);
-        acc += v.x * r[x] + v.y * r[x + 1] + v.z * r[x + 2] + v.w * r[x + 3];
-    }
-    return acc;
-}
-
-template <int LOG2>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTuBlock)
 intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
               const int* __restrict__ rows, const int* __restrict__ modes,
               const float* __restrict__ ftab, float* __restrict__ dist_out,
@@ -110,18 +56,12 @@ intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
               int dqshift, int rdoq, Rdoq rq) {
     using L = TuTeam<LOG2>;
     constexpr int S = L::S, N2 = L::N2, TEAM = L::TEAM, CPL = L::CPL;
-    constexpr int MASK = S - 1, CGW = S > 4 ? S / 4 : 1;
-    constexpr int TP = S + 1;  // the padded copy's row pitch
-    // the matrix, once a block: T padded (a lane's own row or column, read
-    // down a column by distinct lanes, hits distinct banks), T and its
-    // transpose aligned (rows that lanes share, read 16 bytes a load)
-    __shared__ int s_Tp[S * TP];
-    __shared__ __align__(16) int s_Ta[N2];
-    __shared__ __align__(16) int s_Tt[N2];
+    constexpr int CGW = S > 4 ? S / 4 : 1;
+    __shared__ TxMats<LOG2> s_m;
     __shared__ __align__(16) int s_X[L::TUS][N2];  // residual, coefficients,
                                                    // levels, dequantised
     __shared__ __align__(16) int s_Y[L::TUS][N2];  // the first stages
-    __shared__ int s_red[2][kThreads / 32];
+    __shared__ int s_red[2][kTuBlock / 32];
     const int slot = threadIdx.x / TEAM, t = threadIdx.x % TEAM;
     const int tu0 = blockIdx.x * L::TUS + slot;
     const bool live = tu0 < ntu;
@@ -132,13 +72,7 @@ intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
     const int* ob = org + (size_t)row * N2;
     const int* pb = preds + ((size_t)row * 35 + modes[tu]) * N2;
 
-    for (int e = threadIdx.x; e < N2; e += kThreads) {
-        const int k = e >> LOG2, x = e & MASK;
-        const int v = dst ? c_dst4[e] : c_dct32[(k << (5 - LOG2)) * 32 + x];
-        s_Tp[k * TP + x] = v;
-        s_Ta[e] = v;
-        s_Tt[x * S + k] = v;
-    }
+    tx_stage_mats<LOG2>(s_m, dst);
     int r[CPL], d0 = 0;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
@@ -148,34 +82,7 @@ intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
         d0 += r[j] * r[j];
     }
     __syncthreads();
-    // a lane's outputs e = t + TEAM j share the column e & MASK
-    const int col = t & MASK;
-    {  // forward rows: Y[y][k] = (sum_x X[y][x] T[k][x] + r1) >> s1
-        constexpr int s1 = LOG2 - 1;
-        int tk[S];
-#pragma unroll
-        for (int x = 0; x < S; ++x) tk[x] = s_Tp[col * TP + x];
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-            const int y = (t + TEAM * j) >> LOG2;
-            Y[t + TEAM * j] = (dot_row<S>(X + y * S, tk) + (1 << (s1 - 1)))
-                              >> s1;
-        }
-    }
-    team_sync<TEAM>();
-    {  // forward columns: X[k][j] = (sum_y T[k][y] Y[y][j] + r2) >> s2
-        constexpr int s2 = LOG2 + 6;
-        int yc[S];
-#pragma unroll
-        for (int y = 0; y < S; ++y) yc[y] = Y[y * S + col];
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-            const int k = (t + TEAM * j) >> LOG2;
-            X[t + TEAM * j] = (dot_row<S>(s_Ta + k * S, yc) + (1 << (s2 - 1)))
-                              >> s2;
-        }
-    }
-    team_sync<TEAM>();
+    team_forward<LOG2>(X, Y, s_m, t);
     if (rdoq) {  // a CG a 16-lane group: coefficient i of CG g at c
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
@@ -199,28 +106,16 @@ intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
         X[e] = tx_dequant(lev, dqscale, dqshift);
     }
     team_sync<TEAM>();
-    {  // inverse columns: Y[y][j] = clip16((sum_k T[k][y] X[k][j] + 64) >> 7)
-        int xc[S];
-#pragma unroll
-        for (int k = 0; k < S; ++k) xc[k] = X[k * S + col];
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-            const int y = (t + TEAM * j) >> LOG2;
-            Y[t + TEAM * j] = clip16((dot_row<S>(s_Tt + y * S, xc) + 64) >> 7);
-        }
-    }
+    team_inv_cols<LOG2>(X, Y, s_m, t);
     team_sync<TEAM>();
     int dist = 0;
-    {  // inverse rows: rec[y][x] = clip16((sum_k Y[y][k] T[k][x] + 2^11)
-       // >> 12)
+    {  // inverse rows, each output against the residual
         int tc[S];
-#pragma unroll
-        for (int k = 0; k < S; ++k) tc[k] = s_Tp[k * TP + col];
+        tx_matrix_col<LOG2>(s_m, t & (S - 1), tc);
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
-            const int y = (t + TEAM * j) >> LOG2;
-            const int d = r[j] - clip16((dot_row<S>(Y + y * S, tc) + 2048)
-                                        >> 12);
+            const int d = r[j] - tx_inv_row_at<LOG2>(
+                                     Y, tc, (t + TEAM * j) >> LOG2);
             dist += d * d;
         }
     }
@@ -239,7 +134,7 @@ int launch_tus(const int* org, const int* preds, const int* rows,
                int qbits, int dqscale, int dqshift, int rdoq, Rdoq rq,
                cudaStream_t st) {
     constexpr int TUS = TuTeam<LOG2>::TUS;
-    intra_txq_tus<LOG2><<<(ntu + TUS - 1) / TUS, kThreads, 0, st>>>(
+    intra_txq_tus<LOG2><<<(ntu + TUS - 1) / TUS, kTuBlock, 0, st>>>(
         org, preds, rows, modes, ftab, dist, d0, lvl, ntu, K, dst, qscale,
         qadd, qbits, dqscale, dqshift, rdoq, rq);
     return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
-// The table RDOQ of one TU, shared by the TU kernels that quantise with
-// it: a block's threads on shared memory (rdoq_levels, b_txq.cu) or a
-// CG a 16-lane group (rdoq_level_lanes, intra_txq.cu).
+// The table RDOQ of one TU, a CG a 16-lane group, shared by the TU
+// kernels that quantise with it (intra_txq.cu: rdoq_level_lanes, b_txq.cu:
+// rdoq_level_group).
 //
 // What it computes: the float32 table RDOQ of tpuhevc/ops/transforms.py:
 // 317-422 (`rdoq_est_xp`, jnp branch) as the PyTorch version
@@ -14,9 +14,8 @@
 // -fmad=false), the CG sums sequential in raster order inside the CG. The
 // Rice parameter and the escape length are exact integer formulas.
 //
-// All threads of the block call rdoq_levels; it ends with the levels in L
-// and no trailing barrier. rdoq_level_lanes is the same RDOQ a CG of 16
-// lanes, for kernels that give a TU a warp or part of one.
+// rdoq_level_lanes and rdoq_level_group are called by every lane of a
+// warp, for kernels that give a TU a warp or part of one.
 
 #pragma once
 
@@ -39,28 +38,38 @@ __device__ __forceinline__ int rdoq_rice(float mx) {
     return mx > 6.0f ? k : 0;
 }
 
-// The per-coefficient step at raster position e of an S x S TU: from ac
-// = |c| * scale, lmax = ceil(ac * inv_qdiv) and its CG's Rice stand-in,
-// the cheapest of {lmax, lmax - 1, 0} by squared error plus lambda times
-// the table bits; with cg_terms (S > 4) also the coefficient's CG-keep
-// cost *kc and CG-zero cost *zc. cost(level) is one pure float
-// expression, so each level's cost is taken once and the chosen one's
-// reused: the CG-keep cost of the chosen level is its cost.
-__device__ __forceinline__ float rdoq_best(float ac, float lmax, int rice,
-                                           int e, int log2,
-                                           const float* __restrict__ ftab,
-                                           Rdoq rq, bool cg_terms, float* kc,
-                                           float* zc) {
+// The table bits a coefficient's step reads: its significance bits
+// (prev CSBF 0) and its CG's gt1 / gt2 bits.
+struct RdoqTabs {
+    float s0, s1, gt1_0, gt1_1, gt2_0, gt2_1;
+};
+
+// The tables of raster position e of an S x S TU (ftab: its float tables).
+__device__ __forceinline__ RdoqTabs rdoq_tabs(int e, int log2,
+                                              const float* __restrict__ ftab) {
     const int S = 1 << log2;
     const float* sig = ftab;  // sig_bits[0]: (S, S, 2), prev CSBF 0
     const float* csb = ftab + f_csbf(S);
     const int y = e >> log2, x = e & (S - 1);
     const bool cg0 = y < 4 && x < 4;
-    const float s0 = sig[e * 2], s1 = sig[e * 2 + 1];
-    const float gt1_0 = cg0 ? csb[6] : csb[4];
-    const float gt1_1 = cg0 ? csb[7] : csb[5];
-    const float gt2_0 = cg0 ? csb[10] : csb[8];
-    const float gt2_1 = cg0 ? csb[11] : csb[9];
+    return {sig[e * 2], sig[e * 2 + 1], cg0 ? csb[6] : csb[4],
+            cg0 ? csb[7] : csb[5], cg0 ? csb[10] : csb[8],
+            cg0 ? csb[11] : csb[9]};
+}
+
+// The per-coefficient step with tables tb: from ac = |c| * scale, lmax =
+// ceil(ac * inv_qdiv) and its CG's Rice stand-in, the cheapest of {lmax,
+// lmax - 1, 0} by squared error plus lambda times the table bits; with
+// cg_terms (S > 4) also the coefficient's CG-keep cost *kc and CG-zero
+// cost *zc. cost(level) is one pure float expression, so each level's
+// cost is taken once and the chosen one's reused: the CG-keep cost of
+// the chosen level is its cost.
+__device__ __forceinline__ float rdoq_best(float ac, float lmax, int rice,
+                                           const RdoqTabs& tb, Rdoq rq,
+                                           bool cg_terms, float* kc,
+                                           float* zc) {
+    const float s0 = tb.s0, s1 = tb.s1, gt1_0 = tb.gt1_0, gt1_1 = tb.gt1_1;
+    const float gt2_0 = tb.gt2_0, gt2_1 = tb.gt2_1;
     // rem / 2^rice, exact as a product with 2^-rice
     const float inv_rice = __int_as_float((127 - rice) << 23);
     const float ricef = (float)(1 << rice), rice_f = (float)rice;
@@ -105,59 +114,7 @@ __device__ __forceinline__ int rdoq_level(int c, float best) {
     return (int)fminf(fmaxf(sgn * best, -32767.0f), 32767.0f);
 }
 
-// A: the S x S coefficients (complete on entry); L: the levels out;
-// F1..F4: S x S float scratch; cg_rice, cg_keep: one int per CG (<= 64).
-// ftab: the TU size's float tables (entropy/bitest.py `_foffsets`).
-// All threads of the block call it, one coefficient or CG a thread.
-__device__ void rdoq_levels(const int* A, int* L, float* F1, float* F2,
-                            float* F3, float* F4, int* cg_rice,
-                            int* cg_keep, int log2,
-                            const float* __restrict__ ftab, Rdoq rq) {
-    const int S = 1 << log2, n2 = S * S, mask = S - 1;
-    const int cgw = S > 4 ? S >> 2 : 1, ncg = cgw * cgw;
-    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const float ac = (float)abs(A[e]) * rq.scale;
-        F1[e] = ac;
-        F2[e] = ceilf(ac * rq.inv_qdiv);
-    }
-    __syncthreads();
-    for (int g = threadIdx.x; g < ncg; g += blockDim.x) {
-        const int cy = g / cgw, cx = g - cy * cgw;
-        float mx = F2[(cy * 4) * S + cx * 4];
-        for (int i = 1; i < 16; ++i)
-            mx = fmaxf(mx, F2[(cy * 4 + (i >> 2)) * S + cx * 4 + (i & 3)]);
-        cg_rice[g] = rdoq_rice(mx);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int y = e >> log2, x = e & mask;
-        const int g = (y >> 2) * cgw + (x >> 2);
-        F2[e] = rdoq_best(F1[e], F2[e], cg_rice[g], e, log2, ftab, rq, S > 4,
-                          F3 + e, F4 + e);
-    }
-    __syncthreads();
-    if (S > 4) {
-        for (int g = threadIdx.x; g < ncg; g += blockDim.x) {
-            const int cy = g / cgw, cx = g - cy * cgw;
-            const int base = (cy * 4) * S + cx * 4;
-            float ck = F3[base], cz = F4[base];
-            for (int i = 1; i < 16; ++i) {
-                const int e = base + (i >> 2) * S + (i & 3);
-                ck = ck + F3[e];
-                cz = cz + F4[e];
-            }
-            cg_keep[g] = (ck + rq.lc1) <= (cz + rq.lc0);
-        }
-        __syncthreads();
-    }
-    for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-        const int y = e >> log2, x = e & mask;
-        const bool keep = S == 4 || cg_keep[(y >> 2) * cgw + (x >> 2)];
-        L[e] = rdoq_level(A[e], keep ? F2[e] : 0.0f);
-    }
-}
-
-// The same RDOQ with the CGs in lanes: a group of 16 lanes of one warp
+// The RDOQ with the CGs in lanes: a group of 16 lanes of one warp
 // holds one CG, lane i its coefficient i in raster order inside the CG
 // (every lane of the warp calls it together, its coefficient c at raster
 // position e of an S x S TU; the group's CG is CG-major: 16-lane groups
@@ -166,20 +123,25 @@ __device__ void rdoq_levels(const int* A, int* L, float* F1, float* F2,
 // group's 16 CG-keep and CG-zero costs, gathered by shuffles, in raster
 // order inside the CG, so each takes the keep / zero decision itself.
 // Returns the level.
-__device__ __forceinline__ int rdoq_level_lanes(int c, int e, int log2,
-                                                const float* __restrict__ ftab,
-                                                Rdoq rq) {
-    const int S = 1 << log2;
+__device__ __forceinline__ float rdoq_lane_best(int c, int log2,
+                                                const RdoqTabs& tb, Rdoq rq,
+                                                float* kc, float* zc) {
     const float ac = (float)abs(c) * rq.scale;
     const float lmax = ceilf(ac * rq.inv_qdiv);
     float mx = lmax;
 #pragma unroll
     for (int off = 8; off; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    return rdoq_best(ac, lmax, rdoq_rice(mx), tb, rq, log2 > 2, kc, zc);
+}
+
+__device__ __forceinline__ int rdoq_level_lanes(int c, int e, int log2,
+                                                const float* __restrict__ ftab,
+                                                Rdoq rq) {
     float kc = 0.0f, zc = 0.0f;
-    float best = rdoq_best(ac, lmax, rdoq_rice(mx), e, log2, ftab, rq, S > 4,
-                           &kc, &zc);
-    if (S > 4) {
+    float best = rdoq_lane_best(c, log2, rdoq_tabs(e, log2, ftab), rq, &kc,
+                                &zc);
+    if (log2 > 2) {
         const int g0 = threadIdx.x & 16;  // the group's first lane
         float ck = __shfl_sync(0xffffffffu, kc, g0);
         float cz = __shfl_sync(0xffffffffu, zc, g0);
@@ -187,6 +149,43 @@ __device__ __forceinline__ int rdoq_level_lanes(int c, int e, int log2,
         for (int i = 1; i < 16; ++i) {
             ck = ck + __shfl_sync(0xffffffffu, kc, g0 + i);
             cz = cz + __shfl_sync(0xffffffffu, zc, g0 + i);
+        }
+        if (!((ck + rq.lc1) <= (cz + rq.lc0))) best = 0.0f;
+    }
+    return rdoq_level(c, best);
+}
+
+// The same with the coefficient's tables given (rdoq_tabs, read ahead by
+// the caller) and the group's 16 CG-keep and CG-zero costs passed through
+// shared memory (kz: 32 floats of the group's own scratch, 16-byte
+// aligned; the costs read back 16 bytes a load, each lane of the group
+// adding them in the same serial order): no shuffle chain where many
+// groups share an SM.
+__device__ __forceinline__ int rdoq_level_group(int c, int log2,
+                                                const RdoqTabs& tb, Rdoq rq,
+                                                float* kz) {
+    float kc = 0.0f, zc = 0.0f;
+    float best = rdoq_lane_best(c, log2, tb, rq, &kc, &zc);
+    if (log2 > 2) {
+        const int i = threadIdx.x & 15;
+        kz[i] = kc;
+        kz[16 + i] = zc;
+        __syncwarp();
+        float k[16], z[16];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const float4 a = reinterpret_cast<const float4*>(kz)[q];
+            const float4 b = reinterpret_cast<const float4*>(kz + 16)[q];
+            k[4 * q] = a.x, k[4 * q + 1] = a.y, k[4 * q + 2] = a.z;
+            k[4 * q + 3] = a.w;
+            z[4 * q] = b.x, z[4 * q + 1] = b.y, z[4 * q + 2] = b.z;
+            z[4 * q + 3] = b.w;
+        }
+        float ck = k[0], cz = z[0];
+#pragma unroll
+        for (int q = 1; q < 16; ++q) {
+            ck = ck + k[q];
+            cz = cz + z[q];
         }
         if (!((ck + rq.lc1) <= (cz + rq.lc0))) best = 0.0f;
     }

@@ -15,11 +15,12 @@ both lists' predictions at the 14-bit scale, the two uni predictions and
 their bi-average; for luma the float32 costs SSE + lam_full * (MV bits +
 2) of the three and the winner `inter_dir` (bi where its cost is at most
 both uni costs, else L0 where it is at most L1's, else L1); chroma takes
-the luma `inter_dir`. Returns the chosen prediction.
+the luma `inter_dir`. Returns the chosen prediction. `b_pred_yuv` is a B
+picture's three planes in one launch, `b_pred` one plane.
 
-`*_plain` are the PyTorch versions; `mc_blk` and `b_pred` launch the CUDA
-kernels (`kernels/csrc/mc_blk.cu`, `kernels/csrc/b_pred.cu`) for CUDA
-tensors.
+`*_plain` are the PyTorch versions; `mc_blk`, `b_pred_yuv` and `b_pred`
+launch the CUDA kernels (`kernels/csrc/mc_blk.cu`,
+`kernels/csrc/b_pred.cu`) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -181,56 +182,145 @@ def b_pred_plain(cur, ref0: torch.Tensor, ref1: torch.Tensor,
     return pred, inter_dir
 
 
+def b_pred_yuv_plain(cur: torch.Tensor, refs_y, refs_u, refs_v,
+                     xs: torch.Tensor, ys: torch.Tensor, mvq0: torch.Tensor,
+                     mvq1: torch.Tensor, lam_full: float):
+    """A B picture's three planes: `b_pred_plain` on luma (16x16 blocks at
+    xs, ys, deciding inter_dir), then on U and V (8x8 at xs // 2, ys // 2)
+    with that inter_dir. refs_*: (list 0, list 1) planes. -> (pred_y,
+    inter_dir, pred_u, pred_v)."""
+    pred_y, inter_dir = b_pred_plain(cur, *refs_y, xs, ys, mvq0, mvq1, 16,
+                                     True, lam_full)
+    cxs, cys = xs // 2, ys // 2
+    pred_u, _ = b_pred_plain(None, *refs_u, cxs, cys, mvq0, mvq1, 8, False,
+                             inter_dir=inter_dir)
+    pred_v, _ = b_pred_plain(None, *refs_v, cxs, cys, mvq0, mvq1, 8, False,
+                             inter_dir=inter_dir)
+    return pred_y, inter_dir, pred_u, pred_v
+
+
+def _b_pred_launch(n, cur, refs_y, refs_c, xs, ys, mvq0, mvq1, inter_dir,
+                   lam_full, cshift):
+    """One launch of kernel `b_pred` over n 16x16 blocks: luma (refs_y not
+    None: cur decides inter_dir) and the chroma planes of refs_c (a list
+    of (list 0, list 1) planes; their blocks at xs, ys >> cshift, from the
+    lists inter_dir uses). Returns (pred_y or None, [pred_c])."""
+    dev = xs.device
+    for t_, name in ((xs, "xs"), (ys, "ys"), (inter_dir, "inter_dir")):
+        check_tensor(t_, name, torch.int32, 1, dev)
+    for t_, name in ((mvq0, "mvq0"), (mvq1, "mvq1")):
+        check_tensor(t_, name, torch.int32, 2, dev)
+        if tuple(t_.shape) != (n, 2) or t_.data_ptr() % 8:
+            raise ValueError(f"b_pred: {name} {tuple(t_.shape)}, 8-byte "
+                             "aligned (n, 2) wanted")
+    if ys.shape[0] != n or inter_dir.shape[0] != n:
+        raise ValueError("b_pred: xs, ys, inter_dir disagree on n")
+    shape_y = shape_c = (0, 0)
+    pred_y = None
+    if refs_y is not None:
+        check_tensor(cur, "cur", torch.int32, 3, dev)
+        if tuple(cur.shape) != (n, 16, 16):
+            raise ValueError(f"b_pred: cur {tuple(cur.shape)}")
+        for t_ in refs_y:
+            check_tensor(t_, "luma reference", torch.int32, 2, dev)
+        shape_y = tuple(refs_y[0].shape)
+        if tuple(refs_y[1].shape) != shape_y:
+            raise ValueError("b_pred: the luma references differ in shape")
+        pred_y = torch.empty((n, 16, 16), dtype=torch.int32, device=dev)
+    for pair in refs_c:
+        for t_ in pair:
+            check_tensor(t_, "chroma reference", torch.int32, 2, dev)
+            if tuple(t_.shape) != tuple(refs_c[0][0].shape):
+                raise ValueError("b_pred: the chroma references differ in "
+                                 "shape")
+        shape_c = tuple(refs_c[0][0].shape)
+    preds_c = [torch.empty((n, 8, 8), dtype=torch.int32, device=dev)
+               for _ in refs_c]
+    planes = list(refs_y or (None, None))
+    for k in range(2):
+        planes += list(refs_c[k]) if k < len(refs_c) else [None, None]
+    outs = [pred_y] + preds_c + [None] * (2 - len(preds_c))
+    ptrs = (ctypes.c_void_p * 15)(*[
+        None if t_ is None else t_.data_ptr()
+        for t_ in [cur if refs_y is not None else None] + planes + outs
+        + [xs, ys, mvq0, mvq1, inter_dir]])
+    ints = (ctypes.c_int * 8)(n, *shape_y, *shape_c, int(refs_y is not None),
+                              len(refs_c), cshift)
+    fn = kbuild.function("b_pred", "tpuhevc_b_pred",
+                         [kbuild.P, kbuild.P, ctypes.c_float, kbuild.P])
+    err = fn(ptrs, ints, float(np.float32(lam_full)),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "b_pred")
+    LAUNCHES["b_pred"] += 1
+    return pred_y, preds_c
+
+
+def b_pred_yuv(cur: torch.Tensor, refs_y, refs_u, refs_v, xs: torch.Tensor,
+               ys: torch.Tensor, mvq0: torch.Tensor, mvq1: torch.Tensor,
+               lam_full: float):
+    """Kernel `b_pred` over a B picture's three planes in one launch (the
+    arguments and results of `b_pred_yuv_plain`). CPU tensors take the
+    plain version; CUDA tensors the kernel (8-bit)."""
+    if xs.device.type == "cpu":
+        return b_pred_yuv_plain(cur, refs_y, refs_u, refs_v, xs, ys, mvq0,
+                                mvq1, lam_full)
+    if xs.device.type != "cuda":
+        raise ValueError(f"b_pred: unsupported device {xs.device}")
+    n = xs.shape[0]
+    inter_dir = torch.empty((n,), dtype=torch.int32, device=xs.device)
+    if n == 0:
+        e = torch.empty((0, 8, 8), dtype=torch.int32, device=xs.device)
+        return (torch.empty((0, 16, 16), dtype=torch.int32, device=xs.device),
+                inter_dir, e, e.clone())
+    pred_y, (pred_u, pred_v) = _b_pred_launch(
+        n, cur, tuple(refs_y), [tuple(refs_u), tuple(refs_v)], xs, ys, mvq0,
+        mvq1, inter_dir, lam_full, 1)
+    return pred_y, inter_dir, pred_u, pred_v
+
+
 def b_pred(cur, ref0: torch.Tensor, ref1: torch.Tensor, xs: torch.Tensor,
            ys: torch.Tensor, mvq0: torch.Tensor, mvq1: torch.Tensor,
            size: int, is_luma: bool, lam_full: float = 0.0, inter_dir=None):
-    """Kernel `b_pred`. CPU tensors take the plain version; CUDA tensors
-    the kernel."""
+    """Kernel `b_pred` on one plane (the arguments and results of
+    `b_pred_plain`). CPU tensors take the plain version; CUDA tensors the
+    kernel, which takes the B step's two cases: 16x16 luma deciding
+    inter_dir, and 8x8 chroma (blocks at xs, ys) with inter_dir given."""
     if ref0.device.type == "cpu":
         return b_pred_plain(cur, ref0, ref1, xs, ys, mvq0, mvq1, size,
                             is_luma, lam_full, inter_dir)
     if ref0.device.type != "cuda":
         raise ValueError(f"b_pred: unsupported device {ref0.device}")
-    dev = ref0.device
-    check_tensor(ref0, "ref0", torch.int32, 2, dev)
-    check_tensor(ref1, "ref1", torch.int32, 2, dev)
-    for t_, name in ((xs, "xs"), (ys, "ys")):
-        check_tensor(t_, name, torch.int32, 1, dev)
-    check_tensor(mvq0, "mvq0", torch.int32, 2, dev)
-    check_tensor(mvq1, "mvq1", torch.int32, 2, dev)
-    n = xs.shape[0]
-    if (tuple(ref1.shape) != tuple(ref0.shape) or ys.shape[0] != n
-            or tuple(mvq0.shape) != (n, 2) or tuple(mvq1.shape) != (n, 2)
-            or size not in (4, 8, 16, 32)):
-        raise ValueError(f"b_pred: refs {tuple(ref0.shape)} / "
-                         f"{tuple(ref1.shape)}, n {n}, size {size}")
     decide = inter_dir is None
+    if (size, is_luma, decide) not in ((16, True, True), (8, False, False)):
+        raise ValueError(f"b_pred: the kernel takes 16x16 luma deciding "
+                         f"inter_dir or 8x8 chroma given it, not size {size},"
+                         f" luma {is_luma}, deciding {decide}")
+    n = xs.shape[0]
     if decide:
-        check_tensor(cur, "cur", torch.int32, 3, dev)
-        if tuple(cur.shape) != (n, size, size):
-            raise ValueError(f"b_pred: cur {tuple(cur.shape)}")
-        inter_dir = torch.empty((n,), dtype=torch.int32, device=dev)
-    else:
-        check_tensor(inter_dir, "inter_dir", torch.int32, 1, dev)
-        if inter_dir.shape[0] != n:
-            raise ValueError(f"b_pred: inter_dir {tuple(inter_dir.shape)}")
-    pred = torch.empty((n, size, size), dtype=torch.int32, device=dev)
+        inter_dir = torch.empty((n,), dtype=torch.int32, device=ref0.device)
     if n == 0:
-        return pred, inter_dir
-    tab = taps(is_luma, dev, torch.int32)
-    fn = kbuild.function(
-        "b_pred", "tpuhevc_b_pred",
-        [kbuild.P] * 10 + [kbuild.I] * 6 + [ctypes.c_float, kbuild.P])
-    err = fn(cur.data_ptr() if decide else None, ref0.data_ptr(),
-             ref1.data_ptr(), xs.data_ptr(), ys.data_ptr(), mvq0.data_ptr(),
-             mvq1.data_ptr(), tab.data_ptr(), pred.data_ptr(),
-             inter_dir.data_ptr(), n,
-             ref0.shape[0], ref0.shape[1], size, int(is_luma), int(decide),
-             float(np.float32(lam_full)),
-             torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(err, "b_pred")
-    LAUNCHES["b_pred"] += 1
+        return (torch.empty((0, size, size), dtype=torch.int32,
+                            device=ref0.device), inter_dir)
+    if is_luma:
+        pred, _ = _b_pred_launch(n, cur, (ref0, ref1), [], xs, ys, mvq0,
+                                 mvq1, inter_dir, lam_full, 0)
+    else:
+        _, (pred,) = _b_pred_launch(n, None, None, [(ref0, ref1)], xs, ys,
+                                    mvq0, mvq1, inter_dir, 0.0, 0)
     return pred, inter_dir
+
+
+def b_pred_taps(device) -> tuple[np.ndarray, np.ndarray]:
+    """The taps compiled into kernel `b_pred`: (4, 8) luma, (8, 4) chroma
+    int32, as the card holds them."""
+    luma = np.zeros((4, 8), np.int32)
+    chroma = np.zeros((8, 4), np.int32)
+    fn = kbuild.function("b_pred", "tpuhevc_b_pred_taps", [kbuild.P] * 2)
+    with torch.cuda.device(torch.device(device)):
+        kbuild.check(fn(luma.ctypes.data_as(ctypes.c_void_p),
+                        chroma.ctypes.data_as(ctypes.c_void_p)),
+                     "b_pred taps")
+    return luma, chroma
 
 
 # --- numpy host MC (the decoder) ---------------------------------------------

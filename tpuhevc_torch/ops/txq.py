@@ -18,8 +18,12 @@ estimate (`entropy.bitest.tu_bits`); the int32 SSEs of the skip and coded
 recons; and the float32 drop `f32(d_skip - d_coded) <= lam_full * bits`.
 Outputs lvl, rec (N, S, S) int32 after the drop.
 
-`*_plain` are the PyTorch versions; `txq` and `b_txq` launch the CUDA
-kernels (`kernels/csrc/txq.cu`, `kernels/csrc/b_txq.cu`) for CUDA tensors.
+`b_txq_planes` codes up to three planes (a B picture's Y, U and V) in
+one launch, `b_txq` one plane.
+
+`*_plain` are the PyTorch versions; `txq`, `b_txq_planes` and `b_txq`
+launch the CUDA kernels (`kernels/csrc/txq.cu`, `kernels/csrc/b_txq.cu`)
+for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -160,47 +164,78 @@ def _init_b_matrix(dev: torch.device) -> None:
     _B_INIT_DEVICES.add(dev.index)
 
 
-def b_txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: float,
-          est):
-    """Kernel `b_txq`. CPU tensors take the plain version; CUDA tensors the
-    kernel."""
-    if cur.device.type == "cpu":
-        return b_txq_plain(cur, pred, qp, lam_full, est)
-    if cur.device.type != "cuda":
-        raise ValueError(f"b_txq: unsupported device {cur.device}")
-    dev = cur.device
-    check_tensor(cur, "cur", torch.int32, 3, dev)
-    check_tensor(pred, "pred", torch.int32, 3, dev)
-    check_tensor(est.itab, "est.itab", torch.int32, 1, dev)
-    check_tensor(est.ftab, "est.ftab", torch.float32, 1, dev)
-    n, size = cur.shape[0], cur.shape[-1]
-    if (size not in (4, 8, 16) or cur.shape[1] != size
-            or pred.shape != cur.shape or est.S != size):
-        raise ValueError(f"b_txq: shapes {tuple(cur.shape)}, "
-                         f"{tuple(pred.shape)}, a {est.S}x{est.S} estimator")
-    if not 0 <= qp <= 51:
-        raise ValueError(f"b_txq: qp {qp}")
-    lvl = torch.empty_like(cur)
-    rec = torch.empty_like(cur)
-    if n == 0:
-        return lvl, rec
+def b_txq_planes_plain(planes, lam_full: float):
+    """planes: [(cur, pred (N, S, S) int32, qp, est)] -> [(lvl, rec)], each
+    plane by `b_txq_plain`."""
+    return [b_txq_plain(cur, pred, qp, lam_full, est)
+            for cur, pred, qp, est in planes]
+
+
+def b_txq_planes(planes, lam_full: float):
+    """Kernel `b_txq` over up to three planes (a B picture's Y, U and V) in
+    one launch; the arguments and results of `b_txq_planes_plain`. CPU
+    tensors take the plain version; CUDA tensors the kernel (8-bit, S = 4,
+    8 or 16)."""
+    dev = planes[0][0].device
+    if dev.type == "cpu":
+        return b_txq_planes_plain(planes, lam_full)
+    if dev.type != "cuda":
+        raise ValueError(f"b_txq: unsupported device {dev}")
+    if not 1 <= len(planes) <= 3:
+        raise ValueError(f"b_txq: {len(planes)} planes (1 to 3)")
+    outs, classes = [], []
+    for cur, pred, qp, est in planes:
+        check_tensor(cur, "cur", torch.int32, 3, dev)
+        check_tensor(pred, "pred", torch.int32, 3, dev)
+        check_tensor(est.itab, "est.itab", torch.int32, 1, dev)
+        check_tensor(est.ftab, "est.ftab", torch.float32, 1, dev)
+        size = cur.shape[-1]
+        if (size not in (4, 8, 16) or cur.shape[1] != size
+                or pred.shape != cur.shape or est.S != size):
+            raise ValueError(f"b_txq: shapes {tuple(cur.shape)}, "
+                             f"{tuple(pred.shape)}, a {est.S}x{est.S} "
+                             "estimator")
+        if not 0 <= qp <= 51:
+            raise ValueError(f"b_txq: qp {qp}")
+        lvl, rec = torch.empty_like(cur), torch.empty_like(cur)
+        outs.append((lvl, rec))
+        tens = (cur, pred, est.itab, est.ftab, lvl, rec)
+        if any(t_.data_ptr() % 16 for t_ in tens):
+            raise ValueError("b_txq: tensors and tables must be 16-byte "
+                             "aligned")
+        if cur.shape[0]:
+            classes.append((tens, qp, est))
+    if not classes:
+        return outs
     _init_b_matrix(dev)
-    log2 = size.bit_length() - 1
-    dqscale, dqshift = tx.dequant_params(qp, log2, 8)
-    rk = tx.rdoq_consts(qp, log2, 8)
-    csbf = est.csbf_host
-    f = ctypes.c_float
+    # the largest TUs first: their blocks take longest
+    classes.sort(key=lambda c: -c[0][0].shape[-1])
+    ptrs, ints, flts = [], [], []
+    for tens, qp, est in classes:
+        n, size = tens[0].shape[0], tens[0].shape[-1]
+        log2 = size.bit_length() - 1
+        rk = tx.rdoq_consts(qp, log2, 8)
+        csbf = est.csbf_host
+        ptrs += [t_.data_ptr() for t_ in tens]
+        ints += [n, log2, *tx.dequant_params(qp, log2, 8)]
+        flts += [float(np.float32(x)) for x in (
+            rk["scale"], rk["qdiv"], rk["inv_qdiv"], rk["inv_den"],
+            lam_full, lam_full * float(csbf[0, 0]),
+            lam_full * float(csbf[0, 1]))]
     fn = kbuild.function("b_txq", "tpuhevc_b_txq",
-                         [kbuild.P] * 6 + [kbuild.I] * 4 + [f] * 7
-                         + [kbuild.P])
-    err = fn(cur.data_ptr(), pred.data_ptr(), est.itab.data_ptr(),
-             est.ftab.data_ptr(), lvl.data_ptr(), rec.data_ptr(), n, log2,
-             dqscale, dqshift,
-             *(float(np.float32(x)) for x in (
-                 rk["scale"], rk["qdiv"], rk["inv_qdiv"], rk["inv_den"],
-                 lam_full, lam_full * float(csbf[0, 0]),
-                 lam_full * float(csbf[0, 1]))),
+                         [kbuild.I] + [kbuild.P] * 4)
+    err = fn(len(classes), (ctypes.c_void_p * len(ptrs))(*ptrs),
+             (ctypes.c_int * len(ints))(*ints),
+             (ctypes.c_float * len(flts))(*flts),
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "b_txq")
     LAUNCHES["b_txq"] += 1
-    return lvl, rec
+    return outs
+
+
+def b_txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: float,
+          est):
+    """Kernel `b_txq` on one plane (the arguments and results of
+    `b_txq_plain`). CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    return b_txq_planes([(cur, pred, qp, est)], lam_full)[0]

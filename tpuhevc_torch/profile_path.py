@@ -35,7 +35,9 @@ satd35_topk, intra_txq, tu_bits; in `ldp` only the IDR launches them,
 and `--path intra --frames 1` is one all-intra picture), and of every
 other kernel of KERNEL_SYMBOLS the encode launched (K1, K3, K4 and the B
 step's in `ra`, grid_stats in `bench`, grid_wp_me and grid_subpel in
-`fwp`). Needs a CUDA device.
+`fwp`). `ra` then replays b_pred's and b_txq's calls of one more encode
+(`b_split`): their `device_ms` as the B step makes them, and each plane's
+class alone. Needs a CUDA device.
 
 `stripes` is the multi-device path's stripe kernels as `chip_smoke.py`'s
 path 7 runs them on one card (a mesh of 3 x the card): `tile_prescreen`
@@ -546,6 +548,66 @@ def profile_stripes(args, dev, gpu: str) -> None:
               f"({reps} calls) | {gpu}", flush=True)
 
 
+def b_split(encode, gpu: str, reps: int = 10) -> None:
+    """`ra`: kernels b_pred and b_txq on the B step's calls of one more
+    encode, recorded from `codec/inter_b.py` and replayed: `device_ms` of
+    all the calls as the step makes them (on this tree a launch a B
+    picture, on a parent tree without `b_pred_yuv` and `b_txq_planes` a
+    launch a plane: luma, U and V in turn), then of each plane's class
+    alone through the one-plane entries."""
+    from .codec import inter_b
+    from .ops import interp, txq
+
+    fused = hasattr(inter_b, "b_pred_yuv")
+    names = ("b_pred_yuv", "b_txq_planes") if fused else ("b_pred", "b_txq")
+    calls = {k: [] for k in names}
+    saved = {k: getattr(inter_b, k) for k in names}
+
+    def recorder(k):
+        def rec(*a, **kw):
+            calls[k].append((a, kw))
+            return saved[k](*a, **kw)
+        return rec
+
+    for k in names:
+        setattr(inter_b, k, recorder(k))
+    try:
+        encode()
+    finally:
+        for k in names:
+            setattr(inter_b, k, saved[k])
+    pred, code = (calls[k] for k in names)
+    if fused:
+        runs = {"b_pred": [(interp.b_pred_yuv, a, k) for a, k in pred],
+                "b_txq": [(txq.b_txq_planes, a, k) for a, k in code]}
+        classes = {n: [[], [], []] for n in runs}
+        for (cur, ry, ru, rv, xs, ys, m0, m1, lam), _ in pred:
+            dirs = interp.b_pred_yuv(cur, ry, ru, rv, xs, ys, m0, m1, lam)[1]
+            cx, cy = xs // 2, ys // 2
+            classes["b_pred"][0].append(
+                (interp.b_pred, (cur, *ry, xs, ys, m0, m1, 16, True, lam), {}))
+            for i, r in ((1, ru), (2, rv)):
+                classes["b_pred"][i].append(
+                    (interp.b_pred, (None, *r, cx, cy, m0, m1, 8, False),
+                     {"inter_dir": dirs}))
+        for (planes, lam), _ in code:
+            for i, (c, p, q, e) in enumerate(planes):
+                classes["b_txq"][i].append((txq.b_txq, (c, p, q, lam, e), {}))
+    else:  # a call a plane: luma, U, V in turn
+        runs = {"b_pred": [(interp.b_pred, a, k) for a, k in pred],
+                "b_txq": [(txq.b_txq, a, k) for a, k in code]}
+        classes = {n: [runs[n][i::3] for i in range(3)] for n in runs}
+    for name, run in runs.items():
+        every = device_ms(lambda: [f(*a, **k) for f, a, k in run], n=reps)
+        alone = [round(device_ms(lambda c=c: [f(*a, **k) for f, a, k in c],
+                                 n=reps), 5) for c in classes[name]]
+        print(f"ra: {name} on the B step's {len(run)} calls of an encode: "
+              f"device_ms {every:.5f}; each plane's class alone (luma, U, "
+              f"V; {len(classes[name][0])} calls each): {alone} (events "
+              f"around {reps} replays queued behind a device sleep, over "
+              f"{reps}) | {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     from .codec.encoder import encode_sequence
     from .config.options import build_config, parse_args
@@ -664,6 +726,8 @@ def main(argv=None) -> int:
             print(f"  {name}: device {ms:.5f} ms in "
                   f"{sum(e.count for e in hit)} launches over the profiled "
                   f"encode {each}")
+        if args.path == "ra":
+            b_split(encode, gpu)
         if args.trace:
             os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                         exist_ok=True)
