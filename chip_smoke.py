@@ -8,8 +8,14 @@
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it at 416x240: the LD-P scan kernels at the
    CU classes c32/c16/cf plus the 8x8 luma / 4x4 chroma class of sizes
-   that are not 16-aligned, K1 also without row subsampling (the per-frame
-   P stage's search); the intra decision kernels at every call of the
+   that are not 16-aligned, K1 every class in one launch
+   (`sad_search_classes`, reading the windows from the reference plane)
+   with row subsampling on and off (the per-frame P stage's search) at
+   lam_me 0 and the path's, K4 every class's Y, U and V in one launch
+   (`txq_planes`) at the path's QPs and at QP 50, each torch.equal; K1's
+   and K4's device time a P picture and bound printed, and beside K1
+   torch.cdist (p=1) of the classes' PUs against their unfolded windows
+   (the library time); the intra decision kernels at every call of the
    decision (both passes) of one all-intra picture and of one LD-P IDR,
    captured from the decision itself (every output torch.equal, tu_bits'
    exact sums too; intra_bank's, satd35_topk's and tu_bits' device time
@@ -130,7 +136,10 @@
    416x240, 18 frames (IDR, four GOPs of hierarchical B pictures, POC 17
    as the P tail), once to warm up and once with the counters reset just
    before; b_me, b_pred, b_txq and K1-K4 must have launched, the first
-   three once a B picture each, and on no other path. Main path 4,
+   three once a B picture each, and on no other path; its P picture
+   launches K1 and K4 once each (every class in the launch; mc_blk 9, K2
+   19 over the encode), both torch.equal to plain at those calls; paths
+   1, 2 and 6 launch neither. Main path 4,
    LD-P with DCT-IF FME and weighted prediction: the anchor cfg with
    FmeMode dctif and WeightedPredP 1 on 17 frames of the fade clip
    (`make_fade_clip`), counters reset just before; the grid kernels with
@@ -223,10 +232,11 @@ sys.path.insert(0, ROOT)
 
 from tools.make_test_clip import make_clip, make_fade_clip  # noqa: E402
 from tpuhevc_torch.codec import encoder as encoder_mod  # noqa: E402
-from tpuhevc_torch.codec import inter_b, inter_grid, intra_decide  # noqa: E402
+from tpuhevc_torch.codec import (  # noqa: E402
+    inter_b, inter_batch, inter_grid, intra_decide)
 from tpuhevc_torch.codec.decoder import decode_stream  # noqa: E402
 from tpuhevc_torch.codec.encoder import encode_sequence  # noqa: E402
-from tpuhevc_torch.codec.inter_batch import _blk_idx, _positions, _win_idx  # noqa: E402
+from tpuhevc_torch.codec.inter_batch import _blk_idx, _positions  # noqa: E402
 from tpuhevc_torch.codec.intra_frame import _sqlam_fp, wave_tables  # noqa: E402
 from tpuhevc_torch.codec.intra_decide import decide_intra_qt  # noqa: E402
 from tpuhevc_torch.codec.params import EncoderConfig, SeqParams, p_frame_lambda  # noqa: E402
@@ -285,9 +295,11 @@ from tpuhevc_torch.ops.intra_txq import intra_txq, intra_txq_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_wave import (  # noqa: E402
     WaveTables, intra_wave, intra_wave_plain, wave_smem, wave_variant)
 from tpuhevc_torch.ops.me import (  # noqa: E402
-    _b_tables, b_me, b_me_plain, bits_table, sad_search, sad_search_plain)
+    _b_tables, b_me, b_me_plain, bits_table, sad_search_classes,
+    sad_search_classes_plain, window_index)
 from tpuhevc_torch.ops.txq import (  # noqa: E402
-    b_txq, b_txq_plain, b_txq_planes, b_txq_planes_plain, txq, txq_plain)
+    b_txq, b_txq_plain, b_txq_planes, b_txq_planes_plain, txq_planes,
+    txq_planes_plain)
 from tpuhevc_torch.utils.tables import chroma_qp  # noqa: E402
 
 SOURCES = {
@@ -363,6 +375,9 @@ G_KERNELS = ("grid_coarse", "grid_prestage", "grid_refine", "grid_planes",
 LDP_NEED = INTRA + G_KERNELS + ("grid_sao_decide", "nnfme_mlp")
 # the random-access path: the B step, the P tail's stage (K1-K4) and K2
 RA_NEED = B_KERNELS + ("nnfme_mlp", "sad_search", "mc_blk", "txq")
+# K1 and K4: one launch each a P picture of the per-frame P stage (the
+# random-access path's P tail), every CU class in it
+P_ONCE = ("sad_search", "txq")
 # DCT-IF FME, weighted prediction and the no-fetch tail of the grid step
 F_KERNELS = ("grid_subpel", "grid_wp_me", "grid_stats")
 FME_WP = ["--FmeMode=dctif", "--WeightedPredP=1"]
@@ -578,6 +593,16 @@ def windows(name, a, kw, out=None):
         return [(a[0], boundary_mask(a[0], 16, nh, nw, (0,), y0)),
                 (a[1], boundary_mask(a[1], 8, nh, nw,
                                      (0, a[1].shape[1] // 2), y0))]
+    if name == "sad_search":  # the PUs' clamped windows
+        ref, sr = a[0], a[4]
+        hh, ww = ref.shape
+        mask = np.zeros((hh, ww), bool)
+        for cur, xs, ys in a[1]:
+            S = cur.shape[1]
+            for x, y in zip(xs.tolist(), ys.tolist()):
+                mask[max(y - sr, 0) : y + S + sr, max(x - sr, 0) : x + S + sr] \
+                    = True
+        return [(ref, mask)]
     if name == "grid_subpel":  # each class's 18 points' gathers of this
         # run's data
         planes, oy, classes, look = a
@@ -634,12 +659,15 @@ def kernel_ops(name, a, kw=None, out=None) -> int:
     its shapes: the work the function needs, not what a kernel happens to
     repeat. A call of several classes (planes) counts their sum."""
     kw = kw or {}
-    if name == "sad_search":
-        cur, sr = a[1], a[4]
+    if name == "sad_search":  # every class: sub, abs, add
+        sr = a[4]
         sub = (a[5] if len(a) > 5 else kw.get("subsample", True))
-        n, S = cur.shape[0], cur.shape[1]
-        rows = S // 2 if sub and S > 8 else S
-        return 3 * n * (2 * sr + 1) ** 2 * rows * S  # sub, abs, add
+        ops = 0
+        for cur, _, _ in a[1]:
+            n, S = cur.shape[0], cur.shape[1]
+            rows = S // 2 if sub and S > 8 else S
+            ops += 3 * n * (2 * sr + 1) ** 2 * rows * S
+        return ops
     if name in ("nnfme_mlp", "nn_refine_classes"):  # one class, or several
         n = (a[1].shape[0] if name == "nnfme_mlp"
              else sum(p[0].shape[0] for p in a[1]))
@@ -648,8 +676,8 @@ def kernel_ops(name, a, kw=None, out=None) -> int:
     if name == "mc_blk":
         S, nt = a[4], 8 if a[5] else 4
         return a[1].shape[0] * 2 * nt * ((S + nt - 1) * S + S * S)
-    if name == "b_txq" and isinstance(a[0], list):  # b_txq_planes
-        return sum(kernel_ops("b_txq", p) for p in a[0])
+    if name in ("txq", "b_txq") and isinstance(a[0], list):  # the planes
+        return sum(kernel_ops(name, p) for p in a[0])
     if name in ("txq", "b_txq"):
         n, S = a[0].shape[0], a[0].shape[-1]
         return n * (8 * S ** 3 + (80 if name == "b_txq" else 20) * S * S)
@@ -797,8 +825,6 @@ def stage_shapes(dev):
             cur_c=[p.reshape(-1)[torch.as_tensor(
                 _blk_idx(poss, size // 2, W // 2, 2), device=dev).long()]
                 for p in org[1:]],
-            wnd=ref[0].reshape(-1)[torch.as_tensor(
-                _win_idx(poss, size, SR, W, H), device=dev).long()],
             xs=torch.as_tensor(xs, device=dev),
             ys=torch.as_tensor(ys, device=dev),
             xs_c=torch.as_tensor(xs // 2, device=dev),
@@ -807,9 +833,41 @@ def stage_shapes(dev):
     return out
 
 
+def k1_library_ms(ref_y, classes, found):
+    """torch.cdist (p=1) of each class's PUs against their unfolded
+    windows in float32 (sr 16): the SAD surface of the classes only (no
+    cost, pick or sad9), its values at K1's picks checked (every row
+    searched). Returns its event ms over the classes."""
+    h, w = ref_y.shape
+    side = 2 * SR + 1
+    pairs = []
+    for (cur, xs, ys), (mv, sad9) in zip(classes, found):
+        n, S = cur.shape[0], cur.shape[1]
+        wnd = ref_y.reshape(-1)[window_index(xs, ys, S, SR, h, w)]
+        x1 = cur.reshape(n, 1, S * S).float().contiguous()
+        x2 = (wnd.unfold(1, S, 1).unfold(2, S, 1)
+              .reshape(n, side * side, S * S).float().contiguous())
+        d = torch.cdist(x1, x2, p=1)[:, 0]
+        bi = (mv[:, 1] + SR) * side + mv[:, 0] + SR
+        check(torch.equal(d.gather(1, bi[:, None].long())[:, 0].int(),
+                          sad9[:, 4]),
+              f"torch.cdist's SAD at K1's picks differs from sad9 (S={S})")
+        pairs.append((x1, x2))
+    ms = median_ms(lambda: [torch.cdist(a, b, p=1) for a, b in pairs])
+    print(f"library sad_search: torch.cdist(p=1) of the P picture's "
+          f"{[a.shape[0] for a, _ in pairs]} PUs against {side * side} "
+          f"unfolded window blocks each (float32, sr 16), the SAD surface "
+          f"only: event ms {ms:.4f} | {gpu_line()}", flush=True)
+    return ms
+
+
 def check_kernels(dev, model):
-    """Kernel vs plain on the card. Returns {name: row} for the JSON line;
-    ms/plain_ms are summed over the 416x240 classes (one P frame)."""
+    """Kernel vs plain on the card. Returns {name: row} for the JSON line:
+    K1 and K4 one launch for the 416x240 P picture's classes (c32, c16,
+    cf; their ms, plain_ms, device_ms and bound those of the random-access
+    P picture's call: K1 with every row searched), K2 and K3 summed over
+    those classes. K1 and K4 are also checked with the synthetic c8 class
+    in the launch."""
     lam_full = int(round(p_frame_lambda(
         EncoderConfig(qp=QP, gop_qp_offsets=(3, 2, 3, 1)), 0, QP + 3) * 256))
     lam_me = int(round(np.sqrt(lam_full / 256.0) * 256))
@@ -832,31 +890,56 @@ def check_kernels(dev, model):
         return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
                    for x, y in zip(a, b))
 
-    for st in stage_shapes(dev):
-        size, tag = st["size"], st["tag"]
-        # K1
-        k = sad_search(st["wnd"], st["cur"], bits, lam_me, SR)
-        p = sad_search_plain(st["wnd"], st["cur"], bits, lam_me, SR)
-        torch.cuda.synchronize()
-        err = exact(k, p)
-        check(err == 0, f"sad_search {tag}: {err}")
-        record("sad_search", tag, err,
-               median_ms(lambda: sad_search(st["wnd"], st["cur"], bits,
-                                            lam_me, SR)),
-               median_ms(lambda: sad_search_plain(st["wnd"], st["cur"], bits,
-                                                  lam_me, SR)),
-               [((st["wnd"], st["cur"], bits, lam_me, SR), k)])
-        # the per-frame P stage's search: every row (integer_me)
-        if tag != "c8":
-            a = sad_search(st["wnd"], st["cur"], bits, lam_me, SR, False)
-            b = sad_search_plain(st["wnd"], st["cur"], bits, lam_me, SR,
-                                 False)
+    def equal(got, want, what):
+        for g, w_ in zip(got, want, strict=True):
+            err = exact(g, w_)
+            check(err == 0 and all(torch.equal(x, y) for x, y in zip(g, w_)),
+                  f"{what}: differs from plain by {err}")
+
+    shapes = stage_shapes(dev)
+    main = [st for st in shapes if st["tag"] != "c8"]
+    ref_y = shapes[0]["ref"][0]
+    every = [(st["cur"], st["xs"], st["ys"]) for st in shapes]
+    pic = [(st["cur"], st["xs"], st["ys"]) for st in main]
+    # K1: every class (c8 too) in one launch, subsample on and off, lam_me
+    # 0 and the path's
+    for sub in (True, False):
+        for lam in (0, lam_me):
+            got = sad_search_classes(ref_y, every, bits, lam, SR, sub)
+            want = sad_search_classes_plain(ref_y, every, bits, lam, SR, sub)
             torch.cuda.synchronize()
-            err = exact(a, b)
-            check(err == 0, f"sad_search {tag} without subsampling: {err}")
-            print(f"kernel sad_search {tag:4s} (no subsampling) max_abs_err "
-                  f"{err}", flush=True)
-        mv_int, sad9 = k
+            equal(got, want, f"sad_search subsample {sub}, lam_me {lam}")
+    print(f"kernel sad_search: classes {[st['tag'] for st in shapes]} in "
+          f"one launch, subsample on and off, lam_me 0 and {lam_me}: equal "
+          "to plain", flush=True)
+    # the random-access P picture's call (every row searched)
+    found = sad_search_classes(ref_y, pic, bits, lam_me, SR, False)
+    record("sad_search", "P picture", 0,
+           median_ms(lambda: sad_search_classes(ref_y, pic, bits, lam_me,
+                                                SR, False)),
+           median_ms(lambda: sad_search_classes_plain(ref_y, pic, bits,
+                                                      lam_me, SR, False)),
+           [((ref_y, pic, bits, lam_me, SR, False), found)])
+    r = rows["sad_search"]
+    for sub in (False, True):
+        dms = device_ms(lambda: sad_search_classes(ref_y, pic, bits, lam_me,
+                                                   SR, sub), n=100)
+        if not sub:
+            r["device_ms"] = dms
+        print(f"kernel sad_search P picture (subsample {sub}): device_ms "
+              f"{dms:.5f} a launch (events around 100 launches queued "
+              f"behind a device sleep) | {gpu_line()}", flush=True)
+    bound, by = bound_of(r)
+    print(f"kernel sad_search P picture: bound {bound:.6f} ms ({by}; "
+          f"{r['work'].bytes} bytes, {r['work'].ops} operations)",
+          flush=True)
+    r["library_ms"] = k1_library_ms(ref_y, pic, found)
+    # the LD-P scan's search feeds K2 below
+    scan = sad_search_classes(ref_y, every, bits, lam_me, SR)
+
+    jobs, jobs_pic = [], []
+    for st, (mv_int, sad9) in zip(shapes, scan):
+        size, tag = st["size"], st["tag"]
         # K2: logits within atol 1e-4 / rtol 1e-5; the argmax must agree
         # wherever the plain top-2 gap exceeds 1e-3
         hc, wc = height_category(size), width_category(size)
@@ -893,24 +976,35 @@ def check_kernels(dev, model):
                median_ms(lambda: [mc_blk(*c[:3], mvq, *c[3:]) for c in calls]),
                median_ms(lambda: [mc_blk_plain(*c[:3], mvq, *c[3:])
                                   for c in calls]), done)
-        # K4: luma at QP, chroma at the chroma QP; also a QP-50 luma pass
-        # for the int32-wrapping drop product
-        tus = [(st["cur"], preds[0], QP)] + [
+        cls = [(st["cur"], preds[0], QP)] + [
             (c, pr, chroma_qp(QP)) for c, pr in zip(st["cur_c"], preds[1:])]
-        err = 0
-        done = []
-        for cur, pred, qp in tus + [(st["cur"], preds[0], 50)]:
-            a = txq(cur, pred, qp, lam_full)
-            b = txq_plain(cur, pred, qp, lam_full)
-            torch.cuda.synchronize()
-            err = max(err, exact(a, b))
-            if qp != 50:
-                done.append(((cur, pred, qp, lam_full), a))
-        check(err == 0, f"txq {tag}: {err}")
-        record("txq", tag, err,
-               median_ms(lambda: [txq(c, pr, q, lam_full) for c, pr, q in tus]),
-               median_ms(lambda: [txq_plain(c, pr, q, lam_full)
-                                  for c, pr, q in tus]), done)
+        jobs += cls
+        if tag != "c8":
+            jobs_pic += cls
+    # K4: every class's three planes (c8 too) in one launch at the path's
+    # QPs, and at QP 50 (the int32-wrapping drop product)
+    for js, what in ((jobs, "the path's QPs"),
+                     ([(c, p, 50) for c, p, _ in jobs], "QP 50")):
+        got = txq_planes(js, lam_full)
+        want = txq_planes_plain(js, lam_full)
+        torch.cuda.synchronize()
+        equal(got, want, f"txq {len(js)} jobs at {what}")
+    print(f"kernel txq: {len(jobs)} jobs (classes "
+          f"{[st['tag'] for st in shapes]}, Y, U, V) in one launch at QP "
+          f"{QP} / {chroma_qp(QP)} and at QP 50: equal to plain", flush=True)
+    coded = txq_planes(jobs_pic, lam_full)
+    record("txq", "P picture", 0,
+           median_ms(lambda: txq_planes(jobs_pic, lam_full)),
+           median_ms(lambda: txq_planes_plain(jobs_pic, lam_full)),
+           [((jobs_pic, lam_full), coded)])
+    r = rows["txq"]
+    r["device_ms"] = device_ms(lambda: txq_planes(jobs_pic, lam_full), n=100)
+    bound, by = bound_of(r)
+    print(f"kernel txq P picture, {len(jobs_pic)} jobs in one launch: "
+          f"device_ms {r['device_ms']:.5f} (events around 100 launches "
+          f"queued behind a device sleep), bound {bound:.6f} ms ({by}; "
+          f"{r['work'].bytes} bytes, {r['work'].ops} operations) | "
+          f"{gpu_line()}", flush=True)
     return rows
 
 
@@ -965,11 +1059,12 @@ def ra_cfg(npz, w=None, h=None, frames=None):
     return cfg
 
 
-# kernel name -> the wrapper the grid step (the B step) calls, where they
-# differ
+# kernel name -> the wrapper the grid step (the B step, the P stage)
+# calls, where they differ
 # ("grid_refine_one": grid_refine's one-reference wrapper, which
 # stripe_refine calls)
-CALLED_AS = {"grid_code": "grid_code_batch", "grid_satd": "grid_mc",
+CALLED_AS = {"sad_search": "sad_search_classes", "txq": "txq_planes",
+             "grid_code": "grid_code_batch", "grid_satd": "grid_mc",
              "grid_refine": "grid_refine_refs",
              "grid_refine_one": "grid_refine",
              "grid_subpel": "grid_subpel_classes",
@@ -1085,6 +1180,8 @@ def check_intra_kernels(dev, npz):
                 b, by = bound_of(dict(work=work))
                 dms = device_ms(lambda: [kern(*c) for c in calls[name]],
                                 n=20)
+                if tag == "all-intra":
+                    r["device_ms"] = dms
                 print(f"kernel {name} {tag:9s} {len(calls[name])} "
                       f"launches: device_ms {dms:.5f} a picture (both "
                       f"passes; events around 20 pictures' calls queued "
@@ -1159,8 +1256,8 @@ def check_b_kernels(dev, npz, params):
               f"plain_ms {r['plain_ms']:.4f} (per B picture)", flush=True)
         if name != "b_me":
             bound, by = bound_of(r)
-            dms = device_ms(lambda: [kern(*a, **k) for a, k in calls[name]],
-                            n=100)
+            r["device_ms"] = dms = device_ms(
+                lambda: [kern(*a, **k) for a, k in calls[name]], n=100)
             print(f"kernel {name} B picture, Y, U and V in one launch: "
                   f"device_ms {dms:.5f} (events around 100 launches queued "
                   f"behind a device sleep), bound {bound:.6f} ms ({by}; "
@@ -2651,6 +2748,31 @@ def check_deblock_once(launches, n_p, what):
           f"{n_p} P pictures")
 
 
+def check_p_tail(calls, launches):
+    """Random access x 18: its one P picture (the POC 17 tail) launches K1
+    and K4 once each, every class in the launch (K3 three times a class,
+    K2 once a class and once a B picture), and both equal their plain
+    versions at every call, replayed from their recorded arguments."""
+    want = {"sad_search": 1, "txq": 1, "mc_blk": 9, "nnfme_mlp": N_RA + 1}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"random access: launches {got}, want {want}")
+    plain = {"sad_search": sad_search_classes_plain,
+             "txq": txq_planes_plain}
+    kern = {"sad_search": sad_search_classes, "txq": txq_planes}
+    for name in P_ONCE:
+        check(len(calls[name]) == 1, f"random access: {name} called "
+              f"{len(calls[name])} times")
+        for args, kw in calls[name]:
+            a, b = kern[name](*args, **kw), plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(
+                tensors(a), tensors(b), strict=True)),
+                f"random access: {name} differs from plain at its P "
+                "picture's call")
+    print(f"random access P picture: K1 and K4 one launch each, equal to "
+          f"plain at their calls; launches {got}", flush=True)
+
+
 def check_stream(enc, recons, n, launches, need, what):
     """Every needed kernel launched; n pictures decode hash-OK in the port's
     decoder with the encoder's recon, in decoding order (all-intra
@@ -3264,15 +3386,21 @@ def main():
               f"{ai_launches} | {gpu}", flush=True)
         for k in KERNELS:
             launches[k] += ai_launches[k]
-        check(all(launches[k] == 0 for k in B_KERNELS),
-              "LD-P or all-intra launched a B step kernel")
+        check(all(launches[k] == 0 for k in B_KERNELS + P_ONCE),
+              "LD-P or all-intra launched a B step kernel, K1 or K4")
 
         # random access: a warm-up encode (builds every B step and the P
         # tail's stage), then the counted one
         run_path(dev, ra_cfg(npz, frames=6), 6)
-        enc, recons, secs, ra_launches = run_path(dev, ra_cfg(npz), N_RA)
+        p_calls = {k: [] for k in P_ONCE}
+        saved = recording(inter_batch, P_ONCE, p_calls)
+        try:
+            enc, recons, secs, ra_launches = run_path(dev, ra_cfg(npz), N_RA)
+        finally:
+            restore(inter_batch, saved)
         check_stream(enc, recons, N_RA, ra_launches, RA_NEED,
                      "random access")
+        check_p_tail(p_calls, ra_launches)
         kbits = sum(r.bits for r in enc.results) / 1000
         psnr = np.mean([r.psnr_y for r in enc.results])
         pocs = [r.poc for r in enc.results]
@@ -3312,6 +3440,8 @@ def main():
 
         i8_launches = run_intra8(dev, gpu)
         check(i8_launches["grid_subpel"] == 0, "path 6 launched grid_subpel")
+        check(all(i8_launches[k] == 0 for k in P_ONCE),
+              "path 6 launched K1 or K4")
         for k in KERNELS:
             launches[k] += i8_launches[k]
         # paths 4-6 code no B picture
@@ -3359,9 +3489,14 @@ def main():
             name=k, route="cuda", source=SOURCES[k][0],
             replaces=SOURCES[k][1], launches=launches[k],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            # the device time where the script measured it (events around
+            # launches queued behind a device sleep), else None
+            device_ms=r.get("device_ms"),
             bound_ms=bound_ms, bound_by=bound_by,
-            # torch._fused_adam_ computes fme_adam's update; no single
-            # PyTorch call computes any of the other functions
+            # torch.cdist (p=1) computes the SAD surfaces of sad_search and
+            # b_me, torch.nn.functional.conv2d grid_planes' sums and
+            # torch._fused_adam_ fme_adam's update; no single PyTorch call
+            # computes any of the other functions
             library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}))
     print(gpu)

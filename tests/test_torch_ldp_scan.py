@@ -101,8 +101,10 @@ def test_stages_match_jax_per_class(chunk, tag):
     lam_me = int(round(np.sqrt(lam_full / 256.0) * 256))
     cur = chunk["frames"][1][0].astype(np.int32).reshape(-1)[
         jib._blk_idx(poss, size, W)]
-    wnd = chunk["refs"][0].reshape(-1)[jib._win_idx(poss, size, sr, W, H)]
-    mv, sad9 = sad_search(torch.from_numpy(wnd), torch.from_numpy(cur),
+    xs = torch.tensor([p[0] for p in poss], dtype=torch.int32)
+    ys = torch.tensor([p[1] for p in poss], dtype=torch.int32)
+    mv, sad9 = sad_search(torch.from_numpy(chunk["refs"][0].astype(np.int32)),
+                          torch.from_numpy(cur), xs, ys,
                           bits_table(sr, "cpu"), lam_me, sr)
     _, _, qoff = nn_refine(NNFME.from_numpy(chunk["params"], "cpu"), sad9,
                            height_category(size), width_category(size))
@@ -171,9 +173,10 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
     i32 = dict(dtype=torch.int32, device=meta)
     model = NNFME.from_numpy(random_params(0), "cpu").to(meta)
     calls = [
-        lambda: sad_search(torch.empty(2, 40, 40, **i32),
-                           torch.empty(2, 8, 8, **i32),
-                           torch.empty(33, 33, **i32), 0, 16),
+        lambda: sad_search(torch.empty(40, 40, **i32),
+                           torch.empty(2, 8, 8, **i32), torch.empty(2, **i32),
+                           torch.empty(2, **i32), torch.empty(33, 33, **i32),
+                           0, 16),
         lambda: nn_refine(model, torch.empty(2, 9, **i32), 2, 2),
         lambda: mc_blk(torch.empty(8, 8, **i32), torch.empty(2, **i32),
                        torch.empty(2, **i32), torch.empty(2, 2, **i32), 8,

@@ -46,7 +46,8 @@ from tpuhevc_torch.entropy.bitest import FracBits, est_tables
 from tpuhevc_torch.kernels import LAUNCHES, reset_launches
 from tpuhevc_torch.ops.interp import b_pred, b_pred_plain, bi_average, mc14
 from tpuhevc_torch.ops.me import (
-    b_me, b_me_plain, b_mv_bits, bits_table, sad_search, sad_search_plain)
+    b_me, b_me_plain, b_mv_bits, bits_table, sad_search,
+    sad_search_classes_plain)
 from tpuhevc_torch.ops.txq import b_txq, b_txq_plain
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -348,19 +349,21 @@ def test_b_kernels_match_plain(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [8, 16, 32])
 def test_sad_search_without_subsampling_matches_plain(cuda_device, size):
-    from tpuhevc_torch.codec.inter_batch import _blk_idx, _win_idx
+    from tpuhevc_torch.codec.inter_batch import _blk_idx
 
     ref, cur_plane = rng_planes(3, 240, 416, 2)
     poss = [(x, y) for y in range(0, 240 - size + 1, size)
             for x in range(0, 416 - size + 1, size)]
-    wnd = torch.from_numpy(ref.reshape(-1)[_win_idx(poss, size, SR, 416,
-                                                    240)]).to(cuda_device)
+    ref_d = torch.from_numpy(ref).to(cuda_device)
     cur = torch.from_numpy(cur_plane.reshape(-1)[_blk_idx(poss, size, 416)]
                            ).to(cuda_device)
+    xs, ys = (torch.tensor([p[i] for p in poss], dtype=torch.int32,
+                           device=cuda_device) for i in (0, 1))
     bits = bits_table(SR, cuda_device)
     for lam_me in (0, 700):
-        got = sad_search(wnd, cur, bits, lam_me, SR, False)
-        want = sad_search_plain(wnd, cur, bits, lam_me, SR, False)
+        got = sad_search(ref_d, cur, xs, ys, bits, lam_me, SR, False)
+        want = sad_search_classes_plain(ref_d, [(cur, xs, ys)], bits, lam_me,
+                                        SR, False)[0]
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 

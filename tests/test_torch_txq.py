@@ -2,7 +2,8 @@
 tpuhevc/codec/inter_batch.py:193-236, composed here from the functions it
 calls (tpuhevc.ops.transforms, inter_enc._bits_est_jnp) on the same
 arrays: lvl, rec, d and bits bit-exact for S = 4..32, including the
-int32-wrapping drop product. The CUDA kernel against the plain version
+int32-wrapping drop product; `txq_planes_plain` (a P picture's planes)
+against `txq_plain` job by job. The CUDA kernel against the plain version
 runs on a GPU only."""
 
 # jax is imported inside the tests that compare with it, so that the CUDA
@@ -15,7 +16,8 @@ from torch_port_util import cuda_device, rng_planes  # noqa: F401
 from tpuhevc.codec.inter_enc import _bits_est_jnp
 from tpuhevc.ops import transforms as jtx
 from tpuhevc_torch.ops import transforms as ttx
-from tpuhevc_torch.ops.txq import bits_est, txq, txq_plain
+from tpuhevc_torch.ops.txq import (bits_est, txq, txq_plain, txq_planes,
+                                   txq_planes_plain)
 
 
 def jax_txq(cur, pred, qp, lam_full):
@@ -103,3 +105,48 @@ def test_txq_kernel_matches_plain(cuda_device, size):
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
+
+
+def picture_jobs(n=20):
+    """A P picture's jobs as the class pipeline gives them: luma 32 and
+    chroma 16, luma 16 and chroma 8 (twice), luma 8 and chroma 4; the
+    chroma at QP 50 in one class (the wrapping drop product at a large
+    lambda), seeded TUs each."""
+    jobs = []
+    for i, (size, qp, qpc) in enumerate(((32, 32, 31), (16, 37, 50),
+                                         (16, 22, 22), (8, 47, 40))):
+        for j, (s, q) in enumerate(((size, qp), (size // 2, qpc),
+                                    (size // 2, qpc))):
+            cur, pred = tus(s, 3 * i + j, n)
+            jobs.append((torch.from_numpy(cur), torch.from_numpy(pred), q))
+    return jobs
+
+
+@pytest.mark.parametrize("lam_full", [3000, 1 << 26])
+def test_txq_planes_plain_matches_txq_plain(lam_full):
+    jobs = picture_jobs()
+    got = txq_planes_plain(jobs, lam_full)
+    assert len(got) == 12
+    for (cur, pred, qp), g in zip(jobs, got):
+        for a, b in zip(g, txq_plain(cur, pred, qp, lam_full), strict=True):
+            assert torch.equal(a, b)
+    one = txq_planes(jobs[:1], lam_full)[0]
+    for a, b in zip(one, txq(*jobs[0][:2], jobs[0][2], lam_full)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_txq_planes_kernel_matches_plain(cuda_device):
+    """Twelve jobs (every TU size, QP 50 in the mix) in one launch, one
+    job alone, every TU dropped (lambda 2^30) and cur == pred."""
+    jobs = [(c.to(cuda_device), p.to(cuda_device), q)
+            for c, p, q in picture_jobs(n=300)]
+    same = [(c, c.clone(), q) for c, _, q in jobs[:3]]
+    for js in (jobs, jobs[3:4], same):
+        for lam_full in (3000, 1 << 26, 1 << 30):
+            got = txq_planes(js, lam_full)
+            want = txq_planes_plain(js, lam_full)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want, strict=True):
+                for a, b in zip(g, w, strict=True):
+                    assert torch.equal(a, b)

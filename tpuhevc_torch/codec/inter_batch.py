@@ -2,24 +2,26 @@
 chained on the device from frame to frame.
 
 Twin of `tpuhevc/codec/inter_batch.py:90-359` (`build_ldp_scan`). Per frame
-and per CU class (c32, c16, cf, c8 from `inter_batch._positions`) the
-class pipeline runs four kernels:
+the CU classes (c32, c16, cf, c8 from `inter_batch._positions`) go
+through four kernels (`picture_pipeline`):
 
-  K1 `ops.me.sad_search`        dense +-sr full-pel SAD, argmin, 3x3 surface
-  K2 `models.nnfme.nn_refine`   NN-FME MLP -> quarter-pel offset
-  K3 `ops.interp.mc_blk`        DCT-IF MC, luma and both chroma planes
-  K4 `ops.txq.txq`              transform, quantiser, recon, skip/code drop
+  K1 `ops.me.sad_search_classes`  dense +-sr full-pel SAD, argmin, 3x3
+                                  surface: every class in one launch
+  K2 `models.nnfme.nn_refine`     NN-FME MLP -> quarter-pel offset
+  K3 `ops.interp.mc_blk`          DCT-IF MC, luma and both chroma planes
+  K4 `ops.txq.txq_planes`         transform, quantiser, recon, skip/code
+                                  drop: every class's Y, U, V in one launch
 
-The glue is plain torch: the block and window gathers use the index tables
-of `_blk_idx` / `_win_idx`; the 32-vs-16 choice; the scatter into
-whole-frame planes with a dump slot for masked entries; and the packing of
-each frame into the byte row that `collect_frame` parses (the host half:
-`_positions`, `_blk_idx`, `_win_idx` and `collect_frame` are the port's
-numpy copies of the reference's, `inter_batch.py:36-71,362-421`). The
-`lax.scan` over GOPs becomes a Python loop; launches are asynchronous, so
-the loop only enqueues work. `class_pipeline`, `choose32` and
-`scatter_planes` serve the per-frame P stage (`inter_enc.build_stage`)
-as well.
+The glue is plain torch: the block gathers use the index tables of
+`_blk_idx` (K1 reads each search window from the reference plane
+itself); the 32-vs-16 choice; the scatter into whole-frame planes with a
+dump slot for masked entries; and the packing of each frame into the
+byte row that `collect_frame` parses (the host half: `_positions`,
+`_blk_idx` and `collect_frame` are the port's numpy copies of the
+reference's, `inter_batch.py:36-71,362-421`). The `lax.scan` over GOPs
+becomes a Python loop; launches are asynchronous, so the loop only
+enqueues work. `picture_pipeline`, `choose32` and `scatter_planes` serve
+the per-frame P stage (`inter_enc.build_stage`) as well.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import torch
 from ..device import resolve
 from ..models.nnfme import NNFME, height_category, nn_refine, width_category
 from ..ops.interp import mc_blk
-from ..ops.me import bits_table, sad_search
-from ..ops.txq import txq, wrap_int32
+from ..ops.me import bits_table, sad_search_classes
+from ..ops.txq import txq_planes, wrap_int32
 from ..utils.tables import chroma_qp
 from .inter_enc import _grid_hier
 from .params import EncoderConfig, p_frame_lambda
@@ -64,25 +66,12 @@ def _blk_idx(poss, size, stride, cdiv=1):
     return idx
 
 
-def _win_idx(poss, size, sr, w, h):
-    """(N, win, win) clipped flat indices of each ME search window."""
-    win = size + 2 * sr
-    n = len(poss)
-    idx = np.empty((n, win, win), np.int32)
-    ar = np.arange(win)
-    for i, (x, y) in enumerate(poss):
-        yy = np.clip(y - sr + ar, 0, h - 1)
-        xx = np.clip(x - sr + ar, 0, w - 1)
-        idx[i] = yy[:, None] * w + xx[None, :]
-    return idx
-
-
 def _u8(x: torch.Tensor) -> torch.Tensor:
     """Little-endian bytes of a tensor, flattened (jax bitcast to uint8)."""
     return x.contiguous().view(torch.uint8).reshape(-1)
 
 
-def _tables(cfg, classes, sr: int, dev: torch.device) -> dict:
+def _tables(cfg, classes, dev: torch.device) -> dict:
     w, h = cfg.sps.coded_width, cfg.sps.coded_height
     tabs = {}
     for tag, poss, size in classes:
@@ -93,8 +82,6 @@ def _tables(cfg, classes, sr: int, dev: torch.device) -> dict:
             blk=torch.as_tensor(_blk_idx(poss, size, w), device=dev).long(),
             blk_c=torch.as_tensor(_blk_idx(poss, size // 2, w // 2, 2),
                                   device=dev).long(),
-            win=torch.as_tensor(_win_idx(poss, size, sr, w, h),
-                                device=dev).long(),
             xs=torch.as_tensor(xs, device=dev),
             ys=torch.as_tensor(ys, device=dev),
             xs_c=torch.as_tensor(xs // 2, device=dev),
@@ -104,42 +91,47 @@ def _tables(cfg, classes, sr: int, dev: torch.device) -> dict:
     return tabs
 
 
-def class_pipeline(orig, ref, t: dict, size: int, qp: int, lam_full: int,
-                   lam_me: int, nn_m, bits: torch.Tensor, sr: int,
-                   subsample: bool) -> dict:
-    """ME, FME, MC and TU coding of one CU class (K1-K4): the class
+def picture_pipeline(orig, ref, tabs: dict, classes, qp: int, lam_full: int,
+                     lam_me: int, nn_m, bits: torch.Tensor, sr: int,
+                     subsample: bool) -> dict:
+    """ME, FME, MC and TU coding of a P picture's CU classes: the class
     pipeline of the LD-P scan (`inter_batch.py:212-254`, subsample on) and
     of the per-frame P stage (`inter_enc.py:137-276` on the jax backend,
-    subsample off). orig / ref: (y, u, v) int32 planes; t: the class's
-    gather tables (`_tables`). Returns the per-class arrays, d and bits
-    int32 after the drop."""
+    subsample off). K1 searches every class in one launch; K2 and K3 run a
+    class at a time; K4 codes every class's Y, U and V in one launch.
+    orig / ref: (y, u, v) int32 planes; tabs: the classes' gather tables
+    (`_tables`). Returns {tag: the class's arrays}, d and bits int32
+    after the drop, summed over its three planes."""
     oy, ou, ov = orig
     ry, ru, rv = ref
     qpc = chroma_qp(qp)
-    cur = oy.reshape(-1)[t["blk"]]
-    wnd = ry.reshape(-1)[t["win"]]
-    mv_int, sad9 = sad_search(wnd, cur, bits, lam_me, sr, subsample)
-    mvq = mv_int * 4
-    if nn_m is not None:
-        _, _, qoff = nn_refine(nn_m, sad9, height_category(size),
-                               width_category(size))
-        mvq = mvq + qoff
-    pred = mc_blk(ry, t["xs"], t["ys"], mvq, size, True)
-    lvl, rec, d_total, bits_total = txq(cur, pred, qp, lam_full)
-    out = dict(mvq=mvq, sad9=sad9, mv_int=mv_int, lvl=lvl, rec=rec)
-    cs = size // 2
-    # chroma eighth-pel on the chroma grid == the same quarter-pel ints
-    for tag, plane, refp in (("u", ou, ru), ("v", ov, rv)):
-        cur_c = plane.reshape(-1)[t["blk_c"]]
-        pred_c = mc_blk(refp, t["xs_c"], t["ys_c"], mvq, cs, False)
-        clvl, crec, dc, bc = txq(cur_c, pred_c, qpc, lam_full)
-        d_total = d_total + dc
-        bits_total = bits_total + bc
-        out["lvl_" + tag] = clvl
-        out["rec_" + tag] = crec
-    out["d"] = d_total
-    out["bits"] = bits_total
-    return out
+    curs = [oy.reshape(-1)[tabs[tag]["blk"]] for tag, _, _ in classes]
+    found = sad_search_classes(
+        ry, [(cur, tabs[tag]["xs"], tabs[tag]["ys"])
+             for cur, (tag, _, _) in zip(curs, classes)],
+        bits, lam_me, sr, subsample)
+    arrs, jobs = {}, []
+    for cur, (mv_int, sad9), (tag, _, size) in zip(curs, found, classes):
+        t = tabs[tag]
+        mvq = mv_int * 4
+        if nn_m is not None:
+            _, _, qoff = nn_refine(nn_m, sad9, height_category(size),
+                                   width_category(size))
+            mvq = mvq + qoff
+        jobs.append((cur, mc_blk(ry, t["xs"], t["ys"], mvq, size, True), qp))
+        # chroma eighth-pel on the chroma grid == the same quarter-pel ints
+        for plane, refp in ((ou, ru), (ov, rv)):
+            jobs.append((plane.reshape(-1)[t["blk_c"]],
+                         mc_blk(refp, t["xs_c"], t["ys_c"], mvq, size // 2,
+                                False), qpc))
+        arrs[tag] = dict(mvq=mvq, sad9=sad9, mv_int=mv_int)
+    coded = txq_planes(jobs, lam_full)
+    for i, (tag, _, _) in enumerate(classes):
+        y, u, v = coded[3 * i : 3 * i + 3]  # each (lvl, rec, d, bits)
+        arrs[tag].update(lvl=y[0], rec=y[1], lvl_u=u[0], rec_u=u[1],
+                         lvl_v=v[0], rec_v=v[1], d=y[2] + u[2] + v[2],
+                         bits=y[3] + u[3] + v[3])
+    return arrs
 
 
 def rd_cost(d: torch.Tensor, b: torch.Tensor, lam_full: int) -> torch.Tensor:
@@ -204,7 +196,7 @@ def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
     grids, classes = _positions(cfg)
     n32 = len(grids[0])
     bits = bits_table(sr, dev)
-    tabs = _tables(cfg, classes, sr, dev)
+    tabs = _tables(cfg, classes, dev)
     nn_dev = {}
     if cfg.fme_mode == "nn":
         for qp in set(qps):
@@ -221,9 +213,8 @@ def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
         ov = fu8[w * h * 5 // 4 :].reshape(h // 2, w // 2).int()
         orig = (oy, ou, ov)
         lam_me = int(round(np.sqrt(lam_full / 256.0) * 256))
-        arrs = {tag: class_pipeline(orig, ref, tabs[tag], size, qp, lam_full,
-                                    lam_me, nn_m, bits, sr, True)
-                for tag, _, size in classes}
+        arrs = picture_pipeline(orig, ref, tabs, classes, qp, lam_full,
+                                lam_me, nn_m, bits, sr, True)
         use32 = choose32(arrs, lam_full) if n32 else None
 
         planes = scatter_planes(arrs, tabs, classes, use32, h, w,

@@ -3,11 +3,13 @@
 Twin of `tpuhevc/codec/inter_enc.py`'s jax backend: the stage
 `_stage_fn` (403-504) with `_class_pipeline` (137-276) and
 `_compute_stage_jax` (544-552), and `encode_frame_p` (555-576). The
-device stage is `build_stage`: per CU class (aligned 32s with their four
-16s, free 16s, 8s at borders) the four kernels of the LD-P scan, K1
-`ops.me.sad_search` without row subsampling (the reference's
-`integer_me`), K2 `models.nnfme.nn_refine`, K3 `ops.interp.mc_blk` and K4
-`ops.txq.txq`, then the 32-vs-16 choice (`_choose32`), the scatter of
+device stage is `build_stage`: over the CU classes (aligned 32s with
+their four 16s, free 16s, 8s at borders) the four kernels of the LD-P
+scan (`inter_batch.picture_pipeline`), K1 `ops.me.sad_search_classes`
+without row subsampling (the reference's `integer_me`; every class in one
+launch), K2 `models.nnfme.nn_refine`, K3 `ops.interp.mc_blk` and K4
+`ops.txq.txq_planes` (every class's three planes in one launch), then
+the 32-vs-16 choice (`_choose32`), the scatter of
 the recon planes and the byte packing that `_stage_collect` reads.
 
 The host half is the port's numpy copy of the reference's (`_cu_grid`,
@@ -165,7 +167,7 @@ def build_stage(cfg: EncoderConfig, nn_params, lambda_fp: int, device):
     rec_v); grids as `_grid_hier`. Cached per configuration, weights and
     device, as the reference caches its jitted stage."""
     from .inter_batch import (_positions, _tables, _u8, choose32,
-                              class_pipeline, scatter_planes)
+                              picture_pipeline, scatter_planes)
 
     dev = resolve(device)
     sps = cfg.sps
@@ -178,17 +180,15 @@ def build_stage(cfg: EncoderConfig, nn_params, lambda_fp: int, device):
     if hit is not None and (not use_nn or hit[2] is nn_params):
         return hit[0], hit[1]
     grids, classes = _positions(cfg)
-    tabs = _tables(cfg, classes, sr, dev)
+    tabs = _tables(cfg, classes, dev)
     bits = bits_table(sr, dev)
     lam = _full_lambda_fp(cfg)
     qp = cfg.qp
     nn_m = NNFME.from_numpy(nn_params, dev) if use_nn else None
 
     def run(oy, ou, ov, ry, ru, rv):
-        arrs = {tag: class_pipeline((oy, ou, ov), (ry, ru, rv), tabs[tag],
-                                    size, qp, lam, lambda_fp, nn_m, bits, sr,
-                                    False)
-                for tag, _, size in classes}
+        arrs = picture_pipeline((oy, ou, ov), (ry, ru, rv), tabs, classes,
+                                qp, lam, lambda_fp, nn_m, bits, sr, False)
         use32 = choose32(arrs, lam) if grids[0] else None
         rec_y, rec_u, rec_v = scatter_planes(arrs, tabs, classes, use32, h,
                                              w)["rec"]

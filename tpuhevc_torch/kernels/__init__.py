@@ -11,7 +11,9 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 `ops/grid_stats.py`, `ops/intra_wave.py`, `ops/stripe_prescreen.py`,
 `ops/fme_train.py`) and
 adds one to `LAUNCHES[name]` for every launch, and nowhere else
-(`grid_deblock` launches once a picture, both edge directions;
+(`sad_search` launches once a P picture of the LD-P scan or the P stage
+for all its CU classes, `txq` once for all their Y, U and V planes;
+`grid_deblock` once a picture, both edge directions;
 `grid_code` once for the planes of one class coding; `grid_satd_cost`
 once for up to eight fields of CU costs; `grid_coarse` and
 `grid_prestage` once each a P picture (a stripe); `grid_subpel` once a

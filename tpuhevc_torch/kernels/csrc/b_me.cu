@@ -30,9 +30,9 @@
 // memory for sad9; the pick is the least 64-bit key (cost's order-keeping
 // bits << 32 | flat index) by warp shuffles and a shared atomicMin, so
 // the first flat index wins among equal costs; nine lanes read sad9.
+// The packing is packed8.cuh's, shared with sad_search.cu.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "packed8.cuh"
 
 namespace {
 
@@ -50,38 +50,6 @@ constexpr int kWinRows = kMaxWin + kBand;
 __device__ __forceinline__ unsigned order_bits(float c) {
     const unsigned u = __float_as_uint(c);
     return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// four 8-bit samples (0..255) packed into a word, the first lowest
-__device__ __forceinline__ unsigned pack4(int a, int b, int c, int d) {
-    return (unsigned)a | ((unsigned)b << 8) | ((unsigned)c << 16)
-           | ((unsigned)d << 24);
-}
-
-// 16 clamped samples of row yy of `plane` from column x (W columns) as
-// four packed words
-__device__ __forceinline__ uint4 row_run(const int* __restrict__ plane,
-                                         int yy, int x, int W) {
-    const int* p = plane + (size_t)yy * W;
-    int s[16];
-    if (x >= 0 && x + 16 <= W && (((uintptr_t)(p + x)) & 15) == 0) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int4 v = __ldg(reinterpret_cast<const int4*>(p + x) + q);
-            s[4 * q] = v.x;
-            s[4 * q + 1] = v.y;
-            s[4 * q + 2] = v.z;
-            s[4 * q + 3] = v.w;
-        }
-    } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-            s[i] = __ldg(p + min(max(x + i, 0), W - 1));
-    }
-    return make_uint4(pack4(s[0], s[1], s[2], s[3]),
-                      pack4(s[4], s[5], s[6], s[7]),
-                      pack4(s[8], s[9], s[10], s[11]),
-                      pack4(s[12], s[13], s[14], s[15]));
 }
 
 // one block per (n, list) of 32 * ceil(side * bands / 32) threads, bands
@@ -112,13 +80,13 @@ __global__ void b_me_kernel(const int* __restrict__ org,
         const int r = t >> 2, c = t & 3;
         uint4 v = make_uint4(0, 0, 0, 0);
         if (r < win && c * 16 < win)
-            v = row_run(ref, min(max(y0 - sr + r, 0), H - 1),
-                        x0 - sr + c * 16, W);
+            v = run16(ref + (size_t)min(max(y0 - sr + r, 0), H - 1) * W,
+                      x0 - sr + c * 16, W);
         *reinterpret_cast<uint4*>(&s_wnd[r][c * 4]) = v;
     }
     if (tid < kBlk)
         *reinterpret_cast<uint4*>(s_cur[tid]) =
-            row_run(org, y0 + tid, x0, W);
+            run16(org + (size_t)(y0 + tid) * W, x0, W);
     if (tid == 0) s_best = ~0ull;
     __syncthreads();
 

@@ -18,9 +18,12 @@ argmin over the WHOLE window, and the 3x3 surface read at flat indices
 clipped to the window (at its left or right edge a neighbour wraps into
 the adjacent row, as in the reference).
 
-`*_plain` are the PyTorch versions; `sad_search` and `b_me` launch the
-CUDA kernels (`kernels/csrc/sad_search.cu`, `kernels/csrc/b_me.cu`) for
-CUDA tensors.
+`sad_search_classes` searches a P picture's CU classes in one launch,
+reading each PU's clamped window from the reference plane itself;
+`sad_search` is its one-class case. `*_plain` are the PyTorch versions
+(`sad_search_plain` takes the gathered windows); `sad_search_classes` and
+`b_me` launch the CUDA kernels (`kernels/csrc/sad_search.cu`,
+`kernels/csrc/b_me.cu`) for CUDA tensors.
 
 The host numpy search at the end (`integer_me_np`, `sad_surface_np`,
 `fracdif_refine_np`; copies of `tpuhevc/ops/me.py:31-121`) labels the
@@ -87,37 +90,92 @@ def sad_search_plain(wnd: torch.Tensor, cur: torch.Tensor, bits: torch.Tensor,
     return mv, sad9
 
 
-def sad_search(wnd: torch.Tensor, cur: torch.Tensor, bits: torch.Tensor,
-               lam_me: int, sr: int, subsample: bool = True):
-    """K1. CPU tensors take the plain version; CUDA tensors the kernel."""
-    if cur.device.type == "cpu":
-        return sad_search_plain(wnd, cur, bits, lam_me, sr, subsample)
-    if cur.device.type != "cuda":
-        raise ValueError(f"sad_search: unsupported device {cur.device}")
-    dev = cur.device
-    check_tensor(cur, "cur", torch.int32, 3, dev)
-    n, size = cur.shape[0], cur.shape[1]
-    m = 2 * sr + 1
-    win = size + 2 * sr
-    check_tensor(wnd, "wnd", torch.int32, 3, dev)
+def window_index(xs: torch.Tensor, ys: torch.Tensor, size: int, sr: int,
+                 h: int, w: int) -> torch.Tensor:
+    """(N, S+2sr, S+2sr) flat indices into an h x w plane of the PUs'
+    search windows, rows and columns clamped to the plane (`_win_idx` of
+    tpuhevc/codec/inter_batch.py:67-77)."""
+    ar = torch.arange(size + 2 * sr, device=xs.device)
+    yy = (ys.long()[:, None] - sr + ar).clamp(0, h - 1)
+    xx = (xs.long()[:, None] - sr + ar).clamp(0, w - 1)
+    return yy[:, :, None] * w + xx[:, None, :]
+
+
+def sad_search_classes_plain(ref_y: torch.Tensor, classes, bits: torch.Tensor,
+                             lam_me: int, sr: int, subsample: bool = True):
+    """ref_y (H, W) int32; classes: [(cur (N, S, S) int32, xs, ys (N,))]
+    -> [(mv (N, 2), sad9 (N, 9))], each class's windows gathered as
+    `window_index` gives them and searched by `sad_search_plain`."""
+    h, w = ref_y.shape
+    flat = ref_y.reshape(-1)
+    return [sad_search_plain(
+        flat[window_index(xs, ys, cur.shape[1], sr, h, w)], cur, bits,
+        lam_me, sr, subsample) for cur, xs, ys in classes]
+
+
+def sad_search_classes(ref_y: torch.Tensor, classes, bits: torch.Tensor,
+                       lam_me: int, sr: int, subsample: bool = True):
+    """K1 over a P picture's CU classes in one launch; the arguments and
+    results of `sad_search_classes_plain`. CPU tensors take the plain
+    version; CUDA tensors the kernel, which reads the windows from ref_y
+    itself and takes 8-bit video only (samples 0..255 in the int32 planes,
+    packed four to a word on the card), S = 8, 16 or 32 and sr 1..16; a
+    10-bit variant waits for Main10."""
+    if ref_y.device.type == "cpu":
+        return sad_search_classes_plain(ref_y, classes, bits, lam_me, sr,
+                                        subsample)
+    if ref_y.device.type != "cuda":
+        raise ValueError(f"sad_search: unsupported device {ref_y.device}")
+    dev = ref_y.device
+    check_tensor(ref_y, "ref_y", torch.int32, 2, dev)
     check_tensor(bits, "bits", torch.int32, 2, dev)
-    if cur.shape[2] != size or tuple(wnd.shape) != (n, win, win):
-        raise ValueError(f"sad_search: cur {tuple(cur.shape)} / wnd "
-                         f"{tuple(wnd.shape)} do not match sr={sr}")
-    if tuple(bits.shape) != (m, m) or not 1 <= sr <= 16 or size > 32:
-        raise ValueError(f"sad_search: unsupported sr={sr} size={size}")
-    mv = torch.empty((n, 2), dtype=torch.int32, device=dev)
-    sad9 = torch.empty((n, 9), dtype=torch.int32, device=dev)
-    if n == 0:
-        return mv, sad9
+    m = 2 * sr + 1
+    if tuple(bits.shape) != (m, m) or not 1 <= sr <= 16:
+        raise ValueError(f"sad_search: sr={sr}, bits {tuple(bits.shape)}")
+    if not 1 <= len(classes) <= 4:
+        raise ValueError(f"sad_search: {len(classes)} classes (1 to 4)")
+    outs, live = [], []
+    for cur, xs, ys in classes:
+        check_tensor(cur, "cur", torch.int32, 3, dev)
+        check_tensor(xs, "xs", torch.int32, 1, dev)
+        check_tensor(ys, "ys", torch.int32, 1, dev)
+        n, size = cur.shape[0], cur.shape[1]
+        if (size not in (8, 16, 32) or cur.shape[2] != size
+                or xs.shape[0] != n or ys.shape[0] != n):
+            raise ValueError(f"sad_search: cur {tuple(cur.shape)}, xs "
+                             f"{tuple(xs.shape)}, ys {tuple(ys.shape)}")
+        if cur.data_ptr() % 16:
+            raise ValueError("sad_search: cur must be 16-byte aligned")
+        mv = torch.empty((n, 2), dtype=torch.int32, device=dev)
+        sad9 = torch.empty((n, 9), dtype=torch.int32, device=dev)
+        outs.append((mv, sad9))
+        if n:
+            live.append((cur, xs, ys, mv, sad9))
+    if not live:
+        return outs
+    # the largest PUs first: a 32x32 PU's cluster starts the launch
+    live.sort(key=lambda c: -c[0].shape[1])
+    ptrs = [t_.data_ptr() for c in live for t_ in c]
+    ints = [v for c in live for v in (c[0].shape[0], c[0].shape[1])]
     fn = kbuild.function("sad_search", "tpuhevc_sad_search",
-                         [kbuild.P] * 5 + [kbuild.I] * 5 + [kbuild.P])
-    err = fn(wnd.data_ptr(), cur.data_ptr(), bits.data_ptr(), mv.data_ptr(),
-             sad9.data_ptr(), n, size, sr, int(lam_me), int(subsample),
+                         [kbuild.I, kbuild.P, kbuild.P, kbuild.P, kbuild.I,
+                          kbuild.I, kbuild.P] + [kbuild.I] * 3 + [kbuild.P])
+    h, w = ref_y.shape
+    err = fn(len(live), (ctypes.c_void_p * len(ptrs))(*ptrs),
+             (ctypes.c_int * len(ints))(*ints), ref_y.data_ptr(), h, w,
+             bits.data_ptr(), sr, int(lam_me), int(subsample),
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "sad_search")
     LAUNCHES["sad_search"] += 1
-    return mv, sad9
+    return outs
+
+
+def sad_search(ref_y: torch.Tensor, cur: torch.Tensor, xs: torch.Tensor,
+               ys: torch.Tensor, bits: torch.Tensor, lam_me: int, sr: int,
+               subsample: bool = True):
+    """K1 on one class: `sad_search_classes` with one (cur, xs, ys)."""
+    return sad_search_classes(ref_y, [(cur, xs, ys)], bits, lam_me, sr,
+                              subsample)[0]
 
 
 # --- the B step's two-list search ----------------------------------------------
@@ -151,13 +209,10 @@ def _b_tables(h: int, w: int, sr: int, device) -> dict:
         ys = (blk // n_w) * B_BLK
         xs = (blk % n_w) * B_BLK
         ar = torch.arange(B_BLK, device=device)
-        aw = torch.arange(B_BLK + 2 * sr, device=device)
-        wy = (ys[:, None] - sr + aw).clamp(0, h - 1)
-        wx = (xs[:, None] - sr + aw).clamp(0, w - 1)
         t = dict(
             blk=((ys[:, None] + ar)[:, :, None] * w
                  + (xs[:, None] + ar)[:, None, :]),
-            win=wy[:, :, None] * w + wx[:, None, :],
+            win=window_index(xs, ys, B_BLK, sr, h, w),
             mvb=torch.as_tensor(b_mv_bits(sr), device=device))
         _B_TABLES[key] = t
     return t

@@ -18,10 +18,11 @@ estimate (`entropy.bitest.tu_bits`); the int32 SSEs of the skip and coded
 recons; and the float32 drop `f32(d_skip - d_coded) <= lam_full * bits`.
 Outputs lvl, rec (N, S, S) int32 after the drop.
 
-`b_txq_planes` codes up to three planes (a B picture's Y, U and V) in
-one launch, `b_txq` one plane.
+`txq_planes` codes up to 12 planes (a P picture's CU classes, Y, U and V
+each) in one launch, `txq` one plane; `b_txq_planes` up to three (a B
+picture's Y, U and V), `b_txq` one plane.
 
-`*_plain` are the PyTorch versions; `txq`, `b_txq_planes` and `b_txq`
+`*_plain` are the PyTorch versions; `txq_planes` and `b_txq_planes`
 launch the CUDA kernels (`kernels/csrc/txq.cu`, `kernels/csrc/b_txq.cu`)
 for CUDA tensors.
 """
@@ -83,8 +84,15 @@ def txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
     return lvl, rec, d, bits
 
 
+def txq_planes_plain(jobs, lam_full: int):
+    """jobs: [(cur, pred (N, S, S) int32, qp)] -> [(lvl, rec, d, bits)],
+    each job by `txq_plain`."""
+    return [txq_plain(cur, pred, qp, lam_full) for cur, pred, qp in jobs]
+
+
 def _init_matrix(dev: torch.device) -> None:
-    """Copy the 32x32 HEVC matrix into the kernel's constant memory."""
+    """Copy the 32x32 HEVC matrix into the kernel's copy in device
+    memory."""
     if dev.index in _INIT_DEVICES:
         return
     t32 = np.ascontiguousarray(dct_matrix(32), dtype=np.int32)
@@ -94,41 +102,64 @@ def _init_matrix(dev: torch.device) -> None:
     _INIT_DEVICES.add(dev.index)
 
 
-def txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
-    """K4. CPU tensors take the plain version; CUDA tensors the kernel."""
-    if cur.device.type == "cpu":
-        return txq_plain(cur, pred, qp, lam_full)
-    if cur.device.type != "cuda":
-        raise ValueError(f"txq: unsupported device {cur.device}")
-    dev = cur.device
-    check_tensor(cur, "cur", torch.int32, 3, dev)
-    check_tensor(pred, "pred", torch.int32, 3, dev)
-    n, size = cur.shape[0], cur.shape[-1]
-    if size not in (4, 8, 16, 32) or cur.shape[1] != size or \
-            pred.shape != cur.shape:
-        raise ValueError(f"txq: unsupported shapes {tuple(cur.shape)}, "
-                         f"{tuple(pred.shape)}")
-    if not 0 <= qp <= 51 or not 0 <= lam_full < (1 << 31):
-        raise ValueError(f"txq: qp {qp} / lambda {lam_full} out of range")
-    log2 = size.bit_length() - 1
-    lvl = torch.empty_like(cur)
-    rec = torch.empty_like(cur)
-    d = torch.empty((n,), dtype=torch.int32, device=dev)
-    bits = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:
-        return lvl, rec, d, bits
+def txq_planes(jobs, lam_full: int):
+    """K4 over up to 12 jobs (a P picture's CU classes, Y, U and V each) in
+    one launch; the arguments and results of `txq_planes_plain`. CPU
+    tensors take the plain version; CUDA tensors the kernel (8-bit: pred
+    in 0..255; S = 4, 8, 16 or 32)."""
+    dev = jobs[0][0].device
+    if dev.type == "cpu":
+        return txq_planes_plain(jobs, lam_full)
+    if dev.type != "cuda":
+        raise ValueError(f"txq: unsupported device {dev}")
+    if not 1 <= len(jobs) <= 12:
+        raise ValueError(f"txq: {len(jobs)} jobs (1 to 12)")
+    if not 0 <= lam_full < (1 << 31):
+        raise ValueError(f"txq: lambda {lam_full} out of range")
+    outs, live = [], []
+    for cur, pred, qp in jobs:
+        check_tensor(cur, "cur", torch.int32, 3, dev)
+        check_tensor(pred, "pred", torch.int32, 3, dev)
+        n, size = cur.shape[0], cur.shape[-1]
+        if size not in (4, 8, 16, 32) or cur.shape[1] != size or \
+                pred.shape != cur.shape:
+            raise ValueError(f"txq: unsupported shapes {tuple(cur.shape)}, "
+                             f"{tuple(pred.shape)}")
+        if not 0 <= qp <= 51:
+            raise ValueError(f"txq: qp {qp} out of range")
+        out = (torch.empty_like(cur), torch.empty_like(cur),
+               torch.empty((n,), dtype=torch.int32, device=dev),
+               torch.empty((n,), dtype=torch.int32, device=dev))
+        outs.append(out)
+        if any(t_.data_ptr() % 16 for t_ in (cur, pred, *out[:2])):
+            raise ValueError("txq: cur, pred, lvl and rec must be 16-byte "
+                             "aligned")
+        if n:
+            live.append(((cur, pred, *out), qp))
+    if not live:
+        return outs
     _init_matrix(dev)
-    qscale, qadd, qbits = tx.quant_params(qp, log2, 8, False)
-    dqscale, dqshift = tx.dequant_params(qp, log2, 8)
+    # the largest TUs first: their blocks take longest
+    live.sort(key=lambda j: -j[0][0].shape[-1])
+    ptrs, ints = [], []
+    for tens, qp in live:
+        log2 = tens[0].shape[-1].bit_length() - 1
+        ptrs += [t_.data_ptr() for t_ in tens]
+        ints += [tens[0].shape[0], log2, *tx.quant_params(qp, log2, 8, False),
+                 *tx.dequant_params(qp, log2, 8)]
     fn = kbuild.function("txq", "tpuhevc_txq",
-                         [kbuild.P] * 6 + [kbuild.I] * 8 + [kbuild.P])
-    err = fn(cur.data_ptr(), pred.data_ptr(), lvl.data_ptr(), rec.data_ptr(),
-             d.data_ptr(), bits.data_ptr(), n, log2, qscale, qadd, qbits,
-             dqscale, dqshift, int(lam_full),
+                         [kbuild.I, kbuild.P, kbuild.P, kbuild.I, kbuild.P])
+    err = fn(len(live), (ctypes.c_void_p * len(ptrs))(*ptrs),
+             (ctypes.c_int * len(ints))(*ints), int(lam_full),
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "txq")
     LAUNCHES["txq"] += 1
-    return lvl, rec, d, bits
+    return outs
+
+
+def txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
+    """K4 on one plane: `txq_planes` with one job."""
+    return txq_planes([(cur, pred, qp)], lam_full)[0]
 
 
 def b_txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int,
