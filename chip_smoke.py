@@ -11,9 +11,13 @@
    that are not 16-aligned, K1 every class in one launch
    (`sad_search_classes`, reading the windows from the reference plane)
    with row subsampling on and off (the per-frame P stage's search) at
-   lam_me 0 and the path's, K4 every class's Y, U and V in one launch
-   (`txq_planes`) at the path's QPs and at QP 50, each torch.equal; K1's
-   and K4's device time a P picture and bound printed, and beside K1
+   lam_me 0 and the path's, K3 and K4 every class's Y, U and V in one
+   launch each (`mc_blk_planes`, `txq_planes`; K4 at the path's QPs and
+   at QP 50), each torch.equal, K3 also on adversarial MVs at 416x240
+   (the six PU sizes, every phase of both signs, windows clamped at each
+   edge) and at every call of the 112x72 LD-P scan (its four classes);
+   K1's, K3's and K4's device time a P picture and bound printed, and
+   beside K1
    torch.cdist (p=1) of the classes' PUs against their unfolded windows
    (the library time); the intra decision kernels at every call of the
    decision (both passes) of one all-intra picture and of one LD-P IDR,
@@ -57,7 +61,10 @@
    behind a device sleep; a grid_code call codes a class coding's planes
    in one launch), and grid_code again at every call of the same picture
    with the tools cut (the flat quantiser); grid_subpel (the picture's
-   three classes in one launch, `grid_subpel_classes`), grid_wp_me,
+   three classes in one launch, `grid_subpel_classes`), grid_wp_me (its
+   device time and bound printed; also on 1 and 4 references, stripe-
+   shaped stacks at d 0 and 7, negative weights and offsets clipping at
+   both ends, two launches back to back),
    grid_stats and the weighted grid_planes, grid_refine and grid_intra16
    at every call of one 416x240 P picture of the anchor cfg with FmeMode
    dctif, WeightedPredP 1, the
@@ -137,9 +144,10 @@
    as the P tail), once to warm up and once with the counters reset just
    before; b_me, b_pred, b_txq and K1-K4 must have launched, the first
    three once a B picture each, and on no other path; its P picture
-   launches K1 and K4 once each (every class in the launch; mc_blk 9, K2
-   19 over the encode), both torch.equal to plain at those calls; paths
-   1, 2 and 6 launch neither. Main path 4,
+   launches K1, K3 and K4 once each (every class in the launch; K2 17
+   over the encode: a B picture's and the P picture's classes in one),
+   each torch.equal to plain at those calls; paths 1, 2 and 6 launch
+   none of them. Main path 4,
    LD-P with DCT-IF FME and weighted prediction: the anchor cfg with
    FmeMode dctif and WeightedPredP 1 on 17 frames of the fade clip
    (`make_fade_clip`), counters reset just before; the grid kernels with
@@ -288,8 +296,8 @@ from tpuhevc_torch.ops.grid_stats import (  # noqa: E402
     grid_stats, grid_stats_partial, grid_stats_partial_plain,
     grid_stats_plain)
 from tpuhevc_torch.ops.interp import (  # noqa: E402
-    b_pred, b_pred_plain, b_pred_yuv, b_pred_yuv_plain, mc_blk,
-    mc_blk_plain)
+    b_pred, b_pred_plain, b_pred_yuv, b_pred_yuv_plain, mc_blk_planes,
+    mc_blk_planes_plain)
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_txq import intra_txq, intra_txq_plain  # noqa: E402
 from tpuhevc_torch.ops.intra_wave import (  # noqa: E402
@@ -375,9 +383,9 @@ G_KERNELS = ("grid_coarse", "grid_prestage", "grid_refine", "grid_planes",
 LDP_NEED = INTRA + G_KERNELS + ("grid_sao_decide", "nnfme_mlp")
 # the random-access path: the B step, the P tail's stage (K1-K4) and K2
 RA_NEED = B_KERNELS + ("nnfme_mlp", "sad_search", "mc_blk", "txq")
-# K1 and K4: one launch each a P picture of the per-frame P stage (the
-# random-access path's P tail), every CU class in it
-P_ONCE = ("sad_search", "txq")
+# K1, K3 and K4: one launch each a P picture of the per-frame P stage
+# (the random-access path's P tail), every CU class in it
+P_ONCE = ("sad_search", "mc_blk", "txq")
 # DCT-IF FME, weighted prediction and the no-fetch tail of the grid step
 F_KERNELS = ("grid_subpel", "grid_wp_me", "grid_stats")
 FME_WP = ["--FmeMode=dctif", "--WeightedPredP=1"]
@@ -548,8 +556,8 @@ def windows(name, a, kw, out=None):
     inter_dir says), grid_refine its reference around each start,
     grid_satd the phase planes at its gathers, grid_intra16 the planes
     around each cell."""
-    if name == "mc_blk":
-        return [(a[0], window_mask(a[0], a[1], a[2], a[3], a[4], a[5]))]
+    if name == "mc_blk":  # every job's plane (mc_blk_planes)
+        return [(job[0], window_mask(*job)) for job in a[0]]
     if name == "b_pred" and isinstance(a[1], tuple):  # b_pred_yuv: luma
         # both lists, U and V the lists inter_dir (out[1]) uses
         xs, ys, m0, m1 = a[4:8]
@@ -673,9 +681,10 @@ def kernel_ops(name, a, kw=None, out=None) -> int:
              else sum(p[0].shape[0] for p in a[1]))
         return n * (2 * (17 * 22 + 22 * 20 + 20 * 49) + 3 * (9 + 22 + 20)
                     + 49)
-    if name == "mc_blk":
-        S, nt = a[4], 8 if a[5] else 4
-        return a[1].shape[0] * 2 * nt * ((S + nt - 1) * S + S * S)
+    if name == "mc_blk":  # every job (mc_blk_planes)
+        return sum(xs.shape[0] * 2 * (8 if luma else 4)
+                   * ((S + (7 if luma else 3)) * S + S * S)
+                   for _, xs, _, _, S, luma in a[0])
     if name in ("txq", "b_txq") and isinstance(a[0], list):  # the planes
         return sum(kernel_ops(name, p) for p in a[0])
     if name in ("txq", "b_txq"):
@@ -861,6 +870,58 @@ def k1_library_ms(ref_y, classes, found):
     return ms
 
 
+def check_k3(jobs, what):
+    """K3 over `jobs` (mc_blk_planes) in one launch against plain, every
+    prediction torch.equal. Returns the kernel's predictions."""
+    before = LAUNCHES["mc_blk"]
+    got = mc_blk_planes(jobs)
+    check(LAUNCHES["mc_blk"] - before == 1,
+          f"mc_blk {what}: {LAUNCHES['mc_blk'] - before} launches")
+    want = mc_blk_planes_plain(jobs)
+    torch.cuda.synchronize()
+    for g, w_, job in zip(got, want, jobs, strict=True):
+        check(g.dtype == w_.dtype and torch.equal(g, w_),
+              f"mc_blk {what}: S {job[4]} luma {job[5]} differs from plain")
+    print(f"kernel mc_blk: {what}: {len(jobs)} jobs "
+          f"{[(j[4], 'Y' if j[5] else 'C', j[1].shape[0]) for j in jobs]} "
+          f"in one launch, equal to plain", flush=True)
+    return got
+
+
+def k3_adversarial_jobs(dev):
+    """K3's six (size, plane) cases at 416x240 on seeded planes: PUs at
+    every position class, each MV phase of both signs in each axis, and
+    windows clamped at each edge (PUs along the edges with MVs reaching
+    far past them and past the opposite edge)."""
+    rng = np.random.default_rng(SEED + 3)
+    jobs = []
+    for size, luma in ((32, True), (16, True), (8, True), (16, False),
+                       (8, False), (4, False)):
+        w, h = (W, H) if luma else (W // 2, H // 2)
+        plane = torch.as_tensor(rng.integers(0, 256, (h, w)).astype(np.int32),
+                                device=dev)
+        fm, sc = (4, 4) if luma else (8, 8)  # phases, sub-pels a pel
+        pos = [(x, y) for x in (0, w - size) for y in (0, h - size)]
+        pos += [(int(rng.integers(0, w // size)) * size,
+                 int(rng.integers(0, h // size)) * size) for _ in range(64)]
+        xs, ys, mvs = [], [], []
+        far = sc * (max(w, h) + 24)
+        for k, (x, y) in enumerate(pos):
+            for sx in (-1, 1):
+                for sy in (-1, 1):
+                    for ph in range(fm):
+                        reach = far if k < 4 else sc * int(rng.integers(0, 40))
+                        xs.append(x)
+                        ys.append(y)
+                        mvs.append((sx * (reach + ph),
+                                    sy * (reach + (ph + k) % fm)))
+        jobs.append((plane, torch.tensor(xs, dtype=torch.int32, device=dev),
+                     torch.tensor(ys, dtype=torch.int32, device=dev),
+                     torch.tensor(mvs, dtype=torch.int32, device=dev), size,
+                     luma))
+    return jobs
+
+
 def check_kernels(dev, model):
     """Kernel vs plain on the card. Returns {name: row} for the JSON line:
     K1 and K4 one launch for the 416x240 P picture's classes (c32, c16,
@@ -937,7 +998,7 @@ def check_kernels(dev, model):
     # the LD-P scan's search feeds K2 below
     scan = sad_search_classes(ref_y, every, bits, lam_me, SR)
 
-    jobs, jobs_pic = [], []
+    mc_jobs = []
     for st, (mv_int, sad9) in zip(shapes, scan):
         size, tag = st["size"], st["tag"]
         # K2: logits within atol 1e-4 / rtol 1e-5; the argmax must agree
@@ -957,29 +1018,34 @@ def check_kernels(dev, model):
                median_ms(lambda: nn_refine_plain(model, sad9, hc, wc)),
                [((model, sad9, hc, wc), (kl, kc, kq))])
         mvq = (mv_int * 4 + kq).contiguous()
-        # K3: luma and both chroma planes
-        calls = [(st["ref"][0], st["xs"], st["ys"], size, True)] + [
-            (pln, st["xs_c"], st["ys_c"], size // 2, False)
+        # K3's jobs: luma and both chroma planes
+        mc_jobs += [(st["ref"][0], st["xs"], st["ys"], mvq, size, True)] + [
+            (pln, st["xs_c"], st["ys_c"], mvq, size // 2, False)
             for pln in st["ref"][1:]]
-        err = 0
-        preds = []
-        done = []
-        for pln, xs, ys, s, luma in calls:
-            a = mc_blk(pln, xs, ys, mvq, s, luma)
-            b = mc_blk_plain(pln, xs, ys, mvq, s, luma)
-            torch.cuda.synchronize()
-            err = max(err, exact([a], [b]))
-            preds.append(a)
-            done.append(((pln, xs, ys, mvq, s, luma), a))
-        check(err == 0, f"mc_blk {tag}: {err}")
-        record("mc_blk", tag, err,
-               median_ms(lambda: [mc_blk(*c[:3], mvq, *c[3:]) for c in calls]),
-               median_ms(lambda: [mc_blk_plain(*c[:3], mvq, *c[3:])
-                                  for c in calls]), done)
-        cls = [(st["cur"], preds[0], QP)] + [
-            (c, pr, chroma_qp(QP)) for c, pr in zip(st["cur_c"], preds[1:])]
+    # K3: every class's three planes (c8 too) in one launch, then the P
+    # picture's classes (c32, c16, cf) as the path calls them
+    preds = check_k3(mc_jobs, "416x240 classes with c8")
+    k3_pic = mc_jobs[: 3 * len(main)]
+    got = mc_blk_planes(k3_pic)
+    r = rows["mc_blk"]
+    r["ms"] = median_ms(lambda: mc_blk_planes(k3_pic))
+    r["plain_ms"] = median_ms(lambda: mc_blk_planes_plain(k3_pic))
+    r["work"].add("mc_blk", (k3_pic,), got)
+    r["device_ms"] = device_ms(lambda: mc_blk_planes(k3_pic), n=100)
+    bound, by = bound_of(r)
+    print(f"kernel mc_blk P picture, {len(k3_pic)} jobs in one launch: "
+          f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} device_ms "
+          f"{r['device_ms']:.5f} (events around 100 launches queued behind "
+          f"a device sleep), bound {bound:.6f} ms ({by}; {r['work'].bytes} "
+          f"bytes, {r['work'].ops} operations) | {gpu_line()}", flush=True)
+    check_k3(k3_adversarial_jobs(dev), "adversarial MVs at 416x240")
+    jobs, jobs_pic = [], []
+    for i, st in enumerate(shapes):
+        cls = [(st["cur"], preds[3 * i], QP)] + [
+            (c, pr, chroma_qp(QP))
+            for c, pr in zip(st["cur_c"], preds[3 * i + 1 : 3 * i + 3])]
         jobs += cls
-        if tag != "c8":
+        if st["tag"] != "c8":
             jobs_pic += cls
     # K4: every class's three planes (c8 too) in one launch at the path's
     # QPs, and at QP 50 (the int32-wrapping drop product)
@@ -1064,6 +1130,7 @@ def ra_cfg(npz, w=None, h=None, frames=None):
 # ("grid_refine_one": grid_refine's one-reference wrapper, which
 # stripe_refine calls)
 CALLED_AS = {"sad_search": "sad_search_classes", "txq": "txq_planes",
+             "mc_blk": "mc_blk_planes",
              "grid_code": "grid_code_batch", "grid_satd": "grid_mc",
              "grid_refine": "grid_refine_refs",
              "grid_refine_one": "grid_refine",
@@ -1682,8 +1749,64 @@ def check_grid_kernels(dev, npz, params):
               f"max_abs_err {r['max_abs_err']:.3g} kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} (per P picture, dctif + WP, no "
               f"fetch)", flush=True)
+        if name == "grid_wp_me":  # the picture's call(s), device time
+            r["device_ms"] = device_ms(
+                lambda: [kern(*a, **k) for a, k in calls[name]], n=100)
+            b, by = bound_of(r)
+            print(f"kernel grid_wp_me P picture, dctif + WP: device_ms "
+                  f"{r['device_ms']:.5f} (events around 100 pictures' calls "
+                  f"queued behind a device sleep), bound {b:.6f} ms ({by}; "
+                  f"{r['work'].bytes} bytes, {r['work'].ops} operations) | "
+                  f"{gpu_line()}", flush=True)
     rows["nnfme_mlp_grid"] = grid_k2  # beside the kernels' rows
     return rows
+
+
+def check_wp_me_adversarial(dev):
+    """grid_wp_me against plain on a 416x240 stack of 1 and 4 references,
+    on stripe-shaped stacks (64 rows with the anchor's 72 halo rows above
+    and below, and below only) at denominators 0 and 7, with negative
+    weights and offsets that clip at 0 and at 255, and two launches back
+    to back without a sync between; every output torch.equal."""
+    rng = np.random.default_rng(SEED + 5)
+
+    def case(nref, rows, d, extreme):
+        ref = torch.as_tensor(rng.integers(0, 256, (nref, rows, W)).astype(
+            np.int32), device=dev)
+        if extreme:
+            w = [-128, (1 << d) + 127, -1, 3][:nref]
+            o = [127, -128, 100, -100][:nref]
+        else:
+            w = ((1 << d) + rng.integers(-60, 61, nref)).tolist()
+            o = rng.integers(-40, 41, nref).tolist()
+        return (ref, torch.tensor(w, dtype=torch.int32, device=dev),
+                torch.tensor(o, dtype=torch.int32, device=dev), d)
+
+    cases = [case(1, H, 6, False), case(4, H, 6, False)]
+    cases += [case(4, rows, d, False) for rows in (72 + 64 + 72, 64 + 72)
+              for d in (0, 7)]
+    cases += [case(4, H, d, True) for d in (0, 7)]
+    clipped = False
+    for args in cases:
+        before = LAUNCHES["grid_wp_me"]
+        got = grid_wp_me(*args)
+        check(LAUNCHES["grid_wp_me"] - before == 1, "grid_wp_me launches")
+        want = grid_wp_me_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"grid_wp_me {tuple(args[0].shape)} d {args[3]}: differs from "
+              "plain")
+        clipped |= bool((want == 0).any() and (want == 255).any())
+    check(clipped, "grid_wp_me adversarial: no case clipped at both ends")
+    got = [grid_wp_me(*a) for a in cases[-2:]]  # back to back
+    want = [grid_wp_me_plain(*a) for a in cases[-2:]]
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
+          "grid_wp_me back to back: differs from plain")
+    print(f"kernel grid_wp_me adversarial: {len(cases)} stacks (1 and 4 "
+          "references, stripe-shaped with halo rows, d 0 / 6 / 7, negative "
+          "weights and offsets clipping at 0 and 255) and two launches back "
+          "to back: equal to plain", flush=True)
 
 
 def check_stats_calls(calls, rows, what):
@@ -2749,16 +2872,17 @@ def check_deblock_once(launches, n_p, what):
 
 
 def check_p_tail(calls, launches):
-    """Random access x 18: its one P picture (the POC 17 tail) launches K1
-    and K4 once each, every class in the launch (K3 three times a class,
-    K2 once a class and once a B picture), and both equal their plain
+    """Random access x 18: its one P picture (the POC 17 tail) launches K1,
+    K3 and K4 once each, every class in the launch (K2 once for its
+    classes and once a B picture), and the three equal their plain
     versions at every call, replayed from their recorded arguments."""
-    want = {"sad_search": 1, "txq": 1, "mc_blk": 9, "nnfme_mlp": N_RA + 1}
+    want = {"sad_search": 1, "txq": 1, "mc_blk": 1, "nnfme_mlp": N_RA - 1}
     got = {k: launches[k] for k in want}
     check(got == want, f"random access: launches {got}, want {want}")
     plain = {"sad_search": sad_search_classes_plain,
-             "txq": txq_planes_plain}
-    kern = {"sad_search": sad_search_classes, "txq": txq_planes}
+             "mc_blk": mc_blk_planes_plain, "txq": txq_planes_plain}
+    kern = {"sad_search": sad_search_classes, "mc_blk": mc_blk_planes,
+            "txq": txq_planes}
     for name in P_ONCE:
         check(len(calls[name]) == 1, f"random access: {name} called "
               f"{len(calls[name])} times")
@@ -2769,8 +2893,8 @@ def check_p_tail(calls, launches):
                 tensors(a), tensors(b), strict=True)),
                 f"random access: {name} differs from plain at its P "
                 "picture's call")
-    print(f"random access P picture: K1 and K4 one launch each, equal to "
-          f"plain at their calls; launches {got}", flush=True)
+    print(f"random access P picture: K1, K3 and K4 one launch each, equal "
+          f"to plain at their calls; launches {got}", flush=True)
 
 
 def check_stream(enc, recons, n, launches, need, what):
@@ -2801,7 +2925,9 @@ def cross_check_cpu(npz):
     prediction (the fade clip) and in bench.py's no-fetch configuration,
     and random access at 64x48 x 6 (four B pictures and the P tail);
     returns the seven stream sizes. The 112x72 LD-P encode must launch
-    K1-K4, the 128x64 ones every grid kernel they run."""
+    K1-K4, K3 once a frame step of the scan for the four classes' twelve
+    planes (held against plain at each of its calls), the 128x64 ones
+    every grid kernel they run."""
     out = []
     for make, n, w, h, need, fade in (
             (lambda: ldp_cfg(npz, 112, 72, 5, cut=True), 5, 112, 72,
@@ -2817,9 +2943,23 @@ def cross_check_cpu(npz):
             (lambda: ra_cfg(npz, 64, 48, 6), 6, 64, 48, (), False)):
         r = Reader(w, h, n, fade)
         reset_launches()
-        a, _ = encode_sequence(r, make(), device="cuda")
+        k3 = {"mc_blk": []}
+        saved = recording(inter_batch, ("mc_blk",), k3)
+        try:
+            a, _ = encode_sequence(r, make(), device="cuda")
+        finally:
+            restore(inter_batch, saved)
         missing = [k for k in need if LAUNCHES[k] <= 0]
         check(not missing, f"{w}x{h}: kernels not launched: {missing}")
+        if "mc_blk" in need:  # the LD-P scan: a launch a frame step (its
+            # chunks of 8 pictures, the last padded) for its classes
+            check(LAUNCHES["mc_blk"] == len(k3["mc_blk"]) >= n - 1,
+                  f"{w}x{h} LD-P scan: mc_blk launched {LAUNCHES['mc_blk']}"
+                  f" times in {len(k3['mc_blk'])} calls for {n - 1} P "
+                  "pictures")
+            for (jobs,), _ in k3["mc_blk"]:
+                check(len(jobs) == 12, f"{w}x{h}: K3 of {len(jobs)} jobs")
+                check_k3(jobs, f"LD-P scan {w}x{h} frame step")
         b, _ = encode_sequence(r, make(), device="cpu")
         check(a.bitstream() == b.bitstream(),
               f"{w}x{h}: CUDA and CPU streams differ")
@@ -3342,6 +3482,7 @@ def main():
         rows.update(check_b_kernels(dev, npz, params))
         rows.update(check_grid_kernels(dev, npz, params))
         check_stats_adversarial(dev)
+        check_wp_me_adversarial(dev)
         check_deblock_adversarial(dev)
         check_satd_adversarial(dev, gpu)
         check_bank_bits_adversarial(dev, gpu)
@@ -3387,7 +3528,7 @@ def main():
         for k in KERNELS:
             launches[k] += ai_launches[k]
         check(all(launches[k] == 0 for k in B_KERNELS + P_ONCE),
-              "LD-P or all-intra launched a B step kernel, K1 or K4")
+              "LD-P or all-intra launched a B step kernel, K1, K3 or K4")
 
         # random access: a warm-up encode (builds every B step and the P
         # tail's stage), then the counted one
@@ -3441,7 +3582,7 @@ def main():
         i8_launches = run_intra8(dev, gpu)
         check(i8_launches["grid_subpel"] == 0, "path 6 launched grid_subpel")
         check(all(i8_launches[k] == 0 for k in P_ONCE),
-              "path 6 launched K1 or K4")
+              "path 6 launched K1, K3 or K4")
         for k in KERNELS:
             launches[k] += i8_launches[k]
         # paths 4-6 code no B picture

@@ -7,8 +7,10 @@ through four kernels (`picture_pipeline`):
 
   K1 `ops.me.sad_search_classes`  dense +-sr full-pel SAD, argmin, 3x3
                                   surface: every class in one launch
-  K2 `models.nnfme.nn_refine`     NN-FME MLP -> quarter-pel offset
-  K3 `ops.interp.mc_blk`          DCT-IF MC, luma and both chroma planes
+  K2 `models.nnfme.nn_refine_classes`  NN-FME MLP -> quarter-pel
+                                  offset: up to three classes a launch
+  K3 `ops.interp.mc_blk_planes`   DCT-IF MC: every class's luma and both
+                                  chroma planes in one launch
   K4 `ops.txq.txq_planes`         transform, quantiser, recon, skip/code
                                   drop: every class's Y, U, V in one launch
 
@@ -30,8 +32,9 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..models.nnfme import NNFME, height_category, nn_refine, width_category
-from ..ops.interp import mc_blk
+from ..models.nnfme import (K2_SEGS, NNFME, height_category,
+                            nn_refine_classes, width_category)
+from ..ops.interp import mc_blk_planes
 from ..ops.me import bits_table, sad_search_classes
 from ..ops.txq import txq_planes, wrap_int32
 from ..utils.tables import chroma_qp
@@ -97,8 +100,9 @@ def picture_pipeline(orig, ref, tabs: dict, classes, qp: int, lam_full: int,
     """ME, FME, MC and TU coding of a P picture's CU classes: the class
     pipeline of the LD-P scan (`inter_batch.py:212-254`, subsample on) and
     of the per-frame P stage (`inter_enc.py:137-276` on the jax backend,
-    subsample off). K1 searches every class in one launch; K2 and K3 run a
-    class at a time; K4 codes every class's Y, U and V in one launch.
+    subsample off). K1 searches every class in one launch; K2 refines up
+    to K2_SEGS classes a launch; K3 predicts and K4 codes every class's
+    Y, U and V in one launch each.
     orig / ref: (y, u, v) int32 planes; tabs: the classes' gather tables
     (`_tables`). Returns {tag: the class's arrays}, d and bits int32
     after the drop, summed over its three planes."""
@@ -110,20 +114,29 @@ def picture_pipeline(orig, ref, tabs: dict, classes, qp: int, lam_full: int,
         ry, [(cur, tabs[tag]["xs"], tabs[tag]["ys"])
              for cur, (tag, _, _) in zip(curs, classes)],
         bits, lam_me, sr, subsample)
-    arrs, jobs = {}, []
-    for cur, (mv_int, sad9), (tag, _, size) in zip(curs, found, classes):
+    mvqs = [mv_int * 4 for mv_int, _ in found]
+    if nn_m is not None:  # K2: up to K2_SEGS classes a launch
+        parts = [(sad9, height_category(size), width_category(size))
+                 for (_, sad9), (_, _, size) in zip(found, classes)]
+        offs = [off for k in range(0, len(parts), K2_SEGS)
+                for off in nn_refine_classes(nn_m, parts[k : k + K2_SEGS])]
+        mvqs = [mvq + off for mvq, off in zip(mvqs, offs)]
+    # K3: every class's luma and both chroma planes (chroma eighth-pel on
+    # the chroma grid == the same quarter-pel ints)
+    mc_jobs = []
+    for mvq, (tag, _, size) in zip(mvqs, classes):
         t = tabs[tag]
-        mvq = mv_int * 4
-        if nn_m is not None:
-            _, _, qoff = nn_refine(nn_m, sad9, height_category(size),
-                                   width_category(size))
-            mvq = mvq + qoff
-        jobs.append((cur, mc_blk(ry, t["xs"], t["ys"], mvq, size, True), qp))
-        # chroma eighth-pel on the chroma grid == the same quarter-pel ints
-        for plane, refp in ((ou, ru), (ov, rv)):
-            jobs.append((plane.reshape(-1)[t["blk_c"]],
-                         mc_blk(refp, t["xs_c"], t["ys_c"], mvq, size // 2,
-                                False), qpc))
+        mc_jobs += [(ry, t["xs"], t["ys"], mvq, size, True),
+                    (ru, t["xs_c"], t["ys_c"], mvq, size // 2, False),
+                    (rv, t["xs_c"], t["ys_c"], mvq, size // 2, False)]
+    preds = mc_blk_planes(mc_jobs)
+    arrs, jobs = {}, []
+    for i, (cur, mvq, (mv_int, sad9), (tag, _, _)) in enumerate(
+            zip(curs, mvqs, found, classes)):
+        blk_c = tabs[tag]["blk_c"]
+        jobs += [(cur, preds[3 * i], qp),
+                 (ou.reshape(-1)[blk_c], preds[3 * i + 1], qpc),
+                 (ov.reshape(-1)[blk_c], preds[3 * i + 2], qpc)]
         arrs[tag] = dict(mvq=mvq, sad9=sad9, mv_int=mv_int)
     coded = txq_planes(jobs, lam_full)
     for i, (tag, _, _) in enumerate(classes):

@@ -7,8 +7,9 @@ device stage is `build_stage`: over the CU classes (aligned 32s with
 their four 16s, free 16s, 8s at borders) the four kernels of the LD-P
 scan (`inter_batch.picture_pipeline`), K1 `ops.me.sad_search_classes`
 without row subsampling (the reference's `integer_me`; every class in one
-launch), K2 `models.nnfme.nn_refine`, K3 `ops.interp.mc_blk` and K4
-`ops.txq.txq_planes` (every class's three planes in one launch), then
+launch), K2 `models.nnfme.nn_refine_classes` (up to three classes a
+launch), K3 `ops.interp.mc_blk_planes` and K4 `ops.txq.txq_planes`
+(every class's three planes in one launch each), then
 the 32-vs-16 choice (`_choose32`), the scatter of
 the recon planes and the byte packing that `_stage_collect` reads.
 

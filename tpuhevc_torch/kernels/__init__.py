@@ -12,7 +12,8 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 `ops/fme_train.py`) and
 adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`sad_search` launches once a P picture of the LD-P scan or the P stage
-for all its CU classes, `txq` once for all their Y, U and V planes;
+for all its CU classes, `mc_blk` and `txq` once each for all their Y, U
+and V planes;
 `grid_deblock` once a picture, both edge directions;
 `grid_code` once for the planes of one class coding; `grid_satd_cost`
 once for up to eight fields of CU costs; `grid_coarse` and

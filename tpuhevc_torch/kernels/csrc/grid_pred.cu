@@ -5,7 +5,7 @@
 // weighted prediction (`wpy` / `wpc`): every
 // fractional phase of n reference planes, edge-padded by `pad`, through
 // the separable DCT-IF filter (the taps of tpuhevc_torch/ops/interp.py,
-// as mc_common.cuh filters blocks; luma 8 taps and 4x4 phases, chroma
+// as mc_blk.cu filters blocks; luma 8 taps and 4x4 phases, chroma
 // 4 taps and 8x8 phases):
 //   h(yy, x) = sum_i taps[fx][i] rp[yy][x + i + 1]     (8-bit: no shift)
 //   v(y, x)  = sum_j taps[fy][j] h(y + j + 1, x)

@@ -424,9 +424,12 @@ def grid_wp_me(ref: torch.Tensor, w: torch.Tensor, o: torch.Tensor,
     check_tensor(w, "w", torch.int32, 1, dev)
     check_tensor(o, "o", torch.int32, 1, dev)
     n, h, wd = ref.shape
-    if w.shape[0] != n or o.shape[0] != n or not 0 <= d < 31:
-        raise ValueError(f"grid_wp_me: ref {tuple(ref.shape)}, w "
-                         f"{tuple(w.shape)}, o {tuple(o.shape)}, d {d}")
+    if w.shape[0] != n or o.shape[0] != n or not 0 <= d < 31 or wd % 16:
+        raise ValueError(f"grid_wp_me: ref {tuple(ref.shape)} (rows of whole "
+                         f"16-sample runs), w {tuple(w.shape)}, o "
+                         f"{tuple(o.shape)}, d {d}")
+    if ref.data_ptr() % 16:  # the kernel moves runs of 16 bytes
+        raise ValueError("grid_wp_me: ref's data is not 16-byte aligned")
     out = torch.empty_like(ref)
     fn = kbuild.function("grid_me", "tpuhevc_grid_wp_me",
                          [kbuild.P] * 4 + [kbuild.I] * 4 + [kbuild.P])

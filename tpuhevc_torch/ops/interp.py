@@ -18,9 +18,12 @@ both uni costs, else L0 where it is at most L1's, else L1); chroma takes
 the luma `inter_dir`. Returns the chosen prediction. `b_pred_yuv` is a B
 picture's three planes in one launch, `b_pred` one plane.
 
-`*_plain` are the PyTorch versions; `mc_blk`, `b_pred_yuv` and `b_pred`
-launch the CUDA kernels (`kernels/csrc/mc_blk.cu`,
-`kernels/csrc/b_pred.cu`) for CUDA tensors.
+`mc_blk_planes` is a P picture's CU classes, Y, U and V each, in one
+launch, `mc_blk` one plane.
+
+`*_plain` are the PyTorch versions; `mc_blk_planes`, `mc_blk`,
+`b_pred_yuv` and `b_pred` launch the CUDA kernels
+(`kernels/csrc/mc_blk.cu`, `kernels/csrc/b_pred.cu`) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -111,36 +114,68 @@ def mc_blk_plain(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     return ((acc + 32) >> 6).clamp(0, 255).int()
 
 
-def mc_blk(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
-           mvq: torch.Tensor, size: int, is_luma: bool) -> torch.Tensor:
-    """K3. CPU tensors take the plain version; CUDA tensors the kernel."""
-    if plane.device.type == "cpu":
-        return mc_blk_plain(plane, xs, ys, mvq, size, is_luma)
-    if plane.device.type != "cuda":
-        raise ValueError(f"mc_blk: unsupported device {plane.device}")
-    dev = plane.device
-    check_tensor(plane, "plane", torch.int32, 2, dev)
-    check_tensor(xs, "xs", torch.int32, 1, dev)
-    check_tensor(ys, "ys", torch.int32, 1, dev)
-    check_tensor(mvq, "mvq", torch.int32, 2, dev)
-    n = xs.shape[0]
-    if ys.shape[0] != n or tuple(mvq.shape) != (n, 2):
-        raise ValueError("mc_blk: xs, ys, mvq disagree on N")
-    if size not in (4, 8, 16, 32):
-        raise ValueError(f"mc_blk: unsupported size {size}")
-    out = torch.empty((n, size, size), dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    tab = taps(is_luma, dev, torch.int32)
+def mc_blk_planes_plain(jobs):
+    """jobs: [(plane, xs, ys, mvq, size, is_luma)] -> [pred (N, S, S)
+    int32], each job by `mc_blk_plain`."""
+    return [mc_blk_plain(*job) for job in jobs]
+
+
+def mc_blk_planes(jobs):
+    """K3 over up to 12 jobs (a P picture's CU classes, Y, U and V each) in
+    one launch; the arguments and results of `mc_blk_planes_plain`, the
+    predictions views of one buffer. CPU tensors take the plain version;
+    CUDA tensors the kernel (8-bit samples; luma S = 8, 16 or 32, chroma
+    S = 4, 8 or 16)."""
+    dev = jobs[0][0].device
+    if dev.type == "cpu":
+        return mc_blk_planes_plain(jobs)
+    if dev.type != "cuda":
+        raise ValueError(f"mc_blk: unsupported device {dev}")
+    if not 1 <= len(jobs) <= 12:
+        raise ValueError(f"mc_blk: {len(jobs)} jobs (1 to 12)")
+    sizes = []
+    for plane, xs, ys, mvq, size, is_luma in jobs:
+        check_tensor(plane, "plane", torch.int32, 2, dev)
+        check_tensor(xs, "xs", torch.int32, 1, dev)
+        check_tensor(ys, "ys", torch.int32, 1, dev)
+        check_tensor(mvq, "mvq", torch.int32, 2, dev)
+        n = xs.shape[0]
+        if ys.shape[0] != n or tuple(mvq.shape) != (n, 2):
+            raise ValueError("mc_blk: xs, ys, mvq disagree on N")
+        if size not in ((8, 16, 32) if is_luma else (4, 8, 16)):
+            raise ValueError(f"mc_blk: unsupported size {size} (luma "
+                             f"{bool(is_luma)})")
+        sizes.append(n * size * size)
+    # one buffer for every prediction; each view starts on a whole 16-byte
+    # vector (S * S is a multiple of 16 samples)
+    arena = torch.empty((sum(sizes),), dtype=torch.int32, device=dev)
+    outs = [v.view(job[1].shape[0], job[4], job[4])
+            for v, job in zip(arena.split(sizes), jobs)]
+    live = [(job, out) for job, out in zip(jobs, outs) if out.shape[0]]
+    if not live:
+        return outs
+    # the largest PUs first: their blocks take longest
+    live.sort(key=lambda jo: -jo[0][4])
+    ptrs, ints = [], []
+    for (plane, xs, ys, mvq, size, is_luma), out in live:
+        ptrs += [plane.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                 mvq.data_ptr(), out.data_ptr()]
+        ints += [xs.shape[0], plane.shape[0], plane.shape[1], size,
+                 int(bool(is_luma))]
     fn = kbuild.function("mc_blk", "tpuhevc_mc_blk",
-                         [kbuild.P] * 6 + [kbuild.I] * 5 + [kbuild.P])
-    err = fn(plane.data_ptr(), xs.data_ptr(), ys.data_ptr(), mvq.data_ptr(),
-             tab.data_ptr(), out.data_ptr(), n, plane.shape[0],
-             plane.shape[1], size, int(is_luma),
+                         [kbuild.I, kbuild.P, kbuild.P, kbuild.P])
+    err = fn(len(live), (ctypes.c_void_p * len(ptrs))(*ptrs),
+             (ctypes.c_int * len(ints))(*ints),
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "mc_blk")
     LAUNCHES["mc_blk"] += 1
-    return out
+    return outs
+
+
+def mc_blk(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+           mvq: torch.Tensor, size: int, is_luma: bool) -> torch.Tensor:
+    """K3 on one plane: `mc_blk_planes` with one job."""
+    return mc_blk_planes([(plane, xs, ys, mvq, size, is_luma)])[0]
 
 
 def _mv_rate(mvq: torch.Tensor) -> torch.Tensor:

@@ -216,7 +216,9 @@ def code_split(cfg, nn_by_qp, clip, dev, gpu: str, tag: str) -> None:
 # every kernel of the port by the names the profiler gives it (a
 # template's name ends in "<", a plain function's in "("; a name given
 # with "<" matches those template arguments: the prestage is `grid_coarse`'s tile-4 pick, so it is also
-# inside the `grid_coarse` row, which takes both of the step's launches)
+# inside the `grid_coarse` row, which takes both of the step's launches;
+# a redesigned kernel keeps its parent's name after its own, so that this
+# file also profiles the parent tree)
 KERNEL_SYMBOLS = {
     "grid_coarse": ("coarse_stage_kernel",),
     "grid_prestage": ("coarse_stage_kernel<4, true",),
@@ -230,10 +232,10 @@ KERNEL_SYMBOLS = {
     "satd35_topk": ("satd35_topk_kernel",),
     "intra_txq": ("intra_txq_tus",),
     "tu_bits": ("tu_bits_teams",),
-    "sad_search": ("sad_search_kernel",), "mc_blk": ("mc_blk_kernel",),
+    "sad_search": ("sad_search_kernel",), "mc_blk": ("mc_blk_jobs", "mc_blk_kernel"),
     "txq": ("txq_kernel",), "b_me": ("b_me_kernel",),
     "b_pred": ("b_pred_kernel",), "b_txq": ("b_txq_kernel",),
-    "grid_wp_me": ("wp_me_kernel",), "grid_subpel": ("subpel_kernel",),
+    "grid_wp_me": ("wp_me_runs", "wp_me_kernel"), "grid_subpel": ("subpel_kernel",),
     "grid_stats": ("stats_kernel",), "intra_wave": ("intra_wave_kernel",),
     "stripe_prescreen": ("stripe_prescreen_kernel",)}
 # the grid step's kernels, and the intra decision's (every picture of
