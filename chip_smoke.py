@@ -43,8 +43,11 @@
    cfg and of the 3 stripes), grid_refine (one launch a block size over every
    reference: the starts reference-major, the reference merge on the
    card), grid_planes (also beside
-   torch.nn.functional.conv2d of its sums, the library time),
-   grid_satd's gathers, grid_satd_cost (the DC-aware CU costs and the
+   torch.nn.functional.conv2d of its sums, the library time; grid_coarse
+   and grid_refine beside torch.cdist (p=1) of their SAD stack and
+   surfaces, grid_satd beside one advanced-index gather a call, each
+   library call's values checked against the kernel's and its event and
+   device time printed beside the kernel's), grid_satd's gathers, grid_satd_cost (the DC-aware CU costs and the
    rect trial's sums: every CU class, both modes, the merge trial's three
    candidates in one launch; torch.equal), grid_code with RDOQ and sign
    hiding, grid_intra16, grid_deblock, grid_sao) at every call of one
@@ -112,8 +115,12 @@
    nc 1, 8 and 35, and at S = 4 over 1920x1088 (130,560 blocks), its
    device time a decision picture and bound printed;
    stripe_prescreen (the multi-device path's intra
-   prescreen, one launch a stripe) at 416x240 in 1 and 3 stripes and at
-   the graft entry's dryrun shape (128x128 in 2); grid_refine with
+   prescreen, one launch a device over its stripes) at its 3 calls: 416x240
+   in 1 and 3 stripes and the graft entry's dryrun shape (128x128 in 2),
+   the 3-stripe call's time, device time and bound printed, then on
+   adversarial inputs (width 72: a run of 4 blocks ending one block into
+   its last; bit depth 10; flat planes at 0 and the maximum; a halo row;
+   8 stripes; 1920x1088 in 17 stripes, its device time printed); grid_refine with
    ry_y0 at every call of the 3-stripe refine at 416x240; the launches
    that take a row origin at every call of one 416x240 anchor P picture
    through the sharded grid step in 3 stripes (grid_refine with each
@@ -181,8 +188,8 @@
    the single step: every packed row and carry equal, the sharded step
    launching each grid kernel 3 times as often (grid_sao_decide as
    often); the halo bytes and both times a picture printed;
-   stripe_prescreen, grid_refine and the grid kernels must have launched.
-   Decodes every stream with the port's host decoder: every picture hash
+   stripe_prescreen (once a tile_prescreen call: 4), grid_refine and the
+   grid kernels must have launched. Decodes every stream with the port's host decoder: every picture hash
    must match and, where the recon was fetched, equal the encoder's.
    Cross-checks CUDA against the CPU path (bitstreams byte-identical) at
    112x72 for LD-P (the non-grid scan: K1-K4) and all-intra, at 128x64 x
@@ -221,6 +228,7 @@
 """
 
 import dataclasses
+import inspect
 import json
 import os
 import statistics
@@ -285,7 +293,7 @@ from tpuhevc_torch.ops.grid_sao import (  # noqa: E402
     grid_sao_decide_plain, grid_sao_plain, grid_sao_stats,
     grid_sao_stats_plain)
 from tpuhevc_torch.ops.stripe_prescreen import (  # noqa: E402
-    stripe_prescreen, stripe_prescreen_plain)
+    stripe_prescreen_rows, stripe_prescreen_rows_plain)
 from tpuhevc_torch.parallel import mesh as mesh_mod  # noqa: E402
 from tpuhevc_torch.parallel import segments  # noqa: E402
 from tpuhevc_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
@@ -1135,7 +1143,8 @@ CALLED_AS = {"sad_search": "sad_search_classes", "txq": "txq_planes",
              "grid_refine": "grid_refine_refs",
              "grid_refine_one": "grid_refine",
              "grid_subpel": "grid_subpel_classes",
-             "b_pred": "b_pred_yuv", "b_txq": "b_txq_planes"}
+             "b_pred": "b_pred_yuv", "b_txq": "b_txq_planes",
+             "stripe_prescreen": "stripe_prescreen_rows"}
 
 
 def recording(module, names, calls, no_sync=(), span=None):
@@ -1434,7 +1443,8 @@ G_FUNCS = {  # name: (kernel wrapper, plain version)
     "grid_sao_decide": (grid_sao_decide, grid_sao_decide_plain),
     # K2 over the grid's classes of a picture, one launch
     "nn_refine_classes": (nn_refine_classes, nn_refine_classes_plain),
-    "stripe_prescreen": (stripe_prescreen, stripe_prescreen_plain),
+    # a device's stripes in one launch (tile_prescreen's calls)
+    "stripe_prescreen": (stripe_prescreen_rows, stripe_prescreen_rows_plain),
     # grid_refine's one-reference wrapper (stripe_refine's)
     "grid_refine_one": (grid_refine, grid_refine_plain),
     # the row-stripe launches of grid_sao and grid_stats
@@ -1631,6 +1641,14 @@ def check_grid_kernels(dev, npz, params):
                      f"pictures' calls queued behind a device sleep; no "
                      f"sync inside a call); "
                      f"{sum(len(a[0]) for a, _ in calls[name])} planes")
+        if name in LIBRARY_OF:  # torch.cdist or one gather
+            r["library_ms"], lib_dev = LIBRARY_OF[name](calls[name])
+            r["device_ms"] = device_ms(
+                lambda: [kern(*a, **k) for a, k in calls[name]], n=20)
+            extra = (f" library_ms {r['library_ms']:.4f}; device_ms "
+                     f"{r['device_ms']:.5f} against the library's "
+                     f"{lib_dev:.5f} (events around 20 pictures' calls "
+                     f"queued behind a device sleep)")
         if name == "grid_planes":
             r["library_ms"] = planes_library_ms(calls[name])
             extra = (f" library_ms {r['library_ms']:.4f} (conv2d of the "
@@ -2283,6 +2301,170 @@ def planes_library_ms(calls):
     return ms
 
 
+def coarse_library_ms(calls):
+    """Event ms of torch.cdist (p=1) over one picture's grid_coarse calls:
+    each 8x8 tile of the pooled picture (1, 64) against its n x n offset
+    windows of the padded pooled reference (n^2, 64), float32 (the sums
+    stay below 2^24, so they are exact), prepared outside the timed calls.
+    The call computes the SAD stack only: not the shift, not the DC sums.
+    Its SADs, shifted, must equal the kernel's stack. Returns its event
+    ms and device ms."""
+    prep = []
+    for a, k in calls:
+        cur, refp, n, tile, shift = a[:5]
+        h, w = cur.shape
+        nbh, nbw = h // tile, w // tile
+        x1 = (cur.reshape(nbh, tile, nbw, tile).permute(0, 2, 1, 3)
+              .reshape(nbh * nbw, 1, tile * tile).float().contiguous())
+        win = refp.unfold(0, tile, 1).unfold(1, tile, 1)  # (.., .., t, t)
+        ty = torch.arange(nbh, device=cur.device) * tile
+        tx = torch.arange(nbw, device=cur.device) * tile
+        o = torch.arange(n, device=cur.device)
+        yy = (ty[:, None, None, None] + o[None, None, :, None]).expand(
+            nbh, nbw, n, n)
+        xx = (tx[None, :, None, None] + o[None, None, None, :]).expand(
+            nbh, nbw, n, n)
+        x2 = win[yy, xx].reshape(nbh * nbw, n * n, tile * tile).float()
+        x2 = x2.contiguous()
+        sad = grid_coarse(*a, **k)[0]
+        d = torch.cdist(x1, x2, p=1)[:, 0]
+        check(torch.equal((d.int() << shift).T.reshape(n * n, nbh, nbw),
+                          sad), "torch.cdist's SADs differ from grid_coarse's")
+        prep.append((x1, x2))
+    def lib():
+        return [torch.cdist(x1, x2, p=1) for x1, x2 in prep]
+
+    ms, dms = median_ms(lib, reps=20), device_ms(lib, n=20)
+    print(f"library grid_coarse: torch.cdist(p=1) of "
+          f"{[x1.shape[0] for x1, _ in prep]} pooled 8x8 tiles against "
+          f"{[x2.shape[1] for _, x2 in prep]} offset windows each (float32), "
+          f"the SAD stack only: event ms {ms:.4f}, device_ms {dms:.5f} a P "
+          f"picture | {gpu_line()}", flush=True)
+    return ms, dms
+
+
+def refine_library_ms(calls):
+    """Event ms of torch.cdist (p=1) over one picture's grid_refine calls
+    (every reference's starts, a launch a block size): each picture block
+    (1, S^2) against the 49 candidates of its (S + 6)^2 window at each
+    start (49, S^2), float32 (exact below 2^24), the windows gathered from
+    the reference stack outside the timed calls. The call computes the SAD
+    surfaces only: not the DC-aware cost, the MV rate, the reference bits,
+    the first-index pick, sad9 or the quadrants. At every block whose MV
+    lies inside the limit, the winner's SAD (sad9's centre) must be a
+    value of the surface at the winner's candidate. Returns its event ms
+    and device ms."""
+    sig = inspect.signature(grid_refine_refs_plain)
+    prep = []
+    for a, k in calls:
+        b = sig.bind(*a, **k)
+        b.apply_defaults()
+        g = b.arguments
+        ry, oy, S, nbh, nbw = g["ry"], g["oy"], g["S"], g["nbh"], g["nbw"]
+        starts, ry_y0, lim = g["starts"], g["ry_y0"], g["lim"]
+        dev = oy.device
+        _, hr, wr = ry.shape
+        G, nb = starts.shape[0], nbh * nbw
+        sref = (torch.zeros(G, dtype=torch.long, device=dev)
+                if g["sref"] is None else g["sref"].long())
+        ar = torch.arange(S + 6, device=dev)
+        bx = (torch.arange(nbw, device=dev) * S).repeat(nbh)
+        by = (torch.arange(nbh, device=dev) * S).repeat_interleave(nbw)
+        cx, cy = starts[..., 0].long(), starts[..., 1].long()
+        yy = (by[None, :, None] + cy[..., None] - 3 + ry_y0 + ar).clamp(
+            0, hr - 1)
+        xx = (bx[None, :, None] + cx[..., None] - 3 + ar).clamp(0, wr - 1)
+        wnd = ry.reshape(-1)[(sref[:, None, None, None] * hr
+                              + yy[..., :, None]) * wr + xx[..., None, :]]
+        x2 = (wnd.unfold(2, S, 1).unfold(3, S, 1)
+              .reshape(G * nb, 49, S * S).float().contiguous())
+        cur = (oy[: nbh * S, : nbw * S].reshape(nbh, S, nbw, S)
+               .permute(0, 2, 1, 3).reshape(nb, 1, S * S))
+        x1 = cur.expand(G, nb, 1, S * S).reshape(G * nb, 1, S * S).float()
+        x1 = x1.contiguous()
+        (mv, sad9, _, ref), _ = grid_refine_refs(*a, **k)
+        d = torch.cdist(x1, x2, p=1)[:, 0].reshape(G, nb, 49)
+        kk = torch.arange(49, device=dev)
+        cand = torch.stack([cx[..., None] + kk % 7 - 3,
+                            cy[..., None] + kk // 7 - 3], -1)  # (G, nb, 49, 2)
+        hit = ((cand == mv[None, :, None]).all(-1)
+               & (sref[:, None, None] == ref[None, :, None].long())
+               & (d.int() == sad9[None, :, None, 4]))
+        inside = (mv.abs() < lim).all(-1)
+        check(bool(hit.any(2).any(0)[inside].all()) and
+              int(inside.sum()) * 10 >= 9 * nb,
+              "torch.cdist's SAD at grid_refine's picks differs from sad9")
+        prep.append((x1, x2))
+    def lib():
+        return [torch.cdist(x1, x2, p=1) for x1, x2 in prep]
+
+    ms, dms = median_ms(lib, reps=20), device_ms(lib, n=20)
+    print(f"library grid_refine: torch.cdist(p=1) of "
+          f"{[x1.shape[0] for x1, _ in prep]} (start, block) pairs against "
+          f"their 49 candidates (float32), the SAD surfaces only: event ms "
+          f"{ms:.4f}, device_ms {dms:.5f} a P picture | {gpu_line()}",
+          flush=True)
+    return ms, dms
+
+
+def gather_index(planes, mv, ref, cell, look):
+    """grid_satd_plain's flat index into planes (R, P, P, hm, wm) of the
+    cells' predictions (C, hc cell, wc cell)."""
+    _, P, _, hm, wm = planes.shape
+    dev = planes.device
+    fb = P.bit_length() - 1
+    mvp = mv.long().repeat_interleave(cell, 1).repeat_interleave(cell, 2)
+    rp = ref.long().repeat_interleave(cell, 1).repeat_interleave(cell, 2)
+    yg = torch.arange(rp.shape[1], device=dev)[None, :, None]
+    xg = torch.arange(rp.shape[2], device=dev)[None, None, :]
+    fx, fy = mvp[..., 0] & (P - 1), mvp[..., 1] & (P - 1)
+    ix = (mvp[..., 0] >> fb) + xg + look
+    iy = (mvp[..., 1] >> fb) + yg + look
+    return (((rp * P * P + fy * P + fx) * hm) + iy) * wm + ix
+
+
+def gather_library_ms(calls):
+    """Event ms of one advanced-index gather per grid_satd call over one
+    picture: the call's luma and chroma phase planes flattened into one
+    tensor and its predictions' flat indices (luma, then U and V) built
+    outside the timed calls. The call leaves out the indices' arithmetic
+    from the MVs and references and the int16 to int32 widening. Its
+    values, widened, must equal the kernel's predictions. Returns its
+    event ms and device ms."""
+    prep = []
+    for a, k in calls:
+        py, pc, mv8, ref8, look, look_c = a[:6]
+        R = py.shape[0]
+        iy = gather_index(py, mv8[None], ref8[None], 8, look)
+        ic = gather_index(pc, torch.stack([mv8, mv8]),
+                          torch.stack([ref8, ref8 + R]), 4, look_c)
+        flat = torch.cat([py.reshape(-1), pc.reshape(-1)])
+        idx = torch.cat([iy.reshape(-1), ic.reshape(-1) + py.numel()])
+        got = flat[idx].int()
+        pred_y, pred_uv = grid_mc(*a, **k)
+        n = iy.numel()
+        uv = got[n:].reshape(2, *ic.shape[1:])
+        check(torch.equal(got[:n].reshape(pred_y.shape), pred_y)
+              and torch.equal(torch.cat([uv[0], uv[1]], 1), pred_uv),
+              "the library gather differs from grid_satd's predictions")
+        prep.append((flat, idx))
+    def lib():
+        return [f[i] for f, i in prep]
+
+    ms, dms = median_ms(lib, reps=20), device_ms(lib, n=20)
+    print(f"library grid_satd: one advanced-index gather a call "
+          f"({len(prep)} calls, {sum(i.numel() for _, i in prep)} samples), "
+          f"the indices built before: event ms {ms:.4f}, device_ms "
+          f"{dms:.5f} a P picture | {gpu_line()}", flush=True)
+    return ms, dms
+
+
+# the grid kernels timed beside one PyTorch call of their function
+LIBRARY_OF = {"grid_coarse": coarse_library_ms,
+              "grid_refine": refine_library_ms,
+              "grid_satd": gather_library_ms}
+
+
 def host_ms(fn, reps=10):
     """Median host time of fn (what the caller waits before it can issue
     more work; no synchronisation inside), ms."""
@@ -2380,28 +2562,35 @@ def multi_calls(dev):
 
 
 def check_multi_kernels(calls, rows):
-    """stripe_prescreen at every call of 416x240 in 1 and 3 stripes and of
-    the dryrun's 128x128 in 2, and grid_refine with ry_y0 at every call of
-    the 3-stripe refine at 416x240 (multi_calls), against their plain
-    versions: exact. Returns {"stripe_prescreen": row}; ms/plain_ms per
-    prescreen of 416x240 in 3 stripes; grid_refine's row gains the
-    stripes' max difference."""
+    """stripe_prescreen at every call of main path 7's prescreens (one
+    launch a call: 416x240 in 1 and 3 stripes and the dryrun's 128x128 in
+    2), then on adversarial inputs, and grid_refine with ry_y0 at every
+    call of the 3-stripe refine at 416x240 (multi_calls), against their
+    plain versions: exact. Returns {"stripe_prescreen": row}; ms/plain_ms
+    per prescreen of 416x240 in 3 stripes (one launch); grid_refine's row
+    gains the stripes' max difference."""
     pre = calls["stripe_prescreen"]
     r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=Work())
+    shapes = [tuple(a[0].shape) + (a[2],) for a, _ in pre]
+    check(shapes == [(H, W, H), (H, W, H // 3), (128, 128, 64)],
+          f"stripe_prescreen calls (rows, stripe rows): {shapes}")
     r["max_abs_err"] = compare_calls("stripe_prescreen", pre)
-    three = pre[1:4]  # the 3-stripe calls at 416x240
-    check(len(pre) == 6 and all(a[0].shape == (H // 3, W) for a, _ in three),
-          f"stripe_prescreen calls {[tuple(a[0].shape) for a, _ in pre]}")
-    for a, k in three:
-        r["work"].add("stripe_prescreen", a, stripe_prescreen(*a, **k), k)
-    r["ms"] = median_ms(lambda: [stripe_prescreen(*a, **k) for a, k in three],
-                        reps=20)
-    r["plain_ms"] = median_ms(
-        lambda: [stripe_prescreen_plain(*a, **k) for a, k in three], reps=3)
+    a, k = pre[1]  # 416x240 in 3 stripes
+    r["work"].add("stripe_prescreen", a, stripe_prescreen_rows(*a, **k), k)
+    r["ms"] = median_ms(lambda: stripe_prescreen_rows(*a, **k), reps=20)
+    r["plain_ms"] = median_ms(lambda: stripe_prescreen_rows_plain(*a, **k),
+                              reps=3)
+    r["device_ms"] = device_ms(lambda: stripe_prescreen_rows(*a, **k), n=100)
+    bound_ms, bound_by = bound_of(r)
     print(f"kernel stripe_prescreen calls {len(pre)} (416x240 in 1 and 3 "
-          f"stripes, 128x128 in 2) max_abs_err {r['max_abs_err']:.3g} "
-          f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} (416x240 "
-          f"in 3 stripes)", flush=True)
+          f"stripes, 128x128 in 2; a launch each) max_abs_err "
+          f"{r['max_abs_err']:.3g}; 416x240 in 3 stripes: kernel_ms "
+          f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} device_ms "
+          f"{r['device_ms']:.5f} (events around 100 launches queued behind "
+          f"a device sleep), bound {bound_ms:.6f} ms ({bound_by}; "
+          f"{r['work'].bytes} bytes, {r['work'].ops} operations) | "
+          f"{gpu_line()}", flush=True)
+    check_prescreen_adversarial(a[0].device)
     ref = calls["grid_refine_one"]
     check(len(ref) == 3 and all(a[-1] == 40 for a, _ in ref),
           f"grid_refine stripe calls: ry_y0 {[a[-1] for a, _ in ref]}")
@@ -2421,6 +2610,46 @@ def check_multi_kernels(calls, rows):
           f"{plain_ms:.4f} bound {bound_ms:.6f} ms ({bound_by}; "
           f"{work.bytes} bytes, {work.ops} operations)", flush=True)
     return {"stripe_prescreen": r}
+
+
+def check_prescreen_adversarial(dev):
+    """stripe_prescreen_rows against its plain version on adversarial
+    inputs, one launch a call, modes and costs exact: width 72 (9 blocks a
+    row: the last run of 4 ends one block in), bit depth 10, flat planes
+    at 0 and at the maximum (every block's costs tie inside), a halo row
+    (a later device's first stripe), 8 stripes, and 1920x1088 in 17
+    stripes of 64 rows (its device time printed)."""
+    rng = np.random.default_rng(SEED)
+    # (width, stripe rows, stripes, bit depth, plane, with a halo row)
+    cases = ((72, 8, 2, 8, "noise", False), (72, 24, 1, 10, "noise", True),
+             (128, 16, 2, 8, "zero", False), (128, 8, 3, 10, "max", True),
+             (128, 16, 8, 8, "noise", True),
+             (1920, 64, 17, 8, "noise", False))
+    for w, hl, k, bd, kind, with_halo in cases:
+        maxv = (1 << bd) - 1
+        rows = (rng.integers(0, maxv + 1, (k * hl, w)) if kind == "noise"
+                else np.full((k * hl, w), 0 if kind == "zero" else maxv))
+        rows = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+        halo = (torch.as_tensor(rng.integers(0, maxv + 1, (1, w)),
+                                dtype=torch.int32, device=dev)
+                if with_halo else None)
+        n0 = LAUNCHES["stripe_prescreen"]
+        got = stripe_prescreen_rows(rows, halo, hl, bd)
+        check(LAUNCHES["stripe_prescreen"] == n0 + 1,
+              "stripe_prescreen: not one launch a call")
+        want = stripe_prescreen_rows_plain(rows, halo, hl, bd)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"stripe_prescreen {w}x{k * hl} in {k} stripes, bd {bd}, "
+              f"{kind}: differs from plain")
+        if w == 1920:
+            dms = device_ms(lambda: stripe_prescreen_rows(rows, halo, hl, bd),
+                            n=100)
+            print(f"kernel stripe_prescreen 1920x1088 in 17 stripes: equal "
+                  f"to plain, device_ms {dms:.5f} a launch | {gpu_line()}",
+                  flush=True)
+    print(f"kernel stripe_prescreen adversarial: {len(cases)} cases equal "
+          f"to plain, one launch each", flush=True)
 
 
 # path 7's grid step on row stripes: the anchor cfg uncut at 416x240 in 3
@@ -3163,6 +3392,11 @@ def run_multi(dev, npz, gpu, plane, rargs, refine, params, bounds):
     launches = dict(LAUNCHES, plain_sao_decide=PLAIN_DECIDE[0])
     missing = [k for k in MULTI_NEED if launches[k] <= 0]
     check(not missing, f"multi-device: kernels not launched: {missing}")
+    # one launch a tile_prescreen call on one card: 1 and 3 stripes here,
+    # the dryrun's 2 stripes and its whole plane
+    check(launches["stripe_prescreen"] == 4,
+          f"multi-device: stripe_prescreen launched "
+          f"{launches['stripe_prescreen']} times for 4 tile_prescreen calls")
     check(launches["plain_sao_decide"] == 0,
           "multi-device: the plain sao_decide ran on the card")
     inner = torch.ones(H // 8, dtype=torch.bool)
@@ -3634,10 +3868,11 @@ def main():
             # launches queued behind a device sleep), else None
             device_ms=r.get("device_ms"),
             bound_ms=bound_ms, bound_by=bound_by,
-            # torch.cdist (p=1) computes the SAD surfaces of sad_search and
-            # b_me, torch.nn.functional.conv2d grid_planes' sums and
-            # torch._fused_adam_ fme_adam's update; no single PyTorch call
-            # computes any of the other functions
+            # torch.cdist (p=1) computes the SAD surfaces of sad_search,
+            # b_me, grid_coarse and grid_refine, one advanced-index gather
+            # grid_satd's predictions, torch.nn.functional.conv2d
+            # grid_planes' sums and torch._fused_adam_ fme_adam's update;
+            # no single PyTorch call computes any of the other functions
             library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -11,8 +11,10 @@ kernels it adds or changes against their plain versions on the card.
 - the two segment encoders at 64x64 x 8 in 2 segments: the stitched
   stream equals each segment's own stream with the repeated parameter
   sets dropped, and decodes hash-OK in the port's decoder and tpuhevc's;
-- `cuda`: stripe_prescreen, grid_refine with ry_y0 and grid_sao_decide
-  (ties, an all-off picture) equal their plain versions on the card.
+- `cuda`: stripe_prescreen (one launch a device's stripes: 416x240 in 1
+  and 3, 128x128 in 2, and test_torch_prescreen.py's cases), grid_refine
+  with ry_y0 and grid_sao_decide (ties, an all-off picture) equal their
+  plain versions on the card.
 
 The JAX references compile the programs tests/test_parallel.py compiles.
 """
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_prescreen import PRESCREEN_CASES, prescreen_case
 from torch_port_util import Reader, clip_frames, cuda_device, fresh_grid, \
     ldp_cfg, rng_planes, write_weights  # noqa: F401 (a fixture)
 from tpuhevc.codec.decoder import decode_stream as jax_decode
@@ -32,11 +35,12 @@ from tpuhevc_torch.codec.decoder import decode_stream
 from tpuhevc_torch.codec.encoder import encode_sequence
 from tpuhevc_torch.codec.params import EncoderConfig, SeqParams
 from tpuhevc_torch.entropy import bitio
+from tpuhevc_torch.kernels import LAUNCHES
 from tpuhevc_torch.ops.grid_me import grid_refine, grid_refine_plain
 from tpuhevc_torch.ops.grid_sao import (
     grid_sao_decide, grid_sao_decide_plain, sao_stats_plain)
 from tpuhevc_torch.ops.stripe_prescreen import (
-    stripe_prescreen, stripe_prescreen_plain)
+    stripe_prescreen_rows, stripe_prescreen_rows_plain)
 from tpuhevc_torch.parallel import mesh, segments
 
 PRE_H, PRE_W = 8 * 8 * 8, 128  # 8 stripes of 8 block rows
@@ -158,37 +162,40 @@ def test_segment_encoders_stitch_per_segment_streams(tmp_path):
 
 @pytest.mark.cuda
 def test_cuda_stripe_prescreen_matches_plain(cuda_device):
-    """416x240 in 1 and 3 stripes and the graft entry's 64n x 128 plane;
-    modes and costs exact; the 3-stripe prescreen equals the 1-stripe one
-    off the stripes' last block rows."""
+    """`stripe_prescreen_rows` (one launch a call) against its plain
+    version, modes and costs exact: 416x240 in 1 and 3 stripes and the
+    graft entry's 128x128 in 2 (the halo mid-grey, and a row above as on
+    a later device), and test_torch_prescreen.py's cases (width 72, bit
+    depth 10, flat planes at 0 and the maximum); `tile_prescreen` on 1 x
+    and 3 x the card, one launch a call, equal off the stripes' last
+    block rows."""
     plane = torch.as_tensor(rng_planes(5, 240, 416)[0], device=cuda_device)
-    for n in (1, 3):
-        hl = 240 // n
-        for k in range(n):
-            s = plane[k * hl : (k + 1) * hl].contiguous()
-            halo = (torch.full((1, 416), 128, dtype=torch.int32,
-                               device=cuda_device) if k == 0
-                    else plane[k * hl - 1 : k * hl].contiguous())
-            got, want = stripe_prescreen(s, halo), stripe_prescreen_plain(
-                s, halo)
-            for g, x in zip(got, want):
-                assert torch.equal(g, x)
+    graft = torch.as_tensor(rng_planes(6, 128, 128)[0], device=cuda_device)
+    row = torch.as_tensor(rng_planes(7, 1, 416)[0], device=cuda_device)
+    calls = [(plane, None, 240, 8), (plane, None, 80, 8),
+             (plane, row, 80, 8), (graft, None, 64, 8),
+             (graft, row[:, :128].contiguous(), 64, 8)]
+    for case in PRESCREEN_CASES:
+        rows, halo = prescreen_case(*case)
+        calls.append((rows.to(cuda_device),
+                      None if halo is None else halo.to(cuda_device),
+                      case[1], case[3]))
+    for rows, halo, hl, bd in calls:
+        before = LAUNCHES["stripe_prescreen"]
+        got = stripe_prescreen_rows(rows, halo, hl, bd)
+        assert LAUNCHES["stripe_prescreen"] == before + 1
+        for g, x in zip(got, stripe_prescreen_rows_plain(rows, halo, hl,
+                                                         bd)):
+            assert torch.equal(g, x), (tuple(rows.shape), hl, bd)
     dev = str(cuda_device)
+    before = LAUNCHES["stripe_prescreen"]
     m1 = mesh.tile_prescreen(mesh.make_mesh(1, device=dev), 240, 416)(plane)
     m3 = mesh.tile_prescreen(mesh.make_mesh(3, device=dev), 240, 416)(plane)
+    assert LAUNCHES["stripe_prescreen"] == before + 2
     inner = torch.ones(30, dtype=torch.bool)
     inner[9::10] = False
     for a, b in zip(m1, m3):
         assert torch.equal(a[inner], b[inner])
-    graft = torch.as_tensor(rng_planes(6, 128, 128)[0], device=cuda_device)
-    for k in range(2):
-        s = graft[k * 64 : (k + 1) * 64].contiguous()
-        halo = (torch.full((1, 128), 128, dtype=torch.int32,
-                           device=cuda_device) if k == 0
-                else graft[63:64].contiguous())
-        for g, x in zip(stripe_prescreen(s, halo),
-                        stripe_prescreen_plain(s, halo)):
-            assert torch.equal(g, x)
 
 
 @pytest.mark.cuda

@@ -23,9 +23,10 @@ block size a P picture, over every reference searched; `intra_txq` once a
 class of TUs, all its candidates;
 `b_pred` and `b_txq` once a B picture each, its three planes;
 `grid_sao` twice, its stats and its apply, with `grid_sao_decide` between
-them (on row stripes: stats and apply a stripe, the decision once); `intra_wave` once for a whole batch of pictures; `stripe_prescreen`
-once a row stripe; `fme_train_fwd`, `fme_train_bwd` and `fme_adam` once
-a training step each). Shared device code sits in `csrc/*.cuh`.
+them (on row stripes: stats and apply a stripe, the decision once);
+`intra_wave` once for a whole batch of pictures; `stripe_prescreen` once
+a device, over the row stripes it holds; `fme_train_fwd`,
+`fme_train_bwd` and `fme_adam` once a training step each). Shared device code sits in `csrc/*.cuh`.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 // The T x T Hadamard magnitude sum of a tile spread over T lanes, a row
 // each, shared by the SATD kernels (satd35_topk.cu at T = 4 and 8;
-// grid_pred.cu, grid_intra.cu and stripe_prescreen.cu at T = 8;
-// intra_wave.cu keeps a copy whose column stages multiply by the lane's
-// sign).
+// grid_pred.cu and grid_intra.cu at T = 8; intra_wave.cu and
+// stripe_prescreen.cu at T = 8 through the variant whose column stages
+// multiply by the lane's sign).
 //
 // What it computes: sum |H d H^T| over the tile d (T = 4 or 8), H the
 // Sylvester Hadamard matrix: an in-place butterfly over each lane's row in
@@ -51,6 +51,35 @@ __device__ __forceinline__ int hadamard_lanes_abs_sum(int (&v)[T], int r) {
 
 __device__ __forceinline__ int hadamard8_lanes_abs_sum(int (&v)[8], int r) {
     return hadamard_lanes_abs_sum<8>(v, r);
+}
+
+// hadamard8_lanes_abs_sum with each column stage one shuffle and one
+// multiply-add by the lane's sign (a select there); the same integers
+__device__ __forceinline__ int hadamard8_lanes_abs_sum_signed(int (&v)[8],
+                                                              int r) {
+#pragma unroll
+    for (int h = 1; h < 8; h <<= 1) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            if (i & h) continue;
+            const int a = v[i], b = v[i + h];
+            v[i] = a + b;
+            v[i + h] = a - b;
+        }
+    }
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int h = 1; h < 8; h <<= 1) {
+            const int o = __shfl_xor_sync(0xffffffffu, v[i], h);
+            v[i] = o + ((r & h) ? -1 : 1) * v[i];
+        }
+        s += abs(v[i]);
+    }
+#pragma unroll
+    for (int h = 1; h < 8; h <<= 1) s += __shfl_xor_sync(0xffffffffu, s, h);
+    return s;
 }
 
 }  // namespace

@@ -80,6 +80,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hadamard.cuh"
 #include "intra_pred.cuh"
 #include "tx_common.cuh"
 
@@ -227,35 +228,6 @@ __device__ __forceinline__ int inv_rows(const int* B, const int* TT, int e) {
     constexpr int S = 1 << L2;
     return clip16((dot_rows<S>(B + (e >> L2) * S, TT + (e & (S - 1)) * S)
                    + 2048) >> 12);
-}
-
-// sum |H d H^T| of the 8x8 tile held by 8 consecutive lanes, lane r row
-// r in v: hadamard8_lanes_abs_sum (hadamard.cuh) with each column stage
-// one shuffle and one multiply-add by the lane's sign; the same integers.
-__device__ __forceinline__ int hadamard8_abs_sum(int (&v)[8], int r) {
-#pragma unroll
-    for (int h = 1; h < 8; h <<= 1) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            if (i & h) continue;
-            const int a = v[i], b = v[i + h];
-            v[i] = a + b;
-            v[i + h] = a - b;
-        }
-    }
-    int s = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int h = 1; h < 8; h <<= 1) {
-            const int o = __shfl_xor_sync(kFull, v[i], h);
-            v[i] = o + ((r & h) ? -1 : 1) * v[i];
-        }
-        s += abs(v[i]);
-    }
-#pragma unroll
-    for (int h = 1; h < 8; h <<= 1) s += __shfl_xor_sync(kFull, s, h);
-    return s;
 }
 
 // The 8 luma predictions of lane q of mode m (8x8, the filtered
@@ -536,7 +508,7 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
 #pragma unroll
                 for (int c = 0; c < 8; ++c) v[c] = 0;
             }
-            const int sum = hadamard8_abs_sum(v, r);
+            const int sum = hadamard8_lanes_abs_sum_signed(v, r);
             unsigned key = kFull;
             if (on) {
                 const int mp = mi[3];

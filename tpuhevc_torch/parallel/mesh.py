@@ -14,7 +14,7 @@ of more than one rank on one card, and one process needs none.
 
 - `tile_prescreen`: the open-loop 35-mode 8x8 SATD argmin of a luma
   plane on row stripes with a one-row halo (kernel `stripe_prescreen`,
-  one launch a stripe);
+  one launch a device over the consecutive stripes it holds);
 - `stripe_refine`: the grid step's full-pel refine (kernel `grid_refine`)
   per stripe, with `sr + 24` halo rows above and below read through
   `ry_y0`, equal to the refine of the whole picture;
@@ -41,7 +41,7 @@ from ..codec.inter_grid import (GridStep, _Tabs, grid_live_tables,
 from ..codec.params import p_frame_lambda
 from ..codec.stripes import Exchange, Rows
 from ..device import on_device, resolve
-from ..ops.stripe_prescreen import stripe_prescreen
+from ..ops.stripe_prescreen import stripe_prescreen_rows
 
 
 @dataclass(frozen=True)
@@ -81,36 +81,56 @@ def _stripes(x: torch.Tensor, mesh: Mesh) -> list:
 
 
 def _gather(parts: list, mesh: Mesh) -> torch.Tensor:
-    """Per-stripe results concatenated by rows on the mesh's first
-    device."""
+    """Per-stripe (or per-device) results concatenated by rows on the
+    mesh's first device."""
     return torch.cat([p.to(mesh.devices[0]) for p in parts])
+
+
+def _groups(mesh: Mesh) -> list:
+    """The mesh's runs of consecutive stripes on one device: [(device,
+    first stripe, stripes)]."""
+    out = []
+    for k, dev in enumerate(mesh.devices):
+        if out and out[-1][0] == dev:
+            out[-1][2] += 1
+        else:
+            out.append([dev, k, 1])
+    return out
 
 
 def tile_prescreen(mesh: Mesh, height: int, width: int, bit_depth: int = 8):
     """-> fn: luma plane (height, width) int32 -> (mode, cost) (height / 8,
     width / 8) int32 on the mesh's first device: the open-loop 35-mode
     SATD prescreen, row-stripe sharded over the mesh, each stripe's top
-    reference row copied from the stripe above (mid-grey for the first).
-    The height must split into stripes of whole 8x8 block rows."""
+    reference row the last row of the stripe above (mid-grey for the
+    first). The stripes that sit on one device, consecutive in the mesh,
+    take one launch (`stripe_prescreen_rows`): the row above the first of
+    them is copied from the previous device, the others read theirs in
+    place. On one card (a mesh of n x cuda:0) that is one launch, whose
+    maps are returned as they are. The height must split into stripes of
+    whole 8x8 block rows."""
     n = mesh.size
     if height % (8 * n) or width % 8:
         raise ValueError(f"tile_prescreen: {width}x{height} does not split "
                          f"into {n} stripes of 8x8 blocks")
-    mid = 1 << (bit_depth - 1)
+    hl = height // n
+    groups = _groups(mesh)
 
     def fn(plane: torch.Tensor):
         if tuple(plane.shape) != (height, width):
             raise ValueError(f"tile_prescreen: plane {tuple(plane.shape)}, "
                              f"expected {(height, width)}")
-        stripes = _stripes(plane, mesh)
         modes, costs = [], []
-        for k, dev in enumerate(mesh.devices):
-            halo = (torch.full((1, width), mid, dtype=torch.int32, device=dev)
-                    if k == 0 else stripes[k - 1][-1:].to(dev))
+        for dev, k, cnt in groups:
+            rows = plane[k * hl : (k + cnt) * hl].to(dev).contiguous()
+            halo = (None if k == 0 else
+                    plane[k * hl - 1 : k * hl].to(dev).contiguous())
             with on_device(dev):
-                m, c = stripe_prescreen(stripes[k], halo, bit_depth)
+                m, c = stripe_prescreen_rows(rows, halo, hl, bit_depth)
             modes.append(m)
             costs.append(c)
+        if len(groups) == 1:  # on the first device
+            return modes[0], costs[0]
         return _gather(modes, mesh), _gather(costs, mesh)
 
     return fn

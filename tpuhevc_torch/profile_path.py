@@ -42,7 +42,8 @@ class alone. Needs a CUDA device.
 `stripes` is the multi-device path's stripe kernels as `chip_smoke.py`'s
 path 7 runs them on one card (a mesh of 3 x the card): `tile_prescreen`
 of the clip's frame 1 at 416x240 in 3 stripes (kernel
-`stripe_prescreen`, one launch a stripe) and `stripe_refine` of frame 1
+`stripe_prescreen`, one launch a device: here one for the 3 stripes; a
+launch a stripe on a parent tree before it) and `stripe_refine` of frame 1
 against frame 0 in 3 stripes (grid_refine with each stripe's ry_y0),
 `reps` calls (default 20) of each under `torch.profiler`: the device
 time and launches of their kernels a call.
@@ -237,7 +238,7 @@ KERNEL_SYMBOLS = {
     "b_pred": ("b_pred_kernel",), "b_txq": ("b_txq_kernel",),
     "grid_wp_me": ("wp_me_runs", "wp_me_kernel"), "grid_subpel": ("subpel_kernel",),
     "grid_stats": ("stats_kernel",), "intra_wave": ("intra_wave_kernel",),
-    "stripe_prescreen": ("stripe_prescreen_kernel",)}
+    "stripe_prescreen": ("stripe_prescreen_runs", "stripe_prescreen_kernel")}
 # the grid step's kernels, and the intra decision's (every picture of
 # `intra`; only the IDR of `ldp`, whose P pictures take the grid step):
 # printed even where an encode launched none
@@ -528,7 +529,8 @@ def profile_stripes(args, dev, gpu: str) -> None:
     refine = mesh.stripe_refine(cfg, {}, mesh.make_mesh(3, device=dev))[0]
     reps = args.reps or 20
     for what, fn, keys in (
-            ("tile_prescreen", lambda: pre(oy), ("stripe_prescreen_kernel",)),
+            ("tile_prescreen", lambda: pre(oy),
+             KERNEL_SYMBOLS["stripe_prescreen"]),
             ("stripe_refine", lambda: refine(oy, ry, cx.contiguous(),
                                              cy.contiguous()),
              ("refine_kernel",))):
