@@ -222,6 +222,24 @@
    into their bindings' buffers) and the forward's and the backward's
    launch geometry printed (and, after the build, every source's ptxas
    report: entry function, registers, spills).
+   Main path 9, the per-picture P path with the host tool stage (each
+   encode with the counters reset just before, decoded hash-OK): the
+   anchor LD-P cfg as shipped at 1920x1080 x 2 (off the grid: the IDR
+   decided on the card, the intra kernels launched; the P picture
+   through the host stage, its seconds printed; no grid kernel, K1, K3 or
+   K4); IntraPeriod 4 with the tools at 416x240 x 9 (I pictures at 0, 4,
+   8; six P pictures through the host stage); the random-access cfg with
+   RDOQ, sign hiding, deblocking and SAO at 416x240 x 10 (b_txq once a B
+   picture in its sign-hiding variant, each launch torch.equal to plain,
+   its device time beside the variant without hiding and its bound
+   printed; the P tail through the host stage); random access without a
+   GOP table (`_ra_gop4`) at 416x240 x 9 (K1, K3 and K4 once a key P
+   picture, the B step 3 times a GOP); rate control at picture level (the
+   tools cut: the P pictures through the device stage, K1-K4) and at CTU
+   level (the anchor as shipped, a QP map a P picture: the host stage) at
+   416x240 x 5, target and achieved bits printed. Then CUDA against CPU
+   streams byte-identical for these routes (the anchor at 112x72 x 4, the
+   others at 64x48 x 6).
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -249,7 +267,7 @@ sys.path.insert(0, ROOT)
 from tools.make_test_clip import make_clip, make_fade_clip  # noqa: E402
 from tpuhevc_torch.codec import encoder as encoder_mod  # noqa: E402
 from tpuhevc_torch.codec import (  # noqa: E402
-    inter_b, inter_batch, inter_grid, intra_decide)
+    inter_b, inter_batch, inter_enc, inter_grid, intra_decide)
 from tpuhevc_torch.codec.decoder import decode_stream  # noqa: E402
 from tpuhevc_torch.codec.encoder import encode_sequence  # noqa: E402
 from tpuhevc_torch.codec.inter_batch import _blk_idx, _positions  # noqa: E402
@@ -1124,12 +1142,14 @@ def weighted(wp) -> bool:
                or o != [0, 0, 0] for wt, o in zip(wp.weights, wp.offsets))
 
 
-def ra_cfg(npz, w=None, h=None, frames=None):
+def ra_cfg(npz, w=None, h=None, frames=None, extra=()):
     """cfg/encoder_randomaccess_main.cfg as shipped at w x h (default: the
-    main path's), QP 32, the seeded NN-FME weights."""
+    main path's), QP 32, the seeded NN-FME weights, then the `extra`
+    options."""
     cfg, _ = build_config(parse_args([
         "-c", RA_CFG, "-wdt", str(w or W), "-hgt", str(h or H),
-        "-f", str(frames or N_RA), "-q", str(QP), f"--NNWeightsDir={npz}"]))
+        "-f", str(frames or N_RA), "-q", str(QP), f"--NNWeightsDir={npz}"]
+        + list(extra)))
     return cfg
 
 
@@ -3126,11 +3146,11 @@ def check_p_tail(calls, launches):
           f"to plain at their calls; launches {got}", flush=True)
 
 
-def check_stream(enc, recons, n, launches, need, what):
-    """Every needed kernel launched; n pictures decode hash-OK in the port's
-    decoder with the encoder's recon, in decoding order (all-intra
-    pictures are IDRs, each with POC 0; random access codes out of
-    display order)."""
+def check_stream(enc, recons, n, launches, need, what, w=W, h=H):
+    """Every needed kernel launched; n pictures of w x h decode hash-OK in
+    the port's decoder with the encoder's recon, in decoding order
+    (all-intra pictures are IDRs, each with POC 0; random access codes out
+    of display order)."""
     check(len(enc.results) == n, f"{what}: encoded {len(enc.results)}")
     missing = [k for k in need if launches[k] <= 0]
     check(not missing, f"{what}: kernels not launched: {missing}")
@@ -3138,9 +3158,9 @@ def check_stream(enc, recons, n, launches, need, what):
     check(len(frames) == n, f"{what}: decoded {len(frames)} pictures")
     check(all(f.md5_ok for f in frames), [f.md5_ok for f in frames])
     for i, (f, (ry, ru, rv)) in enumerate(zip(frames, recons)):
-        check(np.array_equal(f.y, ry[:H, :W])
-              and np.array_equal(f.u, ru[: H // 2, : W // 2])
-              and np.array_equal(f.v, rv[: H // 2, : W // 2]),
+        check(np.array_equal(f.y, ry[:h, :w])
+              and np.array_equal(f.u, ru[: h // 2, : w // 2])
+              and np.array_equal(f.v, rv[: h // 2, : w // 2]),
               f"{what}: decoded picture {i} (POC {f.poc}) differs from the "
               f"encoder's recon")
 
@@ -3348,6 +3368,221 @@ def run_bench(dev, gpu):
           f"integer-pel for want of NN-FME weights | launches {bl} | {gpu}",
           flush=True)
     return bl
+
+
+# path 9, the per-picture P path: the anchor cfg at 1920x1080 (class B),
+# IntraPeriod 4, random access with the tools and sign hiding, random
+# access without a GOP table, rate control at picture and CTU level
+W9, H9, N9_1080 = 1920, 1080, 2
+N9_IP, N9_RA, N9_GOP4, N9_RC = 9, 10, 9, 5
+RA_TOOLS = ["--RDOQ=1", "--SignHideFlag=1", "--LoopFilterDisable=0",
+            "--SAO=1"]
+RC_BPS = 400000  # the rate-control paths' target at 416x240
+
+
+def gop4_cfg(npz, w=None, h=None, frames=None):
+    """Random access without a GOP table (`_ra_gop4`): the random-access
+    cfg with its table dropped, the tools off as shipped."""
+    return dataclasses.replace(ra_cfg(npz, w, h, frames), gop_table=())
+
+
+def rc_cfg(npz, ctu, w=None, h=None, frames=None):
+    """Rate control on the anchor LD-P cfg: at picture level with the four
+    tools cut (the P pictures through the device stage), at CTU level as
+    shipped (a QP map a P picture: the host stage)."""
+    extra = ["--RateControl=1", f"--TargetBitrate={RC_BPS}"]
+    if ctu:
+        extra.append("--LCULevelRateControl=1")
+    return ldp_cfg(npz, w, h, frames or N9_RC, cut=not ctu, extra=extra)
+
+
+class HostStage:
+    """Counts and times the host tool stage (`inter_enc._compute_stage_np`)
+    while active."""
+
+    def __init__(self):
+        self.secs = []
+        self.real = inter_enc._compute_stage_np
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            t0 = time.time()
+            out = self.real(*a, **kw)
+            self.secs.append(time.time() - t0)
+            return out
+
+        inter_enc._compute_stage_np = timed
+        return self
+
+    def __exit__(self, *exc):
+        inter_enc._compute_stage_np = self.real
+
+
+def summary9(enc, secs, launches, gpu, what, extra=""):
+    kbits = sum(r.bits for r in enc.results) / 1000
+    psnr = np.mean([r.psnr_y for r in enc.results])
+    used = {k: v for k, v in launches.items() if v}
+    print(f"main path 9, {what}: {len(enc.results)} pictures in {secs:.3f} "
+          f"s = {len(enc.results) / secs:.3f} fps | {kbits:.1f} kbit, Y-PSNR "
+          f"{psnr:.3f} dB{extra} | launches {used} | {gpu}", flush=True)
+
+
+def run_per_picture(dev, npz, gpu):
+    """Main path 9, the per-picture P path with the host tool stage, each
+    encode with the counters reset just before and read just after,
+    decoded hash-OK with the encoder's recon: the anchor LD-P cfg as
+    shipped at 1920x1080 x 2 (the IDR decided on the card; the P picture
+    through the host stage, whose seconds are printed); IntraPeriod 4
+    with the tools at 416x240 x 9 (three I pictures decided on the card,
+    six P pictures through the host stage); the random-access cfg with
+    RDOQ, sign hiding, deblocking and SAO at 416x240 x 10 (b_txq once a B
+    picture with sign hiding, each launch torch.equal to plain and its
+    device time and bound printed; the P tail through the host stage);
+    random access without a GOP table at 416x240 x 9 (K1, K3 and K4 once
+    a key P picture); rate control at picture level (the P pictures
+    through the device stage) and at CTU level (the host stage), the
+    target and achieved bits printed. Returns (launches summed over the
+    path, the SBH b_txq row)."""
+    total = {k: 0 for k in KERNELS}
+
+    def add(launches):
+        for k in KERNELS:
+            total[k] += launches[k]
+
+    # the anchor at 1920x1080: coded height 1080, not whole 16x16 blocks
+    cfg = ldp_cfg(npz, W9, H9, N9_1080)
+    check(not inter_grid.supports(cfg), "1920x1080 took the grid")
+    reader = Reader(W9, H9, N9_1080)
+    with HostStage() as hs:
+        enc, recons, secs, la = run_path(dev, cfg, N9_1080, reader=reader)
+    check_stream(enc, recons, N9_1080, la, INTRA, "1920x1080 anchor", W9,
+                 H9)
+    check(len(hs.secs) == N9_1080 - 1, f"1920x1080: host stage ran "
+          f"{len(hs.secs)} times")
+    check(all(la[k] == 0 for k in G_KERNELS + P_ONCE),
+          "1920x1080: a grid kernel or K1, K3, K4 launched")
+    add(la)
+    summary9(enc, secs, la, gpu, f"the anchor LD-P cfg at {W9}x{H9}",
+             f" | IDR {enc.results[0].seconds:.3f} s | host stage "
+             f"{[round(x, 3) for x in hs.secs]} s a P picture")
+
+    # IntraPeriod 4 with the tools
+    with HostStage() as hs:
+        enc, recons, secs, la = run_path(
+            dev, ldp_cfg(npz, frames=N9_IP, extra=["--IntraPeriod=4"]),
+            N9_IP)
+    check_stream(enc, recons, N9_IP, la, INTRA, "IntraPeriod 4")
+    n_i = len(range(0, N9_IP, 4))
+    check(len(hs.secs) == N9_IP - n_i, f"IntraPeriod 4: host stage ran "
+          f"{len(hs.secs)} times")
+    add(la)
+    summary9(enc, secs, la, gpu, f"IntraPeriod 4 {W}x{H}",
+             f" | host stage {np.mean(hs.secs):.3f} s a P picture")
+
+    # random access with RDOQ, SBH, deblocking and SAO
+    calls = {"b_txq": []}
+    saved = recording(inter_b, ("b_txq",), calls)
+    try:
+        with HostStage() as hs:
+            enc, recons, secs, la = run_path(
+                dev, ra_cfg(npz, frames=N9_RA, extra=RA_TOOLS), N9_RA)
+    finally:
+        restore(inter_b, saved)
+    check_stream(enc, recons, N9_RA, la, B_KERNELS + INTRA,
+                 "random access with the tools")
+    n_b = 4 * ((N9_RA - 1) // 4)  # whole GOPs of 4 B pictures; P tail
+    check(la["b_txq"] == n_b == len(calls["b_txq"]),
+          f"random access with the tools: b_txq {la['b_txq']} launches, "
+          f"{len(calls['b_txq'])} calls for {n_b} B pictures")
+    check(len(hs.secs) == N9_RA - 1 - n_b, "random access with the tools: "
+          f"host stage ran {len(hs.secs)} times")
+    row = dict(max_abs_err=0.0, work=Work(), launches=la["b_txq"])
+    for args, kw in calls["b_txq"]:
+        check(kw.get("sbh") is True, f"b_txq called with {kw}")
+        a, b = b_txq_planes(*args, **kw), b_txq_planes_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(
+            tensors(a), tensors(b), strict=True)),
+            "b_txq with sign hiding differs from plain")
+    args, kw = calls["b_txq"][0]
+    row["work"].add("b_txq", args, b_txq_planes(*args, **kw), kw)
+    row["ms"] = median_ms(lambda: b_txq_planes(*args, **kw), reps=10)
+    row["plain_ms"] = median_ms(lambda: b_txq_planes_plain(*args, **kw),
+                                reps=5)
+    row["device_ms"] = device_ms(lambda: b_txq_planes(*args, **kw), n=100)
+    row["device_ms_off"] = device_ms(
+        lambda: b_txq_planes(*args, **dict(kw, sbh=False)), n=100)
+    row["bound_ms"], row["bound_by"] = bound_of(row)
+    print(f"kernel b_txq with sign hiding (B picture, Y, U and V in one "
+          f"launch): equal to plain at all {len(calls['b_txq'])} calls; "
+          f"kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+          f"device_ms {row['device_ms']:.5f} (without SBH on the same "
+          f"inputs {row['device_ms_off']:.5f}) bound {row['bound_ms']:.6f} "
+          f"ms ({row['bound_by']}) | launches {la['b_txq']} | {gpu}",
+          flush=True)
+    add(la)
+    summary9(enc, secs, la, gpu, f"random access with RDOQ, SBH, "
+             f"deblocking and SAO {W}x{H}", f" | decode order "
+             f"{[r.poc for r in enc.results]}")
+
+    # random access without a GOP table
+    with HostStage() as hs:
+        enc, recons, secs, la = run_path(
+            dev, gop4_cfg(npz, frames=N9_GOP4), N9_GOP4)
+    check_stream(enc, recons, N9_GOP4, la, B_KERNELS + P_ONCE + INTRA,
+                 "random access without a GOP table")
+    n_key = (N9_GOP4 - 1) // 4
+    check(not hs.secs and all(la[k] == n_key for k in P_ONCE)
+          and all(la[k] == 3 * n_key for k in B_KERNELS),
+          f"random access without a GOP table: launches {la}, host stage "
+          f"{len(hs.secs)}")
+    add(la)
+    summary9(enc, secs, la, gpu, f"random access without a GOP table "
+             f"{W}x{H}", f" | decode order {[r.poc for r in enc.results]}")
+
+    # rate control, picture and CTU level
+    for ctu in (False, True):
+        cfg = rc_cfg(npz, ctu)
+        with HostStage() as hs:
+            enc, recons, secs, la = run_path(dev, cfg, N9_RC)
+        what = f"rate control at {'CTU' if ctu else 'picture'} level"
+        check_stream(enc, recons, N9_RC, la,
+                     INTRA + (() if ctu else P_ONCE), what)
+        check(len(hs.secs) == (N9_RC - 1 if ctu else 0),
+              f"{what}: host stage ran {len(hs.secs)} times")
+        bits = sum(r.bits for r in enc.results)
+        got = bits * cfg.frame_rate / N9_RC
+        add(la)
+        summary9(enc, secs, la, gpu, f"{what} {W}x{H}",
+                 f" | target {cfg.target_bitrate} bit/s, achieved "
+                 f"{got:.0f} bit/s ({bits} bits, {cfg.frame_rate} "
+                 "pictures/s)")
+    return total, row
+
+
+def cross_check_per_picture(npz):
+    """CUDA vs CPU of path 9's routes: the anchor cfg at 112x72 x 4 (off
+    the grid: the host stage), and at 64x48 x 6 IntraPeriod 4 with the
+    tools, random access with RDOQ, SBH, deblocking and SAO, random access
+    without a GOP table, rate control at picture and CTU level; the
+    streams byte-identical. Returns their sizes."""
+    out = []
+    for make, w, h, n in (
+            (lambda: ldp_cfg(npz, 112, 72, 4), 112, 72, 4),
+            (lambda: ldp_cfg(npz, 64, 48, 6, extra=["--IntraPeriod=4"]),
+             64, 48, 6),
+            (lambda: ra_cfg(npz, 64, 48, 6, extra=RA_TOOLS), 64, 48, 6),
+            (lambda: gop4_cfg(npz, 64, 48, 6), 64, 48, 6),
+            (lambda: rc_cfg(npz, False, 64, 48, 6), 64, 48, 6),
+            (lambda: rc_cfg(npz, True, 64, 48, 6), 64, 48, 6)):
+        r = Reader(w, h, n)
+        a, _ = encode_sequence(r, make(), device="cuda")
+        b, _ = encode_sequence(r, make(), device="cpu")
+        check(a.bitstream() == b.bitstream(),
+              f"path 9 route {len(out)} at {w}x{h}: CUDA and CPU streams "
+              "differ")
+        out.append(len(a.bitstream()))
+    return out
 
 
 N_SEG_FRAMES, N_SEGS = 16, 2  # path 7's segment encode
@@ -3839,6 +4074,13 @@ def main():
         for k in KERNELS:
             launches[k] += tr_launches[k]
 
+        pp_launches, sbh_row = run_per_picture(dev, npz, gpu)
+        check(all(pp_launches[k] == 0 for k in TRAIN_KERNELS + G_KERNELS),
+              "path 9 launched a train-step or grid kernel")
+        for k in KERNELS:
+            launches[k] += pp_launches[k]
+        rows["b_txq"]["sbh"] = sbh_row
+
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
               f"{sizes[0]} bytes, all-intra 112x72 {sizes[1]} bytes, LD-P "
@@ -3847,6 +4089,11 @@ def main():
               f"the recon fetch {sizes[5]} bytes, random access 64x48 "
               f"{sizes[6]} bytes; fixed 8x8: all-intra 104x72, LD-P "
               f"112x72 {cross_check_intra8(npz)} bytes)", flush=True)
+        print(f"cross-check: CUDA == CPU streams of path 9's routes (the "
+              f"anchor 112x72 x 4, then at 64x48 x 6 IntraPeriod 4, random "
+              f"access with the tools and SBH, without a GOP table, rate "
+              f"control at picture and CTU level): "
+              f"{cross_check_per_picture(npz)} bytes", flush=True)
 
     kernels = []
     for k in KERNELS:
@@ -3873,7 +4120,12 @@ def main():
             # grid_satd's predictions, torch.nn.functional.conv2d
             # grid_planes' sums and torch._fused_adam_ fme_adam's update;
             # no single PyTorch call computes any of the other functions
-            library_ms=r.get("library_ms")))
+            library_ms=r.get("library_ms"),
+            # b_txq's sign-hiding variant (path 9's B pictures): its
+            # launches, times and bound
+            **({"sbh": {key: r["sbh"][key] for key in (
+                "launches", "max_abs_err", "ms", "plain_ms", "device_ms",
+                "bound_ms", "bound_by")}} if "sbh" in r else {})))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -43,7 +43,8 @@ from torch_port_util import (  # noqa: F401
     ldp_cfg, rng_planes, write_weights)
 from tpuhevc_torch.codec import inter_grid as tig
 from tpuhevc_torch.codec.decoder import decode_stream
-from tpuhevc_torch.codec.encoder import LdpScanDriver, check_slice
+from tpuhevc_torch.codec.encoder import (LdpScanDriver, _takes_scan,
+                                         check_slice)
 from tpuhevc_torch.codec.encoder import encode_sequence
 from tpuhevc_torch.codec.params import p_frame_lambda
 from tpuhevc_torch.entropy import native
@@ -622,9 +623,11 @@ def _set(cfg, field, value):
 def test_grid_selection_cut_and_native_walk(npz, monkeypatch):
     """The grid where the coded size is whole 16x16 blocks, the non-grid
     scan elsewhere (112x72); DCT-IF, weighted prediction, RDOQ, sign
-    hiding, deblocking and SAO admitted on the grid (128x64) and refused
-    on the non-grid scan (112x72); a native library without the decision walks fails to bind
-    (no silent slower path)."""
+    hiding, deblocking and SAO admitted on the grid (128x64); at 112x72
+    DCT-IF and the four tools admitted off the scan (the per-picture P
+    path with the host tool stage) and weighted prediction refused; a
+    native library without the decision walks fails to bind (no silent
+    slower path)."""
     assert tig.supports(e2e_cfg(npz, True))
     assert not tig.supports(ldp_cfg(npz, port=True))
 
@@ -640,8 +643,13 @@ def test_grid_selection_cut_and_native_walk(npz, monkeypatch):
         assert drv.grid == grid and drv.R == (NREF if grid else 1)
     for field, value in CUT + TOOLS:
         check_slice(_set(e2e_cfg(npz, True), field, value))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            check_slice(_set(ldp_cfg(npz, port=True), field, value))
+        off_grid = _set(ldp_cfg(npz, port=True), field, value)
+        if field == "weighted_pred":
+            with pytest.raises(NotImplementedError, match="not yet ported"):
+                check_slice(off_grid)
+        else:  # the per-picture loop, not the scan
+            check_slice(off_grid)
+            assert not _takes_scan(off_grid)
     real = ctypes.CDLL(native._lib_path())
 
     class NoWalk:

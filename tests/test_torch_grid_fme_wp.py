@@ -349,10 +349,11 @@ def test_e2e_dctif_wp_matches_jax_and_decodes():
 def test_check_slice_admits_on_the_grid_only(monkeypatch):
     """check_slice admits the anchor cfg with FmeMode dctif, with
     WeightedPredP 1 (either FME mode) and bench.py's no-fetch checksum
-    configuration on the grid (128x64); it refuses DCT-IF and weighted
-    prediction on the non-grid scan (112x72) and in random access, and
-    WeightedPredB anywhere, naming each; a no-fetch run without the native
-    decision walk raises."""
+    configuration on the grid (128x64), and DCT-IF off the grid (112x72:
+    the host tool stage) and in random access; it refuses weighted
+    prediction off the grid (112x72, and with IntraPeriod 4) and in
+    random access, and WeightedPredB anywhere, naming each; a no-fetch
+    run without the native decision walk raises."""
     admitted = [anchor_cfg(extra=["--FmeMode=dctif"]),
                 anchor_cfg(extra=["--WeightedPredP=1"]),
                 anchor_cfg(extra=["--WeightedPredP=1", "--FmeMode=dctif"]),
@@ -360,13 +361,14 @@ def test_check_slice_admits_on_the_grid_only(monkeypatch):
     for cfg in admitted:
         check_slice(cfg)
         assert tig.supports(cfg)
+    for cfg in (anchor_cfg(w=112, h=72, extra=["--FmeMode=dctif"]),
+                anchor_cfg(RA_CFG, extra=["--FmeMode=dctif"])):
+        check_slice(cfg)
     refused = {
-        "FmeMode dctif at 112x72": anchor_cfg(w=112, h=72,
-                                              extra=["--FmeMode=dctif"]),
         "weighted prediction at 112x72": anchor_cfg(
             w=112, h=72, extra=["--WeightedPredP=1"]),
-        "FmeMode dctif in random access": anchor_cfg(
-            RA_CFG, extra=["--FmeMode=dctif"]),
+        "weighted prediction off the grid": anchor_cfg(
+            extra=["--WeightedPredP=1", "--IntraPeriod=4"]),
         "weighted prediction in random access": anchor_cfg(
             RA_CFG, extra=["--WeightedPredP=1"]),
         "WeightedPredB": anchor_cfg(extra=["--WeightedPredB=1"]),

@@ -9,7 +9,9 @@ against tpuhevc's (JAX on the CPU) at 112x72, QP 32:
   pictures byte-identical to `tpuhevc.codec.encoder.encode_sequence` with
   inter_backend "jax", decoded with every hash OK, also with tpuhevc's
   host tools after the decision (SBH, deblocking, SAO) on;
-- the all-intra path imports no jax and refuses what is outside it.
+- the all-intra path imports no jax and refuses what is outside it;
+  rate control, admitted since the per-picture P path, encodes and
+  decodes with every hash OK.
 
 Each JAX variant is compiled once per module (its `_build` is cached per
 configuration, and the streams reuse the maps tests' variants).
@@ -32,6 +34,7 @@ from tpuhevc.codec.decoder import decode_stream
 from tpuhevc.codec.recon import _pad_to
 from tpuhevc.config import options as jax_options
 from tpuhevc_torch.codec import params as port_params
+from tpuhevc_torch.codec.decoder import decode_stream as port_decode
 from tpuhevc_torch.codec.encoder import encode_sequence
 from tpuhevc_torch.config import options as port_options
 from tpuhevc_torch.codec.intra_decide import decide_intra_qt
@@ -169,10 +172,19 @@ OUTSIDE = {  # name: (cfg-file options, EncoderConfig fields)
 }
 
 
+ADMITTED = {"rate_control"}  # the picture's QP from the R-lambda model
+
+
 @pytest.mark.parametrize("name", sorted(OUTSIDE))
 def test_all_intra_outside_slice_raises(frames, name):
     extra, fields = OUTSIDE[name]
     cfg = dataclasses.replace(intra_cfg(W, H, 2, *extra), **fields)
+    if name in ADMITTED:
+        enc, _ = encode_sequence(Reader(frames), cfg, device="cpu")
+        for decode in (decode_stream, port_decode):
+            decoded = decode(enc.bitstream())
+            assert len(decoded) == 2 and all(f.md5_ok for f in decoded), name
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         encode_sequence(Reader(frames), cfg, device="cpu")
 

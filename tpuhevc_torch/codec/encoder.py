@@ -19,18 +19,30 @@ overlapped with the device work of chunk i: the grid step
 the anchor cfg runs as shipped, with RDOQ, sign hiding, deblocking and
 SAO on the device, and with DCT-IF FME, explicit weighted prediction, or
 the checksum hash without the recon fetch where the cfg asks for them),
-the non-grid scan (`codec/inter_batch.py`) elsewhere. Twin of
+the non-grid scan (`codec/inter_batch.py`) elsewhere, with RDOQ, sign
+hiding, deblocking, SAO and DCT-IF off. Twin of
 `tpuhevc/codec/encoder.py:737-942` (`LdpScanDriver`,
 `_ldp_scan_pipelined`) and of the LD-P branch of its `encode_sequence`.
 
-Random access (a cfg GOP table of B pictures): the IDR the same way,
-every B picture through the device B step (`codec/inter_b.py`), and the
-P pictures after the last whole GOP through the per-frame device stage
-(`codec/inter_enc.py`), driven in decode order by `_gop_table_driven`,
-the twin of `tpuhevc/codec/encoder.py:606-682`.
+Every other LD-P configuration (those tools at a size the grid does not
+take, IntraPeriod N, rate control) goes picture by picture, as the
+reference's loop does: I pictures as above, P pictures through
+`inter_enc.encode_frame_p` (the device stage with the tools off, the host
+tool stage with RDOQ, sign hiding or DCT-IF on or a per-CTU QP map),
+then the host's deblocking and SAO. Rate control (`_rate_controlled`,
+`codec/ratectrl.py`) sets each picture's QP and lambda, and at CTU level
+a QP map that cu_qp_delta signals.
 
-`Encoder`, `FrameResult` and `_load_nn_params` are the port's copies of
-the reference's host code (`encoder.py:27-490,945-962`).
+Random access: the IDR the same way, every B picture through the device
+B step (`codec/inter_b.py`, which hides signs where SignHideFlag is on),
+and the P pictures through `encode_frame_p`, driven in decode order by
+`_gop_table_driven` (a cfg GOP table of B pictures, the twin of
+`tpuhevc/codec/encoder.py:606-682`) or by `_ra_gop4` (no table, 685-734);
+deblocking and SAO on the host after each picture.
+
+`Encoder`, `FrameResult`, `_rate_controlled`, `_ra_gop4` and
+`_load_nn_params` are the port's copies of the reference's host code
+(`encoder.py:27-490,564-603,685-734,945-962`).
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ from ..entropy import bitio, headers, sei
 from ..entropy.cabac import CabacEncoder, ContextSet
 from ..entropy.headers import ShortTermRPS
 from ..entropy.native import encode_slice_data_native, get_lib
-from ..entropy.syntax import encode_slice_data
+from ..entropy.syntax import effective_qp_ctu, encode_slice_data
 from ..ops.deblock import deblock_frame
 from ..utils.yuv import picture_checksum, picture_crc, picture_md5, psnr
 from . import inter_grid
@@ -59,6 +71,7 @@ from .intra_frame import encode_frame_intra_device, encode_frames_intra_batch
 from .intra_qt import encode_frame_intra_qt
 from .params import (B_SLICE, I_SLICE, P_SLICE, EncoderConfig,
                      i_frame_lambda, p_frame_lambda)
+from .ratectrl import CtuAlloc, RateControl
 from .recon import _pad_to, encode_frame_intra
 from .sao_enc import apply_sao_picture, decide_sao_params
 from .wp import WpParams, analyse_slice_wp
@@ -84,8 +97,8 @@ class Encoder:
     kernel on `device` (the reference's `encode_frame_intra_jax`) where
     sign hiding is off and the host's closed loop where it is on (the
     reference's choice at its `encoder.py:62-71`); P pictures without a
-    precomputed result through the per-frame device stage
-    (`inter_enc.encode_frame_p`)."""
+    precomputed result through `inter_enc.encode_frame_p` (the per-frame
+    device stage, or the host tool stage)."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         self.cfg = cfg
@@ -106,6 +119,8 @@ class Encoder:
             self._frame_encoder = encode_frame_intra
         self.dpb_recon = None  # previous frame recon (single-ref LD-P)
         self._nn_cache: dict = {}
+        # rate control's picture QP and lambda (`_rate_controlled`)
+        self._rc_qp = self._rc_lambda = None
         # end-of-slice context states of the last P slice per QP: the
         # grid step's adaptive bit-estimator feedback
         self.ctx_feedback: dict = {}
@@ -120,10 +135,15 @@ class Encoder:
             self._sps_rps = []
 
     def _slice_type(self, poc: int) -> int:
-        return I_SLICE if poc == 0 or self.cfg.intra_period == 1 else P_SLICE
+        ip = self.cfg.intra_period
+        if poc == 0 or ip == 1 or (ip > 0 and poc % ip == 0):
+            return I_SLICE
+        return P_SLICE
 
     def frame_qp(self, poc: int) -> int:
         cfg = self.cfg
+        if self._rc_qp is not None:
+            return self._rc_qp  # rate control owns the picture QP
         if self._slice_type(poc) == I_SLICE or not cfg.gop_qp_offsets:
             return cfg.qp
         off = cfg.gop_qp_offsets[(poc - 1) % len(cfg.gop_qp_offsets)]
@@ -182,18 +202,31 @@ class Encoder:
             # stats: the recon stayed on the device
             ry, ru, rv = rec if stats is None else (None, None, None)
         elif stype == I_SLICE:
-            fs, (ry, ru, rv) = self._frame_encoder(y, u, v, cfg)
+            # rate control may override the picture QP (frame_qp), so the
+            # analysis must run at fqp, not the base cfg QP
+            cfg_i = dataclasses.replace(cfg, qp=fqp) if fqp != cfg.qp else cfg
+            fs, (ry, ru, rv) = self._frame_encoder(y, u, v, cfg_i)
         else:
             G = max(1, len(cfg.gop_qp_offsets))
-            lam_f = p_frame_lambda(cfg, (poc - 1) % G, fqp)
+            lam_f = (self._rc_lambda
+                     or p_frame_lambda(cfg, (poc - 1) % G, fqp))
             cfg_f = dataclasses.replace(cfg, qp=fqp, frame_lambda=lam_f)
             fs, (ry, ru, rv) = encode_frame_p(
                 (y, u, v), self.dpb_recon, cfg_f, self._nn_for_qp(fqp),
                 device=self.device)
+            if cfg_f.ctu_qp_map is not None:
+                # CTU-level RC: signal the map via cu_qp_delta. CTUs
+                # with no coded residual can't carry the delta — resolve
+                # to the QPs the stream will actually convey so deblock
+                # matches the decoder (effective_qp_ctu docstring).
+                fs.qp_ctu = effective_qp_ctu(
+                    fs, np.asarray(cfg_f.ctu_qp_map, np.int32), fqp,
+                    sps.ctu_size, wpp=pps.entropy_coding_sync)
 
-        # deblocking and SAO on the host, but for the grid's P pictures,
-        # which the device filtered (an all-off SAO decision included:
-        # the reference decides SAO again on the host there, and then its
+        # deblocking and SAO on the host (I pictures, B pictures and the
+        # per-picture P pictures), but for the grid's P pictures, which
+        # the device filtered (an all-off SAO decision included: the
+        # reference decides SAO again on the host there, and then its
         # device references are not the decoder's)
         pre_f = getattr(fs, "prefiltered", False)
         if cfg.deblocking and not pre_f:
@@ -205,9 +238,15 @@ class Encoder:
             org = (_pad_to(np.asarray(y), h_, w_),
                    _pad_to(np.asarray(u), h_ // 2, w_ // 2),
                    _pad_to(np.asarray(v), h_ // 2, w_ // 2))
+            if self._rc_lambda:
+                lam_s = self._rc_lambda
+            elif stype == I_SLICE:
+                lam_s = i_frame_lambda(cfg, fqp)
+            else:
+                G = max(1, len(cfg.gop_qp_offsets))
+                lam_s = p_frame_lambda(cfg, (poc - 1) % G, fqp)
             fs.sao = decide_sao_params(org, (ry, ru, rv), sps.ctu_size,
-                                       fqp, sps.bit_depth,
-                                       lam=i_frame_lambda(cfg, fqp))
+                                       fqp, sps.bit_depth, lam=lam_s)
             ry, ru, rv = apply_sao_picture((ry, ru, rv), fs.sao,
                                            sps.ctu_size, sps.bit_depth)
 
@@ -336,17 +375,16 @@ class Encoder:
 def check_slice(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for any configuration outside the ported
     slices: all-intra (IntraPeriod 1) with the host tools after the
-    decision; LD-P with NN-FME or integer-pel, where RDOQ, sign hiding,
-    deblocking, SAO, DCT-IF FME and explicit weighted prediction may be on
-    at coded sizes in whole 16x16 blocks (the grid step; elsewhere the
-    non-grid scan, which has none of them); random access driven by a GOP
-    table of B pictures, with NN-FME or integer-pel, those six tools off
-    and a coded size in whole 16x16 blocks; all 8-bit, quadtree or fixed
-    8x8 intra (all-intra pictures and the IDR alike), one slice, no
-    weighted bi-prediction."""
+    decision; LD-P with NN-FME, integer-pel or DCT-IF FME, RDOQ, sign
+    hiding, deblocking and SAO at any coded size (the grid step where the
+    size is whole 16x16 blocks, else the per-picture P path with the host
+    tool stage), IntraPeriod N and rate control (picture or CTU level);
+    explicit weighted prediction on the grid only; random access with or
+    without a GOP table of B pictures, with those tools, at coded sizes in
+    whole 16x16 blocks; all 8-bit, quadtree or fixed 8x8 intra (all-intra
+    pictures and the IDR alike), one slice, no weighted bi-prediction."""
     sps, pps = cfg.sps, cfg.pps
     off = [
-        (cfg.target_bitrate > 0, "rate control"),
         (sps.bit_depth != 8, f"bit depth {sps.bit_depth}"),
         (sps.scaling_list_enabled, "scaling lists"),
         (cfg.adaptive_qp, "adaptive QP"),
@@ -356,30 +394,37 @@ def check_slice(cfg: EncoderConfig) -> None:
     ]
     if cfg.intra_period != 1:  # LD-P or random access
         ra = cfg.gop_structure == "ra"
-        tools = ra or not inter_grid.supports(cfg)
         where = (" in random access" if ra else
                  f" at {sps.coded_width}x{sps.coded_height} (not whole "
-                 "16x16 blocks)")
+                 "16x16 blocks)" if not inter_grid.supports(cfg) else
+                 " off the grid (IntraPeriod N or rate control)")
         off += [
-            (tools and cfg.rdoq, "RDOQ" + where),
-            (tools and pps.sign_data_hiding, "sign-bit hiding" + where),
-            (tools and cfg.deblocking, "deblocking" + where),
-            (tools and sps.sao_enabled, "SAO" + where),
-            (tools and cfg.fme_mode == "dctif", "FmeMode dctif" + where),
-            (tools and pps.weighted_pred, "weighted prediction" + where),
+            (not (_takes_scan(cfg) and inter_grid.supports(cfg))
+             and pps.weighted_pred,
+             "weighted prediction" + where),
             (cfg.fme_mode not in ("nn", "none", "dctif"),
              f"FmeMode {cfg.fme_mode}"),
-            (ra and not cfg.gop_table, "random access without a GOP table"),
             (not ra and bool(cfg.gop_table), "a GOP table of P pictures"),
             (ra and (sps.coded_width % 16 or sps.coded_height % 16),
              f"random access at {sps.coded_width}x{sps.coded_height} "
              "(not whole 16x16 blocks)"),
-            (cfg.intra_period != -1, f"IntraPeriod {cfg.intra_period}"),
             (pps.weighted_bipred, "weighted bi-prediction (WeightedPredB)"),
         ]
     bad = [name for cond, name in off if cond]
     if bad:
         raise NotImplementedError("not yet ported: " + ", ".join(bad))
+
+
+def _takes_scan(cfg: EncoderConfig) -> bool:
+    """LD-P through the chunked device scan (the reference's test at its
+    `encoder.py:536-550`): IntraPeriod -1, no rate control, and the tools
+    off or the grid; every other LD-P configuration takes the
+    per-picture loop."""
+    tools = (cfg.pps.sign_data_hiding or cfg.rdoq or cfg.deblocking
+             or cfg.sps.sao_enabled or cfg.fme_mode == "dctif")
+    return (cfg.gop_structure != "ra" and cfg.intra_period == -1
+            and cfg.target_bitrate <= 0
+            and (not tools or inter_grid.supports(cfg)))
 
 
 class LdpScanDriver:
@@ -571,12 +616,15 @@ def _ldp_scan_pipelined(enc, cfg, frames, finish, device) -> None:
 def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
                     device="cuda", device_batch: int = 0):
     """Encode frames read from `reader` (read_frame(i) -> (y, u, v) or
-    None): every picture intra with IntraPeriod 1; with a GOP table of B
-    pictures, random access (IDR, hierarchical B pictures in decode order,
-    P pictures after the last whole GOP); else one IDR followed by P
-    pictures. Returns (Encoder, recons), as
-    `tpuhevc.codec.encoder.encode_sequence` does. `device` is explicit: a
-    CUDA device that is absent raises, it never falls back to the CPU.
+    None): every picture intra with IntraPeriod 1; with a target bitrate,
+    rate control over the per-picture loop; random access with a GOP
+    table of B pictures (`_gop_table_driven`) or without one (`_ra_gop4`);
+    LD-P with IntraPeriod -1 through the chunked device scan where the
+    reference takes it (`_takes_scan`); else picture by picture (the P
+    pictures through `inter_enc.encode_frame_p`). Returns (Encoder,
+    recons), as `tpuhevc.codec.encoder.encode_sequence` does. `device` is
+    explicit: a CUDA device that is absent raises, it never falls back to
+    the CPU.
 
     device_batch > 0, with IntraPeriod 1 and fixed 8x8 intra: batches of
     that many pictures, each coded in one kernel launch and fetched in one
@@ -607,9 +655,14 @@ def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
             for j, (fs, rec) in enumerate(
                     encode_frames_intra_batch(chunk, cfg, dev)):
                 _finish(s + j, chunk[j], (fs, rec, None))
+    elif cfg.target_bitrate > 0:
+        _rate_controlled(enc, cfg, frames, _finish)
     elif cfg.gop_structure == "ra" and len(frames) > 1:
-        _gop_table_driven(enc, cfg, frames, _finish)
-    elif cfg.intra_period == -1 and len(frames) > 1:
+        if cfg.gop_table:
+            _gop_table_driven(enc, cfg, frames, _finish)
+        else:
+            _ra_gop4(enc, cfg, frames, _finish)
+    elif _takes_scan(cfg) and len(frames) > 1:
         # TMVP rides the grid's native collocated walk: granted in the
         # SPS there, as the reference does (its encoder.py:541-550)
         if cfg.tmvp and inter_grid.supports(cfg):
@@ -619,6 +672,45 @@ def encode_sequence(reader, cfg: EncoderConfig, max_frames: int | None = None,
         for i, fr in enumerate(frames):
             _finish(i, fr)
     return enc, recons
+
+
+def _rate_controlled(enc, cfg, frames, finish):
+    """Picture-level R-lambda rate control (RateControl=1): QP per frame
+    from the model, model updated with actual bits (TEncRateCtrl
+    counterpart; SURVEY.md §2.2). Rides the regular coding structure —
+    the anchor's multi-ref LD-P GOP included — via the encoder's
+    _rc_qp/_rc_lambda overrides instead of forcing IPPP, matching
+    TEncGOP.cpp:1821-1831 (RC supplies QP+lambda, the GOP machinery
+    supplies structure). With cfg.rc_ctu (LCULevelRC) the picture target
+    is further distributed over CTUs by activity and the per-CTU QPs
+    ride cu_qp_delta (such a picture takes the host stage)."""
+    sps = cfg.sps
+    rc = RateControl(cfg.target_bitrate, cfg.frame_rate, sps.coded_width,
+                     sps.coded_height, len(cfg.gop_qp_offsets) or 4,
+                     len(frames))
+    alloc = None
+    if cfg.rc_ctu:
+        cfg.pps.cu_qp_delta_enabled = True  # before the PPS is written
+        alloc = CtuAlloc(sps.coded_width, sps.coded_height, sps.ctu_size)
+    for i, fr in enumerate(frames):
+        stype = enc._slice_type(i)
+        qp, lam, target = rc.pick(i, stype == I_SLICE)
+        enc._rc_qp, enc._rc_lambda = qp, lam
+        try:
+            if alloc is not None and stype != I_SLICE:
+                level = rc._pending[0]
+                a, b = rc._model(level)
+                m = alloc.qp_map(target, qp,
+                                 a, b, alloc.weights(fr[0],
+                                                     frames[i - 1][0]))
+                enc.cfg = dataclasses.replace(cfg, ctu_qp_map=m)
+                finish(i, fr)
+                enc.cfg = cfg
+            else:
+                finish(i, fr)
+        finally:
+            enc._rc_qp = enc._rc_lambda = None
+        rc.update(enc.results[-1].bits)
 
 
 def _gop_table_driven(enc, cfg, frames, finish):
@@ -695,6 +787,55 @@ def _gop_table_driven(enc, cfg, frames, finish):
         si = dict(stype=P_SLICE, qp=qp,
                   rps=ShortTermRPS([ref - poc], [1]),
                   num_ref_l0=1, l0_deltas=[poc - ref])
+        finish(poc, frames[poc], None, si)
+        dpb[poc] = enc._recon
+
+
+def _ra_gop4(enc, cfg, frames, finish):
+    """Random-access hierarchical GOP4: decode order [b+4, b+2, b+1, b+3]
+    with one reference per list for B pictures (key pictures are P).
+    Counterpart of TEncGOP::compressGOP's RA traversal (TEncGOP.cpp:1077)
+    with the encoder_randomaccess GOP-table structure collapsed to GOP4."""
+    n = len(frames)
+    cfg.sps.num_reorder_pics = max(cfg.sps.num_reorder_pics, 2)
+    dpb: dict = {}
+
+    def enc_b(poc, qp_off, l0_poc, l1_poc, rps_deltas, rps_used):
+        qp = min(max(cfg.qp + qp_off, 0), 51)
+        fs, recon = encode_frame_b(
+            frames[poc], dpb[l0_poc], dpb[l1_poc], cfg, qp,
+            [l0_poc], [l1_poc], poc, enc._nn_for_qp(qp), device=enc.device)
+        si = dict(stype=B_SLICE, qp=qp,
+                  rps=ShortTermRPS(rps_deltas, rps_used),
+                  num_ref_l0=1, num_ref_l1=1,
+                  l0_deltas=[poc - l0_poc], l1_deltas=[poc - l1_poc])
+        finish(poc, frames[poc], (fs, recon, None), si)
+        dpb[poc] = enc._recon
+
+    finish(0, frames[0])
+    dpb[0] = enc._recon
+    base = 0
+    while base + 4 < n:
+        b = base
+        # key picture: P referencing the previous key
+        qp = min(max(cfg.qp + 1, 0), 51)
+        enc.dpb_recon = dpb[b]
+        si = dict(stype=P_SLICE, qp=qp, rps=ShortTermRPS([-4], [1]),
+                  num_ref_l0=1, l0_deltas=[4])
+        finish(b + 4, frames[b + 4], None, si)
+        dpb[b + 4] = enc._recon
+        enc_b(b + 2, 2, b, b + 4, [-2, 2], [1, 1])
+        enc_b(b + 1, 3, b, b + 2, [-1, 1, 3], [1, 1, 0])
+        enc_b(b + 3, 3, b + 2, b + 4, [-1, 1], [1, 1])
+        for p in (b, b + 1, b + 2, b + 3):  # no longer referenced
+            dpb.pop(p, None)
+        base += 4
+    # tail: plain LD-P chain from the last key picture
+    for poc in range(base + 1, n):
+        qp = min(max(cfg.qp + 3, 0), 51)
+        enc.dpb_recon = dpb.get(poc - 1, enc._recon)
+        si = dict(stype=P_SLICE, qp=qp, rps=ShortTermRPS([-1], [1]),
+                  num_ref_l0=1, l0_deltas=[1])
         finish(poc, frames[poc], None, si)
         dpb[poc] = enc._recon
 

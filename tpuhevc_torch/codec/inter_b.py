@@ -7,7 +7,8 @@ NN-FME (K2, both lists in one launch), then the two lists' predictions,
 their bi-average and the uni/bi arbitration (`b_pred_yuv`: luma decides
 `inter_dir`, chroma follows it; the three planes in one launch), and the
 table-RDOQ coding with the skip/code drop (`b_txq_planes`: luma and both
-chroma planes in one launch).
+chroma planes in one launch; with SignHideFlag on, sign-bit hiding after
+the RDOQ, which the reference's step omits while its writer hides a sign).
 
 The host half is the port's numpy copy of the reference's (`_grid16`,
 the decode-order merge/skip/AMVP walk `assemble_frame_b`, and the
@@ -53,12 +54,15 @@ def build_b_step(cfg: EncoderConfig, qp: int, nn_params, device):
     the device) -> (mvq0, mvq1, inter_dir, lvl_y, rec_y, lvl_u, rec_u,
     lvl_v, rec_v), the blocks (N, 16, 16) / (N, 8, 8) in raster order.
     The lambdas come from the configuration's base QP (`_full_lambda_fp`
-    of `cfg` as given), as in the reference."""
+    of `cfg` as given), as in the reference; the levels are sign-hidden
+    where the PPS's SignHideFlag is on."""
     dev = resolve(device)
     sps = cfg.sps
     w, h, bd = sps.coded_width, sps.coded_height, sps.bit_depth
     sr = max(4, min(cfg.search_range, 16))
-    key = (w, h, bd, qp, sr, id(nn_params) if nn_params else None, str(dev))
+    sbh = cfg.pps.sign_data_hiding
+    key = (w, h, bd, qp, sr, sbh, id(nn_params) if nn_params else None,
+           str(dev))
     hit = _B_STEP_CACHE.get(key)
     if hit is not None and hit[1] is nn_params:
         return hit[0]
@@ -96,7 +100,7 @@ def build_b_step(cfg: EncoderConfig, qp: int, nn_params, device):
             lam_full)
         (lvl_y, rec_y), (lvl_u, rec_u), (lvl_v, rec_v) = b_txq_planes(
             [(cur, pred_y, qp, est_y), (tile(ou, 8), pred_u, qpc, est_c),
-             (tile(ov, 8), pred_v, qpc, est_c)], lam_full)
+             (tile(ov, 8), pred_v, qpc, est_c)], lam_full, sbh=sbh)
         return (mvq0, mvq1, inter_dir, lvl_y, rec_y, lvl_u, rec_u, lvl_v,
                 rec_v)
 

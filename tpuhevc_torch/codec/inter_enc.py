@@ -17,6 +17,15 @@ The host half is the port's numpy copy of the reference's (`_cu_grid`,
 `_grid_hier`, `_choose32`, `_build_per_cu`, `_stage_collect`,
 `_merge_static_cus`, the decision walk `assemble_frame_p`, and the
 decoder's `reconstruct_frame_p`).
+
+The host stage `_compute_stage_np` is the port's numpy copy of the
+reference's (`inter_enc.py:70-400`: `_bits_est_np`, `_np_me`, `_per_qp`,
+the numpy branch of `_class_pipeline` and `_np_backend`): the same CU
+classes with the host tools, DCT-IF refinement, RDOQ, sign-bit hiding
+and per-CTU QPs. `encode_frame_p` takes it where the reference does, for
+a picture with DCT-IF, sign hiding or RDOQ on, and for a picture with a
+`ctu_qp_map` (the reference's `inter_backend="np"`, the route whose
+stream signals the map it quantised with).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 
 from ..device import resolve
 from ..models.nnfme import NNFME
+from ..ops import me as me_ops
 from ..ops import transforms as tx
 from ..ops.me import bits_table
 from ..ops.interp import mc_np
@@ -47,6 +57,16 @@ def _cu_grid(w: int, h: int):
             else:
                 pos8.append((x0, y0))
     return pos16, pos8
+
+
+def _bits_est_np(lvl):
+    """Integer residual-bit proxy: sum over nonzero coeffs of
+    2*bit_length(|l|) + 1 (exactly reproducible on device)."""
+    a = np.abs(lvl.reshape(lvl.shape[0], -1))
+    bl = np.zeros_like(a)
+    for k in range(15):
+        bl += (a > (1 << k) - 1).astype(a.dtype)  # a >= 2^k
+    return (2 * bl + (a > 0)).sum(axis=1).astype(np.int64)
 
 
 def _full_lambda_fp(cfg) -> int:
@@ -85,6 +105,197 @@ def _choose32(c32, c16, lam):
     cost16 = (d16 + ((lam * (b16 + _OVH_BITS)) >> 8)).sum(axis=1)
     cost32 = c32["d"] + ((lam * (c32["bits"] + _OVH_BITS)) >> 8)
     return cost32 <= cost16
+
+
+def _np_me(ref, cur, xs, ys, sr, lambda_fp):
+    mv, sad_map, best = me_ops.integer_me_np(ref, cur, xs, ys, sr, lambda_fp)
+    return mv, me_ops.sad_surface_np(sad_map, best)
+
+
+def _per_qp(op, arr, qpv, *rest):
+    """Apply op(batch, qp, *rest) grouped by distinct per-block QP values
+    (cu_qp_delta streams: blocks of one CTU share a QP, QPs vary across
+    CTUs within the clip window, so the group count stays tiny)."""
+    out = None
+    for v in np.unique(qpv):
+        m = qpv == v
+        r = op(arr[m], int(v), *rest)
+        if out is None:
+            out = np.empty((len(qpv),) + r.shape[1:], r.dtype)
+        out[m] = r
+    return out
+
+
+def _sbh(lvl, coef, log2, bd, qp, qpv):
+    """Sign-bit hiding of the levels against the ideal levels of coef, at
+    one QP or at the per-block QPs qpv."""
+    from ..entropy.residual import SCAN_DIAG, apply_sign_bit_hiding
+
+    ideal = (tx.ideal_levels_np(coef, qp, log2, bd) if qpv is None else
+             _per_qp(lambda a, q: tx.ideal_levels_np(a, q, log2, bd),
+                     np.asarray(coef), qpv))
+    return apply_sign_bit_hiding(lvl, log2, SCAN_DIAG, ideal)
+
+
+def _class_pipeline_np(cfg, orig, ref, size, xs_np, ys_np, nn_params,
+                       lambda_fp):
+    """ME + FME + MC + transform/quant + skip-bias for one CU-size class
+    on the host: the numpy branch of the reference's `_class_pipeline`
+    (DCT-IF refinement, NN offset, RDOQ, sign-bit hiding, per-block QP
+    groups of a `ctu_qp_map`). Returns dict of batched arrays."""
+    sps, qp = cfg.sps, cfg.qp
+    bd = sps.bit_depth
+    qpc = chroma_qp(qp)
+    qp_map = cfg.ctu_qp_map
+    qpv = qpcv = None
+    if qp_map is not None:
+        l2c = sps.log2_ctu
+        qp_map = np.asarray(qp_map)
+        qpv = qp_map[np.asarray(ys_np) >> l2c,
+                     np.asarray(xs_np) >> l2c].astype(np.int32)
+        qpcv = np.array([chroma_qp(int(v)) for v in qpv], np.int32)
+    sr = min(cfg.search_range, 16)
+    lam = _full_lambda_fp(cfg)
+    oy, ou, ov = orig
+    ry, ru, rv = ref
+    n = len(xs_np)
+    xs = np.asarray(xs_np)
+    ys = np.asarray(ys_np)
+    sbh = cfg.pps.sign_data_hiding
+    cur = np.stack([oy[int(y) : int(y) + size, int(x) : int(x) + size]
+                    for x, y in zip(xs_np, ys_np)])
+    mv_int, sad9 = _np_me(ry, cur, xs, ys, sr, lambda_fp)
+    mvq = mv_int * 4
+    if cfg.fme_mode == "dctif":
+        mvq = me_ops.fracdif_refine_np(ry, cur, xs_np, ys_np, mv_int,
+                                       lambda_fp, bd)
+    if nn_params is not None and cfg.fme_mode == "nn":
+        from ..models import nnfme
+
+        # the reference's `_np_backend.nn_np` is this forward, its
+        # categories resolved first
+        logits = nnfme.forward_np(nn_params, sad9, np.full(n, size),
+                                  np.full(n, size))
+        off = nnfme.CLASS_TO_QMV[np.argmax(logits, axis=-1)]
+        mvq = mvq + off.astype(np.int32)
+    pred = mc_np(ry, xs, ys, mvq, size, True, bd)
+    log2 = size.bit_length() - 1
+    coef = tx.forward_transform_np(cur.astype(np.int32) - pred, bd)
+    if qpv is not None:
+        if cfg.rdoq:
+            lvl = _per_qp(lambda a, q: tx.rdoq_np(a, q, log2, bd, lam),
+                          coef, qpv)
+        else:
+            lvl = _per_qp(lambda a, q: tx.quantize_np(a, q, log2, bd, False),
+                          coef, qpv)
+        if sbh:
+            lvl = _sbh(lvl, coef, log2, bd, qp, qpv)
+        rsd = tx.inverse_transform_np(
+            _per_qp(lambda a, q: tx.dequantize_np(a, q, log2, bd), lvl, qpv),
+            bd)
+    else:
+        if cfg.rdoq:
+            lvl = tx.rdoq_np(coef, qp, log2, bd, lam)
+        else:
+            lvl = tx.quantize_np(coef, qp, log2, bd, False)
+        if sbh:
+            lvl = _sbh(lvl, coef, log2, bd, qp, None)
+        rsd = tx.inverse_transform_np(tx.dequantize_np(lvl, qp, log2, bd), bd)
+    rec = np.clip(pred + rsd, 0, (1 << bd) - 1)
+    nz = (lvl != 0).reshape(n, -1).any(axis=1)
+    rec = np.where(nz[:, None, None], rec, pred)
+    d_skip = ((cur.astype(np.int32) - pred) ** 2).reshape(n, -1).astype(np.int64).sum(axis=1)
+    d_coded = ((cur.astype(np.int32) - rec) ** 2).reshape(n, -1).astype(np.int64).sum(axis=1)
+    # int32-safe: shift the lambda side instead of scaling distortion
+    drop = (d_skip - d_coded) <= (lam * _bits_est_np(lvl).astype(np.int64)) >> 8
+    lvl = np.where(drop[:, None, None], 0, lvl)
+    rec = np.where(drop[:, None, None], pred, rec)
+    d_total = np.where(drop, d_skip, d_coded)
+    bits_total = _bits_est_np(lvl).astype(np.int64)
+
+    out = dict(mvq=mvq, sad9=sad9, mv_int=mv_int, lvl=lvl, rec=rec)
+    cs = size // 2
+    clog2 = cs.bit_length() - 1
+    cxs, cys = xs // 2, ys // 2
+    for tag, plane, refp in (("u", ou, ru), ("v", ov, rv)):
+        cur_c = np.stack([
+            plane[int(y) // 2 : int(y) // 2 + cs, int(x) // 2 : int(x) // 2 + cs]
+            for x, y in zip(xs_np, ys_np)])
+        pred_c = mc_np(refp, cxs, cys, mvq, cs, False, bd)
+        cc = tx.forward_transform_np(cur_c.astype(np.int32) - pred_c, bd)
+        if qpcv is not None:
+            if cfg.rdoq:
+                clvl = _per_qp(lambda a, q: tx.rdoq_np(a, q, clog2, bd, lam),
+                               cc, qpcv)
+            else:
+                clvl = _per_qp(
+                    lambda a, q: tx.quantize_np(a, q, clog2, bd, False),
+                    cc, qpcv)
+        elif cfg.rdoq:
+            clvl = tx.rdoq_np(cc, qpc, clog2, bd, lam)
+        else:
+            clvl = tx.quantize_np(cc, qpc, clog2, bd, False)
+        if sbh:
+            clvl = _sbh(clvl, cc, clog2, bd, qpc, qpcv)
+        crs = tx.inverse_transform_np(
+            (tx.dequantize_np(clvl, qpc, clog2, bd) if qpcv is None
+             else _per_qp(lambda a, q: tx.dequantize_np(a, q, clog2, bd),
+                          clvl, qpcv)), bd)
+        crec = np.clip(pred_c + crs, 0, (1 << bd) - 1)
+        cnz = (clvl != 0).reshape(n, -1).any(axis=1)
+        crec = np.where(cnz[:, None, None], crec, pred_c)
+        dc_s = ((cur_c.astype(np.int32) - pred_c) ** 2).reshape(n, -1).astype(np.int64).sum(axis=1)
+        dc_c = ((cur_c.astype(np.int32) - crec) ** 2).reshape(n, -1).astype(np.int64).sum(axis=1)
+        cdrop = (dc_s - dc_c) <= (lam * _bits_est_np(clvl).astype(np.int64)) >> 8
+        clvl = np.where(cdrop[:, None, None], 0, clvl)
+        crec = np.where(cdrop[:, None, None], pred_c, crec)
+        d_total = d_total + np.where(cdrop, dc_s, dc_c)
+        bits_total = bits_total + _bits_est_np(clvl).astype(np.int64)
+        out["lvl_" + tag] = clvl
+        out["rec_" + tag] = crec
+    out["d"] = d_total
+    out["bits"] = bits_total
+    return out
+
+
+def _compute_stage_np(cfg, orig, ref, nn_params, lambda_fp):
+    """Host stage (hierarchical 32/16 + borders): `_class_pipeline_np`
+    over the CU classes, the 32-vs-16 choice, the per-CU dict."""
+    sps = cfg.sps
+    w, h = sps.coded_width, sps.coded_height
+    grids = _grid_hier(w, h)
+    pos32, sub16, pos16_free, pos8 = grids
+    orig = tuple(np.asarray(p, dtype=np.int32) for p in orig)
+    ref = tuple(np.asarray(p, dtype=np.int32) for p in ref)
+    arrs = {}
+    use32 = None
+    lam = _full_lambda_fp(cfg)
+
+    def run(poss, size):
+        xs = np.array([p[0] for p in poss])
+        ys = np.array([p[1] for p in poss])
+        out = _class_pipeline_np(cfg, orig, ref, size, xs, ys, nn_params,
+                                 lambda_fp)
+        out["size"] = size
+        return out
+
+    if pos32:
+        arrs["c32"] = run(pos32, 32)
+        arrs["c16"] = run(sub16, 16)
+        use32 = np.asarray(_choose32(arrs["c32"], arrs["c16"], lam))
+    if pos16_free:
+        arrs["cf"] = run(pos16_free, 16)
+    if pos8:
+        arrs["c8"] = run(pos8, 8)
+    return _build_per_cu(cfg, grids, arrs, use32)
+
+
+def host_stage(cfg: EncoderConfig) -> bool:
+    """True where a P picture takes the host stage: DCT-IF, sign hiding or
+    RDOQ on, or a per-CTU QP map (the reference's choice, its
+    `inter_enc.py:570-572`, with `inter_backend="np"` for a map)."""
+    return (cfg.fme_mode == "dctif" or cfg.pps.sign_data_hiding or cfg.rdoq
+            or cfg.ctu_qp_map is not None)
 
 
 def _build_per_cu(cfg, grids, arrs, use32) -> dict:
@@ -214,10 +425,13 @@ def build_stage(cfg: EncoderConfig, nn_params, lambda_fp: int, device):
 def encode_frame_p(orig, ref_recon, cfg: EncoderConfig, nn_params=None,
                    device="cuda"):
     """orig: (y, u, v) arrays; ref_recon: the reference's recon planes.
-    Returns (FrameSyntax, recon): the device stage on `device`, its packed
-    row fetched and walked on the host (`encode_frame_p` with the jax
-    backend; RDOQ, sign hiding and DCT-IF, which send the reference to its
-    host numpy stage, are refused by `encoder.check_slice`)."""
+    Returns (FrameSyntax, recon). The configuration chooses the stage,
+    as the reference does (`encode_frame_p`): with DCT-IF, sign hiding or
+    RDOQ on, or a `ctu_qp_map` set, the host stage `_compute_stage_np`
+    (numpy, `device` unused); otherwise the device stage on `device`, its
+    packed row fetched. The absence of a card never chooses: a picture
+    for the device stage on an absent CUDA device raises. Then the
+    decision walk on the host."""
     sps, qp = cfg.sps, cfg.qp
     w, h = sps.coded_width, sps.coded_height
     oy = _pad_to(np.asarray(orig[0]), h, w)
@@ -225,6 +439,11 @@ def encode_frame_p(orig, ref_recon, cfg: EncoderConfig, nn_params=None,
     ov = _pad_to(np.asarray(orig[2]), h // 2, w // 2)
     lambda_fp = int(round(np.sqrt(cfg.frame_lambda
                                   or qp_to_lambda(qp, 0.4624)) * 256))
+    if host_stage(cfg):
+        ref = tuple(np.asarray(p).astype(np.int32) for p in ref_recon)
+        per_cu = _compute_stage_np(cfg, (oy, ou, ov), ref, nn_params,
+                                   lambda_fp)
+        return assemble_frame_p(cfg, per_cu)
     dev = resolve(device)
     fn, grids = build_stage(cfg, nn_params, lambda_fp, dev)
     buf, _, _, _ = fn(*(torch.from_numpy(np.ascontiguousarray(

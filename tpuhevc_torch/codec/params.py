@@ -152,6 +152,8 @@ class EncoderConfig:
     aq_range: int = 6            # MaxQPAdaptationRange
     tmvp: bool = True            # request TMVP (SPS flag granted when the
                                  # grid path + native col walk carry it)
+    ctu_qp_map: object = None    # per-frame (hctu, wctu) QpY map the host
+                                 # pipelines quantize with (set by RC)
     intra_qt: bool = True        # quadtree intra CUs 8/16/32 (vs fixed 8x8)
     # NxN 4x4 PUs + one-level intra RQT in the I-frame decision. None =
     # auto: on for all-intra encodes, off for the LD-P scan's single

@@ -140,15 +140,17 @@ def encode_slice_data_native(fs, sps, pps, slice_type_row: int, qp: int,
                              ) -> bytes | None:
     """Full slice-data payload (CABAC bytes + rbsp trailing) of an I or P
     slice, or None for a frame whose features the native coder does not
-    cover (I-slice NxN PUs or TU splits, 4x4 TU leaves in P, intra CUs of
-    a P slice other than whole-CU 2Nx2N): the caller then takes the Python
-    coder. slice_type: 2 = I, 1 = P. ctx_out: an int32 buffer of at
+    cover (per-CTU QP deltas, I-slice NxN PUs or TU splits, 4x4 TU leaves
+    in P, intra CUs of a P slice other than whole-CU 2Nx2N): the caller
+    then takes the Python coder. slice_type: 2 = I, 1 = P. ctx_out: an int32 buffer of at
     least 202 entries that receives the end-of-slice context states (the
     grid step's adaptive bit-estimator feedback)."""
     if ctx_out is not None and (ctx_out.dtype != np.int32
                                 or ctx_out.size < 202):
         raise ValueError("ctx_out: needs an int32 buffer of >= 202 states")
     lib = get_lib()
+    if pps.cu_qp_delta_enabled:
+        return None  # per-CTU QP deltas ride the python slice coder
     has_intra_p = (slice_type != 2 and fs.inter_dir is not None
                    and bool((fs.inter_dir == 0).any()))
     part_mode = getattr(fs, "part_mode", None)

@@ -11,11 +11,22 @@
 //   r = cur - pred; c = forward DCT-II (tx_common.cuh);
 //   lvl = the float32 table RDOQ of c (rdoq_common.cuh) with the B-slice
 //         estimator's tables and the full lambda;
+//   with sign-bit hiding (the SBH variant): per 4x4 CG whose first and
+//         last nonzero lie 4 or more apart in the CG's diagonal scan and
+//         whose absolute sum's parity differs from the first level's sign,
+//         one level in that span moves by +-1, at the first least
+//         |new 2^qbits - |c| scale| over the positions in scan order, +1
+//         before -1 at each (-1 not at 0, nor to 0 at the first), a level
+//         that was 0 taking c's sign: tpuhevc's host rule
+//         (entropy/residual.py apply_sign_bit_hiding against
+//         ops/transforms.py ideal_levels_np, whose float64 errors are
+//         exact, so the int64 ones order as they do);
 //   rsd = inverse DCT of the dequantised levels;
 //   rec = clip(pred + rsd, 0, 255) (the reference takes pred where every
 //         level is 0; rsd is then 0 and pred lies in 0..255, so the clip
 //         gives pred: no nz test is needed);
-//   bits = the table bit estimate of lvl (tu_bits_team.cuh, float32);
+//   bits = the table bit estimate of lvl (tu_bits_team.cuh, float32; the
+//          SBH variant counts one sign fewer a hiding CG);
 //   drop = (float)(sse(cur, pred) - sse(cur, rec)) <= lam * bits, the
 //          SSEs int32 as in JAX, the product rounded on its own
 //          (-fmad=false);
@@ -47,7 +58,10 @@
 // the double sums of the reference's port); the SSEs by shuffles
 // (integers). A team inside one warp meets by __syncwarp; the 16x16
 // class's two warps by block barriers, the same steps in every team of
-// the block.
+// the block. Sign hiding is a variant compiled in (a template on SBH): the
+// RDOQ step keeps the coefficients in Y, then one lane a CG hides its sign
+// in shared memory (a TU's 1, 4 or 16 CGs); without SBH the code is the
+// kernel as it was.
 
 #include "rdoq_common.cuh"
 #include "tu_bits_team.cuh"
@@ -65,7 +79,7 @@ struct TxqClass {
     const float* ftab;
     int* lvl;
     int* rec;
-    int n, log2, block0, dqscale, dqshift;
+    int n, log2, block0, dqscale, dqshift, qscale, qbits;
     Rdoq rq;
 };
 
@@ -97,12 +111,75 @@ union BTxqSmem {
 
 __device__ __forceinline__ int clip8(int v) { return min(max(v, 0), 255); }
 
+// scan position -> raster index in a 4x4 diagonal scan
+__constant__ int c_diag4[16] = {0, 4, 1, 8, 5, 2, 12, 9, 6, 3, 13, 10,
+                                7, 14, 11, 15};
+
+// Sign-bit hiding of CG c (raster index in the S x S TU) of the levels L
+// against the coefficients C, by one lane.
+template <int LOG2>
+__device__ __forceinline__ void sbh_cg(int* L, const int* C, int c,
+                                       int qscale, int qbits) {
+    constexpr int S = 1 << LOG2, CGW = S >> 2;
+    const int cy = c / CGW, cx = c - cy * CGW;
+    int idx[16], lv[16];
+    int first = 16, last = -1, asum = 0;
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+        const int r = c_diag4[p];
+        idx[p] = (cy * 4 + (r >> 2)) * S + cx * 4 + (r & 3);
+        lv[p] = L[idx[p]];
+        if (lv[p] != 0) {
+            first = min(first, p);
+            last = p;
+        }
+        asum += abs(lv[p]);
+    }
+    if (last - first < 4) return;
+    int lead = 0;
+#pragma unroll
+    for (int p = 0; p < 16; ++p) lead = p == first ? lv[p] : lead;
+    if ((asum & 1) == (lead < 0 ? 1 : 0)) return;
+    long long best = 0x7fffffffffffffffLL;
+    int bp = 0, bna = 0;
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+        if (p < first || p > last) continue;
+        const int a = abs(lv[p]);
+        const long long ia = (long long)abs(C[idx[p]]) * qscale;
+        const long long eu = llabs(((long long)(a + 1) << qbits) - ia);
+        if (eu < best) {
+            best = eu;
+            bp = p;
+            bna = a + 1;
+        }
+        if (a >= 1 && !(p == first && a == 1)) {
+            const long long ed = llabs(((long long)(a - 1) << qbits) - ia);
+            if (ed < best) {
+                best = ed;
+                bp = p;
+                bna = a - 1;
+            }
+        }
+    }
+    int l0 = 0, e0 = 0;
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+        if (p == bp) {
+            l0 = lv[p];
+            e0 = idx[p];
+        }
+    }
+    const int sgn = l0 != 0 ? (l0 > 0 ? 1 : -1) : (C[e0] >= 0 ? 1 : -1);
+    L[e0] = sgn * bna;
+}
+
 // the 32-point DCT in device memory (the matrix staged from it, 16-byte
 // runs a row, where constant memory would serialise the lanes' reads)
 __device__ int g_t32[32 * 32];
 
 // The blocks of one class: block blk of it codes TUs blk * TUS + slot.
-template <int LOG2>
+template <int LOG2, bool SBH>
 __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
                                         TxqSmem<LOG2>& sm) {
     using L = TuTeam<LOG2>;
@@ -144,10 +221,16 @@ __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
     for (int j = 0; j < CPL; ++j) {  // coefficient i of CG g at c
         const int c = t + TEAM * j, g = c >> 4, i = c & 15;
         const int e = ((g / CGW) * 4 + (i >> 2)) * S + (g % CGW) * 4 + (i & 3);
-        X[e] = rdoq_level_group(X[e], LOG2, rdoq_tabs(e, LOG2, k.ftab), k.rq,
+        const int cf = X[e];
+        if constexpr (SBH) Y[e] = cf;  // the coefficient, for the hiding
+        X[e] = rdoq_level_group(cf, LOG2, rdoq_tabs(e, LOG2, k.ftab), k.rq,
                                 sm.KZ[slot] + 2 * (c & ~15));
     }
     team_sync<TEAM>();
+    if constexpr (SBH) {
+        if (t < CGW * CGW) sbh_cg<LOG2>(X, Y, t, k.qscale, k.qbits);
+        team_sync<TEAM>();
+    }
     const int4 lv = *reinterpret_cast<const int4*>(X + bl.e0);
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
@@ -156,8 +239,8 @@ __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
     }
     // the bit team's first warp in the block: its scratch
     const int w0 = (threadIdx.x >> 5) - bl.wt;
-    const float bits = tu_bits_lanes<S>(bl, lv, k.ftab, sm.map + w0,
-                                        sm.key + w0, sm.acc + w0);
+    const float bits = tu_bits_lanes<S, SBH>(bl, lv, k.ftab, sm.map + w0,
+                                             sm.key + w0, sm.acc + w0);
     team_sync<TEAM>();
     team_inv_cols<LOG2>(Y, X, sm.m, t);
     team_sync<TEAM>();
@@ -191,6 +274,7 @@ __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
     }
 }
 
+template <bool SBH>
 __global__ void __launch_bounds__(kTuBlock)
 b_txq_kernel(const __grid_constant__ TxqJob job) {
     __shared__ BTxqSmem sm;
@@ -199,9 +283,9 @@ b_txq_kernel(const __grid_constant__ TxqJob job) {
     while (k + 1 < job.ncls && b >= job.c[k + 1].block0) ++k;
     const TxqClass& c = job.c[k];
     switch (c.log2) {
-        case 4: txq_tus<4>(c, b - c.block0, sm.s16); break;
-        case 3: txq_tus<3>(c, b - c.block0, sm.s8); break;
-        default: txq_tus<2>(c, b - c.block0, sm.s4); break;
+        case 4: txq_tus<4, SBH>(c, b - c.block0, sm.s16); break;
+        case 3: txq_tus<3, SBH>(c, b - c.block0, sm.s8); break;
+        default: txq_tus<2, SBH>(c, b - c.block0, sm.s4); break;
     }
 }
 
@@ -220,16 +304,19 @@ extern "C" int tpuhevc_b_txq_init(const int* host_t32) {
 }
 
 // ncls classes (1..3) in one launch, in the order given (the caller puts
-// the largest TUs first). Class i: ptrs[6 i ..] = cur, pred (n, S, S)
+// the largest TUs first); sbh != 0 takes the sign-hiding variant. Class i:
+// ptrs[6 i ..] = cur, pred (n, S, S)
 // int32, itab, ftab (its estimator's tables: entropy/bitest.py
 // EstTables), lvl, rec (n, S, S) int32 out, all on the device and 16-byte
-// aligned; ints[4 i ..] = n, log2 (S = 1 << log2 in 4..16), dqscale,
-// dqshift (tpuhevc_torch/ops/transforms.py dequant_params); flts[7 i ..]
+// aligned; ints[6 i ..] = n, log2 (S = 1 << log2 in 4..16), dqscale,
+// dqshift (tpuhevc_torch/ops/transforms.py dequant_params), qscale, qbits
+// (its quant_params: the quantiser's scale and shift); flts[7 i ..]
 // = scale, qdiv, inv_qdiv, inv_den (rdoq_consts), lam (the full lambda),
 // lc0 = lam * csbf[0][0], lc1 = lam * csbf[0][1], rounded to float32.
 // The arrays lie in host memory and go by value into the launch.
-extern "C" int tpuhevc_b_txq(int ncls, void* const* ptrs, const int* ints,
-                             const float* flts, void* stream) {
+extern "C" int tpuhevc_b_txq(int ncls, int sbh, void* const* ptrs,
+                             const int* ints, const float* flts,
+                             void* stream) {
     if (ncls < 1 || ncls > kMaxClasses) return (int)cudaErrorInvalidValue;
     TxqJob job = {};
     job.ncls = ncls;
@@ -242,10 +329,12 @@ extern "C" int tpuhevc_b_txq(int ncls, void* const* ptrs, const int* ints,
         c.ftab = (const float*)ptrs[6 * i + 3];
         c.lvl = (int*)ptrs[6 * i + 4];
         c.rec = (int*)ptrs[6 * i + 5];
-        c.n = ints[4 * i];
-        c.log2 = ints[4 * i + 1];
-        c.dqscale = ints[4 * i + 2];
-        c.dqshift = ints[4 * i + 3];
+        c.n = ints[6 * i];
+        c.log2 = ints[6 * i + 1];
+        c.dqscale = ints[6 * i + 2];
+        c.dqshift = ints[6 * i + 3];
+        c.qscale = ints[6 * i + 4];
+        c.qbits = ints[6 * i + 5];
         const float* f = flts + 7 * i;
         c.rq = {f[0], f[1], f[2], f[3], f[4], f[5], f[6]};
         if (c.n < 1 || c.log2 < 2 || c.log2 > 4)
@@ -254,6 +343,9 @@ extern "C" int tpuhevc_b_txq(int ncls, void* const* ptrs, const int* ints,
         const int tus = tus_a_block(c.log2);
         blocks += (c.n + tus - 1) / tus;
     }
-    b_txq_kernel<<<blocks, kTuBlock, 0, (cudaStream_t)stream>>>(job);
+    if (sbh)
+        b_txq_kernel<true><<<blocks, kTuBlock, 0, (cudaStream_t)stream>>>(job);
+    else
+        b_txq_kernel<false><<<blocks, kTuBlock, 0, (cudaStream_t)stream>>>(job);
     return (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 // the kernels that price levels with it (tu_bits.cu, b_txq.cu).
 //
 // What it computes: tu_bits.cu's estimate (`tpuhevc/entropy/bitest.py:
-// 286-378`, sbh off), as that file's header sets out: the csbf, sig and
+// 286-378`; sbh off, or on in tu_bits_lanes<S, true>: one sign fewer for
+// each CG whose first and last nonzero lie 4 or more apart in its scan),
+// as that file's header sets out: the csbf, sig and
 // gt1/gt2 sums as int32 in units of 2^-15 (exact in any order), each
 // rounded once to float32, then the partial sums added in float32 in the
 // reference's order; the Rice and sign counts in int32.
@@ -109,7 +111,7 @@ __device__ __forceinline__ BitsLane<S> bits_lane(
 // thread of the block (a barrier inside), s_map, s_key and s_acc the
 // team's kWarps entries of shared scratch (unread otherwise). Every lane
 // of the team gets the result.
-template <int S>
+template <int S, bool SBH = false>
 __device__ __forceinline__ float tu_bits_lanes(const BitsLane<S>& L, int4 lv,
                                                const float* __restrict__ ftab,
                                                unsigned* s_map, int* s_key,
@@ -132,6 +134,21 @@ __device__ __forceinline__ float tu_bits_lanes(const BitsLane<S>& L, int4 lv,
         if (a[k] > 0) key = max(key, (L.s[k] << 10) | (L.yx + k));
     }
     int nsign = c & 0xff;
+    // with SBH: the CG's first and last nonzero in-CG scan positions
+    int pmin = 16, pmax = -1;
+    if constexpr (SBH) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if (a[k] > 0) {
+                pmin = min(pmin, L.s[k] & 15);
+                pmax = max(pmax, L.s[k] & 15);
+            }
+        }
+        pmin = min(pmin, __shfl_xor_sync(kAll, pmin, 1));
+        pmin = min(pmin, __shfl_xor_sync(kAll, pmin, 2));
+        pmax = max(pmax, __shfl_xor_sync(kAll, pmax, 1));
+        pmax = max(pmax, __shfl_xor_sync(kAll, pmax, 2));
+    }
     c += __shfl_xor_sync(kAll, c, 1);
     c += __shfl_xor_sync(kAll, c, 2);
     mx = max(mx, __shfl_xor_sync(kAll, mx, 1));
@@ -197,6 +214,7 @@ __device__ __forceinline__ float tu_bits_lanes(const BitsLane<S>& L, int4 lv,
         if (L.cgs > 0 && L.cgs < last_cg) csbf = c_csbf;
         const int bins1 = min(ns, 8), ones1 = min(n1, bins1);
         b12 = c_g11 * ones1 + c_g10 * (bins1 - ones1) + (n1 > 0 ? c_g2 : 0);
+        if (SBH && ns > 0 && pmax - pmin >= 4) nsign -= 1;  // a hidden sign
     }
     csbf = lane_sum<TW>(csbf);
     sig = lane_sum<TW>(sig);

@@ -16,7 +16,13 @@ wraps in int32 as JAX computes it. Outputs lvl, rec (N, S, S) and d, bits
 dequantiser -> inverse DCT -> recon clip; the nz flag; the table bit
 estimate (`entropy.bitest.tu_bits`); the int32 SSEs of the skip and coded
 recons; and the float32 drop `f32(d_skip - d_coded) <= lam_full * bits`.
-Outputs lvl, rec (N, S, S) int32 after the drop.
+Outputs lvl, rec (N, S, S) int32 after the drop. With sbh (SignHideFlag)
+the levels are sign-hidden after the RDOQ (`sbh_levels`: the rule of
+tpuhevc's host stage, `apply_sign_bit_hiding` against
+`ideal_levels_np`, `tpuhevc/codec/inter_enc.py:188-214,252-257`), and the
+bit estimate counts one sign fewer for each hiding CG; tpuhevc's B step
+hides no sign, while its writer omits one, so its streams fail their
+hashes there.
 
 `txq_planes` codes up to 12 planes (a P picture's CU classes, Y, U and V
 each) in one launch, `txq` one plane; `b_txq_planes` up to three (a B
@@ -162,20 +168,87 @@ def txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
     return txq_planes([(cur, pred, qp)], lam_full)[0]
 
 
+# scan position -> raster index in a 4x4 diagonal scan
+_DIAG4 = (0, 4, 1, 8, 5, 2, 12, 9, 6, 3, 13, 10, 7, 14, 11, 15)
+_SBH_INF = 1 << 62
+
+
+def _cg_index(S: int, device) -> torch.Tensor:
+    """(S/4 * S/4, 16) raster indices of each 4x4 CG's levels in diagonal
+    scan order."""
+    cgw = S // 4
+    idx = [((cg // cgw) * 4 + (r >> 2)) * S + (cg % cgw) * 4 + (r & 3)
+           for cg in range(cgw * cgw) for r in _DIAG4]
+    return torch.tensor(idx, dtype=torch.long, device=device).reshape(-1, 16)
+
+
+def sbh_levels(lvl: torch.Tensor, coef: torch.Tensor, qp: int,
+               log2: int) -> torch.Tensor:
+    """Sign-bit hiding of (N, S, S) levels against the coefficients they
+    quantise (8-bit): `entropy.residual.apply_sign_bit_hiding` with the
+    ideal levels `ideal_levels_np(coef, qp, log2, 8)`, exactly. Per 4x4 CG
+    whose first and last nonzero lie 4 or more apart in scan and whose
+    absolute sum's parity differs from the first level's sign, one level
+    in that span moves by +-1: the first least |new - |ideal|| over the
+    positions in scan order, +1 before -1 at each (-1 not at 0, nor to 0
+    at the first); a level that was 0 takes the coefficient's sign. The
+    errors are compared as the integers |new 2^qbits - |coef| scale|,
+    which order as the reference's float64 errors do (those are exact)."""
+    n, S = lvl.shape[0], lvl.shape[-1]
+    if n == 0:
+        return lvl
+    scale, _, qbits = tx.quant_params(qp, log2, 8)
+    idx = _cg_index(S, lvl.device)
+    lv = lvl.reshape(n, -1).long()[:, idx]      # (n, ncg, 16)
+    cf = coef.reshape(n, -1).long()[:, idx]
+    a = lv.abs()
+    nz = a > 0
+    pos = torch.arange(16, device=lvl.device)
+    first = torch.where(nz, pos, 16).amin(dim=-1, keepdim=True)
+    last = torch.where(nz, pos, -1).amax(dim=-1, keepdim=True)
+    lead = torch.gather(lv, -1, first.clamp(max=15))
+    need = (((last - first) >= 4)
+            & ((a.sum(dim=-1, keepdim=True) & 1) != (lead < 0).long()))
+    ia = cf.abs() * scale
+    span = (pos >= first) & (pos <= last)
+    up = a + 1
+    dn = a - 1
+    err_up = torch.where(span, ((up << qbits) - ia).abs(), _SBH_INF)
+    ok_dn = span & (dn >= 0) & ~((pos == first) & (dn == 0))
+    err_dn = torch.where(ok_dn, ((dn << qbits) - ia).abs(), _SBH_INF)
+    # candidates in the reference's order: position by position, +1 first
+    k = torch.argmin(torch.stack([err_up, err_dn], dim=-1).flatten(-2),
+                     dim=-1, keepdim=True)
+    p = k >> 1
+    na = torch.where((k & 1) == 0, torch.gather(up, -1, p),
+                     torch.gather(dn, -1, p))
+    lp = torch.gather(lv, -1, p)
+    sgn = torch.where(lp != 0, torch.sign(lp),
+                      torch.where(torch.gather(cf, -1, p) >= 0, 1, -1))
+    out = lv.scatter(-1, p, torch.where(need, sgn * na, lp))
+    flat = lvl.reshape(n, -1).long().clone()
+    flat[:, idx.reshape(-1)] = out.reshape(n, -1)
+    return flat.reshape(lvl.shape).to(lvl.dtype)
+
+
 def b_txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int,
-                lam_full: float, est):
+                lam_full: float, est, sbh: bool = False):
     """cur, pred (N, S, S) int32 -> (lvl, rec (N, S, S) int32). `est`: the
     TU size's `EstTables`; lam_full a Python float (rounded to float32
-    where it meets a tensor, as JAX's weak type)."""
+    where it meets a tensor, as JAX's weak type); sbh: sign-bit hiding
+    after the RDOQ (`sbh_levels`), one sign fewer a hiding CG in the
+    bits."""
     n = cur.shape[0]
     log2 = cur.shape[-1].bit_length() - 1
-    lvl = tx.rdoq_est(tx.forward_transform(cur - pred), qp, log2, 8,
-                      lam_full, est)
+    coef = tx.forward_transform(cur - pred)
+    lvl = tx.rdoq_est(coef, qp, log2, 8, lam_full, est)
+    if sbh:
+        lvl = sbh_levels(lvl, coef, qp, log2)
     rsd = tx.inverse_transform(tx.dequantize(lvl, qp, log2))
     rec = (pred + rsd).clamp(0, 255)
     nz = (lvl != 0).reshape(n, -1).any(dim=1)
     rec = torch.where(nz[:, None, None], rec, pred)
-    bits = tu_bits_plain(est, lvl)
+    bits = tu_bits_plain(est, lvl, sbh)
     lam = torch.tensor(lam_full, dtype=torch.float32, device=cur.device)
     drop = (_sse(cur, pred) - _sse(cur, rec)).float() <= lam * bits
     lvl = torch.where(drop[:, None, None], torch.zeros_like(lvl), lvl)
@@ -195,21 +268,21 @@ def _init_b_matrix(dev: torch.device) -> None:
     _B_INIT_DEVICES.add(dev.index)
 
 
-def b_txq_planes_plain(planes, lam_full: float):
+def b_txq_planes_plain(planes, lam_full: float, sbh: bool = False):
     """planes: [(cur, pred (N, S, S) int32, qp, est)] -> [(lvl, rec)], each
     plane by `b_txq_plain`."""
-    return [b_txq_plain(cur, pred, qp, lam_full, est)
+    return [b_txq_plain(cur, pred, qp, lam_full, est, sbh)
             for cur, pred, qp, est in planes]
 
 
-def b_txq_planes(planes, lam_full: float):
+def b_txq_planes(planes, lam_full: float, sbh: bool = False):
     """Kernel `b_txq` over up to three planes (a B picture's Y, U and V) in
     one launch; the arguments and results of `b_txq_planes_plain`. CPU
     tensors take the plain version; CUDA tensors the kernel (8-bit, S = 4,
-    8 or 16)."""
+    8 or 16; sign hiding a variant compiled in)."""
     dev = planes[0][0].device
     if dev.type == "cpu":
-        return b_txq_planes_plain(planes, lam_full)
+        return b_txq_planes_plain(planes, lam_full, sbh)
     if dev.type != "cuda":
         raise ValueError(f"b_txq: unsupported device {dev}")
     if not 1 <= len(planes) <= 3:
@@ -248,14 +321,15 @@ def b_txq_planes(planes, lam_full: float):
         rk = tx.rdoq_consts(qp, log2, 8)
         csbf = est.csbf_host
         ptrs += [t_.data_ptr() for t_ in tens]
-        ints += [n, log2, *tx.dequant_params(qp, log2, 8)]
+        qscale, _, qbits = tx.quant_params(qp, log2, 8)
+        ints += [n, log2, *tx.dequant_params(qp, log2, 8), qscale, qbits]
         flts += [float(np.float32(x)) for x in (
             rk["scale"], rk["qdiv"], rk["inv_qdiv"], rk["inv_den"],
             lam_full, lam_full * float(csbf[0, 0]),
             lam_full * float(csbf[0, 1]))]
     fn = kbuild.function("b_txq", "tpuhevc_b_txq",
-                         [kbuild.I] + [kbuild.P] * 4)
-    err = fn(len(classes), (ctypes.c_void_p * len(ptrs))(*ptrs),
+                         [kbuild.I, kbuild.I] + [kbuild.P] * 4)
+    err = fn(len(classes), int(sbh), (ctypes.c_void_p * len(ptrs))(*ptrs),
              (ctypes.c_int * len(ints))(*ints),
              (ctypes.c_float * len(flts))(*flts),
              torch.cuda.current_stream(dev).cuda_stream)
@@ -265,8 +339,8 @@ def b_txq_planes(planes, lam_full: float):
 
 
 def b_txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: float,
-          est):
+          est, sbh: bool = False):
     """Kernel `b_txq` on one plane (the arguments and results of
     `b_txq_plain`). CPU tensors take the plain version; CUDA tensors the
     kernel."""
-    return b_txq_planes([(cur, pred, qp, est)], lam_full)[0]
+    return b_txq_planes([(cur, pred, qp, est)], lam_full, sbh)[0]

@@ -17,7 +17,7 @@
   pictures in min(n, 2) segments, whose stream decodes hash-OK.
 
 Step "1" is not ported: asking for it raises NotImplementedError (ROADMAP
-queue 1, item 4). It is the data-parallel NN-FME train step: the one-device step runs on the
+queue 1, item 1). It is the data-parallel NN-FME train step: the one-device step runs on the
 card (`models/fme_train.py`, kernels `fme_train_fwd`/`fme_train_bwd`/
 `fme_adam`); what is left is a batch split across devices whose three
 BatchNorm layers take global batch statistics, a cross-device reduction
@@ -43,7 +43,7 @@ STEPS = ("2", "2b", "2c", "3")
 NOT_PORTED = {"1": "the data-parallel NN-FME train step (global BatchNorm "
                    "statistics by a cross-device reduction in each BN layer, "
                    "forward and backward; the one-device step is "
-                   "models.fme_train; ROADMAP queue 1, item 4)"}
+                   "models.fme_train; ROADMAP queue 1, item 1)"}
 
 
 def dryrun_multichip(n_devices: int, device="cuda", steps=STEPS) -> dict:

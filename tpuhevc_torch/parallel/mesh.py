@@ -26,7 +26,7 @@ of more than one rank on one card, and one process needs none.
   the picture's sums and SAO decision once), equal to the one-device
   step byte for byte;
 - not ported: `dp_shard` (data-parallel NN-FME training, ROADMAP queue 1,
-  item 4).
+  item 1).
 """
 
 from __future__ import annotations
