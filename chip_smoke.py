@@ -240,6 +240,23 @@
    416x240 x 5, target and achieved bits printed. Then CUDA against CPU
    streams byte-identical for these routes (the anchor at 112x72 x 4, the
    others at 64x48 x 6).
+   Main path 10, Main10 (`--InputBitDepth=10 --InternalBitDepth=10`) on
+   the 416x240 clip at 10 bits (each 8-bit plane x 4 plus an offset, as
+   tests/test_main10.py makes it), QP 32, each encode with the counters
+   reset just before and read just after, every hash OK in the port's
+   decoder with the encoder's recon and luma samples above 255: the
+   all-intra cfg x 2, the LD-P scan with the anchor's tools cut x 9
+   (seeded NN-FME weights), IntraPeriod 4 with the tools cut x 5 (the
+   per-picture device stage) and the anchor cfg as shipped x 3 (the host
+   tool stage). The 10-bit variants of K1, K3, K4 and intra_txq (the
+   counters `sad_search10`, `mc_blk10`, `txq10`, `intra_txq10`) and
+   intra_bank must launch where the route runs them, the 8-bit ones stay
+   idle, and every call of them is held against its plain version with
+   torch.equal; K1's, K3's and K4's time, device time and bound at the
+   device stage's first P picture (K1 beside torch.cdist, its samples
+   counted at 2 bytes), intra_txq's over one all-intra picture's
+   decision, both passes. Then CUDA against CPU streams byte-identical
+   for these four routes at 112x72.
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -397,6 +414,15 @@ SOURCES = {
                       "tpuhevc/models/nnfme.py:363"),
     "fme_adam": ("tpuhevc_torch/kernels/csrc/fme_train.cu",
                  "tpuhevc/models/nnfme.py:367"),
+    # the 10-bit variants (Main10, path 10) of K1, K3, K4 and intra_txq
+    "sad_search10": ("tpuhevc_torch/kernels/csrc/sad_search.cu",
+                     "tpuhevc/codec/inter_batch.py:139"),
+    "mc_blk10": ("tpuhevc_torch/kernels/csrc/mc_blk.cu",
+                 "tpuhevc/codec/inter_batch.py:166"),
+    "txq10": ("tpuhevc_torch/kernels/csrc/txq.cu",
+              "tpuhevc/codec/inter_batch.py:193"),
+    "intra_txq10": ("tpuhevc_torch/kernels/csrc/intra_txq.cu",
+                    "tpuhevc/codec/intra_decide_jax.py:86"),
 }
 # the NN-FME train step, once each a step
 TRAIN_KERNELS = ("fme_train_fwd", "fme_train_bwd", "fme_adam")
@@ -658,15 +684,22 @@ class Work:
     windows counts the samples the windows cover, their union over the
     calls. Holds the tensors, so that no address is reused meanwhile."""
 
-    def __init__(self):
+    def __init__(self, sample_bytes=None):
         self.held = {}  # data_ptr -> tensor
         self.planes = {}  # data_ptr -> (plane, samples read)
         self.ops = 0
         self.written = 0  # outputs written into a kept buffer, per call
+        # with sample_bytes: the samples K1 reads (the windows' union and
+        # the PUs) count that many bytes each (2 for 10-bit video, as int16
+        # holds it), not the int32 planes' 4
+        self.sample_bytes = sample_bytes
+        self.narrow = set()  # data_ptrs of those PU tensors
 
     def add(self, name, args, out, kw=None):
         kw = kw or {}
         self.ops += kernel_ops(name, args, kw, out)
+        if self.sample_bytes and name == "sad_search":
+            self.narrow.update(c[0].data_ptr() for c in args[1])
         if name == "grid_satd_cost":  # views of the caller's buffer
             self.written += sum(t.nbytes for t in out)
             kw = {k: v for k, v in kw.items() if k != "out"}
@@ -682,9 +715,11 @@ class Work:
 
     @property
     def bytes(self):
-        return (self.written + sum(t.nbytes for p, t in self.held.items()
-                                   if p not in self.planes)
-                + sum(int(m.sum()) * pl.element_size()
+        sb = self.sample_bytes
+        return (self.written
+                + sum(t.numel() * sb if p in self.narrow else t.nbytes
+                      for p, t in self.held.items() if p not in self.planes)
+                + sum(int(m.sum()) * (sb or pl.element_size())
                       for pl, m in self.planes.values()))
 
 
@@ -992,7 +1027,8 @@ def check_kernels(dev, model):
     # 0 and the path's
     for sub in (True, False):
         for lam in (0, lam_me):
-            got = sad_search_classes(ref_y, every, bits, lam, SR, sub)
+            got = sad_search_classes(ref_y, every, bits, lam, SR, sub,
+                                     bit_depth=8)
             want = sad_search_classes_plain(ref_y, every, bits, lam, SR, sub)
             torch.cuda.synchronize()
             equal(got, want, f"sad_search subsample {sub}, lam_me {lam}")
@@ -1000,17 +1036,19 @@ def check_kernels(dev, model):
           f"one launch, subsample on and off, lam_me 0 and {lam_me}: equal "
           "to plain", flush=True)
     # the random-access P picture's call (every row searched)
-    found = sad_search_classes(ref_y, pic, bits, lam_me, SR, False)
+    found = sad_search_classes(ref_y, pic, bits, lam_me, SR, False,
+                               bit_depth=8)
     record("sad_search", "P picture", 0,
            median_ms(lambda: sad_search_classes(ref_y, pic, bits, lam_me,
-                                                SR, False)),
+                                                SR, False, bit_depth=8)),
            median_ms(lambda: sad_search_classes_plain(ref_y, pic, bits,
                                                       lam_me, SR, False)),
            [((ref_y, pic, bits, lam_me, SR, False), found)])
     r = rows["sad_search"]
     for sub in (False, True):
         dms = device_ms(lambda: sad_search_classes(ref_y, pic, bits, lam_me,
-                                                   SR, sub), n=100)
+                                                   SR, sub, bit_depth=8),
+                        n=100)
         if not sub:
             r["device_ms"] = dms
         print(f"kernel sad_search P picture (subsample {sub}): device_ms "
@@ -1022,7 +1060,7 @@ def check_kernels(dev, model):
           flush=True)
     r["library_ms"] = k1_library_ms(ref_y, pic, found)
     # the LD-P scan's search feeds K2 below
-    scan = sad_search_classes(ref_y, every, bits, lam_me, SR)
+    scan = sad_search_classes(ref_y, every, bits, lam_me, SR, bit_depth=8)
 
     mc_jobs = []
     for st, (mv_int, sad9) in zip(shapes, scan):
@@ -1408,7 +1446,8 @@ def check_b_me_direct(org, r0, r1, lam_me, sr_step):
         for tag, (o, a, b, lam) in (("B picture", (org, r0, r1, lam_me)),
                                     ("flat, lambda 0",
                                      (flat[0], flat[1], flat[1], 0.0))):
-            got, want = b_me(o, a, b, lam, sr), b_me_plain(o, a, b, lam, sr)
+            got = b_me(o, a, b, lam, sr, bit_depth=8)
+            want = b_me_plain(o, a, b, lam, sr)
             torch.cuda.synchronize()
             check(all(torch.equal(x, y) for x, y in zip(got, want)),
                   f"b_me sr {sr} {tag}: differs from plain")
@@ -1416,7 +1455,8 @@ def check_b_me_direct(org, r0, r1, lam_me, sr_step):
                 check(bool((got[0] == -sr).all()),
                       f"b_me sr {sr} flat: not the first offset")
                 continue
-            dms = device_ms(lambda: b_me(o, a, b, lam, sr), n=100)
+            dms = device_ms(lambda: b_me(o, a, b, lam, sr, bit_depth=8),
+                            n=100)
             print(f"kernel b_me direct sr {sr} (B step's sr {sr_step}), "
                   f"{W}x{H}, both lists: equal to plain (also flat planes "
                   f"at lambda 0), device_ms {dms:.5f} a launch (events "
@@ -1432,7 +1472,7 @@ def check_b_me_direct(org, r0, r1, lam_me, sr_step):
                     .unfold(2, 16, 1).reshape(n, side * side, 256)
                     for ref in (r0, r1)]).float().contiguous()
     d = torch.cdist(x1, x2, p=1)[:, 0]
-    mv, sad9 = b_me(org, r0, r1, lam_me, sr)
+    mv, sad9 = b_me(org, r0, r1, lam_me, sr, bit_depth=8)
     bi = ((mv[..., 1] + sr) * side + mv[..., 0] + sr).reshape(-1)
     check(torch.equal(d.gather(1, bi[:, None].long())[:, 0].int(),
                       sad9[..., 4].reshape(-1)),
@@ -3163,6 +3203,7 @@ def check_stream(enc, recons, n, launches, need, what, w=W, h=H):
               and np.array_equal(f.v, rv[: h // 2, : w // 2]),
               f"{what}: decoded picture {i} (POC {f.poc}) differs from the "
               f"encoder's recon")
+    return frames
 
 
 def cross_check_cpu(npz):
@@ -3206,7 +3247,8 @@ def cross_check_cpu(npz):
                   f"{w}x{h} LD-P scan: mc_blk launched {LAUNCHES['mc_blk']}"
                   f" times in {len(k3['mc_blk'])} calls for {n - 1} P "
                   "pictures")
-            for (jobs,), _ in k3["mc_blk"]:
+            for (jobs, bd), _ in k3["mc_blk"]:
+                check(bd == 8, f"{w}x{h}: K3 at bit depth {bd}")
                 check(len(jobs) == 12, f"{w}x{h}: K3 of {len(jobs)} jobs")
                 check_k3(jobs, f"LD-P scan {w}x{h} frame step")
         b, _ = encode_sequence(r, make(), device="cpu")
@@ -3581,6 +3623,178 @@ def cross_check_per_picture(npz):
         check(a.bitstream() == b.bitstream(),
               f"path 9 route {len(out)} at {w}x{h}: CUDA and CPU streams "
               "differ")
+        out.append(len(a.bitstream()))
+    return out
+
+
+# path 10, Main10: the all-intra, LD-P scan, IntraPeriod 4 and anchor
+# encodes at 10 bits (416x240, QP 32), pictures each
+N10_AI, N10_SCAN, N10_IP, N10_ANCHOR = 2, 9, 5, 3
+MAIN10 = ["--InputBitDepth=10", "--InternalBitDepth=10"]
+# the 10-bit variants, and the kernels of the Main10 paths that have one
+M10_KERNELS = ("sad_search10", "mc_blk10", "txq10", "intra_txq10")
+M10_OF = {"sad_search10": "sad_search", "mc_blk10": "mc_blk",
+          "txq10": "txq", "intra_txq10": "intra_txq"}
+M10_FUNCS = {  # base name: (kernel wrapper, plain version)
+    "sad_search": (sad_search_classes, sad_search_classes_plain),
+    "mc_blk": (mc_blk_planes, mc_blk_planes_plain),
+    "txq": (txq_planes, txq_planes_plain),
+    "intra_txq": (intra_txq, intra_txq_plain),
+    "intra_bank": (intra_bank, predict_all_modes_plain),
+}
+
+
+class Reader10(Reader):
+    """The clip at 10 bits as tests/test_main10.py makes it: each 8-bit
+    plane x 4, plus 2 (Y), 1 (U), 3 (V)."""
+
+    def __init__(self, w, h, n):
+        super().__init__(w, h, n)
+        self.frames = [tuple(p.astype(np.uint16) * 4 + o
+                             for p, o in zip(fr, (2, 1, 3)))
+                       for fr in self.frames]
+
+
+def main10_cfgs(npz, w=None, h=None):
+    """Path 10's routes: (what, cfg, pictures, the kernels it must launch,
+    the kernels that must stay idle)."""
+    ai, _ = build_config(parse_args([
+        "-c", INTRA_CFG, "-wdt", str(w or W), "-hgt", str(h or H),
+        "-f", str(N10_AI), "-q", str(QP)] + MAIN10))
+    p10 = ("sad_search10", "mc_blk10", "txq10")
+    p8 = ("sad_search", "mc_blk", "txq", "intra_txq")
+    idr = ("intra_bank", "intra_txq10")
+    return [
+        ("all-intra", ai, N10_AI, idr, p8 + p10),
+        ("LD-P scan, tools cut", ldp_cfg(npz, w, h, N10_SCAN, cut=True,
+                                         extra=MAIN10),
+         N10_SCAN, idr + p10 + ("nnfme_mlp",), p8),
+        ("IntraPeriod 4, tools cut", ldp_cfg(
+            npz, w, h, N10_IP, cut=True, extra=MAIN10 + ["--IntraPeriod=4"]),
+         N10_IP, idr + p10 + ("nnfme_mlp",), p8),
+        ("the anchor cfg (host stage)", ldp_cfg(npz, w, h, N10_ANCHOR,
+                                                extra=MAIN10),
+         N10_ANCHOR, idr, p8 + p10)]
+
+
+def main10_row(name, calls, sample_bytes=None):
+    """A 10-bit variant's row (or intra_bank's at 10 bits) from `calls`
+    (one picture's): its event ms and the plain version's over the calls,
+    its device time, its work."""
+    base = M10_OF.get(name, name)
+    kern, plain = M10_FUNCS[base]
+    work = Work(sample_bytes)
+    for args, kw in calls:
+        work.add(base, args, kern(*args, **kw), kw)
+    row = dict(max_abs_err=0.0, work=work)
+    row["ms"] = median_ms(lambda: [kern(*a, **k) for a, k in calls],
+                          reps=10)
+    row["plain_ms"] = median_ms(lambda: [plain(*a, **k) for a, k in calls],
+                                reps=3)
+    row["device_ms"] = device_ms(lambda: [kern(*a, **k) for a, k in calls],
+                                 n=20)
+    row["bound_ms"], row["bound_by"] = bound_of(row)
+    return row
+
+
+def run_main10(dev, npz, gpu):
+    """Main path 10, Main10 at 416x240 on the 10-bit clip (Reader10): the
+    all-intra cfg x 2, the LD-P scan with the tools cut x 9 (seeded
+    NN-FME weights), IntraPeriod 4 with the tools cut x 5 (the per-picture
+    device stage), the anchor cfg as shipped x 3 (the host tool stage),
+    each with the counters reset just before and read just after, every
+    hash OK in the port's decoder with the encoder's recon and samples
+    above 255; the 10-bit variants of K1, K3, K4 and intra_txq (and
+    intra_bank, one kernel at any depth) launched, the 8-bit ones idle;
+    every call of those kernels held against its plain version with
+    torch.equal. Returns (launches summed over the path, the 10-bit
+    variants' rows: K1, K3 and K4 at the device stage's first P picture
+    (every row searched), intra_txq over one all-intra picture's
+    decision, both passes; K1's bytes at 2 a sample)."""
+    total = {k: 0 for k in KERNELS}
+    names = ("sad_search", "mc_blk", "txq")
+    calls = {}
+    for what, cfg, n, need, idle in main10_cfgs(npz):
+        rec = {k: [] for k in names}
+        irec = {k: [] for k in ("intra_txq", "intra_bank")}
+        saved = recording(inter_batch, names, rec)
+        isaved = recording(intra_decide, tuple(irec), irec)
+        try:
+            enc, recons, secs, la = run_path(dev, cfg, n,
+                                             reader=Reader10(W, H, n))
+        finally:
+            restore(inter_batch, saved)
+            restore(intra_decide, isaved)
+        frames = check_stream(enc, recons, n, la, need, f"Main10 {what}")
+        peak = max(int(f.y.max()) for f in frames)
+        check(peak > 255, f"Main10 {what}: luma peaks at {peak}")
+        check(all(la[k] == 0 for k in idle),
+              f"Main10 {what}: an 8-bit kernel or idle variant launched: "
+              f"{ {k: la[k] for k in idle if la[k]} }")
+        for k, v in list(rec.items()) + list(irec.items()):
+            # K1, K3 and K4 launch at every call; the intra kernels skip
+            # a call with nothing to do
+            want = la[k if k == "intra_bank" else k + "10"]
+            check(len(v) == want if k in names else len(v) >= want,
+                  f"Main10 {what}: {k} called {len(v)} times, {want} "
+                  "launches")
+            kern, plain = M10_FUNCS[k]
+            for args, kw in v:
+                a, b = kern(*args, **kw), plain(*args, **kw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(
+                    tensors(a), tensors(b), strict=True)),
+                    f"Main10 {what}: {k} differs from plain at a call")
+        calls[what] = dict(rec, **irec)
+        for k in KERNELS:
+            total[k] += la[k]
+        kbits = sum(r.bits for r in enc.results) / 1000
+        psnr = np.mean([r.psnr_y for r in enc.results])
+        used = {k: v for k, v in la.items() if v}
+        print(f"main path 10, Main10 {what}: {W}x{H} x {n} pictures in "
+              f"{secs:.3f} s = {n / secs:.3f} fps | {kbits:.1f} kbit, Y-PSNR "
+              f"{psnr:.3f} dB, luma peak {peak} | every 10-bit call equal "
+              f"to plain: { {k: len(v) for k, v in calls[what].items()} } | "
+              f"launches {used} | {gpu}", flush=True)
+    stage = calls["IntraPeriod 4, tools cut"]
+    rows = {name: main10_row(name, stage[M10_OF[name]][:1],
+                             2 if name == "sad_search10" else None)
+            for name in ("sad_search10", "mc_blk10", "txq10")}
+    # beside K1: torch.cdist (p=1) of the PUs against their windows
+    args, kw = stage["sad_search"][0]
+    rows["sad_search10"]["library_ms"] = k1_library_ms(
+        args[0], args[1], sad_search_classes(*args, **kw))
+    ai_cfg = main10_cfgs(npz)[0][1]
+    frame = Reader10(W, H, 1).frames[0]
+    ic = capture_intra_calls(dev, ai_cfg, frame)
+    rows["intra_txq10"] = main10_row("intra_txq10",
+                                     [(a, {}) for a in ic["intra_txq"]])
+    # intra_bank: one kernel at any depth (its row is path 1-9's); here
+    # its time at 10 bits
+    bank = main10_row("intra_bank", [(a, {}) for a in ic["intra_bank"]])
+    for name, r in list(rows.items()) + [("intra_bank at 10 bits", bank)]:
+        where = ("one all-intra picture, both passes"
+                 if name.startswith("intra") else
+                 "the device stage's P picture")
+        print(f"kernel {name} (Main10, {where}): kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} device_ms {r['device_ms']:.5f} "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
+              f"{r['work'].bytes} bytes, {r['work'].ops} operations) | "
+              f"{gpu}", flush=True)
+    return total, rows
+
+
+def cross_check_main10(npz):
+    """CUDA vs CPU of path 10's routes at 112x72 (every CU class): the
+    streams byte-identical. Returns their sizes."""
+    out = []
+    for (what, cfg, n, _, _), (_, cpu_cfg, _, _, _) in zip(
+            main10_cfgs(npz, 112, 72), main10_cfgs(npz, 112, 72)):
+        r = Reader10(112, 72, n)
+        a, _ = encode_sequence(r, cfg, device="cuda")
+        b, _ = encode_sequence(r, cpu_cfg, device="cpu")
+        check(a.bitstream() == b.bitstream(),
+              f"Main10 {what} at 112x72: CUDA and CPU streams differ")
         out.append(len(a.bitstream()))
     return out
 
@@ -4080,6 +4294,18 @@ def main():
         for k in KERNELS:
             launches[k] += pp_launches[k]
         rows["b_txq"]["sbh"] = sbh_row
+        # paths 1-9 run 8-bit video
+        check(all(launches[k] == 0 for k in M10_KERNELS),
+              "paths 1-9 launched a 10-bit variant")
+
+        m10_launches, m10_rows = run_main10(dev, npz, gpu)
+        check(all(m10_launches[k] == 0 for k in TRAIN_KERNELS + G_KERNELS
+                  + B_KERNELS + ("intra_wave",)),
+              "path 10 launched a train-step, grid, B step or intra_wave "
+              "kernel")
+        for k in KERNELS:
+            launches[k] += m10_launches[k]
+        rows.update(m10_rows)
 
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
@@ -4094,6 +4320,10 @@ def main():
               f"access with the tools and SBH, without a GOP table, rate "
               f"control at picture and CTU level): "
               f"{cross_check_per_picture(npz)} bytes", flush=True)
+        print(f"cross-check: CUDA == CPU streams of path 10's routes at "
+              f"112x72 (Main10 all-intra x {N10_AI}, the LD-P scan x "
+              f"{N10_SCAN}, IntraPeriod 4 x {N10_IP}, the anchor x "
+              f"{N10_ANCHOR}): {cross_check_main10(npz)} bytes", flush=True)
 
     kernels = []
     for k in KERNELS:

@@ -164,6 +164,8 @@ print("jax loaded:", "jax" in sys.modules, "rc", rc)
 OUTSIDE = {  # name: (cfg-file options, EncoderConfig fields)
     "multiple_slices": ([], dict(slice_ctus=2)),
     "bit_depth_10": (["--InputBitDepth=10", "--InternalBitDepth=10"], {}),
+    "bit_depth_10_fixed_8x8": (["--InputBitDepth=10", "--InternalBitDepth=10"],
+                               dict(intra_qt=False)),
     "rate_control": (["--RateControl=1", "--TargetBitrate=200000"], {}),
     "scaling_list": (["--ScalingList=1"], {}),
     "adaptive_qp": (["--AdaptiveQP=1"], {}),
@@ -172,7 +174,11 @@ OUTSIDE = {  # name: (cfg-file options, EncoderConfig fields)
 }
 
 
-ADMITTED = {"rate_control"}  # the picture's QP from the R-lambda model
+# rate control: the picture's QP from the R-lambda model; bit depth 10
+# (Main10) with the quadtree intra
+ADMITTED = {"rate_control", "bit_depth_10"}
+# refused by name
+NAMED = {"bit_depth_10_fixed_8x8": "bit depth 10 with fixed 8x8 intra"}
 
 
 @pytest.mark.parametrize("name", sorted(OUTSIDE))
@@ -185,8 +191,9 @@ def test_all_intra_outside_slice_raises(frames, name):
             decoded = decode(enc.bitstream())
             assert len(decoded) == 2 and all(f.md5_ok for f in decoded), name
         return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="not yet ported") as e:
         encode_sequence(Reader(frames), cfg, device="cpu")
+    assert NAMED.get(name, "not yet ported") in str(e.value)
 
 
 def test_decision_refuses_absent_cuda(monkeypatch, frames):

@@ -108,7 +108,7 @@ def test_stages_match_jax_per_class(chunk, tag):
     ys = torch.tensor([p[1] for p in poss], dtype=torch.int32)
     mv, sad9 = sad_search(torch.from_numpy(chunk["refs"][0].astype(np.int32)),
                           torch.from_numpy(cur), xs, ys,
-                          bits_table(sr, "cpu"), lam_me, sr)
+                          bits_table(sr, "cpu"), lam_me, sr, bit_depth=8)
     _, _, qoff = nn_refine(NNFME.from_numpy(chunk["params"], "cpu"), sad9,
                            height_category(size), width_category(size))
     mvq_j, mv_j, sad9_j, _ = parse_meta(cfg, chunk["jax"][0][0])[tag]
@@ -179,7 +179,7 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
         lambda: sad_search(torch.empty(40, 40, **i32),
                            torch.empty(2, 8, 8, **i32), torch.empty(2, **i32),
                            torch.empty(2, **i32), torch.empty(33, 33, **i32),
-                           0, 16),
+                           0, 16, bit_depth=8),
         lambda: nn_refine(model, torch.empty(2, 9, **i32), 2, 2),
         lambda: mc_blk(torch.empty(8, 8, **i32), torch.empty(2, **i32),
                        torch.empty(2, **i32), torch.empty(2, 2, **i32), 8,
@@ -202,12 +202,18 @@ OUTSIDE = {
     "rate_control": dict(target_bitrate=200000),
     "intra_period_8": dict(intra_period=8),
     "bit_depth_10": dict(bit_depth=10),
+    "bit_depth_10_random_access": dict(bit_depth=10, gop_structure="ra"),
+    "bit_depth_10_weighted_pred": dict(bit_depth=10, wp=True),
     "scaling_list": dict(scaling_list=True),
 }
-# admitted since the per-picture P path with the host tool stage: these
-# encode and decode hash-OK
+# admitted since the per-picture P path with the host tool stage, and
+# bit depth 10 since Main10 on the LD-P routes off the grid: these encode
+# and decode hash-OK
 ADMITTED = {"rdoq", "sbh", "deblocking", "sao", "dctif", "rate_control",
-            "intra_period_8"}
+            "intra_period_8", "bit_depth_10"}
+# refused by name
+NAMED = {"bit_depth_10_random_access": "bit depth 10 in random access",
+         "bit_depth_10_weighted_pred": "weighted prediction at bit depth 10"}
 
 
 @pytest.mark.parametrize("name", sorted(OUTSIDE))
@@ -222,8 +228,10 @@ def test_outside_slice_raises(setup, name):
     if kw.pop("scaling_list", False):
         sps_kw["scaling_list_enabled"] = True
     sbh = kw.pop("sbh", False)
+    wp = kw.pop("wp", False)
     cfg = ldp_cfg(npz, port=True, **kw)
     cfg.pps.sign_data_hiding = sbh
+    cfg.pps.weighted_pred = wp
     for k, v in sps_kw.items():
         setattr(cfg.sps, k, v)
     if name in ADMITTED:
@@ -232,8 +240,9 @@ def test_outside_slice_raises(setup, name):
         decoded = port_decode(enc.bitstream())
         assert len(decoded) == 3 and all(f.md5_ok for f in decoded), name
         return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="not yet ported") as e:
         encode_sequence(Reader(frames), cfg, max_frames=3, device="cpu")
+    assert NAMED.get(name, "not yet ported") in str(e.value)
 
 
 @pytest.mark.cuda

@@ -41,7 +41,7 @@ def test_sad_search_matches_numpy_me_at_8x8():
     lam_me = 700
     mv_t, sad9_t = sad_search(torch.from_numpy(ref), torch.from_numpy(cur),
                               *origins(poss), bits_table(SR, "cpu"), lam_me,
-                              SR)
+                              SR, bit_depth=8)
     xs = np.array([p[0] for p in poss])
     ys = np.array([p[1] for p in poss])
     mv_n, sad, best = integer_me_np(ref, cur, xs, ys, SR, lam_me)
@@ -81,7 +81,8 @@ def test_sad_search_first_minimum_wins():
     cur = torch.full((n, size, size), 80, dtype=torch.int32)
     xs = torch.tensor([0, 16, 48], dtype=torch.int32)
     ys = torch.tensor([0, 32, 16], dtype=torch.int32)
-    mv, sad9 = sad_search(ref, cur, xs, ys, bits_table(SR, "cpu"), 0, SR)
+    mv, sad9 = sad_search(ref, cur, xs, ys, bits_table(SR, "cpu"), 0, SR,
+                          bit_depth=8)
     assert mv.tolist() == [[1 - SR, 1 - SR]] * n
     assert (sad9 == 3 * size * size).all()
 
@@ -130,10 +131,27 @@ def test_sad_search_classes_flat_first_index(sr):
     _, classes = edge_classes(5)
     cls = [(torch.full((len(poss), size, size), 117, dtype=torch.int32),
             *origins(poss)) for size, poss, _ in classes]
-    got = sad_search_classes(ref, cls, bits_table(sr, "cpu"), 0, sr)
+    got = sad_search_classes(ref, cls, bits_table(sr, "cpu"), 0, sr,
+                             bit_depth=8)
     for (size, poss, _), (mv, sad9) in zip(classes, got):
         assert mv.tolist() == [[1 - sr, 1 - sr]] * len(poss)
         assert (sad9 == 3 * size * size).all()
+
+
+def test_sad_search_names_its_bit_depth():
+    """K1's kernel has a variant for 8-bit and one for 10-bit samples: its
+    callers name the depth (never the data), a depth without a variant
+    raises, and the plain sums are the same at either depth."""
+    ref, poss, _, cur = inputs(16, 2)
+    args = (torch.from_numpy(ref), torch.from_numpy(cur), *origins(poss),
+            bits_table(SR, "cpu"), 300, SR)
+    with pytest.raises(TypeError):
+        sad_search(*args)
+    for bd in (9, 12):
+        with pytest.raises(ValueError, match=f"bit depth {bd}"):
+            sad_search(*args, bit_depth=bd)
+    got8, got10 = (sad_search(*args, bit_depth=bd) for bd in (8, 10))
+    assert all(torch.equal(a, b) for a, b in zip(got8, got10))
 
 
 @pytest.mark.cuda
@@ -146,7 +164,8 @@ def test_sad_search_kernel_matches_plain(cuda_device, size):
     xs, ys = (t.to(cuda_device) for t in origins(poss))
     for lam_me in (0, 500, 4000):
         for sub in (True, False):
-            got = sad_search(r_d, c_d, xs, ys, bits, lam_me, SR, sub)
+            got = sad_search(r_d, c_d, xs, ys, bits, lam_me, SR, sub,
+                             bit_depth=8)
             want = sad_search_classes_plain(r_d, [(c_d, xs, ys)], bits,
                                             lam_me, SR, sub)[0]
             torch.cuda.synchronize()
@@ -154,7 +173,8 @@ def test_sad_search_kernel_matches_plain(cuda_device, size):
                                                                 want[1])
     flat_r = torch.full_like(r_d, 9)
     flat_c = torch.full_like(c_d[:4], 9)
-    got = sad_search(flat_r, flat_c, xs[:4], ys[:4], bits, 0, SR)
+    got = sad_search(flat_r, flat_c, xs[:4], ys[:4], bits, 0, SR,
+                     bit_depth=8)
     torch.cuda.synchronize()
     assert got[0].tolist() == [[1 - SR, 1 - SR]] * 4
 
@@ -175,7 +195,8 @@ def test_sad_search_classes_kernel_matches_plain(cuda_device, sr):
     for plane, cs in ((r_d, cls), flat):
         for lam_me in (0, 900):
             for sub in (True, False):
-                got = sad_search_classes(plane, cs, bits, lam_me, sr, sub)
+                got = sad_search_classes(plane, cs, bits, lam_me, sr, sub,
+                                         bit_depth=8)
                 want = sad_search_classes_plain(plane, cs, bits, lam_me, sr,
                                                 sub)
                 torch.cuda.synchronize()

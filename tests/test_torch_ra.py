@@ -40,7 +40,7 @@ from tpuhevc_torch.codec import inter_b as tib
 from tpuhevc_torch.codec import inter_enc as tie
 from tpuhevc_torch.codec.decoder import decode_stream
 from tpuhevc_torch.codec.encoder import encode_sequence
-from tpuhevc_torch.codec.params import p_frame_lambda
+from tpuhevc_torch.codec.params import EncoderConfig, SeqParams, p_frame_lambda
 from tpuhevc_torch.codec.recon import _pad_to
 from tpuhevc_torch.config.options import build_config, parse_args
 from tpuhevc_torch.entropy.bitest import FracBits, est_tables
@@ -281,6 +281,23 @@ def test_b_me_ties_and_wrapped_surface(case):
         assert sad9[0, blk, k] == sad[blk, j]
 
 
+def test_b_me_names_its_bit_depth():
+    """b_me packs 8-bit samples: its callers name the depth, and any other
+    raises (on either device) until random access takes Main10; the B
+    step at 10 bits raises too."""
+    org, ref = (torch.from_numpy(p) for p in rng_planes(3, H, W, 2))
+    with pytest.raises(TypeError):
+        b_me(org, ref, ref, 0.0, SR)
+    with pytest.raises(NotImplementedError, match="bit depth 10"):
+        b_me(org, ref, ref, 0.0, SR, bit_depth=10)
+    mv, _ = b_me(org, ref, ref, 0.0, SR, bit_depth=8)
+    assert torch.equal(mv, b_me_plain(org, ref, ref, 0.0, SR)[0])
+    cfg = EncoderConfig(sps=SeqParams(width=W, height=H, bit_depth=10),
+                        qp=QP, gop_structure="ra")
+    with pytest.raises(NotImplementedError, match="bit depth 10"):
+        tib.build_b_step(cfg, QP, None, "cpu")
+
+
 def b_inputs(dev, w=416, h=240, seed=11):
     """Planes of a natural spread and the step's intermediate MVs."""
     org, r0, r1 = (torch.from_numpy(p).to(dev)
@@ -301,7 +318,7 @@ def test_cuda_b_me_matches_plain(cuda_device, sr):
     equal) and the matches at the window's left and right edge."""
     org, r0, r1, _ = b_inputs(cuda_device)
     for lam_me in (0.0, 5.7, 40.3):
-        got = b_me(org, r0, r1, lam_me, sr)
+        got = b_me(org, r0, r1, lam_me, sr, bit_depth=8)
         want = b_me_plain(org, r0, r1, lam_me, sr)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want)), lam_me
@@ -310,7 +327,8 @@ def test_cuda_b_me_matches_plain(cuda_device, sr):
             if case == "all_equal" else edge_planes(sr if case == "left_edge"
                                                     else -sr)
         o, r = (torch.from_numpy(p).to(cuda_device) for p in (o, r))
-        got, want = b_me(o, r, r, 0.0, sr), b_me_plain(o, r, r, 0.0, sr)
+        got = b_me(o, r, r, 0.0, sr, bit_depth=8)
+        want = b_me_plain(o, r, r, 0.0, sr)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want)), case
 
@@ -371,7 +389,8 @@ def test_sad_search_without_subsampling_matches_plain(cuda_device, size):
                            device=cuda_device) for i in (0, 1))
     bits = bits_table(SR, cuda_device)
     for lam_me in (0, 700):
-        got = sad_search(ref_d, cur, xs, ys, bits, lam_me, SR, False)
+        got = sad_search(ref_d, cur, xs, ys, bits, lam_me, SR, False,
+                         bit_depth=8)
         want = sad_search_classes_plain(ref_d, [(cur, xs, ys)], bits, lam_me,
                                         SR, False)[0]
         torch.cuda.synchronize()

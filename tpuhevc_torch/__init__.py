@@ -18,7 +18,8 @@ dependency wavefronts (`codec/intra_frame.py`, the twin of
 twin of `tpuhevc.codec.inter_batch.build_ldp_scan`); and random access:
 the B step (`codec/inter_b.py`, twin of `inter_b._b_step`) and the
 per-frame P stage (`codec/inter_enc.py`, twin of `inter_enc._stage_fn`)
-under the GOP-table driver. Every kernel has a plain PyTorch version
+under the GOP-table driver; Main10 on the all-intra and LD-P routes off
+the grid (K1, K3, K4 and intra_txq in 10-bit variants). Every kernel has a plain PyTorch version
 beside it; a wrapper uses the plain version only for tensors on the CPU
 and launches its kernel (or raises) for CUDA tensors.
 """

@@ -40,6 +40,12 @@ and the P pictures through `encode_frame_p`, driven in decode order by
 `tpuhevc/codec/encoder.py:606-682`) or by `_ra_gop4` (no table, 685-734);
 deblocking and SAO on the host after each picture.
 
+Main10 (bit depth 10): all-intra with the quadtree intra and LD-P off
+the grid (the grid is 8-bit): the non-grid scan (its frames staged as
+16-bit samples, its rows carrying 16-bit recon) and the per-picture
+loop, each device stage at the kernels' 10-bit variants. Random access,
+fixed 8x8 intra and weighted prediction stay 8-bit (`check_slice`).
+
 `Encoder`, `FrameResult`, `_rate_controlled`, `_ra_gop4` and
 `_load_nn_params` are the port's copies of the reference's host code
 (`encoder.py:27-490,564-603,685-734,945-962`).
@@ -381,11 +387,18 @@ def check_slice(cfg: EncoderConfig) -> None:
     tool stage), IntraPeriod N and rate control (picture or CTU level);
     explicit weighted prediction on the grid only; random access with or
     without a GOP table of B pictures, with those tools, at coded sizes in
-    whole 16x16 blocks; all 8-bit, quadtree or fixed 8x8 intra (all-intra
-    pictures and the IDR alike), one slice, no weighted bi-prediction."""
+    whole 16x16 blocks; quadtree or fixed 8x8 intra (all-intra pictures
+    and the IDR alike), one slice, no weighted bi-prediction. All of it
+    at 8 bits; at 10 bits (Main10) all-intra with the quadtree intra and
+    LD-P off the grid (the scan, the per-picture device and host stages,
+    IntraPeriod N, rate control), but not random access, fixed 8x8 intra
+    or weighted prediction."""
     sps, pps = cfg.sps, cfg.pps
+    bd = sps.bit_depth
     off = [
-        (sps.bit_depth != 8, f"bit depth {sps.bit_depth}"),
+        (bd not in (8, 10), f"bit depth {bd}"),
+        (bd == 10 and not cfg.intra_qt,
+         "bit depth 10 with fixed 8x8 intra (intra_qt off)"),
         (sps.scaling_list_enabled, "scaling lists"),
         (cfg.adaptive_qp, "adaptive QP"),
         (pps.tiles_enabled or pps.entropy_coding_sync or cfg.slice_ctus > 0,
@@ -399,7 +412,10 @@ def check_slice(cfg: EncoderConfig) -> None:
                  "16x16 blocks)" if not inter_grid.supports(cfg) else
                  " off the grid (IntraPeriod N or rate control)")
         off += [
-            (not (_takes_scan(cfg) and inter_grid.supports(cfg))
+            (bd == 10 and ra, "bit depth 10 in random access"),
+            (bd == 10 and pps.weighted_pred,
+             "weighted prediction at bit depth 10"),
+            (bd == 8 and not (_takes_scan(cfg) and inter_grid.supports(cfg))
              and pps.weighted_pred,
              "weighted prediction" + where),
             (cfg.fme_mode not in ("nn", "none", "dctif"),
@@ -488,14 +504,17 @@ class LdpScanDriver:
         else:
             self.refs = (ry, ru, rv)
 
-    def _chunk_u8(self, blk) -> np.ndarray:
+    def _chunk_frames(self, blk) -> np.ndarray:
+        """The chunk's source frames, padded, one row each: bytes at 8
+        bits, 16-bit samples (int16) at 10."""
         w, h = self.w, self.h
+        dt = np.uint8 if self.cfg.sps.bit_depth == 8 else np.int16
         rows = []
         for y, u, v in blk:
             rows.append(np.concatenate([
-                _pad_to(np.asarray(y), h, w).astype(np.uint8).ravel(),
-                _pad_to(np.asarray(u), h // 2, w // 2).astype(np.uint8).ravel(),
-                _pad_to(np.asarray(v), h // 2, w // 2).astype(np.uint8).ravel(),
+                _pad_to(np.asarray(y), h, w).astype(dt).ravel(),
+                _pad_to(np.asarray(u), h // 2, w // 2).astype(dt).ravel(),
+                _pad_to(np.asarray(v), h // 2, w // 2).astype(dt).ravel(),
             ]))
         return np.stack(rows).reshape(self.n_gops, self.G, -1)
 
@@ -504,9 +523,9 @@ class LdpScanDriver:
         blk = self.frames[1:][s : s + self.K]
         nvalid = len(blk)
         blk = blk + [blk[-1]] * (self.K - nvalid)
-        host = torch.from_numpy(self._chunk_u8(blk))
+        host = torch.from_numpy(self._chunk_frames(blk))
         if self.cuda:
-            staged = torch.empty(host.shape, dtype=torch.uint8,
+            staged = torch.empty(host.shape, dtype=host.dtype,
                                  pin_memory=True)
             staged.copy_(host)
             frames = staged.to(self.device, non_blocking=True)

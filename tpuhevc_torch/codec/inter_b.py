@@ -88,7 +88,7 @@ def build_b_step(cfg: EncoderConfig, qp: int, nn_params, device):
                 .reshape(n, s, s).contiguous())
 
     def step(oy, ou, ov, r0y, r0u, r0v, r1y, r1u, r1v):
-        mv_int, sad9 = b_me(oy, r0y, r1y, lam_me, sr)
+        mv_int, sad9 = b_me(oy, r0y, r1y, lam_me, sr, bit_depth=bd)
         mvq = mv_int * 4
         if nn_m is not None:
             _, _, qoff = nn_refine(nn_m, sad9.reshape(2 * n, 9), hc, wc)

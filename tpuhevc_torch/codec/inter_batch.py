@@ -24,6 +24,13 @@ reference's, `inter_batch.py:36-71,362-421`). The `lax.scan` over GOPs
 becomes a Python loop; launches are asynchronous, so the loop only
 enqueues work. `picture_pipeline`, `choose32` and `scatter_planes` serve
 the per-frame P stage (`inter_enc.build_stage`) as well.
+
+Main10: at bit depth 10 the kernels take their 10-bit variants, the
+source frames come as 16-bit samples and the row carries the recon as
+16-bit little-endian samples (`recon_dtype`). The reference cuts its
+10-bit recon to bytes in the row (`inter_batch.py:327-329`), and its
+closure `mc_blk` keeps the 8-bit interpolation shifts at 10 bits; the
+port does neither. At 8 bits the row is the reference's byte for byte.
 """
 
 from __future__ import annotations
@@ -74,6 +81,19 @@ def _u8(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.uint8).reshape(-1)
 
 
+def recon_dtype(bit_depth: int) -> np.dtype:
+    """The recon samples' type in a packed row: a byte at 8 bits, 16-bit
+    little-endian above."""
+    return np.dtype(np.uint8 if bit_depth == 8 else "<i2")
+
+
+def pack_recon(x: torch.Tensor, bit_depth: int) -> torch.Tensor:
+    """Recon samples as the row's bytes (`recon_dtype`)."""
+    if bit_depth == 8:
+        return x.to(torch.uint8).reshape(-1)
+    return _u8(x.to(torch.int16))
+
+
 def _tables(cfg, classes, dev: torch.device) -> dict:
     w, h = cfg.sps.coded_width, cfg.sps.coded_height
     tabs = {}
@@ -96,13 +116,13 @@ def _tables(cfg, classes, dev: torch.device) -> dict:
 
 def picture_pipeline(orig, ref, tabs: dict, classes, qp: int, lam_full: int,
                      lam_me: int, nn_m, bits: torch.Tensor, sr: int,
-                     subsample: bool) -> dict:
+                     subsample: bool, bit_depth: int) -> dict:
     """ME, FME, MC and TU coding of a P picture's CU classes: the class
     pipeline of the LD-P scan (`inter_batch.py:212-254`, subsample on) and
     of the per-frame P stage (`inter_enc.py:137-276` on the jax backend,
     subsample off). K1 searches every class in one launch; K2 refines up
     to K2_SEGS classes a launch; K3 predicts and K4 codes every class's
-    Y, U and V in one launch each.
+    Y, U and V in one launch each, at bit_depth (8 or 10).
     orig / ref: (y, u, v) int32 planes; tabs: the classes' gather tables
     (`_tables`). Returns {tag: the class's arrays}, d and bits int32
     after the drop, summed over its three planes."""
@@ -113,7 +133,7 @@ def picture_pipeline(orig, ref, tabs: dict, classes, qp: int, lam_full: int,
     found = sad_search_classes(
         ry, [(cur, tabs[tag]["xs"], tabs[tag]["ys"])
              for cur, (tag, _, _) in zip(curs, classes)],
-        bits, lam_me, sr, subsample)
+        bits, lam_me, sr, subsample, bit_depth=bit_depth)
     mvqs = [mv_int * 4 for mv_int, _ in found]
     if nn_m is not None:  # K2: up to K2_SEGS classes a launch
         parts = [(sad9, height_category(size), width_category(size))
@@ -129,7 +149,7 @@ def picture_pipeline(orig, ref, tabs: dict, classes, qp: int, lam_full: int,
         mc_jobs += [(ry, t["xs"], t["ys"], mvq, size, True),
                     (ru, t["xs_c"], t["ys_c"], mvq, size // 2, False),
                     (rv, t["xs_c"], t["ys_c"], mvq, size // 2, False)]
-    preds = mc_blk_planes(mc_jobs)
+    preds = mc_blk_planes(mc_jobs, bit_depth)
     arrs, jobs = {}, []
     for i, (cur, mvq, (mv_int, sad9), (tag, _, _)) in enumerate(
             zip(curs, mvqs, found, classes)):
@@ -138,7 +158,7 @@ def picture_pipeline(orig, ref, tabs: dict, classes, qp: int, lam_full: int,
                  (ou.reshape(-1)[blk_c], preds[3 * i + 1], qpc),
                  (ov.reshape(-1)[blk_c], preds[3 * i + 2], qpc)]
         arrs[tag] = dict(mvq=mvq, sad9=sad9, mv_int=mv_int)
-    coded = txq_planes(jobs, lam_full)
+    coded = txq_planes(jobs, lam_full, bit_depth)
     for i, (tag, _, _) in enumerate(classes):
         y, u, v = coded[3 * i : 3 * i + 3]  # each (lvl, rec, d, bits)
         arrs[tag].update(lvl=y[0], rec=y[1], lvl_u=u[0], rec_u=u[1],
@@ -191,17 +211,19 @@ def scatter_planes(arrs: dict, tabs: dict, classes, use32, h: int, w: int,
 
 
 def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
-    """Returns (fn, grids, qps) where fn(frames_u8 (n_gops, G, fsz) uint8,
-    ry, ru, rv int32 planes) -> (packed (n_gops*G, B) uint8, ry, ru, rv),
-    all on `device`. qps[g] is the QP of GOP position g (offsets applied).
+    """Returns (fn, grids, qps) where fn(frames (n_gops, G, fsz) uint8, or
+    int16 at 10 bits, ry, ru, rv int32 planes) -> (packed (n_gops*G, B)
+    uint8, ry, ru, rv), all on `device`. qps[g] is the QP of GOP position
+    g (offsets applied).
     nn_by_qp maps a QP to NN-FME weights (a dict of numpy arrays, as
     `models.nnfme.load_npz` gives them; or None: integer-pel MVs, as the
     reference)."""
     dev = resolve(device)
     sps = cfg.sps
     w, h = sps.coded_width, sps.coded_height
-    if sps.bit_depth != 8:
-        raise NotImplementedError("not yet ported: bit depth != 8")
+    bd = sps.bit_depth
+    if bd not in (8, 10):
+        raise NotImplementedError(f"not yet ported: bit depth {bd}")
     sr = min(cfg.search_range, 16)
     offs = tuple(cfg.gop_qp_offsets) or (0,)
     G = len(offs)
@@ -227,7 +249,7 @@ def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
         orig = (oy, ou, ov)
         lam_me = int(round(np.sqrt(lam_full / 256.0) * 256))
         arrs = picture_pipeline(orig, ref, tabs, classes, qp, lam_full,
-                                lam_me, nn_m, bits, sr, True)
+                                lam_me, nn_m, bits, sr, True, bd)
         use32 = choose32(arrs, lam_full) if n32 else None
 
         planes = scatter_planes(arrs, tabs, classes, use32, h, w,
@@ -237,9 +259,8 @@ def build_ldp_scan(cfg: EncoderConfig, nn_by_qp: dict, n_gops: int, device):
         parts = [_u8(planes["lvl"][0].to(torch.int16)),
                  _u8(planes["lvl"][1].to(torch.int16)),
                  _u8(planes["lvl"][2].to(torch.int16)),
-                 ry2.to(torch.uint8).reshape(-1),
-                 ru2.to(torch.uint8).reshape(-1),
-                 rv2.to(torch.uint8).reshape(-1)]
+                 pack_recon(ry2, bd), pack_recon(ru2, bd),
+                 pack_recon(rv2, bd)]
         for tag, poss, _ in classes:
             a = arrs[tag]
             n = len(poss)
@@ -272,6 +293,8 @@ def collect_frame(cfg, buf: np.ndarray):
     sps = cfg.sps
     w, h = sps.coded_width, sps.coded_height
     grids, classes = _positions(cfg)
+    rdt = recon_dtype(sps.bit_depth)
+    rs = rdt.itemsize
     off = 0
 
     def take(nbytes, dtype, shape):
@@ -283,9 +306,9 @@ def collect_frame(cfg, buf: np.ndarray):
     lvl_y = take(w * h * 2, np.int16, (h, w))
     lvl_u = take(w * h // 2, np.int16, (h // 2, w // 2))
     lvl_v = take(w * h // 2, np.int16, (h // 2, w // 2))
-    rec_y = take(w * h, np.uint8, (h, w))
-    rec_u = take(w * h // 4, np.uint8, (h // 2, w // 2))
-    rec_v = take(w * h // 4, np.uint8, (h // 2, w // 2))
+    rec_y = take(w * h * rs, rdt, (h, w))
+    rec_u = take(w * h // 4 * rs, rdt, (h // 2, w // 2))
+    rec_v = take(w * h // 4 * rs, rdt, (h // 2, w // 2))
     meta = {}
     for tag, poss, size in classes:
         n = len(poss)

@@ -331,8 +331,14 @@ def _build_per_cu(cfg, grids, arrs, use32) -> dict:
 
 
 def _stage_collect(cfg, buf: np.ndarray, grids) -> dict:
-    """Fetched uint8 buffer -> per-CU dict (mirrors _stage_fn packing)."""
+    """Fetched uint8 buffer -> per-CU dict (mirrors _stage_fn packing;
+    the recon as 16-bit samples at 10 bits, where the reference's row cuts
+    them to bytes)."""
+    from .inter_batch import recon_dtype
+
     pos32, sub16, pos16_free, pos8 = grids
+    rdt = recon_dtype(cfg.sps.bit_depth)
+    rs = rdt.itemsize
     off = 0
 
     def take(nbytes, dtype, shape):
@@ -354,11 +360,11 @@ def _stage_collect(cfg, buf: np.ndarray, grids) -> dict:
             sad9=take(n * 36, np.int32, (n, 9)),
             mv_int=take(n * 8, np.int32, (n, 2)),
             lvl=take(n * size * size * 2, np.int16, (n, size, size)),
-            rec=take(n * size * size, np.uint8, (n, size, size)),
+            rec=take(n * size * size * rs, rdt, (n, size, size)),
             lvl_u=take(n * cs * cs * 2, np.int16, (n, cs, cs)),
-            rec_u=take(n * cs * cs, np.uint8, (n, cs, cs)),
+            rec_u=take(n * cs * cs * rs, rdt, (n, cs, cs)),
             lvl_v=take(n * cs * cs * 2, np.int16, (n, cs, cs)),
-            rec_v=take(n * cs * cs, np.uint8, (n, cs, cs)),
+            rec_v=take(n * cs * cs * rs, rdt, (n, cs, cs)),
         )
         arrs[tag]["mv"] = arrs[tag]["mvq"]
     use32 = None
@@ -376,14 +382,16 @@ def build_stage(cfg: EncoderConfig, nn_params, lambda_fp: int, device):
     """The per-frame P stage on `device` (twin of `_stage_fn`). Returns
     (fn, grids): fn(oy, ou, ov, ry, ru, rv) (int32 planes on the device)
     -> (packed uint8 row in `_stage_collect`'s layout, rec_y, rec_u,
-    rec_v); grids as `_grid_hier`. Cached per configuration, weights and
+    rec_v); grids as `_grid_hier`. At 10 bits the row carries the recon
+    as 16-bit samples (the reference's cuts them to bytes). Cached per configuration, weights and
     device, as the reference caches its jitted stage."""
     from .inter_batch import (_positions, _tables, _u8, choose32,
-                              picture_pipeline, scatter_planes)
+                              pack_recon, picture_pipeline, scatter_planes)
 
     dev = resolve(device)
     sps = cfg.sps
     w, h = sps.coded_width, sps.coded_height
+    bd = sps.bit_depth
     sr = min(cfg.search_range, 16)
     use_nn = nn_params is not None and cfg.fme_mode == "nn"
     key = (cfg.fme_mode, cfg.qp, sps.bit_depth, sr, lambda_fp, w, h,
@@ -400,7 +408,8 @@ def build_stage(cfg: EncoderConfig, nn_params, lambda_fp: int, device):
 
     def run(oy, ou, ov, ry, ru, rv):
         arrs = picture_pipeline((oy, ou, ov), (ry, ru, rv), tabs, classes,
-                                qp, lam, lambda_fp, nn_m, bits, sr, False)
+                                qp, lam, lambda_fp, nn_m, bits, sr, False,
+                                bd)
         use32 = choose32(arrs, lam) if grids[0] else None
         rec_y, rec_u, rec_v = scatter_planes(arrs, tabs, classes, use32, h,
                                              w)["rec"]
@@ -408,12 +417,11 @@ def build_stage(cfg: EncoderConfig, nn_params, lambda_fp: int, device):
         for tag, _, _ in classes:
             a = arrs[tag]
             parts += [_u8(a["mvq"]), _u8(a["sad9"]), _u8(a["mv_int"]),
-                      _u8(a["lvl"].to(torch.int16)),
-                      a["rec"].to(torch.uint8).reshape(-1),
+                      _u8(a["lvl"].to(torch.int16)), pack_recon(a["rec"], bd),
                       _u8(a["lvl_u"].to(torch.int16)),
-                      a["rec_u"].to(torch.uint8).reshape(-1),
+                      pack_recon(a["rec_u"], bd),
                       _u8(a["lvl_v"].to(torch.int16)),
-                      a["rec_v"].to(torch.uint8).reshape(-1)]
+                      pack_recon(a["rec_v"], bd)]
         if use32 is not None:
             parts.append(_u8(use32.to(torch.int32)))
         return torch.cat(parts), rec_y, rec_u, rec_v

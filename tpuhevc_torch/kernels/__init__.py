@@ -13,7 +13,9 @@ wrapper that launches a kernel lives beside the op's plain PyTorch version
 adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`sad_search` launches once a P picture of the LD-P scan or the P stage
 for all its CU classes, `mc_blk` and `txq` once each for all their Y, U
-and V planes;
+and V planes; at 10 bits they count as `sad_search10`, `mc_blk10` and
+`txq10`, and `intra_txq` as `intra_txq10`: the 10-bit variants of the
+same sources;
 `grid_deblock` once a picture, both edge directions;
 `grid_code` once for the planes of one class coding; `grid_satd_cost`
 once for up to eight fields of CU costs; `grid_coarse` and
@@ -47,7 +49,10 @@ SOURCE_OF = {"sad_search": "sad_search", "nnfme_mlp": "nnfme_mlp",
              "intra_wave": "intra_wave",
              "stripe_prescreen": "stripe_prescreen",
              "fme_train_fwd": "fme_train", "fme_train_bwd": "fme_train",
-             "fme_adam": "fme_train"}
+             "fme_adam": "fme_train",
+             # the 10-bit variants (Main10), in the same sources
+             "sad_search10": "sad_search", "mc_blk10": "mc_blk",
+             "txq10": "txq", "intra_txq10": "intra_txq"}
 KERNELS = tuple(SOURCE_OF)
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 

@@ -13,7 +13,9 @@
 // error plus lambda times the table bits, then per 4x4 CG the all-zero
 // trial against the coded-sub-block flag); then dequantise, inverse
 // transform, and dist = sum (r - rec)^2, d0 = sum r^2 (int32, rounded
-// once to float32).
+// once to float32). The bit depth BD (8 or 10) sets the transforms'
+// shifts (tu_team.cuh) and, on the host, the quantiser's constants; the
+// 10-bit variant is the 8-bit code with those shifts compiled in.
 // Float32 semantics are the PyTorch version's, op by op: the divisions by
 // constants as products with their float32 reciprocals (as XLA takes
 // them), the division by 2^rice a product with 2^-rice (exact), no
@@ -46,7 +48,7 @@
 
 namespace {
 
-template <int LOG2>
+template <int LOG2, int BD>
 __global__ void __launch_bounds__(kTuBlock)
 intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
               const int* __restrict__ rows, const int* __restrict__ modes,
@@ -82,7 +84,7 @@ intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
         d0 += r[j] * r[j];
     }
     __syncthreads();
-    team_forward<LOG2>(X, Y, s_m, t);
+    team_forward<LOG2, BD>(X, Y, s_m, t);
     if (rdoq) {  // a CG a 16-lane group: coefficient i of CG g at c
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
@@ -114,7 +116,7 @@ intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
         tx_matrix_col<LOG2>(s_m, t & (S - 1), tc);
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
-            const int d = r[j] - tx_inv_row_at<LOG2>(
+            const int d = r[j] - tx_inv_row_at<LOG2, BD>(
                                      Y, tc, (t + TEAM * j) >> LOG2);
             dist += d * d;
         }
@@ -127,14 +129,14 @@ intra_txq_tus(const int* __restrict__ org, const int* __restrict__ preds,
     }
 }
 
-template <int LOG2>
+template <int LOG2, int BD>
 int launch_tus(const int* org, const int* preds, const int* rows,
                const int* modes, const float* ftab, float* dist, float* d0,
                int* lvl, int ntu, int K, int dst, int qscale, int qadd,
                int qbits, int dqscale, int dqshift, int rdoq, Rdoq rq,
                cudaStream_t st) {
     constexpr int TUS = TuTeam<LOG2>::TUS;
-    intra_txq_tus<LOG2><<<(ntu + TUS - 1) / TUS, kTuBlock, 0, st>>>(
+    intra_txq_tus<LOG2, BD><<<(ntu + TUS - 1) / TUS, kTuBlock, 0, st>>>(
         org, preds, rows, modes, ftab, dist, d0, lvl, ntu, K, dst, qscale,
         qadd, qbits, dqscale, dqshift, rdoq, rq);
     return (int)cudaGetLastError();
@@ -156,8 +158,8 @@ extern "C" int tpuhevc_intra_txq_init(const int* host_t32,
 // device, S = 1 << log2 -> dist, d0 (m, K) float32, lvl (m, K, S, S)
 // int32. ftab: the TU size's float32 bit tables (read only with rdoq).
 // Quantiser constants as tpuhevc_torch/ops/transforms.py quant_params /
-// dequant_params / rdoq_consts give them; lam, lc0 = lam * csbf[0][0],
-// lc1 = lam * csbf[0][1] rounded to float32.
+// dequant_params / rdoq_consts give them at bit_depth (8 or 10); lam,
+// lc0 = lam * csbf[0][0], lc1 = lam * csbf[0][1] rounded to float32.
 extern "C" int tpuhevc_intra_txq(const int* org, const int* preds,
                                  const int* rows, const int* modes,
                                  const float* ftab, float* dist, float* d0,
@@ -166,19 +168,22 @@ extern "C" int tpuhevc_intra_txq(const int* org, const int* preds,
                                  int dqshift, int rdoq, float scale,
                                  float qdiv, float inv_qdiv, float inv_den,
                                  float lam, float lc0, float lc1,
-                                 void* stream) {
+                                 int bit_depth, void* stream) {
     const Rdoq rq = {scale, qdiv, inv_qdiv, inv_den, lam, lc0, lc1};
     const int ntu = m * K;
+    if (bit_depth != 8 && bit_depth != 10) return (int)cudaErrorInvalidValue;
     if (ntu == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-#define TPUHEVC_TUS(LG)                                                     \
-    launch_tus<LG>(org, preds, rows, modes, ftab, dist, d0, lvl, ntu, K,   \
-                   dst, qscale, qadd, qbits, dqscale, dqshift, rdoq, rq, st)
+#define TPUHEVC_TUS(LG, BD)                                                 \
+    launch_tus<LG, BD>(org, preds, rows, modes, ftab, dist, d0, lvl, ntu,  \
+                       K, dst, qscale, qadd, qbits, dqscale, dqshift, rdoq, \
+                       rq, st)
+    const bool ten = bit_depth == 10;
     switch (log2) {
-        case 2: return TPUHEVC_TUS(2);
-        case 3: return TPUHEVC_TUS(3);
-        case 4: return TPUHEVC_TUS(4);
-        case 5: return TPUHEVC_TUS(5);
+        case 2: return ten ? TPUHEVC_TUS(2, 10) : TPUHEVC_TUS(2, 8);
+        case 3: return ten ? TPUHEVC_TUS(3, 10) : TPUHEVC_TUS(3, 8);
+        case 4: return ten ? TPUHEVC_TUS(4, 10) : TPUHEVC_TUS(4, 8);
+        case 5: return ten ? TPUHEVC_TUS(5, 10) : TPUHEVC_TUS(5, 8);
         default: return (int)cudaErrorInvalidValue;
     }
 #undef TPUHEVC_TUS

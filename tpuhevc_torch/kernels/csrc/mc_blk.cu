@@ -3,15 +3,20 @@
 //
 // Replaces: tpuhevc/codec/inter_batch.py:166, `mc_blk` (a closure of
 // build_ldp_scan that XLA compiled for the TPU); same semantics as
-// tpuhevc/ops/interp.py:141 `mc` at 8 bits.
+// tpuhevc/ops/interp.py:141 `mc` at 8 bits; at 10 bits `mc` (and the
+// numpy `mc_np`) with their bit-depth shifts, which the scan's closure
+// does not take (it keeps the 8-bit shifts at any depth).
 //
 // What it computes, per PU n of a job (a plane of a class: its PUs of
 // size S, luma or chroma): the integer position (x + (mv >> FS),
 // y + (mv >> FS)) and the phase (mv & FM), with >> and & on signed ints
 // (floor, as in JAX); the (S + NT - 1)^2 window clamped at the plane edge;
-// h[r][c] = sum_i win[r][c + i] * taps[fx][i]; v[r][c] =
+// h[r][c] = (sum_i win[r][c + i] * taps[fx][i]) >> (BD - 8); v[r][c] =
 // (sum_i h[r + i][c] * taps[fy][i]) >> 6 (the 14-bit intermediate, all in
-// int32: the sums stay below 2^22); out = clip((v + 32) >> 6, 0, 255).
+// int32: the sums stay below 2^22); out = clip((v + 2^(13 - BD)) >>
+// (14 - BD), 0, 2^BD - 1), BD the bit depth (8 or 10, a template
+// argument: the 10-bit variant is the 8-bit code with its shifts and clip
+// compiled in, one launch one depth).
 // Luma: 8 taps, quarter pel (FS 2, FM 3, window offset 3); chroma: 4
 // taps, eighth pel (FS 3, FM 7, offset 1).
 //
@@ -109,11 +114,15 @@ constexpr int warp_words() {
 }
 constexpr int kWarpWords = warp_words();
 
-__device__ __forceinline__ int clip8(int v) { return min(max(v, 0), 255); }
+// a sample clipped to 0..2^BD - 1
+template <int BD>
+__device__ __forceinline__ int clip_bd(int v) {
+    return min(max(v, 0), (1 << BD) - 1);
+}
 
 // The warp's units of job k: warp `wid` of the job takes units wid * G ..
 // wid * G + G - 1, a team each.
-template <int S, bool LUMA>
+template <int S, bool LUMA, int BD>
 __device__ __forceinline__ void mc_units(const McJob& k, int wid,
                                          int* s_warp) {
     using M = McShape<S, LUMA>;
@@ -168,7 +177,7 @@ __device__ __forceinline__ void mc_units(const McJob& k, int wid,
         int acc = 0;
 #pragma unroll
         for (int i = 0; i < NT; ++i) acc += w[i] * th[i];
-        h[r] = acc;
+        h[r] = acc >> (BD - 8);
     }
     int o[R];
 #pragma unroll
@@ -176,7 +185,7 @@ __device__ __forceinline__ void mc_units(const McJob& k, int wid,
         int acc = 0;
 #pragma unroll
         for (int i = 0; i < NT; ++i) acc += h[r + i] * tv[i];
-        o[r] = clip8(((acc >> 6) + 32) >> 6);
+        o[r] = clip_bd<BD>(((acc >> 6) + (1 << (13 - BD))) >> (14 - BD));
     }
     // the unit's R x S outputs through the slice, out as 16-byte vectors
     __syncwarp();
@@ -192,6 +201,7 @@ __device__ __forceinline__ void mc_units(const McJob& k, int wid,
     }
 }
 
+template <int BD>
 __global__ void __launch_bounds__(kWarps * 32)
 mc_blk_jobs(const __grid_constant__ McJobs jobs) {
     __shared__ __align__(16) int s_mem[kWarps][kWarpWords];
@@ -204,15 +214,15 @@ mc_blk_jobs(const __grid_constant__ McJobs jobs) {
     int* s = s_mem[warp];
     if (j.luma) {
         switch (j.size) {
-            case 32: mc_units<32, true>(j, wid, s); break;
-            case 16: mc_units<16, true>(j, wid, s); break;
-            default: mc_units<8, true>(j, wid, s); break;
+            case 32: mc_units<32, true, BD>(j, wid, s); break;
+            case 16: mc_units<16, true, BD>(j, wid, s); break;
+            default: mc_units<8, true, BD>(j, wid, s); break;
         }
     } else {
         switch (j.size) {
-            case 16: mc_units<16, false>(j, wid, s); break;
-            case 8: mc_units<8, false>(j, wid, s); break;
-            default: mc_units<4, false>(j, wid, s); break;
+            case 16: mc_units<16, false, BD>(j, wid, s); break;
+            case 8: mc_units<8, false, BD>(j, wid, s); break;
+            default: mc_units<4, false, BD>(j, wid, s); break;
         }
     }
 }
@@ -231,10 +241,12 @@ int job_warps(int n, int size) {
 // (n,), mvq (n, 2) int32 in, out (n, S, S) int32 (16-byte aligned), all
 // on the device; ints[5 i ..] = n >= 1, H, W, S, luma (1: luma, S in 8,
 // 16, 32, quarter-pel MVs; 0: chroma, S in 4, 8, 16, eighth-pel MVs).
-// The arrays lie in host memory and go by value into the launch.
+// The planes hold samples of bit_depth 8 or 10. The arrays lie in host
+// memory and go by value into the launch.
 extern "C" int tpuhevc_mc_blk(int njobs, void* const* ptrs, const int* ints,
-                              void* stream) {
-    if (njobs < 1 || njobs > kMaxJobs) return (int)cudaErrorInvalidValue;
+                              int bit_depth, void* stream) {
+    if (njobs < 1 || njobs > kMaxJobs || (bit_depth != 8 && bit_depth != 10))
+        return (int)cudaErrorInvalidValue;
     McJobs jobs = {};
     jobs.njobs = njobs;
     int blocks = 0;
@@ -259,6 +271,9 @@ extern "C" int tpuhevc_mc_blk(int njobs, void* const* ptrs, const int* ints,
         j.block0 = blocks;
         blocks += (job_warps(j.n, j.size) + kWarps - 1) / kWarps;
     }
-    mc_blk_jobs<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(jobs);
+    if (bit_depth == 8)
+        mc_blk_jobs<8><<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(jobs);
+    else
+        mc_blk_jobs<10><<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(jobs);
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // K1: dense full-pel SAD search with the NN-FME 3x3 SAD surface, 8-bit
-// video, the CU classes of a P picture in one launch.
+// or 10-bit video, the CU classes of a P picture in one launch.
 //
 // Replaces: tpuhevc/codec/inter_batch.py:139, `sad_search` (a closure of
 // build_ldp_scan that XLA compiled for the TPU), with the window gather
@@ -16,7 +16,9 @@
 // over the inner (2sr-1)^2 square in row-major order, the first index
 // winning ties as in jnp.argmin; mv = (bx - sr, by - sr) and the 3x3 raw
 // (shifted) SADs around the winner. Samples are 8-bit (0..255 in the
-// int32 planes), packed four to a word on the card.
+// int32 planes), packed four to a word on the card, or 10-bit (0..1023,
+// the caller's explicit bit_depth picks the variant, never the data); a
+// 32x32 SAD at 10 bits is at most 1,047,552, so int32 sums are exact.
 //
 // What bounds it: integer work, 3 operations an abs-diff: 1089 offsets x
 // S^2 samples (half the rows with subsample) a PU at sr 16, 0.63 G
@@ -45,6 +47,10 @@
 // flat index, which orders the inner square as its row-major index does)
 // by warp shuffles and a shared atomicMin; nine lanes read sad9. Offsets
 // and indices come from multiply-highs: no division per candidate.
+// The 10-bit variant is plain: a block a PU of any size, its clamped
+// window and the PU staged in shared memory as 16-bit samples, a thread
+// an offset at a time summing |window - PU| over the PU's rows in int32,
+// then the same pick (it bounds nothing yet: a simple kernel first).
 
 #include <cooperative_groups.h>
 
@@ -318,6 +324,69 @@ __device__ __forceinline__ void pus8(const SadJob& j, const SadClass& c,
     pick(j, sm.sad[p], t, team, &sm.best[p], c, n, live, 0);
 }
 
+// --- 10-bit: a block a PU ---------------------------------------------------
+
+constexpr int kThreads10 = 256;
+constexpr int kWin10 = 32 + 2 * kMaxSr;  // the widest window: 64
+
+struct Sm10 {
+    unsigned short wnd[kWin10 * kWin10];  // the clamped window, win pitch
+    unsigned short cur[32 * 32];          // the PU, S pitch
+    int sad[kMaxSide * kMaxSide];
+    unsigned long long best;
+};
+
+// PU blk of class c (S x S): its unshifted surface over every offset
+// (rows 0, 2, ... where SUB and S > 8), then the pick.
+template <int S, bool SUB>
+__device__ __forceinline__ void pu10(const SadJob& j, const SadClass& c,
+                                     int n, Sm10& sm) {
+    constexpr bool sub = SUB && S > 8;
+    const int side = 2 * j.sr + 1, win = S + 2 * j.sr;
+    const int x0 = __ldg(c.xs + n), y0 = __ldg(c.ys + n);
+    for (int r = threadIdx.y; r < win; r += blockDim.y) {
+        const int* row = ref_row(j, y0, r);
+        for (int q = threadIdx.x; q < win; q += blockDim.x)
+            sm.wnd[r * win + q] = (unsigned short)__ldg(
+                row + min(max(x0 - j.sr + q, 0), j.W - 1));
+    }
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int* cp = c.cur + (size_t)n * S * S;
+    for (int e = tid; e < S * S; e += kThreads10)
+        sm.cur[e] = (unsigned short)__ldg(cp + e);
+    if (tid == 0) sm.best = ~0ull;
+    __syncthreads();
+    for (int k = tid; k < side * side; k += kThreads10) {
+        const int dy = div_side(j, k), dx = k - dy * side;
+        int acc = 0;
+        for (int r = 0; r < S; r += sub ? 2 : 1) {
+            const unsigned short* w = sm.wnd + (dy + r) * win + dx;
+            const unsigned short* p = sm.cur + r * S;
+#pragma unroll 8
+            for (int q = 0; q < S; ++q) acc += abs((int)w[q] - (int)p[q]);
+        }
+        sm.sad[k] = acc;
+    }
+    __syncthreads();
+    pick(j, sm.sad, tid, kThreads10, &sm.best, c, n, true, sub ? 1 : 0);
+}
+
+template <bool SUB>
+__global__ void __launch_bounds__(kThreads10)
+sad_search10_kernel(const __grid_constant__ SadJob job) {
+    __shared__ Sm10 sm;
+    const int b = blockIdx.x;
+    int k = 0;  // this block's class
+    while (k + 1 < job.ncls && b >= job.c[k + 1].block0) ++k;
+    const SadClass& c = job.c[k];
+    const int n = b - c.block0;
+    switch (c.size) {
+        case 32: pu10<32, SUB>(job, c, n, sm); break;
+        case 16: pu10<16, SUB>(job, c, n, sm); break;
+        default: pu10<8, SUB>(job, c, n, sm); break;
+    }
+}
+
 // blocks of class c: S = 32 kCluster a PU, S = 16 one a PU, S = 8 one for
 // two PUs
 __host__ __device__ __forceinline__ int class_blocks(int n, int size) {
@@ -348,15 +417,19 @@ sad_search_kernel(const __grid_constant__ SadJob job) {
 // the largest PUs first (a 32x32 class's clusters start at a block index
 // that is a multiple of 4). Class i: ptrs[5 i ..] = cur (n, S, S), xs, ys
 // (n,) int32, mv (n, 2), sad9 (n, 9) int32 out; ints[2 i ..] = n >= 1, S
-// in {8, 16, 32}. ref (H, W) int32 plane of 8-bit samples (0..255), bits
-// (2sr+1, 2sr+1) int32, all on the device, cur 16-byte aligned; sr 1..16.
-// subsample: the 2:1 row rule for S > 8 (0 searches every row). The
-// arrays lie in host memory and go by value into the launch.
+// in {8, 16, 32}. ref (H, W) int32 plane of samples of bit_depth (8:
+// 0..255, the packed variant; 10: 0..1023, a block a PU), cur of the same
+// depth, bits (2sr+1, 2sr+1) int32, all on the device, cur 16-byte
+// aligned; sr 1..16. subsample: the 2:1 row rule for S > 8 (0 searches
+// every row). The arrays lie in host memory and go by value into the
+// launch.
 extern "C" int tpuhevc_sad_search(int ncls, void* const* ptrs, const int* ints,
                                   const int* ref, int H, int W,
                                   const int* bits, int sr, int lam_me,
-                                  int subsample, void* stream) {
-    if (ncls < 1 || ncls > kMaxClasses || sr < 1 || sr > kMaxSr)
+                                  int subsample, int bit_depth,
+                                  void* stream) {
+    if (ncls < 1 || ncls > kMaxClasses || sr < 1 || sr > kMaxSr
+        || (bit_depth != 8 && bit_depth != 10))
         return (int)cudaErrorInvalidValue;
     SadJob job = {};
     job.ncls = ncls;
@@ -379,11 +452,21 @@ extern "C" int tpuhevc_sad_search(int ncls, void* const* ptrs, const int* ints,
         c.n = ints[2 * i];
         c.size = ints[2 * i + 1];
         if (c.n < 1 || (c.size != 8 && c.size != 16 && c.size != 32)
-            || (c.size == 32 && blocks % kCluster))
+            || (bit_depth == 8 && c.size == 32 && blocks % kCluster))
             return (int)cudaErrorInvalidValue;
         if (c.size == 32) cluster = kCluster;
         c.block0 = blocks;
-        blocks += class_blocks(c.n, c.size);
+        blocks += bit_depth == 10 ? c.n : class_blocks(c.n, c.size);
+    }
+    if (bit_depth == 10) {
+        const dim3 threads(32, kThreads10 / 32);
+        if (subsample)
+            sad_search10_kernel<true><<<blocks, threads, 0,
+                                        (cudaStream_t)stream>>>(job);
+        else
+            sad_search10_kernel<false><<<blocks, threads, 0,
+                                         (cudaStream_t)stream>>>(job);
+        return (int)cudaGetLastError();
     }
     blocks = (blocks + cluster - 1) / cluster * cluster;
     // threads: the owners of a 16-wide unit and of two 8x8 PUs, in whole

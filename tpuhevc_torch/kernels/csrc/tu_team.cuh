@@ -4,7 +4,9 @@
 //
 // What it computes: the forward and inverse HEVC transforms of
 // tx_common.cuh (the same integer stages, the same int32 sums), for an
-// S x S TU (S = 1 << LOG2 in 4..32) held in the team's shared slice.
+// S x S TU (S = 1 << LOG2 in 4..32) held in the team's shared slice, at
+// the bit depth BD (a template argument, 8 unless given: it sets the
+// forward rows' shift, LOG2 + BD - 9, and the inverse rows', 20 - BD).
 //
 // Layout: TuTeam<LOG2> gives the team TEAM lanes and CPL coefficients a
 // lane, and a block of kTuBlock threads TUS TUs: 4x4 16 lanes a TU (two a
@@ -119,14 +121,14 @@ __device__ __forceinline__ void tx_stage_mats(TxMats<LOG2>& m, int dst) {
 
 // X: the team's residual (complete, visible to the team) -> X: its
 // coefficients; Y holds the rows stage. Ends with a team barrier.
-template <int LOG2>
+template <int LOG2, int BD = 8>
 __device__ __forceinline__ void team_forward(int* X, int* Y,
                                              const TxMats<LOG2>& m, int t) {
     using L = TuTeam<LOG2>;
     constexpr int S = L::S, TEAM = L::TEAM, CPL = L::CPL, TP = S + 1;
     const int col = t & (S - 1);
     {  // forward rows: Y[y][k] = (sum_x X[y][x] T[k][x] + r1) >> s1
-        constexpr int s1 = LOG2 - 1;
+        constexpr int s1 = LOG2 + BD - 9;
         int tk[S];
 #pragma unroll
         for (int x = 0; x < S; ++x) tk[x] = m.Tp[col * TP + x];
@@ -172,8 +174,8 @@ __device__ __forceinline__ void team_inv_cols(const int* X, int* Y,
 }
 
 // The inverse rows: tc = column col of T (the lane's outputs' column),
-// then the output at row y: clip16((sum_k Y[y][k] T[k][col] + 2^11) >>
-// 12), Y the inverse columns' output (complete)
+// then the output at row y: clip16((sum_k Y[y][k] T[k][col] + 2^(s3-1))
+// >> s3), s3 = 20 - BD, Y the inverse columns' output (complete)
 template <int LOG2>
 __device__ __forceinline__ void tx_matrix_col(const TxMats<LOG2>& m, int col,
                                               int (&tc)[1 << LOG2]) {
@@ -182,12 +184,12 @@ __device__ __forceinline__ void tx_matrix_col(const TxMats<LOG2>& m, int col,
     for (int k = 0; k < S; ++k) tc[k] = m.Tp[k * TP + col];
 }
 
-template <int LOG2>
+template <int LOG2, int BD = 8>
 __device__ __forceinline__ int tx_inv_row_at(const int* Y,
                                              const int (&tc)[1 << LOG2],
                                              int y) {
-    constexpr int S = 1 << LOG2;
-    return clip16((dot_row<S>(Y + y * S, tc) + 2048) >> 12);
+    constexpr int S = 1 << LOG2, s3 = 20 - BD;
+    return clip16((dot_row<S>(Y + y * S, tc) + (1 << (s3 - 1))) >> s3);
 }
 
 }  // namespace

@@ -2,10 +2,12 @@
 // shared by the TU kernels (txq.cu, intra_txq.cu, b_txq.cu, grid_code.cu,
 // intra_wave.cu).
 //
-// What it computes, for an S x S block (S = 1 << log2 in 4..32, 8-bit):
-//   forward:  h = (r T^T + 2^(s1-1)) >> s1, s1 = log2 - 1;
+// What it computes, for an S x S block (S = 1 << log2 in 4..32) of
+// bit depth BD (a template argument, 8 unless given):
+//   forward:  h = (r T^T + 2^(s1-1)) >> s1, s1 = log2 + BD - 9;
 //             c = (T h + 2^(s2-1)) >> s2,   s2 = log2 + 6
-//   inverse:  g = clip16((T^T d + 64) >> 7); r = clip16((g T + 2048) >> 12)
+//   inverse:  g = clip16((T^T d + 64) >> 7);
+//             r = clip16((g T + 2^(s3-1)) >> s3), s3 = 20 - BD
 //   quantise: sign(c) * ((|c| * scale + add) >> qbits), clip16
 //   dequantise: lvl * dqscale, a rounded >> dqshift (or << -dqshift), clip16
 // with T the S-point DCT-II (rows 32/S apart of the 32-point matrix) or
@@ -46,10 +48,11 @@ __device__ __forceinline__ void tx_load_matrix(int* T, int log2, bool dst) {
 // Output e of each stage of an S x S block: forward rows (A residual ->
 // B), forward columns (B -> coefficients), inverse columns (A dequantised
 // -> B), inverse rows (B -> residual).
+template <int BD = 8>
 __device__ __forceinline__ int tx_fwd_rows(const int* A, const int* T,
                                            int log2, int e) {
     const int S = 1 << log2, y = e >> log2, k = e & (S - 1);
-    const int s1 = log2 - 1;
+    const int s1 = log2 + BD - 9;
     int acc = 0;
     for (int x = 0; x < S; ++x) acc += A[y * S + x] * T[k * S + x];
     return (acc + (1 << (s1 - 1))) >> s1;
@@ -72,12 +75,14 @@ __device__ __forceinline__ int tx_inv_cols(const int* A, const int* T,
     return clip16((acc + 64) >> 7);
 }
 
+template <int BD = 8>
 __device__ __forceinline__ int tx_inv_rows(const int* B, const int* T,
                                            int log2, int e) {
     const int S = 1 << log2, y = e >> log2, x = e & (S - 1);
+    constexpr int s3 = 20 - BD;
     int acc = 0;
     for (int k = 0; k < S; ++k) acc += B[y * S + k] * T[k * S + x];
-    return clip16((acc + 2048) >> 12);
+    return clip16((acc + (1 << (s3 - 1))) >> s3);
 }
 
 // the flat quantiser and the dequantiser, as quant_params /

@@ -7,21 +7,24 @@
 // transforms of tpuhevc/ops/transforms.py:144-198.
 //
 // What it computes, per TU of size S (4..32) of each job (a plane of a
-// class: its TUs, its QP's constants), 8-bit:
+// class: its TUs, its QP's constants), at bit depth BD (8 or 10, one
+// launch one depth; the constants from the host at that depth):
 //   r = cur - pred
-//   h = (r T^T + 2^(s1-1)) >> s1, s1 = log2 - 1;  c = (T h + 2^(s2-1)) >> s2, s2 = log2 + 6
+//   h = (r T^T + 2^(s1-1)) >> s1, s1 = log2 + BD - 9;  c = (T h + 2^(s2-1)) >> s2, s2 = log2 + 6
 //   lvl = sign(c) * ((|c| * qscale + qadd) >> qbits), clipped to int16
 //   deq = lvl * dqscale, then a rounded >> dqshift (or << -dqshift), int16
-//   g = clip16((T^T deq + 64) >> 7);  rsd = clip16((g T + 2048) >> 12)
-//   rec = nz ? clip(pred + rsd, 0, 255) : pred, nz = any(lvl != 0)
+//   g = clip16((T^T deq + 64) >> 7);  rsd = clip16((g T + 2^(s3-1)) >> s3), s3 = 20 - BD
+//   rec = nz ? clip(pred + rsd, 0, 2^BD - 1) : pred, nz = any(lvl != 0)
 //   bits = sum(2 * min(15, bitlen|lvl|) + (lvl != 0))
 //   drop = (sse(cur, pred) - sse(cur, rec)) <= (lam_full * bits) >> 8,
 //          the product wrapping in int32 as under JAX
 //   dropped: lvl = 0, rec = pred, d = sse(cur, pred), bits = 0;
 //   else d = sse(cur, rec).
-// Every sum is int32 exactly as in JAX (stage sums stay below 2^28).
-// Where every level is 0, rsd is 0 and pred lies in 0..255, so the clip
-// gives pred: rec = clip(pred + rsd) needs no nz test.
+// Every sum is int32 exactly as in JAX (stage sums stay below 2^28; a
+// 32x32 TU's SSE at 10 bits below 2^30).
+// Where every level is 0, rsd is 0 and pred lies in 0..2^BD - 1, so the
+// clip gives pred: rec = clip(pred + rsd) needs no nz test. The 10-bit
+// variant is the 8-bit code with BD's shifts and clip compiled in.
 //
 // What bounds it: the bytes: device memory sees cur and pred once and
 // writes lvl and rec once (16 bytes a sample, ~0.0014 ms for the 416x240
@@ -80,13 +83,17 @@ union TxqSmemAll {
     TxqSmem<2> s4;
 };
 
-__device__ __forceinline__ int clip8(int v) { return min(max(v, 0), 255); }
+// a sample clipped to 0..2^BD - 1
+template <int BD>
+__device__ __forceinline__ int clip_bd(int v) {
+    return min(max(v, 0), (1 << BD) - 1);
+}
 
 // the 32-point DCT in device memory, staged from there once a block
 __device__ int g_t32[32 * 32];
 
 // The blocks of one job: block blk of it codes TUs blk * TUS + slot.
-template <int LOG2>
+template <int LOG2, int BD>
 __device__ __forceinline__ void txq_tus(const TxqJob& k, int blk,
                                         int lam_full, TxqSmem<LOG2>& sm) {
     using L = TuTeam<LOG2>;
@@ -128,7 +135,7 @@ __device__ __forceinline__ void txq_tus(const TxqJob& k, int blk,
         d_skip = r4.x * r4.x + r4.y * r4.y + r4.z * r4.z + r4.w * r4.w;
     }
     __syncthreads();
-    team_forward<LOG2>(X, Y, sm.m, t);
+    team_forward<LOG2, BD>(X, Y, sm.m, t);
     // quantise the lane's coefficients, count their bits, dequantise
     int bits = 0;
 #pragma unroll
@@ -152,7 +159,7 @@ __device__ __forceinline__ void txq_tus(const TxqJob& k, int blk,
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
             const int e = t + TEAM * j;
-            Y[e] = tx_inv_row_at<LOG2>(X, tc, e >> LOG2);
+            Y[e] = tx_inv_row_at<LOG2, BD>(X, tc, e >> LOG2);
         }
     }
     team_sync<TEAM>();
@@ -160,8 +167,8 @@ __device__ __forceinline__ void txq_tus(const TxqJob& k, int blk,
     int d_coded = 0;
     if (lead) {
         const int4 rs = *reinterpret_cast<const int4*>(Y + 4 * t);
-        r4 = make_int4(clip8(p4.x + rs.x), clip8(p4.y + rs.y),
-                       clip8(p4.z + rs.z), clip8(p4.w + rs.w));
+        r4 = make_int4(clip_bd<BD>(p4.x + rs.x), clip_bd<BD>(p4.y + rs.y),
+                       clip_bd<BD>(p4.z + rs.z), clip_bd<BD>(p4.w + rs.w));
         const int dx = c4.x - r4.x, dy = c4.y - r4.y, dz = c4.z - r4.z,
                   dw = c4.w - r4.w;
         d_coded = dx * dx + dy * dy + dz * dz + dw * dw;
@@ -182,6 +189,7 @@ __device__ __forceinline__ void txq_tus(const TxqJob& k, int blk,
     }
 }
 
+template <int BD>
 __global__ void __launch_bounds__(kTuBlock)
 txq_kernel(const __grid_constant__ TxqJobs jobs) {
     __shared__ TxqSmemAll sm;
@@ -190,10 +198,10 @@ txq_kernel(const __grid_constant__ TxqJobs jobs) {
     while (k + 1 < jobs.njobs && b >= jobs.j[k + 1].block0) ++k;
     const TxqJob& j = jobs.j[k];
     switch (j.log2) {
-        case 5: txq_tus<5>(j, b - j.block0, jobs.lam_full, sm.s32); break;
-        case 4: txq_tus<4>(j, b - j.block0, jobs.lam_full, sm.s16); break;
-        case 3: txq_tus<3>(j, b - j.block0, jobs.lam_full, sm.s8); break;
-        default: txq_tus<2>(j, b - j.block0, jobs.lam_full, sm.s4); break;
+        case 5: txq_tus<5, BD>(j, b - j.block0, jobs.lam_full, sm.s32); break;
+        case 4: txq_tus<4, BD>(j, b - j.block0, jobs.lam_full, sm.s16); break;
+        case 3: txq_tus<3, BD>(j, b - j.block0, jobs.lam_full, sm.s8); break;
+        default: txq_tus<2, BD>(j, b - j.block0, jobs.lam_full, sm.s4); break;
     }
 }
 
@@ -218,15 +226,16 @@ extern "C" int tpuhevc_txq_init(const int* host_t32) {
 
 // njobs jobs (1..12) in one launch, in the order given (the caller puts
 // the largest TUs first). Job i: ptrs[6 i ..] = cur, pred (n, S, S) int32
-// (8-bit samples, pred in 0..255), lvl, rec (n, S, S), d, bits (n,) int32
-// out, all on the device, cur, pred, lvl and rec 16-byte aligned; ints[7 i
-// ..] = n >= 1, log2 (S = 1 << log2 in 4..32), qscale, qadd, qbits,
-// dqscale, dqshift (tpuhevc_torch/ops/transforms.py quant_params /
-// dequant_params). The arrays lie in host memory and go by value into the
-// launch.
+// (samples of bit_depth 8 or 10, pred in 0..2^bit_depth - 1), lvl, rec
+// (n, S, S), d, bits (n,) int32 out, all on the device, cur, pred, lvl and
+// rec 16-byte aligned; ints[7 i ..] = n >= 1, log2 (S = 1 << log2 in
+// 4..32), qscale, qadd, qbits, dqscale, dqshift
+// (tpuhevc_torch/ops/transforms.py quant_params / dequant_params at that
+// depth). The arrays lie in host memory and go by value into the launch.
 extern "C" int tpuhevc_txq(int njobs, void* const* ptrs, const int* ints,
-                           int lam_full, void* stream) {
-    if (njobs < 1 || njobs > kMaxJobs) return (int)cudaErrorInvalidValue;
+                           int lam_full, int bit_depth, void* stream) {
+    if (njobs < 1 || njobs > kMaxJobs || (bit_depth != 8 && bit_depth != 10))
+        return (int)cudaErrorInvalidValue;
     TxqJobs jobs = {};
     jobs.njobs = njobs;
     jobs.lam_full = lam_full;
@@ -253,6 +262,9 @@ extern "C" int tpuhevc_txq(int njobs, void* const* ptrs, const int* ints,
         const int tus = tus_a_block(j.log2);
         blocks += (j.n + tus - 1) / tus;
     }
-    txq_kernel<<<blocks, kTuBlock, 0, (cudaStream_t)stream>>>(jobs);
+    if (bit_depth == 8)
+        txq_kernel<8><<<blocks, kTuBlock, 0, (cudaStream_t)stream>>>(jobs);
+    else
+        txq_kernel<10><<<blocks, kTuBlock, 0, (cudaStream_t)stream>>>(jobs);
     return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
 """DCT-IF motion-compensated prediction of whole blocks (kernels K3 and
 `b_pred`).
 
-K3, twin of the `mc_blk` stage of `tpuhevc/codec/inter_batch.py:166`
-(8-bit; same semantics as `tpuhevc.ops.interp.mc`): per PU, the window at
-the integer part of the MV (`>>` floors on signed MVs), clamped at the
-plane edge, filtered horizontally then vertically with the 8-tap luma
-(quarter-pel) or 4-tap chroma (eighth-pel) taps, `>> 6` (the 14-bit
-intermediate, `mc14`), then `clip((x + 32) >> 6)`.
+K3, twin of the `mc_blk` stage of `tpuhevc/codec/inter_batch.py:166` at
+8 bits and of `tpuhevc.ops.interp.mc` at bit depth bd (8 or 10; the
+scan's closure keeps the 8-bit shifts at 10 bits, and `mc` is the
+standard's): per PU, the window at the integer part of the MV (`>>`
+floors on signed MVs), clamped at the plane edge, filtered horizontally
+(`>> (bd - 8)`) then vertically with the 8-tap luma (quarter-pel) or
+4-tap chroma (eighth-pel) taps, `>> 6` (the 14-bit intermediate,
+`mc14`), then `clip((x + 2^(13 - bd)) >> (14 - bd), 0, 2^bd - 1)`.
 
 `b_pred`, twin of the prediction and the uni/bi arbitration of the B step
 (`tpuhevc/codec/inter_b.py:196-222` luma, 225-232 chroma, over
@@ -77,10 +79,12 @@ def taps(is_luma: bool, device, dtype=torch.int64) -> torch.Tensor:
 
 
 def mc14(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
-         mvq: torch.Tensor, size: int, is_luma: bool) -> torch.Tensor:
-    """The prediction at the 14-bit intermediate scale (`mc14`, 8-bit):
-    plane (H, W), positions (N,), MVs (N, 2) int32 -> (N, S, S) int64.
-    Luma MVs in quarter pels, chroma MVs in eighth pels of the chroma grid."""
+         mvq: torch.Tensor, size: int, is_luma: bool,
+         bit_depth: int = 8) -> torch.Tensor:
+    """The prediction at the 14-bit intermediate scale (`mc14`): plane
+    (H, W) of bit_depth samples, positions (N,), MVs (N, 2) int32 ->
+    (N, S, S) int64. Luma MVs in quarter pels, chroma MVs in eighth pels
+    of the chroma grid."""
     tab = taps(is_luma, plane.device)
     ntaps = tab.shape[1]
     off, fmask, fshift = (3, 3, 2) if is_luma else (1, 7, 3)
@@ -97,38 +101,48 @@ def mc14(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     th = tab[fx]  # (N, ntaps)
     tv = tab[fy]
     acc_h = (wnd.unfold(2, ntaps, 1) * th[:, None, None, :]).sum(-1)
+    acc_h = acc_h >> (bit_depth - 8)
     return (acc_h.unfold(1, ntaps, 1) * tv[:, None, None, :]).sum(-1) >> 6
 
 
-def bi_average(p0_14: torch.Tensor, p1_14: torch.Tensor) -> torch.Tensor:
+def bi_average(p0_14: torch.Tensor, p1_14: torch.Tensor,
+               bit_depth: int = 8) -> torch.Tensor:
     """The default bi-prediction combine of two 14-bit predictions
-    (`bi_average`, 8-bit): clip((a + b + 64) >> 7) as int32."""
-    return ((p0_14.long() + p1_14 + 64) >> 7).clamp(0, 255).int()
+    (`bi_average`): clip((a + b + 2^(14 - bd)) >> (15 - bd), 0,
+    2^bd - 1) as int32."""
+    sh = 15 - bit_depth
+    return ((p0_14.long() + p1_14 + (1 << (sh - 1))) >> sh).clamp(
+        0, (1 << bit_depth) - 1).int()
 
 
 def mc_blk_plain(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
-                 mvq: torch.Tensor, size: int, is_luma: bool) -> torch.Tensor:
+                 mvq: torch.Tensor, size: int, is_luma: bool,
+                 bit_depth: int = 8) -> torch.Tensor:
     """plane (H, W), positions (N,), MVs (N, 2) int32 -> (N, S, S) int32
-    (`mc`: the 14-bit prediction rounded back to 8 bits)."""
-    acc = mc14(plane, xs, ys, mvq, size, is_luma)
-    return ((acc + 32) >> 6).clamp(0, 255).int()
+    (`mc`: the 14-bit prediction rounded back to bit_depth bits)."""
+    acc = mc14(plane, xs, ys, mvq, size, is_luma, bit_depth)
+    sh = 14 - bit_depth
+    return ((acc + (1 << (sh - 1))) >> sh).clamp(
+        0, (1 << bit_depth) - 1).int()
 
 
-def mc_blk_planes_plain(jobs):
+def mc_blk_planes_plain(jobs, bit_depth: int = 8):
     """jobs: [(plane, xs, ys, mvq, size, is_luma)] -> [pred (N, S, S)
-    int32], each job by `mc_blk_plain`."""
-    return [mc_blk_plain(*job) for job in jobs]
+    int32], each job by `mc_blk_plain` at bit_depth."""
+    return [mc_blk_plain(*job, bit_depth) for job in jobs]
 
 
-def mc_blk_planes(jobs):
+def mc_blk_planes(jobs, bit_depth: int = 8):
     """K3 over up to 12 jobs (a P picture's CU classes, Y, U and V each) in
     one launch; the arguments and results of `mc_blk_planes_plain`, the
     predictions views of one buffer. CPU tensors take the plain version;
-    CUDA tensors the kernel (8-bit samples; luma S = 8, 16 or 32, chroma
-    S = 4, 8 or 16)."""
+    CUDA tensors the kernel (samples of bit_depth 8 or 10, its variant for
+    each; luma S = 8, 16 or 32, chroma S = 4, 8 or 16)."""
+    if bit_depth not in (8, 10):
+        raise ValueError(f"mc_blk: bit depth {bit_depth} (8 or 10)")
     dev = jobs[0][0].device
     if dev.type == "cpu":
-        return mc_blk_planes_plain(jobs)
+        return mc_blk_planes_plain(jobs, bit_depth)
     if dev.type != "cuda":
         raise ValueError(f"mc_blk: unsupported device {dev}")
     if not 1 <= len(jobs) <= 12:
@@ -163,19 +177,21 @@ def mc_blk_planes(jobs):
         ints += [xs.shape[0], plane.shape[0], plane.shape[1], size,
                  int(bool(is_luma))]
     fn = kbuild.function("mc_blk", "tpuhevc_mc_blk",
-                         [kbuild.I, kbuild.P, kbuild.P, kbuild.P])
+                         [kbuild.I, kbuild.P, kbuild.P, kbuild.I, kbuild.P])
     err = fn(len(live), (ctypes.c_void_p * len(ptrs))(*ptrs),
-             (ctypes.c_int * len(ints))(*ints),
+             (ctypes.c_int * len(ints))(*ints), bit_depth,
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "mc_blk")
-    LAUNCHES["mc_blk"] += 1
+    LAUNCHES["mc_blk" if bit_depth == 8 else "mc_blk10"] += 1
     return outs
 
 
 def mc_blk(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
-           mvq: torch.Tensor, size: int, is_luma: bool) -> torch.Tensor:
+           mvq: torch.Tensor, size: int, is_luma: bool,
+           bit_depth: int = 8) -> torch.Tensor:
     """K3 on one plane: `mc_blk_planes` with one job."""
-    return mc_blk_planes([(plane, xs, ys, mvq, size, is_luma)])[0]
+    return mc_blk_planes([(plane, xs, ys, mvq, size, is_luma)],
+                         bit_depth)[0]
 
 
 def _mv_rate(mvq: torch.Tensor) -> torch.Tensor:

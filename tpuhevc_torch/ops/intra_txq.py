@@ -84,7 +84,7 @@ def intra_txq(org: torch.Tensor, preds: torch.Tensor, rows: torch.Tensor,
               modes: torch.Tensor, qp: int, is_dst: bool, rdoq: bool,
               lam: float, est, bit_depth: int = 8):
     """Kernel `intra_txq`. CPU tensors take the plain version; CUDA
-    tensors the kernel."""
+    tensors the kernel, its variant for bit_depth 8 or 10."""
     if org.device.type == "cpu":
         return intra_txq_plain(org, preds, rows, modes, qp, is_dst, rdoq,
                                lam, est, bit_depth)
@@ -102,7 +102,7 @@ def intra_txq(org: torch.Tensor, preds: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"intra_txq: unsupported shapes org "
                          f"{tuple(org.shape)} preds {tuple(preds.shape)} "
                          f"rows {tuple(rows.shape)} modes {tuple(modes.shape)}")
-    if bit_depth != 8 or not 0 <= qp <= 51:
+    if bit_depth not in (8, 10) or not 0 <= qp <= 51:
         raise ValueError(f"intra_txq: bit depth {bit_depth} / qp {qp}")
     if rdoq:
         check_tensor(est.ftab, "est.ftab", torch.float32, 1, dev)
@@ -126,7 +126,7 @@ def intra_txq(org: torch.Tensor, preds: torch.Tensor, rows: torch.Tensor,
     f = ctypes.c_float
     fn = kbuild.function(
         "intra_txq", "tpuhevc_intra_txq",
-        [kbuild.P] * 8 + [kbuild.I] * 10 + [f] * 7 + [kbuild.P])
+        [kbuild.P] * 8 + [kbuild.I] * 10 + [f] * 7 + [kbuild.I, kbuild.P])
     err = fn(org.data_ptr(), preds.data_ptr(), rows.data_ptr(),
              modes.data_ptr(), est.ftab.data_ptr() if rdoq else None,
              dist.data_ptr(), d0.data_ptr(), lvl.data_ptr(),
@@ -135,7 +135,7 @@ def intra_txq(org: torch.Tensor, preds: torch.Tensor, rows: torch.Tensor,
              *(float(np.float32(x)) for x in (
                  rk["scale"], rk["qdiv"], rk["inv_qdiv"], rk["inv_den"], lam,
                  lc0, lc1)),
-             torch.cuda.current_stream(dev).cuda_stream)
+             bit_depth, torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "intra_txq")
-    LAUNCHES["intra_txq"] += 1
+    LAUNCHES["intra_txq" if bit_depth == 8 else "intra_txq10"] += 1
     return dist, d0, lvl

@@ -20,7 +20,10 @@ the adjacent row, as in the reference).
 
 `sad_search_classes` searches a P picture's CU classes in one launch,
 reading each PU's clamped window from the reference plane itself;
-`sad_search` is its one-class case. `*_plain` are the PyTorch versions
+`sad_search` is its one-class case. Their callers name the samples' bit
+depth (8 or 10) explicitly: the kernel has a variant for each (8-bit
+samples packed four to a word, 10-bit ones a block a PU), and the data
+never chooses one. `*_plain` are the PyTorch versions
 (`sad_search_plain` takes the gathered windows); `sad_search_classes` and
 `b_me` launch the CUDA kernels (`kernels/csrc/sad_search.cu`,
 `kernels/csrc/b_me.cu`) for CUDA tensors.
@@ -101,11 +104,19 @@ def window_index(xs: torch.Tensor, ys: torch.Tensor, size: int, sr: int,
     return yy[:, :, None] * w + xx[:, None, :]
 
 
+def _check_depth(what: str, bit_depth: int) -> None:
+    if bit_depth not in (8, 10):
+        raise ValueError(f"{what}: bit depth {bit_depth} (8 or 10)")
+
+
 def sad_search_classes_plain(ref_y: torch.Tensor, classes, bits: torch.Tensor,
-                             lam_me: int, sr: int, subsample: bool = True):
+                             lam_me: int, sr: int, subsample: bool = True,
+                             bit_depth: int = 8):
     """ref_y (H, W) int32; classes: [(cur (N, S, S) int32, xs, ys (N,))]
     -> [(mv (N, 2), sad9 (N, 9))], each class's windows gathered as
-    `window_index` gives them and searched by `sad_search_plain`."""
+    `window_index` gives them and searched by `sad_search_plain`. The sums
+    are the same at either bit depth (8 or 10)."""
+    _check_depth("sad_search", bit_depth)
     h, w = ref_y.shape
     flat = ref_y.reshape(-1)
     return [sad_search_plain(
@@ -114,16 +125,18 @@ def sad_search_classes_plain(ref_y: torch.Tensor, classes, bits: torch.Tensor,
 
 
 def sad_search_classes(ref_y: torch.Tensor, classes, bits: torch.Tensor,
-                       lam_me: int, sr: int, subsample: bool = True):
+                       lam_me: int, sr: int, subsample: bool = True, *,
+                       bit_depth: int):
     """K1 over a P picture's CU classes in one launch; the arguments and
     results of `sad_search_classes_plain`. CPU tensors take the plain
     version; CUDA tensors the kernel, which reads the windows from ref_y
-    itself and takes 8-bit video only (samples 0..255 in the int32 planes,
-    packed four to a word on the card), S = 8, 16 or 32 and sr 1..16; a
-    10-bit variant waits for Main10."""
+    itself and takes S = 8, 16 or 32 and sr 1..16: its 8-bit variant
+    (samples 0..255 in the int32 planes, packed four to a word on the
+    card) or its 10-bit one (samples 0..1023), as `bit_depth` says."""
+    _check_depth("sad_search", bit_depth)
     if ref_y.device.type == "cpu":
         return sad_search_classes_plain(ref_y, classes, bits, lam_me, sr,
-                                        subsample)
+                                        subsample, bit_depth)
     if ref_y.device.type != "cuda":
         raise ValueError(f"sad_search: unsupported device {ref_y.device}")
     dev = ref_y.device
@@ -159,23 +172,23 @@ def sad_search_classes(ref_y: torch.Tensor, classes, bits: torch.Tensor,
     ints = [v for c in live for v in (c[0].shape[0], c[0].shape[1])]
     fn = kbuild.function("sad_search", "tpuhevc_sad_search",
                          [kbuild.I, kbuild.P, kbuild.P, kbuild.P, kbuild.I,
-                          kbuild.I, kbuild.P] + [kbuild.I] * 3 + [kbuild.P])
+                          kbuild.I, kbuild.P] + [kbuild.I] * 4 + [kbuild.P])
     h, w = ref_y.shape
     err = fn(len(live), (ctypes.c_void_p * len(ptrs))(*ptrs),
              (ctypes.c_int * len(ints))(*ints), ref_y.data_ptr(), h, w,
-             bits.data_ptr(), sr, int(lam_me), int(subsample),
+             bits.data_ptr(), sr, int(lam_me), int(subsample), bit_depth,
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "sad_search")
-    LAUNCHES["sad_search"] += 1
+    LAUNCHES["sad_search" if bit_depth == 8 else "sad_search10"] += 1
     return outs
 
 
 def sad_search(ref_y: torch.Tensor, cur: torch.Tensor, xs: torch.Tensor,
                ys: torch.Tensor, bits: torch.Tensor, lam_me: int, sr: int,
-               subsample: bool = True):
+               subsample: bool = True, *, bit_depth: int):
     """K1 on one class: `sad_search_classes` with one (cur, xs, ys)."""
     return sad_search_classes(ref_y, [(cur, xs, ys)], bits, lam_me, sr,
-                              subsample)[0]
+                              subsample, bit_depth=bit_depth)[0]
 
 
 # --- the B step's two-list search ----------------------------------------------
@@ -218,12 +231,20 @@ def _b_tables(h: int, w: int, sr: int, device) -> dict:
     return t
 
 
+def _b_depth(bit_depth: int) -> None:
+    if bit_depth != 8:
+        raise NotImplementedError(f"b_me: bit depth {bit_depth} (8-bit "
+                                  "samples only)")
+
+
 def b_me_plain(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
-               lam_me: float, sr: int):
+               lam_me: float, sr: int, bit_depth: int = 8):
     """org, ref0, ref1 (H, W) int32 planes, H and W multiples of 16 ->
     (mv (2, N, 2), sad9 (2, N, 9)) int32 for the N 16x16 blocks in raster
     order, list 0 then list 1. lam_me is a Python float, rounded once to
-    float32 where it meets the bit table (JAX's weak type)."""
+    float32 where it meets the bit table (JAX's weak type). 8-bit video
+    only, as the kernel (`b_me`)."""
+    _b_depth(bit_depth)
     h, w = org.shape
     t = _b_tables(h, w, sr, org.device)
     side = 2 * sr + 1
@@ -244,13 +265,15 @@ def b_me_plain(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
 
 
 def b_me(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
-         lam_me: float, sr: int):
+         lam_me: float, sr: int, *, bit_depth: int):
     """Kernel `b_me`. CPU tensors take the plain version; CUDA tensors the
     kernel, which takes 8-bit video only (samples 0..255 in the int32
-    planes, packed four to a word on the card), as the B step does; a
-    10-bit variant waits for Main10 in the B step."""
+    planes, packed four to a word on the card), as the B step does. The
+    caller names the bit depth, and anything but 8 raises on either
+    device: a 10-bit variant waits for Main10 in random access."""
+    _b_depth(bit_depth)
     if org.device.type == "cpu":
-        return b_me_plain(org, ref0, ref1, lam_me, sr)
+        return b_me_plain(org, ref0, ref1, lam_me, sr, bit_depth)
     if org.device.type != "cuda":
         raise ValueError(f"b_me: unsupported device {org.device}")
     dev = org.device

@@ -8,7 +8,9 @@ quantiser (rounding 85) -> dequantiser -> inverse DCT -> recon clip; the
 nz flag; SSE of the skip (pred) and coded recons; the bit proxy; and the
 lambda drop `(d_skip - d_coded) <= (lam_full * bits) >> 8`, whose product
 wraps in int32 as JAX computes it. Outputs lvl, rec (N, S, S) and d, bits
-(N,) int32 after the drop.
+(N,) int32 after the drop. The bit depth (8 or 10) sets the transforms'
+shifts, the quantiser's constants and the recon clip; the kernel has a
+variant for each.
 
 `b_txq`, twin of `code_blocks` in the B step (`tpuhevc/codec/inter_b.py:
 181-194`): residual -> forward DCT-II -> the table RDOQ
@@ -71,12 +73,15 @@ def _sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (d * d).sum(dim=1).int()
 
 
-def txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
+def txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int,
+              bit_depth: int = 8):
     """cur, pred (N, S, S) int32 -> (lvl, rec (N,S,S), d, bits (N,)) int32."""
     log2 = cur.shape[-1].bit_length() - 1
-    lvl = tx.quantize(tx.forward_transform(cur - pred), qp, log2, 8, False)
-    rsd = tx.inverse_transform(tx.dequantize(lvl, qp, log2))
-    rec = (pred + rsd).clamp(0, 255)
+    bd = bit_depth
+    lvl = tx.quantize(tx.forward_transform(cur - pred, bd), qp, log2, bd,
+                      False)
+    rsd = tx.inverse_transform(tx.dequantize(lvl, qp, log2, bd), bd)
+    rec = (pred + rsd).clamp(0, (1 << bd) - 1)
     nz = (lvl != 0).reshape(lvl.shape[0], -1).any(dim=1)
     rec = torch.where(nz[:, None, None], rec, pred)
     d_skip = _sse(cur, pred)
@@ -90,10 +95,11 @@ def txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
     return lvl, rec, d, bits
 
 
-def txq_planes_plain(jobs, lam_full: int):
+def txq_planes_plain(jobs, lam_full: int, bit_depth: int = 8):
     """jobs: [(cur, pred (N, S, S) int32, qp)] -> [(lvl, rec, d, bits)],
-    each job by `txq_plain`."""
-    return [txq_plain(cur, pred, qp, lam_full) for cur, pred, qp in jobs]
+    each job by `txq_plain` at bit_depth."""
+    return [txq_plain(cur, pred, qp, lam_full, bit_depth)
+            for cur, pred, qp in jobs]
 
 
 def _init_matrix(dev: torch.device) -> None:
@@ -108,14 +114,17 @@ def _init_matrix(dev: torch.device) -> None:
     _INIT_DEVICES.add(dev.index)
 
 
-def txq_planes(jobs, lam_full: int):
+def txq_planes(jobs, lam_full: int, bit_depth: int = 8):
     """K4 over up to 12 jobs (a P picture's CU classes, Y, U and V each) in
     one launch; the arguments and results of `txq_planes_plain`. CPU
-    tensors take the plain version; CUDA tensors the kernel (8-bit: pred
-    in 0..255; S = 4, 8, 16 or 32)."""
+    tensors take the plain version; CUDA tensors the kernel (its variant
+    for bit_depth 8 or 10: pred in 0..2^bit_depth - 1; S = 4, 8, 16 or
+    32)."""
+    if bit_depth not in (8, 10):
+        raise ValueError(f"txq: bit depth {bit_depth} (8 or 10)")
     dev = jobs[0][0].device
     if dev.type == "cpu":
-        return txq_planes_plain(jobs, lam_full)
+        return txq_planes_plain(jobs, lam_full, bit_depth)
     if dev.type != "cuda":
         raise ValueError(f"txq: unsupported device {dev}")
     if not 1 <= len(jobs) <= 12:
@@ -151,21 +160,24 @@ def txq_planes(jobs, lam_full: int):
     for tens, qp in live:
         log2 = tens[0].shape[-1].bit_length() - 1
         ptrs += [t_.data_ptr() for t_ in tens]
-        ints += [tens[0].shape[0], log2, *tx.quant_params(qp, log2, 8, False),
-                 *tx.dequant_params(qp, log2, 8)]
+        ints += [tens[0].shape[0], log2,
+                 *tx.quant_params(qp, log2, bit_depth, False),
+                 *tx.dequant_params(qp, log2, bit_depth)]
     fn = kbuild.function("txq", "tpuhevc_txq",
-                         [kbuild.I, kbuild.P, kbuild.P, kbuild.I, kbuild.P])
+                         [kbuild.I, kbuild.P, kbuild.P, kbuild.I, kbuild.I,
+                          kbuild.P])
     err = fn(len(live), (ctypes.c_void_p * len(ptrs))(*ptrs),
-             (ctypes.c_int * len(ints))(*ints), int(lam_full),
+             (ctypes.c_int * len(ints))(*ints), int(lam_full), bit_depth,
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "txq")
-    LAUNCHES["txq"] += 1
+    LAUNCHES["txq" if bit_depth == 8 else "txq10"] += 1
     return outs
 
 
-def txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int):
+def txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: int,
+        bit_depth: int = 8):
     """K4 on one plane: `txq_planes` with one job."""
-    return txq_planes([(cur, pred, qp)], lam_full)[0]
+    return txq_planes([(cur, pred, qp)], lam_full, bit_depth)[0]
 
 
 # scan position -> raster index in a 4x4 diagonal scan
