@@ -256,7 +256,16 @@
    device stage's first P picture (K1 beside torch.cdist, its samples
    counted at 2 bytes), intra_txq's over one all-intra picture's
    decision, both passes. Then CUDA against CPU streams byte-identical
-   for these four routes at 112x72.
+   for these four routes at 112x72. Then random access at 10 bits
+   (`run_ra10`): the random-access cfg with its GOP table x 9, without
+   it (`_ra_gop4`: the key P pictures through the 10-bit K1, K3 and K4)
+   x 9, and with RDOQ, SBH, deblocking and SAO x 10; every hash OK,
+   `b_me10`, `b_pred10` and `b_txq10` once a B picture and the 8-bit B
+   kernels idle, every call of them (and the key P pictures' K1, K3, K4)
+   held against plain with torch.equal; their device time and bound a B
+   picture (samples at 2 bytes), `b_txq10`'s SBH variant beside it and
+   `b_me10` beside torch.cdist; CUDA against CPU streams byte-identical
+   for these three routes at 64x48 x 6.
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -423,6 +432,13 @@ SOURCES = {
               "tpuhevc/codec/inter_batch.py:193"),
     "intra_txq10": ("tpuhevc_torch/kernels/csrc/intra_txq.cu",
                     "tpuhevc/codec/intra_decide_jax.py:86"),
+    # the B step's 10-bit variants (path 10's random-access routes)
+    "b_me10": ("tpuhevc_torch/kernels/csrc/b_me.cu",
+               "tpuhevc/codec/inter_b.py:142"),
+    "b_pred10": ("tpuhevc_torch/kernels/csrc/b_pred.cu",
+                 "tpuhevc/codec/inter_b.py:196"),
+    "b_txq10": ("tpuhevc_torch/kernels/csrc/b_txq.cu",
+                "tpuhevc/codec/inter_b.py:181"),
 }
 # the NN-FME train step, once each a step
 TRAIN_KERNELS = ("fme_train_fwd", "fme_train_bwd", "fme_adam")
@@ -690,16 +706,20 @@ class Work:
         self.ops = 0
         self.written = 0  # outputs written into a kept buffer, per call
         # with sample_bytes: the samples K1 reads (the windows' union and
-        # the PUs) count that many bytes each (2 for 10-bit video, as int16
-        # holds it), not the int32 planes' 4
+        # the PUs), and those the B kernels read and write, count that many
+        # bytes each (2 for 10-bit video, as int16 holds it), not the int32
+        # planes' 4
         self.sample_bytes = sample_bytes
-        self.narrow = set()  # data_ptrs of those PU tensors
+        self.narrow = set()  # data_ptrs of those sample tensors
 
     def add(self, name, args, out, kw=None):
         kw = kw or {}
         self.ops += kernel_ops(name, args, kw, out)
         if self.sample_bytes and name == "sad_search":
             self.narrow.update(c[0].data_ptr() for c in args[1])
+        if self.sample_bytes and name in B_KERNELS:
+            self.narrow.update(t.data_ptr() for t in b_samples(name, args,
+                                                               out))
         if name == "grid_satd_cost":  # views of the caller's buffer
             self.written += sum(t.nbytes for t in out)
             kw = {k: v for k, v in kw.items() if k != "out"}
@@ -721,6 +741,19 @@ class Work:
                       for p, t in self.held.items() if p not in self.planes)
                 + sum(int(m.sum()) * (sb or pl.element_size())
                       for pl, m in self.planes.values()))
+
+
+def b_samples(name, a, out):
+    """The sample tensors of a B kernel's call (not its MVs, positions,
+    SADs, inter_dir or tables): b_me's three planes; b_pred_yuv's
+    originals and its three predictions (the reference planes count
+    through their windows); b_txq_planes' originals, predictions, levels
+    and recons."""
+    if name == "b_me":
+        return a[:3]
+    if name == "b_pred":
+        return (a[0], out[0], out[2], out[3])
+    return [t for p, o in zip(a[0], out) for t in (p[0], p[1], *o)]
 
 
 def kernel_ops(name, a, kw=None, out=None) -> int:
@@ -1462,8 +1495,16 @@ def check_b_me_direct(org, r0, r1, lam_me, sr_step):
                   f"at lambda 0), device_ms {dms:.5f} a launch (events "
                   f"around 100 launches queued behind a device sleep) | "
                   f"{gpu_line()}", flush=True)
+    return b_me_cdist_ms(org, r0, r1, lam_me, 16, 8)
+
+
+def b_me_cdist_ms(org, r0, r1, lam_me, sr, bit_depth):
+    """The library yardstick of b_me (its variant of bit_depth): torch.cdist
+    (p=1) of the 16x16 blocks against their unfolded windows in float32
+    (both lists), which computes the SAD surface only (no cost, argmin or
+    sad9), its values at the kernel's picks checked. Returns its event
+    ms."""
     h, w = org.shape
-    sr = 16
     side, n = 2 * sr + 1, (h // 16) * (w // 16)
     t = _b_tables(h, w, sr, org.device)
     cur = org.reshape(-1)[t["blk"]].reshape(n, 1, 256).float()
@@ -1472,16 +1513,16 @@ def check_b_me_direct(org, r0, r1, lam_me, sr_step):
                     .unfold(2, 16, 1).reshape(n, side * side, 256)
                     for ref in (r0, r1)]).float().contiguous()
     d = torch.cdist(x1, x2, p=1)[:, 0]
-    mv, sad9 = b_me(org, r0, r1, lam_me, sr, bit_depth=8)
+    mv, sad9 = b_me(org, r0, r1, lam_me, sr, bit_depth=bit_depth)
     bi = ((mv[..., 1] + sr) * side + mv[..., 0] + sr).reshape(-1)
     check(torch.equal(d.gather(1, bi[:, None].long())[:, 0].int(),
                       sad9[..., 4].reshape(-1)),
           "torch.cdist's SAD at the kernel's picks differs from sad9")
     ms = median_ms(lambda: torch.cdist(x1, x2, p=1))
-    print(f"library b_me: torch.cdist(p=1) of {2 * n} blocks against "
-          f"{side * side} unfolded window blocks of 256 float32 (sr 16), "
-          f"the SAD surface only: event ms {ms:.4f} | {gpu_line()}",
-          flush=True)
+    print(f"library b_me (bit depth {bit_depth}): torch.cdist(p=1) of "
+          f"{2 * n} blocks against {side * side} unfolded window blocks of "
+          f"256 float32 (sr {sr}), the SAD surface only: event ms {ms:.4f} "
+          f"| {gpu_line()}", flush=True)
     return ms
 
 
@@ -3632,15 +3673,22 @@ def cross_check_per_picture(npz):
 N10_AI, N10_SCAN, N10_IP, N10_ANCHOR = 2, 9, 5, 3
 MAIN10 = ["--InputBitDepth=10", "--InternalBitDepth=10"]
 # the 10-bit variants, and the kernels of the Main10 paths that have one
-M10_KERNELS = ("sad_search10", "mc_blk10", "txq10", "intra_txq10")
+B10_KERNELS = ("b_me10", "b_pred10", "b_txq10")
+M10_KERNELS = ("sad_search10", "mc_blk10", "txq10", "intra_txq10",
+               *B10_KERNELS)
 M10_OF = {"sad_search10": "sad_search", "mc_blk10": "mc_blk",
-          "txq10": "txq", "intra_txq10": "intra_txq"}
+          "txq10": "txq", "intra_txq10": "intra_txq", "b_me10": "b_me",
+          "b_pred10": "b_pred", "b_txq10": "b_txq"}
 M10_FUNCS = {  # base name: (kernel wrapper, plain version)
     "sad_search": (sad_search_classes, sad_search_classes_plain),
     "mc_blk": (mc_blk_planes, mc_blk_planes_plain),
     "txq": (txq_planes, txq_planes_plain),
     "intra_txq": (intra_txq, intra_txq_plain),
     "intra_bank": (intra_bank, predict_all_modes_plain),
+    # the B step's entries (b_pred and b_txq: a picture's three planes)
+    "b_me": (b_me, b_me_plain),
+    "b_pred": (b_pred_yuv, b_pred_yuv_plain),
+    "b_txq": (b_txq_planes, b_txq_planes_plain),
 }
 
 
@@ -3795,6 +3843,125 @@ def cross_check_main10(npz):
         b, _ = encode_sequence(r, cpu_cfg, device="cpu")
         check(a.bitstream() == b.bitstream(),
               f"Main10 {what} at 112x72: CUDA and CPU streams differ")
+        out.append(len(a.bitstream()))
+    return out
+
+
+# path 10's random-access routes at 10 bits: (what, options, the GOP
+# table kept, pictures, B pictures, the P pictures' device-stage kernels)
+RA10_ROUTES = (
+    ("random access, GOP table", [], True, 9, 8, ()),
+    ("random access without a table", [], False, 9, 6, P_ONCE),
+    ("random access with RDOQ, SBH, deblocking and SAO", RA_TOOLS, True, 10,
+     8, ()))
+
+
+def ra10_cfg(npz, extra, table, w=None, h=None, frames=None):
+    cfg = ra_cfg(npz, w, h, frames, extra=MAIN10 + list(extra))
+    return cfg if table else dataclasses.replace(cfg, gop_table=())
+
+
+def run_ra10(dev, npz, gpu):
+    """Main path 10's random-access routes, Main10 at 416x240 on the 10-bit
+    clip (Reader10): the random-access cfg with its GOP table x 9 (eight B
+    pictures), without it x 9 (`_ra_gop4`: two key P pictures through the
+    10-bit device stage, six B pictures) and with RDOQ, SBH, deblocking
+    and SAO x 10 (eight B pictures, the P tail through the host stage),
+    each with the counters reset just before and read just after; every
+    hash OK in the port's decoder with the encoder's recon and luma above
+    255; b_me10, b_pred10 and b_txq10 launched once a B picture, the 8-bit
+    B kernels (and K1, K3, K4 where no P picture takes the device stage)
+    idle; every call of the B step's kernels (and the key P pictures' K1,
+    K3, K4) held against its plain version with torch.equal. Returns
+    (launches summed over the routes, the rows of b_me10, b_pred10 and
+    b_txq10 at the table route's first B picture, b_txq10's with its SBH
+    variant from the tools route's, samples counted at 2 bytes; b_me10
+    beside torch.cdist)."""
+    total = {k: 0 for k in KERNELS}
+    calls, route_la = {}, {}
+    for what, extra, table, n, n_b, p_kernels in RA10_ROUTES:
+        rec = {k: [] for k in B_KERNELS}
+        prec = {k: [] for k in P_ONCE}
+        saved = recording(inter_b, B_KERNELS, rec)
+        psaved = recording(inter_batch, P_ONCE, prec)
+        try:
+            enc, recons, secs, la = run_path(
+                dev, ra10_cfg(npz, extra, table, frames=n), n,
+                reader=Reader10(W, H, n))
+        finally:
+            restore(inter_b, saved)
+            restore(inter_batch, psaved)
+        need = ("intra_bank", "intra_txq10", "nnfme_mlp") + B10_KERNELS + \
+            tuple(k + "10" for k in p_kernels)
+        frames = check_stream(enc, recons, n, la, need, f"Main10 {what}")
+        peak = max(int(f.y.max()) for f in frames)
+        check(peak > 255, f"Main10 {what}: luma peaks at {peak}")
+        check(all(la[k] == n_b for k in B10_KERNELS),
+              f"Main10 {what}: { {k: la[k] for k in B10_KERNELS} } for "
+              f"{n_b} B pictures")
+        idle = B_KERNELS + P_ONCE + ("intra_txq",) + tuple(
+            k + "10" for k in P_ONCE if k not in p_kernels)
+        check(all(la[k] == 0 for k in idle),
+              f"Main10 {what}: an 8-bit kernel or idle variant launched: "
+              f"{ {k: la[k] for k in idle if la[k]} }")
+        for k, v in list(rec.items()) + list(prec.items()):
+            want = la[k + "10"]
+            check(len(v) == want, f"Main10 {what}: {k} called {len(v)} "
+                  f"times, {want} launches")
+            kern, plain = M10_FUNCS[k]
+            for args, kw in v:
+                a, b = kern(*args, **kw), plain(*args, **kw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(
+                    tensors(a), tensors(b), strict=True)),
+                    f"Main10 {what}: {k} differs from plain at a call")
+        calls[what], route_la[what] = rec, la
+        for k in KERNELS:
+            total[k] += la[k]
+        kbits = sum(r.bits for r in enc.results) / 1000
+        psnr = np.mean([r.psnr_y for r in enc.results])
+        used = {k: v for k, v in la.items() if v}
+        print(f"main path 10, Main10 {what}: {W}x{H} x {n} pictures "
+              f"(decode order {[r.poc for r in enc.results]}) in {secs:.3f} "
+              f"s = {n / secs:.3f} fps | {kbits:.1f} kbit, Y-PSNR "
+              f"{psnr:.3f} dB, luma peak {peak} | every 10-bit call equal to "
+              f"plain: { {k: len(v) for k, v in {**rec, **prec}.items()} } "
+              f"| launches {used} | {gpu}", flush=True)
+    table_calls = calls[RA10_ROUTES[0][0]]
+    rows = {name: main10_row(name, table_calls[M10_OF[name]][:1], 2)
+            for name in B10_KERNELS}
+    tools = RA10_ROUTES[2][0]
+    sbh_calls = calls[tools]["b_txq"][:1]
+    check(bool(sbh_calls[0][1].get("sbh")),
+          "the tools route's b_txq calls are not its SBH variant")
+    rows["b_txq10"]["sbh"] = dict(main10_row("b_txq10", sbh_calls, 2),
+                                  launches=route_la[tools]["b_txq10"])
+    args, kw = table_calls["b_me"][0]
+    rows["b_me10"]["library_ms"] = b_me_cdist_ms(*args, bit_depth=10)
+    for name, r in list(rows.items()) + [("b_txq10 (SBH)",
+                                          rows["b_txq10"]["sbh"])]:
+        print(f"kernel {name} (Main10, a B picture of random access): "
+              f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"device_ms {r['device_ms']:.5f} bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}; {r['work'].bytes} bytes at 2 a sample, "
+              f"{r['work'].ops} operations)"
+              + (f" | torch.cdist {r['library_ms']:.4f} ms"
+                 if "library_ms" in r else "") + f" | {gpu}", flush=True)
+    return total, rows
+
+
+def cross_check_ra10(npz):
+    """CUDA vs CPU of path 10's random-access routes at 64x48 x 6: the
+    streams byte-identical. Returns their sizes."""
+    out = []
+    for what, extra, table, _, _, _ in RA10_ROUTES:
+        r = Reader10(64, 48, 6)
+        a, _ = encode_sequence(r, ra10_cfg(npz, extra, table, 64, 48, 6),
+                               device="cuda")
+        b, _ = encode_sequence(r, ra10_cfg(npz, extra, table, 64, 48, 6),
+                               device="cpu")
+        check(a.bitstream() == b.bitstream(),
+              f"Main10 {what} at 64x48: CUDA and CPU streams differ")
         out.append(len(a.bitstream()))
     return out
 
@@ -4306,6 +4473,14 @@ def main():
         for k in KERNELS:
             launches[k] += m10_launches[k]
         rows.update(m10_rows)
+        ra10_launches, ra10_rows = run_ra10(dev, npz, gpu)
+        check(all(ra10_launches[k] == 0 for k in TRAIN_KERNELS + G_KERNELS
+                  + ("intra_wave",)),
+              "path 10's random access launched a train-step, grid or "
+              "intra_wave kernel")
+        for k in KERNELS:
+            launches[k] += ra10_launches[k]
+        rows.update(ra10_rows)
 
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
@@ -4324,6 +4499,10 @@ def main():
               f"112x72 (Main10 all-intra x {N10_AI}, the LD-P scan x "
               f"{N10_SCAN}, IntraPeriod 4 x {N10_IP}, the anchor x "
               f"{N10_ANCHOR}): {cross_check_main10(npz)} bytes", flush=True)
+        print(f"cross-check: CUDA == CPU streams of path 10's random-access "
+              f"routes at 64x48 x 6 (Main10 with the GOP table, without it, "
+              f"with RDOQ, SBH, deblocking and SAO): {cross_check_ra10(npz)} "
+              f"bytes", flush=True)
 
     kernels = []
     for k in KERNELS:

@@ -202,18 +202,19 @@ OUTSIDE = {
     "rate_control": dict(target_bitrate=200000),
     "intra_period_8": dict(intra_period=8),
     "bit_depth_10": dict(bit_depth=10),
-    "bit_depth_10_random_access": dict(bit_depth=10, gop_structure="ra"),
+    # random access takes whole 16x16 blocks: 112x64
+    "bit_depth_10_random_access": dict(bit_depth=10, gop_structure="ra",
+                                       h=64),
     "bit_depth_10_weighted_pred": dict(bit_depth=10, wp=True),
     "scaling_list": dict(scaling_list=True),
 }
-# admitted since the per-picture P path with the host tool stage, and
-# bit depth 10 since Main10 on the LD-P routes off the grid: these encode
-# and decode hash-OK
+# admitted since the per-picture P path with the host tool stage, bit
+# depth 10 since Main10 on the LD-P routes off the grid, and in random
+# access since Main10 there: these encode and decode hash-OK
 ADMITTED = {"rdoq", "sbh", "deblocking", "sao", "dctif", "rate_control",
-            "intra_period_8", "bit_depth_10"}
+            "intra_period_8", "bit_depth_10", "bit_depth_10_random_access"}
 # refused by name
-NAMED = {"bit_depth_10_random_access": "bit depth 10 in random access",
-         "bit_depth_10_weighted_pred": "weighted prediction at bit depth 10"}
+NAMED = {"bit_depth_10_weighted_pred": "weighted prediction at bit depth 10"}
 
 
 @pytest.mark.parametrize("name", sorted(OUTSIDE))
@@ -229,6 +230,9 @@ def test_outside_slice_raises(setup, name):
         sps_kw["scaling_list_enabled"] = True
     sbh = kw.pop("sbh", False)
     wp = kw.pop("wp", False)
+    if "h" in kw:  # the clip's top rows
+        frames = [(y[: kw["h"]], u[: kw["h"] // 2], v[: kw["h"] // 2])
+                  for y, u, v in frames]
     cfg = ldp_cfg(npz, port=True, **kw)
     cfg.pps.sign_data_hiding = sbh
     cfg.pps.weighted_pred = wp

@@ -282,20 +282,26 @@ def test_b_me_ties_and_wrapped_surface(case):
 
 
 def test_b_me_names_its_bit_depth():
-    """b_me packs 8-bit samples: its callers name the depth, and any other
-    raises (on either device) until random access takes Main10; the B
-    step at 10 bits raises too."""
+    """b_me has a variant a bit depth (8: samples packed four to a word,
+    10: two): its callers name the depth, 8 and 10 are taken, any other
+    raises (on either device); the B step at 10 bits builds and runs."""
     org, ref = (torch.from_numpy(p) for p in rng_planes(3, H, W, 2))
     with pytest.raises(TypeError):
         b_me(org, ref, ref, 0.0, SR)
-    with pytest.raises(NotImplementedError, match="bit depth 10"):
-        b_me(org, ref, ref, 0.0, SR, bit_depth=10)
-    mv, _ = b_me(org, ref, ref, 0.0, SR, bit_depth=8)
-    assert torch.equal(mv, b_me_plain(org, ref, ref, 0.0, SR)[0])
+    for bd in (8, 10):
+        mv, _ = b_me(org, ref, ref, 0.0, SR, bit_depth=bd)
+        assert torch.equal(mv, b_me_plain(org, ref, ref, 0.0, SR)[0])
+    for bd in (9, 12):
+        with pytest.raises(ValueError, match=f"bit depth {bd}"):
+            b_me(org, ref, ref, 0.0, SR, bit_depth=bd)
     cfg = EncoderConfig(sps=SeqParams(width=W, height=H, bit_depth=10),
                         qp=QP, gop_structure="ra")
-    with pytest.raises(NotImplementedError, match="bit depth 10"):
-        tib.build_b_step(cfg, QP, None, "cpu")
+    step = tib.build_b_step(cfg, QP, None, "cpu")
+    planes = [torch.from_numpy(p * 4) for p in rng_planes(5, H, W, 3)]
+    chroma = [p[::2, ::2].contiguous() for p in planes]
+    out = step(planes[0], chroma[0], chroma[0], planes[1], chroma[1],
+               chroma[1], planes[2], chroma[2], chroma[2])
+    assert int(out[4].max()) > 255  # the luma recon at 10 bits
 
 
 def b_inputs(dev, w=416, h=240, seed=11):

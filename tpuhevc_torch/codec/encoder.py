@@ -43,8 +43,10 @@ deblocking and SAO on the host after each picture.
 Main10 (bit depth 10): all-intra with the quadtree intra and LD-P off
 the grid (the grid is 8-bit): the non-grid scan (its frames staged as
 16-bit samples, its rows carrying 16-bit recon) and the per-picture
-loop, each device stage at the kernels' 10-bit variants. Random access,
-fixed 8x8 intra and weighted prediction stay 8-bit (`check_slice`).
+loop, each device stage at the kernels' 10-bit variants; random access
+with its B pictures through the B step's 10-bit variants and its P
+pictures through those routes. Fixed 8x8 intra and weighted prediction
+stay 8-bit (`check_slice`).
 
 `Encoder`, `FrameResult`, `_rate_controlled`, `_ra_gop4` and
 `_load_nn_params` are the port's copies of the reference's host code
@@ -389,10 +391,11 @@ def check_slice(cfg: EncoderConfig) -> None:
     without a GOP table of B pictures, with those tools, at coded sizes in
     whole 16x16 blocks; quadtree or fixed 8x8 intra (all-intra pictures
     and the IDR alike), one slice, no weighted bi-prediction. All of it
-    at 8 bits; at 10 bits (Main10) all-intra with the quadtree intra and
-    LD-P off the grid (the scan, the per-picture device and host stages,
-    IntraPeriod N, rate control), but not random access, fixed 8x8 intra
-    or weighted prediction."""
+    at 8 bits; at 10 bits (Main10) all-intra with the quadtree intra, LD-P
+    off the grid (the scan, the per-picture device and host stages,
+    IntraPeriod N, rate control) and random access (with or without a GOP
+    table, with those tools), but not fixed 8x8 intra or weighted
+    prediction."""
     sps, pps = cfg.sps, cfg.pps
     bd = sps.bit_depth
     off = [
@@ -412,7 +415,6 @@ def check_slice(cfg: EncoderConfig) -> None:
                  "16x16 blocks)" if not inter_grid.supports(cfg) else
                  " off the grid (IntraPeriod N or rate control)")
         off += [
-            (bd == 10 and ra, "bit depth 10 in random access"),
             (bd == 10 and pps.weighted_pred,
              "weighted prediction at bit depth 10"),
             (bd == 8 and not (_takes_scan(cfg) and inter_grid.supports(cfg))

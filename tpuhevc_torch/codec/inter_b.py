@@ -9,6 +9,9 @@ their bi-average and the uni/bi arbitration (`b_pred_yuv`: luma decides
 table-RDOQ coding with the skip/code drop (`b_txq_planes`: luma and both
 chroma planes in one launch; with SignHideFlag on, sign-bit hiding after
 the RDOQ, which the reference's step omits while its writer hides a sign).
+At bit depth 10 (Main10) the three kernels take their 10-bit variants,
+as the reference's step takes `bd` in its `mc`, `mc14`, `bi_average`,
+transforms and RDOQ.
 
 The host half is the port's numpy copy of the reference's (`_grid16`,
 the decode-order merge/skip/AMVP walk `assemble_frame_b`, and the
@@ -55,7 +58,8 @@ def build_b_step(cfg: EncoderConfig, qp: int, nn_params, device):
     lvl_v, rec_v), the blocks (N, 16, 16) / (N, 8, 8) in raster order.
     The lambdas come from the configuration's base QP (`_full_lambda_fp`
     of `cfg` as given), as in the reference; the levels are sign-hidden
-    where the PPS's SignHideFlag is on."""
+    where the PPS's SignHideFlag is on. Bit depth 8 or 10 (the kernels'
+    variant of the SPS's depth); coded sizes in whole 16x16 blocks."""
     dev = resolve(device)
     sps = cfg.sps
     w, h, bd = sps.coded_width, sps.coded_height, sps.bit_depth
@@ -66,9 +70,10 @@ def build_b_step(cfg: EncoderConfig, qp: int, nn_params, device):
     hit = _B_STEP_CACHE.get(key)
     if hit is not None and hit[1] is nn_params:
         return hit[0]
-    if bd != 8 or w % 16 or h % 16:
+    if w % 16 or h % 16:
         raise NotImplementedError(
-            f"not yet ported: the B step at {w}x{h}, bit depth {bd}")
+            f"not yet ported: the B step at {w}x{h} (not whole 16x16 "
+            "blocks)")
     nh, nw = h // 16, w // 16
     n = nh * nw
     xs_np, ys_np = _grid16(w, h)
@@ -97,10 +102,11 @@ def build_b_step(cfg: EncoderConfig, qp: int, nn_params, device):
         cur = tile(oy, 16)
         pred_y, inter_dir, pred_u, pred_v = b_pred_yuv(
             cur, (r0y, r1y), (r0u, r1u), (r0v, r1v), xs, ys, mvq0, mvq1,
-            lam_full)
+            lam_full, bit_depth=bd)
         (lvl_y, rec_y), (lvl_u, rec_u), (lvl_v, rec_v) = b_txq_planes(
             [(cur, pred_y, qp, est_y), (tile(ou, 8), pred_u, qpc, est_c),
-             (tile(ov, 8), pred_v, qpc, est_c)], lam_full, sbh=sbh)
+             (tile(ov, 8), pred_v, qpc, est_c)], lam_full, sbh=sbh,
+            bit_depth=bd)
         return (mvq0, mvq1, inter_dir, lvl_y, rec_y, lvl_u, rec_u, lvl_v,
                 rec_v)
 

@@ -68,3 +68,10 @@ def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int | None = None,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_depth(what: str, bit_depth: int) -> None:
+    """Raise ValueError unless bit_depth is one the kernels take (8 or
+    10): each has a variant a depth, which the caller names."""
+    if bit_depth not in (8, 10):
+        raise ValueError(f"{what}: bit depth {bit_depth} (8 or 10)")

@@ -5,17 +5,21 @@
 // Replaces: tpuhevc/codec/inter_b.py:196-222 (luma) and 225-232 (chroma),
 // the prediction part of `step` in `_b_step` that XLA compiled for the
 // TPU, over tpuhevc/ops/interp.py:141-211 (`mc`, `mc14`, `bi_average`),
-// 8-bit.
+// at bit depth BD (8 or 10, a template argument: the 10-bit variant is the
+// 8-bit code with its shifts and clip compiled in, one launch one depth).
 //
 // What it computes, per 16x16 block n and list l: the integer position
 // (x + (mv >> FS), y + (mv >> FS)) and the phase (mv & FM), with >> and &
 // on signed ints (floor, as in JAX); the (S + NT - 1)^2 window clamped at
 // the plane edge, sample by sample; the separable DCT-IF filter to the
-// 14-bit intermediate p_l = (sum_i (sum_j win * th[j]) * tv[i]) >> 6; the
-// uni predictions u_l = clip((p_l + 32) >> 6, 0, 255) and the bi-average
-// clip((p_0 + p_1 + 64) >> 7, 0, 255). On luma (8 taps, quarter pel: NT
-// 8, FS 2, FM 3) the int32 SSEs of the three against cur, rounded once to
-// float32, and the costs
+// 14-bit intermediate p_l = (sum_i ((sum_j win * th[j]) >> (BD - 8)) *
+// tv[i]) >> 6; the uni predictions u_l = clip((p_l + 2^(13 - BD)) >>
+// (14 - BD), 0, 2^BD - 1) and the bi-average clip((p_0 + p_1 +
+// 2^(14 - BD)) >> (15 - BD), 0, 2^BD - 1). On luma (8 taps, quarter pel:
+// NT 8, FS 2, FM 3) the int32 SSEs of the three against cur (exact: at 10
+// bits a 16x16 SSE reaches ~2.7e8, above 2^24 but below 2^31), each
+// converted once to float32 with round-to-nearest as JAX's astype does,
+// and the costs
 //   cost_l  = sse_l  + lam * (b_l + 2)
 //   cost_bi = sse_bi + lam * (b_0 + b_1 + 2),  b_l = (|mvx| + |mvy|) / 4 + 4
 // each product rounded on its own (built with -fmad=false, as JAX
@@ -93,7 +97,11 @@ struct BPredJob {
     float lam;    // the full lambda, rounded to float32
 };
 
-__device__ __forceinline__ int clip8(int v) { return min(max(v, 0), 255); }
+// a sample clipped to 0..2^BD - 1
+template <int BD>
+__device__ __forceinline__ int clip_bd(int v) {
+    return min(max(v, 0), (1 << BD) - 1);
+}
 
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -104,6 +112,7 @@ __device__ __forceinline__ int warp_sum(int v) {
 
 // Luma of block n: the two lists, the three costs, inter_dir (returned in
 // every lane) and the chosen prediction.
+template <int BD>
 __device__ __forceinline__ int luma_block(const BPredJob& job, int n, int x,
                                           int y, int2 m0, int2 m1,
                                           int* s_win) {
@@ -143,7 +152,7 @@ __device__ __forceinline__ int luma_block(const BPredJob& job, int n, int x,
         int acc = 0;
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc += s[i] * th[i];
-        h[r] = acc;
+        h[r] = acc >> (BD - 8);
     }
     int p[16];
 #pragma unroll
@@ -162,9 +171,9 @@ __device__ __forceinline__ int luma_block(const BPredJob& job, int n, int x,
         const int got = __shfl_xor_sync(kFull, l ? p[r] : p[8 + r], 16);
         const int q0 = l ? got : p[r];
         const int q1 = l ? p[8 + r] : got;
-        u0[r] = clip8((q0 + 32) >> 6);
-        u1[r] = clip8((q1 + 32) >> 6);
-        ub[r] = clip8((q0 + q1 + 64) >> 7);
+        u0[r] = clip_bd<BD>((q0 + (1 << (13 - BD))) >> (14 - BD));
+        u1[r] = clip_bd<BD>((q1 + (1 << (13 - BD))) >> (14 - BD));
+        ub[r] = clip_bd<BD>((q0 + q1 + (1 << (14 - BD))) >> (15 - BD));
         const int d0 = org[r] - u0[r], d1 = org[r] - u1[r];
         const int db = org[r] - ub[r];
         s0 += d0 * d0;
@@ -179,9 +188,9 @@ __device__ __forceinline__ int luma_block(const BPredJob& job, int n, int x,
     const float r0 = job.lam * (b0 + 2.0f);
     const float r1 = job.lam * (b1 + 2.0f);
     const float rb = job.lam * ((b0 + b1) + 2.0f);
-    const float cost0 = (float)s0 + r0;
-    const float cost1 = (float)s1 + r1;
-    const float cost_bi = (float)sb + rb;
+    const float cost0 = __int2float_rn(s0) + r0;
+    const float cost1 = __int2float_rn(s1) + r1;
+    const float cost_bi = __int2float_rn(sb) + rb;
     const int dir = cost_bi <= fminf(cost0, cost1) ? 3
                   : (cost0 <= cost1 ? 1 : 2);
     if (lane == 0) job.inter_dir[n] = dir;
@@ -195,7 +204,7 @@ __device__ __forceinline__ int luma_block(const BPredJob& job, int n, int x,
 // ROWS 14-bit chroma outputs of column c from window row 0 at (ix, iy):
 // the horizontal pass of ROWS + 3 rows, read through L1, then the
 // vertical pass
-template <int ROWS>
+template <int ROWS, int BD>
 __device__ __forceinline__ void chroma_rows(const int* plane, int Hc, int Wc,
                                             int ix, int iy, int fx, int fy,
                                             int c, int (&v)[ROWS]) {
@@ -213,7 +222,7 @@ __device__ __forceinline__ void chroma_rows(const int* plane, int Hc, int Wc,
         int acc = 0;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc += __ldg(row + xx[i]) * th[i];
-        h[r] = acc;
+        h[r] = acc >> (BD - 8);
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
@@ -225,6 +234,7 @@ __device__ __forceinline__ void chroma_rows(const int* plane, int Hc, int Wc,
 }
 
 // The chroma planes of block n at (cx, cy), from the lists dir uses.
+template <int BD>
 __device__ __forceinline__ void chroma_block(const BPredJob& job, int n,
                                              int cx, int cy, int2 m0,
                                              int2 m1, int dir) {
@@ -238,7 +248,7 @@ __device__ __forceinline__ void chroma_block(const BPredJob& job, int n,
                               : (sub ? job.rc1a : job.rc0a);
         int v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
         if (on)
-            chroma_rows<8>(plane, job.Hc, job.Wc, cx + (mv.x >> 3) - 1,
+            chroma_rows<8, BD>(plane, job.Hc, job.Wc, cx + (mv.x >> 3) - 1,
                            cy + (mv.y >> 3) - 1, mv.x & 7, mv.y & 7, c, v);
         int o[8];
 #pragma unroll
@@ -247,7 +257,8 @@ __device__ __forceinline__ void chroma_block(const BPredJob& job, int n,
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
                 const int s = sub ? v[4 + k] + o[4 + k] : v[k] + o[k];
-                out[8 * (4 * sub + k)] = clip8((s + 64) >> 7);
+                out[8 * (4 * sub + k)] =
+                    clip_bd<BD>((s + (1 << (14 - BD))) >> (15 - BD));
             }
         }
     } else if (on) {  // one list: lane sub filters its rows 4 sub .. + 3
@@ -255,15 +266,17 @@ __device__ __forceinline__ void chroma_block(const BPredJob& job, int n,
         const int* plane = pl ? (dir == 1 ? job.rc0b : job.rc1b)
                               : (dir == 1 ? job.rc0a : job.rc1a);
         int v[4];
-        chroma_rows<4>(plane, job.Hc, job.Wc, cx + (mv.x >> 3) - 1,
+        chroma_rows<4, BD>(plane, job.Hc, job.Wc, cx + (mv.x >> 3) - 1,
                        cy + (mv.y >> 3) - 1 + 4 * sub, mv.x & 7, mv.y & 7, c,
                        v);
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-            out[8 * (4 * sub + k)] = clip8((v[k] + 32) >> 6);
+            out[8 * (4 * sub + k)] =
+                clip_bd<BD>((v[k] + (1 << (13 - BD))) >> (14 - BD));
     }
 }
 
+template <int BD>
 __global__ void __launch_bounds__(32)
 b_pred_kernel(const __grid_constant__ BPredJob job) {
     __shared__ int s_win[2 * kListWords];
@@ -271,10 +284,10 @@ b_pred_kernel(const __grid_constant__ BPredJob job) {
     const int x = __ldg(job.xs + n), y = __ldg(job.ys + n);
     const int2 m0 = __ldg(reinterpret_cast<const int2*>(job.mvq0) + n);
     const int2 m1 = __ldg(reinterpret_cast<const int2*>(job.mvq1) + n);
-    const int dir = job.luma ? luma_block(job, n, x, y, m0, m1, s_win)
+    const int dir = job.luma ? luma_block<BD>(job, n, x, y, m0, m1, s_win)
                              : __ldg(job.inter_dir + n);
     if (job.nchroma)
-        chroma_block(job, n, x >> job.cshift, y >> job.cshift, m0, m1, dir);
+        chroma_block<BD>(job, n, x >> job.cshift, y >> job.cshift, m0, m1, dir);
 }
 
 }  // namespace
@@ -286,8 +299,9 @@ b_pred_kernel(const __grid_constant__ BPredJob job) {
 // unused ones null. ints (8): n, H, W, Hc, Wc, luma (1: luma deciding
 // inter_dir, 0: inter_dir given), nchroma (0..2), cshift (a chroma
 // position is xs, ys >> cshift). lam: the full lambda rounded to float32.
+// The planes hold samples of bit_depth 8 or 10.
 extern "C" int tpuhevc_b_pred(void* const* ptrs, const int* ints, float lam,
-                              void* stream) {
+                              int bit_depth, void* stream) {
     BPredJob job;
     job.cur = (const int*)ptrs[0];
     job.ry0 = (const int*)ptrs[1];
@@ -313,9 +327,13 @@ extern "C" int tpuhevc_b_pred(void* const* ptrs, const int* ints, float lam,
     job.nchroma = ints[6];
     job.cshift = ints[7];
     job.lam = lam;
-    if (n < 1 || job.nchroma < 0 || job.nchroma > 2)
+    if (n < 1 || job.nchroma < 0 || job.nchroma > 2
+        || (bit_depth != 8 && bit_depth != 10))
         return (int)cudaErrorInvalidValue;
-    b_pred_kernel<<<n, 32, 0, (cudaStream_t)stream>>>(job);
+    if (bit_depth == 8)
+        b_pred_kernel<8><<<n, 32, 0, (cudaStream_t)stream>>>(job);
+    else
+        b_pred_kernel<10><<<n, 32, 0, (cudaStream_t)stream>>>(job);
     return (int)cudaGetLastError();
 }
 

@@ -4,11 +4,15 @@
 // Replaces: tpuhevc/codec/inter_b.py:181-194, `code_blocks` (a closure of
 // `_b_step` that XLA compiled for the TPU), over the int32 JAX transforms
 // of tpuhevc/ops/transforms.py:144-198, `rdoq_est_xp` (:317-422) and
-// `ResidualBitEst.tu_bits` (tpuhevc/entropy/bitest.py:286-378), 8-bit.
+// `ResidualBitEst.tu_bits` (tpuhevc/entropy/bitest.py:286-378), at bit
+// depth BD (8 or 10, a template argument: the 10-bit variant is the 8-bit
+// code with the transforms' shifts (tu_team.cuh) and the clip compiled
+// in, one launch one depth; the quantiser's, dequantiser's and RDOQ's
+// constants come from the host at that depth).
 //
 // What it computes, per TU of size S (4..16) of each class (a plane's
 // TUs, with its QP's constants and its estimator's tables):
-//   r = cur - pred; c = forward DCT-II (tx_common.cuh);
+//   r = cur - pred; c = forward DCT-II at BD (tx_common.cuh);
 //   lvl = the float32 table RDOQ of c (rdoq_common.cuh) with the B-slice
 //         estimator's tables and the full lambda;
 //   with sign-bit hiding (the SBH variant): per 4x4 CG whose first and
@@ -21,15 +25,17 @@
 //         (entropy/residual.py apply_sign_bit_hiding against
 //         ops/transforms.py ideal_levels_np, whose float64 errors are
 //         exact, so the int64 ones order as they do);
-//   rsd = inverse DCT of the dequantised levels;
-//   rec = clip(pred + rsd, 0, 255) (the reference takes pred where every
-//         level is 0; rsd is then 0 and pred lies in 0..255, so the clip
-//         gives pred: no nz test is needed);
+//   rsd = inverse DCT of the dequantised levels at BD;
+//   rec = clip(pred + rsd, 0, 2^BD - 1) (the reference takes pred where
+//         every level is 0; rsd is then 0 and pred lies in 0..2^BD - 1,
+//         so the clip gives pred: no nz test is needed);
 //   bits = the table bit estimate of lvl (tu_bits_team.cuh, float32; the
 //          SBH variant counts one sign fewer a hiding CG);
 //   drop = (float)(sse(cur, pred) - sse(cur, rec)) <= lam * bits, the
-//          SSEs int32 as in JAX, the product rounded on its own
-//          (-fmad=false);
+//          SSEs int32 as in JAX (at 10 bits a 16x16 TU's reaches ~2.7e8,
+//          above 2^24 but below 2^31), their difference converted once
+//          with round-to-nearest as JAX's astype does, the product
+//          rounded on its own (-fmad=false);
 //   dropped: lvl = 0, rec = pred.
 //
 // What bounds it: the transform's 4 S^3 multiply-adds and ~60 float
@@ -109,7 +115,11 @@ union BTxqSmem {
     TxqSmem<2> s4;
 };
 
-__device__ __forceinline__ int clip8(int v) { return min(max(v, 0), 255); }
+// a sample clipped to 0..2^BD - 1
+template <int BD>
+__device__ __forceinline__ int clip_bd(int v) {
+    return min(max(v, 0), (1 << BD) - 1);
+}
 
 // scan position -> raster index in a 4x4 diagonal scan
 __constant__ int c_diag4[16] = {0, 4, 1, 8, 5, 2, 12, 9, 6, 3, 13, 10,
@@ -179,7 +189,7 @@ __device__ __forceinline__ void sbh_cg(int* L, const int* C, int c,
 __device__ int g_t32[32 * 32];
 
 // The blocks of one class: block blk of it codes TUs blk * TUS + slot.
-template <int LOG2, bool SBH>
+template <int LOG2, bool SBH, int BD>
 __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
                                         TxqSmem<LOG2>& sm) {
     using L = TuTeam<LOG2>;
@@ -216,7 +226,7 @@ __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
         d_skip = r4.x * r4.x + r4.y * r4.y + r4.z * r4.z + r4.w * r4.w;
     }
     __syncthreads();
-    team_forward<LOG2>(X, Y, sm.m, t);
+    team_forward<LOG2, BD>(X, Y, sm.m, t);
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {  // coefficient i of CG g at c
         const int c = t + TEAM * j, g = c >> 4, i = c & 15;
@@ -250,7 +260,7 @@ __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
             const int e = t + TEAM * j;
-            Y[e] = tx_inv_row_at<LOG2>(X, tc, e >> LOG2);
+            Y[e] = tx_inv_row_at<LOG2, BD>(X, tc, e >> LOG2);
         }
     }
     team_sync<TEAM>();
@@ -258,14 +268,15 @@ __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
     int d_coded = 0;
     if (lead) {
         const int4 rs = *reinterpret_cast<const int4*>(Y + bl.e0);
-        r4 = make_int4(clip8(p4.x + rs.x), clip8(p4.y + rs.y),
-                       clip8(p4.z + rs.z), clip8(p4.w + rs.w));
+        r4 = make_int4(clip_bd<BD>(p4.x + rs.x), clip_bd<BD>(p4.y + rs.y),
+                       clip_bd<BD>(p4.z + rs.z), clip_bd<BD>(p4.w + rs.w));
         const int dx = c4.x - r4.x, dy = c4.y - r4.y, dz = c4.z - r4.z,
                   dw = c4.w - r4.w;
         d_coded = dx * dx + dy * dy + dz * dz + dw * dw;
     }
     d_skip = team_sum<TEAM>(d_skip, sm.red[0]);
     d_coded = team_sum<TEAM>(d_coded, sm.red[1]);
+    // (float) of an int rounds to nearest (cvt.rn), as JAX's astype does
     const bool drop = (float)(d_skip - d_coded) <= k.rq.lam * bits;
     if (lead && live) {
         *reinterpret_cast<int4*>(k.lvl + base) =
@@ -274,7 +285,7 @@ __device__ __forceinline__ void txq_tus(const TxqClass& k, int blk,
     }
 }
 
-template <bool SBH>
+template <bool SBH, int BD>
 __global__ void __launch_bounds__(kTuBlock)
 b_txq_kernel(const __grid_constant__ TxqJob job) {
     __shared__ BTxqSmem sm;
@@ -283,9 +294,9 @@ b_txq_kernel(const __grid_constant__ TxqJob job) {
     while (k + 1 < job.ncls && b >= job.c[k + 1].block0) ++k;
     const TxqClass& c = job.c[k];
     switch (c.log2) {
-        case 4: txq_tus<4, SBH>(c, b - c.block0, sm.s16); break;
-        case 3: txq_tus<3, SBH>(c, b - c.block0, sm.s8); break;
-        default: txq_tus<2, SBH>(c, b - c.block0, sm.s4); break;
+        case 4: txq_tus<4, SBH, BD>(c, b - c.block0, sm.s16); break;
+        case 3: txq_tus<3, SBH, BD>(c, b - c.block0, sm.s8); break;
+        default: txq_tus<2, SBH, BD>(c, b - c.block0, sm.s4); break;
     }
 }
 
@@ -304,20 +315,23 @@ extern "C" int tpuhevc_b_txq_init(const int* host_t32) {
 }
 
 // ncls classes (1..3) in one launch, in the order given (the caller puts
-// the largest TUs first); sbh != 0 takes the sign-hiding variant. Class i:
-// ptrs[6 i ..] = cur, pred (n, S, S)
-// int32, itab, ftab (its estimator's tables: entropy/bitest.py
+// the largest TUs first); sbh != 0 takes the sign-hiding variant, and
+// bit_depth (8 or 10) the variant of that depth. Class i: ptrs[6 i ..] =
+// cur, pred (n, S, S) int32 (samples of bit_depth, pred in 0..2^bit_depth
+// - 1), itab, ftab (its estimator's tables: entropy/bitest.py
 // EstTables), lvl, rec (n, S, S) int32 out, all on the device and 16-byte
 // aligned; ints[6 i ..] = n, log2 (S = 1 << log2 in 4..16), dqscale,
 // dqshift (tpuhevc_torch/ops/transforms.py dequant_params), qscale, qbits
-// (its quant_params: the quantiser's scale and shift); flts[7 i ..]
-// = scale, qdiv, inv_qdiv, inv_den (rdoq_consts), lam (the full lambda),
+// (its quant_params: the quantiser's scale and shift), all at bit_depth;
+// flts[7 i ..] = scale, qdiv, inv_qdiv, inv_den (rdoq_consts at
+// bit_depth), lam (the full lambda),
 // lc0 = lam * csbf[0][0], lc1 = lam * csbf[0][1], rounded to float32.
 // The arrays lie in host memory and go by value into the launch.
 extern "C" int tpuhevc_b_txq(int ncls, int sbh, void* const* ptrs,
                              const int* ints, const float* flts,
-                             void* stream) {
-    if (ncls < 1 || ncls > kMaxClasses) return (int)cudaErrorInvalidValue;
+                             int bit_depth, void* stream) {
+    if (ncls < 1 || ncls > kMaxClasses || (bit_depth != 8 && bit_depth != 10))
+        return (int)cudaErrorInvalidValue;
     TxqJob job = {};
     job.ncls = ncls;
     int blocks = 0;
@@ -343,9 +357,17 @@ extern "C" int tpuhevc_b_txq(int ncls, int sbh, void* const* ptrs,
         const int tus = tus_a_block(c.log2);
         blocks += (c.n + tus - 1) / tus;
     }
-    if (sbh)
-        b_txq_kernel<true><<<blocks, kTuBlock, 0, (cudaStream_t)stream>>>(job);
-    else
-        b_txq_kernel<false><<<blocks, kTuBlock, 0, (cudaStream_t)stream>>>(job);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (bit_depth == 8) {
+        if (sbh)
+            b_txq_kernel<true, 8><<<blocks, kTuBlock, 0, st>>>(job);
+        else
+            b_txq_kernel<false, 8><<<blocks, kTuBlock, 0, st>>>(job);
+    } else {
+        if (sbh)
+            b_txq_kernel<true, 10><<<blocks, kTuBlock, 0, st>>>(job);
+        else
+            b_txq_kernel<false, 10><<<blocks, kTuBlock, 0, st>>>(job);
+    }
     return (int)cudaGetLastError();
 }

@@ -17,7 +17,10 @@ both lists' predictions at the 14-bit scale, the two uni predictions and
 their bi-average; for luma the float32 costs SSE + lam_full * (MV bits +
 2) of the three and the winner `inter_dir` (bi where its cost is at most
 both uni costs, else L0 where it is at most L1's, else L1); chroma takes
-the luma `inter_dir`. Returns the chosen prediction. `b_pred_yuv` is a B
+the luma `inter_dir`. Returns the chosen prediction. At bit depth bd (8
+or 10) the predictions take `mc14`'s and `bi_average`'s shifts and clip
+at bd, as the reference's step does; the SSEs are exact integers (at 10
+bits above 2^24), each converted once to float32. `b_pred_yuv` is a B
 picture's three planes in one launch, `b_pred` one plane.
 
 `mc_blk_planes` is a P picture's CU classes, Y, U and V each, in one
@@ -35,7 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_depth, check_tensor
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 
@@ -115,15 +118,21 @@ def bi_average(p0_14: torch.Tensor, p1_14: torch.Tensor,
         0, (1 << bit_depth) - 1).int()
 
 
+def uni_from14(p14: torch.Tensor, bit_depth: int = 8) -> torch.Tensor:
+    """A 14-bit prediction rounded back to bit_depth bits (`mc`'s last
+    step): clip((p + 2^(13 - bd)) >> (14 - bd), 0, 2^bd - 1) as int32."""
+    sh = 14 - bit_depth
+    return ((p14 + (1 << (sh - 1))) >> sh).clamp(
+        0, (1 << bit_depth) - 1).int()
+
+
 def mc_blk_plain(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                  mvq: torch.Tensor, size: int, is_luma: bool,
                  bit_depth: int = 8) -> torch.Tensor:
     """plane (H, W), positions (N,), MVs (N, 2) int32 -> (N, S, S) int32
     (`mc`: the 14-bit prediction rounded back to bit_depth bits)."""
-    acc = mc14(plane, xs, ys, mvq, size, is_luma, bit_depth)
-    sh = 14 - bit_depth
-    return ((acc + (1 << (sh - 1))) >> sh).clamp(
-        0, (1 << bit_depth) - 1).int()
+    return uni_from14(mc14(plane, xs, ys, mvq, size, is_luma, bit_depth),
+                      bit_depth)
 
 
 def mc_blk_planes_plain(jobs, bit_depth: int = 8):
@@ -138,8 +147,7 @@ def mc_blk_planes(jobs, bit_depth: int = 8):
     predictions views of one buffer. CPU tensors take the plain version;
     CUDA tensors the kernel (samples of bit_depth 8 or 10, its variant for
     each; luma S = 8, 16 or 32, chroma S = 4, 8 or 16)."""
-    if bit_depth not in (8, 10):
-        raise ValueError(f"mc_blk: bit depth {bit_depth} (8 or 10)")
+    check_depth("mc_blk", bit_depth)
     dev = jobs[0][0].device
     if dev.type == "cpu":
         return mc_blk_planes_plain(jobs, bit_depth)
@@ -203,16 +211,17 @@ def _mv_rate(mvq: torch.Tensor) -> torch.Tensor:
 def b_pred_plain(cur, ref0: torch.Tensor, ref1: torch.Tensor,
                  xs: torch.Tensor, ys: torch.Tensor, mvq0: torch.Tensor,
                  mvq1: torch.Tensor, size: int, is_luma: bool,
-                 lam_full: float = 0.0, inter_dir=None):
+                 lam_full: float = 0.0, inter_dir=None, bit_depth: int = 8):
     """-> (pred (N, S, S) int32, inter_dir (N,) int32). Luma (inter_dir
     None): cur (N, S, S) int32 and lam_full (a Python float, rounded once
     to float32 where it meets a tensor) decide inter_dir 1 (L0), 2 (L1) or
-    3 (bi). Chroma: the luma inter_dir is given and cur is not read."""
-    p0 = mc14(ref0, xs, ys, mvq0, size, is_luma)
-    p1 = mc14(ref1, xs, ys, mvq1, size, is_luma)
-    pred0 = ((p0 + 32) >> 6).clamp(0, 255).int()
-    pred1 = ((p1 + 32) >> 6).clamp(0, 255).int()
-    pred_bi = bi_average(p0, p1)
+    3 (bi). Chroma: the luma inter_dir is given and cur is not read. The
+    planes hold samples of bit_depth (8 or 10)."""
+    check_depth("b_pred", bit_depth)
+    p0 = mc14(ref0, xs, ys, mvq0, size, is_luma, bit_depth)
+    p1 = mc14(ref1, xs, ys, mvq1, size, is_luma, bit_depth)
+    pred0, pred1 = uni_from14(p0, bit_depth), uni_from14(p1, bit_depth)
+    pred_bi = bi_average(p0, p1, bit_depth)
     if inter_dir is None:
         n = cur.shape[0]
 
@@ -235,27 +244,29 @@ def b_pred_plain(cur, ref0: torch.Tensor, ref1: torch.Tensor,
 
 def b_pred_yuv_plain(cur: torch.Tensor, refs_y, refs_u, refs_v,
                      xs: torch.Tensor, ys: torch.Tensor, mvq0: torch.Tensor,
-                     mvq1: torch.Tensor, lam_full: float):
+                     mvq1: torch.Tensor, lam_full: float,
+                     bit_depth: int = 8):
     """A B picture's three planes: `b_pred_plain` on luma (16x16 blocks at
     xs, ys, deciding inter_dir), then on U and V (8x8 at xs // 2, ys // 2)
-    with that inter_dir. refs_*: (list 0, list 1) planes. -> (pred_y,
-    inter_dir, pred_u, pred_v)."""
+    with that inter_dir, at bit_depth. refs_*: (list 0, list 1) planes. ->
+    (pred_y, inter_dir, pred_u, pred_v)."""
     pred_y, inter_dir = b_pred_plain(cur, *refs_y, xs, ys, mvq0, mvq1, 16,
-                                     True, lam_full)
+                                     True, lam_full, bit_depth=bit_depth)
     cxs, cys = xs // 2, ys // 2
     pred_u, _ = b_pred_plain(None, *refs_u, cxs, cys, mvq0, mvq1, 8, False,
-                             inter_dir=inter_dir)
+                             inter_dir=inter_dir, bit_depth=bit_depth)
     pred_v, _ = b_pred_plain(None, *refs_v, cxs, cys, mvq0, mvq1, 8, False,
-                             inter_dir=inter_dir)
+                             inter_dir=inter_dir, bit_depth=bit_depth)
     return pred_y, inter_dir, pred_u, pred_v
 
 
 def _b_pred_launch(n, cur, refs_y, refs_c, xs, ys, mvq0, mvq1, inter_dir,
-                   lam_full, cshift):
-    """One launch of kernel `b_pred` over n 16x16 blocks: luma (refs_y not
-    None: cur decides inter_dir) and the chroma planes of refs_c (a list
-    of (list 0, list 1) planes; their blocks at xs, ys >> cshift, from the
-    lists inter_dir uses). Returns (pred_y or None, [pred_c])."""
+                   lam_full, cshift, bit_depth):
+    """One launch of kernel `b_pred` (its variant of bit_depth) over n
+    16x16 blocks: luma (refs_y not None: cur decides inter_dir) and the
+    chroma planes of refs_c (a list of (list 0, list 1) planes; their
+    blocks at xs, ys >> cshift, from the lists inter_dir uses). Returns
+    (pred_y or None, [pred_c])."""
     dev = xs.device
     for t_, name in ((xs, "xs"), (ys, "ys"), (inter_dir, "inter_dir")):
         check_tensor(t_, name, torch.int32, 1, dev)
@@ -298,23 +309,26 @@ def _b_pred_launch(n, cur, refs_y, refs_c, xs, ys, mvq0, mvq1, inter_dir,
     ints = (ctypes.c_int * 8)(n, *shape_y, *shape_c, int(refs_y is not None),
                               len(refs_c), cshift)
     fn = kbuild.function("b_pred", "tpuhevc_b_pred",
-                         [kbuild.P, kbuild.P, ctypes.c_float, kbuild.P])
-    err = fn(ptrs, ints, float(np.float32(lam_full)),
+                         [kbuild.P, kbuild.P, ctypes.c_float, kbuild.I,
+                          kbuild.P])
+    err = fn(ptrs, ints, float(np.float32(lam_full)), bit_depth,
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "b_pred")
-    LAUNCHES["b_pred"] += 1
+    LAUNCHES["b_pred" if bit_depth == 8 else "b_pred10"] += 1
     return pred_y, preds_c
 
 
 def b_pred_yuv(cur: torch.Tensor, refs_y, refs_u, refs_v, xs: torch.Tensor,
                ys: torch.Tensor, mvq0: torch.Tensor, mvq1: torch.Tensor,
-               lam_full: float):
+               lam_full: float, bit_depth: int = 8):
     """Kernel `b_pred` over a B picture's three planes in one launch (the
     arguments and results of `b_pred_yuv_plain`). CPU tensors take the
-    plain version; CUDA tensors the kernel (8-bit)."""
+    plain version; CUDA tensors the kernel (its 8-bit variant, or at
+    bit_depth 10 `b_pred10`)."""
+    check_depth("b_pred", bit_depth)
     if xs.device.type == "cpu":
         return b_pred_yuv_plain(cur, refs_y, refs_u, refs_v, xs, ys, mvq0,
-                                mvq1, lam_full)
+                                mvq1, lam_full, bit_depth)
     if xs.device.type != "cuda":
         raise ValueError(f"b_pred: unsupported device {xs.device}")
     n = xs.shape[0]
@@ -325,20 +339,23 @@ def b_pred_yuv(cur: torch.Tensor, refs_y, refs_u, refs_v, xs: torch.Tensor,
                 inter_dir, e, e.clone())
     pred_y, (pred_u, pred_v) = _b_pred_launch(
         n, cur, tuple(refs_y), [tuple(refs_u), tuple(refs_v)], xs, ys, mvq0,
-        mvq1, inter_dir, lam_full, 1)
+        mvq1, inter_dir, lam_full, 1, bit_depth)
     return pred_y, inter_dir, pred_u, pred_v
 
 
 def b_pred(cur, ref0: torch.Tensor, ref1: torch.Tensor, xs: torch.Tensor,
            ys: torch.Tensor, mvq0: torch.Tensor, mvq1: torch.Tensor,
-           size: int, is_luma: bool, lam_full: float = 0.0, inter_dir=None):
+           size: int, is_luma: bool, lam_full: float = 0.0, inter_dir=None,
+           bit_depth: int = 8):
     """Kernel `b_pred` on one plane (the arguments and results of
     `b_pred_plain`). CPU tensors take the plain version; CUDA tensors the
-    kernel, which takes the B step's two cases: 16x16 luma deciding
-    inter_dir, and 8x8 chroma (blocks at xs, ys) with inter_dir given."""
+    kernel (the variant of bit_depth), which takes the B step's two cases:
+    16x16 luma deciding inter_dir, and 8x8 chroma (blocks at xs, ys) with
+    inter_dir given."""
+    check_depth("b_pred", bit_depth)
     if ref0.device.type == "cpu":
         return b_pred_plain(cur, ref0, ref1, xs, ys, mvq0, mvq1, size,
-                            is_luma, lam_full, inter_dir)
+                            is_luma, lam_full, inter_dir, bit_depth)
     if ref0.device.type != "cuda":
         raise ValueError(f"b_pred: unsupported device {ref0.device}")
     decide = inter_dir is None
@@ -354,10 +371,10 @@ def b_pred(cur, ref0: torch.Tensor, ref1: torch.Tensor, xs: torch.Tensor,
                             device=ref0.device), inter_dir)
     if is_luma:
         pred, _ = _b_pred_launch(n, cur, (ref0, ref1), [], xs, ys, mvq0,
-                                 mvq1, inter_dir, lam_full, 0)
+                                 mvq1, inter_dir, lam_full, 0, bit_depth)
     else:
         _, (pred,) = _b_pred_launch(n, None, None, [(ref0, ref1)], xs, ys,
-                                    mvq0, mvq1, inter_dir, 0.0, 0)
+                                    mvq0, mvq1, inter_dir, 0.0, 0, bit_depth)
     return pred, inter_dir
 
 

@@ -20,10 +20,10 @@ the adjacent row, as in the reference).
 
 `sad_search_classes` searches a P picture's CU classes in one launch,
 reading each PU's clamped window from the reference plane itself;
-`sad_search` is its one-class case. Their callers name the samples' bit
-depth (8 or 10) explicitly: the kernel has a variant for each (8-bit
-samples packed four to a word, 10-bit ones a block a PU), and the data
-never chooses one. `*_plain` are the PyTorch versions
+`sad_search` is its one-class case. Their callers, and `b_me`'s, name
+the samples' bit depth (8 or 10) explicitly: each kernel has a variant
+for each (K1's 8-bit samples packed four to a word, 10-bit ones a block a
+PU; `b_me`'s four or two to a word), and the data never chooses one. `*_plain` are the PyTorch versions
 (`sad_search_plain` takes the gathered windows); `sad_search_classes` and
 `b_me` launch the CUDA kernels (`kernels/csrc/sad_search.cu`,
 `kernels/csrc/b_me.cu`) for CUDA tensors.
@@ -40,7 +40,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_depth, check_tensor
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
 
@@ -104,11 +104,6 @@ def window_index(xs: torch.Tensor, ys: torch.Tensor, size: int, sr: int,
     return yy[:, :, None] * w + xx[:, None, :]
 
 
-def _check_depth(what: str, bit_depth: int) -> None:
-    if bit_depth not in (8, 10):
-        raise ValueError(f"{what}: bit depth {bit_depth} (8 or 10)")
-
-
 def sad_search_classes_plain(ref_y: torch.Tensor, classes, bits: torch.Tensor,
                              lam_me: int, sr: int, subsample: bool = True,
                              bit_depth: int = 8):
@@ -116,7 +111,7 @@ def sad_search_classes_plain(ref_y: torch.Tensor, classes, bits: torch.Tensor,
     -> [(mv (N, 2), sad9 (N, 9))], each class's windows gathered as
     `window_index` gives them and searched by `sad_search_plain`. The sums
     are the same at either bit depth (8 or 10)."""
-    _check_depth("sad_search", bit_depth)
+    check_depth("sad_search", bit_depth)
     h, w = ref_y.shape
     flat = ref_y.reshape(-1)
     return [sad_search_plain(
@@ -133,7 +128,7 @@ def sad_search_classes(ref_y: torch.Tensor, classes, bits: torch.Tensor,
     itself and takes S = 8, 16 or 32 and sr 1..16: its 8-bit variant
     (samples 0..255 in the int32 planes, packed four to a word on the
     card) or its 10-bit one (samples 0..1023), as `bit_depth` says."""
-    _check_depth("sad_search", bit_depth)
+    check_depth("sad_search", bit_depth)
     if ref_y.device.type == "cpu":
         return sad_search_classes_plain(ref_y, classes, bits, lam_me, sr,
                                         subsample, bit_depth)
@@ -231,20 +226,15 @@ def _b_tables(h: int, w: int, sr: int, device) -> dict:
     return t
 
 
-def _b_depth(bit_depth: int) -> None:
-    if bit_depth != 8:
-        raise NotImplementedError(f"b_me: bit depth {bit_depth} (8-bit "
-                                  "samples only)")
-
-
 def b_me_plain(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
                lam_me: float, sr: int, bit_depth: int = 8):
     """org, ref0, ref1 (H, W) int32 planes, H and W multiples of 16 ->
     (mv (2, N, 2), sad9 (2, N, 9)) int32 for the N 16x16 blocks in raster
     order, list 0 then list 1. lam_me is a Python float, rounded once to
-    float32 where it meets the bit table (JAX's weak type). 8-bit video
-    only, as the kernel (`b_me`)."""
-    _b_depth(bit_depth)
+    float32 where it meets the bit table (JAX's weak type). The sums are
+    the same at either bit depth (8 or 10): a 16x16 SAD at 10 bits is at
+    most 261,888, so its float32 cost is exact."""
+    check_depth("b_me", bit_depth)
     h, w = org.shape
     t = _b_tables(h, w, sr, org.device)
     side = 2 * sr + 1
@@ -267,11 +257,11 @@ def b_me_plain(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
 def b_me(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
          lam_me: float, sr: int, *, bit_depth: int):
     """Kernel `b_me`. CPU tensors take the plain version; CUDA tensors the
-    kernel, which takes 8-bit video only (samples 0..255 in the int32
-    planes, packed four to a word on the card), as the B step does. The
-    caller names the bit depth, and anything but 8 raises on either
-    device: a 10-bit variant waits for Main10 in random access."""
-    _b_depth(bit_depth)
+    kernel: its 8-bit variant (samples 0..255 in the int32 planes, packed
+    four to a word on the card) or its 10-bit one (`b_me10`: samples
+    0..1023, two to a word), as the caller's `bit_depth` says; any other
+    depth raises on either device."""
+    check_depth("b_me", bit_depth)
     if org.device.type == "cpu":
         return b_me_plain(org, ref0, ref1, lam_me, sr, bit_depth)
     if org.device.type != "cuda":
@@ -291,13 +281,14 @@ def b_me(org: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
         return mv, sad9
     mvb = _b_tables(h, w, sr, dev)["mvb"]
     fn = kbuild.function("b_me", "tpuhevc_b_me",
-                         [kbuild.P] * 6 + [kbuild.I] * 3 + [ctypes.c_float,
-                                                            kbuild.P])
+                         [kbuild.P] * 6 + [kbuild.I] * 3
+                         + [ctypes.c_float, kbuild.I, kbuild.P])
     err = fn(org.data_ptr(), ref0.data_ptr(), ref1.data_ptr(), mvb.data_ptr(),
              mv.data_ptr(), sad9.data_ptr(), h, w, sr,
-             float(np.float32(lam_me)), torch.cuda.current_stream(dev).cuda_stream)
+             float(np.float32(lam_me)), bit_depth,
+             torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "b_me")
-    LAUNCHES["b_me"] += 1
+    LAUNCHES["b_me" if bit_depth == 8 else "b_me10"] += 1
     return mv, sad9
 
 

@@ -18,7 +18,11 @@ variant for each.
 dequantiser -> inverse DCT -> recon clip; the nz flag; the table bit
 estimate (`entropy.bitest.tu_bits`); the int32 SSEs of the skip and coded
 recons; and the float32 drop `f32(d_skip - d_coded) <= lam_full * bits`.
-Outputs lvl, rec (N, S, S) int32 after the drop. With sbh (SignHideFlag)
+Outputs lvl, rec (N, S, S) int32 after the drop. The bit depth (8 or 10)
+sets the transforms' shifts, the quantiser's, dequantiser's and RDOQ's
+constants and the recon clip, as `code_blocks` takes them at its `bd`; at
+10 bits the SSEs pass 2^24, and their difference is converted to float32
+once, as JAX's astype does. The kernel has a variant for each depth. With sbh (SignHideFlag)
 the levels are sign-hidden after the RDOQ (`sbh_levels`: the rule of
 tpuhevc's host stage, `apply_sign_bit_hiding` against
 `ideal_levels_np`, `tpuhevc/codec/inter_enc.py:188-214,252-257`), and the
@@ -42,7 +46,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_depth, check_tensor
 from ..entropy.bitest import tu_bits_plain
 from ..kernels import LAUNCHES
 from ..kernels import build as kbuild
@@ -120,8 +124,7 @@ def txq_planes(jobs, lam_full: int, bit_depth: int = 8):
     tensors take the plain version; CUDA tensors the kernel (its variant
     for bit_depth 8 or 10: pred in 0..2^bit_depth - 1; S = 4, 8, 16 or
     32)."""
-    if bit_depth not in (8, 10):
-        raise ValueError(f"txq: bit depth {bit_depth} (8 or 10)")
+    check_depth("txq", bit_depth)
     dev = jobs[0][0].device
     if dev.type == "cpu":
         return txq_planes_plain(jobs, lam_full, bit_depth)
@@ -195,10 +198,10 @@ def _cg_index(S: int, device) -> torch.Tensor:
 
 
 def sbh_levels(lvl: torch.Tensor, coef: torch.Tensor, qp: int,
-               log2: int) -> torch.Tensor:
+               log2: int, bit_depth: int = 8) -> torch.Tensor:
     """Sign-bit hiding of (N, S, S) levels against the coefficients they
-    quantise (8-bit): `entropy.residual.apply_sign_bit_hiding` with the
-    ideal levels `ideal_levels_np(coef, qp, log2, 8)`, exactly. Per 4x4 CG
+    quantise (at bit_depth): `entropy.residual.apply_sign_bit_hiding` with
+    the ideal levels `ideal_levels_np(coef, qp, log2, bit_depth)`, exactly. Per 4x4 CG
     whose first and last nonzero lie 4 or more apart in scan and whose
     absolute sum's parity differs from the first level's sign, one level
     in that span moves by +-1: the first least |new - |ideal|| over the
@@ -209,7 +212,7 @@ def sbh_levels(lvl: torch.Tensor, coef: torch.Tensor, qp: int,
     n, S = lvl.shape[0], lvl.shape[-1]
     if n == 0:
         return lvl
-    scale, _, qbits = tx.quant_params(qp, log2, 8)
+    scale, _, qbits = tx.quant_params(qp, log2, bit_depth)
     idx = _cg_index(S, lvl.device)
     lv = lvl.reshape(n, -1).long()[:, idx]      # (n, ncg, 16)
     cf = coef.reshape(n, -1).long()[:, idx]
@@ -244,20 +247,22 @@ def sbh_levels(lvl: torch.Tensor, coef: torch.Tensor, qp: int,
 
 
 def b_txq_plain(cur: torch.Tensor, pred: torch.Tensor, qp: int,
-                lam_full: float, est, sbh: bool = False):
-    """cur, pred (N, S, S) int32 -> (lvl, rec (N, S, S) int32). `est`: the
-    TU size's `EstTables`; lam_full a Python float (rounded to float32
-    where it meets a tensor, as JAX's weak type); sbh: sign-bit hiding
-    after the RDOQ (`sbh_levels`), one sign fewer a hiding CG in the
-    bits."""
+                lam_full: float, est, sbh: bool = False, bit_depth: int = 8):
+    """cur, pred (N, S, S) int32 of bit_depth (8 or 10) -> (lvl, rec (N, S,
+    S) int32). `est`: the TU size's `EstTables`; lam_full a Python float
+    (rounded to float32 where it meets a tensor, as JAX's weak type); sbh:
+    sign-bit hiding after the RDOQ (`sbh_levels`), one sign fewer a hiding
+    CG in the bits."""
+    check_depth("b_txq", bit_depth)
     n = cur.shape[0]
     log2 = cur.shape[-1].bit_length() - 1
-    coef = tx.forward_transform(cur - pred)
-    lvl = tx.rdoq_est(coef, qp, log2, 8, lam_full, est)
+    coef = tx.forward_transform(cur - pred, bit_depth)
+    lvl = tx.rdoq_est(coef, qp, log2, bit_depth, lam_full, est)
     if sbh:
-        lvl = sbh_levels(lvl, coef, qp, log2)
-    rsd = tx.inverse_transform(tx.dequantize(lvl, qp, log2))
-    rec = (pred + rsd).clamp(0, 255)
+        lvl = sbh_levels(lvl, coef, qp, log2, bit_depth)
+    rsd = tx.inverse_transform(tx.dequantize(lvl, qp, log2, bit_depth),
+                               bit_depth)
+    rec = (pred + rsd).clamp(0, (1 << bit_depth) - 1)
     nz = (lvl != 0).reshape(n, -1).any(dim=1)
     rec = torch.where(nz[:, None, None], rec, pred)
     bits = tu_bits_plain(est, lvl, sbh)
@@ -280,21 +285,25 @@ def _init_b_matrix(dev: torch.device) -> None:
     _B_INIT_DEVICES.add(dev.index)
 
 
-def b_txq_planes_plain(planes, lam_full: float, sbh: bool = False):
+def b_txq_planes_plain(planes, lam_full: float, sbh: bool = False,
+                       bit_depth: int = 8):
     """planes: [(cur, pred (N, S, S) int32, qp, est)] -> [(lvl, rec)], each
-    plane by `b_txq_plain`."""
-    return [b_txq_plain(cur, pred, qp, lam_full, est, sbh)
+    plane by `b_txq_plain` at bit_depth."""
+    return [b_txq_plain(cur, pred, qp, lam_full, est, sbh, bit_depth)
             for cur, pred, qp, est in planes]
 
 
-def b_txq_planes(planes, lam_full: float, sbh: bool = False):
+def b_txq_planes(planes, lam_full: float, sbh: bool = False,
+                 bit_depth: int = 8):
     """Kernel `b_txq` over up to three planes (a B picture's Y, U and V) in
     one launch; the arguments and results of `b_txq_planes_plain`. CPU
-    tensors take the plain version; CUDA tensors the kernel (8-bit, S = 4,
-    8 or 16; sign hiding a variant compiled in)."""
+    tensors take the plain version; CUDA tensors the kernel (S = 4, 8 or
+    16; sign hiding a variant compiled in, and each bit depth, 8 or 10:
+    `b_txq10` counts the 10-bit launches)."""
+    check_depth("b_txq", bit_depth)
     dev = planes[0][0].device
     if dev.type == "cpu":
-        return b_txq_planes_plain(planes, lam_full, sbh)
+        return b_txq_planes_plain(planes, lam_full, sbh, bit_depth)
     if dev.type != "cuda":
         raise ValueError(f"b_txq: unsupported device {dev}")
     if not 1 <= len(planes) <= 3:
@@ -330,29 +339,32 @@ def b_txq_planes(planes, lam_full: float, sbh: bool = False):
     for tens, qp, est in classes:
         n, size = tens[0].shape[0], tens[0].shape[-1]
         log2 = size.bit_length() - 1
-        rk = tx.rdoq_consts(qp, log2, 8)
+        rk = tx.rdoq_consts(qp, log2, bit_depth)
         csbf = est.csbf_host
         ptrs += [t_.data_ptr() for t_ in tens]
-        qscale, _, qbits = tx.quant_params(qp, log2, 8)
-        ints += [n, log2, *tx.dequant_params(qp, log2, 8), qscale, qbits]
+        qscale, _, qbits = tx.quant_params(qp, log2, bit_depth)
+        ints += [n, log2, *tx.dequant_params(qp, log2, bit_depth), qscale,
+                 qbits]
         flts += [float(np.float32(x)) for x in (
             rk["scale"], rk["qdiv"], rk["inv_qdiv"], rk["inv_den"],
             lam_full, lam_full * float(csbf[0, 0]),
             lam_full * float(csbf[0, 1]))]
     fn = kbuild.function("b_txq", "tpuhevc_b_txq",
-                         [kbuild.I, kbuild.I] + [kbuild.P] * 4)
+                         [kbuild.I, kbuild.I] + [kbuild.P] * 3
+                         + [kbuild.I, kbuild.P])
     err = fn(len(classes), int(sbh), (ctypes.c_void_p * len(ptrs))(*ptrs),
              (ctypes.c_int * len(ints))(*ints),
-             (ctypes.c_float * len(flts))(*flts),
+             (ctypes.c_float * len(flts))(*flts), bit_depth,
              torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "b_txq")
-    LAUNCHES["b_txq"] += 1
+    LAUNCHES["b_txq" if bit_depth == 8 else "b_txq10"] += 1
     return outs
 
 
 def b_txq(cur: torch.Tensor, pred: torch.Tensor, qp: int, lam_full: float,
-          est, sbh: bool = False):
+          est, sbh: bool = False, bit_depth: int = 8):
     """Kernel `b_txq` on one plane (the arguments and results of
     `b_txq_plain`). CPU tensors take the plain version; CUDA tensors the
     kernel."""
-    return b_txq_planes([(cur, pred, qp, est)], lam_full, sbh)[0]
+    return b_txq_planes([(cur, pred, qp, est)], lam_full, sbh,
+                        bit_depth)[0]
