@@ -81,8 +81,8 @@
    and on 1 frame of an 832x480 clip,
    whose planes do not fit on chip (the variant that keeps them in device
    memory), all seven outputs; its shared-memory bytes as the C entry
-   gives them against the wrapper's at 104x72, 416x240, 832x480 and
-   1920x1088.
+   gives them against the wrapper's at 104x72, 192x128, 416x240, 832x480
+   and 1920x1088, at bit depths 8 and 10.
    grid_refine's split S = 32 launch and grid_sao_decide of the anchor
    and the fade picture on two streams of one card without a sync between
    (each stream's own ticket scratch), each equal to plain.
@@ -265,7 +265,19 @@
    held against plain with torch.equal; their device time and bound a B
    picture (samples at 2 bytes), `b_txq10`'s SBH variant beside it and
    `b_me10` beside torch.cdist; CUDA against CPU streams byte-identical
-   for these three routes at 64x48 x 6.
+   for these three routes at 64x48 x 6. Then fixed 8x8 intra at 10 bits
+   (`run_main10_intra8`, intra_qt off): all-intra at 416x240 x 4 with
+   device_batch=4 (one launch; the 16-bit planes do not fit on chip: the
+   recon in device memory), all-intra at 192x128 x 4 a picture at a time
+   (the recon on chip) and the LD-P scan with the tools cut x 3 (its IDR);
+   every hash OK with luma above 255, `intra_wave10` launched where the
+   route runs it and `intra_wave` (and the quadtree decision) idle, every
+   call of it torch.equal to plain; its device time a launch and a wave
+   at 416x240 x 4, 192x128 x 4 and 256x240 x 4 (its on-chip cluster
+   variant, held against plain there) beside the 8-bit kernel's on the
+   8-bit clip, and its bound (samples at 2 bytes); CUDA against CPU streams
+   byte-identical for all-intra at 112x72 x 3 (device_batch=2) and the
+   LD-P scan at 64x48 x 3.
 5. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}. Any failure raises (exit
    != 0).
@@ -293,7 +305,7 @@ sys.path.insert(0, ROOT)
 from tools.make_test_clip import make_clip, make_fade_clip  # noqa: E402
 from tpuhevc_torch.codec import encoder as encoder_mod  # noqa: E402
 from tpuhevc_torch.codec import (  # noqa: E402
-    inter_b, inter_batch, inter_enc, inter_grid, intra_decide)
+    inter_b, inter_batch, inter_enc, inter_grid, intra_decide, intra_frame)
 from tpuhevc_torch.codec.decoder import decode_stream  # noqa: E402
 from tpuhevc_torch.codec.encoder import encode_sequence  # noqa: E402
 from tpuhevc_torch.codec.inter_batch import _blk_idx, _positions  # noqa: E402
@@ -439,6 +451,9 @@ SOURCES = {
                  "tpuhevc/codec/inter_b.py:196"),
     "b_txq10": ("tpuhevc_torch/kernels/csrc/b_txq.cu",
                 "tpuhevc/codec/inter_b.py:181"),
+    # fixed-8x8 intra's 10-bit variant (path 10's fixed-8x8 routes)
+    "intra_wave10": ("tpuhevc_torch/kernels/csrc/intra_wave.cu",
+                     "tpuhevc/codec/intra_jax.py:182"),
 }
 # the NN-FME train step, once each a step
 TRAIN_KERNELS = ("fme_train_fwd", "fme_train_bwd", "fme_adam")
@@ -706,9 +721,9 @@ class Work:
         self.ops = 0
         self.written = 0  # outputs written into a kept buffer, per call
         # with sample_bytes: the samples K1 reads (the windows' union and
-        # the PUs), and those the B kernels read and write, count that many
-        # bytes each (2 for 10-bit video, as int16 holds it), not the int32
-        # planes' 4
+        # the PUs), and those the B kernels and intra_wave read and write,
+        # count that many bytes each (2 for 10-bit video, as int16 holds
+        # it), not the int32 planes' 4
         self.sample_bytes = sample_bytes
         self.narrow = set()  # data_ptrs of those sample tensors
 
@@ -717,6 +732,8 @@ class Work:
         self.ops += kernel_ops(name, args, kw, out)
         if self.sample_bytes and name == "sad_search":
             self.narrow.update(c[0].data_ptr() for c in args[1])
+        if self.sample_bytes and name == "intra_wave":  # originals, recon
+            self.narrow.update(t.data_ptr() for t in (*args[:3], *out[:3]))
         if self.sample_bytes and name in B_KERNELS:
             self.narrow.update(t.data_ptr() for t in b_samples(name, args,
                                                                out))
@@ -3089,13 +3106,16 @@ def check_intra_wave(dev):
     Returns {name: row}; ms/plain_ms per launch of (a); `steps` its
     dependency depth."""
     smem_c = kbuild.function("intra_wave", "tpuhevc_intra_wave_smem",
-                             [kbuild.I] * 4)
-    for w, h in ((104, 72), (416, 240), (832, 480), (1920, 1088)):
+                             [kbuild.I] * 5)
+    for w, h in ((104, 72), (192, 128), (416, 240), (832, 480),
+                 (1920, 1088)):
         bmax = wave_tables(w, h, 6, "cpu").slots.shape[1]
         for on_chip in (True, False):
-            check(smem_c(w, h, bmax, int(on_chip))
-                  == wave_smem(w, h, bmax, on_chip),
-                  f"intra_wave smem at {w}x{h}: C and Python differ")
+            for bd in (8, 10):
+                check(smem_c(w, h, bmax, int(on_chip), bd)
+                      == wave_smem(w, h, bmax, on_chip, bd),
+                      f"intra_wave smem at {w}x{h}, bit depth {bd}: C and "
+                      "Python differ")
     clip = Reader(W, H, 3).frames
     big = Reader(832, 480, 1).frames
     graft = EncoderConfig(sps=SeqParams(width=192, height=128,
@@ -3115,10 +3135,10 @@ def check_intra_wave(dev):
         geo = wave_tables(sps.coded_width, sps.coded_height, sps.log2_ctu,
                           dev)
         on_chip, cluster, smem = wave_variant(
-            sps.coded_width, sps.coded_height, *geo.slots.shape)
+            sps.coded_width, sps.coded_height, *geo.slots.shape, 8)
         args = (*planes, geo, cfg.qp, _sqlam_fp(cfg),
                 sps.strong_intra_smoothing)
-        a, b = intra_wave(*args), intra_wave_plain(*args)
+        a, b = intra_wave(*args, bit_depth=8), intra_wave_plain(*args)
         torch.cuda.synchronize()
         err = 0.0
         for x, y in zip(a, b):
@@ -3127,7 +3147,7 @@ def check_intra_wave(dev):
                   f"{y.dtype}{tuple(y.shape)}")
             err = max(err, float((x.double() - y.double()).abs().max()))
         check(err == 0, f"intra_wave {tag}: outputs differ by {err}")
-        ms = median_ms(lambda: intra_wave(*args), reps=10)
+        ms = median_ms(lambda: intra_wave(*args, bit_depth=8), reps=10)
         plain_ms = (median_ms(lambda: intra_wave_plain(*args), reps=1)
                     if timed else float("nan"))
         work = Work()
@@ -3675,10 +3695,11 @@ MAIN10 = ["--InputBitDepth=10", "--InternalBitDepth=10"]
 # the 10-bit variants, and the kernels of the Main10 paths that have one
 B10_KERNELS = ("b_me10", "b_pred10", "b_txq10")
 M10_KERNELS = ("sad_search10", "mc_blk10", "txq10", "intra_txq10",
-               *B10_KERNELS)
+               *B10_KERNELS, "intra_wave10")
 M10_OF = {"sad_search10": "sad_search", "mc_blk10": "mc_blk",
           "txq10": "txq", "intra_txq10": "intra_txq", "b_me10": "b_me",
-          "b_pred10": "b_pred", "b_txq10": "b_txq"}
+          "b_pred10": "b_pred", "b_txq10": "b_txq",
+          "intra_wave10": "intra_wave"}
 M10_FUNCS = {  # base name: (kernel wrapper, plain version)
     "sad_search": (sad_search_classes, sad_search_classes_plain),
     "mc_blk": (mc_blk_planes, mc_blk_planes_plain),
@@ -3689,6 +3710,7 @@ M10_FUNCS = {  # base name: (kernel wrapper, plain version)
     "b_me": (b_me, b_me_plain),
     "b_pred": (b_pred_yuv, b_pred_yuv_plain),
     "b_txq": (b_txq_planes, b_txq_planes_plain),
+    "intra_wave": (intra_wave, intra_wave_plain),
 }
 
 
@@ -3968,6 +3990,164 @@ def cross_check_ra10(npz):
 
 N_SEG_FRAMES, N_SEGS = 16, 2  # path 7's segment encode
 MULTI_NEED = ("stripe_prescreen", "grid_refine") + LDP_NEED
+
+
+# path 10's fixed-8x8 routes at 10 bits: pictures each
+N10_I8, N10_I8_SCAN = 4, 3
+
+
+def intra8_cfg10(w, h, frames):
+    """cfg/encoder_intra_main.cfg at 10 bits with fixed 8x8 intra."""
+    cfg, _ = build_config(parse_args([
+        "-c", INTRA_CFG, "-wdt", str(w), "-hgt", str(h), "-f", str(frames),
+        "-q", str(QP)] + MAIN10))
+    cfg.intra_qt = False
+    return cfg
+
+
+def intra8_10_routes(npz):
+    """Path 10's fixed-8x8 routes: (what, cfg, w, h, pictures,
+    device_batch, intra_wave10's launches, the other kernels that must
+    launch, whether the recon stays on chip)."""
+    scan = dataclasses.replace(ldp_cfg(npz, W, H, N10_I8_SCAN, cut=True,
+                                       extra=MAIN10), intra_qt=False)
+    return [
+        (f"fixed-8x8 all-intra, device_batch {N10_I8}",
+         intra8_cfg10(W, H, N10_I8), W, H, N10_I8, N10_I8, 1, (), False),
+        ("fixed-8x8 all-intra, a picture a launch",
+         intra8_cfg10(192, 128, N10_I8), 192, 128, N10_I8, 0, N10_I8, (),
+         True),
+        ("LD-P scan, tools cut, fixed-8x8 IDR", scan, W, H, N10_I8_SCAN, 0,
+         1, ("sad_search10", "mc_blk10", "txq10", "nnfme_mlp"), False)]
+
+
+def wave_planes(dev, w, h, n, bd):
+    """n pictures of the w x h clip (Reader10's at 10 bits) as (n, h, w),
+    (n, h/2, w/2) x 2 int32 on dev."""
+    frames = (Reader10 if bd == 10 else Reader)(w, h, n).frames
+    return [torch.as_tensor(np.stack([f[i] for f in frames]).astype(
+        np.int32), device=dev) for i in range(3)]
+
+
+def wave_times(dev, gpu):
+    """intra_wave10's device time a launch and a wave at 416x240 x 4 (the
+    recon in device memory), 192x128 x 4 (on chip) and 256x240 x 4 (on
+    chip, a cluster of 4 blocks a frame) beside the 8-bit kernel's on the
+    8-bit clip at the same sizes, each launch first held against plain;
+    the bound of each (10-bit samples at 2 bytes)."""
+    for w, h in ((W, H), (192, 128), (256, 240)):
+        for bd in (8, 10):
+            cfg = (intra8_cfg10 if bd == 10 else intra8_cfg)(w, h, N10_I8)
+            planes = wave_planes(dev, w, h, N10_I8, bd)
+            geo = wave_tables(w, h, cfg.sps.log2_ctu, dev)
+            steps, bmax = geo.slots.shape
+            on_chip, cluster, smem = wave_variant(w, h, steps, bmax, bd)
+            args = (*planes, geo, cfg.qp, _sqlam_fp(cfg), True)
+            a = intra_wave(*args, bit_depth=bd)
+            b = intra_wave_plain(*args, bit_depth=bd)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(a, b, strict=True)),
+                  f"intra_wave at {w}x{h}, bit depth {bd}: differs from "
+                  "plain")
+            dms = device_ms(lambda: intra_wave(*args, bit_depth=bd), n=20)
+            work = Work(2 if bd == 10 else None)
+            work.add("intra_wave", args, a)
+            bound_ms, bound_by = bound_of(dict(work=work))
+            name = "intra_wave10" if bd == 10 else "intra_wave"
+            print(f"kernel {name} {w}x{h} x {N10_I8} (bit depth {bd}, "
+                  f"recon {'on chip' if on_chip else 'in device memory'}, "
+                  f"{smem} bytes of shared memory, {cluster} blocks a "
+                  f"frame): device_ms {dms:.5f} a launch ({dms / N10_I8:.5f} "
+                  f"a picture, {dms / steps * 1e3:.3f} us a wave of "
+                  f"{steps}) bound {bound_ms:.6f} ms ({bound_by}; "
+                  f"{work.bytes} bytes, {work.ops} operations) | {gpu}",
+                  flush=True)
+
+
+def run_main10_intra8(dev, npz, gpu):
+    """Main path 10's fixed-8x8 routes, Main10 on the 10-bit clip
+    (Reader10), each with the counters reset just before and read just
+    after: every hash OK with the encoder's recon and luma above 255,
+    intra_wave10 launched as the route runs it (once a batch, once a
+    picture, once for the IDR) in the variant expected, intra_wave and the
+    quadtree decision's kernels idle, every call torch.equal to plain.
+    Returns (launches summed over the routes, {"intra_wave10": row}: the
+    device-batch route's call timed, samples at 2 bytes)."""
+    total = {k: 0 for k in KERNELS}
+    first = None
+    idle = ("intra_wave", "intra_txq10", *INTRA, *P_ONCE)
+    for (what, cfg, w, h, n, db, want, need,
+         on_chip) in intra8_10_routes(npz):
+        geo = wave_tables(w, h, cfg.sps.log2_ctu, "cpu")
+        check(wave_variant(w, h, *geo.slots.shape, 10)[0] == on_chip,
+              f"Main10 {what}: the recon is not "
+              f"{'on chip' if on_chip else 'in device memory'}")
+        rec = {"intra_wave": []}
+        saved = recording(intra_frame, ("intra_wave",), rec)
+        try:
+            enc, recons, secs, la = run_path(
+                dev, cfg, n, reader=Reader10(w, h, n), device_batch=db)
+        finally:
+            restore(intra_frame, saved)
+        frames = check_stream(enc, recons, n, la, ("intra_wave10",) + need,
+                              f"Main10 {what}", w, h)
+        peak = max(int(f.y.max()) for f in frames)
+        check(peak > 255, f"Main10 {what}: luma peaks at {peak}")
+        check(la["intra_wave10"] == want == len(rec["intra_wave"])
+              and all(la[k] == 0 for k in idle),
+              f"Main10 {what}: intra_wave10 launched {la['intra_wave10']} "
+              f"times in {len(rec['intra_wave'])} calls, want {want}; idle "
+              f"kernels launched { {k: la[k] for k in idle if la[k]} }")
+        for args, kw in rec["intra_wave"]:
+            a, b = intra_wave(*args, **kw), intra_wave_plain(*args, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(a, b, strict=True)),
+                  f"Main10 {what}: intra_wave10 differs from plain at a "
+                  "call")
+        first = first or rec["intra_wave"][:1]
+        for k in KERNELS:
+            total[k] += la[k]
+        kbits = sum(r.bits for r in enc.results) / 1000
+        psnr = np.mean([r.psnr_y for r in enc.results])
+        used = {k: v for k, v in la.items() if v}
+        print(f"main path 10, Main10 {what}: {w}x{h} x {n} pictures in "
+              f"{secs:.3f} s = {n / secs:.3f} fps | {kbits:.1f} kbit, Y-PSNR "
+              f"{psnr:.3f} dB, luma peak {peak} | every intra_wave10 call "
+              f"equal to plain ({len(rec['intra_wave'])}) | launches "
+              f"{used} | {gpu}", flush=True)
+    row = main10_row("intra_wave10", first, 2)
+    row["steps"] = wave_tables(W, H, 6, "cpu").slots.shape[0]
+    wave_times(dev, gpu)
+    return total, {"intra_wave10": row}
+
+
+def cross_check_main10_intra8(npz):
+    """CUDA vs CPU of path 10's fixed-8x8 routes: all-intra at 112x72 x 3
+    with device_batch=2 (two launches), the LD-P scan at 64x48 x 3 (one);
+    the streams byte-identical. Returns their sizes."""
+    out = []
+    for what, w, h, db, want in (("all-intra", 112, 72, 2, 2),
+                                 ("LD-P scan", 64, 48, 0, 1)):
+        streams = []
+        for device in ("cuda", "cpu"):
+            cfg = (intra8_cfg10(w, h, 3) if what == "all-intra" else
+                   dataclasses.replace(ldp_cfg(npz, w, h, 3, cut=True,
+                                               extra=MAIN10),
+                                       intra_qt=False))
+            reset_launches()
+            enc, _ = encode_sequence(Reader10(w, h, 3), cfg, device=device,
+                                     device_batch=db)
+            if device == "cuda":
+                check(LAUNCHES["intra_wave10"] == want
+                      and LAUNCHES["intra_wave"] == 0,
+                      f"Main10 fixed 8x8 {what} at {w}x{h}: intra_wave10 "
+                      f"launched {LAUNCHES['intra_wave10']}, want {want}")
+            streams.append(enc.bitstream())
+        check(streams[0] == streams[1],
+              f"Main10 fixed 8x8 {what} at {w}x{h}: CUDA and CPU streams "
+              "differ")
+        out.append(len(streams[0]))
+    return out
 
 
 def run_multi(dev, npz, gpu, plane, rargs, refine, params, bounds):
@@ -4467,7 +4647,7 @@ def main():
 
         m10_launches, m10_rows = run_main10(dev, npz, gpu)
         check(all(m10_launches[k] == 0 for k in TRAIN_KERNELS + G_KERNELS
-                  + B_KERNELS + ("intra_wave",)),
+                  + B_KERNELS + ("intra_wave", "intra_wave10")),
               "path 10 launched a train-step, grid, B step or intra_wave "
               "kernel")
         for k in KERNELS:
@@ -4475,12 +4655,20 @@ def main():
         rows.update(m10_rows)
         ra10_launches, ra10_rows = run_ra10(dev, npz, gpu)
         check(all(ra10_launches[k] == 0 for k in TRAIN_KERNELS + G_KERNELS
-                  + ("intra_wave",)),
+                  + ("intra_wave", "intra_wave10")),
               "path 10's random access launched a train-step, grid or "
               "intra_wave kernel")
         for k in KERNELS:
             launches[k] += ra10_launches[k]
         rows.update(ra10_rows)
+        i10_launches, i10_rows = run_main10_intra8(dev, npz, gpu)
+        check(all(i10_launches[k] == 0 for k in TRAIN_KERNELS + G_KERNELS
+                  + B_KERNELS + B10_KERNELS),
+              "path 10's fixed-8x8 routes launched a train-step, grid or B "
+              "step kernel")
+        for k in KERNELS:
+            launches[k] += i10_launches[k]
+        rows.update(i10_rows)
 
         sizes = cross_check_cpu(npz)
         print(f"cross-check: CUDA == CPU streams (LD-P scan 112x72 "
@@ -4502,6 +4690,10 @@ def main():
         print(f"cross-check: CUDA == CPU streams of path 10's random-access "
               f"routes at 64x48 x 6 (Main10 with the GOP table, without it, "
               f"with RDOQ, SBH, deblocking and SAO): {cross_check_ra10(npz)} "
+              f"bytes", flush=True)
+        print(f"cross-check: CUDA == CPU streams of path 10's fixed-8x8 "
+              f"routes (Main10 all-intra 112x72 x 3 with device_batch=2, the "
+              f"LD-P scan 64x48 x 3): {cross_check_main10_intra8(npz)} "
               f"bytes", flush=True)
 
     kernels = []

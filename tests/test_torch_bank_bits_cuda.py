@@ -16,10 +16,17 @@ the same card, `torch.equal` (no JAX):
 - both kernels, two launches back to back without a sync between.
 
 On the CPU, the host side of `intra_wave`: the variant that keeps the
-recon planes on chip where they fit (104x72, 416x240) and in device
-memory where they do not (832x480, 1920x1088), its shared-memory bytes
-and the packed slot words of the wave schedule. Without a card every
-other item skips.
+recon planes on chip where they fit (8 bits: 104x72, 416x240; 10 bits,
+two bytes a plane sample: 104x72, 192x128, 256x240) and in device memory
+where they do not (8 bits: 832x480, 1920x1088; 10 bits: 416x240 and those),
+its shared-memory bytes and the packed slot words of the wave schedule;
+the wrapper's refusal of bit depths other than 8 and 10. On the card,
+`intra_wave10` (the kernel's 10-bit variant) against its plain version
+on 10-bit planes (noise, and pictures at 0 and 1023 alone) at 104x72
+and 192x128 (on chip), 256x240 (on chip, a cluster of 4 blocks a frame)
+and 416x240 (in device memory), two launches back
+to back, one count of `intra_wave10` a launch and none of `intra_wave`.
+Without a card every other item skips.
 """
 
 import numpy as np
@@ -30,10 +37,13 @@ from torch_port_util import cuda_device  # noqa: F401
 from tpuhevc_torch.codec.intra_qt import I_ROW
 from tpuhevc_torch.entropy.bitest import (
     FracBits, est_tables, tu_bits, tu_bits_plain)
-from tpuhevc_torch.codec.intra_frame import wave_tables
-from tpuhevc_torch.kernels import LAUNCHES
+from tpuhevc_torch.codec.intra_frame import _sqlam_fp, wave_tables
+from tpuhevc_torch.codec.params import EncoderConfig, SeqParams
+from tpuhevc_torch.kernels import LAUNCHES, reset_launches
 from tpuhevc_torch.ops.intra import intra_bank, predict_all_modes_plain, refs
-from tpuhevc_torch.ops.intra_wave import SMEM_LIMIT, wave_smem, wave_variant
+from tpuhevc_torch.ops.intra_wave import (SMEM_LIMIT, intra_wave,
+                                          intra_wave_plain, wave_smem,
+                                          wave_variant)
 
 SIZES = (4, 8, 16, 32)
 
@@ -179,10 +189,10 @@ def test_intra_wave_variant_and_smem():
             cluster == 4)
         work = 4 * (560 + 499 * bmax)
         planes = 3 * w * h // 2 + (w // 8) * (h // 8)
-        assert wave_smem(w, h, bmax, False) == work
-        assert wave_smem(w, h, bmax, True) == work + planes
+        assert wave_smem(w, h, bmax, False, 8) == work
+        assert wave_smem(w, h, bmax, True, 8) == work + planes
         assert (work + planes <= SMEM_LIMIT) == on_chip
-        assert wave_variant(w, h, steps, bmax) == (
+        assert wave_variant(w, h, steps, bmax, 8) == (
             on_chip, cluster, work + planes * on_chip)
         v, cells, w8 = geo.slots, geo.cells, w // 8
         ok = cells >= 0
@@ -190,6 +200,91 @@ def test_intra_wave_variant_and_smem():
         assert torch.equal((((v >> 12) & 0xFFF) * w8 + (v & 0xFFF))[ok],
                            cells[ok])
         assert torch.equal((v >> 24)[ok], geo.flags[ok])
-    assert wave_smem(416, 240, 14, True) == 181504
+    assert wave_smem(416, 240, 14, True, 8) == 181504
     with pytest.raises(ValueError):
-        wave_variant(1920, 1088, 1156, 466)
+        wave_variant(1920, 1088, 1156, 466, 8)
+
+
+def test_intra_wave10_variant_and_smem():
+    """At bit depth 10 the planes take two bytes a sample (3 w h + w h /
+    64 bytes with the mode map): on chip at 104x72 (34,801 bytes in all)
+    and 192x128 (92,320), one block a frame; at 256x240 (211,472, 6.5
+    cells a wave) in a cluster of 4 blocks a frame, as at 8 bits; in
+    device memory at 416x240 (331,264 would not fit), 832x480 and
+    1920x1088."""
+    expect = {(104, 72): (5, True, 1, 34801),
+              (192, 128): (8, True, 1, 92320),
+              (256, 240): (12, True, 4, 211472),
+              (416, 240): (14, False, 1, 30184),
+              (832, 480): (25, False, 1, None),
+              (1920, 1088): (52, False, 1, None)}
+    for (w, h), (bmax, on_chip, cluster, smem) in expect.items():
+        geo = wave_tables(w, h, 6, "cpu")
+        steps = geo.slots.shape[0]
+        assert geo.slots.shape[1] == bmax
+        work = 4 * (560 + 499 * bmax)
+        planes = 3 * w * h + (w // 8) * (h // 8)
+        assert wave_smem(w, h, bmax, False, 10) == work
+        assert wave_smem(w, h, bmax, True, 10) == work + planes
+        assert (work + planes <= SMEM_LIMIT) == on_chip
+        assert (on_chip and (w // 8) * (h // 8) >= 5 * steps) == (
+            cluster == 4)
+        got = wave_variant(w, h, steps, bmax, 10)
+        assert got == (on_chip, cluster, work + planes * on_chip)
+        assert smem is None or got[2] == smem
+    assert wave_smem(416, 240, 14, True, 10) == 331264
+
+
+def wave10_case(w, h, seed):
+    """(planes (2, ...) int32: a 10-bit noise picture and one at 0 and
+    1023 alone; geometry on the CPU; qp; sqlam_fp)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = 512 + 300 * np.sin(xx / 9 + yy / 13)
+    noise = np.clip(smooth + rng.normal(0, 40, (h, w)), 0, 1023)
+    checker = 1023 * (((xx >> 3) + (yy >> 3)) & 1)
+    ys = np.stack([noise, checker]).astype(np.int32)
+    cs = [np.stack([rng.integers(0, 1024, (h // 2, w // 2)),
+                    1023 * (((np.arange(w // 2)[None] >> 2)
+                             + (np.arange(h // 2)[:, None] >> 2) + k) & 1)])
+          .astype(np.int32) for k in (0, 1)]
+    cfg = EncoderConfig(sps=SeqParams(width=w, height=h, bit_depth=10,
+                                      profile_idc=2), qp=32,
+                        intra_period=1, intra_qt=False)
+    planes = [torch.from_numpy(p) for p in (ys, *cs)]
+    return planes, wave_tables(w, h, cfg.sps.log2_ctu, "cpu"), _sqlam_fp(cfg)
+
+
+@pytest.mark.parametrize("bd", [7, 9, 12, 16])
+def test_intra_wave_refuses_bit_depth(bd):
+    """The caller names the depth: only 8 and 10 run, on any device."""
+    planes, geo, sqlam = wave10_case(16, 16, 0)
+    with pytest.raises(ValueError, match="bit depth"):
+        intra_wave(*planes, geo, 32, sqlam, bit_depth=bd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,on_chip,cluster", [(104, 72, True, 1),
+                                                 (192, 128, True, 1),
+                                                 (256, 240, True, 4),
+                                                 (416, 240, False, 1)])
+def test_cuda_intra_wave10_matches_plain(cuda_device, w, h, on_chip,
+                                         cluster):
+    """Two launches back to back on different inputs, no sync between,
+    each against plain, in each 10-bit variant (on chip one block or a
+    cluster of 4 a frame, in device memory): every output torch.equal,
+    `intra_wave10` counted once a launch, `intra_wave` idle."""
+    cases = [wave10_case(w, h, seed) for seed in (1, 2)]
+    geo = wave_tables(w, h, 6, cuda_device)
+    assert wave_variant(w, h, *geo.slots.shape, 10)[:2] == (on_chip, cluster)
+    reset_launches()
+    got = [intra_wave(*(p.to(cuda_device) for p in planes), geo, 32, sqlam,
+                      bit_depth=10) for planes, _, sqlam in cases]
+    torch.cuda.synchronize()
+    assert LAUNCHES["intra_wave10"] == 2 and LAUNCHES["intra_wave"] == 0
+    for g, (planes, geo_cpu, sqlam) in zip(got, cases):
+        want = intra_wave_plain(*planes, geo_cpu, 32, sqlam, bit_depth=10)
+        for a, b in zip(g, want):
+            assert torch.equal(a.cpu(), b)
+        assert min(int(x.min()) for x in want[:3]) == 0
+        assert max(int(x.max()) for x in want[:3]) == 1023

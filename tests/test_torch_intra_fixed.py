@@ -184,12 +184,12 @@ def test_cuda_intra_wave_matches_plain(cuda_device, w, h, nf, on_chip):
     args = [torch.as_tensor(np.stack([p[i] for p in ps]), dtype=torch.int32)
             for i in range(3)]
     geo_cpu = wave_tables(w, h, pcfg.sps.log2_ctu, "cpu")
-    assert wave_variant(w, h, *geo_cpu.slots.shape)[0] == on_chip
+    assert wave_variant(w, h, *geo_cpu.slots.shape, 8)[0] == on_chip
     ref = intra_wave_plain(*args, geo_cpu, QP, _sqlam_fp(pcfg))
     geo = wave_tables(w, h, pcfg.sps.log2_ctu, cuda_device)
     reset_launches()
     got = intra_wave(*(a.to(cuda_device) for a in args), geo, QP,
-                     _sqlam_fp(pcfg))
+                     _sqlam_fp(pcfg), bit_depth=8)
     assert LAUNCHES["intra_wave"] == 1
     for a, b in zip(ref, got):
         assert torch.equal(b.cpu(), a)

@@ -37,8 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from tools.make_test_clip import make_clip
-from torch_port_util import QP, Reader, write_weights
+from torch_port_util import QP, Reader, clip10, write_weights
 from tpuhevc.codec import params as jax_params
 from tpuhevc.codec.decoder import decode_stream
 from tpuhevc.config import options as jax_options
@@ -56,22 +55,6 @@ MAIN10 = ["--InputBitDepth=10", "--InternalBitDepth=10"]
 MAPS = ("cu_log2", "lm8", "cm8", "nxn", "lm4", "tsp8")
 GOP = (3, 2, 3, 1)
 
-
-def clip10(w: int, h: int, n: int) -> list:
-    """n (y, u, v) uint16 frames: the seeded 8-bit clip x 4 plus 2, 1, 3
-    (tests/test_main10.py's `_clip10`), samples up to 1023."""
-    raw = make_clip(w, h, n)
-    fsz = w * h * 3 // 2
-    out = []
-    for i in range(n):
-        b = np.frombuffer(raw[i * fsz : (i + 1) * fsz], np.uint8)
-        out.append(tuple(
-            np.clip(p.astype(np.uint16) * 4 + o, 0, 1023)
-            for p, o in ((b[: w * h].reshape(h, w), 2),
-                         (b[w * h : w * h * 5 // 4].reshape(h // 2, w // 2),
-                          1),
-                         (b[w * h * 5 // 4 :].reshape(h // 2, w // 2), 3))))
-    return out
 
 
 def cfg10(port: bool, **kw):

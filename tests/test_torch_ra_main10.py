@@ -1,7 +1,7 @@
 """Main10 (10-bit) random access in tpuhevc_torch against tpuhevc (JAX on
 the CPU) at 64x48 x 5, QP 30, cfg/encoder_randomaccess_main.cfg with
 `--InputBitDepth=10 --InternalBitDepth=10`, seeded NN-FME weights, on the
-10-bit clip of tests/test_torch_main10.py (`clip10`):
+10-bit clip of tests/torch_port_util.py (`clip10`):
 
 - the port's B step (`inter_b.build_b_step`, the plain versions of b_me,
   b_pred and b_txq at 10 bits) equals tpuhevc's `_b_step` in all nine
@@ -31,8 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_main10 import clip10
-from torch_port_util import Reader, write_weights
+from torch_port_util import Reader, clip10, write_weights
 from tpuhevc.codec.decoder import decode_stream as jax_decode
 from tpuhevc_torch.codec import inter_b as tib
 from tpuhevc_torch.codec.decoder import decode_stream as port_decode

@@ -43,6 +43,14 @@ def clip_frames(w: int, h: int, n: int, seed: int = 7) -> list:
     return out
 
 
+def clip10(w: int, h: int, n: int) -> list:
+    """n (y, u, v) uint16 frames: the seeded 8-bit clip x 4 plus 2, 1, 3
+    (tests/test_main10.py's `_clip10`), samples up to 1023."""
+    return [tuple(np.clip(p.astype(np.uint16) * 4 + o, 0, 1023)
+                  for p, o in zip(f, (2, 1, 3)))
+            for f in clip_frames(w, h, n)]
+
+
 class Reader:
     def __init__(self, frames):
         self.frames = frames

@@ -40,13 +40,15 @@ and the P pictures through `encode_frame_p`, driven in decode order by
 `tpuhevc/codec/encoder.py:606-682`) or by `_ra_gop4` (no table, 685-734);
 deblocking and SAO on the host after each picture.
 
-Main10 (bit depth 10): all-intra with the quadtree intra and LD-P off
+Main10 (bit depth 10): all-intra with the quadtree intra or fixed 8x8
+intra (kernel `intra_wave`'s 10-bit variant, batched or a picture at a
+time, or the host's closed loop where sign hiding is on) and LD-P off
 the grid (the grid is 8-bit): the non-grid scan (its frames staged as
 16-bit samples, its rows carrying 16-bit recon) and the per-picture
 loop, each device stage at the kernels' 10-bit variants; random access
 with its B pictures through the B step's 10-bit variants and its P
-pictures through those routes. Fixed 8x8 intra and weighted prediction
-stay 8-bit (`check_slice`).
+pictures through those routes; the IDR of either by the same intra
+routes. Weighted prediction stays 8-bit (`check_slice`).
 
 `Encoder`, `FrameResult`, `_rate_controlled`, `_ra_gop4` and
 `_load_nn_params` are the port's copies of the reference's host code
@@ -391,17 +393,15 @@ def check_slice(cfg: EncoderConfig) -> None:
     without a GOP table of B pictures, with those tools, at coded sizes in
     whole 16x16 blocks; quadtree or fixed 8x8 intra (all-intra pictures
     and the IDR alike), one slice, no weighted bi-prediction. All of it
-    at 8 bits; at 10 bits (Main10) all-intra with the quadtree intra, LD-P
-    off the grid (the scan, the per-picture device and host stages,
-    IntraPeriod N, rate control) and random access (with or without a GOP
-    table, with those tools), but not fixed 8x8 intra or weighted
-    prediction."""
+    at 8 bits; at 10 bits (Main10) all-intra and the IDR with the quadtree
+    or fixed 8x8 intra, LD-P off the grid (the scan, the per-picture
+    device and host stages, IntraPeriod N, rate control) and random
+    access (with or without a GOP table, with those tools), but not
+    weighted prediction."""
     sps, pps = cfg.sps, cfg.pps
     bd = sps.bit_depth
     off = [
         (bd not in (8, 10), f"bit depth {bd}"),
-        (bd == 10 and not cfg.intra_qt,
-         "bit depth 10 with fixed 8x8 intra (intra_qt off)"),
         (sps.scaling_list_enabled, "scaling lists"),
         (cfg.adaptive_qp, "adaptive QP"),
         (pps.tiles_enabled or pps.entropy_coding_sync or cfg.slice_ctus > 0,

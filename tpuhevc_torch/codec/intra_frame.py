@@ -224,7 +224,7 @@ def _run(oys, ous, ovs, cfg: EncoderConfig, dev):
     sps = cfg.sps
     geo = wave_tables(sps.coded_width, sps.coded_height, sps.log2_ctu, dev)
     return intra_wave(oys, ous, ovs, geo, cfg.qp, _sqlam_fp(cfg),
-                      sps.strong_intra_smoothing, sps.bit_depth)
+                      sps.strong_intra_smoothing, bit_depth=sps.bit_depth)
 
 
 def build_frame_encoder(cfg: EncoderConfig, device):

@@ -14,9 +14,9 @@ adds one to `LAUNCHES[name]` for every launch, and nowhere else
 (`sad_search` launches once a P picture of the LD-P scan or the P stage
 for all its CU classes, `mc_blk` and `txq` once each for all their Y, U
 and V planes; at 10 bits they count as `sad_search10`, `mc_blk10` and
-`txq10`, `intra_txq` as `intra_txq10`, and the B step's `b_me`, `b_pred`
-and `b_txq` as `b_me10`, `b_pred10` and `b_txq10`: the 10-bit variants of
-the same sources;
+`txq10`, `intra_txq` as `intra_txq10`, the B step's `b_me`, `b_pred`
+and `b_txq` as `b_me10`, `b_pred10` and `b_txq10`, and `intra_wave` as
+`intra_wave10`: the 10-bit variants of the same sources;
 `grid_deblock` once a picture, both edge directions;
 `grid_code` once for the planes of one class coding; `grid_satd_cost`
 once for up to eight fields of CU costs; `grid_coarse` and
@@ -54,7 +54,8 @@ SOURCE_OF = {"sad_search": "sad_search", "nnfme_mlp": "nnfme_mlp",
              # the 10-bit variants (Main10), in the same sources
              "sad_search10": "sad_search", "mc_blk10": "mc_blk",
              "txq10": "txq", "intra_txq10": "intra_txq",
-             "b_me10": "b_me", "b_pred10": "b_pred", "b_txq10": "b_txq"}
+             "b_me10": "b_me", "b_pred10": "b_pred", "b_txq10": "b_txq",
+             "intra_wave10": "intra_wave"}
 KERNELS = tuple(SOURCE_OF)
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.values()))
 

@@ -13,8 +13,8 @@
 //     picture), substituted at segment granularity (section 8.4.4.2.2): an
 //     unavailable segment takes the last sample of the nearest available
 //     segment before it, else the first sample of the first available
-//     one, else 128; chroma the same with 4x4 blocks (17 samples) on each
-//     half-size plane;
+//     one, else 1 << (BD - 1); chroma the same with 4x4 blocks (17
+//     samples) on each half-size plane;
 //   decision: for each of the 35 luma modes (intra_pred.cuh, the 8x8
 //     reference filtering and boundary filters) cost = (sum |H d H^T| + 2)
 //     >> 2 of d = org - pred + ((bits * sqlam_fp) >> 8),
@@ -25,8 +25,11 @@
 //     and inverse DCT (tx_common.cuh), rec = clip(pred + r) where any
 //     level is non-zero, else pred; chroma the same at 4x4 (DCT) with the
 //     luma mode (DM) at the chroma QP.
-// Integer and exact (8-bit samples): equal to the plain version and to
-// JAX bit for bit.
+// The bit depth BD (8 or 10, a template argument) sets the reference with
+// no source, the clips at (1 << BD) - 1 and the transform's shifts; the
+// quantiser's constants come from the host at that depth; the SATD is not
+// scaled by it (as tpuhevc's). Integer and exact: equal to the plain
+// version and to JAX bit for bit.
 //
 // What bounds it: the dependency depth. A wave needs the recon of the
 // one before, so a picture is `steps` rounds (238 at 416x240, 112 at
@@ -61,12 +64,14 @@
 //      stored to device memory as they are made (by block 0), the
 //      inverse only where a level is non-zero, the recon written
 //      straight to the block's planes.
-// Kernel<true, C> keeps the recon planes and the mode map on chip as 8-bit
-// samples for the whole launch (1.5 w h + w h / 64 bytes: 151,320 at
-// 416x240), each block its own copy, and writes them out once at the end
-// with 16-byte stores; kernel<false, 1>, for pictures whose planes do not
-// fit, keeps them in the output tensors in device memory (the barrier
-// makes a wave's writes visible to the next). Task indices come from the
+// Kernel<BD, true, C> keeps the recon planes on chip as 8-bit samples
+// (16-bit at BD 10) and the mode map as bytes for the whole launch (1.5 w
+// h + w h / 64 bytes at 8 bits: 151,320 at 416x240; 3 w h + w h / 64 at
+// 10 bits, which fits at 192x128 but not at 416x240), each block its own
+// copy, and writes them out once at the end with 16-byte stores;
+// kernel<BD, false, 1>, for pictures whose planes do not fit, keeps them
+// in the output tensors in device memory (the barrier makes a wave's
+// writes visible to the next). Task indices come from the
 // thread index and the slot words: no division on the per-task path.
 // The cluster barrier costs ~0.6 us a wave, so four blocks a frame pay
 // where a wave has many cells (416x240: 6.6 on average, 1.17 ms a launch
@@ -144,7 +149,8 @@ __device__ __forceinline__ int seg_start(int j) {
 // c, t, tr] of an S x S block whose segments' availability is avail (bits
 // 0-4): i itself where its segment is available, else the last sample of
 // the nearest available segment before it, else the first sample of the
-// first available one; 255 where none is (the sample takes 128). Tabled
+// first available one; 255 where none is (the sample takes 1 << (BD -
+// 1)). Tabled
 // once a launch for every avail.
 template <int S>
 __device__ __forceinline__ int ref_src(int i, int avail) {
@@ -158,15 +164,15 @@ __device__ __forceinline__ int ref_src(int i, int avail) {
 }
 
 // Sample src (ref_src's) of the reference run of the S x S block at (x0,
-// y0) of a pw x ph plane: positions clamped to the plane.
-template <int S, typename T>
+// y0) of a pw x ph plane of bit depth BD: positions clamped to the plane.
+template <int S, int BD, typename T>
 __device__ __forceinline__ int ref_at(const T* plane, int pw, int ph, int x0,
                                       int y0, int src) {
     const bool left = src < 2 * S;
     const int x = min(max(left ? x0 - 1 : x0 + src - 2 * S - 1, 0), pw - 1);
     const int y = min(max(left ? y0 + 2 * S - 1 - src : y0 - 1, 0), ph - 1);
     const int v = plane[y * pw + x];
-    return src == 255 ? 128 : v;
+    return src == 255 ? 1 << (BD - 1) : v;
 }
 
 __device__ __forceinline__ int4 ld4(const int* p) {
@@ -198,15 +204,15 @@ __device__ __forceinline__ int dot_col(const int* a, const int* c) {
     return acc;
 }
 
-// Output e of each stage of tx_common.cuh at S = 1 << L2 (forward rows,
-// forward columns, inverse columns, inverse rows), with T and its
-// transpose TT in shared memory so that every operand row is a 16-byte
-// vector; the same integer sums.
-template <int L2>
+// Output e of each stage of tx_common.cuh at S = 1 << L2 and bit depth
+// BD (forward rows, forward columns, inverse columns, inverse rows), with
+// T and its transpose TT in shared memory so that every operand row is a
+// 16-byte vector; the same integer sums and shifts.
+template <int L2, int BD>
 __device__ __forceinline__ int fwd_rows(const int* A, const int* T, int e) {
-    constexpr int S = 1 << L2;
+    constexpr int S = 1 << L2, s1 = L2 + BD - 9;
     return (dot_rows<S>(A + (e >> L2) * S, T + (e & (S - 1)) * S)
-            + (1 << (L2 - 2))) >> (L2 - 1);
+            + (1 << (s1 - 1))) >> s1;
 }
 
 template <int L2>
@@ -223,23 +229,24 @@ __device__ __forceinline__ int inv_cols(const int* A, const int* TT, int e) {
                   >> 7);
 }
 
-template <int L2>
+template <int L2, int BD>
 __device__ __forceinline__ int inv_rows(const int* B, const int* TT, int e) {
-    constexpr int S = 1 << L2;
+    constexpr int S = 1 << L2, s3 = 20 - BD;
     return clip16((dot_rows<S>(B + (e >> L2) * S, TT + (e & (S - 1)) * S)
-                   + 2048) >> 12);
+                   + (1 << (s3 - 1))) >> s3);
 }
 
 // The 8 luma predictions of lane q of mode m (8x8, the filtered
 // references where the mode's flag is set, the boundary filters): row q
 // for planar, DC and modes 18-34, column q for modes 2-17 (a horizontal
 // mode's block is the transpose of the vertical one's with t and l
-// swapped). The per-mode and per-lane terms are taken once, the 9
-// references a lane reads once; bit-exact to intra_pred_sample.
+// swapped), the gradient filters clipped at maxv. The per-mode
+// and per-lane terms are taken once, the 9 references a lane reads once;
+// bit-exact to intra_pred_sample.
 __device__ __forceinline__ void pred_lane8(const int* t, const int* l,
                                            const int* ft, const int* fl,
                                            int dc, int m, int q,
-                                           int (&p)[8]) {
+                                           int (&p)[8], int maxv) {
     const bool uf = c_filter[35 + m];
     const int* tt = uf ? ft : t;
     const int* ll = uf ? fl : l;
@@ -277,12 +284,12 @@ __device__ __forceinline__ void pred_lane8(const int* t, const int* l,
         if (m == 26 || m == 10) {
             const int* m0 = vert ? t : l;
             const int* s0 = vert ? l : t;
-            p[0] = min(max(m0[1] + ((s0[q + 1] - s0[0]) >> 1), 0), 255);
+            p[0] = min(max(m0[1] + ((s0[q + 1] - s0[0]) >> 1), 0), maxv);
         }
     }
 }
 
-template <bool kOnChip, int kCluster>
+template <int BD, bool kOnChip, int kCluster>
 __global__ void __launch_bounds__(kThreads, 1)
 intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
                   const int* __restrict__ ov, const int* __restrict__ slots,
@@ -290,7 +297,12 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
                   int* __restrict__ cy, int* __restrict__ cb,
                   int* __restrict__ cr, int w, int h, int steps, int B,
                   Quant qy, Quant qc, int sqlam_fp) {
-    using Sample = typename std::conditional<kOnChip, uint8_t, int>::type;
+    // on chip: the planes' samples in 8 or 16 bits, the mode map in 8
+    using Pel = typename std::conditional<
+        kOnChip, typename std::conditional<BD == 8, uint8_t, uint16_t>::type,
+        int>::type;
+    using Mode = typename std::conditional<kOnChip, uint8_t, int>::type;
+    constexpr int kMaxV = (1 << BD) - 1;
     extern __shared__ __align__(16) int smem[];
     int* s_T8 = smem;                  // 8x8 DCT
     int* s_T4 = smem + 64;             // 4x4 DCT
@@ -323,12 +335,13 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
     cb += f * nc;
     cr += f * nc;
     modes += f * nm;
-    Sample *Y, *U, *V, *M;
+    Pel *Y, *U, *V;
+    Mode* M;
     if constexpr (kOnChip) {
-        Y = reinterpret_cast<uint8_t*>(s_slot + 3 * B);
+        Y = reinterpret_cast<Pel*>(s_slot + 3 * B);
         U = Y + ny;
         V = U + nc;
-        M = V + nc;
+        M = reinterpret_cast<Mode*>(V + nc);
     } else {
         Y = ry;
         U = ru;
@@ -422,7 +435,7 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
                 int* t = s_ref + b * kRef;
                 int* l = t + 17;
                 for (int k = lane; k < 33; k += 32) {
-                    const int r = ref_at<8>(Y, w, h, x8 * 8, y8 * 8,
+                    const int r = ref_at<8, BD>(Y, w, h, x8 * 8, y8 * 8,
                                             s_sub8[(fl & 31) * 33 + k]);
                     if (k >= 16) t[k - 16] = r;
                     if (k <= 16) l[16 - k] = r;
@@ -438,7 +451,7 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
                 int* ct = s_cref + b * kCRef;
                 for (int k = lane; k < 34; k += 32) {
                     const int p = k >= 17, i = k - 17 * p;
-                    const int r = ref_at<4>(p ? V : U, cw, ch, x8 * 4,
+                    const int r = ref_at<4, BD>(p ? V : U, cw, ch, x8 * 4,
                                             y8 * 4,
                                             s_sub4[(fl & 31) * 17 + i]);
                     if (i >= 8) ct[18 * p + i - 8] = r;
@@ -490,7 +503,8 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
             int v[8];
             if (on) {
                 int p[8];
-                pred_lane8(t, t + 17, t + 34, t + 51, mi[0], mode, r, p);
+                pred_lane8(t, t + 17, t + 34, t + 51, mi[0], mode, r, p,
+                           kMaxV);
                 // row r, or column r of the horizontal modes
                 if (mode >= 2 && mode < 18) {
                     const int* o = org + b * kOrg + r;
@@ -553,21 +567,21 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
             if (!(task & 1)) {
                 const int* t = s_ref + b * kRef;
                 int* Bt = A + 64;
-                if (lane == 0) M[y8 * w8 + x8] = (Sample)mode;
+                if (lane == 0) M[y8 * w8 + x8] = (Mode)mode;
                 int pv[2], lev[2];
 #pragma unroll
                 for (int u = 0; u < 2; ++u) {
                     const int e = lane + 32 * u;
                     pv[u] = intra_pred_sample(t, t + 17, t + 34, t + 51,
                                               mi[0], mode, e >> 3, e & 7, 3,
-                                              true, true, 255);
+                                              true, true, kMaxV);
                     A[e] = o[e] - pv[u];
                 }
                 __syncwarp();
 #pragma unroll
                 for (int u = 0; u < 2; ++u) {
                     const int e = lane + 32 * u;
-                    Bt[e] = fwd_rows<3>(A, s_T8, e);
+                    Bt[e] = fwd_rows<3, BD>(A, s_T8, e);
                 }
                 __syncwarp();
 #pragma unroll
@@ -592,15 +606,16 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
 #pragma unroll
                     for (int u = 0; u < 2; ++u) {
                         const int e = lane + 32 * u;
-                        rec[u] = min(max(pv[u] + inv_rows<3>(Bt, s_T8t, e),
-                                         0), 255);
+                        rec[u] = min(max(pv[u] + inv_rows<3, BD>(Bt, s_T8t,
+                                                                 e),
+                                         0), kMaxV);
                     }
                 }
 #pragma unroll
                 for (int u = 0; u < 2; ++u) {
                     const int e = lane + 32 * u;
                     Y[(y8 * 8 + (e >> 3)) * w + x8 * 8 + (e & 7)] =
-                        (Sample)rec[u];
+                        (Pel)rec[u];
                 }
             } else {  // lanes 0-15 Cb, 16-31 Cr
                 const int p = lane >> 4, e = lane & 15;
@@ -609,10 +624,11 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
                 int* Bc = Ac + 16;
                 const int pv = intra_pred_sample(ct, ct + 9, ct, ct + 9,
                                                  mi[1 + p], mode, e >> 2,
-                                                 e & 3, 2, false, false, 255);
+                                                 e & 3, 2, false, false,
+                                                 kMaxV);
                 Ac[e] = o[64 + 16 * p + e] - pv;
                 __syncwarp();
-                Bc[e] = fwd_rows<2>(Ac, s_T4, e);
+                Bc[e] = fwd_rows<2, BD>(Ac, s_T4, e);
                 __syncwarp();
                 const int lv = tx_quant(fwd_cols<2>(Bc, s_T4, e),
                                         qc.scale, qc.add, qc.qbits);
@@ -625,11 +641,11 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
                     __syncwarp();
                     Bc[e] = inv_cols<2>(Ac, s_T4t, e);
                     __syncwarp();
-                    const int r = inv_rows<2>(Bc, s_T4t, e);
+                    const int r = inv_rows<2, BD>(Bc, s_T4t, e);
                     if ((nz >> (16 * p)) & 0xffffu)
-                        rec = min(max(pv + r, 0), 255);
+                        rec = min(max(pv + r, 0), kMaxV);
                 }
-                (p ? V : U)[at] = (Sample)rec;
+                (p ? V : U)[at] = (Pel)rec;
             }
         }
         for (int b = tid; b < B; b += kThreads)  // wave s + 2's keys
@@ -642,11 +658,17 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
     }
 
     if constexpr (kOnChip) {  // the planes out, 4 samples a 16-byte store
-        const uchar4* src = reinterpret_cast<const uchar4*>(Y);
         for (int i = rank * kThreads + tid; i < (int)((ny + 2 * nc) >> 2);
              i += kThreads * kCluster) {
-            const uchar4 q = src[i];
-            const int4 o4 = make_int4(q.x, q.y, q.z, q.w);
+            int4 o4;
+            if constexpr (BD == 8) {
+                const uchar4 q = reinterpret_cast<const uchar4*>(Y)[i];
+                o4 = make_int4(q.x, q.y, q.z, q.w);
+            } else {  // two 4-byte loads: the planes start 4-byte aligned
+                const ushort2* src = reinterpret_cast<const ushort2*>(Y);
+                const ushort2 a = src[2 * i], b = src[2 * i + 1];
+                o4 = make_int4(a.x, a.y, b.x, b.y);
+            }
             const int j = 4 * i;
             int* dst = j < (int)ny ? ry + j
                      : j < (int)(ny + nc) ? ru + (j - ny) : rv + (j - ny - nc);
@@ -661,11 +683,14 @@ intra_wave_kernel(const int* __restrict__ oy, const int* __restrict__ ou,
 }  // namespace
 
 // Shared memory of one block (bytes) for w x h pictures and waves of bmax
-// slots; on_chip: the recon planes and mode map kept there (8-bit).
-extern "C" int tpuhevc_intra_wave_smem(int w, int h, int bmax, int on_chip) {
+// slots; on_chip: the recon planes (a byte a sample at bit depth 8, two at
+// 10) and the mode map (a byte a cell) kept there.
+extern "C" int tpuhevc_intra_wave_smem(int w, int h, int bmax, int on_chip,
+                                       int bit_depth) {
     const long long words = kFixedWords + (long long)kCellWords * bmax;
-    const long long planes = on_chip ? 3LL * w * h / 2 + (long long)(w / 8)
-                                                             * (h / 8)
+    const long long pel = bit_depth > 8 ? 2 : 1;
+    const long long planes = on_chip ? pel * 3 * w * h / 2
+                                           + (long long)(w / 8) * (h / 8)
                                      : 0;
     const long long bytes = 4 * words + planes;
     return bytes > 0x7fffffff ? 0x7fffffff : (int)bytes;
@@ -684,7 +709,8 @@ extern "C" int tpuhevc_intra_wave_init(const int* angle, const int* inv,
 }
 
 // oy (F, h, w), ou, ov (F, h/2, w/2) int32 on the device, 16-byte
-// aligned, w and h multiples of 8, samples 0..255; slots (steps, bmax)
+// aligned, w and h multiples of 8, samples 0..(1 << bit_depth) - 1
+// (bit_depth 8 or 10, else cudaErrorInvalidValue); slots (steps, bmax)
 // int32 (the wave schedule: x8 | y8 << 12 | flags << 24 or -1, a wave's
 // cells in its first slots; flags bits 0-4 availability of [lb, l, c, t,
 // tr], bit 5 the left MPM neighbour, bit 6 the above one) -> ry, cy (F, h,
@@ -694,24 +720,31 @@ extern "C" int tpuhevc_intra_wave_init(const int* angle, const int* inv,
 // cluster (1, or 4 where on_chip) the blocks a frame, a thread block
 // cluster that splits each wave's 35-mode costs.
 // Quantiser constants (luma 8x8 at QP, chroma 4x4 at the chroma QP) as
-// tpuhevc_torch/ops/transforms.py quant_params / dequant_params give them.
+// tpuhevc_torch/ops/transforms.py quant_params / dequant_params give them
+// at bit_depth.
 extern "C" int tpuhevc_intra_wave(
     const int* oy, const int* ou, const int* ov, const int* slots, int* ry,
     int* ru, int* rv, int* modes, int* cy, int* cb, int* cr, int nframes,
     int w, int h, int steps, int bmax, int on_chip, int cluster,
     int qy_scale, int qy_add, int qy_bits, int qy_dqscale, int qy_dqshift,
     int qc_scale, int qc_add, int qc_bits, int qc_dqscale, int qc_dqshift,
-    int sqlam_fp, void* stream) {
-    const int smem = tpuhevc_intra_wave_smem(w, h, bmax, on_chip);
+    int sqlam_fp, int bit_depth, void* stream) {
+    const int smem = tpuhevc_intra_wave_smem(w, h, bmax, on_chip, bit_depth);
     if (smem > kMaxSmem || bmax < 1 || w % 8 || h % 8
-        || (cluster != 1 && (!on_chip || cluster != 4)))
+        || (cluster != 1 && (!on_chip || cluster != 4))
+        || (bit_depth != 8 && bit_depth != 10))
         return (int)cudaErrorInvalidValue;
     using Kernel = void (*)(const int*, const int*, const int*, const int*,
                             int*, int*, int*, int*, int*, int*, int*, int,
                             int, int, int, Quant, Quant, int);
-    const Kernel kernel = !on_chip ? intra_wave_kernel<false, 1>
-                        : cluster == 1 ? intra_wave_kernel<true, 1>
-                                       : intra_wave_kernel<true, 4>;
+    const bool ten = bit_depth == 10;
+    const Kernel kernel =
+        !on_chip ? (ten ? intra_wave_kernel<10, false, 1>
+                        : intra_wave_kernel<8, false, 1>)
+        : cluster == 1 ? (ten ? intra_wave_kernel<10, true, 1>
+                              : intra_wave_kernel<8, true, 1>)
+                       : (ten ? intra_wave_kernel<10, true, 4>
+                              : intra_wave_kernel<8, true, 4>);
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;

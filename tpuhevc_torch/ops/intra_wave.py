@@ -18,11 +18,16 @@ CUDA computes exactly too.
 
 `intra_wave_plain` is the PyTorch version, wave by wave; `intra_wave`
 launches the CUDA kernel (`kernels/csrc/intra_wave.cu`, one launch for
-all frames) for CUDA tensors, in one of two variants that `wave_variant`
-picks from the shared memory each needs: the recon planes and mode map
-kept on chip where they fit (416x240, in a cluster of 4 blocks a frame;
-192x128, one block), else in device memory (832x480, 1920x1088). `WaveTables` is the geometry both read, built by
-`codec/intra_frame.py` from the reference's schedule.
+all frames) for CUDA tensors, at bit depth 8 or 10 (counted as
+`intra_wave10`: the kernel's `BD = 10` instantiation), in one of two
+variants that `wave_variant` picks from the shared memory each needs: the
+recon planes and mode map kept on chip where they fit (at 8 bits 416x240,
+in a cluster of 4 blocks a frame, and 192x128, one block; at 10 bits, two
+bytes a plane sample, 104x72 and 192x128 one block a frame, 256x240 a
+cluster of 4), else in device memory (8-bit
+832x480 and 1920x1088; 10-bit 416x240 and larger). `WaveTables` is the
+geometry both read, built by `codec/intra_frame.py` from the reference's
+schedule.
 """
 
 from __future__ import annotations
@@ -56,28 +61,32 @@ _FIXED_WORDS = 560
 _CELL_WORDS = 2 * 96 + 68 + 36 + 8 + 192 + 3
 
 
-def wave_smem(w: int, h: int, bmax: int, on_chip: bool) -> int:
+def wave_smem(w: int, h: int, bmax: int, on_chip: bool,
+              bit_depth: int) -> int:
     """Shared memory (bytes) of one block of kernel `intra_wave` for w x h
-    pictures and waves of bmax cells; on_chip adds the 8-bit recon planes
-    and mode map (`tpuhevc_intra_wave_smem`)."""
-    planes = 3 * w * h // 2 + (w // 8) * (h // 8) if on_chip else 0
+    pictures and waves of bmax cells; on_chip adds the recon planes (a
+    byte a sample at bit depth 8, two at 10) and the mode map (a byte a
+    cell) (`tpuhevc_intra_wave_smem`)."""
+    pel = 2 if bit_depth > 8 else 1
+    planes = pel * 3 * w * h // 2 + (w // 8) * (h // 8) if on_chip else 0
     return 4 * (_FIXED_WORDS + _CELL_WORDS * bmax) + planes
 
 
-def wave_variant(w: int, h: int, steps: int,
-                 bmax: int) -> tuple[bool, int, int]:
+def wave_variant(w: int, h: int, steps: int, bmax: int,
+                 bit_depth: int) -> tuple[bool, int, int]:
     """(on_chip, cluster, shared bytes) of the kernel that runs w x h
-    pictures of `steps` waves of at most bmax cells: the recon on chip
-    where it fits, in clusters of CLUSTER blocks a frame where the waves
-    hold CLUSTER_CELLS cells or more on average, else in device memory;
-    raises where neither fits."""
+    pictures of `steps` waves of at most bmax cells at `bit_depth`: the
+    recon on chip where it fits, in clusters of CLUSTER blocks a frame
+    where the waves hold CLUSTER_CELLS cells or more on average, else in
+    device memory; raises where neither fits."""
     for on_chip in (True, False):
-        smem = wave_smem(w, h, bmax, on_chip)
+        smem = wave_smem(w, h, bmax, on_chip, bit_depth)
         if smem <= SMEM_LIMIT:
             many = (w // 8) * (h // 8) >= CLUSTER_CELLS * steps
             return on_chip, CLUSTER if on_chip and many else 1, smem
     raise ValueError(f"intra_wave: waves of {bmax} cells need "
-                     f"{wave_smem(w, h, bmax, False)} bytes of shared memory")
+                     f"{wave_smem(w, h, bmax, False, bit_depth)} bytes of "
+                     "shared memory")
 
 
 @dataclass(frozen=True)
@@ -206,28 +215,32 @@ def _init_tables(dev: torch.device) -> None:
 
 
 def launch(fn, planes, geo: WaveTables, outs, qp: int, sqlam_fp: int,
-           on_chip: bool, cluster: int = 1) -> int:
+           on_chip: bool, cluster: int, bit_depth: int) -> int:
     """Call the entry point `fn` (`tpuhevc_intra_wave`) on the planes
     (oy, ou, ov) into the seven outputs, the recon on chip or not, in
-    clusters of `cluster` blocks a frame; returns its CUDA error."""
+    clusters of `cluster` blocks a frame, at `bit_depth`; returns its CUDA
+    error."""
     F, h, w = planes[0].shape
     steps, bmax = geo.slots.shape
-    qpc = chroma_qp(qp)
-    q = (*tx.quant_params(qp, 3, 8), *tx.dequant_params(qp, 3, 8),
-         *tx.quant_params(qpc, 2, 8), *tx.dequant_params(qpc, 2, 8))
+    qpc, bd = chroma_qp(qp), bit_depth
+    q = (*tx.quant_params(qp, 3, bd), *tx.dequant_params(qp, 3, bd),
+         *tx.quant_params(qpc, 2, bd), *tx.dequant_params(qpc, 2, bd))
     return fn(*(p.data_ptr() for p in planes), geo.slots.data_ptr(),
               *(o.data_ptr() for o in outs), F, w, h, steps, bmax,
-              int(on_chip), cluster, *q, sqlam_fp,
+              int(on_chip), cluster, *q, sqlam_fp, bd,
               torch.cuda.current_stream(planes[0].device).cuda_stream)
 
 
-ARGS = [kbuild.P] * 11 + [kbuild.I] * 17 + [kbuild.P]
+ARGS = [kbuild.P] * 11 + [kbuild.I] * 18 + [kbuild.P]
 
 
 def intra_wave(oy, ou, ov, geo: WaveTables, qp: int, sqlam_fp: int,
-               strong_smoothing: bool = True, bit_depth: int = 8):
-    """Kernel `intra_wave`: one launch for the F frames. CPU tensors take
-    the plain version; CUDA tensors the kernel."""
+               strong_smoothing: bool = True, *, bit_depth: int):
+    """Kernel `intra_wave`: one launch for the F frames at bit depth 8 or
+    10 (the caller names it; counted as `intra_wave10` at 10), any other
+    depth raises. CPU tensors take the plain version; CUDA tensors the kernel."""
+    if bit_depth not in (8, 10):
+        raise ValueError(f"intra_wave: bit depth {bit_depth} (8 or 10)")
     if oy.device.type == "cpu":
         return intra_wave_plain(oy, ou, ov, geo, qp, sqlam_fp,
                                 strong_smoothing, bit_depth)
@@ -241,10 +254,9 @@ def intra_wave(oy, ou, ov, geo: WaveTables, qp: int, sqlam_fp: int,
     F, h, w = oy.shape
     steps, bmax = geo.slots.shape
     if (w % 8 or h % 8 or tuple(ou.shape) != (F, h // 2, w // 2)
-            or ov.shape != ou.shape or bit_depth != 8):
+            or ov.shape != ou.shape):
         raise ValueError(f"intra_wave: unsupported shapes oy {tuple(oy.shape)}"
-                         f" ou {tuple(ou.shape)} ov {tuple(ov.shape)} "
-                         f"bit depth {bit_depth}")
+                         f" ou {tuple(ou.shape)} ov {tuple(ov.shape)}")
     if any(p.data_ptr() % 16 for p in (oy, ou, ov)):
         raise ValueError("intra_wave: a plane's data is not 16-byte aligned")
     outs = [torch.empty((F, h >> s, w >> s), dtype=torch.int32, device=dev)
@@ -254,10 +266,10 @@ def intra_wave(oy, ou, ov, geo: WaveTables, qp: int, sqlam_fp: int,
     outs += [torch.empty_like(o) for o in outs[:3]]
     if F == 0:
         return tuple(outs)
-    on_chip, cluster, _ = wave_variant(w, h, steps, bmax)
+    on_chip, cluster, _ = wave_variant(w, h, steps, bmax, bit_depth)
     _init_tables(dev)
     fn = kbuild.function("intra_wave", "tpuhevc_intra_wave", ARGS)
     kbuild.check(launch(fn, (oy, ou, ov), geo, outs, qp, sqlam_fp, on_chip,
-                        cluster), "intra_wave")
-    LAUNCHES["intra_wave"] += 1
+                        cluster, bit_depth), "intra_wave")
+    LAUNCHES["intra_wave" if bit_depth == 8 else "intra_wave10"] += 1
     return tuple(outs)

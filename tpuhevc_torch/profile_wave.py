@@ -1,7 +1,7 @@
 """Where a wave of kernel `intra_wave` spends its time, on the card.
 
     python -m tpuhevc_torch.profile_wave [--width 416 --height 240
-        --frames 3]
+        --frames 3 --bit-depth 8]
 
 Builds `kernels/csrc/intra_wave.cu` as it is and three variants with
 phases cut out of each wave (`no_cost`: no 35-mode costs, phase 2, so
@@ -15,7 +15,9 @@ memory), the median CUDA-event time of 7 launches, and per wave (the
 dependency depth), with the card's name and power limit. The full
 kernel must equal its plain version; the variants compute something else
 and are only timed. The differences between rows are the phases' shares
-of a wave. Needs a CUDA device and nvcc.
+of a wave. At --bit-depth 10 the clip's samples are x 4 plus 2, 1, 3 (the
+10-bit clip of `chip_smoke.py`) and the kernel's 10-bit variant runs.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -84,21 +86,26 @@ def main(argv=None) -> int:
     ap.add_argument("--cluster", type=int, choices=(1, 4), default=None,
                     help="blocks a frame where the recon is on chip "
                          "(default the wrapper's choice)")
+    ap.add_argument("--bit-depth", type=int, choices=(8, 10), default=8)
     args = ap.parse_args(argv)
     dev = require_cuda()
     gpu = gpu_line()
-    w, h, n = args.width, args.height, args.frames
-    cfg = EncoderConfig(sps=SeqParams(width=w, height=h), qp=32,
-                        intra_period=1, intra_qt=False)
+    w, h, n, bd = args.width, args.height, args.frames, args.bit_depth
+    cfg = EncoderConfig(sps=SeqParams(width=w, height=h, bit_depth=bd),
+                        qp=32, intra_period=1, intra_qt=False)
     clip = _Clip(w, h, n).frames
+    if bd == 10:
+        clip = [[p.astype(np.int32) * 4 + o for p, o in zip(f, (2, 1, 3))]
+                for f in clip]
     planes = [torch.as_tensor(np.stack([f[i] for f in clip]).astype(np.int32),
                               device=dev) for i in range(3)]
     geo = wave_tables(w, h, cfg.sps.log2_ctu, dev)
     steps, bmax = geo.slots.shape
-    on_chip, cluster, smem = iw.wave_variant(w, h, steps, bmax)
+    on_chip, cluster, smem = iw.wave_variant(w, h, steps, bmax, bd)
     if on_chip and args.cluster:
         cluster = args.cluster
-    ref = iw.intra_wave_plain(*planes, geo, cfg.qp, _sqlam_fp(cfg))
+    ref = iw.intra_wave_plain(*planes, geo, cfg.qp, _sqlam_fp(cfg),
+                              bit_depth=bd)
     libs = _build_variants()
     init_args = iw.table_arrays()
     for name, lib in libs.items():
@@ -112,7 +119,8 @@ def main(argv=None) -> int:
 
         def run():
             kbuild.check(iw.launch(fn, planes, geo, outs, cfg.qp,
-                                   _sqlam_fp(cfg), on_chip, cluster), name)
+                                   _sqlam_fp(cfg), on_chip, cluster, bd),
+                         name)
 
         run()
         torch.cuda.synchronize()
@@ -129,7 +137,7 @@ def main(argv=None) -> int:
             b.synchronize()
             times.append(a.elapsed_time(b))
         ms = statistics.median(times)
-        print(f"intra_wave {name:9s} {w}x{h} x {n} (recon "
+        print(f"intra_wave {name:9s} {w}x{h} x {n} at {bd} bits (recon "
               f"{'on chip' if on_chip else 'in device memory'}, {smem} bytes "
               f"of shared memory, {cluster} blocks a frame): {ms:.4f} ms a "
               f"launch, "
